@@ -1,0 +1,80 @@
+"""State carried across from the reference package.
+
+Functions that take the reference's state as plain numpy arrays and give
+this package's objects, so an index or a snapshot built by one stack can
+be served by the other.  Nothing of the reference is imported here: a
+caller pulls the arrays out of its objects with ``np.asarray`` and hands
+them in.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+from .core.hlindex import HLIndex
+from .core.hypergraph import Hypergraph
+from .core.query import DeviceSnapshot
+from .device import DeviceLike
+
+__all__ = ["hypergraph_from_arrays", "hlindex_from_arrays",
+           "snapshot_from_arrays"]
+
+
+def _int64(a) -> np.ndarray:
+    return np.array(a, dtype=np.int64)          # always a copy
+
+
+def hypergraph_from_arrays(n: int, e_ptr, e_idx, v_ptr, v_idx) -> Hypergraph:
+    """A ``Hypergraph`` from its dual-CSR arrays (edge -> vertices and
+    vertex -> edges), checked for consistent sizes."""
+    e_ptr, e_idx = _int64(e_ptr), _int64(e_idx)
+    v_ptr, v_idx = _int64(v_ptr), _int64(v_idx)
+    m = int(e_ptr.size - 1)
+    if m < 0 or v_ptr.size != int(n) + 1:
+        raise ValueError(
+            f"CSR offsets do not match n={n}: e_ptr has {e_ptr.size} "
+            f"entries, v_ptr has {v_ptr.size}")
+    if e_idx.size != v_idx.size or e_idx.size != int(e_ptr[-1]) \
+            or v_idx.size != int(v_ptr[-1]):
+        raise ValueError("CSR index arrays do not match their offsets")
+    return Hypergraph(n=int(n), m=m, e_ptr=e_ptr, e_idx=e_idx,
+                      v_ptr=v_ptr, v_idx=v_idx)
+
+
+def hlindex_from_arrays(h: Hypergraph, rank, perm,
+                        labels_edge: Sequence, labels_rank: Sequence,
+                        labels_s: Sequence, dual_u: Sequence,
+                        dual_s: Sequence,
+                        stats: Optional[Dict[str, float]] = None) -> HLIndex:
+    """An ``HLIndex`` over ``h`` from per-vertex label rows and
+    per-hyperedge dual rows (lists of arrays, as the reference keeps
+    them)."""
+    if not (len(labels_edge) == len(labels_rank) == len(labels_s) == h.n):
+        raise ValueError(f"need one label row per vertex (n={h.n})")
+    if not (len(dual_u) == len(dual_s) == h.m):
+        raise ValueError(f"need one dual row per hyperedge (m={h.m})")
+    return HLIndex(h=h, rank=_int64(rank), perm=_int64(perm),
+                   labels_edge=[_int64(a) for a in labels_edge],
+                   labels_rank=[_int64(a) for a in labels_rank],
+                   labels_s=[_int64(a) for a in labels_s],
+                   dual_u=[_int64(a) for a in dual_u],
+                   dual_s=[_int64(a) for a in dual_s],
+                   stats=dict(stats or {}))
+
+
+def snapshot_from_arrays(ranks, svals, lengths, backend: str = "hl-index",
+                         version: int = 0, *,
+                         device: DeviceLike = None) -> DeviceSnapshot:
+    """A ``DeviceSnapshot`` from padded label arrays (``ranks`` /
+    ``svals`` [n, Lmax], ``lengths`` [n]) landed on ``device``
+    (``None`` = ``"cuda"``)."""
+    ranks, svals = np.asarray(ranks), np.asarray(svals)
+    lengths = np.asarray(lengths)
+    if ranks.ndim != 2 or ranks.shape != svals.shape \
+            or lengths.shape != (ranks.shape[0],):
+        raise ValueError(
+            f"padded label arrays disagree: ranks{ranks.shape} "
+            f"svals{svals.shape} lengths{lengths.shape}")
+    return DeviceSnapshot.from_padded(ranks, svals, lengths, backend,
+                                      int(version), device=device)

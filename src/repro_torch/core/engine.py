@@ -1,0 +1,706 @@
+"""Unified reachability engine API: one query surface, pluggable backends.
+
+The paper's two query problems — ``MR(u, v)`` (Problem 2, Algorithm 5) and
+``u ~s~> v`` (Problem 1) — are answered behind one protocol:
+
+    engine = build(h, backend="hl-index")     # or "auto"
+    engine.mr(u, v)                           # scalar MR
+    engine.s_reach(u, v, s)                   # scalar s-reachability
+    engine.mr_batch(us, vs)                   # [Q] MR, vectorized
+    engine.s_reach_batch(us, vs, s)           # [Q] bool
+    engine.snapshot()                         # device-resident padded form
+
+Backends register themselves under a string key (``register_backend``);
+``build(h, backend="auto")`` consults a planner that picks a backend from
+the graph size, the label mass, the expected query batch shape, and —
+when a ``mesh`` is passed — the device topology.
+
+``DeviceSnapshot`` generalizes ``HLIndex.as_padded``: any backend that can
+express its structure as per-vertex sorted (hub, s) label rows exports the
+same padded tensors, and every snapshot is served by the same batched join
+(``batched_mr``, or the ``label_join`` CUDA kernel with ``use_kernels``).
+Backends with no label form (the MST forest) raise ``SnapshotUnsupported``
+— their batch paths run through their own engines.
+
+Counterpart of ``repro/core/engine.py``, same names in the same order.
+What this module holds today is the main path: the protocol, the shared
+base, the registry, the planner, ``build``, and the backends ``hl-index``,
+``hl-index-basic`` and ``mst-oracle``.  Not ported yet, and how each fails:
+
+* ``update()`` on a backend that supports it raises ``NotImplementedError``
+  (roadmap item A6: scoped maintenance); the static ``mst-oracle`` raises
+  ``UpdateUnsupported`` as in the reference.  Versioning, dirty rows and
+  snapshot patching are here already, so A6 only adds the update itself.
+* the workload ops (witness / s_reach_k / mr_set / top_s / s_distance)
+  raise ``WorkloadUnsupported`` on every backend (roadmap item A8).
+* ``build(restore=...)`` raises ``NotImplementedError`` (roadmap item A9).
+* sharded construction (``construction="sharded"``, or ``"auto"`` with a
+  multi-device mesh / ``workers`` / ``num_shards``) raises
+  ``NotImplementedError`` (roadmap item A10).
+* a backend name that is not ported yet is an "unknown backend"
+  ``ValueError`` listing those that are.
+
+Device rule: ``build`` and the device-landing backends take
+``device=None``, which means ``"cuda"`` and raises on a host without a CUDA
+device; pass ``device="cpu"`` to run on the host.  ``mr_batch`` takes host
+ids and returns host answers: one host->device copy of the id pairs, one
+device->host copy of the ``[Q]`` answers, and no other synchronisation.
+"""
+from __future__ import annotations
+
+import functools
+import os
+from typing import (Callable, Dict, FrozenSet, List, Optional, Protocol,
+                    Tuple, runtime_checkable)
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .hypergraph import Hypergraph
+from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
+                      pad_label_rows)
+from .minimal import minimize
+from .query import DeviceSnapshot, KernelSnapshot, mr_query, s_reach_query
+from .baselines import MSTOracle
+
+__all__ = [
+    "ReachabilityEngine", "DeviceSnapshot", "KernelSnapshot",
+    "SnapshotUnsupported",
+    "UpdateUnsupported", "WorkloadUnsupported",
+    "register_backend", "available_backends", "plan_backend",
+    "build", "validate_batch",
+    "HLIndexEngine", "HLIndexBasicEngine", "MSTOracleEngine",
+    "SINGLE_DEVICE_CLOSURE_BUDGET", "CONSTRUCTION_MODES",
+]
+
+
+def validate_batch(us, vs, n: int):
+    """Shared input validation for every backend's ``mr_batch`` /
+    ``s_reach_batch``: ``us`` / ``vs`` must be equal-length 1-D integer
+    sequences of in-range vertex ids.  Returns them as int64 numpy
+    arrays, so every entry point raises the same clear error on
+    malformed input.
+    """
+    us = np.asarray(us)
+    vs = np.asarray(vs)
+    if us.ndim != 1 or vs.ndim != 1:
+        raise ValueError(
+            f"query batch must be 1-D sequences of vertex ids; got shapes "
+            f"us{us.shape} vs{vs.shape}")
+    if us.shape[0] != vs.shape[0]:
+        raise ValueError(
+            f"query batch length mismatch: len(us)={us.shape[0]} != "
+            f"len(vs)={vs.shape[0]}")
+    for name, a in (("us", us), ("vs", vs)):
+        if a.size and not np.issubdtype(a.dtype, np.integer):
+            raise ValueError(
+                f"query batch {name} must have an integer dtype; got "
+                f"{a.dtype}")
+    us = us.astype(np.int64)
+    vs = vs.astype(np.int64)
+    for name, a in (("us", us), ("vs", vs)):
+        if a.size and (int(a.min()) < 0 or int(a.max()) >= n):
+            bad = int(a.min()) if int(a.min()) < 0 else int(a.max())
+            raise IndexError(
+                f"query batch {name} contains vertex id {bad}, out of "
+                f"range [0, {n})")
+    return us, vs
+
+# Per-device byte budget for the dense closure working set (operand plus
+# the two gathered panels, f32).  When a multi-device mesh is passed and
+# 12·m² exceeds this, the auto planner routes to the "sharded" backend.
+SINGLE_DEVICE_CLOSURE_BUDGET = 256 * 2**20
+
+class SnapshotUnsupported(NotImplementedError):
+    """Raised by backends whose structure has no padded label form."""
+
+
+class UpdateUnsupported(NotImplementedError):
+    """Raised by backends whose structure cannot absorb hyperedge
+    updates (``update_capability == "unsupported"``) — rebuild the
+    engine via ``build`` instead."""
+
+
+class WorkloadUnsupported(NotImplementedError):
+    """Raised by backends that do not serve a workload op (witness /
+    s_reach_k / mr_set / top_s / s_distance).  No backend of this package
+    serves one yet (roadmap item A8)."""
+
+
+# ---------------------------------------------------------------------------
+# Protocol + shared scaffolding
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class ReachabilityEngine(Protocol):
+    """The one query surface every backend serves.
+
+    Semantics (fixed across backends, cross-validated against the
+    ``mst-oracle`` reference in tests):
+
+    * ``mr(u, v)`` — Problem 2: the largest ``s`` such that an s-walk
+      joins vertices ``u`` and ``v``.  0 means unreachable at every
+      ``s >= 1``; for ``u == v`` it is the max incident hyperedge size
+      (a vertex trivially reaches itself through any incident edge).
+      Vertices with no incident hyperedge answer 0 everywhere.
+    * ``s_reach(u, v, s)`` — Problem 1: is there an s-walk joining
+      ``u`` and ``v``?  Always equals ``mr(u, v) >= s``.
+    * ``mr_batch(us, vs) -> int array [Q]`` / ``s_reach_batch(us, vs, s)
+      -> bool array [Q]`` — vectorized forms; ``us``/``vs`` are equal
+      length sequences of vertex ids, answers are numpy arrays.
+    * ``snapshot() -> DeviceSnapshot`` — the padded device-resident label
+      form (see ``repro_torch.core.query``), or raises
+      ``SnapshotUnsupported`` for structures with no label form.
+    * ``update(inserts, deletes)`` — mutate the engine in place so it
+      serves the edited hypergraph, or raise ``UpdateUnsupported``.
+      ``update_capability`` ∈ {"scoped", "incremental", "rebuild",
+      "unsupported"} declares how; ``version`` counts successful updates
+      so snapshot staleness is detectable.  (Not ported yet: see the
+      module docstring.)
+    * the workload ops ``mr_witness``, ``s_reach_k``, ``mr_set``,
+      ``mr_from_set``, ``top_s``, ``s_distance`` — gated by
+      ``workload_capability``; anything outside it raises
+      ``WorkloadUnsupported``.
+    """
+
+    name: str
+    update_capability: str
+    workload_capability: FrozenSet[str]
+
+    def mr(self, u: int, v: int) -> int: ...
+    def s_reach(self, u: int, v: int, s: int) -> bool: ...
+    def mr_batch(self, us, vs) -> np.ndarray: ...
+    def s_reach_batch(self, us, vs, s: int) -> np.ndarray: ...
+    def snapshot(self) -> DeviceSnapshot: ...
+    def update(self, inserts=(), deletes=()) -> None: ...
+    def mr_witness(self, u: int, v: int): ...
+    def s_reach_k(self, u: int, v: int, s: int, k: int) -> bool: ...
+    def mr_set(self, us, vs) -> int: ...
+    def mr_from_set(self, us, targets) -> np.ndarray: ...
+    def top_s(self, u: int, k: int) -> Tuple[np.ndarray, np.ndarray]: ...
+    def s_distance(self, u: int, v: int, s: int) -> int: ...
+
+
+class _EngineBase:
+    """Default implementations: scalar fallbacks and mr-derived s-reach.
+
+    Backends override whichever paths their structure accelerates; the
+    semantics (``s_reach(u, v, s) == (mr(u, v) >= s)``) are fixed here so
+    every backend answers identically.
+    """
+
+    name = "base"
+    update_capability = "unsupported"
+    # which workload ops this backend serves; empty = the paper's two
+    # problems only (every backend, until roadmap item A8)
+    workload_capability: FrozenSet[str] = frozenset()
+
+    def __init__(self, h: Hypergraph):
+        self.h = h
+        self.version = 0
+        # label rows changed since the cached snapshot was derived:
+        # empty = snapshot current / patchable as-is, None = all rows
+        # (unknown or whole-structure rebuild)
+        self._dirty_rows: Optional[np.ndarray] = np.empty(0, np.int64)
+        self.last_snapshot_refresh_rows = 0
+        # kernel-path batch queries (CUDA label join); flipped by the
+        # snapshot-serving backends' ``build(use_kernels=True)``
+        self.use_kernels = False
+        self._kernel_view: Optional[KernelSnapshot] = None
+
+    @classmethod
+    def build(cls, h: Hypergraph, **opts) -> "ReachabilityEngine":
+        raise NotImplementedError
+
+    def mr(self, u: int, v: int) -> int:
+        raise NotImplementedError
+
+    def _check_vertex_ids(self, *ids) -> None:
+        """Scalar-path counterpart of ``validate_batch``: backends whose
+        ``mr`` / ``s_reach`` index host structures directly call this
+        first, so an out-of-range id raises the same ``IndexError`` as
+        the batch paths instead of a Python negative index silently
+        answering from the wrong row."""
+        for x in ids:
+            if not 0 <= int(x) < self.h.n:
+                raise IndexError(
+                    f"vertex id {int(x)} out of range [0, {self.h.n})")
+
+    def update(self, inserts=(), deletes=()) -> None:
+        """Gate on capability as the reference does; the update itself
+        (validate + canonicalize the batch, apply it, ``_graph_changed``)
+        arrives with scoped maintenance."""
+        if self.update_capability == "unsupported":
+            raise UpdateUnsupported(
+                f"backend {self.name!r} does not maintain its structure "
+                f"under hyperedge updates; build a fresh engine instead")
+        raise NotImplementedError(
+            f"update() is not ported yet for backend {self.name!r} "
+            f"(roadmap item A6: scoped index maintenance); build a fresh "
+            f"engine on the edited hypergraph instead")
+
+    def _graph_changed(self, new_h: Hypergraph, dirty_rows=None) -> None:
+        """Install the edited graph and bump ``version``.  ``dirty_rows``
+        names the label rows the update changed (accumulated across
+        updates): the cached snapshot becomes stale but is *kept* as the
+        patch basis for the next ``snapshot()``.  ``None`` means all
+        rows — the next derivation is full anyway, so the stale snapshot
+        is dropped immediately rather than held through the rebuild."""
+        self.h = new_h
+        self.version += 1
+        if dirty_rows is None:
+            self._dirty_rows = None
+            if getattr(self, "_snap", None) is not None:
+                self._snap = None
+        elif self._dirty_rows is not None:
+            self._dirty_rows = np.union1d(
+                self._dirty_rows, np.asarray(dirty_rows, np.int64))
+
+    def dirty_rows(self) -> Optional[np.ndarray]:
+        """Vertex rows whose padded label content may differ between the
+        cached (stale) snapshot — ``snapshot_cache()`` — and the one the
+        next ``snapshot()`` call returns; ``None`` = all rows / unknown.
+        Resets to empty once ``snapshot()`` re-derives.  The delta is
+        only meaningful relative to ``snapshot_cache()``, so consumers
+        holding an older copy must check identity against it first."""
+        return self._dirty_rows
+
+    def snapshot_cache(self) -> Optional[DeviceSnapshot]:
+        """The currently cached snapshot object (possibly stale), or
+        ``None``.  ``dirty_rows()`` is the row delta between exactly
+        this object and the next ``snapshot()`` result."""
+        return getattr(self, "_snap", None)
+
+    def _snapshot_current(self) -> bool:
+        snap = getattr(self, "_snap", None)
+        return snap is not None and snap.version == self.version
+
+    def snapshot_delta(self, basis: Optional[DeviceSnapshot] = None,
+                       ) -> Tuple[DeviceSnapshot, Optional[np.ndarray]]:
+        """The snapshot fan-out hook: one call returning ``(fresh
+        snapshot, dirty-row delta relative to basis)`` — what a consumer
+        holding device-resident copies landed from ``basis`` needs to
+        bring *all* of them current with row-wise patches instead of
+        full re-lands.
+
+        ``basis`` is the snapshot the caller's copies derive from.
+        The delta is ``None`` (re-land in full) when it is unknowable:
+        no basis, the basis is not the engine's cached snapshot object
+        (another consumer re-derived in between, resetting the delta),
+        or the update was a whole-structure rebuild.  The dirty set must
+        be captured *before* ``snapshot()`` re-derives and resets it,
+        which is exactly the ordering this method encapsulates.  Raises
+        ``SnapshotUnsupported`` for backends with no snapshot form."""
+        dirty = (self.dirty_rows()
+                 if basis is not None and self.snapshot_cache() is basis
+                 else None)
+        snap = self.snapshot()
+        if snap is basis:
+            dirty = np.empty(0, np.int64)      # already current: patch nothing
+        return snap, dirty
+
+    def _query_snapshot(self):
+        """The snapshot view batch queries run through: the plain
+        ``DeviceSnapshot`` (tensor-op ``batched_mr``), or — with
+        ``use_kernels`` — a cached ``KernelSnapshot`` wrapper that
+        answers through the CUDA label-join kernel.  The wrapper is
+        rebuilt whenever ``snapshot()`` hands back a different object
+        (update / patch / re-derivation), so it can never serve stale
+        label rows."""
+        snap = self.snapshot()
+        if not self.use_kernels:
+            return snap
+        kv = self._kernel_view
+        if kv is None or kv.base is not snap:
+            kv = KernelSnapshot(snap)
+            self._kernel_view = kv
+        return kv
+
+    def s_reach(self, u: int, v: int, s: int) -> bool:
+        return self.mr(u, v) >= s
+
+    def mr_batch(self, us, vs) -> np.ndarray:
+        us, vs = validate_batch(us, vs, self.h.n)
+        return np.array([self.mr(int(u), int(v)) for u, v in zip(us, vs)],
+                        np.int64)
+
+    def s_reach_batch(self, us, vs, s: int) -> np.ndarray:
+        return self.mr_batch(us, vs) >= s
+
+    def snapshot(self) -> DeviceSnapshot:
+        raise SnapshotUnsupported(
+            f"backend {self.name!r} has no padded device form; query it "
+            f"through mr_batch / s_reach_batch instead")
+
+    # -- workload ops (not ported yet: roadmap item A8) --------------------
+
+    def _require_workload(self, op: str) -> None:
+        if op not in self.workload_capability:
+            raise WorkloadUnsupported(
+                f"backend {self.name!r} does not serve workload op "
+                f"{op!r}; the workload subsystem is not ported yet "
+                f"(roadmap item A8)")
+
+    def mr_witness(self, u: int, v: int):
+        self._require_workload("witness")
+
+    def s_reach_k(self, u: int, v: int, s: int, k: int) -> bool:
+        self._require_workload("s_reach_k")
+
+    def mr_set(self, us, vs) -> int:
+        self._require_workload("mr_set")
+
+    def mr_from_set(self, us, targets) -> np.ndarray:
+        self._require_workload("mr_set")
+
+    def top_s(self, u: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        self._require_workload("top_s")
+
+    def s_distance(self, u: int, v: int, s: int) -> int:
+        self._require_workload("s_distance")
+
+    def nbytes(self) -> Optional[int]:
+        """Resident index size in bytes, if the backend tracks one."""
+        return None
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_backend(name: str, builder: Optional[Callable] = None):
+    """Register ``builder`` (a class with ``.build(h, **opts)``) under
+    ``name``.  Usable as a decorator: ``@register_backend("hl-index")``."""
+    def deco(cls):
+        _REGISTRY[name] = cls
+        return cls
+    if builder is not None:
+        return deco(builder)
+    return deco
+
+
+def available_backends() -> List[str]:
+    """Sorted registry keys (excludes the virtual ``"auto"``)."""
+    return sorted(_REGISTRY)
+
+
+def plan_backend(h: Hypergraph, batch_hint: Optional[int] = None, *,
+                 mesh=None, device_budget_bytes: Optional[int] = None) -> str:
+    """Pick a backend from graph size, label mass, query batch shape, and
+    (optionally) the device topology.
+
+    The policy is the reference's, unchanged, so both packages name the
+    same backend on the same inputs.  It may therefore name a backend
+    that ``build`` cannot build yet (``sharded``, ``closure``,
+    ``frontier``, ``online``): ``build(backend="auto")`` then fails with
+    the "unknown backend" error that lists the ported ones.
+
+    Args:
+      h: the hypergraph to serve.
+      batch_hint: expected query batch size (None/0 = trickle queries).
+      mesh: an optional device-mesh description: any object with
+        ``devices.size`` (device count) and ``axis_names``.  A mesh with
+        more than one device opts the workload into distribution: if the
+        dense closure working set (~12·m² bytes: operand + two gathered
+        f32 panels) exceeds ``device_budget_bytes``, the planner picks
+        ``sharded``.  A unit mesh (1 device) never routes to ``sharded``.
+      device_budget_bytes: per-device memory budget for the closure
+        working set; defaults to ``SINGLE_DEVICE_CLOSURE_BUDGET``.
+
+    Policy:
+      * multi-device mesh + closure beyond one device -> ``sharded``;
+      * tiny line graphs with real batches -> dense semiring ``closure``;
+      * anything where HL-index construction is tractable -> ``hl-index``
+        (the paper's answer: microsecond merge-joins, batch via
+        snapshot).  On a multi-device mesh the tractability ceiling
+        scales with the device count capped by the host's cores, as
+        sharded construction divides the work;
+      * huge graphs, batched workload -> ``frontier``;
+      * huge graphs, trickle queries -> ``online``.
+    """
+    q = int(batch_hint) if batch_hint else 0
+    if h.m == 0:
+        return "hl-index"
+    devices = int(mesh.devices.size) if mesh is not None else 1
+    if devices > 1 and len(mesh.axis_names) >= 2:
+        # sharded needs two mesh axes to 2-D block-shard over; a 1-D mesh
+        # falls through to the single-device policy rather than routing
+        # to a backend that cannot be built on it
+        budget = (SINGLE_DEVICE_CLOSURE_BUDGET if device_budget_bytes is None
+                  else int(device_budget_bytes))
+        if 12 * h.m * h.m > budget:
+            return "sharded"
+    if h.m <= 256 and q >= 64:
+        return "closure"
+    # label mass proxy: construction walks ~nnz * avg-degree host work;
+    # sharded construction divides it across workers, so the budget
+    # scales with the parallelism actually deliverable — the mesh device
+    # count capped by the host's cores
+    parallel = min(devices, os.cpu_count() or 1) if devices > 1 else 1
+    label_budget = 2e6 * max(parallel, 1)
+    if h.nnz * max(float(h.vertex_degrees.mean()) if h.n else 0.0, 1.0) \
+            <= label_budget:
+        return "hl-index"
+    if q >= 256:
+        return "frontier"
+    return "online"
+
+
+def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
+          restore=None, batch_hint: Optional[int] = None, mesh=None,
+          device: DeviceLike = None, **opts) -> "ReachabilityEngine":
+    """Build a reachability engine over ``h``.
+
+    Args:
+      h: the hypergraph to serve.
+      backend: a registry key (see ``available_backends()``) or
+        ``"auto"`` to let ``plan_backend`` choose.
+      restore: path to a persisted engine.  Not ported yet: raises
+        ``NotImplementedError`` (roadmap item A9).
+      batch_hint: expected query batch size, consumed by the planner.
+      mesh: optional device-mesh description, consulted by the planner
+        (see ``plan_backend``) and forwarded to the HL-index backends,
+        where a multi-device mesh asks for sharded construction.
+      device: where device-resident structures land.  ``None`` means
+        ``"cuda"``; on a host without a CUDA device that raises — pass
+        ``device="cpu"`` to run on the host.
+      **opts: backend-specific options, passed to the backend's
+        ``build`` (e.g. ``minimize_labels=False`` or ``use_kernels=True``
+        for "hl-index", ``device_budget_bytes`` for the planner).
+    """
+    if restore is not None:
+        if h is not None:
+            raise ValueError(
+                "build(restore=...) loads a persisted engine; passing a "
+                "hypergraph too is ambiguous — use one or the other")
+        raise NotImplementedError(
+            "build(restore=...) is not ported yet (roadmap item A9: the "
+            "persistent index store)")
+    if h is None:
+        raise ValueError("build() needs a hypergraph (or restore=<path>)")
+    dev = resolve_device(device)
+    budget = opts.pop("device_budget_bytes", None)
+    if backend == "auto":
+        backend = plan_backend(h, batch_hint, mesh=mesh,
+                               device_budget_bytes=budget)
+    try:
+        cls = _REGISTRY[backend]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {backend!r}; available: {available_backends()}"
+        ) from None
+    if mesh is not None and backend in _MESH_AWARE_BACKENDS:
+        opts.setdefault("mesh", mesh)
+    return cls.build(h, device=dev, **opts)
+
+
+# Backends whose ``build`` consumes a device mesh: the HL-index backends
+# shard *construction* over it ("sharded" joins the set with its backend).
+_MESH_AWARE_BACKENDS = frozenset({"hl-index", "hl-index-basic"})
+
+
+# ---------------------------------------------------------------------------
+# HL-index backends (the paper's structure)
+# ---------------------------------------------------------------------------
+
+def _resolve_construction(construction: str, mesh, workers,
+                          num_shards) -> str:
+    """The one auto-resolution rule both HL-index backends share:
+    ``"auto"`` means sharded construction iff a multi-device mesh,
+    ``workers``, or ``num_shards`` asks for it; anything else must be a
+    ``CONSTRUCTION_MODES`` key.  Sharded construction is not ported yet,
+    so resolving to it raises ``NotImplementedError``."""
+    if construction == "auto":
+        construction = ("sharded"
+                        if (workers or num_shards
+                            or (mesh is not None
+                                and int(mesh.devices.size) > 1))
+                        else "serial")
+    if construction == "sharded" and construction not in CONSTRUCTION_MODES:
+        raise NotImplementedError(
+            "sharded HL-index construction is not ported yet (roadmap "
+            "item A10); use construction='serial' without a multi-device "
+            "mesh, workers or num_shards")
+    if construction not in CONSTRUCTION_MODES:
+        raise ValueError(
+            f"unknown construction {construction!r}; available: "
+            f"{sorted(CONSTRUCTION_MODES)}")
+    return construction
+
+@register_backend("hl-index")
+class HLIndexEngine(_EngineBase):
+    """Algorithm 3 (+ Algorithm 4 minimization) served by Algorithm 5
+    merge-joins; batches run on the padded device snapshot.  Declares
+    component-scoped updates like the reference; the update itself is
+    roadmap item A6."""
+
+    name = "hl-index"
+    update_capability = "scoped"
+
+    def __init__(self, h: Hypergraph, idx: HLIndex,
+                 builder: Callable[[Hypergraph], HLIndex] = build_fast,
+                 minimizer: Optional[Callable[[HLIndex], HLIndex]] = None,
+                 *, device: DeviceLike = None):
+        super().__init__(h)
+        self.device = resolve_device(device)
+        self.idx = idx
+        self.construction = "serial"     # overwritten by ``build``
+        self._builder = builder          # scoped-update (re)construction
+        self._minimizer = minimizer      # applied to the sub-index too
+        self._snap: Optional[DeviceSnapshot] = None
+
+    @classmethod
+    def build(cls, h: Hypergraph, *, minimize_labels: bool = True,
+              index: Optional[HLIndex] = None,
+              construction: str = "auto", mesh=None,
+              workers: Optional[int] = None,
+              num_shards: Optional[int] = None,
+              use_kernels: bool = False,
+              device: DeviceLike = None) -> "HLIndexEngine":
+        """``index`` reuses a prebuilt (unminimized) HL-index instead of
+        running construction again — e.g. to derive the minimized engine
+        from an ablation engine's labels.
+
+        ``construction`` picks the builder from ``CONSTRUCTION_MODES``
+        (``"serial"``: Algorithm 3 on one host thread); ``"auto"`` asks
+        for sharded construction iff a multi-device ``mesh``,
+        ``workers``, or ``num_shards`` is given, which is not ported yet.
+
+        ``use_kernels`` answers batch queries through the hand-written
+        ``label_join`` CUDA kernel (``KernelSnapshot``) instead of the
+        tensor-op ``batched_mr`` — answers are byte-identical either way.
+
+        ``device`` is where the snapshot lands: ``None`` means ``"cuda"``
+        and raises on a host without a CUDA device.
+        """
+        device = resolve_device(device)
+        construction = _resolve_construction(construction, mesh, workers,
+                                             num_shards)
+        minimizer = minimize if minimize_labels else None
+        builder = build_fast
+        idx = index if index is not None else build_fast(h)
+        if minimizer is not None:
+            idx = minimizer(idx)
+        eng = cls(h, idx, builder=builder, minimizer=minimizer,
+                  device=device)
+        eng.construction = construction
+        eng.use_kernels = bool(use_kernels)
+        return eng
+
+    def mr(self, u: int, v: int) -> int:
+        self._check_vertex_ids(u, v)
+        return mr_query(self.idx, int(u), int(v))
+
+    def s_reach(self, u: int, v: int, s: int) -> bool:
+        self._check_vertex_ids(u, v)
+        return s_reach_query(self.idx, int(u), int(v), int(s))
+
+    def _device_pairs(self, us, vs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Validated id pairs on the engine's device, int64, moved in one
+        host->device copy."""
+        us, vs = validate_batch(us, vs, self.h.n)
+        pairs = torch.from_numpy(np.stack([us, vs])).to(self.device)
+        return pairs[0], pairs[1]
+
+    def mr_batch(self, us, vs) -> np.ndarray:
+        us, vs = self._device_pairs(us, vs)
+        return self._query_snapshot().mr(us, vs).cpu().numpy()
+
+    def s_reach_batch(self, us, vs, s: int) -> np.ndarray:
+        us, vs = self._device_pairs(us, vs)
+        return self._query_snapshot().s_reach(us, vs, int(s)).cpu().numpy()
+
+    def snapshot(self) -> DeviceSnapshot:
+        """Current padded device form.  After a scoped graph change the
+        stale snapshot is patched: only the rows marked dirty are
+        re-padded and copied over a clone of the old tensors
+        (byte-identical to a from-scratch derivation); a full-rebuild
+        change re-derives whole.
+        """
+        if self._snapshot_current():
+            return self._snap
+        basis, dirty = self._snap, self._dirty_rows
+        if basis is None or dirty is None:
+            snap = DeviceSnapshot.from_hlindex(self.idx, self.name,
+                                               version=self.version,
+                                               device=self.device)
+            self.last_snapshot_refresh_rows = self.h.n
+        else:
+            snap = self._patched_snapshot(basis, dirty)
+            self.last_snapshot_refresh_rows = int(dirty.size)
+        self._snap = snap
+        self._dirty_rows = np.empty(0, np.int64)
+        return snap
+
+    def _patched_snapshot(self, basis: DeviceSnapshot,
+                          dirty: np.ndarray) -> DeviceSnapshot:
+        idx, n = self.idx, self.h.n
+        lengths = np.zeros(n, np.int64)
+        basis_n = int(basis.ranks.shape[0])
+        lengths[:basis_n] = basis.lengths.cpu().numpy()
+        lengths[dirty] = [idx.labels_s[int(u)].size for u in dirty]
+        lmax = int(lengths.max()) if n else 0
+        row_ranks, row_svals, row_lengths = pad_label_rows(
+            [idx.labels_rank[int(u)] for u in dirty],
+            [idx.labels_s[int(u)] for u in dirty], pad_to=lmax)
+        return basis.patch_rows(dirty, row_ranks, row_svals, row_lengths,
+                                n=n, lmax=lmax, version=self.version,
+                                backend=self.name)
+
+    def nbytes(self) -> int:
+        return self.idx.nbytes()
+
+
+@register_backend("hl-index-basic")
+class HLIndexBasicEngine(HLIndexEngine):
+    """Algorithm 2 construction (no MCD/neighbor-index pruning, no
+    minimization) — the ablation baseline, same query paths."""
+
+    name = "hl-index-basic"
+
+    @classmethod
+    def build(cls, h: Hypergraph, *, cover_check: bool = True,
+              construction: str = "auto", mesh=None,
+              workers: Optional[int] = None,
+              num_shards: Optional[int] = None,
+              use_kernels: bool = False,
+              device: DeviceLike = None) -> "HLIndexBasicEngine":
+        device = resolve_device(device)
+        base = functools.partial(build_basic, cover_check=cover_check)
+        construction = _resolve_construction(construction, mesh, workers,
+                                             num_shards)
+        eng = cls(h, base(h), builder=base, device=device)
+        eng.construction = construction
+        eng.use_kernels = bool(use_kernels)
+        return eng
+
+
+# ---------------------------------------------------------------------------
+# Baseline backends
+# ---------------------------------------------------------------------------
+
+@register_backend("mst-oracle")
+class MSTOracleEngine(_EngineBase):
+    """Maximum-spanning-forest bottleneck oracle — the independent exact
+    reference the cross-validation suite pins every backend against.
+    A host structure: it lands nothing on a device, so ``device`` is
+    accepted for a uniform ``build`` signature and not used."""
+
+    name = "mst-oracle"
+
+    def __init__(self, h: Hypergraph, oracle: MSTOracle):
+        super().__init__(h)
+        self.oracle = oracle
+
+    @classmethod
+    def build(cls, h: Hypergraph, *,
+              device: DeviceLike = None) -> "MSTOracleEngine":
+        return cls(h, MSTOracle(h))
+
+    def mr(self, u: int, v: int) -> int:
+        self._check_vertex_ids(u, v)
+        return self.oracle.mr(int(u), int(v))

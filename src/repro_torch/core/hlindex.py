@@ -1,0 +1,331 @@
+"""HL-index construction — Algorithms 2 (basic) and 3 (fast).
+
+The HL-index is a vertex-to-hyperedge (VTE) labeling: ``L(u) = {(e, s)}``
+meaning ``u ~s~> e``.  Construction processes hyperedges in descending
+importance (w(e) = Σ_{v∈e}|E(v)|², ties by smaller id) and runs a pruned
+bottleneck-Dijkstra from each root hyperedge.
+
+Algorithm 3's two optimizations, implemented faithfully:
+
+* **MCD** (maximum cover degree, Def. 8 / Lemmas 4-5): the transitive-cover
+  check collapses to comparing the candidate step overlap with ``MCD(root)``
+  — a scalar maintained for free as walks visit hyperedges.
+* **neighbor-index M** (Lemma 6): ``N(e)`` is computed exactly once, stored
+  sparsely, and entries proven redundant (``OD(e_u,e_v) ≤ WOD(walk to
+  e_u)``) are evicted eagerly, keeping the peak size far below the full
+  adjacency.
+
+Implementation notes vs the pseudocode (documented deviations):
+  * line 9 (``MCD(e_u) ← max(s, MCD(e_u))``) is skipped for the root pop —
+    otherwise ``MCD(e) = |e|`` would prune the root's own traversal; the
+    paper's text ("MCD(e) equals its lower bound when construction from e
+    starts") implies the root's MCD is read once, before the loop.
+  * pushes re-check ``O(e_v) > O(root)`` explicitly: ``M(e_u)`` may have
+    been initialized under an earlier root with higher importance, so the
+    line-17 exclusion alone does not cover the current root (Lemma 3 is
+    the justification either way).
+  * a stale-pop guard skips queue duplicates (first pop carries max s).
+
+Counterpart of ``repro/core/hlindex.py``: host-side numpy, same names in
+the same order, algorithms unchanged (label byte-identity rests on numpy's
+stable tie-breaking).  Sharded construction (``build_sharded`` and its
+worker pool) is roadmap item A10 and is not here yet, so
+``CONSTRUCTION_MODES`` lists the serial builder only.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .hypergraph import Hypergraph, NeighborCSR
+
+__all__ = ["HLIndex", "build_basic", "build_fast",
+           "pad_label_rows", "splice_rank", "CONSTRUCTION_MODES"]
+
+
+def splice_rank(old_rank: np.ndarray, old_to_new: np.ndarray,
+                sub_edges: np.ndarray, sub_rank: np.ndarray,
+                m_new: int) -> np.ndarray:
+    """Compose a global importance rank for a graph after scoped
+    maintenance: surviving hyperedges outside the rebuilt scope keep
+    their old rank *values* unchanged, hyperedges inside the scope get
+    fresh keys above every old value, ordered by sub-index importance.
+
+    Keeping old values (rather than recompacting to ``0..m_new-1``)
+    means the untouched vertices' ``labels_rank`` arrays stay valid
+    byte-for-byte and are reused by the splice without a regather — rank
+    is an opaque sort key everywhere it is consumed (merge-joins, padded
+    snapshots, ``perm = argsort(rank)``), never a dense array index, so
+    gaps are harmless.  Keys stay far below the int32 padding sentinel:
+    each update raises the maximum by at most the scope size, and
+    ``apply_updates`` falls back to a dense rebuild before ``2^30``.
+
+    ``sub_edges`` [m_sub] maps local sub-index hyperedge ids to new
+    global ids; ``sub_rank`` [m_sub] is the sub-index's own rank array.
+    Requires the scope to be a union of whole line-graph components —
+    then no label list ever mixes hubs from the two groups, so how the
+    groups interleave cannot affect any merge-join (rank is only ever
+    compared between hubs reachable from a common vertex), and any total
+    order per group yields a correct index (order only affects
+    minimality).
+    """
+    new_rank = np.full(m_new, -1, np.int64)
+    old_ids = np.nonzero(old_to_new >= 0)[0]
+    new_rank[old_to_new[old_ids]] = old_rank[old_ids]
+    base = int(old_rank.max()) + 1 if old_rank.size else 0
+    new_rank[sub_edges] = base + sub_rank
+    if (new_rank < 0).any():
+        raise ValueError("splice_rank: some hyperedge is neither a "
+                         "surviving edge nor in the scope")
+    return new_rank
+
+
+def pad_label_rows(row_ranks, row_svals, pad_to=None):
+    """Pack ragged per-vertex (rank, s) label rows into the padded dense
+    form consumed by the batched query engine: one concatenate + fancy-
+    index scatter, no per-row Python copies.
+
+    Returns (ranks [n, Lmax] int32 ascending with INT32_MAX padding,
+    svals [n, Lmax] int32 with 0 padding, lengths [n] int32).
+    """
+    n = len(row_ranks)
+    lengths = np.array([a.size for a in row_svals], np.int32)
+    lmax = int(pad_to if pad_to is not None else (lengths.max() if n else 0))
+    ranks = np.full((n, lmax), np.iinfo(np.int32).max, np.int32)
+    svals = np.zeros((n, lmax), np.int32)
+    total = int(lengths.sum())
+    if total and lmax:
+        rows = np.repeat(np.arange(n), lengths)
+        starts = np.cumsum(lengths, dtype=np.int64) - lengths
+        cols = np.arange(total, dtype=np.int64) - np.repeat(starts, lengths)
+        ranks[rows, cols] = np.concatenate(row_ranks)
+        svals[rows, cols] = np.concatenate(row_svals)
+    return ranks, svals, lengths
+
+
+@dataclasses.dataclass
+class HLIndex:
+    """Per-vertex labels, sorted by hyperedge importance rank (ascending)."""
+
+    h: Hypergraph
+    rank: np.ndarray                  # [m] importance rank of each hyperedge
+    perm: np.ndarray                  # [m] perm[rank] = hyperedge id
+    labels_edge: List[np.ndarray]     # per vertex: hyperedge ids
+    labels_rank: List[np.ndarray]     # per vertex: ranks (ascending — merge key)
+    labels_s: List[np.ndarray]        # per vertex: s values
+    dual_u: List[np.ndarray]          # per hyperedge: vertices (D(e))
+    dual_s: List[np.ndarray]          # per hyperedge: s values (non-ascending)
+    stats: Dict[str, float]
+
+    @property
+    def num_labels(self) -> int:
+        return int(sum(a.size for a in self.labels_s))
+
+    def label_dict(self, u: int) -> Dict[int, int]:
+        return {int(e): int(s) for e, s in
+                zip(self.labels_edge[u], self.labels_s[u])}
+
+    def nbytes(self) -> int:
+        """Index size: one (hyperedge id, s) pair per label, 4+4 bytes."""
+        return self.num_labels * 8
+
+    def as_padded(self, pad_to: Optional[int] = None):
+        """Dense padded export for the batched query engine.
+
+        Returns (ranks [n, Lmax] int32 ascending with INT32_MAX padding,
+        svals [n, Lmax] int32 with 0 padding, lengths [n]).
+        """
+        return pad_label_rows(self.labels_rank, self.labels_s, pad_to)
+
+
+class _Builder:
+    """Shared state for Algorithms 2/3."""
+
+    def __init__(self, h: Hypergraph):
+        self.h = h
+        self.rank = h.importance_order()
+        self.perm = np.argsort(self.rank)
+        self.sizes = h.edge_sizes
+        self.labels: List[List[Tuple[int, int]]] = [[] for _ in range(h.n)]
+        self.dual: List[List[Tuple[int, int]]] = [[] for _ in range(h.m)]
+        self.visited_v = np.full(h.n, -1, np.int64)
+        self.visited_e = np.full(h.m, -1, np.int64)
+        self.stats: Dict[str, float] = dict(pops=0, pushes=0, neighbor_inits=0,
+                                            m_peak_entries=0, m_total_inserts=0,
+                                            cover_checks=0)
+
+    def add_labels(self, root: int, e_u: int, s: int) -> None:
+        for u in self.h.edge(e_u):
+            u = int(u)
+            if self.visited_v[u] == root:
+                continue
+            self.visited_v[u] = root
+            self.labels[u].append((root, s))
+            self.dual[root].append((u, s))
+
+    def finish(self) -> HLIndex:
+        h, rank = self.h, self.rank
+        le, lr, ls = [], [], []
+        for u in range(h.n):
+            if self.labels[u]:
+                e = np.array([t[0] for t in self.labels[u]], np.int64)
+                s = np.array([t[1] for t in self.labels[u]], np.int64)
+            else:
+                e = np.empty(0, np.int64)
+                s = np.empty(0, np.int64)
+            r = rank[e] if e.size else np.empty(0, np.int64)
+            # construction visits roots in ascending rank, so r is sorted
+            le.append(e)
+            lr.append(r)
+            ls.append(s)
+        du, ds = [], []
+        for e in range(h.m):
+            if self.dual[e]:
+                du.append(np.array([t[0] for t in self.dual[e]], np.int64))
+                ds.append(np.array([t[1] for t in self.dual[e]], np.int64))
+            else:
+                du.append(np.empty(0, np.int64))
+                ds.append(np.empty(0, np.int64))
+        return HLIndex(h=h, rank=rank, perm=self.perm, labels_edge=le,
+                       labels_rank=lr, labels_s=ls, dual_u=du, dual_s=ds,
+                       stats=self.stats)
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 2 — basic construction (online transitive-cover detection)
+# ---------------------------------------------------------------------------
+
+def _covered_by_higher(h: Hypergraph, b: _Builder, root: int, e_u: int,
+                       s: int, neighbors: Optional[NeighborCSR]) -> bool:
+    """Line 8 of Alg. 2: ∃ e_w with O(e_w) < O(root), e_w ~s~> root and
+    e_w ~s~> e_u.  Both conditions hold iff the ≥s-threshold component of
+    ``e_u`` (which contains ``root`` — the current walk has WOD = s)
+    contains any hyperedge of higher importance.  BFS with early exit.
+    """
+    b.stats["cover_checks"] += 1
+    root_rank = b.rank[root]
+    seen = {e_u}
+    stack = [e_u]
+    while stack:
+        e = stack.pop()
+        if b.rank[e] < root_rank:
+            return True
+        nb, od = (neighbors.row(e) if neighbors is not None
+                  else h.neighbors_od(e))
+        for e2, w in zip(nb, od):
+            e2 = int(e2)
+            if int(w) >= s and e2 not in seen:
+                seen.add(e2)
+                stack.append(e2)
+    return False
+
+
+def build_basic(h: Hypergraph, cover_check: bool = True, *,
+                neighbors: Optional[NeighborCSR] = None) -> HLIndex:
+    """Algorithm 2.  ``cover_check=False`` degenerates to plain pruned
+    labeling (needed by ablation benchmarks).  ``neighbors`` is an
+    optional precomputed ``NeighborCSR`` — same traversal, no per-edge
+    neighborhood recomputation (output is identical either way)."""
+    b = _Builder(h)
+    rank, sizes = b.rank, b.sizes
+    for root in [int(x) for x in b.perm]:
+        q: List[Tuple[int, int]] = [(-int(sizes[root]), root)]
+        while q:
+            neg_s, e_u = heapq.heappop(q)
+            s = -neg_s
+            if b.visited_e[e_u] == root:
+                continue
+            b.visited_e[e_u] = root
+            b.stats["pops"] += 1
+            if cover_check and _covered_by_higher(h, b, root, e_u, s,
+                                                  neighbors):
+                continue
+            b.add_labels(root, e_u, s)
+            nb, od = (neighbors.row(e_u) if neighbors is not None
+                      else h.neighbors_od(e_u))
+            for e_v, w in zip(nb, od):
+                e_v, w = int(e_v), int(w)
+                if rank[e_v] <= rank[root]:          # line 14 (Lemma 3)
+                    continue
+                if b.visited_e[e_v] == root:         # line 15
+                    continue
+                heapq.heappush(q, (-min(s, w), e_v))
+                b.stats["pushes"] += 1
+    return b.finish()
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 3 — fast construction (MCD + neighbor-index M)
+# ---------------------------------------------------------------------------
+
+def build_fast(h: Hypergraph, *,
+               neighbors: Optional[NeighborCSR] = None) -> HLIndex:
+    """Algorithm 3.  ``neighbors`` is an optional precomputed
+    ``NeighborCSR`` used for the one-shot M initialization (Lemma 6)
+    instead of computing ``N(e)`` on the fly — the output is identical
+    either way (the CSR rows are byte-equal to ``neighbors_od``)."""
+    b = _Builder(h)
+    rank, sizes = b.rank, b.sizes
+    mcd = np.zeros(h.m, np.int64)
+    M: List[Optional[Dict[int, int]]] = [None] * h.m
+    m_entries = 0
+
+    for root in [int(x) for x in b.perm]:
+        if mcd[root] == sizes[root]:                 # line 4
+            continue
+        mcd_root = int(mcd[root])                    # Lemma 5: lower bound is exact now
+        q: List[Tuple[int, int]] = [(-int(sizes[root]), root)]
+        while q:
+            neg_s, e_u = heapq.heappop(q)
+            s = -neg_s
+            if b.visited_e[e_u] == root:
+                continue
+            b.visited_e[e_u] = root                  # line 8
+            b.stats["pops"] += 1
+            if e_u != root and s > mcd[e_u]:
+                mcd[e_u] = s                         # line 9
+            b.add_labels(root, e_u, s)               # lines 10-13
+            if M[e_u] is None:                       # lines 14-18
+                b.stats["neighbor_inits"] += 1
+                entries: Dict[int, int] = {}
+                nb, od = (neighbors.row(e_u) if neighbors is not None
+                          else h.neighbors_od(e_u))
+                for e_v, w in zip(nb, od):
+                    e_v = int(e_v)
+                    if rank[e_v] <= rank[root]:      # line 17 (Lemma 3)
+                        continue
+                    entries[e_v] = int(w)
+                M[e_u] = entries
+                m_entries += len(entries)
+                b.stats["m_total_inserts"] += len(entries)
+                b.stats["m_peak_entries"] = max(b.stats["m_peak_entries"], m_entries)
+            evict: List[int] = []
+            for e_v, w in M[e_u].items():            # lines 19-24
+                if (w > mcd_root and b.visited_e[e_v] != root
+                        and rank[e_v] > rank[root]):  # line 20 (+ explicit rank guard)
+                    heapq.heappush(q, (-min(s, w), e_v))
+                    b.stats["pushes"] += 1
+                if w <= s:                           # lines 22-24 (Lemma 6)
+                    evict.append(e_v)
+            for e_v in evict:
+                del M[e_u][e_v]
+                m_entries -= 1
+                other = M[e_v]
+                if other is not None and e_u in other:
+                    del other[e_u]
+                    m_entries -= 1
+    b.stats["m_final_entries"] = m_entries
+    return b.finish()
+
+
+
+# Construction-mode registry: the builder options `HLIndexEngine.build`
+# (repro_torch.core.engine) accepts for its `construction=` opt.  The
+# reference also lists "sharded" (component-sharded parallel construction);
+# it joins this table with roadmap item A10.
+CONSTRUCTION_MODES: Dict[str, Callable[..., HLIndex]] = {
+    "serial": build_fast,        # Algorithm 3, one host thread
+}

@@ -1,0 +1,341 @@
+"""Query processing (Section VI): Algorithm 5 + the batched device engine.
+
+``mr_query`` is the faithful merge-join (labels sorted ascending by
+importance rank; advance the pointer holding the more-important hub; skip
+entries whose s cannot improve the running answer).
+
+``batched_mr`` is the device serving path in plain tensor ops: labels
+exported as padded dense tensors (``HLIndex.as_padded``), queries answered
+by a vectorized ``searchsorted`` join — every query costs O(Lmax log Lmax)
+of independent work with no host pointer chasing.  ``KernelSnapshot``
+answers the same batches through the hand-written ``label_join`` CUDA
+kernel instead.  This is the engine the paper's Exp-1 (1,000-query
+workload) maps onto.
+
+Counterpart of ``repro/core/query.py``, same names in the same order.
+Left out until the sharded backend is ported (roadmap item A10):
+``DeviceSnapshot.to_mesh`` and its jitted row scatter.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from .hlindex import HLIndex
+
+__all__ = ["mr_query", "s_reach_query", "mr_query_dicts", "DeviceSnapshot",
+           "KernelSnapshot", "PaddedIndex", "batched_mr", "searchsorted_join"]
+
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def mr_query(idx: HLIndex, u: int, v: int) -> int:
+    """Algorithm 5: MR(u, v) from two sorted label lists."""
+    ru, su = idx.labels_rank[u], idx.labels_s[u]
+    rv, sv = idx.labels_rank[v], idx.labels_s[v]
+    i = j = 0
+    k = 0
+    while i < ru.size and j < rv.size:
+        if su[i] <= k or ru[i] < rv[j]:      # line 5
+            i += 1
+        elif sv[j] <= k or ru[i] > rv[j]:    # line 6
+            j += 1
+        else:                                # line 7: common hub, both s > k
+            k = int(min(su[i], sv[j]))
+            i += 1
+            j += 1
+    return k
+
+
+def s_reach_query(idx: HLIndex, u: int, v: int, s: int) -> bool:
+    """Problem 1 via the Section-VI modification: seed k = s-1; true on the
+    first common-hub hit (early exit)."""
+    ru, su = idx.labels_rank[u], idx.labels_s[u]
+    rv, sv = idx.labels_rank[v], idx.labels_s[v]
+    i = j = 0
+    k = s - 1
+    while i < ru.size and j < rv.size:
+        if su[i] <= k or ru[i] < rv[j]:
+            i += 1
+        elif sv[j] <= k or ru[i] > rv[j]:
+            j += 1
+        else:
+            return True
+    return False
+
+
+def mr_query_dicts(lu: Dict[int, int], lv: Dict[int, int],
+                   rank: np.ndarray) -> int:
+    """MR from dict-form labels (used by the minimization passes)."""
+    if len(lu) > len(lv):
+        lu, lv = lv, lu
+    best = 0
+    for e, s in lu.items():
+        s2 = lv.get(e)
+        if s2 is not None:
+            m = min(s, s2)
+            if m > best:
+                best = m
+    return best
+
+
+# ---------------------------------------------------------------------------
+# batched device engine
+# ---------------------------------------------------------------------------
+
+def _as_index(ids, device: torch.device) -> torch.Tensor:
+    """Vertex ids as a 1-D int64 tensor on ``device`` (torch indexing and
+    ``searchsorted`` want int64): one host->device copy for host input."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=torch.int64).reshape(-1)
+    return torch.from_numpy(
+        np.ascontiguousarray(np.asarray(ids, np.int64).ravel())).to(device)
+
+
+def _land(a, device: torch.device) -> torch.Tensor:
+    """``a`` as a contiguous int32 tensor on ``device``; host arrays are
+    copied, so a snapshot never aliases its caller's buffers."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int32).contiguous()
+    return torch.tensor(np.asarray(a, np.int32)).to(device)
+
+
+@dataclasses.dataclass(eq=False)    # identity equality/hash: fields are tensors
+class DeviceSnapshot:
+    """Padded per-vertex label tensors on device, served by ``batched_mr``.
+
+    Tensor layout and sentinel conventions:
+
+    * ``ranks`` [n, Lmax] int32 — per-row **ascending** hub keys; rows
+      shorter than Lmax are padded with ``INT32_MAX`` (2^31 - 1).  The
+      padding sentinel can never equal a real hub key, so a padding slot
+      only ever "matches" another padding slot — and then contributes
+      ``min(0, 0) = 0`` to the join max, i.e. nothing.
+    * ``svals`` [n, Lmax] int32 — the s-value carried by each label;
+      padding slots hold 0 (0 = "no s-walk", the identity of the max).
+    * ``lengths`` [n] int32 — true label counts per row (metadata for
+      size accounting; the join itself relies only on the sentinels).
+
+    The row key space only needs to be consistent across rows (hub
+    importance rank for the HL-index backends, raw hyperedge id for
+    closure-derived rows) — this is the one device-resident serving
+    form every label-shaped backend of ``repro_torch.core.engine`` exports.
+
+    ``version`` records the engine version the snapshot was derived from
+    (see ``ReachabilityEngine.update``): after an update, the engine's
+    ``snapshot()`` re-derives a fresh snapshot with the bumped version,
+    while previously handed-out snapshots keep their old version — a
+    snapshot with ``snap.version != engine.version`` is stale.
+
+    Snapshots are immutable; incremental refresh produces *new* snapshots:
+    ``patch_rows`` replaces only the label rows a scoped update touched
+    and never writes into this snapshot's tensors (torch's indexed
+    assignment mutates, so the patch works on a clone).
+    """
+
+    ranks: torch.Tensor
+    svals: torch.Tensor
+    lengths: torch.Tensor
+    backend: str = "hl-index"
+    version: int = 0
+
+    @classmethod
+    def from_padded(cls, ranks, svals, lengths, backend: str,
+                    version: int = 0, *,
+                    device: DeviceLike = None) -> "DeviceSnapshot":
+        """Land padded host arrays on ``device`` (``None`` = ``"cuda"``;
+        raises without a CUDA device unless ``device="cpu"`` is passed)."""
+        dev = resolve_device(device)
+        return cls(ranks=_land(ranks, dev), svals=_land(svals, dev),
+                   lengths=_land(lengths, dev), backend=backend,
+                   version=version)
+
+    @classmethod
+    def from_hlindex(cls, idx: HLIndex, backend: str = "hl-index",
+                     version: int = 0, *,
+                     device: DeviceLike = None) -> "DeviceSnapshot":
+        ranks, svals, lengths = idx.as_padded()
+        return cls.from_padded(ranks, svals, lengths, backend, version,
+                               device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.ranks.device
+
+    def patch_rows(self, rows, row_ranks, row_svals, row_lengths, *,
+                   n: Optional[int] = None, lmax: Optional[int] = None,
+                   version: Optional[int] = None,
+                   backend: Optional[str] = None) -> "DeviceSnapshot":
+        """A new snapshot with only ``rows`` replaced — the label-row
+        re-derivation primitive behind snapshot caching across updates.
+
+        ``row_ranks`` / ``row_svals`` are [len(rows), lmax] padded rows
+        (``pad_label_rows(..., pad_to=lmax)`` form), ``row_lengths`` the
+        true counts.  ``n`` / ``lmax`` resize the tensors first (rows
+        appended with empty sentinel rows, columns padded with sentinels
+        or sliced off) — legal because a clean row's content never
+        exceeds the new ``lmax`` by the dirty-rows contract, so resizing
+        touches only inert padding.  The result is byte-identical to a
+        from-scratch derivation in which only ``rows`` changed; every
+        untouched row is copied from this snapshot's tensors on the
+        device without re-transfer, and this snapshot stays as it was.
+        """
+        ranks, svals, lengths = self.ranks, self.svals, self.lengths
+        dev = ranks.device
+        cur_n, cur_l = ranks.shape
+        n = cur_n if n is None else int(n)
+        lmax = cur_l if lmax is None else int(lmax)
+        pad = torch.nn.functional.pad
+        if lmax > cur_l:
+            ranks = pad(ranks, (0, lmax - cur_l), value=_INT32_MAX)
+            svals = pad(svals, (0, lmax - cur_l), value=0)
+        elif lmax < cur_l:
+            ranks = ranks[:, :lmax]
+            svals = svals[:, :lmax]
+        if n > cur_n:
+            ranks = pad(ranks, (0, 0, 0, n - cur_n), value=_INT32_MAX)
+            svals = pad(svals, (0, 0, 0, n - cur_n), value=0)
+            lengths = pad(lengths, (0, n - cur_n), value=0)
+        rows = _as_index(rows, dev)
+        if rows.numel():
+            # index_copy is out of place: the old tensors are never written
+            ranks = ranks.index_copy(0, rows, _land(row_ranks, dev))
+            svals = svals.index_copy(0, rows, _land(row_svals, dev))
+            lengths = lengths.index_copy(0, rows, _land(row_lengths, dev))
+        return DeviceSnapshot(
+            ranks=ranks.contiguous(), svals=svals.contiguous(),
+            lengths=lengths.contiguous(),
+            backend=self.backend if backend is None else backend,
+            version=self.version if version is None else int(version))
+
+    @property
+    def lmax(self) -> int:
+        return int(self.ranks.shape[1])
+
+    def nbytes(self) -> int:
+        return int(sum(t.numel() * t.element_size()
+                       for t in (self.ranks, self.svals, self.lengths)))
+
+    def mr(self, us, vs) -> torch.Tensor:
+        """[Q] int32 MR answers on the snapshot's device."""
+        us = _as_index(us, self.device)
+        if self.lmax == 0:          # no labels anywhere: nothing is reachable
+            return torch.zeros(us.shape, dtype=torch.int32,
+                               device=self.device)
+        return batched_mr(self.ranks, self.svals, us,
+                          _as_index(vs, self.device))
+
+    def s_reach(self, us, vs, s: int) -> torch.Tensor:
+        return self.mr(us, vs) >= s
+
+
+def _gather_rows(ranks, svals, us, vs):
+    return ranks[us], svals[us], ranks[vs], svals[vs]
+
+
+class KernelSnapshot:
+    """Kernel-path query view over a ``DeviceSnapshot``.
+
+    Answers ``mr`` / ``s_reach`` batches through the hand-written
+    ``label_join`` CUDA kernel instead of the host merge-join or the
+    tensor-op ``batched_mr``: query rows are gathered from the resident
+    label tensors on device and the [Q, Lmax] rows feed ``label_join``.
+    Memory stays label-mass: the view holds no tensors of its own beyond
+    the wrapped snapshot.
+
+    The reference pads each batch to a power-of-two bucket (one compiled
+    program per bucket shape) and to its kernel's block size.  A CUDA
+    launch takes any ``Q`` and masks its own ragged edge, so this view
+    pads neither: it gathers exactly ``Q`` rows and launches once.
+
+    The wrapped ``base`` snapshot keeps its identity — patch plumbing
+    (``patch_rows``) operates on the underlying ``DeviceSnapshot`` and the
+    view is rebuilt around the result, which is why this is composition
+    rather than subclassing.
+
+    On a CPU snapshot ``label_join`` runs its plain version (what the CPU
+    tests use); on a CUDA snapshot it launches the kernel or raises.
+    Construction validates the rank key space against the kernel's
+    padding sentinels once (``validate_ranks``), so per-batch calls
+    don't pay the check.
+    """
+
+    def __init__(self, base: DeviceSnapshot):
+        from ..kernels.label_join import label_join, validate_ranks
+        validate_ranks(base.ranks)
+        self.base = base
+        self._join = label_join
+
+    # geometry / identity delegate to the wrapped snapshot
+    @property
+    def backend(self) -> str:
+        return self.base.backend
+
+    @property
+    def version(self) -> int:
+        return self.base.version
+
+    @property
+    def lmax(self) -> int:
+        return self.base.lmax
+
+    def nbytes(self) -> int:
+        return self.base.nbytes()
+
+    def mr(self, us, vs) -> torch.Tensor:
+        dev = self.base.device
+        us = _as_index(us, dev)
+        vs = _as_index(vs, dev)
+        q = us.numel()
+        if q == 0 or self.base.lmax == 0:
+            return torch.zeros((q,), dtype=torch.int32, device=dev)
+        ru, su, rv, sv = _gather_rows(self.base.ranks, self.base.svals,
+                                      us, vs)
+        return self._join(ru, su, rv, sv)
+
+    def s_reach(self, us, vs, s: int) -> torch.Tensor:
+        return self.mr(us, vs) >= s
+
+
+class PaddedIndex(DeviceSnapshot):
+    """Back-compat constructor: the padded device form built straight from
+    an ``HLIndex``.  New code should use ``DeviceSnapshot.from_hlindex``
+    (or ``engine.snapshot()`` through ``repro_torch.api``)."""
+
+    def __init__(self, idx: HLIndex, *, device: DeviceLike = None):
+        snap = DeviceSnapshot.from_hlindex(idx, "hl-index", device=device)
+        super().__init__(ranks=snap.ranks, svals=snap.svals,
+                         lengths=snap.lengths, backend="hl-index")
+
+
+def batched_mr(ranks: torch.Tensor, svals: torch.Tensor,
+               us: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
+    """MR(u, v) for a batch of query pairs.
+
+    For each label (e, s_u) of u, locate e in v's sorted rank list via
+    searchsorted; a hit contributes min(s_u, s_v).  Padding (INT32_MAX)
+    never matches a real rank.  Equivalent to Algorithm 5's merge-join —
+    the data-parallel formulation trades the O(L) sequential scan for
+    O(L log L) independent work.  ``us`` / ``vs`` are int64 index tensors
+    on the tensors' device; the answer is [Q] int32.
+    """
+    return searchsorted_join(*_gather_rows(ranks, svals, us, vs))
+
+
+def searchsorted_join(ru: torch.Tensor, su: torch.Tensor,
+                      rv: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
+    """The join of ``batched_mr`` on rows already gathered: the same
+    function of the same [Q, L] operands as ``label_join``, in stock
+    tensor ops (``searchsorted``, ``gather``, ``where``, ``amax``)."""
+    if ru.numel() == 0:       # Q == 0 or L == 0: amax has nothing to reduce
+        return torch.zeros((ru.shape[0],), dtype=su.dtype, device=su.device)
+    pos = torch.searchsorted(rv, ru)                  # [Q, L] int64, left
+    pos = pos.clamp_(max=rv.shape[1] - 1)
+    hit = torch.gather(rv, 1, pos) == ru              # [Q, L]
+    sv_at = torch.gather(sv, 1, pos)
+    cand = torch.where(hit, torch.minimum(su, sv_at), 0)
+    return cand.amax(dim=1)

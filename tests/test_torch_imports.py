@@ -1,0 +1,136 @@
+"""The port stands alone: a fresh interpreter that imports
+``repro_torch.api`` and every submodule has loaded neither ``jax`` nor the
+reference package ``repro``, needs no CUDA compiler to import, and without
+a CUDA device refuses to build unless the caller asks for the CPU.  (This
+file imports both packages only to list the port's modules and to check
+``chip_smoke.py``; the checks themselves run in subprocesses.)"""
+import json
+import os
+import pathlib
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro            # noqa: F401  (both packages importable side by side)
+import repro_torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _run(code: str, cwd=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", code], env=env, cwd=cwd,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_module_list_is_what_the_slice_ships():
+    assert _port_modules() == [
+        "repro_torch", "repro_torch.api", "repro_torch.convert",
+        "repro_torch.core", "repro_torch.core.baselines",
+        "repro_torch.core.engine", "repro_torch.core.hlindex",
+        "repro_torch.core.hypergraph", "repro_torch.core.minimal",
+        "repro_torch.core.query", "repro_torch.device",
+        "repro_torch.kernels", "repro_torch.kernels.build",
+        "repro_torch.kernels.label_join", "repro_torch.kernels.ref",
+        "repro_torch.kernels.registry",
+    ]
+
+
+@pytest.fixture(scope="module")
+def import_report():
+    """One fresh interpreter imports ``repro_torch.api`` and then every
+    submodule, and reports after each what it has loaded of jax or the
+    reference."""
+    out = _run(
+        "import importlib, json, sys\n"
+        "import repro_torch.api\n"
+        "report = {}\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    report[name] = sorted(\n"
+        "        m for m in sys.modules if m.split('.')[0] in\n"
+        "        ('jax', 'jaxlib', 'repro'))\n"
+        "assert 'torch' in sys.modules and 'numpy' in sys.modules\n"
+        "print(json.dumps(report))\n")
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout)
+
+
+@pytest.mark.parametrize("module", _port_modules())
+def test_import_drags_in_neither_jax_nor_the_reference(import_report, module):
+    assert import_report[module] == []
+
+
+def test_sources_name_neither_jax_nor_the_reference_package():
+    pattern = re.compile(
+        r"^\s*(import jax|from jax|import repro\b|from repro\b|from repro\.)")
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for no, line in enumerate(path.read_text().splitlines(), 1):
+            assert not pattern.match(line), f"{path}:{no}: {line}"
+
+
+def test_build_engine_without_cuda_needs_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None is legal here")
+    out = _run(
+        "from repro_torch.api import build_engine, random_hypergraph\n"
+        "h = random_hypergraph(30, 40, seed=1)\n"
+        "try:\n"
+        "    build_engine(h)\n"
+        "except RuntimeError as e:\n"
+        "    assert \"device='cpu'\" in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('build_engine(h) carried on without a GPU')\n"
+        "eng = build_engine(h, device='cpu', use_kernels=True)\n"
+        "print(eng.name, eng.mr_batch([0, 1], [2, 3]).dtype)\n")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["hl-index", "int32"]
+
+
+def test_device_probe_and_resolve_device():
+    from repro_torch.device import gpu_probe, resolve_device
+    probe = gpu_probe()
+    assert set(probe) == {"cuda", "device_name", "nvcc"}
+    assert probe["cuda"] == torch.cuda.is_available()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
+    if not probe["cuda"]:
+        for device in (None, "cuda", "cuda:0"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                resolve_device(device)
+
+
+def test_kernel_build_fails_loudly_without_a_compiler(tmp_path):
+    from repro_torch.device import find_nvcc
+    from repro_torch.kernels import build
+    with pytest.raises(FileNotFoundError):
+        build.build_libraries(["no_such_kernel"], tmp_path)
+    if find_nvcc() is not None:
+        pytest.skip("nvcc is present here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_libraries(["label_join"], tmp_path)
+    assert not any(tmp_path.iterdir())
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = ROOT / "chip_smoke.py"
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
