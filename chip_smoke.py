@@ -3,23 +3,32 @@
 
 Needs one NVIDIA GPU (built for Hopper, sm_90a) and `nvcc`; takes no
 arguments.  It builds every hand-written kernel from the sources in this
-checkout, holds each against its plain PyTorch version on the card, drives
-the port's main path — batched max-reachability through
-`repro_torch.api.build_engine(h, "hl-index", use_kernels=True)` — at full
-size, and checks the answers.  Any failed phase raises: the script then
-exits non-zero and prints no result line.  Without a CUDA device it exits
+checkout, holds each against its plain PyTorch version on the card, and
+drives the port's two paths at full size through `repro_torch.api`:
+
+* batched max-reachability through `build_engine(h, "hl-index",
+  use_kernels=True)` (the `label_join` kernel);
+* the dense closure through `build_engine(h, "closure", method=...)` at
+  the published size of primary-school (242 vertices, 12,704 hyperedges):
+  the `overlap` kernel forms the line graph, 14 launches of
+  `maxmin_matmul` or of `threshold_step` close it.
+
+and checks the answers.  Any failed phase raises: the script then exits
+non-zero and prints no result line.  Without a CUDA device it exits
 non-zero at once.
 
-Output, one JSON object per line: `env`, `kernel_checks`, `main_path`,
-`wide_labels`, then `{"kernels": [...]}` (per kernel: launches on the main
-path, error against the plain version, times and the roofline bound), the
-card's name and power limit as `nvidia-smi` prints them, and last
-`{"ok": true, "device": {...}}`.
+Output, one JSON object per line: `env`, `kernel_checks` (one per kernel),
+`main_path`, `wide_labels`, `closure_path`, `closure_small`, then
+`{"kernels": [...]}` (per kernel: launches on its path, error against the
+plain version, times and the roofline bound), the card's name and power
+limit as `nvidia-smi` prints them, and last `{"ok": true, "device": {...}}`.
+Each phase line carries its own `seconds`.
 
 Times: a kernel's time is CUDA events around single launches on resident
 operands, median after warm-up (operands up to a few tens of MB stay in
 the 50 MB L2 between launches; the larger shapes do not).  A batch's time
 is the host clock around `mr_batch`, host<->device copies included.
+float32 products run in full float32: TF32 is switched off and checked.
 """
 from __future__ import annotations
 
@@ -35,10 +44,17 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
-# Integer compare/min/max run on the CUDA cores.  The data sheet's 67 TFLOP/s
-# of float32 outside the tensor cores counts a fused multiply-add as two, so
-# one simple 32-bit operation per lane and cycle is half of it.
-INT32_OPS_PER_S = 67e12 / 2
+# Dense int8 tensor-core rate of the H100 SXM (NVIDIA data sheet): the
+# narrowest type that holds a 0/1 product exactly, so the least time for
+# the overlap and threshold_step products.
+INT8_TENSOR_OPS_PER_S = 1.979e15
+# 32-bit integer min/max (and compare) results per clock per SM on compute
+# capability 9.0: 64 (CUDA C++ Programming Guide, "Arithmetic
+# Instructions" throughput table) -- half the 128 FP32 lanes.  The rate is
+# this times the card's SM count and its maximum SM clock, both read at
+# run time (``phase_env``).
+INT32_MINMAX_PER_CLOCK_PER_SM = 64
+RATES = {}                     # filled by phase_env: {"int32_minmax": ops/s}
 
 LABEL_JOIN_CORPUS = [          # (q, l, seed): the reference's adversarial shapes
     (5, 7, 0), (130, 33, 1), (1, 1, 2), (64, 300, 3), (31, 129, 4),
@@ -46,17 +62,50 @@ LABEL_JOIN_CORPUS = [          # (q, l, seed): the reference's adversarial shape
 ]
 MAIN_PATH_SHAPES = [(1024, 15), (4096, 121), (2**20, 15), (65536, 256)]
 INT32_MAX = int(np.iinfo(np.int32).max)
+INT64_MAX = int(np.iinfo(np.int64).max)
+
+# the reference harness's corpora (tests/test_kernels_diff.py)
+MAXMIN_CORPUS = [(33, 32, 17, 0), (1, 1, 1, 1), (8, 37, 9, 2), (0, 4, 4, 3),
+                 (4, 0, 4, 4), (4, 4, 0, 5), (64, 64, 64, 6)]
+OVERLAP_CORPUS = [(10, 17, 0), (1, 1, 1), (0, 5, 2), (5, 0, 3), (130, 40, 4)]
+THRESHOLD_CORPUS = [(1, 16, 0), (3, 33, 1), (0, 8, 2), (2, 0, 3)]
+# primary-school at its published size (benchmarks/datasets.py lists
+# 242 vertices, 12,704 hyperedges; PS-s draws edge sizes 2-5, seed 4)
+CLOSURE_GRAPH = dict(n=242, m=12_704, min_size=2, max_size=5, seed=4)
+# ENG-s, the repo's small engine graph: every pair is checked
+SMALL_GRAPH = dict(n=200, m=256, min_size=2, max_size=6, seed=7)
+DENSE_KERNELS = ("maxmin_matmul", "overlap", "threshold_step")
+# one medium timed shape per dense kernel: [M]^3 maxmin, B [m, n], R [S, m, m]
+MEDIUM_MAXMIN = 2048
+MEDIUM_OVERLAP = (2048, 512)
+MEDIUM_THRESHOLD = (5, 2048)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(query: str, *fmt: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=" + ",".join(("csv", "noheader") + fmt)],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+class Phase:
+    """Times one phase on the host clock (device work synchronised)."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return round(time.perf_counter() - self.t0, 3)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -141,23 +190,47 @@ def label_join_bound(su, q, l):
     nbytes = 16 * q * l + 4 * q
     real = int((su > 0).sum())
     ops = real * (math.ceil(math.log2(l + 1)) + 2) if l else 0
+    return bound(nbytes, ops, RATES["int32_minmax"])
+
+
+def bound(nbytes, ops, ops_per_s):
+    """(least ms, what binds): the larger of bytes over the memory rate and
+    operations over the given peak rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # -- phases -------------------------------------------------------------------
 
 def phase_env(build_mod):
+    """Builds all four libraries at once (one nvcc each, in parallel) and
+    reads the card's rates."""
+    clock = Phase()
+    names = ["label_join", *DENSE_KERNELS]
     t0 = time.perf_counter()
-    build_mod.build_libraries(["label_join"])
+    build_mod.build_libraries(names)
     seconds = time.perf_counter() - t0
-    ptxas = [ln for ln in build_mod.BUILD_LOG.get("label_join", "").splitlines()
-             if "registers" in ln or "error" in ln.lower()]
+    ptxas = {name: [ln.strip() for ln in build_mod.BUILD_LOG.get(name, "")
+                    .splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "error" in ln.lower()]
+             for name in names}
+    # a float32 product must not be TF32-rounded anywhere in this run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_mhz = float(nvidia_smi("clocks.max.sm", "nounits"))
+    RATES["int32_minmax"] = sms * INT32_MINMAX_PER_CLOCK_PER_SM * max_mhz * 1e6
     env = {"phase": "env", "python": sys.version.split()[0],
            "torch": torch.__version__, "cuda": torch.version.cuda,
-           "card": nvidia_smi_line(),
+           "card": nvidia_smi_line(), "sms": sms, "max_sm_clock_mhz": max_mhz,
+           "int32_minmax_ops_per_s": RATES["int32_minmax"],
+           "int8_tensor_ops_per_s": INT8_TENSOR_OPS_PER_S,
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
            "kernel_build_seconds": round(seconds, 3), "ptxas": ptxas}
+    env["seconds"] = clock.seconds()
     emit(env)
     return env
 
@@ -193,6 +266,7 @@ def time_shape(lj, join_ops, ru, su, rv, sv):
 def phase_kernel_checks(lj, join_ops, device):
     """label_join on the card against its plain version: the reference's
     corpus, its two sentinel cases, and the main path's shapes (timed)."""
+    clock = Phase()
     max_err = 0
     rows = []
 
@@ -239,7 +313,8 @@ def phase_kernel_checks(lj, join_ops, device):
         row.update(time_shape(lj, join_ops, ru, su, rv, sv))
         rows.append(row)
     emit({"phase": "kernel_checks", "kernel": "label_join",
-          "tolerance": 0, "max_abs_err": max_err, "cases": rows})
+          "tolerance": 0, "max_abs_err": max_err, "cases": rows,
+          "seconds": clock.seconds()})
     return max_err
 
 
@@ -263,6 +338,7 @@ def check_answers(tag, answers, plain_answers, s):
 
 def phase_main_path(api, engine_mod, lj, join_ops, device):
     """The full-size main path: 89,000 vertices, 70,000 hyperedges."""
+    clock = Phase()
     s = 2
     t0 = time.perf_counter()
     h = api.random_hypergraph(89_000, 70_000, min_size=2, max_size=8, seed=6)
@@ -356,12 +432,14 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
           "share_nonzero": [float((a[0] > 0).mean()) for a in answers],
           "batch_times_include": "host->device ids, gather, join, "
                                  "device->host answers",
-          "batches": rates, "largest_batch_breakdown": breakdown})
+          "batches": rates, "largest_batch_breakdown": breakdown,
+          "seconds": clock.seconds()})
     return launches, err, kernel_times
 
 
 def phase_wide_labels(api, engine_mod, lj, device):
     """Wide label rows (Lmax about 52) through the same path and checks."""
+    clock = Phase()
     s = 3
     h = api.random_hypergraph(400, 4000, min_size=2, max_size=6, seed=5)
     t0 = time.perf_counter()
@@ -399,7 +477,444 @@ def phase_wide_labels(api, engine_mod, lj, device):
           "build_seconds": round(build_s, 3), "merge_join_pairs": 200,
           "oracle_pairs": n_oracle, "oracle_seconds": round(oracle_s, 3),
           "s": s, "label_join_launches": launches,
-          "answer_histogram": np.bincount(answers[1][0]).tolist()})
+          "answer_histogram": np.bincount(answers[1][0]).tolist(),
+          "seconds": clock.seconds()})
+
+
+# -- the dense closure kernels ----------------------------------------------
+
+def cuda_once(fn):
+    """(milliseconds, result) of one call of ``fn`` on the card."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def maxmin_bound(m, k, n):
+    """Least ms for a (max, min) product: A, B read once, C written once
+    (4-byte values); one min and one max per (i, j, k) on the CUDA cores at
+    the int32 min/max rate."""
+    return bound(4 * (m * k + k * n + m * n), 2 * m * k * n,
+                 RATES["int32_minmax"])
+
+
+def overlap_bound(m, n):
+    """Least ms for W = B·Bᵀ: B [m, n] float32 read once, W [m, m] float32
+    written once; 2 operations per multiply-add at the int8 tensor-core
+    rate (the narrowest type that holds a 0/1 product exactly)."""
+    return bound(4 * (m * n + m * m), 2 * m * m * n, INT8_TENSOR_OPS_PER_S)
+
+
+def threshold_bound(s, m):
+    """Least ms for one threshold_step round: R [S, m, m] float32 read once
+    and written once; 2 operations per multiply-add at the int8
+    tensor-core rate."""
+    return bound(8 * s * m * m, 2 * s * m ** 3, INT8_TENSOR_OPS_PER_S)
+
+
+def expect_no_launch(mod, tag, fn, want):
+    """An empty shape: ``fn`` answers ``want`` and launches nothing."""
+    before = mod.LAUNCHES
+    got = fn()
+    torch.cuda.synchronize()
+    if mod.LAUNCHES != before:
+        raise AssertionError(f"{tag}: an empty shape launched the kernel")
+    check_equal(tag, got, want)
+
+
+def dense_times(kernel, plain, library, bound_ms_by, reps, plain_reps):
+    """Kernel / plain / library ms (CUDA events, median) and the bound."""
+    out = {"ms": cuda_ms(kernel, reps=reps, warmup=1),
+           "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
+           "library_ms": (cuda_ms(library, reps=reps, warmup=1)
+                          if library is not None else None)}
+    out["bound_ms"], out["bound_by"] = bound_ms_by
+    return out
+
+
+def phase_dense_kernel_checks(mm, ov, tc, device):
+    """maxmin_matmul, overlap and threshold_step on the card against their
+    plain versions, tolerance 0: the reference harness's corpora, the empty
+    shapes (no launch), and one medium shape each (timed).  Returns
+    {kernel: max abs err}."""
+    errs = {}
+    gen = torch.Generator(device=device)
+
+    # maxmin_matmul, int32 and float32
+    clock, err, cases = Phase(), 0, []
+    for m, k, n, seed in MAXMIN_CORPUS:
+        for np_dtype in (np.int32, np.float32):
+            rng = np.random.default_rng(seed)
+            a = torch.from_numpy(rng.integers(0, 12, (m, k))
+                                 .astype(np_dtype)).to(device)
+            b = torch.from_numpy(rng.integers(0, 12, (k, n))
+                                 .astype(np_dtype)).to(device)
+            tag = f"maxmin corpus[{m},{k},{n}] {a.dtype}"
+            want = mm.maxmin_matmul_ref(a, b)
+            if m and k and n:
+                err = max(err, check_equal(tag, mm.maxmin_matmul(a, b), want))
+            else:
+                expect_no_launch(mm, tag, lambda: mm.maxmin_matmul(a, b), want)
+            cases.append({"shape": [m, k, n], "dtype": str(a.dtype),
+                          "case": "corpus", "equal": True})
+    size = MEDIUM_MAXMIN
+    for dtype in (torch.int32, torch.float32):
+        gen.manual_seed(21)
+        a = torch.randint(0, 12, (size, size), generator=gen, device=device,
+                          dtype=torch.int32).to(dtype)
+        b = torch.randint(0, 12, (size, size), generator=gen, device=device,
+                          dtype=torch.int32).to(dtype)
+        err = max(err, check_equal(f"maxmin medium {dtype}",
+                                   mm.maxmin_matmul(a, b),
+                                   mm.maxmin_matmul_ref(a, b, block=16)))
+        row = {"shape": [size] * 3, "dtype": str(dtype), "case": "medium",
+               "equal": True}
+        row.update(dense_times(lambda: mm.maxmin_matmul(a, b),
+                               lambda: mm.maxmin_matmul_ref(a, b, block=16),
+                               None, maxmin_bound(size, size, size), 10, 3))
+        cases.append(row)
+    errs["maxmin_matmul"] = err
+    emit({"phase": "kernel_checks", "kernel": "maxmin_matmul",
+          "tolerance": 0, "max_abs_err": err, "cases": cases,
+          "seconds": clock.seconds()})
+
+    # overlap, float32 and bfloat16 0/1 input, float32 W
+    clock, err, cases = Phase(), 0, []
+    for m, n, seed in OVERLAP_CORPUS:
+        rng = np.random.default_rng(seed)
+        b_inc = torch.from_numpy((rng.random((m, n)) < 0.3)
+                                 .astype(np.float32)).to(device)
+        want = ov.overlap_ref(b_inc)
+        for operand in (b_inc, b_inc.to(torch.bfloat16)):
+            tag = f"overlap corpus[{m},{n}] {operand.dtype}"
+            if m and n:
+                err = max(err, check_equal(tag, ov.overlap(operand), want))
+            else:
+                expect_no_launch(ov, tag, lambda: ov.overlap(operand), want)
+        cases.append({"shape": [m, n], "case": "corpus", "equal": True})
+    gen.manual_seed(22)
+    m, n = MEDIUM_OVERLAP
+    b_inc = (torch.rand((m, n), generator=gen, device=device) < 0.3).float()
+    want = ov.overlap_ref(b_inc)
+    for operand in (b_inc, b_inc.to(torch.bfloat16)):
+        err = max(err, check_equal(f"overlap medium {operand.dtype}",
+                                   ov.overlap(operand), want))
+    row = {"shape": [m, n], "case": "medium", "equal": True}
+    row.update(dense_times(lambda: ov.overlap(b_inc),
+                           lambda: ov.overlap_ref(b_inc),
+                           lambda: torch.matmul(b_inc, b_inc.T),
+                           overlap_bound(m, n), 20, 20))
+    cases.append(row)
+    errs["overlap"] = err
+    emit({"phase": "kernel_checks", "kernel": "overlap", "tolerance": 0,
+          "max_abs_err": err, "cases": cases, "seconds": clock.seconds()})
+
+    # threshold_step
+    clock, err, cases = Phase(), 0, []
+    for s, m, seed in THRESHOLD_CORPUS:
+        rng = np.random.default_rng(seed)
+        r = torch.from_numpy((rng.random((s, m, m)) < 0.2)
+                             .astype(np.float32)).to(device)
+        tag = f"threshold corpus[{s},{m}]"
+        want = tc.threshold_step_ref(r)
+        if s and m:
+            err = max(err, check_equal(tag, tc.threshold_step(r), want))
+        else:
+            expect_no_launch(tc, tag, lambda: tc.threshold_step(r), want)
+            if tc.threshold_step(r) is not r:
+                raise AssertionError(f"{tag}: an empty batch must come back "
+                                     f"as is")
+        cases.append({"shape": [s, m, m], "case": "corpus", "equal": True})
+    gen.manual_seed(23)
+    s, m = MEDIUM_THRESHOLD
+    # about one in five entries of a squared row set: a mixed 0/1 answer
+    r = (torch.rand((s, m, m), generator=gen, device=device) < 0.01).float()
+    got = tc.threshold_step(r)
+    err = max(err, check_equal("threshold medium", got,
+                               tc.threshold_step_ref(r)))
+    row = {"shape": [s, m, m], "case": "medium", "equal": True,
+           "share_ones": float(got.mean())}
+    row.update(dense_times(lambda: tc.threshold_step(r),
+                           lambda: tc.threshold_step_ref(r),
+                           lambda: torch.bmm(r, r),
+                           threshold_bound(s, m), 10, 10))
+    cases.append(row)
+    errs["threshold_step"] = err
+    emit({"phase": "kernel_checks", "kernel": "threshold_step",
+          "tolerance": 0, "max_abs_err": err, "cases": cases,
+          "seconds": clock.seconds()})
+    return errs
+
+
+def forest_rows(oracle, edges):
+    """Bottleneck value from each hyperedge in ``edges`` to every hyperedge
+    [len(edges), m], read off the MST oracle's maximum spanning forest by one
+    sweep per source: what ``MSTOracle.edge_mr`` answers pair by pair, at
+    the cost of one of its walks per row."""
+    h = oracle.h
+    sizes = h.edge_sizes
+    out = np.zeros((len(edges), h.m), np.int64)
+    for row, e in zip(out, edges):
+        e = int(e)
+        best = {e: INT64_MAX}
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            for y, w in oracle.adj[x]:
+                if y not in best:
+                    best[y] = min(best[x], w)
+                    stack.append(y)
+        del best[e]
+        if best:
+            row[np.fromiter(best.keys(), np.int64, len(best))] = \
+                np.fromiter(best.values(), np.int64, len(best))
+        row[e] = sizes[e]
+    return out
+
+
+def reset_counts(counters):
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+
+
+def read_counts(counters):
+    torch.cuda.synchronize()
+    return {name: mod.LAUNCHES for name, mod in counters.items()}
+
+
+def counted_closure_build(api, h, method, counters, rounds, device):
+    """One ``build_engine(h, "closure", method=...)`` on the card with every
+    count set to 0 just before and read just after: it must launch
+    ``overlap`` once and its closure kernel ``rounds`` times, nothing else."""
+    kernel = {"maxmin": "maxmin_matmul", "threshold": "threshold_step"}[method]
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    eng = api.build_engine(h, "closure", method=method)
+    counts = read_counts(counters)
+    seconds = time.perf_counter() - t0
+    want = {name: 0 for name in counters}
+    want.update({"overlap": 1, kernel: rounds})
+    if counts != want:
+        raise AssertionError(f"closure {method} build at m={h.m}: launches "
+                             f"{counts}, expected {want}")
+    if eng.name != "closure" or eng.device.type != device.type:
+        raise AssertionError(f"built {eng.name} on {eng.device}")
+    return eng, counts, seconds
+
+
+def phase_closure_path(api, semiring, ops, counters, device):
+    """The dense closure at the published size of primary-school: both
+    methods built through the facade on the card (counted), W* held across
+    the two, the overlap W against the host line graph, batches against
+    the host and the MST oracle's forest; then each kernel at the path's
+    own operands against its plain version, timed."""
+    clock = Phase()
+    mm, ov, tc = (counters[k] for k in DENSE_KERNELS)
+    g = CLOSURE_GRAPH
+    t0 = time.perf_counter()
+    h = api.random_hypergraph(g["n"], g["m"], min_size=g["min_size"],
+                              max_size=g["max_size"], seed=g["seed"])
+    gen_s = time.perf_counter() - t0
+    rounds = ops.default_rounds(h.m)
+    engines, builds, launches = {}, {}, {}
+    for method in ("maxmin", "threshold"):
+        eng, counts, build_s = counted_closure_build(api, h, method, counters,
+                                                     rounds, device)
+        t0 = time.perf_counter()
+        snap = eng.snapshot()
+        torch.cuda.synchronize()
+        snap_s = time.perf_counter() - t0
+        if snap.svals.device.type != device.type or snap.lmax != h.m:
+            raise AssertionError("closure snapshot is not [n, m] on the card")
+        engines[method] = eng
+        launches[method] = {k: v for k, v in counts.items() if v}
+        builds[method] = {"build_seconds": round(build_s, 3),
+                          **{k: round(v, 3)
+                             for k, v in eng.build_seconds.items()},
+                          "snapshot": round(snap_s, 3)}
+    w_star = engines["maxmin"].w_star
+    if w_star.dtype != np.int32 or w_star.shape != (h.m, h.m):
+        raise AssertionError(f"W* is {w_star.dtype}{w_star.shape}")
+    if not np.array_equal(w_star, engines["threshold"].w_star):
+        raise AssertionError("closure_path: W* (maxmin) != W* (threshold)")
+
+    # the overlap kernel's W (one launch outside the counted runs)
+    b_inc = torch.from_numpy(h.to_incidence(np.float32)).to(device)
+    w = semiring.device_line_graph(h)
+    host_w = h.line_graph(np.int32)
+    if not np.array_equal(w.cpu().numpy(), host_w):
+        raise AssertionError("closure_path: overlap W != host line graph")
+    thresholds = semiring.distinct_thresholds(host_w)
+    del host_w
+
+    # batches, both engines, against the host W* and each other
+    s = 3
+    rng = np.random.default_rng(13)
+    sizes = [1000, 4096]
+    batches = [(rng.integers(0, h.n, q), rng.integers(0, h.n, q))
+               for q in sizes]
+    answers = {meth: drive_batches(eng, batches, s)
+               for meth, eng in engines.items()}
+    check_answers("closure_path", answers["maxmin"], answers["threshold"], s)
+    us, vs = batches[0]
+    if not np.array_equal(answers["maxmin"][0][0],
+                          semiring.vertex_mr_from_edge_mr(h, w_star, us, vs)):
+        raise AssertionError("closure_path: batch != host W* segment max")
+    batch_ms = [{"queries": q,
+                 "mr_batch_ms": host_ms(lambda: engines["maxmin"]
+                                        .mr_batch(bu, bv), 10),
+                 "s_reach_batch_ms": host_ms(lambda: engines["maxmin"]
+                                             .s_reach_batch(bu, bv, s), 10)}
+                for (bu, bv), q in zip(batches, sizes)]
+
+    # the MST oracle: its forest swept once per incident hyperedge of u
+    # gives W* rows and MR(u, v) (its own mr() walks the forest once per
+    # hyperedge pair, some 34,000 walks per pair at this density)
+    t0 = time.perf_counter()
+    oracle = api.build_engine(h, "mst-oracle").oracle
+    oracle_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checked = 0
+    for u, v in zip(us[:8], vs[:8]):
+        eu = h.edges_of(int(u))
+        rows = forest_rows(oracle, eu)
+        if not np.array_equal(rows, w_star[eu]):
+            raise AssertionError(f"closure_path: W* rows of vertex {u} "
+                                 f"differ from the MST oracle's forest")
+        want = int(rows[:, h.edges_of(int(v))].max()) \
+            if eu.size and h.degree(int(v)) else 0
+        if want != int(answers["maxmin"][0][0][checked]):
+            raise AssertionError(f"closure_path: MR({u}, {v}) differs from "
+                                 f"the MST oracle")
+        checked += 1
+        if checked == 4 and time.perf_counter() - t0 > 60:
+            break
+    for ei, ej in rng.integers(0, h.m, (4, 2)):
+        if oracle.edge_mr(int(ei), int(ej)) != int(w_star[ei, ej]):
+            raise AssertionError(f"closure_path: W*[{ei}, {ej}] differs from "
+                                 f"MSTOracle.edge_mr")
+    oracle_s = time.perf_counter() - t0
+    del oracle
+
+    emit({"phase": "closure_path", "n": h.n, "m": h.m, "nnz": h.nnz,
+          "generate_seconds": round(gen_s, 3), "rounds": rounds,
+          "S": int(thresholds.size), "thresholds": thresholds.tolist(),
+          "launches": launches, "builds": builds,
+          "snapshot_bytes": engines["maxmin"].snapshot().nbytes(),
+          "w_star_bytes": engines["maxmin"].nbytes(),
+          "w_star_histogram": np.bincount(w_star.ravel()).tolist(),
+          "s": s, "batches": batch_ms,
+          "host_segment_max_pairs": sizes[0],
+          "oracle_pairs": checked, "oracle_w_star_rows": int(sum(
+              h.degree(int(u)) for u in us[:checked])),
+          "oracle_build_seconds": round(oracle_build_s, 3),
+          "oracle_seconds": round(oracle_s, 3),
+          "seconds": clock.seconds()})
+    del engines, answers
+    torch.cuda.empty_cache()
+
+    # each kernel at this path's own operands, against its plain version
+    clock = Phase()
+    rows = {}
+    got = ov.overlap(b_inc)
+    err = check_equal("overlap path", got, ov.overlap_ref(b_inc))
+    err = max(err, check_equal("overlap path bf16",
+                               ov.overlap(b_inc.to(torch.bfloat16)), got))
+    del got
+    rows["overlap"] = dict(
+        shape=list(b_inc.shape), max_abs_err=err,
+        **dense_times(lambda: ov.overlap(b_inc),
+                      lambda: ov.overlap_ref(b_inc),
+                      lambda: torch.matmul(b_inc, b_inc.T),
+                      overlap_bound(h.m, h.n), 10, 10))
+    # maxmin: the first squaring round of W, whole; the plain version walks
+    # k 16 columns at a time (an [m, 16, m] int32 broadcast each)
+    got = mm.maxmin_matmul(w, w)
+    plain_ms, want = cuda_once(lambda: mm.maxmin_matmul_ref(w, w, block=16))
+    err = check_equal("maxmin path", got, want)
+    del got, want
+    bound_ms, bound_by = maxmin_bound(h.m, h.m, h.m)
+    rows["maxmin_matmul"] = dict(
+        shape=[h.m] * 3, max_abs_err=err, plain_ms=plain_ms,
+        plain_reps=1, ms=cuda_ms(lambda: mm.maxmin_matmul(w, w), reps=3,
+                                 warmup=1),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    # threshold_step: the first round of the threshold batch
+    r = tc.threshold_adjacency(w, torch.as_tensor(thresholds))
+    del w
+    got = tc.threshold_step(r)
+    err = check_equal("threshold path", got, tc.threshold_step_ref(r))
+    share_ones = float(got.mean())
+    del got
+    torch.cuda.empty_cache()
+    rows["threshold_step"] = dict(
+        shape=list(r.shape), max_abs_err=err, share_ones=share_ones,
+        **dense_times(lambda: tc.threshold_step(r),
+                      lambda: tc.threshold_step_ref(r),
+                      lambda: torch.bmm(r, r),
+                      threshold_bound(r.shape[0], h.m), 3, 3))
+    del r
+    torch.cuda.empty_cache()
+    emit({"phase": "closure_path_kernels", "tolerance": 0,
+          "peak_bytes": torch.cuda.max_memory_allocated(),
+          "kernels": rows, "seconds": clock.seconds()})
+    total = {name: sum(c.get(name, 0) for c in launches.values())
+             for name in DENSE_KERNELS}
+    return total, rows
+
+
+def phase_closure_small(api, ops, counters, device):
+    """ENG-s, where everything is cheap: both closure methods on the card
+    answer every pair as the hl-index engine (label_join kernel) and as the
+    MST oracle's forest, and W* equals the forest's every row."""
+    clock = Phase()
+    g = SMALL_GRAPH
+    h = api.random_hypergraph(g["n"], g["m"], min_size=g["min_size"],
+                              max_size=g["max_size"], seed=g["seed"])
+    us, vs = np.divmod(np.arange(h.n * h.n), h.n)
+    rounds = ops.default_rounds(h.m)
+    oracle = api.build_engine(h, "mst-oracle").oracle
+    forest = forest_rows(oracle, range(h.m))
+    hl = api.build_engine(h, "hl-index", use_kernels=True)
+    want = hl.mr_batch(us, vs)
+    # the forest's vertex-level answers: max over incident hyperedge pairs
+    mr_forest = np.zeros(h.n * h.n, np.int64)
+    for u in range(h.n):
+        eu = h.edges_of(u)
+        if eu.size:
+            best = forest[eu].max(axis=0)
+            for v in range(h.n):
+                ev = h.edges_of(v)
+                if ev.size:
+                    mr_forest[u * h.n + v] = best[ev].max()
+    if not np.array_equal(want, mr_forest):
+        raise AssertionError("closure_small: hl-index != MST oracle forest")
+    direct = [oracle.mr(int(u), int(v)) for u, v in zip(us[:400:3], vs[:400:3])]
+    if direct != mr_forest[:400:3].tolist():
+        raise AssertionError("closure_small: MSTOracle.mr != its forest rows")
+    out = {}
+    for method in ("maxmin", "threshold"):
+        eng, counts, build_s = counted_closure_build(api, h, method, counters,
+                                                     rounds, device)
+        if not np.array_equal(eng.w_star, forest):
+            raise AssertionError(f"closure_small {method}: W* != forest")
+        got = eng.mr_batch(us, vs)
+        if got.dtype != np.int32 or not np.array_equal(got, want):
+            raise AssertionError(f"closure_small {method}: answers differ")
+        for s in (2, 4):
+            if not np.array_equal(eng.s_reach_batch(us, vs, s), want >= s):
+                raise AssertionError(f"closure_small {method}: s_reach")
+        out[method] = {"build_seconds": round(build_s, 3),
+                       "launches": {k: v for k, v in counts.items() if v}}
+    emit({"phase": "closure_small", "n": h.n, "m": h.m, "pairs": h.n * h.n,
+          "rounds": rounds, "oracle_direct_pairs": len(direct),
+          "answer_histogram": np.bincount(want).tolist(), "builds": out,
+          "seconds": clock.seconds()})
 
 
 def main() -> int:
@@ -410,19 +925,30 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import api
     from repro_torch.core import engine as engine_mod
+    from repro_torch.core import semiring
     from repro_torch.core.query import searchsorted_join
     from repro_torch.kernels import build as build_mod
     from repro_torch.kernels import label_join as lj
+    from repro_torch.kernels import maxmin_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import overlap as ov
+    from repro_torch.kernels import threshold_closure as tc
 
     device = torch.device("cuda")
+    counters = {"label_join": lj, "maxmin_matmul": mm, "overlap": ov,
+                "threshold_step": tc}
     phase_env(build_mod)
     err_checks = phase_kernel_checks(lj, searchsorted_join, device)
+    dense_errs = phase_dense_kernel_checks(mm, ov, tc, device)
     launches, err_main, times = phase_main_path(api, engine_mod, lj,
                                                 searchsorted_join, device)
     phase_wide_labels(api, engine_mod, lj, device)
+    dense_launches, path_rows = phase_closure_path(api, semiring, ops,
+                                                   counters, device)
+    phase_closure_small(api, ops, counters, device)
     torch.cuda.synchronize()
 
-    emit({"kernels": [{
+    kernels = [{
         "name": "label_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
@@ -431,7 +957,25 @@ def main() -> int:
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,    # no single PyTorch call computes this join
         "torch_ops_ms": times["torch_ops_ms"], "shape": times["shape"],
-    }]})
+    }]
+    replaces = {"maxmin_matmul": "src/repro/kernels/maxmin_matmul.py:70",
+                "overlap": "src/repro/kernels/overlap.py:47",
+                "threshold_step": "src/repro/kernels/threshold_closure.py:54"}
+    for name in DENSE_KERNELS:
+        row = path_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name], "launches": dense_launches[name],
+            "max_abs_err": max(dense_errs[name], row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"]})
+    for k in kernels:
+        if k["launches"] < 1 or k["max_abs_err"] != 0:
+            raise AssertionError(f"kernel {k['name']}: {k['launches']} "
+                                 f"launches, max abs err {k['max_abs_err']}")
+    emit({"kernels": kernels})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

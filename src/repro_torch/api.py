@@ -19,10 +19,19 @@ and raises on a host without a CUDA device; ``device="cpu"`` runs the
 same code on the host, with each kernel's plain PyTorch version in place
 of the kernel.
 
-This is the surface of the port's first slice — the path a batched
-max-reachability query takes.  Updates, the request service, the store,
-the workload families and the remaining backends of the reference facade
-are not here yet; ``ROADMAP.md`` lists them in the order they are ported.
+Backends today: ``hl-index``, ``hl-index-basic``, ``mst-oracle`` and
+``closure`` — the dense (max, min) closure ``W*``, built on the device by
+the ``overlap`` kernel and ⌈log2 m⌉ launches of ``maxmin_matmul``
+(``method="maxmin"``, the default) or ``threshold_step``
+(``method="threshold"``); the planner picks it for small line graphs with
+real batches (``build_engine(h, "auto", batch_hint=1000)``).
+
+    eng = build_engine(h, "closure", method="threshold")  # on the GPU
+    eng.mr_batch(us, vs)             # [Q] int32 from the [n, m] label rows
+
+Updates, the request service, the store, the workload families and the
+remaining backends of the reference facade are not here yet;
+``ROADMAP.md`` lists them in the order they are ported.
 """
 from __future__ import annotations
 

@@ -12,13 +12,14 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from .core.engine import ClosureEngine
 from .core.hlindex import HLIndex
 from .core.hypergraph import Hypergraph
 from .core.query import DeviceSnapshot
 from .device import DeviceLike
 
 __all__ = ["hypergraph_from_arrays", "hlindex_from_arrays",
-           "snapshot_from_arrays"]
+           "snapshot_from_arrays", "closure_engine_from_arrays"]
 
 
 def _int64(a) -> np.ndarray:
@@ -78,3 +79,15 @@ def snapshot_from_arrays(ranks, svals, lengths, backend: str = "hl-index",
             f"svals{svals.shape} lengths{lengths.shape}")
     return DeviceSnapshot.from_padded(ranks, svals, lengths, backend,
                                       int(version), device=device)
+
+
+def closure_engine_from_arrays(h: Hypergraph, w_star, method: str = "maxmin",
+                               device: DeviceLike = None) -> ClosureEngine:
+    """A ``closure`` engine over ``h`` serving a ``W*`` [m, m] computed
+    elsewhere (the reference's ``ClosureEngine.w_star``), copied as int32;
+    its snapshot lands on ``device`` (``None`` = ``"cuda"``)."""
+    w_star = np.array(w_star, dtype=np.int32)          # always a copy
+    if w_star.shape != (h.m, h.m):
+        raise ValueError(f"W* has shape {w_star.shape}, the graph needs "
+                         f"({h.m}, {h.m})")
+    return ClosureEngine(h, w_star, method, device=device)

@@ -23,9 +23,12 @@ Backends with no label form (the MST forest) raise ``SnapshotUnsupported``
 — their batch paths run through their own engines.
 
 Counterpart of ``repro/core/engine.py``, same names in the same order.
-What this module holds today is the main path: the protocol, the shared
-base, the registry, the planner, ``build``, and the backends ``hl-index``,
-``hl-index-basic`` and ``mst-oracle``.  Not ported yet, and how each fails:
+What this module holds today: the protocol, the shared base, the
+registry, the planner, ``build``, and the backends ``hl-index``,
+``hl-index-basic``, ``mst-oracle`` and ``closure`` (the dense (max, min)
+closure ``W*``, formed on the device by the ``overlap`` and
+``maxmin_matmul`` / ``threshold_step`` kernels).  Not ported yet, and how
+each fails:
 
 * ``update()`` on a backend that supports it raises ``NotImplementedError``
   (roadmap item A6: scoped maintenance); the static ``mst-oracle`` raises
@@ -50,6 +53,7 @@ from __future__ import annotations
 
 import functools
 import os
+import time
 from typing import (Callable, Dict, FrozenSet, List, Optional, Protocol,
                     Tuple, runtime_checkable)
 
@@ -63,6 +67,8 @@ from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
 from .minimal import minimize
 from .query import DeviceSnapshot, KernelSnapshot, mr_query, s_reach_query
 from .baselines import MSTOracle
+from .semiring import (CLOSURE_METHODS, close_line_graph, device_line_graph,
+                       vertex_mr_from_edge_mr)
 
 __all__ = [
     "ReachabilityEngine", "DeviceSnapshot", "KernelSnapshot",
@@ -71,7 +77,7 @@ __all__ = [
     "register_backend", "available_backends", "plan_backend",
     "build", "validate_batch",
     "HLIndexEngine", "HLIndexBasicEngine", "MSTOracleEngine",
-    "SINGLE_DEVICE_CLOSURE_BUDGET", "CONSTRUCTION_MODES",
+    "ClosureEngine", "SINGLE_DEVICE_CLOSURE_BUDGET", "CONSTRUCTION_MODES",
 ]
 
 
@@ -317,6 +323,13 @@ class _EngineBase:
             self._kernel_view = kv
         return kv
 
+    def _device_pairs(self, us, vs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Validated id pairs on the engine's ``device``, int64, moved in
+        one host->device copy (snapshot-serving backends)."""
+        us, vs = validate_batch(us, vs, self.h.n)
+        pairs = torch.from_numpy(np.stack([us, vs])).to(self.device)
+        return pairs[0], pairs[1]
+
     def s_reach(self, u: int, v: int, s: int) -> bool:
         return self.mr(u, v) >= s
 
@@ -395,9 +408,9 @@ def plan_backend(h: Hypergraph, batch_hint: Optional[int] = None, *,
 
     The policy is the reference's, unchanged, so both packages name the
     same backend on the same inputs.  It may therefore name a backend
-    that ``build`` cannot build yet (``sharded``, ``closure``,
-    ``frontier``, ``online``): ``build(backend="auto")`` then fails with
-    the "unknown backend" error that lists the ported ones.
+    that ``build`` cannot build yet (``sharded``, ``frontier``,
+    ``online``): ``build(backend="auto")`` then fails with the "unknown
+    backend" error that lists the ported ones.
 
     Args:
       h: the hypergraph to serve.
@@ -599,13 +612,6 @@ class HLIndexEngine(_EngineBase):
         self._check_vertex_ids(u, v)
         return s_reach_query(self.idx, int(u), int(v), int(s))
 
-    def _device_pairs(self, us, vs) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Validated id pairs on the engine's device, int64, moved in one
-        host->device copy."""
-        us, vs = validate_batch(us, vs, self.h.n)
-        pairs = torch.from_numpy(np.stack([us, vs])).to(self.device)
-        return pairs[0], pairs[1]
-
     def mr_batch(self, us, vs) -> np.ndarray:
         us, vs = self._device_pairs(us, vs)
         return self._query_snapshot().mr(us, vs).cpu().numpy()
@@ -704,3 +710,129 @@ class MSTOracleEngine(_EngineBase):
     def mr(self, u: int, v: int) -> int:
         self._check_vertex_ids(u, v)
         return self.oracle.mr(int(u), int(v))
+
+
+# ---------------------------------------------------------------------------
+# Dense closure backend
+# ---------------------------------------------------------------------------
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@register_backend("closure")
+class ClosureEngine(_EngineBase):
+    """Dense (max, min)-semiring closure W* [m, m] (``semiring.py``).
+
+    Built on ``device``: the line graph by the ``overlap`` kernel, then
+    ⌈log2 m⌉ squaring rounds of the ``maxmin_matmul`` kernel
+    (``method="maxmin"``) or of the ``threshold_step`` kernel over the
+    distinct-threshold batch (``method="threshold"``); on the host the same
+    code runs the plain versions.  ``w_star`` is kept as a host int32
+    array: scalar ``mr`` reads it there.
+
+    Its snapshot is the degenerate-but-exact label form: every hyperedge
+    is a hub, ``L(u)[e] = max_{e_u ∋ u} W*[e_u, e]``.  Bottleneck triangle
+    inequality makes the shared searchsorted join exact on these rows
+    (equality is attained at the hub e = e_u of an optimal pair).  Batches
+    go through ``DeviceSnapshot.mr`` (``batched_mr``), as in the
+    reference.  Declares ``"rebuild"`` updates like the reference; the
+    update itself is roadmap item A6.
+    """
+
+    name = "closure"
+    update_capability = "rebuild"
+
+    def __init__(self, h: Hypergraph, w_star: np.ndarray,
+                 method: str = "maxmin", *, device: DeviceLike = None,
+                 w_star_device: Optional[torch.Tensor] = None):
+        super().__init__(h)
+        self.device = resolve_device(device)
+        self.w_star = w_star
+        self._method = method
+        self._snap: Optional[DeviceSnapshot] = None
+        # the build's device copy of W*, kept only until the snapshot has
+        # been derived from it (saves re-landing m^2 int32 from the host)
+        self._w_star_device = w_star_device
+        # host-clock seconds of the build's steps, device work included
+        self.build_seconds: Dict[str, float] = {}
+
+    @classmethod
+    def build(cls, h: Hypergraph, *, method: str = "maxmin",
+              device: DeviceLike = None) -> "ClosureEngine":
+        device = resolve_device(device)
+        if h.m and method not in CLOSURE_METHODS:
+            raise ValueError(method)
+        seconds = {}
+        t0 = time.perf_counter()
+
+        def lap(step: str) -> None:
+            nonlocal t0
+            _sync(device)
+            t1 = time.perf_counter()
+            seconds[step] = t1 - t0
+            t0 = t1
+
+        if h.m == 0:            # no hyperedges: nothing is reachable
+            w_star = torch.zeros((0, 0), dtype=torch.int32, device=device)
+        else:
+            w = device_line_graph(h, device=device)
+            lap("line_graph")
+            w_star = close_line_graph(w, method)
+            del w
+            lap("closure")
+        host = w_star.cpu().numpy()
+        lap("host_copy")
+        eng = cls(h, host, method, device=device, w_star_device=w_star)
+        eng.build_seconds = seconds
+        return eng
+
+    def mr(self, u: int, v: int) -> int:
+        # scalar lookups stay on the host matrix (no reason to build the
+        # [n, m] snapshot for a trickle of queries)
+        self._check_vertex_ids(u, v)
+        return int(vertex_mr_from_edge_mr(self.h, self.w_star,
+                                          [int(u)], [int(v)])[0])
+
+    def mr_batch(self, us, vs) -> np.ndarray:
+        # batches go through the device join — the reason the planner
+        # picks this backend for batched small-graph workloads
+        us, vs = self._device_pairs(us, vs)
+        return self._query_snapshot().mr(us, vs).cpu().numpy()
+
+    def s_reach_batch(self, us, vs, s: int) -> np.ndarray:
+        us, vs = self._device_pairs(us, vs)
+        return self._query_snapshot().s_reach(us, vs, int(s)).cpu().numpy()
+
+    def snapshot(self) -> DeviceSnapshot:
+        """Label rows ``svals[u] = max over e_u ∋ u of W*[e_u, :]``, derived
+        on the device: one gather of W* rows per incidence slot, max-folded
+        into the owning vertex's row (degree-0 vertices keep zero rows);
+        ranks are ``arange(m)`` on every row, lengths ``m``."""
+        if not self._snapshot_current():
+            h, m, dev = self.h, self.h.m, self.device
+            w_star = self._w_star_device
+            if w_star is None:
+                w_star = torch.from_numpy(self.w_star).to(dev)
+            svals = torch.zeros((h.n, m), dtype=torch.int32, device=dev)
+            deg = np.diff(h.v_ptr)
+            for j in range(int(deg.max()) if h.n else 0):
+                # the j-th incident hyperedge of every vertex that has one
+                owners = np.nonzero(deg > j)[0]
+                rows = torch.from_numpy(owners).to(dev)
+                edges = torch.from_numpy(h.v_idx[h.v_ptr[owners] + j]).to(dev)
+                svals.index_copy_(0, rows, torch.maximum(
+                    svals.index_select(0, rows), w_star.index_select(0, edges)))
+            ranks = torch.arange(m, dtype=torch.int32, device=dev)
+            self._snap = DeviceSnapshot(
+                ranks=ranks.expand(h.n, m).contiguous(), svals=svals,
+                lengths=torch.full((h.n,), m, dtype=torch.int32, device=dev),
+                backend=self.name, version=self.version)
+            self._w_star_device = None
+            self.last_snapshot_refresh_rows = h.n
+            self._dirty_rows = np.empty(0, np.int64)
+        return self._snap
+
+    def nbytes(self) -> int:
+        return int(self.w_star.nbytes)

@@ -5,26 +5,31 @@ by ``nvcc`` for ``sm_90a`` into a shared library that ``ctypes`` loads —
 no PyTorch headers, so a build takes seconds.  Nothing is built when the
 package is imported: ``load_library`` runs at a kernel's first launch, and
 ``build_libraries`` compiles several sources at once (one ``nvcc`` process
-each, all started together).
+each, all started together).  ``launch`` is how a wrapper enqueues its
+kernel: on PyTorch's current stream, raising on a refused launch.
 
 Libraries land in ``build/repro_torch_kernels/`` at the root of the
-checkout (listed in ``.gitignore``) under a name that carries the source's
-content hash and the compile flags, so an edited source is rebuilt and a
+checkout (listed in ``.gitignore``) under a name that carries the content
+hash of the source and of every shared header in ``csrc/`` (``*.cuh``),
+and the compile flags, so an edited source or header is rebuilt and a
 stale library is never loaded.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
+
+import torch
 
 from ..device import find_nvcc
 
 __all__ = ["NVCC_FLAGS", "CSRC_DIR", "default_build_dir", "build_libraries",
-           "load_library", "BUILD_LOG"]
+           "load_library", "launch", "BUILD_LOG"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 
@@ -48,6 +53,8 @@ def _library_path(name: str, build_dir: Path) -> Path:
     if not source.is_file():
         raise FileNotFoundError(f"no kernel source {source}")
     digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -100,3 +107,27 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_point(name: str, symbol: str, argtypes: tuple):
+    """``symbol`` of library ``name`` with its C signature declared: the
+    given argument types, then the stream; returns a CUDA error code."""
+    fn = getattr(load_library(name), symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device,
+           args: Sequence, what: str) -> None:
+    """Enqueue one kernel: call ``symbol`` of library ``name`` with ``args``
+    and the current PyTorch stream of ``device`` (built and loaded at the
+    first call).  Never waits for the kernel; raises ``RuntimeError`` if the
+    launch was refused (``what`` names the call in the message)."""
+    fn = _entry_point(name, symbol, tuple(argtypes))
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
+                           f"{err}")

@@ -30,12 +30,11 @@ Sentinel contract (shared with ``DeviceSnapshot`` / ``pad_label_rows``):
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from .build import load_library
+from .build import launch
 
 __all__ = ["label_join", "label_join_ref", "validate_ranks", "MAX_RANK",
            "LAUNCHES"]
@@ -103,15 +102,7 @@ def _check_operands(ru, su, rv, sv) -> None:
             raise ValueError(f"label_join: {name} must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The library's entry point with its C signature declared (built and
-    loaded at the first call, then reused)."""
-    fn = load_library("label_join").label_join_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int]
 
 
 def label_join(ru: torch.Tensor, su: torch.Tensor, rv: torch.Tensor,
@@ -129,16 +120,9 @@ def label_join(ru: torch.Tensor, su: torch.Tensor, rv: torch.Tensor,
         raise ValueError(f"label_join: unsupported device {ru.device}")
     if q == 0 or lmax == 0:            # a zero-size grid is a launch error
         return torch.zeros((q,), dtype=torch.int32, device=ru.device)
-    launch = _launcher()
     out = torch.empty((q,), dtype=torch.int32, device=ru.device)
-    # the launch goes to the operands' device, on PyTorch's current stream
-    # there; a launch is enqueued only, never waited for
-    with torch.cuda.device(ru.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(ru.data_ptr(), su.data_ptr(), rv.data_ptr(),
-                     sv.data_ptr(), out.data_ptr(), q, lmax, stream)
-    if err != 0:
-        raise RuntimeError(f"label_join kernel launch failed: CUDA error "
-                           f"{err} for Q={q}, L={lmax}")
+    launch("label_join", "label_join_launch", _ARGTYPES, ru.device,
+           (ru.data_ptr(), su.data_ptr(), rv.data_ptr(), sv.data_ptr(),
+            out.data_ptr(), q, lmax), f"label_join Q={q}, L={lmax}")
     LAUNCHES += 1
     return out

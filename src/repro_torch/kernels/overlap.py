@@ -1,0 +1,82 @@
+"""Hyperedge-overlap (line-graph) matrix: plain version, CUDA wrapper.
+
+    W = B·Bᵀ,  W[i, j] = |e_i ∩ e_j|,  diagonal |e_i|
+
+over the 0/1 incidence ``B [m, n]``.  Counterpart of
+``repro/kernels/overlap.py`` (the Pallas kernel) and of ``overlap_ref`` in
+``repro/kernels/ref.py``.
+
+* ``overlap_ref`` — the plain PyTorch version, ``b @ b.T`` in the input's
+  dtype with an optional diagonal override, as the reference has it.
+* ``overlap`` — the wrapper: float32 or bfloat16 in, float32 out, as the
+  Pallas kernel.  CPU tensors go to the plain version (in float32); CUDA
+  tensors launch the hand-written kernel ``csrc/overlap.cu`` (tile product
+  on the CUDA cores, Bᵀ read through a transposed index, never formed) or
+  raise.  There is no fallback from the kernel to anything else.
+* ``LAUNCHES`` — incremented once per kernel launch and nowhere else.
+
+Counts are sums of 0/1 products in float32: exact while below 2^24.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .build import launch
+
+__all__ = ["overlap", "overlap_ref", "LAUNCHES"]
+
+# kernel launches made by ``overlap`` in this process
+LAUNCHES = 0
+
+_SYMBOLS = {torch.float32: "overlap_f32_launch",
+            torch.bfloat16: "overlap_bf16_launch"}
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
+
+
+def overlap_ref(b_inc: torch.Tensor,
+                sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Line graph W = B·Bᵀ from a 0/1 incidence matrix [m, n]; the diagonal
+    is |e_i| either way (row self-product), optionally overridden by
+    ``sizes`` (used when B is a padded block of a larger incidence)."""
+    w = b_inc @ b_inc.T
+    if sizes is not None:
+        w.diagonal().copy_(torch.as_tensor(sizes).to(w.device, w.dtype))
+    return w
+
+
+def _check_operand(b_inc) -> None:
+    if not isinstance(b_inc, torch.Tensor):
+        raise TypeError(f"overlap: b_inc must be a torch.Tensor, got "
+                        f"{type(b_inc).__name__}")
+    if b_inc.dtype not in _SYMBOLS:
+        raise TypeError(f"overlap: b_inc must be float32 or bfloat16, got "
+                        f"{b_inc.dtype}")
+    if b_inc.dim() != 2:
+        raise ValueError(f"overlap: b_inc must be [m, n], got shape "
+                         f"{tuple(b_inc.shape)}")
+    if not b_inc.is_contiguous():
+        raise ValueError("overlap: b_inc must be contiguous")
+
+
+def overlap(b_inc: torch.Tensor) -> torch.Tensor:
+    """b_inc [m, n] 0/1, float32 or bfloat16, contiguous.  Returns W [m, m]
+    float32 on its device; m or n of 0 gives zeros [m, m] with no launch.
+    Anything else raises."""
+    global LAUNCHES
+    _check_operand(b_inc)
+    if b_inc.device.type == "cpu":
+        return overlap_ref(b_inc.to(torch.float32))
+    if b_inc.device.type != "cuda":
+        raise ValueError(f"overlap: unsupported device {b_inc.device}")
+    m, n = b_inc.shape
+    if m == 0 or n == 0:               # a zero-size grid is a launch error
+        return torch.zeros((m, m), dtype=torch.float32, device=b_inc.device)
+    out = torch.empty((m, m), dtype=torch.float32, device=b_inc.device)
+    launch("overlap", _SYMBOLS[b_inc.dtype], _ARGTYPES, b_inc.device,
+           (b_inc.data_ptr(), out.data_ptr(), m, n),
+           f"overlap {b_inc.dtype} m={m}, n={n}")
+    LAUNCHES += 1
+    return out

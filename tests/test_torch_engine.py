@@ -189,11 +189,16 @@ def test_auto_backend_builds_or_names_what_is_missing():
     assert eng.name == "hl-index" == port_api.plan_backend(h)
     small = _graph(port_api)
     assert port_api.plan_backend(small, 1000) == "closure"
-    with pytest.raises(ValueError, match="unknown backend 'closure'.*"
-                                         "hl-index"):
-        port_api.build_engine(small, "auto", batch_hint=1000, device="cpu")
-    assert port_api.available_backends() == ["hl-index", "hl-index-basic",
-                                             "mst-oracle"]
+    eng = port_api.build_engine(small, "auto", batch_hint=1000, device="cpu")
+    assert eng.name == "closure"
+    huge = port_api.random_hypergraph(60, 3000, min_size=20, max_size=40,
+                                      seed=2)
+    assert port_api.plan_backend(huge, 1000) == "frontier"
+    with pytest.raises(ValueError, match="unknown backend 'frontier'.*"
+                                         "closure.*hl-index"):
+        port_api.build_engine(huge, "auto", batch_hint=1000, device="cpu")
+    assert port_api.available_backends() == ["closure", "hl-index",
+                                             "hl-index-basic", "mst-oracle"]
     assert set(port_api.available_backends()) <= \
         set(ref_api.available_backends())
 
@@ -305,7 +310,8 @@ def test_engine_build_needs_a_device_or_an_explicit_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None is legal here")
     h = _graph(port_api)
-    for backend in ("hl-index", "hl-index-basic", "mst-oracle", "auto"):
+    for backend in ("hl-index", "hl-index-basic", "mst-oracle", "closure",
+                    "auto"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_api.build_engine(h, backend)
     with pytest.raises(RuntimeError, match="device='cpu'"):

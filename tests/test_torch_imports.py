@@ -40,10 +40,13 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.core", "repro_torch.core.baselines",
         "repro_torch.core.engine", "repro_torch.core.hlindex",
         "repro_torch.core.hypergraph", "repro_torch.core.minimal",
-        "repro_torch.core.query", "repro_torch.device",
-        "repro_torch.kernels", "repro_torch.kernels.build",
-        "repro_torch.kernels.label_join", "repro_torch.kernels.ref",
+        "repro_torch.core.query", "repro_torch.core.semiring",
+        "repro_torch.device", "repro_torch.kernels",
+        "repro_torch.kernels.build", "repro_torch.kernels.label_join",
+        "repro_torch.kernels.maxmin_matmul", "repro_torch.kernels.ops",
+        "repro_torch.kernels.overlap", "repro_torch.kernels.ref",
         "repro_torch.kernels.registry",
+        "repro_torch.kernels.threshold_closure",
     ]
 
 
@@ -122,7 +125,8 @@ def test_kernel_build_fails_loudly_without_a_compiler(tmp_path):
     if find_nvcc() is not None:
         pytest.skip("nvcc is present here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.build_libraries(["label_join"], tmp_path)
+        build.build_libraries(["label_join", "maxmin_matmul", "overlap",
+                               "threshold_step"], tmp_path)
     assert not any(tmp_path.iterdir())
 
 

@@ -167,21 +167,25 @@ def test_wrapper_raises_on_bad_operands(case, exc):
 
 
 def test_registry_is_a_subset_of_the_reference_and_perf_md_names_the_rest():
-    assert set(KERNEL_REGISTRY) == {"label_join"}
-    assert set(KERNEL_REGISTRY) <= set(REF_REGISTRY)
+    # every kernel of the reference is ported now: the two registries match
+    assert set(KERNEL_REGISTRY) == set(REF_REGISTRY) == {
+        "label_join", "maxmin_matmul", "overlap", "threshold_step"}
     spec = KERNEL_REGISTRY["label_join"]
     assert spec.kernel is lj.label_join
     assert spec.reference is lj.label_join_ref
-    assert spec.unit == "CUDA cores"
     root = pathlib.Path(__file__).resolve().parents[1]
-    assert (root / "src" / "repro_torch" / spec.source).is_file()
+    for name, spec in KERNEL_REGISTRY.items():
+        assert spec.unit == "CUDA cores", name
+        assert getattr(port_oracles, spec.reference.__name__) is \
+            spec.reference
+        assert spec.kernel.__name__ == name
+        assert (root / "src" / "repro_torch" / spec.source).is_file()
     perf = (root / "PERF.md").read_text()
     for name in REF_REGISTRY:
         rows = [ln for ln in perf.splitlines()
                 if ln.startswith(f"| `{REF_REGISTRY[name].kernel.__name__}`")]
         assert len(rows) == 1, f"PERF.md needs one table row for {name}"
-        want = "ported in PR" if name in KERNEL_REGISTRY else "to be ported"
-        assert want in rows[0], (name, rows[0])
+        assert "ported in PR" in rows[0], (name, rows[0])
 
 
 @pytest.mark.gpu
