@@ -17,12 +17,21 @@ and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
 non-zero at once.
 
-Output, one JSON object per line: `env`, `kernel_checks` (one per kernel),
-`main_path`, `wide_labels`, `closure_path`, `closure_small`, then
-`{"kernels": [...]}` (per kernel: launches on its path, error against the
-plain version, times and the roofline bound), the card's name and power
-limit as `nvidia-smi` prints them, and last `{"ok": true, "device": {...}}`.
-Each phase line carries its own `seconds`.
+Output: one `ptxas <kernel>: ...` line per library (registers, shared
+memory, spills, warnings), then one JSON object per line: `env` (with the
+SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
+`main_path`, `wide_labels`, `closure_path`, `closure_path_kernels`,
+`closure_small`, then `{"kernels": [...]}` (per kernel: launches on its
+path, error against the plain version, times and the roofline bound), the
+card's name and power limit as `nvidia-smi` prints them, and last
+`{"ok": true, "device": {...}}`.  Each phase line carries its own
+`seconds`.
+
+The two tensor-core kernels (`overlap`, `threshold_step`) run on bf16 0/1
+operands: they are held against their plain versions in float32 and in
+bf16, on shapes that need the wrappers' zero pad and shapes that do not,
+and timed at the path's dtype (bf16), with the library call in bf16
+(`library_ms`) and in float32 (`library_f32_ms`).
 
 Times: a kernel's time is CUDA events around single launches on resident
 operands, median after warm-up (operands up to a few tens of MB stay in
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -48,6 +58,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
 # narrowest type that holds a 0/1 product exactly, so the least time for
 # the overlap and threshold_step products.
 INT8_TENSOR_OPS_PER_S = 1.979e15
+# Dense bf16 tensor-core rate (NVIDIA data sheet): the type the two kernels
+# run in.  The ceiling of their route computed from it is printed in the
+# `closure_path_kernels` phase line only, never in the `kernels` line.
+BF16_TENSOR_OPS_PER_S = 0.989e15
 # 32-bit integer min/max (and compare) results per clock per SM on compute
 # capability 9.0: 64 (CUDA C++ Programming Guide, "Arithmetic
 # Instructions" throughput table) -- half the 128 FP32 lanes.  The rate is
@@ -69,12 +83,17 @@ MAXMIN_CORPUS = [(33, 32, 17, 0), (1, 1, 1, 1), (8, 37, 9, 2), (0, 4, 4, 3),
                  (4, 0, 4, 4), (4, 4, 0, 5), (64, 64, 64, 6)]
 OVERLAP_CORPUS = [(10, 17, 0), (1, 1, 1), (0, 5, 2), (5, 0, 3), (130, 40, 4)]
 THRESHOLD_CORPUS = [(1, 16, 0), (3, 33, 1), (0, 8, 2), (2, 0, 3)]
+# beyond the corpora: m and n that need the kernels' zero pad (not a
+# multiple of 8) and ones that do not, across several tiles
+THRESHOLD_EXTRA = [(2, 299, 9), (2, 300, 10), (1, 257, 11)]
+OVERLAP_EXTRA = [(300, 129, 9), (301, 256, 10), (12_704, 242, 11)]
 # primary-school at its published size (benchmarks/datasets.py lists
 # 242 vertices, 12,704 hyperedges; PS-s draws edge sizes 2-5, seed 4)
 CLOSURE_GRAPH = dict(n=242, m=12_704, min_size=2, max_size=5, seed=4)
 # ENG-s, the repo's small engine graph: every pair is checked
 SMALL_GRAPH = dict(n=200, m=256, min_size=2, max_size=6, seed=7)
 DENSE_KERNELS = ("maxmin_matmul", "overlap", "threshold_step")
+TENSOR_CORE_KERNELS = ("overlap", "threshold_step")
 # one medium timed shape per dense kernel: [M]^3 maxmin, B [m, n], R [S, m, m]
 MEDIUM_MAXMIN = 2048
 MEDIUM_OVERLAP = (2048, 512)
@@ -203,19 +222,43 @@ def bound(nbytes, ops, ops_per_s):
 
 # -- phases -------------------------------------------------------------------
 
-def phase_env(build_mod):
-    """Builds all four libraries at once (one nvcc each, in parallel) and
-    reads the card's rates."""
+def ptxas_lines(log):
+    """What ``nvcc -Xptxas -v`` said that matters: each entry function,
+    its registers, shared memory and spills, and any warning (ptxas names
+    wgmma serialisation there)."""
+    keep = ("Compiling entry", "registers", "spill", "warning", "error")
+    return [ln.strip() for ln in log.splitlines()
+            if any(k in ln for k in keep)]
+
+
+def sass_counts(nvcc, path):
+    """Tensor-core and TMA instructions in a library's SASS
+    (``cuobjdump -sass``), or None where the toolkit lacks cuobjdump."""
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "HMMA", "UTMALDG")}
+
+
+def phase_env(build_mod, nvcc):
+    """Builds all four libraries at once (one nvcc each, in parallel),
+    reads each one's ptxas report and SASS, and reads the card's rates."""
     clock = Phase()
     names = ["label_join", *DENSE_KERNELS]
     t0 = time.perf_counter()
-    build_mod.build_libraries(names)
+    paths = build_mod.build_libraries(names)
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in build_mod.BUILD_LOG.get(name, "")
-                    .splitlines()
-                    if "registers" in ln or "spill" in ln
-                    or "error" in ln.lower()]
+    ptxas = {name: ptxas_lines(build_mod.BUILD_LOG.get(name, ""))
              for name in names}
+    for name in names:
+        print(f"ptxas {name}: " + " | ".join(ptxas[name]), flush=True)
+    sass = {name: sass_counts(nvcc, paths[name]) for name in names}
+    for name in TENSOR_CORE_KERNELS:
+        if sass[name] is not None and sass[name]["HGMMA"] == 0:
+            raise AssertionError(f"{name}: no HGMMA in its SASS {sass[name]}")
     # a float32 product must not be TF32-rounded anywhere in this run
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -228,8 +271,10 @@ def phase_env(build_mod):
            "card": nvidia_smi_line(), "sms": sms, "max_sm_clock_mhz": max_mhz,
            "int32_minmax_ops_per_s": RATES["int32_minmax"],
            "int8_tensor_ops_per_s": INT8_TENSOR_OPS_PER_S,
+           "bf16_tensor_ops_per_s": BF16_TENSOR_OPS_PER_S,
            "tf32": torch.backends.cuda.matmul.allow_tf32,
-           "kernel_build_seconds": round(seconds, 3), "ptxas": ptxas}
+           "kernel_build_seconds": round(seconds, 3), "ptxas": ptxas,
+           "sass": sass}
     env["seconds"] = clock.seconds()
     emit(env)
     return env
@@ -503,18 +548,27 @@ def maxmin_bound(m, k, n):
                  RATES["int32_minmax"])
 
 
-def overlap_bound(m, n):
-    """Least ms for W = B·Bᵀ: B [m, n] float32 read once, W [m, m] float32
-    written once; 2 operations per multiply-add at the int8 tensor-core
-    rate (the narrowest type that holds a 0/1 product exactly)."""
-    return bound(4 * (m * n + m * m), 2 * m * m * n, INT8_TENSOR_OPS_PER_S)
+def overlap_bound(m, n, in_bytes):
+    """Least ms for W = B·Bᵀ: B [m, n] read once at ``in_bytes`` a value,
+    W [m, m] float32 written once; 2 operations per multiply-add at the
+    int8 tensor-core rate (the narrowest type that holds a 0/1 product
+    exactly)."""
+    return bound(in_bytes * m * n + 4 * m * m, 2 * m * m * n,
+                 INT8_TENSOR_OPS_PER_S)
 
 
-def threshold_bound(s, m):
-    """Least ms for one threshold_step round: R [S, m, m] float32 read once
-    and written once; 2 operations per multiply-add at the int8
-    tensor-core rate."""
-    return bound(8 * s * m * m, 2 * s * m ** 3, INT8_TENSOR_OPS_PER_S)
+def threshold_bound(s, m, value_bytes):
+    """Least ms for one threshold_step round: R [S, m, m] read once and the
+    result written once, ``value_bytes`` a value each; 2 operations per
+    multiply-add at the int8 tensor-core rate."""
+    return bound(2 * value_bytes * s * m * m, 2 * s * m ** 3,
+                 INT8_TENSOR_OPS_PER_S)
+
+
+def bf16_ceiling_ms(ops):
+    """The same operations at the data sheet's bf16 tensor-core rate: the
+    least time of the route the kernels take (computed, not measured)."""
+    return ops / BF16_TENSOR_OPS_PER_S * 1e3
 
 
 def expect_no_launch(mod, tag, fn, want):
@@ -527,13 +581,30 @@ def expect_no_launch(mod, tag, fn, want):
     check_equal(tag, got, want)
 
 
-def dense_times(kernel, plain, library, bound_ms_by, reps, plain_reps):
-    """Kernel / plain / library ms (CUDA events, median) and the bound."""
+def dense_times(kernel, plain, library, bound_ms_by, reps, plain_reps,
+                library_f32=None):
+    """Kernel / plain / library ms (CUDA events, median) and the bound;
+    ``library_f32``: the same library call on float32 operands."""
     out = {"ms": cuda_ms(kernel, reps=reps, warmup=1),
            "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
            "library_ms": (cuda_ms(library, reps=reps, warmup=1)
                           if library is not None else None)}
+    if library_f32 is not None:
+        out["library_f32_ms"] = cuda_ms(library_f32, reps=reps, warmup=1)
     out["bound_ms"], out["bound_by"] = bound_ms_by
+    return out
+
+
+def counted(mod, tag, fn, launches, padded):
+    """``fn()`` on the card with ``mod``'s counts read around it: it must
+    launch ``launches`` times, ``padded`` of them through the zero pad."""
+    before = (mod.LAUNCHES, mod.PADDED)
+    out = fn()
+    torch.cuda.synchronize()
+    got = (mod.LAUNCHES - before[0], mod.PADDED - before[1])
+    if got != (launches, padded):
+        raise AssertionError(f"{tag}: (launches, padded) {got}, expected "
+                             f"{(launches, padded)}")
     return out
 
 
@@ -583,66 +654,87 @@ def phase_dense_kernel_checks(mm, ov, tc, device):
           "tolerance": 0, "max_abs_err": err, "cases": cases,
           "seconds": clock.seconds()})
 
-    # overlap, float32 and bfloat16 0/1 input, float32 W
+    # overlap, float32 and bfloat16 0/1 input, float32 W; n % 8 != 0 goes
+    # through the wrapper's zero columns
     clock, err, cases = Phase(), 0, []
-    for m, n, seed in OVERLAP_CORPUS:
+    for m, n, seed in OVERLAP_CORPUS + OVERLAP_EXTRA:
         rng = np.random.default_rng(seed)
         b_inc = torch.from_numpy((rng.random((m, n)) < 0.3)
                                  .astype(np.float32)).to(device)
         want = ov.overlap_ref(b_inc)
         for operand in (b_inc, b_inc.to(torch.bfloat16)):
-            tag = f"overlap corpus[{m},{n}] {operand.dtype}"
+            tag = f"overlap [{m},{n}] {operand.dtype}"
             if m and n:
-                err = max(err, check_equal(tag, ov.overlap(operand), want))
+                got = counted(ov, tag, lambda: ov.overlap(operand), 1,
+                              int(n % 8 != 0))
+                err = max(err, check_equal(tag, got, want))
             else:
                 expect_no_launch(ov, tag, lambda: ov.overlap(operand), want)
-        cases.append({"shape": [m, n], "case": "corpus", "equal": True})
+        cases.append({"shape": [m, n], "padded": bool(n % 8),
+                      "case": "corpus" if seed < 9 else "extra",
+                      "dtypes": ["float32", "bfloat16"], "equal": True})
     gen.manual_seed(22)
     m, n = MEDIUM_OVERLAP
     b_inc = (torch.rand((m, n), generator=gen, device=device) < 0.3).float()
+    b16 = b_inc.to(torch.bfloat16)
     want = ov.overlap_ref(b_inc)
-    for operand in (b_inc, b_inc.to(torch.bfloat16)):
+    for operand in (b_inc, b16):
         err = max(err, check_equal(f"overlap medium {operand.dtype}",
                                    ov.overlap(operand), want))
-    row = {"shape": [m, n], "case": "medium", "equal": True}
-    row.update(dense_times(lambda: ov.overlap(b_inc),
+    row = {"shape": [m, n], "dtype": "bfloat16", "case": "medium",
+           "equal": True}
+    row.update(dense_times(lambda: ov.overlap(b16),
                            lambda: ov.overlap_ref(b_inc),
-                           lambda: torch.matmul(b_inc, b_inc.T),
-                           overlap_bound(m, n), 20, 20))
+                           lambda: torch.matmul(b16, b16.T),
+                           overlap_bound(m, n, 2), 20, 20,
+                           library_f32=lambda: torch.matmul(b_inc, b_inc.T)))
     cases.append(row)
     errs["overlap"] = err
     emit({"phase": "kernel_checks", "kernel": "overlap", "tolerance": 0,
           "max_abs_err": err, "cases": cases, "seconds": clock.seconds()})
 
-    # threshold_step
+    # threshold_step, float32 and bfloat16; m % 8 != 0 goes through the
+    # wrapper's zero pad
     clock, err, cases = Phase(), 0, []
-    for s, m, seed in THRESHOLD_CORPUS:
+    for s, m, seed in THRESHOLD_CORPUS + THRESHOLD_EXTRA:
         rng = np.random.default_rng(seed)
-        r = torch.from_numpy((rng.random((s, m, m)) < 0.2)
-                             .astype(np.float32)).to(device)
-        tag = f"threshold corpus[{s},{m}]"
-        want = tc.threshold_step_ref(r)
-        if s and m:
-            err = max(err, check_equal(tag, tc.threshold_step(r), want))
-        else:
-            expect_no_launch(tc, tag, lambda: tc.threshold_step(r), want)
-            if tc.threshold_step(r) is not r:
-                raise AssertionError(f"{tag}: an empty batch must come back "
-                                     f"as is")
-        cases.append({"shape": [s, m, m], "case": "corpus", "equal": True})
+        r32 = torch.from_numpy((rng.random((s, m, m)) < 0.2)
+                               .astype(np.float32)).to(device)
+        for r in (r32, r32.to(torch.bfloat16)):
+            tag = f"threshold [{s},{m}] {r.dtype}"
+            want = tc.threshold_step_ref(r)
+            if s and m:
+                got = counted(tc, tag, lambda: tc.threshold_step(r), 1,
+                              int(m % 8 != 0))
+                err = max(err, check_equal(tag, got, want))
+                if not torch.equal(got.float(), tc.threshold_step_ref(r32)):
+                    raise AssertionError(f"{tag}: the dtypes disagree")
+            else:
+                expect_no_launch(tc, tag, lambda: tc.threshold_step(r), want)
+                if tc.threshold_step(r) is not r:
+                    raise AssertionError(f"{tag}: an empty batch must come "
+                                         f"back as is")
+        cases.append({"shape": [s, m, m], "padded": bool(m % 8),
+                      "case": "corpus" if seed < 9 else "extra",
+                      "dtypes": ["float32", "bfloat16"], "equal": True})
     gen.manual_seed(23)
     s, m = MEDIUM_THRESHOLD
     # about one in five entries of a squared row set: a mixed 0/1 answer
-    r = (torch.rand((s, m, m), generator=gen, device=device) < 0.01).float()
+    r32 = (torch.rand((s, m, m), generator=gen, device=device) < 0.01).float()
+    r = r32.to(torch.bfloat16)
     got = tc.threshold_step(r)
-    err = max(err, check_equal("threshold medium", got,
+    err = max(err, check_equal("threshold medium bf16", got,
                                tc.threshold_step_ref(r)))
-    row = {"shape": [s, m, m], "case": "medium", "equal": True,
-           "share_ones": float(got.mean())}
+    err = max(err, check_equal("threshold medium float32",
+                               tc.threshold_step(r32),
+                               tc.threshold_step_ref(r32)))
+    row = {"shape": [s, m, m], "dtype": "bfloat16", "case": "medium",
+           "equal": True, "share_ones": float(got.float().mean())}
     row.update(dense_times(lambda: tc.threshold_step(r),
                            lambda: tc.threshold_step_ref(r),
                            lambda: torch.bmm(r, r),
-                           threshold_bound(s, m), 10, 10))
+                           threshold_bound(s, m, 2), 10, 10,
+                           library_f32=lambda: torch.bmm(r32, r32)))
     cases.append(row)
     errs["threshold_step"] = err
     emit({"phase": "kernel_checks", "kernel": "threshold_step",
@@ -680,6 +772,8 @@ def forest_rows(oracle, edges):
 def reset_counts(counters):
     for mod in counters.values():
         mod.LAUNCHES = 0
+        if hasattr(mod, "PADDED"):
+            mod.PADDED = 0
 
 
 def read_counts(counters):
@@ -687,24 +781,36 @@ def read_counts(counters):
     return {name: mod.LAUNCHES for name, mod in counters.items()}
 
 
+def read_padded(counters):
+    """Launches that went through a wrapper's zero pad, per kernel."""
+    return {name: mod.PADDED for name, mod in counters.items()
+            if hasattr(mod, "PADDED")}
+
+
 def counted_closure_build(api, h, method, counters, rounds, device):
     """One ``build_engine(h, "closure", method=...)`` on the card with every
     count set to 0 just before and read just after: it must launch
-    ``overlap`` once and its closure kernel ``rounds`` times, nothing else."""
+    ``overlap`` once and its closure kernel ``rounds`` times, nothing else,
+    and ``threshold_step`` never through its zero pad.  Returns the engine,
+    the launch counts, the padded counts and the seconds."""
     kernel = {"maxmin": "maxmin_matmul", "threshold": "threshold_step"}[method]
     reset_counts(counters)
     t0 = time.perf_counter()
     eng = api.build_engine(h, "closure", method=method)
     counts = read_counts(counters)
     seconds = time.perf_counter() - t0
+    padded = read_padded(counters)
     want = {name: 0 for name in counters}
     want.update({"overlap": 1, kernel: rounds})
     if counts != want:
         raise AssertionError(f"closure {method} build at m={h.m}: launches "
                              f"{counts}, expected {want}")
+    if padded["threshold_step"] != 0:
+        raise AssertionError(f"closure {method} build at m={h.m}: "
+                             f"threshold_step padded {padded}")
     if eng.name != "closure" or eng.device.type != device.type:
         raise AssertionError(f"built {eng.name} on {eng.device}")
-    return eng, counts, seconds
+    return eng, counts, padded, seconds
 
 
 def phase_closure_path(api, semiring, ops, counters, device):
@@ -721,10 +827,10 @@ def phase_closure_path(api, semiring, ops, counters, device):
                               max_size=g["max_size"], seed=g["seed"])
     gen_s = time.perf_counter() - t0
     rounds = ops.default_rounds(h.m)
-    engines, builds, launches = {}, {}, {}
+    engines, builds, launches, pads = {}, {}, {}, {}
     for method in ("maxmin", "threshold"):
-        eng, counts, build_s = counted_closure_build(api, h, method, counters,
-                                                     rounds, device)
+        eng, counts, padded, build_s = counted_closure_build(
+            api, h, method, counters, rounds, device)
         t0 = time.perf_counter()
         snap = eng.snapshot()
         torch.cuda.synchronize()
@@ -733,6 +839,7 @@ def phase_closure_path(api, semiring, ops, counters, device):
             raise AssertionError("closure snapshot is not [n, m] on the card")
         engines[method] = eng
         launches[method] = {k: v for k, v in counts.items() if v}
+        pads[method] = padded
         builds[method] = {"build_seconds": round(build_s, 3),
                           **{k: round(v, 3)
                              for k, v in eng.build_seconds.items()},
@@ -804,7 +911,7 @@ def phase_closure_path(api, semiring, ops, counters, device):
     emit({"phase": "closure_path", "n": h.n, "m": h.m, "nnz": h.nnz,
           "generate_seconds": round(gen_s, 3), "rounds": rounds,
           "S": int(thresholds.size), "thresholds": thresholds.tolist(),
-          "launches": launches, "builds": builds,
+          "launches": launches, "padded_launches": pads, "builds": builds,
           "snapshot_bytes": engines["maxmin"].snapshot().nbytes(),
           "w_star_bytes": engines["maxmin"].nbytes(),
           "w_star_histogram": np.bincount(w_star.ravel()).tolist(),
@@ -821,17 +928,42 @@ def phase_closure_path(api, semiring, ops, counters, device):
     # each kernel at this path's own operands, against its plain version
     clock = Phase()
     rows = {}
-    got = ov.overlap(b_inc)
-    err = check_equal("overlap path", got, ov.overlap_ref(b_inc))
-    err = max(err, check_equal("overlap path bf16",
-                               ov.overlap(b_inc.to(torch.bfloat16)), got))
-    del got
+    # overlap at the path's dtype: the bf16 incidence device_line_graph
+    # hands it (n = 242: the wrapper pads 6 zero columns)
+    b16 = b_inc.to(torch.bfloat16)
+    got = ov.overlap(b16)
+    err = check_equal("overlap path bf16", got, ov.overlap_ref(b_inc))
+    err = max(err, check_equal("overlap path float32", ov.overlap(b_inc),
+                               got))
+    # device_line_graph step by step: copy, bf16 cast, the wrapper's column
+    # pad (also inside the wrapper's time below), int32 cast of W
+    host_inc = h.to_incidence(np.float32)
+    line_graph_steps = {
+        "incidence_to_device_ms": host_ms(
+            lambda: (torch.from_numpy(host_inc).to(device),
+                     torch.cuda.synchronize()), 10),
+        "bf16_cast_ms": cuda_ms(lambda: b_inc.to(torch.bfloat16), reps=20),
+        "pad_columns_ms": cuda_ms(lambda: ov.pad_columns(b16), reps=20),
+        "int32_cast_ms": cuda_ms(lambda: got.to(torch.int32), reps=20),
+        "device_line_graph_ms": host_ms(
+            lambda: (semiring.device_line_graph(h),
+                     torch.cuda.synchronize()), 10),
+    }
+    del got, host_inc
     rows["overlap"] = dict(
-        shape=list(b_inc.shape), max_abs_err=err,
-        **dense_times(lambda: ov.overlap(b_inc),
+        shape=list(b16.shape), dtype="bfloat16", max_abs_err=err,
+        bf16_ceiling_ms=bf16_ceiling_ms(2 * h.m * h.m * h.n),
+        **dense_times(lambda: ov.overlap(b16),
                       lambda: ov.overlap_ref(b_inc),
-                      lambda: torch.matmul(b_inc, b_inc.T),
-                      overlap_bound(h.m, h.n), 10, 10))
+                      lambda: torch.matmul(b16, b16.T),
+                      overlap_bound(h.m, h.n, 2), 10, 10,
+                      library_f32=lambda: torch.matmul(b_inc, b_inc.T)))
+    rows["overlap"]["kernel_ms_includes"] = "pad_columns, kernel"
+    # the library call on the kernel's own operand (242 -> 248 columns)
+    padded = ov.pad_columns(b16)
+    rows["overlap"]["library_padded_ms"] = cuda_ms(
+        lambda: torch.matmul(padded, padded.T), reps=10, warmup=1)
+    del b16, padded
     # maxmin: the first squaring round of W, whole; the plain version walks
     # k 16 columns at a time (an [m, 16, m] int32 broadcast each)
     got = mm.maxmin_matmul(w, w)
@@ -844,28 +976,46 @@ def phase_closure_path(api, semiring, ops, counters, device):
         plain_reps=1, ms=cuda_ms(lambda: mm.maxmin_matmul(w, w), reps=3,
                                  warmup=1),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
-    # threshold_step: the first round of the threshold batch
-    r = tc.threshold_adjacency(w, torch.as_tensor(thresholds))
+    # threshold_step: the first round of the threshold batch, in the path's
+    # bf16 and in float32 (a float32 operand launches the same kernel)
+    r = tc.threshold_adjacency(w, torch.as_tensor(thresholds),
+                               dtype=torch.bfloat16)
+    r32 = r.float()
     del w
     got = tc.threshold_step(r)
-    err = check_equal("threshold path", got, tc.threshold_step_ref(r))
-    share_ones = float(got.mean())
-    del got
+    err = check_equal("threshold path bf16", got, tc.threshold_step_ref(r))
+    share_ones = float(got.float().mean())
+    got32 = tc.threshold_step(r32)
+    err = max(err, check_equal("threshold path float32", got32,
+                               tc.threshold_step_ref(r32)))
+    if not torch.equal(got32, got.float()):
+        raise AssertionError("threshold path: float32 and bf16 rounds differ")
+    del got, got32
     torch.cuda.empty_cache()
+    ops_count = 2 * r.shape[0] * h.m ** 3
     rows["threshold_step"] = dict(
-        shape=list(r.shape), max_abs_err=err, share_ones=share_ones,
+        shape=list(r.shape), dtype="bfloat16", max_abs_err=err,
+        share_ones=share_ones, bf16_ceiling_ms=bf16_ceiling_ms(ops_count),
         **dense_times(lambda: tc.threshold_step(r),
                       lambda: tc.threshold_step_ref(r),
                       lambda: torch.bmm(r, r),
-                      threshold_bound(r.shape[0], h.m), 3, 3))
-    del r
+                      threshold_bound(r.shape[0], h.m, 2), 5, 3,
+                      library_f32=lambda: torch.bmm(r32, r32)))
+    rows["threshold_step"]["float32_ms"] = cuda_ms(
+        lambda: tc.threshold_step(r32), reps=3, warmup=1)
+    rows["threshold_step"]["tflops"] = (ops_count / 1e9
+                                        / rows["threshold_step"]["ms"])
+    del r, r32
     torch.cuda.empty_cache()
     emit({"phase": "closure_path_kernels", "tolerance": 0,
           "peak_bytes": torch.cuda.max_memory_allocated(),
+          "line_graph_steps": line_graph_steps,
           "kernels": rows, "seconds": clock.seconds()})
     total = {name: sum(c.get(name, 0) for c in launches.values())
              for name in DENSE_KERNELS}
-    return total, rows
+    padded = {name: sum(p[name] for p in pads.values())
+              for name in TENSOR_CORE_KERNELS}
+    return total, padded, rows
 
 
 def phase_closure_small(api, ops, counters, device):
@@ -899,8 +1049,9 @@ def phase_closure_small(api, ops, counters, device):
         raise AssertionError("closure_small: MSTOracle.mr != its forest rows")
     out = {}
     for method in ("maxmin", "threshold"):
-        eng, counts, build_s = counted_closure_build(api, h, method, counters,
-                                                     rounds, device)
+        eng, counts, _, build_s = counted_closure_build(api, h, method,
+                                                        counters, rounds,
+                                                        device)
         if not np.array_equal(eng.w_star, forest):
             raise AssertionError(f"closure_small {method}: W* != forest")
         got = eng.mr_batch(us, vs)
@@ -924,6 +1075,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import api
+    from repro_torch.device import find_nvcc
     from repro_torch.core import engine as engine_mod
     from repro_torch.core import semiring
     from repro_torch.core.query import searchsorted_join
@@ -937,14 +1089,14 @@ def main() -> int:
     device = torch.device("cuda")
     counters = {"label_join": lj, "maxmin_matmul": mm, "overlap": ov,
                 "threshold_step": tc}
-    phase_env(build_mod)
+    phase_env(build_mod, find_nvcc())
     err_checks = phase_kernel_checks(lj, searchsorted_join, device)
     dense_errs = phase_dense_kernel_checks(mm, ov, tc, device)
     launches, err_main, times = phase_main_path(api, engine_mod, lj,
                                                 searchsorted_join, device)
     phase_wide_labels(api, engine_mod, lj, device)
-    dense_launches, path_rows = phase_closure_path(api, semiring, ops,
-                                                   counters, device)
+    dense_launches, dense_pads, path_rows = phase_closure_path(
+        api, semiring, ops, counters, device)
     phase_closure_small(api, ops, counters, device)
     torch.cuda.synchronize()
 
@@ -971,6 +1123,10 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})
+        if name in TENSOR_CORE_KERNELS:
+            kernels[-1].update(dtype=row["dtype"],
+                               library_f32_ms=row["library_f32_ms"],
+                               padded_launches=dense_pads[name])
     for k in kernels:
         if k["launches"] < 1 or k["max_abs_err"] != 0:
             raise AssertionError(f"kernel {k['name']}: {k['launches']} "

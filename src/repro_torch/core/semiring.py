@@ -15,8 +15,9 @@ Two closure strategies:
   contraction has no tensor-core form).
 * ``threshold_closure_mr`` — the same closure as a batch of boolean
   transitive closures, one per distinct overlap threshold;
-  ``MR[i,j] = max{s : reach_s}``.  On CUDA tensors each round is one launch
-  of the ``threshold_step`` kernel over the whole ``[S, m, m]`` batch.
+  ``MR[i,j] = max{s : reach_s}``.  The batch is bf16 0/1 on both devices;
+  on CUDA tensors each round is one launch of the ``threshold_step``
+  kernel (tensor cores) over the whole ``[S, m, m]`` batch.
 
 On CPU tensors the same functions run each kernel's plain PyTorch version.
 ``mr_matrix`` forms the line graph ``W`` on the device (the ``overlap``
@@ -38,7 +39,8 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.maxmin_matmul import maxmin_matmul as _maxmin_kernel
 from ..kernels.ops import default_rounds
 from ..kernels.overlap import overlap
-from ..kernels.threshold_closure import threshold_adjacency, threshold_step
+from ..kernels.threshold_closure import (largest_threshold,
+                                         threshold_adjacency, threshold_step)
 from .hypergraph import Hypergraph
 
 __all__ = [
@@ -131,11 +133,13 @@ def threshold_closure_mr(w: torch.Tensor,
         return torch.zeros_like(w)
     n_rounds = rounds if rounds is not None else default_rounds(w.shape[0])
     t = torch.as_tensor(thresholds).to(w.device)
-    reach = threshold_adjacency(w, t)                       # [S, m, m]
+    # [S, m, m] 0/1 in bf16: exact, and the threshold_step kernel's type
+    reach = threshold_adjacency(w, t, dtype=torch.bfloat16)
     for _ in range(n_rounds):
         reach = threshold_step(reach)
-    # MR[i,j] = largest threshold whose closure connects i and j.
-    mr = (reach * t.to(w.dtype)[:, None, None]).amax(dim=0)
+    # MR[i,j] = largest threshold whose closure connects i and j, taken in
+    # float32 (a bf16 product would round thresholds above 256).
+    mr = largest_threshold(reach, t.to(w.dtype))
     # reach includes the trivial i==i at every threshold via self-loops; fix
     # the diagonal to the true single-walk value |e_i| = W[i,i].
     mr.diagonal().copy_(w.diagonal())
@@ -146,13 +150,14 @@ def device_line_graph(h: Hypergraph, *,
                       device: DeviceLike = None) -> torch.Tensor:
     """The line graph W [m, m] int32 on ``device`` (``None`` = ``"cuda"``).
     On the card: the ``overlap`` kernel over the dense incidence
-    (``Hypergraph.to_incidence``), cast to int32 — its diagonal ``|e_i|`` is
+    (``Hypergraph.to_incidence``, built on the host, copied, cast to bf16
+    on the card: exact for 0/1), cast to int32 — its diagonal ``|e_i|`` is
     what B·Bᵀ gives.  On the host: ``Hypergraph.line_graph``."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         return torch.from_numpy(h.line_graph(np.int32))
     b_inc = torch.from_numpy(h.to_incidence(np.float32)).to(dev)
-    return overlap(b_inc).to(torch.int32)
+    return overlap(b_inc.to(torch.bfloat16)).to(torch.int32)
 
 
 def close_line_graph(w: torch.Tensor, method: str = "maxmin") -> torch.Tensor:

@@ -7,6 +7,8 @@ package is imported: ``load_library`` runs at a kernel's first launch, and
 ``build_libraries`` compiles several sources at once (one ``nvcc`` process
 each, all started together).  ``launch`` is how a wrapper enqueues its
 kernel: on PyTorch's current stream, raising on a refused launch.
+``tma_operand`` is the operand format of the tensor-core kernels
+(``csrc/tc_gemm.cuh``), in one place for both wrappers.
 
 Libraries land in ``build/repro_torch_kernels/`` at the root of the
 checkout (listed in ``.gitignore``) under a name that carries the content
@@ -29,7 +31,8 @@ import torch
 from ..device import find_nvcc
 
 __all__ = ["NVCC_FLAGS", "CSRC_DIR", "default_build_dir", "build_libraries",
-           "load_library", "launch", "BUILD_LOG"]
+           "load_library", "launch", "BUILD_LOG", "TMA_ROW_MULTIPLE",
+           "tma_extent", "tma_operand"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 
@@ -38,6 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # name -> what nvcc printed (registers / shared memory per kernel)
 BUILD_LOG: Dict[str, str] = {}
+
+# bf16 values per 16 bytes: TMA reads rows whose stride is a multiple of it
+TMA_ROW_MULTIPLE = 8
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -131,3 +137,25 @@ def launch(name: str, symbol: str, argtypes: Sequence, device: torch.device,
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
                            f"{err}")
+
+
+def tma_extent(n: int) -> int:
+    """``n`` rounded up to a multiple of ``TMA_ROW_MULTIPLE``."""
+    return -(-n // TMA_ROW_MULTIPLE) * TMA_ROW_MULTIPLE
+
+
+def tma_operand(x: torch.Tensor, dims: int = 1) -> torch.Tensor:
+    """``x`` (contiguous, 0/1) as a tensor-core kernel's operand: bf16 (exact
+    for 0/1), its last ``dims`` dimensions rounded up by ``tma_extent`` with
+    zeros past the old edge, its base 16-byte aligned.  No copy where ``x``
+    is such a tensor already."""
+    shape = tuple(x.shape)
+    padded = shape[:-dims] + tuple(tma_extent(d) for d in shape[-dims:])
+    if padded == shape:
+        out = x.to(torch.bfloat16)
+    else:
+        out = torch.zeros(padded, dtype=torch.bfloat16, device=x.device)
+        out[tuple(slice(0, d) for d in shape)] = x
+    if out.data_ptr() % 16:            # TMA reads from 16-byte aligned bases
+        out = out.clone()
+    return out

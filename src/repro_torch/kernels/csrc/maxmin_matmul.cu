@@ -36,8 +36,8 @@ maxmin_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __rest
   const long long row0 = static_cast<long long>(blockIdx.y) * tiled::BM;
   const long long col0 = static_cast<long long>(blockIdx.x) * tiled::BN;
   T acc[tiled::TM][tiled::TN];
-  tiled::product<T, T, tiled::MaxMin<T>, false>(acc, s, a, b, m, n, k, row0, col0);
-  tiled::store(c, acc, m, n, row0, col0, tiled::Identity{});
+  tiled::product<T, tiled::MaxMin<T>>(acc, s, a, b, m, n, k, row0, col0);
+  tiled::store(c, acc, m, n, row0, col0);
 }
 
 template <typename T>

@@ -1,7 +1,7 @@
 // One boolean-closure squaring round over a threshold batch, for NVIDIA
 // Hopper (sm_90a).
 //
-//   out[s] = (R[s] @ R[s] > 0),  R [S, m, m] 0/1 float32, out the same.
+//   out[s] = (R[s] @ R[s] > 0),  R [S, m, m] 0/1 bf16, out the same.
 //
 // Replaces the TPU kernel `threshold_step_pallas` (body `_kernel`) of
 // src/repro/kernels/threshold_closure.py: each of the ceil(log2 m) rounds of
@@ -10,44 +10,32 @@
 // reach device memory.
 //
 // What bounds it: operations.  2 * S * m^3 = 2.05e13 at S = 5, m = 12,704,
-// against 8 * S * m^2 = 6.5 GB read and written; the least time is the
-// tensor cores' (int8 0/1 operands hold these products exactly).
+// against 2 * S * m^2 bytes each way (1.6 GB in bf16); the least time is
+// the tensor cores' at their int8 rate (the narrowest type that holds a
+// 0/1 product exactly), 10.4 ms, and 20.7 ms at their bf16 rate.
 //
-// Design: the register-blocked tile product of tiled.cuh with the MulAdd
-// policy, one launch for the whole batch (blockIdx.z walks the S slices),
-// and the Binarize epilogue.  Full float32 FFMA on the CUDA cores, no TF32:
-// a path count below 2^24 is an exact integer, so "> 0" is exact and the
-// result equals the plain version bit for bit.  A tensor-core version is
-// later work.
-#include "tiled.cuh"
+// Design: the TMA-fed wgmma product of tc_gemm.cuh, one launch for the
+// whole batch (the grid walks S x row-tile pairs x column tiles, two blocks
+// per cluster sharing each B tile by TMA multicast).  Both operands are
+// R[s] itself: A read by rows (K-major), B read as [K, N] rows (MN-major,
+// the transposed wgmma descriptor), so no transpose is formed and nothing
+// assumes R symmetric.  bf16 holds 0 and 1 exactly and the
+// float32 path counts are exact integers below 2^24, so "> 0" is exact and
+// the result equals the plain version bit for bit.  TMA needs m % 8 == 0
+// (16-byte rows); the wrapper pads other m with zero rows and columns.
+#include "tc_gemm.cuh"
 
-namespace {
-
-__global__ void __launch_bounds__(tiled::THREADS, 2)
-threshold_step_kernel(const float* __restrict__ r, float* __restrict__ out, long long m) {
-  __shared__ tiled::Smem<float> s;
-  const long long slice = static_cast<long long>(blockIdx.z) * m * m;
-  const long long row0 = static_cast<long long>(blockIdx.y) * tiled::BM;
-  const long long col0 = static_cast<long long>(blockIdx.x) * tiled::BN;
-  float acc[tiled::TM][tiled::TN];
-  tiled::product<float, float, tiled::MulAdd, false>(acc, s, r + slice, r + slice, m, m, m,
-                                                     row0, col0);
-  tiled::store(out + slice, acc, m, m, row0, col0, tiled::Binarize{});
-}
-
-}  // namespace
-
-// Enqueue out = (R @ R > 0) for every slice on `stream`; return
-// cudaGetLastError() (0 = launched).  No synchronisation, no allocation:
-// `out` is [S, m, m] float32 from the caller and must not alias `r`.
-extern "C" int threshold_step_launch(const float* r, float* out, long long s, long long m,
+// Enqueue out = (R @ R > 0) for every slice on `stream`; return a CUDA
+// error code (0 = launched).  No synchronisation, no allocation: `r` is
+// [S, m, m] bf16 with m % 8 == 0, 16-byte aligned; `out` is [S, m, m] bf16
+// from the caller and must not alias `r`.
+extern "C" int threshold_step_launch(const void* r, void* out, long long s, long long m,
                                      void* stream) {
-  if (s <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid;
-  if (!tiled::grid_for(m, m, &grid) || s > tiled::MAX_GRID_YZ)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  grid.z = static_cast<unsigned int>(s);
-  threshold_step_kernel<<<grid, tiled::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(r, out,
-                                                                                       m);
-  return static_cast<int>(cudaGetLastError());
+  if (s <= 0 || m <= 0 || m % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap a, b;
+  if (!tc::encode(&a, r, m, m, s, tc::BK, tc::BM) ||        // R[s] rows: [m][k]
+      !tc::encode(&b, r, m, m, s, tc::BOX_MN, tc::BK))       // R[s] as [k][n]
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc::run<true, tc::Positive>(a, b, static_cast<__nv_bfloat16*>(out), m, m, m, s,
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -28,7 +28,8 @@ import torch
 from .label_join import label_join
 from .maxmin_matmul import maxmin_matmul
 from .overlap import overlap
-from .threshold_closure import threshold_adjacency, threshold_step
+from .threshold_closure import (largest_threshold, threshold_adjacency,
+                                threshold_step)
 
 __all__ = ["maxmin_matmul", "overlap", "threshold_step", "label_join",
            "maxmin_closure_kernel", "threshold_mr_kernel", "default_rounds"]
@@ -53,12 +54,13 @@ def maxmin_closure_kernel(w: torch.Tensor, *,
 def threshold_mr_kernel(w: torch.Tensor, thresholds, *,
                         rounds: Optional[int] = None) -> torch.Tensor:
     """MR matrix via the fused threshold-closure kernel, in ``w``'s
-    dtype."""
+    dtype.  The rounds run on a bf16 0/1 batch (exact; the kernel's
+    operand type), the read-out in float32."""
     n_rounds = rounds if rounds is not None else default_rounds(w.shape[0])
     t = torch.as_tensor(np.asarray(thresholds)).to(w.device)
-    r = threshold_adjacency(w, t)
+    r = threshold_adjacency(w, t, dtype=torch.bfloat16)
     for _ in range(n_rounds):
         r = threshold_step(r)
-    mr = (r * t[:, None, None].to(torch.float32)).amax(dim=0)
+    mr = largest_threshold(r, t)
     mr.diagonal().copy_(w.diagonal())
     return mr.to(w.dtype)

@@ -10,10 +10,14 @@ over the 0/1 incidence ``B [m, n]``.  Counterpart of
   dtype with an optional diagonal override, as the reference has it.
 * ``overlap`` — the wrapper: float32 or bfloat16 in, float32 out, as the
   Pallas kernel.  CPU tensors go to the plain version (in float32); CUDA
-  tensors launch the hand-written kernel ``csrc/overlap.cu`` (tile product
-  on the CUDA cores, Bᵀ read through a transposed index, never formed) or
-  raise.  There is no fallback from the kernel to anything else.
-* ``LAUNCHES`` — incremented once per kernel launch and nowhere else.
+  tensors launch the hand-written kernel ``csrc/overlap.cu`` (bf16 tensor
+  cores fed by TMA, B's rows read for both operands so Bᵀ is never formed)
+  or raise.  There is no fallback from the kernel to anything else.
+* ``pad_columns`` — the kernel's operand (``build.tma_operand``): B as
+  bf16 (exact for 0/1) with its columns padded by zeros to a multiple of
+  8, because TMA needs 16-byte rows; zero columns add nothing to B·Bᵀ.
+* ``LAUNCHES`` — incremented once per kernel launch and nowhere else;
+  ``PADDED`` — the launches among them that needed the column pad.
 
 Counts are sums of 0/1 products in float32: exact while below 2^24.
 """
@@ -24,15 +28,16 @@ from typing import Optional
 
 import torch
 
-from .build import launch
+from .build import launch, tma_operand
 
-__all__ = ["overlap", "overlap_ref", "LAUNCHES"]
+__all__ = ["overlap", "overlap_ref", "pad_columns", "LAUNCHES", "PADDED"]
 
 # kernel launches made by ``overlap`` in this process
 LAUNCHES = 0
+# of those, launches whose n needed the zero columns
+PADDED = 0
 
-_SYMBOLS = {torch.float32: "overlap_f32_launch",
-            torch.bfloat16: "overlap_bf16_launch"}
+_DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2
 
 
@@ -47,11 +52,18 @@ def overlap_ref(b_inc: torch.Tensor,
     return w
 
 
+def pad_columns(b_inc: torch.Tensor) -> torch.Tensor:
+    """``b_inc`` [m, n] as bf16 [m, np] with ``np`` the next multiple of 8,
+    zeros past ``n``; no copy where it is bf16 already, aligned, and ``n``
+    a multiple of 8."""
+    return tma_operand(b_inc, dims=1)
+
+
 def _check_operand(b_inc) -> None:
     if not isinstance(b_inc, torch.Tensor):
         raise TypeError(f"overlap: b_inc must be a torch.Tensor, got "
                         f"{type(b_inc).__name__}")
-    if b_inc.dtype not in _SYMBOLS:
+    if b_inc.dtype not in _DTYPES:
         raise TypeError(f"overlap: b_inc must be float32 or bfloat16, got "
                         f"{b_inc.dtype}")
     if b_inc.dim() != 2:
@@ -65,7 +77,7 @@ def overlap(b_inc: torch.Tensor) -> torch.Tensor:
     """b_inc [m, n] 0/1, float32 or bfloat16, contiguous.  Returns W [m, m]
     float32 on its device; m or n of 0 gives zeros [m, m] with no launch.
     Anything else raises."""
-    global LAUNCHES
+    global LAUNCHES, PADDED
     _check_operand(b_inc)
     if b_inc.device.type == "cpu":
         return overlap_ref(b_inc.to(torch.float32))
@@ -74,9 +86,11 @@ def overlap(b_inc: torch.Tensor) -> torch.Tensor:
     m, n = b_inc.shape
     if m == 0 or n == 0:               # a zero-size grid is a launch error
         return torch.zeros((m, m), dtype=torch.float32, device=b_inc.device)
+    operand = pad_columns(b_inc)
     out = torch.empty((m, m), dtype=torch.float32, device=b_inc.device)
-    launch("overlap", _SYMBOLS[b_inc.dtype], _ARGTYPES, b_inc.device,
-           (b_inc.data_ptr(), out.data_ptr(), m, n),
+    launch("overlap", "overlap_bf16_launch", _ARGTYPES, b_inc.device,
+           (operand.data_ptr(), out.data_ptr(), m, operand.shape[1]),
            f"overlap {b_inc.dtype} m={m}, n={n}")
     LAUNCHES += 1
+    PADDED += operand.shape[1] != n
     return out

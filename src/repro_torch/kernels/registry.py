@@ -37,13 +37,13 @@ KERNEL_REGISTRY: dict[str, KernelSpec] = {
         consumer="maxmin_closure — closure backend W* by (max, min) squaring",
         source="kernels/csrc/maxmin_matmul.cu"),
     "overlap": KernelSpec(
-        kernel=overlap, reference=overlap_ref, unit="CUDA cores",
+        kernel=overlap, reference=overlap_ref, unit="tensor cores",
         consumer="device_line_graph — line graph W = B·Bᵀ of the closure "
                  "backend",
         source="kernels/csrc/overlap.cu"),
     "threshold_step": KernelSpec(
         kernel=threshold_step, reference=threshold_step_ref,
-        unit="CUDA cores",
+        unit="tensor cores",
         consumer="threshold_closure_mr / threshold_mr_kernel boolean-closure "
                  "squaring round",
         source="kernels/csrc/threshold_step.cu"),

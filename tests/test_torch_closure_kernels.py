@@ -18,6 +18,7 @@ from repro.kernels.maxmin_matmul import maxmin_matmul_pallas
 from repro.kernels.overlap import overlap_pallas
 from repro.kernels.threshold_closure import threshold_step_pallas
 from repro_torch.device import gpu_probe
+from repro_torch.kernels import build
 from repro_torch.kernels import maxmin_matmul as mm
 from repro_torch.kernels import ops
 from repro_torch.kernels import overlap as ov
@@ -154,6 +155,21 @@ def test_threshold_step_plain_equals_reference_oracle(s, m, bm, bn, bk, seed):
 
 
 @pytest.mark.parametrize("s,m,bm,bn,bk,seed", THRESHOLD_CORPUS)
+def test_threshold_step_bf16_plain_equals_reference_oracle(s, m, bm, bn, bk,
+                                                           seed):
+    """The closure path's dtype: a bf16 0/1 batch gives the reference's
+    answer on the same values, in bf16."""
+    r = _reach(s, m, seed)
+    want = np.asarray(ref_oracles.threshold_step_ref(jnp.asarray(r)))
+    tr = torch.from_numpy(r).to(torch.bfloat16)
+    before = tc.LAUNCHES
+    for got in (tc.threshold_step_ref(tr), tc.threshold_step(tr)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _same(got.to(torch.float32), want)
+    assert tc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("s,m,bm,bn,bk,seed", THRESHOLD_CORPUS)
 def test_threshold_step_plain_equals_pallas_interpret(s, m, bm, bn, bk, seed):
     if not interpret_available():
         pytest.skip("pallas interpret mode unavailable")
@@ -239,7 +255,7 @@ def test_overlap_wrapper_raises_on_bad_operands(bad, exc):
 
 @pytest.mark.parametrize("bad,exc", [
     (torch.zeros((2, 3, 3), dtype=torch.float64), TypeError),
-    (torch.zeros((2, 3, 3), dtype=torch.bfloat16), TypeError),
+    (torch.zeros((2, 3, 3), dtype=torch.float16), TypeError),
     ([[[0.0]]], TypeError),
     (torch.zeros((3, 3)), ValueError),
     (torch.zeros((2, 3, 4)), ValueError),
@@ -249,6 +265,63 @@ def test_threshold_step_wrapper_raises_on_bad_operands(bad, exc):
         tc.threshold_step(bad)
 
 
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 33, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_threshold_pad_and_crop_helpers(m, dtype):
+    """TMA's 16-byte rows: m padded to a multiple of 8 with zero rows and
+    columns (no new paths), the answer cropped back; the padded round
+    equals the unpadded one."""
+    mp = tc.padded_extent(m)
+    assert mp % 8 == 0 and m <= mp < m + 8
+    r = torch.from_numpy(_reach(2, m, m)).to(dtype)
+    padded = tc.pad_batch(r)
+    assert padded.dtype == torch.bfloat16 and padded.shape == (2, mp, mp)
+    assert torch.equal(padded[:, :m, :m].to(dtype), r)
+    assert not padded[:, m:, :].any() and not padded[:, :, m:].any()
+    if mp == m and dtype == torch.bfloat16:
+        assert padded is r                # nothing to pad, nothing copied
+    out = tc.crop_batch(tc.threshold_step_ref(padded).to(dtype), m)
+    assert out.shape == r.shape and out.is_contiguous()
+    assert torch.equal(out, tc.threshold_step_ref(r))
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 17, 242, 248])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_overlap_pad_columns_helper(n, dtype):
+    """Zero columns to a multiple of 8 leave B·Bᵀ unchanged."""
+    b_inc = torch.from_numpy(_incidence(13, n, n)).to(dtype)
+    padded = ov.pad_columns(b_inc)
+    n_pad = -(-n // 8) * 8
+    assert padded.dtype == torch.bfloat16 and padded.shape == (13, n_pad)
+    assert torch.equal(padded[:, :n].to(dtype), b_inc)
+    assert not padded[:, n:].any()
+    if n_pad == n and dtype == torch.bfloat16:
+        assert padded is b_inc
+    assert torch.equal(ov.overlap_ref(padded.to(torch.float32)),
+                       ov.overlap_ref(b_inc.to(torch.float32)))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+@pytest.mark.parametrize("dims", [1, 2])
+def test_tma_operand_pads_casts_and_aligns(offset, dims):
+    """The tensor-core operand both wrappers share: bf16, the last ``dims``
+    sides rounded up to 8 with zeros, a 16-byte aligned base even for a
+    view that starts mid-allocation (``offset`` bf16 values in)."""
+    flat = torch.from_numpy(_incidence(1, 8 * 8 + 8, offset)[0]).to(
+        torch.bfloat16)
+    x = flat[offset:offset + 64].view(8, 8)
+    out = build.tma_operand(x, dims=dims)
+    assert out.dtype == torch.bfloat16 and out.shape == (8, 8)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, x)
+    assert (out is x) == (x.data_ptr() % 16 == 0)
+    y = torch.ones((3, 5, 13))
+    out = build.tma_operand(y, dims=dims)
+    want = (3, 8, 16) if dims == 2 else (3, 5, 16)
+    assert out.shape == want and out.data_ptr() % 16 == 0
+    assert float(out.float().sum()) == y.numel()
+    assert build.tma_extent(13) == 16 and build.tma_extent(16) == 16
+
+
 def test_threshold_adjacency_has_self_loops_and_thresholds():
     w = torch.tensor([[3, 1, 0], [1, 2, 2], [0, 2, 4]], dtype=torch.int32)
     adj = tc.threshold_adjacency(w, torch.tensor([1, 2, 3], dtype=torch.int32))
@@ -256,6 +329,9 @@ def test_threshold_adjacency_has_self_loops_and_thresholds():
     assert torch.equal(adj[0], torch.tensor([[1., 1, 0], [1, 1, 1],
                                              [0, 1, 1]]))
     assert torch.equal(adj[2], torch.eye(3))
+    bf = tc.threshold_adjacency(w, torch.tensor([1, 2, 3]),
+                                dtype=torch.bfloat16)
+    assert bf.dtype == torch.bfloat16 and torch.equal(bf.float(), adj)
 
 
 # -- on the card -----------------------------------------------------------------
@@ -275,10 +351,25 @@ def test_cuda_kernels_equal_plain_versions_on_the_card():
             torch.cuda.synchronize()
             assert mm.LAUNCHES == before + (1 if m and k and n else 0)
             assert torch.equal(got, mm.maxmin_matmul_ref(a, b))
-    for m, n, *_, seed in OVERLAP_CORPUS + [(300, 129, 0, 0, 0, 9)]:
+    # overlap: n % 8 != 0 (column pad) and n % 8 == 0, both input dtypes
+    for m, n, *_, seed in OVERLAP_CORPUS + [(300, 129, 0, 0, 0, 9),
+                                            (301, 256, 0, 0, 0, 10)]:
         b_inc = torch.from_numpy(_incidence(m, n, seed)).to(dev)
         for operand in (b_inc, b_inc.to(torch.bfloat16)):
+            before = (ov.LAUNCHES, ov.PADDED)
             assert torch.equal(ov.overlap(operand), ov.overlap_ref(b_inc))
-    for s, m, *_, seed in THRESHOLD_CORPUS + [(2, 300, 0, 0, 0, 9)]:
+            launched = 1 if m and n else 0
+            assert (ov.LAUNCHES, ov.PADDED) == (
+                before[0] + launched, before[1] + launched * (n % 8 != 0))
+    # threshold_step: float32 and bf16, padded (m % 8 != 0) and not
+    for s, m, *_, seed in THRESHOLD_CORPUS + [(2, 300, 0, 0, 0, 9),
+                                              (2, 299, 0, 0, 0, 10)]:
         r = torch.from_numpy(_reach(s, m, seed)).to(dev)
-        assert torch.equal(tc.threshold_step(r), tc.threshold_step_ref(r))
+        for operand in (r, r.to(torch.bfloat16)):
+            before = (tc.LAUNCHES, tc.PADDED)
+            got = tc.threshold_step(operand)
+            assert got.dtype == operand.dtype
+            assert torch.equal(got, tc.threshold_step_ref(operand))
+            launched = 1 if s and m else 0
+            assert (tc.LAUNCHES, tc.PADDED) == (
+                before[0] + launched, before[1] + launched * (m % 8 != 0))

@@ -175,7 +175,8 @@ def test_registry_is_a_subset_of_the_reference_and_perf_md_names_the_rest():
     assert spec.reference is lj.label_join_ref
     root = pathlib.Path(__file__).resolve().parents[1]
     for name, spec in KERNEL_REGISTRY.items():
-        assert spec.unit == "CUDA cores", name
+        assert spec.unit == ("tensor cores" if name in (
+            "overlap", "threshold_step") else "CUDA cores"), name
         assert getattr(port_oracles, spec.reference.__name__) is \
             spec.reference
         assert spec.kernel.__name__ == name

@@ -103,6 +103,31 @@ def test_thresholds_and_threshold_closure(graphs):
           ref_sr.threshold_closure_mr(wj, thr[:0]))
 
 
+# A line graph whose overlaps exceed 256, the largest integer up to which
+# bf16 is exact: the rounds run on bf16 0/1, the read-out must not.
+WIDE_W = np.array([[1000, 257, 0, 0, 0, 0],
+                   [257, 300, 255, 0, 0, 0],
+                   [0, 255, 1000, 300, 0, 0],
+                   [0, 0, 300, 1000, 0, 0],
+                   [0, 0, 0, 0, 257, 1],
+                   [0, 0, 0, 0, 1, 2]], np.int32)
+
+
+@pytest.mark.parametrize("rounds", [None, 1])
+def test_threshold_closure_with_thresholds_above_256(rounds):
+    from repro.kernels import ops as ref_ops
+    from repro_torch.kernels import ops as port_ops
+    wj, wt = jnp.asarray(WIDE_W), torch.from_numpy(WIDE_W)
+    got = port_sr.threshold_closure_mr(wt, rounds=rounds)
+    _same(got, ref_sr.threshold_closure_mr(wj, rounds=rounds))
+    assert {255, 257, 300, 1000} <= set(got.numpy().ravel().tolist())
+    if rounds is None:
+        assert torch.equal(got.to(torch.int32), port_sr.maxmin_closure(wt))
+    thr = ref_sr.distinct_thresholds(WIDE_W)
+    _same(port_ops.threshold_mr_kernel(wt, thr, rounds=rounds),
+          ref_ops.threshold_mr_kernel(wj, thr, rounds=rounds))
+
+
 def test_coarse_threshold_ladder_is_a_lower_bound(graphs):
     """tests/test_system.py::test_bucketized_thresholds_lower_bound, on
     both stacks."""
