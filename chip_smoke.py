@@ -7,7 +7,8 @@ checkout, holds each against its plain PyTorch version on the card, and
 drives the port's two paths at full size through `repro_torch.api`:
 
 * batched max-reachability through `build_engine(h, "hl-index",
-  use_kernels=True)` (the `label_join` kernel);
+  use_kernels=True)` (the `label_join` kernel, through its gather entry
+  point `label_join_gather`, which reads the label rows by vertex id);
 * the dense closure through `build_engine(h, "closure", method=...)` at
   the published size of primary-school (242 vertices, 12,704 hyperedges):
   the `overlap` kernel forms the line graph, 14 launches of
@@ -22,7 +23,8 @@ memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `main_path`, `wide_labels`, `closure_path`, `closure_path_kernels`,
 `closure_small`, then `{"kernels": [...]}` (per kernel: launches on its
-path, error against the plain version, times and the roofline bound), the
+path, error against the plain version, times and the roofline bound;
+`label_join_gather` is the gather entry point of `label_join`), the
 card's name and power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {...}}`.  Each phase line carries its own
 `seconds`.
@@ -33,14 +35,22 @@ bf16, on shapes that need the wrappers' zero pad and shapes that do not,
 and timed at the path's dtype (bf16), with the library call in bf16
 (`library_ms`) and in float32 (`library_f32_ms`).
 
-Times: a kernel's time is CUDA events around single launches on resident
-operands, median after warm-up (operands up to a few tens of MB stay in
-the 50 MB L2 between launches; the larger shapes do not).  A batch's time
-is the host clock around `mr_batch`, host<->device copies included.
+Times: a kernel's time is CUDA events around a run of launches back to
+back on resident operands, over their count, the median of three runs
+after warm-up (operands up to a few tens of MB stay in the 50 MB L2
+between launches; the larger shapes do not).  A kernel shorter than its
+wrapper's host cost (some 40 us) is then timed as that cost.  The
+`label_join` gather entry point is also timed "cold": each launch alone,
+after a 256 MB scratch tensor is written, so that nothing of its operands
+is left in L2 (the card is busy with the write while the host enqueues
+the launch, so this time is the kernel's own).  A batch's time is the host
+clock around `mr_batch`, host<->device copies included; `main_path` also
+reports the rise in peak device memory of a 2^20 batch.
 float32 products run in full float32: TF32 is switched off and checked.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -75,6 +85,12 @@ LABEL_JOIN_CORPUS = [          # (q, l, seed): the reference's adversarial shape
     (0, 5, 5), (3, 0, 6),
 ]
 MAIN_PATH_SHAPES = [(1024, 15), (4096, 121), (2**20, 15), (65536, 256)]
+# malformed rows (repeated ranks whose s rises) on both kernel routes
+DUPLICATE_SHAPES = [(4096, 15, 31), (1024, 121, 32)]
+# bytes written between cold launches: five times the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 * 2**20
+# a 2^20 mr_batch may raise the device's peak allocation by less than this
+BATCH_PEAK_LIMIT = 64 * 2**20
 INT32_MAX = int(np.iinfo(np.int32).max)
 INT64_MAX = int(np.iinfo(np.int64).max)
 
@@ -127,13 +143,54 @@ class Phase:
         return round(time.perf_counter() - self.t0, 3)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median milliseconds of one call of ``fn`` on the card (CUDA events)."""
+def cuda_ms(fn, reps: int, warmup: int = 3, runs: int = 3) -> float:
+    """Milliseconds of one call of ``fn`` on the card: CUDA events around
+    ``reps`` calls back to back, over ``reps``; the median of ``runs`` such
+    runs.  Back to back, the card does not wait for the host between calls
+    of a kernel that runs longer than its wrapper's host cost."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def cuda_ms_single(fn, reps: int, warmup: int = 3) -> float:
+    """Median milliseconds of one call of ``fn`` with the card idle before
+    it (CUDA events around each call alone): the kernel's time plus
+    whatever of its wrapper's host cost the card waits for."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_cold(fn, scratch, reps: int) -> float:
+    """Median milliseconds of one call of ``fn`` on the card (CUDA events),
+    each call after ``scratch`` (larger than L2) is written, so the call
+    finds none of its operands in L2."""
+    fn()
+    times = []
+    for i in range(reps):
+        scratch.fill_(i)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -190,6 +247,31 @@ def random_rows(gen, q, l, high, device):
             s.masked_fill(pad, 0).contiguous())
 
 
+def duplicate_rows(rng, q, l, high):
+    """Malformed padded label rows: ascending ranks that repeat (few
+    distinct values), s values in [1, 9) in any order, sentinel padding."""
+    ranks = np.full((q, l), INT32_MAX, np.int32)
+    svals = np.zeros((q, l), np.int32)
+    for i in range(q):
+        li = int(rng.integers(1, l + 1))
+        ranks[i, :li] = np.sort(rng.integers(0, high, li))
+        svals[i, :li] = rng.integers(1, 9, li)
+    return ranks, svals
+
+
+def snapshot_ids(gen, q, n, device):
+    """q random row ids into an [n, L] snapshot, after three that reach its
+    first and last rows and repeat: [0, n - 1, 0] on the u side, [n - 1, 0,
+    n - 1] on the v side; none at all when n == 0."""
+    if n == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=device)
+        return empty, empty
+    ends = torch.tensor([0, n - 1, 0], dtype=torch.int64, device=device)
+    rand = torch.randint(0, n, (2, q), generator=gen, device=device)
+    return (torch.cat([ends, rand[0]]).contiguous(),
+            torch.cat([ends.flip(0), rand[1]]).contiguous())
+
+
 def plain_chunked(ref, ru, su, rv, sv):
     """The plain version in row chunks, so its [Q, L, L] cube fits."""
     q, l = ru.shape
@@ -198,6 +280,32 @@ def plain_chunked(ref, ru, su, rv, sv):
     step = max(1, 2**25 // (l * l))
     return torch.cat([ref(ru[i:i + step], su[i:i + step], rv[i:i + step],
                           sv[i:i + step]) for i in range(0, q, step)])
+
+
+def plain_gather_chunked(ref, ranks, svals, us, vs):
+    """The gather entry point's plain version in id chunks, so its
+    [Q, L, L] cube fits."""
+    l = ranks.shape[1]
+    if us.numel() == 0 or l == 0:
+        return ref(ranks, svals, us, vs)
+    step = max(1, 2**25 // (l * l))
+    return torch.cat([ref(ranks, svals, us[i:i + step], vs[i:i + step])
+                      for i in range(0, us.numel(), step)])
+
+
+def label_join_gather_bound(svals, us, vs):
+    """Least time the card could take for the gather entry point, in ms,
+    and what binds it.  Bytes: the two int64 id vectors read once, the [Q]
+    int32 answers written once, and each distinct snapshot row that the
+    batch touches read once (4 bytes of rank and 4 of s per label slot).
+    Operations as in ``label_join_bound``, on the u rows of this batch."""
+    q, l = us.numel(), svals.shape[1]
+    distinct = int(torch.unique(torch.cat([us, vs])).numel())
+    nbytes = 16 * q + 4 * q + 8 * l * distinct
+    real = int((svals > 0).sum(dim=1)[us].sum()) if q else 0
+    ops = real * (math.ceil(math.log2(l + 1)) + 2) if l else 0
+    out = bound(nbytes, ops, RATES["int32_minmax"])
+    return out[0], out[1], {"bytes": nbytes, "distinct_rows": distinct}
 
 
 def label_join_bound(su, q, l):
@@ -308,12 +416,34 @@ def time_shape(lj, join_ops, ru, su, rv, sv):
     }
 
 
-def phase_kernel_checks(lj, join_ops, device):
-    """label_join on the card against its plain version: the reference's
-    corpus, its two sentinel cases, and the main path's shapes (timed)."""
+def check_route(build_mod, lj):
+    """The kernel library's own route choice (``label_join_lanes_per_query``)
+    equals the wrapper module's mirror for every row length up to 1024."""
+    fn = build_mod.load_library("label_join").label_join_lanes_per_query
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    lengths = range(-2, 1025)
+    for l in lengths:
+        if fn(l) != lj.lanes_per_query(l):
+            raise AssertionError(f"route for L={l}: kernel {fn(l)}, wrapper "
+                                 f"{lj.lanes_per_query(l)}")
+    return [lengths[0], lengths[-1]]
+
+
+def phase_kernel_checks(lj, join_ops, build_mod, device):
+    """label_join on the card against its plain version, both entry points:
+    the reference's corpus, its two sentinel cases, malformed rows with
+    repeated ranks, and the main path's shapes (timed).  The gather entry
+    point reads the same rows from a snapshot-like [2Q, L] pair, in place
+    and through ids that repeat and reach rows 0 and n - 1, and Q = 0."""
     clock = Phase()
-    max_err = 0
+    max_err = gather_err = 0
     rows = []
+    route = check_route(build_mod, lj)
+    gen_ids = torch.Generator(device=device)
+    gen_ids.manual_seed(5)
+    zeros = torch.zeros(0, dtype=torch.int32, device=device)
+    no_ids = torch.zeros(0, dtype=torch.int64, device=device)
 
     def compare(tag, ru, su, rv, sv):
         nonlocal max_err
@@ -326,41 +456,118 @@ def phase_kernel_checks(lj, join_ops, device):
             raise AssertionError(f"{tag}: kernel and searchsorted join differ")
         return ru, su, rv, sv, got
 
+    def compare_gather(tag, ru, su, rv, sv, got):
+        """The gather entry point on the rows of ``compare``, placed in a
+        snapshot: u row i at i, v row i at Q + i.  Returns the snapshot
+        and the random ids."""
+        nonlocal gather_err
+        q = ru.shape[0]
+        ranks = torch.cat([ru, rv]).contiguous()
+        svals = torch.cat([su, sv]).contiguous()
+        ids = torch.arange(q, device=device)
+        gather_err = max(gather_err, check_equal(
+            f"{tag} gather in place",
+            lj.label_join_gather(ranks, svals, ids, ids + q), got))
+        us, vs = snapshot_ids(gen_ids, q, ranks.shape[0], device)
+        fused = lj.label_join_gather(ranks, svals, us, vs)
+        gather_err = max(gather_err, check_equal(
+            f"{tag} gather", fused,
+            plain_gather_chunked(lj.label_join_gather_ref, ranks, svals,
+                                 us, vs)))
+        gather_err = max(gather_err, check_equal(
+            f"{tag} gather vs unfused", fused,
+            lj.label_join(ranks[us], svals[us], ranks[vs], svals[vs])))
+        expect_no_launch(lj, f"{tag} gather Q=0",
+                         lambda: lj.label_join_gather(ranks, svals, no_ids,
+                                                      no_ids), zeros)
+        return ranks, svals, us, vs
+
     for q, l, seed in LABEL_JOIN_CORPUS:
         rng = np.random.default_rng(seed)
         u = corpus_rows(rng, q, l, 200, lj.MAX_RANK)
         v = corpus_rows(rng, q, l, 200, lj.MAX_RANK)
-        compare(f"corpus[{q},{l}]", u[0], u[1], v[0], v[1])
-        rows.append({"shape": [q, l], "case": "corpus", "equal": True})
+        *ops, got = compare(f"corpus[{q},{l}]", u[0], u[1], v[0], v[1])
+        compare_gather(f"corpus[{q},{l}]", *ops, got)
+        rows.append({"shape": [q, l], "case": "corpus", "equal": True,
+                     "gather_equal": True})
 
     # MAX_RANK itself is a legal rank and must join
-    *_, got = compare("sentinel-bound", [[0, lj.MAX_RANK]], [[3, 5]],
-                      [[lj.MAX_RANK, INT32_MAX]], [[4, 0]])
+    *ops, got = compare("sentinel-bound", [[0, lj.MAX_RANK]], [[3, 5]],
+                        [[lj.MAX_RANK, INT32_MAX]], [[4, 0]])
     if got.tolist() != [4]:
         raise AssertionError(f"sentinel-bound case answered {got.tolist()}")
-    rows.append({"shape": [1, 2], "case": "sentinel-bound", "equal": True})
+    compare_gather("sentinel-bound", *ops, got)
+    rows.append({"shape": [1, 2], "case": "sentinel-bound", "equal": True,
+                 "gather_equal": True})
     # all-pad rows never match
     pad_r = np.full((3, 4), INT32_MAX, np.int32)
     pad_s = np.zeros((3, 4), np.int32)
-    *_, got = compare("all-pad", pad_r, pad_s, pad_r, pad_s)
+    *ops, got = compare("all-pad", pad_r, pad_s, pad_r, pad_s)
     if got.tolist() != [0, 0, 0]:
         raise AssertionError(f"all-pad case answered {got.tolist()}")
-    rows.append({"shape": [3, 4], "case": "all-pad", "equal": True})
+    compare_gather("all-pad", *ops, got)
+    rows.append({"shape": [3, 4], "case": "all-pad", "equal": True,
+                 "gather_equal": True})
+
+    # repeated ranks whose s rises: a first-copy lookup (the searchsorted
+    # join) answers some rows wrongly, the kernel must give all pairs
+    for q, l, seed in DUPLICATE_SHAPES:
+        rng = np.random.default_rng(seed)
+        high = 8 if l <= 32 else 40
+        u, v = duplicate_rows(rng, q, l, high), duplicate_rows(rng, q, l, high)
+        ru, su, rv, sv = (torch.from_numpy(t).to(device)
+                          for t in (u[0], u[1], v[0], v[1]))
+        want = plain_chunked(lj.label_join_ref, ru, su, rv, sv)
+        first_copy_wrong = int((join_ops(ru, su, rv, sv) != want).sum())
+        if first_copy_wrong == 0:
+            raise AssertionError(f"duplicates[{q},{l}]: the case does not "
+                                 f"tell a first-copy lookup from all pairs")
+        got = lj.label_join(ru, su, rv, sv)
+        max_err = max(max_err, check_equal(f"duplicates[{q},{l}]", got, want))
+        compare_gather(f"duplicates[{q},{l}]", ru, su, rv, sv, got)
+        rows.append({"shape": [q, l], "case": "repeated ranks",
+                     "route_lanes": lj.lanes_per_query(l),
+                     "first_copy_wrong_rows": first_copy_wrong,
+                     "equal": True, "gather_equal": True})
 
     gen = torch.Generator(device=device)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                          device=device)
     for q, l in MAIN_PATH_SHAPES:
         gen.manual_seed(q * 1000 + l)
         ru, su = random_rows(gen, q, l, 4 * l, device)
         rv, sv = random_rows(gen, q, l, 4 * l, device)
         ru, su, rv, sv, got = compare(f"main[{q},{l}]", ru, su, rv, sv)
+        ranks, svals, us, vs = compare_gather(f"main[{q},{l}]", ru, su, rv,
+                                              sv, got)
         row = {"shape": [q, l], "case": "main-path shape", "equal": True,
+               "gather_equal": True, "route_lanes": lj.lanes_per_query(l),
                "share_nonzero": float((got > 0).float().mean())}
         row.update(time_shape(lj, join_ops, ru, su, rv, sv))
+        # the same join on rows reached by id: gather + join in two steps,
+        # and the gather entry point (warm, cold), on the snapshot [2Q, L]
+        gathered = (ranks[us], svals[us], ranks[vs], svals[vs])
+        bound_ms, bound_by, counts = label_join_gather_bound(svals, us, vs)
+        row["by_id"] = {
+            "queries": us.numel(), "snapshot_rows": ranks.shape[0],
+            "gather_ms": cuda_ms(lambda: (ranks[us], svals[us], ranks[vs],
+                                          svals[vs]), reps=20),
+            "label_join_ms": cuda_ms(lambda: lj.label_join(*gathered),
+                                     reps=30),
+            "fused_ms": cuda_ms(lambda: lj.label_join_gather(ranks, svals,
+                                                             us, vs), reps=30),
+            "fused_cold_ms": cuda_ms_cold(
+                lambda: lj.label_join_gather(ranks, svals, us, vs), scratch,
+                reps=10),
+            "fused_bound_ms": bound_ms, "fused_bound_by": bound_by, **counts}
+        del gathered
         rows.append(row)
+    del scratch
     emit({"phase": "kernel_checks", "kernel": "label_join",
-          "tolerance": 0, "max_abs_err": max_err, "cases": rows,
-          "seconds": clock.seconds()})
-    return max_err
+          "tolerance": 0, "max_abs_err": max_err,
+          "gather_max_abs_err": gather_err, "route_checked_for_l": route,
+          "cases": rows, "seconds": clock.seconds()})
+    return max_err, gather_err
 
 
 def drive_batches(eng, batches, s):
@@ -402,13 +609,14 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
                for q in sizes]
 
     # the counted run: every count to 0, drive, read
-    lj.LAUNCHES = 0
+    lj.LAUNCHES = lj.GATHER_LAUNCHES = 0
     answers = drive_batches(eng, batches, s)
     torch.cuda.synchronize()
-    launches = lj.LAUNCHES
-    if launches != 2 * len(batches):
-        raise AssertionError(f"expected one label_join launch per batch "
-                             f"({2 * len(batches)}), counted {launches}")
+    launches, gather_launches = lj.LAUNCHES, lj.GATHER_LAUNCHES
+    if launches != 2 * len(batches) or gather_launches != launches:
+        raise AssertionError(f"expected one label_join_gather launch per "
+                             f"batch ({2 * len(batches)}), counted "
+                             f"{gather_launches} of {launches} launches")
 
     lj.LAUNCHES = 0
     plain_answers = drive_batches(plain_eng, batches, s)
@@ -428,20 +636,68 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
     if want != mr1000[:32].tolist():
         raise AssertionError("main_path: batch differs from the MST oracle")
 
-    # the kernel on the rows this path gave it (largest batch), vs plain
-    bu = torch.from_numpy(batches[-1][0]).to(device)
-    bv = torch.from_numpy(batches[-1][1]).to(device)
+    # the kernel on the rows this path gave it (largest batch), vs plain:
+    # by id (the path's own entry point) and on the gathered rows
+    hus, hvs = batches[-1]
+    bu = torch.from_numpy(hus).to(device)
+    bv = torch.from_numpy(hvs).to(device)
+    fused = lj.label_join_gather(snap.ranks, snap.svals, bu, bv)
+    gather_err = check_equal("main_path by id", fused, plain_gather_chunked(
+        lj.label_join_gather_ref, snap.ranks, snap.svals, bu, bv))
     ru, su, rv, sv = snap.ranks[bu], snap.svals[bu], snap.ranks[bv], snap.svals[bv]
     got = lj.label_join(ru, su, rv, sv)
     err = check_equal("main_path rows", got,
                       plain_chunked(lj.label_join_ref, ru, su, rv, sv))
-    if not np.array_equal(got.cpu().numpy(), answers[-1][0]):
+    gather_err = max(gather_err, check_equal("main_path by id vs rows",
+                                             fused, got))
+    if not np.array_equal(fused.cpu().numpy(), answers[-1][0]):
         raise AssertionError("main_path: engine answer differs from wrapper")
     kernel_times = time_shape(lj, join_ops, ru, su, rv, sv)
     kernel_times["shape"] = list(ru.shape)
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                          device=device)
+    bound_ms, bound_by, counts = label_join_gather_bound(snap.svals, bu, bv)
+    gather_times = {
+        "ms": cuda_ms(lambda: lj.label_join_gather(snap.ranks, snap.svals,
+                                                   bu, bv), reps=30),
+        "cold_ms": cuda_ms_cold(
+            lambda: lj.label_join_gather(snap.ranks, snap.svals, bu, bv),
+            scratch, reps=10),
+        "plain_ms": cuda_ms(lambda: plain_gather_chunked(
+            lj.label_join_gather_ref, snap.ranks, snap.svals, bu, bv),
+            reps=3, warmup=1),
+        "torch_ops_ms": cuda_ms(lambda: snap.mr(bu, bv), reps=20),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": [sizes[-1], snap.lmax], **counts}
+    del scratch
+
+    # the device memory one 2^20 batch adds: through the engine (ids and
+    # answers), and the same batch gathered first (the two-step route)
+    def peak_rise(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    def two_step_batch():
+        pairs = torch.from_numpy(np.stack(engine_mod.validate_batch(
+            hus, hvs, h.n))).to(device)
+        rows = (snap.ranks[pairs[0]], snap.svals[pairs[0]],
+                snap.ranks[pairs[1]], snap.svals[pairs[1]])
+        return lj.label_join(*rows).cpu().numpy()
+
+    memory = {"queries": sizes[-1],
+              "mr_batch_peak_rise_bytes": peak_rise(
+                  lambda: eng.mr_batch(hus, hvs)),
+              "two_step_peak_rise_bytes": peak_rise(two_step_batch),
+              "limit_bytes": BATCH_PEAK_LIMIT}
+    if memory["mr_batch_peak_rise_bytes"] >= BATCH_PEAK_LIMIT:
+        raise AssertionError(f"main_path: a 2^20 mr_batch raised the peak "
+                             f"device memory by {memory}")
 
     # where one batch's time goes, step by step, for the largest batch
-    hus, hvs = batches[-1]
     checked = engine_mod.validate_batch(hus, hvs, h.n)
     stacked = torch.from_numpy(np.stack(checked))
     breakdown = {
@@ -454,7 +710,16 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
             lambda: (snap.ranks[bu], snap.svals[bu], snap.ranks[bv],
                      snap.svals[bv]), reps=20),
         "label_join_ms": kernel_times["ms"],
-        "answers_to_host_ms": host_ms(lambda: got.cpu().numpy(), 5),
+        "fused_join_ms": gather_times["ms"],
+        "fused_join_cold_ms": gather_times["cold_ms"],
+        # one launch with the card idle before it (the older way of timing
+        # kernels here): the wrapper's host cost shows in these two
+        "label_join_single_launch_ms": cuda_ms_single(
+            lambda: lj.label_join(ru, su, rv, sv), reps=30),
+        "fused_join_single_launch_ms": cuda_ms_single(
+            lambda: lj.label_join_gather(snap.ranks, snap.svals, bu, bv),
+            reps=30),
+        "answers_to_host_ms": host_ms(lambda: fused.cpu().numpy(), 5),
     }
 
     rates = []
@@ -474,12 +739,14 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
           "oracle_pairs": 32, "oracle_seconds": round(oracle_s, 3),
           "merge_join_pairs": 1000, "s": s,
           "label_join_launches": launches,
+          "label_join_gather_launches": gather_launches,
           "share_nonzero": [float((a[0] > 0).mean()) for a in answers],
-          "batch_times_include": "host->device ids, gather, join, "
+          "batch_times_include": "host->device ids, join by id, "
                                  "device->host answers",
           "batches": rates, "largest_batch_breakdown": breakdown,
-          "seconds": clock.seconds()})
-    return launches, err, kernel_times
+          "batch_memory": memory, "seconds": clock.seconds()})
+    return launches, gather_launches, err, gather_err, kernel_times, \
+        gather_times
 
 
 def phase_wide_labels(api, engine_mod, lj, device):
@@ -1090,10 +1357,12 @@ def main() -> int:
     counters = {"label_join": lj, "maxmin_matmul": mm, "overlap": ov,
                 "threshold_step": tc}
     phase_env(build_mod, find_nvcc())
-    err_checks = phase_kernel_checks(lj, searchsorted_join, device)
+    err_checks, gather_err_checks = phase_kernel_checks(
+        lj, searchsorted_join, build_mod, device)
     dense_errs = phase_dense_kernel_checks(mm, ov, tc, device)
-    launches, err_main, times = phase_main_path(api, engine_mod, lj,
-                                                searchsorted_join, device)
+    (launches, gather_launches, err_main, gather_err_main, times,
+     gather_times) = phase_main_path(api, engine_mod, lj, searchsorted_join,
+                                     device)
     phase_wide_labels(api, engine_mod, lj, device)
     dense_launches, dense_pads, path_rows = phase_closure_path(
         api, semiring, ops, counters, device)
@@ -1109,6 +1378,21 @@ def main() -> int:
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,    # no single PyTorch call computes this join
         "torch_ops_ms": times["torch_ops_ms"], "shape": times["shape"],
+        "launches_include": "both entry points (one kernel body)",
+    }, {
+        "name": "label_join_gather", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/label_join.cu",
+        "replaces": "src/repro/kernels/label_join.py:106",
+        "launches": gather_launches,
+        "max_abs_err": max(gather_err_checks, gather_err_main),
+        "ms": gather_times["ms"], "cold_ms": gather_times["cold_ms"],
+        "plain_ms": gather_times["plain_ms"],
+        "bound_ms": gather_times["bound_ms"],
+        "bound_by": gather_times["bound_by"],
+        "library_ms": None,    # no single PyTorch call gathers and joins
+        "torch_ops_ms": gather_times["torch_ops_ms"],
+        "shape": gather_times["shape"],
+        "distinct_rows": gather_times["distinct_rows"],
     }]
     replaces = {"maxmin_matmul": "src/repro/kernels/maxmin_matmul.py:70",
                 "overlap": "src/repro/kernels/overlap.py:47",

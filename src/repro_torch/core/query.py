@@ -242,33 +242,37 @@ class KernelSnapshot:
 
     Answers ``mr`` / ``s_reach`` batches through the hand-written
     ``label_join`` CUDA kernel instead of the host merge-join or the
-    tensor-op ``batched_mr``: query rows are gathered from the resident
-    label tensors on device and the [Q, Lmax] rows feed ``label_join``.
-    Memory stays label-mass: the view holds no tensors of its own beyond
-    the wrapped snapshot.
+    tensor-op ``batched_mr``.  The kernel's gather entry point
+    (``label_join_gather``) takes the resident ``ranks`` / ``svals``
+    tensors and the batch's vertex ids and reads each query's two label
+    rows itself: no ``[Q, Lmax]`` rows are gathered into device memory,
+    so a batch adds only its ids and its answers to the device's memory
+    (``batched_mr`` still gathers through ``_gather_rows``).  The view
+    holds no tensors of its own beyond the wrapped snapshot.
 
-    The reference pads each batch to a power-of-two bucket (one compiled
-    program per bucket shape) and to its kernel's block size.  A CUDA
-    launch takes any ``Q`` and masks its own ragged edge, so this view
-    pads neither: it gathers exactly ``Q`` rows and launches once.
+    The reference gathers the rows, pads each batch to a power-of-two
+    bucket (one compiled program per bucket shape) and to its kernel's
+    block size.  A CUDA launch takes any ``Q`` and masks its own ragged
+    edge, so this view pads neither: it launches once on exactly ``Q``
+    id pairs.
 
     The wrapped ``base`` snapshot keeps its identity — patch plumbing
     (``patch_rows``) operates on the underlying ``DeviceSnapshot`` and the
     view is rebuilt around the result, which is why this is composition
     rather than subclassing.
 
-    On a CPU snapshot ``label_join`` runs its plain version (what the CPU
-    tests use); on a CUDA snapshot it launches the kernel or raises.
-    Construction validates the rank key space against the kernel's
-    padding sentinels once (``validate_ranks``), so per-batch calls
-    don't pay the check.
+    On a CPU snapshot ``label_join_gather`` runs its plain version (what
+    the CPU tests use); on a CUDA snapshot it launches the kernel or
+    raises.  Construction validates the rank key space against the
+    kernel's padding sentinels once (``validate_ranks``), so per-batch
+    calls don't pay the check.
     """
 
     def __init__(self, base: DeviceSnapshot):
-        from ..kernels.label_join import label_join, validate_ranks
+        from ..kernels.label_join import label_join_gather, validate_ranks
         validate_ranks(base.ranks)
         self.base = base
-        self._join = label_join
+        self._join = label_join_gather
 
     # geometry / identity delegate to the wrapped snapshot
     @property
@@ -288,14 +292,9 @@ class KernelSnapshot:
 
     def mr(self, us, vs) -> torch.Tensor:
         dev = self.base.device
-        us = _as_index(us, dev)
-        vs = _as_index(vs, dev)
-        q = us.numel()
-        if q == 0 or self.base.lmax == 0:
-            return torch.zeros((q,), dtype=torch.int32, device=dev)
-        ru, su, rv, sv = _gather_rows(self.base.ranks, self.base.svals,
-                                      us, vs)
-        return self._join(ru, su, rv, sv)
+        us = _as_index(us, dev).contiguous()
+        vs = _as_index(vs, dev).contiguous()
+        return self._join(self.base.ranks, self.base.svals, us, vs)
 
     def s_reach(self, us, vs, s: int) -> torch.Tensor:
         return self.mr(us, vs) >= s

@@ -1,4 +1,4 @@
-"""Batched HL-index label join (Algorithm 5): plain version, CUDA wrapper.
+"""Batched HL-index label join (Algorithm 5): plain versions, CUDA wrappers.
 
     out[q] = max over common hubs of min(s_u[q], s_v[q])
 
@@ -9,12 +9,22 @@ rank-sorted label lists.  Counterpart of ``repro/kernels/label_join.py``
 * ``label_join_ref`` — the plain PyTorch version: the all-pairs
   hub-equality join, a ``[Q, L, L]`` compare + select + max.  It is what
   the CPU tests run and what the CUDA kernel is held against on the card.
-* ``label_join`` — the wrapper.  CPU tensors go to the plain version; CUDA
-  tensors launch the hand-written kernel ``csrc/label_join.cu`` (one warp
-  per query row, binary search over the v row staged in shared memory) or
-  raise.  There is no fallback from the kernel to anything else.
-* ``LAUNCHES`` — incremented once per kernel launch and nowhere else, so a
-  run can show that a batch really went through the kernel.
+* ``label_join`` — the wrapper on four ``[Q, L]`` operands.  CPU tensors go
+  to the plain version; CUDA tensors launch the hand-written kernel
+  ``csrc/label_join.cu`` or raise.  There is no fallback from the kernel to
+  anything else.
+* ``label_join_gather`` — the same join on a snapshot's own ``[n, L]``
+  ``ranks`` / ``svals`` and two ``[Q]`` int64 id vectors: the kernel reads
+  row ``us[q]`` and row ``vs[q]`` itself, so no gathered rows are written.
+  Its plain version is ``label_join_gather_ref``.  This is what
+  ``KernelSnapshot.mr`` (the serving path) calls.
+* ``lanes_per_query`` — the route the kernel takes for rows of length L,
+  chosen once per launch: a group of that many lanes per query (L <= 32),
+  or 0 for one warp per query row.
+* ``LAUNCHES`` — incremented once per kernel launch, through either entry
+  point, and nowhere else, so a run can show that a batch really went
+  through the kernel; ``GATHER_LAUNCHES`` counts the launches of
+  ``label_join_gather`` among them.
 
 Sentinel contract (shared with ``DeviceSnapshot`` / ``pad_label_rows``):
 
@@ -25,7 +35,10 @@ Sentinel contract (shared with ``DeviceSnapshot`` / ``pad_label_rows``):
   so this package adds no such rows, but it keeps the reference's bound so
   both refuse the same snapshots: **real ranks must be <= MAX_RANK =
   2^31 - 3** — ``validate_ranks`` asserts it once per snapshot
-  (``KernelSnapshot``), not per query batch.
+  (``KernelSnapshot``), not per query batch;
+* ids given to ``label_join_gather`` lie in ``[0, n)``: the plain version
+  raises ``IndexError`` otherwise, the kernel stops (a device-side trap,
+  as PyTorch's own indexing does on the card).
 """
 from __future__ import annotations
 
@@ -36,14 +49,19 @@ import torch
 
 from .build import launch
 
-__all__ = ["label_join", "label_join_ref", "validate_ranks", "MAX_RANK",
-           "LAUNCHES"]
+__all__ = ["label_join", "label_join_ref", "label_join_gather",
+           "label_join_gather_ref", "lanes_per_query", "validate_ranks",
+           "MAX_RANK", "LAUNCHES", "GATHER_LAUNCHES"]
 
 _PAD = np.iinfo(np.int32).max          # rank-slot padding (both operands)
 MAX_RANK = _PAD - 2                    # largest legal real rank (2^31 - 3)
 
-# kernel launches made by ``label_join`` in this process
+# kernel launches made by ``label_join`` and ``label_join_gather`` in this
+# process, and those of ``label_join_gather`` alone
 LAUNCHES = 0
+GATHER_LAUNCHES = 0
+
+_WARP = 32
 
 
 def validate_ranks(ranks) -> None:
@@ -103,6 +121,21 @@ def _check_operands(ru, su, rv, sv) -> None:
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int]
+_GATHER_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                             ctypes.c_longlong]
+
+
+def lanes_per_query(l: int) -> int:
+    """The kernel's route for label rows of length ``l``, as
+    ``label_join_lanes_per_query`` in ``csrc/label_join.cu`` chooses it:
+    the smallest power of two >= ``l`` lanes per query for ``l <= 32``
+    (several queries share a warp), 0 for one warp per query row, -1 for
+    ``l <= 0`` (nothing to launch)."""
+    if l <= 0:
+        return -1
+    if l > _WARP:
+        return 0
+    return 1 << (l - 1).bit_length()
 
 
 def label_join(ru: torch.Tensor, su: torch.Tensor, rv: torch.Tensor,
@@ -125,4 +158,79 @@ def label_join(ru: torch.Tensor, su: torch.Tensor, rv: torch.Tensor,
            (ru.data_ptr(), su.data_ptr(), rv.data_ptr(), sv.data_ptr(),
             out.data_ptr(), q, lmax), f"label_join Q={q}, L={lmax}")
     LAUNCHES += 1
+    return out
+
+
+def _check_ids_in_range(ids: torch.Tensor, n: int) -> None:
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n):
+        raise IndexError(f"label_join_gather: row ids must lie in [0, {n}), "
+                         f"got [{int(ids.min())}, {int(ids.max())}]")
+
+
+def label_join_gather_ref(ranks: torch.Tensor, svals: torch.Tensor,
+                          us: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``label_join_gather``: ``label_join_ref`` on the
+    rows ``us`` and ``vs`` of the snapshot ``ranks`` / ``svals`` [n, L].
+    Raises ``IndexError`` on an id outside [0, n)."""
+    for ids in (us, vs):
+        _check_ids_in_range(ids, ranks.shape[0])
+    return label_join_ref(ranks[us], svals[us], ranks[vs], svals[vs])
+
+
+def _check_gather_operands(ranks, svals, us, vs) -> None:
+    for name, t in (("ranks", ranks), ("svals", svals), ("us", us),
+                    ("vs", vs)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"label_join_gather: {name} must be a "
+                            f"torch.Tensor, got {type(t).__name__}")
+    for name, t, dtype, dim in (("ranks", ranks, torch.int32, 2),
+                                ("svals", svals, torch.int32, 2),
+                                ("us", us, torch.int64, 1),
+                                ("vs", vs, torch.int64, 1)):
+        if t.dtype != dtype:
+            raise TypeError(f"label_join_gather: {name} must be {dtype}, "
+                            f"got {t.dtype}")
+        if t.dim() != dim:
+            raise ValueError(f"label_join_gather: {name} must have {dim} "
+                             f"dimension(s), got shape {tuple(t.shape)}")
+        if t.device != ranks.device:
+            raise ValueError(f"label_join_gather: {name} is on {t.device}, "
+                             f"ranks on {ranks.device}; all four must share "
+                             f"a device")
+        if not t.is_contiguous():
+            raise ValueError(f"label_join_gather: {name} must be contiguous")
+    if svals.shape != ranks.shape:
+        raise ValueError(f"label_join_gather: svals has shape "
+                         f"{tuple(svals.shape)}, ranks {tuple(ranks.shape)}; "
+                         f"they must match")
+    if us.shape != vs.shape:
+        raise ValueError(f"label_join_gather: us has {us.shape[0]} ids, vs "
+                         f"{vs.shape[0]}; they must match")
+
+
+def label_join_gather(ranks: torch.Tensor, svals: torch.Tensor,
+                      us: torch.Tensor, vs: torch.Tensor) -> torch.Tensor:
+    """The join of row ``us[q]`` against row ``vs[q]`` of a snapshot:
+    ``ranks`` / ``svals`` [n, L] int32 (the ``label_join`` row contract),
+    ``us`` / ``vs`` [Q] int64 ids in [0, n), all contiguous and on one
+    device.  Returns [Q] int32 on that device.  Q = 0 or L = 0 answers
+    zeros with no launch.  Anything else raises."""
+    global LAUNCHES, GATHER_LAUNCHES
+    _check_gather_operands(ranks, svals, us, vs)
+    if ranks.device.type == "cpu":
+        return label_join_gather_ref(ranks, svals, us, vs)
+    if ranks.device.type != "cuda":
+        raise ValueError(f"label_join_gather: unsupported device "
+                         f"{ranks.device}")
+    (n, lmax), q = ranks.shape, us.shape[0]
+    if q == 0 or lmax == 0:            # a zero-size grid is a launch error
+        return torch.zeros((q,), dtype=torch.int32, device=ranks.device)
+    out = torch.empty((q,), dtype=torch.int32, device=ranks.device)
+    launch("label_join", "label_join_gather_launch", _GATHER_ARGTYPES,
+           ranks.device,
+           (ranks.data_ptr(), svals.data_ptr(), us.data_ptr(), vs.data_ptr(),
+            out.data_ptr(), q, lmax, n),
+           f"label_join_gather Q={q}, L={lmax}, n={n}")
+    LAUNCHES += 1
+    GATHER_LAUNCHES += 1
     return out

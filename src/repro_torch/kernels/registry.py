@@ -30,7 +30,8 @@ class KernelSpec:
 KERNEL_REGISTRY: dict[str, KernelSpec] = {
     "label_join": KernelSpec(
         kernel=label_join, reference=label_join_ref, unit="CUDA cores",
-        consumer="KernelSnapshot.mr — serving-path batched merge-join",
+        consumer="KernelSnapshot.mr — serving-path batched merge-join, "
+                 "through the gather entry point label_join_gather",
         source="kernels/csrc/label_join.cu"),
     "maxmin_matmul": KernelSpec(
         kernel=maxmin_matmul, reference=maxmin_matmul_ref, unit="CUDA cores",

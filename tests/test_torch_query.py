@@ -100,12 +100,37 @@ def test_kernel_snapshot_equals_reference_kernel_path(world):
                   np.bool_)
     assert (view.backend, view.version, view.lmax, view.nbytes()) == \
         (ref_view.backend, ref_view.version, ref_view.lmax, ref_view.nbytes())
-    # exactly Q rows are gathered: no bucket, no repeated first pair
+    # the join gets the snapshot's own tensors and exactly Q id pairs: no
+    # gathered rows, no bucket, no repeated first pair
     seen = []
-    view._join = lambda *ops: seen.append(ops[0].shape) or \
-        torch.zeros(ops[0].shape[0], dtype=torch.int32)
+    view._join = lambda *ops: seen.append(ops) or \
+        torch.zeros(ops[2].shape[0], dtype=torch.int32)
     view.mr(us[:37], vs[:37])
-    assert seen == [(37, world["port_snap"].lmax)]
+    (ranks, svals, got_us, got_vs), = seen
+    assert ranks is world["port_snap"].ranks
+    assert svals is world["port_snap"].svals
+    assert got_us.dtype == got_vs.dtype == torch.int64
+    assert got_us.tolist() == us[:37].tolist()
+    assert got_vs.tolist() == vs[:37].tolist()
+
+
+def test_kernel_snapshot_repeated_ids_in_one_batch(world):
+    # ids repeat within the batch (and every pair appears twice): the view
+    # reads the same snapshot rows for each copy and answers as the
+    # reference's kernel path and batched_mr do
+    us = np.concatenate([world["us"][:40], world["us"][:40][::-1],
+                         np.full(5, world["us"][3])])
+    vs = np.concatenate([world["vs"][:40], world["vs"][:40][::-1],
+                         np.full(5, world["vs"][3])])
+    got = port_q.KernelSnapshot(world["port_snap"]).mr(us, vs)
+    ref_view = ref_q.KernelSnapshot(world["ref_snap"], interpret=True)
+    _same_answers(got, ref_view.mr(us, vs), np.int32)
+    _same_answers(got, world["ref_snap"].mr(us, vs), np.int32)
+    assert torch.equal(got, port_q.batched_mr(
+        world["port_snap"].ranks, world["port_snap"].svals,
+        torch.from_numpy(us), torch.from_numpy(vs)))
+    assert got[:40].tolist() == got[40:80].flip(0).tolist()
+    assert len(set(got[80:].tolist())) == 1
 
 
 def test_kernel_snapshot_validates_ranks_once(world):
