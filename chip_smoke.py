@@ -9,6 +9,11 @@ drives the port's two paths at full size through `repro_torch.api`:
 * batched max-reachability through `build_engine(h, "hl-index",
   use_kernels=True)` (the `label_join` kernel, through its gather entry
   point `label_join_gather`, which reads the label rows by vertex id);
+* the request service over that engine (`api.serve`, `ReplicaGroup`):
+  seeded multi-tenant traffic in micro-batches of one `label_join_gather`
+  launch each, one scoped update on the full graph and the snapshot
+  swapped in, two replicas patched row-wise, and 20 update batches on a
+  small graph (with the `closure` backend's rebuilds counted);
 * the dense closure through `build_engine(h, "closure", method=...)` at
   the published size of primary-school (242 vertices, 12,704 hyperedges):
   the `overlap` kernel forms the line graph, 14 launches of
@@ -21,7 +26,7 @@ non-zero at once.
 Output: one `ptxas <kernel>: ...` line per library (registers, shared
 memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
-`main_path`, `wide_labels`, `closure_path`, `closure_path_kernels`,
+`main_path`, `service_path`, `wide_labels`, `closure_path`, `closure_path_kernels`,
 `closure_small`, then `{"kernels": [...]}` (per kernel: launches on its
 path, error against the plain version, times and the roofline bound;
 `label_join_gather` is the gather entry point of `label_join`), the
@@ -45,7 +50,12 @@ after a 256 MB scratch tensor is written, so that nothing of its operands
 is left in L2 (the card is busy with the write while the host enqueues
 the launch, so this time is the kernel's own).  A batch's time is the host
 clock around `mr_batch`, host<->device copies included; `main_path` also
-reports the rise in peak device memory of a 2^20 batch.
+reports the rise in peak device memory of a 2^20 batch.  `service_path`
+times each run of the traffic on the host clock (submission to the last
+answer) and splits a second, instrumented run of it by micro-batch step;
+the device's idle share there is 1 - the kernels' own time (queued back
+to back behind a spin of the card, at each batch's bucket) over the run's
+time.
 float32 products run in full float32: TF32 is switched off and checked.
 """
 from __future__ import annotations
@@ -57,6 +67,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -114,6 +125,17 @@ TENSOR_CORE_KERNELS = ("overlap", "threshold_step")
 MEDIUM_MAXMIN = 2048
 MEDIUM_OVERLAP = (2048, 512)
 MEDIUM_THRESHOLD = (5, 2048)
+# the request service's traffic on the main path: MR and s-reach requests
+# (s in 1..8), three tenants of weights 1 / 2 / 4, mixed priorities;
+# admission at ServiceConfig()'s max_batch, then a 16x larger one
+SERVICE_MR_REQUESTS = 65_536
+SERVICE_SREACH_REQUESTS = 16_384
+SERVICE_TENANTS = (("t1", 1.0), ("t2", 2.0), ("t4", 4.0))
+SERVICE_BATCHES = (4096, 65_536)
+TRICKLE_REQUESTS = 1000
+# requests submitted while the full-graph update runs, one per gap
+STALL_REQUESTS = 8
+STALL_GAP_S = 1.0
 
 
 def emit(obj) -> None:
@@ -181,6 +203,27 @@ def cuda_ms_single(fn, reps: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_queued(fn, reps: int, warmup: int = 3) -> float:
+    """Milliseconds of one call of ``fn`` on the card with its launches
+    queued ahead: the card first spins for about 25 ms
+    (``torch.cuda._sleep``) while the host enqueues the ``reps`` calls
+    behind the start event, so the events time the kernels back to back
+    and not the wrapper's host cost, which a short kernel is shorter
+    than."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def cuda_ms_cold(fn, scratch, reps: int) -> float:
@@ -746,7 +789,7 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
           "batches": rates, "largest_batch_breakdown": breakdown,
           "batch_memory": memory, "seconds": clock.seconds()})
     return launches, gather_launches, err, gather_err, kernel_times, \
-        gather_times
+        gather_times, eng
 
 
 def phase_wide_labels(api, engine_mod, lj, device):
@@ -791,6 +834,687 @@ def phase_wide_labels(api, engine_mod, lj, device):
           "s": s, "label_join_launches": launches,
           "answer_histogram": np.bincount(answers[1][0]).tolist(),
           "seconds": clock.seconds()})
+
+
+# -- the request service ------------------------------------------------------
+
+class _TimedView:
+    """Stands in for the serving view inside the service's own
+    ``_snapshot_mr``: it synchronises on entry (so the ids' copy, which
+    came before, is finished), records CUDA events around the real
+    ``mr`` and the host time of its launch.  It has only the attributes
+    ``_snapshot_mr`` uses today, so a change there fails loudly."""
+
+    def __init__(self, view, cur):
+        self._view, self._cur = view, cur
+        self.device = view.device
+
+    def mr(self, us, vs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self._view.mr(us, vs)
+        end.record()
+        self._cur.update(ids_landed=t1, launched=time.perf_counter(),
+                         events=(start, end))
+        return out
+
+
+def timed_service_class(base):
+    """A subclass of the service ``base`` that times its own steps, for the
+    per-micro-batch split: the scheduler's ``take`` (host clock), then per
+    dispatched group the id assembly and bucket pad, and around the
+    service's own ``_snapshot_mr`` (through ``_TimedView``) the ids' copy
+    to the card, the join's launch (host clock; CUDA events around it)
+    and the answers' copy back (which waits for the join); the futures'
+    resolution is the rest of the group."""
+
+    class TimedService(base):
+        def __init__(self, *args, start=True, **kwargs):
+            super().__init__(*args, start=False, **kwargs)
+            self.take_ms, self.groups = [], []
+            take = self._queue.take
+
+            def timed_take(limit, now):
+                t0 = time.perf_counter()
+                out = take(limit, now)
+                self.take_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            self._queue.take = timed_take
+            if start:
+                self.start()
+
+        def _dispatch_group(self, kind, group, snap):
+            self._cur = {"kind": kind, "queries": len(group)}
+            t0 = time.perf_counter()
+            super()._dispatch_group(kind, group, snap)
+            cur = self._cur
+            cur["group_ms"] = (time.perf_counter() - t0) * 1e3
+            cur["resolve_ms"] = cur["group_ms"] - sum(
+                cur[k] for k in ("assemble_ms", "h2d_ms", "launch_ms",
+                                 "d2h_ms"))
+            self.groups.append(cur)
+
+        def _batch_ids(self, group):
+            t0 = time.perf_counter()
+            us, vs = super()._batch_ids(group)
+            self._cur["assemble_ms"] = (time.perf_counter() - t0) * 1e3
+            self._cur["bucket"] = int(us.size)
+            return us, vs
+
+        def _snapshot_mr(self, snap, us, vs):
+            cur = self._cur
+            t0 = time.perf_counter()
+            host = super()._snapshot_mr(_TimedView(snap, cur), us, vs)
+            t3 = time.perf_counter()
+            start, end = cur.pop("events")
+            t1, t2 = cur.pop("ids_landed"), cur.pop("launched")
+            cur.update(h2d_ms=(t1 - t0) * 1e3, launch_ms=(t2 - t1) * 1e3,
+                       d2h_ms=(t3 - t2) * 1e3,
+                       join_events_ms=start.elapsed_time(end))
+            return host
+
+    return TimedService
+
+
+def service_requests(serve_mod, rng, n, n_mr, n_sreach):
+    """Seeded traffic: ``n_mr`` MR and ``n_sreach`` s-reach requests (s in
+    1..8) in one shuffled stream, three tenants, mixed priorities.  Returns
+    the requests and their ids, s (0 for MR) as arrays."""
+    q = n_mr + n_sreach
+    us, vs = rng.integers(0, n, q), rng.integers(0, n, q)
+    s = np.concatenate([np.zeros(n_mr, np.int64),
+                        rng.integers(1, 9, n_sreach)])
+    rng.shuffle(s)
+    tenants = [t for t, _ in SERVICE_TENANTS]
+    tenant = rng.integers(0, len(tenants), q)
+    prio = rng.choice(3, q, p=[0.1, 0.6, 0.3])
+    names = ("interactive", "standard", "batch")
+    reqs = [serve_mod.MRRequest(int(u), int(v), tenant=tenants[t],
+                                priority=names[p]) if not k else
+            serve_mod.SReachRequest(int(u), int(v), int(k),
+                                    tenant=tenants[t], priority=names[p])
+            for u, v, k, t, p in zip(us, vs, s, tenant, prio)]
+    return reqs, us, vs, s
+
+
+def expected_answers(mr, s):
+    """What the service must resolve: ``int`` MR where s == 0, else the
+    ``bool`` s-reach answer."""
+    return [bool(m >= k) if k else int(m) for m, k in zip(mr.tolist(),
+                                                          s.tolist())]
+
+
+def check_service_answers(tag, futs, want, timeout=120):
+    got = [f.result(timeout=timeout) for f in futs]
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        raise AssertionError(f"{tag}: {bad} of {len(want)} answers differ")
+    if [type(g) for g in got] != [type(w) for w in want]:
+        raise AssertionError(f"{tag}: answer types differ")
+
+
+def step_split(svc, wall_ms, kernel_ms_by_bucket):
+    """Per micro-batch split of one timed run, summed over its groups, and
+    the device's idle share: 1 - the kernels' own time (``cuda_ms_queued``
+    at each group's bucket) over the run's wall time."""
+    groups = svc.groups
+    keys = ("assemble_ms", "h2d_ms", "launch_ms", "d2h_ms", "resolve_ms",
+            "join_events_ms", "group_ms")
+    total = {k: sum(g[k] for g in groups) for k in keys}
+    total["take_ms"] = sum(svc.take_ms)
+    kernel = sum(kernel_ms_by_bucket[g["bucket"]] for g in groups)
+    dispatch_ms = total["group_ms"] + total["take_ms"]
+    n = len(groups)
+    return {"groups": n, "takes": len(svc.take_ms), "wall_ms": wall_ms,
+            "dispatch_ms": dispatch_ms, "sum_ms": total,
+            "mean_ms_per_group": {k: v / n for k, v in total.items()},
+            "kernel_ms": kernel, "device_idle_share": 1 - kernel / wall_ms,
+            "device_idle_share_of_dispatch": 1 - kernel / dispatch_ms,
+            "buckets": sorted({g["bucket"] for g in groups})}
+
+
+def serve_run(api, eng, cfg, reqs, want, threaded, counters, timed=None):
+    """One run of the traffic through a service over ``eng`` (``api.serve``
+    or, with ``timed``, the timing subclass), every count set to 0 just
+    before and read just after.  Returns the service, the seconds of
+    submission and of the whole run, and the launch counts."""
+    reset_counts(counters)
+    lj = counters["label_join"]
+    lj.GATHER_LAUNCHES = 0
+    svc = (api.serve(eng, config=cfg, start=threaded) if timed is None
+           else timed(eng, config=cfg, start=threaded))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = svc.submit_many(reqs)
+        t1 = time.perf_counter()
+        if not threaded:
+            svc.drain()
+        for f in futs:
+            f.result(timeout=300)
+        t2 = time.perf_counter()
+    finally:
+        svc.close()
+    counts = read_counts(counters)
+    counts["label_join_gather"] = lj.GATHER_LAUNCHES
+    check_service_answers("service_path", futs, want)
+    st = svc.stats()
+    want_counts = {name: 0 for name in counters}
+    want_counts.update(label_join=st.batches, label_join_gather=st.batches)
+    if counts != want_counts or st.kernel_batches != st.batches:
+        raise AssertionError(f"service_path: launches {counts} for "
+                             f"{st.batches} micro-batches "
+                             f"({st.kernel_batches} through the kernel)")
+    if st.answered != len(reqs) or st.expired:
+        raise AssertionError(f"service_path: stats {st.as_dict()}")
+    return svc, t1 - t0, t2 - t0, counts
+
+
+def traced_run(api, eng, cfg, reqs, want, counters):
+    """One ``drain()`` run of the traffic under ``torch.profiler`` with
+    CUDA activity only: the device's busy time is the union of the
+    trace's device intervals (kernels, copies, sets), its idle share 1 -
+    busy / the run's wall time (which the tracing lengthens).  The
+    trace's kernel count is held to the run's launches, so a trace that
+    missed some launches shows as a failure, not as a larger idle share;
+    one that holds no device event at all is reported as not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        svc, _, run_s, counts = serve_run(api, eng, cfg, reqs, want, False,
+                                          counters)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end_us = 0.0, -math.inf
+    for t0, t1, _ in spans:
+        if t1 > end_us:
+            busy_us += t1 - max(t0, end_us)
+            end_us = t1
+    if not spans:
+        return {"device_idle_share": None,
+                "note": "not measured: the trace held no device event"}
+    joins = sum("join_short" in name or "join_long" in name
+                for _, _, name in spans)    # label_join.cu's two kernels
+    if joins != counts["label_join"]:
+        raise AssertionError(f"traced run: {joins} label_join kernels in "
+                             f"the trace for {counts['label_join']} "
+                             f"launches")
+    return {"max_batch": cfg.max_batch, "mode": "drain",
+            "wall_ms": run_s * 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_events": len(spans), "label_join_kernels": joins,
+            "device_idle_share": 1 - busy_us / 1e3 / (run_s * 1e3)}
+
+
+def fan_churn_script(rng, n0, version, h):
+    """The small graph's 20 seeded update batches: random groups among
+    the first ``n0`` vertices; at versions 4 and 5 vertex 0 joins groups
+    of every size from 2 to 41 (new vertices: n grows, and its label row
+    passes 32 labels, the kernel's route change); at versions 12 and 13
+    those groups dissolve again."""
+    if version in (4, 5):
+        sizes = range(2, 22) if version == 4 else range(22, 42)
+        ins, nxt = [], h.n
+        for k in sizes:
+            ins.append([0] + list(range(nxt, nxt + k - 1)))
+            nxt += k - 1
+        return ins, []
+    if version in (12, 13):
+        fan = [e for e in range(h.m) if int(h.edge(e).max()) >= n0]
+        return [], fan[: len(fan) // 2] if version == 12 else fan
+    ins = [[int(x) for x in rng.choice(n0, size=int(rng.integers(2, 9)),
+                                       replace=False)]
+           for _ in range(int(rng.integers(1, 4)))]
+    dels = [int(d) for d in rng.choice(h.m, size=int(rng.integers(0, 3)),
+                                       replace=False)]
+    return ins, dels
+
+
+def snapshots_equal(a, b):
+    return all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+               for x, y in ((a.ranks, b.ranks), (a.svals, b.svals),
+                            (a.lengths, b.lengths)))
+
+
+def phase_service_path(api, engine_mod, serve_mod, query_mod, ops, counters,
+                       eng, device):
+    """The request service on the main path's 89k/70k engine (kernels on),
+    then one update on the full graph, two replicas, and churn on ENG-s."""
+    clock = Phase()
+    lj = counters["label_join"]
+    h = eng.h
+    steps = {}
+    t_step = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_step
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps[name] = round(now - t_step, 3)
+        t_step = now
+
+    rng = np.random.default_rng(17)
+    reqs, us, vs, s = service_requests(serve_mod, rng, h.n,
+                                       SERVICE_MR_REQUESTS,
+                                       SERVICE_SREACH_REQUESTS)
+    # what the service must answer: the kernel batch and batched_mr agree
+    plain_eng = engine_mod.HLIndexEngine(h, eng.idx, device=device)
+    mr_kernel = eng.mr_batch(us, vs)
+    mr_plain = plain_eng.mr_batch(us, vs)
+    if not np.array_equal(mr_kernel, mr_plain):
+        raise AssertionError("service_path: mr_batch and batched_mr differ")
+    want = expected_answers(mr_kernel, s)
+    lap("requests")
+
+    tenants = tuple(serve_mod.TenantSpec(t, w) for t, w in SERVICE_TENANTS)
+    timed_cls = timed_service_class(serve_mod.ReachabilityService)
+    runs, splits = [], {}
+    snap = eng.snapshot()
+    bucket_ms = {}
+    for max_batch in SERVICE_BATCHES:
+        cfg = serve_mod.ServiceConfig(max_batch=max_batch, tenants=tenants,
+                                      use_kernels=True)
+        for threaded in (False, True):
+            svc, submit_s, run_s, counts = serve_run(
+                api, eng, cfg, reqs, want, threaded, counters)
+            if svc._snap is not eng.snapshot_cache():
+                raise AssertionError("service_path: the service copied the "
+                                     "engine's snapshot")
+            st = svc.stats()
+            runs.append({"max_batch": max_batch,
+                         "mode": "thread" if threaded else "drain",
+                         "requests": len(reqs),
+                         "submit_seconds": submit_s, "seconds": run_s,
+                         "submit_us_per_request": submit_s / len(reqs) * 1e6,
+                         "requests_per_s": len(reqs) / run_s,
+                         "micro_batches": st.batches,
+                         "label_join_gather_launches":
+                             counts["label_join_gather"],
+                         "padded_queries": st.padded_queries,
+                         "bucket_histogram": st.bucket_histogram})
+            # the same run again, its steps timed one by one
+            tsvc, _, trun_s, _ = serve_run(api, eng, cfg, reqs, want,
+                                           threaded, counters,
+                                           timed=timed_cls)
+            for g in tsvc.groups:
+                b = g["bucket"]
+                if b not in bucket_ms:
+                    # the first b pairs of the traffic: the bucket sizes a
+                    # threaded run meets vary, so no seeded stream is drawn
+                    ids = torch.from_numpy(np.stack([us[:b], vs[:b]])).to(
+                        device)
+                    bucket_ms[b] = cuda_ms_queued(lambda: lj.label_join_gather(
+                        snap.ranks, snap.svals, ids[0], ids[1]), reps=20)
+            splits[f"{max_batch}-{'thread' if threaded else 'drain'}"] = \
+                step_split(tsvc, trun_s * 1e3, bucket_ms)
+    lap("traffic")
+    service_launches = sum(r["label_join_gather_launches"] for r in runs)
+    trace = traced_run(api, eng, serve_mod.ServiceConfig(
+        tenants=tenants, use_kernels=True), reqs, want, counters)
+    lap("traced_run")
+
+    # latency: single requests trickled 1 ms apart, the thread running
+    cfg = serve_mod.ServiceConfig(use_kernels=True)
+    reset_counts(counters)
+    lat = [None] * TRICKLE_REQUESTS
+    svc = api.serve(eng, config=cfg)
+    try:
+        futs = []
+        for i in range(TRICKLE_REQUESTS):
+            r = reqs[i]
+            t0 = time.perf_counter()
+            futs.append(svc.submit(r, on_result=lambda _r, _f, i=i, t0=t0:
+                                   lat.__setitem__(
+                                       i, time.perf_counter() - t0)))
+            time.sleep(0.001)
+        for f in futs:
+            f.result(timeout=60)
+    finally:
+        svc.close()
+    check_service_answers("service_path trickle", futs,
+                          want[:TRICKLE_REQUESTS])
+    trickle_launches = read_counts(counters)["label_join"]
+    if trickle_launches != svc.stats().batches:
+        raise AssertionError("service_path trickle: launches != batches")
+    service_launches += trickle_launches
+    lat_ms = np.array(lat) * 1e3
+    latency = {"requests": TRICKLE_REQUESTS, "gap_ms": 1.0,
+               "max_wait_ms": cfg.max_wait_ms,
+               "p50_ms": float(np.percentile(lat_ms, 50)),
+               "p99_ms": float(np.percentile(lat_ms, 99)),
+               "max_ms": float(lat_ms.max()),
+               "micro_batches": svc.stats().batches}
+    lap("trickle")
+
+    # one update on the full graph, through the service with its admission
+    # thread running; requests submitted while it runs time the stall
+    svc = api.serve(eng, config=cfg)
+    patch_s = []
+    snapshot = eng.snapshot
+
+    def timed_snapshot():
+        dirty = eng.dirty_rows()     # None: a full rebuild, no patch basis
+        t0 = time.perf_counter()
+        out = snapshot()
+        torch.cuda.synchronize()
+        patch_s.append((time.perf_counter() - t0, dirty))
+        return out
+
+    try:
+        reset_counts(counters)
+        futs = svc.submit_many(reqs[:4096])
+        check_service_answers("service_path before update", futs,
+                              want[:4096])
+        lmax_before = svc._snap.lmax
+        inserts = [[int(x) for x in rng.choice(h.n, 4, replace=False)]
+                   for _ in range(2)]
+        deletes = [int(x) for x in rng.choice(h.m, 2, replace=False)]
+        stall_reqs, stall_us, stall_vs, stall_s = service_requests(
+            serve_mod, np.random.default_rng(18), h.n, STALL_REQUESTS - 2, 2)
+        eng.snapshot = timed_snapshot    # times the patch at the swap
+        began, ran = threading.Event(), {}
+
+        def run_update():
+            began.set()
+            t0 = time.perf_counter()
+            try:
+                svc.update(inserts=inserts, deletes=deletes)
+            except BaseException as exc:             # noqa: BLE001
+                ran["error"] = exc
+            ran["span"] = (t0, time.perf_counter())
+
+        updater = threading.Thread(target=run_update, name="update")
+        updater.start()
+        began.wait()
+        time.sleep(0.1)
+        stall = []
+        stall_futs = []
+        for r in stall_reqs:
+            rec = {"submitted": time.perf_counter()}
+            stall.append(rec)
+            stall_futs.append(svc.submit(
+                r, on_result=lambda _r, _f, rec=rec: rec.__setitem__(
+                    "answered", time.perf_counter())))
+            time.sleep(STALL_GAP_S)
+        updater.join(timeout=600)
+        if updater.is_alive() or "error" in ran:
+            raise AssertionError(f"service_path: the update failed: "
+                                 f"{ran.get('error', 'still running')}")
+        for f in stall_futs:
+            f.result(timeout=120)
+        u0, u1 = ran["span"]
+        update_s = u1 - u0
+        h2 = eng.h
+        rng2 = np.random.default_rng(19)
+        reqs2, us2, vs2, s2 = service_requests(serve_mod, rng2, h2.n, 3072,
+                                               1024)
+        t0 = time.perf_counter()
+        futs = svc.submit_many(reqs2)
+        for f in futs:
+            f.result(timeout=120)
+        after_s = time.perf_counter() - t0
+    finally:
+        eng.__dict__.pop("snapshot", None)
+        svc.close()
+    if len(patch_s) != 1:
+        raise AssertionError(f"service_path: {len(patch_s)} snapshot "
+                             f"derivations after the update, expected 1")
+    patch_seconds, dirty = patch_s[0]
+    update = {"inserts": inserts, "deletes": deletes,
+              "seconds": update_s,
+              "scope": int(eng.idx.stats["maintenance_scope"]),
+              "m": eng.h.m, "n": eng.h.n,
+              "full_rebuild": dirty is None,
+              "dirty_rows": eng.h.n if dirty is None else int(dirty.size),
+              "rows_rederived": eng.last_snapshot_refresh_rows,
+              "patch_seconds": patch_seconds,
+              "after_update_traffic_seconds": after_s}
+    # each request sent during the update: when, after the update began,
+    # it was submitted, and how long it waited for its answer
+    update["stall"] = {
+        "requests": len(stall), "gap_s": STALL_GAP_S,
+        "submitted_during_update": sum(r["submitted"] < u1 for r in stall),
+        "submitted_s_after_update_began": [r["submitted"] - u0
+                                           for r in stall],
+        "latency_s": [r["answered"] - r["submitted"] for r in stall],
+        "answered_s_after_update_ended": [r["answered"] - u1
+                                          for r in stall]}
+    launches = read_counts(counters)["label_join"]
+    st = svc.stats()
+    if launches != st.batches or st.snapshot_refreshes != 2:
+        raise AssertionError(f"service_path after update: {launches} "
+                             f"launches, stats {st.as_dict()}")
+    service_launches += st.batches
+    t0 = time.perf_counter()
+    fresh = engine_mod.DeviceSnapshot.from_hlindex(eng.idx, device=device)
+    update["from_scratch_snapshot_seconds"] = time.perf_counter() - t0
+    if svc._snap.version != eng.version or not snapshots_equal(svc._snap,
+                                                               fresh):
+        raise AssertionError("service_path: the swapped-in snapshot differs "
+                             "from a from-scratch derivation")
+
+    def fresh_answers(us_, vs_, s_):
+        d = torch.from_numpy(np.stack([us_, vs_])).to(device)
+        return expected_answers(query_mod.batched_mr(
+            fresh.ranks, fresh.svals, d[0], d[1]).cpu().numpy(), s_)
+
+    check_service_answers("service_path during update", stall_futs,
+                          fresh_answers(stall_us, stall_vs, stall_s))
+    want2 = fresh_answers(us2, vs2, s2)
+    check_service_answers("service_path after update", futs, want2)
+    update.update(lmax_before=lmax_before, lmax_after=svc._snap.lmax,
+                  route_before=lj.lanes_per_query(lmax_before),
+                  route_after=lj.lanes_per_query(svc._snap.lmax))
+    del fresh
+    lap("full_graph_update")
+
+    # two replicas over the same engine (the plain service is closed)
+    before = eng.snapshot()
+    kept = [t.clone() for t in (before.ranks, before.svals, before.lengths)]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    grp = serve_mod.ReplicaGroup(eng, 2, config=cfg, start=False)
+    reset_counts(counters)
+    futs = grp.submit_many(reqs2)
+    grp.drain()
+    check_service_answers("replicas", futs, want2)
+    torch.cuda.synchronize()
+    replica_bytes = torch.cuda.memory_allocated() - mem0
+    # an update that touches two small components: an insert on four
+    # vertices of no hyperedge, and the delete of a hyperedge whose
+    # vertices have no other (the path of dirty rows written in place)
+    h3 = eng.h
+    deg = h3.vertex_degrees
+    lonely = np.nonzero(deg == 0)[0]
+    alone = np.nonzero(np.maximum.reduceat(deg[h3.e_idx], h3.e_ptr[:-1])
+                       == 1)[0]
+    r_ins = [[int(x) for x in rng.choice(lonely, 4, replace=False)]]
+    r_del = [int(rng.choice(alone))]
+    t0 = time.perf_counter()
+    grp.update(inserts=r_ins, deletes=r_del)
+    replica_update_s = time.perf_counter() - t0
+    r_dirty = eng.dirty_rows()
+    reqs3, us3, vs3, s3 = service_requests(serve_mod, rng2, eng.h.n, 3072,
+                                           1024)
+    futs = grp.submit_many(reqs3)
+    grp.drain()
+    counts = read_counts(counters)
+    gst = grp.stats()
+    if counts["label_join"] != gst.batches:
+        raise AssertionError(f"replicas: {counts} for {gst.batches} batches")
+    service_launches += gst.batches
+    fresh = engine_mod.DeviceSnapshot.from_hlindex(eng.idx, device=device)
+    d = torch.from_numpy(np.stack([us3, vs3])).to(device)
+    want3 = expected_answers(query_mod.batched_mr(
+        fresh.ranks, fresh.svals, d[0], d[1]).cpu().numpy(), s3)
+    check_service_answers("replicas after update", futs, want3)
+    cached = eng.snapshot_cache()
+    ptrs = set()
+    for rep in grp.replicas:
+        if rep.snap.version != eng.version or not snapshots_equal(rep.snap,
+                                                                  fresh):
+            raise AssertionError(f"replica {rep.index} differs from a "
+                                 f"from-scratch snapshot")
+        for f in ("ranks", "svals", "lengths"):
+            p = getattr(rep.snap, f).data_ptr()
+            if p in (getattr(cached, f).data_ptr(),
+                     getattr(before, f).data_ptr()):
+                raise AssertionError(f"replica {rep.index} aliases the "
+                                     f"engine's {f}")
+            ptrs.add(p)
+    if len(ptrs) != 3 * len(grp.replicas):
+        raise AssertionError("replicas share storage")
+    if not all(torch.equal(a, b) for a, b in zip(
+            kept, (before.ranks, before.svals, before.lengths))):
+        raise AssertionError("the engine's snapshot from before the update "
+                             "changed")
+    rstats = grp.replica_stats()
+    n_dirty = 0 if r_dirty is None else int(r_dirty.size)
+    if any(r["full_relands"] != 1 or r["rows_patched"] != n_dirty
+           for r in rstats):
+        raise AssertionError(f"replicas: {rstats}, {n_dirty} dirty rows")
+    replicas = {"replicas": len(grp.replicas),
+                "added_device_bytes": replica_bytes,
+                "snapshot_bytes": before.nbytes(),
+                "update": {"inserts": r_ins, "deletes": r_del,
+                           "seconds": replica_update_s,
+                           "scope": int(eng.idx.stats["maintenance_scope"]),
+                           "dirty_rows": n_dirty},
+                "replica_stats": rstats,
+                "rows_patched": gst.mesh_rows_patched}
+    grp.close()
+    del fresh, kept, before
+    lap("replicas")
+
+    churn = small_graph_churn(api, serve_mod, ops, counters)
+    service_launches += churn.pop("label_join_launches")
+    closure_launches = churn.pop("dense_launches")
+    lap("small_graph_churn")
+
+    emit({"phase": "service_path", "n": h.n, "m": h.m,
+          "requests": {"mr": SERVICE_MR_REQUESTS,
+                       "s_reach": SERVICE_SREACH_REQUESTS,
+                       "tenants": dict(SERVICE_TENANTS)},
+          "runs": runs, "split": splits, "kernel_ms_by_bucket": bucket_ms,
+          "trace": trace,
+          "latency": latency, "update": update, "replicas": replicas,
+          "churn": churn, "label_join_launches": service_launches,
+          "step_seconds": steps, "seconds": clock.seconds()})
+    return service_launches, closure_launches
+
+
+def small_graph_churn(api, serve_mod, ops, counters):
+    """ENG-s through 20 seeded update batches: a kernel service and its
+    twin without kernels answer alike at every version; then the closure
+    backend behind a service through two updates, both methods, each
+    rebuild's launches counted, answers held to the hl-index service."""
+    lj = counters["label_join"]
+    g = SMALL_GRAPH
+    h = api.random_hypergraph(g["n"], g["m"], min_size=g["min_size"],
+                              max_size=g["max_size"], seed=g["seed"])
+    kern = api.serve(h, "hl-index", start=False,
+                     config=serve_mod.ServiceConfig(use_kernels=True))
+    twin = api.serve(h, "hl-index", start=False,
+                     config=serve_mod.ServiceConfig(use_kernels=False))
+    rng = np.random.default_rng(21)
+    versions = []
+    reset_counts(counters)
+    for version in range(20):
+        ins, dels = fan_churn_script(rng, g["n"], version, kern.engine.h)
+        kern.update(inserts=ins, deletes=dels)
+        twin.update(inserts=ins, deletes=dels)
+        reqs, _, _, _ = service_requests(serve_mod, rng, kern.engine.h.n,
+                                         384, 128)
+        kf = kern.submit_many(reqs)
+        tf = twin.submit_many(reqs)
+        kern.drain()
+        twin.drain()
+        check_service_answers(f"churn v{version + 1}", kf,
+                              [f.result(timeout=60) for f in tf])
+        lmax = kern._snap.lmax
+        versions.append({"version": version + 1, "n": kern.engine.h.n,
+                         "m": kern.engine.h.m, "lmax": lmax,
+                         "lanes_per_query": lj.lanes_per_query(lmax)})
+    launches = read_counts(counters)["label_join"]
+    if launches != kern.stats().batches or twin.stats().kernel_batches:
+        raise AssertionError(f"churn: {launches} launches for "
+                             f"{kern.stats().batches} kernel batches")
+    routes = {v["lanes_per_query"] for v in versions}
+    if 0 not in routes or not routes - {0}:
+        raise AssertionError(f"churn: the routes taken were {routes}")
+
+    closure = {}
+    dense = {name: 0 for name in DENSE_KERNELS}
+    label_join_launches = launches
+    for method in ("maxmin", "threshold"):
+        kernel = {"maxmin": "maxmin_matmul",
+                  "threshold": "threshold_step"}[method]
+        reset_counts(counters)
+        ceng = api.build_engine(h, "closure", method=method)
+        build = read_counts(counters)
+        csvc = api.serve(ceng, start=False,
+                         config=serve_mod.ServiceConfig(use_kernels=True))
+        hsvc = api.serve(h, "hl-index", start=False,
+                         config=serve_mod.ServiceConfig(use_kernels=True))
+        rebuilds = [{"m": h.m, "launches": {k: v for k, v in build.items()
+                                            if v}}]
+        crng = np.random.default_rng(23)
+        for step in range(3):
+            if step:
+                ins = [[int(x) for x in crng.choice(ceng.h.n, 5,
+                                                    replace=False)]
+                       for _ in range(step)]
+                dels = [int(crng.integers(ceng.h.m))]
+                reset_counts(counters)
+                csvc.update(inserts=ins, deletes=dels)
+                counts = read_counts(counters)
+                padded = read_padded(counters)
+                hsvc.update(inserts=ins, deletes=dels)
+                rebuilds.append({"m": ceng.h.m, "seconds":
+                                 ceng.build_seconds,
+                                 "launches": {k: v for k, v in counts.items()
+                                              if v},
+                                 "padded_launches": padded})
+                build = counts
+            want = {name: 0 for name in counters}
+            want.update({"overlap": 1, kernel: ops.default_rounds(ceng.h.m)})
+            if build != want:
+                raise AssertionError(f"closure {method} service, rebuild "
+                                     f"{step}: launches {build}, expected "
+                                     f"{want}")
+            for name in DENSE_KERNELS:
+                dense[name] += build[name]
+            reqs, _, _, _ = service_requests(serve_mod, crng, ceng.h.n, 768,
+                                             256)
+            cf = csvc.submit_many(reqs)
+            hf = hsvc.submit_many(reqs)
+            for tag, svc in (("closure", csvc), ("hl-index", hsvc)):
+                # each service's launches, held to its own micro-batches
+                before = svc.stats()
+                reset_counts(counters)
+                svc.drain()
+                joins = read_counts(counters)["label_join"]
+                after = svc.stats()
+                batches = after.batches - before.batches
+                if joins != batches or (after.kernel_batches
+                                        - before.kernel_batches) != batches:
+                    raise AssertionError(
+                        f"closure {method} v{step}: the {tag} service made "
+                        f"{joins} launches for {batches} micro-batches")
+                label_join_launches += joins
+            check_service_answers(f"closure {method} v{step}", cf,
+                                  [f.result(timeout=60) for f in hf])
+        cst = csvc.stats()
+        closure[method] = {"rebuilds": rebuilds,
+                           "lmax": csvc._snap.lmax,
+                           "kernel_batches": cst.kernel_batches}
+    return {"graph": g, "versions": versions, "closure": closure,
+            "label_join_launches": label_join_launches,
+            "dense_launches": dense}
 
 
 # -- the dense closure kernels ----------------------------------------------
@@ -1344,6 +2068,7 @@ def main() -> int:
     from repro_torch import api
     from repro_torch.device import find_nvcc
     from repro_torch.core import engine as engine_mod
+    from repro_torch.core import query as query_mod
     from repro_torch.core import semiring
     from repro_torch.core.query import searchsorted_join
     from repro_torch.kernels import build as build_mod
@@ -1352,6 +2077,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import overlap as ov
     from repro_torch.kernels import threshold_closure as tc
+    from repro_torch import serve as serve_mod
 
     device = torch.device("cuda")
     counters = {"label_join": lj, "maxmin_matmul": mm, "overlap": ov,
@@ -1361,8 +2087,13 @@ def main() -> int:
         lj, searchsorted_join, build_mod, device)
     dense_errs = phase_dense_kernel_checks(mm, ov, tc, device)
     (launches, gather_launches, err_main, gather_err_main, times,
-     gather_times) = phase_main_path(api, engine_mod, lj, searchsorted_join,
-                                     device)
+     gather_times, main_eng) = phase_main_path(api, engine_mod, lj,
+                                               searchsorted_join, device)
+    service_launches, service_dense = phase_service_path(
+        api, engine_mod, serve_mod, query_mod, ops, counters, main_eng,
+        device)
+    del main_eng
+    torch.cuda.empty_cache()
     phase_wide_labels(api, engine_mod, lj, device)
     dense_launches, dense_pads, path_rows = phase_closure_path(
         api, semiring, ops, counters, device)
@@ -1373,7 +2104,10 @@ def main() -> int:
         "name": "label_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
-        "launches": launches, "max_abs_err": max(err_checks, err_main),
+        "launches": launches + service_launches,
+        "launches_by_path": {"main_path": launches,
+                             "service_path": service_launches},
+        "max_abs_err": max(err_checks, err_main),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,    # no single PyTorch call computes this join
@@ -1383,7 +2117,9 @@ def main() -> int:
         "name": "label_join_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
-        "launches": gather_launches,
+        "launches": gather_launches + service_launches,
+        "launches_by_path": {"main_path": gather_launches,
+                             "service_path": service_launches},
         "max_abs_err": max(gather_err_checks, gather_err_main),
         "ms": gather_times["ms"], "cold_ms": gather_times["cold_ms"],
         "plain_ms": gather_times["plain_ms"],
@@ -1402,7 +2138,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": dense_launches[name],
+            "replaces": replaces[name],
+            "launches": dense_launches[name] + service_dense[name],
+            "launches_by_path": {"closure_path": dense_launches[name],
+                                 "service_path": service_dense[name]},
             "max_abs_err": max(dense_errs[name], row["max_abs_err"]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

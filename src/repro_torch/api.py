@@ -29,28 +29,148 @@ real batches (``build_engine(h, "auto", batch_hint=1000)``).
     eng = build_engine(h, "closure", method="threshold")  # on the GPU
     eng.mr_batch(us, vs)             # [Q] int32 from the [n, m] label rows
 
-Updates, the request service, the store, the workload families and the
-remaining backends of the reference facade are not here yet;
-``ROADMAP.md`` lists them in the order they are ported.
+Hyperedge updates go through the same engine — no rebuilding by hand:
+
+    eng.update(inserts=[[3, 7, 9]], deletes=[4])   # in place
+    eng.mr(u, v)                     # answers == full rebuild
+    snap2 = eng.snapshot()           # only the dirty label rows re-derived
+
+``update_capabilities()`` maps each backend to how it absorbs updates:
+scoped construction on the affected line-graph component(s)
+(``hl-index`` / ``hl-index-basic``), a whole rebuild on the device
+(``closure``), or ``UpdateUnsupported`` (``mst-oracle``).
+
+Heavy request traffic goes through the request service instead of
+hand-assembled batches (``repro_torch.serve``); its knobs live in a typed
+``ServiceConfig``:
+
+    svc = serve(h, config=ServiceConfig(max_batch=4096,
+                                        use_kernels=True))   # on the GPU
+    f = svc.mr(4, 8)                             # Future[int]
+    g = svc.submit(SReachRequest(4, 8, s=2))     # Future[bool], mixed s ok
+    f.result(); g.result()
+    svc.update(inserts=[[3, 7, 9]])              # snapshot swapped between
+    svc.close()                                  #   micro-batches
+
+``serve(h, device="cpu", start=False)`` runs the same service on the host
+without a thread (``svc.drain()`` answers what is pending).  Requests
+carry ``tenant`` / ``priority`` / ``deadline_ms``; the admission queue is
+weighted-fair across tenants within strict priority bands, and
+``ServiceConfig(replicas=N)`` serves round-robin off N device-resident
+snapshot copies (``ReplicaGroup``) that the dirty rows of each update are
+written into.
+
+The store, the workload families, the mesh and the remaining backends of
+the reference facade are not here yet; ``ROADMAP.md`` lists them in the
+order they are ported.
 """
 from __future__ import annotations
+
+import dataclasses
+import warnings
 
 from repro_torch.core.engine import (ReachabilityEngine, DeviceSnapshot,
                                      SnapshotUnsupported, UpdateUnsupported,
                                      WorkloadUnsupported, available_backends,
-                                     plan_backend, register_backend,
-                                     validate_batch)
+                                     update_capabilities, plan_backend,
+                                     register_backend, validate_batch)
 from repro_torch.core.engine import build as build_engine
 from repro_torch.core.hypergraph import (Hypergraph, from_edge_lists, compact,
                                          random_hypergraph,
                                          planted_chain_hypergraph,
                                          colocation_hypergraph, paper_figure1)
+from repro_torch.device import DeviceLike
+from repro_torch.serve.reach_service import (MRRequest, MRSetRequest,
+                                             ReachabilityService, Request,
+                                             SDistanceRequest, ServiceConfig,
+                                             SReachKRequest, SReachRequest,
+                                             TopSRequest, WitnessRequest,
+                                             _refuse_mesh)
+from repro_torch.serve.replicas import ReplicaGroup
+from repro_torch.serve.scheduler import (PRIORITY_CLASSES, DeadlineExceeded,
+                                         TenantSpec)
 
 __all__ = [
     "ReachabilityEngine", "DeviceSnapshot", "SnapshotUnsupported",
     "UpdateUnsupported", "WorkloadUnsupported", "build_engine",
-    "available_backends", "plan_backend", "register_backend",
-    "validate_batch",
+    "available_backends", "update_capabilities", "plan_backend",
+    "register_backend", "validate_batch",
+    "ReachabilityService", "ReplicaGroup", "serve", "ServiceConfig",
+    "TenantSpec", "PRIORITY_CLASSES", "DeadlineExceeded",
+    "Request", "MRRequest", "SReachRequest",
+    "WitnessRequest", "SReachKRequest", "MRSetRequest", "TopSRequest",
+    "SDistanceRequest",
     "Hypergraph", "from_edge_lists", "compact", "random_hypergraph",
     "planted_chain_hypergraph", "colocation_hypergraph", "paper_figure1",
 ]
+
+# service knobs that used to ride along in serve(**opts); still accepted
+# for one release through the deprecation shim below, as in the reference
+_LEGACY_SERVICE_KWARGS = ("max_batch", "min_bucket", "max_wait_ms",
+                          "axes", "use_kernels")
+
+
+def serve(h_or_engine, backend: str = "auto", *,
+          config: ServiceConfig = None, mesh=None,
+          start: bool = True, batch_hint=None, device: DeviceLike = None,
+          **opts) -> ReachabilityService:
+    """One-call serving: build an engine (unless given one) and wrap it
+    in a ``ReachabilityService`` (or, with ``config.replicas > 1``, a
+    ``ReplicaGroup``).
+
+    Args:
+      h_or_engine: a ``Hypergraph`` to build an engine over, or an
+        already-built ``ReachabilityEngine`` to serve as-is.
+      config: a ``ServiceConfig`` — the typed home of every serving knob
+        (batching, tenant weights, priorities, replicas, kernels).
+        Defaults to ``ServiceConfig()``.
+      backend / batch_hint / device / engine ``**opts``: forwarded to
+        ``build_engine`` when a hypergraph is passed.  ``device=None``
+        means ``"cuda"`` and raises without a CUDA device; pass
+        ``device="cpu"`` to serve on the host.
+      mesh: must be ``None`` (mesh-resident serving is roadmap item A10).
+      start: start the background admission thread (``start=False`` =
+        synchronous mode; call ``svc.drain()``).
+
+    ``config.use_kernels`` reaches the engine build (for backends that
+    take it) and the service; with a prebuilt engine it configures the
+    service alone.
+
+    Deprecated: the service knobs (``max_batch``, ``min_bucket``,
+    ``max_wait_ms``, ``axes``, ``use_kernels``) are still accepted as
+    bare keyword arguments — they fold into ``config`` with a
+    ``DeprecationWarning`` (``axes`` then raises ``NotImplementedError``,
+    as in ``ServiceConfig``: mesh placement is roadmap item A10).
+    Everything else in ``**opts`` is an engine-build option.
+    """
+    _refuse_mesh(mesh)
+    legacy = {k: opts.pop(k) for k in _LEGACY_SERVICE_KWARGS if k in opts}
+    cfg = config if config is not None else ServiceConfig()
+    if legacy:
+        warnings.warn(
+            f"passing service options {sorted(legacy)} to serve() as bare "
+            f"keyword arguments is deprecated; pass "
+            f"config=ServiceConfig(...) instead",
+            DeprecationWarning, stacklevel=2)
+        cfg = dataclasses.replace(cfg, **legacy)
+    if isinstance(h_or_engine, Hypergraph):
+        if cfg.use_kernels is not None:
+            opts["use_kernels"] = cfg.use_kernels
+        engine = build_engine(h_or_engine, backend, batch_hint=batch_hint,
+                              device=device, **opts)
+    else:
+        rejected = sorted(opts)
+        if backend != "auto":
+            rejected.append(f"backend={backend!r}")
+        if batch_hint is not None:
+            rejected.append(f"batch_hint={batch_hint!r}")
+        if device is not None:
+            rejected.append(f"device={device!r}")
+        if rejected:
+            raise ValueError(
+                f"engine options {rejected} make no sense with an "
+                f"already-built engine — they would be silently ignored")
+        engine = h_or_engine
+    if cfg.replicas > 1:
+        return ReplicaGroup(engine, config=cfg, start=start)
+    return ReachabilityService(engine, config=cfg, start=start)

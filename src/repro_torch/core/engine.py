@@ -30,10 +30,12 @@ closure ``W*``, formed on the device by the ``overlap`` and
 ``maxmin_matmul`` / ``threshold_step`` kernels).  Not ported yet, and how
 each fails:
 
-* ``update()`` on a backend that supports it raises ``NotImplementedError``
-  (roadmap item A6: scoped maintenance); the static ``mst-oracle`` raises
-  ``UpdateUnsupported`` as in the reference.  Versioning, dirty rows and
-  snapshot patching are here already, so A6 only adds the update itself.
+* the backends without a snapshot (``online``, ``frontier``) and the
+  static baselines (``ete``, ``threshold``) are not ported yet (roadmap
+  item A6b); ``update()`` works on every backend here that declares it
+  (``hl-index`` / ``hl-index-basic``: scoped maintenance through
+  ``core/maintenance.py``; ``closure``: a whole rebuild on the device),
+  and ``mst-oracle`` raises ``UpdateUnsupported`` as in the reference.
 * the workload ops (witness / s_reach_k / mr_set / top_s / s_distance)
   raise ``WorkloadUnsupported`` on every backend (roadmap item A8).
 * ``build(restore=...)`` raises ``NotImplementedError`` (roadmap item A9).
@@ -61,9 +63,10 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .hypergraph import Hypergraph
+from .hypergraph import Hypergraph, apply_edge_edits
 from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
                       pad_label_rows)
+from .maintenance import apply_updates, normalize_update_batch
 from .minimal import minimize
 from .query import DeviceSnapshot, KernelSnapshot, mr_query, s_reach_query
 from .baselines import MSTOracle
@@ -74,8 +77,8 @@ __all__ = [
     "ReachabilityEngine", "DeviceSnapshot", "KernelSnapshot",
     "SnapshotUnsupported",
     "UpdateUnsupported", "WorkloadUnsupported",
-    "register_backend", "available_backends", "plan_backend",
-    "build", "validate_batch",
+    "register_backend", "available_backends", "update_capabilities",
+    "plan_backend", "build", "validate_batch",
     "HLIndexEngine", "HLIndexBasicEngine", "MSTOracleEngine",
     "ClosureEngine", "SINGLE_DEVICE_CLOSURE_BUDGET", "CONSTRUCTION_MODES",
 ]
@@ -162,8 +165,7 @@ class ReachabilityEngine(Protocol):
       serves the edited hypergraph, or raise ``UpdateUnsupported``.
       ``update_capability`` ∈ {"scoped", "incremental", "rebuild",
       "unsupported"} declares how; ``version`` counts successful updates
-      so snapshot staleness is detectable.  (Not ported yet: see the
-      module docstring.)
+      so snapshot staleness is detectable.
     * the workload ops ``mr_witness``, ``s_reach_k``, ``mr_set``,
       ``mr_from_set``, ``top_s``, ``s_distance`` — gated by
       ``workload_capability``; anything outside it raises
@@ -210,6 +212,8 @@ class _EngineBase:
         # (unknown or whole-structure rebuild)
         self._dirty_rows: Optional[np.ndarray] = np.empty(0, np.int64)
         self.last_snapshot_refresh_rows = 0
+        # write-ahead sink: None = updates are not journaled
+        self._wal = None
         # kernel-path batch queries (CUDA label join); flipped by the
         # snapshot-serving backends' ``build(use_kernels=True)``
         self.use_kernels = False
@@ -234,17 +238,42 @@ class _EngineBase:
                     f"vertex id {int(x)} out of range [0, {self.h.n})")
 
     def update(self, inserts=(), deletes=()) -> None:
-        """Gate on capability as the reference does; the update itself
-        (validate + canonicalize the batch, apply it, ``_graph_changed``)
-        arrives with scoped maintenance."""
+        """Template method every backend shares: gate on capability,
+        validate + canonicalize the batch, journal it (when a write-ahead
+        sink is attached — *before* the in-memory structure changes),
+        then hand the canonical batch to the backend's ``_apply_update``.
+        A batch that would be rejected is never journaled."""
         if self.update_capability == "unsupported":
             raise UpdateUnsupported(
                 f"backend {self.name!r} does not maintain its structure "
                 f"under hyperedge updates; build a fresh engine instead")
-        raise NotImplementedError(
-            f"update() is not ported yet for backend {self.name!r} "
-            f"(roadmap item A6: scoped index maintenance); build a fresh "
-            f"engine on the edited hypergraph instead")
+        ins, dels = normalize_update_batch(self.h, inserts, deletes)
+        wal = self._wal
+        if wal is not None:
+            wal.append(self.version + 1, ins, dels)
+        self._apply_update(ins, dels)
+        if wal is not None:
+            wal.committed(self)
+
+    def _apply_update(self, inserts, deletes) -> None:
+        """Backend hook behind ``update``: mutate the structure in place
+        for an already-validated, canonical batch and call
+        ``_graph_changed``.  Only backends whose ``update_capability``
+        is not ``"unsupported"`` are ever called here."""
+        raise UpdateUnsupported(
+            f"backend {self.name!r} declares update_capability="
+            f"{self.update_capability!r} but implements no _apply_update")
+
+    def attach_wal(self, sink) -> None:
+        """Journal every subsequent ``update`` through ``sink`` — any
+        object with ``append(version, inserts, deletes)`` (called before
+        the apply) and ``committed(engine)`` (called after)."""
+        self._wal = sink
+
+    def detach_wal(self):
+        """Stop journaling; returns the detached sink."""
+        sink, self._wal = self._wal, None
+        return sink
 
     def _graph_changed(self, new_h: Hypergraph, dirty_rows=None) -> None:
         """Install the edited graph and bump ``version``.  ``dirty_rows``
@@ -401,6 +430,13 @@ def available_backends() -> List[str]:
     return sorted(_REGISTRY)
 
 
+def update_capabilities() -> Dict[str, str]:
+    """Registry key -> declared ``update(inserts, deletes)`` capability
+    ("scoped" | "incremental" | "rebuild" | "unsupported")."""
+    return {name: getattr(cls, "update_capability", "unsupported")
+            for name, cls in sorted(_REGISTRY.items())}
+
+
 def plan_backend(h: Hypergraph, batch_hint: Optional[int] = None, *,
                  mesh=None, device_budget_bytes: Optional[int] = None) -> str:
     """Pick a backend from graph size, label mass, query batch shape, and
@@ -547,9 +583,10 @@ def _resolve_construction(construction: str, mesh, workers,
 @register_backend("hl-index")
 class HLIndexEngine(_EngineBase):
     """Algorithm 3 (+ Algorithm 4 minimization) served by Algorithm 5
-    merge-joins; batches run on the padded device snapshot.  Declares
-    component-scoped updates like the reference; the update itself is
-    roadmap item A6."""
+    merge-joins; batches run on the padded device snapshot.  Updates are
+    component-scoped (``apply_updates``): only the affected line-graph
+    components are rebuilt, and only their vertices' snapshot rows are
+    re-derived."""
 
     name = "hl-index"
     update_capability = "scoped"
@@ -657,6 +694,14 @@ class HLIndexEngine(_EngineBase):
                                 n=n, lmax=lmax, version=self.version,
                                 backend=self.name)
 
+    def _apply_update(self, inserts=(), deletes=()) -> None:
+        new_h, self.idx, report = apply_updates(
+            self.h, self.idx, inserts, deletes,
+            builder=self._builder, minimizer=self._minimizer)
+        self._graph_changed(
+            new_h, dirty_rows=(None if report.full_rebuild
+                               else report.refreshed_vertices))
+
     def nbytes(self) -> int:
         return self.idx.nbytes()
 
@@ -664,7 +709,8 @@ class HLIndexEngine(_EngineBase):
 @register_backend("hl-index-basic")
 class HLIndexBasicEngine(HLIndexEngine):
     """Algorithm 2 construction (no MCD/neighbor-index pruning, no
-    minimization) — the ablation baseline, same query paths."""
+    minimization) — the ablation baseline, same query and scoped-update
+    paths (updates rebuild the affected components with Algorithm 2)."""
 
     name = "hl-index-basic"
 
@@ -721,6 +767,34 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _close_on_device(h: Hypergraph, method: str, device: torch.device
+                     ) -> Tuple[np.ndarray, torch.Tensor, Dict[str, float]]:
+    """``W*`` of ``h`` closed on ``device``: the host int32 copy, the
+    device copy, and the host-clock seconds of each step (device work
+    synchronised)."""
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(step: str) -> None:
+        nonlocal t0
+        _sync(device)
+        t1 = time.perf_counter()
+        seconds[step] = t1 - t0
+        t0 = t1
+
+    if h.m == 0:            # no hyperedges: nothing is reachable
+        w_star = torch.zeros((0, 0), dtype=torch.int32, device=device)
+    else:
+        w = device_line_graph(h, device=device)
+        lap("line_graph")
+        w_star = close_line_graph(w, method)
+        del w
+        lap("closure")
+    host = w_star.cpu().numpy()
+    lap("host_copy")
+    return host, w_star, seconds
+
+
 @register_backend("closure")
 class ClosureEngine(_EngineBase):
     """Dense (max, min)-semiring closure W* [m, m] (``semiring.py``).
@@ -737,8 +811,8 @@ class ClosureEngine(_EngineBase):
     inequality makes the shared searchsorted join exact on these rows
     (equality is attained at the hub e = e_u of an optimal pair).  Batches
     go through ``DeviceSnapshot.mr`` (``batched_mr``), as in the
-    reference.  Declares ``"rebuild"`` updates like the reference; the
-    update itself is roadmap item A6.
+    reference.  Updates rebuild ``W*`` whole on the device (``"rebuild"``,
+    as in the reference) and drop the stale snapshot at once.
     """
 
     name = "closure"
@@ -764,29 +838,19 @@ class ClosureEngine(_EngineBase):
         device = resolve_device(device)
         if h.m and method not in CLOSURE_METHODS:
             raise ValueError(method)
-        seconds = {}
-        t0 = time.perf_counter()
-
-        def lap(step: str) -> None:
-            nonlocal t0
-            _sync(device)
-            t1 = time.perf_counter()
-            seconds[step] = t1 - t0
-            t0 = t1
-
-        if h.m == 0:            # no hyperedges: nothing is reachable
-            w_star = torch.zeros((0, 0), dtype=torch.int32, device=device)
-        else:
-            w = device_line_graph(h, device=device)
-            lap("line_graph")
-            w_star = close_line_graph(w, method)
-            del w
-            lap("closure")
-        host = w_star.cpu().numpy()
-        lap("host_copy")
+        host, w_star, seconds = _close_on_device(h, method, device)
         eng = cls(h, host, method, device=device, w_star_device=w_star)
         eng.build_seconds = seconds
         return eng
+
+    def _apply_update(self, inserts=(), deletes=()) -> None:
+        # dense closures have no cheap incremental form (one new overlap
+        # can rewrite O(m²) entries); recompute whole on the device (the
+        # overlap kernel, then the closure kernel's rounds), same protocol
+        new_h, _, _ = apply_edge_edits(self.h, inserts, deletes)
+        self.w_star, self._w_star_device, self.build_seconds = \
+            _close_on_device(new_h, self._method, self.device)
+        self._graph_changed(new_h)
 
     def mr(self, u: int, v: int) -> int:
         # scalar lookups stay on the host matrix (no reason to build the

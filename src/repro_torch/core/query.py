@@ -287,6 +287,10 @@ class KernelSnapshot:
     def lmax(self) -> int:
         return self.base.lmax
 
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
     def nbytes(self) -> int:
         return self.base.nbytes()
 

@@ -23,6 +23,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
 
@@ -46,6 +47,9 @@ BUILD_LOG: Dict[str, str] = {}
 TMA_ROW_MULTIPLE = 8
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# held while a library is built and loaded: a service's admission thread
+# and the caller's thread may both reach a kernel's first launch
+_LOAD_LOCK = threading.Lock()
 
 
 def default_build_dir() -> Path:
@@ -106,12 +110,16 @@ def build_libraries(names: Iterable[str],
 
 def load_library(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built at first use and
-    loaded once per process.  The caller sets ``argtypes`` / ``restype``."""
+    loaded once per process, from any thread.  The caller sets
+    ``argtypes`` / ``restype``."""
     lib = _LOADED.get(name)
     if lib is None:
-        path = build_libraries([name])[name]
-        lib = ctypes.CDLL(str(path))
-        _LOADED[name] = lib
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                path = build_libraries([name])[name]
+                lib = ctypes.CDLL(str(path))
+                _LOADED[name] = lib
     return lib
 
 

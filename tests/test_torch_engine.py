@@ -206,8 +206,8 @@ def test_auto_backend_builds_or_names_what_is_missing():
 def test_not_ported_yet_raises_by_name():
     h = _graph(port_api)
     eng = port_api.build_engine(h, "hl-index", device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.update(inserts=[[1, 2, 3]])
+    eng.update(inserts=[[1, 2, 3]])           # ported: scoped maintenance
+    assert eng.version == 1
     with pytest.raises(port_api.UpdateUnsupported):
         port_api.build_engine(h, "mst-oracle", device="cpu").update(
             deletes=[0])
@@ -265,10 +265,10 @@ def test_register_backend_and_prebuilt_index():
 
 
 def test_snapshot_patch_after_graph_change_matches_reference_update():
-    """The reference engine absorbs an update; the port has no ``update``
-    yet, but its versioning and dirty-row snapshot patching are in place:
-    fed the reference's edited graph, index and dirty rows, it must derive
-    a byte-identical snapshot by patching, and leave the old one alone."""
+    """The reference engine absorbs an update; the port's versioning and
+    dirty-row snapshot patching, fed the reference's edited graph, index
+    and dirty rows (no update of its own), must derive a byte-identical
+    snapshot by patching, and leave the old one alone."""
     chains = dict(overlap=2, extra_size=2, seed=0)   # six components
     ref = ref_api.build_engine(
         ref_api.planted_chain_hypergraph(6, 5, **chains), "hl-index")

@@ -39,7 +39,8 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch", "repro_torch.api", "repro_torch.convert",
         "repro_torch.core", "repro_torch.core.baselines",
         "repro_torch.core.engine", "repro_torch.core.hlindex",
-        "repro_torch.core.hypergraph", "repro_torch.core.minimal",
+        "repro_torch.core.hypergraph", "repro_torch.core.maintenance",
+        "repro_torch.core.minimal",
         "repro_torch.core.query", "repro_torch.core.semiring",
         "repro_torch.device", "repro_torch.kernels",
         "repro_torch.kernels.build", "repro_torch.kernels.label_join",
@@ -47,6 +48,8 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.kernels.overlap", "repro_torch.kernels.ref",
         "repro_torch.kernels.registry",
         "repro_torch.kernels.threshold_closure",
+        "repro_torch.serve", "repro_torch.serve.reach_service",
+        "repro_torch.serve.replicas", "repro_torch.serve.scheduler",
     ]
 
 

@@ -261,8 +261,9 @@ def test_closure_engine_errors_and_what_is_not_ported(engines):
             port.mr_batch([0, bad], [1, 2])
     with pytest.raises(ValueError, match="length mismatch"):
         port.s_reach_batch([0, 1], [1], 1)
-    with pytest.raises(NotImplementedError, match="A6"):
-        port.update(inserts=[[0, 1]])
+    with pytest.raises(IndexError, match="out of range"):
+        port.update(deletes=[port.h.m])       # ported: validated first
+    assert port.version == 0
     assert port.workload_capability == frozenset()
     with pytest.raises(port_api.WorkloadUnsupported, match="A8"):
         port.top_s(0, 3)

@@ -1,0 +1,664 @@
+"""Port parity, the request service: ``repro_torch.api.serve`` on
+``device="cpu"`` against ``repro.api.serve`` under the same requests and
+the same update sequence (the twin-service test: answers equal in value
+and type, ``stats()`` equal field by field), and the cases of
+``tests/test_serving.py`` on the port, answers pinned to the port's
+``MSTOracle``.  Tolerance 0 everywhere: answers are exact integers and
+booleans.  Every wait on a future has a timeout, and every service with
+an admission thread is closed in a ``finally``.
+
+The reference cases that need a device mesh (mesh-resident snapshots and
+their row re-lands) wait for roadmap item A10 and are not mirrored; the
+port refuses ``mesh=`` by name instead (tested here)."""
+import dataclasses
+import sys
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import repro.api as ref_api
+import repro.serve.reach_service as ref_rs
+import repro_torch.api as port_api
+import repro_torch.serve.reach_service as port_rs
+from repro_torch.core.baselines import MSTOracle
+from repro_torch.core.engine import validate_batch
+from repro_torch.core.hypergraph import (apply_edge_edits,
+                                         planted_chain_hypergraph,
+                                         random_hypergraph)
+from repro_torch.core.query import DeviceSnapshot, KernelSnapshot
+from repro_torch.kernels import build as build_mod
+from repro_torch.kernels import label_join as lj
+
+from util_torch_port import port_hypergraph
+
+TIMEOUT = 60
+
+
+def _serve(h, backend="hl-index", **kw):
+    return port_api.serve(h, backend, device="cpu", **kw)
+
+
+def _mixed_requests(h, rng, count, api=port_api):
+    reqs, answer = [], []
+    oracle = MSTOracle(h)
+    for _ in range(count):
+        u, v = int(rng.integers(h.n)), int(rng.integers(h.n))
+        mr = oracle.mr(u, v)
+        if rng.random() < 0.5:
+            reqs.append(api.MRRequest(u, v))
+            answer.append(mr)
+        else:
+            s = int(rng.integers(1, 5))
+            reqs.append(api.SReachRequest(u, v, s))
+            answer.append(mr >= s)
+    return reqs, answer
+
+
+def _results(futs):
+    return [f.result(timeout=TIMEOUT) for f in futs]
+
+
+def _random_edits(h, rng):
+    ins, dels = [], []
+    if h.m > 2 and rng.random() < 0.6:
+        dels = [int(rng.integers(h.m))]
+    if rng.random() < 0.8:
+        ins = [[int(x) for x in rng.choice(h.n + 1, size=3, replace=False)]]
+    return ins, dels
+
+
+# ---------------------------------------------------------------------------
+# the twin service: the reference and the port, same requests, same updates
+# ---------------------------------------------------------------------------
+
+def _twin_requests(n, rng, count):
+    """(kind, u, v, s, tenant, priority) specs both packages can build."""
+    specs = []
+    for _ in range(count):
+        u, v = int(rng.integers(n)), int(rng.integers(n))
+        tenant = ("a", "b", "c")[int(rng.integers(3))]
+        prio = ("interactive", "standard", "batch")[int(rng.integers(3))]
+        if rng.random() < 0.5:
+            specs.append(("mr", u, v, None, tenant, prio))
+        else:
+            specs.append(("s_reach", u, v, int(rng.integers(1, 6)), tenant,
+                          prio))
+    return specs
+
+
+def _build(api, spec):
+    kind, u, v, s, tenant, prio = spec
+    if kind == "mr":
+        return api.MRRequest(u, v, tenant=tenant, priority=prio)
+    return api.SReachRequest(u, v, s, tenant=tenant, priority=prio)
+
+
+TWINS = [("hl-index", True), ("hl-index", False), ("hl-index-basic", True),
+         ("closure", True), ("closure", False)]
+
+
+@pytest.mark.parametrize("backend,use_kernels", TWINS,
+                         ids=[f"{b}-{'kernels' if k else 'ops'}"
+                              for b, k in TWINS])
+def test_twin_service_answers_and_stats_equal_the_reference(backend,
+                                                            use_kernels):
+    ref_h = ref_api.random_hypergraph(20, 16, seed=8)
+    port_h = port_hypergraph(ref_h)
+    tenants = (ref_api.TenantSpec("a", 1.0), ref_api.TenantSpec("b", 2.0))
+    port_tenants = tuple(port_api.TenantSpec(t.name, t.weight)
+                         for t in tenants)
+    ref_cfg = ref_api.ServiceConfig(max_batch=32, tenants=tenants)
+    port_cfg = port_api.ServiceConfig(max_batch=32, tenants=port_tenants,
+                                      use_kernels=use_kernels)
+    if backend == "hl-index":
+        # the facade builds the engine, use_kernels reaching both layers
+        ref = ref_api.serve(ref_h, start=False, config=ref_cfg)
+        port = port_api.serve(port_h, start=False, device="cpu",
+                              config=port_cfg)
+    else:
+        ref = ref_api.serve(ref_api.build_engine(ref_h, backend),
+                            start=False, config=ref_cfg)
+        port = port_api.serve(
+            port_api.build_engine(port_h, backend, device="cpu"),
+            start=False, config=port_cfg)
+    assert port.engine.name == ref.engine.name == backend
+    assert port.use_kernels is use_kernels and ref.use_kernels is False
+    rng = np.random.default_rng(11)
+    for step in range(4):
+        specs = _twin_requests(port.engine.h.n, rng, 90)
+        rf = ref.submit_many([_build(ref_api, s) for s in specs])
+        pf = port.submit_many([_build(port_api, s) for s in specs])
+        # two micro-batches one at a time (their composition is the
+        # scheduler's), then the rest
+        assert port.drain(max_batches=2) == ref.drain(max_batches=2)
+        ref.drain()
+        port.drain()
+        want, got = _results(rf), _results(pf)
+        assert got == want
+        assert [type(x) for x in got] == [type(x) for x in want]
+        ins, dels = _random_edits(port.engine.h, rng)
+        ref.update(inserts=ins, deletes=dels)
+        port.update(inserts=ins, deletes=dels)
+    ref_stats, port_stats = ref.stats().as_dict(), port.stats().as_dict()
+    assert port_stats.pop("kernel_batches") == (port_stats["batches"]
+                                                if use_kernels else 0)
+    assert ref_stats.pop("kernel_batches") == 0
+    assert port_stats == ref_stats
+    assert port_stats["snapshot_refreshes"] == 4
+    assert port_stats["updates"] == 4
+
+
+def test_bucket_size_policy_equals_the_reference():
+    for q in list(range(0, 70)) + [1000, 4095, 4096, 4097, 70_000]:
+        for lo, hi in ((8, 4096), (1, 64), (16, 16), (8, 2048)):
+            assert port_rs._bucket_size(q, lo, hi) == \
+                ref_rs._bucket_size(q, lo, hi)
+    assert port_rs._bucket_size(4097, 8, 4096) == 4097   # never truncates
+
+
+def test_request_types_and_stats_fields_equal_the_reference():
+    assert set(port_rs.REQUEST_TYPES) == set(ref_rs.REQUEST_TYPES) == {
+        "mr", "s_reach", "witness", "s_reach_k", "mr_set", "top_s",
+        "s_distance"}
+    for kind, cls in port_rs.REQUEST_TYPES.items():
+        assert cls.kind == kind
+        ref_cls = ref_rs.REQUEST_TYPES[kind]
+        assert cls.__name__ == ref_cls.__name__
+        assert [f.name for f in dataclasses.fields(cls)] == \
+            [f.name for f in dataclasses.fields(ref_cls)]
+    for port_cls, ref_cls in ((port_rs.ServiceStats, ref_rs.ServiceStats),
+                              (port_rs.ServiceConfig, ref_rs.ServiceConfig)):
+        assert [(f.name, f.default) for f in dataclasses.fields(port_cls)] \
+            == [(f.name, f.default) for f in dataclasses.fields(ref_cls)]
+    req = port_api.MRRequest(1, 2)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        req.u = 3
+
+
+# ---------------------------------------------------------------------------
+# service lifecycle
+# ---------------------------------------------------------------------------
+
+def test_service_background_thread():
+    h = random_hypergraph(25, 35, seed=11)
+    rng = np.random.default_rng(0)
+    reqs, want = _mixed_requests(h, rng, 120)
+    svc = _serve(h, config=port_api.ServiceConfig(max_wait_ms=1.0))
+    try:
+        got = _results(svc.submit_many(reqs))
+    finally:
+        svc.close()
+    assert got == want
+    st = svc.stats()
+    assert st.submitted == st.answered == 120
+    assert st.batches >= 1
+
+
+def test_close_answers_everything_submitted():
+    h = random_hypergraph(20, 30, seed=5)
+    svc = _serve(h, config=port_api.ServiceConfig(max_wait_ms=5.0))
+    try:
+        futs = [svc.mr(0, i % h.n) for i in range(50)]
+    finally:
+        svc.close()
+    assert all(f.done() for f in futs)
+    f = svc.mr(1, 2)                 # after close: the synchronous drain
+    svc.drain()
+    assert f.done()
+
+
+def test_bucketing_bounds_dispatch_shapes():
+    h = random_hypergraph(30, 45, seed=3)
+    svc = _serve(h, start=False,
+                 config=port_api.ServiceConfig(min_bucket=8, max_batch=64))
+    rng = np.random.default_rng(1)
+    oracle = MSTOracle(h)
+    futs = []
+    for q in (1, 3, 5, 9, 17, 33, 64, 64, 7):
+        futs += [svc.mr(int(rng.integers(h.n)), int(rng.integers(h.n)))
+                 for _ in range(q)]
+        svc.drain()
+    st = svc.stats()
+    for bucket in st.bucket_histogram:
+        assert bucket & (bucket - 1) == 0 and bucket >= 8
+    assert len(st.bucket_histogram) <= 4
+    assert st.padded_queries > 0
+    for f in futs:
+        assert isinstance(f.result(timeout=0), int)
+    us = [int(rng.integers(h.n)) for _ in range(10)]
+    vs = [int(rng.integers(h.n)) for _ in range(10)]
+    fs = [svc.mr(u, v) for u, v in zip(us, vs)]
+    svc.drain()
+    for u, v, f in zip(us, vs, fs):
+        assert f.result(timeout=0) == oracle.mr(u, v)
+
+
+def test_admission_window_coalesces_trickle_arrivals():
+    h = random_hypergraph(15, 20, seed=0)
+    svc = _serve(h, config=port_api.ServiceConfig(max_wait_ms=400.0,
+                                                  max_batch=64))
+    try:
+        futs = []
+        for _ in range(10):
+            futs.append(svc.mr(0, 1))
+            time.sleep(0.02)
+        _results(futs)
+    finally:
+        svc.close()
+    assert svc.stats().batches <= 3
+
+
+# ---------------------------------------------------------------------------
+# snapshot lifecycle under churn
+# ---------------------------------------------------------------------------
+
+def test_service_update_churn_matches_oracle():
+    rng = np.random.default_rng(9)
+    h = random_hypergraph(20, 16, seed=8)
+    svc = _serve(h, start=False)
+    for _ in range(4):
+        ins, dels = _random_edits(h, rng)
+        svc.update(inserts=ins, deletes=dels)
+        h, _, _ = apply_edge_edits(h, ins, dels)
+        reqs, want = _mixed_requests(h, rng, 40)
+        futs = svc.submit_many(reqs)
+        svc.drain()
+        assert [f.result(timeout=0) for f in futs] == want
+    assert svc.stats().snapshot_refreshes >= 1
+
+
+def test_kernel_serving_byte_identical_under_churn():
+    rng = np.random.default_rng(11)
+    h = random_hypergraph(20, 16, seed=8)
+    host = _serve(h, start=False)
+    kern = _serve(h, start=False,
+                  config=port_api.ServiceConfig(use_kernels=True))
+    assert kern.engine.use_kernels and not host.engine.use_kernels
+    for _ in range(3):
+        ins, dels = _random_edits(h, rng)
+        host.update(inserts=ins, deletes=dels)
+        kern.update(inserts=ins, deletes=dels)
+        h, _, _ = apply_edge_edits(h, ins, dels)
+        reqs, want = _mixed_requests(h, rng, 40)
+        hf = host.submit_many(reqs)
+        kf = kern.submit_many([dataclasses.replace(r) for r in reqs])
+        host.drain()
+        kern.drain()
+        hres = [f.result(timeout=0) for f in hf]
+        kres = [f.result(timeout=0) for f in kf]
+        assert hres == want
+        assert kres == hres
+        assert [type(r) for r in kres] == [type(r) for r in hres]
+    assert kern.stats().kernel_batches > 0
+    assert host.stats().kernel_batches == 0
+
+
+def test_twin_services_agree_while_lmax_crosses_the_kernel_route():
+    """Vertex 0 joins groups of every size 2..41 (n grows by 820), so its
+    label row passes 32 labels — where the kernel leaves lane groups for
+    a warp per row — and then they dissolve; the kernel service and its
+    twin without kernels answer alike, in value and type, throughout."""
+    h = random_hypergraph(60, 70, min_size=2, max_size=6, seed=7)
+    kern = _serve(h, start=False,
+                  config=port_api.ServiceConfig(use_kernels=True))
+    twin = _serve(h, start=False)
+    rng = np.random.default_rng(21)
+    lmaxes = []
+    for step in range(5):
+        cur = kern.engine.h
+        if step in (1, 2):
+            sizes = range(2, 22) if step == 1 else range(22, 42)
+            ins, nxt = [], cur.n
+            for k in sizes:
+                ins.append([0] + list(range(nxt, nxt + k - 1)))
+                nxt += k - 1
+            dels = []
+        else:
+            ins = [] if step == 4 else [[1, 2, 3]]
+            dels = ([e for e in range(cur.m) if cur.edge(e).max() >= 60]
+                    if step == 4 else [])
+        kern.update(inserts=ins, deletes=dels)
+        twin.update(inserts=ins, deletes=dels)
+        reqs, _ = _mixed_requests(kern.engine.h, rng, 60)
+        kf = kern.submit_many(reqs)
+        tf = twin.submit_many([dataclasses.replace(r) for r in reqs])
+        kern.drain()
+        twin.drain()
+        got, want = _results(kf), _results(tf)
+        assert got == want and [type(x) for x in got] == \
+            [type(x) for x in want]
+        lmaxes.append(kern._serving_view().lmax)
+    routes = [lj.lanes_per_query(x) for x in lmaxes]
+    assert 0 in routes and routes[-1] > 0, lmaxes
+    assert kern.engine.h.n == 60 + sum(range(1, 41))
+
+
+def test_serving_view_is_a_kernel_snapshot_rebuilt_at_every_swap():
+    h = planted_chain_hypergraph(3, 5, overlap=2, extra_size=2, seed=2)
+    svc = _serve(h, start=False,
+                 config=port_api.ServiceConfig(use_kernels=True))
+    views = []
+    for step in range(3):
+        f = svc.mr(0, 1)
+        svc.drain()
+        f.result(timeout=0)
+        view = svc._serving_view()
+        assert isinstance(view, KernelSnapshot)
+        assert view.base is svc._snap is svc.engine.snapshot_cache()
+        assert view.version == svc.engine.version == step
+        views.append(view)
+        v0 = int(h.edge(0)[0])
+        svc.update(inserts=[[v0, v0 + 1, h.n + step]])
+        h, _, _ = apply_edge_edits(h, [[v0, v0 + 1, h.n + step]], [])
+    assert len({id(v) for v in views}) == 3
+
+
+def test_scoped_update_rederives_only_touched_rows():
+    h = planted_chain_hypergraph(4, 8, overlap=2, extra_size=2, seed=1)
+    svc = _serve(h, start=False)
+    f = svc.mr(0, 1)
+    svc.drain()
+    f.result(timeout=0)
+    v0 = int(h.edge(0)[0])
+    svc.update(inserts=[[v0, v0 + 1]])
+    h2, _, _ = apply_edge_edits(h, [[v0, v0 + 1]], [])
+    oracle = MSTOracle(h2)
+    rng = np.random.default_rng(2)
+    us, vs = rng.integers(0, h2.n, 40), rng.integers(0, h2.n, 40)
+    futs = [svc.mr(int(u), int(v)) for u, v in zip(us, vs)]
+    svc.drain()
+    for u, v, fut in zip(us, vs, futs):
+        assert fut.result(timeout=0) == oracle.mr(int(u), int(v))
+    assert 0 < svc.engine.last_snapshot_refresh_rows < h2.n
+    st = svc.stats()
+    assert st.rows_rederived < st.rows_full
+
+
+def test_partial_rederivation_byte_identical_under_churn():
+    h = planted_chain_hypergraph(3, 6, overlap=2, extra_size=2, seed=4)
+    eng = port_api.build_engine(h, "hl-index", device="cpu")
+    eng.snapshot()
+    rng = np.random.default_rng(5)
+    partial_seen = 0
+    for step in range(5):
+        if step % 2 == 0:
+            v0 = int(rng.integers(h.n))
+            ins, dels = [[v0, min(v0 + 1, h.n - 1), h.n]], []
+        else:
+            ins, dels = [], [int(rng.integers(h.m))]
+        eng.update(inserts=ins, deletes=dels)
+        h, _, _ = apply_edge_edits(h, ins, dels)
+        snap = eng.snapshot()
+        assert snap.version == eng.version == step + 1
+        if 0 < eng.last_snapshot_refresh_rows < h.n:
+            partial_seen += 1
+        fresh = DeviceSnapshot.from_hlindex(eng.idx, "hl-index",
+                                            version=eng.version,
+                                            device="cpu")
+        for f in ("ranks", "svals", "lengths"):
+            assert torch.equal(getattr(snap, f), getattr(fresh, f))
+    assert partial_seen > 0
+
+
+def test_dirty_rows_contract():
+    h = planted_chain_hypergraph(4, 8, overlap=2, extra_size=2, seed=1)
+    eng = port_api.build_engine(h, "hl-index", device="cpu")
+    assert eng.dirty_rows().size == 0
+    eng.snapshot()
+    v0 = int(h.edge(0)[0])
+    eng.update(inserts=[[v0, v0 + 1]])
+    dirty = eng.dirty_rows()
+    assert dirty is not None and 0 < dirty.size < eng.h.n
+    eng.snapshot()
+    assert eng.dirty_rows().size == 0
+    ce = port_api.build_engine(h, "closure", device="cpu")
+    ce.snapshot()
+    ce.update(inserts=[[0, 1]])
+    assert ce.dirty_rows() is None
+    ce.snapshot()
+    assert ce.dirty_rows().size == 0
+
+
+def test_rebuild_update_drops_stale_snapshot():
+    h = random_hypergraph(16, 12, seed=9)
+    eng = port_api.build_engine(h, "closure", device="cpu")
+    eng.snapshot()
+    eng.update(inserts=[[0, 3, 7]])
+    assert eng.snapshot_cache() is None
+    assert eng.snapshot().version == 1
+
+
+# ---------------------------------------------------------------------------
+# validation, errors, facade
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", port_api.available_backends())
+def test_batch_validation_uniform_across_backends(backend):
+    h = random_hypergraph(12, 14, seed=0)
+    eng = port_api.build_engine(h, backend, device="cpu")
+    with pytest.raises(ValueError, match="length mismatch"):
+        eng.mr_batch([0, 1], [2])
+    with pytest.raises(ValueError, match="integer dtype"):
+        eng.mr_batch([0.5, 1.5], [2, 3])
+    with pytest.raises(IndexError, match="out of range"):
+        eng.mr_batch([0, 1], [2, h.n])
+    with pytest.raises(IndexError, match="out of range"):
+        eng.s_reach_batch([-1], [2], 2)
+    with pytest.raises(ValueError, match="1-D"):
+        eng.mr_batch(np.zeros((2, 2), np.int64), np.zeros((2, 2), np.int64))
+    assert len(eng.mr_batch([], [])) == 0
+
+
+def test_validate_batch_helper():
+    us, vs = validate_batch([1, 2], np.array([3, 4], np.int32), 5)
+    assert us.dtype == vs.dtype == np.int64
+    with pytest.raises(IndexError):
+        validate_batch([0], [5], 5)
+    validate_batch([], [], 0)
+
+
+def test_submit_validation():
+    h = random_hypergraph(10, 12, seed=0)
+    svc = _serve(h, start=False)
+    with pytest.raises(IndexError, match="out of range"):
+        svc.submit(port_api.MRRequest(0, h.n))
+    with pytest.raises(ValueError, match="s >= 1"):
+        svc.submit(port_api.SReachRequest(0, 1, 0))
+    with pytest.raises(ValueError, match="integer dtype"):
+        svc.submit(port_api.MRRequest(0.5, 1))
+    with pytest.raises(ValueError, match="integer dtype"):
+        svc.submit(port_api.SReachRequest(0, 1, 1.5))
+    with pytest.raises(TypeError, match="requests"):
+        svc.submit((0, 1))
+    with pytest.raises(TypeError, match="requests"):
+        svc.submit(ref_api.MRRequest(0, 1))     # the reference's type
+    assert svc.pending() == 0
+
+
+def test_workload_requests_are_refused_at_admission():
+    h = random_hypergraph(10, 12, seed=0)
+    svc = _serve(h, start=False)
+    for call in (lambda: svc.witness(0, 1), lambda: svc.s_reach_k(0, 1, 1, 2),
+                 lambda: svc.mr_set([0], [1]), lambda: svc.top_s(0, 3),
+                 lambda: svc.s_distance(0, 1, 1)):
+        with pytest.raises(port_api.WorkloadUnsupported, match="workload"):
+            call()
+    assert svc.pending() == 0 and svc.stats().submitted == 0
+    # a backend that declares a workload gets it admitted; its dispatch is
+    # not ported, so the request's future carries the error
+    svc.engine.workload_capability = frozenset({"top_s"})
+    fut = svc.top_s(0, 3)
+    svc.drain()
+    with pytest.raises(port_api.WorkloadUnsupported, match="A8"):
+        fut.result(timeout=0)
+
+
+def test_mesh_store_and_device_are_refused_by_name():
+    h = random_hypergraph(10, 12, seed=0)
+    eng = port_api.build_engine(h, "hl-index", device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        port_api.serve(h, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="A10"):
+        port_api.ReachabilityService(eng, mesh=object(), start=False)
+    with pytest.raises(NotImplementedError, match="A10"):
+        port_api.ReplicaGroup(eng, 2, mesh=object(), start=False)
+    svc = port_api.serve(eng, start=False)
+    with pytest.raises(NotImplementedError, match="A9"):
+        svc.checkpoint(object())
+    with pytest.raises(NotImplementedError, match="A9"):
+        port_api.ReachabilityService.restore("somewhere")
+    with pytest.raises(ValueError, match="already-built"):
+        port_api.serve(eng, start=False, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_api.serve(h, start=False)
+
+
+@pytest.mark.parametrize("route", ["config", "replace", "legacy_kwarg"])
+def test_mesh_axes_are_refused_by_name(route):
+    # ServiceConfig keeps the reference's ``axes`` field, but mesh placement
+    # is not ported: setting it raises instead of being silently ignored
+    h = random_hypergraph(10, 12, seed=0)
+    eng = port_api.build_engine(h, "hl-index", device="cpu")
+    axes = ("rows", "cols")
+    with pytest.raises(NotImplementedError, match="A10"):
+        if route == "config":
+            port_api.ServiceConfig(axes=axes)
+        elif route == "replace":
+            dataclasses.replace(port_api.ServiceConfig(replicas=2),
+                                axes=axes)
+        else:
+            with pytest.warns(DeprecationWarning):
+                port_api.serve(eng, start=False, axes=axes)
+    assert port_api.ServiceConfig(axes=None).axes is None
+
+
+def test_serve_facade():
+    h = random_hypergraph(15, 20, seed=2)
+    svc = _serve(h, start=False,
+                 config=port_api.ServiceConfig(max_batch=32, min_bucket=4))
+    assert svc.max_batch == 32 and svc.min_bucket == 4
+    assert svc.engine.name == "hl-index"
+    assert svc.engine.device.type == "cpu"
+    eng = port_api.build_engine(h, "mst-oracle", device="cpu")
+    svc2 = port_api.serve(eng, start=False)
+    assert svc2.engine is eng
+    with pytest.raises(ValueError, match="already-built"):
+        port_api.serve(eng, start=False, minimize_labels=False)
+    with pytest.raises(ValueError, match="already-built"):
+        port_api.serve(eng, "closure", start=False)
+    with pytest.raises(ValueError, match="already-built"):
+        port_api.serve(eng, start=False, batch_hint=10_000)
+    with pytest.raises(ValueError, match="min_bucket"):
+        port_api.ReachabilityService(eng, min_bucket=64, max_batch=8,
+                                     start=False)
+    small = random_hypergraph(12, 20, seed=4)
+    assert port_api.serve(small, batch_hint=1000, device="cpu",
+                          start=False).engine.name == "closure"
+
+
+def test_service_on_snapshotless_backend_never_snapshots():
+    h = random_hypergraph(15, 20, seed=2)
+    svc = _serve(h, "mst-oracle", start=False)
+    oracle = MSTOracle(h)
+    futs = [svc.mr(0, i % h.n) for i in range(10)]
+    futs.append(svc.s_reach(0, 1, 2))
+    futs.append(svc.s_reach(0, 2, 1))
+    svc.drain()
+    got = [f.result(timeout=0) for f in futs]
+    assert got[:10] == [oracle.mr(0, i % h.n) for i in range(10)]
+    assert got[10:] == [oracle.mr(0, 1) >= 2, oracle.mr(0, 2) >= 1]
+    assert [type(x) for x in got] == [int] * 10 + [bool] * 2
+    assert svc.stats().snapshot_refreshes == 0
+    with pytest.raises(port_api.SnapshotUnsupported):
+        svc.engine.snapshot()
+
+
+def test_service_stats_shape():
+    d = port_rs.ServiceStats().as_dict()
+    assert set(d) == set(ref_rs.ServiceStats().as_dict())
+
+
+def test_a_failing_batch_fails_its_futures_and_serving_goes_on():
+    h = random_hypergraph(20, 30, seed=6)
+    svc = _serve(h, config=port_api.ServiceConfig(max_wait_ms=1.0,
+                                                  use_kernels=True))
+    real = svc._snapshot_mr
+
+    def device_fault(snap, us, vs):
+        raise RuntimeError("CUDA error: device-side assert triggered")
+
+    try:
+        svc._snapshot_mr = device_fault
+        futs = [svc.mr(0, i) for i in range(5)]
+        for f in futs:
+            with pytest.raises(RuntimeError, match="device-side"):
+                f.result(timeout=TIMEOUT)
+        svc._snapshot_mr = real
+        f = svc.mr(0, 1)
+        assert f.result(timeout=TIMEOUT) == MSTOracle(h).mr(0, 1)
+    finally:
+        svc.close()
+    assert svc.stats().answered == 1
+
+
+def test_kernel_library_loads_once_under_concurrent_first_calls(monkeypatch):
+    """Many threads reach a kernel's first launch at once (a service's
+    admission thread and its caller): the library is built and loaded
+    exactly once."""
+    built, loaded = [], []
+
+    def fake_build(names, build_dir=None):
+        built.append(tuple(names))
+        time.sleep(0.01)          # a slow build widens the race window
+        return {n: f"/nowhere/{n}.so" for n in names}
+
+    def fake_cdll(path):
+        loaded.append(path)
+        return object()
+
+    monkeypatch.setattr(build_mod, "build_libraries", fake_build)
+    monkeypatch.setattr(build_mod.ctypes, "CDLL", fake_cdll)
+    monkeypatch.delitem(build_mod._LOADED, "race_probe", raising=False)
+    interval = sys.getswitchinterval()
+    results = []
+    try:
+        sys.setswitchinterval(1e-6)
+        threads = [threading.Thread(
+            target=lambda: results.append(build_mod.load_library(
+                "race_probe"))) for _ in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=TIMEOUT)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        build_mod._LOADED.pop("race_probe", None)
+    assert built == [("race_probe",)] and len(loaded) == 1
+    assert len(results) == 32 and len({id(r) for r in results}) == 1
+
+
+@pytest.mark.gpu
+def test_kernel_service_on_the_card_launches_once_per_micro_batch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the label_join kernel runs only "
+                    "on the card")
+    h = random_hypergraph(300, 450, seed=1)
+    svc = port_api.serve(h, start=False, config=port_api.ServiceConfig(
+        use_kernels=True, max_batch=64))
+    plain = port_api.serve(h, start=False, config=port_api.ServiceConfig(
+        use_kernels=False, max_batch=64))
+    rng = np.random.default_rng(3)
+    reqs, _ = _mixed_requests(h, rng, 300)
+    before = lj.GATHER_LAUNCHES
+    kf = svc.submit_many(reqs)
+    svc.drain()
+    assert lj.GATHER_LAUNCHES - before == svc.stats().batches
+    pf = plain.submit_many([dataclasses.replace(r) for r in reqs])
+    plain.drain()
+    got, want = _results(kf), _results(pf)
+    assert got == want and [type(x) for x in got] == [type(x) for x in want]
