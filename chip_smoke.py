@@ -17,7 +17,13 @@ drives the port's two paths at full size through `repro_torch.api`:
 * the dense closure through `build_engine(h, "closure", method=...)` at
   the published size of primary-school (242 vertices, 12,704 hyperedges):
   the `overlap` kernel forms the line graph, 14 launches of
-  `maxmin_matmul` or of `threshold_step` close it.
+  `maxmin_matmul` or of `threshold_step` close it;
+* the index-free and baseline backends on email-Eu at its published size
+  (998 vertices, 25,800 hyperedges), past the label budget: `auto` builds
+  `online` and `frontier` (sparse line-graph sweeps on the card, tensor
+  ops), `ete` joins its snapshot through `label_join_gather`, `threshold`
+  and the MST oracle answer beside them, one update on `online` and
+  `frontier`; then `frontier` on the main path's graph beside `hl-index`.
 
 and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -27,7 +33,7 @@ Output: one `ptxas <kernel>: ...` line per library (registers, shared
 memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `main_path`, `service_path`, `wide_labels`, `closure_path`, `closure_path_kernels`,
-`closure_small`, then `{"kernels": [...]}` (per kernel: launches on its
+`closure_small`, `backends_path`, then `{"kernels": [...]}` (per kernel: launches on its
 path, error against the plain version, times and the roofline bound;
 `label_join_gather` is the gather entry point of `label_join`), the
 card's name and power limit as `nvidia-smi` prints them, and last
@@ -103,7 +109,6 @@ L2_FLUSH_BYTES = 256 * 2**20
 # a 2^20 mr_batch may raise the device's peak allocation by less than this
 BATCH_PEAK_LIMIT = 64 * 2**20
 INT32_MAX = int(np.iinfo(np.int32).max)
-INT64_MAX = int(np.iinfo(np.int64).max)
 
 # the reference harness's corpora (tests/test_kernels_diff.py)
 MAXMIN_CORPUS = [(33, 32, 17, 0), (1, 1, 1, 1), (8, 37, 9, 2), (0, 4, 4, 3),
@@ -136,6 +141,15 @@ TRICKLE_REQUESTS = 1000
 # requests submitted while the full-graph update runs, one per gap
 STALL_REQUESTS = 8
 STALL_GAP_S = 1.0
+# email-Eu at its published size (benchmarks/datasets.py lists 998
+# vertices, 25.8k hyperedges; EE-s draws edge sizes 2-6, seed 5): past the
+# label budget, so `auto` plans `online` (trickle) and `frontier` (batch)
+EMAIL_EU = dict(n=998, m=25_800, min_size=2, max_size=6, seed=5)
+FRONTIER_PAIRS = 1024
+ETE_PAIRS = 2**16
+# Base* (online) costs seconds per query at email-Eu's degree; the pairs
+# are chosen so that frontier's answers on them span its distinct values
+ONLINE_PAIRS = 4
 
 
 def emit(obj) -> None:
@@ -1734,32 +1748,6 @@ def phase_dense_kernel_checks(mm, ov, tc, device):
     return errs
 
 
-def forest_rows(oracle, edges):
-    """Bottleneck value from each hyperedge in ``edges`` to every hyperedge
-    [len(edges), m], read off the MST oracle's maximum spanning forest by one
-    sweep per source: what ``MSTOracle.edge_mr`` answers pair by pair, at
-    the cost of one of its walks per row."""
-    h = oracle.h
-    sizes = h.edge_sizes
-    out = np.zeros((len(edges), h.m), np.int64)
-    for row, e in zip(out, edges):
-        e = int(e)
-        best = {e: INT64_MAX}
-        stack = [e]
-        while stack:
-            x = stack.pop()
-            for y, w in oracle.adj[x]:
-                if y not in best:
-                    best[y] = min(best[x], w)
-                    stack.append(y)
-        del best[e]
-        if best:
-            row[np.fromiter(best.keys(), np.int64, len(best))] = \
-                np.fromiter(best.values(), np.int64, len(best))
-        row[e] = sizes[e]
-    return out
-
-
 def reset_counts(counters):
     for mod in counters.values():
         mod.LAUNCHES = 0
@@ -1880,7 +1868,7 @@ def phase_closure_path(api, semiring, ops, counters, device):
     checked = 0
     for u, v in zip(us[:8], vs[:8]):
         eu = h.edges_of(int(u))
-        rows = forest_rows(oracle, eu)
+        rows = oracle.rows(eu)
         if not np.array_equal(rows, w_star[eu]):
             raise AssertionError(f"closure_path: W* rows of vertex {u} "
                                  f"differ from the MST oracle's forest")
@@ -2020,7 +2008,7 @@ def phase_closure_small(api, ops, counters, device):
     us, vs = np.divmod(np.arange(h.n * h.n), h.n)
     rounds = ops.default_rounds(h.m)
     oracle = api.build_engine(h, "mst-oracle").oracle
-    forest = forest_rows(oracle, range(h.m))
+    forest = oracle.rows(range(h.m))
     hl = api.build_engine(h, "hl-index", use_kernels=True)
     want = hl.mr_batch(us, vs)
     # the forest's vertex-level answers: max over incident hyperedge pairs
@@ -2059,6 +2047,306 @@ def phase_closure_small(api, ops, counters, device):
           "seconds": clock.seconds()})
 
 
+# -- the index-free and baseline backends ------------------------------------
+
+def sweep_bound_bytes(rec, m):
+    """Bytes one sweep must move at least: every round run reads the alive
+    edges' ``src`` / ``dst`` / ``od`` once (12 bytes an edge) and the
+    ``[m, Qc]`` uint8 frontier once in and once out."""
+    q, width, nbytes = rec["queries"], rec["chunk_queries"], 0
+    for i, rounds in enumerate(rec["rounds"]):
+        qc = min(width, q - i * width)
+        nbytes += rounds * (rec["alive_edges"] * 12 + 2 * qc * m)
+    return nbytes
+
+
+def sweep_summary(sweeps, m):
+    """What a frontier batch's sweep log says: per sweep (in order) its
+    threshold, rounds run per query chunk against the cap, alive edges,
+    host ms and byte bound (at the memory rate); and the batch's bound."""
+    per_sweep = [{"s": rec["s"], "queries": rec["queries"],
+                  "rounds": rec["rounds"], "alive_edges": rec["alive_edges"],
+                  "chunk_queries": rec["chunk_queries"], "ms": rec["ms"],
+                  "bound_ms": sweep_bound_bytes(rec, m) / HBM_BYTES_PER_S
+                  * 1e3} for rec in sweeps]
+    nbytes = sum(sweep_bound_bytes(rec, m) for rec in sweeps)
+    return {"sweeps": len(sweeps), "per_sweep": per_sweep,
+            "rounds_cap": sweeps[0]["rounds_cap"] if sweeps else None,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_bytes": nbytes, "bound_by": "bytes"}
+
+
+def timed_frontier_batch(eng, us, vs, s=None):
+    """One frontier batch on the card (``mr_batch``, or ``s_reach_batch``
+    at ``s``): answers, host-clock ms (synchronised), its sweep log, and
+    the peak device memory during it (absolute, and over what was
+    allocated before)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = eng.mr_batch(us, vs) if s is None else eng.s_reach_batch(us, vs, s)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    row = {"queries": len(us), "batch_ms": ms, "peak_bytes": peak,
+           "peak_rise_bytes": peak - base, **sweep_summary(eng.last_sweeps,
+                                                          eng.h.m)}
+    return out, row
+
+
+def edit_batch(rng, h):
+    """Two inserted hyperedges on existing vertices and two deletes."""
+    ins = [sorted(int(x) for x in rng.choice(h.n, k, replace=False))
+           for k in (4, 3)]
+    dels = sorted(int(x) for x in rng.choice(h.m, 2, replace=False))
+    return ins, dels
+
+
+def canonical_coo(coo):
+    """A line graph's host half-list as [E, 3] (low id, high id, od) rows
+    in order: the splice keeps a touched pair as (touched, other), either
+    way round."""
+    src, dst, od = coo
+    lo, hi = np.minimum(src, dst), np.maximum(src, dst)
+    order = np.lexsort((hi, lo))
+    return np.stack([lo[order], hi[order], od[order]], axis=1)
+
+
+def spread_pairs(answers, k):
+    """Indices of k pairs whose answers span the distinct values present
+    (the lowest, the highest and evenly between; the first pair of each),
+    so that a backend which collapses its answers fails a check on them."""
+    values = np.unique(answers)
+    if values.size < 2:
+        raise AssertionError(f"every pair answers {values.tolist()}: the "
+                             f"few-pair check would witness nothing")
+    picks = values[np.unique(np.linspace(0, values.size - 1, k).round()
+                             .astype(np.int64))]
+    idx = [int(np.flatnonzero(answers == x)[0]) for x in picks]
+    idx += [i for i in range(answers.size) if i not in idx][:k - len(idx)]
+    return np.array(idx, np.int64)
+
+
+def forest_mr(oracle, us, vs):
+    """MR of each pair off the MST oracle's spanning forest (one forest
+    walk per hyperedge of u: ``MSTOracle.mr`` pair by pair would take
+    minutes a query at email-Eu's degree)."""
+    h = oracle.h
+    return np.array([oracle.rows(h.edges_of(int(u)))[
+        :, h.edges_of(int(v))].max(initial=0) for u, v in zip(us, vs)],
+        np.int64)
+
+
+def phase_backends_path(api, engine_mod, lj, counters, main_h, main_pairs,
+                        main_mr, device):
+    """The index-free and baseline backends on email-Eu (past the label
+    budget): `auto` builds `online` and `frontier`, `ete` joins through
+    `label_join_gather`, `threshold` and `online` answer a few pairs, one
+    update on `online` and `frontier` against engines rebuilt from scratch;
+    then `frontier` on the main path's graph against `hl-index`."""
+    clock = Phase()
+    g = EMAIL_EU
+    seconds = {}
+    t_step = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_step
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = round(now - t_step, 3)
+        t_step = now
+
+    h = api.random_hypergraph(g["n"], g["m"], min_size=g["min_size"],
+                              max_size=g["max_size"], seed=g["seed"])
+    proxy = h.nnz * float(h.vertex_degrees.mean())
+    plans = {"trickle": api.plan_backend(h),
+             "batch_1024": api.plan_backend(h, FRONTIER_PAIRS)}
+    if plans != {"trickle": "online", "batch_1024": "frontier"}:
+        raise AssertionError(f"backends_path: plan {plans} on email-Eu")
+    lap("generate")
+    online = api.build_engine(h)
+    lap("online_build")                      # the neighbor cache
+    cache_bytes = online.nbytes()
+    frontier = api.build_engine(h, batch_hint=FRONTIER_PAIRS)
+    lap("frontier_build")                    # line graph, landed on the card
+    if (online.name, frontier.name) != ("online", "frontier"):
+        raise AssertionError(f"auto built {online.name} / {frontier.name}")
+    if frontier.g.src.device.type != device.type:
+        raise AssertionError("frontier's line graph is not on the card")
+    line_graph_edges = int(frontier.g.src.numel())
+    ete = api.build_engine(h, "ete", use_kernels=True)
+    lap("ete_build")
+    snap = ete.snapshot()
+    lap("ete_snapshot")
+    threshold = api.build_engine(h, "threshold")
+    lap("threshold_build")
+    oracle = api.build_engine(h, "mst-oracle").oracle
+    lap("oracle_build")
+
+    rng = np.random.default_rng(23)
+    us, vs = rng.integers(0, h.n, FRONTIER_PAIRS), rng.integers(
+        0, h.n, FRONTIER_PAIRS)
+    eus, evs = rng.integers(0, h.n, ETE_PAIRS), rng.integers(0, h.n,
+                                                              ETE_PAIRS)
+    # the counted run: every count to 0, drive the path, read
+    reset_counts(counters)
+    lj.GATHER_LAUNCHES = 0
+    mr, mr_row = timed_frontier_batch(frontier, us, vs)
+    sr, sr_row = timed_frontier_batch(frontier, us, vs, s=2)
+    frontier_counts = read_counts(counters)
+    t0 = time.perf_counter()
+    ete_mr = ete.mr_batch(eus, evs)
+    ete_ms = (time.perf_counter() - t0) * 1e3
+    ete_on_pairs = ete.mr_batch(us, vs)
+    counts = read_counts(counters)
+    gather = lj.GATHER_LAUNCHES
+    lap("counted_run")
+    if any(frontier_counts.values()):
+        raise AssertionError(f"frontier launched a kernel: {frontier_counts}")
+    want_counts = {name: 0 for name in counters}
+    want_counts["label_join"] = 2
+    if counts != want_counts or gather != 2:
+        raise AssertionError(f"backends_path: launches {counts}, gather "
+                             f"{gather}; expected one gather launch per ete "
+                             f"batch (2)")
+    if mr.dtype != np.int64 or sr.dtype != np.bool_:
+        raise AssertionError(f"frontier dtypes {mr.dtype}, {sr.dtype}")
+    if not np.array_equal(sr, mr >= 2):
+        raise AssertionError("frontier: s_reach_batch(s=2) != mr_batch >= 2")
+    if ete_mr.dtype != np.int32 or not np.array_equal(ete_on_pairs, mr):
+        raise AssertionError("ete's kernel batch differs from frontier's")
+    plain = engine_mod.ETEEngine(h, ete.ete, device=device)
+    if not np.array_equal(plain.mr_batch(eus, evs), ete_mr):
+        raise AssertionError("ete: kernel batch differs from batched_mr")
+    lap("ete_plain")
+
+    # online (Base*), threshold and the oracle on pairs of distinct answers
+    few = spread_pairs(mr, ONLINE_PAIRS)
+    few_u, few_v = us[few], vs[few]
+    t0 = time.perf_counter()
+    online_mr = [online.mr(int(u), int(v)) for u, v in zip(few_u, few_v)]
+    online_ms = (time.perf_counter() - t0) * 1e3 / ONLINE_PAIRS
+    t0 = time.perf_counter()
+    threshold_mr = [threshold.mr(int(u), int(v))
+                    for u, v in zip(few_u, few_v)]
+    threshold_ms = (time.perf_counter() - t0) * 1e3 / ONLINE_PAIRS
+    oracle_mr = forest_mr(oracle, few_u, few_v).tolist()
+    if not (online_mr == threshold_mr == oracle_mr == mr[few].tolist()):
+        raise AssertionError(f"backends_path: online {online_mr}, threshold "
+                             f"{threshold_mr}, oracle {oracle_mr}, frontier "
+                             f"{mr[few].tolist()}")
+    lap("online_threshold_oracle")
+
+    # the ete kernel at this path's shape, against its plain version
+    bu = torch.from_numpy(eus).to(device)
+    bv = torch.from_numpy(evs).to(device)
+    fused = lj.label_join_gather(snap.ranks, snap.svals, bu, bv)
+    gather_err = check_equal("ete by id", fused, plain_gather_chunked(
+        lj.label_join_gather_ref, snap.ranks, snap.svals, bu, bv))
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                          device=device)
+    bound_ms, bound_by, bound_counts = label_join_gather_bound(snap.svals,
+                                                               bu, bv)
+    ete_kernel = {
+        "shape": [ETE_PAIRS, snap.lmax], "n": h.n,
+        "route_lanes_per_query": lj.lanes_per_query(snap.lmax),
+        "route": ("warp per row" if lj.lanes_per_query(snap.lmax) == 0
+                  else "lanes per query"),
+        "ms": cuda_ms(lambda: lj.label_join_gather(snap.ranks, snap.svals,
+                                                   bu, bv), reps=30),
+        "cold_ms": cuda_ms_cold(
+            lambda: lj.label_join_gather(snap.ranks, snap.svals, bu, bv),
+            scratch, reps=10),
+        "plain_ms": cuda_ms(lambda: plain_gather_chunked(
+            lj.label_join_gather_ref, snap.ranks, snap.svals, bu, bv),
+            reps=3, warmup=1),
+        "torch_ops_ms": cuda_ms(lambda: snap.mr(bu, bv), reps=20),
+        "bound_ms": bound_ms, "bound_by": bound_by, **bound_counts,
+        "max_abs_err": gather_err}
+    del scratch
+    lap("ete_kernel_timing")
+
+    # one update on online and frontier, against engines rebuilt whole
+    ins, dels = edit_batch(np.random.default_rng(29), h)
+    t0 = time.perf_counter()
+    online.update(inserts=ins, deletes=dels)
+    online_update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frontier.update(inserts=ins, deletes=dels)
+    torch.cuda.synchronize()
+    frontier_update_s = time.perf_counter() - t0
+    h2 = frontier.h
+    fresh_frontier = api.build_engine(h2, "frontier")
+    fresh_online = api.build_engine(h2, "online")
+    lap("update_and_rebuild")
+    # the splice appends the touched pairs: equal as a set of pairs
+    if not np.array_equal(canonical_coo(frontier.g._coo),
+                          canonical_coo(fresh_frontier.g._coo)):
+        raise AssertionError("frontier: spliced line graph != rebuilt")
+    for rows, fresh_rows in ((online.cache.nbrs, fresh_online.cache.nbrs),
+                             (online.cache.ods, fresh_online.cache.ods)):
+        if len(rows) != len(fresh_rows) or not all(
+                np.array_equal(a, b) for a, b in zip(rows, fresh_rows)):
+            raise AssertionError("online: patched neighbor cache != rebuilt")
+    mr2 = frontier.mr_batch(us, vs)
+    if not np.array_equal(mr2, fresh_frontier.mr_batch(us, vs)):
+        raise AssertionError("frontier: answers after update != rebuilt")
+    online_mr2 = [online.mr(int(u), int(v)) for u, v in zip(few_u, few_v)]
+    if online_mr2 != mr2[few].tolist():
+        raise AssertionError(f"online after update {online_mr2} != frontier "
+                             f"{mr2[few].tolist()}")
+    lap("update_checks")
+    del fresh_frontier, fresh_online
+    torch.cuda.empty_cache()
+
+    # frontier on the main path's graph, beside hl-index's answers
+    t0 = time.perf_counter()
+    main_frontier = api.build_engine(main_h, "frontier")
+    main_build_s = time.perf_counter() - t0
+    reset_counts(counters)
+    main_got, main_row = timed_frontier_batch(main_frontier, *main_pairs)
+    main_edges = int(main_frontier.g.src.numel())
+    main_counts = read_counts(counters)
+    if any(main_counts.values()):
+        raise AssertionError(f"frontier launched a kernel: {main_counts}")
+    if not np.array_equal(main_got, main_mr):
+        raise AssertionError("frontier on the main graph != hl-index")
+    lap("main_graph_frontier")
+    del main_frontier
+    torch.cuda.empty_cache()
+
+    emit({"phase": "backends_path", "n": h.n, "m": h.m, "nnz": h.nnz,
+          "mean_vertex_degree": float(h.vertex_degrees.mean()),
+          "label_mass_proxy": proxy, "plans": plans,
+          "line_graph_directed_edges": line_graph_edges,
+          "neighbor_cache_bytes": cache_bytes,
+          "ete_labels": ete.ete.num_labels, "ete_lmax": snap.lmax,
+          "ete_snapshot_bytes": snap.nbytes(),
+          "threshold_comp_shape": list(threshold.tci.comp.shape),
+          "threshold_bytes": threshold.nbytes(),
+          "host_seconds": seconds,
+          "frontier_mr_batch": mr_row, "frontier_s_reach_batch": dict(
+              sr_row, s=2),
+          "ete": {"queries": ETE_PAIRS, "batch_ms": ete_ms,
+                  "launches": gather, "kernel": ete_kernel,
+                  "answers_equal_frontier_on": FRONTIER_PAIRS},
+          "online_pairs": ONLINE_PAIRS, "online_ms_per_query": online_ms,
+          "threshold_ms_per_query": threshold_ms,
+          "few_pairs": few.tolist(), "few_pair_answers": online_mr,
+          "few_pair_answers_after_update": online_mr2,
+          "update": {"inserts": ins, "deletes": dels,
+                     "online_seconds": round(online_update_s, 3),
+                     "frontier_seconds": round(frontier_update_s, 3)},
+          "main_graph": {"n": main_h.n, "m": main_h.m,
+                         "build_seconds": round(main_build_s, 3),
+                         "line_graph_directed_edges": main_edges,
+                         "frontier_mr_batch": main_row},
+          "answer_histogram": np.bincount(mr).tolist(),
+          "seconds": clock.seconds()})
+    return gather, ete_kernel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2089,6 +2377,13 @@ def main() -> int:
     (launches, gather_launches, err_main, gather_err_main, times,
      gather_times, main_eng) = phase_main_path(api, engine_mod, lj,
                                                searchsorted_join, device)
+    # the backends path runs frontier on this graph beside hl-index's
+    # answers; the service path then updates main_eng in place
+    main_h = main_eng.h
+    main_rng = np.random.default_rng(31)
+    main_pairs = (main_rng.integers(0, main_h.n, FRONTIER_PAIRS),
+                  main_rng.integers(0, main_h.n, FRONTIER_PAIRS))
+    main_mr = main_eng.mr_batch(*main_pairs)
     service_launches, service_dense = phase_service_path(
         api, engine_mod, serve_mod, query_mod, ops, counters, main_eng,
         device)
@@ -2098,15 +2393,18 @@ def main() -> int:
     dense_launches, dense_pads, path_rows = phase_closure_path(
         api, semiring, ops, counters, device)
     phase_closure_small(api, ops, counters, device)
+    backends_launches, ete_kernel = phase_backends_path(
+        api, engine_mod, lj, counters, main_h, main_pairs, main_mr, device)
     torch.cuda.synchronize()
 
     kernels = [{
         "name": "label_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
-        "launches": launches + service_launches,
+        "launches": launches + service_launches + backends_launches,
         "launches_by_path": {"main_path": launches,
-                             "service_path": service_launches},
+                             "service_path": service_launches,
+                             "backends_path": backends_launches},
         "max_abs_err": max(err_checks, err_main),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
@@ -2117,10 +2415,12 @@ def main() -> int:
         "name": "label_join_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
-        "launches": gather_launches + service_launches,
+        "launches": gather_launches + service_launches + backends_launches,
         "launches_by_path": {"main_path": gather_launches,
-                             "service_path": service_launches},
-        "max_abs_err": max(gather_err_checks, gather_err_main),
+                             "service_path": service_launches,
+                             "backends_path": backends_launches},
+        "max_abs_err": max(gather_err_checks, gather_err_main,
+                           ete_kernel["max_abs_err"]),
         "ms": gather_times["ms"], "cold_ms": gather_times["cold_ms"],
         "plain_ms": gather_times["plain_ms"],
         "bound_ms": gather_times["bound_ms"],
@@ -2129,6 +2429,10 @@ def main() -> int:
         "torch_ops_ms": gather_times["torch_ops_ms"],
         "shape": gather_times["shape"],
         "distinct_rows": gather_times["distinct_rows"],
+        # the same kernel at the ete backend's shape (backends_path)
+        "ete_shape": {k: ete_kernel[k] for k in (
+            "shape", "route", "ms", "cold_ms", "plain_ms", "torch_ops_ms",
+            "bound_ms", "bound_by", "distinct_rows")},
     }]
     replaces = {"maxmin_matmul": "src/repro/kernels/maxmin_matmul.py:70",
                 "overlap": "src/repro/kernels/overlap.py:47",

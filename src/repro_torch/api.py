@@ -19,15 +19,29 @@ and raises on a host without a CUDA device; ``device="cpu"`` runs the
 same code on the host, with each kernel's plain PyTorch version in place
 of the kernel.
 
-Backends today: ``hl-index``, ``hl-index-basic``, ``mst-oracle`` and
-``closure`` — the dense (max, min) closure ``W*``, built on the device by
-the ``overlap`` kernel and ⌈log2 m⌉ launches of ``maxmin_matmul``
-(``method="maxmin"``, the default) or ``threshold_step``
-(``method="threshold"``); the planner picks it for small line graphs with
-real batches (``build_engine(h, "auto", batch_hint=1000)``).
+Backends today: every single-device backend of the reference.
+``hl-index`` and ``hl-index-basic``; ``closure`` — the dense (max, min)
+closure ``W*``, built on the device by the ``overlap`` kernel and
+⌈log2 m⌉ launches of ``maxmin_matmul`` (``method="maxmin"``, the
+default) or ``threshold_step`` (``method="threshold"``); the planner
+picks it for small line graphs with real batches
+(``build_engine(h, "auto", batch_hint=1000)``).
 
     eng = build_engine(h, "closure", method="threshold")  # on the GPU
     eng.mr_batch(us, vs)             # [Q] int32 from the [n, m] label rows
+
+Past the label budget (``nnz`` × mean vertex degree > 2e6) the planner
+picks the index-free backends: ``online`` (Algorithm 1 on the host) for
+trickle queries and ``frontier`` (sparse line-graph sweeps on the device)
+for batches of 256 or more:
+
+    eng = build_engine(h)                      # "online" on such a graph
+    eng = build_engine(h, batch_hint=1024)     # "frontier", on the GPU
+    eng.mr_batch(us, vs)             # [Q] int64, one sweep per bisection step
+
+The baselines ``ete`` (its snapshot joins like the HL-index's, through
+the ``label_join`` kernel with ``use_kernels=True``), ``threshold`` and
+``mst-oracle`` are built by name.
 
 Hyperedge updates go through the same engine — no rebuilding by hand:
 
@@ -37,8 +51,9 @@ Hyperedge updates go through the same engine — no rebuilding by hand:
 
 ``update_capabilities()`` maps each backend to how it absorbs updates:
 scoped construction on the affected line-graph component(s)
-(``hl-index`` / ``hl-index-basic``), a whole rebuild on the device
-(``closure``), or ``UpdateUnsupported`` (``mst-oracle``).
+(``hl-index`` / ``hl-index-basic``), a patch on the 1-hop touched set
+(``online`` / ``frontier``), a whole rebuild on the device (``closure``),
+or ``UpdateUnsupported`` (``ete``, ``threshold``, ``mst-oracle``).
 
 Heavy request traffic goes through the request service instead of
 hand-assembled batches (``repro_torch.serve``); its knobs live in a typed
@@ -60,7 +75,7 @@ weighted-fair across tenants within strict priority bands, and
 snapshot copies (``ReplicaGroup``) that the dirty rows of each update are
 written into.
 
-The store, the workload families, the mesh and the remaining backends of
+The store, the workload families, the mesh and the ``sharded`` backend of
 the reference facade are not here yet; ``ROADMAP.md`` lists them in the
 order they are ported.
 """

@@ -12,14 +12,18 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from .core.baselines import ETEIndex, ThresholdComponentIndex
 from .core.engine import ClosureEngine
+from .core.frontier import SparseLineGraph
 from .core.hlindex import HLIndex
 from .core.hypergraph import Hypergraph
 from .core.query import DeviceSnapshot
 from .device import DeviceLike
 
 __all__ = ["hypergraph_from_arrays", "hlindex_from_arrays",
-           "snapshot_from_arrays", "closure_engine_from_arrays"]
+           "snapshot_from_arrays", "closure_engine_from_arrays",
+           "ete_index_from_arrays", "line_graph_from_arrays",
+           "threshold_index_from_arrays"]
 
 
 def _int64(a) -> np.ndarray:
@@ -91,3 +95,41 @@ def closure_engine_from_arrays(h: Hypergraph, w_star, method: str = "maxmin",
         raise ValueError(f"W* has shape {w_star.shape}, the graph needs "
                          f"({h.m}, {h.m})")
     return ClosureEngine(h, w_star, method, device=device)
+
+
+def ete_index_from_arrays(h: Hypergraph, rank, labels_rank: Sequence,
+                          labels_s: Sequence) -> ETEIndex:
+    """An ``ETEIndex`` over ``h`` from its per-hyperedge label rows (hub
+    ranks ascending, and their s values), as the reference keeps them."""
+    if not (len(labels_rank) == len(labels_s) == h.m):
+        raise ValueError(f"need one label row per hyperedge (m={h.m})")
+    idx = ETEIndex(h, _int64(rank), [[] for _ in range(h.m)])
+    idx.labels_rank = [_int64(a) for a in labels_rank]
+    idx.labels_s = [_int64(a) for a in labels_s]
+    return idx
+
+
+def line_graph_from_arrays(h: Hypergraph, src, dst, od, *,
+                           device: DeviceLike = None) -> SparseLineGraph:
+    """A ``SparseLineGraph`` over ``h`` from the host COO half-list the
+    reference keeps (``SparseLineGraph._coo``: ``src < dst`` pairs and
+    their overlap degrees), landed on ``device`` (``None`` = ``"cuda"``)."""
+    src, dst, od = _int64(src), _int64(dst), _int64(od)
+    if not src.shape == dst.shape == od.shape or src.ndim != 1:
+        raise ValueError(f"COO arrays disagree: src{src.shape} "
+                         f"dst{dst.shape} od{od.shape}")
+    return SparseLineGraph(h, _coo=(src, dst, od), device=device)
+
+
+def threshold_index_from_arrays(h: Hypergraph, comp,
+                                thresholds) -> ThresholdComponentIndex:
+    """A ``ThresholdComponentIndex`` over ``h`` from its component table
+    (``comp`` [S, m], int32) and descending ``thresholds`` [S]."""
+    comp = np.array(comp, dtype=np.int32)
+    thresholds = _int64(thresholds)
+    if comp.ndim != 2 or comp.shape != (thresholds.size, h.m):
+        raise ValueError(f"comp has shape {comp.shape}, the graph and "
+                         f"thresholds need ({thresholds.size}, {h.m})")
+    tci = ThresholdComponentIndex.__new__(ThresholdComponentIndex)
+    tci.h, tci.thresholds, tci.comp = h, thresholds, comp
+    return tci

@@ -1,3 +1,24 @@
 """Core library of the port: hypergraph, HL-index construction and
 minimisation (host, numpy), padded label snapshots and batched joins
-(device, torch), and the engine facade over them."""
+(device, torch), the index-free and baseline structures, and the engine
+facade over them.
+
+The index-free and baseline structures are exported here under the
+reference's names (``repro.core``): Algorithm 1 (``mr_online``,
+``NeighborCache``), the Section IV / VII baselines (``vtv_query``,
+``ETEIndex``, ``build_ete``, ``ThresholdComponentIndex``) and the sparse
+frontier sweeps (``SparseLineGraph``, ``frontier_batched_s_reach``,
+``frontier_batched_mr``).  Everything else is imported from its module.
+"""
+from .online import mr_online, precompute_neighbors, NeighborCache
+from .baselines import (vtv_query, ETEIndex, build_ete,
+                        ThresholdComponentIndex, MSTOracle, line_graph_edges)
+from .frontier import (SparseLineGraph, frontier_batched_s_reach,
+                       frontier_batched_mr)
+
+__all__ = [
+    "mr_online", "precompute_neighbors", "NeighborCache",
+    "vtv_query", "ETEIndex", "build_ete", "ThresholdComponentIndex",
+    "MSTOracle", "line_graph_edges",
+    "SparseLineGraph", "frontier_batched_s_reach", "frontier_batched_mr",
+]

@@ -24,26 +24,30 @@ Backends with no label form (the MST forest) raise ``SnapshotUnsupported``
 
 Counterpart of ``repro/core/engine.py``, same names in the same order.
 What this module holds today: the protocol, the shared base, the
-registry, the planner, ``build``, and the backends ``hl-index``,
-``hl-index-basic``, ``mst-oracle`` and ``closure`` (the dense (max, min)
-closure ``W*``, formed on the device by the ``overlap`` and
-``maxmin_matmul`` / ``threshold_step`` kernels).  Not ported yet, and how
-each fails:
+registry, the planner, ``build``, and every single-device backend of the
+reference: ``hl-index`` and ``hl-index-basic``; the index-free
+``online`` (Algorithm 1 on the host) and ``frontier`` (sparse line-graph
+sweeps on the device), which ``auto`` picks for graphs past the label
+budget; the static baselines ``ete`` (its snapshot joined like the
+HL-index's) and ``threshold``; ``mst-oracle``; and ``closure`` (the dense
+(max, min) closure ``W*``, formed on the device by the ``overlap`` and
+``maxmin_matmul`` / ``threshold_step`` kernels).  ``update()`` works on
+every backend that declares it (``hl-index`` / ``hl-index-basic``:
+scoped maintenance through ``core/maintenance.py``; ``online`` /
+``frontier``: the neighbor cache or line graph patched on the 1-hop
+touched set; ``closure``: a whole rebuild on the device), and ``ete``,
+``threshold`` and ``mst-oracle`` raise ``UpdateUnsupported`` as in the
+reference.  Not ported yet, and how each fails:
 
-* the backends without a snapshot (``online``, ``frontier``) and the
-  static baselines (``ete``, ``threshold``) are not ported yet (roadmap
-  item A6b); ``update()`` works on every backend here that declares it
-  (``hl-index`` / ``hl-index-basic``: scoped maintenance through
-  ``core/maintenance.py``; ``closure``: a whole rebuild on the device),
-  and ``mst-oracle`` raises ``UpdateUnsupported`` as in the reference.
 * the workload ops (witness / s_reach_k / mr_set / top_s / s_distance)
   raise ``WorkloadUnsupported`` on every backend (roadmap item A8).
 * ``build(restore=...)`` raises ``NotImplementedError`` (roadmap item A9).
 * sharded construction (``construction="sharded"``, or ``"auto"`` with a
   multi-device mesh / ``workers`` / ``num_shards``) raises
   ``NotImplementedError`` (roadmap item A10).
-* a backend name that is not ported yet is an "unknown backend"
-  ``ValueError`` listing those that are.
+* ``sharded`` (the multi-device backend) is not ported yet (roadmap item
+  A10): asking for it is an "unknown backend" ``ValueError`` listing the
+  backends there are.
 
 Device rule: ``build`` and the device-landing backends take
 ``device=None``, which means ``"cuda"`` and raises on a host without a CUDA
@@ -69,7 +73,11 @@ from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
 from .maintenance import apply_updates, normalize_update_batch
 from .minimal import minimize
 from .query import DeviceSnapshot, KernelSnapshot, mr_query, s_reach_query
-from .baselines import MSTOracle
+from .baselines import (ETEIndex, MSTOracle, ThresholdComponentIndex,
+                        build_ete)
+from .frontier import (SparseLineGraph, frontier_batched_mr,
+                       frontier_batched_s_reach)
+from .online import NeighborCache, mr_online
 from .semiring import (CLOSURE_METHODS, close_line_graph, device_line_graph,
                        vertex_mr_from_edge_mr)
 
@@ -79,8 +87,9 @@ __all__ = [
     "UpdateUnsupported", "WorkloadUnsupported",
     "register_backend", "available_backends", "update_capabilities",
     "plan_backend", "build", "validate_batch",
-    "HLIndexEngine", "HLIndexBasicEngine", "MSTOracleEngine",
-    "ClosureEngine", "SINGLE_DEVICE_CLOSURE_BUDGET", "CONSTRUCTION_MODES",
+    "HLIndexEngine", "HLIndexBasicEngine", "OnlineEngine", "FrontierEngine",
+    "ETEEngine", "ThresholdEngine", "MSTOracleEngine", "ClosureEngine",
+    "SINGLE_DEVICE_CLOSURE_BUDGET", "CONSTRUCTION_MODES",
 ]
 
 
@@ -443,9 +452,10 @@ def plan_backend(h: Hypergraph, batch_hint: Optional[int] = None, *,
     (optionally) the device topology.
 
     The policy is the reference's, unchanged, so both packages name the
-    same backend on the same inputs.  It may therefore name a backend
-    that ``build`` cannot build yet (``sharded``, ``frontier``,
-    ``online``): ``build(backend="auto")`` then fails with the "unknown
+    same backend on the same inputs, and ``build`` builds every backend
+    it names on one device.  Only ``sharded`` (a multi-device mesh with
+    two axes and a closure past the budget) is not ported yet (roadmap
+    item A10): ``build(backend="auto")`` then fails with the "unknown
     backend" error that lists the ported ones.
 
     Args:
@@ -732,8 +742,177 @@ class HLIndexBasicEngine(HLIndexEngine):
 
 
 # ---------------------------------------------------------------------------
-# Baseline backends
+# Index-free backends
 # ---------------------------------------------------------------------------
+
+@register_backend("online")
+class OnlineEngine(_EngineBase):
+    """Algorithm 1 bidirectional search (the paper's Base*); zero build
+    cost beyond the optional neighbor cache, which updates patch on the
+    1-hop touched set only.  A host structure (``core/online.py``): it
+    lands nothing on a device, so ``device`` is accepted for a uniform
+    ``build`` signature and not used."""
+
+    name = "online"
+    update_capability = "incremental"
+
+    def __init__(self, h: Hypergraph, cache: Optional[NeighborCache]):
+        super().__init__(h)
+        self.cache = cache
+
+    @classmethod
+    def build(cls, h: Hypergraph, *, precompute: bool = True,
+              device: DeviceLike = None) -> "OnlineEngine":
+        return cls(h, NeighborCache(h) if precompute else None)
+
+    def mr(self, u: int, v: int) -> int:
+        self._check_vertex_ids(u, v)
+        return mr_online(self.h, int(u), int(v), self.cache)
+
+    def _apply_update(self, inserts=(), deletes=()) -> None:
+        new_h, old_to_new, touched = apply_edge_edits(self.h, inserts,
+                                                      deletes)
+        if self.cache is not None:
+            self.cache = self.cache.updated(new_h, old_to_new, touched)
+        self._graph_changed(new_h)
+
+    def nbytes(self) -> Optional[int]:
+        return self.cache.nbytes() if self.cache is not None else 0
+
+
+@register_backend("frontier")
+class FrontierEngine(_EngineBase):
+    """Index-free sparse line-graph frontier sweeps — the batch path for
+    graphs beyond dense-closure scale.  The line graph lives on
+    ``device`` (``core/frontier.py``); ``rounds`` bounds propagation
+    (None = |E|, exact).  ``last_sweeps`` holds one record per sweep of
+    the latest batch (threshold, alive edges, rounds run)."""
+
+    name = "frontier"
+    update_capability = "incremental"
+
+    def __init__(self, h: Hypergraph, g: SparseLineGraph,
+                 rounds: Optional[int]):
+        super().__init__(h)
+        self.g = g
+        self.device = g.device
+        self.rounds = rounds
+        self.last_sweeps: List[Dict] = []
+
+    @classmethod
+    def build(cls, h: Hypergraph, *, rounds: Optional[int] = None,
+              device: DeviceLike = None) -> "FrontierEngine":
+        return cls(h, SparseLineGraph(h, device=device), rounds)
+
+    def _apply_update(self, inserts=(), deletes=()) -> None:
+        new_h, old_to_new, touched = apply_edge_edits(self.h, inserts,
+                                                      deletes)
+        self.g = self.g.updated(new_h, old_to_new, touched)
+        self._graph_changed(new_h)
+
+    def mr(self, u: int, v: int) -> int:
+        return int(self.mr_batch([int(u)], [int(v)])[0])
+
+    def s_reach(self, u: int, v: int, s: int) -> bool:
+        return bool(self.s_reach_batch([int(u)], [int(v)], int(s))[0])
+
+    def mr_batch(self, us, vs) -> np.ndarray:
+        us, vs = validate_batch(us, vs, self.h.n)
+        self.last_sweeps = []
+        return frontier_batched_mr(self.g, us, vs, rounds=self.rounds,
+                                   log=self.last_sweeps)
+
+    def s_reach_batch(self, us, vs, s: int) -> np.ndarray:
+        us, vs = validate_batch(us, vs, self.h.n)
+        self.last_sweeps = []
+        return frontier_batched_s_reach(self.g, us, vs, int(s),
+                                        rounds=self.rounds,
+                                        log=self.last_sweeps)
+
+
+# ---------------------------------------------------------------------------
+# Baseline backends (Section IV / VII structures)
+# ---------------------------------------------------------------------------
+
+@register_backend("ete")
+class ETEEngine(_EngineBase):
+    """Hyperedge-to-hyperedge 2-hop labeling; snapshot merges each
+    vertex's incident label lists into the shared padded form, landed on
+    ``device``.  Batches join that snapshot like the HL-index's: through
+    ``batched_mr``, or with ``use_kernels`` through the ``label_join``
+    kernel by vertex id (``label_join_gather``).  The structure is
+    static: updates are unsupported, so the snapshot always has the
+    engine's ``n`` rows, and ``validate_batch`` holds every id to it
+    before anything is landed or launched."""
+
+    name = "ete"
+
+    def __init__(self, h: Hypergraph, ete: ETEIndex, *,
+                 device: DeviceLike = None):
+        super().__init__(h)
+        self.device = resolve_device(device)
+        self.ete = ete
+        self._snap: Optional[DeviceSnapshot] = None
+
+    @classmethod
+    def build(cls, h: Hypergraph, *, use_kernels: bool = False,
+              device: DeviceLike = None) -> "ETEEngine":
+        eng = cls(h, build_ete(h), device=device)
+        eng.use_kernels = bool(use_kernels)
+        return eng
+
+    def mr(self, u: int, v: int) -> int:
+        self._check_vertex_ids(u, v)
+        return self.ete.mr(int(u), int(v))
+
+    def mr_batch(self, us, vs) -> np.ndarray:
+        us, vs = self._device_pairs(us, vs)
+        return self._query_snapshot().mr(us, vs).cpu().numpy()
+
+    def s_reach_batch(self, us, vs, s: int) -> np.ndarray:
+        us, vs = self._device_pairs(us, vs)
+        return self._query_snapshot().s_reach(us, vs, int(s)).cpu().numpy()
+
+    def snapshot(self) -> DeviceSnapshot:
+        if not self._snapshot_current():
+            merged = [self.ete._merged(self.h.edges_of(u))
+                      for u in range(self.h.n)]
+            ranks, svals, lengths = pad_label_rows([r for r, _ in merged],
+                                                   [s for _, s in merged])
+            self._snap = DeviceSnapshot.from_padded(ranks, svals, lengths,
+                                                    self.name,
+                                                    version=self.version,
+                                                    device=self.device)
+        return self._snap
+
+    def nbytes(self) -> int:
+        return self.ete.nbytes()
+
+
+@register_backend("threshold")
+class ThresholdEngine(_EngineBase):
+    """HypED-style per-threshold union-find components (exact; storage
+    O(S·m) — the blow-up the paper contrasts against).  A host structure,
+    like ``mst-oracle``: ``device`` is accepted and not used."""
+
+    name = "threshold"
+
+    def __init__(self, h: Hypergraph, tci: ThresholdComponentIndex):
+        super().__init__(h)
+        self.tci = tci
+
+    @classmethod
+    def build(cls, h: Hypergraph, *, cap: Optional[int] = None,
+              device: DeviceLike = None) -> "ThresholdEngine":
+        return cls(h, ThresholdComponentIndex(h, cap=cap))
+
+    def mr(self, u: int, v: int) -> int:
+        self._check_vertex_ids(u, v)
+        return self.tci.mr(int(u), int(v))
+
+    def nbytes(self) -> int:
+        return self.tci.nbytes()
+
 
 @register_backend("mst-oracle")
 class MSTOracleEngine(_EngineBase):

@@ -184,6 +184,10 @@ def test_plan_backend_names_the_same_backend(n, m, sizes, hint, mesh, budget):
 
 
 def test_auto_backend_builds_or_names_what_is_missing():
+    """``auto`` builds what the planner names, in both packages: hl-index
+    and closure under the label budget, and past it (C-1) online for
+    trickle queries and frontier for batches; the answers equal the
+    reference's ``online`` and ``mst-oracle``, in value and dtype."""
     h = port_api.random_hypergraph(300, 450, seed=1)
     eng = port_api.build_engine(h, "auto", device="cpu")
     assert eng.name == "hl-index" == port_api.plan_backend(h)
@@ -191,16 +195,44 @@ def test_auto_backend_builds_or_names_what_is_missing():
     assert port_api.plan_backend(small, 1000) == "closure"
     eng = port_api.build_engine(small, "auto", batch_hint=1000, device="cpu")
     assert eng.name == "closure"
-    huge = port_api.random_hypergraph(60, 3000, min_size=20, max_size=40,
-                                      seed=2)
-    assert port_api.plan_backend(huge, 1000) == "frontier"
-    with pytest.raises(ValueError, match="unknown backend 'frontier'.*"
-                                         "closure.*hl-index"):
-        port_api.build_engine(huge, "auto", batch_hint=1000, device="cpu")
-    assert port_api.available_backends() == ["closure", "hl-index",
-                                             "hl-index-basic", "mst-oracle"]
-    assert set(port_api.available_backends()) <= \
-        set(ref_api.available_backends())
+    # planning only: the graph of the test before, and C-1's graph
+    for args, kw in (((60, 3000), dict(min_size=20, max_size=40, seed=2)),
+                     ((1500, 40000), dict(seed=1))):
+        ref_h = ref_api.random_hypergraph(*args, **kw)
+        port_h = port_hypergraph(ref_h)
+        for hint, want in ((None, "online"), (1024, "frontier")):
+            assert port_api.plan_backend(port_h, hint) == want == \
+                ref_api.plan_backend(ref_h, hint)
+    assert ref_h.nnz == port_h.nnz == 159_929
+    # past the budget and built in seconds: both packages build the same
+    ref_h = ref_api.random_hypergraph(100, 4000, seed=3)
+    port_h = port_hypergraph(ref_h)
+    assert port_h.nnz * port_h.vertex_degrees.mean() > 2e6
+    ref_online = ref_api.build_engine(ref_h)
+    online = port_api.build_engine(port_h, device="cpu")
+    assert online.name == ref_online.name == "online"
+    frontier = port_api.build_engine(port_h, batch_hint=1024, device="cpu")
+    assert frontier.name == ref_api.build_engine(
+        ref_h, batch_hint=1024).name == "frontier"
+    rng = np.random.default_rng(7)
+    us, vs = rng.integers(0, port_h.n, 3), rng.integers(0, port_h.n, 3)
+    want = ref_online.mr_batch(us, vs)
+    oracle = ref_api.build_engine(ref_h, "mst-oracle")
+    assert want.dtype == oracle.mr_batch([], []).dtype == np.int64
+    # the reference oracle's forest, walked once per hyperedge of u by the
+    # port's ``MSTOracle.rows`` (``mr`` takes a minute a query here)
+    forest = port_api.build_engine(port_h, "mst-oracle", device="cpu").oracle
+    assert forest.adj == oracle.oracle.adj
+    np.testing.assert_array_equal(want, [
+        forest.rows(port_h.edges_of(int(u)))[:, port_h.edges_of(int(v))]
+        .max(initial=0) for u, v in zip(us, vs)])
+    _same(online.mr_batch(us, vs), want)
+    _same(frontier.mr_batch(us, vs), want)
+    assert port_api.available_backends() == [
+        "closure", "ete", "frontier", "hl-index", "hl-index-basic",
+        "mst-oracle", "online", "threshold"]
+    assert set(port_api.available_backends()) == \
+        set(ref_api.available_backends()) - {"sharded"}
 
 
 def test_not_ported_yet_raises_by_name():

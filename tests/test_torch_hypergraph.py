@@ -65,7 +65,9 @@ def test_compact_identical():
     assert port_hg.compact(h)[0] is h
 
 
-@pytest.mark.parametrize("name,args,kw", GENERATORS)
+@pytest.mark.parametrize("name,args,kw", GENERATORS + [
+    # dense: every vertex in about 100 hyperedges, as on email-Eu
+    ("random_hypergraph", (40, 600), dict(min_size=2, max_size=12, seed=3))])
 def test_neighbor_csr_identical(name, args, kw):
     ref_h, port_h = _pair(name, args, kw)
     ref_c, port_c = ref_hg.neighbor_csr(ref_h), port_hg.neighbor_csr(port_h)
@@ -128,3 +130,8 @@ def test_mst_oracle_equal_on_all_pairs():
     want = np.array([[ref_o.mr(u, v) for v in range(40)] for u in range(40)])
     np.testing.assert_array_equal(got, want)
     assert np.unique(got).size > 2                 # not a trivial graph
+    rows = port_o.rows(range(port_h.m))            # one walk per row
+    assert rows.dtype == np.int64 and rows.shape == (port_h.m, port_h.m)
+    np.testing.assert_array_equal(rows, [
+        [ref_o.edge_mr(a, b) for b in range(ref_h.m)] for a in range(ref_h.m)])
+    assert port_o.rows([]).shape == (0, port_h.m)

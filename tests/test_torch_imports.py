@@ -38,9 +38,10 @@ def test_module_list_is_what_the_slice_ships():
     assert _port_modules() == [
         "repro_torch", "repro_torch.api", "repro_torch.convert",
         "repro_torch.core", "repro_torch.core.baselines",
-        "repro_torch.core.engine", "repro_torch.core.hlindex",
+        "repro_torch.core.engine", "repro_torch.core.frontier",
+        "repro_torch.core.hlindex",
         "repro_torch.core.hypergraph", "repro_torch.core.maintenance",
-        "repro_torch.core.minimal",
+        "repro_torch.core.minimal", "repro_torch.core.online",
         "repro_torch.core.query", "repro_torch.core.semiring",
         "repro_torch.device", "repro_torch.kernels",
         "repro_torch.kernels.build", "repro_torch.kernels.label_join",
@@ -76,6 +77,25 @@ def import_report():
 @pytest.mark.parametrize("module", _port_modules())
 def test_import_drags_in_neither_jax_nor_the_reference(import_report, module):
     assert import_report[module] == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.online",
+                                    "repro_torch.core.frontier",
+                                    "repro_torch.core.baselines"])
+def test_backend_module_alone_loads_neither_jax_nor_the_reference(module):
+    """The index-free and baseline modules, each imported first and alone
+    in a fresh interpreter (the reference keeps numpy-only copies of them
+    in a package whose ``__init__`` imports JAX)."""
+    out = _run(
+        "import importlib, json, sys\n"
+        f"mod = importlib.import_module({module!r})\n"
+        "print(json.dumps([sorted(mod.__all__), sorted(\n"
+        "    m for m in sys.modules if m.split('.')[0] in\n"
+        "    ('jax', 'jaxlib', 'repro'))]))\n")
+    assert out.returncode == 0, out.stderr
+    names, loaded = json.loads(out.stdout)
+    assert loaded == []
+    assert names
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():

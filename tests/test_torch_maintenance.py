@@ -216,9 +216,12 @@ def test_engine_update_sequence_matches_reference(backend, opts):
 def test_update_capabilities_as_in_the_reference():
     port_caps = port_api.update_capabilities()
     ref_caps = ref_api.update_capabilities()
-    assert port_caps == {"closure": "rebuild", "hl-index": "scoped",
+    assert port_caps == {"closure": "rebuild", "ete": "unsupported",
+                         "frontier": "incremental", "hl-index": "scoped",
                          "hl-index-basic": "scoped",
-                         "mst-oracle": "unsupported"}
+                         "mst-oracle": "unsupported",
+                         "online": "incremental",
+                         "threshold": "unsupported"}
     for name, cap in port_caps.items():
         assert ref_caps[name] == cap
 
