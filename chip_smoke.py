@@ -23,7 +23,14 @@ drives the port's two paths at full size through `repro_torch.api`:
   `online` and `frontier` (sparse line-graph sweeps on the card, tensor
   ops), `ete` joins its snapshot through `label_join_gather`, `threshold`
   and the MST oracle answer beside them, one update on `online` and
-  `frontier`; then `frontier` on the main path's graph beside `hl-index`.
+  `frontier`; then `frontier` on the main path's graph beside `hl-index`;
+* the five workload families (`repro_torch.workloads`): on the main
+  path's engine after the service's updates, `top_s` / `mr_set` /
+  `mr_from_set` through one `label_join_gather` launch each, witnesses,
+  `s_reach_k` (held to `frontier`'s bounded sweep on the card) and
+  `s_distance` on the host, then all seven request kinds mixed through
+  `api.serve`; on email-Eu `frontier.s_reach_k` against Base* and
+  `ete`'s label ops; on the closure engine witnesses and `top_s`.
 
 and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -32,9 +39,11 @@ non-zero at once.
 Output: one `ptxas <kernel>: ...` line per library (registers, shared
 memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
-`main_path`, `service_path`, `wide_labels`, `closure_path`, `closure_path_kernels`,
-`closure_small`, `backends_path`, then `{"kernels": [...]}` (per kernel: launches on its
-path, error against the plain version, times and the roofline bound;
+`main_path`, `service_path`, `workloads_path`, `wide_labels`,
+`closure_path`, `closure_path_kernels`, `closure_small`, `backends_path`
+(`closure_path` and `backends_path` each with a `workloads` part), then
+`{"kernels": [...]}` (per kernel: launches on its path, error against the
+plain version, times and the roofline bound;
 `label_join_gather` is the gather entry point of `label_join`), the
 card's name and power limit as `nvidia-smi` prints them, and last
 `{"ok": true, "device": {...}}`.  Each phase line carries its own
@@ -150,6 +159,27 @@ ETE_PAIRS = 2**16
 # Base* (online) costs seconds per query at email-Eu's degree; the pairs
 # are chosen so that frontier's answers on them span its distinct values
 ONLINE_PAIRS = 4
+# the workload families on the main path's engine (workloads_path): top_s
+# of 64 seeded sources (k = 10); 16 mr_set of |U| = |V| = 256 (65,536
+# pairs); 16 mr_from_set of |U| = 64 to 4,096 targets; 8 witnesses on
+# pairs of distinct MR; s_reach_k on 256 pairs at s = their MR, k = 1..4;
+# s_distance on 64 pairs at s = 2
+TOP_S_SOURCES, TOP_S_K = 64, 10
+MR_SET_CALLS, MR_SET_SIZE = 16, 256
+FROM_SET_CALLS, FROM_SET_SOURCES, FROM_SET_TARGETS = 16, 64, 4096
+WITNESS_PAIRS = 8
+S_REACH_K_PAIRS, S_REACH_K_MAX = 256, 4
+S_DISTANCE_PAIRS, S_DISTANCE_S = 64, 2
+# the service's mixed traffic (kinds -> requests; mr_set sets of 64)
+WORKLOAD_TRAFFIC = {"mr": 4096, "s_reach": 4096, "top_s": 64, "mr_set": 64,
+                    "s_reach_k": 64, "witness": 8, "s_distance": 64}
+SERVICE_MR_SET_SIZE = 64
+# email-Eu (backends_path engines): frontier's bounded sweep against Base*
+# on 64 pairs; ete's label ops on a few sources, sets and pairs
+EMAIL_EU_S_REACH_K = dict(pairs=64, s=(1, 2), k=(1, 2, 3))
+EMAIL_EU_TOP_S, EMAIL_EU_SETS, EMAIL_EU_SET_SIZE = 4, 4, 16
+# the closure engine of closure_path (primary-school)
+CLOSURE_WITNESSES, CLOSURE_TOP_S = 4, 8
 
 
 def emit(obj) -> None:
@@ -645,6 +675,17 @@ def check_answers(tag, answers, plain_answers, s):
             raise AssertionError(f"{tag}: answers out of range")
 
 
+def peak_rise(fn):
+    """How far one call of ``fn`` raises the device's peak allocation
+    over what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
 def phase_main_path(api, engine_mod, lj, join_ops, device):
     """The full-size main path: 89,000 vertices, 70,000 hyperedges."""
     clock = Phase()
@@ -686,9 +727,10 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
     scalar = np.array([eng.mr(int(u), int(v)) for u, v in zip(us, vs)])
     if not np.array_equal(scalar, mr1000):
         raise AssertionError("main_path: batch differs from host merge-join")
+    # the MST oracle's forest, swept once per hyperedge of u (forest_mr)
     t0 = time.perf_counter()
-    oracle = api.build_engine(h, "mst-oracle")
-    want = [oracle.mr(int(u), int(v)) for u, v in zip(us[:32], vs[:32])]
+    oracle = api.build_engine(h, "mst-oracle").oracle
+    want = forest_mr(oracle, us[:32], vs[:32]).tolist()
     oracle_s = time.perf_counter() - t0
     if want != mr1000[:32].tolist():
         raise AssertionError("main_path: batch differs from the MST oracle")
@@ -730,14 +772,6 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
 
     # the device memory one 2^20 batch adds: through the engine (ids and
     # answers), and the same batch gathered first (the two-step route)
-    def peak_rise(fn):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() - base
-
     def two_step_batch():
         pairs = torch.from_numpy(np.stack(engine_mod.validate_batch(
             hus, hvs, h.n))).to(device)
@@ -831,13 +865,13 @@ def phase_wide_labels(api, engine_mod, lj, device):
     scalar = np.array([eng.mr(int(u), int(v)) for u, v in zip(us, vs)])
     if not np.array_equal(scalar, mr200):
         raise AssertionError("wide_labels: batch differs from host merge-join")
-    # the oracle walks the spanning forest once per hyperedge pair, seconds
-    # per query at this density, so it checks the first pairs only
+    # the MST oracle's forest, swept once per hyperedge of u (forest_mr:
+    # its mr() walks it once per hyperedge pair, seconds a query at this
+    # density), on the first pairs
     n_oracle = 16
     t0 = time.perf_counter()
-    oracle = api.build_engine(h, "mst-oracle")
-    want = [oracle.mr(int(u), int(v))
-            for u, v in zip(us[:n_oracle], vs[:n_oracle])]
+    oracle = api.build_engine(h, "mst-oracle").oracle
+    want = forest_mr(oracle, us[:n_oracle], vs[:n_oracle]).tolist()
     oracle_s = time.perf_counter() - t0
     if want != mr200[:n_oracle].tolist():
         raise AssertionError("wide_labels: batch differs from the MST oracle")
@@ -1792,7 +1826,7 @@ def counted_closure_build(api, h, method, counters, rounds, device):
     return eng, counts, padded, seconds
 
 
-def phase_closure_path(api, semiring, ops, counters, device):
+def phase_closure_path(api, semiring, ops, counters, wl, device):
     """The dense closure at the published size of primary-school: both
     methods built through the facade on the card (counted), W* held across
     the two, the overlap W against the host line graph, batches against
@@ -1886,6 +1920,8 @@ def phase_closure_path(api, semiring, ops, counters, device):
                                  f"MSTOracle.edge_mr")
     oracle_s = time.perf_counter() - t0
     del oracle
+    workloads = closure_workloads(wl, semiring, engines["maxmin"],
+                                  answers["maxmin"][0][0], us, vs)
 
     emit({"phase": "closure_path", "n": h.n, "m": h.m, "nnz": h.nnz,
           "generate_seconds": round(gen_s, 3), "rounds": rounds,
@@ -1900,6 +1936,7 @@ def phase_closure_path(api, semiring, ops, counters, device):
               h.degree(int(u)) for u in us[:checked])),
           "oracle_build_seconds": round(oracle_build_s, 3),
           "oracle_seconds": round(oracle_s, 3),
+          "workloads": workloads,
           "seconds": clock.seconds()})
     del engines, answers
     torch.cuda.empty_cache()
@@ -2138,8 +2175,8 @@ def forest_mr(oracle, us, vs):
         np.int64)
 
 
-def phase_backends_path(api, engine_mod, lj, counters, main_h, main_pairs,
-                        main_mr, device):
+def phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
+                        main_pairs, main_mr, device):
     """The index-free and baseline backends on email-Eu (past the label
     budget): `auto` builds `online` and `frontier`, `ete` joins through
     `label_join_gather`, `threshold` and `online` answer a few pairs, one
@@ -2237,6 +2274,11 @@ def phase_backends_path(api, engine_mod, lj, counters, main_h, main_pairs,
                              f"{threshold_mr}, oracle {oracle_mr}, frontier "
                              f"{mr[few].tolist()}")
     lap("online_threshold_oracle")
+
+    # the workload ops of these engines (workloads_path, email-Eu part)
+    workloads, workload_gather = email_eu_workloads(
+        wl, lj, counters, h, frontier, online, ete, us, vs, mr, few)
+    lap("workloads")
 
     # the ete kernel at this path's shape, against its plain version
     bu = torch.from_numpy(eus).to(device)
@@ -2343,8 +2385,532 @@ def phase_backends_path(api, engine_mod, lj, counters, main_h, main_pairs,
                          "line_graph_directed_edges": main_edges,
                          "frontier_mr_batch": main_row},
           "answer_histogram": np.bincount(mr).tolist(),
+          "workloads": workloads,
           "seconds": clock.seconds()})
-    return gather, ete_kernel
+    return gather, ete_kernel, workload_gather
+
+
+def ms_stats(times):
+    """Calls, median and max of a list of host-clock milliseconds."""
+    return {"calls": len(times), "median_ms": statistics.median(times),
+            "max_ms": max(times)}
+
+
+def timed_calls(fn, args):
+    """``fn(*a)`` for each ``a`` in ``args`` on the host clock (device work
+    synchronised): the results and each call's milliseconds."""
+    out, times = [], []
+    for a in args:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(fn(*a))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def needs_walk(h, u, v, k):
+    """No hyperedge of size ``k`` or more holds both ``u`` and ``v``: a
+    witness of strength ``k`` for them is a walk of two or more."""
+    shared = np.intersect1d(h.edges_of(int(u)), h.edges_of(int(v)))
+    return bool(k) and not (h.edge_sizes[shared] >= k).any()
+
+
+def bounded_sweeps(frontier, args):
+    """``frontier.s_reach_k(*a)`` for each ``a`` (one bounded sweep on the
+    card each): the answers, each call's host ms and each sweep's record."""
+    sweeps = []
+
+    def sweep(u, v, s, k):
+        out = frontier.s_reach_k(u, v, s, k)
+        sweeps.append(frontier.last_sweeps[0])
+        return out
+
+    out, ms = timed_calls(sweep, args)
+    return out, ms, sweeps
+
+
+def check_same(tag, got, want):
+    """Equal in value and type (arrays also in dtype and shape)."""
+    if isinstance(want, np.ndarray):
+        ok = (isinstance(got, np.ndarray) and got.dtype == want.dtype
+              and np.array_equal(got, want))
+    else:
+        ok = got == want and type(got) is type(want)
+    if not ok:
+        raise AssertionError(f"{tag}: {got!r} != {want!r}")
+
+
+def workload_requests(serve_mod, rng, n, pools):
+    """The service's seeded mixed traffic (``WORKLOAD_TRAFFIC``), shuffled
+    over the three tenants, and the answer each must resolve to: the
+    engine's direct answers (``pools``) for the workload kinds, the plain
+    join's for MR / s-reach and ``mr_set``."""
+    specs = []
+    pool_u, pool_v, pool_mr = pools["pairs"]
+    for i in range(WORKLOAD_TRAFFIC["mr"]):
+        specs.append((serve_mod.MRRequest, (int(pool_u[i]), int(pool_v[i])),
+                      int(pool_mr[i])))
+    s_vals = rng.integers(1, 9, WORKLOAD_TRAFFIC["s_reach"])
+    for i, s in enumerate(s_vals):
+        j = -1 - i
+        specs.append((serve_mod.SReachRequest,
+                      (int(pool_u[j]), int(pool_v[j]), int(s)),
+                      bool(pool_mr[j] >= s)))
+    for (u, k), want in pools["top_s"][:WORKLOAD_TRAFFIC["top_s"]]:
+        specs.append((serve_mod.TopSRequest, (u, k), tuple(
+            zip(want[0].tolist(), want[1].tolist()))))
+    for us, vs, want in pools["mr_set"][:WORKLOAD_TRAFFIC["mr_set"]]:
+        specs.append((serve_mod.MRSetRequest, (tuple(us.tolist()),
+                                               tuple(vs.tolist())), want))
+    for args, want in pools["s_reach_k"][:WORKLOAD_TRAFFIC["s_reach_k"]]:
+        specs.append((serve_mod.SReachKRequest, args, want))
+    for args, want in pools["witness"][:WORKLOAD_TRAFFIC["witness"]]:
+        specs.append((serve_mod.WitnessRequest, args, want))
+    for args, want in pools["s_distance"][:WORKLOAD_TRAFFIC["s_distance"]]:
+        specs.append((serve_mod.SDistanceRequest, args, want))
+    order = rng.permutation(len(specs))
+    tenants = [t for t, _ in SERVICE_TENANTS]
+    tenant = rng.integers(0, len(tenants), len(specs))
+    reqs, want = [], []
+    for i, t in zip(order, tenant):
+        cls, args, w = specs[i]
+        reqs.append(cls(*args, tenant=tenants[t]))
+        want.append(w)
+    return reqs, want
+
+
+def workload_service_run(api, serve_mod, eng, reqs, counters):
+    """One ``drain()`` run of ``reqs`` through ``api.serve(eng)`` (kernels
+    on, one admission pass), every count set to 0 just before and read
+    just after: the futures' results, the stats, the launches and the
+    host seconds of the run."""
+    lj = counters["label_join"]
+    tenants = tuple(serve_mod.TenantSpec(t, w) for t, w in SERVICE_TENANTS)
+    cfg = serve_mod.ServiceConfig(max_batch=65_536, tenants=tenants,
+                                  use_kernels=True)
+    reset_counts(counters)
+    lj.GATHER_LAUNCHES = 0
+    svc = api.serve(eng, config=cfg, start=False)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = svc.submit_many(reqs)
+        svc.drain()
+        got = [f.result(timeout=300) for f in futs]
+        run_s = time.perf_counter() - t0
+    finally:
+        svc.close()
+    counts = read_counts(counters)
+    counts["label_join_gather"] = lj.GATHER_LAUNCHES
+    return got, svc.stats(), counts, run_s
+
+
+def distance_pairs(rng, h, oracle, pool_u, pool_v, pool_mr):
+    """``S_DISTANCE_PAIRS`` queries at ``S_DISTANCE_S``: a quarter across
+    an overlap of ``s`` or more next to a landmark (one member of the
+    landmark, one of its neighbor; two hyperedges apart unless they share
+    another), a quarter inside one hyperedge of the pool (one apart), the
+    rest random pool pairs (on this graph nearly all 0)."""
+    s, out = S_DISTANCE_S, []
+    for lm in oracle.landmarks:
+        nbrs, ods = h.neighbors_od(lm)
+        e = int(nbrs[np.flatnonzero(ods >= s)[0]])
+        only_u = np.setdiff1d(h.edge(lm), h.edge(e))
+        only_v = np.setdiff1d(h.edge(e), h.edge(lm))
+        if only_u.size and only_v.size:
+            out.append((int(rng.choice(only_u)), int(rng.choice(only_v)), s))
+        if len(out) == S_DISTANCE_PAIRS // 4:
+            break
+    inside = np.flatnonzero(pool_mr >= s)[:S_DISTANCE_PAIRS // 4]
+    rand = np.flatnonzero(pool_mr < s)[:S_DISTANCE_PAIRS - len(out)
+                                       - inside.size]
+    out += [(int(pool_u[i]), int(pool_v[i]), s)
+            for i in np.concatenate([inside, rand])]
+    return out
+
+
+def phase_workloads_path(api, wl, serve_mod, counters, eng, device):
+    """The five workload families on the main path's engine (hl-index,
+    kernels on, as ``service_path`` left it: updated), each op against a
+    plain answer; then the same ops mixed into request traffic through
+    ``api.serve``.  ``top_s`` / ``mr_set`` / ``mr_from_set`` are one
+    ``label_join_gather`` launch each; witnesses, the gated ``s_reach_k``
+    and ``s_distance`` are host BFS; ``s_reach_k`` is held to ``frontier``
+    built on the same graph (its bounded sweep on the card)."""
+    clock = Phase()
+    lj = counters["label_join"]
+    h, n = eng.h, eng.h.n
+    if not eng.use_kernels or eng.name != "hl-index":
+        raise AssertionError("workloads_path needs the kernel hl-index engine")
+    snap = eng.snapshot()
+    seconds = {}
+    t_step = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_step
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[name] = round(now - t_step, 3)
+        t_step = now
+
+    def plain(us, vs):
+        """The same snapshot joined by ``batched_mr`` (kernels off)."""
+        return snap.mr(np.asarray(us, np.int64),
+                       np.asarray(vs, np.int64)).cpu().numpy()
+
+    rng = np.random.default_rng(37)
+    pool_u, pool_v = rng.integers(0, n, 8192), rng.integers(0, n, 8192)
+    # every other pair: two members of one hyperedge (MR at least its
+    # size), the pairs a user asks about inside a group; random pairs on
+    # this graph almost all answer 0 or 1
+    for j, e in enumerate(rng.choice(np.flatnonzero(h.edge_sizes >= 2),
+                                     pool_u.size // 2)):
+        pool_u[2 * j], pool_v[2 * j] = rng.choice(h.edge(int(e)), 2,
+                                                  replace=False)
+    pool_mr = plain(pool_u, pool_v)
+    reach = np.flatnonzero(pool_mr >= 1)
+    top_args = [(int(u), TOP_S_K) for u in rng.integers(0, n, TOP_S_SOURCES)]
+    set_args = [(rng.choice(n, MR_SET_SIZE, replace=False),
+                 rng.choice(n, MR_SET_SIZE, replace=False))
+                for _ in range(MR_SET_CALLS)]
+    from_args = [(rng.choice(n, FROM_SET_SOURCES, replace=False),
+                  rng.integers(0, n, FROM_SET_TARGETS))
+                 for _ in range(FROM_SET_CALLS)]
+    wit = reach[spread_pairs(pool_mr[reach], WITNESS_PAIRS // 2)]
+    wit_args = [(int(pool_u[i]), int(pool_v[i])) for i in wit]
+    srk = reach[:S_REACH_K_PAIRS]
+    srk_args = [(int(pool_u[i]), int(pool_v[i]), int(pool_mr[i]), k)
+                for i in srk for k in range(1, S_REACH_K_MAX + 1)]
+    lap("arguments")
+
+    # the counted run: every count to 0, drive each op, read
+    reset_counts(counters)
+    lj.GATHER_LAUNCHES = 0
+    top, top_ms = timed_calls(eng.top_s, top_args)
+    sets, set_ms = timed_calls(eng.mr_set, set_args)
+    froms, from_ms = timed_calls(eng.mr_from_set, from_args)
+    gather_label_ops = lj.GATHER_LAUNCHES
+    t0 = time.perf_counter()
+    oracle = eng.distance_oracle(S_DISTANCE_S)
+    oracle_s = time.perf_counter() - t0
+    sd_args = distance_pairs(rng, h, oracle, pool_u, pool_v, pool_mr)
+    dists, sd_ms = timed_calls(eng.s_distance, sd_args)
+    # half the witnesses on pairs across an overlap of 2 or more that no
+    # hyperedge of size MR holds: their walks need the BFS at k >= 2
+    across = [(u, v) for u, v, _ in sd_args[:S_DISTANCE_PAIRS // 4]]
+    across_mr = plain([a[0] for a in across], [a[1] for a in across])
+    wit_args += [a for a, k in zip(across, across_mr)
+                 if needs_walk(h, *a, k)][:WITNESS_PAIRS - len(wit_args)]
+    wit_args += [(int(pool_u[i]), int(pool_v[i])) for i in reach[
+        :WITNESS_PAIRS]][:WITNESS_PAIRS - len(wit_args)]
+    wits, wit_ms = timed_calls(eng.mr_witness, wit_args)
+    srks, srk_ms = timed_calls(eng.s_reach_k, srk_args)
+    counts = read_counts(counters)
+    gather = lj.GATHER_LAUNCHES
+    lap("counted_run")
+    want_counts = {name: 0 for name in counters}
+    want_counts["label_join"] = TOP_S_SOURCES + MR_SET_CALLS + FROM_SET_CALLS
+    if counts != want_counts or gather != gather_label_ops or \
+            gather != want_counts["label_join"]:
+        raise AssertionError(f"workloads_path: launches {counts}, gather "
+                             f"{gather} ({gather_label_ops} by the label "
+                             f"ops); expected one per top_s / mr_set / "
+                             f"mr_from_set")
+    if eng.distance_oracle(S_DISTANCE_S) is not oracle:
+        raise AssertionError("workloads_path: the distance oracle was not "
+                             "cached")
+
+    # each op against its plain answer (tolerance 0, types included)
+    for (u, k), got in zip(top_args, top):
+        want = wl.select_top_s(plain(np.full(n, u), np.arange(n)), u, k)
+        for g, w in zip(got, want):
+            check_same(f"top_s({u}, {k})", g, w)
+    for (us, vs), got in zip(set_args, sets):
+        qu, qv = wl.cross_pairs(np.unique(us), np.unique(vs))
+        check_same("mr_set", got, int(plain(qu, qv).max()))
+    for (us, tg), got in zip(from_args, froms):
+        src = np.unique(us)
+        qu, qv = wl.cross_pairs(src, tg)
+        check_same("mr_from_set", got, plain(qu, qv).astype(np.int64)
+                   .reshape(src.size, tg.size).max(axis=0))
+    for (u, v), w in zip(wit_args, wits):
+        if not isinstance(w, wl.Witness) or (w.u, w.v) != (u, v) or \
+                w.s != eng.mr(u, v) or not wl.verify_witness(h, w):
+            raise AssertionError(f"workloads_path: witness {w}")
+    lap("label_op_checks")
+    t0 = time.perf_counter()
+    frontier = api.build_engine(h, "frontier")
+    frontier_build_s = time.perf_counter() - t0
+    reset_counts(counters)
+    fronts, front_ms, sweeps = bounded_sweeps(frontier, srk_args)
+    if any(read_counts(counters).values()):
+        raise AssertionError("workloads_path: frontier launched a kernel")
+    for args, got, want in zip(srk_args, srks, fronts):
+        check_same(f"s_reach_k{args}", got, want)
+    lap("s_reach_k_frontier")
+    sd_mr = plain([a[0] for a in sd_args], [a[1] for a in sd_args])
+    exact = [wl.bounded_s_distance(h, *a) for a in sd_args]
+    for a, got, m_, x in zip(sd_args, dists, sd_mr, exact):
+        if type(got) is not int or (got == 0) != (m_ < a[2]) or \
+                got < x or (x == 0) != (got == 0):
+            raise AssertionError(f"workloads_path: s_distance{a} = {got}, "
+                                 f"MR {m_}, exact {x}")
+    lap("s_distance_checks")
+
+    # top_s split (one source): the mr_batch row, the host selection, and
+    # the kernel alone at n ids, queued
+    u0 = top_args[0][0]
+    row_ms, rows = [], []
+    sel_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row = eng.mr_batch(np.full(n, u0, np.int64), np.arange(n))
+        t1 = time.perf_counter()
+        wl.select_top_s(row, u0, TOP_S_K)
+        t2 = time.perf_counter()
+        row_ms.append((t1 - t0) * 1e3)
+        sel_ms.append((t2 - t1) * 1e3)
+    bu = torch.full((n,), u0, dtype=torch.int64, device=device)
+    bv = torch.arange(n, dtype=torch.int64, device=device)
+    top_kernel_ms = cuda_ms_queued(
+        lambda: lj.label_join_gather(snap.ranks, snap.svals, bu, bv), 50)
+    top_bound = label_join_gather_bound(snap.svals, bu, bv)[:2]
+    qu, qv = wl.cross_pairs(np.unique(set_args[0][0]),
+                            np.unique(set_args[0][1]))
+    su = torch.from_numpy(qu).to(device)
+    sv = torch.from_numpy(qv).to(device)
+    set_kernel_ms = cuda_ms_queued(
+        lambda: lj.label_join_gather(snap.ranks, snap.svals, su, sv), 50)
+    set_bound = label_join_gather_bound(snap.svals, su, sv)[:2]
+    peaks = {"mr_set_65536_pairs": peak_rise(
+        lambda: eng.mr_set(*set_args[0])),
+        "top_s": peak_rise(lambda: eng.top_s(u0, TOP_S_K))}
+    del bu, bv, su, sv
+    lap("split_and_memory")
+
+    # an id of n reaches no launch, and the card still launches after
+    before = lj.GATHER_LAUNCHES
+    for call in (lambda: eng.mr_set([0], [n]),
+                 lambda: eng.mr_from_set([0], [n]),
+                 lambda: eng.top_s(n, TOP_S_K)):
+        try:
+            call()
+        except IndexError:
+            pass
+        else:
+            raise AssertionError("workloads_path: an id of n was accepted")
+    if lj.GATHER_LAUNCHES != before:
+        raise AssertionError("workloads_path: an id of n reached a launch")
+    again = eng.top_s(*top_args[0])
+    torch.cuda.synchronize()
+    if lj.GATHER_LAUNCHES != before + 1 or any(
+            not np.array_equal(a, b) for a, b in zip(again, top[0])):
+        raise AssertionError("workloads_path: no launch after the refusal")
+    lap("out_of_range_ids")
+
+    # the ops mixed into request traffic through the service
+    pools = {"pairs": (pool_u, pool_v, pool_mr),
+             "top_s": list(zip(top_args, top)),
+             "s_reach_k": list(zip(srk_args, srks)),
+             "witness": list(zip(wit_args, wits)),
+             "s_distance": list(zip(sd_args, dists))}
+    svc_sets = []
+    for _ in range(WORKLOAD_TRAFFIC["mr_set"]):
+        us = rng.choice(n, SERVICE_MR_SET_SIZE, replace=False)
+        vs = rng.choice(n, SERVICE_MR_SET_SIZE, replace=False)
+        svc_sets.append((us, vs, int(plain(*wl.cross_pairs(
+            np.unique(us), np.unique(vs))).max())))
+    pools["mr_set"] = svc_sets
+    reqs, want = workload_requests(serve_mod, rng, n, pools)
+    lap("service_requests")
+    got, st, svc_counts, run_s = workload_service_run(
+        api, serve_mod, eng, reqs, counters)
+    for r, g, w in zip(reqs, got, want):
+        check_same(f"service {r.kind}", g, w)
+    kinds = {k: v for k, v in WORKLOAD_TRAFFIC.items()
+             if k not in ("mr", "s_reach")}
+    if st.workload_answered != kinds or st.answered != len(reqs):
+        raise AssertionError(f"workloads_path: service stats {st.as_dict()}")
+    padded_groups = sum(st.bucket_histogram.values())
+    svc_want = {name: 0 for name in counters}
+    svc_want["label_join"] = padded_groups + kinds["top_s"] + kinds["mr_set"]
+    svc_want["label_join_gather"] = svc_want["label_join"]
+    if svc_counts != svc_want or st.kernel_batches != padded_groups or \
+            st.batches != padded_groups + len(kinds):
+        raise AssertionError(f"workloads_path: service launches "
+                             f"{svc_counts}, stats {st.as_dict()}")
+    plain_reqs = [r for r in reqs if r.kind in ("mr", "s_reach")]
+    _, alone, alone_counts, alone_s = workload_service_run(
+        api, serve_mod, eng, plain_reqs, counters)
+    if alone.bucket_histogram != st.bucket_histogram or \
+            alone.padded_queries != st.padded_queries:
+        raise AssertionError(f"workloads_path: buckets {st.bucket_histogram}"
+                             f" with the workload kinds, "
+                             f"{alone.bucket_histogram} without")
+    lap("service")
+
+    rounds = [rec["rounds"][0] for rec in sweeps]
+    emit({"phase": "workloads_path", "n": n, "m": h.m,
+          "engine_version": eng.version, "lmax": snap.lmax,
+          "ops": {
+              "top_s": {**ms_stats(top_ms), "k": TOP_S_K,
+                        "launches": TOP_S_SOURCES,
+                        "split_one_source": {
+                            "mr_batch_median_ms": statistics.median(row_ms),
+                            "selection_median_ms": statistics.median(sel_ms),
+                            "kernel_queued_ms": top_kernel_ms,
+                            "kernel_bound_ms": top_bound[0],
+                            "kernel_bound_by": top_bound[1]},
+                        "answers_per_call": [len(t[0]) for t in top]},
+              "mr_set": {**ms_stats(set_ms), "pairs_per_call":
+                         MR_SET_SIZE ** 2, "launches": MR_SET_CALLS,
+                         "kernel_queued_ms": set_kernel_ms,
+                         "kernel_bound_ms": set_bound[0],
+                         "kernel_bound_by": set_bound[1],
+                         "answers": sets},
+              "mr_from_set": {**ms_stats(from_ms), "pairs_per_call":
+                              FROM_SET_SOURCES * FROM_SET_TARGETS,
+                              "launches": FROM_SET_CALLS},
+              "witness": {**ms_stats(wit_ms), "launches": 0,
+                          "strengths": [w.s for w in wits],
+                          "walk_lengths": [len(w.walk) for w in wits]},
+              "s_reach_k": {**ms_stats(srk_ms), "launches": 0,
+                            "pairs": S_REACH_K_PAIRS,
+                            "k": [1, S_REACH_K_MAX],
+                            "true": int(sum(srks)),
+                            "frontier": {**ms_stats(front_ms),
+                                         "build_seconds": round(
+                                             frontier_build_s, 3),
+                                         "rounds_run_max": max(rounds),
+                                         "alive_edges_by_s": {
+                                             int(rec["s"]): rec["alive_edges"]
+                                             for rec in sweeps}}},
+              "s_distance": {**ms_stats(sd_ms), "launches": 0,
+                             "s": S_DISTANCE_S,
+                             "oracle_build_seconds": round(oracle_s, 3),
+                             "landmarks": oracle.num_landmarks,
+                             "oracle_bytes": oracle.nbytes(),
+                             "bounds": np.bincount(dists).tolist(),
+                             "exact": np.bincount(exact).tolist()}},
+          "peak_rise_bytes": peaks,
+          "service": {"requests": dict(WORKLOAD_TRAFFIC),
+                      "mr_set_size": SERVICE_MR_SET_SIZE,
+                      "seconds": round(run_s, 3),
+                      "mr_s_reach_alone_seconds": round(alone_s, 3),
+                      "batches": st.batches,
+                      "bucket_histogram": st.bucket_histogram,
+                      "workload_answered": st.workload_answered,
+                      "launches": svc_counts["label_join_gather"]},
+          "label_join_gather_launches": gather
+          + svc_counts["label_join_gather"],
+          "host_seconds": seconds, "seconds": clock.seconds()})
+    del frontier
+    torch.cuda.empty_cache()
+    return gather + svc_counts["label_join_gather"]
+
+
+def email_eu_workloads(wl, lj, counters, h, frontier, online, ete, us, vs,
+                       mr, few):
+    """The workload ops of the email-Eu engines of ``backends_path``:
+    ``frontier``'s bounded sweep on the card against Base*'s host BFS,
+    and ``ete``'s label ops (``label_join_gather`` at ``[n, 140]``)
+    against ``frontier``'s answers.  Returns the phase's record and its
+    launches."""
+    t_start = time.perf_counter()
+    cfg = EMAIL_EU_S_REACH_K
+    pair = [i for i in range(cfg["pairs"]) for _ in cfg["s"] for _ in cfg["k"]]
+    args = [(int(us[i]), int(vs[i]), s, k) for i in range(cfg["pairs"])
+            for s in cfg["s"] for k in cfg["k"]]
+    reset_counts(counters)
+    lj.GATHER_LAUNCHES = 0
+    fronts, front_ms, sweeps = bounded_sweeps(frontier, args)
+    hosts, host_ms_ = timed_calls(online.s_reach_k, args)
+    for a, got, want in zip(args, fronts, hosts):
+        check_same(f"email-Eu s_reach_k{a}", got, want)
+    for i, a, got in zip(pair, args, fronts):
+        if got and mr[i] < a[2]:       # a bounded walk is a walk
+            raise AssertionError(f"email-Eu s_reach_k{a}: MR is {mr[i]}")
+    n = h.n
+    srcs = [int(u) for u in us[few[:EMAIL_EU_TOP_S]]]
+    tops, top_ms = timed_calls(ete.top_s, [(u, TOP_S_K) for u in srcs])
+    for u, got in zip(srcs, tops):
+        row = frontier.mr_batch(np.full(n, u, np.int64), np.arange(n))
+        for g, w in zip(got, wl.select_top_s(row, u, TOP_S_K)):
+            check_same(f"ete top_s({u})", g, w)
+    rng = np.random.default_rng(41)
+    set_args = [(rng.choice(n, EMAIL_EU_SET_SIZE, replace=False),
+                 rng.choice(n, EMAIL_EU_SET_SIZE, replace=False))
+                for _ in range(EMAIL_EU_SETS)]
+    sets, set_ms = timed_calls(ete.mr_set, set_args)
+    for (a, b), got in zip(set_args, sets):
+        qu, qv = wl.cross_pairs(np.unique(a), np.unique(b))
+        check_same("ete mr_set", got, int(frontier.mr_batch(qu, qv).max()))
+    wit_args = [(int(u), int(v)) for u, v in zip(us[few], vs[few])]
+    wits, wit_ms = timed_calls(ete.mr_witness, wit_args)
+    for (u, v), w, want in zip(wit_args, wits, mr[few]):
+        if w.s != int(want) or not wl.verify_witness(h, w):
+            raise AssertionError(f"email-Eu ete witness {w}, MR {want}")
+    counts = read_counts(counters)
+    gather = lj.GATHER_LAUNCHES
+    want_counts = {name: 0 for name in counters}
+    want_counts["label_join"] = len(srcs) + len(set_args)
+    if counts != want_counts or gather != want_counts["label_join"]:
+        raise AssertionError(f"email-Eu workloads: launches {counts}, "
+                             f"gather {gather}")
+    record = {
+        "frontier_s_reach_k": {**ms_stats(front_ms), **cfg,
+                               "true": int(sum(fronts)),
+                               "rounds_run_max": max(
+                                   rec["rounds"][0] for rec in sweeps),
+                               "alive_edges_by_s": {
+                                   int(rec["s"]): rec["alive_edges"]
+                                   for rec in sweeps}},
+        "online_s_reach_k": ms_stats(host_ms_),
+        "ete_top_s": {**ms_stats(top_ms), "launches": len(srcs)},
+        "ete_mr_set": {**ms_stats(set_ms), "launches": len(set_args),
+                       "set_size": EMAIL_EU_SET_SIZE},
+        "ete_witness": {**ms_stats(wit_ms),
+                        "strengths": [w.s for w in wits],
+                        "walk_lengths": [len(w.walk) for w in wits]},
+        "label_join_gather_launches": gather,
+        "seconds": round(time.perf_counter() - t_start, 3)}
+    return record, gather
+
+
+def closure_workloads(wl, semiring, eng, answers, us, vs):
+    """``mr_witness`` and ``top_s`` on a closure engine (every hyperedge a
+    hub: the witness BFS meets anywhere), against the host W*; the
+    witnesses on pairs of distinct MR whose walks need two hyperedges or
+    more."""
+    t_start = time.perf_counter()
+    h, n = eng.h, eng.h.n
+    # pairs that no hyperedge of size MR holds: the walk needs the BFS
+    walk = np.flatnonzero([needs_walk(h, u, v, k)
+                           for u, v, k in zip(us, vs, answers)])
+    first = walk[np.unique(answers[walk], return_index=True)[1]]
+    idx = np.concatenate([first, np.setdiff1d(walk, first)])[
+        :CLOSURE_WITNESSES]
+    if idx.size < CLOSURE_WITNESSES:
+        raise AssertionError(f"closure_path: {idx.size} pairs need a walk")
+    args = [(int(us[i]), int(vs[i])) for i in idx]
+    wits, wit_ms = timed_calls(eng.mr_witness, args)
+    for (u, v), w, i in zip(args, wits, idx):
+        if w.s != int(answers[i]) or not wl.verify_witness(h, w):
+            raise AssertionError(f"closure witness {w}, MR {answers[i]}")
+    srcs = [int(u) for u in us[:CLOSURE_TOP_S]]
+    tops, top_ms = timed_calls(eng.top_s, [(u, TOP_S_K) for u in srcs])
+    for u, got in zip(srcs, tops):
+        row = semiring.vertex_mr_from_edge_mr(
+            h, eng.w_star, np.full(n, u, np.int64), np.arange(n))
+        for g, w in zip(got, wl.select_top_s(row, u, TOP_S_K)):
+            check_same(f"closure top_s({u})", g, w)
+    return {"witness": {**ms_stats(wit_ms), "strengths": [w.s for w in wits],
+                        "walk_lengths": [len(w.walk) for w in wits]},
+            "top_s": {**ms_stats(top_ms), "k": TOP_S_K,
+                      "route": "batched_mr (no kernel)"},
+            "seconds": round(time.perf_counter() - t_start, 3)}
 
 
 def main() -> int:
@@ -2366,6 +2932,7 @@ def main() -> int:
     from repro_torch.kernels import overlap as ov
     from repro_torch.kernels import threshold_closure as tc
     from repro_torch import serve as serve_mod
+    from repro_torch import workloads as wl
 
     device = torch.device("cuda")
     counters = {"label_join": lj, "maxmin_matmul": mm, "overlap": ov,
@@ -2387,24 +2954,30 @@ def main() -> int:
     service_launches, service_dense = phase_service_path(
         api, engine_mod, serve_mod, query_mod, ops, counters, main_eng,
         device)
+    workload_launches = phase_workloads_path(api, wl, serve_mod, counters,
+                                             main_eng, device)
     del main_eng
     torch.cuda.empty_cache()
     phase_wide_labels(api, engine_mod, lj, device)
     dense_launches, dense_pads, path_rows = phase_closure_path(
-        api, semiring, ops, counters, device)
+        api, semiring, ops, counters, wl, device)
     phase_closure_small(api, ops, counters, device)
-    backends_launches, ete_kernel = phase_backends_path(
-        api, engine_mod, lj, counters, main_h, main_pairs, main_mr, device)
+    backends_launches, ete_kernel, ete_workload_launches = \
+        phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
+                            main_pairs, main_mr, device)
+    workload_launches += ete_workload_launches
     torch.cuda.synchronize()
 
     kernels = [{
         "name": "label_join", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
-        "launches": launches + service_launches + backends_launches,
+        "launches": (launches + service_launches + backends_launches
+                     + workload_launches),
         "launches_by_path": {"main_path": launches,
                              "service_path": service_launches,
-                             "backends_path": backends_launches},
+                             "backends_path": backends_launches,
+                             "workloads_path": workload_launches},
         "max_abs_err": max(err_checks, err_main),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
@@ -2415,10 +2988,12 @@ def main() -> int:
         "name": "label_join_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
-        "launches": gather_launches + service_launches + backends_launches,
+        "launches": (gather_launches + service_launches + backends_launches
+                     + workload_launches),
         "launches_by_path": {"main_path": gather_launches,
                              "service_path": service_launches,
-                             "backends_path": backends_launches},
+                             "backends_path": backends_launches,
+                             "workloads_path": workload_launches},
         "max_abs_err": max(gather_err_checks, gather_err_main,
                            ete_kernel["max_abs_err"]),
         "ms": gather_times["ms"], "cold_ms": gather_times["cold_ms"],

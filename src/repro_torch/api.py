@@ -75,9 +75,19 @@ weighted-fair across tenants within strict priority bands, and
 snapshot copies (``ReplicaGroup``) that the dirty rows of each update are
 written into.
 
-The store, the workload families, the mesh and the ``sharded`` backend of
-the reference facade are not here yet; ``ROADMAP.md`` lists them in the
-order they are ported.
+The five workload families ride the same engines and the same service,
+gated per backend by ``workload_capabilities()`` as in the reference:
+
+    w = eng.mr_witness(u, v)         # Witness(u, v, s=MR, walk=(e, ...))
+    verify_witness(eng.h, w)         # True: a valid s-walk of strength s
+    eng.top_s(u, 10)                 # int64 (vertices, MR), one mr_batch
+    eng.mr_set(U, V)                 # int: max MR over U x V, one mr_batch
+    eng.s_reach_k(u, v, s, k)        # bool: an s-walk of <= k hyperedges
+    eng.s_distance(u, v, s)          # int: certified bound (DistanceOracle)
+    svc.top_s(u, 10)                 # Future[((vertex, mr), ...)]
+
+The store, the mesh and the ``sharded`` backend of the reference facade
+are not here yet; ``ROADMAP.md`` lists them in the order they are ported.
 """
 from __future__ import annotations
 
@@ -86,8 +96,9 @@ import warnings
 
 from repro_torch.core.engine import (ReachabilityEngine, DeviceSnapshot,
                                      SnapshotUnsupported, UpdateUnsupported,
-                                     WorkloadUnsupported, available_backends,
-                                     update_capabilities, plan_backend,
+                                     WorkloadUnsupported, WORKLOAD_OPS,
+                                     available_backends, update_capabilities,
+                                     workload_capabilities, plan_backend,
                                      register_backend, validate_batch)
 from repro_torch.core.engine import build as build_engine
 from repro_torch.core.hypergraph import (Hypergraph, from_edge_lists, compact,
@@ -104,17 +115,21 @@ from repro_torch.serve.reach_service import (MRRequest, MRSetRequest,
 from repro_torch.serve.replicas import ReplicaGroup
 from repro_torch.serve.scheduler import (PRIORITY_CLASSES, DeadlineExceeded,
                                          TenantSpec)
+from repro_torch.workloads import DistanceOracle, Witness, verify_witness
 
 __all__ = [
     "ReachabilityEngine", "DeviceSnapshot", "SnapshotUnsupported",
-    "UpdateUnsupported", "WorkloadUnsupported", "build_engine",
+    "UpdateUnsupported", "build_engine",
     "available_backends", "update_capabilities", "plan_backend",
     "register_backend", "validate_batch",
     "ReachabilityService", "ReplicaGroup", "serve", "ServiceConfig",
     "TenantSpec", "PRIORITY_CLASSES", "DeadlineExceeded",
     "Request", "MRRequest", "SReachRequest",
+    # workload surface: one pinned set — engine capabilities, request
+    # kinds, and the answer/verification types
+    "WorkloadUnsupported", "WORKLOAD_OPS", "workload_capabilities",
     "WitnessRequest", "SReachKRequest", "MRSetRequest", "TopSRequest",
-    "SDistanceRequest",
+    "SDistanceRequest", "Witness", "verify_witness", "DistanceOracle",
     "Hypergraph", "from_edge_lists", "compact", "random_hypergraph",
     "planted_chain_hypergraph", "colocation_hypergraph", "paper_figure1",
 ]

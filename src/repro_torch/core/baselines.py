@@ -20,7 +20,7 @@
 Counterpart of ``repro/core/baselines.py``: host numpy, the same
 algorithms and the same stable sorts, so labels and component ids equal
 the reference's byte for byte.  The brute-force workload references
-follow with roadmap item A8.
+(``brute_force_*``) close the module, as in the reference.
 """
 from __future__ import annotations
 
@@ -33,7 +33,10 @@ from .hypergraph import Hypergraph
 from .hlindex import _Builder
 
 __all__ = ["vtv_query", "ETEIndex", "build_ete", "ThresholdComponentIndex",
-           "MSTOracle", "line_graph_edges"]
+           "MSTOracle", "line_graph_edges",
+           "brute_force_s_distance", "brute_force_s_reach_k",
+           "brute_force_witness", "brute_force_mr_set",
+           "brute_force_mr_from_set", "brute_force_top_s"]
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +309,135 @@ class MSTOracle:
                     np.fromiter(best.values(), np.int64, len(best))
             row[e] = sizes[e]
         return out
+
+
+# ---------------------------------------------------------------------------
+# Brute-force workload references.  The workload subsystem
+# (repro_torch/workloads/) is pinned cell-by-cell against exactly these,
+# so they are deliberately *independent* implementations: dense threshold
+# sweeps and matrix-frontier expansion here vs the production hub-label /
+# bounded-BFS / landmark paths there.
+# ---------------------------------------------------------------------------
+
+def brute_force_s_distance(h: Hypergraph, u: int, v: int, s: int) -> int:
+    """Exact s-distance (fewest hyperedges in an s-walk; 0 = none) by
+    dense boolean frontier expansion on the >= s line graph.  Shortest
+    s-walks never repeat a hyperedge — a repeat collapses to a shorter
+    walk, and the collapsed single-edge case is always valid because
+    od >= s forces |e| >= s — so plain level expansion is exact."""
+    m = h.m
+    u, v, s = int(u), int(v), int(s)
+    if m == 0:
+        return 0
+    eu = h.edges_of(u)
+    ev = h.edges_of(v)
+    if eu.size == 0 or ev.size == 0:
+        return 0
+    fu = np.zeros(m, bool)
+    fu[eu] = True
+    fv = np.zeros(m, bool)
+    fv[ev] = True
+    if bool((fu & fv & (h.edge_sizes >= s)).any()):
+        return 1
+    src, dst, od = line_graph_edges(h)
+    keep = od >= s
+    adj = np.zeros((m, m), bool)
+    adj[src[keep], dst[keep]] = True
+    adj |= adj.T
+    reach = fu.copy()
+    frontier = fu.copy()
+    for t in range(2, m + 1):
+        frontier = adj[frontier].any(axis=0) & ~reach
+        if not frontier.any():
+            return 0
+        if bool((frontier & fv).any()):
+            return t
+        reach |= frontier
+    return 0
+
+
+def brute_force_s_reach_k(h: Hypergraph, u: int, v: int, s: int,
+                          k: int) -> bool:
+    """Hop-bounded s-reach: an s-walk of at most ``k`` hyperedges."""
+    d = brute_force_s_distance(h, u, v, s)
+    return 0 < d <= int(k)
+
+
+def brute_force_witness(h: Hypergraph, u: int, v: int,
+                        ) -> Tuple[int, Tuple[int, ...]]:
+    """(MR(u, v), witness walk): descending threshold sweep to find the
+    largest reachable s, then a parent-tracked BFS on the >= s line
+    graph to recover one walk achieving it."""
+    u, v = int(u), int(v)
+    sizes = h.edge_sizes
+    smax = int(sizes.max()) if h.m else 0
+    k = 0
+    for s in range(smax, 0, -1):
+        if brute_force_s_distance(h, u, v, s) > 0:
+            k = s
+            break
+    if k == 0:
+        return 0, ()
+    eu = sorted(int(e) for e in h.edges_of(u))
+    ev_set = {int(e) for e in h.edges_of(v)}
+    shared = [e for e in eu if e in ev_set and int(sizes[e]) >= k]
+    if shared:
+        return k, (shared[0],)
+    parent = {e: -1 for e in eu}
+    queue = list(eu)
+    while queue:
+        e = queue.pop(0)
+        nbrs, ods = h.neighbors_od(e)
+        for nb, w in zip(nbrs, ods):
+            nb = int(nb)
+            if int(w) >= k and nb not in parent:
+                parent[nb] = e
+                queue.append(nb)
+
+    def backtrack(e: int) -> Tuple[int, ...]:
+        out = [e]
+        while parent[out[-1]] != -1:
+            out.append(parent[out[-1]])
+        return tuple(reversed(out))
+
+    eu_set = set(eu)
+    for t in sorted(ev_set):
+        if t in parent and t not in eu_set:
+            return k, backtrack(t)
+    # remaining case: every reachable target is also an undersized seed
+    # — the walk must *end* on a fresh edge adjacent to the tree
+    for a in sorted(parent):
+        nbrs, ods = h.neighbors_od(a)
+        for nb, w in zip(nbrs, ods):
+            if int(w) >= k and int(nb) in ev_set:
+                return k, backtrack(a) + (int(nb),)
+    raise AssertionError(
+        f"threshold sweep said MR({u}, {v}) = {k} but no walk was found")
+
+
+def brute_force_mr_set(h: Hypergraph, us, vs) -> int:
+    """Set-to-set MR: max over the cross product, one oracle pair at a
+    time."""
+    oracle = MSTOracle(h)
+    return max((oracle.mr(int(a), int(b)) for a in us for b in vs),
+               default=0)
+
+
+def brute_force_mr_from_set(h: Hypergraph, us, targets) -> np.ndarray:
+    """Multi-source MR: per target, the best MR from any source."""
+    oracle = MSTOracle(h)
+    return np.array([max((oracle.mr(int(a), int(t)) for a in us),
+                         default=0) for t in targets], np.int64)
+
+
+def brute_force_top_s(h: Hypergraph, u: int, k: int,
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """Top-k strongest-s: every MR(u, .) via the oracle, ranked by
+    (MR desc, vertex id asc), zeros and ``u`` itself dropped."""
+    u = int(u)
+    oracle = MSTOracle(h)
+    scored = sorted((-oracle.mr(u, v), v) for v in range(h.n) if v != u)
+    picked = [(v, -neg) for neg, v in scored if neg < 0][:int(k)]
+    verts = np.array([v for v, _ in picked], np.int64)
+    vals = np.array([s for _, s in picked], np.int64)
+    return verts, vals

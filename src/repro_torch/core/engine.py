@@ -9,6 +9,9 @@ The paper's two query problems — ``MR(u, v)`` (Problem 2, Algorithm 5) and
     engine.mr_batch(us, vs)                   # [Q] MR, vectorized
     engine.s_reach_batch(us, vs, s)           # [Q] bool
     engine.snapshot()                         # device-resident padded form
+    engine.mr_witness(u, v)                   # workload ops, gated per
+    engine.top_s(u, k)                        #   backend (and s_reach_k,
+    engine.mr_set(U, V)                       #   mr_from_set, s_distance)
 
 Backends register themselves under a string key (``register_backend``);
 ``build(h, backend="auto")`` consults a planner that picks a backend from
@@ -37,10 +40,14 @@ scoped maintenance through ``core/maintenance.py``; ``online`` /
 ``frontier``: the neighbor cache or line graph patched on the 1-hop
 touched set; ``closure``: a whole rebuild on the device), and ``ete``,
 ``threshold`` and ``mst-oracle`` raise ``UpdateUnsupported`` as in the
-reference.  Not ported yet, and how each fails:
+reference.  The workload ops (witness / s_reach_k / mr_set / top_s /
+s_distance; ``repro_torch/workloads``) are served per backend as the
+reference's ``workload_capability`` says: ``mr_set`` / ``mr_from_set`` /
+``top_s`` are one ``mr_batch`` each (the ``label_join_gather`` kernel
+with ``use_kernels``), ``frontier``'s bounded ``s_reach_k`` one sweep on
+the device, and witness, the gated ``s_reach_k`` and ``s_distance`` host
+BFS.  Not ported yet, and how each fails:
 
-* the workload ops (witness / s_reach_k / mr_set / top_s / s_distance)
-  raise ``WorkloadUnsupported`` on every backend (roadmap item A8).
 * ``build(restore=...)`` raises ``NotImplementedError`` (roadmap item A9).
 * sharded construction (``construction="sharded"``, or ``"auto"`` with a
   multi-device mesh / ``workers`` / ``num_shards``) raises
@@ -85,7 +92,8 @@ __all__ = [
     "ReachabilityEngine", "DeviceSnapshot", "KernelSnapshot",
     "SnapshotUnsupported",
     "UpdateUnsupported", "WorkloadUnsupported",
-    "register_backend", "available_backends", "update_capabilities",
+    "WORKLOAD_OPS", "register_backend", "available_backends",
+    "update_capabilities", "workload_capabilities",
     "plan_backend", "build", "validate_batch",
     "HLIndexEngine", "HLIndexBasicEngine", "OnlineEngine", "FrontierEngine",
     "ETEEngine", "ThresholdEngine", "MSTOracleEngine", "ClosureEngine",
@@ -142,8 +150,22 @@ class UpdateUnsupported(NotImplementedError):
 
 class WorkloadUnsupported(NotImplementedError):
     """Raised by backends that do not serve a workload op (witness /
-    s_reach_k / mr_set / top_s / s_distance).  No backend of this package
-    serves one yet (roadmap item A8)."""
+    s_reach_k / mr_set / top_s / s_distance) — see
+    ``workload_capabilities()``."""
+
+
+# canonical workload-op order (the reference's tuple)
+WORKLOAD_OPS: Tuple[str, ...] = ("witness", "s_reach_k", "mr_set",
+                                 "top_s", "s_distance")
+
+# capability rule (per backend below): the label-row reductions —
+# witness (hub named by the label join), mr_set, top_s — need a
+# snapshot-capable label/closure form; the traversal ops — s_reach_k,
+# s_distance — need a graph the backend keeps live under updates.  The
+# static Section IV/VII baselines (threshold, mst-oracle) serve the
+# paper's two problems only.
+_LABEL_OPS = frozenset({"witness", "mr_set", "top_s"})
+_TRAVERSAL_OPS = frozenset({"s_reach_k", "s_distance"})
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +232,12 @@ class _EngineBase:
     name = "base"
     update_capability = "unsupported"
     # which workload ops this backend serves; empty = the paper's two
-    # problems only (every backend, until roadmap item A8)
+    # problems only
     workload_capability: FrozenSet[str] = frozenset()
+    # index lookups cheap enough that s_reach_k pre-gates the bounded
+    # BFS on an unbounded reachability answer (label join / closure
+    # row); False where s_reach is itself a traversal
+    _gate_hop_bounded = False
 
     def __init__(self, h: Hypergraph):
         self.h = h
@@ -227,6 +253,9 @@ class _EngineBase:
         # snapshot-serving backends' ``build(use_kernels=True)``
         self.use_kernels = False
         self._kernel_view: Optional[KernelSnapshot] = None
+        # per-(s, extra_landmarks) DistanceOracle cache; invalidated on
+        # every graph change (_graph_changed)
+        self._distance_oracles: Dict[Tuple[int, int], "DistanceOracle"] = {}
 
     @classmethod
     def build(cls, h: Hypergraph, **opts) -> "ReachabilityEngine":
@@ -293,6 +322,7 @@ class _EngineBase:
         is dropped immediately rather than held through the rebuild."""
         self.h = new_h
         self.version += 1
+        self._distance_oracles.clear()   # landmark BFS trees are per-graph
         if dirty_rows is None:
             self._dirty_rows = None
             if getattr(self, "_snap", None) is not None:
@@ -384,32 +414,123 @@ class _EngineBase:
             f"backend {self.name!r} has no padded device form; query it "
             f"through mr_batch / s_reach_batch instead")
 
-    # -- workload ops (not ported yet: roadmap item A8) --------------------
+    # -- workload ops (repro_torch/workloads/) -----------------------------
 
     def _require_workload(self, op: str) -> None:
         if op not in self.workload_capability:
             raise WorkloadUnsupported(
                 f"backend {self.name!r} does not serve workload op "
-                f"{op!r}; the workload subsystem is not ported yet "
-                f"(roadmap item A8)")
+                f"{op!r}; see workload_capabilities()")
 
-    def mr_witness(self, u: int, v: int):
+    def _witness_hub(self, u: int, v: int, k: int) -> Optional[int]:
+        """The hyperedge the label join met at, when the backend's
+        structure names one (HL-index labels); None lets the extractor
+        meet wherever the frontiers touch (closure backends, where
+        every hyperedge is a hub)."""
+        return None
+
+    def mr_witness(self, u: int, v: int) -> "Witness":
+        """MR(u, v) plus the hyperedge walk achieving it (hub-anchored
+        meet-in-the-middle reconstruction; ``verify_witness`` checks
+        the result from the hypergraph alone)."""
         self._require_workload("witness")
+        from ..workloads.base import Witness
+        from ..workloads.witness import extract_witness
+        self._check_vertex_ids(u, v)
+        u, v = int(u), int(v)
+        k = int(self.mr(u, v))
+        walk = (extract_witness(self.h, u, v, k,
+                                hub=self._witness_hub(u, v, k))
+                if k > 0 else ())
+        return Witness(u=u, v=v, s=k, walk=tuple(int(e) for e in walk))
 
     def s_reach_k(self, u: int, v: int, s: int, k: int) -> bool:
+        """Hop-bounded s-reach: an s-walk of at most ``k`` hyperedges.
+        Index-backed engines pre-gate the bounded search: unbounded
+        unreachable rejects immediately, and ``k >= m`` accepts
+        immediately (shortest s-walks never repeat a hyperedge)."""
         self._require_workload("s_reach_k")
+        self._check_vertex_ids(u, v)
+        u, v, s, k = int(u), int(v), int(s), int(k)
+        if s < 1:
+            raise ValueError(f"s-reachability needs s >= 1; got {s}")
+        if k < 1:
+            raise ValueError(f"hop bound needs k >= 1; got {k}")
+        if self._gate_hop_bounded:
+            if not self.s_reach(u, v, s):
+                return False             # early-reject: no walk at all
+            if k >= self.h.m:
+                return True              # early-accept: m edges suffice
+        return self._bounded_s_reach(u, v, s, k)
+
+    def _bounded_s_reach(self, u: int, v: int, s: int, k: int) -> bool:
+        """Backend hook behind the gate: host bounded BFS by default;
+        the frontier backend swaps in its sweep on the device."""
+        from ..workloads.hop_bounded import hop_bounded_s_reach
+        return bool(hop_bounded_s_reach(self.h, u, v, s, k))
 
     def mr_set(self, us, vs) -> int:
+        """Set-to-set MR: ``max over U x V of MR(u, v)``, answered as
+        one cross-product batch through ``mr_batch`` — the vectorized
+        snapshot join, through the ``label_join_gather`` kernel with
+        ``use_kernels``.  Both sets are held to ``[0, n)`` first, so an
+        out-of-range id raises before anything is launched."""
         self._require_workload("mr_set")
+        from ..workloads.setops import cross_pairs, normalize_vertex_set
+        sources = normalize_vertex_set(us, self.h.n, "mr_set source set")
+        targets = normalize_vertex_set(vs, self.h.n, "mr_set target set")
+        qu, qv = cross_pairs(sources, targets)
+        return int(np.asarray(self.mr_batch(qu, qv)).max())
 
     def mr_from_set(self, us, targets) -> np.ndarray:
+        """Multi-source MR: per target, the best MR from any source
+        (``targets`` keeps caller order and duplicates); int64."""
         self._require_workload("mr_set")
+        from ..workloads.setops import cross_pairs, normalize_vertex_set
+        sources = normalize_vertex_set(us, self.h.n, "mr_from_set sources")
+        tgt, _ = validate_batch(targets, targets, self.h.n)
+        qu, qv = cross_pairs(sources, tgt)
+        flat = np.asarray(self.mr_batch(qu, qv), np.int64)
+        return flat.reshape(len(sources), len(tgt)).max(axis=0)
 
     def top_s(self, u: int, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k strongest-s ranking: the (up to) k vertices with the
+        largest MR(u, .), from one full label-row sweep (one ``mr_batch``
+        of ``n`` pairs).  Returns int64 (vertices, mr values) ranked
+        (MR desc, id asc); zeros and ``u`` itself never appear."""
         self._require_workload("top_s")
+        from ..workloads.topk import select_top_s
+        self._check_vertex_ids(u)
+        if int(k) < 1:
+            raise ValueError(f"top_s needs k >= 1; got {k}")
+        n = self.h.n
+        row = self.mr_batch(np.full(n, int(u), np.int64),
+                            np.arange(n, dtype=np.int64))
+        return select_top_s(np.asarray(row), int(u), int(k))
 
     def s_distance(self, u: int, v: int, s: int) -> int:
+        """Certified upper bound on the s-distance in hyperedges
+        (0 = provably no s-walk), served off the cached landmark
+        oracle for this ``s``."""
         self._require_workload("s_distance")
+        self._check_vertex_ids(u, v)
+        return int(self.distance_oracle(int(s)).distance(int(u), int(v)))
+
+    def distance_oracle(self, s: int, *, extra_landmarks: int = 4,
+                        ) -> "DistanceOracle":
+        """The per-``s`` landmark oracle (built on first use, cached
+        until the graph changes)."""
+        self._require_workload("s_distance")
+        if int(s) < 1:
+            raise ValueError(f"s-distance needs s >= 1; got {s}")
+        key = (int(s), int(extra_landmarks))
+        oracle = self._distance_oracles.get(key)
+        if oracle is None:
+            from ..workloads.oracle import DistanceOracle
+            oracle = DistanceOracle(self.h, int(s),
+                                    extra_landmarks=int(extra_landmarks))
+            self._distance_oracles[key] = oracle
+        return oracle
 
     def nbytes(self) -> Optional[int]:
         """Resident index size in bytes, if the backend tracks one."""
@@ -444,6 +565,16 @@ def update_capabilities() -> Dict[str, str]:
     ("scoped" | "incremental" | "rebuild" | "unsupported")."""
     return {name: getattr(cls, "update_capability", "unsupported")
             for name, cls in sorted(_REGISTRY.items())}
+
+
+def workload_capabilities() -> Dict[str, Dict[str, bool]]:
+    """Registry key -> {workload op -> served?} in ``WORKLOAD_OPS``
+    order: the reference's table without its ``sharded`` row."""
+    caps: Dict[str, Dict[str, bool]] = {}
+    for name, cls in sorted(_REGISTRY.items()):
+        served = getattr(cls, "workload_capability", frozenset())
+        caps[name] = {op: op in served for op in WORKLOAD_OPS}
+    return caps
 
 
 def plan_backend(h: Hypergraph, batch_hint: Optional[int] = None, *,
@@ -600,6 +731,8 @@ class HLIndexEngine(_EngineBase):
 
     name = "hl-index"
     update_capability = "scoped"
+    workload_capability = _LABEL_OPS | _TRAVERSAL_OPS
+    _gate_hop_bounded = True
 
     def __init__(self, h: Hypergraph, idx: HLIndex,
                  builder: Callable[[Hypergraph], HLIndex] = build_fast,
@@ -658,6 +791,17 @@ class HLIndexEngine(_EngineBase):
     def s_reach(self, u: int, v: int, s: int) -> bool:
         self._check_vertex_ids(u, v)
         return s_reach_query(self.idx, int(u), int(v), int(s))
+
+    def _witness_hub(self, u: int, v: int, k: int) -> Optional[int]:
+        """The Algorithm-5 join's meeting hub: a hyperedge labeled on
+        both sides with min(s_u, s_v) = k (no label pair can exceed
+        MR, so >= k is the argmax)."""
+        label_v = self.idx.label_dict(v)
+        for e, su in zip(self.idx.labels_edge[u], self.idx.labels_s[u]):
+            sv = label_v.get(int(e))
+            if sv is not None and min(int(su), sv) >= k:
+                return int(e)
+        return None
 
     def mr_batch(self, us, vs) -> np.ndarray:
         us, vs = self._device_pairs(us, vs)
@@ -755,6 +899,7 @@ class OnlineEngine(_EngineBase):
 
     name = "online"
     update_capability = "incremental"
+    workload_capability = _TRAVERSAL_OPS
 
     def __init__(self, h: Hypergraph, cache: Optional[NeighborCache]):
         super().__init__(h)
@@ -790,6 +935,7 @@ class FrontierEngine(_EngineBase):
 
     name = "frontier"
     update_capability = "incremental"
+    workload_capability = _TRAVERSAL_OPS
 
     def __init__(self, h: Hypergraph, g: SparseLineGraph,
                  rounds: Optional[int]):
@@ -829,6 +975,14 @@ class FrontierEngine(_EngineBase):
                                         rounds=self.rounds,
                                         log=self.last_sweeps)
 
+    def _bounded_s_reach(self, u: int, v: int, s: int, k: int) -> bool:
+        # bounded *device* path: a walk of k hyperedges is k - 1
+        # line-graph steps of the frontier sweep (``last_sweeps`` holds
+        # its record)
+        self.last_sweeps = []
+        return bool(frontier_batched_s_reach(
+            self.g, [u], [v], s, rounds=k - 1, log=self.last_sweeps)[0])
+
 
 # ---------------------------------------------------------------------------
 # Baseline backends (Section IV / VII structures)
@@ -846,6 +1000,7 @@ class ETEEngine(_EngineBase):
     before anything is landed or launched."""
 
     name = "ete"
+    workload_capability = _LABEL_OPS
 
     def __init__(self, h: Hypergraph, ete: ETEIndex, *,
                  device: DeviceLike = None):
@@ -996,6 +1151,8 @@ class ClosureEngine(_EngineBase):
 
     name = "closure"
     update_capability = "rebuild"
+    workload_capability = _LABEL_OPS | _TRAVERSAL_OPS
+    _gate_hop_bounded = True
 
     def __init__(self, h: Hypergraph, w_star: np.ndarray,
                  method: str = "maxmin", *, device: DeviceLike = None,

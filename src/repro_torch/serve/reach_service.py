@@ -55,11 +55,14 @@ Design (the mechanisms the module exists for):
 Backends with no snapshot form (``mst-oracle``) are served through their
 own ``mr_batch`` / ``s_reach_batch`` by the same admission loop — the
 service degrades, never refuses.  Workload request kinds (``witness`` /
-``s_reach_k`` / ``mr_set`` / ``top_s`` / ``s_distance``) are typed and
-validated as in the reference, and refused at admission with
-``WorkloadUnsupported`` by any backend whose ``workload_capability``
-lacks them — every backend of this package today; their dispatch is
-roadmap item A8.
+``s_reach_k`` / ``mr_set`` / ``top_s`` / ``s_distance``, see
+``repro_torch.workloads``) ride the same admission queue with the same
+tenant / priority / deadline metadata and their own per-kind dispatch
+groups — so workload traffic never perturbs the padded mr / s_reach
+buckets — and are answered one by one through the engine's workload
+methods (``mr_set`` / ``top_s`` batch inside, through ``mr_batch``).  A
+backend whose ``workload_capability`` lacks a kind refuses it at
+admission with ``WorkloadUnsupported``.
 
 Counterpart of ``repro/serve/reach_service.py``.  Not ported yet, and how
 each fails: ``mesh=`` (a mesh-sharded resident snapshot) raises
@@ -754,11 +757,8 @@ class ReachabilityService:
 
     def _dispatch_group(self, kind: str, group: List[_Entry], snap) -> None:
         if kind in _KIND_TO_OP:
-            # admission lets a workload kind through only for an engine
-            # that declares it; its dispatch comes with roadmap item A8
-            raise WorkloadUnsupported(
-                f"dispatch of {kind!r} requests is not ported yet (roadmap "
-                f"item A8: workloads)")
+            self._dispatch_workload_group(kind, group)
+            return
         q = len(group)
         us, vs = self._batch_ids(group)
         bucket = us.size
@@ -790,6 +790,34 @@ class ReachabilityService:
             ok = np.asarray(self.engine.mr_batch(us, vs))[:q] >= svals
         for entry, val in zip(group, ok):
             _resolve(entry.future, bool(val))
+
+    def _dispatch_workload_group(self, kind: str, group: List[_Entry]) -> None:
+        """Workload kinds dispatch per-request through the engine's
+        workload methods — witness reconstruction and the BFS-gated ops
+        are host-side, while ``mr_set`` / ``top_s`` batch internally
+        through ``mr_batch`` (the ``label_join_gather`` kernel when the
+        engine enables it; ids were held to ``[0, n)`` at admission).
+        Each kind still arrives as its own group, so workload traffic
+        never perturbs the padded mr/s_reach bucket shapes."""
+        eng = self.engine
+        self._stats.batches += 1
+        self._stats.workload_answered[kind] = \
+            self._stats.workload_answered.get(kind, 0) + len(group)
+        for entry in group:
+            r = entry.request
+            if kind == "witness":
+                val = eng.mr_witness(r.u, r.v)
+            elif kind == "s_reach_k":
+                val = bool(eng.s_reach_k(r.u, r.v, r.s, r.k))
+            elif kind == "mr_set":
+                val = int(eng.mr_set(np.asarray(r.us, np.int64),
+                                     np.asarray(r.vs, np.int64)))
+            elif kind == "top_s":
+                verts, vals = eng.top_s(r.u, r.k)
+                val = tuple(zip(verts.tolist(), vals.tolist()))
+            else:                    # s_distance (admission pinned kinds)
+                val = int(eng.s_distance(r.u, r.v, r.s))
+            _resolve(entry.future, val)
 
     def _batch_ids(self, group: List[_Entry]) -> Tuple[np.ndarray,
                                                        np.ndarray]:

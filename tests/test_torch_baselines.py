@@ -14,6 +14,7 @@ import torch
 
 import repro.api as ref_api
 import repro.core as ref_core
+import repro.core.engine as ref_engine
 import repro_torch.api as port_api
 import repro_torch.core as port_core
 from repro_torch import convert
@@ -294,7 +295,11 @@ def test_update_capabilities_cover_every_single_device_backend():
     assert port_caps == {k: ref_caps[k] for k in port_caps}
     for name in NEW_BACKENDS:
         cls = port_engine._REGISTRY[name]
-        assert cls.workload_capability == frozenset()     # roadmap item A8
+        assert cls.workload_capability == \
+            ref_engine._REGISTRY[name].workload_capability
+    assert port_api.workload_capabilities() == {
+        k: v for k, v in ref_api.workload_capabilities().items()
+        if k != "sharded"}
 
 
 # -- the service over these backends ------------------------------------------

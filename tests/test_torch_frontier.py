@@ -273,8 +273,12 @@ def test_frontier_engine_equals_the_reference_through_updates():
         _same_coo(ref.g, port.g)
     with pytest.raises(IndexError, match="out of range"):
         port.mr_batch([0], [port.h.n])
-    with pytest.raises(port_api.WorkloadUnsupported, match="A8"):
-        port.s_reach_k(0, 1, 1, 2)
+    for u, v in zip(*_queries(port.h.n, 9, 8)):
+        for s, k in ((1, 1), (1, 2), (2, 3)):
+            got = port.s_reach_k(int(u), int(v), s, k)
+            assert got is ref.s_reach_k(int(u), int(v), s, k)
+    with pytest.raises(port_api.WorkloadUnsupported, match="top_s"):
+        port.top_s(0, 3)
     with pytest.raises(port_api.SnapshotUnsupported):
         port.snapshot()
 

@@ -51,6 +51,10 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.kernels.threshold_closure",
         "repro_torch.serve", "repro_torch.serve.reach_service",
         "repro_torch.serve.replicas", "repro_torch.serve.scheduler",
+        "repro_torch.workloads", "repro_torch.workloads.base",
+        "repro_torch.workloads.hop_bounded", "repro_torch.workloads.oracle",
+        "repro_torch.workloads.setops", "repro_torch.workloads.topk",
+        "repro_torch.workloads.witness",
     ]
 
 
@@ -81,11 +85,18 @@ def test_import_drags_in_neither_jax_nor_the_reference(import_report, module):
 
 @pytest.mark.parametrize("module", ["repro_torch.core.online",
                                     "repro_torch.core.frontier",
-                                    "repro_torch.core.baselines"])
+                                    "repro_torch.core.baselines",
+                                    "repro_torch.workloads",
+                                    "repro_torch.workloads.base",
+                                    "repro_torch.workloads.hop_bounded",
+                                    "repro_torch.workloads.oracle",
+                                    "repro_torch.workloads.setops",
+                                    "repro_torch.workloads.topk",
+                                    "repro_torch.workloads.witness"])
 def test_backend_module_alone_loads_neither_jax_nor_the_reference(module):
-    """The index-free and baseline modules, each imported first and alone
-    in a fresh interpreter (the reference keeps numpy-only copies of them
-    in a package whose ``__init__`` imports JAX)."""
+    """The index-free, baseline and workload modules, each imported first
+    and alone in a fresh interpreter (the reference keeps numpy-only copies
+    of them in a package whose ``__init__`` imports JAX)."""
     out = _run(
         "import importlib, json, sys\n"
         f"mod = importlib.import_module({module!r})\n"

@@ -252,7 +252,7 @@ def test_closure_snapshot_is_byte_identical(engines):
 
 
 def test_closure_engine_errors_and_what_is_not_ported(engines):
-    _, port = engines
+    ref, port = engines
     n = port.h.n
     for bad in (-1, n):
         with pytest.raises(IndexError, match="out of range"):
@@ -264,9 +264,13 @@ def test_closure_engine_errors_and_what_is_not_ported(engines):
     with pytest.raises(IndexError, match="out of range"):
         port.update(deletes=[port.h.m])       # ported: validated first
     assert port.version == 0
-    assert port.workload_capability == frozenset()
-    with pytest.raises(port_api.WorkloadUnsupported, match="A8"):
-        port.top_s(0, 3)
+    assert port.workload_capability == ref.workload_capability == \
+        frozenset(ref_api.WORKLOAD_OPS)
+    for call in (lambda: port.top_s(n, 3), lambda: port.mr_set([0], [n]),
+                 lambda: port.mr_from_set([0], [n]),
+                 lambda: port.mr_witness(0, n)):
+        with pytest.raises(IndexError, match="out of range"):
+            call()
 
 
 def test_closure_engines_equal_the_mst_oracle_on_all_pairs():

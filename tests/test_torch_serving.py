@@ -479,21 +479,31 @@ def test_submit_validation():
 
 
 def test_workload_requests_are_refused_at_admission():
-    h = random_hypergraph(10, 12, seed=0)
-    svc = _serve(h, start=False)
+    ref_h = ref_api.random_hypergraph(10, 12, seed=0)
+    h = port_hypergraph(ref_h)
+    # refused on a backend that lacks the op, before anything is queued
+    svc = _serve(h, "threshold", start=False)
     for call in (lambda: svc.witness(0, 1), lambda: svc.s_reach_k(0, 1, 1, 2),
                  lambda: svc.mr_set([0], [1]), lambda: svc.top_s(0, 3),
                  lambda: svc.s_distance(0, 1, 1)):
         with pytest.raises(port_api.WorkloadUnsupported, match="workload"):
             call()
     assert svc.pending() == 0 and svc.stats().submitted == 0
-    # a backend that declares a workload gets it admitted; its dispatch is
-    # not ported, so the request's future carries the error
-    svc.engine.workload_capability = frozenset({"top_s"})
-    fut = svc.top_s(0, 3)
-    svc.drain()
-    with pytest.raises(port_api.WorkloadUnsupported, match="A8"):
-        fut.result(timeout=0)
+    # answered on one that has it, equal to the reference's twin service
+    port, ref = _serve(h, start=False), ref_api.serve(ref_h, "hl-index",
+                                                      start=False)
+    calls = (lambda x: x.witness(0, 1), lambda x: x.s_reach_k(0, 1, 1, 2),
+             lambda x: x.mr_set([0], [1]), lambda x: x.top_s(0, 3),
+             lambda x: x.s_distance(0, 1, 1))
+    futs = [(c(port), c(ref)) for c in calls]
+    port.drain()
+    ref.drain()
+    for pf, rf in futs:
+        got, want = pf.result(timeout=TIMEOUT), rf.result(timeout=TIMEOUT)
+        if hasattr(want, "walk"):            # a Witness of either package
+            got, want = dataclasses.astuple(got), dataclasses.astuple(want)
+        assert got == want and type(got) is type(want)
+    assert port.stats().as_dict() == ref.stats().as_dict()
 
 
 def test_mesh_store_and_device_are_refused_by_name():
