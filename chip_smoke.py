@@ -30,7 +30,16 @@ drives the port's two paths at full size through `repro_torch.api`:
   `s_reach_k` (held to `frontier`'s bounded sweep on the card) and
   `s_distance` on the host, then all seven request kinds mixed through
   `api.serve`; on email-Eu `frontier.s_reach_k` against Base* and
-  `ete`'s label ops; on the closure engine witnesses and `top_s`.
+  `ete`'s label ops; on the closure engine witnesses and `top_s`;
+* the durable store (`repro_torch.store`) on the main path's engine after
+  those phases: a checkpoint through the service, loads with and without
+  CRCs, a restart of the service on the card (`label_join_gather`, held
+  to the plain join of the restored snapshot), a write-ahead log of 8
+  records replayed and its torn tail dropped; a primary-school `closure`
+  checkpoint (645 MB of W*) restored and one insert replayed through
+  `overlap` + `threshold_step` (W* held to a plain closure); loads and
+  restarts timed from the page cache and with the files evicted from
+  it; and `build_sharded` through its fork pool with CUDA live.
 
 and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -39,7 +48,7 @@ non-zero at once.
 Output: one `ptxas <kernel>: ...` line per library (registers, shared
 memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
-`main_path`, `service_path`, `workloads_path`, `wide_labels`,
+`main_path`, `service_path`, `workloads_path`, `store_path`, `wide_labels`,
 `closure_path`, `closure_path_kernels`, `closure_small`, `backends_path`
 (`closure_path` and `backends_path` each with a `workloads` part), then
 `{"kernels": [...]}` (per kernel: launches on its path, error against the
@@ -76,12 +85,16 @@ float32 products run in full float32: TF32 is switched off and checked.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -180,6 +193,15 @@ EMAIL_EU_S_REACH_K = dict(pairs=64, s=(1, 2), k=(1, 2, 3))
 EMAIL_EU_TOP_S, EMAIL_EU_SETS, EMAIL_EU_SET_SIZE = 4, 4, 16
 # the closure engine of closure_path (primary-school)
 CLOSURE_WITNESSES, CLOSURE_TOP_S = 4, 8
+# the store (store_path): 2^20 pairs through the restored engine; 8,192
+# MR / s-reach requests through the restored service; a WAL of 7 inserts
+# over degree-0 vertices (sizes 2-4) and 1 delete of one of them; the
+# closure's W* of primary-school (645,561,856 B) with 1 replayed insert;
+# build_sharded on 4 disjoint copies of ENG-s, 2 workers, 4 shards
+STORE_PAIRS, STORE_REQUESTS = 2**20, 8192
+STORE_INSERT_SIZES = (2, 3, 4, 2, 3, 4, 2)
+STORE_DISK_BYTES = 700 * 2**20
+SHARDED_COPIES, SHARDED_WORKERS = 4, 2
 
 
 def emit(obj) -> None:
@@ -837,7 +859,7 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
           "batches": rates, "largest_batch_breakdown": breakdown,
           "batch_memory": memory, "seconds": clock.seconds()})
     return launches, gather_launches, err, gather_err, kernel_times, \
-        gather_times, eng
+        gather_times, eng, build_s
 
 
 def phase_wide_labels(api, engine_mod, lj, device):
@@ -2913,6 +2935,575 @@ def closure_workloads(wl, semiring, eng, answers, us, vs):
             "seconds": round(time.perf_counter() - t_start, 3)}
 
 
+def counts_since(counters, before):
+    """Launches per kernel since ``before`` (a ``read_counts`` reading,
+    with ``label_join_gather`` from ``GATHER_LAUNCHES``)."""
+    now = read_counts(counters)
+    now["label_join_gather"] = counters["label_join"].GATHER_LAUNCHES
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+def counts_now(counters):
+    return counts_since(counters, {})
+
+
+def same_index_rows(a, b):
+    """Whether two ``HLIndex``es hold the same rank, perm and every label
+    and dual row, byte for byte: each ragged field compared whole, as its
+    row lengths and the concatenation of its rows."""
+    if not (a.rank.tobytes() == b.rank.tobytes()
+            and a.perm.tobytes() == b.perm.tobytes()):
+        return False
+    for f in ("labels_edge", "labels_rank", "labels_s", "dual_u", "dual_s"):
+        ra, rb = getattr(a, f), getattr(b, f)
+        la = np.fromiter((x.size for x in ra), np.int64, len(ra))
+        lb = np.fromiter((x.size for x in rb), np.int64, len(rb))
+        if not np.array_equal(la, lb):
+            return False
+        ca = np.concatenate(ra) if len(ra) else np.empty(0, np.int64)
+        cb = np.concatenate(rb) if len(rb) else np.empty(0, np.int64)
+        if ca.dtype != cb.dtype or ca.tobytes() != cb.tobytes():
+            return False
+    return True
+
+
+def same_graph(a, b):
+    return (a.n, a.m) == (b.n, b.m) and all(
+        getattr(a, f).dtype == getattr(b, f).dtype
+        and getattr(a, f).tobytes() == getattr(b, f).tobytes()
+        for f in ("e_ptr", "e_idx", "v_ptr", "v_idx"))
+
+
+def timed_s(fn):
+    """(result, host seconds of ``fn``, device work synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def store_wal_records(rng, h):
+    """The WAL phase's 8 records: 7 inserts over vertices of degree 0
+    (each its own new line-graph component) and 1 delete of the first."""
+    free = np.flatnonzero(np.diff(h.v_ptr) == 0)
+    need = sum(STORE_INSERT_SIZES)
+    if free.size < need:
+        raise AssertionError(f"store_path: {free.size} vertices of degree "
+                             f"0, the WAL records need {need}")
+    picked = rng.choice(free, need, replace=False)
+    cuts = np.cumsum(STORE_INSERT_SIZES)[:-1]
+    return [sorted(int(v) for v in part) for part in np.split(picked, cuts)]
+
+
+def store_pairs(rng, h, edges):
+    """The phase's ``STORE_PAIRS`` query pairs: every other pair two
+    members of one hyperedge (random pairs on this graph almost all answer
+    0 or 1), the rest random, and the last ones every ordered pair of
+    vertices of each WAL insert in ``edges`` (0 before their record, the
+    insert's size after it)."""
+    us, vs = rng.integers(0, h.n, STORE_PAIRS), rng.integers(0, h.n,
+                                                              STORE_PAIRS)
+    sizes = h.edge_sizes
+    inside = rng.choice(np.flatnonzero(sizes >= 2), STORE_PAIRS // 2)
+    size = sizes[inside]
+    i = (rng.random(inside.size) * size).astype(np.int64)
+    j = (i + 1 + (rng.random(inside.size) * (size - 1)).astype(np.int64)) \
+        % size
+    us[0::2] = h.e_idx[h.e_ptr[inside] + i]
+    vs[0::2] = h.e_idx[h.e_ptr[inside] + j]
+    wal = np.array([(a, b) for e in edges for a in e for b in e if a != b],
+                   np.int64)
+    us[-len(wal):], vs[-len(wal):] = wal[:, 0], wal[:, 1]
+    return us, vs
+
+
+def drop_page_cache(*paths):
+    """Evict each file's clean pages from the host's page cache
+    (``POSIX_FADV_DONTNEED``), so that the next read comes from the disk;
+    returns the share of their pages still resident after it."""
+    resident = total = 0
+    for path in paths:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+        r, t = resident_pages(path)
+        resident, total = resident + r, total + t
+    return resident / max(total, 1)
+
+
+def resident_pages(path):
+    """(pages of ``path`` in the page cache, pages of ``path``), read with
+    ``mincore`` on a read-only map (which faults nothing in)."""
+    size = os.path.getsize(path)
+    if size == 0:
+        return 0, 0
+    page = os.sysconf("SC_PAGE_SIZE")
+    pages = (size + page - 1) // page
+    view = np.memmap(path, dtype=np.uint8, mode="r")
+    vec = np.zeros(pages, np.uint8)
+    libc = ctypes.CDLL(None, use_errno=True)
+    rc = libc.mincore(ctypes.c_void_p(view.ctypes.data),
+                      ctypes.c_size_t(size),
+                      vec.ctypes.data_as(ctypes.c_void_p))
+    del view
+    if rc != 0:
+        raise OSError(ctypes.get_errno(), f"mincore({path})")
+    return int((vec & 1).sum()), pages
+
+
+def if_evicted(seconds, resident_share):
+    """A time taken after ``drop_page_cache``, or None where the eviction
+    left more than 1 % of the pages resident (a tmpfs or 9p mount keeps
+    them): such a time would be a page-cache time under a cold name."""
+    return seconds if resident_share <= 0.01 else None
+
+
+def mount_of(path):
+    """(mount point, filesystem type) that holds ``path``."""
+    best, fstype = "", "unknown"
+    path = os.path.realpath(path)
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            mnt = fields[1]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) >= len(best):
+                best, fstype = mnt, fields[2]
+    return best, fstype
+
+
+def plain_threshold_closure(h, ov, tc, ops, device):
+    """W* of ``h`` by the closure's plain versions on the card (B·Bᵀ in
+    float32, then ``threshold_step_ref`` rounds), int32 on the card; beside it
+    each kernel held to its plain version on the same operands: ``overlap``
+    on the incidence, ``threshold_step`` on every round's input.  Returns
+    (W*, {kernel: max abs err})."""
+    b_inc = torch.from_numpy(h.to_incidence(np.float32)).to(device)
+    w = ov.overlap_ref(b_inc)
+    errs = {"overlap": (ov.overlap(b_inc.to(torch.bfloat16)) - w)
+            .abs().max().item()}
+    w = w.to(torch.int32)
+    del b_inc
+    t = torch.unique(w)
+    t = t[t > 0]
+    r = tc.threshold_adjacency(w, t, dtype=torch.bfloat16)
+    err = 0.0
+    for _ in range(ops.default_rounds(h.m)):
+        want = tc.threshold_step_ref(r)
+        err = max(err, (tc.threshold_step(r).float() - want.float())
+                  .abs().max().item())
+        r = want
+    errs["threshold_step"] = err
+    mr = tc.largest_threshold(r, t.to(torch.float32))
+    del r
+    mr.diagonal().copy_(w.diagonal())
+    return mr.to(torch.int32), errs
+
+
+def submit_and_drain(svc, reqs):
+    futs = svc.submit_many(reqs)
+    svc.drain()
+    return futs
+
+
+def phase_store_path(api, store_mod, serve_mod, ops, counters, eng, build_s,
+                     device):
+    """The durable store on the main path's engine (89k/70k, as
+    ``workloads_path`` leaves it), then on the closure of primary-school:
+    checkpoint through the service, load with and without CRCs, restart
+    of the service on the card (answers through ``label_join_gather``), a
+    WAL of 8 records replayed, a torn tail, a closure insert replayed
+    through ``overlap`` + ``threshold_step``, and ``build_sharded``
+    through its fork pool with CUDA live.  Every kernel answer is held to
+    the plain join of the same snapshot, and the replayed W* to the
+    closure's plain versions; loads and restarts are timed from the page
+    cache and again with the files evicted from it (null where the mount
+    kept them resident).  Everything is written under one
+    ``tempfile.mkdtemp()`` directory, removed at the end.  Returns
+    (launches, max abs err per kernel)."""
+    clock = Phase()
+    lj, ov, tc = (counters[k] for k in ("label_join", "overlap",
+                                        "threshold_step"))
+    from repro_torch.core.hlindex import build_fast, build_sharded
+    from repro_torch.core.semiring import vertex_mr_from_edge_mr
+    from repro_torch.device import host_to_device
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    out = {"phase": "store_path"}
+    errs = {"label_join_gather": 0, "overlap": 0.0, "threshold_step": 0.0}
+
+    def plain_join(tag, got, snap, qu, qv):
+        """The plain join (``batched_mr``) of ``snap`` on the same pairs;
+        fails unless the kernel's answers ``got`` equal it."""
+        want = snap.mr(np.asarray(qu, np.int64),
+                       np.asarray(qv, np.int64)).cpu().numpy()
+        err = int(np.abs(got.astype(np.int64) - want).max(initial=0))
+        errs["label_join_gather"] = max(errs["label_join_gather"], err)
+        if err:
+            raise AssertionError(f"store_path: {tag}: label_join_gather "
+                                 f"differs from the plain join by {err}")
+        return want
+
+    def files(d):
+        gc.collect()        # no map of a file may pin its pages
+        return [p for p in Path(d).iterdir() if p.is_file()]
+
+    try:
+        free = shutil.disk_usage(root).free
+        if free < STORE_DISK_BYTES:
+            raise AssertionError(f"store_path: {free} B free under {root}, "
+                                 f"the phase writes up to "
+                                 f"{STORE_DISK_BYTES} B")
+        mount, fstype = mount_of(root)
+        reset_counts(counters)
+        lj.GATHER_LAUNCHES = 0
+        h, rng = eng.h, np.random.default_rng(41)
+        edges = store_wal_records(rng, h)
+        us, vs = store_pairs(rng, h, edges)
+
+        # 1. checkpoint through the service; load with / without CRCs,
+        # from the disk (pages evicted) and from the page cache
+        main_dir = os.path.join(root, "main")
+        svc = api.ReachabilityService(eng, use_kernels=True, start=False)
+        store = api.IndexStore(main_dir)
+        version, save_s = timed_s(lambda: svc.checkpoint(store))
+        ckpt = store.current_checkpoint()
+        file_bytes = ckpt.stat().st_size
+        resident = {"load_verify": drop_page_cache(ckpt)}
+        cold, load_cold_s = timed_s(lambda: api.load_index(ckpt))
+        loaded, load_verify_s = timed_s(lambda: api.load_index(ckpt))
+        lazy, load_lazy_s = timed_s(
+            lambda: api.load_index(ckpt, verify=False))
+        for tag, e in (("cold", cold), ("verify", loaded), ("lazy", lazy)):
+            if not (e.version == version == eng.version
+                    and same_graph(e.h, eng.h)
+                    and same_index_rows(e.idx, eng.idx)):
+                raise AssertionError(f"store_path: load ({tag}) differs "
+                                     f"from the checkpointed engine")
+        _, snapshot_s = timed_s(lazy.snapshot)
+        del cold, loaded, lazy, e
+        resident["load_lazy"] = drop_page_cache(*files(main_dir))
+        lazy, lazy_cold_s = timed_s(
+            lambda: api.load_index(ckpt, verify=False))
+        _, snapshot_cold_s = timed_s(lazy.snapshot)
+        del lazy
+        manifest = store.manifest()
+        checkpoint = {
+            "version": version, "file_bytes": file_bytes,
+            "segment_bytes": {s["name"]: s["nbytes"]
+                              for s in manifest["segments"]},
+            "labels": eng.idx.num_labels, "save_seconds": save_s,
+            "load_verify_cold_seconds": if_evicted(
+                load_cold_s, resident["load_verify"]),
+            "load_verify_seconds": load_verify_s,
+            "load_lazy_seconds": load_lazy_s,
+            "snapshot_from_load_seconds": snapshot_s,
+            "load_lazy_cold_seconds": if_evicted(lazy_cold_s,
+                                                resident["load_lazy"]),
+            "snapshot_from_cold_load_seconds": if_evicted(
+                snapshot_cold_s, resident["load_lazy"])}
+
+        # 2. restart: the call to the first answer, snapshot landed, with
+        # the store's files evicted, then from the page cache (the live
+        # engine's answers are taken first, outside the count)
+        want, live_batch_s = timed_s(lambda: eng.mr_batch(us, vs))
+        plain_join("live mr_batch", want, eng.snapshot(), us, vs)
+        reqs, rus, rvs, rs = service_requests(
+            serve_mod, rng, h.n, STORE_REQUESTS // 2, STORE_REQUESTS // 2)
+        want_reqs = expected_answers(eng.mr_batch(rus, rvs), rs)
+
+        def restart():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs_ = api.ReachabilityService.restore(main_dir, use_kernels=True,
+                                                  start=False)
+            fut = rs_.mr(int(us[0]), int(vs[0]))
+            rs_.drain()
+            answer = fut.result(timeout=60)
+            torch.cuda.synchronize()
+            return rs_, answer, time.perf_counter() - t0
+
+        before = counts_now(counters)
+        resident["restart"] = drop_page_cache(*files(main_dir))
+        csvc, first_cold, first_answer_cold_s = restart()
+        csvc.close()
+        csvc.engine.detach_wal().close()
+        del csvc
+        rsvc, first, first_answer_s = restart()
+        reng = rsvc.engine
+        snap = reng.snapshot()
+        if snap.ranks.device.type != device.type:
+            raise AssertionError("store_path: restored snapshot not on "
+                                 "the card")
+        if not (reng.version == eng.version and same_graph(reng.h, eng.h)
+                and same_index_rows(reng.idx, eng.idx)
+                and snapshots_equal(snap, eng.snapshot())):
+            raise AssertionError("store_path: the restored service's engine "
+                                 "differs from the live one")
+        reng.use_kernels = True
+        got, restored_batch_s = timed_s(lambda: reng.mr_batch(us, vs))
+        plain = plain_join("restored mr_batch", got, snap, us, vs)
+        if (first != int(plain[0]) or first_cold != int(plain[0])
+                or not np.array_equal(got, want)):
+            raise AssertionError("store_path: restored mr_batch differs "
+                                 "from the live engine")
+        futs, serve_s = timed_s(lambda: submit_and_drain(rsvc, reqs))
+        plain_reqs = expected_answers(
+            snap.mr(rus.astype(np.int64), rvs.astype(np.int64))
+            .cpu().numpy(), rs)
+        check_service_answers("store_path restored service (plain join)",
+                              futs, plain_reqs)
+        check_service_answers("store_path restored service (live engine)",
+                              futs, want_reqs)
+        st = rsvc.stats()
+        rsvc.close()
+        reng.detach_wal().close()
+        restart_counts = counts_since(counters, before)
+        # one launch per first answer (two restarts), per service batch
+        # after it, and the 2^20 mr_batch
+        if (restart_counts["label_join_gather"] != 2 + st.batches
+                or st.kernel_batches != st.batches):
+            raise AssertionError(f"store_path: restart launches "
+                                 f"{restart_counts}, service {st.as_dict()}")
+        del reng, rsvc, snap
+        restart = {"first_answer_cold_seconds": if_evicted(
+                       first_answer_cold_s, resident["restart"]),
+                   "first_answer_seconds": first_answer_s,
+                   "build_fast_minimize_seconds": build_s,
+                   "mr_batch_pairs": STORE_PAIRS,
+                   "pairs_inside_a_hyperedge": STORE_PAIRS // 2,
+                   "answers_at_least_2": int((want >= 2).sum()),
+                   "restored_mr_batch_seconds": restored_batch_s,
+                   "live_mr_batch_seconds": live_batch_s,
+                   "service_requests": len(reqs),
+                   "service_seconds": serve_s,
+                   "service_batches": st.batches,
+                   "launches": restart_counts}
+
+        # 3. the WAL: 8 records live through the attached store, replayed
+        append_s = []
+        orig_append = store.append
+
+        def timed_append(version, inserts, deletes):
+            t = time.perf_counter()
+            orig_append(version, inserts, deletes)
+            append_s.append(time.perf_counter() - t)
+
+        store.append = timed_append
+        records, want7 = [], None
+        for edge in edges + [None]:
+            if edge is None:                   # the 8th: delete the 1st
+                # the engine as 7 records leave it (an update installs a
+                # new graph and index; it writes into neither old one)
+                h7, idx7, want7 = eng.h, eng.idx, eng.mr_batch(us, vs)
+                victim = int(eng.h.edges_of(edges[0][0])[0])
+                ins, dels = [], [victim]
+            else:
+                ins, dels = [edge], []
+            _, update_s = timed_s(lambda: svc.update(inserts=ins,
+                                                     deletes=dels))
+            records.append({"inserts": ins, "deletes": dels,
+                            "update_seconds": update_s,
+                            "scope": int(eng.idx.stats.get(
+                                "maintenance_scope", -1)),
+                            "append_seconds": append_s[-1]})
+        store.append = orig_append
+        live_version = eng.version
+        replayed, replay_s = timed_s(lambda: store_mod.IndexStore(
+            main_dir).restore(attach=False))
+        if replayed.version != live_version:
+            raise AssertionError(f"store_path: replay reached version "
+                                 f"{replayed.version}, live "
+                                 f"{live_version}")
+        replayed.use_kernels = True
+        want8 = eng.mr_batch(us, vs)
+        rsnap = replayed.snapshot()
+        got8 = replayed.mr_batch(us, vs)
+        plain_join("replayed mr_batch", got8, rsnap, us, vs)
+        if not (snapshots_equal(rsnap, eng.snapshot())
+                and np.array_equal(got8, want8)
+                and same_index_rows(replayed.idx, eng.idx)):
+            raise AssertionError("store_path: replayed engine differs from "
+                                 "the live one")
+        # the pairs among the WAL's vertices must tell the states apart
+        changed = {"by_the_wal": int((want8 != want).sum()),
+                   "by_the_delete": int((want8 != want7).sum())}
+        if not changed["by_the_delete"]:
+            raise AssertionError("store_path: no pair's answer tells the "
+                                 "torn restore from the full one")
+        del replayed, rsnap
+        wal = {"records": records, "replay_restore_seconds": replay_s,
+               "live_version": live_version,
+               "append_seconds_mean": statistics.mean(append_s),
+               "pairs_changed": changed}
+
+        # 4. a torn tail: the 8th record cut mid-payload
+        wal_path = next(Path(main_dir).glob("wal-*.log"))
+        recs, valid, _ = store_mod.scan_wal(wal_path)
+        with open(wal_path, "r+b") as f:
+            f.truncate(valid - 3)
+        tail_status = store_mod.scan_wal(wal_path)[2]
+        torn, torn_s = timed_s(lambda: store_mod.IndexStore(
+            main_dir).restore(attach=False))
+        torn.use_kernels = True
+        tsnap = torn.snapshot()
+        got7 = torn.mr_batch(us, vs)
+        plain_join("torn-tail mr_batch", got7, tsnap, us, vs)
+        eng7 = type(eng)(h7, idx7, device=device)
+        if (tail_status != "torn-payload" or torn.version != live_version - 1
+                or not np.array_equal(got7, want7)
+                or not same_graph(torn.h, h7)
+                or not same_index_rows(torn.idx, idx7)
+                or not snapshots_equal(tsnap, eng7.snapshot())):
+            raise AssertionError(f"store_path: torn tail {tail_status}, "
+                                 f"version {torn.version} (live "
+                                 f"{live_version}), or it differs from the "
+                                 f"engine after 7 records")
+        del torn, tsnap, eng7, h7, idx7
+        eng.detach_wal()
+        store.close()
+        svc.close()
+        torn_out = {"records_before": len(recs), "tail_status": tail_status,
+                    "restored_version": live_version - 1,
+                    "restore_seconds": torn_s}
+
+        # 5. the closure: W* on disk, restart, one insert replayed
+        ch = api.random_hypergraph(**CLOSURE_GRAPH)
+        cus = rng.integers(0, ch.n, 4096)
+        cvs = rng.integers(0, ch.n, 4096)
+
+        def build_and_answer():
+            e = api.build_engine(ch, "closure", method="threshold")
+            return e, e.mr_batch(cus, cvs)
+
+        (ceng, cwant), cbuild_s = timed_s(build_and_answer)
+        cdir = os.path.join(root, "closure")
+        cstore = api.IndexStore(cdir)
+        _, csave_s = timed_s(lambda: cstore.checkpoint(ceng))
+        cstore.attach(ceng)
+        cfile = cstore.current_checkpoint()
+        resident["closure_load_verify"] = drop_page_cache(cfile)
+        cl_cold, cload_cold_s = timed_s(lambda: api.load_index(cfile))
+        cl, cload_verify_s = timed_s(lambda: api.load_index(cfile))
+        cl_lazy, cload_lazy_s = timed_s(
+            lambda: api.load_index(cfile, verify=False))
+        if not all(e.w_star.dtype == ceng.w_star.dtype == np.int32
+                   and np.array_equal(e.w_star, ceng.w_star)
+                   for e in (cl_cold, cl, cl_lazy)):
+            raise AssertionError("store_path: closure W* differs after the "
+                                 "round trip")
+        _, land_mmap_s = timed_s(lambda: host_to_device(cl.w_star, device))
+        _, land_heap_s = timed_s(
+            lambda: torch.from_numpy(ceng.w_star).to(device))
+        del cl_cold, cl, cl_lazy
+
+        def restore_and_answer():
+            e = store_mod.IndexStore(cdir).restore(attach=False)
+            return e, e.mr_batch(cus, cvs)
+
+        resident["closure_restart"] = drop_page_cache(*files(cdir))
+        (cr, cgot), cfirst_cold_s = timed_s(restore_and_answer)
+        del cr
+        (cr, cgot_warm), cfirst_s = timed_s(restore_and_answer)
+        if not (np.array_equal(cgot, cwant) and np.array_equal(cgot_warm,
+                                                               cwant)):
+            raise AssertionError("store_path: restored closure answers "
+                                 "differ")
+        del cr
+        cins = [sorted(int(x) for x in rng.choice(ch.n, 3, replace=False))]
+        _, clive_s = timed_s(lambda: ceng.update(inserts=cins))
+        cwant2 = ceng.mr_batch(cus, cvs)
+        before = counts_now(counters)
+        (cr2, cgot2), creplay_s = timed_s(restore_and_answer)
+        replay_counts = counts_since(counters, before)
+        rounds = ops.default_rounds(ceng.h.m)
+        # the replayed W* against the closure's plain versions on the
+        # card; their kernel comparisons are left out of the launches
+        before_cmp = counts_now(counters)
+        w_plain, kernel_errs = plain_threshold_closure(cr2.h, ov, tc, ops,
+                                                       device)
+        w_err = (host_to_device(cr2.w_star, device) - w_plain) \
+            .abs().max().item()
+        w_plain = w_plain.cpu().numpy()
+        compare_counts = counts_since(counters, before_cmp)
+        for k in ("overlap", "threshold_step"):
+            errs[k] = max(kernel_errs[k], w_err)
+        plain_answers = vertex_mr_from_edge_mr(cr2.h, w_plain, cus, cvs)
+        if (replay_counts["overlap"] != 1
+                or replay_counts["threshold_step"] != rounds
+                or cr2.version != ceng.version
+                or cr2.w_star.dtype != ceng.w_star.dtype
+                or w_err or kernel_errs["overlap"]
+                or kernel_errs["threshold_step"]
+                or not np.array_equal(cr2.w_star, ceng.w_star)
+                or not np.array_equal(cgot2, plain_answers)
+                or not np.array_equal(cgot2, cwant2)):
+            raise AssertionError(f"store_path: closure replay launches "
+                                 f"{replay_counts} (rounds {rounds}), "
+                                 f"version {cr2.version}, W* err {w_err}, "
+                                 f"kernel errs {kernel_errs}")
+        ceng.detach_wal()
+        cstore.close()
+        del cr2, ceng, w_plain
+        closure = {"n": ch.n, "m": ch.m, "method": "threshold",
+                   "w_star_bytes": int(ch.m) * int(ch.m) * 4,
+                   "file_bytes": cfile.stat().st_size,
+                   "build_and_first_answer_seconds": cbuild_s,
+                   "save_seconds": csave_s,
+                   "load_verify_cold_seconds": if_evicted(
+                       cload_cold_s, resident["closure_load_verify"]),
+                   "load_verify_seconds": cload_verify_s,
+                   "load_lazy_seconds": cload_lazy_s,
+                   "w_star_to_card_from_mmap_seconds": land_mmap_s,
+                   "w_star_to_card_from_heap_seconds": land_heap_s,
+                   "restore_first_answer_cold_seconds": if_evicted(
+                       cfirst_cold_s, resident["closure_restart"]),
+                   "restore_first_answer_seconds": cfirst_s,
+                   "live_update_seconds": clive_s,
+                   "replay_restore_first_answer_seconds": creplay_s,
+                   "insert": cins, "replay_launches": replay_counts,
+                   "replay_w_star_max_abs_err": w_err,
+                   "replay_kernel_max_abs_err": kernel_errs}
+
+        # 6. build_sharded through the fork pool, with CUDA live
+        hs = api.random_hypergraph(**SMALL_GRAPH)
+        h4 = api.from_edge_lists(
+            [hs.edge(e) + k * hs.n for k in range(SHARDED_COPIES)
+             for e in range(hs.m)], n=SHARDED_COPIES * hs.n)
+        sharded, sharded_s = timed_s(lambda: build_sharded(
+            h4, workers=SHARDED_WORKERS, num_shards=SHARDED_COPIES))
+        serial, serial_s = timed_s(lambda: build_fast(h4))
+        sharded_out = {"n": h4.n, "m": h4.m, "workers": SHARDED_WORKERS,
+                       "num_shards": SHARDED_COPIES,
+                       "shards": int(sharded.stats["shards"]),
+                       "components": int(sharded.stats["components"]),
+                       "pool_fallback": float(sharded.stats["pool_fallback"]),
+                       "build_sharded_seconds": sharded_s,
+                       "build_fast_seconds": serial_s}
+        if (sharded_out["pool_fallback"] != 0
+                or sharded_out["components"] < SHARDED_COPIES
+                or sharded_out["shards"] != SHARDED_COPIES
+                or not same_index_rows(sharded, serial)):
+            raise AssertionError(f"store_path: build_sharded {sharded_out}, "
+                                 f"or its labels differ from build_fast")
+        launches = {k: v - compare_counts.get(k, 0)
+                    for k, v in counts_now(counters).items()}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out.update(filesystem={"mount": mount, "type": fstype},
+               page_cache_resident_after_drop=resident,
+               checkpoint=checkpoint, restart=restart, wal=wal,
+               torn_tail=torn_out, closure=closure,
+               build_sharded=sharded_out, launches=launches,
+               comparison_launches=compare_counts, max_abs_err=errs,
+               seconds=clock.seconds())
+    emit(out)
+    return launches, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2932,6 +3523,7 @@ def main() -> int:
     from repro_torch.kernels import overlap as ov
     from repro_torch.kernels import threshold_closure as tc
     from repro_torch import serve as serve_mod
+    from repro_torch import store as store_mod
     from repro_torch import workloads as wl
 
     device = torch.device("cuda")
@@ -2942,8 +3534,8 @@ def main() -> int:
         lj, searchsorted_join, build_mod, device)
     dense_errs = phase_dense_kernel_checks(mm, ov, tc, device)
     (launches, gather_launches, err_main, gather_err_main, times,
-     gather_times, main_eng) = phase_main_path(api, engine_mod, lj,
-                                               searchsorted_join, device)
+     gather_times, main_eng, main_build_s) = phase_main_path(
+         api, engine_mod, lj, searchsorted_join, device)
     # the backends path runs frontier on this graph beside hl-index's
     # answers; the service path then updates main_eng in place
     main_h = main_eng.h
@@ -2956,6 +3548,9 @@ def main() -> int:
         device)
     workload_launches = phase_workloads_path(api, wl, serve_mod, counters,
                                              main_eng, device)
+    store_launches, store_errs = phase_store_path(
+        api, store_mod, serve_mod, ops, counters, main_eng, main_build_s,
+        device)
     del main_eng
     torch.cuda.empty_cache()
     phase_wide_labels(api, engine_mod, lj, device)
@@ -2973,12 +3568,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
         "launches": (launches + service_launches + backends_launches
-                     + workload_launches),
+                     + workload_launches + store_launches["label_join"]),
         "launches_by_path": {"main_path": launches,
                              "service_path": service_launches,
                              "backends_path": backends_launches,
-                             "workloads_path": workload_launches},
-        "max_abs_err": max(err_checks, err_main),
+                             "workloads_path": workload_launches,
+                             "store_path": store_launches["label_join"]},
+        "max_abs_err": max(err_checks, err_main,
+                           store_errs["label_join_gather"]),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,    # no single PyTorch call computes this join
@@ -2989,13 +3586,17 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
         "launches": (gather_launches + service_launches + backends_launches
-                     + workload_launches),
+                     + workload_launches
+                     + store_launches["label_join_gather"]),
         "launches_by_path": {"main_path": gather_launches,
                              "service_path": service_launches,
                              "backends_path": backends_launches,
-                             "workloads_path": workload_launches},
+                             "workloads_path": workload_launches,
+                             "store_path": store_launches[
+                                 "label_join_gather"]},
         "max_abs_err": max(gather_err_checks, gather_err_main,
-                           ete_kernel["max_abs_err"]),
+                           ete_kernel["max_abs_err"],
+                           store_errs["label_join_gather"]),
         "ms": gather_times["ms"], "cold_ms": gather_times["cold_ms"],
         "plain_ms": gather_times["plain_ms"],
         "bound_ms": gather_times["bound_ms"],
@@ -3018,10 +3619,13 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": dense_launches[name] + service_dense[name],
+            "launches": (dense_launches[name] + service_dense[name]
+                         + store_launches[name]),
             "launches_by_path": {"closure_path": dense_launches[name],
-                                 "service_path": service_dense[name]},
-            "max_abs_err": max(dense_errs[name], row["max_abs_err"]),
+                                 "service_path": service_dense[name],
+                                 "store_path": store_launches[name]},
+            "max_abs_err": max(dense_errs[name], row["max_abs_err"],
+                               store_errs.get(name, 0)),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})

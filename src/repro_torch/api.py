@@ -86,8 +86,20 @@ gated per backend by ``workload_capabilities()`` as in the reference:
     eng.s_distance(u, v, s)          # int: certified bound (DistanceOracle)
     svc.top_s(u, 10)                 # Future[((vertex, mr), ...)]
 
-The store, the mesh and the ``sharded`` backend of the reference facade
-are not here yet; ``ROADMAP.md`` lists them in the order they are ported.
+Indexes persist and restart without construction (``repro_torch.store``,
+the reference's file format byte for byte, so either package restores
+what the other saved):
+
+    save_index("idx.hlidx", eng)                 # one checksummed file
+    eng = load_index("idx.hlidx")                # mmap page-in, on the GPU
+    svc.checkpoint(IndexStore("store/"))         # + write-ahead log
+    svc = ReachabilityService.restore("store/", use_kernels=True)
+    eng = build_engine(restore="store/", device="cpu")
+
+``build_engine(h, "hl-index", workers=4)`` builds the index by line-graph
+component shards in a fork pool (byte-identical labels).  The mesh and
+the ``sharded`` backend of the reference facade are not here yet;
+``ROADMAP.md`` lists them in the order they are ported.
 """
 from __future__ import annotations
 
@@ -115,6 +127,8 @@ from repro_torch.serve.reach_service import (MRRequest, MRSetRequest,
 from repro_torch.serve.replicas import ReplicaGroup
 from repro_torch.serve.scheduler import (PRIORITY_CLASSES, DeadlineExceeded,
                                          TenantSpec)
+from repro_torch.store import (IndexStore, load_index, read_hif, save_index,
+                               write_hif)
 from repro_torch.workloads import DistanceOracle, Witness, verify_witness
 
 __all__ = [
@@ -132,6 +146,7 @@ __all__ = [
     "SDistanceRequest", "Witness", "verify_witness", "DistanceOracle",
     "Hypergraph", "from_edge_lists", "compact", "random_hypergraph",
     "planted_chain_hypergraph", "colocation_hypergraph", "paper_figure1",
+    "IndexStore", "save_index", "load_index", "read_hif", "write_hif",
 ]
 
 # service knobs that used to ride along in serve(**opts); still accepted

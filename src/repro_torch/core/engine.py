@@ -46,15 +46,18 @@ reference's ``workload_capability`` says: ``mr_set`` / ``mr_from_set`` /
 ``top_s`` are one ``mr_batch`` each (the ``label_join_gather`` kernel
 with ``use_kernels``), ``frontier``'s bounded ``s_reach_k`` one sweep on
 the device, and witness, the gated ``s_reach_k`` and ``s_distance`` host
-BFS.  Not ported yet, and how each fails:
+BFS.  ``build(restore=...)`` restores an engine persisted by
+``repro_torch.store`` (or by the reference's ``repro.store``: the file
+format is shared), and ``construction="sharded"`` builds the HL-index by
+line-graph component shards, optionally in a fork pool
+(``hlindex.build_sharded``).  Not ported yet, and how each fails:
 
-* ``build(restore=...)`` raises ``NotImplementedError`` (roadmap item A9).
-* sharded construction (``construction="sharded"``, or ``"auto"`` with a
-  multi-device mesh / ``workers`` / ``num_shards``) raises
-  ``NotImplementedError`` (roadmap item A10).
+* a device mesh (``mesh=`` with sharded construction, the mesh overlap
+  product) raises ``NotImplementedError`` (roadmap item A10b).
 * ``sharded`` (the multi-device backend) is not ported yet (roadmap item
-  A10): asking for it is an "unknown backend" ``ValueError`` listing the
-  backends there are.
+  A10b): asking for it is an "unknown backend" ``ValueError`` listing the
+  backends there are; loading its checkpoint raises
+  ``NotImplementedError``.
 
 Device rule: ``build`` and the device-landing backends take
 ``device=None``, which means ``"cuda"`` and raises on a host without a CUDA
@@ -73,10 +76,10 @@ from typing import (Callable, Dict, FrozenSet, List, Optional, Protocol,
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, host_to_device, resolve_device
 from .hypergraph import Hypergraph, apply_edge_edits
 from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
-                      pad_label_rows)
+                      build_sharded, pad_label_rows)
 from .maintenance import apply_updates, normalize_update_batch
 from .minimal import minimize
 from .query import DeviceSnapshot, KernelSnapshot, mr_query, s_reach_query
@@ -649,8 +652,12 @@ def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
       h: the hypergraph to serve.
       backend: a registry key (see ``available_backends()``) or
         ``"auto"`` to let ``plan_backend`` choose.
-      restore: path to a persisted engine.  Not ported yet: raises
-        ``NotImplementedError`` (roadmap item A9).
+      restore: path to a ``repro_torch.store`` artifact — an
+        ``IndexStore`` directory (checkpoint + WAL replay + re-attach,
+        the warm-restart path) or a single ``save_index`` file.  No
+        construction runs: the index loads mmap-backed and only the
+        journaled update suffix replays.  With ``restore`` a non-auto
+        ``backend`` asserts what the persisted engine must be.
       batch_hint: expected query batch size, consumed by the planner.
       mesh: optional device-mesh description, consulted by the planner
         (see ``plan_backend``) and forwarded to the HL-index backends,
@@ -660,16 +667,19 @@ def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
         ``device="cpu"`` to run on the host.
       **opts: backend-specific options, passed to the backend's
         ``build`` (e.g. ``minimize_labels=False`` or ``use_kernels=True``
-        for "hl-index", ``device_budget_bytes`` for the planner).
+        for "hl-index", ``device_budget_bytes`` for the planner) — or,
+        with ``restore``, the ``restore_engine`` options (``verify``,
+        ``checkpoint_every``, ``attach``).
     """
     if restore is not None:
         if h is not None:
             raise ValueError(
                 "build(restore=...) loads a persisted engine; passing a "
                 "hypergraph too is ambiguous — use one or the other")
-        raise NotImplementedError(
-            "build(restore=...) is not ported yet (roadmap item A9: the "
-            "persistent index store)")
+        from ..store import restore_engine
+        return restore_engine(
+            restore, mesh=mesh, device=device,
+            expect_backend=None if backend == "auto" else backend, **opts)
     if h is None:
         raise ValueError("build() needs a hypergraph (or restore=<path>)")
     dev = resolve_device(device)
@@ -702,19 +712,12 @@ def _resolve_construction(construction: str, mesh, workers,
     """The one auto-resolution rule both HL-index backends share:
     ``"auto"`` means sharded construction iff a multi-device mesh,
     ``workers``, or ``num_shards`` asks for it; anything else must be a
-    ``CONSTRUCTION_MODES`` key.  Sharded construction is not ported yet,
-    so resolving to it raises ``NotImplementedError``."""
+    ``CONSTRUCTION_MODES`` key."""
     if construction == "auto":
-        construction = ("sharded"
-                        if (workers or num_shards
-                            or (mesh is not None
-                                and int(mesh.devices.size) > 1))
-                        else "serial")
-    if construction == "sharded" and construction not in CONSTRUCTION_MODES:
-        raise NotImplementedError(
-            "sharded HL-index construction is not ported yet (roadmap "
-            "item A10); use construction='serial' without a multi-device "
-            "mesh, workers or num_shards")
+        return ("sharded"
+                if (workers or num_shards
+                    or (mesh is not None and int(mesh.devices.size) > 1))
+                else "serial")
     if construction not in CONSTRUCTION_MODES:
         raise ValueError(
             f"unknown construction {construction!r}; available: "
@@ -758,10 +761,15 @@ class HLIndexEngine(_EngineBase):
         running construction again — e.g. to derive the minimized engine
         from an ablation engine's labels.
 
-        ``construction`` picks the builder from ``CONSTRUCTION_MODES``
-        (``"serial"``: Algorithm 3 on one host thread); ``"auto"`` asks
-        for sharded construction iff a multi-device ``mesh``,
-        ``workers``, or ``num_shards`` is given, which is not ported yet.
+        ``construction`` picks the builder from ``CONSTRUCTION_MODES``:
+        ``"serial"`` (Algorithm 3 on one host thread), ``"sharded"``
+        (component-sharded construction, ``workers`` forked processes —
+        byte-identical labels, see ``hlindex.build_sharded``), or
+        ``"auto"`` (sharded iff a multi-device ``mesh``, ``workers``, or
+        ``num_shards`` asks for it).  Scoped updates keep using the same
+        construction mode on the affected component(s).  Sharded
+        construction over a ``mesh`` is roadmap item A10b and raises
+        ``NotImplementedError``.
 
         ``use_kernels`` answers batch queries through the hand-written
         ``label_join`` CUDA kernel (``KernelSnapshot``) instead of the
@@ -774,10 +782,22 @@ class HLIndexEngine(_EngineBase):
         construction = _resolve_construction(construction, mesh, workers,
                                              num_shards)
         minimizer = minimize if minimize_labels else None
-        builder = build_fast
-        idx = index if index is not None else build_fast(h)
-        if minimizer is not None:
-            idx = minimizer(idx)
+        if construction == "sharded":
+            builder = functools.partial(build_sharded, workers=workers,
+                                        num_shards=num_shards)
+            if index is not None:
+                idx = minimizer(index) if minimizer else index
+            else:
+                # minimization runs inside the shards too (exact: dual
+                # sets are component-confined), so the whole build
+                # parallelizes — byte-identical to minimize(build_fast(h))
+                idx = build_sharded(h, minimizer=minimizer, workers=workers,
+                                    num_shards=num_shards, mesh=mesh)
+        else:
+            builder = build_fast
+            idx = index if index is not None else build_fast(h)
+            if minimizer is not None:
+                idx = minimizer(idx)
         eng = cls(h, idx, builder=builder, minimizer=minimizer,
                   device=device)
         eng.construction = construction
@@ -879,7 +899,16 @@ class HLIndexBasicEngine(HLIndexEngine):
         base = functools.partial(build_basic, cover_check=cover_check)
         construction = _resolve_construction(construction, mesh, workers,
                                              num_shards)
-        eng = cls(h, base(h), builder=base, device=device)
+        if construction == "sharded":
+            builder = functools.partial(build_sharded, base=base,
+                                        workers=workers,
+                                        num_shards=num_shards)
+            idx = build_sharded(h, base=base, workers=workers,
+                                num_shards=num_shards, mesh=mesh)
+        else:
+            builder = base
+            idx = base(h)
+        eng = cls(h, idx, builder=builder, device=device)
         eng.construction = construction
         eng.use_kernels = bool(use_kernels)
         return eng
@@ -1214,7 +1243,9 @@ class ClosureEngine(_EngineBase):
             h, m, dev = self.h, self.h.m, self.device
             w_star = self._w_star_device
             if w_star is None:
-                w_star = torch.from_numpy(self.w_star).to(dev)
+                # a restored W* is a read-only view into its checkpoint:
+                # host_to_device copies it rather than sharing its pages
+                w_star = host_to_device(self.w_star, dev)
             svals = torch.zeros((h.n, m), dtype=torch.int32, device=dev)
             deg = np.diff(h.v_ptr)
             for j in range(int(deg.max()) if h.n else 0):

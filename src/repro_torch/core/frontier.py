@@ -45,7 +45,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, host_to_device, resolve_device
 from .baselines import line_graph_edges
 from .hypergraph import Hypergraph
 
@@ -88,9 +88,10 @@ class SparseLineGraph:
         self.thresholds = np.unique(np.concatenate(
             [np.asarray(od), np.asarray(h.edge_sizes)]))
         self.thresholds = self.thresholds[self.thresholds > 0]
-        # vertex -> hyperedge CSR for seeding on the device
-        self._v_ptr = torch.from_numpy(np.asarray(h.v_ptr, np.int64)).to(dev)
-        self._v_idx = torch.from_numpy(np.asarray(h.v_idx, np.int64)).to(dev)
+        # vertex -> hyperedge CSR for seeding on the device (a restored
+        # graph's CSR is a read-only checkpoint view: copied, not shared)
+        self._v_ptr = host_to_device(np.asarray(h.v_ptr, np.int64), dev)
+        self._v_idx = host_to_device(np.asarray(h.v_idx, np.int64), dev)
 
     def updated(self, new_h: Hypergraph, old_to_new: np.ndarray,
                 touched) -> "SparseLineGraph":

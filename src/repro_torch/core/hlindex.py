@@ -29,21 +29,53 @@ Implementation notes vs the pseudocode (documented deviations):
 Counterpart of ``repro/core/hlindex.py``: host-side numpy, same names in
 the same order, algorithms unchanged (label byte-identity rests on numpy's
 stable tie-breaking).  Sharded construction (``build_sharded`` and its
-worker pool) is roadmap item A10 and is not here yet, so
-``CONSTRUCTION_MODES`` lists the serial builder only.
+fork pool) runs on the host as in the reference; only its device-mesh
+route (the neighbor overlaps as one product over a mesh, roadmap item
+A10b) is not here, so ``mesh=`` is refused.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
+import multiprocessing
+import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .hypergraph import Hypergraph, NeighborCSR
+from .hypergraph import Hypergraph, NeighborCSR, induced_subhypergraph, \
+    neighbor_csr
 
-__all__ = ["HLIndex", "build_basic", "build_fast",
+__all__ = ["HLIndex", "build_basic", "build_fast", "build_sharded",
            "pad_label_rows", "splice_rank", "CONSTRUCTION_MODES"]
+
+# Safety valve for the fork-based shard pool: the window is *per shard
+# result* (it restarts every time any shard completes), so a healthy
+# long build keeps extending it and only a pool making no progress at
+# all — e.g. a lock inherited across fork — is presumed wedged,
+# terminated, and rerun inline (recorded as ``stats["pool_fallback"]``).
+_WORKER_TIMEOUT_S = 300.0
+
+# Offload the neighbor-overlap precompute to a device mesh only once the
+# host's vectorized pair pass would materialize more than this many
+# ordered co-incidence pairs (Σ_u d_u²) ...
+_DEVICE_OVERLAP_PAIRS = 5e7
+# ... and only while the dense [m, m] overlap matrix the device route
+# materializes (~12 bytes/entry) stays affordable.
+_DEVICE_OVERLAP_DENSE_BUDGET = 4 * 2**30
+
+
+def auto_device_overlaps(h: Hypergraph) -> bool:
+    """Whether the neighbor-overlap precompute for ``h`` should run on a
+    device mesh: the host pair pass would walk more than
+    ``_DEVICE_OVERLAP_PAIRS`` ordered co-incidence pairs *and* the dense
+    [m, m] footprint of the device route stays affordable.  The
+    reference's rule, unchanged; the mesh route itself is roadmap item
+    A10b, so on one device ``build_sharded`` always takes the host
+    pass."""
+    deg = h.vertex_degrees
+    return bool(float((deg * deg).sum()) > _DEVICE_OVERLAP_PAIRS
+                and 12.0 * h.m * h.m <= _DEVICE_OVERLAP_DENSE_BUDGET)
 
 
 def splice_rank(old_rank: np.ndarray, old_to_new: np.ndarray,
@@ -321,11 +353,242 @@ def build_fast(h: Hypergraph, *,
     return b.finish()
 
 
+# ---------------------------------------------------------------------------
+# Sharded construction — component shards, optionally in a fork pool
+# ---------------------------------------------------------------------------
+
+def _assign_shards(comp: np.ndarray, cost: np.ndarray,
+                   num_shards: int) -> List[np.ndarray]:
+    """Partition line-graph components into ``num_shards`` work shards,
+    balanced by estimated traversal cost (greedy longest-processing-time:
+    heaviest component to the least-loaded shard; ties resolved by lower
+    component label / lower shard index, so the partition is
+    deterministic).  Returns sorted global hyperedge-id arrays, empty
+    shards dropped."""
+    n_comp = int(comp.max()) + 1 if comp.size else 0
+    k = max(1, min(int(num_shards), n_comp))
+    order = np.lexsort((np.arange(n_comp), -cost))   # heaviest first
+    load = np.zeros(k, np.float64)
+    shard_of = np.zeros(n_comp, np.int64)
+    for c in order:
+        s = int(np.argmin(load))                     # first minimum on ties
+        shard_of[c] = s
+        load[s] += cost[c]
+    shards = [np.nonzero(shard_of[comp] == s)[0] for s in range(k)]
+    return [s for s in shards if s.size]
+
+
+def _shard_worker(payload) -> HLIndex:
+    """Build (and optionally minimize) one shard's sub-index.  Module
+    level so the fork-based shard pool can pickle it; workers touch only
+    numpy — never torch, so a child forked from a process that holds a
+    CUDA context never touches it."""
+    sub_h, sub_nbr, base, minimizer = payload
+    idx = base(sub_h, neighbors=sub_nbr)
+    if minimizer is not None:
+        idx = minimizer(idx)
+    return idx
+
+
+def _shard_worker_indexed(indexed_payload):
+    i, payload = indexed_payload
+    return i, _shard_worker(payload)
+
+
+def _run_shard_pool(payloads, workers: int) -> Optional[List[HLIndex]]:
+    """Run shard builds in forked worker processes; ``None`` means the
+    pool was unavailable, wedged, or errored and the caller should run
+    inline.  Workers execute pure numpy code, so the usual fork hazard (a
+    child touching locks or a CUDA context inherited mid-flight) does not
+    apply — but a *progress* timeout still guards the pathological case:
+    the window restarts on every completed shard, so a long healthy build
+    keeps extending it and only a pool producing nothing at all is
+    declared wedged.  On any failure the children are *terminated* (not
+    abandoned) so the inline rerun never races live duplicates for CPU
+    and memory."""
+    try:
+        ctx = multiprocessing.get_context("fork")
+    except ValueError:                               # platform without fork
+        return None
+    try:
+        pool = ctx.Pool(processes=min(int(workers), len(payloads)))
+    except OSError:
+        return None
+    try:
+        out: List[Optional[HLIndex]] = [None] * len(payloads)
+        it = pool.imap_unordered(_shard_worker_indexed,
+                                 list(enumerate(payloads)))
+        for _ in range(len(payloads)):
+            i, idx = it.next(timeout=_WORKER_TIMEOUT_S)
+            out[i] = idx
+    except Exception:
+        # no progress inside the window, a worker error, or a broken
+        # pool: kill the children and let the caller rerun inline (a
+        # genuine shard bug reproduces there with a clean traceback)
+        pool.terminate()
+        pool.join()
+        return None
+    pool.close()
+    pool.join()
+    return out
+
+
+def build_sharded(h: Hypergraph, *,
+                  base: Callable[..., HLIndex] = build_fast,
+                  minimizer: Optional[Callable[[HLIndex], HLIndex]] = None,
+                  num_shards: Optional[int] = None,
+                  workers: Optional[int] = None,
+                  mesh=None,
+                  device_overlaps: Optional[bool] = None,
+                  neighbors: Optional[NeighborCSR] = None) -> HLIndex:
+    """Parallel sharded HL-index construction — byte-identical output to
+    ``base(h)`` (and, with ``minimizer``, to ``minimizer(base(h))``).
+
+    The rank-ordered root sequence is partitioned into work shards at
+    **line-graph component boundaries** — the finest grain at which the
+    construction state (the MCD array and the neighbor index M of
+    Algorithm 3, Lemmas 4-6) provably never crosses a cut: a cover
+    relation rides an s-overlap walk, which is a line-graph path, so no
+    cover check, MCD update, or M entry can involve two components.
+    Each shard therefore replays exactly the serial traversal restricted
+    to its components, in the same relative root order:
+
+    1. The shared neighbor index is precomputed once as a ``NeighborCSR``
+       (host pair pass; ``neighbors`` hands in a prebuilt one) instead of
+       once per hyperedge on the fly.
+    2. Components are balanced into shards (greedy LPT on estimated
+       traversal cost) and each shard runs ``base`` (+ ``minimizer``) on
+       its induced sub-hypergraph, optionally in ``workers`` forked
+       processes.  Per-shard minimization is exact too: Algorithm 4's
+       dual sets are hub-confined, hence component-confined.
+    3. The merge is a deterministic cover-check reconciliation pass: it
+       verifies each shard's scope is neighbor-closed
+       (``NeighborCSR.induced`` — the condition under which per-shard
+       MCD cover state equals the serial builder's) and that each
+       shard's local importance order mirrors the global order restricted
+       to it, then splices labels/duals back into global id and rank
+       space.  Any violation raises instead of silently merging.
+
+    Why byte-identical: a vertex's incident hyperedges all share that
+    vertex pairwise, so they are line-graph adjacent and live in one
+    component — every label row is produced whole by exactly one shard,
+    in the serial root order.  ``induced_subhypergraph`` on whole
+    components preserves vertex degrees, hence importance weights, and
+    its sorted-id mapping preserves the tie-break, so per-shard
+    traversals pop and push in exactly the serial order.
+
+    Stats: the traversal counters (``pops``, ``pushes``,
+    ``neighbor_inits``, ``m_total_inserts``, ``cover_checks``,
+    ``m_final_entries``) sum to exactly the serial builder's values;
+    ``m_peak_entries`` is the max over shards (≤ the serial peak, which
+    interleaves components).  Extra keys: ``shards``, ``components``,
+    ``construction``, ``pool_fallback`` (1.0 when the fork pool made no
+    progress or failed and the shards reran inline), ``neighbor_reused``.
+
+    ``num_shards`` defaults to ``workers``, else 1; shard counts that
+    exceed the component count are clamped.  ``workers`` > 1 runs the
+    shards in that many forked processes, ≤ 1 inline (byte-identical
+    either way).  The workers run numpy only, so the pool is safe to
+    fork from a process that has initialised CUDA.
+
+    ``mesh`` (the reference's device-mesh route of the overlap
+    precompute, and its default worker count) is roadmap item A10b and
+    raises ``NotImplementedError``; ``device_overlaps=True`` without a
+    multi-device mesh raises ``ValueError`` as in the reference.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_sharded(mesh=...) is not ported yet (roadmap item A10b: "
+            "the neighbor overlaps as one product over a device mesh); "
+            "pass mesh=None to shard construction on the host")
+    if device_overlaps:
+        raise ValueError(
+            "device_overlaps=True needs a multi-device mesh to offload "
+            "to; got no mesh")
+    if num_shards is None:
+        num_shards = max(workers or 0, 1)
+    if h.m == 0:
+        idx = base(h)
+        if minimizer is not None:
+            idx = minimizer(idx)
+        idx.stats.update(shards=0, components=0, construction="sharded",
+                         pool_fallback=0.0)
+        return idx
+    neighbor_reused = neighbors is not None
+    nbr = neighbors if neighbors is not None else neighbor_csr(h)
+    comp = nbr.components()
+    row_len = np.diff(nbr.ptr).astype(np.float64)
+    cost = np.bincount(comp, weights=row_len + 1.0,
+                       minlength=int(comp.max()) + 1)
+    shards = _assign_shards(comp, cost, num_shards)
+
+    rank = h.importance_order()
+    perm = np.argsort(rank)
+    payloads, metas = [], []
+    for ids in shards:
+        sub_h, verts = induced_subhypergraph(h, ids)
+        sub_nbr = nbr.induced(ids)      # raises unless neighbor-closed
+        payloads.append((sub_h, sub_nbr, base, minimizer))
+        metas.append((ids, verts))
+
+    sub_idxs = None
+    pool_fallback = False
+    if workers and int(workers) > 1 and len(payloads) > 1:
+        sub_idxs = _run_shard_pool(payloads, int(workers))
+        pool_fallback = sub_idxs is None
+        if pool_fallback:
+            warnings.warn(
+                "build_sharded: the shard worker pool made no progress "
+                "(or errored) and was terminated; rerunning shards "
+                "inline", RuntimeWarning, stacklevel=2)
+    if sub_idxs is None:
+        sub_idxs = [_shard_worker(p) for p in payloads]
+
+    empty = np.empty(0, np.int64)
+    le: List[np.ndarray] = [empty] * h.n
+    lr: List[np.ndarray] = [empty] * h.n
+    ls: List[np.ndarray] = [empty] * h.n
+    du: List[np.ndarray] = [empty] * h.m
+    ds: List[np.ndarray] = [empty] * h.m
+    counters = ("pops", "pushes", "neighbor_inits", "m_total_inserts",
+                "cover_checks", "m_final_entries")
+    stats: Dict[str, float] = {k: 0.0 for k in counters}
+    stats["m_peak_entries"] = 0.0
+    for (ids, verts), sub in zip(metas, sub_idxs):
+        # reconciliation: the shard's local rank order must mirror the
+        # global order restricted to it (degrees — hence importance —
+        # are preserved on whole components; anything else is a bug)
+        if not np.array_equal(ids[sub.perm], ids[np.argsort(rank[ids])]):
+            raise RuntimeError(
+                "sharded construction: a shard's local importance order "
+                "diverged from the global order — scope is not a union "
+                "of whole line-graph components")
+        for lu in range(sub.h.n):
+            gu = int(verts[lu])
+            e = ids[sub.labels_edge[lu]]
+            le[gu] = e
+            lr[gu] = rank[e]
+            ls[gu] = sub.labels_s[lu]
+        for lei in range(sub.h.m):
+            ge = int(ids[lei])
+            du[ge] = verts[sub.dual_u[lei]]
+            ds[ge] = sub.dual_s[lei]
+        for key in counters:
+            stats[key] += float(sub.stats.get(key, 0))
+        stats["m_peak_entries"] = max(stats["m_peak_entries"],
+                                      float(sub.stats.get("m_peak_entries",
+                                                          0)))
+    stats.update(shards=len(shards), components=int(comp.max()) + 1,
+                 construction="sharded", pool_fallback=float(pool_fallback),
+                 neighbor_reused=float(neighbor_reused))
+    return HLIndex(h=h, rank=rank, perm=perm, labels_edge=le,
+                   labels_rank=lr, labels_s=ls, dual_u=du, dual_s=ds,
+                   stats=stats)
+
 
 # Construction-mode registry: the builder options `HLIndexEngine.build`
-# (repro_torch.core.engine) accepts for its `construction=` opt.  The
-# reference also lists "sharded" (component-sharded parallel construction);
-# it joins this table with roadmap item A10.
+# (repro_torch.core.engine) accepts for its `construction=` opt.
 CONSTRUCTION_MODES: Dict[str, Callable[..., HLIndex]] = {
     "serial": build_fast,        # Algorithm 3, one host thread
+    "sharded": build_sharded,    # component-sharded parallel construction
 }

@@ -12,7 +12,7 @@ and ``line_graph``).
 
 Counterpart of ``repro/core/hypergraph.py``, same names in the same order;
 the mesh overlap product (``_mesh_overlap_matrix``) is not ported yet, so
-``neighbor_csr(h, mesh=...)`` refuses a mesh (roadmap item A10).
+``neighbor_csr(h, mesh=...)`` refuses a mesh (roadmap item A10b).
 """
 from __future__ import annotations
 
@@ -154,7 +154,7 @@ class Hypergraph:
 class NeighborCSR:
     """The full line-graph adjacency ``N(e)`` with overlap degrees, as one
     read-only CSR — the shared neighbor index consumed by sharded HL-index
-    construction (``build_sharded``, roadmap item A10).
+    construction (``build_sharded``).
 
     Per row the content is exactly ``Hypergraph.neighbors_od(e)``:
     neighbor hyperedge ids ascending, overlap degrees aligned — so a
@@ -298,12 +298,12 @@ def neighbor_csr(h: Hypergraph, *, mesh=None) -> NeighborCSR:
     a vertex is generated in one vectorized pass and deduplicated with
     counts — O(Σ d_u²) memory, no dense [m, m].  The device-mesh route of
     the reference (overlap products as one sharded matmul) belongs to
-    roadmap item A10; until then a ``mesh`` is refused, not ignored.
+    roadmap item A10b; until then a ``mesh`` is refused, not ignored.
     """
     if mesh is not None:
         raise NotImplementedError(
-            "neighbor_csr(mesh=...) is not ported yet (roadmap item A10: "
-            "sharded construction and the mesh overlap product)")
+            "neighbor_csr(mesh=...) is not ported yet (roadmap item A10b: "
+            "the mesh overlap product)")
     m = h.m
     empty = NeighborCSR(np.zeros(max(m, 0) + 1, np.int64),
                         np.empty(0, np.int64), np.empty(0, np.int64))

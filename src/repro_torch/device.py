@@ -14,11 +14,13 @@ from __future__ import annotations
 
 import os
 import shutil
+import warnings
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "find_nvcc", "gpu_probe"]
+__all__ = ["resolve_device", "host_to_device", "find_nvcc", "gpu_probe"]
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -31,6 +33,29 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' explicitly to "
             "run on the host (nothing falls back to the CPU on its own)")
     return dev
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` as a tensor on ``device`` that never shares the memory of a
+    read-only host array.
+
+    A restored engine's arrays are read-only views into its checkpoint
+    file's ``np.memmap`` (``repro_torch.store``).  A tensor ignores that
+    flag, so an in-place write through one that shares those pages would
+    kill the process instead of raising.  A read-only ``a`` is therefore
+    copied: on the CPU into fresh memory, on a CUDA device by the
+    host->device copy itself (the shared CPU view lives only for that
+    copy).  A writable ``a`` takes the usual ``from_numpy(a).to(device)``
+    route, which shares ``a`` on the CPU as before."""
+    a = np.asarray(a)
+    if a.flags.writeable:
+        return torch.from_numpy(a).to(device)
+    if device.type == "cpu":
+        return torch.from_numpy(a.copy())
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array "
+                                "is not writable", category=UserWarning)
+        return torch.from_numpy(a).to(device)
 
 
 def find_nvcc() -> Optional[str]:

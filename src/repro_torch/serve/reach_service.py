@@ -64,10 +64,14 @@ methods (``mr_set`` / ``top_s`` batch inside, through ``mr_batch``).  A
 backend whose ``workload_capability`` lacks a kind refuses it at
 admission with ``WorkloadUnsupported``.
 
+Durability: ``checkpoint(store)`` writes the engine into a
+``repro_torch.store.IndexStore`` and journals every later update there;
+``ReachabilityService.restore(store_or_path, device=...)`` restarts
+serving from it (checkpoint page-in + WAL replay, no construction).
+
 Counterpart of ``repro/serve/reach_service.py``.  Not ported yet, and how
-each fails: ``mesh=`` (a mesh-sharded resident snapshot) raises
-``NotImplementedError`` (roadmap item A10); ``checkpoint`` / ``restore``
-raise ``NotImplementedError`` (roadmap item A9).
+it fails: ``mesh=`` (a mesh-sharded resident snapshot) raises
+``NotImplementedError`` (roadmap item A10b).
 """
 from __future__ import annotations
 
@@ -85,7 +89,9 @@ import torch
 
 from ..core.engine import SnapshotUnsupported, WorkloadUnsupported
 from ..core.query import KernelSnapshot
+from ..device import DeviceLike
 from ..kernels.build import load_library
+from ..store import IndexStore, restore_engine
 from .scheduler import (PRIORITY_CLASSES, DeadlineExceeded, TenantSpec,
                         WeightedFairScheduler, _Entry)
 
@@ -635,18 +641,46 @@ class ReachabilityService:
             self.engine.update(inserts, deletes)
             self._stats.updates += 1
 
-    # -- durability (not ported yet) ---------------------------------------
+    # -- durability (repro_torch.store) ------------------------------------
 
     def checkpoint(self, store) -> int:
-        raise NotImplementedError(
-            "service checkpoints are not ported yet (roadmap item A9: the "
-            "persistent index store)")
+        """Durably checkpoint the engine into ``store`` (a
+        ``repro_torch.store.IndexStore``) and attach the store as the
+        engine's WAL sink — every subsequent ``update`` then journals
+        (fsync) before applying, so a crash at any point is recoverable
+        via ``restore``.  Runs under the dispatch lock, never mid-batch.
+        Returns the checkpointed engine version."""
+        with self._dispatch_lock:
+            store.checkpoint(self.engine)
+            store.attach(self.engine)
+            return int(self.engine.version)
 
     @classmethod
-    def restore(cls, store_or_path, **service_opts) -> "ReachabilityService":
-        raise NotImplementedError(
-            "service restore is not ported yet (roadmap item A9: the "
-            "persistent index store)")
+    def restore(cls, store_or_path, *, device: DeviceLike = None,
+                mesh=None, verify: bool = True,
+                expect_backend: Optional[str] = None,
+                **service_opts) -> "ReachabilityService":
+        """Warm-restart serving from a store artifact of either package
+        (an ``IndexStore`` instance, a store directory, or a single
+        ``save_index`` file): the checkpoint loads mmap-backed — no
+        construction — the WAL suffix replays, the store re-attaches as
+        the WAL sink, and the service starts around the restored engine,
+        whose snapshot lands on ``device`` (``None`` means ``"cuda"``).
+        The engine arrives at its persisted version, so the first
+        micro-batch installs a resident snapshot keyed to exactly that
+        version — the same version-keyed swap a live ``update`` takes.
+        ``service_opts`` are the constructor's (``use_kernels=True``
+        serves through the ``label_join_gather`` kernel); ``mesh``
+        raises ``NotImplementedError`` (roadmap item A10b)."""
+        _refuse_mesh(mesh)
+        if isinstance(store_or_path, IndexStore):
+            engine = store_or_path.restore(device=device, verify=verify,
+                                           expect_backend=expect_backend)
+        else:
+            engine = restore_engine(store_or_path, device=device,
+                                    verify=verify,
+                                    expect_backend=expect_backend)
+        return cls(engine, **service_opts)
 
     def stats(self) -> ServiceStats:
         with self._dispatch_lock:

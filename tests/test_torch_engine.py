@@ -243,17 +243,29 @@ def test_not_ported_yet_raises_by_name():
     with pytest.raises(port_api.UpdateUnsupported):
         port_api.build_engine(h, "mst-oracle", device="cpu").update(
             deletes=[0])
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_api.build_engine(restore="somewhere.hlidx")
+    # the store is ported (tests/test_torch_store.py): a missing file
+    # fails as it does in the reference
+    for api, opts in ((port_api, {"device": "cpu"}), (ref_api, {})):
+        with pytest.raises(FileNotFoundError):
+            api.build_engine(restore="somewhere.hlidx", **opts)
     with pytest.raises(ValueError, match="ambiguous"):
         port_api.build_engine(h, restore="somewhere.hlidx")
     with pytest.raises(ValueError, match="needs a hypergraph"):
         port_api.build_engine()
+    # sharded construction is ported (tests/test_torch_construction.py);
+    # over a device mesh it is not
+    serial = port_api.build_engine(h, "hl-index", device="cpu").idx
     for opts in (dict(construction="sharded"), dict(workers=2),
-                 dict(num_shards=3),
-                 dict(mesh=_mesh((2, 2), ("data", "model")))):
-        with pytest.raises(NotImplementedError, match="A10"):
-            port_api.build_engine(h, "hl-index", device="cpu", **opts)
+                 dict(num_shards=3)):
+        sharded = port_api.build_engine(h, "hl-index", device="cpu", **opts)
+        assert sharded.construction == "sharded"
+        for f in ("rank", "perm"):
+            assert_same_array(getattr(serial, f), getattr(sharded.idx, f), f)
+        for x, y in zip(serial.as_padded(), sharded.idx.as_padded()):
+            assert_same_array(x, y, "as_padded")
+    with pytest.raises(NotImplementedError, match="A10"):
+        port_api.build_engine(h, "hl-index", device="cpu",
+                              mesh=_mesh((2, 2), ("data", "model")))
     with pytest.raises(ValueError, match="unknown construction"):
         port_api.build_engine(h, "hl-index", device="cpu",
                               construction="magic")

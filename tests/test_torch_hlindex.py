@@ -130,6 +130,7 @@ def test_pad_label_rows_and_splice_rank_identical():
 
 
 def test_construction_modes_are_a_subset_of_the_reference():
-    assert set(port_hl.CONSTRUCTION_MODES) == {"serial"}
+    assert set(port_hl.CONSTRUCTION_MODES) == {"serial", "sharded"}
     assert set(port_hl.CONSTRUCTION_MODES) <= set(ref_hl.CONSTRUCTION_MODES)
     assert port_hl.CONSTRUCTION_MODES["serial"] is port_hl.build_fast
+    assert port_hl.CONSTRUCTION_MODES["sharded"] is port_hl.build_sharded

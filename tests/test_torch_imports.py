@@ -51,6 +51,9 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.kernels.threshold_closure",
         "repro_torch.serve", "repro_torch.serve.reach_service",
         "repro_torch.serve.replicas", "repro_torch.serve.scheduler",
+        "repro_torch.store", "repro_torch.store.format",
+        "repro_torch.store.hif", "repro_torch.store.store",
+        "repro_torch.store.wal",
         "repro_torch.workloads", "repro_torch.workloads.base",
         "repro_torch.workloads.hop_bounded", "repro_torch.workloads.oracle",
         "repro_torch.workloads.setops", "repro_torch.workloads.topk",

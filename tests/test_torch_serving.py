@@ -506,7 +506,7 @@ def test_workload_requests_are_refused_at_admission():
     assert port.stats().as_dict() == ref.stats().as_dict()
 
 
-def test_mesh_store_and_device_are_refused_by_name():
+def test_mesh_store_and_device_are_refused_by_name(tmp_path):
     h = random_hypergraph(10, 12, seed=0)
     eng = port_api.build_engine(h, "hl-index", device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
@@ -516,10 +516,19 @@ def test_mesh_store_and_device_are_refused_by_name():
     with pytest.raises(NotImplementedError, match="A10"):
         port_api.ReplicaGroup(eng, 2, mesh=object(), start=False)
     svc = port_api.serve(eng, start=False)
-    with pytest.raises(NotImplementedError, match="A9"):
-        svc.checkpoint(object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_api.ReachabilityService.restore("somewhere")
+    # the store is ported (tests/test_torch_store.py): checkpoint and
+    # restore work, a missing artifact fails as in the reference, and a
+    # mesh is refused by name
+    store = port_api.IndexStore(tmp_path / "s")
+    assert svc.checkpoint(store) == 0
+    store.close()
+    assert port_api.ReachabilityService.restore(
+        tmp_path / "s", device="cpu", start=False).engine.version == 0
+    with pytest.raises(FileNotFoundError):
+        port_api.ReachabilityService.restore("somewhere", device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        port_api.ReachabilityService.restore("somewhere", device="cpu",
+                                             mesh=object())
     with pytest.raises(ValueError, match="already-built"):
         port_api.serve(eng, start=False, device="cpu")
     if not torch.cuda.is_available():
