@@ -39,7 +39,18 @@ drives the port's two paths at full size through `repro_torch.api`:
   checkpoint (645 MB of W*) restored and one insert replayed through
   `overlap` + `threshold_step` (W* held to a plain closure); loads and
   restarts timed from the page cache and with the files evicted from
-  it; and `build_sharded` through its fork pool with CUDA live.
+  it; and `build_sharded` through its fork pool with CUDA live;
+* the `sharded` backend on a logical block grid (`api.make_mesh`), right
+  after the closure: on primary-school the closure regime built three
+  times (1 x 1 allgather, 2 x 2 allgather, 2 x 2 ring: 14, 56 and 112
+  float32 `maxmin_matmul` launches), W* held to a plain closure on the
+  card and to the `closure` backend's, every pair of its snapshot through
+  `label_join_gather`; the threshold closure on a (1, 2, 2) grid (14
+  `threshold_step` launches); the mesh overlap route (one `overlap`
+  launch, CSR equal to the host pass); the label regime on the main
+  path's graph (labels equal to `main_path`'s, 2^20 pairs through
+  `label_join_gather`); scoped churn in both regimes, a `ReplicaGroup`
+  and the three store payloads on 4 x ENG-s.
 
 and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -49,7 +60,8 @@ Output: one `ptxas <kernel>: ...` line per library (registers, shared
 memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `main_path`, `service_path`, `workloads_path`, `store_path`, `wide_labels`,
-`closure_path`, `closure_path_kernels`, `closure_small`, `backends_path`
+`closure_path`, `closure_path_kernels`, `sharded_path`, `closure_small`,
+`backends_path`
 (`closure_path` and `backends_path` each with a `workloads` part), then
 `{"kernels": [...]}` (per kernel: launches on its path, error against the
 plain version, times and the roofline bound;
@@ -202,6 +214,9 @@ STORE_PAIRS, STORE_REQUESTS = 2**20, 8192
 STORE_INSERT_SIZES = (2, 3, 4, 2, 3, 4, 2)
 STORE_DISK_BYTES = 700 * 2**20
 SHARDED_COPIES, SHARDED_WORKERS = 4, 2
+# sharded_path: the plain label join on the closure snapshot (L = 12,704)
+# makes a [Q, L, L] cube, so it is timed on this many pairs only
+PLAIN_PAIRS = 64
 
 
 def emit(obj) -> None:
@@ -2053,7 +2068,7 @@ def phase_closure_path(api, semiring, ops, counters, wl, device):
              for name in DENSE_KERNELS}
     padded = {name: sum(p[name] for p in pads.values())
               for name in TENSOR_CORE_KERNELS}
-    return total, padded, rows
+    return total, padded, rows, w_star
 
 
 def phase_closure_small(api, ops, counters, device):
@@ -2104,6 +2119,504 @@ def phase_closure_small(api, ops, counters, device):
           "rounds": rounds, "oracle_direct_pairs": len(direct),
           "answer_histogram": np.bincount(want).tolist(), "builds": out,
           "seconds": clock.seconds()})
+
+
+# -- the sharded backend on a logical mesh -----------------------------------
+
+def inside_pairs(rng, h, q):
+    """``q`` query pairs, every other one two members of one hyperedge
+    (random pairs on the main path's graph almost all answer 0 or 1), the
+    rest random."""
+    us, vs = rng.integers(0, h.n, q), rng.integers(0, h.n, q)
+    sizes = h.edge_sizes
+    inside = rng.choice(np.flatnonzero(sizes >= 2), (q + 1) // 2)
+    size = sizes[inside]
+    i = (rng.random(inside.size) * size).astype(np.int64)
+    j = (i + 1 + (rng.random(inside.size) * (size - 1)).astype(np.int64)) \
+        % size
+    us[0::2] = h.e_idx[h.e_ptr[inside] + i]
+    vs[0::2] = h.e_idx[h.e_ptr[inside] + j]
+    return us, vs
+
+
+def counted_run(counters, fn):
+    """``fn()`` with every count set to 0 just before and read just after:
+    (result, launches per kernel, ``label_join_gather`` apart)."""
+    reset_counts(counters)
+    counters["label_join"].GATHER_LAUNCHES = 0
+    out = fn()
+    return out, counts_now(counters)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def expect_counts(tag, counts, want):
+    got = {k: v for k, v in counts.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+
+def plain_maxmin_closure(mm, w):
+    """The bottleneck closure of ``w`` in plain rounds on the card:
+    ``max(R, maxmin_matmul_ref(R, R))`` (16 columns of the contraction at a
+    time) until a round changes nothing, which is W* (the kernel builds
+    run the whole ⌈log2 m⌉ ladder to the same fixpoint).  Returns (W*,
+    rounds run, the first round's product R∘R and its ms)."""
+    r, rounds, first = w, 0, None
+    while True:
+        ms, prod = cuda_once(lambda: mm.maxmin_matmul_ref(r, r, block=16))
+        if first is None:
+            first = (prod, ms)
+        nxt = torch.maximum(r, prod)
+        rounds += 1
+        if torch.equal(nxt, r):
+            return r, rounds, first
+        r = nxt
+
+
+def maxmin_f32_rows(mm, w, first):
+    """The float32 ``maxmin_matmul`` at the sharded closure's operands (the
+    line graph of the first round): the whole [m]^3 product of the 1 x 1
+    grid (held to the plain closure's first product ``first``, and timed
+    beside that product's ms) and the two block shapes of a 2 x 2 grid —
+    allgather's row panel x column panel [m/2, m] x [m, m/2] and ring's
+    [m/2]^3 segment — each against its plain version, timed, with its
+    bound at the int32 min/max rate (float min/max is not priced apart)."""
+    m = w.shape[0]
+    half = m // 2
+    rows = {}
+    for tag, a, b in ((f"[{m}]^3", w, w),
+                      (f"[{half}, {m}] x [{m}, {half}]", w[:half].contiguous(),
+                       w[:, :half].contiguous()),
+                      (f"[{half}]^3", w[:half, :half].contiguous(),
+                       w[:half, :half].contiguous())):
+        if a is w:
+            plain_ms, want = first[1], first[0]
+        else:
+            plain_ms, want = cuda_once(
+                lambda: mm.maxmin_matmul_ref(a, b, block=16))
+        err = check_equal(f"maxmin float32 {tag}", mm.maxmin_matmul(a, b),
+                          want)
+        del want
+        bound_ms, bound_by = maxmin_bound(a.shape[0], a.shape[1],
+                                          b.shape[1])
+        rows[tag] = {"shape": [a.shape[0], a.shape[1], b.shape[1]],
+                     "dtype": "float32", "max_abs_err": err,
+                     "ms": cuda_ms(lambda: mm.maxmin_matmul(a, b),
+                                   reps=3 if a is w else 5, warmup=1),
+                     "plain_ms": plain_ms, "plain_reps": 1,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+    return rows
+
+
+def eng_s_copies(api, copies):
+    """``copies`` disjoint copies of ENG-s (one line-graph component each)."""
+    g = SMALL_GRAPH
+    hs = api.random_hypergraph(g["n"], g["m"], min_size=g["min_size"],
+                               max_size=g["max_size"], seed=g["seed"])
+    return api.from_edge_lists(
+        [hs.edge(e) + k * hs.n for k in range(copies) for e in range(hs.m)],
+        n=copies * hs.n)
+
+
+def closure_all_pairs(h, w_star):
+    """MR of every ordered pair (u, v), row-major, from the ``closure``
+    engine's host W* as its scalar path answers it: the max over
+    e_u ∋ u and e_v ∋ v of W*[e_u, e_v] (0 where either has none)."""
+    out = np.zeros((h.n, h.n), np.int64)
+    for u in range(h.n):
+        eu = h.edges_of(u)
+        if eu.size:
+            best = w_star[eu].max(axis=0)
+            for v in range(h.n):
+                ev = h.edges_of(v)
+                if ev.size:
+                    out[u, v] = best[ev].max()
+    return out.ravel()
+
+
+def held_to_plain(tag, eng, us, vs, answers):
+    """The engine's kernel answers against the plain join (``batched_mr``,
+    in chunks of 4,096 pairs) of its own snapshot on the same pairs;
+    returns the max abs error (0)."""
+    snap = eng.snapshot()
+    bu = torch.from_numpy(np.asarray(us, np.int64)).to(snap.device)
+    bv = torch.from_numpy(np.asarray(vs, np.int64)).to(snap.device)
+    want = torch.cat([snap.mr(bu[i:i + 4096], bv[i:i + 4096])
+                      for i in range(0, bu.numel(), 4096)])
+    return check_equal(tag, torch.from_numpy(
+        np.asarray(answers).astype(np.int32)).to(snap.device), want)
+
+
+def phase_sharded_path(api, dist, counters, closure_w, main, device):
+    """The ``sharded`` backend on a logical mesh: the closure regime on
+    primary-school (1 x 1 allgather, 2 x 2 allgather and ring, float32
+    ``maxmin_matmul`` block contractions, W* held to a plain closure on the
+    card and to ``closure_path``'s host W* ``closure_w``), its snapshot's
+    every pair through
+    ``label_join_gather``; the threshold closure on a (1, 2, 2) grid
+    through ``threshold_step``; the mesh overlap route through ``overlap``;
+    the label regime on the main path's graph (labels byte-equal to
+    ``main_path``'s, 2^20 pairs through ``label_join_gather``); scoped
+    churn, a ``ReplicaGroup`` and the three store payloads on 4 x ENG-s.
+    Returns (launches per kernel, max abs err per kernel, kernel rows)."""
+    clock = Phase()
+    mm, ov, tc, lj = (counters[k] for k in ("maxmin_matmul", "overlap",
+                                            "threshold_step", "label_join"))
+    from repro_torch.core import hlindex as hl_mod
+    from repro_torch.core.hypergraph import (apply_edge_edits,
+                                             neighbor_csr)
+    from repro_torch.kernels.ops import default_rounds
+    out = {"phase": "sharded_path"}
+    total, errs, rows = {}, {k: 0 for k in (
+        "maxmin_matmul", "overlap", "threshold_step",
+        "label_join_gather")}, {}
+    axes = ("data", "model")
+    mesh11 = api.make_mesh((1, 1), axes)
+    mesh22 = api.make_mesh((2, 2), axes)
+
+    # 1. the closure regime on primary-school
+    g = CLOSURE_GRAPH
+    h = api.random_hypergraph(g["n"], g["m"], min_size=g["min_size"],
+                              max_size=g["max_size"], seed=g["seed"])
+    rounds = default_rounds(h.m)
+    plan = api.plan_backend(h, mesh=mesh22)
+    if plan != "sharded":
+        raise AssertionError(f"sharded_path: the planner named {plan}")
+    w = torch.from_numpy(h.line_graph(np.int32).astype(np.float32)).to(device)
+    (plain_w, plain_rounds, first), plain_s = timed_s(
+        lambda: plain_maxmin_closure(mm, w))
+    closure_dev = torch.from_numpy(closure_w).to(device)
+    if not torch.equal(plain_w.to(torch.int32), closure_dev):
+        raise AssertionError("sharded_path: the plain closure != "
+                             "closure_path's W*")
+    builds = {}
+    keep = None
+    for shape, schedule in (((1, 1), "allgather"), ((2, 2), "allgather"),
+                            ((2, 2), "ring")):
+        mesh = mesh11 if shape == (1, 1) else mesh22
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (eng, build_s), counts = counted_run(counters, lambda: timed_s(
+            lambda: api.build_engine(h, "sharded", mesh=mesh,
+                                     schedule=schedule, use_kernels=True)))
+        peak = torch.cuda.max_memory_allocated() - base
+        r, c = shape
+        launches = rounds * r * c * (r if schedule == "ring" else 1)
+        tag = f"{r}x{c} {schedule}"
+        expect_counts(f"sharded_path {tag} build", counts,
+                      {"maxmin_matmul": launches})
+        add_counts(total, counts)
+        mp = -(-h.m // math.lcm(r, c)) * math.lcm(r, c)
+        if (eng._w_star.dtype != torch.float32
+                or eng._w_star.device.type != device.type
+                or tuple(eng._w_star.shape) != (mp, mp)):
+            raise AssertionError(
+                f"sharded_path {tag}: W* is {eng._w_star.dtype}"
+                f"{tuple(eng._w_star.shape)} on {eng._w_star.device}")
+        w_star = eng._w_star[:h.m, :h.m]
+        errs["maxmin_matmul"] = max(errs["maxmin_matmul"], check_equal(
+            f"sharded_path {tag} W* vs the plain closure", w_star, plain_w))
+        if not torch.equal(w_star.to(torch.int32), closure_dev):
+            raise AssertionError(f"sharded_path {tag}: W* != closure_path's")
+        builds[tag] = {"build_seconds": build_s,
+                       "maxmin_matmul_float32_launches":
+                           counts["maxmin_matmul"],
+                       "peak_rise_bytes": peak}
+        if keep is None:
+            keep = eng
+        else:
+            del eng
+        torch.cuda.empty_cache()
+    del closure_dev
+
+    # the snapshot of the 1 x 1 build (W* freed after it), every pair
+    # through label_join_gather, held to the plain join and to closure's
+    snap, snap_s = timed_s(keep.snapshot)
+    if keep._w_star is not None or tuple(snap.svals.shape) != (h.n, h.m):
+        raise AssertionError(f"sharded_path: snapshot "
+                             f"{tuple(snap.svals.shape)}, W* kept")
+    us, vs = np.divmod(np.arange(h.n * h.n), h.n)
+    (got, pairs_s), counts = counted_run(counters, lambda: timed_s(
+        lambda: keep.mr_batch(us, vs)))
+    expect_counts("sharded_path all pairs", counts,
+                  {"label_join": 1, "label_join_gather": 1})
+    add_counts(total, counts)
+    errs["label_join_gather"] = max(errs["label_join_gather"], held_to_plain(
+        "sharded_path all pairs", keep, us, vs, got))
+    if not np.array_equal(got, closure_all_pairs(h, closure_w)):
+        raise AssertionError("sharded_path: all pairs != the closure engine")
+    bu = torch.from_numpy(us).to(device)
+    bv = torch.from_numpy(vs).to(device)
+    bound_ms, bound_by, bcounts = label_join_gather_bound(snap.svals, bu, bv)
+    # the plain version's [Q, L, L] cube is 645 MB a pair at this L: it
+    # is timed on the first PLAIN_PAIRS pairs only, the kernel on all
+    pu, pv = bu[:PLAIN_PAIRS], bv[:PLAIN_PAIRS]
+    plain = plain_gather_chunked(lj.label_join_gather_ref, snap.ranks,
+                                 snap.svals, pu, pv)
+    errs["label_join_gather"] = max(errs["label_join_gather"], check_equal(
+        "sharded_path closure snapshot, plain version", lj.label_join_gather(
+            snap.ranks, snap.svals, pu, pv), plain))
+    rows["label_join_gather closure snapshot"] = {
+        "shape": [h.n * h.n, h.n, h.m], "route": "warp per row",
+        "ms": cuda_ms(lambda: lj.label_join_gather(snap.ranks, snap.svals,
+                                                   bu, bv), reps=10),
+        "plain_ms": cuda_ms(lambda: plain_gather_chunked(
+            lj.label_join_gather_ref, snap.ranks, snap.svals, pu, pv),
+            reps=1, warmup=1),
+        "plain_pairs": int(pu.numel()),
+        "torch_ops_ms": cuda_ms(lambda: torch.cat([
+            snap.mr(bu[i:i + 4096], bv[i:i + 4096])
+            for i in range(0, bu.numel(), 4096)]), reps=3, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        **bcounts}
+    del plain, pu, pv
+    out["closure_regime"] = {
+        "n": h.n, "m": h.m, "rounds": rounds, "plan_2x2": plan,
+        "working_set_bytes": 12 * h.m * h.m,
+        "plain_closure_rounds_to_fixpoint": plain_rounds,
+        "plain_closure_seconds": plain_s, "builds": builds,
+        "snapshot_seconds": snap_s, "snapshot_bytes": snap.nbytes(),
+        "pairs": int(us.size), "all_pairs_seconds": pairs_s,
+        "answer_histogram": np.bincount(got).tolist()}
+    del keep, snap, bu, bv
+    torch.cuda.empty_cache()
+    rows.update(maxmin_f32_rows(mm, w, first))
+    del first, plain_w
+    errs["maxmin_matmul"] = max(errs["maxmin_matmul"],
+                                *(r["max_abs_err"] for k, r in rows.items()
+                                  if k.startswith("[")))
+    torch.cuda.empty_cache()
+
+    # 2. the threshold closure on a (1, 2, 2) grid
+    mesh3 = api.make_mesh((1, 2, 2), ("pod", "data", "model"))
+    from repro_torch.core.semiring import distinct_thresholds
+    thr = distinct_thresholds(w)
+    (mr3, thr_s), counts = counted_run(counters, lambda: timed_s(
+        lambda: dist.sharded_threshold_closure_mr(w, thr, mesh3)))
+    expect_counts("sharded_path threshold", counts,
+                  {"threshold_step": rounds})
+    add_counts(total, counts)
+    closure_dev = torch.from_numpy(closure_w).to(device)
+    if not torch.equal(mr3.to(torch.int32), closure_dev):
+        raise AssertionError("sharded_path: the threshold closure != "
+                             "closure_path's W*")
+    out["threshold_closure"] = {"grid": [1, 2, 2], "S": int(thr.size),
+                                "seconds": thr_s,
+                                "threshold_step_launches":
+                                    counts["threshold_step"]}
+    del mr3, closure_dev, w
+    torch.cuda.empty_cache()
+
+    # 3. the mesh overlap route
+    (mesh_nbr, nbr_s), counts = counted_run(counters, lambda: timed_s(
+        lambda: neighbor_csr(h, mesh=mesh22)))
+    expect_counts("sharded_path neighbor_csr", counts, {"overlap": 1})
+    add_counts(total, counts)
+    host_nbr, host_s = timed_s(lambda: neighbor_csr(h))
+    for f in ("ptr", "idx", "od"):
+        a, b = getattr(mesh_nbr, f), getattr(host_nbr, f)
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"sharded_path: mesh neighbor_csr.{f} != "
+                                 f"the host route's")
+    out["mesh_overlaps"] = {"mesh_seconds": nbr_s, "host_seconds": host_s,
+                            "entries": int(mesh_nbr.idx.size),
+                            "dense_host_bytes": 8 * h.m * h.m}
+    del mesh_nbr, host_nbr
+
+    # 4. the label regime on the main path's graph
+    mh = main["h"]
+    plan = api.plan_backend(mh, mesh=mesh22)
+    if plan != "sharded":
+        raise AssertionError(f"sharded_path: 89k/70k planned {plan}")
+    (eng, build_s), counts = counted_run(counters, lambda: timed_s(
+        lambda: api.build_engine(mh, "sharded", mesh=mesh22,
+                                 build_labels=True, use_kernels=True)))
+    expect_counts("sharded_path label build", counts, {})
+    stats = eng._idx.stats
+    if not same_index_rows(eng._idx, main["idx"]):
+        raise AssertionError("sharded_path: label regime labels != "
+                             "main_path's build_fast + minimize")
+    if stats["pool_fallback"] != 0:
+        raise AssertionError(f"sharded_path: pool_fallback {stats}")
+    nbr_entries = int(eng._nbr.idx.size)
+    workers = (min(4, os.cpu_count() or 1)
+               if nbr_entries >= hl_mod._POOL_MIN_NEIGHBOR_ENTRIES else 0)
+    snap, snap_s = timed_s(eng.snapshot)
+    if snap.mesh != mesh22 or snap.ranks.shape[1] % 2:
+        raise AssertionError(f"sharded_path: label snapshot "
+                             f"{tuple(snap.ranks.shape)} on {snap.mesh}")
+    mus, mvs = main["pairs"]
+    (got, batch_s), counts = counted_run(counters, lambda: timed_s(
+        lambda: eng.mr_batch(mus, mvs)))
+    expect_counts("sharded_path 2^20 pairs", counts,
+                  {"label_join": 1, "label_join_gather": 1})
+    add_counts(total, counts)
+    errs["label_join_gather"] = max(errs["label_join_gather"], held_to_plain(
+        "sharded_path 2^20 pairs", eng, mus, mvs, got))
+    if not np.array_equal(got, main["answers"]):
+        raise AssertionError("sharded_path: 2^20 answers != main_path's")
+    bu = torch.from_numpy(mus).to(device)
+    bv = torch.from_numpy(mvs).to(device)
+    bound_ms, bound_by, bcounts = label_join_gather_bound(snap.svals, bu, bv)
+    rows["label_join_gather label snapshot"] = {
+        "shape": [int(mus.size)] + list(snap.ranks.shape),
+        "route": "lane groups",
+        "ms": cuda_ms(lambda: lj.label_join_gather(snap.ranks, snap.svals,
+                                                   bu, bv), reps=30),
+        "plain_ms": cuda_ms(lambda: plain_gather_chunked(
+            lj.label_join_gather_ref, snap.ranks, snap.svals, bu, bv),
+            reps=3, warmup=1),
+        "torch_ops_ms": cuda_ms(lambda: snap.mr(bu, bv), reps=10),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        **bcounts}
+    out["label_regime"] = {
+        "n": mh.n, "m": mh.m, "plan_2x2": plan, "build_seconds": build_s,
+        "main_path_build_seconds": main["build_seconds"],
+        "shards": stats["shards"], "components": stats["components"],
+        "pool_fallback": stats["pool_fallback"], "workers": workers,
+        "neighbor_entries": nbr_entries,
+        "snapshot_shape": list(snap.ranks.shape), "snapshot_seconds": snap_s,
+        "pairs": int(mus.size), "mr_batch_seconds": batch_s,
+        "share_nonzero": float((got > 0).mean()),
+        "share_two_or_more": float((got >= 2).mean())}
+    del eng, snap, bu, bv, got
+    torch.cuda.empty_cache()
+
+    # 5. scoped churn, replicas and the store on 4 x ENG-s
+    h4 = eng_s_copies(api, SHARDED_COPIES)
+    q4 = np.divmod(np.arange(h4.n * h4.n), h4.n)
+    churn = {}
+    script = [([[0, 1, 2]], []), ([], [0]), ([[0, 5], [2, 3, 4]], [1, 3]),
+              ([], list(range(6))), ([[0, 1], [1, 2, 3]], [])]
+    for labels in (False, True):
+        regime = "labels" if labels else "closure"
+        (eng, build_s), counts = counted_run(counters, lambda: timed_s(
+            lambda: api.build_engine(h4, "sharded", mesh=mesh22,
+                                     build_labels=labels, use_kernels=True)))
+        add_counts(total, counts)
+        eng.snapshot()
+        steps = []
+        for ins, dels in script:
+            cur = eng.h
+            dels = [d for d in dels if d < cur.m]
+            (_, upd_s), c1 = counted_run(counters, lambda: timed_s(
+                lambda: eng.update(inserts=ins, deletes=dels)))
+            dirty = eng.dirty_rows()
+            (got, _), c2 = counted_run(counters, lambda: timed_s(
+                lambda: eng.mr_batch(*q4)))
+            expect_counts(f"sharded_path churn {regime}", c2,
+                          {"label_join": 1, "label_join_gather": 1})
+            add_counts(total, c1)
+            add_counts(total, c2)
+            if dirty is None or not 0 < dirty.size < cur.n:
+                raise AssertionError(f"sharded_path churn {regime}: dirty "
+                                     f"rows {dirty}")
+            h2, _, _ = apply_edge_edits(cur, ins, dels)
+            fresh = api.build_engine(h2, "sharded", mesh=mesh22,
+                                     build_labels=labels, use_kernels=True)
+            if not np.array_equal(got, fresh.mr_batch(*q4)):
+                raise AssertionError(f"sharded_path churn {regime}: != a "
+                                     f"fresh build")
+            errs["label_join_gather"] = max(
+                errs["label_join_gather"],
+                held_to_plain(f"sharded_path churn {regime}", eng,
+                              *q4, got))
+            steps.append({"update_seconds": upd_s,
+                          "dirty_rows": int(dirty.size),
+                          "refresh_rows": eng.last_snapshot_refresh_rows,
+                          "maxmin_matmul_launches": c1["maxmin_matmul"]})
+        churn[regime] = {"build_seconds": build_s, "steps": steps}
+
+        # a ReplicaGroup of 2 through 3 swap batches (delete a hyperedge
+        # of copy 0, insert its vertex set again): row patches only
+        base_eng = api.build_engine(h4, "sharded", mesh=mesh22,
+                                    build_labels=labels, use_kernels=True)
+        grp = api.ReplicaGroup(base_eng, 2, mesh=mesh22, start=False,
+                               config=api.ServiceConfig(max_batch=4096))
+        rng = np.random.default_rng(53)
+        for step in range(4):
+            cur = grp.engine.h
+            pu, pv = inside_pairs(rng, cur, 2048)
+            reqs = [api.MRRequest(int(u), int(v)) for u, v in zip(pu, pv)]
+            (futs, _), c = counted_run(counters, lambda: (grp.submit_many(reqs),
+                                                      grp.drain()))
+            add_counts(total, c)
+            got = np.array([f.result(timeout=120) for f in futs], np.int64)
+            errs["label_join_gather"] = max(
+                errs["label_join_gather"],
+                held_to_plain(f"sharded_path replicas {regime}",
+                              grp.engine, pu, pv, got))
+            if step < 3:
+                # an edge of copy 0: each swap moves one of its edges to
+                # the end of the id space, so ids below m0 - step stay in it
+                e = int(rng.integers(0, h4.m // SHARDED_COPIES - step))
+                verts = [int(x) for x in cur.edge(e)]
+                grp.update(inserts=[verts], deletes=[e])
+        rstats = grp.replica_stats()
+        if not all(r["full_relands"] == 1 and r["rows_patched"] > 0
+                   for r in rstats):
+            raise AssertionError(f"sharded_path replicas {regime}: {rstats}")
+        reps_out = {"replica_stats": rstats,
+                    "mesh_rows_patched": grp.stats().mesh_rows_patched}
+        grp.close()
+        churn[regime]["replicas"] = reps_out
+        del eng, base_eng, grp
+
+    # the three store payloads through IndexStore, restored on the mesh
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    stored = {}
+    try:
+        for payload in ("closure", "snapshot", "labels"):
+            eng = api.build_engine(h4, "sharded", mesh=mesh22,
+                                   build_labels=payload == "labels",
+                                   use_kernels=True)
+            if payload == "snapshot":
+                eng.snapshot()
+            store = api.IndexStore(os.path.join(root, payload))
+            store.checkpoint(eng)
+            manifest = store.manifest()
+            ckpt_bytes = os.path.getsize(store.current_checkpoint())
+            store.close()
+            if manifest["payload"] != payload:
+                raise AssertionError(f"sharded_path store: {manifest}")
+            store = api.IndexStore(os.path.join(root, payload))
+            (restored, restore_s), c = counted_run(counters, lambda: timed_s(
+                lambda: store.restore(mesh=mesh22)))
+            restored.use_kernels = True
+            (got, _), c2 = counted_run(counters, lambda: timed_s(
+                lambda: restored.mr_batch(*q4)))
+            add_counts(total, c)
+            add_counts(total, c2)
+            expect_counts(f"sharded_path store {payload}", c2,
+                          {"label_join": 1, "label_join_gather": 1})
+            errs["label_join_gather"] = max(
+                errs["label_join_gather"],
+                held_to_plain(f"sharded_path store {payload}", restored,
+                              *q4, got))
+            if not np.array_equal(got, eng.mr_batch(*q4)):
+                raise AssertionError(f"sharded_path store {payload}: "
+                                     f"restored != live")
+            store.close()
+            stored[payload] = {"restore_seconds": restore_s,
+                               "checkpoint_bytes": ckpt_bytes}
+            del eng, restored
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["eng_s_copies"] = {"n": h4.n, "m": h4.m, "churn": churn,
+                           "store": stored}
+
+    out["launches"] = {k: v for k, v in total.items() if v}
+    out["max_abs_err"] = errs
+    out["kernels"] = rows
+    out["seconds"] = clock.seconds()
+    emit(out)
+    return total, errs, rows
 
 
 # -- the index-free and baseline backends ------------------------------------
@@ -3514,6 +4027,7 @@ def main() -> int:
     from repro_torch.device import find_nvcc
     from repro_torch.core import engine as engine_mod
     from repro_torch.core import query as query_mod
+    from repro_torch.core import distributed as dist
     from repro_torch.core import semiring
     from repro_torch.core.query import searchsorted_join
     from repro_torch.kernels import build as build_mod
@@ -3543,6 +4057,12 @@ def main() -> int:
     main_pairs = (main_rng.integers(0, main_h.n, FRONTIER_PAIRS),
                   main_rng.integers(0, main_h.n, FRONTIER_PAIRS))
     main_mr = main_eng.mr_batch(*main_pairs)
+    # sharded_path's label regime is held to this engine's labels and
+    # answers as main_path built them
+    sharded_pairs = inside_pairs(np.random.default_rng(59), main_h, 2**20)
+    main = {"h": main_h, "idx": main_eng.idx, "pairs": sharded_pairs,
+            "answers": main_eng.mr_batch(*sharded_pairs),
+            "build_seconds": main_build_s}
     service_launches, service_dense = phase_service_path(
         api, engine_mod, serve_mod, query_mod, ops, counters, main_eng,
         device)
@@ -3554,8 +4074,12 @@ def main() -> int:
     del main_eng
     torch.cuda.empty_cache()
     phase_wide_labels(api, engine_mod, lj, device)
-    dense_launches, dense_pads, path_rows = phase_closure_path(
+    dense_launches, dense_pads, path_rows, closure_w = phase_closure_path(
         api, semiring, ops, counters, wl, device)
+    sharded_launches, sharded_errs, sharded_rows = phase_sharded_path(
+        api, dist, counters, closure_w, main, device)
+    del closure_w, main
+    torch.cuda.empty_cache()
     phase_closure_small(api, ops, counters, device)
     backends_launches, ete_kernel, ete_workload_launches = \
         phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
@@ -3568,14 +4092,17 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
         "replaces": "src/repro/kernels/label_join.py:106",
         "launches": (launches + service_launches + backends_launches
-                     + workload_launches + store_launches["label_join"]),
+                     + workload_launches + store_launches["label_join"]
+                     + sharded_launches["label_join"]),
         "launches_by_path": {"main_path": launches,
                              "service_path": service_launches,
                              "backends_path": backends_launches,
                              "workloads_path": workload_launches,
-                             "store_path": store_launches["label_join"]},
+                             "store_path": store_launches["label_join"],
+                             "sharded_path": sharded_launches["label_join"]},
         "max_abs_err": max(err_checks, err_main,
-                           store_errs["label_join_gather"]),
+                           store_errs["label_join_gather"],
+                           sharded_errs["label_join_gather"]),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,    # no single PyTorch call computes this join
@@ -3587,16 +4114,20 @@ def main() -> int:
         "replaces": "src/repro/kernels/label_join.py:106",
         "launches": (gather_launches + service_launches + backends_launches
                      + workload_launches
-                     + store_launches["label_join_gather"]),
+                     + store_launches["label_join_gather"]
+                     + sharded_launches["label_join_gather"]),
         "launches_by_path": {"main_path": gather_launches,
                              "service_path": service_launches,
                              "backends_path": backends_launches,
                              "workloads_path": workload_launches,
                              "store_path": store_launches[
+                                 "label_join_gather"],
+                             "sharded_path": sharded_launches[
                                  "label_join_gather"]},
         "max_abs_err": max(gather_err_checks, gather_err_main,
                            ete_kernel["max_abs_err"],
-                           store_errs["label_join_gather"]),
+                           store_errs["label_join_gather"],
+                           sharded_errs["label_join_gather"]),
         "ms": gather_times["ms"], "cold_ms": gather_times["cold_ms"],
         "plain_ms": gather_times["plain_ms"],
         "bound_ms": gather_times["bound_ms"],
@@ -3609,6 +4140,9 @@ def main() -> int:
         "ete_shape": {k: ete_kernel[k] for k in (
             "shape", "route", "ms", "cold_ms", "plain_ms", "torch_ops_ms",
             "bound_ms", "bound_by", "distinct_rows")},
+        # the same kernel on the sharded backend's two snapshots
+        "sharded_shapes": {k: v for k, v in sharded_rows.items()
+                           if k.startswith("label_join_gather")},
     }]
     replaces = {"maxmin_matmul": "src/repro/kernels/maxmin_matmul.py:70",
                 "overlap": "src/repro/kernels/overlap.py:47",
@@ -3620,15 +4154,21 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (dense_launches[name] + service_dense[name]
-                         + store_launches[name]),
+                         + store_launches[name] + sharded_launches[name]),
             "launches_by_path": {"closure_path": dense_launches[name],
                                  "service_path": service_dense[name],
-                                 "store_path": store_launches[name]},
+                                 "store_path": store_launches[name],
+                                 "sharded_path": sharded_launches[name]},
             "max_abs_err": max(dense_errs[name], row["max_abs_err"],
-                               store_errs.get(name, 0)),
+                               store_errs.get(name, 0),
+                               sharded_errs[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})
+        if name == "maxmin_matmul":
+            # float32, at the sharded closure's whole and block shapes
+            kernels[-1]["float32"] = {k: v for k, v in sharded_rows.items()
+                                      if k.startswith("[")}
         if name in TENSOR_CORE_KERNELS:
             kernels[-1].update(dtype=row["dtype"],
                                library_f32_ms=row["library_f32_ms"],

@@ -19,8 +19,8 @@ and raises on a host without a CUDA device; ``device="cpu"`` runs the
 same code on the host, with each kernel's plain PyTorch version in place
 of the kernel.
 
-Backends today: every single-device backend of the reference.
-``hl-index`` and ``hl-index-basic``; ``closure`` — the dense (max, min)
+Backends today: every backend of the reference, ``sharded`` on a
+logical mesh included (below).  ``hl-index`` and ``hl-index-basic``; ``closure`` — the dense (max, min)
 closure ``W*``, built on the device by the ``overlap`` kernel and
 ⌈log2 m⌉ launches of ``maxmin_matmul`` (``method="maxmin"``, the
 default) or ``threshold_step`` (``method="threshold"``); the planner
@@ -97,9 +97,17 @@ what the other saved):
     eng = build_engine(restore="store/", device="cpu")
 
 ``build_engine(h, "hl-index", workers=4)`` builds the index by line-graph
-component shards in a fork pool (byte-identical labels).  The mesh and
-the ``sharded`` backend of the reference facade are not here yet;
-``ROADMAP.md`` lists them in the order they are ported.
+component shards in a fork pool (byte-identical labels).  The mesh is a
+logical block grid on one device (``make_mesh``, as ``repro.api``'s):
+
+    mesh = make_mesh((2, 2), ("data", "model"))          # on the card
+    eng = build_engine(h, backend="sharded", mesh=mesh, schedule="ring")
+    eng.mr_batch(us, vs)             # served off the block-partitioned W*
+    eng = build_engine(h, "sharded", mesh=mesh, build_labels=True)
+    eng = build_engine(h, "hl-index", mesh=mesh)      # auto: sharded build
+    svc = serve(h, "sharded", mesh=mesh)              # mesh-resident serving
+
+``make_mesh(..., device="cpu")`` runs all of it on the host.
 """
 from __future__ import annotations
 
@@ -117,13 +125,14 @@ from repro_torch.core.hypergraph import (Hypergraph, from_edge_lists, compact,
                                          random_hypergraph,
                                          planted_chain_hypergraph,
                                          colocation_hypergraph, paper_figure1)
+from repro_torch.core.mesh import (LogicalMesh, default_line_graph_mesh,
+                                   make_mesh)
 from repro_torch.device import DeviceLike
 from repro_torch.serve.reach_service import (MRRequest, MRSetRequest,
                                              ReachabilityService, Request,
                                              SDistanceRequest, ServiceConfig,
                                              SReachKRequest, SReachRequest,
-                                             TopSRequest, WitnessRequest,
-                                             _refuse_mesh)
+                                             TopSRequest, WitnessRequest)
 from repro_torch.serve.replicas import ReplicaGroup
 from repro_torch.serve.scheduler import (PRIORITY_CLASSES, DeadlineExceeded,
                                          TenantSpec)
@@ -147,6 +156,7 @@ __all__ = [
     "Hypergraph", "from_edge_lists", "compact", "random_hypergraph",
     "planted_chain_hypergraph", "colocation_hypergraph", "paper_figure1",
     "IndexStore", "save_index", "load_index", "read_hif", "write_hif",
+    "LogicalMesh", "make_mesh", "default_line_graph_mesh",
 ]
 
 # service knobs that used to ride along in serve(**opts); still accepted
@@ -169,26 +179,28 @@ def serve(h_or_engine, backend: str = "auto", *,
       config: a ``ServiceConfig`` — the typed home of every serving knob
         (batching, tenant weights, priorities, replicas, kernels).
         Defaults to ``ServiceConfig()``.
-      backend / batch_hint / device / engine ``**opts``: forwarded to
-        ``build_engine`` when a hypergraph is passed.  ``device=None``
-        means ``"cuda"`` and raises without a CUDA device; pass
-        ``device="cpu"`` to serve on the host.
-      mesh: must be ``None`` (mesh-resident serving is roadmap item A10).
+      backend / batch_hint / mesh / device / engine ``**opts``:
+        forwarded to ``build_engine`` when a hypergraph is passed.
+        ``device=None`` means the mesh's device, or ``"cuda"`` without a
+        mesh, and raises without a CUDA device; pass ``device="cpu"``
+        (or a CPU mesh) to serve on the host.  ``mesh`` (a
+        ``LogicalMesh``) is also handed to the service so the resident
+        snapshot is kept on it.
       start: start the background admission thread (``start=False`` =
         synchronous mode; call ``svc.drain()``).
 
-    ``config.use_kernels`` reaches the engine build (for backends that
-    take it) and the service; with a prebuilt engine it configures the
-    service alone.
+    ``config.axes`` names the mesh (row, column) axes in both layers
+    and is forwarded to both: the ``sharded`` engine's block partition
+    and the service's ``to_mesh`` re-landing.  ``config.use_kernels``
+    reaches the engine build (for backends that take it) and the
+    service; with a prebuilt engine it configures the service alone.
 
     Deprecated: the service knobs (``max_batch``, ``min_bucket``,
     ``max_wait_ms``, ``axes``, ``use_kernels``) are still accepted as
     bare keyword arguments — they fold into ``config`` with a
-    ``DeprecationWarning`` (``axes`` then raises ``NotImplementedError``,
-    as in ``ServiceConfig``: mesh placement is roadmap item A10).
-    Everything else in ``**opts`` is an engine-build option.
+    ``DeprecationWarning``.  Everything else in ``**opts`` is an
+    engine-build option.
     """
-    _refuse_mesh(mesh)
     legacy = {k: opts.pop(k) for k in _LEGACY_SERVICE_KWARGS if k in opts}
     cfg = config if config is not None else ServiceConfig()
     if legacy:
@@ -201,8 +213,16 @@ def serve(h_or_engine, backend: str = "auto", *,
     if isinstance(h_or_engine, Hypergraph):
         if cfg.use_kernels is not None:
             opts["use_kernels"] = cfg.use_kernels
-        engine = build_engine(h_or_engine, backend, batch_hint=batch_hint,
-                              device=device, **opts)
+        # resolve "auto" here so backend-specific options route correctly
+        # (axes must reach the sharded engine even when the planner — not
+        # the caller — picked it)
+        resolved = backend if backend != "auto" else plan_backend(
+            h_or_engine, batch_hint, mesh=mesh,
+            device_budget_bytes=opts.get("device_budget_bytes"))
+        if cfg.axes is not None and resolved == "sharded":
+            opts["axes"] = cfg.axes  # same axes in both layers
+        engine = build_engine(h_or_engine, resolved, batch_hint=batch_hint,
+                              mesh=mesh, device=device, **opts)
     else:
         rejected = sorted(opts)
         if backend != "auto":
@@ -217,5 +237,5 @@ def serve(h_or_engine, backend: str = "auto", *,
                 f"already-built engine — they would be silently ignored")
         engine = h_or_engine
     if cfg.replicas > 1:
-        return ReplicaGroup(engine, config=cfg, start=start)
-    return ReachabilityService(engine, config=cfg, start=start)
+        return ReplicaGroup(engine, config=cfg, mesh=mesh, start=start)
+    return ReachabilityService(engine, config=cfg, mesh=mesh, start=start)

@@ -27,8 +27,7 @@ Backends with no label form (the MST forest) raise ``SnapshotUnsupported``
 
 Counterpart of ``repro/core/engine.py``, same names in the same order.
 What this module holds today: the protocol, the shared base, the
-registry, the planner, ``build``, and every single-device backend of the
-reference: ``hl-index`` and ``hl-index-basic``; the index-free
+registry, the planner, ``build``, and every backend of the reference: ``hl-index`` and ``hl-index-basic``; the index-free
 ``online`` (Algorithm 1 on the host) and ``frontier`` (sparse line-graph
 sweeps on the device), which ``auto`` picks for graphs past the label
 budget; the static baselines ``ete`` (its snapshot joined like the
@@ -50,18 +49,19 @@ BFS.  ``build(restore=...)`` restores an engine persisted by
 ``repro_torch.store`` (or by the reference's ``repro.store``: the file
 format is shared), and ``construction="sharded"`` builds the HL-index by
 line-graph component shards, optionally in a fork pool
-(``hlindex.build_sharded``).  Not ported yet, and how each fails:
-
-* a device mesh (``mesh=`` with sharded construction, the mesh overlap
-  product) raises ``NotImplementedError`` (roadmap item A10b).
-* ``sharded`` (the multi-device backend) is not ported yet (roadmap item
-  A10b): asking for it is an "unknown backend" ``ValueError`` listing the
-  backends there are; loading its checkpoint raises
-  ``NotImplementedError``.
+(``hlindex.build_sharded``).  ``sharded`` (``core/distributed.py``, made
+importable here as in the reference) is the mesh backend: W* partitioned
+over a logical block grid (``core/mesh.py``) and closed by float32
+``maxmin_matmul`` block contractions, or HL-index labels built by
+``build_sharded`` over that grid, served off a snapshot landed on the
+mesh.  A ``mesh`` passed to ``build`` reaches the planner and the
+mesh-aware backends (``sharded``, and the HL-index backends, which
+shard their construction over it).
 
 Device rule: ``build`` and the device-landing backends take
 ``device=None``, which means ``"cuda"`` and raises on a host without a CUDA
-device; pass ``device="cpu"`` to run on the host.  ``mr_batch`` takes host
+device; pass ``device="cpu"`` to run on the host.  With a ``mesh`` and no
+``device``, the mesh's device is taken.  ``mr_batch`` takes host
 ids and returns host answers: one host->device copy of the id pairs, one
 device->host copy of the ``[Q]`` answers, and no other synchronisation.
 """
@@ -78,6 +78,7 @@ import torch
 
 from ..device import DeviceLike, host_to_device, resolve_device
 from .hypergraph import Hypergraph, apply_edge_edits
+from .mesh import LogicalMesh
 from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
                       build_sharded, pad_label_rows)
 from .maintenance import apply_updates, normalize_update_batch
@@ -572,7 +573,7 @@ def update_capabilities() -> Dict[str, str]:
 
 def workload_capabilities() -> Dict[str, Dict[str, bool]]:
     """Registry key -> {workload op -> served?} in ``WORKLOAD_OPS``
-    order: the reference's table without its ``sharded`` row."""
+    order: the reference's table."""
     caps: Dict[str, Dict[str, bool]] = {}
     for name, cls in sorted(_REGISTRY.items()):
         served = getattr(cls, "workload_capability", frozenset())
@@ -587,17 +588,14 @@ def plan_backend(h: Hypergraph, batch_hint: Optional[int] = None, *,
 
     The policy is the reference's, unchanged, so both packages name the
     same backend on the same inputs, and ``build`` builds every backend
-    it names on one device.  Only ``sharded`` (a multi-device mesh with
-    two axes and a closure past the budget) is not ported yet (roadmap
-    item A10): ``build(backend="auto")`` then fails with the "unknown
-    backend" error that lists the ported ones.
+    it names; ``sharded`` runs on a logical block grid on one device.
 
     Args:
       h: the hypergraph to serve.
       batch_hint: expected query batch size (None/0 = trickle queries).
-      mesh: an optional device-mesh description: any object with
-        ``devices.size`` (device count) and ``axis_names``.  A mesh with
-        more than one device opts the workload into distribution: if the
+      mesh: an optional mesh (a ``LogicalMesh``, or any object with
+        ``devices.size`` and ``axis_names``).  A mesh with more than one
+        block opts the workload into distribution: if the
         dense closure working set (~12·m² bytes: operand + two gathered
         f32 panels) exceeds ``device_budget_bytes``, the planner picks
         ``sharded``.  A unit mesh (1 device) never routes to ``sharded``.
@@ -659,18 +657,23 @@ def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
         journaled update suffix replays.  With ``restore`` a non-auto
         ``backend`` asserts what the persisted engine must be.
       batch_hint: expected query batch size, consumed by the planner.
-      mesh: optional device-mesh description, consulted by the planner
-        (see ``plan_backend``) and forwarded to the HL-index backends,
-        where a multi-device mesh asks for sharded construction.
-      device: where device-resident structures land.  ``None`` means
-        ``"cuda"``; on a host without a CUDA device that raises — pass
-        ``device="cpu"`` to run on the host.
+      mesh: optional ``LogicalMesh`` (``core/mesh.py``), consulted by
+        the planner (see ``plan_backend``) and forwarded to the
+        ``sharded`` backend, which partitions its closure over it, and to
+        the HL-index backends, where a multi-block mesh asks for sharded
+        construction.  A restored ``sharded`` engine lands on it.
+      device: where device-resident structures land.  ``None`` means the
+        mesh's device when a mesh is given, else ``"cuda"``; on a host
+        without a CUDA device that raises — pass ``device="cpu"`` (or a
+        CPU mesh) to run on the host.
       **opts: backend-specific options, passed to the backend's
         ``build`` (e.g. ``minimize_labels=False`` or ``use_kernels=True``
         for "hl-index", ``device_budget_bytes`` for the planner) — or,
         with ``restore``, the ``restore_engine`` options (``verify``,
         ``checkpoint_every``, ``attach``).
     """
+    if device is None and isinstance(mesh, LogicalMesh):
+        device = mesh.device
     if restore is not None:
         if h is not None:
             raise ValueError(
@@ -698,9 +701,10 @@ def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
     return cls.build(h, device=dev, **opts)
 
 
-# Backends whose ``build`` consumes a device mesh: the HL-index backends
-# shard *construction* over it ("sharded" joins the set with its backend).
-_MESH_AWARE_BACKENDS = frozenset({"hl-index", "hl-index-basic"})
+# Backends whose ``build`` consumes a mesh: "sharded" partitions its
+# closure over it; the HL-index backends shard *construction* over it
+# (neighbor overlaps on the mesh's device, per-block component shards).
+_MESH_AWARE_BACKENDS = frozenset({"sharded", "hl-index", "hl-index-basic"})
 
 
 # ---------------------------------------------------------------------------
@@ -767,9 +771,10 @@ class HLIndexEngine(_EngineBase):
         byte-identical labels, see ``hlindex.build_sharded``), or
         ``"auto"`` (sharded iff a multi-device ``mesh``, ``workers``, or
         ``num_shards`` asks for it).  Scoped updates keep using the same
-        construction mode on the affected component(s).  Sharded
-        construction over a ``mesh`` is roadmap item A10b and raises
-        ``NotImplementedError``.
+        construction mode on the affected component(s).  ``mesh``
+        additionally routes the neighbor-overlap precompute onto the
+        mesh's device when ``auto_device_overlaps`` says so, and sets
+        the default workers and shards from its block count.
 
         ``use_kernels`` answers batch queries through the hand-written
         ``label_join`` CUDA kernel (``KernelSnapshot``) instead of the
@@ -1267,3 +1272,11 @@ class ClosureEngine(_EngineBase):
 
     def nbytes(self) -> int:
         return int(self.w_star.nbytes)
+
+
+# ---------------------------------------------------------------------------
+# Mesh backend — lives in distributed.py; importing it here registers
+# "sharded" so the registry is complete after `import engine`.
+# ---------------------------------------------------------------------------
+
+from . import distributed as _distributed  # noqa: E402,F401

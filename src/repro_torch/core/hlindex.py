@@ -29,9 +29,10 @@ Implementation notes vs the pseudocode (documented deviations):
 Counterpart of ``repro/core/hlindex.py``: host-side numpy, same names in
 the same order, algorithms unchanged (label byte-identity rests on numpy's
 stable tie-breaking).  Sharded construction (``build_sharded`` and its
-fork pool) runs on the host as in the reference; only its device-mesh
-route (the neighbor overlaps as one product over a mesh, roadmap item
-A10b) is not here, so ``mesh=`` is refused.
+fork pool) runs on the host as in the reference; over a logical mesh
+(``core/mesh.py``) of more than one block it defaults its workers and
+shards from the block count and may form the neighbor overlaps with the
+``overlap`` kernel on the mesh's device (``neighbor_csr(h, mesh=)``).
 """
 from __future__ import annotations
 
@@ -70,12 +71,19 @@ def auto_device_overlaps(h: Hypergraph) -> bool:
     device mesh: the host pair pass would walk more than
     ``_DEVICE_OVERLAP_PAIRS`` ordered co-incidence pairs *and* the dense
     [m, m] footprint of the device route stays affordable.  The
-    reference's rule, unchanged; the mesh route itself is roadmap item
-    A10b, so on one device ``build_sharded`` always takes the host
-    pass."""
+    reference's rule, unchanged; shared by ``build_sharded`` and the
+    sharded engine's build-time ``NeighborCSR`` precompute so both pick
+    the same route."""
     deg = h.vertex_degrees
     return bool(float((deg * deg).sum()) > _DEVICE_OVERLAP_PAIRS
                 and 12.0 * h.m * h.m <= _DEVICE_OVERLAP_DENSE_BUDGET)
+
+# When a multi-block mesh defaults the worker count (the engine's
+# construction="auto" path), the fork pool only engages once the shared
+# neighbor index carries at least this many entries — below it the
+# per-shard traversals finish faster than the pool's fixed start +
+# pickle cost.  An explicit ``workers=`` is always honored as given.
+_POOL_MIN_NEIGHBOR_ENTRIES = 1_000_000
 
 
 def splice_rank(old_rank: np.ndarray, old_to_new: np.ndarray,
@@ -454,8 +462,9 @@ def build_sharded(h: Hypergraph, *,
     to its components, in the same relative root order:
 
     1. The shared neighbor index is precomputed once as a ``NeighborCSR``
-       (host pair pass; ``neighbors`` hands in a prebuilt one) instead of
-       once per hyperedge on the fly.
+       (the host pair pass, or on the mesh's device when ``mesh`` has more
+       than one block — see ``neighbor_csr``; ``neighbors`` hands in a
+       prebuilt one) instead of once per hyperedge on the fly.
     2. Components are balanced into shards (greedy LPT on estimated
        traversal cost) and each shard runs ``base`` (+ ``minimizer``) on
        its induced sub-hypergraph, optionally in ``workers`` forked
@@ -485,28 +494,30 @@ def build_sharded(h: Hypergraph, *,
     ``construction``, ``pool_fallback`` (1.0 when the fork pool made no
     progress or failed and the shards reran inline), ``neighbor_reused``.
 
-    ``num_shards`` defaults to ``workers``, else 1; shard counts that
-    exceed the component count are clamped.  ``workers`` > 1 runs the
-    shards in that many forked processes, ≤ 1 inline (byte-identical
-    either way).  The workers run numpy only, so the pool is safe to
-    fork from a process that has initialised CUDA.
-
-    ``mesh`` (the reference's device-mesh route of the overlap
-    precompute, and its default worker count) is roadmap item A10b and
-    raises ``NotImplementedError``; ``device_overlaps=True`` without a
-    multi-device mesh raises ``ValueError`` as in the reference.
+    ``num_shards`` defaults to ``workers``, else the mesh's block count,
+    else 1; shard counts that exceed the component count are clamped.
+    ``workers=None`` with a multi-block ``mesh`` defaults to
+    ``min(blocks, cpu_count)`` forked workers, engaged only once the
+    neighbor index is heavy enough to amortize the pool's fixed cost
+    (``_POOL_MIN_NEIGHBOR_ENTRIES``); an explicit ``workers`` is always
+    honored as given, and ``workers`` ≤ 1 runs shards inline
+    (byte-identical either way).  The workers run numpy only, so the pool
+    is safe to fork from a process that has initialised CUDA.
+    ``device_overlaps`` controls where the neighbor precompute runs:
+    ``None`` offloads to the mesh only when ``auto_device_overlaps(h)``
+    says so; ``True`` forces the mesh route (requires a multi-block
+    ``mesh`` — raises otherwise), ``False`` forces the host pass.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_sharded(mesh=...) is not ported yet (roadmap item A10b: "
-            "the neighbor overlaps as one product over a device mesh); "
-            "pass mesh=None to shard construction on the host")
-    if device_overlaps:
+    devices = int(mesh.devices.size) if mesh is not None else 1
+    if device_overlaps and devices <= 1:
         raise ValueError(
             "device_overlaps=True needs a multi-device mesh to offload "
-            "to; got no mesh")
+            f"to; got {'no mesh' if mesh is None else f'{devices} device'}")
+    auto_workers = workers is None
+    if auto_workers and devices > 1:
+        workers = min(devices, multiprocessing.cpu_count())
     if num_shards is None:
-        num_shards = max(workers or 0, 1)
+        num_shards = max(workers or 0, devices, 1)
     if h.m == 0:
         idx = base(h)
         if minimizer is not None:
@@ -515,7 +526,14 @@ def build_sharded(h: Hypergraph, *,
                          pool_fallback=0.0)
         return idx
     neighbor_reused = neighbors is not None
-    nbr = neighbors if neighbors is not None else neighbor_csr(h)
+    if neighbors is not None:
+        nbr = neighbors
+    else:
+        if device_overlaps is None:
+            device_overlaps = auto_device_overlaps(h)
+        nbr = neighbor_csr(h, mesh=mesh if device_overlaps else None)
+    if auto_workers and nbr.idx.size < _POOL_MIN_NEIGHBOR_ENTRIES:
+        workers = None          # defaulted pool would not amortize
     comp = nbr.components()
     row_len = np.diff(nbr.ptr).astype(np.float64)
     cost = np.bincount(comp, weights=row_len + 1.0,

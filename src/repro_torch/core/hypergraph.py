@@ -10,9 +10,11 @@ paper's construction algorithms (Alg. 1-4) and exported as a dense
 incidence matrix / line graph for the device engines (see ``to_incidence``
 and ``line_graph``).
 
-Counterpart of ``repro/core/hypergraph.py``, same names in the same order;
-the mesh overlap product (``_mesh_overlap_matrix``) is not ported yet, so
-``neighbor_csr(h, mesh=...)`` refuses a mesh (roadmap item A10b).
+Counterpart of ``repro/core/hypergraph.py``, same names in the same order.
+``neighbor_csr(h, mesh=...)`` on a logical grid of more than one block
+(``core/mesh.py``) forms the overlap matrix with the ``overlap`` kernel
+on the mesh's device (``_mesh_overlap_matrix``); ``torch`` is imported
+there, inside the call, and nowhere else in this module.
 """
 from __future__ import annotations
 
@@ -286,6 +288,30 @@ class NeighborCSR:
         return NeighborCSR(ptr, idx, od)
 
 
+def _mesh_overlap_matrix(h: Hypergraph, mesh) -> np.ndarray:
+    """Dense pairwise-overlap matrix |e_i ∩ e_j| computed on the mesh's
+    device: the incidence rows padded with zero rows to a multiple of the
+    block count (the reference's row sharding over every mesh axis), one
+    launch of the ``overlap`` kernel on the card (its plain version on the
+    CPU), the result cropped and pulled back for CSR extraction.  The
+    kernel reads bf16 0/1 and sums in float32, exact while overlaps stay
+    below 2^24 (they are at most δ)."""
+    import torch
+
+    from ..kernels.overlap import overlap
+
+    nd = int(mesh.devices.size)
+    b = h.to_incidence(np.float32)
+    pad = (-h.m) % nd
+    if pad:
+        b = np.pad(b, ((0, pad), (0, 0)))
+    b_dev = torch.from_numpy(b).to(mesh.device)
+    if b_dev.device.type == "cuda":
+        b_dev = b_dev.to(torch.bfloat16)      # the kernel's type, exact
+    w = overlap(b_dev)[:h.m, :h.m]
+    return w.cpu().numpy().astype(np.int64)
+
+
 def neighbor_csr(h: Hypergraph, *, mesh=None) -> NeighborCSR:
     """All line-graph neighborhoods at once, as a shared ``NeighborCSR``.
 
@@ -294,21 +320,30 @@ def neighbor_csr(h: Hypergraph, *, mesh=None) -> NeighborCSR:
     that lets HL-index construction drop its per-hyperedge O(δ·d) host
     dict pass (``repro_torch.core.hlindex``, Lemma 6 regime).
 
-    Host path only: every ordered co-incidence pair ``(e1, e2)`` sharing
-    a vertex is generated in one vectorized pass and deduplicated with
-    counts — O(Σ d_u²) memory, no dense [m, m].  The device-mesh route of
-    the reference (overlap products as one sharded matmul) belongs to
-    roadmap item A10b; until then a ``mesh`` is refused, not ignored.
+    Two paths, same output:
+      * host (default): every ordered co-incidence pair ``(e1, e2)``
+        sharing a vertex is generated in one vectorized pass and
+        deduplicated with counts — O(Σ d_u²) memory, no dense [m, m].
+      * ``mesh`` with more than one block: the O(m²·n̄) overlap products
+        run on the mesh's device (one ``overlap`` launch,
+        ``_mesh_overlap_matrix``) and only the CSR extraction stays on
+        the host.  A one-block mesh takes the host path, as in the
+        reference.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "neighbor_csr(mesh=...) is not ported yet (roadmap item A10b: "
-            "the mesh overlap product)")
     m = h.m
     empty = NeighborCSR(np.zeros(max(m, 0) + 1, np.int64),
                         np.empty(0, np.int64), np.empty(0, np.int64))
     if m == 0 or h.nnz == 0:
         return empty
+    if mesh is not None and int(mesh.devices.size) > 1:
+        w = _mesh_overlap_matrix(h, mesh)
+        np.fill_diagonal(w, 0)
+        rows, cols = np.nonzero(w)            # row-major: ascending per row
+        od = w[rows, cols]
+        counts = np.bincount(rows, minlength=m)
+        ptr = np.zeros(m + 1, np.int64)
+        np.cumsum(counts, out=ptr[1:])
+        return NeighborCSR(ptr, cols.astype(np.int64), od.astype(np.int64))
     deg = h.vertex_degrees
     pair_counts = deg * deg
     total = int(pair_counts.sum())

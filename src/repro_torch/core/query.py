@@ -13,13 +13,16 @@ kernel instead.  This is the engine the paper's Exp-1 (1,000-query
 workload) maps onto.
 
 Counterpart of ``repro/core/query.py``, same names in the same order.
-Left out until the sharded backend is ported (roadmap item A10):
-``DeviceSnapshot.to_mesh`` and its jitted row scatter.
+``DeviceSnapshot.to_mesh`` lands a snapshot on a logical block grid
+(``core/mesh.py``): padded to the grid and recorded with its mesh, the
+form the ``sharded`` backend and mesh-resident serving hold.  The
+reference's jitted row scatter (``_mesh_row_scatter``) is an
+``index_copy`` here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -131,10 +134,19 @@ class DeviceSnapshot:
     while previously handed-out snapshots keep their old version — a
     snapshot with ``snap.version != engine.version`` is stale.
 
+    ``to_mesh`` re-lands the same tensors on a logical block grid
+    (``core/mesh.py``): rows padded to a multiple of the row axis, label
+    columns to a multiple of the column axis, with the same sentinels.
+    The result records ``mesh`` / ``axes`` (both ``None`` for a snapshot
+    that is on no mesh) and keeps ``version``, so resharded copies stay
+    comparable.
+
     Snapshots are immutable; incremental refresh produces *new* snapshots:
     ``patch_rows`` replaces only the label rows a scoped update touched
     and never writes into this snapshot's tensors (torch's indexed
-    assignment mutates, so the patch works on a clone).
+    assignment mutates, so the patch works on a clone), and
+    ``to_mesh(base=..., dirty_rows=...)`` re-lands only those rows into a
+    mesh-resident copy, in place only when the caller donates it.
     """
 
     ranks: torch.Tensor
@@ -142,6 +154,8 @@ class DeviceSnapshot:
     lengths: torch.Tensor
     backend: str = "hl-index"
     version: int = 0
+    mesh: Optional[object] = None
+    axes: Optional[Tuple[str, str]] = None
 
     @classmethod
     def from_padded(cls, ranks, svals, lengths, backend: str,
@@ -166,6 +180,74 @@ class DeviceSnapshot:
     def device(self) -> torch.device:
         return self.ranks.device
 
+    def to_mesh(self, mesh, axes: Optional[Tuple[str, str]] = None, *,
+                base: Optional["DeviceSnapshot"] = None,
+                dirty_rows=None,
+                donate_base: bool = False) -> "DeviceSnapshot":
+        """This snapshot on the logical block grid ``mesh``: vertex rows
+        split along ``axes[0]``, label columns along ``axes[1]``
+        (``lengths`` along ``axes[0]`` only).  ``axes=None`` uses the
+        mesh's last two axis names, so any axis naming works.
+
+        Rows / columns are padded up to grid-divisible sizes with the
+        usual sentinels (ranks ``INT32_MAX``, svals 0, lengths 0), which
+        are inert under the join, so the result answers identically.  It
+        lands on ``mesh.device`` in new tensors (never an alias of this
+        snapshot's) and records ``mesh`` / ``axes``.
+
+        ``base`` + ``dirty_rows`` is the incremental re-land after a
+        scoped update: when ``base`` is an earlier ``to_mesh`` copy of
+        the same padded geometry, only the ``dirty_rows`` rows are
+        copied from this snapshot into it (every other row of ``base``
+        is already equal, by the ``UpdateReport`` contract).  The rows
+        go into ``base``'s own tensors only with ``donate_base=True`` —
+        ``base`` must not be used afterwards — and otherwise into a clone
+        of them, because snapshots are immutable.  On a geometry change
+        it re-lands whole; answers are identical either way.
+        """
+        if axes is None:
+            axes = tuple(mesh.axis_names[-2:])
+        if len(axes) < 2:
+            raise ValueError(
+                f"to_mesh needs two mesh axes (rows, label columns); the "
+                f"mesh has axis names {mesh.axis_names}")
+        axes = tuple(axes)
+        row_ax, col_ax = axes
+        r, c = mesh.shape[row_ax], mesh.shape[col_ax]
+        n, lmax = self.ranks.shape
+        n_pad = -(-n // r) * r if n else 0
+        l_pad = -(-lmax // c) * c if lmax else 0
+        dev = mesh.device
+        if (base is not None and dirty_rows is not None
+                and tuple(base.ranks.shape) == (n_pad, l_pad)):
+            rows = _as_index(dirty_rows, self.device)
+            pr = torch.full((rows.numel(), l_pad), _INT32_MAX,
+                            dtype=torch.int32, device=dev)
+            ps = torch.zeros((rows.numel(), l_pad), dtype=torch.int32,
+                             device=dev)
+            pr[:, :lmax] = self.ranks.index_select(0, rows).to(dev)
+            ps[:, :lmax] = self.svals.index_select(0, rows).to(dev)
+            pl = self.lengths.index_select(0, rows).to(dev)
+            rows = rows.to(dev)
+            out = [base.ranks, base.svals, base.lengths]
+            if not donate_base:
+                out = [t.clone() for t in out]
+            for dst, src in zip(out, (pr, ps, pl)):
+                dst.index_copy_(0, rows, src)
+            ranks, svals, lengths = out
+        else:
+            ranks = torch.full((n_pad, l_pad), _INT32_MAX, dtype=torch.int32,
+                               device=dev)
+            svals = torch.zeros((n_pad, l_pad), dtype=torch.int32,
+                                device=dev)
+            lengths = torch.zeros((n_pad,), dtype=torch.int32, device=dev)
+            ranks[:n, :lmax] = self.ranks
+            svals[:n, :lmax] = self.svals
+            lengths[:n] = self.lengths
+        return DeviceSnapshot(ranks=ranks, svals=svals, lengths=lengths,
+                              backend=self.backend, version=self.version,
+                              mesh=mesh, axes=axes)
+
     def patch_rows(self, rows, row_ranks, row_svals, row_lengths, *,
                    n: Optional[int] = None, lmax: Optional[int] = None,
                    version: Optional[int] = None,
@@ -183,6 +265,8 @@ class DeviceSnapshot:
         from-scratch derivation in which only ``rows`` changed; every
         untouched row is copied from this snapshot's tensors on the
         device without re-transfer, and this snapshot stays as it was.
+        A snapshot on a mesh stays on it (``mesh`` / ``axes`` carry over),
+        as the reference's sharded arrays keep their sharding.
         """
         ranks, svals, lengths = self.ranks, self.svals, self.lengths
         dev = ranks.device
@@ -210,7 +294,8 @@ class DeviceSnapshot:
             ranks=ranks.contiguous(), svals=svals.contiguous(),
             lengths=lengths.contiguous(),
             backend=self.backend if backend is None else backend,
-            version=self.version if version is None else int(version))
+            version=self.version if version is None else int(version),
+            mesh=self.mesh, axes=self.axes)
 
     @property
     def lmax(self) -> int:

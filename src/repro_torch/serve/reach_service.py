@@ -51,6 +51,14 @@ Design (the mechanisms the module exists for):
   it with a single reference swap.  A batch's ids are validated against
   the engine at admission, and the kernel reads rows by id, so a batch
   is only ever joined against the snapshot of the engine's version.
+* **Mesh-resident serving** — pass ``mesh=`` (a ``LogicalMesh``) and the
+  resident snapshot is kept on that block grid (``DeviceSnapshot.to_mesh``).
+  After a scoped update only the dirty rows are re-landed into the
+  mesh-resident copy (``to_mesh(base=..., dirty_rows=...)``, counted in
+  ``mesh_rows_patched``); a snapshot the engine already derives on the
+  service's mesh (the ``sharded`` backend's) is served as it is.
+  ``repro_torch.serve.replicas`` builds read-replica fan-out on the same
+  contract.
 
 Backends with no snapshot form (``mst-oracle``) are served through their
 own ``mr_batch`` / ``s_reach_batch`` by the same admission loop — the
@@ -69,9 +77,7 @@ Durability: ``checkpoint(store)`` writes the engine into a
 ``ReachabilityService.restore(store_or_path, device=...)`` restarts
 serving from it (checkpoint page-in + WAL replay, no construction).
 
-Counterpart of ``repro/serve/reach_service.py``.  Not ported yet, and how
-it fails: ``mesh=`` (a mesh-sharded resident snapshot) raises
-``NotImplementedError`` (roadmap item A10b).
+Counterpart of ``repro/serve/reach_service.py``.
 """
 from __future__ import annotations
 
@@ -222,14 +228,6 @@ _KIND_TO_OP: Dict[str, str] = {"witness": "witness",
                                "s_distance": "s_distance"}
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-resident serving is not ported yet (roadmap item A10: "
-            "the sharded backend and DeviceSnapshot.to_mesh); serve on "
-            "one device with mesh=None")
-
-
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
     """Typed service configuration — the one documented way to set
@@ -239,11 +237,10 @@ class ServiceConfig:
     ``min_bucket`` (smallest padded shape), ``max_wait_ms`` (coalescing
     linger; 0 dispatches immediately).
 
-    Placement: ``axes`` (mesh (row, column) axis names; a field of the
-    reference's config, refused here with ``NotImplementedError`` until
-    the mesh-resident serving of roadmap item A10), ``use_kernels`` (serve
-    snapshot batches through the ``label_join_gather`` CUDA kernel,
-    ``KernelSnapshot``; ``None`` inherits the engine flag).
+    Placement: ``axes`` (mesh (row, column) axis names for ``to_mesh``),
+    ``use_kernels`` (serve snapshot batches through the
+    ``label_join_gather`` CUDA kernel, ``KernelSnapshot``; ``None``
+    inherits the engine flag).
 
     Scheduling: ``tenants`` (``TenantSpec`` shares; unlisted tenants get
     ``default_weight``), ``quantum`` (DRR credits per pass — larger
@@ -271,11 +268,6 @@ class ServiceConfig:
         object.__setattr__(self, "tenants", tuple(self.tenants))
         object.__setattr__(self, "quantum", int(self.quantum))
         object.__setattr__(self, "replicas", int(self.replicas))
-        if self.axes is not None:
-            raise NotImplementedError(
-                f"ServiceConfig(axes={self.axes!r}) places the snapshot on a "
-                f"mesh, which is not ported yet (roadmap item A10); leave "
-                f"axes=None")
         if (self.max_batch < 1 or self.min_bucket < 1
                 or self.min_bucket > self.max_batch):
             raise ValueError(
@@ -312,7 +304,7 @@ class ServiceStats:
     snapshot_refreshes: int = 0
     rows_rederived: int = 0          # label rows re-derived across refreshes
     rows_full: int = 0               # rows a from-scratch refresh would cost
-    mesh_rows_patched: int = 0       # rows written into replica copies
+    mesh_rows_patched: int = 0       # rows re-landed into a mesh-resident copy
     kernel_batches: int = 0          # batches answered by the CUDA join
     workload_answered: Dict[str, int] = dataclasses.field(
         default_factory=dict)        # per-kind workload answers served
@@ -355,11 +347,13 @@ class ReachabilityService:
       config: a ``ServiceConfig``; the typed home of every serving knob
         (batching, scheduling, placement).  Defaults to
         ``ServiceConfig()``.
-      mesh: must be ``None``: mesh-resident serving is roadmap item A10.
+      mesh: optional ``LogicalMesh``; the resident snapshot is kept on
+        it (``to_mesh``) and refreshed row-wise after scoped updates.
+        Ignored for backends with no snapshot form.
       start: start the background admission thread.  With
         ``start=False`` the service is synchronous: call ``drain()`` to
         process everything pending (deterministic; what the tests use).
-      max_batch / min_bucket / max_wait_ms / use_kernels: direct
+      axes / max_batch / min_bucket / max_wait_ms / use_kernels: direct
         overrides of the matching ``config`` field (``None`` = take the
         config value).
 
@@ -378,13 +372,14 @@ class ReachabilityService:
     _replica_aware = False
 
     def __init__(self, engine, *, config: Optional[ServiceConfig] = None,
-                 mesh=None, max_batch: Optional[int] = None,
+                 mesh=None, axes: Optional[Tuple[str, str]] = None,
+                 max_batch: Optional[int] = None,
                  min_bucket: Optional[int] = None,
                  max_wait_ms: Optional[float] = None,
                  use_kernels: Optional[bool] = None, start: bool = True):
-        _refuse_mesh(mesh)
         cfg = config if config is not None else ServiceConfig()
-        overrides = {k: v for k, v in (("max_batch", max_batch),
+        overrides = {k: v for k, v in (("axes", axes),
+                                       ("max_batch", max_batch),
                                        ("min_bucket", min_bucket),
                                        ("max_wait_ms", max_wait_ms),
                                        ("use_kernels", use_kernels))
@@ -399,6 +394,8 @@ class ReachabilityService:
                 f"directly")
         self.config = cfg
         self.engine = engine
+        self.mesh = mesh
+        self.axes = cfg.axes
         self.max_batch = cfg.max_batch
         self.min_bucket = cfg.min_bucket
         self.max_wait_s = cfg.max_wait_ms / 1e3
@@ -411,8 +408,8 @@ class ReachabilityService:
         # against one coherent (engine, snapshot) pair, and the snapshot
         # swap happens strictly between batches
         self._dispatch_lock = threading.Lock()
-        self._snap = None            # resident serving snapshot
-        self._host_snap = None       # the engine-derived snapshot _snap is
+        self._snap = None            # resident serving snapshot (mesh or not)
+        self._host_snap = None       # the engine-derived snapshot _snap mirrors
         self._snapshot_ok: Optional[bool] = None   # None = not probed yet
         self.use_kernels = (bool(getattr(engine, "use_kernels", False))
                             if cfg.use_kernels is None
@@ -657,7 +654,8 @@ class ReachabilityService:
 
     @classmethod
     def restore(cls, store_or_path, *, device: DeviceLike = None,
-                mesh=None, verify: bool = True,
+                mesh=None, axes: Optional[Tuple[str, str]] = None,
+                verify: bool = True,
                 expect_backend: Optional[str] = None,
                 **service_opts) -> "ReachabilityService":
         """Warm-restart serving from a store artifact of either package
@@ -670,17 +668,18 @@ class ReachabilityService:
         micro-batch installs a resident snapshot keyed to exactly that
         version — the same version-keyed swap a live ``update`` takes.
         ``service_opts`` are the constructor's (``use_kernels=True``
-        serves through the ``label_join_gather`` kernel); ``mesh``
-        raises ``NotImplementedError`` (roadmap item A10b)."""
-        _refuse_mesh(mesh)
+        serves through the ``label_join_gather`` kernel); ``mesh`` /
+        ``axes`` place a ``sharded`` checkpoint and the resident snapshot
+        on that logical mesh (with no ``device``, the mesh's)."""
         if isinstance(store_or_path, IndexStore):
-            engine = store_or_path.restore(device=device, verify=verify,
+            engine = store_or_path.restore(device=device, mesh=mesh,
+                                           verify=verify,
                                            expect_backend=expect_backend)
         else:
-            engine = restore_engine(store_or_path, device=device,
+            engine = restore_engine(store_or_path, device=device, mesh=mesh,
                                     verify=verify,
                                     expect_backend=expect_backend)
-        return cls(engine, **service_opts)
+        return cls(engine, mesh=mesh, axes=axes, **service_opts)
 
     def stats(self) -> ServiceStats:
         with self._dispatch_lock:
@@ -891,9 +890,11 @@ class ReachabilityService:
             return self._serving_view()
         prev_host = self._host_snap
         try:
-            # a scoped update left the engine's stale snapshot as the
-            # patch basis: this re-derives only its dirty rows
-            host = eng.snapshot()
+            # the fan-out hook: fresh snapshot (a scoped update left the
+            # stale one as the patch basis, so only its dirty rows are
+            # re-derived) + the row delta relative to prev_host (None if
+            # the delta is unknowable and we must re-land in full)
+            host, dirty = eng.snapshot_delta(prev_host)
         except SnapshotUnsupported:
             self._snapshot_ok = False
             return None
@@ -903,9 +904,21 @@ class ReachabilityService:
         self._stats.snapshot_refreshes += 1
         self._stats.rows_rederived += int(eng.last_snapshot_refresh_rows)
         self._stats.rows_full += int(eng.h.n)
+        if self.mesh is not None and not self._already_on_mesh(host):
+            base = self._snap if (prev_host is not None
+                                  and dirty is not None) else None
+            # base is private to the service and dropped at the swap, so
+            # its tensors are safe to donate (the rows land in place)
+            snap = host.to_mesh(self.mesh, self.axes, base=base,
+                                dirty_rows=dirty if base is not None
+                                else None, donate_base=True)
+            if base is not None and snap.ranks.shape == base.ranks.shape:
+                self._stats.mesh_rows_patched += int(np.asarray(dirty).size)
+        else:
+            snap = host
         # single reference assignment = the atomic swap; in-flight code
         # never observes a half-updated snapshot
-        self._host_snap = self._snap = host
+        self._host_snap, self._snap = host, snap
         return self._serving_view()
 
     def _serving_view(self):
@@ -920,3 +933,9 @@ class ReachabilityService:
             kv = KernelSnapshot(self._snap)
             self._kernel_snap = kv
         return kv
+
+    def _already_on_mesh(self, snap) -> bool:
+        """True when the engine's snapshot already sits on this service's
+        mesh (the ``sharded`` backend derives mesh-resident snapshots) —
+        re-landing it through ``to_mesh`` would keep a duplicate copy."""
+        return getattr(snap, "mesh", None) == self.mesh

@@ -6,29 +6,30 @@ several device-resident copies of one snapshot and spreading batches
 across them, while updates stay serialized on the single writer engine.
 
 ``ReplicaGroup`` is a ``ReachabilityService`` whose resident-snapshot slot
-is replaced by a set of version-keyed replicas:
+is replaced by a set of version-keyed, mesh-resident replicas:
 
-* **Separate copies** — on one device a replica is its own clone of the
-  snapshot's ``ranks`` / ``svals`` / ``lengths``, made when it is first
-  landed: never an alias of the engine's snapshot or of another replica.
-  Only these private clones are ever written in place, so a snapshot the
-  engine (or any caller) still holds never changes under it.
+* **Separate copies** — a replica is its own copy of the snapshot's
+  ``ranks`` / ``svals`` / ``lengths`` landed on the group's mesh
+  (``DeviceSnapshot.to_mesh``, which always writes new tensors): never an
+  alias of the engine's snapshot or of another replica.  Only these
+  private copies are ever written in place (``to_mesh(base=...,
+  donate_base=True)``), so a snapshot the engine (or any caller) still
+  holds never changes under it.
 * **Single writer** — ``update()`` applies edits on the one underlying
   engine (the group owns it; nothing else should call
   ``engine.snapshot()`` behind its back, or the dirty-row delta
   degrades to a full re-land — the identity guard in ``snapshot_delta``
   makes that safe, just slower).
 * **Dirty-row fan-out** — at the next micro-batch after an update, the
-  group captures ``engine.snapshot_delta(basis)`` *once* and writes only
-  those rows of the engine's fresh snapshot into every replica's clone
-  (one ``index_copy_`` per tensor and replica): N replicas cost N row
+  group captures ``engine.snapshot_delta(basis)`` *once* and re-lands
+  only those rows into every replica through the ``to_mesh(base=,
+  dirty_rows=, donate_base=True)`` contract: N replicas cost N row
   scatters of the touched rows, not N full copies.  A full re-land
   happens at first landing, after a whole-index rebuild (no delta), or
-  when the update changed the tensors' shape (``n`` or ``lmax`` grew or
-  shrank) — where the reference counts ``full_relands`` too.  A
-  zero-row delta (version bump with no content change) re-keys the
-  copies without touching the device.  All replicas therefore hold
-  byte-identical label tensors at every version.
+  when the update changed the padded geometry (``n`` or ``lmax`` grew
+  or shrank).  A zero-row delta (version bump with no content change)
+  re-keys the copies without touching the device.  All replicas
+  therefore hold byte-identical label tensors at every version.
 * **Round-robin serving** — each micro-batch is answered off the next
   replica in rotation (per-replica batch counters make the spread
   observable).  All replicas are brought current *between* batches,
@@ -38,10 +39,11 @@ Snapshot-less backends (``mst-oracle``) cannot replicate — a replica *is*
 a snapshot copy — so the group raises ``SnapshotUnsupported`` at
 construction instead of silently degrading to single-copy serving.
 
+The group's mesh defaults to ``default_line_graph_mesh`` on the
+engine's device (1 x 1 on one card), as the reference's does.
+
 Counterpart of ``repro/serve/replicas.py``: the same stats, counted at
-the same points (``mesh_rows_patched`` counts the rows written into the
-copies).  Copies spread over a device mesh (``mesh=``) are roadmap item
-A10 and raise ``NotImplementedError``.
+the same points.
 """
 from __future__ import annotations
 
@@ -49,11 +51,11 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..core.engine import SnapshotUnsupported
+from ..core.mesh import default_line_graph_mesh
 from ..core.query import DeviceSnapshot, KernelSnapshot
-from .reach_service import ReachabilityService, ServiceConfig, _refuse_mesh
+from .reach_service import ReachabilityService, ServiceConfig
 
 __all__ = ["Replica", "ReplicaGroup"]
 
@@ -66,26 +68,8 @@ class Replica:
     snap: Optional[DeviceSnapshot] = None    # this replica's own tensors
     kernel_view: Optional[KernelSnapshot] = None
     batches: int = 0                     # micro-batches served off this copy
-    rows_patched: int = 0                # rows written via dirty-row fan-out
-    full_relands: int = 0                # whole-label copies (incl. first)
-
-
-def _land_copy(snap: DeviceSnapshot) -> DeviceSnapshot:
-    """A private clone of ``snap``'s tensors on its device."""
-    return dataclasses.replace(snap, ranks=snap.ranks.clone(),
-                               svals=snap.svals.clone(),
-                               lengths=snap.lengths.clone())
-
-
-def _patch_copy(copy: DeviceSnapshot, fresh: DeviceSnapshot,
-                rows: torch.Tensor) -> DeviceSnapshot:
-    """Write rows ``rows`` of ``fresh`` into the private ``copy`` in place
-    (same shapes) and re-key it to ``fresh``'s version."""
-    for dst, src in ((copy.ranks, fresh.ranks), (copy.svals, fresh.svals),
-                     (copy.lengths, fresh.lengths)):
-        dst.index_copy_(0, rows, src.index_select(0, rows))
-    return dataclasses.replace(copy, version=fresh.version,
-                               backend=fresh.backend)
+    rows_patched: int = 0                # rows re-landed via dirty-row fan-out
+    full_relands: int = 0                # whole-label landings (incl. first)
 
 
 class ReplicaGroup(ReachabilityService):
@@ -93,7 +77,7 @@ class ReplicaGroup(ReachabilityService):
     snapshot (see module docstring).  Built by ``repro_torch.api.serve``
     when ``ServiceConfig(replicas=N)`` with N > 1, or directly:
 
-        group = ReplicaGroup(engine, 4, start=False)
+        group = ReplicaGroup(engine, 4, mesh=mesh, start=False)
         group.submit_many(reqs); group.drain()
         group.update(inserts=[[1, 2, 3]])   # writer; dirty rows fan out
     """
@@ -103,7 +87,6 @@ class ReplicaGroup(ReachabilityService):
     def __init__(self, engine, n_replicas: Optional[int] = None, *,
                  config: Optional[ServiceConfig] = None, mesh=None,
                  start: bool = True, **overrides):
-        _refuse_mesh(mesh)
         cfg = config if config is not None else ServiceConfig()
         if n_replicas is not None:
             cfg = dataclasses.replace(cfg, replicas=int(n_replicas))
@@ -115,7 +98,13 @@ class ReplicaGroup(ReachabilityService):
                 f"which backend {getattr(engine, 'name', '?')!r} cannot "
                 f"derive ({exc}); serve it through a plain "
                 f"ReachabilityService instead") from None
-        super().__init__(engine, config=cfg, start=False, **overrides)
+        if mesh is None:
+            # replicas are device-resident copies even when the caller
+            # didn't think about placement
+            mesh = default_line_graph_mesh(
+                device=getattr(engine, "device", None))
+        super().__init__(engine, config=cfg, mesh=mesh, start=False,
+                         **overrides)
         self.replicas: List[Replica] = [Replica(i)
                                         for i in range(cfg.replicas)]
         self._rr = 0                 # next replica in rotation
@@ -155,27 +144,29 @@ class ReplicaGroup(ReachabilityService):
         self._stats.rows_rederived += int(eng.last_snapshot_refresh_rows)
         self._stats.rows_full += int(eng.h.n)
         n_dirty = 0 if dirty is None else int(np.asarray(dirty).size)
-        rows = None
         for replica in self.replicas:
-            patchable = (replica.snap is not None and dirty is not None
-                         and tuple(replica.snap.ranks.shape)
-                         == tuple(host.ranks.shape))
-            if patchable and n_dirty == 0:
+            if (replica.snap is not None and dirty is not None
+                    and n_dirty == 0
+                    and tuple(replica.snap.ranks.shape)
+                    == tuple(host.ranks.shape)):
                 # zero-row delta (e.g. an empty update batch): the copy
                 # is already byte-identical — re-key it to the new
                 # version without touching the device at all
                 replica.snap = dataclasses.replace(replica.snap,
                                                    version=host.version)
-            elif patchable:
-                if rows is None:     # one host->device copy for all
-                    rows = torch.as_tensor(np.asarray(dirty, np.int64),
-                                           device=host.device)
-                replica.snap = _patch_copy(replica.snap, host, rows)
+                replica.kernel_view = None
+                continue
+            base = replica.snap if (replica.snap is not None
+                                    and dirty is not None) else None
+            snap = host.to_mesh(self.mesh, self.axes, base=base,
+                                dirty_rows=dirty if base is not None
+                                else None, donate_base=True)
+            if base is not None and snap.ranks.shape == base.ranks.shape:
                 replica.rows_patched += n_dirty
                 self._stats.mesh_rows_patched += n_dirty
             else:
-                replica.snap = _land_copy(host)
                 replica.full_relands += 1
+            replica.snap = snap
             replica.kernel_view = None
         self._host_snap = host
 

@@ -30,11 +30,10 @@ Counterpart of ``repro/store/format.py``.  The format is the reference's,
 byte for byte: for the same graph, options and update history both
 packages write identical files, and each loads the other's.  Loaded
 arrays stay read-only host views; whatever lands them in a tensor copies
-them (``repro_torch.device.host_to_device``).  Not ported yet (roadmap
-item A10b): the ``sharded`` backend's payloads — saving needs its engine,
-and loading a ``sharded`` checkpoint raises ``NotImplementedError`` once
-its manifest is read, before any array reaches the device — and
-``mesh=``, which raises ``NotImplementedError``.
+them (``repro_torch.device.host_to_device``).  A ``sharded`` checkpoint
+holds one of three payloads (labels, a float32 closure trimmed to edge-id
+order, or the resident snapshot with its slot map) and loads onto the
+logical mesh ``load_index(mesh=)`` names, re-padded for that grid.
 """
 from __future__ import annotations
 
@@ -47,11 +46,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+import torch
+
 from ..core.engine import ClosureEngine, HLIndexBasicEngine, HLIndexEngine
 from ..core.hlindex import HLIndex, build_basic, build_fast, build_sharded
 from ..core.hypergraph import Hypergraph, NeighborCSR
+from ..core.mesh import LogicalMesh
 from ..core.minimal import minimize
-from ..device import DeviceLike, resolve_device
+from ..core.query import DeviceSnapshot
+from ..device import DeviceLike, host_to_device, resolve_device
 
 __all__ = [
     "FORMAT_VERSION", "FORMAT_REGISTRY", "MAGIC",
@@ -88,13 +91,6 @@ class CorruptStore(StoreError):
 
 class StoreUnsupported(NotImplementedError):
     """Raised for engines whose backend has no serializable index form."""
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "loading onto a device mesh is not ported yet (roadmap item "
-            "A10b: the sharded backend and its mesh); pass mesh=None")
 
 
 # ---------------------------------------------------------------------------
@@ -272,23 +268,24 @@ def save_index(path, engine, *, neighbors: Optional[NeighborCSR] = None) -> Dict
     * ``hl-index`` / ``hl-index-basic`` — rank, perm, label and dual
       lists as ragged (ptr, values) segments (payload ``labels``);
     * ``closure`` — the dense host ``int32`` W* matrix (payload
-      ``closure``).
+      ``closure``);
+    * ``sharded`` — its labels (payload ``labels``, with the engine's
+      ``NeighborCSR`` by default), its resident float32 W* gathered in
+      slot order and trimmed to ``[m, m]`` (payload ``closure``, re-padded
+      for whatever mesh loads it), or, once ``snapshot()`` freed W*, the
+      snapshot and its slot map (payload ``snapshot``).
 
     ``neighbors`` optionally embeds a ``NeighborCSR`` block (segments
     ``nbr.*``) so a restart can skip the neighbor-overlap precompute;
     read it back via ``load_segments``.  Index-free backends raise
     ``StoreUnsupported`` — persisting them would persist nothing but the
-    graph — and so does ``sharded``, whose engine is roadmap item A10b.
+    graph.
     """
     name = getattr(engine, "name", None)
     if name not in _STORABLE:
         raise StoreUnsupported(
             f"backend {name!r} has no serializable index structure; "
             f"storable backends: {list(_STORABLE)}")
-    if name == "sharded":
-        raise StoreUnsupported(
-            "saving a 'sharded' engine is not ported yet (roadmap item "
-            "A10b: the sharded backend and its store payloads)")
     h = engine.h
     meta: Dict = {"backend": name, "engine_version": int(engine.version),
                   "n": int(h.n), "m": int(h.m)}
@@ -301,10 +298,47 @@ def save_index(path, engine, *, neighbors: Optional[NeighborCSR] = None) -> Dict
         meta["engine_opts"] = _hlindex_opts(engine)
         meta["stats"] = _jsonable_stats(engine.idx.stats)
         segments += _hlindex_segments(engine.idx)
-    else:                                              # closure
+    elif name == "closure":
         meta["payload"] = "closure"
         meta["engine_opts"] = {"method": engine._method}
         segments.append(("w_star", np.asarray(engine.w_star)))
+    else:                                              # sharded
+        meta["engine_opts"] = {
+            "schedule": engine.schedule, "axes": list(engine.axes),
+            "rounds": engine.rounds, "workers": engine._workers,
+            "num_shards": engine._num_shards,
+            "minimize_labels": engine._minimizer is not None,
+        }
+        if engine._idx is not None:
+            meta["payload"] = "labels"
+            meta["stats"] = _jsonable_stats(engine._idx.stats)
+            segments += _hlindex_segments(engine._idx)
+            if neighbors is None:
+                # persist the engine's own neighbor index by default, so
+                # a restarted engine resumes 1-hop-patched scoped updates
+                # without re-running the pair pass
+                neighbors = engine._nbr
+        elif engine._w_star is not None:
+            # gather in slot order and trim the mesh padding: the saved
+            # W* is mesh- and slot-layout-independent (edge-id order),
+            # re-padded for whatever mesh loads it
+            meta["payload"] = "closure"
+            slots = torch.from_numpy(engine._slot_of).to(
+                engine._w_star.device)
+            w = engine._w_star.index_select(0, slots).index_select(1, slots)
+            segments.append(("w_star", np.ascontiguousarray(
+                w.cpu().numpy())))
+        else:
+            # snapshot() freed the closure; the resident snapshot IS the
+            # serving structure now, so persist exactly it — plus the
+            # slot map, which scoped updates on the restored engine need
+            # to patch the right snapshot columns
+            meta["payload"] = "snapshot"
+            snap = engine.snapshot()
+            segments += [("snap.ranks", snap.ranks.cpu().numpy()),
+                         ("snap.svals", snap.svals.cpu().numpy()),
+                         ("snap.lengths", snap.lengths.cpu().numpy()),
+                         ("snap.slots", np.asarray(engine._slot_of))]
 
     if neighbors is not None:
         segments += [("nbr.ptr", neighbors.ptr), ("nbr.idx", neighbors.idx),
@@ -345,6 +379,64 @@ def _load_hlindex(h: Hypergraph, manifest: Dict, seg: Dict[str, np.ndarray]) -> 
                    stats=dict(manifest.get("stats", {})))
 
 
+def _load_sharded(h: Hypergraph, manifest: Dict, seg: Dict[str, np.ndarray],
+                  mesh, device: DeviceLike):
+    from ..core.distributed import ShardedEngine, pad_for_mesh
+    from ..core.mesh import default_line_graph_mesh
+
+    opts = manifest.get("engine_opts", {})
+    axes = tuple(opts.get("axes") or ("data", "model"))
+    if mesh is None:
+        mesh = default_line_graph_mesh(axes, device=device)
+    else:
+        axes = tuple(mesh.axis_names[-2:])
+    schedule = opts.get("schedule", "allgather")
+    rounds = opts.get("rounds")
+    workers = opts.get("workers")
+    num_shards = opts.get("num_shards")
+    payload = manifest["payload"]
+    version = int(manifest["engine_version"])
+
+    if payload == "labels":
+        idx = _load_hlindex(h, manifest, seg)
+        minimizer = minimize if opts.get("minimize_labels") else None
+        nbr = (NeighborCSR(seg["nbr.ptr"], seg["nbr.idx"], seg["nbr.od"])
+               if "nbr.ptr" in seg else None)
+        eng = ShardedEngine(h, mesh, axes, schedule, None, h.m, rounds,
+                            idx=idx, minimizer=minimizer, workers=workers,
+                            num_shards=num_shards, neighbors=nbr)
+    elif payload == "closure":
+        # re-pad for the loading mesh (zeros are the (max, min)
+        # annihilator, so padding is invariant under the closure) and
+        # land it whole on the mesh's device — the layout build makes
+        # (host_to_device copies the file's read-only pages: the engine
+        # patches W* in place)
+        w_dev = pad_for_mesh(host_to_device(seg["w_star"], mesh.device),
+                             mesh, axes)
+        eng = ShardedEngine(h, mesh, axes, schedule, w_dev, h.m, rounds,
+                            workers=workers, num_shards=num_shards)
+    elif payload == "snapshot":
+        eng = ShardedEngine(h, mesh, axes, schedule, None, h.m, rounds,
+                            workers=workers, num_shards=num_shards)
+        snap = DeviceSnapshot(
+            ranks=host_to_device(seg["snap.ranks"], mesh.device),
+            svals=host_to_device(seg["snap.svals"], mesh.device),
+            lengths=host_to_device(seg["snap.lengths"], mesh.device),
+            backend="sharded", version=version)
+        if int(mesh.devices.size) > 1 and snap.ranks.numel():
+            snap = snap.to_mesh(mesh, axes)
+        eng._snap = snap
+        # restore the slot layout so scoped updates keep patching the
+        # right columns; the padded width is the loaded snapshot's
+        eng._m_padded = int(snap.ranks.shape[1])
+        if "snap.slots" in seg:
+            eng._slot_of = np.asarray(seg["snap.slots"], np.int64)
+    else:
+        raise CorruptStore(f"unknown sharded payload {payload!r}")
+    eng.version = version
+    return eng
+
+
 def load_index(path, *, device: DeviceLike = None, mesh=None,
                verify: bool = True, expect_backend: Optional[str] = None):
     """Load a checkpoint written by ``save_index`` (of either package)
@@ -357,26 +449,24 @@ def load_index(path, *, device: DeviceLike = None, mesh=None,
     until the first batch query or ``snapshot()``.  ``expect_backend``
     asserts the checkpoint's backend.
 
-    A ``sharded`` checkpoint and ``mesh=`` raise ``NotImplementedError``
-    (roadmap item A10b)."""
-    _refuse_mesh(mesh)
+    ``mesh`` (a ``LogicalMesh``) is where a ``sharded`` checkpoint's
+    structures land, re-padded for its grid; without one they land on
+    ``default_line_graph_mesh`` of ``device``.  With a mesh and no
+    ``device``, the mesh's device is taken."""
+    if device is None and isinstance(mesh, LogicalMesh):
+        device = mesh.device
     dev = resolve_device(device)
-    manifest = read_manifest(path)
+    manifest, seg = load_segments(path, verify=verify)
     backend = manifest["backend"]
     if expect_backend is not None and backend != expect_backend:
         raise StoreError(
             f"{path} holds a {backend!r} checkpoint, not the requested "
             f"{expect_backend!r}")
-    if backend == "sharded":
-        raise NotImplementedError(
-            f"{path} holds a 'sharded' checkpoint (payload "
-            f"{manifest.get('payload')!r}); loading it is not ported yet "
-            f"(roadmap item A10b: the sharded backend and its store "
-            f"payloads)")
-    manifest, seg = load_segments(path, verify=verify)
     h = Hypergraph(n=int(manifest["n"]), m=int(manifest["m"]),
                    e_ptr=seg["h.e_ptr"], e_idx=seg["h.e_idx"],
                    v_ptr=seg["h.v_ptr"], v_idx=seg["h.v_idx"])
+    if backend == "sharded":
+        return _load_sharded(h, manifest, seg, mesh, dev)
     opts = manifest.get("engine_opts", {})
     version = int(manifest["engine_version"])
     if backend == "closure":

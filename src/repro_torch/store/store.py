@@ -193,8 +193,8 @@ class IndexStore:
         Replay asserts version contiguity; a torn/corrupt tail record was
         already dropped by the checksum scan.  With ``attach`` (default)
         the store then re-attaches as the engine's WAL sink and serving
-        can resume.  ``mesh`` raises ``NotImplementedError`` (roadmap
-        item A10b).
+        can resume.  ``mesh`` (a ``LogicalMesh``) is where a ``sharded``
+        checkpoint lands, re-padded for its grid (``load_index``).
         """
         p = self.current_checkpoint()
         if p is None:

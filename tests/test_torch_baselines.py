@@ -289,17 +289,17 @@ def test_update_column(backend, graph):
 
 
 def test_update_capabilities_cover_every_single_device_backend():
+    # every backend of the reference, the mesh backend "sharded" included
     ref_caps = ref_api.update_capabilities()
     port_caps = port_api.update_capabilities()
-    assert sorted(port_caps) == sorted(set(ref_caps) - {"sharded"})
-    assert port_caps == {k: ref_caps[k] for k in port_caps}
+    assert sorted(port_caps) == sorted(ref_caps)
+    assert port_caps == ref_caps
     for name in NEW_BACKENDS:
         cls = port_engine._REGISTRY[name]
         assert cls.workload_capability == \
             ref_engine._REGISTRY[name].workload_capability
-    assert port_api.workload_capabilities() == {
-        k: v for k, v in ref_api.workload_capabilities().items()
-        if k != "sharded"}
+    assert port_api.workload_capabilities() == \
+        ref_api.workload_capabilities()
 
 
 # -- the service over these backends ------------------------------------------

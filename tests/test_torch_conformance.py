@@ -8,6 +8,8 @@ the reference's.  A cell the capability table leaves out must raise
 ``WorkloadUnsupported`` in both packages (asserted, never skipped).  The
 last rows repeat every served op after an ``update``."""
 import dataclasses
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -23,24 +25,51 @@ from util_torch_port import assert_same_array, port_hypergraph
 
 BACKENDS = port_api.available_backends()
 
-# the reference's pinned table (tests/test_conformance.py) without sharded
+# the reference's pinned table (tests/test_conformance.py)
 _ALL_OPS = {op: True for op in port_api.WORKLOAD_OPS}
 _NO_OPS = {op: False for op in port_api.WORKLOAD_OPS}
 _LABEL_ONLY = dict(_NO_OPS, witness=True, mr_set=True, top_s=True)
 _TRAVERSAL_ONLY = dict(_NO_OPS, s_reach_k=True, s_distance=True)
 EXPECTED_WORKLOADS = {
     "hl-index": _ALL_OPS, "hl-index-basic": _ALL_OPS, "closure": _ALL_OPS,
-    "ete": _LABEL_ONLY,
+    "sharded": _ALL_OPS, "ete": _LABEL_ONLY,
     "online": _TRAVERSAL_ONLY, "frontier": _TRAVERSAL_ONLY,
     "threshold": _NO_OPS, "mst-oracle": _NO_OPS,
 }
 
 # matrix rows: every port backend under default options, plus the kernel
-# path (label_join_gather; its plain version on the CPU); the reference
-# side of each row is the same backend under default options
+# path (label_join_gather; maxmin_matmul for the sharded closure; their
+# plain versions on the CPU), the sharded backend's label regime, and the
+# sharded round trip through the store (build -> save_index -> load_index,
+# then the full op set: a restored engine meets the same bar); the
+# reference side of each row is the same backend under default options
 CONFIGS = {name: (name, {}) for name in BACKENDS}
 CONFIGS["hl-index[kernels]"] = ("hl-index", dict(use_kernels=True))
+CONFIGS["sharded[labels]"] = ("sharded", dict(build_labels=True))
+CONFIGS["sharded[restored]"] = ("sharded", dict(_restore=True))
+CONFIGS["sharded[kernels]"] = ("sharded", dict(use_kernels=True))
 CONFIG_NAMES = sorted(CONFIGS)
+
+# TemporaryDirectory handles for the restored rows: the loaded engines
+# hold zero-copy views into the checkpoint mmap, so the files must
+# outlive every test that queries them
+_RESTORE_DIRS = []
+
+
+def _build(h, config):
+    """The port's engine of one matrix row on the CPU; ``_restore`` rows
+    round-trip it through a checkpoint file first."""
+    backend, opts = CONFIGS[config]
+    opts = dict(opts)
+    restore = opts.pop("_restore", False)
+    eng = port_api.build_engine(h, backend, device="cpu", **opts)
+    if not restore:
+        return eng
+    d = tempfile.TemporaryDirectory()
+    _RESTORE_DIRS.append(d)
+    path = os.path.join(d.name, "engine.hlidx")
+    port_api.save_index(path, eng)
+    return port_api.load_index(path, device="cpu")
 
 GRAPHS = {
     "random": lambda api: api.random_hypergraph(30, 45, seed=3),
@@ -55,9 +84,8 @@ GRAPHS = {
 def test_matrix_covers_registry_exactly():
     assert set(EXPECTED_WORKLOADS) == set(BACKENDS)
     assert port_api.workload_capabilities() == EXPECTED_WORKLOADS
-    assert port_api.workload_capabilities() == {
-        k: v for k, v in ref_api.workload_capabilities().items()
-        if k != "sharded"}
+    assert port_api.workload_capabilities() == \
+        ref_api.workload_capabilities()
 
 
 @pytest.fixture(scope="module", params=sorted(GRAPHS))
@@ -82,10 +110,9 @@ def _engines(graph_name, ref_h, h, config):
     the read-only ops."""
     key = (graph_name, config)
     if key not in _ENGINES:
-        backend, opts = CONFIGS[config]
+        backend, _ = CONFIGS[config]
         _ENGINES[key] = (ref_api.build_engine(ref_h, backend),
-                         port_api.build_engine(h, backend, device="cpu",
-                                               **opts))
+                         _build(h, config))
     return _ENGINES[key]
 
 
@@ -237,11 +264,10 @@ def test_ops_after_update(config):
     """Every op the backend serves, after one update applied to both
     packages (or refused by both, where the backend cannot take one),
     against the reference and the port's brute force on the new graph."""
-    backend, opts = CONFIGS[config]
+    backend, _ = CONFIGS[config]
     ref_h = GRAPHS["random"](ref_api)
     ref = ref_api.build_engine(ref_h, backend)
-    eng = port_api.build_engine(port_hypergraph(ref_h), backend,
-                                device="cpu", **opts)
+    eng = _build(port_hypergraph(ref_h), config)
     ins, dels = [[0, 1, ref_h.n - 1], [3, 4, 5, 6]], [2, 7]
     if eng.update_capability == "unsupported":
         for e in (ref, eng):

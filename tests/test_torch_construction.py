@@ -1,10 +1,12 @@
-"""Port parity, sharded HL-index construction without a mesh: the port's
+"""Port parity, sharded HL-index construction: the port's
 ``build_sharded`` (component shards, optionally in a fork pool) against
 the port's own serial builders and against the reference's
 ``build_sharded`` — ``rank``, ``perm``, every label and dual row, stats
-and the padded export byte-identical (tolerance 0).  Mirrors the
-mesh-free tests of ``tests/test_construction.py``; the mesh cases wait
-for roadmap item A10b and are held to their refusal here."""
+and the padded export byte-identical (tolerance 0).  Mirrors
+``tests/test_construction.py``; its 1-, 2- and 4-device mesh sweeps run
+here in process on logical 1 x 1, 1 x 2 and 2 x 2 grids
+(``repro_torch.core.mesh``), whose block counts stand for the device
+counts."""
 import functools
 import types
 
@@ -303,7 +305,7 @@ def test_engine_update_sequences_identical_across_constructions():
 
 
 # ---------------------------------------------------------------------------
-# without a mesh: the refusals, and the pool's fallback stat
+# on a logical mesh, and the refusals and the pool's fallback stat
 # ---------------------------------------------------------------------------
 
 def test_device_overlaps_forced_without_devices_raises():
@@ -332,17 +334,116 @@ def test_pool_failure_is_recorded_and_rerun_inline(monkeypatch):
 
 
 def test_mesh_is_refused_naming_a10():
+    """A mesh is taken now (A10b; this test once held its refusal): on a
+    logical grid of 1 and 4 blocks ``build_sharded`` defaults workers and
+    shards from the block count exactly as the reference does for that
+    many devices — same labels, same stats (``shards``, ``components``,
+    ``pool_fallback``) — and ``build_engine`` picks sharded construction
+    on the 4-block grid only."""
+    ref_h = ref_hg.random_hypergraph(25, 20, seed=9)
     h = random_hypergraph(25, 20, seed=9)
-    for devices in (1, 4):
-        mesh = types.SimpleNamespace(devices=np.empty(devices, object),
-                                     axis_names=("data", "model"))
-        with pytest.raises(NotImplementedError, match="A10"):
-            build_sharded(h, mesh=mesh, num_shards=2)
-        with pytest.raises(NotImplementedError, match="A10"):
-            port_api.build_engine(h, "hl-index", construction="sharded",
-                                  mesh=mesh, device="cpu")
+    for shape in ((1, 1), (2, 2)):
+        mesh = port_api.make_mesh(shape, ("data", "model"), device="cpu")
+        ref_mesh = types.SimpleNamespace(
+            devices=np.empty(shape, object), axis_names=("data", "model"))
+        for opts in ({}, {"num_shards": 2}):
+            assert_same_index(ref_hl.build_sharded(ref_h, mesh=ref_mesh,
+                                                   **opts),
+                              build_sharded(h, mesh=mesh, **opts))
+        eng = port_api.build_engine(h, "hl-index", mesh=mesh)
+        assert eng.construction == ("sharded" if mesh.devices.size > 1
+                                    else "serial")
+        assert eng.device.type == "cpu"
     assert auto_device_overlaps(h) == ref_hl.auto_device_overlaps(
-        ref_hg.random_hypergraph(25, 20, seed=9)) is False
+        ref_h) is False
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (2, 2)],
+                         ids=["1x1", "1x2", "2x2"])
+def test_sharded_construction_on_host_mesh(shape):
+    """``tests/test_construction.py``'s 1/2/4-device sweep on a logical
+    grid: the mesh-computed neighbor index (the ``overlap`` kernel's
+    plain version on the CPU) equals the host one row for row; shard-built
+    labels equal ``build_fast`` for even and uneven shard counts, with
+    and without the pool and with the overlap route forced onto the mesh;
+    forcing it on a one-block grid raises; ``auto`` construction follows
+    the block count; and the HL-index and ``sharded`` label-regime
+    engines answer as the MST oracle before and after an update."""
+    h = random_hypergraph(40, 30, seed=5)
+    mesh = port_api.make_mesh(shape, ("data", "model"), device="cpu")
+    nd = int(np.prod(shape))
+    assert mesh.devices.size == nd
+    host = neighbor_csr(h)
+    dev = neighbor_csr(h, mesh=mesh)
+    for f in ("ptr", "idx", "od"):
+        assert np.array_equal(getattr(host, f), getattr(dev, f))
+        assert getattr(host, f).dtype == getattr(dev, f).dtype
+    multi = nd > 1
+    if not multi:
+        with pytest.raises(ValueError, match="multi-device mesh"):
+            build_sharded(h, mesh=mesh, device_overlaps=True)
+    serial = build_fast(h)
+    for num_shards, workers, dev_ov in ((1, None, False),
+                                        (3, None, multi or None),
+                                        (3, 2, None), (nd, 2, multi or False)):
+        assert_index_identical(serial, build_sharded(
+            h, mesh=mesh, num_shards=num_shards, workers=workers,
+            device_overlaps=dev_ov), (shape, num_shards, workers, dev_ov))
+    eng = port_api.build_engine(h, "hl-index", mesh=mesh)
+    assert eng.construction == ("sharded" if multi else "serial")
+    oracle = MSTOracle(h)
+    rng = np.random.default_rng(1)
+    us, vs = rng.integers(0, h.n, 50), rng.integers(0, h.n, 50)
+    want = np.array([oracle.mr(int(u), int(v)) for u, v in zip(us, vs)],
+                    np.int64)
+    for eng in (port_api.build_engine(h, "hl-index", mesh=mesh),
+                port_api.build_engine(h, "sharded", mesh=mesh,
+                                      build_labels=True)):
+        got = np.asarray(eng.mr_batch(us, vs)).astype(np.int64)
+        assert np.array_equal(got, want)
+        eng.update(inserts=[[0, 1, 2]], deletes=[3])
+        h2 = eng.h
+        o2 = MSTOracle(h2)
+        u2, v2 = rng.integers(0, h2.n, 30), rng.integers(0, h2.n, 30)
+        assert np.array_equal(
+            np.asarray(eng.mr_batch(u2, v2)).astype(np.int64),
+            [o2.mr(int(u), int(v)) for u, v in zip(u2, v2)])
+
+
+def test_label_regime_scalars_validate_vertex_ids():
+    # the sharded backend's label regime short-circuits scalars to the
+    # host merge-join; it must reject out-of-range ids exactly like the
+    # closure regime's batch-validated path
+    h = random_hypergraph(20, 15, seed=4)
+    eng = port_api.build_engine(h, "sharded", build_labels=True,
+                                device="cpu")
+    with pytest.raises(IndexError, match="out of range"):
+        eng.mr(-1, 3)
+    with pytest.raises(IndexError, match="out of range"):
+        eng.mr(0, h.n)
+    with pytest.raises(IndexError, match="out of range"):
+        eng.s_reach(-1, 3, 2)
+    assert isinstance(eng.mr(0, 1), int)           # in-range still answers
+    closure = port_api.build_engine(h, "sharded", device="cpu")
+    with pytest.raises(IndexError, match="out of range"):
+        closure.mr(-1, 3)
+
+
+def test_unit_mesh_neighbor_csr_stays_on_host_path(monkeypatch):
+    # a unit mesh must not detour through the mesh overlap product — and
+    # either way the CSR is identical
+    h = random_hypergraph(25, 20, seed=9)
+    mesh = port_api.make_mesh((1, 1), ("data", "model"), device="cpu")
+    host = neighbor_csr(h)
+
+    def no_detour(*a, **k):
+        raise AssertionError("a unit mesh took the mesh overlap route")
+    monkeypatch.setattr(port_hg, "_mesh_overlap_matrix", no_detour)
+    via_mesh = neighbor_csr(h, mesh=mesh)
+    np.testing.assert_array_equal(host.idx, via_mesh.idx)
+    np.testing.assert_array_equal(host.od, via_mesh.od)
+    assert_index_identical(build_fast(h),
+                           build_sharded(h, mesh=mesh, num_shards=2))
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Port parity, the slice as a whole: ``repro_torch.api.build_engine`` on
 ``device="cpu"`` against ``repro.api.build_engine`` on the same graph, for
 every backend and op the first slice of the port has — values and dtypes,
-tolerance 0 — plus the errors both stacks must raise alike and the ones
-that mark what is not ported yet."""
+tolerance 0 — plus the errors both stacks must raise alike.  The
+reference's mesh cases (``tests/test_engine.py``: the ``sharded`` backend
+on 1-, 2- and 4-device meshes, unit-axis degradation, the mesh-aware
+planner) run in process on logical grids of those block counts."""
 import types
 
 import numpy as np
@@ -25,9 +27,13 @@ BACKENDS = [
     ("hl-index-basic", {}),
     ("hl-index-basic", {"cover_check": False, "use_kernels": True}),
     ("mst-oracle", {}),
+    ("sharded", {}),
+    ("sharded", {"build_labels": True}),
+    ("sharded", {"use_kernels": True, "schedule": "ring"}),
 ]
 IDS = ["hl-index", "hl-index[kernels]", "hl-index[unminimized]",
-       "hl-index-basic", "hl-index-basic[kernels,nocover]", "mst-oracle"]
+       "hl-index-basic", "hl-index-basic[kernels,nocover]", "mst-oracle",
+       "sharded", "sharded[labels]", "sharded[kernels,ring]"]
 
 
 def _graph(mod):
@@ -99,8 +105,16 @@ def test_snapshot_identical_or_unsupported_alike(engines):
     assert port.snapshot() is port_snap                 # cached while current
     assert port.last_snapshot_refresh_rows == ref.last_snapshot_refresh_rows
     assert port.nbytes() == ref.nbytes()
-    assert_same_index(ref.idx, port.idx)
-    assert port.construction == ref.construction == "serial"
+    if ref.name == "sharded":
+        # the mesh backend: its labels (label regime) or W*, freed once
+        # the snapshot is derived (closure regime), as in the reference
+        assert port.build_labels == ref.build_labels
+        if ref.build_labels:
+            assert_same_index(ref._idx, port._idx)
+        assert port._w_star is None and ref._w_star is None
+    else:
+        assert_same_index(ref.idx, port.idx)
+        assert port.construction == ref.construction == "serial"
     view = port._query_snapshot()
     assert isinstance(view, KernelSnapshot) == port.use_kernels
     assert port._query_snapshot() is view               # one view per snapshot
@@ -230,9 +244,8 @@ def test_auto_backend_builds_or_names_what_is_missing():
     _same(frontier.mr_batch(us, vs), want)
     assert port_api.available_backends() == [
         "closure", "ete", "frontier", "hl-index", "hl-index-basic",
-        "mst-oracle", "online", "threshold"]
-    assert set(port_api.available_backends()) == \
-        set(ref_api.available_backends()) - {"sharded"}
+        "mst-oracle", "online", "sharded", "threshold"]
+    assert port_api.available_backends() == ref_api.available_backends()
 
 
 def test_not_ported_yet_raises_by_name():
@@ -252,8 +265,8 @@ def test_not_ported_yet_raises_by_name():
         port_api.build_engine(h, restore="somewhere.hlidx")
     with pytest.raises(ValueError, match="needs a hypergraph"):
         port_api.build_engine()
-    # sharded construction is ported (tests/test_torch_construction.py);
-    # over a device mesh it is not
+    # sharded construction is ported (tests/test_torch_construction.py),
+    # over a logical mesh too: a 2 x 2 grid asks for it under "auto"
     serial = port_api.build_engine(h, "hl-index", device="cpu").idx
     for opts in (dict(construction="sharded"), dict(workers=2),
                  dict(num_shards=3)):
@@ -263,9 +276,13 @@ def test_not_ported_yet_raises_by_name():
             assert_same_array(getattr(serial, f), getattr(sharded.idx, f), f)
         for x, y in zip(serial.as_padded(), sharded.idx.as_padded()):
             assert_same_array(x, y, "as_padded")
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_api.build_engine(h, "hl-index", device="cpu",
-                              mesh=_mesh((2, 2), ("data", "model")))
+    on_mesh = port_api.build_engine(
+        h, "hl-index", mesh=port_api.make_mesh((2, 2), ("data", "model"),
+                                               device="cpu"))
+    assert on_mesh.construction == "sharded"
+    assert on_mesh.device.type == "cpu"
+    for x, y in zip(serial.as_padded(), on_mesh.idx.as_padded()):
+        assert_same_array(x, y, "as_padded on a mesh")
     with pytest.raises(ValueError, match="unknown construction"):
         port_api.build_engine(h, "hl-index", device="cpu",
                               construction="magic")
@@ -371,3 +388,141 @@ def test_engine_build_needs_a_device_or_an_explicit_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port_engine.HLIndexEngine.build(h)
     assert_same_hypergraph(_graph(ref_api), h)
+
+
+# ---------------------------------------------------------------------------
+# the sharded backend on logical meshes (tests/test_engine.py's mesh cases)
+# ---------------------------------------------------------------------------
+
+def _cpu_mesh(shape, axes=("data", "model")):
+    return port_api.make_mesh(shape, axes, device="cpu")
+
+
+def _oracle_answers(h, us, vs):
+    from repro_torch.core.baselines import MSTOracle
+    oracle = MSTOracle(h)
+    return np.array([oracle.mr(int(u), int(v)) for u, v in zip(us, vs)],
+                    np.int64)
+
+
+def test_post_update_snapshot_on_device_mesh():
+    from repro_torch.core.hypergraph import apply_edge_edits
+    h = port_api.random_hypergraph(26, 20, seed=6)
+    mesh = _cpu_mesh((2, 2))
+    eng = port_api.build_engine(h, "sharded", mesh=mesh)
+    snap0 = eng.snapshot()
+    eng.update(inserts=[[0, 1, 2]], deletes=[3])
+    snap1 = eng.snapshot()
+    assert snap1 is not snap0 and snap1.version == 1
+    assert snap1.mesh == mesh
+    h2, _, _ = apply_edge_edits(h, [[0, 1, 2]], [3])
+    rng = np.random.default_rng(2)
+    us, vs = rng.integers(0, h2.n, 40), rng.integers(0, h2.n, 40)
+    want = _oracle_answers(h2, us, vs)
+    np.testing.assert_array_equal(eng.mr_batch(us, vs), want)
+    # to_mesh keeps answers and the version, so resharded copies of the
+    # fresh snapshot stay comparable against the engine
+    hl = port_api.build_engine(h2, "hl-index", device="cpu")
+    hl.update(inserts=[[4, 5]])
+    sh = hl.snapshot().to_mesh(mesh)
+    assert sh.version == hl.version == 1
+    h3, _, _ = apply_edge_edits(h2, [[4, 5]], [])
+    np.testing.assert_array_equal(sh.mr(us, vs).numpy().astype(np.int64),
+                                  _oracle_answers(h3, us, vs))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 2), (2, 2)],
+                         ids=["1x1", "1x2", "2x2"])
+def test_sharded_backend_on_host_mesh(shape):
+    h = port_api.random_hypergraph(40, 30, seed=5)
+    rng = np.random.default_rng(1)
+    us, vs = rng.integers(0, h.n, 64), rng.integers(0, h.n, 64)
+    want = _oracle_answers(h, us, vs)
+    mesh = _cpu_mesh(shape)
+    assert mesh.devices.size == int(np.prod(shape))
+    for sched in ("allgather", "ring"):
+        eng = port_api.build_engine(h, "sharded", mesh=mesh, schedule=sched)
+        assert eng.name == "sharded" and eng.device.type == "cpu"
+        got = eng.mr_batch(us, vs)
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+        for s in (1, 2, 3):
+            np.testing.assert_array_equal(eng.s_reach_batch(us, vs, s),
+                                          want >= s)
+        for u, v, w in zip(us[:8], vs[:8], want[:8]):
+            assert eng.mr(int(u), int(v)) == int(w)
+            assert eng.s_reach(int(u), int(v), 2) == (int(w) >= 2)
+        # the snapshot is built once and survives across query batches
+        assert eng.snapshot() is eng.snapshot()
+        assert eng.nbytes() > 0
+    # mesh-aware planner: sharded iff the mesh has more than one block
+    # and the closure exceeds the single-device budget
+    assert port_api.plan_backend(h) != "sharded"
+    picked = port_api.plan_backend(h, mesh=mesh, device_budget_bytes=0)
+    assert (picked == "sharded") == (mesh.devices.size > 1), picked
+    assert port_api.plan_backend(h, 64, mesh=mesh,
+                                 device_budget_bytes=1 << 40) == "closure"
+    if mesh.devices.size > 1:
+        eng = port_api.build_engine(h, "auto", mesh=mesh,
+                                    device_budget_bytes=0)
+        assert eng.name == "sharded" and eng.mesh == mesh
+        np.testing.assert_array_equal(eng.mr_batch(us, vs), want)
+    # generic label snapshots reshard losslessly through to_mesh
+    snap = port_api.build_engine(h, "hl-index", device="cpu").snapshot()
+    sh = snap.to_mesh(mesh)
+    assert torch.equal(sh.mr(us, vs), snap.mr(us, vs))
+    assert sh.backend == "hl-index"
+
+
+def test_sharded_unit_axis_mesh_degrades():
+    h = port_api.random_hypergraph(25, 20, seed=9)
+    rng = np.random.default_rng(2)
+    us, vs = rng.integers(0, h.n, 40), rng.integers(0, h.n, 40)
+    want = _oracle_answers(h, us, vs)
+    mesh = _cpu_mesh((1, 1))
+    for sched in ("allgather", "ring"):
+        eng = port_api.build_engine(h, "sharded", mesh=mesh, schedule=sched)
+        np.testing.assert_array_equal(eng.mr_batch(us, vs), want)
+
+
+def test_planner_never_sharded_without_multi_device_mesh():
+    h = port_api.random_hypergraph(30, 45, seed=3)
+    for hint in (None, 8, 10_000):
+        assert port_api.plan_backend(h, hint, device_budget_bytes=0) \
+            != "sharded"
+    mesh1 = _cpu_mesh((1, 1))
+    assert port_api.plan_backend(h, mesh=mesh1, device_budget_bytes=0) \
+        != "sharded"
+
+
+def test_planner_never_sharded_on_one_axis_mesh():
+    # sharded needs two mesh axes to block-partition over; auto must not
+    # route a 1-D mesh to a backend that cannot be built on it
+    h = port_api.random_hypergraph(30, 45, seed=3)
+    mesh = _cpu_mesh((4,), ("data",))
+    picked = port_api.plan_backend(h, mesh=mesh, device_budget_bytes=0)
+    assert picked != "sharded", picked
+    eng = port_api.build_engine(h, "auto", mesh=mesh, device_budget_bytes=0)
+    assert eng.name == picked
+    with pytest.raises(ValueError, match=">= 2 axes"):
+        port_api.build_engine(h, "sharded", mesh=mesh)
+
+
+def test_sharded_empty_hypergraph():
+    h = port_api.from_edge_lists([], n=5)
+    eng = port_api.build_engine(h, "sharded", device="cpu")
+    assert eng.mr(0, 4) == 0
+    np.testing.assert_array_equal(eng.mr_batch([0, 1], [2, 3]),
+                                  np.zeros(2, np.int64))
+    ref = ref_api.build_engine(ref_api.from_edge_lists([], n=5), "sharded")
+    np.testing.assert_array_equal(eng.mr_batch([0, 1], [2, 3]),
+                                  np.asarray(ref.mr_batch([0, 1], [2, 3])))
+
+
+def test_sharded_mesh_and_device_must_agree():
+    h = port_api.random_hypergraph(12, 10, seed=1)
+    mesh = _cpu_mesh((2, 2))
+    assert port_api.build_engine(h, "sharded", mesh=mesh,
+                                 device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="differs from the mesh"):
+        port_engine._REGISTRY["sharded"].build(h, mesh=mesh, device="meta")

@@ -82,9 +82,36 @@ def test_neighbor_csr_identical(name, args, kw):
 
 
 def test_neighbor_csr_refuses_a_mesh():
-    h = port_hg.paper_figure1()
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_hg.neighbor_csr(h, mesh=object())
+    """The mesh route (A10b; refused until then): on a logical grid of
+    more than one block ``neighbor_csr`` forms B·Bᵀ with the ``overlap``
+    kernel's wrapper (its plain version on the CPU), once, over the
+    incidence padded to a multiple of the block count, and its CSR equals
+    the host route's and the reference's byte for byte."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import overlap as ov
+    for args, kw in ((("paper_figure1", ()), {}),
+                     (("random_hypergraph", (40, 30)), dict(seed=5))):
+        ref_h, port_h = _pair(args[0], args[1], kw)
+        host = port_hg.neighbor_csr(port_h)
+        want = ref_hg.neighbor_csr(ref_h)
+        for shape in ((1, 2), (2, 2), (2, 3)):
+            mesh = make_mesh(shape, ("data", "model"), device="cpu")
+            seen = []
+            real = ov.overlap
+
+            def spy(b_inc):
+                seen.append(tuple(b_inc.shape))
+                return real(b_inc)
+            ov.overlap = spy
+            try:
+                got = port_hg.neighbor_csr(port_h, mesh=mesh)
+            finally:
+                ov.overlap = real
+            blocks = int(np.prod(shape))
+            assert seen == [(-(-port_h.m // blocks) * blocks, port_h.n)]
+            for f in ("ptr", "idx", "od"):
+                assert_same_array(getattr(host, f), getattr(got, f), f)
+                assert_same_array(getattr(want, f), getattr(got, f), f)
 
 
 def test_edge_edits_and_induced_identical():

@@ -38,9 +38,11 @@ def test_module_list_is_what_the_slice_ships():
     assert _port_modules() == [
         "repro_torch", "repro_torch.api", "repro_torch.convert",
         "repro_torch.core", "repro_torch.core.baselines",
+        "repro_torch.core.distributed",
         "repro_torch.core.engine", "repro_torch.core.frontier",
         "repro_torch.core.hlindex",
         "repro_torch.core.hypergraph", "repro_torch.core.maintenance",
+        "repro_torch.core.mesh",
         "repro_torch.core.minimal", "repro_torch.core.online",
         "repro_torch.core.query", "repro_torch.core.semiring",
         "repro_torch.device", "repro_torch.kernels",
@@ -89,6 +91,8 @@ def test_import_drags_in_neither_jax_nor_the_reference(import_report, module):
 @pytest.mark.parametrize("module", ["repro_torch.core.online",
                                     "repro_torch.core.frontier",
                                     "repro_torch.core.baselines",
+                                    "repro_torch.core.mesh",
+                                    "repro_torch.core.distributed",
                                     "repro_torch.workloads",
                                     "repro_torch.workloads.base",
                                     "repro_torch.workloads.hop_bounded",
@@ -97,9 +101,10 @@ def test_import_drags_in_neither_jax_nor_the_reference(import_report, module):
                                     "repro_torch.workloads.topk",
                                     "repro_torch.workloads.witness"])
 def test_backend_module_alone_loads_neither_jax_nor_the_reference(module):
-    """The index-free, baseline and workload modules, each imported first
-    and alone in a fresh interpreter (the reference keeps numpy-only copies
-    of them in a package whose ``__init__`` imports JAX)."""
+    """The index-free, baseline, mesh and workload modules, each imported
+    first and alone in a fresh interpreter (the reference keeps
+    numpy-only copies of some of them in a package whose ``__init__``
+    imports JAX, and builds its mesh from ``jax.sharding``)."""
     out = _run(
         "import importlib, json, sys\n"
         f"mod = importlib.import_module({module!r})\n"

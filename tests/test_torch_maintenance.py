@@ -220,7 +220,7 @@ def test_update_capabilities_as_in_the_reference():
                          "frontier": "incremental", "hl-index": "scoped",
                          "hl-index-basic": "scoped",
                          "mst-oracle": "unsupported",
-                         "online": "incremental",
+                         "online": "incremental", "sharded": "scoped",
                          "threshold": "unsupported"}
     for name, cap in port_caps.items():
         assert ref_caps[name] == cap

@@ -8,8 +8,10 @@ the port: weighted fairness, priority bands, deadlines, streaming
 delivery.  Tolerance 0; every wait has a timeout and every threaded
 service is closed in a ``finally``.
 
-The reference's replica cases on a multi-device mesh wait for roadmap
-item A10; on one device a replica is a private clone of the snapshot."""
+A replica is a private copy of the snapshot landed on the group's mesh
+(``default_line_graph_mesh()`` on the engine's device unless one is
+given, as in the reference); the reference's replica cases on that mesh
+run here on the default mesh and on a logical 2 x 2 grid."""
 import dataclasses
 import time
 import warnings
@@ -414,6 +416,51 @@ def test_replica_group_churn_stays_byte_identical_and_private():
             assert torch.equal(a, b)
     rstats = grp.replica_stats()
     assert all(r["batches"] >= 1 for r in rstats)
+    assert all(r["full_relands"] == 1 for r in rstats)
+    assert all(r["rows_patched"] > 0 for r in rstats)
+    assert grp.stats().mesh_rows_patched == sum(r["rows_patched"]
+                                                for r in rstats)
+
+
+@pytest.mark.parametrize("shape", [None, (2, 2)], ids=["default", "2x2"])
+def test_replica_group_churn_on_default_line_graph_mesh(shape):
+    """``tests/test_multitenant.py``'s churn case with
+    ``mesh=default_line_graph_mesh()`` (and on a 2 x 2 grid): the replicas
+    sit on that mesh, equal the engine's fresh snapshot landed there byte
+    for byte after every update, in storage of their own, and take the
+    updates as row patches after one full landing each."""
+    h = _chains_graph(port_api)
+    eng = port_api.build_engine(h, "hl-index", device="cpu")
+    mesh = (port_api.default_line_graph_mesh(device="cpu") if shape is None
+            else port_api.make_mesh(shape, ("data", "model"), device="cpu"))
+    grp = port_api.ReplicaGroup(eng, 3, mesh=mesh,
+                                config=port_api.ServiceConfig(max_batch=32),
+                                start=False)
+    if shape is None:
+        assert grp.mesh == port_api.ReplicaGroup(
+            eng, 2, start=False).mesh == mesh
+        assert mesh.shape["data"] == mesh.shape["model"] == 1
+    rng = np.random.default_rng(3)
+    edits = [[[0, 1, 2, 3]], [[10, 11, 12, 13]], [[0, 2, 3]], [[11, 13]]]
+    for ins in edits + [None]:
+        cur = grp.engine.h
+        reqs = [port_api.MRRequest(int(rng.integers(cur.n)),
+                                   int(rng.integers(cur.n)))
+                for _ in range(80)]
+        futs = grp.submit_many(reqs)
+        grp.drain()
+        _oracle_check(cur, reqs, futs)
+        want = DeviceSnapshot.from_hlindex(eng.idx, device="cpu").to_mesh(mesh)
+        ptrs = set()
+        for r in grp.replicas:
+            assert r.snap.mesh == mesh and r.snap.version == eng.version
+            for f in ("ranks", "svals", "lengths"):
+                assert torch.equal(getattr(r.snap, f), getattr(want, f)), f
+                ptrs.add(getattr(r.snap, f).data_ptr())
+        assert len(ptrs) == 3 * len(grp.replicas)
+        if ins is not None:
+            grp.update(inserts=ins)
+    rstats = grp.replica_stats()
     assert all(r["full_relands"] == 1 for r in rstats)
     assert all(r["rows_patched"] > 0 for r in rstats)
     assert grp.stats().mesh_rows_patched == sum(r["rows_patched"]

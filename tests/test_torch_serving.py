@@ -7,9 +7,10 @@ and type, ``stats()`` equal field by field), and the cases of
 booleans.  Every wait on a future has a timeout, and every service with
 an admission thread is closed in a ``finally``.
 
-The reference cases that need a device mesh (mesh-resident snapshots and
-their row re-lands) wait for roadmap item A10 and are not mirrored; the
-port refuses ``mesh=`` by name instead (tested here)."""
+The reference's mesh cases (mesh-resident snapshots and their row
+re-lands, the ``sharded`` backend's own mesh snapshot) run on logical
+meshes (``repro_torch.core.mesh``); twin mesh services compare
+``stats()`` field by field, ``mesh_rows_patched`` included."""
 import dataclasses
 import sys
 import threading
@@ -97,7 +98,8 @@ def _build(api, spec):
 
 
 TWINS = [("hl-index", True), ("hl-index", False), ("hl-index-basic", True),
-         ("closure", True), ("closure", False)]
+         ("closure", True), ("closure", False), ("sharded", True),
+         ("sharded", False)]
 
 
 @pytest.mark.parametrize("backend,use_kernels", TWINS,
@@ -149,6 +151,49 @@ def test_twin_service_answers_and_stats_equal_the_reference(backend,
     assert port_stats == ref_stats
     assert port_stats["snapshot_refreshes"] == 4
     assert port_stats["updates"] == 4
+
+
+MESH_TWINS = [("hl-index", {}), ("sharded", {}),
+              ("sharded", {"build_labels": True})]
+
+
+@pytest.mark.parametrize("backend,opts", MESH_TWINS,
+                         ids=["hl-index", "sharded", "sharded-labels"])
+def test_twin_mesh_services_stats_equal_the_reference(backend, opts):
+    """Mesh-resident twins: the reference's service on its one-device
+    mesh and the port's on a logical 1 x 1 mesh, fed the same requests
+    across scoped updates, answer alike and count alike —
+    ``mesh_rows_patched`` included (rows re-landed into the hl-index's
+    mesh copy; none for ``sharded``, whose snapshot is already on the
+    mesh)."""
+    from repro.core.distributed import default_line_graph_mesh
+    ref_mesh = default_line_graph_mesh()
+    mesh = port_api.make_mesh((1, 1), ("data", "model"), device="cpu")
+    ref_h = ref_api.planted_chain_hypergraph(4, 8, overlap=2, extra_size=2,
+                                             seed=1)
+    port_h = port_hypergraph(ref_h)
+    ref = ref_api.serve(ref_h, backend, mesh=ref_mesh, start=False,
+                        config=ref_api.ServiceConfig(max_batch=32), **opts)
+    port = port_api.serve(port_h, backend, mesh=mesh, start=False,
+                          config=port_api.ServiceConfig(max_batch=32),
+                          **opts)
+    rng = np.random.default_rng(17)
+    for step in range(4):
+        specs = _twin_requests(port.engine.h.n, rng, 60)
+        rf = ref.submit_many([_build(ref_api, s) for s in specs])
+        pf = port.submit_many([_build(port_api, s) for s in specs])
+        ref.drain()
+        port.drain()
+        assert _results(pf) == _results(rf)
+        assert port._snap.mesh == mesh
+        v0 = int(port.engine.h.edge(step)[0])
+        ins = [[v0, v0 + 1]]
+        ref.update(inserts=ins)
+        port.update(inserts=ins)
+    ref_stats, port_stats = ref.stats().as_dict(), port.stats().as_dict()
+    assert port_stats == ref_stats
+    if backend == "hl-index":
+        assert 0 < port_stats["mesh_rows_patched"]
 
 
 def test_bucket_size_policy_equals_the_reference():
@@ -270,11 +315,12 @@ def test_service_update_churn_matches_oracle():
     assert svc.stats().snapshot_refreshes >= 1
 
 
-def test_kernel_serving_byte_identical_under_churn():
+@pytest.mark.parametrize("backend", ["hl-index", "sharded"])
+def test_kernel_serving_byte_identical_under_churn(backend):
     rng = np.random.default_rng(11)
     h = random_hypergraph(20, 16, seed=8)
-    host = _serve(h, start=False)
-    kern = _serve(h, start=False,
+    host = _serve(h, backend, start=False)
+    kern = _serve(h, backend, start=False,
                   config=port_api.ServiceConfig(use_kernels=True))
     assert kern.engine.use_kernels and not host.engine.use_kernels
     for _ in range(3):
@@ -294,6 +340,154 @@ def test_kernel_serving_byte_identical_under_churn():
         assert [type(r) for r in kres] == [type(r) for r in hres]
     assert kern.stats().kernel_batches > 0
     assert host.stats().kernel_batches == 0
+
+
+def _cpu_mesh(shape=(2, 2)):
+    return port_api.make_mesh(shape, ("data", "model"), device="cpu")
+
+
+def test_kernel_serving_mesh_reland_byte_identical():
+    # a mesh-resident service re-lands the snapshot after each scoped
+    # update, and the kernel view must be rebuilt over the re-landed copy
+    # — twin services byte-identical at every step, on a 2 x 2 grid
+    mesh = _cpu_mesh()
+    h = planted_chain_hypergraph(4, 8, overlap=2, extra_size=2, seed=1)
+    host = _serve(h, "hl-index", mesh=mesh, start=False)
+    kern = _serve(h, "hl-index", mesh=mesh, start=False,
+                  config=port_api.ServiceConfig(use_kernels=True))
+    rng = np.random.default_rng(13)
+    for step in range(3):
+        v0 = int(h.edge(0)[0])
+        ins = [[v0, v0 + 1, h.n + step]]
+        host.update(inserts=ins)
+        kern.update(inserts=ins)
+        h, _, _ = apply_edge_edits(h, ins, [])
+        reqs, want = _mixed_requests(h, rng, 30)
+        hf = host.submit_many(reqs)
+        kf = kern.submit_many([dataclasses.replace(r) for r in reqs])
+        host.drain()
+        kern.drain()
+        hres = [f.result(timeout=0) for f in hf]
+        kres = [f.result(timeout=0) for f in kf]
+        assert hres == want
+        assert kres == hres
+        assert kern._snap.mesh == mesh
+        assert kern._serving_view().base is kern._snap
+    assert kern.stats().kernel_batches >= 3
+
+
+def test_version_propagates_through_to_mesh_under_churn():
+    # DeviceSnapshot.version survives to_mesh across interleaved updates;
+    # a row re-land equals a full re-land byte for byte and never writes
+    # its base unless the base is donated
+    mesh = _cpu_mesh()
+    h = planted_chain_hypergraph(3, 6, overlap=2, extra_size=2, seed=6)
+    eng = port_api.build_engine(h, "hl-index", device="cpu")
+    on_mesh = eng.snapshot().to_mesh(mesh)
+    assert on_mesh.version == 0 and on_mesh.mesh == mesh
+    for step in range(3):
+        v0 = int(h.edge(0)[0])
+        eng.update(inserts=[[v0, v0 + 1, h.n + step]])
+        h, _, _ = apply_edge_edits(h, [[v0, v0 + 1, h.n + step]], [])
+        assert on_mesh.version != eng.version      # old copy: stale
+        dirty = eng.dirty_rows()
+        fresh = eng.snapshot()
+        before = [t.clone() for t in (on_mesh.ranks, on_mesh.svals,
+                                      on_mesh.lengths)]
+        new = fresh.to_mesh(mesh, base=on_mesh if dirty is not None
+                            else None, dirty_rows=dirty)
+        for t, b in zip((on_mesh.ranks, on_mesh.svals, on_mesh.lengths),
+                        before):
+            assert torch.equal(t, b)               # base not donated
+        assert new.version == eng.version == step + 1
+        full = fresh.to_mesh(mesh)
+        for f in ("ranks", "svals", "lengths"):
+            assert torch.equal(getattr(new, f), getattr(full, f))
+        oracle = MSTOracle(h)
+        rng = np.random.default_rng(step)
+        us, vs = rng.integers(0, h.n, 20), rng.integers(0, h.n, 20)
+        want = np.array([oracle.mr(int(u), int(v))
+                         for u, v in zip(us, vs)], np.int64)
+        np.testing.assert_array_equal(
+            new.mr(us, vs).numpy().astype(np.int64), want)
+        on_mesh = new
+
+
+def test_mesh_resident_service_row_patches():
+    mesh = _cpu_mesh()
+    h = planted_chain_hypergraph(4, 8, overlap=2, extra_size=2, seed=1)
+    svc = _serve(h, "hl-index", mesh=mesh, start=False)
+    f = svc.mr(0, 1)
+    svc.drain()
+    f.result(timeout=0)
+    landed = svc._snap
+    v0 = int(h.edge(0)[0])
+    svc.update(inserts=[[v0, v0 + 1]])
+    h2, _, _ = apply_edge_edits(h, [[v0, v0 + 1]], [])
+    oracle = MSTOracle(h2)
+    rng = np.random.default_rng(3)
+    us, vs = rng.integers(0, h2.n, 30), rng.integers(0, h2.n, 30)
+    futs = [svc.mr(int(u), int(v)) for u, v in zip(us, vs)]
+    svc.drain()
+    for u, v, fut in zip(us, vs, futs):
+        assert fut.result(timeout=0) == oracle.mr(int(u), int(v))
+    st = svc.stats()
+    assert 0 < st.mesh_rows_patched < h2.n
+    # the service donated its own copy: the rows landed in place
+    assert svc._snap.ranks.data_ptr() == landed.ranks.data_ptr()
+
+
+def test_mesh_refresh_with_shared_engine_stays_correct():
+    # a direct engine.snapshot() call between the service's refreshes
+    # resets the engine's dirty set, so the delta no longer describes the
+    # service's landed copy — the service must re-land in full (an
+    # untouched long chain C pins lmax, so a naive patch would serve
+    # stale rows)
+    mesh = _cpu_mesh()
+    edges = [[0, 1, 2], [1, 2, 3],            # chain A
+             [10, 11, 12], [11, 12, 13]]      # chain B
+    for i in range(10):                        # chain C dominates lmax
+        edges.append([20 + 2 * i, 21 + 2 * i, 22 + 2 * i, 23 + 2 * i])
+    h = port_api.from_edge_lists(edges)
+    eng = port_api.build_engine(h, "hl-index", device="cpu")
+    svc = port_api.serve(eng, mesh=mesh, start=False)
+    f = svc.mr(0, 1)
+    svc.drain()
+    f.result(timeout=0)                        # mesh copy landed at v0
+    ins1, ins2 = [[0, 1, 2, 3]], [[10, 11, 12, 13]]
+    svc.update(inserts=ins1)                   # dirty = chain-A rows
+    eng.snapshot()                             # external consumer: resets
+    svc.update(inserts=ins2)                   # dirty = chain-B rows only
+    h2, _, _ = apply_edge_edits(h, ins1, [])
+    h3, _, _ = apply_edge_edits(h2, ins2, [])
+    oracle = MSTOracle(h3)
+    us = list(range(h3.n))
+    vs = [3] * h3.n
+    futs = [svc.mr(u, v) for u, v in zip(us, vs)]
+    svc.drain()
+    for u, v, fut in zip(us, vs, futs):
+        assert fut.result(timeout=0) == oracle.mr(u, v), (u, v)
+
+
+def test_mesh_service_on_sharded_backend_reuses_resident_snapshot():
+    # the sharded backend's snapshot is already on the mesh; the service
+    # serves it directly instead of re-landing a duplicate
+    mesh = _cpu_mesh()
+    h = random_hypergraph(30, 20, seed=6)
+    svc = _serve(h, "sharded", mesh=mesh, start=False)
+    f = svc.mr(0, 1)
+    svc.drain()
+    f.result(timeout=0)
+    assert svc._snap is svc.engine.snapshot_cache()
+    assert svc._snap.mesh == mesh
+    oracle = MSTOracle(h)
+    rng = np.random.default_rng(1)
+    us, vs = rng.integers(0, h.n, 30), rng.integers(0, h.n, 30)
+    futs = [svc.mr(int(u), int(v)) for u, v in zip(us, vs)]
+    svc.drain()
+    for u, v, fut in zip(us, vs, futs):
+        assert fut.result(timeout=0) == oracle.mr(int(u), int(v))
+    assert svc.stats().mesh_rows_patched == 0
 
 
 def test_twin_services_agree_while_lmax_crosses_the_kernel_route():
@@ -422,9 +616,13 @@ def test_dirty_rows_contract():
     assert ce.dirty_rows().size == 0
 
 
-def test_rebuild_update_drops_stale_snapshot():
+@pytest.mark.parametrize("backend", ["closure", "sharded"])
+def test_rebuild_update_drops_stale_snapshot(backend):
+    # the reference's case loops over both backends: on this graph the
+    # insert reaches every hyperedge's component, so sharded recomputes
+    # whole as closure does
     h = random_hypergraph(16, 12, seed=9)
-    eng = port_api.build_engine(h, "closure", device="cpu")
+    eng = port_api.build_engine(h, backend, device="cpu")
     eng.snapshot()
     eng.update(inserts=[[0, 3, 7]])
     assert eng.snapshot_cache() is None
@@ -507,51 +705,79 @@ def test_workload_requests_are_refused_at_admission():
 
 
 def test_mesh_store_and_device_are_refused_by_name(tmp_path):
+    """Every serving surface takes a logical mesh (A10b; this test once
+    held their refusals): ``serve``, ``ReachabilityService``,
+    ``ReplicaGroup`` and ``ReachabilityService.restore`` keep the resident
+    snapshot on it and answer as the oracle; the store and device rules
+    are as before."""
     h = random_hypergraph(10, 12, seed=0)
+    mesh = _cpu_mesh()
     eng = port_api.build_engine(h, "hl-index", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_api.serve(h, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_api.ReachabilityService(eng, mesh=object(), start=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_api.ReplicaGroup(eng, 2, mesh=object(), start=False)
+    oracle = MSTOracle(h)
+    us, vs = [0, 3, 5, 9], [1, 2, 8, 9]
+    want = [oracle.mr(u, v) for u, v in zip(us, vs)]
+    for svc in (port_api.serve(h, mesh=mesh, start=False),
+                port_api.ReachabilityService(eng, mesh=mesh, start=False),
+                port_api.ReplicaGroup(eng, 2, mesh=mesh, start=False)):
+        futs = [svc.mr(u, v) for u, v in zip(us, vs)]
+        svc.drain()
+        assert [f.result(timeout=TIMEOUT) for f in futs] == want
+        snaps = ([r.snap for r in svc.replicas]
+                 if isinstance(svc, port_api.ReplicaGroup) else [svc._snap])
+        assert all(sn.mesh == mesh and sn.device.type == "cpu"
+                   for sn in snaps if sn is not None)
+        svc.close()
     svc = port_api.serve(eng, start=False)
     # the store is ported (tests/test_torch_store.py): checkpoint and
-    # restore work, a missing artifact fails as in the reference, and a
-    # mesh is refused by name
+    # restore work, onto a mesh too; a missing artifact fails as in the
+    # reference
     store = port_api.IndexStore(tmp_path / "s")
     assert svc.checkpoint(store) == 0
     store.close()
     assert port_api.ReachabilityService.restore(
         tmp_path / "s", device="cpu", start=False).engine.version == 0
+    restored = port_api.ReachabilityService.restore(
+        tmp_path / "s", mesh=mesh, start=False)
+    assert restored.mesh == mesh and restored.engine.device.type == "cpu"
     with pytest.raises(FileNotFoundError):
         port_api.ReachabilityService.restore("somewhere", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        port_api.ReachabilityService.restore("somewhere", device="cpu",
-                                             mesh=object())
+    with pytest.raises(FileNotFoundError):
+        port_api.ReachabilityService.restore("somewhere", mesh=mesh)
     with pytest.raises(ValueError, match="already-built"):
         port_api.serve(eng, start=False, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port_api.serve(h, start=False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port_api.make_mesh((2, 2), ("data", "model"))
 
 
 @pytest.mark.parametrize("route", ["config", "replace", "legacy_kwarg"])
 def test_mesh_axes_are_refused_by_name(route):
-    # ServiceConfig keeps the reference's ``axes`` field, but mesh placement
-    # is not ported: setting it raises instead of being silently ignored
+    # ServiceConfig's ``axes`` (refused until A10b) names the mesh axes
+    # the resident snapshot is placed over, by every route: the config,
+    # dataclasses.replace, and the deprecated bare keyword
     h = random_hypergraph(10, 12, seed=0)
     eng = port_api.build_engine(h, "hl-index", device="cpu")
     axes = ("rows", "cols")
-    with pytest.raises(NotImplementedError, match="A10"):
-        if route == "config":
-            port_api.ServiceConfig(axes=axes)
-        elif route == "replace":
-            dataclasses.replace(port_api.ServiceConfig(replicas=2),
-                                axes=axes)
-        else:
-            with pytest.warns(DeprecationWarning):
-                port_api.serve(eng, start=False, axes=axes)
+    mesh = port_api.make_mesh((2, 1), axes, device="cpu")
+    if route == "config":
+        svc = port_api.serve(eng, mesh=mesh, start=False,
+                             config=port_api.ServiceConfig(axes=axes))
+    elif route == "replace":
+        cfg = dataclasses.replace(port_api.ServiceConfig(replicas=2),
+                                  axes=axes)
+        svc = port_api.serve(eng, mesh=mesh, start=False, config=cfg)
+    else:
+        with pytest.warns(DeprecationWarning):
+            svc = port_api.serve(eng, mesh=mesh, start=False, axes=axes)
+    assert svc.axes == axes
+    f = svc.mr(0, 1)
+    svc.drain()
+    assert f.result(timeout=TIMEOUT) == MSTOracle(h).mr(0, 1)
+    snap = (svc.replicas[0].snap if isinstance(svc, port_api.ReplicaGroup)
+            else svc._snap)
+    assert snap.axes == axes and snap.ranks.shape[0] % 2 == 0
     assert port_api.ServiceConfig(axes=None).axes is None
 
 

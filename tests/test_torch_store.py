@@ -118,28 +118,139 @@ def test_restored_update_path_keeps_builder(tmp_path):
 
 
 def test_sharded_round_trip_all_payloads(tmp_path):
-    """The ``sharded`` backend is roadmap item A10b: a checkpoint the
-    reference's sharded engine writes, in each of its three payloads, is
-    refused by name once its manifest is read (never half-loaded)."""
-    h = ref_api.random_hypergraph(36, 48, seed=5)
-    eng = ref_api.build_engine(h, "sharded")
-    ref_store.save_index(tmp_path / "c.hlidx", eng)
-    eng.snapshot()                         # frees the closure
-    ref_store.save_index(tmp_path / "s.hlidx", eng)
-    ref_store.save_index(tmp_path / "l.hlidx",
-                         ref_api.build_engine(h, "sharded",
-                                              build_labels=True))
-    for name, payload in (("c", "closure"), ("s", "snapshot"),
-                          ("l", "labels")):
-        p = tmp_path / f"{name}.hlidx"
-        assert read_manifest(p)["payload"] == payload
-        with pytest.raises(NotImplementedError, match="A10"):
-            load_index(p, **CPU)
-        with pytest.raises(NotImplementedError, match="A10"):
-            build_engine(restore=p, **CPU)
-        # a non-auto backend still asserts what the file holds first
+    """``tests/test_store.py``'s round trip of the ``sharded`` backend's
+    three payloads (closure resident, snapshot after W* was freed,
+    labels), on a logical 2 x 2 grid: each loaded engine answers as the
+    live one, and the label regime's keeps updating alike."""
+    h = _graph()
+    us, vs = _queries(h)
+    mesh = port_api.make_mesh((2, 2), ("data", "model"), device="cpu")
+    # closure-resident regime
+    eng = build_engine(h, "sharded", mesh=mesh)
+    save_index(tmp_path / "c.hlidx", eng)
+    assert read_manifest(tmp_path / "c.hlidx")["payload"] == "closure"
+    r1 = load_index(tmp_path / "c.hlidx", mesh=mesh)
+    assert r1.mesh == mesh and r1.device.type == "cpu"
+    assert np.array_equal(eng.mr_batch(us, vs), r1.mr_batch(us, vs))
+    # snapshot regime (snapshot() frees the closure)
+    eng.snapshot()
+    assert eng._w_star is None
+    save_index(tmp_path / "s.hlidx", eng)
+    assert read_manifest(tmp_path / "s.hlidx")["payload"] == "snapshot"
+    r2 = load_index(tmp_path / "s.hlidx", mesh=mesh)
+    assert np.array_equal(eng.mr_batch(us, vs), r2.mr_batch(us, vs))
+    assert r2.snapshot().mesh == mesh
+    # label regime
+    eng = build_engine(h, "sharded", build_labels=True, mesh=mesh)
+    save_index(tmp_path / "l.hlidx", eng)
+    assert read_manifest(tmp_path / "l.hlidx")["payload"] == "labels"
+    r3 = load_index(tmp_path / "l.hlidx", mesh=mesh)
+    assert np.array_equal(eng.mr_batch(us, vs), r3.mr_batch(us, vs))
+    r3.update(inserts=[[4, 5, 6]])
+    eng.update(inserts=[[4, 5, 6]])
+    assert np.array_equal(eng.mr_batch(us, vs), r3.mr_batch(us, vs))
+    # a non-auto backend still asserts what the file holds first
+    for name in ("c", "s", "l"):
         with pytest.raises(StoreError, match="sharded"):
-            load_index(p, expect_backend="hl-index", **CPU)
+            load_index(tmp_path / f"{name}.hlidx",
+                       expect_backend="hl-index", **CPU)
+
+
+def _sharded_twins(payload, updates):
+    """The same ``sharded`` engine history in both packages on a one-block
+    mesh (the reference's, in process, has one host device), brought to
+    the state whose checkpoint holds ``payload``."""
+    labels = payload == "labels"
+    ref = ref_api.build_engine(ref_api.random_hypergraph(36, 48, seed=5),
+                               "sharded", build_labels=labels)
+    port = build_engine(_graph(), "sharded", build_labels=labels, **CPU)
+    for ins, dels in UPDATES[:updates]:
+        ref.update(inserts=ins, deletes=dels)
+        port.update(inserts=ins, deletes=dels)
+    if payload == "snapshot":
+        ref.snapshot()
+        port.snapshot()
+    return ref, port
+
+
+@pytest.mark.parametrize("updates", [0, 2])
+@pytest.mark.parametrize("payload", ["closure", "snapshot", "labels"])
+def test_sharded_files_byte_identical_across_packages(tmp_path, payload,
+                                                      updates):
+    """Both packages write the same bytes for the same ``sharded`` history
+    (one-block mesh, in process), and each loads the other's file to the
+    same answers."""
+    ref, port = _sharded_twins(payload, updates)
+    m_ref = ref_store.save_index(tmp_path / "ref.hlidx", ref)
+    m_port = save_index(tmp_path / "port.hlidx", port)
+    assert m_ref["payload"] == m_port["payload"] == payload
+    assert m_ref == m_port
+    assert (tmp_path / "ref.hlidx").read_bytes() == \
+        (tmp_path / "port.hlidx").read_bytes()
+    from_ref = load_index(tmp_path / "ref.hlidx", **CPU)
+    from_port = ref_store.load_index(tmp_path / "port.hlidx")
+    want = _answers(ref).astype(np.int64)
+    for eng in (port, from_ref, from_port):
+        assert np.array_equal(np.asarray(_answers(eng), np.int64), want)
+
+
+_SHARDED_2X2_CODE = """
+import sys
+import numpy as np
+from repro.api import build_engine, random_hypergraph
+from repro.launch.mesh import make_test_mesh
+from repro.store import save_index
+
+out = sys.argv[1]
+mesh = make_test_mesh((2, 2), ("data", "model"))
+h = random_hypergraph(36, 48, seed=5)
+eng = build_engine(h, "sharded", mesh=mesh)
+eng.update(inserts=[[1, 2, 3]], deletes=[0])
+save_index(out + "/closure.hlidx", eng)
+eng.snapshot()
+save_index(out + "/snapshot.hlidx", eng)
+eng = build_engine(h, "sharded", mesh=mesh, build_labels=True)
+eng.update(inserts=[[1, 2, 3]], deletes=[0])
+save_index(out + "/labels.hlidx", eng)
+print("WROTE")
+"""
+
+
+def test_sharded_files_byte_identical_on_a_2x2_grid(tmp_path):
+    """The reference on four host devices (a subprocess) and the port on a
+    logical 2 x 2 grid write byte-identical files for all three payloads
+    after one scoped update — the manifest's ``shards`` / ``components``
+    stats and the padded snapshot geometry included."""
+    import subprocess
+    import sys
+    from util_subproc import SRC
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    ref_dir = tmp_path / "ref"
+    ref_dir.mkdir()
+    out = subprocess.run([sys.executable, "-c", _SHARDED_2X2_CODE,
+                          str(ref_dir)], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "WROTE" in out.stdout, out.stderr
+    mesh = port_api.make_mesh((2, 2), ("data", "model"), device="cpu")
+    h = _graph()
+    eng = build_engine(h, "sharded", mesh=mesh)
+    eng.update(inserts=[[1, 2, 3]], deletes=[0])
+    save_index(tmp_path / "closure.hlidx", eng)
+    eng.snapshot()
+    save_index(tmp_path / "snapshot.hlidx", eng)
+    eng = build_engine(h, "sharded", mesh=mesh, build_labels=True)
+    eng.update(inserts=[[1, 2, 3]], deletes=[0])
+    save_index(tmp_path / "labels.hlidx", eng)
+    for payload in ("closure", "snapshot", "labels"):
+        mine = (tmp_path / f"{payload}.hlidx").read_bytes()
+        theirs = (ref_dir / f"{payload}.hlidx").read_bytes()
+        assert read_manifest(tmp_path / f"{payload}.hlidx") == \
+            read_manifest(ref_dir / f"{payload}.hlidx"), payload
+        assert mine == theirs, payload
+        loaded = load_index(ref_dir / f"{payload}.hlidx", mesh=mesh)
+        assert np.array_equal(_answers(loaded), _answers(eng))
 
 
 def test_neighbor_csr_block_round_trip(tmp_path):
@@ -768,26 +879,44 @@ def test_loaded_dtypes_equal_the_reference(tmp_path, backend, opts):
 
 
 def test_mesh_is_refused_naming_a10(tmp_path):
+    """Every restoring call takes a logical mesh (A10b, which this test
+    once held to its refusal): an ``hl-index`` checkpoint loads through
+    ``load_index`` / ``build_engine(restore=)`` / ``IndexStore.restore``
+    onto the mesh's device, and ``ReachabilityService.restore`` keeps the
+    resident snapshot on the mesh — all answering as the live engine."""
+    live = build_engine(_graph(), "hl-index", **CPU)
     p = tmp_path / "x.hlidx"
-    save_index(p, build_engine(_graph(), "hl-index", **CPU))
-    mesh = object()
-    with pytest.raises(NotImplementedError, match="A10"):
-        load_index(p, mesh=mesh, **CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_engine(restore=p, mesh=mesh, **CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
-        ReachabilityService.restore(p, mesh=mesh, start=False, **CPU)
+    save_index(p, live)
+    mesh = port_api.make_mesh((2, 2), ("data", "model"), device="cpu")
+    us, vs = _queries(live.h)
+    want = live.mr_batch(us, vs)
+    for eng in (load_index(p, mesh=mesh), build_engine(restore=p, mesh=mesh)):
+        assert eng.device.type == "cpu"
+        assert np.array_equal(eng.mr_batch(us, vs), want)
+    svc = ReachabilityService.restore(p, mesh=mesh, start=False)
+    futs = [svc.mr(int(u), int(v)) for u, v in zip(us, vs)]
+    svc.drain()
+    assert [f.result(timeout=30) for f in futs] == [int(x) for x in want]
+    assert svc._snap.mesh == mesh and svc._snap.ranks.shape[0] % 2 == 0
+    svc.close()
     store = IndexStore(tmp_path / "s")
     store.checkpoint(build_engine(_graph(), "hl-index", **CPU))
-    with pytest.raises(NotImplementedError, match="A10"):
-        store.restore(mesh=mesh, **CPU)
+    eng = store.restore(mesh=mesh)
+    assert np.array_equal(eng.mr_batch(us, vs), want)
+    store.close()
 
 
 def test_sharded_engine_is_unsupported_by_name(tmp_path):
-    class Sharded:                           # the port has no such engine
-        name = "sharded"
-    with pytest.raises(StoreUnsupported, match="A10"):
-        save_index(tmp_path / "x.hlidx", Sharded())
+    """``sharded`` is storable now (it was refused by name until A10b);
+    an engine outside the storable list is still refused by name, and the
+    list the error gives names ``sharded``."""
+    save_index(tmp_path / "x.hlidx", build_engine(_graph(), "sharded", **CPU))
+    assert read_manifest(tmp_path / "x.hlidx")["backend"] == "sharded"
+
+    class Elsewhere:                        # no serializable structure
+        name = "elsewhere"
+    with pytest.raises(StoreUnsupported, match="'sharded'"):
+        save_index(tmp_path / "y.hlidx", Elsewhere())
 
 
 def test_load_without_a_device_needs_cuda_or_an_explicit_cpu(tmp_path):

@@ -230,7 +230,7 @@ def test_workload_capabilities_registry_shape():
     assert all(caps["hl-index"].values())
     assert not any(caps["mst-oracle"].values())
     ref_caps = ref_wl.workload_capabilities()
-    assert caps == {k: v for k, v in ref_caps.items() if k != "sharded"}
+    assert caps == ref_caps
     assert port_api.workload_capabilities() == caps
 
 
