@@ -50,7 +50,12 @@ drives the port's two paths at full size through `repro_torch.api`:
   launch, CSR equal to the host pass); the label regime on the main
   path's graph (labels equal to `main_path`'s, 2^20 pairs through
   `label_join_gather`); scoped churn in both regimes, a `ReplicaGroup`
-  and the three store payloads on 4 x ENG-s.
+  and the three store payloads on 4 x ENG-s;
+* the benchmark suite and the examples (`repro_torch.benchmarks`,
+  `repro_torch.examples`), last: every script through its `main` at its
+  `--quick` sizes (its JSON into `build/bench_torch/`), the four examples,
+  the docs check, then exp1, `kernels_bench` and `bench_serving` at the
+  published sizes on the engines `main_path` and `closure_path` built.
 
 and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -61,7 +66,7 @@ memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `main_path`, `service_path`, `workloads_path`, `store_path`, `wide_labels`,
 `closure_path`, `closure_path_kernels`, `sharded_path`, `closure_small`,
-`backends_path`
+`backends_path`, `bench_path`
 (`closure_path` and `backends_path` each with a `workloads` part), then
 `{"kernels": [...]}` (per kernel: launches on its path, error against the
 plain version, times and the roofline bound;
@@ -114,22 +119,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
-# Dense int8 tensor-core rate of the H100 SXM (NVIDIA data sheet): the
-# narrowest type that holds a 0/1 product exactly, so the least time for
-# the overlap and threshold_step products.
-INT8_TENSOR_OPS_PER_S = 1.979e15
-# Dense bf16 tensor-core rate (NVIDIA data sheet): the type the two kernels
-# run in.  The ceiling of their route computed from it is printed in the
-# `closure_path_kernels` phase line only, never in the `kernels` line.
-BF16_TENSOR_OPS_PER_S = 0.989e15
-# 32-bit integer min/max (and compare) results per clock per SM on compute
-# capability 9.0: 64 (CUDA C++ Programming Guide, "Arithmetic
-# Instructions" throughput table) -- half the 128 FP32 lanes.  The rate is
-# this times the card's SM count and its maximum SM clock, both read at
-# run time (``phase_env``).
-INT32_MINMAX_PER_CLOCK_PER_SM = 64
-RATES = {}                     # filled by phase_env: {"int32_minmax": ops/s}
+# the repo's own modules (torch and numpy only); the H100's rates, each
+# kernel's bound and the published-size graphs come from them
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.benchmarks.datasets import dataset_params  # noqa: E402
+from repro_torch.benchmarks.roofline import (  # noqa: E402
+    BF16_TENSOR_OPS_PER_S, HBM_BYTES_PER_S, INT8_TENSOR_OPS_PER_S, RATES,
+    bf16_ceiling_ms, fill_rates, label_join_bound, label_join_gather_bound,
+    maxmin_bound, overlap_bound, sweep_bound_bytes, threshold_bound)
 
 LABEL_JOIN_CORPUS = [          # (q, l, seed): the reference's adversarial shapes
     (5, 7, 0), (130, 33, 1), (1, 1, 2), (64, 300, 3), (31, 129, 4),
@@ -153,11 +150,13 @@ THRESHOLD_CORPUS = [(1, 16, 0), (3, 33, 1), (0, 8, 2), (2, 0, 3)]
 # multiple of 8) and ones that do not, across several tiles
 THRESHOLD_EXTRA = [(2, 299, 9), (2, 300, 10), (1, 257, 11)]
 OVERLAP_EXTRA = [(300, 129, 9), (301, 256, 10), (12_704, 242, 11)]
-# primary-school at its published size (benchmarks/datasets.py lists
-# 242 vertices, 12,704 hyperedges; PS-s draws edge sizes 2-5, seed 4)
-CLOSURE_GRAPH = dict(n=242, m=12_704, min_size=2, max_size=5, seed=4)
+# primary-school at its published size (242 vertices, 12,704 hyperedges,
+# edge sizes 2-5, seed 4)
+CLOSURE_GRAPH = dataset_params("PS")
 # ENG-s, the repo's small engine graph: every pair is checked
-SMALL_GRAPH = dict(n=200, m=256, min_size=2, max_size=6, seed=7)
+SMALL_GRAPH = dataset_params("ENG-s")
+# walmart-trips at its published size (89,000 / 70,000, sizes 2-8, seed 6)
+MAIN_GRAPH = dataset_params("WA")
 DENSE_KERNELS = ("maxmin_matmul", "overlap", "threshold_step")
 TENSOR_CORE_KERNELS = ("overlap", "threshold_step")
 # one medium timed shape per dense kernel: [M]^3 maxmin, B [m, n], R [S, m, m]
@@ -175,10 +174,10 @@ TRICKLE_REQUESTS = 1000
 # requests submitted while the full-graph update runs, one per gap
 STALL_REQUESTS = 8
 STALL_GAP_S = 1.0
-# email-Eu at its published size (benchmarks/datasets.py lists 998
-# vertices, 25.8k hyperedges; EE-s draws edge sizes 2-6, seed 5): past the
-# label budget, so `auto` plans `online` (trickle) and `frontier` (batch)
-EMAIL_EU = dict(n=998, m=25_800, min_size=2, max_size=6, seed=5)
+# email-Eu at its published size (998 vertices, 25,800 hyperedges, edge
+# sizes 2-6, seed 5): past the label budget, so `auto` plans `online`
+# (trickle) and `frontier` (batch)
+EMAIL_EU = dataset_params("EE")
 FRONTIER_PAIRS = 1024
 ETE_PAIRS = 2**16
 # Base* (online) costs seconds per query at email-Eu's degree; the pairs
@@ -217,6 +216,15 @@ SHARDED_COPIES, SHARDED_WORKERS = 4, 2
 # sharded_path: the plain label join on the closure snapshot (L = 12,704)
 # makes a [Q, L, L] cube, so it is timed on this many pairs only
 PLAIN_PAIRS = 64
+
+# bench_path: the four examples, then at the published sizes exp1's Min-*
+# rows on 4,096 pairs and a 2^20 label_join_gather batch on 89k/70k, and
+# the service against per-call queries on 10,000 mixed requests there and
+# 4,096 on primary-school's closure engine
+BENCH_EXAMPLES = ("quickstart", "serving_quickstart", "epidemic_case_study",
+                  "distributed_reachability")
+BENCH_EXP1_PAIRS, BENCH_JOIN_PAIRS = 4096, 2**20
+BENCH_WA_REQUESTS, BENCH_PS_REQUESTS = 10_000, 4096
 
 
 def emit(obj) -> None:
@@ -417,41 +425,6 @@ def plain_gather_chunked(ref, ranks, svals, us, vs):
                       for i in range(0, us.numel(), step)])
 
 
-def label_join_gather_bound(svals, us, vs):
-    """Least time the card could take for the gather entry point, in ms,
-    and what binds it.  Bytes: the two int64 id vectors read once, the [Q]
-    int32 answers written once, and each distinct snapshot row that the
-    batch touches read once (4 bytes of rank and 4 of s per label slot).
-    Operations as in ``label_join_bound``, on the u rows of this batch."""
-    q, l = us.numel(), svals.shape[1]
-    distinct = int(torch.unique(torch.cat([us, vs])).numel())
-    nbytes = 16 * q + 4 * q + 8 * l * distinct
-    real = int((svals > 0).sum(dim=1)[us].sum()) if q else 0
-    ops = real * (math.ceil(math.log2(l + 1)) + 2) if l else 0
-    out = bound(nbytes, ops, RATES["int32_minmax"])
-    return out[0], out[1], {"bytes": nbytes, "distinct_rows": distinct}
-
-
-def label_join_bound(su, q, l):
-    """Least time the card could take for this join, in ms, and what binds
-    it.  Bytes: four [Q, L] int32 operands read once, [Q] int32 written
-    once.  Operations, counted from this run's data: every real u label
-    (s > 0) needs a lower-bound search of the v row (ceil(log2(L + 1))
-    compares) plus one min and one max."""
-    nbytes = 16 * q * l + 4 * q
-    real = int((su > 0).sum())
-    ops = real * (math.ceil(math.log2(l + 1)) + 2) if l else 0
-    return bound(nbytes, ops, RATES["int32_minmax"])
-
-
-def bound(nbytes, ops, ops_per_s):
-    """(least ms, what binds): the larger of bytes over the memory rate and
-    operations over the given peak rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 # -- phases -------------------------------------------------------------------
 
 def ptxas_lines(log):
@@ -497,7 +470,7 @@ def phase_env(build_mod, nvcc):
     torch.set_float32_matmul_precision("highest")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_mhz = float(nvidia_smi("clocks.max.sm", "nounits"))
-    RATES["int32_minmax"] = sms * INT32_MINMAX_PER_CLOCK_PER_SM * max_mhz * 1e6
+    fill_rates(sms, max_mhz)
     env = {"phase": "env", "python": sys.version.split()[0],
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "card": nvidia_smi_line(), "sms": sms, "max_sm_clock_mhz": max_mhz,
@@ -728,7 +701,7 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
     clock = Phase()
     s = 2
     t0 = time.perf_counter()
-    h = api.random_hypergraph(89_000, 70_000, min_size=2, max_size=8, seed=6)
+    h = api.random_hypergraph(**MAIN_GRAPH)
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     eng = api.build_engine(h, "hl-index", use_kernels=True)
@@ -1616,37 +1589,6 @@ def cuda_once(fn):
     return start.elapsed_time(end), out
 
 
-def maxmin_bound(m, k, n):
-    """Least ms for a (max, min) product: A, B read once, C written once
-    (4-byte values); one min and one max per (i, j, k) on the CUDA cores at
-    the int32 min/max rate."""
-    return bound(4 * (m * k + k * n + m * n), 2 * m * k * n,
-                 RATES["int32_minmax"])
-
-
-def overlap_bound(m, n, in_bytes):
-    """Least ms for W = B·Bᵀ: B [m, n] read once at ``in_bytes`` a value,
-    W [m, m] float32 written once; 2 operations per multiply-add at the
-    int8 tensor-core rate (the narrowest type that holds a 0/1 product
-    exactly)."""
-    return bound(in_bytes * m * n + 4 * m * m, 2 * m * m * n,
-                 INT8_TENSOR_OPS_PER_S)
-
-
-def threshold_bound(s, m, value_bytes):
-    """Least ms for one threshold_step round: R [S, m, m] read once and the
-    result written once, ``value_bytes`` a value each; 2 operations per
-    multiply-add at the int8 tensor-core rate."""
-    return bound(2 * value_bytes * s * m * m, 2 * s * m ** 3,
-                 INT8_TENSOR_OPS_PER_S)
-
-
-def bf16_ceiling_ms(ops):
-    """The same operations at the data sheet's bf16 tensor-core rate: the
-    least time of the route the kernels take (computed, not measured)."""
-    return ops / BF16_TENSOR_OPS_PER_S * 1e3
-
-
 def expect_no_launch(mod, tag, fn, want):
     """An empty shape: ``fn`` answers ``want`` and launches nothing."""
     before = mod.LAUNCHES
@@ -1975,6 +1917,8 @@ def phase_closure_path(api, semiring, ops, counters, wl, device):
           "oracle_seconds": round(oracle_s, 3),
           "workloads": workloads,
           "seconds": clock.seconds()})
+    # the threshold engine serves bench_path's primary-school requests
+    bench_engine = engines["threshold"]
     del engines, answers
     torch.cuda.empty_cache()
 
@@ -2068,7 +2012,7 @@ def phase_closure_path(api, semiring, ops, counters, wl, device):
              for name in DENSE_KERNELS}
     padded = {name: sum(p[name] for p in pads.values())
               for name in TENSOR_CORE_KERNELS}
-    return total, padded, rows, w_star
+    return total, padded, rows, w_star, bench_engine
 
 
 def phase_closure_small(api, ops, counters, device):
@@ -2620,16 +2564,6 @@ def phase_sharded_path(api, dist, counters, closure_w, main, device):
 
 
 # -- the index-free and baseline backends ------------------------------------
-
-def sweep_bound_bytes(rec, m):
-    """Bytes one sweep must move at least: every round run reads the alive
-    edges' ``src`` / ``dst`` / ``od`` once (12 bytes an edge) and the
-    ``[m, Qc]`` uint8 frontier once in and once out."""
-    q, width, nbytes = rec["queries"], rec["chunk_queries"], 0
-    for i, rounds in enumerate(rec["rounds"]):
-        qc = min(width, q - i * width)
-        nbytes += rounds * (rec["alive_edges"] * 12 + 2 * qc * m)
-    return nbytes
 
 
 def sweep_summary(sweeps, m):
@@ -4017,12 +3951,186 @@ def phase_store_path(api, store_mod, serve_mod, ops, counters, eng, build_s,
     return launches, errs
 
 
+# -- the benchmark suite and the examples -------------------------------------
+
+def bench_published(main_eng, closure_eng):
+    """The suite's pieces that take a built engine, at the published sizes
+    of walmart-trips (``main_eng``, 89k/70k) and primary-school
+    (``closure_eng``, the ``closure`` backend's threshold build): exp1's
+    Min-* rows, ``kernels_bench`` (a 2^20 ``label_join_gather`` batch on
+    the 89k/70k snapshot; the closure rows, ``overlap`` and
+    ``threshold_step`` on primary-school's line graph) and
+    ``bench_serving``'s service-vs-per-call comparison on both engines."""
+    from repro_torch.benchmarks import bench_serving, kernels_bench
+    from repro_torch.benchmarks import paper_tables
+    from repro_torch.core.semiring import vertex_mr_from_edge_mr
+
+    ps = closure_eng.h
+    out, seconds = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+
+    timed("exp1.WA", lambda: paper_tables.exp1_query_time(
+        "WA", n_q=BENCH_EXP1_PAIRS, engine=main_eng))
+    timed("kernels_bench.label_join.WA", lambda: kernels_bench.label_join_bench(
+        0, 0, BENCH_JOIN_PAIRS, 256, engine=main_eng, oracle_sample=0))
+    timed("kernels_bench.closure.PS", lambda: kernels_bench.closure_bench(
+        h=ps, reps=1))
+    timed("kernels_bench.overlap.PS",
+          lambda: kernels_bench.overlap_bench(ps))
+    timed("kernels_bench.threshold_step.PS",
+          lambda: kernels_bench.threshold_bench(ps))
+    timed("bench_serving.WA", lambda: bench_serving.bench_published(
+        main_eng, BENCH_WA_REQUESTS, 500))
+    timed("bench_serving.PS", lambda: bench_serving.bench_published(
+        closure_eng, BENCH_PS_REQUESTS, 256,
+        reference=lambda us, vs: vertex_mr_from_edge_mr(
+            ps, closure_eng.w_star, us, vs),
+        reference_name="the host W* lookup (vertex_mr_from_edge_mr)"))
+    return out, seconds
+
+
+def run_examples():
+    """The four examples' ``main`` on the card, their answers checked."""
+    import importlib
+
+    out, seconds = {}, {}
+    for name in BENCH_EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        t0 = time.perf_counter()
+        out[name] = mod.main(device="cuda")
+        torch.cuda.synchronize()
+        seconds[f"examples.{name}"] = round(time.perf_counter() - t0, 3)
+    if out["quickstart"]["figure1"] != (2, 2, True):
+        raise AssertionError(f"Figure 1: {out['quickstart']['figure1']}")
+    dist = out["distributed_reachability"]
+    if not (all(dist["closure_correct"].values()) and dist["threshold_correct"]
+            and all(dist["engine_correct"].values())
+            and dist["planned"] == "sharded"):
+        raise AssertionError(f"distributed_reachability: {dist}")
+    # a 2 x 2 round: r * c contractions (allgather), r * c * r (ring)
+    if dist["round_launches"] != {"allgather": 4, "ring": 8}:
+        raise AssertionError(f"round launches {dist['round_launches']}")
+    if not out["serving_quickstart"].get("deadline"):
+        raise AssertionError("serving_quickstart: no deadline error")
+    return out, seconds
+
+
+def phase_bench_path(counters, main_eng, closure_eng):
+    """Every ported benchmark script and example to its end on the card:
+    ``python -m repro_torch.benchmarks.<script> --quick`` through each
+    script's ``main`` (its JSON into ``build/bench_torch/``), the four
+    examples, the port's docs check; then the pieces at published sizes on
+    the engines ``main_path`` and ``closure_path`` built (no build
+    repeated).  Every count is set to 0 just before and read just after;
+    every script's own assertions (oracle answers, kernel against plain
+    version) hold or the phase fails."""
+    from repro_torch.benchmarks import (bench_construction,
+                                        bench_maintenance,
+                                        bench_persistence,
+                                        bench_service_scale, bench_serving,
+                                        bench_sharded, bench_workloads,
+                                        kernels_bench)
+    from repro_torch.benchmarks import run as run_mod
+    from repro_torch.benchmarks.common import default_out
+    from repro_torch.tools import check_docs
+
+    lj = counters["label_join"]
+    clock = Phase()
+    seconds = {}
+    reset_counts(counters)
+    lj.GATHER_LAUNCHES = 0
+
+    t0 = time.perf_counter()
+    rows = run_mod.collect(quick=True)
+    seconds["run --quick"] = round(time.perf_counter() - t0, 3)
+    agree = [r for r in rows if r[0].endswith(".agrees-with-oracle")]
+    if not agree or any(r[1] != 1.0 for r in agree):
+        raise AssertionError(f"agrees-with-oracle rows: {agree}")
+    scripts = {"kernels": kernels_bench, "serving": bench_serving,
+               "service_scale": bench_service_scale,
+               "workloads": bench_workloads,
+               "persistence": bench_persistence,
+               "maintenance": bench_maintenance,
+               "construction": bench_construction}
+    docs = {}
+    for name, mod in scripts.items():
+        t0 = time.perf_counter()
+        mod.main(["--quick"])
+        torch.cuda.synchronize()
+        seconds[f"{mod.__name__.rsplit('.', 1)[1]} --quick"] = round(
+            time.perf_counter() - t0, 3)
+        with open(default_out(name)) as f:
+            docs[name] = json.load(f)
+    t0 = time.perf_counter()
+    bench_sharded.main([])
+    seconds["bench_sharded"] = round(time.perf_counter() - t0, 3)
+    with open(default_out("sharded")) as f:
+        docs["sharded"] = json.load(f)
+    examples, ex_seconds = run_examples()
+    seconds.update(ex_seconds)
+    t0 = time.perf_counter()
+    problems = check_docs.problems()
+    seconds["check_docs"] = round(time.perf_counter() - t0, 3)
+    if problems:
+        raise AssertionError(f"docs check: {problems}")
+    published, pub_seconds = bench_published(main_eng, closure_eng)
+    seconds.update(pub_seconds)
+    launches = read_counts(counters)
+    launches["label_join_gather"] = lj.GATHER_LAUNCHES
+
+    for name, doc in docs.items():
+        if doc["env"]["device"] != "cuda":
+            raise AssertionError(f"BENCH_{name}: ran on {doc['env']}")
+    fallbacks = [r["pool_fallback"] for r in docs["construction"]["results"]]
+    if any(fallbacks):
+        raise AssertionError(f"bench_construction pool_fallback {fallbacks}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"bench_path launched {name} no time")
+    kernel_rows = {k: docs["kernels"][k] for k in
+                   ("label_join", "maxmin_matmul", "overlap",
+                    "threshold_step")}
+    kernel_rows.update({f"{k}.published": published[k] for k in (
+        "kernels_bench.label_join.WA", "kernels_bench.overlap.PS",
+        "kernels_bench.threshold_step.PS")})
+    emit({"phase": "bench_path", "seconds_by_script": seconds,
+          "launches": launches, "rows": [list(r) for r in rows],
+          "published_rows": (published["exp1.WA"]
+                             + published["kernels_bench.closure.PS"]),
+          "kernels_bench": {k: {f: v.get(f) for f in (
+              "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "roofline", "shape", "m", "batch_q", "graph",
+              "torch_ops_snapshot_batch_us", "host_merge_join_batch_us")}
+              for k, v in kernel_rows.items()},
+          "serving": {"quick": docs["serving"]["backends"],
+                      "published": [published["bench_serving.WA"],
+                                    published["bench_serving.PS"]]},
+          "service_scale_grid": [{k: c[k] for k in (
+              "tenants", "replicas", "priority_mix", "qps",
+              "fairness_ratio", "p99_s_by_priority")}
+              for c in docs["service_scale"]["grid"]],
+          "workloads": docs["workloads"]["mr_set_kernel_vs_host"],
+          "persistence": docs["persistence"]["results"],
+          "maintenance": docs["maintenance"]["sharded_results"],
+          "construction": docs["construction"]["results"],
+          "sharded": docs["sharded"]["results"],
+          "examples": {k: {f: v for f, v in ex.items()
+                           if f not in ("first20", "witnesses")}
+                       for k, ex in examples.items()},
+          "docs_check": "ok", "seconds": clock.seconds()})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import api
     from repro_torch.device import find_nvcc
     from repro_torch.core import engine as engine_mod
@@ -4071,11 +4179,11 @@ def main() -> int:
     store_launches, store_errs = phase_store_path(
         api, store_mod, serve_mod, ops, counters, main_eng, main_build_s,
         device)
-    del main_eng
-    torch.cuda.empty_cache()
+    # main_eng stays for bench_path (its snapshot is some 11 MB)
     phase_wide_labels(api, engine_mod, lj, device)
-    dense_launches, dense_pads, path_rows, closure_w = phase_closure_path(
-        api, semiring, ops, counters, wl, device)
+    (dense_launches, dense_pads, path_rows, closure_w,
+     closure_eng) = phase_closure_path(api, semiring, ops, counters, wl,
+                                       device)
     sharded_launches, sharded_errs, sharded_rows = phase_sharded_path(
         api, dist, counters, closure_w, main, device)
     del closure_w, main
@@ -4085,6 +4193,8 @@ def main() -> int:
         phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
                             main_pairs, main_mr, device)
     workload_launches += ete_workload_launches
+    bench_launches = phase_bench_path(counters, main_eng, closure_eng)
+    del main_eng, closure_eng
     torch.cuda.synchronize()
 
     kernels = [{
@@ -4093,13 +4203,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/label_join.py:106",
         "launches": (launches + service_launches + backends_launches
                      + workload_launches + store_launches["label_join"]
-                     + sharded_launches["label_join"]),
+                     + sharded_launches["label_join"]
+                     + bench_launches["label_join"]),
         "launches_by_path": {"main_path": launches,
                              "service_path": service_launches,
                              "backends_path": backends_launches,
                              "workloads_path": workload_launches,
                              "store_path": store_launches["label_join"],
-                             "sharded_path": sharded_launches["label_join"]},
+                             "sharded_path": sharded_launches["label_join"],
+                             "bench_path": bench_launches["label_join"]},
         "max_abs_err": max(err_checks, err_main,
                            store_errs["label_join_gather"],
                            sharded_errs["label_join_gather"]),
@@ -4115,7 +4227,8 @@ def main() -> int:
         "launches": (gather_launches + service_launches + backends_launches
                      + workload_launches
                      + store_launches["label_join_gather"]
-                     + sharded_launches["label_join_gather"]),
+                     + sharded_launches["label_join_gather"]
+                     + bench_launches["label_join_gather"]),
         "launches_by_path": {"main_path": gather_launches,
                              "service_path": service_launches,
                              "backends_path": backends_launches,
@@ -4123,6 +4236,8 @@ def main() -> int:
                              "store_path": store_launches[
                                  "label_join_gather"],
                              "sharded_path": sharded_launches[
+                                 "label_join_gather"],
+                             "bench_path": bench_launches[
                                  "label_join_gather"]},
         "max_abs_err": max(gather_err_checks, gather_err_main,
                            ete_kernel["max_abs_err"],
@@ -4154,11 +4269,13 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": (dense_launches[name] + service_dense[name]
-                         + store_launches[name] + sharded_launches[name]),
+                         + store_launches[name] + sharded_launches[name]
+                         + bench_launches[name]),
             "launches_by_path": {"closure_path": dense_launches[name],
                                  "service_path": service_dense[name],
                                  "store_path": store_launches[name],
-                                 "sharded_path": sharded_launches[name]},
+                                 "sharded_path": sharded_launches[name],
+                                 "bench_path": bench_launches[name]},
             "max_abs_err": max(dense_errs[name], row["max_abs_err"],
                                store_errs.get(name, 0),
                                sharded_errs[name]),

@@ -36,7 +36,19 @@ def _run(code: str, cwd=None):
 
 def test_module_list_is_what_the_slice_ships():
     assert _port_modules() == [
-        "repro_torch", "repro_torch.api", "repro_torch.convert",
+        "repro_torch", "repro_torch.api",
+        "repro_torch.benchmarks", "repro_torch.benchmarks.bench_construction",
+        "repro_torch.benchmarks.bench_maintenance",
+        "repro_torch.benchmarks.bench_persistence",
+        "repro_torch.benchmarks.bench_service_scale",
+        "repro_torch.benchmarks.bench_serving",
+        "repro_torch.benchmarks.bench_sharded",
+        "repro_torch.benchmarks.bench_workloads",
+        "repro_torch.benchmarks.common", "repro_torch.benchmarks.datasets",
+        "repro_torch.benchmarks.kernels_bench",
+        "repro_torch.benchmarks.paper_tables",
+        "repro_torch.benchmarks.roofline", "repro_torch.benchmarks.run",
+        "repro_torch.convert",
         "repro_torch.core", "repro_torch.core.baselines",
         "repro_torch.core.distributed",
         "repro_torch.core.engine", "repro_torch.core.frontier",
@@ -45,7 +57,12 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.core.mesh",
         "repro_torch.core.minimal", "repro_torch.core.online",
         "repro_torch.core.query", "repro_torch.core.semiring",
-        "repro_torch.device", "repro_torch.kernels",
+        "repro_torch.device",
+        "repro_torch.examples", "repro_torch.examples.distributed_reachability",
+        "repro_torch.examples.epidemic_case_study",
+        "repro_torch.examples.quickstart",
+        "repro_torch.examples.serving_quickstart",
+        "repro_torch.kernels",
         "repro_torch.kernels.build", "repro_torch.kernels.label_join",
         "repro_torch.kernels.maxmin_matmul", "repro_torch.kernels.ops",
         "repro_torch.kernels.overlap", "repro_torch.kernels.ref",
@@ -56,6 +73,7 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.store", "repro_torch.store.format",
         "repro_torch.store.hif", "repro_torch.store.store",
         "repro_torch.store.wal",
+        "repro_torch.tools", "repro_torch.tools.check_docs",
         "repro_torch.workloads", "repro_torch.workloads.base",
         "repro_torch.workloads.hop_bounded", "repro_torch.workloads.oracle",
         "repro_torch.workloads.setops", "repro_torch.workloads.topk",
@@ -115,6 +133,27 @@ def test_backend_module_alone_loads_neither_jax_nor_the_reference(module):
     names, loaded = json.loads(out.stdout)
     assert loaded == []
     assert names
+
+
+@pytest.mark.parametrize("package", ["repro_torch.benchmarks",
+                                     "repro_torch.examples",
+                                     "repro_torch.tools"])
+def test_suite_package_alone_loads_neither_jax_nor_the_reference(package):
+    """The benchmark suite, the examples and the docs check, each package
+    imported first and alone in a fresh interpreter, then every module of
+    it (the reference's copies of them import ``repro`` and JAX)."""
+    mods = [m for m in _port_modules() if m.startswith(package + ".")]
+    assert mods
+    out = _run(
+        "import importlib, json, sys\n"
+        f"loaded = []\n"
+        f"for name in {[package] + mods!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    loaded.append(sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                         in ('jax', 'jaxlib', 'repro')))\n"
+        "print(json.dumps(loaded))\n")
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout) == [[]] * (len(mods) + 1)
 
 
 def test_sources_name_neither_jax_nor_the_reference_package():

@@ -673,6 +673,23 @@ def test_hif_through_make_dataset(tmp_path):
     assert np.array_equal(a.mr_batch(us, vs), b.mr_batch(us, vs))
 
 
+def test_hif_through_the_ports_make_dataset(tmp_path):
+    from repro_torch.benchmarks.datasets import make_dataset
+    h = random_hypergraph(20, 25, seed=9)
+    p = tmp_path / "ds.hif.json"
+    write_hif(p, h)
+    h2 = make_dataset(str(p))             # the port's dataset loader
+    assert h2.n == h.n and h2.m == h.m
+    for f in ("e_ptr", "e_idx", "v_ptr", "v_idx"):
+        assert np.array_equal(getattr(h, f), getattr(h2, f))
+    with pytest.raises(FileNotFoundError):
+        make_dataset(str(tmp_path / "missing.hif.json"))
+    a = build_engine(h, "hl-index", **CPU)
+    b = build_engine(h2, "hl-index", **CPU)
+    us, vs = _queries(h, q=32)
+    assert np.array_equal(a.mr_batch(us, vs), b.mr_batch(us, vs))
+
+
 # ---------------------------------------------------------------------------
 # across the two packages: files, bytes, store directories, dtypes
 # ---------------------------------------------------------------------------
