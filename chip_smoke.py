@@ -55,7 +55,23 @@ drives the port's two paths at full size through `repro_torch.api`:
   `repro_torch.examples`), last: every script through its `main` at its
   `--quick` sizes (its JSON into `build/bench_torch/`), the four examples,
   the docs check, then exp1, `kernels_bench` and `bench_serving` at the
-  published sizes on the engines `main_path` and `closure_path` built.
+  published sizes on the engines `main_path` and `closure_path` built;
+* the closure dry-run at the paper's production size, m = 65,536
+  (`repro_torch.launch.closure_dryrun.main`, in process): eight records
+  under `build/dryrun_core` (each cell priced at H100 rates, with the
+  collective bytes a round's blocks read), and each distinct round run
+  once on the card on W of a walmart-trips-shaped graph (one `overlap`,
+  256 float32 `maxmin_matmul` launches of `[4,096, 65,536] x [65,536,
+  4,096]` for the allgather round, 4,096 of `[4,096]^3` for the ring
+  round, 32 + 6 `threshold_step` slices of `[1, 65,536, 65,536]`), 64 x
+  64 sampled entries of each held to the plain version; then each of
+  these kernels at those shapes beside its bound and library call;
+* LM serving through `repro_torch.launch.serve`: `qwen3-1.7b` at its
+  full published config (28 layers, 2.03e9 parameters) and
+  `qwen2-moe-a2.7b` at its published widths on 2 layers (60 experts,
+  top-4), random seeded weights on the card, 4 prompts of 16 tokens
+  prefilled through the KV cache and 32 greedy tokens, each held to its
+  own forward by the reference's teacher-forced decode check.
 
 and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -66,7 +82,8 @@ memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `main_path`, `service_path`, `workloads_path`, `store_path`, `wide_labels`,
 `closure_path`, `closure_path_kernels`, `sharded_path`, `closure_small`,
-`backends_path`, `bench_path`
+`backends_path`, `bench_path`, `dryrun_path` (after one line per cell
+from the dry-run itself), `lm_serve_path`
 (`closure_path` and `backends_path` each with a `workloads` part), then
 `{"kernels": [...]}` (per kernel: launches on its path, error against the
 plain version, times and the roofline bound;
@@ -221,6 +238,20 @@ PLAIN_PAIRS = 64
 # rows on 4,096 pairs and a 2^20 label_join_gather batch on 89k/70k, and
 # the service against per-call queries on 10,000 mixed requests there and
 # 4,096 on primary-school's closure engine
+# dryrun_path: the closure dry-run at the paper's production size
+DRYRUN_M = 65_536
+DRYRUN_S = 32
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_core"
+# lm_serve_path: the serving launcher at a published LM config
+LM_ARCH = "qwen3-1.7b"                 # full published config
+LM_MOE_ARCH = "qwen2-moe-a2.7b"        # published widths, depth cut
+LM_MOE_LAYERS = 2
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 32
+DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
+# bf16 serving: the root-mean-square departure of the decode logits (bf16
+# compute, the served bf16 cache) from the float32 forward may be at most
+# this many times the bf16 forward's own departure from it
+BF16_DEPARTURE_RATIO = 2.0
 BENCH_EXAMPLES = ("quickstart", "serving_quickstart", "epidemic_case_study",
                   "distributed_reachability")
 BENCH_EXP1_PAIRS, BENCH_JOIN_PAIRS = 4096, 2**20
@@ -4126,6 +4157,281 @@ def phase_bench_path(counters, main_eng, closure_eng):
     return launches
 
 
+def dryrun_kernel_rows(cd, mm, ov, tc, launches, maxmin_launches, device):
+    """Each dense kernel at the dry-run's production shapes: kernel ms
+    (CUDA events, one launch a run, median of three), the plain version
+    where one card holds it, the library call where there is one, the
+    bound, and the whole output held to the plain (or library) answer.
+    Operands: random float32 for ``maxmin_matmul``, random 0/1 bf16 for
+    ``threshold_step``, the dry-run's own incidence for ``overlap``.
+    ``launches`` are the phase's counts, ``maxmin_launches`` each maxmin
+    round's as its record measured them; these launches come after the
+    phase's counted window."""
+    dev = device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(71)
+    m, blk = DRYRUN_M, DRYRUN_M // 16
+    rows, errs = {}, {}
+
+    for sched, (rm, k, n) in (("allgather", (blk, m, blk)),
+                              ("ring", (blk, blk, blk))):
+        count = maxmin_launches[sched]
+        a = torch.rand((rm, k), generator=gen, device=dev)
+        b = torch.rand((k, n), generator=gen, device=dev)
+        plain_ms, want = cuda_once(lambda: mm.maxmin_matmul_ref(a, b,
+                                                                block=128))
+        err = float((mm.maxmin_matmul(a, b) - want).abs().max())
+        bound_ms, bound_by = maxmin_bound(rm, k, n)
+        ms = cuda_ms(lambda: mm.maxmin_matmul(a, b), reps=1, warmup=1)
+        rows[f"maxmin_matmul float32 [{rm}, {k}] x [{k}, {n}] ({sched})"] = {
+            "launches": count, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": err}
+        errs["maxmin_matmul"] = max(errs.get("maxmin_matmul", 0.0), err)
+        del a, b, want
+
+    r = (torch.rand((1, m, m), generator=gen, device=dev,
+                    dtype=torch.bfloat16) < 0.5).to(torch.bfloat16)
+    got = tc.threshold_step(r)
+    plain_ms, want = cuda_once(lambda: tc.threshold_step_ref(r))
+    err = float((got != want).any())     # 0/1 values: the max abs err
+    del got, want
+    bound_ms, bound_by = threshold_bound(1, m, 2)
+    rows[f"threshold_step bf16 [1, {m}, {m}]"] = {
+        "launches": launches["threshold_step"],
+        "ms": cuda_ms(lambda: tc.threshold_step(r), reps=1, warmup=1),
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bf16_ceiling_ms": bf16_ceiling_ms(2.0 * m ** 3),
+        "library_ms": cuda_ms(lambda: torch.bmm(r, r), reps=1, warmup=1),
+        "library": "torch.bmm(R, R) bf16", "max_abs_err": err}
+    errs["threshold_step"] = err
+    del r
+    torch.cuda.empty_cache()
+
+    from repro_torch.core.hypergraph import random_hypergraph
+    params = cd.dryrun_graph_params(m)
+    b_inc = cd.incidence(random_hypergraph(**params), dev)
+    n = b_inc.shape[1]
+    want = torch.matmul(b_inc, b_inc.T)      # bf16: exact, overlaps <= 8
+    err = float((ov.overlap(b_inc) - want.float()).abs().max())
+    del want
+    bound_ms, bound_by = overlap_bound(m, n, 2)
+    rows[f"overlap bf16 B [{m}, {n}]"] = {
+        "launches": launches["overlap"],
+        "ms": cuda_ms(lambda: ov.overlap(b_inc), reps=1, warmup=1),
+        # the plain version's float32 operand and product are 40 GB here
+        "plain_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "bf16_ceiling_ms": bf16_ceiling_ms(2.0 * m * m * n),
+        "library_ms": cuda_ms(lambda: torch.matmul(b_inc, b_inc.T), reps=1,
+                              warmup=1),
+        "library": "torch.matmul(B, B.T) bf16", "max_abs_err": err}
+    errs["overlap"] = err
+    del b_inc
+    torch.cuda.empty_cache()
+    return rows, errs
+
+
+def phase_dryrun_path(counters, mm, ov, tc, device):
+    """The closure dry-run at m = 65,536 (``repro_torch.launch.
+    closure_dryrun.main``, in process): eight records under
+    ``build/dryrun_core``, each cell's analytic terms priced at H100
+    rates and the four device computations run once on the card (one
+    ``overlap`` for W, 256 + 4,096 float32 ``maxmin_matmul`` launches for
+    the allgather and ring rounds, 32 + 6 ``threshold_step`` slices),
+    64 x 64 sampled entries of every output held to the plain version
+    (error 0).  Counts are set to 0 just before ``main`` and read just
+    after.  Then each kernel at those shapes, timed beside its bound and
+    library call (``dryrun_kernel_rows``).  Returns (launches, rows,
+    errs)."""
+    from repro_torch.launch import closure_dryrun as cd
+    clock = Phase()
+    reset_counts(counters)
+    records = cd.main(["--out", str(DRYRUN_OUT), "--m", str(DRYRUN_M),
+                       "--S", str(DRYRUN_S), "--device", device.type])
+    launches = read_counts(counters)
+    torch.cuda.empty_cache()
+    run_seconds = clock.seconds()
+    n_boolean = sum(len(cd.thresholds_of(kind, DRYRUN_S))
+                    for kind in ("threshold", "bisection"))
+    want = {"label_join": 0, "maxmin_matmul": 16 * 16 + 16 ** 3,
+            "overlap": 1, "threshold_step": n_boolean}
+    if launches != want:
+        raise AssertionError(f"dryrun_path: launches {launches}, "
+                             f"expected {want}")
+    tags = [cd.cell_tag(*cell) for cell in cd.CELLS]
+    files = sorted(p.stem for p in DRYRUN_OUT.glob("*.json"))
+    if files != sorted(tags):
+        raise AssertionError(f"dryrun_path: records {files}")
+    cells = {}
+    for tag, rec in zip(tags, records):
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun_path {tag}: {rec['error']}")
+        if rec["run_s"] is None or rec["max_abs_err"] != 0.0:
+            raise AssertionError(f"dryrun_path {tag}: run_s "
+                                 f"{rec['run_s']}, err {rec['max_abs_err']}")
+        cells[tag] = {k: rec[k] for k in (
+            "n_devices", "flops_analytic", "hbm_bytes", "t_compute_s",
+            "t_memory_s", "t_collective_s", "dominant", "mfu_bound",
+            "run_s", "run_bound_s", "peak_bytes", "max_abs_err", "run_of",
+            "launches")}
+        if "slice_s" in rec:             # the boolean runs, slice by slice
+            cells[tag]["slice_s"] = rec["slice_s"]
+        cells[tag]["run_over_bound"] = rec["run_s"] / rec["run_bound_s"]
+        cells[tag]["collective_bytes"] = rec["collective_executed"][
+            "total_bytes"]
+    # each maxmin round's own count, as its record measured it: r * c
+    # launches on allgather, r * c * r on ring
+    maxmin_launches = {rec["schedule"]: rec["launches"].get(
+        "maxmin_matmul", 0) for rec in records if rec["kind"] == "maxmin"}
+    if maxmin_launches != {"allgather": 16 * 16, "ring": 16 ** 3}:
+        raise AssertionError(f"dryrun_path: maxmin launches by schedule "
+                             f"{maxmin_launches}")
+    rows, errs = dryrun_kernel_rows(cd, mm, ov, tc, launches,
+                                    maxmin_launches, device)
+    emit({"phase": "dryrun_path", "m": DRYRUN_M, "S": DRYRUN_S,
+          "data": records[0]["data"], "cells": cells, "launches": launches,
+          "kernel_rows": rows, "run_seconds": run_seconds,
+          "seconds": clock.seconds()})
+    return launches, rows, errs
+
+
+def teacher_forced(model, tokens, compute_dtype, cache_dtype):
+    """(decode logits along ``tokens``, the full forward's logits), both
+    float32 [B, S, V] and computed in ``compute_dtype`` (the model's
+    config is swapped for the call only), the decode through a cache of
+    ``cache_dtype``."""
+    import dataclasses
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    try:
+        with torch.no_grad():
+            full, _ = model.apply(tokens)
+            cache = model.init_cache(tokens.shape[0], tokens.shape[1],
+                                     dtype=cache_dtype)
+            steps = []
+            for t in range(tokens.shape[1]):
+                lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+                steps.append(lg[:, 0].float())
+    finally:
+        model.cfg = cfg
+    return torch.stack(steps, 1), full.float()
+
+
+def decode_checks(model, tokens):
+    """The teacher-forced decode checks along ``tokens``.  Float32
+    compute and cache: decode against forward at the reference's
+    ``_DECODE_TOL`` (the reference's own check, which it runs on 2-layer
+    smoke configs).  The config's bf16 with the served bf16 cache: the
+    decode's root-mean-square departure from the float32 forward against
+    the bf16 forward's own, at most ``BF16_DEPARTURE_RATIO`` times it (a
+    bf16 fault, such as a cast in the wrong place or a wrong cache write,
+    puts the decode far past the forward's rounding).  Raises on either;
+    returns the readings."""
+    dec32, fwd32 = teacher_forced(model, tokens, "float32", torch.float32)
+    diff = (dec32 - fwd32).abs()
+    excess = float((diff - (DECODE_TOL["atol"] + DECODE_TOL["rtol"]
+                            * fwd32.abs())).max())
+    out = {"decode_vs_forward_max_abs_diff": float(diff.max()),
+           "decode_vs_forward_excess": excess}
+    del dec32, diff
+    dec16, fwd16 = teacher_forced(model, tokens, model.cfg.compute_dtype,
+                                  torch.bfloat16)
+    dec_dep, fwd_dep = dec16 - fwd32, fwd16 - fwd32
+    out.update(
+        bf16_decode_rms_departure=float(dec_dep.pow(2).mean().sqrt()),
+        bf16_forward_rms_departure=float(fwd_dep.pow(2).mean().sqrt()),
+        bf16_decode_max_departure=float(dec_dep.abs().max()),
+        bf16_forward_max_departure=float(fwd_dep.abs().max()),
+        bf16_decode_vs_forward_max_abs_diff=float((dec16 - fwd16).abs()
+                                                  .max()))
+    out["bf16_departure_ratio"] = (out["bf16_decode_rms_departure"]
+                                   / out["bf16_forward_rms_departure"])
+    name = model.cfg.name
+    if not excess <= 0.0:
+        raise AssertionError(
+            f"lm_serve_path {name}: float32 decode logits differ from the "
+            f"forward's by {out['decode_vs_forward_max_abs_diff']} (over "
+            f"_DECODE_TOL by {excess})")
+    if not out["bf16_departure_ratio"] <= BF16_DEPARTURE_RATIO:
+        raise AssertionError(
+            f"lm_serve_path {name}: the bf16 decode departs from the "
+            f"float32 forward {out['bf16_departure_ratio']} times as far "
+            f"as the bf16 forward (limit {BF16_DEPARTURE_RATIO})")
+    return out
+
+
+def lm_serve_run(lserve, cfg, reduced, device):
+    """One model through ``launch/serve.py``'s path on the card: seeded
+    weights, ``LM_BATCH`` prompts of ``LM_PROMPT`` tokens prefilled, then
+    ``LM_GEN`` greedy tokens (bf16 cache, as the launcher), then the
+    teacher-forced checks along the served stream (``decode_checks``)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lserve.build(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res = lserve.serve(model, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                       gen=LM_GEN, seed=0)
+    toks = res["tokens"]
+    if toks.shape != (LM_BATCH, LM_GEN) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        raise AssertionError(f"lm_serve_path {cfg.name}: tokens {toks}")
+    stream = torch.from_numpy(np.concatenate(
+        [res["prompts"], toks], axis=1)).to(device)
+    t0 = time.perf_counter()
+    checks = decode_checks(model, stream)
+    check_s = time.perf_counter() - t0
+    out = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "compute_dtype": cfg.compute_dtype, "reduced": reduced,
+           "params": sum(p.numel() for p in model.parameters()),
+           "config_n_params": cfg.n_params(),
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "build_s": build_s, "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_ms": res["decode_s"] * 1e3,
+           "decode_ms_per_token": res["decode_s"] * 1e3 / LM_GEN,
+           "tokens_per_s": res["tokens_per_s"],
+           "sample_tokens": toks[0][:8].tolist(), **checks,
+           "check_s": check_s,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_serve_path(counters, device):
+    """LM serving through ``repro_torch.launch.serve`` (``build`` +
+    ``serve``: prefill through the KV cache, greedy decode) on the card:
+    ``qwen3-1.7b`` at its full published config, then ``qwen2-moe-a2.7b``
+    at its published widths with 2 of its 24 layers (``moe_apply``, 60
+    experts, top-4).  Each run serves in the config's bf16 and is held
+    to its own forward along the served stream by ``decode_checks``: the
+    reference's teacher-forced check at ``_DECODE_TOL`` in float32, and
+    the bf16 decode's departure from the float32 forward against the
+    bf16 forward's.  The LM path reaches none of the port's kernels:
+    their counts stay 0."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lserve
+    clock = Phase()
+    reset_counts(counters)
+    runs = [lm_serve_run(lserve, get_config(LM_ARCH), [], device)]
+    moe = dataclasses.replace(get_config(LM_MOE_ARCH),
+                              n_layers=LM_MOE_LAYERS)
+    runs.append(lm_serve_run(lserve, moe, [
+        f"n_layers: 24 cut to {LM_MOE_LAYERS}"], device))
+    launches = read_counts(counters)
+    if any(launches.values()):
+        raise AssertionError(f"lm_serve_path launched kernels {launches}")
+    for run in runs:
+        print(f"lm_serve {run['arch']}: prefill {run['prefill_ms']:.1f} ms"
+              f"   decode {run['decode_ms']:.1f} ms "
+              f"({run['tokens_per_s']:.1f} tok/s)", flush=True)
+    emit({"phase": "lm_serve_path", "runs": runs,
+          "seconds": clock.seconds()})
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -4195,6 +4501,11 @@ def main() -> int:
     workload_launches += ete_workload_launches
     bench_launches = phase_bench_path(counters, main_eng, closure_eng)
     del main_eng, closure_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_launches, dryrun_rows, dryrun_errs = phase_dryrun_path(
+        counters, mm, ov, tc, device)
+    phase_lm_serve_path(counters, device)
     torch.cuda.synchronize()
 
     kernels = [{
@@ -4270,18 +4581,22 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": (dense_launches[name] + service_dense[name]
                          + store_launches[name] + sharded_launches[name]
-                         + bench_launches[name]),
+                         + bench_launches[name] + dryrun_launches[name]),
             "launches_by_path": {"closure_path": dense_launches[name],
                                  "service_path": service_dense[name],
                                  "store_path": store_launches[name],
                                  "sharded_path": sharded_launches[name],
-                                 "bench_path": bench_launches[name]},
+                                 "bench_path": bench_launches[name],
+                                 "dryrun_path": dryrun_launches[name]},
             "max_abs_err": max(dense_errs[name], row["max_abs_err"],
                                store_errs.get(name, 0),
-                               sharded_errs[name]),
+                               sharded_errs[name], dryrun_errs[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})
+        # at the closure dry-run's production shapes (m = 65,536)
+        kernels[-1]["dryrun_shapes"] = {
+            k: v for k, v in dryrun_rows.items() if k.startswith(name)}
         if name == "maxmin_matmul":
             # float32, at the sharded closure's whole and block shapes
             kernels[-1]["float32"] = {k: v for k, v in sharded_rows.items()

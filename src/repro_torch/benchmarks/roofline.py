@@ -23,9 +23,18 @@ The rates (NVIDIA H100 SXM):
   Instructions" throughput table), times the SM count and the maximum SM
   clock, both read from the card at run time (``fill_rates``) into
   ``RATES["int32_minmax"]``.  Float32 min/max is priced at this rate too.
+  Where no card is there to read (``--device cpu`` pricing), the data
+  sheet's 132 SMs at 1,980 MHz stand in (``minmax_rate``).
+* ``INTER_NODE_BYTES_PER_S`` — one card's link out of its node, 50e9 B/s:
+  a DGX H100 gives each GPU one 400 Gb/s NDR InfiniBand port (DGX H100
+  user guide).  A logical 16-wide mesh axis spans two nodes of 8 cards,
+  so a closure round's panels cross this link;
+* ``NVLINK_BYTES_PER_S`` — NVLink 4 inside a node, 450e9 B/s each way of
+  the data sheet's 900 GB/s; beside the other for comparison.
 
 Counterpart of the reference's ``benchmarks/roofline.py``, whose
-constants are a TPU v5e's.  Its other half (the LM cell model over
+constants are a TPU v5e's (and of the TPU rates in the reference's
+``launch/closure_dryrun.py``, which the port's dry-run takes from here).  Its other half (the LM cell model over
 ``repro.configs`` and ``launch/shapes``) reads modules the port has not
 got; it is not ported here.
 """
@@ -38,8 +47,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 __all__ = ["HBM_BYTES_PER_S", "INT8_TENSOR_OPS_PER_S",
-           "BF16_TENSOR_OPS_PER_S", "INT32_MINMAX_PER_CLOCK_PER_SM", "RATES",
-           "int32_minmax_rate", "fill_rates", "bound", "label_join_bound",
+           "BF16_TENSOR_OPS_PER_S", "INT32_MINMAX_PER_CLOCK_PER_SM",
+           "INTER_NODE_BYTES_PER_S", "NVLINK_BYTES_PER_S", "H100_SMS",
+           "H100_MAX_SM_CLOCK_MHZ", "RATES", "int32_minmax_rate",
+           "minmax_rate", "fill_rates", "bound", "label_join_bound",
            "label_join_gather_bound", "maxmin_bound", "overlap_bound",
            "threshold_bound", "bf16_ceiling_ms", "sweep_bound_bytes"]
 
@@ -47,6 +58,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
 INT8_TENSOR_OPS_PER_S = 1.979e15
 BF16_TENSOR_OPS_PER_S = 0.989e15
 INT32_MINMAX_PER_CLOCK_PER_SM = 64
+H100_SMS = 132                 # H100 SXM (data sheet)
+H100_MAX_SM_CLOCK_MHZ = 1980   # H100 SXM boost clock (data sheet)
+INTER_NODE_BYTES_PER_S = 50e9  # 400 Gb/s NDR InfiniBand, one port a GPU
+NVLINK_BYTES_PER_S = 450e9     # NVLink 4, each way (data sheet: 900 GB/s)
 RATES: Dict[str, float] = {}   # {"int32_minmax": ops/s}, see fill_rates
 
 
@@ -54,6 +69,13 @@ def int32_minmax_rate(sms: int, max_sm_clock_mhz: float) -> float:
     """32-bit min/max results per second of a card with ``sms`` SMs at
     ``max_sm_clock_mhz``."""
     return sms * INT32_MINMAX_PER_CLOCK_PER_SM * max_sm_clock_mhz * 1e6
+
+
+def minmax_rate() -> float:
+    """32-bit min/max results per second: the card's (``RATES``, filled by
+    ``fill_rates``) where it was read, else the data sheet's H100 SXM."""
+    return RATES.get("int32_minmax") or int32_minmax_rate(
+        H100_SMS, H100_MAX_SM_CLOCK_MHZ)
 
 
 def fill_rates(sms: Optional[int] = None,

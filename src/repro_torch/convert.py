@@ -2,15 +2,17 @@
 
 Functions that take the reference's state as plain numpy arrays and give
 this package's objects, so an index or a snapshot built by one stack can
-be served by the other.  Nothing of the reference is imported here: a
+be served by the other, and an LM's parameters drawn by one run in the
+other.  Nothing of the reference is imported here: a
 caller pulls the arrays out of its objects with ``np.asarray`` and hands
 them in.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .core.baselines import ETEIndex, ThresholdComponentIndex
 from .core.engine import ClosureEngine
@@ -23,7 +25,7 @@ from .device import DeviceLike
 __all__ = ["hypergraph_from_arrays", "hlindex_from_arrays",
            "snapshot_from_arrays", "closure_engine_from_arrays",
            "ete_index_from_arrays", "line_graph_from_arrays",
-           "threshold_index_from_arrays"]
+           "threshold_index_from_arrays", "lm_state_dict_from_params"]
 
 
 def _int64(a) -> np.ndarray:
@@ -133,3 +135,29 @@ def threshold_index_from_arrays(h: Hypergraph, comp,
     tci = ThresholdComponentIndex.__new__(ThresholdComponentIndex)
     tci.h, tci.thresholds, tci.comp = h, thresholds, comp
     return tci
+
+
+def lm_state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A ``TransformerLM`` ``state_dict`` from the reference's parameter
+    pytree (nested dicts of arrays, ``np.asarray``-able).  Key paths join
+    with ``.``; every leaf under ``blocks`` carries the reference's
+    stacked layer axis ``[L, ...]`` and is split into ``blocks.<i>.``
+    entries, one per layer.  The tensors are float32 copies on the CPU;
+    ``model.load_state_dict`` lands them on the model's device."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(child, path + (str(key),))
+            return
+        arr = np.array(node, dtype=np.float32)          # always a copy
+        if path[0] == "blocks":
+            for i, layer in enumerate(arr):
+                out[".".join(("blocks", str(i)) + path[1:])] = \
+                    torch.from_numpy(np.ascontiguousarray(layer))
+        else:
+            out[".".join(path)] = torch.from_numpy(arr)
+
+    walk(params, ())
+    return out

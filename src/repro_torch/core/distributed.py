@@ -110,14 +110,28 @@ def _local_contraction(use_kernels: bool) -> Callable:
 
 def sharded_maxmin_round(mesh: LogicalMesh, *, schedule: str = "allgather",
                          axes: Tuple[str, str] = ("data", "model"),
-                         use_kernels: bool = False):
+                         use_kernels: bool = False,
+                         on_read: Optional[Callable] = None,
+                         contract: Optional[Callable] = None):
     """Returns ``round_fn(R, out=None) -> max(R, R∘R)`` for a padded
     [mp, mp] R partitioned over ``axes``.  Every block of the result is
     written into ``out`` (a second buffer, allocated when ``None``) and
     read only from ``R``, so a round sees the old R throughout.  Panels
     and segments the kernel reads are made contiguous first (a column
-    panel of a row-major tensor is strided)."""
-    contract = _local_contraction(use_kernels)
+    panel of a row-major tensor is strided).
+
+    ``on_read(kind, panel)``, where given, is called for every panel a
+    block reads in the round, named by the collective that delivers it
+    on the reference's mesh: ``"all-gather"`` for a block's row panel
+    (and, under ``allgather``, its column panel), ``"collective-permute"``
+    for each ring step's panel R[k, j].  A panel counts whole, the
+    block's own part included, as the reference's collectives do.
+    ``contract(a, b)`` replaces the per-block contraction where given (a
+    walk of the schedule on ``meta`` tensors counts the reads of a round
+    at any size without computing it)."""
+    if contract is None:
+        contract = _local_contraction(use_kernels)
+    read = on_read if on_read is not None else (lambda kind, panel: None)
     if schedule not in ("allgather", "ring"):
         raise ValueError(schedule)
     n_row, n_col = mesh.shape[axes[0]], mesh.shape[axes[1]]
@@ -135,7 +149,9 @@ def sharded_maxmin_round(mesh: LogicalMesh, *, schedule: str = "allgather",
                 rows = slice(i * br, (i + 1) * br)
                 blk = r_in[rows, cols]
                 row_panel = r_in[rows]            # contiguous row slice
+                read("all-gather", row_panel)
                 if schedule == "allgather":
+                    read("all-gather", col_panel)
                     out[rows, cols] = torch.maximum(
                         blk, contract(row_panel, col_panel))
                     continue
@@ -147,6 +163,7 @@ def sharded_maxmin_round(mesh: LogicalMesh, *, schedule: str = "allgather",
                     ks = slice(src * br, (src + 1) * br)
                     seg = row_panel[:, ks].contiguous()
                     panel = r_in[ks, cols].contiguous()
+                    read("collective-permute", panel)
                     torch.maximum(acc, contract(seg, panel), out=acc)
                 out[rows, cols] = acc
         return out

@@ -1,0 +1,44 @@
+"""Serve steps: one-token decode and full-sequence prefill.
+
+Counterpart of ``repro/serve/serve_step.py``.  ``make_serve_step``: one
+token against a KV cache of ``seq_len`` (the ``decode_*`` / ``long_*``
+shape cells).  ``make_prefill_step``: full-sequence forward returning
+last-token logits (the ``prefill_*`` cells).  The model holds its
+parameters, so the steps take none.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ..models.common import ArchConfig
+
+__all__ = ["make_serve_step", "make_prefill_step"]
+
+
+def make_serve_step(model, cfg: ArchConfig) -> Callable:
+    @torch.no_grad()
+    def serve_step(cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                   pos) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return model.decode_step(cache, tokens, pos)
+    return serve_step
+
+
+def make_prefill_step(model, cfg: ArchConfig) -> Callable:
+    if cfg.family == "encdec":
+        @torch.no_grad()
+        def prefill(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            logits, _ = model.apply(batch["tokens"], batch["frames"])
+            return logits[:, -1]
+    elif cfg.family == "vlm":
+        @torch.no_grad()
+        def prefill(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            logits, _ = model.apply(batch["tokens"], batch["patch_embeds"])
+            return logits[:, -1]
+    else:
+        @torch.no_grad()
+        def prefill(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+            logits, _ = model.apply(batch["tokens"])
+            return logits[:, -1]
+    return prefill

@@ -1,5 +1,6 @@
 """Docs consistency guard of the port: the reference's nine checks
-(``tools/check_docs.py``) against ``repro_torch``'s live registries and
+(``tools/check_docs.py``), and one of its own, against ``repro_torch``'s
+live registries and
 ``docs/ARCHITECTURE_TORCH.md``, so the port's documentation cannot
 silently drift from its code:
 
@@ -27,6 +28,16 @@ silently drift from its code:
 9. The "Workloads" section's capability table (header ``| backend |
    `witness` | ... |``) against ``repro_torch.api.workload_capabilities()``
    and ``WORKLOAD_OPS``, both ways, cell for cell.
+
+and one of the port's own:
+
+10. The "Launchers" section's dry-run cell table (rows ``|
+    `maxmin__sp__allgather__float32` | ... |``) against
+    ``repro_torch.launch.closure_dryrun.CELLS``, and its model-family
+    table (rows ``| `dense` | `TransformerLM` | ported |``) against
+    ``repro_torch.models.registry`` (``FAMILIES``, ``NOT_PORTED``), both
+    ways; and the section names the reference modules that have no
+    counterpart (``launch/hlo_analysis.py``, ``compat.py``).
 
   PYTHONPATH=src python -m repro_torch.tools.check_docs
 """
@@ -62,6 +73,13 @@ _KERNEL_ROW = re.compile(
 _PRIORITY_ROW = re.compile(r"^\|\s*`(\w+)`\s*\|\s*(\d+)\s*\|", re.M)
 _FIELD_ROW = re.compile(
     r"^\|\s*`(\w+)`\s*\|\s*`[^`]+`\s*\|\s*`([^`]+)`\s*\|", re.M)
+
+
+# scoped to the Launchers section
+_CELL_ROW = re.compile(r"^\|\s*`(\w+__\w+__\w+__\w+)`\s*\|", re.M)
+_FAMILY_ROW = re.compile(
+    r"^\|\s*`(\w+)`\s*\|\s*`(\w+)`\s*\|\s*(ported|not ported)\s*\|", re.M)
+NO_COUNTERPART = ("launch/hlo_analysis.py", "compat.py")
 
 
 def _section(text: str, title: str) -> str:
@@ -221,6 +239,29 @@ def check_workload_table(text: str) -> List[str]:
                       documented)
 
 
+def check_launchers_section(text: str) -> List[str]:
+    from repro_torch.launch.closure_dryrun import CELLS, cell_tag
+    from repro_torch.models.registry import FAMILIES, NOT_PORTED
+
+    body = _section(text, "Launchers")
+    if not body:
+        return ["no '## Launchers' section"]
+    live_cells = {cell_tag(*cell): "cell" for cell in CELLS}
+    problems = _both_ways("dry-run cell", live_cells,
+                          {tag: "cell" for tag in _CELL_ROW.findall(body)})
+    live = {family: (cls.__name__, "ported")
+            for family, cls in FAMILIES.items()}
+    live.update({family: (name, "not ported")
+                 for family, name in NOT_PORTED.items()})
+    documented = {family: (name, status)
+                  for family, name, status in _FAMILY_ROW.findall(body)}
+    problems += _both_ways("model-family", live, documented)
+    problems += [f"Launchers section does not name `{name}`, which has no "
+                 f"counterpart" for name in NO_COUNTERPART
+                 if f"`{name}`" not in body]
+    return problems
+
+
 def problems(arch: pathlib.Path = ARCH,
              root: pathlib.Path = ROOT) -> List[str]:
     """Every disagreement between ``arch`` (and the links of the docs
@@ -232,7 +273,8 @@ def problems(arch: pathlib.Path = ARCH,
     for check in (check_backend_table, check_update_capability_table,
                   check_request_type_table, check_construction_table,
                   check_format_table, check_kernel_table,
-                  check_multitenant_section, check_workload_table):
+                  check_multitenant_section, check_workload_table,
+                  check_launchers_section):
         out += [f"{arch.name}: {p}" for p in check(text)]
     return out
 
@@ -249,7 +291,8 @@ def main() -> int:
           f"{ARCH.name} matches the port's backends "
           f"{available_backends()}, update and workload capabilities, "
           f"request types, construction modes, on-disk formats, kernels "
-          f"{sorted(KERNEL_REGISTRY)}, priority classes and Request fields")
+          f"{sorted(KERNEL_REGISTRY)}, priority classes, Request fields, "
+          f"dry-run cells and model families")
     return 0
 
 

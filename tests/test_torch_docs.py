@@ -57,6 +57,11 @@ def _without(tmp_path, starts):
     ("| `interactive` | 0", "priority-class table is missing `interactive`"),
     ("| `deadline_ms` |", "request-field table is missing `deadline_ms`"),
     ("| `ete` | yes | no", "workload-capability table is missing `ete`"),
+    ("| `maxmin__sp__ring__float32` |", "dry-run cell table is missing "
+                                        "`maxmin__sp__ring__float32`"),
+    ("| `moe` | `TransformerLM`", "model-family table is missing `moe`"),
+    ("| `encdec` | `WhisperModel`", "model-family table is missing "
+                                   "`encdec`"),
 ])
 def test_a_missing_registry_row_fails(tmp_path, row, expect):
     found = check_docs.problems(arch=_without(tmp_path, row))
@@ -70,6 +75,23 @@ def test_a_wrong_kernel_unit_fails(tmp_path):
         "| `overlap` | `overlap_ref` | CUDA cores |"))
     found = check_docs.problems(arch=arch)
     assert any("kernel table documents `overlap`" in p for p in found), found
+
+
+def test_a_family_marked_ported_that_is_not_fails(tmp_path):
+    arch = tmp_path / ARCH.name
+    arch.write_text(ARCH.read_text().replace(
+        "| `ssm` | `MambaLM` | not ported |", "| `ssm` | `MambaLM` | ported |"))
+    found = check_docs.problems(arch=arch)
+    assert any("model-family table documents `ssm`" in p
+               for p in found), found
+
+
+@pytest.mark.parametrize("name", ["launch/hlo_analysis.py", "compat.py"])
+def test_the_modules_without_counterpart_stay_named(tmp_path, name):
+    arch = tmp_path / ARCH.name
+    arch.write_text(ARCH.read_text().replace(f"`{name}`", name))
+    found = check_docs.problems(arch=arch)
+    assert any(f"does not name `{name}`" in p for p in found), found
 
 
 def test_a_broken_link_fails(tmp_path):

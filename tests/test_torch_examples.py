@@ -1,8 +1,9 @@
-"""The port's four examples (``repro_torch.examples``) on the CPU at small
+"""The port's examples (``repro_torch.examples``) on the CPU at small
 sizes: each ``main(device="cpu")`` runs to its end (keeping its own
 assertions) and returns the answers it printed, which equal what the
 reference's example computes on the same inputs through ``repro.api``
-(Figure 1's MR(v5, v9) = 2 among them)."""
+(Figure 1's MR(v5, v9) = 2 among them), or, for the LM serving example,
+through the reference's model and decode drivers on the same weights."""
 import numpy as np
 import pytest
 
@@ -10,7 +11,7 @@ import repro.api as R
 
 from repro_torch.examples import (distributed_reachability,
                                   epidemic_case_study, quickstart,
-                                  serving_quickstart)
+                                  serve_lm, serving_quickstart)
 
 
 def test_quickstart_answers_equal_the_reference():
@@ -108,9 +109,47 @@ def test_distributed_reachability_answers_equal_the_reference():
     assert got["round_launches"] == {"allgather": 0, "ring": 0}
 
 
+def test_serve_lm_tokens_equal_the_reference():
+    """The LM serving example on the reference's own weights (carried
+    across with ``convert``) and float32 compute: the same left-padded
+    prompts, and the greedy tokens of the reference example's steps."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_smoke_config
+    from repro.models import build_model
+    from repro.serve import greedy_decode, prefill_with_decode
+    from repro_torch import convert
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    got = serve_lm.main(device="cpu", requests=4, max_prompt=12, gen=8,
+                        state_dict=convert.lm_state_dict_from_params(
+                            jax.tree.map(np.asarray, params)),
+                        compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(4, 13, 4)
+    pad = int(lens.max())
+    prompts = np.zeros((4, pad), np.int32)
+    for i, ln in enumerate(lens):
+        prompts[i, pad - ln:] = rng.integers(1, cfg.vocab, ln)
+    np.testing.assert_array_equal(got["prompts"], prompts)
+    cache = model.init_cache(4, pad + 8)
+    last, cache = prefill_with_decode(model, params, cache,
+                                      jnp.asarray(prompts))
+    toks, _ = greedy_decode(model, params, cache, last, pad, 8)
+    np.testing.assert_array_equal(got["tokens"], np.asarray(toks))
+    # its own seeded weights, in the config's bf16
+    own = serve_lm.main(device="cpu", requests=3, max_prompt=8, gen=4)
+    assert own["tokens"].shape == (3, 4) and own["tokens"].dtype == np.int32
+    assert ((own["tokens"] >= 0) & (own["tokens"] < cfg.vocab)).all()
+
+
 @pytest.mark.parametrize("module", [quickstart, serving_quickstart,
                                     epidemic_case_study,
-                                    distributed_reachability])
+                                    distributed_reachability, serve_lm])
 def test_examples_default_to_the_card(module):
     import inspect
     import torch

@@ -48,6 +48,14 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.benchmarks.kernels_bench",
         "repro_torch.benchmarks.paper_tables",
         "repro_torch.benchmarks.roofline", "repro_torch.benchmarks.run",
+        "repro_torch.configs", "repro_torch.configs.arctic_480b",
+        "repro_torch.configs.falcon_mamba_7b",
+        "repro_torch.configs.llava_next_mistral_7b",
+        "repro_torch.configs.minitron_8b", "repro_torch.configs.qwen2_5_14b",
+        "repro_torch.configs.qwen2_7b", "repro_torch.configs.qwen2_moe_a2_7b",
+        "repro_torch.configs.qwen3_1_7b",
+        "repro_torch.configs.recurrentgemma_2b",
+        "repro_torch.configs.whisper_large_v3",
         "repro_torch.convert",
         "repro_torch.core", "repro_torch.core.baselines",
         "repro_torch.core.distributed",
@@ -61,6 +69,7 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.examples", "repro_torch.examples.distributed_reachability",
         "repro_torch.examples.epidemic_case_study",
         "repro_torch.examples.quickstart",
+        "repro_torch.examples.serve_lm",
         "repro_torch.examples.serving_quickstart",
         "repro_torch.kernels",
         "repro_torch.kernels.build", "repro_torch.kernels.label_join",
@@ -68,8 +77,16 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.kernels.overlap", "repro_torch.kernels.ref",
         "repro_torch.kernels.registry",
         "repro_torch.kernels.threshold_closure",
-        "repro_torch.serve", "repro_torch.serve.reach_service",
+        "repro_torch.launch", "repro_torch.launch.closure_dryrun",
+        "repro_torch.launch.mesh", "repro_torch.launch.serve",
+        "repro_torch.launch.shapes",
+        "repro_torch.models", "repro_torch.models.common",
+        "repro_torch.models.layers", "repro_torch.models.registry",
+        "repro_torch.models.transformer",
+        "repro_torch.serve", "repro_torch.serve.kvcache",
+        "repro_torch.serve.reach_service",
         "repro_torch.serve.replicas", "repro_torch.serve.scheduler",
+        "repro_torch.serve.serve_step",
         "repro_torch.store", "repro_torch.store.format",
         "repro_torch.store.hif", "repro_torch.store.store",
         "repro_torch.store.wal",
@@ -137,11 +154,15 @@ def test_backend_module_alone_loads_neither_jax_nor_the_reference(module):
 
 @pytest.mark.parametrize("package", ["repro_torch.benchmarks",
                                      "repro_torch.examples",
-                                     "repro_torch.tools"])
+                                     "repro_torch.tools",
+                                     "repro_torch.launch",
+                                     "repro_torch.models",
+                                     "repro_torch.configs"])
 def test_suite_package_alone_loads_neither_jax_nor_the_reference(package):
-    """The benchmark suite, the examples and the docs check, each package
-    imported first and alone in a fresh interpreter, then every module of
-    it (the reference's copies of them import ``repro`` and JAX)."""
+    """The benchmark suite, the examples, the docs check, the launchers,
+    the models and their configs, each package imported first and alone
+    in a fresh interpreter, then every module of it (the reference's
+    copies of them import ``repro`` and JAX)."""
     mods = [m for m in _port_modules() if m.startswith(package + ".")]
     assert mods
     out = _run(
@@ -165,6 +186,22 @@ def test_sources_name_neither_jax_nor_the_reference_package():
     for path in files:
         for no, line in enumerate(path.read_text().splitlines(), 1):
             assert not pattern.match(line), f"{path}:{no}: {line}"
+
+
+def test_serve_package_keeps_the_lm_stack_out_until_asked():
+    """``repro_torch.serve`` resolves its exports lazily, as the
+    reference's: the reachability service alone loads no model module,
+    and the LM drivers load the model stack on first use."""
+    out = _run(
+        "import json, sys\n"
+        "from repro_torch.serve import ReachabilityService\n"
+        "before = sorted(m for m in sys.modules if m.startswith(\n"
+        "    ('repro_torch.models', 'repro_torch.serve.kvcache')))\n"
+        "from repro_torch.serve import prefill_with_decode, make_serve_step\n"
+        "after = 'repro_torch.serve.kvcache' in sys.modules\n"
+        "print(json.dumps([before, after]))\n")
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout) == [[], True]
 
 
 def test_build_engine_without_cuda_needs_an_explicit_cpu():
