@@ -9,7 +9,7 @@ them in.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +25,9 @@ from .device import DeviceLike
 __all__ = ["hypergraph_from_arrays", "hlindex_from_arrays",
            "snapshot_from_arrays", "closure_engine_from_arrays",
            "ete_index_from_arrays", "line_graph_from_arrays",
-           "threshold_index_from_arrays", "lm_state_dict_from_params"]
+           "threshold_index_from_arrays", "lm_layers_from_params",
+           "lm_state_dict_from_params", "nest_layers",
+           "lm_params_from_state_dict", "host_copy", "STACKED"]
 
 
 def _int64(a) -> np.ndarray:
@@ -137,27 +139,123 @@ def threshold_index_from_arrays(h: Hypergraph, comp,
     return tci
 
 
-def lm_state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """A ``TransformerLM`` ``state_dict`` from the reference's parameter
-    pytree (nested dicts of arrays, ``np.asarray``-able).  Key paths join
-    with ``.``; every leaf under ``blocks`` carries the reference's
-    stacked layer axis ``[L, ...]`` and is split into ``blocks.<i>.``
-    entries, one per layer.  The tensors are float32 copies on the CPU;
-    ``model.load_state_dict`` lands them on the model's device."""
-    out: Dict[str, torch.Tensor] = {}
+# the reference's parameter trees stack these groups of layers on a leading
+# axis (``lax.scan`` over layers); the port keeps one module per layer
+STACKED = ("blocks", "groups", "enc_blocks", "dec_blocks")
+
+
+def lm_layers_from_params(params: Mapping) -> Dict[str, np.ndarray]:
+    """The reference's parameter pytree (nested dicts and lists of
+    ``np.asarray``-able leaves) as flat ``state_dict``-style keys joined
+    with ``.``, numpy arrays in their own dtypes (views of the given
+    arrays where they are numpy already: nothing is copied).  Every leaf
+    under a ``STACKED`` group carries the reference's layer axis
+    ``[L, ...]`` and is split into ``<group>.<i>.`` entries, one per
+    layer; a list (the hybrid's ``tail``) is walked by index."""
+    out: Dict[str, np.ndarray] = {}
 
     def walk(node, path):
         if isinstance(node, Mapping):
             for key, child in node.items():
                 walk(child, path + (str(key),))
             return
-        arr = np.array(node, dtype=np.float32)          # always a copy
-        if path[0] == "blocks":
+        if isinstance(node, list):
+            for i, child in enumerate(node):
+                walk(child, path + (str(i),))
+            return
+        arr = np.asarray(node)
+        if path[0] in STACKED:
             for i, layer in enumerate(arr):
-                out[".".join(("blocks", str(i)) + path[1:])] = \
-                    torch.from_numpy(np.ascontiguousarray(layer))
+                out[".".join((path[0], str(i)) + path[1:])] = \
+                    np.ascontiguousarray(layer)
         else:
-            out[".".join(path)] = torch.from_numpy(arr)
+            out[".".join(path)] = arr
 
     walk(params, ())
     return out
+
+
+def lm_state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A model's ``state_dict`` (any family of ``repro_torch.models``) from
+    the reference's parameter pytree: ``lm_layers_from_params`` as float32
+    tensors on the CPU; ``model.load_state_dict`` lands them on the
+    model's device."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))  # a copy
+            for k, v in lm_layers_from_params(params).items()}
+
+
+def host_copy(leaf) -> np.ndarray:
+    """A host copy of ``leaf``: a tensor (any device, bf16 as float32) or
+    an array."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.to("cpu", copy=True).numpy()
+    return np.array(leaf)
+
+
+def nest_layers(flat: Mapping[str, object], stack=np.stack) -> Dict:
+    """Inverse of ``lm_layers_from_params`` on any leaves: ``.``-joined
+    keys become nested dicts, ``<group>.<i>.`` entries of a ``STACKED``
+    group are joined with ``stack`` (a list of the layers' leaves, in
+    layer order), and a dict whose keys are exactly 0..n-1 becomes a
+    list (the hybrid's ``tail``)."""
+    tree: Dict = {}
+    stacks: Dict[Tuple[str, ...], Dict[int, object]] = {}
+    for key, leaf in flat.items():
+        parts = key.split(".")
+        if parts[0] in STACKED:
+            path = (parts[0],) + tuple(parts[2:])
+            stacks.setdefault(path, {})[int(parts[1])] = leaf
+        else:
+            _put(tree, parts, leaf)
+    for path, layers in stacks.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"layers of {'.'.join(path)} are not 0.."
+                             f"{len(layers) - 1}: {sorted(layers)}")
+        _put(tree, list(path), stack([layers[i]
+                                      for i in range(len(layers))]))
+    return _lists(tree)
+
+
+def _put(tree: Dict, parts, leaf) -> None:
+    for p in parts[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[parts[-1]] = leaf
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and sorted(node) == [str(i) for i in range(len(node))] \
+            and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def _stack_to_host(leaves):
+    if isinstance(leaves[0], torch.Tensor):
+        # one stack on the tensors' device, then one host copy
+        return host_copy(torch.stack([t.detach() for t in leaves]))
+    return np.stack([np.asarray(x) for x in leaves])
+
+
+def lm_params_from_state_dict(state_dict: Mapping[str, object],
+                              specs: Optional[Mapping] = None) -> Dict:
+    """The reference's parameter pytree from a model's ``state_dict`` (or
+    any mapping of those keys to tensors or arrays, on any device): host
+    numpy copies in their own dtypes (bf16 as float32), stacked on the
+    layer axis, the hybrid's ``tail`` a list.  A hybrid without trailing
+    blocks has no ``tail`` entry to nest; pass its ``param_specs()`` as
+    ``specs`` to get the reference's empty list.  Inverse of
+    ``lm_state_dict_from_params``; the reference's ``model.apply`` takes
+    the result as its ``params``."""
+    tree = nest_layers({k: v if k.split(".")[0] in STACKED else host_copy(v)
+                        for k, v in state_dict.items()},
+                       stack=_stack_to_host)
+    for key, value in (specs or {}).items():
+        if value == [] and key not in tree:
+            tree[key] = []
+    return tree

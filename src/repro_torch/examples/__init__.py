@@ -5,6 +5,7 @@ for the host:
 
 for the four reachability examples ``quickstart``, ``serving_quickstart``,
 ``epidemic_case_study`` and ``distributed_reachability``, and the LM
-serving example ``serve_lm``.  Each module's ``main(device=...)`` prints
-what the reference's prints, keeps its assertions and returns its answers.
+examples ``serve_lm`` and ``train_lm``.  Each module's ``main(device=...)``
+prints what the reference's prints, keeps its assertions and returns its
+answers.
 """

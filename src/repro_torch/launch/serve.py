@@ -8,8 +8,13 @@ Counterpart of ``repro/launch/serve.py``, with the same flags plus
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --smoke --device cpu
 
-The weights are random, drawn from ``--seed`` by a ``torch.Generator`` on
-the device; the prompts from ``--seed`` by numpy.  Times are host clock
+Every family serves: ``--arch falcon-mamba-7b`` (``ssm``) and
+``recurrentgemma-2b`` (``hybrid``) through their recurrent states,
+``whisper-large-v3`` (``encdec``) with seeded stand-in frames encoded
+once into the cross K/V (``prefill_cross``) before the prompt.  The
+weights are random, drawn from ``--seed`` by a ``torch.Generator`` on
+the device; the prompts, then the frames, from ``--seed`` by numpy (one
+stream, as the reference draws them).  Times are host clock
 around work that ends in a device synchronise; nothing is compiled, so
 they include no compile.
 """
@@ -49,15 +54,26 @@ def serve(model, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
           seed: int = 0) -> Dict:
     """Prefill ``batch`` seeded prompts of ``prompt_len`` tokens through
     the KV cache (``init_cache``'s bf16), then decode ``gen`` greedy
-    tokens.  Returns the tokens [batch, gen] (host int32) and the times."""
+    tokens.  An ``encdec`` model first encodes seeded frames
+    [batch, enc_frames, d_model] into the cache's cross K/V
+    (``prefill_cross``, counted in the prefill time).  Returns the tokens
+    [batch, gen] (host int32), the prompts, the frames (``None`` for the
+    other families) and the times."""
     cfg, dev = model.cfg, model.device
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab, (batch, prompt_len)).astype(np.int32)).to(dev)
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(rng.normal(
+            size=(batch, cfg.enc_frames, cfg.d_model)).astype(
+                np.float32)).to(dev)
     cache = model.init_cache(batch, prompt_len + gen)
 
     _sync(dev)
     t0 = time.perf_counter()
+    if frames is not None:
+        cache = model.prefill_cross(cache, frames)
     last_logits, cache = prefill_with_decode(model, cache, prompts)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -69,7 +85,7 @@ def serve(model, *, batch: int = 4, prompt_len: int = 16, gen: int = 32,
     return dict(arch=cfg.name, batch=batch, prompt=prompt_len, gen=gen,
                 prefill_s=t_prefill, decode_s=t_gen,
                 tokens_per_s=gen * batch / t_gen, tokens=toks,
-                prompts=prompts.cpu().numpy())
+                prompts=prompts.cpu().numpy(), frames=frames)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:

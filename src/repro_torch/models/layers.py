@@ -1,7 +1,6 @@
 """Model building blocks: norms, rotary, GQA attention, MLPs, MoE.
 
-Counterpart of ``repro/models/layers.py`` for what ``TransformerLM``
-needs.  Conventions:
+Counterpart of ``repro/models/layers.py``.  Conventions:
 
 * parameters live in ``nn.Module``s whose attribute names are the keys of
   the reference's parameter dicts (``wq.w``, ``ln1.scale``, ``moe.w_up``,
@@ -19,29 +18,81 @@ needs.  Conventions:
   path against a KV cache, which it writes in place (the reference's
   ``dynamic_update_slice`` returns a new cache).
 
-The reference's sharding helpers (``sharding_mesh``, ``constrain`` and
-the ``*_specs`` functions) have no meaning without a process group and
-are not here; ``gqa_repeat`` keeps its numerics (K/V broadcast to every
-head) and ``act_shard`` has nothing to constrain.
+* every module has its ``*_specs`` twin, returning the reference's tree
+  of partition specs as plain data (``P``, a tuple of axis names): on one
+  card nothing is sharded, and the specs are what a process group would
+  place (``distributed_lm.sharding``, ``train.optimizer.zero1_specs``).
+* ``remat`` (``cfg.remat``) wraps a block in ``torch.utils.checkpoint``;
+  ``remat_policy`` "dots" keeps the outputs of batch-free matmuls (the
+  reference's ``dots_with_no_batch_dims_saveable``).  Both change memory,
+  never values.
+
+The reference's ``sharding_mesh`` / ``constrain`` have nothing to
+constrain without a process group and are not here; ``gqa_repeat`` keeps
+its numerics (K/V broadcast to every head) and ``act_shard`` is inert.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .common import ArchConfig
 
 __all__ = [
-    "RMSNorm", "rms_norm", "rope_cos_sin", "apply_rope", "Dense",
-    "dense_apply", "Attention", "attention_apply", "attention_decode",
-    "MLP", "mlp_apply", "MoE", "moe_apply", "cross_entropy_loss",
-    "torch_dtype",
+    "P", "RMSNorm", "rms_norm", "rms_specs", "rope_cos_sin", "apply_rope",
+    "sinusoidal_positions", "Dense", "dense_apply", "dense_specs",
+    "Attention", "attention_specs", "attention_apply", "attention_decode",
+    "MLP", "mlp_apply", "mlp_specs", "MoE", "moe_apply", "moe_specs",
+    "cross_entropy_loss", "remat_policy", "remat", "stacked_specs",
+    "map_specs",
+    "linear_scan", "causal_conv", "torch_dtype",
 ]
+
+
+class P(tuple):
+    """A partition spec as plain data: one entry per array dimension, an
+    axis name, a tuple of names, or ``None`` (not split), as
+    ``jax.sharding.PartitionSpec(...)`` (which also writes a one-name
+    tuple as the name); ``tuple(spec)`` compares with the reference's."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+def map_specs(fn, specs, other):
+    """``fn(spec, leaf)`` over a spec tree (nested dicts / lists of
+    ``P``) and a tree of the same structure; an empty list (a hybrid
+    without a tail) has no leaves, so ``other`` may lack it."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v, other[k] if v != [] else [])
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [map_specs(fn, s, x) for s, x in zip(specs, other)]
+    return fn(specs, other)
+
+
+def stacked_specs(tree):
+    """``tree`` (nested dicts / lists of ``P``) with a leading unsplit
+    layer axis on every spec, as the reference's ``P(None, *s)`` over a
+    block's specs."""
+    if isinstance(tree, dict):
+        return {k: stacked_specs(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [stacked_specs(v) for v in tree]
+    return P(None, *tree)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -73,6 +124,10 @@ class RMSNorm(nn.Module):
         self.scale.fill_(1.0)
 
 
+def rms_specs() -> Dict:
+    return {"scale": P(None)}
+
+
 def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
@@ -81,7 +136,7 @@ def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rotary positions
+# rotary / sinusoidal positions
 # ---------------------------------------------------------------------------
 
 def rope_cos_sin(positions: torch.Tensor, hd: int, theta: float,
@@ -101,6 +156,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embedding: positions [...,] -> float32
+    [..., d], sines then cosines."""
+    dim = torch.arange(d // 2, dtype=torch.float32,
+                       device=positions.device)[None, :]
+    ang = positions[..., None].float() / (10000 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +188,13 @@ class Dense(nn.Module):
         self.w.normal_(generator=generator).mul_(self.init_scale)
         if hasattr(self, "b"):
             self.b.zero_()
+
+
+def dense_specs(spec_in, spec_out, bias: bool = False) -> Dict:
+    p = {"w": P(spec_in, spec_out)}
+    if bias:
+        p["b"] = P(spec_out)
+    return p
 
 
 def dense_apply(p: Dense, x: torch.Tensor) -> torch.Tensor:
@@ -155,6 +226,19 @@ class Attention(nn.Module):
     def reset(self, generator: torch.Generator) -> None:
         for child in self.children():
             child.reset(generator)
+
+
+def attention_specs(cfg: ArchConfig) -> Dict:
+    p = {
+        "wq": dense_specs(None, "model", cfg.qkv_bias),
+        "wk": dense_specs(None, "model", cfg.qkv_bias),
+        "wv": dense_specs(None, "model", cfg.qkv_bias),
+        "wo": dense_specs("model", None, False),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rms_specs()
+        p["k_norm"] = rms_specs()
+    return p
 
 
 def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor,
@@ -343,6 +427,15 @@ class MLP(nn.Module):
             child.reset(generator)
 
 
+def mlp_specs(kind: str = "swiglu") -> Dict:
+    if kind == "swiglu":
+        return {"gate": dense_specs(None, "model"),
+                "up": dense_specs(None, "model"),
+                "down": dense_specs("model", None)}
+    return {"fc1": dense_specs(None, "model", bias=True),
+            "fc2": dense_specs("model", None, bias=True)}
+
+
 def mlp_apply(p: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     if kind == "swiglu":
         return dense_apply(p.down, F.silu(dense_apply(p.gate, x))
@@ -384,6 +477,22 @@ class MoE(nn.Module):
         for name in ("shared", "dense"):
             if hasattr(self, name):
                 getattr(self, name).reset(generator)
+
+
+def moe_specs(cfg: ArchConfig) -> Dict:
+    if cfg.expert_sharding == "model":
+        es = es_d = P("model", None, None)
+    elif cfg.expert_sharding == "model+data":
+        es, es_d = P("model", None, "data"), P("model", "data", None)
+    else:                                  # "ffn": replicate experts
+        es, es_d = P(None, None, "model"), P(None, "model", None)
+    p = {"router": dense_specs(None, None),
+         "w_gate": es, "w_up": es, "w_down": es_d}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_specs()
+    if cfg.dense_residual:
+        p["dense"] = mlp_specs()
+    return p
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -463,3 +572,87 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     lse = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels.long()[..., None])[..., 0]
     return (lse - gold).mean()
+
+
+# ---------------------------------------------------------------------------
+# recurrences (Mamba, RG-LRU)
+# ---------------------------------------------------------------------------
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan along ``dim`` of the pairs ``(a_t, b_t)`` under
+    ``(a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2)``: returns (the running
+    products of ``a``, the states ``h_t = a_t h_{t-1} + b_t`` from
+    ``h_{-1} = 0``).  The reference's ``lax.associative_scan`` of the same
+    pairs, written as ceil(log2 n) doubling steps of tensor ops
+    (Hillis-Steele): 8 steps over a 256 chunk.  Products only, never a
+    ``cumsum`` of logs (``exp`` of a long sum of ``dt * A`` overflows)."""
+    n = a.shape[dim]
+    d = 1
+    while d < n:
+        a_lo, b_lo = a.narrow(dim, 0, n - d), b.narrow(dim, 0, n - d)
+        a_hi, b_hi = a.narrow(dim, d, n - d), b.narrow(dim, d, n - d)
+        b = torch.cat([b.narrow(dim, 0, d), b_lo * a_hi + b_hi], dim)
+        a = torch.cat([a.narrow(dim, 0, d), a_lo * a_hi], dim)
+        d *= 2
+    return a, b
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv1d.  x [B, S, C]; w [K, C].  ``state`` is the
+    trailing K-1 inputs of the previous segment (decode path)."""
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
+              for i in range(k))
+    return out + b.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation
+# ---------------------------------------------------------------------------
+
+# matmuls without batch dimensions (dense projections: ``x @ w`` lowers to
+# ``mm`` / ``addmm``); attention's einsums lower to ``bmm`` and are redone
+_BATCH_FREE_MATMULS = frozenset([torch.ops.aten.mm.default,
+                                 torch.ops.aten.addmm.default])
+
+
+def _save_batch_free_matmuls(ctx, op, *args, **kwargs):
+    if op in _BATCH_FREE_MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(cfg: ArchConfig) -> Optional[Callable]:
+    """``cfg.remat_policy`` as a selective-checkpoint policy: "dots"
+    saves the outputs of batch-free matmuls, anything else (``"full"``)
+    saves nothing (``None``: plain ``checkpoint``)."""
+    if cfg.remat_policy == "dots":
+        return _save_batch_free_matmuls
+    return None
+
+
+def remat(fn: Callable, cfg: ArchConfig) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) with
+    ``remat_policy(cfg)`` when ``cfg.remat`` is set and autograd is
+    recording; ``fn`` itself otherwise.  Values are the same either way."""
+    if not cfg.remat:
+        return fn
+    policy = remat_policy(cfg)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        if policy is None:
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts, policy),
+                          **kwargs)
+    return wrapped

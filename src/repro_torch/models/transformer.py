@@ -5,8 +5,9 @@ every layer's parameters on a leading ``[L, ...]`` axis and drives them
 with ``lax.scan``; here the layers are an ``nn.ModuleList`` walked in a
 loop, each layer's parameters under ``blocks.<i>.`` of the
 ``state_dict`` (``repro_torch.convert.lm_state_dict_from_params`` splits
-a reference pytree along that axis).  ``remat`` and ``scan_layers`` are
-the reference's compile-time knobs and change nothing here.
+a reference pytree along that axis).  ``remat`` checkpoints each block
+when autograd records (``layers.remat``); ``scan_layers`` is the
+reference's compile-time knob and changes nothing here.
 """
 from __future__ import annotations
 
@@ -41,6 +42,16 @@ class Block(nn.Module):
     def reset(self, generator: torch.Generator) -> None:
         for child in self.children():
             child.reset(generator)
+
+
+def _block_specs(cfg: ArchConfig) -> Dict:
+    p = {"ln1": L.rms_specs(), "attn": L.attention_specs(cfg),
+         "ln2": L.rms_specs()}
+    if cfg.family == "moe":
+        p["moe"] = L.moe_specs(cfg)
+    else:
+        p["mlp"] = L.mlp_specs()
+    return p
 
 
 def _block_apply(p: Block, cfg: ArchConfig, x: torch.Tensor
@@ -112,6 +123,19 @@ class TransformerLM(nn.Module):
                 dense.reset(generator)
         return self
 
+    def param_specs(self) -> Dict:
+        """The reference's spec tree (layers stacked on a leading axis)."""
+        cfg = self.cfg
+        p = {"embed": L.P("model", None), "ln_f": L.rms_specs(),
+             "blocks": L.stacked_specs(_block_specs(cfg))}
+        if not cfg.tie_embeddings:
+            p["lm_head"] = L.dense_specs(None, "model")
+        if cfg.vision_dim:
+            p["vision_proj"] = {
+                "fc1": L.dense_specs(None, "model", bias=True),
+                "fc2": L.dense_specs("model", None, bias=True)}
+        return p
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
@@ -143,8 +167,9 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         x = self._embed(tokens, patch_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        block = L.remat(_block_apply, cfg)
         for blk in self.blocks:
-            x, a = _block_apply(blk, cfg, x)
+            x, a = block(blk, cfg, x)
             aux = aux + a
         x = L.rms_norm(self.ln_f, x, cfg.norm_eps)
         return self._head(x), aux
@@ -167,6 +192,11 @@ class TransformerLM(nn.Module):
         shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    def cache_specs(self, long_ctx: bool = False) -> Dict:
+        spec = (L.P(None, None, ("data", "model"), None, None) if long_ctx
+                else L.P(None, "data", "model", None, None))
+        return {"k": spec, "v": spec}
 
     def decode_step(self, cache: Cache, tokens: torch.Tensor, pos
                     ) -> Tuple[torch.Tensor, Cache]:

@@ -34,10 +34,11 @@ and one of the port's own:
 10. The "Launchers" section's dry-run cell table (rows ``|
     `maxmin__sp__allgather__float32` | ... |``) against
     ``repro_torch.launch.closure_dryrun.CELLS``, and its model-family
-    table (rows ``| `dense` | `TransformerLM` | ported |``) against
-    ``repro_torch.models.registry`` (``FAMILIES``, ``NOT_PORTED``), both
-    ways; and the section names the reference modules that have no
-    counterpart (``launch/hlo_analysis.py``, ``compat.py``).
+    table (rows ``| `qwen3-1.7b` | `dense` | `TransformerLM` | ported
+    |``, one per arch) against ``repro_torch.configs`` and
+    ``repro_torch.models.registry.FAMILIES``, both ways; and the section
+    names the reference modules that have no counterpart
+    (``launch/hlo_analysis.py``, ``compat.py``).
 
   PYTHONPATH=src python -m repro_torch.tools.check_docs
 """
@@ -78,7 +79,8 @@ _FIELD_ROW = re.compile(
 # scoped to the Launchers section
 _CELL_ROW = re.compile(r"^\|\s*`(\w+__\w+__\w+__\w+)`\s*\|", re.M)
 _FAMILY_ROW = re.compile(
-    r"^\|\s*`(\w+)`\s*\|\s*`(\w+)`\s*\|\s*(ported|not ported)\s*\|", re.M)
+    r"^\|\s*`([\w.-]+)`\s*\|\s*`(\w+)`\s*\|\s*`(\w+)`\s*\|"
+    r"\s*(ported|not ported)\s*\|", re.M)
 NO_COUNTERPART = ("launch/hlo_analysis.py", "compat.py")
 
 
@@ -240,8 +242,9 @@ def check_workload_table(text: str) -> List[str]:
 
 
 def check_launchers_section(text: str) -> List[str]:
+    from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.launch.closure_dryrun import CELLS, cell_tag
-    from repro_torch.models.registry import FAMILIES, NOT_PORTED
+    from repro_torch.models.registry import FAMILIES
 
     body = _section(text, "Launchers")
     if not body:
@@ -249,12 +252,13 @@ def check_launchers_section(text: str) -> List[str]:
     live_cells = {cell_tag(*cell): "cell" for cell in CELLS}
     problems = _both_ways("dry-run cell", live_cells,
                           {tag: "cell" for tag in _CELL_ROW.findall(body)})
-    live = {family: (cls.__name__, "ported")
-            for family, cls in FAMILIES.items()}
-    live.update({family: (name, "not ported")
-                 for family, name in NOT_PORTED.items()})
-    documented = {family: (name, status)
-                  for family, name, status in _FAMILY_ROW.findall(body)}
+    live = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        live[cfg.name] = (cfg.family, FAMILIES[cfg.family].__name__,
+                          "ported")
+    documented = {arch: (family, name, status) for arch, family, name, status
+                  in _FAMILY_ROW.findall(body)}
     problems += _both_ways("model-family", live, documented)
     problems += [f"Launchers section does not name `{name}`, which has no "
                  f"counterpart" for name in NO_COUNTERPART

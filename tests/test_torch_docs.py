@@ -59,9 +59,10 @@ def _without(tmp_path, starts):
     ("| `ete` | yes | no", "workload-capability table is missing `ete`"),
     ("| `maxmin__sp__ring__float32` |", "dry-run cell table is missing "
                                         "`maxmin__sp__ring__float32`"),
-    ("| `moe` | `TransformerLM`", "model-family table is missing `moe`"),
-    ("| `encdec` | `WhisperModel`", "model-family table is missing "
-                                   "`encdec`"),
+    ("| `qwen2-moe-a2.7b` | `moe`", "model-family table is missing "
+                                   "`qwen2-moe-a2.7b`"),
+    ("| `whisper-large-v3` | `encdec`", "model-family table is missing "
+                                       "`whisper-large-v3`"),
 ])
 def test_a_missing_registry_row_fails(tmp_path, row, expect):
     found = check_docs.problems(arch=_without(tmp_path, row))
@@ -78,12 +79,21 @@ def test_a_wrong_kernel_unit_fails(tmp_path):
 
 
 def test_a_family_marked_ported_that_is_not_fails(tmp_path):
-    arch = tmp_path / ARCH.name
-    arch.write_text(ARCH.read_text().replace(
-        "| `ssm` | `MambaLM` | not ported |", "| `ssm` | `MambaLM` | ported |"))
-    found = check_docs.problems(arch=arch)
-    assert any("model-family table documents `ssm`" in p
-               for p in found), found
+    """A row whose status or model disagrees with the registry fails
+    (every family is ported now, so the status is flipped the other
+    way)."""
+    for old, new in (("| `falcon-mamba-7b` | `ssm` | `MambaLM` | ported |",
+                      "| `falcon-mamba-7b` | `ssm` | `MambaLM` | not ported |"),
+                     ("| `recurrentgemma-2b` | `hybrid` | `GriffinLM` |",
+                      "| `recurrentgemma-2b` | `hybrid` | `MambaLM` |")):
+        arch = tmp_path / ARCH.name
+        text = ARCH.read_text()
+        assert old in text
+        arch.write_text(text.replace(old, new))
+        found = check_docs.problems(arch=arch)
+        name = old.split("`")[1]
+        assert any(f"model-family table documents `{name}`" in p
+                   for p in found), found
 
 
 @pytest.mark.parametrize("name", ["launch/hlo_analysis.py", "compat.py"])

@@ -66,11 +66,14 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.core.minimal", "repro_torch.core.online",
         "repro_torch.core.query", "repro_torch.core.semiring",
         "repro_torch.device",
+        "repro_torch.distributed_lm", "repro_torch.distributed_lm.compression",
+        "repro_torch.distributed_lm.sharding",
         "repro_torch.examples", "repro_torch.examples.distributed_reachability",
         "repro_torch.examples.epidemic_case_study",
         "repro_torch.examples.quickstart",
         "repro_torch.examples.serve_lm",
         "repro_torch.examples.serving_quickstart",
+        "repro_torch.examples.train_lm",
         "repro_torch.kernels",
         "repro_torch.kernels.build", "repro_torch.kernels.label_join",
         "repro_torch.kernels.maxmin_matmul", "repro_torch.kernels.ops",
@@ -79,10 +82,11 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.kernels.threshold_closure",
         "repro_torch.launch", "repro_torch.launch.closure_dryrun",
         "repro_torch.launch.mesh", "repro_torch.launch.serve",
-        "repro_torch.launch.shapes",
+        "repro_torch.launch.shapes", "repro_torch.launch.train",
         "repro_torch.models", "repro_torch.models.common",
-        "repro_torch.models.layers", "repro_torch.models.registry",
-        "repro_torch.models.transformer",
+        "repro_torch.models.layers", "repro_torch.models.mamba",
+        "repro_torch.models.registry", "repro_torch.models.rglru",
+        "repro_torch.models.transformer", "repro_torch.models.whisper",
         "repro_torch.serve", "repro_torch.serve.kvcache",
         "repro_torch.serve.reach_service",
         "repro_torch.serve.replicas", "repro_torch.serve.scheduler",
@@ -91,6 +95,9 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.store.hif", "repro_torch.store.store",
         "repro_torch.store.wal",
         "repro_torch.tools", "repro_torch.tools.check_docs",
+        "repro_torch.train", "repro_torch.train.checkpoint",
+        "repro_torch.train.data", "repro_torch.train.fault_tolerance",
+        "repro_torch.train.optimizer", "repro_torch.train.train_step",
         "repro_torch.workloads", "repro_torch.workloads.base",
         "repro_torch.workloads.hop_bounded", "repro_torch.workloads.oracle",
         "repro_torch.workloads.setops", "repro_torch.workloads.topk",
@@ -157,12 +164,15 @@ def test_backend_module_alone_loads_neither_jax_nor_the_reference(module):
                                      "repro_torch.tools",
                                      "repro_torch.launch",
                                      "repro_torch.models",
-                                     "repro_torch.configs"])
+                                     "repro_torch.configs",
+                                     "repro_torch.train",
+                                     "repro_torch.distributed_lm"])
 def test_suite_package_alone_loads_neither_jax_nor_the_reference(package):
     """The benchmark suite, the examples, the docs check, the launchers,
-    the models and their configs, each package imported first and alone
-    in a fresh interpreter, then every module of it (the reference's
-    copies of them import ``repro`` and JAX)."""
+    the models and their configs, the training stack and the LM
+    distribution glue, each package imported first and alone in a fresh
+    interpreter, then every module of it (the reference's copies of them
+    import ``repro`` and JAX; its ``train.data`` reaches ``repro.core``)."""
     mods = [m for m in _port_modules() if m.startswith(package + ".")]
     assert mods
     out = _run(

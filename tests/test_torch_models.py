@@ -1,14 +1,18 @@
 """Port parity, the LM serving path: ``repro_torch.models`` /
 ``repro_torch.configs`` / ``repro_torch.serve`` (``kvcache``,
-``serve_step``) on the CPU against ``repro``'s on the smoke configs of the
-seven transformer-family archs (``dense``, ``moe``, ``vlm``).  Both
+``serve_step``) / ``repro_torch.launch.serve`` on the CPU against
+``repro``'s on the smoke configs of all ten archs: the seven of the
+transformer families (``dense``, ``moe``, ``vlm``), Mamba (``ssm``),
+RG-LRU (``hybrid``) and Whisper (``encdec``, with stand-in frames).  Both
 packages run the reference's own weights (``model.init(PRNGKey)``,
 carried across with ``convert.lm_state_dict_from_params``: the two PRNGs
 draw different numbers from one seed).  Floats are compared at the
 reference's own tolerances (``tests/test_models.py``): forward and
 chunked attention at 1e-4 in float32, decode against forward at
 ``_DECODE_TOL``; in the configs' bf16, port against reference at
-``_BF16_TOL``; config fields, shapes and parameter counts are equal."""
+``_BF16_TOL``; config fields, shapes, parameter counts and spec trees
+are equal.  The two recurrences (the chunked selective scan, the RG-LRU)
+are held to the reference's functions at 1e-4 too."""
 import dataclasses
 
 import jax
@@ -28,12 +32,14 @@ from repro_torch.models import layers as port_layers
 from repro_torch.serve import (greedy_decode, make_prefill_step,
                                make_serve_step, prefill_with_decode)
 
-TRANSFORMER_ARCHS = [a for a in ref_configs.ARCH_IDS
+ARCHS = list(ref_configs.ARCH_IDS)
+TRANSFORMER_ARCHS = [a for a in ARCHS
                      if ref_configs.get_config(a).family
                      in ("dense", "moe", "vlm")]
-NOT_PORTED = {"falcon_mamba_7b": "ssm", "recurrentgemma_2b": "hybrid",
-              "whisper_large_v3": "encdec"}
-ROUTER_FREE_ARCHS = [a for a in TRANSFORMER_ARCHS
+# Mamba, RG-LRU and Whisper
+RECURRENT_AND_ENCDEC_ARCHS = ["falcon_mamba_7b", "recurrentgemma_2b",
+                              "whisper_large_v3"]
+ROUTER_FREE_ARCHS = [a for a in ARCHS
                      if ref_configs.get_config(a).family != "moe"]
 _F32_TOL = dict(rtol=1e-4, atol=1e-4)       # tests/test_models.py:162,178
 _DECODE_TOL = dict(rtol=2e-2, atol=2e-2)    # tests/test_models.py:73
@@ -52,7 +58,25 @@ def _batch(cfg, B, S, rng):
         batch["tokens"] = batch["tokens"][:, :S - P]
         batch["patch_embeds"] = rng.normal(
             size=(B, P, cfg.vision_dim)).astype(np.float32)
+    elif cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
     return batch
+
+
+def _extra(batch):
+    """The input beside the tokens that ``apply`` takes (patch embeddings,
+    frames or none), as numpy."""
+    return batch.get("patch_embeds", batch.get("frames"))
+
+
+def _frames(cfg, B, seed):
+    """Seeded stand-in encoder frames for an ``encdec`` config (``None``
+    for the other families)."""
+    if cfg.family != "encdec":
+        return None
+    return np.random.default_rng(seed).normal(
+        size=(B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
 
 
 def _pair(arch, seed, **overrides):
@@ -73,11 +97,11 @@ def _t(a):
     return torch.from_numpy(np.asarray(a))
 
 
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_and_loss_match_the_reference_in_float32(arch):
     ref, params, port, cfg = _pair(arch, 0, compute_dtype="float32")
     batch = _batch(cfg, 2, 16, np.random.default_rng(0))
-    pe = batch.get("patch_embeds")
+    pe = _extra(batch)
     want, want_aux = ref.apply(params, jnp.asarray(batch["tokens"]),
                                None if pe is None else jnp.asarray(pe))
     with torch.no_grad():
@@ -94,13 +118,13 @@ def test_forward_and_loss_match_the_reference_in_float32(arch):
                                **_F32_TOL)
 
 
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_forward_and_loss_in_the_config_dtype(arch):
     """The reference's ``test_smoke_forward_and_loss`` on the port (bf16
     compute, as the smoke configs say): shapes, dtypes, finite values."""
     ref, params, port, cfg = _pair(arch, 0)
     batch = _batch(cfg, 2, 16, np.random.default_rng(0))
-    pe = batch.get("patch_embeds")
+    pe = _extra(batch)
     with torch.no_grad():
         logits, aux = port.apply(_t(batch["tokens"]),
                                  None if pe is None else _t(pe))
@@ -111,15 +135,22 @@ def test_smoke_forward_and_loss_in_the_config_dtype(arch):
     assert np.isfinite(float(loss))
 
 
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """Teacher-forced decode against the full forward, as the reference's
-    ``test_decode_matches_forward`` (config dtype, float32 cache)."""
+    ``test_decode_matches_forward`` (config dtype, float32 cache; the
+    encdec model's cross K/V filled from the frames first)."""
     _, _, port, cfg = _pair(arch, 0)
-    tokens = _t(np.random.default_rng(2).integers(0, cfg.vocab, (2, 12)))
+    rng = np.random.default_rng(2)
+    tokens = _t(rng.integers(0, cfg.vocab, (2, 12)))
+    frames = (rng.normal(size=(2, cfg.enc_frames, cfg.d_model)).astype(
+        np.float32) if cfg.family == "encdec" else None)
     with torch.no_grad():
-        full, _ = port.apply(tokens)
+        full, _ = (port.apply(tokens) if frames is None
+                   else port.apply(tokens, _t(frames)))
         cache = port.init_cache(2, 12, dtype=torch.float32)
+        if frames is not None:
+            cache = port.prefill_cross(cache, _t(frames))
         outs = []
         for t in range(12):
             lg, cache = port.decode_step(cache, tokens[:, t:t + 1], t)
@@ -128,47 +159,66 @@ def test_decode_matches_forward(arch):
                                full.float().numpy(), **_DECODE_TOL)
 
 
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_logits_match_the_reference(arch):
     """One decode step after a teacher-forced prefix, port against
-    reference, float32 compute and cache."""
+    reference, float32 compute and cache; every cache entry (K/V, conv
+    windows, recurrent states, cross K/V) equal after the prefix."""
     ref, params, port, cfg = _pair(arch, 1, compute_dtype="float32")
     tokens = np.random.default_rng(5).integers(0, cfg.vocab, (2, 6))
     rc = ref.init_cache(2, 6, dtype=jnp.float32)
     pc = port.init_cache(2, 6, dtype=torch.float32)
+    frames = _frames(cfg, 2, 5)
+    if frames is not None:
+        rc = ref.prefill_cross(params, rc, jnp.asarray(frames))
+        pc = port.prefill_cross(pc, _t(frames))
     for t in range(6):
         want, rc = ref.decode_step(params, rc, jnp.asarray(tokens[:, t:t + 1]),
                                    jnp.int32(t))
         with torch.no_grad():
             got, pc = port.decode_step(pc, _t(tokens[:, t:t + 1]), t)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **_F32_TOL)
-    np.testing.assert_allclose(pc["k"].numpy(), np.asarray(rc["k"]),
-                               **_F32_TOL)
-    np.testing.assert_allclose(pc["v"].numpy(), np.asarray(rc["v"]),
-                               **_F32_TOL)
+    assert sorted(pc) == sorted(rc)
+    for k in rc:
+        assert tuple(pc[k].shape) == rc[k].shape, k
+        np.testing.assert_allclose(pc[k].numpy(), np.asarray(rc[k]),
+                                   **_F32_TOL, err_msg=k)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("arch", ROUTER_FREE_ARCHS)
 def test_forward_and_served_decode_match_the_reference_in_bf16(arch, seed):
     """The configs' bf16 compute with the served bf16 cache (``init_cache``
-    default): forward logits, decode logits along the same tokens and the
-    K/V caches, port against reference, at ``_BF16_TOL``.  The MoE archs
-    are held in bf16 at the layer (``test_moe_apply_matches_the_reference
-    _in_bf16``): in a whole model the packages' one-ulp differences flip
-    near-tied router choices, and a flipped expert moves a logit by far
-    more than a rounding."""
+    default): forward logits and decode logits along the same tokens,
+    port against reference, at ``_BF16_TOL``; every cache entry with the
+    reference's dtype and shape, and held at ``_BF16_TOL`` too: all of
+    them for the transformer families, the float32 recurrent states for
+    the recurrent ones.  (The hybrid's bf16 conv windows and K/V sit
+    behind six layers of per-op bf16 rounding, where XLA keeps float32
+    through a fusion: on under 1 % of entries they part past
+    ``_BF16_TOL``, by at most 0.044 over it on these seeds, while the
+    logits stay inside; ``test_decode_logits_match_the_reference`` holds
+    every entry at 1e-4 in float32 compute.)  The MoE archs are held in
+    bf16 at the layer (``test_moe_apply_matches_the_reference_in_bf16``):
+    in a whole model the packages' one-ulp differences flip near-tied
+    router choices, and a flipped expert moves a logit by far more than a
+    rounding."""
     ref, params, port, cfg = _pair(arch, seed)
     assert cfg.compute_dtype == "bfloat16"
     tokens = np.random.default_rng(5 + seed).integers(0, cfg.vocab, (2, 12))
-    want, _ = ref.apply(params, jnp.asarray(tokens))
+    frames = _frames(cfg, 2, 5 + seed)
+    extra_r = () if frames is None else (jnp.asarray(frames),)
+    extra_p = () if frames is None else (_t(frames),)
+    want, _ = ref.apply(params, jnp.asarray(tokens), *extra_r)
     with torch.no_grad():
-        got, _ = port.apply(_t(tokens))
+        got, _ = port.apply(_t(tokens), *extra_p)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **_BF16_TOL)
     rc, pc = ref.init_cache(2, 12), port.init_cache(2, 12)
-    assert pc["k"].dtype == torch.bfloat16
+    if frames is not None:
+        rc = ref.prefill_cross(params, rc, *extra_r)
+        pc = port.prefill_cross(pc, *extra_p)
     for t in range(12):
         want, rc = ref.decode_step(params, rc, jnp.asarray(tokens[:, t:t + 1]),
                                    jnp.int32(t))
@@ -176,37 +226,54 @@ def test_forward_and_served_decode_match_the_reference_in_bf16(arch, seed):
             got, pc = port.decode_step(pc, _t(tokens[:, t:t + 1]), t)
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32), **_BF16_TOL)
-    for k in ("k", "v"):
-        assert pc[k].dtype == torch.bfloat16
-        np.testing.assert_allclose(pc[k].float().numpy(),
-                                   np.asarray(rc[k], np.float32), **_BF16_TOL)
+    assert sorted(pc) == sorted(rc)
+    transformer = cfg.family in ("dense", "moe", "vlm")
+    for k in rc:
+        assert str(pc[k].dtype).split(".")[1] == str(rc[k].dtype), k
+        assert tuple(pc[k].shape) == rc[k].shape, k
+        if transformer or pc[k].dtype == torch.float32:
+            np.testing.assert_allclose(pc[k].float().numpy(),
+                                       np.asarray(rc[k], np.float32),
+                                       **_BF16_TOL, err_msg=k)
 
 
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_tokens_equal_the_reference(arch):
     """``prefill_with_decode`` + ``greedy_decode`` give the reference's
-    tokens, and the logits along its token stream agree at 1e-4."""
+    tokens, and the logits along its token stream agree at 1e-4.  The
+    drivers only read the prompt; the encdec model's cross K/V, filled
+    once by ``prefill_cross``, is only read by the decode steps."""
     ref, params, port, cfg = _pair(arch, 2, compute_dtype="float32")
     B, P, G = 3, 7, 9
     prompts = np.random.default_rng(11).integers(0, cfg.vocab, (B, P))
+    frames = _frames(cfg, B, 11)
     rc = ref.init_cache(B, P + G, dtype=jnp.float32)
+    pc = port.init_cache(B, P + G, dtype=torch.float32)
+    cross = None
+    if frames is not None:
+        rc = ref.prefill_cross(params, rc, jnp.asarray(frames))
+        pc = port.prefill_cross(pc, _t(frames))
+        cross = {k: pc[k].clone() for k in ("cross_k", "cross_v")}
     last, rc = ref_serve.prefill_with_decode(ref, params, rc,
                                              jnp.asarray(prompts, jnp.int32))
     want, _ = ref_serve.greedy_decode(ref, params, rc, last, P, G)
     want = np.asarray(want)
     prompt_t = _t(prompts.astype(np.int32))
     kept = prompt_t.clone()
-    pc = port.init_cache(B, P + G, dtype=torch.float32)
     plast, pc = prefill_with_decode(port, pc, prompt_t)
-    got, _ = greedy_decode(port, pc, plast, P, G)
+    got, pc = greedy_decode(port, pc, plast, P, G)
     assert torch.equal(prompt_t, kept)         # the prompt is only read
+    for k, v in (cross or {}).items():
+        assert torch.equal(pc[k], v), k        # the cross K/V too
     assert got.dtype == torch.int32 and tuple(got.shape) == (B, G)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_allclose(plast.numpy(), np.asarray(last), **_F32_TOL)
     stream = np.concatenate([prompts, want], axis=1)
-    ref_logits, _ = ref.apply(params, jnp.asarray(stream))
+    extra_r = () if frames is None else (jnp.asarray(frames),)
+    extra_p = () if frames is None else (_t(frames),)
+    ref_logits, _ = ref.apply(params, jnp.asarray(stream), *extra_r)
     with torch.no_grad():
-        port_logits, _ = port.apply(_t(stream))
+        port_logits, _ = port.apply(_t(stream), *extra_p)
     np.testing.assert_allclose(port_logits.numpy(), np.asarray(ref_logits),
                                **_F32_TOL)
 
@@ -294,7 +361,7 @@ def test_moe_apply_matches_the_reference_in_bf16(capacity):
     np.testing.assert_allclose(float(got_aux), float(want_aux), **_F32_TOL)
 
 
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_parameters_map_one_to_one(arch):
     """Every reference leaf lands on one port parameter of its shape, and
     the counts agree with each other and with ``ArchConfig.n_params``'s
@@ -373,11 +440,19 @@ def test_full_configs_match_assignment():
     assert get("arctic_480b").n_active_params() < 30e9
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
-def test_build_model_raises_for_the_families_not_ported(arch):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_build_model_builds_the_reference_class_of_each_family(arch):
     cfg = port_configs.get_smoke_config(arch)
-    assert cfg.family == NOT_PORTED[arch]
-    with pytest.raises(NotImplementedError, match="A12b-2"):
+    model = port_models.build_model(cfg, device="cpu")
+    want = type(ref_models.build_model(ref_configs.get_smoke_config(arch)))
+    assert type(model).__name__ == want.__name__
+    assert model.device.type == "cpu"
+
+
+def test_build_model_raises_for_an_unknown_family():
+    cfg = dataclasses.replace(port_configs.get_smoke_config("qwen3_1_7b"),
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
         port_models.build_model(cfg, device="cpu")
 
 
