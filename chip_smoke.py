@@ -82,7 +82,15 @@ drives the port's two paths at full size through `repro_torch.api`:
   a checkpoint at the end), the loss held to fall; then the restart check
   at the same widths on 2 layers under deterministic algorithms: 10 steps
   with a checkpoint at 5, a fresh model resumed from it, the parameters
-  held to the uninterrupted run's at rtol 1e-5, atol 1e-6.
+  held to the uninterrupted run's at rtol 1e-5, atol 1e-6;
+* the LM dry-run (`repro_torch.launch.dryrun.main`, in process): all 80
+  (arch x shape x mesh) records under `build/dryrun_lm` (64 priced, 16
+  skipped), the roofline of both meshes at H100 rates, then one card's
+  share of three `qwen3-1.7b` cells at its full published config run
+  through the port's own steps: `train_4k` on a 64 x 1 mesh (4 x 4,096
+  tokens, 4 microbatches), `prefill_32k` on 32 x 1 (1 x 32,768) and
+  `decode_32k` on 128 x 1 (one token over a 32,768-deep cache), each
+  timed beside its bound and checked.
 
 and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -94,7 +102,8 @@ SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `main_path`, `service_path`, `workloads_path`, `store_path`, `wide_labels`,
 `closure_path`, `closure_path_kernels`, `sharded_path`, `closure_small`,
 `backends_path`, `bench_path`, `dryrun_path` (after one line per cell
-from the dry-run itself), `lm_serve_path`, `lm_train_path`
+from the dry-run itself), `lm_serve_path`, `lm_train_path`,
+`lm_dryrun_path` (after one line per cell from the LM dry-run)
 (`closure_path` and `backends_path` each with a `workloads` part), then
 `{"kernels": [...]}` (per kernel: launches on its path, error against the
 plain version, times and the roofline bound;
@@ -276,6 +285,13 @@ LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 12, 8, 256
 LM_RESTART_LAYERS, LM_RESTART_STEPS, LM_RESTART_AT = 2, 10, 5
 RESTART_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_train_infra.py:122
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 32
+# lm_dryrun_path: the LM dry-run over every (arch x shape x mesh) cell,
+# then one card's share of three LM_ARCH cells at the full published
+# config (data-parallel meshes: model axis 1)
+LM_DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_lm"
+LM_DRYRUN_RUNS = (("train_4k", (64, 1)), ("prefill_32k", (32, 1)),
+                  ("decode_32k", (128, 1)))
+LM_DRYRUN_CELLS = {"ok": 64, "skipped": 16}
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
 # bf16 serving: the root-mean-square departure of the decode logits (bf16
 # compute, the served bf16 cache) from the float32 forward may be at most
@@ -4665,6 +4681,97 @@ def phase_lm_train_path(counters, device):
     return run, restart
 
 
+def lm_dryrun_summary(records, rows):
+    """The dry-run's counts by status and the roofline of its ``ok``
+    cells, by mesh: each cell's dominant term and the lowest and highest
+    ``mfu_bound``."""
+    status = {}
+    for rec in records:
+        status[rec["status"]] = status.get(rec["status"], 0) + 1
+    out = {"records": len(records), "status": status}
+    for mesh, mesh_rows in rows.items():
+        mfu = [r["mfu_bound"] for r in mesh_rows]
+        dominant = {}
+        for r in mesh_rows:
+            dominant[r["dominant"]] = dominant.get(r["dominant"], 0) + 1
+        out[mesh] = {
+            "cells": len(mesh_rows), "dominant_counts": dominant,
+            "dominant": {f"{r['arch']} {r['shape']}": r["dominant"]
+                         for r in mesh_rows},
+            "mfu_bound_min": min(mfu), "mfu_bound_max": max(mfu),
+            "mfu_bound_min_cell": min(
+                mesh_rows, key=lambda r: r["mfu_bound"])["arch"],
+            "mfu_bound_max_cell": max(
+                mesh_rows, key=lambda r: r["mfu_bound"])["arch"]}
+    return out
+
+
+def phase_lm_dryrun_path(counters, device):
+    """The LM dry-run (``repro_torch.launch.dryrun.main``, in process):
+    every (arch x shape) cell on the 16 x 16 and 2 x 16 x 16 meshes into
+    ``build/dryrun_lm`` (80 records: 64 ``ok``, 16 ``skipped``), priced by
+    ``benchmarks/roofline.roofline_table`` at H100 rates for both meshes;
+    then one card's share of three ``qwen3-1.7b`` cells at its full
+    published config, on data-parallel meshes (``LM_DRYRUN_RUNS``), each
+    through the port's own step with ``run=True``: its time beside its
+    bound, its flops, its peak memory and its checks (outputs finite,
+    every parameter changed, the logits' shape, the cache written at
+    ``pos`` only).  No kernel of the port is on this path: the counts
+    stay 0."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.launch import dryrun
+    clock = Phase()
+    reset_counts(counters)
+    shutil.rmtree(LM_DRYRUN_OUT, ignore_errors=True)
+    records = dryrun.main(["--all", "--both-meshes", "--out",
+                           str(LM_DRYRUN_OUT), "--device", device.type])
+    rows = {mesh: roofline.roofline_table(str(LM_DRYRUN_OUT), mesh)
+            for mesh in ("sp", "mp")}
+    summary = lm_dryrun_summary(records, rows)
+    files = len(list(LM_DRYRUN_OUT.glob("*__[sm]p.json")))
+    if summary["status"] != LM_DRYRUN_CELLS or files != 80 or any(
+            summary[m]["cells"] != 32 for m in rows):
+        raise AssertionError(f"lm_dryrun_path: {summary['status']}, "
+                             f"{files} files, {[summary[m]['cells'] for m in rows]}"
+                             f" roofline rows")
+    summary["seconds"] = clock.seconds()
+    print(f"lm_dryrun: {summary['records']} records {summary['status']}; "
+          + "; ".join(f"{m}: dominant {summary[m]['dominant_counts']}, "
+                      f"mfu_bound {summary[m]['mfu_bound_min']:.4f} "
+                      f"({summary[m]['mfu_bound_min_cell']}) .. "
+                      f"{summary[m]['mfu_bound_max']:.4f} "
+                      f"({summary[m]['mfu_bound_max_cell']})"
+                      for m in rows), flush=True)
+    runs = []
+    for shape, mesh_shape in LM_DRYRUN_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(LM_ARCH, shape, mesh_shape=mesh_shape,
+                                device=device, run=True)
+        rec["cell_s"] = time.perf_counter() - t0
+        if rec["status"] != "ok" or rec.get("run_s") is None:
+            raise AssertionError(f"lm_dryrun_path {shape}: {rec}")
+        rec["tflops_per_s"] = rec["run_flops"] / rec["run_s"] / 1e12
+        rec["run_over_bound"] = rec["run_s"] / rec["run_bound_s"]
+        print(f"lm_dryrun {LM_ARCH} {shape} on {mesh_shape}: batch "
+              f"{rec['run_batch']}, run {rec['run_s']:.4f} s against a "
+              f"bound of {rec['run_bound_s']:.4f} s ({rec['run_bound_by']}; "
+              f"{rec['run_over_bound']:.2f}x), {rec['run_flops']:.4e} flops "
+              f"({rec['tflops_per_s']:.2f} TFLOP/s), peak "
+              f"{rec['peak_bytes']} B, checks {rec['run_checks']}",
+              flush=True)
+        runs.append(rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = read_counts(counters)
+    if any(launches.values()):
+        raise AssertionError(f"lm_dryrun_path launched kernels {launches}")
+    emit({"phase": "lm_dryrun_path", "dryrun": summary, "runs": runs,
+          "launches": launches, "seconds": clock.seconds()})
+    return summary, runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -4740,6 +4847,7 @@ def main() -> int:
         counters, mm, ov, tc, device)
     phase_lm_serve_path(counters, device)
     phase_lm_train_path(counters, device)
+    phase_lm_dryrun_path(counters, device)
     torch.cuda.synchronize()
 
     kernels = [{

@@ -278,54 +278,90 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, hd)
 
 
+# q chunks that share one product in _sdpa_chunked: the transient score
+# block is [b, kv, r, Q_CHUNKS_PER_STEP, cq, ck] float32, whatever the
+# sequence length
+Q_CHUNKS_PER_STEP = 4
+
+
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   n_rep: int, *, causal: bool, window: int, chunk_q: int,
                   chunk_k: int) -> torch.Tensor:
     """Flash-style online-softmax attention, double-chunked over q and kv
     (the reference's ``lax.map`` over q chunks and ``lax.scan`` over kv
-    chunks become two loops).  The transient score block stays
-    [b, kv, r, cq, ck] float32 whatever the sequence length."""
+    chunks become two loops).  The outer loop takes the q chunks
+    ``Q_CHUNKS_PER_STEP`` at a time, so the transient score block stays
+    at most [b, kv, r, Q_CHUNKS_PER_STEP, cq, ck] float32 whatever the
+    sequence length; each query row goes through the operations of a
+    loop over single q chunks in the same order (a batched product may
+    round its float32 sums apart from the per-chunk one).
+
+    Each kv block updates only the chunks of the group that may see some
+    of it.  A chunk that sees none of a block would keep its running max
+    ``m``, sum ``l`` and output ``acc`` bit for bit as they were: its
+    scores are all ``-inf``, its weights ``exp(-inf) = 0`` and its
+    correction ``exp(0) = 1`` (or, before any visible block,
+    ``exp(-inf) = 0`` on a state still zero)."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if sq % chunk_q or sk % chunk_k:
         raise ValueError(f"sequence lengths {sq}, {sk} do not split into "
                          f"chunks of {chunk_q}, {chunk_k}")
     nq, nk = sq // chunk_q, sk // chunk_k
-    qs = q.reshape(b, nq, chunk_q, kv, n_rep, hd).permute(1, 0, 3, 4, 2, 5)
+    qs = q.reshape(b, nq, chunk_q, kv, n_rep, hd).permute(0, 3, 4, 1, 2, 5)
     ks = k.reshape(b, nk, chunk_k, kv, hd).permute(1, 0, 3, 2, 4)
     vs = v.reshape(b, nk, chunk_k, kv, hd).permute(1, 0, 3, 2, 4)
     scale = 1.0 / np.sqrt(hd)
     dev = q.device
+    qpos = torch.arange(sq, device=dev).reshape(nq, chunk_q, 1)
     outs = []
-    for qi in range(nq):
-        qblk = qs[qi]                                # [b, kv, r, cq, hd]
-        m = torch.full((b, kv, n_rep, chunk_q), -math.inf, device=dev)
-        l = torch.zeros((b, kv, n_rep, chunk_q), device=dev)
-        acc = torch.zeros((b, kv, n_rep, chunk_q, hd), device=dev)
-        qpos = qi * chunk_q + torch.arange(chunk_q, device=dev)[:, None]
+    for q0 in range(0, nq, Q_CHUNKS_PER_STEP):
+        q1 = min(nq, q0 + Q_CHUNKS_PER_STEP)
+        shape = (b, kv, n_rep, q1 - q0, chunk_q)
+        m = torch.full(shape, -math.inf, device=dev)
+        l = torch.zeros(shape, device=dev)
+        acc = torch.zeros(shape + (hd,), device=dev)
         for ki in range(nk):
+            k_lo, k_hi = ki * chunk_k, (ki + 1) * chunk_k - 1
+            # the group's q chunks [lo, hi) may see some of this block
+            lo = max(q0, k_lo // chunk_q) if causal else q0
+            hi = (min(q1, -(-(k_hi + window) // chunk_q)) if window
+                  else q1)
+            if lo >= hi:
+                continue
             kblk, vblk = ks[ki], vs[ki]              # [b, kv, ck, hd]
-            s_ = _f32_einsum("bkrqh,bksh->bkrqs", qblk, kblk) * scale
-            kpos = ki * chunk_k + torch.arange(chunk_k, device=dev)[None, :]
-            ok = torch.ones((chunk_q, chunk_k), dtype=torch.bool, device=dev)
-            if causal:
-                ok &= kpos <= qpos
-            if window:
-                ok &= kpos > qpos - window
-            s_ = torch.where(ok, s_, -math.inf)
-            m_new = torch.maximum(m, s_.amax(dim=-1))
+            s_ = _f32_einsum("bkrnqh,bksh->bkrnqs", qs[:, :, :, lo:hi],
+                             kblk) * scale
+            if causal or window:
+                kpos = k_lo + torch.arange(chunk_k, device=dev)
+                ok = torch.ones((hi - lo, chunk_q, chunk_k),
+                                dtype=torch.bool, device=dev)
+                if causal:
+                    ok &= kpos <= qpos[lo:hi]
+                if window:
+                    ok &= kpos > qpos[lo:hi] - window
+                s_ = torch.where(ok, s_, -math.inf)
+            part = slice(lo - q0, hi - q0)
+            m_old = m[:, :, :, part]
+            m_new = torch.maximum(m_old, s_.amax(dim=-1))
             # a fully masked prefix leaves m_new = -inf; a finite stand-in
             # makes every exp() 0 (and m = -inf means l = acc = 0)
             m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
             p_ = torch.exp(s_ - m_safe[..., None])
-            corr = torch.exp(m - m_safe)
-            l = l * corr + p_.sum(dim=-1)
-            acc = acc * corr[..., None] + _f32_einsum(
-                "bkrqs,bksh->bkrqh", p_.to(vblk.dtype), vblk)
-            m = m_new
+            corr = torch.exp(m_old - m_safe)
+            l_new = l[:, :, :, part] * corr + p_.sum(dim=-1)
+            acc_new = acc[:, :, :, part] * corr[..., None] + _f32_einsum(
+                "bkrnqs,bksh->bkrnqh", p_.to(vblk.dtype), vblk)
+            if (lo, hi) == (q0, q1):
+                m, l, acc = m_new, l_new, acc_new
+            else:                 # functional: autograd keeps the old state
+                m, l, acc = (torch.cat([t[:, :, :, :lo - q0], new,
+                                        t[:, :, :, hi - q0:]], dim=3)
+                             for t, new in ((m, m_new), (l, l_new),
+                                            (acc, acc_new)))
         outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
-    out = torch.stack(outs)                          # [nq, b, kv, r, cq, hd]
-    return out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, hd)
+    out = torch.cat(outs, dim=3)                 # [b, kv, r, nq, cq, hd]
+    return out.permute(0, 3, 4, 1, 2, 5).reshape(b, sq, h, hd)
 
 
 def attention_apply(p: Attention, cfg: ArchConfig, x: torch.Tensor, *,

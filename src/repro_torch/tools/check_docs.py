@@ -33,12 +33,15 @@ and one of the port's own:
 
 10. The "Launchers" section's dry-run cell table (rows ``|
     `maxmin__sp__allgather__float32` | ... |``) against
-    ``repro_torch.launch.closure_dryrun.CELLS``, and its model-family
+    ``repro_torch.launch.closure_dryrun.CELLS``, its model-family
     table (rows ``| `qwen3-1.7b` | `dense` | `TransformerLM` | ported
     |``, one per arch) against ``repro_torch.configs`` and
-    ``repro_torch.models.registry.FAMILIES``, both ways; and the section
-    names the reference modules that have no counterpart
-    (``launch/hlo_analysis.py``, ``compat.py``).
+    ``repro_torch.models.registry.FAMILIES``, and its launcher table
+    (rows ``| `launch/dryrun.py` | ported |``) against the modules of
+    ``repro_torch.launch`` (each ``ported``) and the reference's launcher
+    without one (``launch/hlo_analysis.py``: ``no counterpart``), all
+    both ways; and the section names the reference modules that have no
+    counterpart (``launch/hlo_analysis.py``, ``compat.py``).
 
   PYTHONPATH=src python -m repro_torch.tools.check_docs
 """
@@ -81,6 +84,8 @@ _CELL_ROW = re.compile(r"^\|\s*`(\w+__\w+__\w+__\w+)`\s*\|", re.M)
 _FAMILY_ROW = re.compile(
     r"^\|\s*`([\w.-]+)`\s*\|\s*`(\w+)`\s*\|\s*`(\w+)`\s*\|"
     r"\s*(ported|not ported)\s*\|", re.M)
+_LAUNCHER_ROW = re.compile(
+    r"^\|\s*`(launch/\w+\.py)`\s*\|\s*(ported|no counterpart)\s*\|", re.M)
 NO_COUNTERPART = ("launch/hlo_analysis.py", "compat.py")
 
 
@@ -241,6 +246,20 @@ def check_workload_table(text: str) -> List[str]:
                       documented)
 
 
+def launcher_modules() -> dict:
+    """``{"launch/<name>.py": "ported"}`` for every module of
+    ``repro_torch.launch``, and ``"no counterpart"`` for the reference's
+    launchers the port has none of."""
+    import pkgutil
+
+    import repro_torch.launch as launch
+    live = {f"launch/{m.name}.py": "ported"
+            for m in pkgutil.iter_modules(launch.__path__)}
+    live.update({name: "no counterpart" for name in NO_COUNTERPART
+                 if name.startswith("launch/")})
+    return live
+
+
 def check_launchers_section(text: str) -> List[str]:
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.launch.closure_dryrun import CELLS, cell_tag
@@ -260,6 +279,8 @@ def check_launchers_section(text: str) -> List[str]:
     documented = {arch: (family, name, status) for arch, family, name, status
                   in _FAMILY_ROW.findall(body)}
     problems += _both_ways("model-family", live, documented)
+    problems += _both_ways("launcher", launcher_modules(),
+                           dict(_LAUNCHER_ROW.findall(body)))
     problems += [f"Launchers section does not name `{name}`, which has no "
                  f"counterpart" for name in NO_COUNTERPART
                  if f"`{name}`" not in body]
@@ -296,7 +317,7 @@ def main() -> int:
           f"{available_backends()}, update and workload capabilities, "
           f"request types, construction modes, on-disk formats, kernels "
           f"{sorted(KERNEL_REGISTRY)}, priority classes, Request fields, "
-          f"dry-run cells and model families")
+          f"dry-run cells, model families and launchers")
     return 0
 
 

@@ -63,6 +63,10 @@ def _without(tmp_path, starts):
                                    "`qwen2-moe-a2.7b`"),
     ("| `whisper-large-v3` | `encdec`", "model-family table is missing "
                                        "`whisper-large-v3`"),
+    ("| `launch/dryrun.py` |", "launcher table is missing "
+                               "`launch/dryrun.py`"),
+    ("| `launch/hlo_analysis.py` |", "launcher table is missing "
+                                     "`launch/hlo_analysis.py`"),
 ])
 def test_a_missing_registry_row_fails(tmp_path, row, expect):
     found = check_docs.problems(arch=_without(tmp_path, row))
@@ -94,6 +98,24 @@ def test_a_family_marked_ported_that_is_not_fails(tmp_path):
         name = old.split("`")[1]
         assert any(f"model-family table documents `{name}`" in p
                    for p in found), found
+
+
+@pytest.mark.parametrize("old,new,expect", [
+    ("| `launch/dryrun.py` | ported |", "| `launch/dryrun2.py` | ported |",
+     "launcher table documents `launch/dryrun2.py` (`ported`) that the "
+     "code does not have"),
+    ("| `launch/dryrun.py` | ported |",
+     "| `launch/dryrun.py` | no counterpart |",
+     "launcher table documents `launch/dryrun.py` as `no counterpart` but "
+     "the code says `ported`"),
+])
+def test_the_launcher_table_is_held_both_ways(tmp_path, old, new, expect):
+    arch = tmp_path / ARCH.name
+    text = ARCH.read_text()
+    assert old in text
+    arch.write_text(text.replace(old, new))
+    found = check_docs.problems(arch=arch)
+    assert any(expect in p for p in found), found
 
 
 @pytest.mark.parametrize("name", ["launch/hlo_analysis.py", "compat.py"])

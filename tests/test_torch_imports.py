@@ -37,7 +37,9 @@ def _run(code: str, cwd=None):
 def test_module_list_is_what_the_slice_ships():
     assert _port_modules() == [
         "repro_torch", "repro_torch.api",
-        "repro_torch.benchmarks", "repro_torch.benchmarks.bench_construction",
+        "repro_torch.benchmarks",
+        "repro_torch.benchmarks.attention_chunks",
+        "repro_torch.benchmarks.bench_construction",
         "repro_torch.benchmarks.bench_maintenance",
         "repro_torch.benchmarks.bench_persistence",
         "repro_torch.benchmarks.bench_service_scale",
@@ -81,6 +83,7 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.kernels.registry",
         "repro_torch.kernels.threshold_closure",
         "repro_torch.launch", "repro_torch.launch.closure_dryrun",
+        "repro_torch.launch.dryrun",
         "repro_torch.launch.mesh", "repro_torch.launch.serve",
         "repro_torch.launch.shapes", "repro_torch.launch.train",
         "repro_torch.models", "repro_torch.models.common",
@@ -141,10 +144,13 @@ def test_import_drags_in_neither_jax_nor_the_reference(import_report, module):
                                     "repro_torch.workloads.oracle",
                                     "repro_torch.workloads.setops",
                                     "repro_torch.workloads.topk",
-                                    "repro_torch.workloads.witness"])
+                                    "repro_torch.workloads.witness",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.benchmarks.roofline"])
 def test_backend_module_alone_loads_neither_jax_nor_the_reference(module):
-    """The index-free, baseline, mesh and workload modules, each imported
-    first and alone in a fresh interpreter (the reference keeps
+    """The index-free, baseline, mesh and workload modules and the LM
+    dry-run and roofline, each imported first and alone in a fresh
+    interpreter (the reference keeps
     numpy-only copies of some of them in a package whose ``__init__``
     imports JAX, and builds its mesh from ``jax.sharding``)."""
     out = _run(

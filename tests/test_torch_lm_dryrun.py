@@ -1,0 +1,417 @@
+"""Port parity, the LM dry-run: ``repro_torch.launch.dryrun`` against
+``repro.launch.dryrun``.
+
+The reference must see 512 host devices, which ``XLA_FLAGS`` fixes before
+JAX first starts, so its ``lower_cell`` runs in one subprocess
+(``util_subproc.run_with_devices``) at smoke widths (the SMOKE config's
+fields as ``overrides``): one arch of each family on 16 x 16 at each
+shape, two of them on 2 x 16 x 16 too, and ``qwen3-1.7b`` on the three
+data-parallel meshes the card runs; then its ``main`` on one arch into an
+``--out`` directory.  The port's records carry every key of the
+reference's, with the same JSON types except the documented ``None``s,
+and equal it in every exact field, ``memory.argument_bytes`` included.
+Its collectives are a closed form (not XLA's), pinned here on a
+hand-counted case.  The run path (``run=True``) runs on the CPU at smoke
+widths on reduced shape cells."""
+import dataclasses
+import json
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.shapes import SHAPES, ShapeCell
+
+from util_subproc import run_with_devices
+
+FAMILIES = ("qwen3-1.7b", "qwen2-moe-a2.7b", "llava-next-mistral-7b",
+            "falcon-mamba-7b", "recurrentgemma-2b", "whisper-large-v3")
+MULTI_POD = ("qwen3-1.7b", "falcon-mamba-7b")
+CARD_MESHES = (("train_4k", (64, 1)), ("prefill_32k", (32, 1)),
+               ("decode_32k", (128, 1)))
+CELLS = ([(a, s, False, None) for a in FAMILIES for s in SHAPES]
+         + [(a, s, True, None) for a in MULTI_POD for s in SHAPES]
+         + [("qwen3-1.7b", s, False, ms) for s, ms in CARD_MESHES])
+IDS = [f"{a}-{s}-{'mp' if mp else 'sp'}{'-' + 'x'.join(map(str, ms)) if ms else ''}"
+       for a, s, mp, ms in CELLS]
+# the fields the port cannot have: nothing is lowered or compiled
+NOT_LOWERED = ("lower_s", "compile_s", "flops", "bytes_accessed", "loops")
+NOT_LOWERED_MEMORY = ("temp_bytes", "generated_code_bytes")
+EXACT = ("arch", "shape", "multi_pod", "status", "reason", "mesh_shape",
+         "n_devices", "model_params", "model_params_active")
+PORT_ONLY = {"device"}
+RUN_FIELDS = ("run_batch", "run_s", "run_times_s", "run_flops",
+              "peak_bytes", "run_bound_s", "run_bound_by", "run_checks")
+
+
+def _overrides(arch):
+    sm = get_smoke_config(arch)
+    return {f.name: getattr(sm, f.name) for f in dataclasses.fields(sm)}
+
+
+def _main_overrides():
+    """The fields by which ``qwen3-1.7b``'s SMOKE config differs from its
+    full one (scalars: they go through ``--set`` as JSON)."""
+    full, sm = get_config("qwen3-1.7b"), get_smoke_config("qwen3-1.7b")
+    return {f.name: getattr(sm, f.name) for f in dataclasses.fields(sm)
+            if getattr(sm, f.name) != getattr(full, f.name)}
+
+
+_REFERENCE = """
+import dataclasses, json, os, runpy, sys
+from repro.configs import get_smoke_config
+from repro.launch.dryrun import lower_cell
+recs = []
+for arch, shape, mp, ms in CELLS:
+    sm = get_smoke_config(arch)
+    ov = {f.name: getattr(sm, f.name) for f in dataclasses.fields(sm)}
+    recs.append(lower_cell(arch, shape, multi_pod=mp, overrides=ov,
+                           mesh_shape=tuple(ms) if ms else None))
+with open(os.path.join(OUT, "records.json"), "w") as f:
+    json.dump(recs, f)
+sys.argv = ["dryrun", "--arch", "qwen3-1.7b", "--both-meshes", "--out",
+            os.path.join(OUT, "main"), "--set", SET]
+runpy.run_module("repro.launch.dryrun", run_name="__main__")
+"""
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref_lm_dryrun")
+    head = (f"CELLS = {CELLS!r}\nOUT = {str(out)!r}\n"
+            f"SET = {json.dumps(_main_overrides())!r}\n")
+    run_with_devices(head + _REFERENCE, n_devices=512, timeout=400)
+    recs = json.loads((out / "records.json").read_text())
+    return dict(zip(IDS, recs)), out / "main"
+
+
+@pytest.fixture(scope="module")
+def port():
+    recs = [dryrun.lower_cell(a, s, multi_pod=mp, overrides=_overrides(a),
+                              mesh_shape=ms, device="cpu")
+            for a, s, mp, ms in CELLS]
+    return dict(zip(IDS, json.loads(json.dumps(recs))))
+
+
+def _documented_none(rec, key) -> bool:
+    """``memory.output_bytes`` is ``None`` only where no rule reproduces
+    the reference's number (the module docstring's list)."""
+    cfg = get_smoke_config(rec["arch"])
+    if key == "output_bytes":
+        return (cfg.family == "hybrid" and SHAPES[rec["shape"]].kind ==
+                "decode") or (cfg.opt_8bit and rec["shape"] == "train_4k")
+    return False
+
+
+@pytest.mark.parametrize("cell", IDS)
+def test_records_carry_every_reference_key(reference, port, cell):
+    want, got = reference[0][cell], port[cell]
+    assert list(got)[:len(want)] == list(want)
+    assert set(got) - set(want) <= PORT_ONLY
+    if want["status"] == "ok":
+        assert list(got["memory"]) == list(want["memory"])
+        for part in ("collective", "collective_executed"):
+            assert list(got[part]) == ["bytes", "counts", "total_bytes"]
+            for sub in ("bytes", "counts"):
+                assert list(got[part][sub]) == list(want[part][sub]) == \
+                    list(dryrun.COLLECTIVE_KINDS)
+
+
+@pytest.mark.parametrize("cell", IDS)
+def test_json_types_equal_the_reference_but_the_documented_nones(
+        reference, port, cell):
+    want, got = reference[0][cell], port[cell]
+    if want["status"] != "ok":
+        return
+    for key, value in want.items():
+        if key in NOT_LOWERED:
+            assert value is not None and got[key] is None, key
+        elif key != "memory":
+            assert type(got[key]) is type(value), key
+    for key, value in want["memory"].items():
+        if key in NOT_LOWERED_MEMORY:
+            assert got["memory"][key] is None, key
+        elif got["memory"][key] is None:
+            assert _documented_none(got, key), key
+        else:
+            assert type(got["memory"][key]) is type(value) is int, key
+    for part in ("collective", "collective_executed"):
+        assert type(got[part]["total_bytes"]) is int
+        for sub in ("bytes", "counts"):
+            assert all(type(v) is int for v in got[part][sub].values())
+
+
+@pytest.mark.parametrize("cell", IDS)
+def test_exact_fields_and_memory_equal_the_reference(reference, port, cell):
+    """Status, reason (skipped cells), mesh, parameter counts, and the
+    per-device argument and output bytes."""
+    want, got = reference[0][cell], port[cell]
+    for key in EXACT:
+        assert got.get(key) == want.get(key), key
+    if want["status"] == "ok":
+        assert got["memory"]["argument_bytes"] == \
+            want["memory"]["argument_bytes"]
+        if not _documented_none(got, "output_bytes"):
+            assert got["memory"]["output_bytes"] == \
+                want["memory"]["output_bytes"]
+
+
+def test_the_same_cells_are_skipped_for_the_same_reason(reference, port):
+    skipped = {c for c in IDS if reference[0][c]["status"] == "skipped"}
+    assert skipped == {c for c in IDS if port[c]["status"] == "skipped"}
+    assert skipped == {c for c in IDS if "long_500k" in c and not any(
+        a in c for a in ("falcon-mamba-7b", "recurrentgemma-2b"))}
+
+
+def test_main_writes_the_reference_files_and_keys(reference, tmp_path):
+    ref_dir = reference[1]
+    dryrun.main(["--arch", "qwen3-1.7b", "--both-meshes", "--out",
+                 str(tmp_path), "--set", json.dumps(_main_overrides()),
+                 "--device", "cpu"])
+    names = sorted(p.name for p in ref_dir.glob("*.json"))
+    assert names == sorted(p.name for p in tmp_path.glob("*.json"))
+    assert len(names) == 8 and names[0] == "qwen3_1_7b__decode_32k__mp.json"
+    for name in names:
+        want = json.loads((ref_dir / name).read_text())
+        got = json.loads((tmp_path / name).read_text())
+        assert set(want) <= set(got), name
+        assert set(got) - set(want) <= PORT_ONLY, name
+        for key in EXACT:
+            assert got.get(key) == want.get(key), (name, key)
+        if want["status"] == "ok":
+            assert got["memory"]["argument_bytes"] == \
+                want["memory"]["argument_bytes"]
+
+
+def test_main_tags_and_skips_existing_records(tmp_path, capsys):
+    args = ["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--out",
+            str(tmp_path), "--tag", "t1", "--device", "cpu", "--set",
+            json.dumps(_main_overrides())]
+    assert len(dryrun.main(args)) == 1
+    assert [p.name for p in tmp_path.iterdir()] == \
+        ["qwen3_1_7b__decode_32k__sp__t1.json"]
+    assert dryrun.main(args + ["--skip-existing"]) == []
+    assert "[cached ] qwen3-1.7b × decode_32k × 16x16" in \
+        capsys.readouterr().out
+
+
+def test_main_raises_on_a_failed_cell(tmp_path):
+    with pytest.raises(SystemExit, match="1 cell"):
+        dryrun.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
+                     "--set", '{"family": "none"}', "--device", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the collective closed form, counted by hand on the 2-layer dense smoke
+# model (qwen3-1.7b's SMOKE: d_model 64, d_ff 128, vocab 256, 4 heads of
+# 16, 2 KV heads, an untied vocab-split head, bf16 compute, remat "full",
+# one microbatch) on a 2 x 2 (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def _tally(**kinds):
+    out = {"bytes": {k: 0 for k in dryrun.COLLECTIVE_KINDS},
+           "counts": {k: 0 for k in dryrun.COLLECTIVE_KINDS}}
+    for kind, (nbytes, count) in kinds.items():
+        kind = kind.replace("_", "-")
+        out["bytes"][kind], out["counts"][kind] = nbytes, count
+    out["total_bytes"] = sum(out["bytes"].values())
+    return out
+
+
+def _hand_counted(kind):
+    layers, d, a = 2, 64, 2
+    if kind == "train":
+        t = 256 // 2 * 4096            # tokens a device holds (data 2)
+        ar = t * d * a                 # one [t, d] bf16 all-reduce
+        body = 2 * 3                   # wo + down; forward, remat, backward
+        head = [ar, 3 * t * 4, ar]     # embed; loss statistics; input grad
+        # every leaf is ZeRO-1-split over data: reduce-scatter to its
+        # moment's float32 shard, all-gather of its own float32 shard
+        # (embed, ln_f, ln1, wq, wk, wv, wo, q_norm, k_norm, ln2, gate,
+        # up, down, lm_head)
+        rs = [128 * 32, 32, 64, 64 * 32, 64 * 16, 64 * 16, 32 * 64, 16, 16,
+              64, 64 * 64, 64 * 64, 64 * 64, 32 * 128]
+        rs = [4 * n for n in rs]
+        ag = [2 * n for n in rs]
+        flat = _tally(all_reduce=(body * ar + sum(head), body + 5),
+                      reduce_scatter=(sum(rs), 14),
+                      all_gather=(sum(ag), 14))
+        executed = _tally(all_reduce=(layers * body * ar + sum(head),
+                                      layers * body + 5),
+                          reduce_scatter=(sum(rs), 14),
+                          all_gather=(sum(ag), 14))
+        return flat, executed
+    t = 32 // 2 * 32768 if kind == "prefill" else 128 // 2
+    ar = t * d * a
+    # wo + down a layer, the vocab-split embedding; the vocab-split
+    # logits stay split (the step's result)
+    return (_tally(all_reduce=(3 * ar, 3)),
+            _tally(all_reduce=((2 * layers + 1) * ar, 2 * layers + 1)))
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_collectives_equal_the_hand_count(shape):
+    rec = dryrun.lower_cell("qwen3-1.7b", shape, mesh_shape=(2, 2),
+                            overrides=_overrides("qwen3-1.7b"),
+                            device="cpu")
+    flat, executed = _hand_counted(SHAPES[shape].kind)
+    assert rec["collective"] == flat
+    assert rec["collective_executed"] == executed
+
+
+def test_collectives_vanish_without_a_split_axis():
+    """One device in every axis: nothing to move."""
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        rec = dryrun.lower_cell("qwen3-1.7b", shape, mesh_shape=(1, 1),
+                                overrides=_overrides("qwen3-1.7b"),
+                                device="cpu")
+        assert rec["collective_executed"]["total_bytes"] == 0
+        assert rec["collective"]["total_bytes"] == 0
+
+
+def test_microbatches_and_layers_multiply_the_executed_count():
+    """The same cell at 4 microbatches: per-microbatch terms shrink 4x
+    (a quarter of the tokens each) and run 4 times; the gradient
+    reduction runs once."""
+    over = dict(_overrides("qwen3-1.7b"), microbatch=4)
+    one = dryrun.lower_cell("qwen3-1.7b", "train_4k", mesh_shape=(2, 2),
+                            overrides=_overrides("qwen3-1.7b"),
+                            device="cpu")
+    four = dryrun.lower_cell("qwen3-1.7b", "train_4k", mesh_shape=(2, 2),
+                             overrides=over, device="cpu")
+    for kind in ("all-gather", "reduce-scatter"):
+        assert four["collective_executed"]["bytes"][kind] == \
+            one["collective_executed"]["bytes"][kind]
+    ar1 = one["collective_executed"]["bytes"]["all-reduce"]
+    ar4 = four["collective_executed"]["bytes"]["all-reduce"]
+    assert ar4 == ar1
+    assert four["collective_executed"]["counts"]["all-reduce"] == \
+        4 * one["collective_executed"]["counts"]["all-reduce"]
+    assert four["collective"]["bytes"]["all-reduce"] * 4 == \
+        one["collective"]["bytes"]["all-reduce"]
+
+
+def test_full_size_cells_price_without_allocating():
+    """Every cell of both production meshes at the full configs on the
+    CPU, on ``meta`` records: 64 priced, 16 skipped."""
+    recs = dryrun.main(["--all", "--both-meshes", "--device", "cpu"])
+    status = [r["status"] for r in recs]
+    assert status.count("ok") == 64 and status.count("skipped") == 16
+    for r in recs:
+        if r["status"] == "ok":
+            assert r["memory"]["argument_bytes"] > 0, r["arch"]
+            assert r["collective_executed"]["total_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the run path, on the CPU at smoke widths on reduced cells
+# ---------------------------------------------------------------------------
+
+SMALL = {"train": ShapeCell("train_4k", 64, 8, "train"),
+         "prefill": ShapeCell("prefill_32k", 64, 4, "prefill"),
+         "decode": ShapeCell("decode_32k", 64, 8, "decode")}
+RUN_FAMILIES = FAMILIES + ("arctic-480b",)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", RUN_FAMILIES)
+def test_run_on_the_cpu_adds_its_fields_and_checks(arch, kind):
+    rec = dryrun.lower_cell(arch, SMALL[kind], mesh_shape=(4, 1),
+                            overrides=_overrides(arch), device="cpu",
+                            run=True)
+    assert rec["status"] == "ok" and "run_reason" not in rec
+    assert set(RUN_FIELDS) <= set(rec)
+    assert rec["run_batch"] == SMALL[kind].global_batch // 4
+    # nothing on the CPU is a device measurement
+    assert rec["run_s"] is None and rec["peak_bytes"] is None
+    assert rec["run_times_s"] is None
+    assert rec["run_flops"] > 0 and rec["run_bound_s"] > 0
+    checks = rec["run_checks"]
+    if kind == "train":
+        n = len(list(dryrun.build_model(
+            dataclasses.replace(get_config(arch), **_overrides(arch)),
+            device="meta").parameters()))
+        assert checks[-1] == f"all {n} parameters changed"
+    elif kind == "prefill":
+        assert checks[0] == f"logits [{rec['run_batch']}, 256]"
+    elif get_smoke_config(arch).family != "ssm":
+        assert "k/v written at pos 63 only" in checks
+
+
+def test_long_context_decode_runs_the_whole_batch():
+    rec = dryrun.lower_cell("falcon-mamba-7b",
+                            ShapeCell("long_500k", 96, 1, "decode"),
+                            mesh_shape=(4, 1),
+                            overrides=_overrides("falcon-mamba-7b"),
+                            device="cpu", run=True)
+    assert rec["run_batch"] == 1 and rec["run_flops"] > 0
+
+
+def test_decode_that_writes_away_from_pos_fails(monkeypatch):
+    make = dryrun.make_serve_step
+
+    def wrong(model, cfg):
+        step = make(model, cfg)
+
+        def serve_step(cache, tokens, pos):
+            logits, cache = step(cache, tokens, pos)
+            cache["k"][:, :, 0] += 1          # a write at slot 0 as well
+            return logits, cache
+        return serve_step
+    monkeypatch.setattr(dryrun, "make_serve_step", wrong)
+    with pytest.raises(AssertionError, match="changed away from pos"):
+        dryrun.lower_cell("qwen3-1.7b", SMALL["decode"], mesh_shape=(4, 1),
+                          overrides=_overrides("qwen3-1.7b"), device="cpu",
+                          run=True)
+
+
+def test_train_that_leaves_a_parameter_fails(monkeypatch):
+    make = dryrun.make_train_step
+
+    def frozen(model, cfg, opt_cfg):
+        step = make(model, cfg, opt_cfg)
+        keep = model.ln_f.scale.detach().clone()
+
+        def train_step(params, state, batch):
+            out = step(params, state, batch)
+            with torch.no_grad():
+                model.ln_f.scale.copy_(keep)
+            return out
+        return train_step
+    monkeypatch.setattr(dryrun, "make_train_step", frozen)
+    with pytest.raises(AssertionError, match="ln_f.scale did not change"):
+        dryrun.lower_cell("qwen3-1.7b", SMALL["train"], mesh_shape=(4, 1),
+                          overrides=_overrides("qwen3-1.7b"), device="cpu",
+                          run=True)
+
+
+@pytest.mark.parametrize("mesh_shape,multi_pod", [
+    (None, False), (None, True), ((2, 2), False), ((2, 4, 1), False)])
+def test_a_cell_with_a_split_model_or_pod_axis_runs_nothing(mesh_shape,
+                                                             multi_pod):
+    rec = dryrun.lower_cell("qwen3-1.7b", SMALL["decode"],
+                            multi_pod=multi_pod, mesh_shape=mesh_shape,
+                            overrides=_overrides("qwen3-1.7b"),
+                            device="cpu", run=True)
+    assert rec["run_reason"]
+    assert not set(RUN_FIELDS) & set(rec)
+
+
+def test_no_device_means_cuda_and_raises_without_one(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.lower_cell("qwen3-1.7b", SMALL["decode"], mesh_shape=(4, 1),
+                          overrides=_overrides("qwen3-1.7b"), run=True)
+    with pytest.raises(SystemExit, match="1 cell"):
+        dryrun.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k",
+                     "--mesh-shape", "128,1", "--run"])
+    assert "RuntimeError: no CUDA device" in capsys.readouterr().out
+
+
+def test_keep_hlo_is_accepted_and_adds_nothing():
+    rec = dryrun.lower_cell("qwen3-1.7b", "decode_32k", keep_hlo=True,
+                            overrides=_overrides("qwen3-1.7b"),
+                            device="cpu")
+    assert "hlo_len" not in rec and "_hlo" not in rec

@@ -173,6 +173,125 @@ def test_windowed_chunked_attention():
     np.testing.assert_allclose(chunked.numpy(), np.asarray(want), **_F32_TOL)
 
 
+def _every_block_attention(q, k, v, n_rep, causal, window, chunk):
+    """The online-softmax loop over every (q, kv) block pair, masked
+    blocks included: the plain version of ``layers._sdpa_chunked``."""
+    b, sq, h, hd = q.shape
+    kv, n = k.shape[2], sq // chunk
+    qs = q.reshape(b, n, chunk, kv, n_rep, hd).permute(1, 0, 3, 4, 2, 5)
+    ks = k.reshape(b, n, chunk, kv, hd).permute(1, 0, 3, 2, 4)
+    vs = v.reshape(b, n, chunk, kv, hd).permute(1, 0, 3, 2, 4)
+    outs = []
+    for qi in range(n):
+        m = torch.full((b, kv, n_rep, chunk), -float("inf"))
+        l = torch.zeros((b, kv, n_rep, chunk))
+        acc = torch.zeros((b, kv, n_rep, chunk, hd))
+        qpos = qi * chunk + torch.arange(chunk)[:, None]
+        for ki in range(n):
+            s_ = torch.einsum("bkrqh,bksh->bkrqs", qs[qi].float(),
+                              ks[ki].float()) * (1.0 / np.sqrt(hd))
+            kpos = ki * chunk + torch.arange(chunk)[None, :]
+            ok = torch.ones((chunk, chunk), dtype=torch.bool)
+            if causal:
+                ok &= kpos <= qpos
+            if window:
+                ok &= kpos > qpos - window
+            s_ = torch.where(ok, s_, -float("inf"))
+            m_new = torch.maximum(m, s_.amax(dim=-1))
+            m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            p_ = torch.exp(s_ - m_safe[..., None])
+            corr = torch.exp(m - m_safe)
+            l = l * corr + p_.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkrqs,bksh->bkrqh", p_.to(vs.dtype).float(),
+                vs[ki].float())
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+    out = torch.stack(outs)
+    return out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, hd)
+
+
+@pytest.mark.parametrize("per_step", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 6),
+                                           (True, 16), (False, 0)])
+def test_chunked_attention_equals_the_every_block_loop(
+        dtype, causal, window, per_step, monkeypatch):
+    """``_sdpa_chunked`` takes ``per_step`` q chunks a product (3 leaves a
+    shorter last group) and leaves out the kv blocks none of them sees;
+    its output is the every-block loop's up to the rounding of the
+    batched float32 product (a few float32 ulps; the bf16 outputs agree
+    exactly here)."""
+    monkeypatch.setattr(port_layers, "Q_CHUNKS_PER_STEP", per_step)
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 32, h, 8, generator=g).to(dtype)
+               for h in (4, 2, 2))
+    got = port_layers._sdpa_chunked(q, k, v, 2, causal=causal,
+                                    window=window, chunk_q=4, chunk_k=4)
+    want = _every_block_attention(q, k, v, 2, causal, window, 4)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+        return
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    grads = []
+    for fn in (lambda *t: port_layers._sdpa_chunked(
+            *t, 2, causal=causal, window=window, chunk_q=4, chunk_k=4),
+               lambda *t: _every_block_attention(*t, 2, causal, window, 4)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        (out * torch.linspace(-1, 1, out.numel()).reshape(out.shape)
+         ).sum().backward()
+        grads.append([x.grad for x in leaves])
+    for got_g, want_g in zip(*grads):
+        torch.testing.assert_close(got_g, want_g, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_chunks_benchmark_on_the_host(tmp_path):
+    """``benchmarks/attention_chunks`` on the host at smoke widths: the
+    host clock, no peak, and its sampled output is the every-block
+    loop's on the same seeded inputs; ``--against`` its own file gives
+    a difference of 0."""
+    from repro_torch.benchmarks import attention_chunks
+    out = tmp_path / "a.json"
+    rec = attention_chunks.main(["--smoke", "--seq", "64", "--chunk", "16",
+                                 "--device", "cpu", "--out", str(out)])
+    assert rec["device"] == "cpu" and rec["peak_bytes_above_inputs"] is None
+    assert rec["q_chunks_per_step"] == port_layers.Q_CHUNKS_PER_STEP
+    assert len(rec["times_s"]) == 3 and rec["time_s"] > 0
+    cfg = port_configs.get_smoke_config("qwen3-1.7b")
+    q, k, v = attention_chunks._inputs(cfg, 64, torch.device("cpu"), False)
+    want = _every_block_attention(q, k, v, 2, True, 0, 16)
+    assert rec["sample"] == attention_chunks.sample_of(want)
+    last = torch.zeros(2 ** 25 + 3)
+    last[-1] = 7.0                      # past float32's exact integers
+    assert attention_chunks.sample_of(last)[-1] == 7.0
+    again = attention_chunks.main(["--smoke", "--seq", "64", "--chunk",
+                                   "16", "--device", "cpu", "--backward",
+                                   "--against", str(out)])
+    assert again["backward"] and again["max_abs_diff"] == 0.0
+
+
+@pytest.mark.parametrize("seq", [32, 128])
+def test_chunked_attention_score_block_does_not_grow_with_length(
+        seq, monkeypatch):
+    """The largest product ``_sdpa_chunked`` makes is a score block of
+    ``Q_CHUNKS_PER_STEP`` q chunks by one kv chunk, at any length."""
+    sizes = []
+    einsum = port_layers._f32_einsum
+
+    def spy(spec, *ops):
+        out = einsum(spec, *ops)
+        if spec.endswith("qs"):                  # the score products
+            sizes.append(out.numel())
+        return out
+
+    monkeypatch.setattr(port_layers, "_f32_einsum", spy)
+    q, k, v = (torch.randn(2, seq, h, 8) for h in (4, 2, 2))
+    port_layers._sdpa_chunked(q, k, v, 2, causal=True, window=0,
+                              chunk_q=4, chunk_k=4)
+    assert max(sizes) <= 2 * 2 * 2 * port_layers.Q_CHUNKS_PER_STEP * 4 * 4
+
+
 def test_rolling_window_cache_wraps_past_the_window():
     """The smoke config's window of 8 and 12 decode steps: the cache holds
     min(window, max_seq) = 8 slots, position p lands in slot p % 8, and
