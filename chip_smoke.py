@@ -51,6 +51,18 @@ drives the port's two paths at full size through `repro_torch.api`:
   path's graph (labels equal to `main_path`'s, 2^20 pairs through
   `label_join_gather`); scoped churn in both regimes, a `ReplicaGroup`
   and the three store payloads on 4 x ENG-s;
+* the `sharded` closure on real ranks (`api.make_process_mesh`), right
+  after: four spawned gloo ranks share the card, one block of a 2 x 2
+  `ProcessMesh` each, over primary-school's W; each builds the closure
+  through `build_engine` (`allgather`: 14 float32 `maxmin_matmul`
+  launches a rank) and through `sharded_maxmin_closure` (`ring`: 28),
+  its block held to the logical 2 x 2 W*, answers 4,096 seeded pairs
+  through `label_join_gather` off the replicated snapshot (equal on
+  every rank, held to the plain join), runs the threshold closure on
+  1 x 2 x 2 (2 rounds, held to the logical route) and
+  `compressed_allreduce` of a `qwen3-1.7b` layer's MLP gradient
+  (bit-equal to the one-process version); then one rank runs the
+  closure and a batch in a one-rank NCCL group;
 * the benchmark suite and the examples (`repro_torch.benchmarks`,
   `repro_torch.examples`), last: every script through its `main` at its
   `--quick` sizes (its JSON into `build/bench_torch/`), the four examples,
@@ -100,7 +112,8 @@ Output: one `ptxas <kernel>: ...` line per library (registers, shared
 memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `main_path`, `service_path`, `workloads_path`, `store_path`, `wide_labels`,
-`closure_path`, `closure_path_kernels`, `sharded_path`, `closure_small`,
+`closure_path`, `closure_path_kernels`, `sharded_path`, `rank_path`,
+`closure_small`,
 `backends_path`, `bench_path`, `dryrun_path` (after one line per cell
 from the dry-run itself), `lm_serve_path`, `lm_train_path`,
 `lm_dryrun_path` (after one line per cell from the LM dry-run)
@@ -263,6 +276,14 @@ SHARDED_COPIES, SHARDED_WORKERS = 4, 2
 # sharded_path: the plain label join on the closure snapshot (L = 12,704)
 # makes a [Q, L, L] cube, so it is timed on this many pairs only
 PLAIN_PAIRS = 64
+# rank_path: four gloo ranks on one card, a 2 x 2 ProcessMesh over
+# primary-school's W; the seeded pairs every rank answers; the threshold
+# closure's ladder capped for the script's time; a rank's gradient is one
+# LM_ARCH layer's three MLP weights; every rank done within the limit
+RANK_WORLD, RANK_GRID = 4, (2, 2)
+RANK_PAIRS = 4096
+RANK_THRESHOLD_ROUNDS = 2
+RANK_TIMEOUT_S = 300
 
 # bench_path: the four examples, then at the published sizes exp1's Min-*
 # rows on 4,096 pairs and a 2^20 label_join_gather batch on 89k/70k, and
@@ -2281,7 +2302,9 @@ def phase_sharded_path(api, dist, counters, closure_w, main, device):
     the label regime on the main path's graph (labels byte-equal to
     ``main_path``'s, 2^20 pairs through ``label_join_gather``); scoped
     churn, a ``ReplicaGroup`` and the three store payloads on 4 x ENG-s.
-    Returns (launches per kernel, max abs err per kernel, kernel rows)."""
+    Returns (launches per kernel, max abs err per kernel, kernel rows,
+    ``rank_path``'s inputs: the graph, its host W, the padded 2 x 2 W*
+    and every pair's answer)."""
     clock = Phase()
     mm, ov, tc, lj = (counters[k] for k in ("maxmin_matmul", "overlap",
                                             "threshold_step", "label_join"))
@@ -2305,7 +2328,8 @@ def phase_sharded_path(api, dist, counters, closure_w, main, device):
     plan = api.plan_backend(h, mesh=mesh22)
     if plan != "sharded":
         raise AssertionError(f"sharded_path: the planner named {plan}")
-    w = torch.from_numpy(h.line_graph(np.int32).astype(np.float32)).to(device)
+    w_host = h.line_graph(np.int32).astype(np.float32)
+    w = torch.from_numpy(w_host).to(device)
     (plain_w, plain_rounds, first), plain_s = timed_s(
         lambda: plain_maxmin_closure(mm, w))
     closure_dev = torch.from_numpy(closure_w).to(device)
@@ -2346,6 +2370,8 @@ def phase_sharded_path(api, dist, counters, closure_w, main, device):
                        "maxmin_matmul_float32_launches":
                            counts["maxmin_matmul"],
                        "peak_rise_bytes": peak}
+        if tag == "2x2 allgather":
+            w_star22 = eng._w_star.cpu().numpy()     # for rank_path
         if keep is None:
             keep = eng
         else:
@@ -2369,6 +2395,7 @@ def phase_sharded_path(api, dist, counters, closure_w, main, device):
         "sharded_path all pairs", keep, us, vs, got))
     if not np.array_equal(got, closure_all_pairs(h, closure_w)):
         raise AssertionError("sharded_path: all pairs != the closure engine")
+    closure_pairs = got
     bu = torch.from_numpy(us).to(device)
     bv = torch.from_numpy(vs).to(device)
     bound_ms, bound_by, bcounts = label_join_gather_bound(snap.svals, bu, bv)
@@ -2634,7 +2661,407 @@ def phase_sharded_path(api, dist, counters, closure_w, main, device):
     out["kernels"] = rows
     out["seconds"] = clock.seconds()
     emit(out)
-    return total, errs, rows
+    return total, errs, rows, {"h": h, "w": w_host, "w_star": w_star22,
+                               "all_pairs": closure_pairs}
+
+
+# -- the sharded closure on ranks ---------------------------------------------
+
+
+class ExchangeClock:
+    """Host seconds, calls and bytes received of the collectives a rank
+    runs (``core/collectives.py``'s transfers, wrapped in place): the card
+    is synchronised before each, so a transfer's time is its own (the
+    gloo route stages through the host and waits for the card anyway)."""
+
+    def __init__(self, coll, on_card):
+        self.on_card = on_card
+        self.reset()
+        for name, received in (("gather_over", self._gathered),
+                               ("shift_over", self._whole),
+                               ("max_over", self._whole)):
+            setattr(coll, name, self._timed(getattr(coll, name), received))
+
+    def reset(self):
+        self.seconds, self.calls, self.bytes = 0.0, 0, 0
+
+    @staticmethod
+    def _gathered(args, out):
+        n = args[2]
+        return out.numel() * out.element_size() * (n - 1) // n
+
+    @staticmethod
+    def _whole(args, out):
+        return out.numel() * out.element_size()
+
+    def _timed(self, fn, received):
+        def timed(*args, **kw):
+            if self.on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if self.on_card:
+                torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            self.bytes += received(args, out)
+            return out
+        return timed
+
+
+def rank_measured(fn, clock, mm, device, rounds=None):
+    """(``fn()``, its seconds, exchange seconds / calls / bytes, bytes a
+    round, ``maxmin_matmul`` launches and peak device memory above the
+    start) on one rank."""
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    clock.reset()
+    before = mm.LAUNCHES
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    part = {"seconds": time.perf_counter() - t0,
+            "exchange_seconds": clock.seconds,
+            "exchange_calls": clock.calls,
+            "exchange_bytes": clock.bytes,
+            "maxmin_matmul_launches": mm.LAUNCHES - before,
+            "peak_rise_bytes": (torch.cuda.max_memory_allocated() - base
+                                if on_card else None)}
+    if rounds:
+        part["rounds"] = rounds
+        part["exchange_bytes_a_round"] = clock.bytes // rounds
+    return out, part
+
+
+def rank_gradients(rank, cfg, device):
+    """Rank ``rank``'s seeded gradient of one ``cfg`` layer's MLP: the
+    gate, up and down weights' shapes, float32."""
+    gen = torch.Generator(device=device).manual_seed(1000 + rank)
+    shapes = {"gate": (cfg.d_model, cfg.d_ff), "up": (cfg.d_model, cfg.d_ff),
+              "down": (cfg.d_ff, cfg.d_model)}
+    return {k: torch.randn(s, generator=gen, device=device) * 1e-3
+            for k, s in shapes.items()}
+
+
+def rank_nccl_check(api, coll, mm, lj, h, pairs, work, device):
+    """One rank in a one-rank NCCL group: the three transfers of
+    ``core/collectives.py`` on the group itself (each the identity on one
+    rank), then the closure and one ``mr_batch`` on a 1 x 1 mesh."""
+    import torch.distributed as tdist
+    tdist.init_process_group("nccl", init_method="file://" + os.path.join(
+        work, "init-nccl"), rank=0, world_size=1)
+    try:
+        pm = api.make_process_mesh((1, 1), ("data", "model"))
+        t = torch.arange(24.0, device=device).reshape(4, 6)
+        moved = {"all_gather": coll.gather_over(t, None, 1, dim=1),
+                 "ring": coll.shift_over(t, None, 0, 0),
+                 "all_reduce_max": coll.max_over(t, None)}
+        for name, got in moved.items():
+            if not torch.equal(got, t):
+                raise AssertionError(f"rank_path nccl {name}: not the "
+                                     f"identity on one rank")
+        before, gathers = mm.LAUNCHES, lj.GATHER_LAUNCHES
+        eng, build_s = timed_s(lambda: api.build_engine(
+            h, "sharded", mesh=pm, use_kernels=True))
+        got = eng.mr_batch(pairs["us"], pairs["vs"])
+        if not np.array_equal(got, pairs["want"]):
+            raise AssertionError("rank_path nccl: answers != the closure's")
+        return {"backend": pm.backend, "device": str(pm.device),
+                "transfers": sorted(moved), "build_seconds": build_s,
+                "maxmin_matmul_launches": mm.LAUNCHES - before,
+                "label_join_gather_launches": lj.GATHER_LAUNCHES - gathers}
+    finally:
+        tdist.destroy_process_group()
+
+
+def rank_worker(rank, world, work, spec):
+    """One rank of ``rank_path`` (a spawned process; the kernels are built
+    already and only loaded): the closure on a 2 x 2 ``ProcessMesh`` under
+    both schedules (``allgather`` through ``build_engine``, which then
+    answers the seeded pairs through ``label_join_gather``; ``ring``
+    through ``sharded_maxmin_closure``), each block held to the logical
+    W*; the threshold closure on 1 x 2 x 2 against the logical route under
+    the same cap; ``compressed_allreduce`` of its gradient against the
+    one-process version; rank 0 then the one-rank NCCL check.  Writes
+    ``rank<r>.json`` (and its answers) into ``work``."""
+    import datetime
+    import torch.distributed as tdist
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import distributed as dist
+    from repro_torch.distributed_lm import compressed_allreduce
+    from repro_torch.kernels import label_join as lj
+    from repro_torch.kernels import maxmin_matmul as mm
+
+    device = torch.device(spec["device"])
+    on_card = device.type == "cuda"
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clock = ExchangeClock(coll, on_card)
+    g = spec["graph"]
+    h = api.random_hypergraph(g["n"], g["m"], min_size=g["min_size"],
+                              max_size=g["max_size"], seed=g["seed"])
+    w = np.load(os.path.join(work, "w.npy"), mmap_mode="r")
+    w_star = np.load(os.path.join(work, "w_star.npy"), mmap_mode="r")
+    pairs = dict(np.load(os.path.join(work, "pairs.npz")))
+    axes = ("data", "model")
+    out = {"rank": rank}
+    tdist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "init"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=spec["timeout"]))
+    try:
+        # device=None: cuda:0 under gloo (every rank on the one card)
+        pm = api.make_process_mesh(RANK_GRID, axes,
+                                   device=None if on_card else "cpu")
+        out.update(coords=list(pm.coords), device=str(pm.device),
+                   backend=pm.backend)
+        rounds = rank_rounds(h.m)
+
+        # allgather, built through build_engine: the resident block
+        eng, part = rank_measured(lambda: api.build_engine(
+            h, "sharded", mesh=pm, schedule="allgather", use_kernels=True),
+            clock, mm, device, rounds)
+        want = dist.block_of(w_star, pm, axes)
+        part.update(
+            block_shape=list(eng._w_star.shape),
+            resident_block_bytes=eng._w_star.numel()
+            * eng._w_star.element_size(),
+            rank_nbytes=eng.rank_nbytes(), nbytes=eng.nbytes(),
+            max_abs_err=check_equal(f"rank {rank} allgather block",
+                                    eng._w_star, want))
+        out["allgather"] = part
+
+        # the replicated snapshot, and the seeded pairs through it
+        snap, part = rank_measured(eng.snapshot, clock, mm, device)
+        part["shape"] = list(snap.svals.shape)
+        out["snapshot"] = part
+        gathers, joins = lj.GATHER_LAUNCHES, lj.LAUNCHES
+        got, join_s = timed_s(lambda: eng.mr_batch(pairs["us"], pairs["vs"]))
+        out["join"] = {
+            "pairs": int(got.size), "seconds": join_s,
+            "label_join_gather_launches": lj.GATHER_LAUNCHES - gathers,
+            "label_join_launches": lj.LAUNCHES - joins,
+            "max_abs_err": held_to_plain(f"rank {rank} join", eng,
+                                         pairs["us"], pairs["vs"], got),
+            "equal_to_the_closure": bool(np.array_equal(got,
+                                                        pairs["want"]))}
+        np.save(os.path.join(work, f"answers{rank}.npy"), got)
+        del eng, snap
+
+        # ring, through sharded_maxmin_closure on the host W
+        blk, part = rank_measured(lambda: dist.sharded_maxmin_closure(
+            w, pm, schedule="ring", trim=False, use_kernels=True),
+            clock, mm, device, rounds)
+        part["max_abs_err"] = check_equal(f"rank {rank} ring block", blk,
+                                          want)
+        out["ring"] = part
+        del blk, want
+
+        # the threshold closure on 1 x 2 x 2, capped as the logical run
+        taxes = ("pod", "data", "model")
+        pm3 = api.make_process_mesh((1,) + RANK_GRID, taxes,
+                                    device=None if on_card else "cpu")
+        thr = np.load(os.path.join(work, "thr.npy"))
+        blk, part = rank_measured(lambda: dist.sharded_threshold_closure_mr(
+            w, thr, pm3, rounds=spec["threshold_rounds"]), clock, mm, device,
+            spec["threshold_rounds"])
+        logical = np.load(os.path.join(work, "thr_mr.npy"), mmap_mode="r")
+        part.update(S=int(thr.size), max_abs_err=check_equal(
+            f"rank {rank} threshold block", blk,
+            dist.block_of(logical, pm3, taxes[1:])))
+        out["threshold"] = part
+        del blk
+
+        # compressed_allreduce of this rank's gradient over data = 4
+        pmd = api.make_process_mesh((RANK_WORLD, 1), axes,
+                                    device=None if on_card else "cpu")
+        cfg = get_config(LM_ARCH)
+        mine = rank_gradients(rank, cfg, device)
+        mean, part = rank_measured(lambda: compressed_allreduce(
+            {k: v[None] for k, v in mine.items()}, pmd, "data"),
+            clock, mm, device)
+        stacked = {k: torch.stack([rank_gradients(r, cfg, device)[k]
+                                   for r in range(world)])
+                   for k in mine}
+        one = compressed_allreduce(stacked, api.make_mesh(
+            (RANK_WORLD, 1), axes, device=device), "data")
+        part.update(
+            elements=sum(v.numel() for v in mine.values()),
+            bit_equal=all(torch.equal(mean[k], one[k]) for k in mine))
+        out["compression"] = part
+        del stacked, one, mean, mine
+    finally:
+        tdist.destroy_process_group()
+    if rank == 0 and spec["nccl"]:
+        out["nccl"] = rank_nccl_check(api, coll, mm, lj, h, pairs, work,
+                                      device)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def rank_rounds(m):
+    """The closure ladder's length over ``m`` padded for ``RANK_GRID``."""
+    from repro_torch.kernels.ops import default_rounds
+    lcm = math.lcm(*RANK_GRID)
+    return default_rounds(-(-m // lcm) * lcm)
+
+
+def run_ranks(work, spec):
+    """``RANK_WORLD`` spawned ranks of ``rank_worker``; fails as soon as
+    one exits with an error, or when the limit passes, and kills the
+    others either way.  Returns their reports."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank_worker, name=f"rank{r}",
+                         args=(r, RANK_WORLD, work, spec))
+             for r in range(RANK_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + spec["timeout"]
+    try:
+        while True:
+            codes = [p.exitcode for p in procs]
+            if any(c not in (None, 0) for c in codes):
+                raise AssertionError(f"rank_path: a rank failed, exit codes "
+                                     f"{codes}")
+            if all(c == 0 for c in codes):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"rank_path: ranks not done in "
+                                     f"{spec['timeout']} s ({codes})")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    reports = []
+    for r in range(RANK_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def phase_rank_path(api, dist, counters, inputs, device):
+    """The ``sharded`` closure on real ranks: ``RANK_WORLD`` gloo processes
+    share the card, one block each of a 2 x 2 ``ProcessMesh`` over
+    ``sharded_path``'s primary-school W.  Each rank builds the closure
+    (``allgather`` through ``build_engine``: 14 ``maxmin_matmul``
+    launches; ``ring``: 28), its block held to the logical 2 x 2 W*;
+    answers ``RANK_PAIRS`` seeded pairs through ``label_join_gather`` off
+    the replicated snapshot (held to the plain join and to the closure's
+    answers, equal on every rank); runs the threshold closure on 1 x 2 x 2
+    (held to the logical route under the same cap) and
+    ``compressed_allreduce`` of an ``LM_ARCH`` layer's MLP gradient
+    (bit-equal to the one-process version); then rank 0 runs the closure
+    in a one-rank NCCL group.  Returns (launches per kernel, max abs err
+    per kernel)."""
+    from repro_torch.core.semiring import distinct_thresholds
+    clock = Phase()
+    h, w = inputs["h"], inputs["w"]
+    g = CLOSURE_GRAPH
+    out = {"phase": "rank_path", "world": RANK_WORLD, "backend": "gloo",
+           "grid": list(RANK_GRID), "n": h.n, "m": h.m,
+           "nccl_between_cards": "not run: one card"}
+    total = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        np.save(os.path.join(work, "w.npy"), w)
+        np.save(os.path.join(work, "w_star.npy"), inputs["w_star"])
+        rng = np.random.default_rng(67)
+        us = rng.integers(0, h.n, RANK_PAIRS)
+        vs = rng.integers(0, h.n, RANK_PAIRS)
+        np.savez(os.path.join(work, "pairs.npz"), us=us, vs=vs,
+                 want=inputs["all_pairs"][us * h.n + vs])
+        # the logical route under the ranks' cap, on the card
+        thr = distinct_thresholds(w)
+        mesh3 = api.make_mesh((1,) + RANK_GRID, ("pod", "data", "model"))
+        w_dev = torch.from_numpy(w).to(device)
+        (mr3, thr_s), counts = counted_run(counters, lambda: timed_s(
+            lambda: dist.sharded_threshold_closure_mr(
+                w_dev, thr, mesh3, rounds=RANK_THRESHOLD_ROUNDS)))
+        expect_counts("rank_path logical threshold", counts,
+                      {"threshold_step": RANK_THRESHOLD_ROUNDS})
+        add_counts(total, counts)
+        np.save(os.path.join(work, "thr.npy"), thr)
+        np.save(os.path.join(work, "thr_mr.npy"), dist.pad_for_mesh(
+            mr3.cpu().numpy(), mesh3, ("data", "model")))
+        del w_dev, mr3
+        torch.cuda.empty_cache()
+        spec = {"device": device.type, "graph": g, "timeout": RANK_TIMEOUT_S,
+                "threshold_rounds": RANK_THRESHOLD_ROUNDS,
+                "nccl": device.type == "cuda"}
+        reports, ranks_s = timed_s(lambda: run_ranks(work, spec))
+        answers = [np.load(os.path.join(work, f"answers{r}.npy"))
+                   for r in range(RANK_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rounds = rank_rounds(h.m)
+    errs = {"maxmin_matmul": 0, "label_join_gather": 0,
+            "threshold_closure_on_ranks": 0}
+    for rep in reports:
+        r = rep["rank"]
+        expect_counts(f"rank_path rank {r} allgather",
+                      {"maxmin_matmul": rep["allgather"][
+                          "maxmin_matmul_launches"]},
+                      {"maxmin_matmul": rounds})
+        expect_counts(f"rank_path rank {r} ring",
+                      {"maxmin_matmul": rep["ring"]["maxmin_matmul_launches"]},
+                      {"maxmin_matmul": rounds * RANK_GRID[0]})
+        join = rep["join"]
+        expect_counts(f"rank_path rank {r} join",
+                      {"label_join": join["label_join_launches"],
+                       "label_join_gather": join[
+                           "label_join_gather_launches"]},
+                      {"label_join": 1, "label_join_gather": 1})
+        if not (join["equal_to_the_closure"]
+                and np.array_equal(answers[r], answers[0])):
+            raise AssertionError(f"rank_path rank {r}: answers differ")
+        if not rep["compression"]["bit_equal"]:
+            raise AssertionError(f"rank_path rank {r}: compressed_allreduce"
+                                 f" != the one-process version")
+        mp = -(-h.m // math.lcm(*RANK_GRID)) * math.lcm(*RANK_GRID)
+        if rep["allgather"]["resident_block_bytes"] != 4 * mp * mp // 4:
+            raise AssertionError(f"rank_path rank {r}: block "
+                                 f"{rep['allgather']['block_shape']}")
+        add_counts(total, {"maxmin_matmul": rep["allgather"][
+            "maxmin_matmul_launches"] + rep["ring"]["maxmin_matmul_launches"],
+            "label_join": join["label_join_launches"],
+            "label_join_gather": join["label_join_gather_launches"]})
+        errs["maxmin_matmul"] = max(errs["maxmin_matmul"],
+                                    rep["allgather"]["max_abs_err"],
+                                    rep["ring"]["max_abs_err"])
+        errs["label_join_gather"] = max(errs["label_join_gather"],
+                                        join["max_abs_err"])
+        errs["threshold_closure_on_ranks"] = max(
+            errs["threshold_closure_on_ranks"],
+            rep["threshold"]["max_abs_err"])
+    nccl = reports[0].get("nccl")
+    if spec["nccl"]:
+        if nccl is None or nccl["backend"] != "nccl":
+            raise AssertionError(f"rank_path: the NCCL check did not run: "
+                                 f"{nccl}")
+        expect_counts("rank_path nccl", {
+            "maxmin_matmul": nccl["maxmin_matmul_launches"],
+            "label_join_gather": nccl["label_join_gather_launches"]},
+            {"maxmin_matmul": rounds, "label_join_gather": 1})
+        add_counts(total, {"maxmin_matmul": nccl["maxmin_matmul_launches"],
+                           "label_join": nccl["label_join_gather_launches"],
+                           "label_join_gather": nccl[
+                               "label_join_gather_launches"]})
+    out.update(rounds=rounds, logical_threshold_seconds=thr_s,
+               ranks_seconds=ranks_s, ranks=reports, launches=total,
+               max_abs_err=errs, answers_equal_across_ranks=True)
+    out["seconds"] = clock.seconds()
+    emit(out)
+    return total, errs
 
 
 # -- the index-free and baseline backends ------------------------------------
@@ -4830,10 +5257,13 @@ def main() -> int:
     (dense_launches, dense_pads, path_rows, closure_w,
      closure_eng) = phase_closure_path(api, semiring, ops, counters, wl,
                                        device)
-    sharded_launches, sharded_errs, sharded_rows = phase_sharded_path(
-        api, dist, counters, closure_w, main, device)
+    sharded_launches, sharded_errs, sharded_rows, rank_inputs = \
+        phase_sharded_path(api, dist, counters, closure_w, main, device)
     del closure_w, main
     torch.cuda.empty_cache()
+    rank_launches, rank_errs = phase_rank_path(api, dist, counters,
+                                               rank_inputs, device)
+    del rank_inputs
     phase_closure_small(api, ops, counters, device)
     backends_launches, ete_kernel, ete_workload_launches = \
         phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
@@ -4857,6 +5287,7 @@ def main() -> int:
         "launches": (launches + service_launches + backends_launches
                      + workload_launches + store_launches["label_join"]
                      + sharded_launches["label_join"]
+                     + rank_launches.get("label_join", 0)
                      + bench_launches["label_join"]),
         "launches_by_path": {"main_path": launches,
                              "service_path": service_launches,
@@ -4864,10 +5295,12 @@ def main() -> int:
                              "workloads_path": workload_launches,
                              "store_path": store_launches["label_join"],
                              "sharded_path": sharded_launches["label_join"],
+                             "rank_path": rank_launches.get("label_join", 0),
                              "bench_path": bench_launches["label_join"]},
         "max_abs_err": max(err_checks, err_main,
                            store_errs["label_join_gather"],
-                           sharded_errs["label_join_gather"]),
+                           sharded_errs["label_join_gather"],
+                           rank_errs["label_join_gather"]),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,    # no single PyTorch call computes this join
@@ -4881,6 +5314,7 @@ def main() -> int:
                      + workload_launches
                      + store_launches["label_join_gather"]
                      + sharded_launches["label_join_gather"]
+                     + rank_launches.get("label_join_gather", 0)
                      + bench_launches["label_join_gather"]),
         "launches_by_path": {"main_path": gather_launches,
                              "service_path": service_launches,
@@ -4890,12 +5324,15 @@ def main() -> int:
                                  "label_join_gather"],
                              "sharded_path": sharded_launches[
                                  "label_join_gather"],
+                             "rank_path": rank_launches.get(
+                                 "label_join_gather", 0),
                              "bench_path": bench_launches[
                                  "label_join_gather"]},
         "max_abs_err": max(gather_err_checks, gather_err_main,
                            ete_kernel["max_abs_err"],
                            store_errs["label_join_gather"],
-                           sharded_errs["label_join_gather"]),
+                           sharded_errs["label_join_gather"],
+                           rank_errs["label_join_gather"]),
         "ms": gather_times["ms"], "cold_ms": gather_times["cold_ms"],
         "plain_ms": gather_times["plain_ms"],
         "bound_ms": gather_times["bound_ms"],
@@ -4923,16 +5360,19 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": (dense_launches[name] + service_dense[name]
                          + store_launches[name] + sharded_launches[name]
+                         + rank_launches.get(name, 0)
                          + bench_launches[name] + dryrun_launches[name]),
             "launches_by_path": {"closure_path": dense_launches[name],
                                  "service_path": service_dense[name],
                                  "store_path": store_launches[name],
                                  "sharded_path": sharded_launches[name],
+                                 "rank_path": rank_launches.get(name, 0),
                                  "bench_path": bench_launches[name],
                                  "dryrun_path": dryrun_launches[name]},
             "max_abs_err": max(dense_errs[name], row["max_abs_err"],
                                store_errs.get(name, 0),
-                               sharded_errs[name], dryrun_errs[name]),
+                               sharded_errs[name], rank_errs.get(name, 0),
+                               dryrun_errs[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"]})

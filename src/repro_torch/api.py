@@ -108,6 +108,18 @@ logical block grid on one device (``make_mesh``, as ``repro.api``'s):
     svc = serve(h, "sharded", mesh=mesh)              # mesh-resident serving
 
 ``make_mesh(..., device="cpu")`` runs all of it on the host.
+
+A ``ProcessMesh`` puts each block on its own rank of a
+``torch.distributed`` process group (one process a block, started by
+``torchrun`` or a spawn); every rank runs the same calls:
+
+    torch.distributed.init_process_group("nccl")        # or "gloo"
+    pm = make_process_mesh((2, 2), ("data", "model"))
+    eng = build_engine(h, backend="sharded", mesh=pm, use_kernels=True)
+    eng.mr_batch(us, vs)             # the same answers on every rank
+
+Only the closure regime runs on ranks; the label regime, updates,
+``to_mesh``, mesh serving and the store raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -125,8 +137,9 @@ from repro_torch.core.hypergraph import (Hypergraph, from_edge_lists, compact,
                                          random_hypergraph,
                                          planted_chain_hypergraph,
                                          colocation_hypergraph, paper_figure1)
-from repro_torch.core.mesh import (LogicalMesh, default_line_graph_mesh,
-                                   make_mesh)
+from repro_torch.core.mesh import (LogicalMesh, ProcessMesh,
+                                   default_line_graph_mesh, make_mesh,
+                                   make_process_mesh)
 from repro_torch.device import DeviceLike
 from repro_torch.serve.reach_service import (MRRequest, MRSetRequest,
                                              ReachabilityService, Request,
@@ -157,6 +170,7 @@ __all__ = [
     "planted_chain_hypergraph", "colocation_hypergraph", "paper_figure1",
     "IndexStore", "save_index", "load_index", "read_hif", "write_hif",
     "LogicalMesh", "make_mesh", "default_line_graph_mesh",
+    "ProcessMesh", "make_process_mesh",
 ]
 
 # service knobs that used to ride along in serve(**opts); still accepted

@@ -36,11 +36,27 @@ resident W* / snapshot (closure regime), or routes the touched
 components through ``build_sharded`` and splices (label regime).
 
 Counterpart of ``repro/core/distributed.py``, same names in the same
-order.  The blocks of the reference's ``NamedSharding(mesh, P(row,
-col))`` are views of one padded tensor on ``mesh.device`` and its
-collectives are reads of those views.  Its ``collective_bytes_of``
-parses the XLA HLO text of a lowered program; the port lowers nothing to
-HLO, so that helper has no input here and is not ported.
+order.  On a ``LogicalMesh`` the blocks of the reference's
+``NamedSharding(mesh, P(row, col))`` are views of one padded tensor on
+``mesh.device`` and its collectives are reads of those views.
+
+On a ``ProcessMesh`` (``core/mesh.py``) every block lives on its own rank
+and the reference's shard_map bodies run as written, with the
+collectives of ``core/collectives.py``: a closure round gathers the row
+panel over the column axis and (``allgather``) the column panel over the
+row axis, or (``ring``) passes the column panel around the row axis; the
+threshold closure gathers 0/1 panels and max-reduces over ``pod``.  Each
+rank passes the full host ``w``, lands only its own block, and gets its
+own block of the padded result back (``gather_blocks`` assembles the
+whole on every rank, for checks).  The ``sharded`` engine's closure
+regime builds and serves on ranks: each keeps its W* block and derives
+the replicated snapshot with one max-reduce and one all-gather.  The
+label regime, updates, ``to_mesh`` and the store raise
+``NotImplementedError`` there (ROADMAP A10d).
+
+The reference's ``collective_bytes_of`` parses the XLA HLO text of a
+lowered program; the port lowers nothing to HLO, so that helper has no
+input here and is not ported.
 """
 from __future__ import annotations
 
@@ -55,20 +71,22 @@ from ..kernels.maxmin_matmul import maxmin_matmul_ref
 from ..kernels.ops import default_rounds
 from ..kernels.threshold_closure import (largest_threshold,
                                          threshold_adjacency, threshold_step)
+from . import collectives as coll
 from .engine import WORKLOAD_OPS, _EngineBase, register_backend
 from .hlindex import (HLIndex, auto_device_overlaps, build_sharded,
                       pad_label_rows)
 from .hypergraph import (NeighborCSR, apply_edge_edits,
                          induced_subhypergraph, neighbor_csr)
 from .maintenance import apply_updates, component_of
-from .mesh import LogicalMesh, default_line_graph_mesh
+from .mesh import (LogicalMesh, ProcessMesh, default_line_graph_mesh,
+                   not_on_ranks)
 from .minimal import minimize
 from .query import DeviceSnapshot, mr_query, s_reach_query
 
 __all__ = [
     "pad_for_mesh", "sharded_maxmin_round", "sharded_maxmin_closure",
-    "sharded_threshold_closure_mr", "default_line_graph_mesh",
-    "ShardedEngine",
+    "sharded_threshold_closure_mr", "block_of", "gather_blocks",
+    "default_line_graph_mesh", "ShardedEngine",
 ]
 
 
@@ -128,12 +146,18 @@ def sharded_maxmin_round(mesh: LogicalMesh, *, schedule: str = "allgather",
     block's own part included, as the reference's collectives do.
     ``contract(a, b)`` replaces the per-block contraction where given (a
     walk of the schedule on ``meta`` tensors counts the reads of a round
-    at any size without computing it)."""
+    at any size without computing it).
+
+    On a ``ProcessMesh`` ``round_fn(blk, out=None)`` takes and returns
+    this rank's [mp/r, mp/c] block, and ``on_read`` sees the panels this
+    rank gathers or receives."""
     if contract is None:
         contract = _local_contraction(use_kernels)
     read = on_read if on_read is not None else (lambda kind, panel: None)
     if schedule not in ("allgather", "ring"):
         raise ValueError(schedule)
+    if isinstance(mesh, ProcessMesh):
+        return _rank_round(mesh, schedule, axes, contract, read)
     n_row, n_col = mesh.shape[axes[0]], mesh.shape[axes[1]]
 
     def round_fn(r_in: torch.Tensor,
@@ -171,6 +195,69 @@ def sharded_maxmin_round(mesh: LogicalMesh, *, schedule: str = "allgather",
     return round_fn
 
 
+def _rank_round(mesh: ProcessMesh, schedule: str, axes: Tuple[str, str],
+                contract: Callable, read: Callable):
+    """The reference's shard_map round bodies on ranks (see
+    ``sharded_maxmin_round``)."""
+    row_ax, col_ax = axes
+    n_row = mesh.shape[row_ax]
+
+    def round_fn(blk: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        row_panel = coll.all_gather_panel(blk, mesh, col_ax, dim=1)
+        read("all-gather", row_panel)
+        if schedule == "allgather":
+            col_panel = coll.all_gather_panel(blk, mesh, row_ax, dim=0)
+            read("all-gather", col_panel)
+            return torch.maximum(blk, contract(row_panel, col_panel),
+                                 out=out)
+        # ring: the column panel R[k, j] arrives from the previous row
+        # coordinate each step; the last step's shift would go unused
+        br = blk.shape[0]
+        my_row = mesh.axis_index(row_ax)
+        acc = blk.clone() if out is None else out.copy_(blk)
+        panel = blk
+        for t in range(n_row):
+            src = (my_row - t) % n_row
+            seg = row_panel[:, src * br:(src + 1) * br].contiguous()
+            read("collective-permute", panel)
+            torch.maximum(acc, contract(seg, panel), out=acc)
+            if t + 1 < n_row:
+                panel = coll.ring_shift(panel, mesh, row_ax)
+        return acc
+
+    return round_fn
+
+
+def block_of(w, mesh: ProcessMesh,
+             axes: Tuple[str, str] = ("data", "model")) -> torch.Tensor:
+    """This rank's block of ``pad_for_mesh(w)`` ([..., mp/r, mp/c]) as a
+    new tensor on ``mesh.device``.  ``w`` is a host array or a tensor;
+    only the block is copied and landed, then zero-padded where it runs
+    past ``m``, so neither the padded whole nor ``w`` itself is landed."""
+    r, c = mesh.shape[axes[0]], mesh.shape[axes[1]]
+    m = int(w.shape[-1])
+    mp = _round_up(m, int(np.lcm(r, c)))
+    br, bc = mp // r, mp // c
+    i, j = mesh.axis_index(axes[0]), mesh.axis_index(axes[1])
+    rows = slice(min(i * br, m), min((i + 1) * br, m))
+    cols = slice(min(j * bc, m), min((j + 1) * bc, m))
+    blk = _landed(w[..., rows, cols], mesh.device)
+    pr, pc = br - blk.shape[-2], bc - blk.shape[-1]
+    if pr or pc:
+        blk = torch.nn.functional.pad(blk, (0, pc, 0, pr))
+    return blk
+
+
+def gather_blocks(block: torch.Tensor, mesh: ProcessMesh,
+                  axes: Tuple[str, str] = ("data", "model")) -> torch.Tensor:
+    """The padded [mp, mp] whole of every rank's ``block``, on every rank:
+    an all-gather over the column axis, then over the row axis.  For
+    tests and checks only: it lands the whole W* on each rank."""
+    row = coll.all_gather_panel(block, mesh, axes[1], dim=block.dim() - 1)
+    return coll.all_gather_panel(row, mesh, axes[0], dim=block.dim() - 2)
+
+
 def _landed(w, device: torch.device) -> torch.Tensor:
     """``w`` (host array or tensor) as a new tensor on ``device``: a
     closure's rounds write their buffers, never the caller's."""
@@ -198,10 +285,25 @@ def sharded_maxmin_closure(w, mesh: LogicalMesh, *,
     exactly; ``trim=False`` keeps the padded [mp, mp] tensor — the form
     ``ShardedEngine`` keeps resident (padding entries are zero, the
     (max, min) annihilator, so they never contribute to an answer).
+
+    On a ``ProcessMesh`` every rank passes the whole ``w`` and gets its
+    own [mp/r, mp/c] block of the padded W* on ``mesh.device``; a block
+    has no trimmed form, so ``trim=False`` is required there
+    (``gather_blocks(block, mesh, axes)[:m, :m]`` is the trimmed whole).
     """
+    if isinstance(mesh, ProcessMesh):
+        if trim:
+            raise ValueError(
+                "on a ProcessMesh the closure returns this rank's block of "
+                "the padded W*: pass trim=False (gather_blocks assembles "
+                "the whole)")
+        cur = block_of(w, mesh, axes)
+        m_padded = cur.shape[0] * mesh.shape[axes[0]]
+    else:
+        cur = pad_for_mesh(_landed(w, mesh.device), mesh, axes)
+        m_padded = cur.shape[0]
     m_true = int(w.shape[0])
-    cur = pad_for_mesh(_landed(w, mesh.device), mesh, axes)
-    n_rounds = rounds if rounds is not None else default_rounds(cur.shape[0])
+    n_rounds = rounds if rounds is not None else default_rounds(m_padded)
     round_fn = sharded_maxmin_round(mesh, schedule=schedule, axes=axes,
                                     use_kernels=use_kernels)
     nxt = torch.empty_like(cur)
@@ -209,7 +311,7 @@ def sharded_maxmin_closure(w, mesh: LogicalMesh, *,
         round_fn(cur, out=nxt)
         cur, nxt = nxt, cur
     del nxt
-    if trim and cur.shape[0] != m_true:
+    if trim and m_padded != m_true:
         return cur[:m_true, :m_true].contiguous()
     return cur
 
@@ -225,7 +327,17 @@ def sharded_threshold_closure_mr(w, thresholds, mesh: LogicalMesh, *,
     each [m, m] slab is padded for the ``(data, model)`` grid and every
     round is one ``threshold_step`` launch per pod slice (0/1 slabs with
     self-loops in bf16, exact; its plain version on the CPU).  The only
-    cross-pod step is the final max over the threshold dim."""
+    cross-pod step is the final max over the threshold dim.
+
+    On a ``ProcessMesh`` each rank holds the [S/pod, mp/r, mp/c] 0/1 block
+    of its pod's thresholds and runs the reference's round: the row panel
+    gathered over the column axis, the column panel over the row axis
+    (both as uint8), one ``torch.bmm`` of their bf16 casts (0/1 products
+    summed: exact once compared with 0) and ``> 0``; the read-out is
+    max-reduced over ``pod``.  The result is this rank's [mp/r, mp/c]
+    block of the padded MR matrix (``gather_blocks`` assembles it)."""
+    if isinstance(mesh, ProcessMesh):
+        return _rank_threshold_closure_mr(w, thresholds, mesh, rounds, axes)
     pod_ax, row_ax, col_ax = axes
     dev = mesh.device
     wt = _landed(w, dev).to(torch.float32)
@@ -256,6 +368,47 @@ def sharded_threshold_closure_mr(w, thresholds, mesh: LogicalMesh, *,
     mr.diagonal().copy_(wp.diagonal())
     if m != m_true:
         return mr[:m_true, :m_true].contiguous()
+    return mr
+
+
+def _rank_threshold_closure_mr(w, thresholds, mesh: ProcessMesh,
+                               rounds: Optional[int],
+                               axes: Tuple[str, str, str]) -> torch.Tensor:
+    """The reference's threshold round body on ranks (see
+    ``sharded_threshold_closure_mr``)."""
+    pod_ax, row_ax, col_ax = axes
+    dev = mesh.device
+    wb = block_of(w, mesh, (row_ax, col_ax)).to(torch.float32)
+    br, bc = wb.shape
+    t = np.asarray(thresholds)
+    if t.size == 0:
+        return torch.zeros((br, bc), dtype=torch.float32, device=dev)
+    pod = mesh.shape[pod_ax]
+    tpad = (-t.size) % pod
+    if tpad:
+        # repeat the smallest threshold — duplicate slices are harmless
+        t = np.concatenate([t, np.full(tpad, t.min(), t.dtype)])
+    per_pod = t.size // pod
+    p = mesh.axis_index(pod_ax)
+    tj = torch.as_tensor(t[p * per_pod:(p + 1) * per_pod]).to(
+        device=dev, dtype=torch.float32)
+    mp = br * mesh.shape[row_ax]
+    n_rounds = rounds if rounds is not None else default_rounds(mp)
+    # entries of the global diagonal that fall in this block
+    i, j = mesh.axis_index(row_ax), mesh.axis_index(col_ax)
+    diag = (torch.arange(i * br, (i + 1) * br, device=dev)[:, None]
+            == torch.arange(j * bc, (j + 1) * bc, device=dev)[None, :])
+    reach = ((wb[None] >= tj[:, None, None]) | diag).to(torch.uint8)
+    for _ in range(n_rounds):
+        row_panel = coll.all_gather_panel(reach, mesh, col_ax, dim=2)
+        col_panel = coll.all_gather_panel(reach, mesh, row_ax, dim=1)
+        prod = torch.bmm(row_panel.to(torch.bfloat16),
+                         col_panel.to(torch.bfloat16))
+        del row_panel, col_panel
+        reach = (prod > 0).to(torch.uint8)
+        del prod
+    mr = coll.all_reduce_max(largest_threshold(reach, tj), mesh, pod_ax)
+    mr[diag] = wb[diag]
     return mr
 
 
@@ -302,7 +455,13 @@ class ShardedEngine(_EngineBase):
     exact on these rows.
 
     Mesh handling: ``mesh=None`` builds ``default_line_graph_mesh`` on
-    ``device``; a logical grid of any shape runs on one device.
+    ``device``; a logical grid of any shape runs on one device.  On a
+    ``ProcessMesh`` (closure regime only) every rank builds from the same
+    ``h`` and keeps only its W* block ([mp/r, mp/c], ``rank_nbytes``);
+    the snapshot is derived by a max over the rows each rank holds, a
+    max-reduce over the row axis and an all-gather over the column axis,
+    so every rank holds the same replicated snapshot and answers every
+    query.  The label regime and updates raise there (ROADMAP A10d).
 
     ``build_labels=True`` switches the backend from the closure regime to
     the **label regime**: build runs sharded HL-index construction
@@ -352,8 +511,12 @@ class ShardedEngine(_EngineBase):
         self.axes = axes
         self.schedule = schedule
         self.rounds = rounds
-        self._w_star = w_star_padded       # [mp, mp] float32 on the mesh
+        # [mp, mp] float32 on the mesh (this rank's [mp/r, mp/c] block
+        # on a ProcessMesh)
+        self._w_star = w_star_padded
         self._m_padded = (int(w_star_padded.shape[0])
+                          * (mesh.shape[axes[0]]
+                             if isinstance(mesh, ProcessMesh) else 1)
                           if w_star_padded is not None else 0)
         self._m_true = m_true
         self._idx = idx                    # label regime (build_labels=True)
@@ -431,6 +594,8 @@ class ShardedEngine(_EngineBase):
                 f"block-shard over; got axis names {mesh.axis_names}")
         axes = tuple(axes)
         if build_labels:
+            not_on_ranks(mesh, "the label regime of the sharded backend "
+                               "(build_labels=True)")
             minimizer = minimize if minimize_labels else None
             # the neighbor index is computed here (same host/mesh route
             # build_sharded would pick) and kept on the engine: scoped
@@ -450,6 +615,10 @@ class ShardedEngine(_EngineBase):
         eng = cls(h, mesh, axes, schedule, w_star, m_true, rounds)
         eng.use_kernels = bool(use_kernels)
         return eng
+
+    def update(self, inserts=(), deletes=()) -> None:
+        not_on_ranks(self.mesh, "update of the sharded backend")
+        super().update(inserts, deletes)
 
     def _apply_update(self, inserts=(), deletes=()) -> None:
         """Scoped maintenance on the same mesh (capability "scoped"):
@@ -732,15 +901,25 @@ class ShardedEngine(_EngineBase):
         inc[rows, cols] = self._slot_of[h.v_idx]   # edge id -> W* slot
         inc_dev = torch.from_numpy(inc).to(dev)
         w_star = self._w_star
+        on_ranks = isinstance(mesh, ProcessMesh)
+        # the W* rows held here: all of them, or this rank's row block
+        held = int(w_star.shape[0])
+        first = mesh.axis_index(row_ax) * held if on_ranks else 0
         # svals[u] = max_{e in E(u)} W*[e, :], one degree column at a
-        # time so the working set stays one [n_pad, mp] panel
-        svals = torch.zeros((n_pad, mp), dtype=w_star.dtype, device=dev)
+        # time so the working set stays one [n_pad, mp] panel (on ranks:
+        # over the held rows and columns, then max-reduced over the row
+        # axis and gathered over the column axis)
+        svals = torch.zeros((n_pad, int(w_star.shape[1])),
+                            dtype=w_star.dtype, device=dev)
         for d in range(d_max):
-            slot = inc_dev[:, d]
-            valid = slot < mp
-            panel = w_star.index_select(0, slot.clamp(max=mp - 1))
+            row = inc_dev[:, d] - first
+            valid = (row >= 0) & (row < held)
+            panel = w_star.index_select(0, row.clamp(0, held - 1))
             panel.mul_(valid[:, None].to(panel.dtype))
             torch.maximum(svals, panel, out=svals)
+        if on_ranks:
+            svals = coll.all_reduce_max(svals, mesh, row_ax)
+            svals = coll.all_gather_panel(svals, mesh, self.axes[1], dim=1)
         # rank space = slot id (ascending per row by construction);
         # padded columns carry sval 0, which can never win the join max
         ranks = torch.arange(mp, dtype=torch.int32,
@@ -759,6 +938,8 @@ class ShardedEngine(_EngineBase):
             torch.cuda.synchronize(self.device)
 
     def nbytes(self) -> int:
+        """Bytes of the resident structures, W* counted whole (on a
+        ``ProcessMesh`` too, as the reference counts its sharded W*)."""
         total = 0
         if self._w_star is not None:
             total += self._m_padded * self._m_padded * 4
@@ -768,4 +949,15 @@ class ShardedEngine(_EngineBase):
             total += self._nbr.nbytes()
         if self._snap is not None:
             total += self._snap.nbytes()
+        return total
+
+    def rank_nbytes(self) -> int:
+        """This process's share of ``nbytes()``: its W* block and the
+        snapshot it holds (on a ``LogicalMesh``, all of ``nbytes()``)."""
+        if not isinstance(self.mesh, ProcessMesh):
+            return self.nbytes()
+        total = self.nbytes()
+        if self._w_star is not None:
+            total += (self._w_star.numel() * self._w_star.element_size()
+                      - self._m_padded * self._m_padded * 4)
         return total

@@ -78,7 +78,7 @@ import torch
 
 from ..device import DeviceLike, host_to_device, resolve_device
 from .hypergraph import Hypergraph, apply_edge_edits
-from .mesh import LogicalMesh
+from .mesh import LogicalMesh, ProcessMesh
 from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
                       build_sharded, pad_label_rows)
 from .maintenance import apply_updates, normalize_update_batch
@@ -661,7 +661,10 @@ def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
         the planner (see ``plan_backend``) and forwarded to the
         ``sharded`` backend, which partitions its closure over it, and to
         the HL-index backends, where a multi-block mesh asks for sharded
-        construction.  A restored ``sharded`` engine lands on it.
+        construction.  A restored ``sharded`` engine lands on it.  A
+        ``ProcessMesh`` puts the ``sharded`` closure regime on ranks
+        (every rank calls ``build`` with the same ``h``); the routes not
+        yet on ranks raise ``NotImplementedError``.
       device: where device-resident structures land.  ``None`` means the
         mesh's device when a mesh is given, else ``"cuda"``; on a host
         without a CUDA device that raises — pass ``device="cpu"`` (or a
@@ -672,7 +675,7 @@ def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
         with ``restore``, the ``restore_engine`` options (``verify``,
         ``checkpoint_every``, ``attach``).
     """
-    if device is None and isinstance(mesh, LogicalMesh):
+    if device is None and isinstance(mesh, (LogicalMesh, ProcessMesh)):
         device = mesh.device
     if restore is not None:
         if h is not None:

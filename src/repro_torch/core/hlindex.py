@@ -508,6 +508,9 @@ def build_sharded(h: Hypergraph, *,
     says so; ``True`` forces the mesh route (requires a multi-block
     ``mesh`` — raises otherwise), ``False`` forces the host pass.
     """
+    if mesh is not None:
+        from .mesh import not_on_ranks
+        not_on_ranks(mesh, "sharded HL-index construction (build_sharded)")
     devices = int(mesh.devices.size) if mesh is not None else 1
     if device_overlaps and devices <= 1:
         raise ValueError(

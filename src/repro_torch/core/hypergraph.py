@@ -330,6 +330,9 @@ def neighbor_csr(h: Hypergraph, *, mesh=None) -> NeighborCSR:
         the host.  A one-block mesh takes the host path, as in the
         reference.
     """
+    if mesh is not None:
+        from .mesh import not_on_ranks
+        not_on_ranks(mesh, "neighbor_csr(mesh=)'s overlap route")
     m = h.m
     empty = NeighborCSR(np.zeros(max(m, 0) + 1, np.int64),
                         np.empty(0, np.int64), np.empty(0, np.int64))

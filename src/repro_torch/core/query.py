@@ -29,6 +29,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .hlindex import HLIndex
+from .mesh import not_on_ranks
 
 __all__ = ["mr_query", "s_reach_query", "mr_query_dicts", "DeviceSnapshot",
            "KernelSnapshot", "PaddedIndex", "batched_mr", "searchsorted_join"]
@@ -204,7 +205,9 @@ class DeviceSnapshot:
         ``base`` must not be used afterwards — and otherwise into a clone
         of them, because snapshots are immutable.  On a geometry change
         it re-lands whole; answers are identical either way.
+        A ``ProcessMesh`` raises ``NotImplementedError`` (ROADMAP A10d).
         """
+        not_on_ranks(mesh, "DeviceSnapshot.to_mesh")
         if axes is None:
             axes = tuple(mesh.axis_names[-2:])
         if len(axes) < 2:

@@ -94,6 +94,7 @@ import numpy as np
 import torch
 
 from ..core.engine import SnapshotUnsupported, WorkloadUnsupported
+from ..core.mesh import not_on_ranks
 from ..core.query import KernelSnapshot
 from ..device import DeviceLike
 from ..kernels.build import load_library
@@ -337,6 +338,15 @@ def _bucket_size(q: int, min_bucket: int, max_batch: int) -> int:
     return max(min(max(b, min_bucket), max_batch), q)
 
 
+def refuse_ranks(engine, mesh) -> None:
+    """Mesh serving and replicas have no route on a ``ProcessMesh`` yet:
+    a service on one, or over an engine built on one, raises
+    ``NotImplementedError`` (ROADMAP A10d)."""
+    not_on_ranks(mesh, "mesh serving (ReachabilityService, ReplicaGroup)")
+    not_on_ranks(getattr(engine, "mesh", None),
+                 "serving an engine built on ranks")
+
+
 class ReachabilityService:
     """Request-based serving over any ``ReachabilityEngine``.
 
@@ -386,6 +396,7 @@ class ReachabilityService:
                      if v is not None}
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
+        refuse_ranks(engine, mesh)
         if cfg.replicas > 1 and not self._replica_aware:
             raise ValueError(
                 f"ServiceConfig(replicas={cfg.replicas}) needs replica "

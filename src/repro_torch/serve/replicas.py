@@ -55,7 +55,7 @@ import numpy as np
 from ..core.engine import SnapshotUnsupported
 from ..core.mesh import default_line_graph_mesh
 from ..core.query import DeviceSnapshot, KernelSnapshot
-from .reach_service import ReachabilityService, ServiceConfig
+from .reach_service import ReachabilityService, ServiceConfig, refuse_ranks
 
 __all__ = ["Replica", "ReplicaGroup"]
 
@@ -87,6 +87,7 @@ class ReplicaGroup(ReachabilityService):
     def __init__(self, engine, n_replicas: Optional[int] = None, *,
                  config: Optional[ServiceConfig] = None, mesh=None,
                  start: bool = True, **overrides):
+        refuse_ranks(engine, mesh)
         cfg = config if config is not None else ServiceConfig()
         if n_replicas is not None:
             cfg = dataclasses.replace(cfg, replicas=int(n_replicas))

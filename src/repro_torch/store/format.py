@@ -51,7 +51,7 @@ import torch
 from ..core.engine import ClosureEngine, HLIndexBasicEngine, HLIndexEngine
 from ..core.hlindex import HLIndex, build_basic, build_fast, build_sharded
 from ..core.hypergraph import Hypergraph, NeighborCSR
-from ..core.mesh import LogicalMesh
+from ..core.mesh import LogicalMesh, not_on_ranks
 from ..core.minimal import minimize
 from ..core.query import DeviceSnapshot
 from ..device import DeviceLike, host_to_device, resolve_device
@@ -303,6 +303,7 @@ def save_index(path, engine, *, neighbors: Optional[NeighborCSR] = None) -> Dict
         meta["engine_opts"] = {"method": engine._method}
         segments.append(("w_star", np.asarray(engine.w_star)))
     else:                                              # sharded
+        not_on_ranks(engine.mesh, "the store's sharded payloads")
         meta["engine_opts"] = {
             "schedule": engine.schedule, "axes": list(engine.axes),
             "rounds": engine.rounds, "workers": engine._workers,
@@ -452,7 +453,9 @@ def load_index(path, *, device: DeviceLike = None, mesh=None,
     ``mesh`` (a ``LogicalMesh``) is where a ``sharded`` checkpoint's
     structures land, re-padded for its grid; without one they land on
     ``default_line_graph_mesh`` of ``device``.  With a mesh and no
-    ``device``, the mesh's device is taken."""
+    ``device``, the mesh's device is taken.  A ``ProcessMesh`` raises
+    ``NotImplementedError`` (ROADMAP A10d)."""
+    not_on_ranks(mesh, "the store's sharded payloads")
     if device is None and isinstance(mesh, LogicalMesh):
         device = mesh.device
     dev = resolve_device(device)

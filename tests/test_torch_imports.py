@@ -60,7 +60,7 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.configs.whisper_large_v3",
         "repro_torch.convert",
         "repro_torch.core", "repro_torch.core.baselines",
-        "repro_torch.core.distributed",
+        "repro_torch.core.collectives", "repro_torch.core.distributed",
         "repro_torch.core.engine", "repro_torch.core.frontier",
         "repro_torch.core.hlindex",
         "repro_torch.core.hypergraph", "repro_torch.core.maintenance",
@@ -137,6 +137,7 @@ def test_import_drags_in_neither_jax_nor_the_reference(import_report, module):
                                     "repro_torch.core.frontier",
                                     "repro_torch.core.baselines",
                                     "repro_torch.core.mesh",
+                                    "repro_torch.core.collectives",
                                     "repro_torch.core.distributed",
                                     "repro_torch.workloads",
                                     "repro_torch.workloads.base",
