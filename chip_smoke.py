@@ -63,6 +63,19 @@ drives the port's two paths at full size through `repro_torch.api`:
   `compressed_allreduce` of a `qwen3-1.7b` layer's MLP gradient
   (bit-equal to the one-process version); then one rank runs the
   closure and a batch in a one-rank NCCL group;
+* the label regime, the overlap route and updates on real ranks, right
+  after: the same four gloo ranks on a 2 x 2 `ProcessMesh` build the
+  walmart-trips labels through `build_sharded` across the ranks (each
+  rank its shards, labels exchanged by one ragged all-gather; held to
+  the main path's by digest), keep a `to_mesh` block of the snapshot
+  each, answer 2^16 seeded pairs by gathering the query rows across the
+  ranks and joining them through `label_join` (held to the plain join
+  on a whole snapshot), take an update over fresh vertices and answer
+  again; form primary-school's neighbor index by the rank overlap route
+  (one `overlap_rows` launch a rank, its rows of W, equal to the host
+  pass); and churn ENG-s's closure regime through scoped updates that
+  grow the slot padding, each W* block held to a logical engine's;
+  `overlap_rows` is held to its plain version and timed alone first;
 * the benchmark suite and the examples (`repro_torch.benchmarks`,
   `repro_torch.examples`), last: every script through its `main` at its
   `--quick` sizes (its JSON into `build/bench_torch/`), the four examples,
@@ -113,7 +126,7 @@ memory, spills, warnings), then one JSON object per line: `env` (with the
 SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `main_path`, `service_path`, `workloads_path`, `store_path`, `wide_labels`,
 `closure_path`, `closure_path_kernels`, `sharded_path`, `rank_path`,
-`closure_small`,
+`rank_label_path`, `closure_small`,
 `backends_path`, `bench_path`, `dryrun_path` (after one line per cell
 from the dry-run itself), `lm_serve_path`, `lm_train_path`,
 `lm_dryrun_path` (after one line per cell from the LM dry-run)
@@ -180,7 +193,8 @@ from repro_torch.benchmarks.datasets import dataset_params  # noqa: E402
 from repro_torch.benchmarks.roofline import (  # noqa: E402
     BF16_TENSOR_OPS_PER_S, HBM_BYTES_PER_S, INT8_TENSOR_OPS_PER_S, RATES,
     bf16_ceiling_ms, fill_rates, label_join_bound, label_join_gather_bound,
-    maxmin_bound, overlap_bound, sweep_bound_bytes, threshold_bound)
+    maxmin_bound, overlap_bound, overlap_rows_bound, sweep_bound_bytes,
+    threshold_bound)
 
 LABEL_JOIN_CORPUS = [          # (q, l, seed): the reference's adversarial shapes
     (5, 7, 0), (130, 33, 1), (1, 1, 2), (64, 300, 3), (31, 129, 4),
@@ -236,7 +250,10 @@ FRONTIER_PAIRS = 1024
 ETE_PAIRS = 2**16
 # Base* (online) costs seconds per query at email-Eu's degree; the pairs
 # are chosen so that frontier's answers on them span its distinct values
-ONLINE_PAIRS = 4
+# (its lowest and highest: cut from 4 to 2 pairs to keep the script in its
+# time; each pair costs two Base* queries of about 3 s and an ete witness
+# of up to 13 s)
+ONLINE_PAIRS = 2
 # the workload families on the main path's engine (workloads_path): top_s
 # of 64 seeded sources (k = 10); 16 mr_set of |U| = |V| = 256 (65,536
 # pairs); 16 mr_from_set of |U| = 64 to 4,096 targets; 8 witnesses on
@@ -284,6 +301,12 @@ RANK_WORLD, RANK_GRID = 4, (2, 2)
 RANK_PAIRS = 4096
 RANK_THRESHOLD_ROUNDS = 2
 RANK_TIMEOUT_S = 300
+# rank_label_path: the same four ranks and grid; 2^16 seeded pairs on
+# 89k/70k through the label blocks; the churn on ENG-s inserts over fresh
+# vertices (each a component of its own: a scoped update), two of them
+# past the free slots, then deletes one and reuses its slot
+RANK_LABEL_PAIRS = 2**16
+RANK_LABEL_TIMEOUT_S = 300
 
 # bench_path: the four examples, then at the published sizes exp1's Min-*
 # rows on 4,096 pairs and a 2^20 label_join_gather batch on 89k/70k, and
@@ -2679,7 +2702,8 @@ class ExchangeClock:
         self.reset()
         for name, received in (("gather_over", self._gathered),
                                ("shift_over", self._whole),
-                               ("max_over", self._whole)):
+                               ("max_over", self._whole),
+                               ("min_over", self._whole)):
             setattr(coll, name, self._timed(getattr(coll, name), received))
 
     def reset(self):
@@ -2913,13 +2937,14 @@ def rank_rounds(m):
     return default_rounds(-(-m // lcm) * lcm)
 
 
-def run_ranks(work, spec):
-    """``RANK_WORLD`` spawned ranks of ``rank_worker``; fails as soon as
-    one exits with an error, or when the limit passes, and kills the
-    others either way.  Returns their reports."""
+def run_ranks(work, spec, worker=None):
+    """``RANK_WORLD`` spawned ranks of ``worker`` (``rank_worker`` by
+    default); fails as soon as one exits with an error, or when the limit
+    passes, and kills the others either way.  Returns their reports."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=rank_worker, name=f"rank{r}",
+    target = worker or rank_worker
+    procs = [ctx.Process(target=target, name=f"rank{r}",
                          args=(r, RANK_WORLD, work, spec))
              for r in range(RANK_WORLD)]
     for p in procs:
@@ -2929,12 +2954,12 @@ def run_ranks(work, spec):
         while True:
             codes = [p.exitcode for p in procs]
             if any(c not in (None, 0) for c in codes):
-                raise AssertionError(f"rank_path: a rank failed, exit codes "
-                                     f"{codes}")
+                raise AssertionError(f"{target.__name__}: a rank failed, "
+                                     f"exit codes {codes}")
             if all(c == 0 for c in codes):
                 break
             if time.monotonic() > deadline:
-                raise AssertionError(f"rank_path: ranks not done in "
+                raise AssertionError(f"{target.__name__}: ranks not done in "
                                      f"{spec['timeout']} s ({codes})")
             time.sleep(0.2)
     finally:
@@ -3062,6 +3087,405 @@ def phase_rank_path(api, dist, counters, inputs, device):
     out["seconds"] = clock.seconds()
     emit(out)
     return total, errs
+
+
+# -- the label regime, the overlap route and updates on ranks ----------------
+
+
+def index_digest(idx):
+    """SHA-256 of an ``HLIndex``: rank, perm, and every label and dual
+    field as its row lengths and the concatenation of its rows."""
+    import hashlib
+    d = hashlib.sha256()
+    d.update(np.ascontiguousarray(idx.rank).tobytes())
+    d.update(np.ascontiguousarray(idx.perm).tobytes())
+    for f in ("labels_edge", "labels_rank", "labels_s", "dual_u", "dual_s"):
+        rows = getattr(idx, f)
+        d.update(np.fromiter((x.size for x in rows), np.int64,
+                             len(rows)).tobytes())
+        flat = np.concatenate(rows) if len(rows) else np.empty(0, np.int64)
+        d.update(str(flat.dtype).encode() + flat.tobytes())
+    return d.hexdigest()
+
+
+class CallClock:
+    """Host seconds of every call of ``module.name`` (wrapped in place)."""
+
+    def __init__(self, module, name):
+        self.seconds, self.calls = 0.0, 0
+        fn = getattr(module, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        setattr(module, name, timed)
+
+
+def full_snapshot_join(api, idx, us, vs, device):
+    """The plain join (``batched_mr``, 4,096 pairs a call) on the whole
+    label snapshot of ``idx`` on ``device``: what every rank's block
+    answers must equal."""
+    full = api.DeviceSnapshot.from_hlindex(idx, "sharded", device=device)
+    bu = torch.from_numpy(np.asarray(us, np.int64)).to(device)
+    bv = torch.from_numpy(np.asarray(vs, np.int64)).to(device)
+    return torch.cat([full.mr(bu[i:i + 4096], bv[i:i + 4096])
+                      for i in range(0, bu.numel(), 4096)])
+
+
+def rank_label_batch(tag, eng, api, lj, clock, us, vs, device):
+    """One ``mr_batch`` on the label blocks: its seconds, the row
+    assembly's exchange, the launches, held to the plain join on the
+    rank's whole snapshot."""
+    clock.reset()
+    joins, gathers = lj.LAUNCHES, lj.GATHER_LAUNCHES
+    got, seconds = timed_s(lambda: eng.mr_batch(us, vs))
+    part = {"pairs": int(got.size), "seconds": seconds,
+            "exchange_seconds": clock.seconds,
+            "exchange_calls": clock.calls, "exchange_bytes": clock.bytes,
+            "label_join_launches": (lj.LAUNCHES - joins)
+            - (lj.GATHER_LAUNCHES - gathers),
+            "label_join_gather_launches": lj.GATHER_LAUNCHES - gathers,
+            "share_nonzero": float((got > 0).mean())}
+    part["max_abs_err"] = check_equal(tag, torch.from_numpy(
+        got.astype(np.int32)).to(device),
+        full_snapshot_join(api, eng._idx, us, vs, device))
+    return got, part
+
+
+def rank_churn_script(h):
+    """ENG-s's churn: inserts over fresh vertices (one component each,
+    so each update re-closes a scope of one or two hyperedges), the first
+    two past the free slots, then a delete and an insert into its slot."""
+    n, m = h.n, h.m
+    return [("insert", [[n, n + 1, n + 2]], []),
+            ("insert two", [[n + 3, n + 4], [n + 5, n + 6, n + 7]], []),
+            ("delete", [], [m]),
+            ("insert into the freed slot", [[n + 8, n + 9]], [])]
+
+
+def rank_label_worker(rank, world, work, spec):
+    """One rank of ``rank_label_path`` (a spawned process).  On a 2 x 2
+    ``ProcessMesh``: the label regime of ``sharded`` on 89k/70k
+    (``build_sharded`` across the ranks, labels held to ``main_path``'s
+    by digest; the block snapshot; ``RANK_LABEL_PAIRS`` pairs through the
+    row assembly and ``label_join``; one update over fresh vertices, then
+    the pairs again); ``neighbor_csr`` on primary-school by the rank
+    overlap route (one ``overlap_rows`` launch a rank), equal to the host
+    pass; a closure-regime churn on ENG-s, each W* block held to a logical
+    engine's after the same edits.  Writes ``rank<r>.json``; rank 0 also
+    the first batch's gathered rows."""
+    import datetime
+    import torch.distributed as tdist
+    from repro_torch import api
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import hlindex as hl
+    from repro_torch.core.hypergraph import neighbor_csr
+    from repro_torch.kernels import label_join as lj
+    from repro_torch.kernels import maxmin_matmul as mm
+    from repro_torch.kernels import overlap as ov
+
+    device = torch.device(spec["device"])
+    on_card = device.type == "cuda"
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clock = ExchangeClock(coll, on_card)
+    shards = CallClock(hl, "_shard_worker")
+    neighbors = CallClock(dist, "neighbor_csr")
+    axes = ("data", "model")
+    out = {"rank": rank}
+    tdist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "init"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=spec["timeout"]))
+    try:
+        pm = api.make_process_mesh(RANK_GRID, axes,
+                                   device=None if on_card else "cpu")
+        out.update(coords=list(pm.coords), device=str(pm.device))
+
+        # 1. the label regime on 89k/70k
+        g = spec["main_graph"]
+        h, graph_s = timed_s(lambda: api.random_hypergraph(
+            g["n"], g["m"], min_size=g["min_size"], max_size=g["max_size"],
+            seed=g["seed"]))
+        clock.reset()
+        eng, build_s = timed_s(lambda: api.build_engine(
+            h, "sharded", mesh=pm, build_labels=True, use_kernels=True))
+        stats = eng._idx.stats
+        out["build"] = {
+            "graph_seconds": graph_s, "seconds": build_s,
+            "neighbor_seconds": neighbors.seconds,
+            "shard_seconds": shards.seconds, "shards_run": shards.calls,
+            "exchange_seconds": clock.seconds,
+            "exchange_calls": clock.calls, "exchange_bytes": clock.bytes,
+            # the importance order, shard plan, subgraphs and the merge
+            "rest_seconds": build_s - neighbors.seconds - shards.seconds
+            - clock.seconds,
+            "shards": stats["shards"], "components": stats["components"],
+            "pool_fallback": stats["pool_fallback"],
+            "labels_equal_main_path":
+                index_digest(eng._idx) == spec["main_digest"]}
+        clock.reset()
+        snap, snap_s = timed_s(eng.snapshot)
+        out["snapshot"] = {
+            "seconds": snap_s, "block_shape": list(snap.ranks.shape),
+            "whole_shape": list(snap.whole_shape),
+            "rank_bytes": snap.rank_nbytes(), "whole_bytes": snap.nbytes(),
+            "exchange_calls": clock.calls}
+        rng = np.random.default_rng(71)
+        us, vs = inside_pairs(rng, h, RANK_LABEL_PAIRS)
+        got, out["batch"] = rank_label_batch(f"rank {rank} label batch",
+                                             eng, api, lj, clock, us, vs,
+                                             device)
+        np.save(os.path.join(work, f"answers{rank}.npy"), got)
+        # the rows the batch joined, and the rows entry against its plain
+        # version on them (all ranks take part in the row assembly)
+        bu = torch.from_numpy(us).to(device)
+        bv = torch.from_numpy(vs).to(device)
+        rows = snap.gather_query_rows(bu, bv)
+        out["batch"]["rows_max_abs_err"] = check_equal(
+            f"rank {rank} label_join rows", lj.label_join(*rows),
+            lj.label_join_ref(*rows))
+        if rank == 0:
+            np.savez(os.path.join(work, "rows.npz"),
+                     **{k: t.cpu().numpy() for k, t in zip(
+                         ("ru", "su", "rv", "sv"), rows)})
+        del rows, bu, bv, snap
+
+        # one update over fresh vertices, then the pairs again (two of
+        # them on the new hyperedge)
+        fresh = [h.n, h.n + 1, h.n + 2]
+        clock.reset()
+        _, update_s = timed_s(lambda: eng.update(inserts=[fresh]))
+        dirty = eng.dirty_rows()
+        snap, snap_s = timed_s(eng.snapshot)
+        us2 = np.concatenate([us, [fresh[0], fresh[1]]])
+        vs2 = np.concatenate([vs, [fresh[2], 0]])
+        got2, batch = rank_label_batch(f"rank {rank} label batch after the "
+                                       f"update", eng, api, lj, clock,
+                                       us2, vs2, device)
+        if got2[-2] != len(fresh) or not np.array_equal(got2[:-2], got):
+            raise AssertionError(f"rank {rank}: answers after the update "
+                                 f"{got2[-2:]}")
+        out["update"] = {
+            "seconds": update_s, "exchange_calls_update": clock.calls,
+            "dirty_rows": None if dirty is None else int(dirty.size),
+            "refresh_rows": eng.last_snapshot_refresh_rows,
+            "snapshot_seconds": snap_s,
+            "whole_shape": list(snap.whole_shape),
+            "block_shape": list(snap.ranks.shape), "batch": batch}
+        del eng, snap
+
+        # 2. the rank overlap route on primary-school
+        c = spec["closure_graph"]
+        hp = api.random_hypergraph(c["n"], c["m"], min_size=c["min_size"],
+                                   max_size=c["max_size"], seed=c["seed"])
+        before = ov.ROWS_LAUNCHES
+        clock.reset()
+        nbr, nbr_s = timed_s(lambda: neighbor_csr(hp, mesh=pm))
+        host, host_s = timed_s(lambda: neighbor_csr(hp))
+        equal = all(getattr(nbr, f).dtype == getattr(host, f).dtype
+                    and getattr(nbr, f).tobytes() == getattr(host, f).tobytes()
+                    for f in ("ptr", "idx", "od"))
+        if not equal:
+            raise AssertionError(f"rank {rank}: neighbor_csr on ranks != "
+                                 f"the host pass")
+        out["overlap_route"] = {
+            "seconds": nbr_s, "host_seconds": host_s,
+            "overlap_rows_launches": ov.ROWS_LAUNCHES - before,
+            "exchange_seconds": clock.seconds,
+            "exchange_bytes": clock.bytes, "entries": int(nbr.idx.size),
+            "rows": -(-hp.m // world), "equal_to_host": equal}
+        del nbr, host
+
+        # 3. closure-regime churn on ENG-s, blocks held to a logical engine
+        e = spec["small_graph"]
+        hs = api.random_hypergraph(e["n"], e["m"], min_size=e["min_size"],
+                                   max_size=e["max_size"], seed=e["seed"])
+        before = mm.LAUNCHES
+        eng = api.build_engine(hs, "sharded", mesh=pm, use_kernels=True)
+        build_launches = mm.LAUNCHES - before
+        m_padded_built = eng._m_padded
+        logical = api.build_engine(hs, "sharded", mesh=api.make_mesh(
+            RANK_GRID, axes, device=device), use_kernels=True)
+        steps = []
+        for name, ins, dels in rank_churn_script(hs):
+            clock.reset()
+            before = mm.LAUNCHES
+            _, upd_s = timed_s(lambda: eng.update(inserts=ins,
+                                                  deletes=dels))
+            launches = mm.LAUNCHES - before
+            step = {"name": name, "seconds": upd_s, "m": eng.h.m,
+                    "m_padded": eng._m_padded,
+                    "block_shape": list(eng._w_star.shape),
+                    "regrid_bytes": eng.last_regrid_bytes,
+                    "exchange_bytes": clock.bytes,
+                    "maxmin_matmul_launches": launches}
+            logical.update(inserts=ins, deletes=dels)
+            step["max_abs_err"] = check_equal(
+                f"rank {rank} churn {name}", eng._w_star,
+                dist.block_of(logical._w_star, pm, axes))
+            steps.append(step)
+        us3, vs3 = np.divmod(np.arange(eng.h.n ** 2), eng.h.n)
+        joins = lj.GATHER_LAUNCHES
+        got3 = eng.mr_batch(us3, vs3)
+        joins = lj.GATHER_LAUNCHES - joins
+        if not np.array_equal(got3, logical.mr_batch(us3, vs3)):
+            raise AssertionError(f"rank {rank}: churned answers != the "
+                                 f"logical engine's")
+        out["churn"] = {"build_maxmin_matmul_launches": build_launches,
+                        "m_padded_built": m_padded_built, "steps": steps, "pairs": int(got3.size),
+                        "label_join_gather_launches": joins}
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def overlap_rows_checks(ov, api, device):
+    """``overlap_rows`` against its plain version (tolerance 0): row
+    blocks of the closure corpus' incidences and a rank's rows of
+    primary-school's, ``[3,176, 242] x [12,704, 242]`` in bf16, timed
+    there beside its bound and ``torch.matmul``.  Returns (max abs err,
+    the kernel row)."""
+    err, cases = 0, []
+    for m, n, seed in OVERLAP_CORPUS + OVERLAP_EXTRA[:2]:
+        rng = np.random.default_rng(seed)
+        b = torch.from_numpy((rng.random((m, n)) < 0.3).astype(
+            np.float32)).to(device)
+        for lo, hi in ((0, m), (m // 3, m // 3 + 1), (m // 2, m)):
+            a = b[lo:hi].contiguous()
+            want = ov.overlap_rows_ref(a, b)
+            for pa, pb in ((a, b), (a.to(torch.bfloat16),
+                                    b.to(torch.bfloat16))):
+                before = ov.ROWS_LAUNCHES
+                got = ov.overlap_rows(pa, pb)
+                launched = ov.ROWS_LAUNCHES - before
+                if launched != (1 if a.numel() and b.numel() else 0):
+                    raise AssertionError(f"overlap_rows [{hi - lo}, {n}] x "
+                                         f"[{m}, {n}]: {launched} launches")
+                err = max(err, check_equal(
+                    f"overlap_rows [{hi - lo},{n}]x[{m},{n}] {pa.dtype}",
+                    got, want))
+        cases.append([m, n])
+    c = CLOSURE_GRAPH
+    h = api.random_hypergraph(c["n"], c["m"], min_size=c["min_size"],
+                              max_size=c["max_size"], seed=c["seed"])
+    rows = -(-h.m // RANK_WORLD)
+    b_inc = torch.from_numpy(h.to_incidence(np.float32)).to(device)
+    b16 = b_inc.to(torch.bfloat16)
+    a16, a32 = b16[:rows].contiguous(), b_inc[:rows].contiguous()
+    err = max(err, check_equal("overlap_rows at a rank's rows",
+                               ov.overlap_rows(a16, b16),
+                               ov.overlap_rows_ref(a32, b_inc)))
+    row = {"shape": [rows, h.m, h.n], "dtype": "bfloat16",
+           "corpus": cases, "max_abs_err": err,
+           **dense_times(lambda: ov.overlap_rows(a16, b16),
+                         lambda: ov.overlap_rows_ref(a32, b_inc),
+                         lambda: torch.matmul(a16, b16.T),
+                         overlap_rows_bound(rows, h.m, h.n, 2), 20, 20,
+                         library_f32=lambda: torch.matmul(a32, b_inc.T))}
+    row["kernel_ms_includes"] = "pad_columns of both operands, kernel"
+    return err, row
+
+
+def phase_rank_label_path(api, counters, main_digest, device):
+    """The label regime, the rank overlap route and updates on real ranks:
+    ``RANK_WORLD`` gloo processes share the card on a 2 x 2
+    ``ProcessMesh`` (``rank_label_worker``).  First ``overlap_rows`` is
+    held to its plain version and timed here, alone on the card; then
+    the ranks run; then ``label_join`` is timed on the rows the first
+    batch gathered.  ``main_digest`` is ``main_path``'s labels' digest:
+    every rank's sharded build must reach it.  Returns (launches per
+    kernel, max abs err per kernel, kernel rows)."""
+    lj, ov = counters["label_join"], counters["overlap"]
+    clock = Phase()
+    out = {"phase": "rank_label_path", "world": RANK_WORLD,
+           "backend": "gloo", "grid": list(RANK_GRID)}
+    rows_err, rows_row = overlap_rows_checks(ov, api, device)
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_rank_labels_")
+    try:
+        spec = {"device": device.type, "timeout": RANK_LABEL_TIMEOUT_S,
+                "main_graph": MAIN_GRAPH, "closure_graph": CLOSURE_GRAPH,
+                "small_graph": SMALL_GRAPH, "main_digest": main_digest}
+        reports, ranks_s = timed_s(lambda: run_ranks(work, spec,
+                                                     rank_label_worker))
+        answers = [np.load(os.path.join(work, f"answers{r}.npy"))
+                   for r in range(RANK_WORLD)]
+        rows = {k: torch.from_numpy(v).to(device) for k, v in
+                np.load(os.path.join(work, "rows.npz")).items()}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    total = {"label_join": 0, "label_join_gather": 0, "overlap_rows": 0,
+             "maxmin_matmul": 0}
+    errs = {"label_join": 0, "label_join_gather": 0, "overlap_rows":
+            rows_err, "maxmin_matmul": 0}
+    for rep in reports:
+        r = rep["rank"]
+        if not rep["build"]["labels_equal_main_path"]:
+            raise AssertionError(f"rank_label_path rank {r}: labels != "
+                                 f"main_path's")
+        if rep["build"]["pool_fallback"] != 0:
+            raise AssertionError(f"rank_label_path rank {r}: pool_fallback")
+        if not np.array_equal(answers[r], answers[0]):
+            raise AssertionError(f"rank_label_path rank {r}: answers differ")
+        for part in (rep["batch"], rep["update"]["batch"]):
+            expect_counts(f"rank_label_path rank {r} batch",
+                          {"label_join": part["label_join_launches"],
+                           "label_join_gather":
+                               part["label_join_gather_launches"]},
+                          {"label_join": 1})
+            total["label_join"] += part["label_join_launches"]
+            errs["label_join"] = max(errs["label_join"],
+                                     part["max_abs_err"])
+        errs["label_join"] = max(errs["label_join"],
+                                 rep["batch"]["rows_max_abs_err"])
+        route = rep["overlap_route"]
+        expect_counts(f"rank_label_path rank {r} overlap route",
+                      {"overlap_rows": route["overlap_rows_launches"]},
+                      {"overlap_rows": 1})
+        total["overlap_rows"] += route["overlap_rows_launches"]
+        churn = rep["churn"]
+        total["maxmin_matmul"] += churn["build_maxmin_matmul_launches"] + \
+            sum(s["maxmin_matmul_launches"] for s in churn["steps"])
+        total["label_join"] += churn["label_join_gather_launches"]
+        total["label_join_gather"] += churn["label_join_gather_launches"]
+        if churn["label_join_gather_launches"] != 1:
+            raise AssertionError(f"rank_label_path rank {r}: churn batch "
+                                 f"{churn}")
+        if churn["steps"][-1]["m_padded"] <= churn["m_padded_built"]:
+            raise AssertionError(f"rank_label_path rank {r}: the slot "
+                                 f"padding never grew")
+        errs["maxmin_matmul"] = max(errs["maxmin_matmul"], *(
+            s["max_abs_err"] for s in churn["steps"]))
+    q, l = rows["ru"].shape
+    bound_ms, bound_by = label_join_bound(rows["su"], q, l)
+    join = (rows["ru"], rows["su"], rows["rv"], rows["sv"])
+    errs["label_join"] = max(errs["label_join"], check_equal(
+        "rank_label_path label_join rows", lj.label_join(*join),
+        lj.label_join_ref(*join)))
+    join_row = {"shape": [q, l], "route": "lane groups",
+                "ms": cuda_ms_queued(lambda: lj.label_join(*join), reps=50),
+                "plain_ms": cuda_ms(lambda: lj.label_join_ref(*join),
+                                    reps=5, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+    del rows, join
+    out.update(ranks_seconds=ranks_s, ranks=reports, launches=total,
+               max_abs_err=errs,
+               kernels={"overlap_rows": rows_row,
+                        "label_join rank rows": join_row},
+               answers_equal_across_ranks=True)
+    out["seconds"] = clock.seconds()
+    emit(out)
+    return total, errs, {"overlap_rows": rows_row,
+                         "label_join": join_row}
 
 
 # -- the index-free and baseline backends ------------------------------------
@@ -5244,6 +5668,8 @@ def main() -> int:
     main = {"h": main_h, "idx": main_eng.idx, "pairs": sharded_pairs,
             "answers": main_eng.mr_batch(*sharded_pairs),
             "build_seconds": main_build_s}
+    # rank_label_path's ranks must reach these labels
+    main_digest = index_digest(main_eng.idx)
     service_launches, service_dense = phase_service_path(
         api, engine_mod, serve_mod, query_mod, ops, counters, main_eng,
         device)
@@ -5264,6 +5690,8 @@ def main() -> int:
     rank_launches, rank_errs = phase_rank_path(api, dist, counters,
                                                rank_inputs, device)
     del rank_inputs
+    rank_label_launches, rank_label_errs, rank_label_rows = \
+        phase_rank_label_path(api, counters, main_digest, device)
     phase_closure_small(api, ops, counters, device)
     backends_launches, ete_kernel, ete_workload_launches = \
         phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
@@ -5288,6 +5716,7 @@ def main() -> int:
                      + workload_launches + store_launches["label_join"]
                      + sharded_launches["label_join"]
                      + rank_launches.get("label_join", 0)
+                     + rank_label_launches["label_join"]
                      + bench_launches["label_join"]),
         "launches_by_path": {"main_path": launches,
                              "service_path": service_launches,
@@ -5296,16 +5725,22 @@ def main() -> int:
                              "store_path": store_launches["label_join"],
                              "sharded_path": sharded_launches["label_join"],
                              "rank_path": rank_launches.get("label_join", 0),
+                             "rank_label_path": rank_label_launches[
+                                 "label_join"],
                              "bench_path": bench_launches["label_join"]},
         "max_abs_err": max(err_checks, err_main,
                            store_errs["label_join_gather"],
                            sharded_errs["label_join_gather"],
-                           rank_errs["label_join_gather"]),
+                           rank_errs["label_join_gather"],
+                           rank_label_errs["label_join"],
+                           rank_label_errs["label_join_gather"]),
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,    # no single PyTorch call computes this join
         "torch_ops_ms": times["torch_ops_ms"], "shape": times["shape"],
         "launches_include": "both entry points (one kernel body)",
+        # the rows entry at the rows a rank assembles (rank_label_path)
+        "rank_rows_shape": rank_label_rows["label_join"],
     }, {
         "name": "label_join_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/label_join.cu",
@@ -5315,6 +5750,7 @@ def main() -> int:
                      + store_launches["label_join_gather"]
                      + sharded_launches["label_join_gather"]
                      + rank_launches.get("label_join_gather", 0)
+                     + rank_label_launches["label_join_gather"]
                      + bench_launches["label_join_gather"]),
         "launches_by_path": {"main_path": gather_launches,
                              "service_path": service_launches,
@@ -5326,6 +5762,8 @@ def main() -> int:
                                  "label_join_gather"],
                              "rank_path": rank_launches.get(
                                  "label_join_gather", 0),
+                             "rank_label_path": rank_label_launches[
+                                 "label_join_gather"],
                              "bench_path": bench_launches[
                                  "label_join_gather"]},
         "max_abs_err": max(gather_err_checks, gather_err_main,
@@ -5361,17 +5799,21 @@ def main() -> int:
             "launches": (dense_launches[name] + service_dense[name]
                          + store_launches[name] + sharded_launches[name]
                          + rank_launches.get(name, 0)
+                         + rank_label_launches.get(name, 0)
                          + bench_launches[name] + dryrun_launches[name]),
             "launches_by_path": {"closure_path": dense_launches[name],
                                  "service_path": service_dense[name],
                                  "store_path": store_launches[name],
                                  "sharded_path": sharded_launches[name],
                                  "rank_path": rank_launches.get(name, 0),
+                                 "rank_label_path":
+                                     rank_label_launches.get(name, 0),
                                  "bench_path": bench_launches[name],
                                  "dryrun_path": dryrun_launches[name]},
             "max_abs_err": max(dense_errs[name], row["max_abs_err"],
                                store_errs.get(name, 0),
                                sharded_errs[name], rank_errs.get(name, 0),
+                               rank_label_errs.get(name, 0),
                                dryrun_errs[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -5387,6 +5829,21 @@ def main() -> int:
             kernels[-1].update(dtype=row["dtype"],
                                library_f32_ms=row["library_f32_ms"],
                                padded_launches=dense_pads[name])
+    rows_row = rank_label_rows["overlap_rows"]
+    kernels.append({
+        "name": "overlap_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/overlap.cu",
+        # a second entry of the overlap kernel: W's rows a rank owns; the
+        # reference computes them as a sharded x @ x.T in XLA
+        # (src/repro/core/hypergraph.py:285)
+        "replaces": "src/repro/kernels/overlap.py:47",
+        "launches": rank_label_launches["overlap_rows"],
+        "launches_by_path": {"rank_label_path":
+                                 rank_label_launches["overlap_rows"]},
+        "max_abs_err": rank_label_errs["overlap_rows"],
+        **{k: rows_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "shape",
+                                    "dtype", "library_f32_ms")}})
     for k in kernels:
         if k["launches"] < 1 or k["max_abs_err"] != 0:
             raise AssertionError(f"kernel {k['name']}: {k['launches']} "

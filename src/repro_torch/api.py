@@ -117,9 +117,14 @@ A ``ProcessMesh`` puts each block on its own rank of a
     pm = make_process_mesh((2, 2), ("data", "model"))
     eng = build_engine(h, backend="sharded", mesh=pm, use_kernels=True)
     eng.mr_batch(us, vs)             # the same answers on every rank
+    eng = build_engine(h, "sharded", mesh=pm, build_labels=True)
+    eng = build_engine(h, "hl-index", mesh=pm)   # build_sharded on the ranks
+    eng.update(inserts=[[0, 1]])     # the same edits on every rank
 
-Only the closure regime runs on ranks; the label regime, updates,
-``to_mesh``, mesh serving and the store raise ``NotImplementedError``.
+Both regimes of ``sharded``, ``hl-index`` / ``hl-index-basic``,
+``build_sharded``, ``neighbor_csr(mesh=)`` and ``DeviceSnapshot.to_mesh``
+run on ranks; mesh serving, replicas, the store and a write-ahead log
+raise ``NotImplementedError`` there.
 """
 from __future__ import annotations
 

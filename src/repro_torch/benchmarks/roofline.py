@@ -80,9 +80,10 @@ __all__ = ["HBM_BYTES_PER_S", "INT8_TENSOR_OPS_PER_S",
            "H100_MAX_SM_CLOCK_MHZ", "RATES", "int32_minmax_rate",
            "minmax_rate", "fill_rates", "bound", "label_join_bound",
            "label_join_gather_bound", "maxmin_bound", "overlap_bound",
-           "threshold_bound", "bf16_ceiling_ms", "sweep_bound_bytes",
-           "analytic_cell_model", "roofline_row", "roofline_table",
-           "format_table", "PEAK_FLOPS", "HBM_BW", "LINK_BW"]
+           "overlap_rows_bound", "threshold_bound", "bf16_ceiling_ms",
+           "sweep_bound_bytes", "analytic_cell_model", "roofline_row",
+           "roofline_table", "format_table", "PEAK_FLOPS", "HBM_BW",
+           "LINK_BW"]
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (NVIDIA data sheet)
 INT8_TENSOR_OPS_PER_S = 1.979e15
@@ -179,6 +180,14 @@ def overlap_bound(m, n, in_bytes):
     int8 tensor-core rate (the narrowest type that holds a 0/1 product
     exactly)."""
     return bound(in_bytes * m * n + 4 * m * m, 2 * m * m * n,
+                 INT8_TENSOR_OPS_PER_S)
+
+
+def overlap_rows_bound(ma, mb, n, in_bytes):
+    """Least ms for W = A·Bᵀ: A [ma, n] and B [mb, n] read once at
+    ``in_bytes`` a value, W [ma, mb] float32 written once; 2 operations
+    per multiply-add at the int8 tensor-core rate."""
+    return bound(in_bytes * (ma + mb) * n + 4 * ma * mb, 2 * ma * mb * n,
                  INT8_TENSOR_OPS_PER_S)
 
 

@@ -48,11 +48,12 @@ row axis, or (``ring``) passes the column panel around the row axis; the
 threshold closure gathers 0/1 panels and max-reduces over ``pod``.  Each
 rank passes the full host ``w``, lands only its own block, and gets its
 own block of the padded result back (``gather_blocks`` assembles the
-whole on every rank, for checks).  The ``sharded`` engine's closure
-regime builds and serves on ranks: each keeps its W* block and derives
-the replicated snapshot with one max-reduce and one all-gather.  The
-label regime, updates, ``to_mesh`` and the store raise
-``NotImplementedError`` there (ROADMAP A10d).
+whole on every rank, for checks).  The ``sharded`` engine builds, serves
+and updates on ranks in both regimes: the closure regime keeps a W*
+block a rank and derives the replicated snapshot with one max-reduce and
+one all-gather; the label regime builds through ``build_sharded`` on the
+ranks and serves off ``to_mesh``'s blocks.  The store, serving and
+replicas raise ``NotImplementedError`` there (ROADMAP A10d).
 
 The reference's ``collective_bytes_of`` parses the XLA HLO text of a
 lowered program; the port lowers nothing to HLO, so that helper has no
@@ -78,14 +79,14 @@ from .hlindex import (HLIndex, auto_device_overlaps, build_sharded,
 from .hypergraph import (NeighborCSR, apply_edge_edits,
                          induced_subhypergraph, neighbor_csr)
 from .maintenance import apply_updates, component_of
-from .mesh import (LogicalMesh, ProcessMesh, default_line_graph_mesh,
-                   not_on_ranks)
+from .mesh import LogicalMesh, ProcessMesh, default_line_graph_mesh
 from .minimal import minimize
 from .query import DeviceSnapshot, mr_query, s_reach_query
 
 __all__ = [
     "pad_for_mesh", "sharded_maxmin_round", "sharded_maxmin_closure",
     "sharded_threshold_closure_mr", "block_of", "gather_blocks",
+    "regrid_block",
     "default_line_graph_mesh", "ShardedEngine",
 ]
 
@@ -252,8 +253,9 @@ def block_of(w, mesh: ProcessMesh,
 def gather_blocks(block: torch.Tensor, mesh: ProcessMesh,
                   axes: Tuple[str, str] = ("data", "model")) -> torch.Tensor:
     """The padded [mp, mp] whole of every rank's ``block``, on every rank:
-    an all-gather over the column axis, then over the row axis.  For
-    tests and checks only: it lands the whole W* on each rank."""
+    an all-gather over the column axis, then over the row axis.  It
+    lands the whole on each rank: for checks, and for an update's
+    scope-sized sub-closure, never for the resident W*."""
     row = coll.all_gather_panel(block, mesh, axes[1], dim=block.dim() - 1)
     return coll.all_gather_panel(row, mesh, axes[0], dim=block.dim() - 2)
 
@@ -420,19 +422,78 @@ def _round_up(x: int, k: int) -> int:
     return -(-x // k) * k
 
 
-def _closure_patcher(w: torch.Tensor, freed: torch.Tensor,
-                     slots: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
+def _closure_patcher(w: torch.Tensor, r0: int, c0: int,
+                     freed: torch.Tensor, slots: torch.Tensor,
+                     sub: torch.Tensor) -> torch.Tensor:
     """Patch the resident W* in place: zero the freed slots' rows and
-    columns, then scatter the re-closed scope block at its slots.  W* is
-    the engine's own tensor (no snapshot shares it), so no second
-    [mp, mp] copy is made — the reference donates its buffer for the
-    same reason."""
+    columns, then scatter the re-closed scope block at its slots.  ``w``
+    is the block of W* whose first row and column are slots ``r0`` and
+    ``c0`` (the whole W*, at 0 and 0, off ranks); only the slots that
+    fall in its rows and columns are written.  W* is the engine's own
+    tensor (no snapshot shares it), so no second copy is made — the
+    reference donates its buffer for the same reason."""
+    br, bc = w.shape
     if freed.numel():
-        w.index_fill_(0, freed, 0)
-        w.index_fill_(1, freed, 0)
+        w.index_fill_(0, freed[(freed >= r0) & (freed < r0 + br)] - r0, 0)
+        w.index_fill_(1, freed[(freed >= c0) & (freed < c0 + bc)] - c0, 0)
     if slots.numel():
-        w[slots[:, None], slots[None, :]] = sub.to(w.dtype)
+        rm = (slots >= r0) & (slots < r0 + br)
+        cm = (slots >= c0) & (slots < c0 + bc)
+        w[(slots[rm] - r0)[:, None], (slots[cm] - c0)[None, :]] = \
+            sub[rm][:, cm].to(w.dtype)
     return w
+
+
+def regrid_block(block: torch.Tensor, mesh: ProcessMesh, mp_new: int,
+                 axes: Tuple[str, str] = ("data", "model")
+                 ) -> Tuple[torch.Tensor, int]:
+    """This rank's block of the padded W* grown from ``mp`` to ``mp_new``
+    slots (zero beyond ``mp``), from ``block``, its block under ``mp``.
+    Each rank sends every other rank the part of its block that falls in
+    that rank's new block and receives the parts of its own the same way
+    (one ``coll.exchange_pieces``), so no rank holds more than its old
+    block, its new one and the parts in flight.  Returns the new block
+    and the bytes this rank received."""
+    r, c = mesh.shape[axes[0]], mesh.shape[axes[1]]
+    br, bc = block.shape
+    nbr, nbc = mp_new // r, mp_new // c
+    i, j = mesh.axis_index(axes[0]), mesh.axis_index(axes[1])
+    ki, kj = mesh.axis_names.index(axes[0]), mesh.axis_names.index(axes[1])
+
+    def span(lo_a, n_a, lo_b, n_b):
+        lo, hi = max(lo_a, lo_b), min(lo_a + n_a, lo_b + n_b)
+        return (lo, hi) if lo < hi else None
+
+    out = block.new_zeros((nbr, nbc))
+    sends, wanted = {}, {}
+    coords = list(mesh.coords)
+    for pi in range(r):
+        for pj in range(c):
+            coords[ki], coords[kj] = pi, pj
+            peer = int(np.ravel_multi_index(coords, mesh.dims))
+            # this rank's old block in the peer's new block
+            rs = span(i * br, br, pi * nbr, nbr)
+            cs = span(j * bc, bc, pj * nbc, nbc)
+            if rs and cs:
+                piece = block[rs[0] - i * br:rs[1] - i * br,
+                              cs[0] - j * bc:cs[1] - j * bc]
+                if peer == mesh.rank:
+                    out[rs[0] - i * nbr:rs[1] - i * nbr,
+                        cs[0] - j * nbc:cs[1] - j * nbc] = piece
+                else:
+                    sends[peer] = piece
+            # the peer's old block in this rank's new block
+            rs = span(pi * br, br, i * nbr, nbr)
+            cs = span(pj * bc, bc, j * nbc, nbc)
+            if rs and cs and peer != mesh.rank:
+                wanted[peer] = (rs, cs)
+    got = coll.exchange_pieces(
+        sends, {p: (rs[1] - rs[0], cs[1] - cs[0])
+                for p, (rs, cs) in wanted.items()}, block, mesh)
+    for p, (rs, cs) in wanted.items():
+        out[rs[0] - i * nbr:rs[1] - i * nbr,
+            cs[0] - j * nbc:cs[1] - j * nbc] = got[p]
+    return out, sum(t.numel() * t.element_size() for t in got.values())
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -456,12 +517,16 @@ class ShardedEngine(_EngineBase):
 
     Mesh handling: ``mesh=None`` builds ``default_line_graph_mesh`` on
     ``device``; a logical grid of any shape runs on one device.  On a
-    ``ProcessMesh`` (closure regime only) every rank builds from the same
-    ``h`` and keeps only its W* block ([mp/r, mp/c], ``rank_nbytes``);
-    the snapshot is derived by a max over the rows each rank holds, a
+    ``ProcessMesh`` every rank builds, queries and updates with the same
+    arguments (SPMD; ``rank_mesh`` is the mesh).  In the closure regime a
+    rank keeps only its W* block ([mp/r, mp/c], ``rank_nbytes``); the
+    snapshot is derived by a max over the rows each rank holds, a
     max-reduce over the row axis and an all-gather over the column axis,
     so every rank holds the same replicated snapshot and answers every
-    query.  The label regime and updates raise there (ROADMAP A10d).
+    query.  In the label regime every rank holds the whole ``HLIndex``
+    (``build_sharded`` across the ranks) and only its block of the
+    snapshot (``to_mesh``); a batch gathers its query rows across the
+    ranks.
 
     ``build_labels=True`` switches the backend from the closure regime to
     the **label regime**: build runs sharded HL-index construction
@@ -484,7 +549,19 @@ class ShardedEngine(_EngineBase):
       scoped even after ``snapshot()`` dropped W*.
     * label regime — ``apply_updates`` with the engine's persistent
       ``NeighborCSR`` (1-hop patched per edit) and ``build_sharded`` as
-      the scope builder.
+      the scope builder.  Its ``functools.partial`` binds no mesh, as the
+      reference's does, so on ranks every rank rebuilds the scope itself,
+      alike; each then patches the dirty rows of its snapshot block.
+
+    On ranks the closure regime closes the scope's sub-line-graph with
+    ``sharded_maxmin_closure`` on the same ranks and gathers it
+    (``gather_blocks``: scope-sized, and the snapshot row patch needs its
+    rows anyway); each rank scatters into its W* block only the entries
+    whose slots fall in its rows and columns.  Growing the slot padding
+    moves the block grid: each rank receives from the others only the
+    parts of their old blocks that fall in its new one (``regrid_block``;
+    ``last_regrid_bytes``: the bytes this rank received for it in the
+    last update, 0 where the padding did not grow).
 
     Both paths report true ``refreshed_vertices`` through the dirty-rows
     contract, so ``ReplicaGroup`` fan-out patches rows instead of
@@ -507,6 +584,9 @@ class ShardedEngine(_EngineBase):
                  neighbors: Optional[NeighborCSR] = None):
         super().__init__(h)
         self.mesh = mesh
+        if isinstance(mesh, ProcessMesh):
+            self.rank_mesh = mesh
+        self.last_regrid_bytes = 0
         self.device = mesh.device
         self.axes = axes
         self.schedule = schedule
@@ -594,8 +674,6 @@ class ShardedEngine(_EngineBase):
                 f"block-shard over; got axis names {mesh.axis_names}")
         axes = tuple(axes)
         if build_labels:
-            not_on_ranks(mesh, "the label regime of the sharded backend "
-                               "(build_labels=True)")
             minimizer = minimize if minimize_labels else None
             # the neighbor index is computed here (same host/mesh route
             # build_sharded would pick) and kept on the engine: scoped
@@ -615,10 +693,6 @@ class ShardedEngine(_EngineBase):
         eng = cls(h, mesh, axes, schedule, w_star, m_true, rounds)
         eng.use_kernels = bool(use_kernels)
         return eng
-
-    def update(self, inserts=(), deletes=()) -> None:
-        not_on_ranks(self.mesh, "update of the sharded backend")
-        super().update(inserts, deletes)
 
     def _apply_update(self, inserts=(), deletes=()) -> None:
         """Scoped maintenance on the same mesh (capability "scoped"):
@@ -647,6 +721,7 @@ class ShardedEngine(_EngineBase):
                                         else report.refreshed_vertices))
 
     def _apply_closure_update(self, inserts, deletes) -> None:
+        self.last_regrid_bytes = 0
         old_h = self.h
         new_h, old_to_new, touched = apply_edge_edits(old_h, inserts,
                                                       deletes)
@@ -660,7 +735,9 @@ class ShardedEngine(_EngineBase):
             self._w_star, self._m_true = self._closure_of(
                 new_h, self.mesh, self.axes, self.schedule, self.rounds,
                 self.use_kernels)
-            self._m_padded = int(self._w_star.shape[0])
+            self._m_padded = int(self._w_star.shape[0]) * (
+                self.mesh.shape[self.axes[0]] if self.rank_mesh is not None
+                else 1)
             self._slot_of = np.arange(new_h.m, dtype=np.int64)
             self._pending_rows = None
             self._graph_changed(new_h)
@@ -696,10 +773,15 @@ class ShardedEngine(_EngineBase):
         # the full closure restricted to the scope.
         if scope.size:
             sub_h, sub_verts = induced_subhypergraph(new_h, scope)
+            on_ranks = self.rank_mesh is not None
             closed = sharded_maxmin_closure(
                 sub_h.line_graph(np.int32).astype(np.float32), self.mesh,
                 rounds=self.rounds, schedule=self.schedule,
-                axes=self.axes, trim=True, use_kernels=self.use_kernels)
+                axes=self.axes, trim=not on_ranks,
+                use_kernels=self.use_kernels)
+            if on_ranks:
+                closed = gather_blocks(closed, self.mesh, self.axes)[
+                    :scope.size, :scope.size]
         else:
             sub_h, sub_verts = None, np.empty(0, np.int64)
             closed = torch.zeros((0, 0), dtype=torch.float32,
@@ -713,9 +795,15 @@ class ShardedEngine(_EngineBase):
         # complete delta.
         if self._w_star is not None and (freed.size or scope.size):
             dev = self.device
-            self._w_star = _closure_patcher(
-                self._w_star, torch.from_numpy(freed).to(dev),
-                torch.from_numpy(scope_slots).to(dev), closed)
+            freed_t = torch.from_numpy(freed).to(dev)
+            slots_t = torch.from_numpy(scope_slots).to(dev)
+            r0 = c0 = 0
+            if self.rank_mesh is not None:
+                br, bc = self._w_star.shape
+                r0 = self.mesh.axis_index(self.axes[0]) * br
+                c0 = self.mesh.axis_index(self.axes[1]) * bc
+            self._w_star = _closure_patcher(self._w_star, r0, c0, freed_t,
+                                            slots_t, closed)
 
         # -- stage the snapshot row patch: dirty vertices are exactly
         # the scope's vertices plus those of deleted hyperedges (which
@@ -749,11 +837,18 @@ class ShardedEngine(_EngineBase):
 
     def _grow_w_padding(self, mp_new: int) -> None:
         """Grow the padded slot space to ``mp_new`` (zero padding is the
-        (max,min) annihilator, so growth never changes an answer)."""
+        (max,min) annihilator, so growth never changes an answer).  On
+        ranks the block grid moves with it: this rank's new block is
+        assembled from the parts of the old blocks
+        that fall in it (``regrid_block``)."""
         if self._w_star is not None:
             pad = mp_new - self._m_padded
-            self._w_star = torch.nn.functional.pad(self._w_star,
-                                                   (0, pad, 0, pad))
+            if self.rank_mesh is None:
+                self._w_star = torch.nn.functional.pad(self._w_star,
+                                                       (0, pad, 0, pad))
+            else:
+                self._w_star, self.last_regrid_bytes = regrid_block(
+                    self._w_star, self.mesh, mp_new, self.axes)
         self._m_padded = mp_new
 
     def _merge_pending(self, dirty: np.ndarray, rows: np.ndarray,
@@ -862,22 +957,54 @@ class ShardedEngine(_EngineBase):
                                 dirty) -> DeviceSnapshot:
         idx = self._idx
         dirty = np.asarray(dirty, np.int64)
-        basis_len = basis.lengths.cpu().numpy()
+        basis_max = (basis.lengths.max() if basis.lengths.numel()
+                     else torch.zeros((), dtype=torch.int32,
+                                      device=basis.device))
+        if basis.block:      # lengths are split over the row axis
+            basis_max = coll.all_reduce_max(basis_max.reshape(1),
+                                            self.mesh, self.axes[0])
         dirty_len = [idx.labels_s[int(u)].size for u in dirty]
-        lmax = int(max(int(basis_len.max()) if basis_len.size else 0,
-                       max(dirty_len, default=0)))
+        lmax = int(max(int(basis_max.max()), max(dirty_len, default=0)))
+        n_eff = max(basis.global_shape[0], self.h.n)
+        if (basis.block and basis.padded_geometry(n_eff, lmax)
+                != basis.padded_shape):
+            # the block grid moves: rows this rank would own live on
+            # others, so its block is re-landed from the whole labels
+            return self._label_blocks(n_eff, lmax)
         row_ranks, row_svals, row_lengths = pad_label_rows(
             [idx.labels_rank[int(u)] for u in dirty],
             [idx.labels_s[int(u)] for u in dirty], pad_to=lmax)
-        n_eff = max(int(basis.ranks.shape[0]), self.h.n)
         return basis.patch_rows(dirty, row_ranks, row_svals, row_lengths,
                                 n=n_eff, lmax=lmax, version=self.version,
                                 backend=self.name)
+
+    def _label_blocks(self, n: Optional[int] = None,
+                      lmax: Optional[int] = None) -> DeviceSnapshot:
+        """The label snapshot on a ``ProcessMesh``: padded on the host
+        (to ``n`` rows and ``lmax`` columns where given, the shape a
+        patch would have reached) and only this rank's block landed (the
+        whole never reaches the card)."""
+        ranks, svals, lengths = self._idx.as_padded(pad_to=lmax)
+        if n is not None and n > ranks.shape[0]:
+            extra = n - ranks.shape[0]
+            ranks = np.pad(ranks, ((0, extra), (0, 0)),
+                           constant_values=np.iinfo(np.int32).max)
+            svals = np.pad(svals, ((0, extra), (0, 0)))
+            lengths = np.pad(lengths, (0, extra))
+        snap = DeviceSnapshot.from_padded(ranks, svals, lengths, self.name,
+                                          version=self.version, device="cpu")
+        blocks = snap.to_mesh(self.mesh, self.axes)
+        if n is not None:
+            # a patch's whole keeps its own shape, as the reference's
+            blocks.whole_shape = tuple(int(x) for x in ranks.shape)
+        return blocks
 
     def _build_snapshot(self) -> DeviceSnapshot:
         h, mesh, dev = self.h, self.mesh, self.device
         row_ax, _ = self.axes
         if self._idx is not None:
+            if self.rank_mesh is not None and h.n and self._idx.num_labels:
+                return self._label_blocks()
             snap = DeviceSnapshot.from_hlindex(self._idx, self.name,
                                                version=self.version,
                                                device=dev)
@@ -953,11 +1080,14 @@ class ShardedEngine(_EngineBase):
 
     def rank_nbytes(self) -> int:
         """This process's share of ``nbytes()``: its W* block and the
-        snapshot it holds (on a ``LogicalMesh``, all of ``nbytes()``)."""
+        snapshot it holds, a label snapshot's block or the replicated
+        closure snapshot (on a ``LogicalMesh``, all of ``nbytes()``)."""
         if not isinstance(self.mesh, ProcessMesh):
             return self.nbytes()
         total = self.nbytes()
         if self._w_star is not None:
             total += (self._w_star.numel() * self._w_star.element_size()
                       - self._m_padded * self._m_padded * 4)
+        if self._snap is not None:
+            total += self._snap.rank_nbytes() - self._snap.nbytes()
         return total

@@ -68,6 +68,7 @@ device->host copy of the ``[Q]`` answers, and no other synchronisation.
 from __future__ import annotations
 
 import functools
+import operator
 import os
 import time
 from typing import (Callable, Dict, FrozenSet, List, Optional, Protocol,
@@ -78,7 +79,7 @@ import torch
 
 from ..device import DeviceLike, host_to_device, resolve_device
 from .hypergraph import Hypergraph, apply_edge_edits
-from .mesh import LogicalMesh, ProcessMesh
+from .mesh import LogicalMesh, ProcessMesh, not_on_ranks
 from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
                       build_sharded, pad_label_rows)
 from .maintenance import apply_updates, normalize_update_batch
@@ -225,6 +226,35 @@ class ReachabilityEngine(Protocol):
     def s_distance(self, u: int, v: int, s: int) -> int: ...
 
 
+def _agreed_edits(mesh: ProcessMesh, inserts, deletes):
+    """``(inserts, deletes)`` read into lists, once every rank of ``mesh``
+    is seen to have passed the same ones (one ragged all-gather of a
+    digest); raises ``ValueError`` on every rank otherwise.  A batch that
+    cannot be read still joins the check (as a digest of its error), so a
+    rank never leaves the others waiting, and raises after it."""
+    from .collectives import same_on_every_rank
+
+    def atom(x):
+        try:
+            return int(operator.index(x))
+        except TypeError:
+            return repr(x)
+    error = None
+    try:
+        inserts = [list(e) for e in inserts]
+        deletes = list(deletes)
+        key = repr(([[atom(x) for x in e] for e in inserts],
+                    [atom(x) for x in deletes]))
+    except Exception as exc:          # re-raised below, after the check
+        error, key = exc, f"unreadable: {type(exc).__name__}"
+    if not same_on_every_rank(mesh, key.encode()):
+        raise ValueError("update on ranks: the ranks passed different "
+                         "edits; no rank's state changed")
+    if error is not None:
+        raise error
+    return inserts, deletes
+
+
 class _EngineBase:
     """Default implementations: scalar fallbacks and mr-derived s-reach.
 
@@ -242,6 +272,9 @@ class _EngineBase:
     # BFS on an unbounded reachability answer (label join / closure
     # row); False where s_reach is itself a traversal
     _gate_hop_bounded = False
+    # the ProcessMesh an engine was built on (every rank holds one such
+    # engine and calls it with the same arguments); None elsewhere
+    rank_mesh: Optional[ProcessMesh] = None
 
     def __init__(self, h: Hypergraph):
         self.h = h
@@ -284,11 +317,20 @@ class _EngineBase:
         validate + canonicalize the batch, journal it (when a write-ahead
         sink is attached — *before* the in-memory structure changes),
         then hand the canonical batch to the backend's ``_apply_update``.
-        A batch that would be rejected is never journaled."""
+        A batch that would be rejected is never journaled.
+
+        On an engine built on ranks (``rank_mesh``, a ``ProcessMesh``)
+        every rank calls ``update`` with the same edits.  Before anything
+        changes, one ragged all-gather of a digest of the edits as passed
+        checks that they agree; if any rank's differ, every rank raises
+        ``ValueError`` and no rank's state changes."""
         if self.update_capability == "unsupported":
             raise UpdateUnsupported(
                 f"backend {self.name!r} does not maintain its structure "
                 f"under hyperedge updates; build a fresh engine instead")
+        if self.rank_mesh is not None:
+            inserts, deletes = _agreed_edits(self.rank_mesh, inserts,
+                                             deletes)
         ins, dels = normalize_update_batch(self.h, inserts, deletes)
         wal = self._wal
         if wal is not None:
@@ -309,7 +351,10 @@ class _EngineBase:
     def attach_wal(self, sink) -> None:
         """Journal every subsequent ``update`` through ``sink`` — any
         object with ``append(version, inserts, deletes)`` (called before
-        the apply) and ``committed(engine)`` (called after)."""
+        the apply) and ``committed(engine)`` (called after).  An engine
+        built on ranks raises ``NotImplementedError`` (ROADMAP A10d)."""
+        not_on_ranks(self.rank_mesh, "a write-ahead log attached to an "
+                                     "engine built on ranks")
         self._wal = sink
 
     def detach_wal(self):
@@ -662,9 +707,10 @@ def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
         ``sharded`` backend, which partitions its closure over it, and to
         the HL-index backends, where a multi-block mesh asks for sharded
         construction.  A restored ``sharded`` engine lands on it.  A
-        ``ProcessMesh`` puts the ``sharded`` closure regime on ranks
-        (every rank calls ``build`` with the same ``h``); the routes not
-        yet on ranks raise ``NotImplementedError``.
+        ``ProcessMesh`` puts ``sharded`` (both regimes) and the HL-index
+        backends' sharded construction on ranks (every rank calls
+        ``build`` with the same ``h``); restoring onto one raises
+        ``NotImplementedError``.
       device: where device-resident structures land.  ``None`` means the
         mesh's device when a mesh is given, else ``"cuda"``; on a host
         without a CUDA device that raises — pass ``device="cpu"`` (or a
@@ -785,6 +831,14 @@ class HLIndexEngine(_EngineBase):
 
         ``device`` is where the snapshot lands: ``None`` means ``"cuda"``
         and raises on a host without a CUDA device.
+
+        On a ``ProcessMesh`` (every rank calls ``build`` with the same
+        arguments) the sharded construction runs across the ranks and
+        every rank holds the whole ``HLIndex`` and its whole snapshot on
+        its device, as the reference's engine keeps a single-device
+        snapshot; ``rank_mesh`` records the mesh.  Scoped updates rebuild
+        the touched components on every rank alike (the builder binds no
+        mesh, as the reference's), after the ranks agree on the edits.
         """
         device = resolve_device(device)
         construction = _resolve_construction(construction, mesh, workers,
@@ -810,6 +864,8 @@ class HLIndexEngine(_EngineBase):
                   device=device)
         eng.construction = construction
         eng.use_kernels = bool(use_kernels)
+        if isinstance(mesh, ProcessMesh):
+            eng.rank_mesh = mesh
         return eng
 
     def mr(self, u: int, v: int) -> int:
@@ -919,6 +975,8 @@ class HLIndexBasicEngine(HLIndexEngine):
         eng = cls(h, idx, builder=builder, device=device)
         eng.construction = construction
         eng.use_kernels = bool(use_kernels)
+        if isinstance(mesh, ProcessMesh):
+            eng.rank_mesh = mesh
         return eng
 
 

@@ -32,7 +32,9 @@ stable tie-breaking).  Sharded construction (``build_sharded`` and its
 fork pool) runs on the host as in the reference; over a logical mesh
 (``core/mesh.py``) of more than one block it defaults its workers and
 shards from the block count and may form the neighbor overlaps with the
-``overlap`` kernel on the mesh's device (``neighbor_csr(h, mesh=)``).
+``overlap`` kernel on the mesh's device (``neighbor_csr(h, mesh=)``).  On
+a ``ProcessMesh`` the shards run on the ranks and cross in one ragged
+all-gather (``build_sharded``).
 """
 from __future__ import annotations
 
@@ -441,6 +443,112 @@ def _run_shard_pool(payloads, workers: int) -> Optional[List[HLIndex]]:
     return out
 
 
+# the shard stats the merge reads: summed, then the peak (max)
+_SHARD_COUNTERS = ("pops", "pushes", "neighbor_inits", "m_total_inserts",
+                   "cover_checks", "m_final_entries", "m_peak_entries")
+
+
+@dataclasses.dataclass
+class _ShardLabels:
+    """What the merge reads of one shard's sub-index, as it crossed
+    between ranks (an ``HLIndex`` answers the same attributes)."""
+    perm: np.ndarray
+    labels_edge: List[np.ndarray]
+    labels_s: List[np.ndarray]
+    dual_u: List[np.ndarray]
+    dual_s: List[np.ndarray]
+    stats: Dict[str, float]
+
+
+def _world_of(mesh) -> int:
+    """The world size of a ``ProcessMesh`` (1 for anything else)."""
+    from .mesh import ProcessMesh
+    return mesh.world_size if isinstance(mesh, ProcessMesh) else 1
+
+
+def _shard_vertices(h: Hypergraph, ids: np.ndarray) -> np.ndarray:
+    """The sorted vertices of hyperedges ``ids``: the ``verts`` of
+    ``induced_subhypergraph(h, ids)``, without building the subgraph."""
+    keep = np.zeros(h.m, bool)
+    keep[ids] = True
+    owner = np.repeat(np.arange(h.m), np.diff(h.e_ptr))
+    return np.unique(h.e_idx[keep[owner]])
+
+
+def _pack_shard(s: int, sub) -> np.ndarray:
+    """Shard ``s``'s sub-index as one flat int64 array: ``[s, n, m]``,
+    ``perm``, the label and dual row lengths, the four flat label / dual
+    arrays, then the counters' float64 bits."""
+    n, m = len(sub.labels_edge), len(sub.dual_u)
+
+    def flat(rows):
+        return (np.concatenate(rows).astype(np.int64, copy=False)
+                if rows else np.empty(0, np.int64))
+    counts = np.array([float(sub.stats.get(k, 0)) for k in _SHARD_COUNTERS],
+                      np.float64).view(np.int64)
+    return np.concatenate([
+        np.array([s, n, m], np.int64), np.asarray(sub.perm, np.int64),
+        np.fromiter((a.size for a in sub.labels_edge), np.int64, n),
+        np.fromiter((a.size for a in sub.dual_u), np.int64, m),
+        flat(sub.labels_edge), flat(sub.labels_s), flat(sub.dual_u),
+        flat(sub.dual_s), counts])
+
+
+def _unpack_shards(blob: np.ndarray):
+    """The ``(s, _ShardLabels)`` packed back to back in ``blob``."""
+    at = 0
+
+    def take(k):
+        nonlocal at
+        at += k
+        return blob[at - k:at]
+
+    def rows(lengths):
+        flat = take(int(lengths.sum()))
+        return np.split(flat, np.cumsum(lengths)[:-1]) if lengths.size else []
+    while at < blob.size:
+        s, n, m = (int(x) for x in take(3))
+        perm = take(m)
+        le_len, du_len = take(n), take(m)
+        labels_edge, labels_s = rows(le_len), rows(le_len)
+        dual_u, dual_s = rows(du_len), rows(du_len)
+        counts = take(len(_SHARD_COUNTERS)).view(np.float64)
+        yield s, _ShardLabels(perm, labels_edge, labels_s, dual_u, dual_s,
+                              dict(zip(_SHARD_COUNTERS, map(float,
+                                                            counts))))
+
+
+def _exchange_shards(mine: List[int], built: list, pool_fallback: bool,
+                     n_shards: int, mesh,
+                     error: Optional[BaseException] = None
+                     ) -> Tuple[list, bool]:
+    """Every rank's shards, in shard order, on every rank: this rank's
+    ``built`` sub-indexes (shards ``mine``) packed flat, one ragged
+    all-gather, every part unpacked (this rank's too, so every rank
+    merges the same arrays).  ``pool_fallback`` is true where any rank's
+    pool fell back.  A rank whose shards failed passes its ``error``
+    instead, and every rank raises after the exchange."""
+    import torch
+
+    from .collectives import exchange_device, gather_ragged_or_raise
+
+    blob = None
+    if error is None:
+        blob = torch.from_numpy(np.concatenate(
+            [np.array([int(pool_fallback)], np.int64)]
+            + [_pack_shard(s, sub) for s, sub in zip(mine, built)])).to(
+                exchange_device(mesh))
+    parts = gather_ragged_or_raise(blob, mesh, "build_sharded", error)
+    out: list = [None] * n_shards
+    fallback = False
+    for part in parts:
+        part = part.cpu().numpy()
+        fallback |= bool(part[0])
+        for s, labels in _unpack_shards(part[1:]):
+            out[s] = labels
+    return out, fallback
+
+
 def build_sharded(h: Hypergraph, *,
                   base: Callable[..., HLIndex] = build_fast,
                   minimizer: Optional[Callable[[HLIndex], HLIndex]] = None,
@@ -507,10 +615,18 @@ def build_sharded(h: Hypergraph, *,
     ``None`` offloads to the mesh only when ``auto_device_overlaps(h)``
     says so; ``True`` forces the mesh route (requires a multi-block
     ``mesh`` — raises otherwise), ``False`` forces the host pass.
+
+    On a ``ProcessMesh`` of more than one rank every rank calls this with
+    the same arguments (SPMD) and gets the same ``HLIndex``: the shard
+    plan is computed alike on every rank, shard ``s`` runs on rank
+    ``s % world`` (inline, or in that rank's own fork pool when
+    ``workers > 1`` and it holds more than one shard), the shards' labels,
+    duals and counters cross as flat int64 arrays in one
+    ``all_gather_ragged``, and every rank runs the merge below in shard
+    order.  A rank whose shards fail still joins that exchange, and every
+    rank then raises ``RuntimeError`` naming it.  The mesh overlap route
+    there is ``neighbor_csr``'s rank route.
     """
-    if mesh is not None:
-        from .mesh import not_on_ranks
-        not_on_ranks(mesh, "sharded HL-index construction (build_sharded)")
     devices = int(mesh.devices.size) if mesh is not None else 1
     if device_overlaps and devices <= 1:
         raise ValueError(
@@ -545,25 +661,40 @@ def build_sharded(h: Hypergraph, *,
 
     rank = h.importance_order()
     perm = np.argsort(rank)
-    payloads, metas = [], []
-    for ids in shards:
-        sub_h, verts = induced_subhypergraph(h, ids)
-        sub_nbr = nbr.induced(ids)      # raises unless neighbor-closed
-        payloads.append((sub_h, sub_nbr, base, minimizer))
-        metas.append((ids, verts))
-
-    sub_idxs = None
-    pool_fallback = False
-    if workers and int(workers) > 1 and len(payloads) > 1:
-        sub_idxs = _run_shard_pool(payloads, int(workers))
-        pool_fallback = sub_idxs is None
-        if pool_fallback:
-            warnings.warn(
-                "build_sharded: the shard worker pool made no progress "
-                "(or errored) and was terminated; rerunning shards "
-                "inline", RuntimeWarning, stacklevel=2)
-    if sub_idxs is None:
-        sub_idxs = [_shard_worker(p) for p in payloads]
+    # on ranks, shard s runs on rank s % world; every rank knows every
+    # shard's hyperedges and vertices, for the merge
+    on_ranks = _world_of(mesh) > 1
+    mine = (set(range(mesh.rank, len(shards), mesh.world_size))
+            if on_ranks else set(range(len(shards))))
+    metas = [(ids, _shard_vertices(h, ids)) if s not in mine else None
+             for s, ids in enumerate(shards)]
+    sub_idxs, pool_fallback, error = None, False, None
+    try:
+        payloads = []
+        for s in sorted(mine):
+            ids = shards[s]
+            sub_h, verts = induced_subhypergraph(h, ids)
+            sub_nbr = nbr.induced(ids)      # raises unless neighbor-closed
+            payloads.append((sub_h, sub_nbr, base, minimizer))
+            metas[s] = (ids, verts)
+        if workers and int(workers) > 1 and len(payloads) > 1:
+            sub_idxs = _run_shard_pool(payloads, int(workers))
+            pool_fallback = sub_idxs is None
+            if pool_fallback:
+                warnings.warn(
+                    "build_sharded: the shard worker pool made no "
+                    "progress (or errored) and was terminated; rerunning "
+                    "shards inline", RuntimeWarning, stacklevel=2)
+        if sub_idxs is None:
+            sub_idxs = [_shard_worker(p) for p in payloads]
+    except Exception as exc:
+        if not on_ranks:
+            raise
+        # the other ranks wait in the exchange: join it, then all raise
+        error = exc
+    if on_ranks:
+        sub_idxs, pool_fallback = _exchange_shards(
+            sorted(mine), sub_idxs, pool_fallback, len(shards), mesh, error)
 
     empty = np.empty(0, np.int64)
     le: List[np.ndarray] = [empty] * h.n
@@ -571,8 +702,7 @@ def build_sharded(h: Hypergraph, *,
     ls: List[np.ndarray] = [empty] * h.n
     du: List[np.ndarray] = [empty] * h.m
     ds: List[np.ndarray] = [empty] * h.m
-    counters = ("pops", "pushes", "neighbor_inits", "m_total_inserts",
-                "cover_checks", "m_final_entries")
+    counters = _SHARD_COUNTERS[:-1]
     stats: Dict[str, float] = {k: 0.0 for k in counters}
     stats["m_peak_entries"] = 0.0
     for (ids, verts), sub in zip(metas, sub_idxs):
@@ -584,13 +714,13 @@ def build_sharded(h: Hypergraph, *,
                 "sharded construction: a shard's local importance order "
                 "diverged from the global order — scope is not a union "
                 "of whole line-graph components")
-        for lu in range(sub.h.n):
+        for lu in range(len(sub.labels_edge)):
             gu = int(verts[lu])
             e = ids[sub.labels_edge[lu]]
             le[gu] = e
             lr[gu] = rank[e]
             ls[gu] = sub.labels_s[lu]
-        for lei in range(sub.h.m):
+        for lei in range(len(sub.dual_u)):
             ge = int(ids[lei])
             du[ge] = verts[sub.dual_u[lei]]
             ds[ge] = sub.dual_s[lei]

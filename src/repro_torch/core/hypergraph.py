@@ -312,6 +312,59 @@ def _mesh_overlap_matrix(h: Hypergraph, mesh) -> np.ndarray:
     return w.cpu().numpy().astype(np.int64)
 
 
+def _rank_neighbor_csr(h: Hypergraph, mesh) -> NeighborCSR:
+    """The mesh overlap route on a ``ProcessMesh``: the incidence rows
+    block-split over every rank (rank k holds rows [k·b, (k+1)·b) of the
+    rows padded to a multiple of the world size, as the reference's
+    sharding over every mesh axis), one ``overlap_rows`` product of this
+    rank's rows with the whole incidence (its plain version on the CPU),
+    the diagonal entries of its rows zeroed, and its rows' ``(col,
+    count)`` pairs extracted in row-major order.  One
+    ``all_gather_ragged`` of ``[row counts, cols, counts]`` gives every
+    rank the whole ``NeighborCSR``.  No rank holds more than its
+    ``[b, m]`` rows of W.  A rank whose rows fail (out of device memory)
+    still joins the exchange, and every rank raises."""
+    import torch
+
+    from ..kernels.overlap import overlap_rows
+    from .collectives import gather_ragged_or_raise
+
+    m, world, rank = h.m, mesh.world_size, mesh.rank
+    rows = -(-m // world)
+    lo, hi = min(rank * rows, m), min((rank + 1) * rows, m)
+    mine, error = None, None
+    try:
+        dev = mesh.device
+        b_dev = torch.from_numpy(h.to_incidence(np.float32)).to(dev)
+        if dev.type == "cuda":
+            b_dev = b_dev.to(torch.bfloat16)  # the kernel's type, exact
+        w = overlap_rows(b_dev[lo:hi].contiguous(), b_dev)
+        del b_dev
+        local = torch.arange(hi - lo, device=dev)
+        w[local, local + lo] = 0
+        nz = torch.nonzero(w)                 # row-major: ascending per row
+        od = w[nz[:, 0], nz[:, 1]].to(torch.int64)
+        counts = torch.bincount(nz[:, 0], minlength=hi - lo)
+        mine = torch.cat([counts, nz[:, 1], od])
+        del w, nz, od
+    except Exception as exc:
+        error = exc
+    parts = gather_ragged_or_raise(mine, mesh, "neighbor_csr", error)
+    row_counts, cols, ods = [], [], []
+    for k, part in enumerate(parts):
+        part = part.cpu().numpy()
+        nk = min((k + 1) * rows, m) - min(k * rows, m)
+        c = part[:nk]
+        total = int(c.sum())
+        row_counts.append(c)
+        cols.append(part[nk:nk + total])
+        ods.append(part[nk + total:nk + 2 * total])
+    ptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.concatenate(row_counts), out=ptr[1:])
+    return NeighborCSR(ptr, np.concatenate(cols).astype(np.int64),
+                       np.concatenate(ods).astype(np.int64))
+
+
 def neighbor_csr(h: Hypergraph, *, mesh=None) -> NeighborCSR:
     """All line-graph neighborhoods at once, as a shared ``NeighborCSR``.
 
@@ -328,17 +381,19 @@ def neighbor_csr(h: Hypergraph, *, mesh=None) -> NeighborCSR:
         run on the mesh's device (one ``overlap`` launch,
         ``_mesh_overlap_matrix``) and only the CSR extraction stays on
         the host.  A one-block mesh takes the host path, as in the
-        reference.
+        reference.  On a ``ProcessMesh`` of more than one rank each rank
+        computes only its rows' overlaps (``_rank_neighbor_csr``) and one
+        ragged all-gather assembles the same index on every rank.
     """
-    if mesh is not None:
-        from .mesh import not_on_ranks
-        not_on_ranks(mesh, "neighbor_csr(mesh=)'s overlap route")
     m = h.m
     empty = NeighborCSR(np.zeros(max(m, 0) + 1, np.int64),
                         np.empty(0, np.int64), np.empty(0, np.int64))
     if m == 0 or h.nnz == 0:
         return empty
     if mesh is not None and int(mesh.devices.size) > 1:
+        from .mesh import ProcessMesh
+        if isinstance(mesh, ProcessMesh):
+            return _rank_neighbor_csr(h, mesh)
         w = _mesh_overlap_matrix(h, mesh)
         np.fill_diagonal(w, 0)
         rows, cols = np.nonzero(w)            # row-major: ascending per row

@@ -31,7 +31,8 @@ the row-major coordinates ``coords`` of ``k`` (the order of the
 reference's ``mesh.devices``), one subgroup runs along each line of each
 axis, and ``core/collectives.py`` moves panels between the ranks of an
 axis.  It answers what a ``LogicalMesh`` answers, its ``devices`` holding
-each rank's device, and never equals one.
+each rank's device, and never equals one.  Every rank calls each route
+on it with the same arguments (SPMD) and gets the same answers.
 """
 from __future__ import annotations
 
@@ -250,5 +251,4 @@ def not_on_ranks(mesh, what: str) -> None:
     if isinstance(mesh, ProcessMesh):
         raise NotImplementedError(
             f"{what} does not run on a ProcessMesh yet (ROADMAP A10d); "
-            f"use a LogicalMesh, or the closure regime of the sharded "
-            f"backend on ranks")
+            f"use a LogicalMesh")

@@ -17,7 +17,11 @@ Counterpart of ``repro/core/query.py``, same names in the same order.
 (``core/mesh.py``): padded to the grid and recorded with its mesh, the
 form the ``sharded`` backend and mesh-resident serving hold.  The
 reference's jitted row scatter (``_mesh_row_scatter``) is an
-``index_copy`` here.
+``index_copy`` here.  On a ``ProcessMesh`` each rank keeps only its block
+of the padded tensors (``whole_shape`` set); a batch on such a snapshot
+gathers its query rows across the ranks, as the reference's
+``KernelSnapshot.mr`` gathers them off a sharded snapshot, and joins the
+``[Q, L]`` rows on every rank.
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from . import collectives as coll
 from .hlindex import HLIndex
-from .mesh import not_on_ranks
+from .mesh import ProcessMesh
 
 __all__ = ["mr_query", "s_reach_query", "mr_query_dicts", "DeviceSnapshot",
            "KernelSnapshot", "PaddedIndex", "batched_mr", "searchsorted_join"]
@@ -148,6 +153,16 @@ class DeviceSnapshot:
     assignment mutates, so the patch works on a clone), and
     ``to_mesh(base=..., dirty_rows=...)`` re-lands only those rows into a
     mesh-resident copy, in place only when the caller donates it.
+
+    ``whole_shape`` marks a snapshot landed on a ``ProcessMesh`` by
+    ``to_mesh`` (``block`` is then true): ``ranks`` / ``svals`` hold only
+    this rank's ``[n_pad/r, l_pad/c]`` block of the whole padded up to the
+    grid, ``lengths`` its ``[n_pad/r]`` rows, and ``whole_shape`` is the
+    whole's own ``(rows, label columns)``, the shape the reference's
+    sharded arrays report (``global_shape``, ``lmax``).  ``nbytes()``
+    counts that whole, as the reference counts a sharded array, and
+    ``rank_nbytes()`` the block.  Every rank calls ``mr`` / ``s_reach``
+    on such a snapshot with the same ids (SPMD).
     """
 
     ranks: torch.Tensor
@@ -157,6 +172,7 @@ class DeviceSnapshot:
     version: int = 0
     mesh: Optional[object] = None
     axes: Optional[Tuple[str, str]] = None
+    whole_shape: Optional[Tuple[int, int]] = None
 
     @classmethod
     def from_padded(cls, ranks, svals, lengths, backend: str,
@@ -205,9 +221,19 @@ class DeviceSnapshot:
         ``base`` must not be used afterwards — and otherwise into a clone
         of them, because snapshots are immutable.  On a geometry change
         it re-lands whole; answers are identical either way.
-        A ``ProcessMesh`` raises ``NotImplementedError`` (ROADMAP A10d).
+
+        On a ``ProcessMesh`` rank (i, j) keeps only its block: rows
+        ``[i·n_pad/r, (i+1)·n_pad/r)`` and label columns ``[j·l_pad/c,
+        (j+1)·l_pad/c)`` of the padded tensors, with the same sentinels,
+        in new tensors on ``mesh.device`` (``whole_shape`` is ``(n_pad,
+        l_pad)``, the reference's sharded shape).  With
+        ``base`` (an earlier block of the same padded geometry on the
+        same mesh) and ``dirty_rows``, only the dirty rows this rank owns
+        are copied, into a clone of ``base``'s block or, with
+        ``donate_base=True``, into ``base``'s own tensors.
         """
-        not_on_ranks(mesh, "DeviceSnapshot.to_mesh")
+        if self.block:
+            raise ValueError("to_mesh of a block: land the whole instead")
         if axes is None:
             axes = tuple(mesh.axis_names[-2:])
         if len(axes) < 2:
@@ -220,6 +246,9 @@ class DeviceSnapshot:
         n, lmax = self.ranks.shape
         n_pad = -(-n // r) * r if n else 0
         l_pad = -(-lmax // c) * c if lmax else 0
+        if isinstance(mesh, ProcessMesh):
+            return self._to_ranks(mesh, axes, n_pad, l_pad, base,
+                                  dirty_rows, donate_base)
         dev = mesh.device
         if (base is not None and dirty_rows is not None
                 and tuple(base.ranks.shape) == (n_pad, l_pad)):
@@ -251,6 +280,74 @@ class DeviceSnapshot:
                               backend=self.backend, version=self.version,
                               mesh=mesh, axes=axes)
 
+    def _to_ranks(self, mesh: ProcessMesh, axes: Tuple[str, str],
+                  n_pad: int, l_pad: int, base, dirty_rows,
+                  donate_base: bool) -> "DeviceSnapshot":
+        """``to_mesh`` on a ``ProcessMesh``: this rank's block."""
+        r, c = mesh.shape[axes[0]], mesh.shape[axes[1]]
+        br, bc = n_pad // r, l_pad // c
+        row0 = mesh.axis_index(axes[0]) * br
+        col0 = mesh.axis_index(axes[1]) * bc
+        n, lmax = self.ranks.shape
+        cols = slice(min(col0, lmax), min(col0 + bc, lmax))
+        width = cols.stop - cols.start
+        dev = mesh.device
+        if (base is not None and dirty_rows is not None and base.block
+                and base.mesh == mesh and tuple(base.axes) == axes
+                and base.padded_shape == (n_pad, l_pad)):
+            rows = _as_index(dirty_rows, self.device)
+            rows = rows[(rows >= row0) & (rows < row0 + br)]
+            pr = torch.full((rows.numel(), bc), _INT32_MAX,
+                            dtype=torch.int32, device=dev)
+            ps = torch.zeros((rows.numel(), bc), dtype=torch.int32,
+                             device=dev)
+            pr[:, :width] = self.ranks.index_select(0, rows)[:, cols].to(dev)
+            ps[:, :width] = self.svals.index_select(0, rows)[:, cols].to(dev)
+            pl = self.lengths.index_select(0, rows).to(dev)
+            local = (rows - row0).to(dev)
+            out = [base.ranks, base.svals, base.lengths]
+            if not donate_base:
+                out = [t.clone() for t in out]
+            for dst, src in zip(out, (pr, ps, pl)):
+                dst.index_copy_(0, local, src)
+            ranks, svals, lengths = out
+        else:
+            held = slice(min(row0, n), min(row0 + br, n))
+            ranks = torch.full((br, bc), _INT32_MAX, dtype=torch.int32,
+                               device=dev)
+            svals = torch.zeros((br, bc), dtype=torch.int32, device=dev)
+            lengths = torch.zeros((br,), dtype=torch.int32, device=dev)
+            k = held.stop - held.start
+            ranks[:k, :width] = self.ranks[held, cols]
+            svals[:k, :width] = self.svals[held, cols]
+            lengths[:k] = self.lengths[held]
+        return DeviceSnapshot(ranks=ranks, svals=svals, lengths=lengths,
+                              backend=self.backend, version=self.version,
+                              mesh=mesh, axes=axes,
+                              whole_shape=(n_pad, l_pad))
+
+    @property
+    def block(self) -> bool:
+        """True when this snapshot holds one rank's block of a whole."""
+        return self.whole_shape is not None
+
+    @property
+    def global_shape(self) -> Tuple[int, int]:
+        """``(rows, label columns)`` of the whole snapshot: the tensors'
+        own shape, or ``whole_shape`` on a block."""
+        if self.block:
+            return self.whole_shape
+        return tuple(int(x) for x in self.ranks.shape)
+
+    @property
+    def padded_shape(self) -> Tuple[int, int]:
+        """The whole padded up to the grid, which the blocks tile."""
+        rows, cols = (int(x) for x in self.ranks.shape)
+        if not self.block:
+            return rows, cols
+        return (rows * self.mesh.shape[self.axes[0]],
+                cols * self.mesh.shape[self.axes[1]])
+
     def patch_rows(self, rows, row_ranks, row_svals, row_lengths, *,
                    n: Optional[int] = None, lmax: Optional[int] = None,
                    version: Optional[int] = None,
@@ -270,7 +367,17 @@ class DeviceSnapshot:
         device without re-transfer, and this snapshot stays as it was.
         A snapshot on a mesh stays on it (``mesh`` / ``axes`` carry over),
         as the reference's sharded arrays keep their sharding.
+
+        On a block ``rows`` and ``n`` are global and the rows full width;
+        each rank copies in the dirty rows it owns, cut to its columns,
+        and ``whole_shape`` becomes ``(n, lmax)``.  ``n`` / ``lmax`` must
+        pad up to the block's own geometry: a change raises
+        ``ValueError`` (the rows a rank would own live on other ranks;
+        re-land with ``to_mesh``).
         """
+        if self.block:
+            return self._patch_block(rows, row_ranks, row_svals, row_lengths,
+                                     n, lmax, version, backend)
         ranks, svals, lengths = self.ranks, self.svals, self.lengths
         dev = ranks.device
         cur_n, cur_l = ranks.shape
@@ -300,22 +407,101 @@ class DeviceSnapshot:
             version=self.version if version is None else int(version),
             mesh=self.mesh, axes=self.axes)
 
+    def padded_geometry(self, n: int, lmax: int) -> Tuple[int, int]:
+        """``(n, lmax)`` rounded up to this block's grid."""
+        r = self.mesh.shape[self.axes[0]]
+        c = self.mesh.shape[self.axes[1]]
+        return (-(-n // r) * r, -(-lmax // c) * c)
+
+    def _patch_block(self, rows, row_ranks, row_svals, row_lengths, n,
+                     lmax, version, backend) -> "DeviceSnapshot":
+        n_all, l_all = self.global_shape
+        n = n_all if n is None else int(n)
+        lmax = l_all if lmax is None else int(lmax)
+        if self.padded_geometry(n, lmax) != self.padded_shape:
+            raise ValueError(
+                f"patch_rows on a block: ({n}, {lmax}) pads to "
+                f"{self.padded_geometry(n, lmax)}, not the block's "
+                f"{self.padded_shape}; re-land with to_mesh")
+        br, bc = (int(x) for x in self.ranks.shape)
+        row0 = self.mesh.axis_index(self.axes[0]) * br
+        col0 = self.mesh.axis_index(self.axes[1]) * bc
+        dev = self.device
+        rows = np.asarray(rows, np.int64).ravel()
+        own = np.nonzero((rows >= row0) & (rows < row0 + br))[0]
+        ranks, svals, lengths = self.ranks, self.svals, self.lengths
+        if own.size:
+            width = max(0, min(lmax, col0 + bc) - col0)
+            pr = np.full((own.size, bc), _INT32_MAX, np.int32)
+            ps = np.zeros((own.size, bc), np.int32)
+            pr[:, :width] = np.asarray(row_ranks)[own, col0:col0 + width]
+            ps[:, :width] = np.asarray(row_svals)[own, col0:col0 + width]
+            local = torch.from_numpy(rows[own] - row0).to(dev)
+            # index_copy is out of place: the old tensors are never written
+            ranks = ranks.index_copy(0, local, _land(pr, dev))
+            svals = svals.index_copy(0, local, _land(ps, dev))
+            lengths = lengths.index_copy(
+                0, local, _land(np.asarray(row_lengths)[own], dev))
+        return DeviceSnapshot(
+            ranks=ranks, svals=svals, lengths=lengths,
+            backend=self.backend if backend is None else backend,
+            version=self.version if version is None else int(version),
+            mesh=self.mesh, axes=self.axes, whole_shape=(n, lmax))
+
     @property
     def lmax(self) -> int:
-        return int(self.ranks.shape[1])
+        return self.global_shape[1]
 
     def nbytes(self) -> int:
+        """Bytes of the whole snapshot (of every block, on a block)."""
+        if not self.block:
+            return self.rank_nbytes()
+        n, lmax = self.global_shape
+        return 8 * n * lmax + 4 * n
+
+    def rank_nbytes(self) -> int:
+        """Bytes this process holds: the tensors themselves."""
         return int(sum(t.numel() * t.element_size()
                        for t in (self.ranks, self.svals, self.lengths)))
+
+    def gather_query_rows(self, us: torch.Tensor, vs: torch.Tensor):
+        """``(ru, su, rv, sv)``, the ``[Q, l_pad]`` label rows of ``us`` and
+        ``vs``, on every rank of a block snapshot: each rank writes the
+        rows it owns into sentinel-filled ``[2, Q, l_pad/c]`` buffers, one
+        min-reduce (ranks) and one max-reduce (svals) over the row axis
+        complete the column block (every row has one owner), and one
+        all-gather of each over the column axis completes the rows.  Ids
+        are validated first, on every rank, before any collective."""
+        n_all, _ = self.global_shape
+        ids = torch.stack([us, vs])
+        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= n_all):
+            raise IndexError(f"vertex ids must lie in [0, {n_all}), got "
+                             f"[{int(ids.min())}, {int(ids.max())}]")
+        br = int(self.ranks.shape[0])
+        row0 = self.mesh.axis_index(self.axes[0]) * br
+        own = ((ids >= row0) & (ids < row0 + br))[..., None]
+        local = (ids - row0).clamp_(0, max(br - 1, 0))
+        ranks = torch.where(own, self.ranks[local], _INT32_MAX)
+        svals = torch.where(own, self.svals[local], 0)
+        row_ax, col_ax = self.axes
+        ranks = coll.all_reduce_min(ranks, self.mesh, row_ax)
+        svals = coll.all_reduce_max(svals, self.mesh, row_ax)
+        ranks = coll.all_gather_panel(ranks, self.mesh, col_ax, dim=2)
+        svals = coll.all_gather_panel(svals, self.mesh, col_ax, dim=2)
+        return tuple(t.contiguous() for t in (ranks[0], svals[0], ranks[1],
+                                              svals[1]))
 
     def mr(self, us, vs) -> torch.Tensor:
         """[Q] int32 MR answers on the snapshot's device."""
         us = _as_index(us, self.device)
-        if self.lmax == 0:          # no labels anywhere: nothing is reachable
+        vs = _as_index(vs, self.device)
+        if self.lmax == 0 or (self.block and us.numel() == 0):
+            # no labels anywhere (or no query): nothing is reachable
             return torch.zeros(us.shape, dtype=torch.int32,
                                device=self.device)
-        return batched_mr(self.ranks, self.svals, us,
-                          _as_index(vs, self.device))
+        if self.block:
+            return searchsorted_join(*self.gather_query_rows(us, vs))
+        return batched_mr(self.ranks, self.svals, us, vs)
 
     def s_reach(self, us, vs, s: int) -> torch.Tensor:
         return self.mr(us, vs) >= s
@@ -343,6 +529,11 @@ class KernelSnapshot:
     block size.  A CUDA launch takes any ``Q`` and masks its own ragged
     edge, so this view pads neither: it launches once on exactly ``Q``
     id pairs.
+
+    On a block snapshot (``block`` true, a ``ProcessMesh``) the query
+    rows are gathered across the ranks first (``gather_query_rows``) and
+    joined by the kernel's rows entry (``label_join``), as the
+    reference's view gathers rows and joins them on one device.
 
     The wrapped ``base`` snapshot keeps its identity — patch plumbing
     (``patch_rows``) operates on the underlying ``DeviceSnapshot`` and the
@@ -383,10 +574,18 @@ class KernelSnapshot:
         return self.base.nbytes()
 
     def mr(self, us, vs) -> torch.Tensor:
-        dev = self.base.device
+        base = self.base
+        dev = base.device
         us = _as_index(us, dev).contiguous()
         vs = _as_index(vs, dev).contiguous()
-        return self._join(self.base.ranks, self.base.svals, us, vs)
+        if base.block:
+            # the reference's gather-then-join: [Q, L] rows assembled
+            # across the ranks, then the rows entry of the kernel
+            if base.lmax == 0 or us.numel() == 0:
+                return torch.zeros(us.shape, dtype=torch.int32, device=dev)
+            from ..kernels.label_join import label_join
+            return label_join(*base.gather_query_rows(us, vs))
+        return self._join(base.ranks, base.svals, us, vs)
 
     def s_reach(self, us, vs, s: int) -> torch.Tensor:
         return self.mr(us, vs) >= s

@@ -21,6 +21,15 @@
 // the float32 sums are exact integers below 2^24.  TMA needs n % 8 == 0
 // (16-byte rows); the wrapper pads other n with zero columns, which add
 // nothing to B * B^T.
+//
+// The rectangular entry overlap_rows_bf16_launch computes W = A * B^T for
+// two 0/1 operands A [ma, n] and B [mb, n]: the rows of W that one rank of
+// a process mesh owns (A its row block of the incidence, B the whole).  It
+// replaces no TPU kernel: the reference computes that product as a
+// sharded `x @ x.T` in XLA (src/repro/core/hypergraph.py:285-301); the
+// port runs it through the same tensor-core product as `overlap`, with A
+// and B encoded as two tensor maps instead of one.  Bound as above: the
+// [ma, mb] float32 rows written once.
 #include "tc_gemm.cuh"
 
 // Enqueue W = B * B^T on `stream`; return a CUDA error code (0 =
@@ -34,5 +43,20 @@ extern "C" int overlap_bf16_launch(const void* b, float* w, long long m, long lo
       !tc::encode(&rows_b, b, n, m, 1, tc::BK, tc::B_SHARE_ROWS))
     return static_cast<int>(cudaErrorInvalidValue);
   return tc::run<false, tc::Counts>(rows_a, rows_b, w, m, m, n, 1,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// Enqueue W = A * B^T on `stream`; return a CUDA error code (0 =
+// launched).  `a` is [ma, n] and `b` is [mb, n], both bf16 with n % 8 == 0
+// and 16-byte aligned; `w` is [ma, mb] float32 from the caller.
+extern "C" int overlap_rows_bf16_launch(const void* a, const void* b, float* w, long long ma,
+                                        long long mb, long long n, void* stream) {
+  if (ma <= 0 || mb <= 0 || n <= 0 || n % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap rows_a, rows_b;
+  if (!tc::encode(&rows_a, a, n, ma, 1, tc::BK, tc::BM) ||
+      !tc::encode(&rows_b, b, n, mb, 1, tc::BK, tc::B_SHARE_ROWS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc::run<false, tc::Counts>(rows_a, rows_b, w, ma, mb, n, 1,
                                     static_cast<cudaStream_t>(stream));
 }

@@ -343,7 +343,7 @@ def refuse_ranks(engine, mesh) -> None:
     a service on one, or over an engine built on one, raises
     ``NotImplementedError`` (ROADMAP A10d)."""
     not_on_ranks(mesh, "mesh serving (ReachabilityService, ReplicaGroup)")
-    not_on_ranks(getattr(engine, "mesh", None),
+    not_on_ranks(getattr(engine, "rank_mesh", None),
                  "serving an engine built on ranks")
 
 

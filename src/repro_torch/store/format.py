@@ -281,6 +281,8 @@ def save_index(path, engine, *, neighbors: Optional[NeighborCSR] = None) -> Dict
     ``StoreUnsupported`` — persisting them would persist nothing but the
     graph.
     """
+    not_on_ranks(getattr(engine, "rank_mesh", None),
+                 "the store (save_index) of an engine built on ranks")
     name = getattr(engine, "name", None)
     if name not in _STORABLE:
         raise StoreUnsupported(
@@ -303,7 +305,6 @@ def save_index(path, engine, *, neighbors: Optional[NeighborCSR] = None) -> Dict
         meta["engine_opts"] = {"method": engine._method}
         segments.append(("w_star", np.asarray(engine.w_star)))
     else:                                              # sharded
-        not_on_ranks(engine.mesh, "the store's sharded payloads")
         meta["engine_opts"] = {
             "schedule": engine.schedule, "axes": list(engine.axes),
             "rounds": engine.rounds, "workers": engine._workers,

@@ -36,6 +36,7 @@ import os
 import pathlib
 from typing import Optional
 
+from ..core.mesh import not_on_ranks
 from ..device import DeviceLike
 from .format import (CorruptStore, StoreError, load_index, read_manifest,
                      save_index)
@@ -147,7 +148,11 @@ class IndexStore:
         ``engine.update`` journals durably here before applying.  The
         engine must continue the store's lineage (checkpoint version +
         logged records == engine version); an empty store seeds itself
-        with a checkpoint of the engine first."""
+        with a checkpoint of the engine first.  An engine built on ranks
+        (a ``ProcessMesh``) raises ``NotImplementedError``: no rank
+        journals for the others yet (ROADMAP A10d)."""
+        not_on_ranks(getattr(engine, "rank_mesh", None),
+                     "an IndexStore attached to an engine built on ranks")
         ck = self.checkpoint_version
         if ck is None:
             self.checkpoint(engine)

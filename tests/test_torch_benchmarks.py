@@ -122,6 +122,20 @@ def test_dense_bounds_equal_the_old_inline_helpers(rates):
     assert roofline.bf16_ceiling_ms(2 * 5 * 12704 ** 3) == 20.731234475874622
 
 
+def test_overlap_rows_bound_counts_both_operands_and_the_rows(rates):
+    """A rank's rows of W at primary-school's shape: both operands read
+    once in bf16 and its [3,176, 12,704] float32 rows written once; the
+    whole square is ``overlap_bound`` plus one more read of B."""
+    ma, mb, n = 3176, 12704, 242
+    nbytes = 2 * (ma + mb) * n + 4 * ma * mb
+    assert roofline.overlap_rows_bound(ma, mb, n, 2) == (
+        nbytes / roofline.HBM_BYTES_PER_S * 1e3, "bytes")
+    whole = roofline.overlap_rows_bound(mb, mb, n, 2)[0]
+    assert whole == pytest.approx(
+        roofline.overlap_bound(mb, n, 2)[0]
+        + 2 * mb * n / roofline.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+
+
 def test_label_join_bounds_equal_the_old_inline_helpers(rates):
     g = torch.Generator().manual_seed(3)
     su = torch.randint(0, 3, (1000, 15), generator=g, dtype=torch.int32)

@@ -137,6 +137,49 @@ def test_overlap_plain_equals_pallas_interpret(m, n, bm, bn, bk, seed):
     _same(ops.overlap(torch.from_numpy(b_inc)), want)
 
 
+# (ma, row offset): row blocks of B, the last one ragged, one of one row, and
+# an empty block
+OVERLAP_ROW_BLOCKS = [(3, 0), (1, 4), (4, 6), (0, 2)]
+
+
+@pytest.mark.parametrize("m,n,bm,bn,bk,seed", OVERLAP_CORPUS)
+@pytest.mark.parametrize("ma,first", OVERLAP_ROW_BLOCKS)
+def test_overlap_rows_plain_equals_slices_of_overlap_ref(m, n, bm, bn, bk,
+                                                          seed, ma, first):
+    """``overlap_rows(B[rows], B)`` is the ``rows`` slice of
+    ``overlap_ref(B)``, float32, exact; against an empty B too; in bf16
+    as in float32; and no launch on the CPU."""
+    b_inc = torch.from_numpy(_incidence(m, n, seed))
+    lo, hi = min(first, m), min(first + ma, m)
+    a = b_inc[lo:hi].contiguous()
+    want = ov.overlap_ref(b_inc)[lo:hi]
+    before = ov.ROWS_LAUNCHES
+    for pa, pb in ((a, b_inc), (a.to(torch.bfloat16),
+                                b_inc.to(torch.bfloat16))):
+        got = ov.overlap_rows(pa, pb)
+        assert got.dtype == torch.float32 and got.shape == (hi - lo, m)
+        assert torch.equal(got, want)
+    assert torch.equal(ov.overlap_rows_ref(a, b_inc), want)
+    empty = ov.overlap_rows(a, b_inc[:0])
+    assert empty.shape == (hi - lo, 0) and empty.dtype == torch.float32
+    assert ov.ROWS_LAUNCHES == before
+    np.testing.assert_array_equal(
+        ov.overlap_rows(a, b_inc).numpy(),
+        np.asarray(ref_oracles.overlap_ref(jnp.asarray(b_inc.numpy())))[lo:hi])
+
+
+@pytest.mark.parametrize("a,b,exc", [
+    (torch.zeros((2, 4)), torch.zeros((3, 5)), ValueError),
+    (torch.zeros((2, 4), dtype=torch.float64), torch.zeros((3, 4)),
+     TypeError),
+    (torch.zeros((2, 4)), np.zeros((3, 4), np.float32), TypeError),
+    (torch.zeros((4, 2)).T, torch.zeros((3, 4)), ValueError),
+    (torch.zeros((2, 4)), torch.zeros((3, 4, 1)), ValueError)])
+def test_overlap_rows_wrapper_raises_on_bad_operands(a, b, exc):
+    with pytest.raises(exc, match="overlap_rows"):
+        ov.overlap_rows(a, b)
+
+
 # -- threshold_step ------------------------------------------------------------
 
 @pytest.mark.parametrize("s,m,bm,bn,bk,seed", THRESHOLD_CORPUS)
@@ -361,6 +404,19 @@ def test_cuda_kernels_equal_plain_versions_on_the_card():
             launched = 1 if m and n else 0
             assert (ov.LAUNCHES, ov.PADDED) == (
                 before[0] + launched, before[1] + launched * (n % 8 != 0))
+    # overlap_rows: row blocks of B against B, padded n and not
+    for m, n, *_, seed in OVERLAP_CORPUS + [(300, 129, 0, 0, 0, 9),
+                                            (301, 256, 0, 0, 0, 10)]:
+        b_inc = torch.from_numpy(_incidence(m, n, seed)).to(dev)
+        for ma, first in OVERLAP_ROW_BLOCKS + [(77, 200)]:
+            a = b_inc[min(first, m):min(first + ma, m)].contiguous()
+            for pa, pb in ((a, b_inc), (a.to(torch.bfloat16), b_inc)):
+                before = ov.ROWS_LAUNCHES
+                got = ov.overlap_rows(pa, pb)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ov.overlap_rows_ref(a, b_inc))
+                launched = 1 if a.shape[0] and m and n else 0
+                assert ov.ROWS_LAUNCHES == before + launched
     # threshold_step: float32 and bf16, padded (m % 8 != 0) and not
     for s, m, *_, seed in THRESHOLD_CORPUS + [(2, 300, 0, 0, 0, 9),
                                               (2, 299, 0, 0, 0, 10)]:

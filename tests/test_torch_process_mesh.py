@@ -11,8 +11,15 @@ then hold each rank's results to the reference's: the padded W* of
 both schedules, full and one-round ladders, float32 and int32 (m = 25,
 a multiple of no grid here); the threshold closure MR; the ``sharded``
 engine's answers and reported sizes; ``compressed_allreduce`` at the
-reference test's tolerance, its int8 codes equal.  Tolerance 0 wherever
-the answers are integers."""
+reference test's tolerance, its int8 codes equal.  The routes of A10d
+items 1-3: ``build_sharded`` (labels, duals, stats), ``neighbor_csr(mesh=)``,
+each rank's ``to_mesh`` block against the reference's shard on that
+device, and the label- and closure-regime ``sharded`` engines and
+``hl-index`` / ``hl-index-basic`` through a script of updates (answers,
+labels, snapshots, W* blocks, dirty rows, refreshed rows), the guard
+against ranks that pass different edits, ``regrid_block`` against the
+block of the grown whole, and a rank whose share of a build fails making
+every rank raise.  Tolerance 0 wherever the answers are integers."""
 import json
 import os
 import subprocess
@@ -297,9 +304,12 @@ _VALUE_ERRORS = {"world_size": "6 blocks", "trim": "trim=False"}
 
 @pytest.mark.parametrize("name", u.ERROR_NAMES)
 def test_routes_not_on_ranks_raise(worlds, name):
-    """The routes this slice does not put on ranks raise
-    ``NotImplementedError`` naming ROADMAP A10d (nothing stands in for
-    them); a wrong world size and ``trim=True`` raise ``ValueError``."""
+    """The routes that do not run on ranks yet (serving, replicas, the
+    store, a write-ahead log or ``IndexStore`` attached to an engine on
+    ranks) raise ``NotImplementedError`` naming ROADMAP A10d (nothing
+    stands in for them); a wrong world size and ``trim=True`` raise
+    ``ValueError``.  The refused calls leave the engine and the store
+    as they were."""
     for _, scalars in worlds["ranks"]:
         kind, message = scalars["errors"][name]
         if name in _VALUE_ERRORS:
@@ -307,9 +317,238 @@ def test_routes_not_on_ranks_raise(worlds, name):
         else:
             assert kind == "NotImplementedError", (name, kind, message)
             assert "A10d" in message
-        # the refused update left the engine as it was
         assert scalars["update_left_engine"] == {
             "version": 0, "m": u.ENGINE_GRAPH["m"]}
+        assert scalars["store_left_nothing"]
+
+
+def _same_index(arrays, want, prefix):
+    """Every array of ``index_arrays`` equal, dtype and bytes."""
+    keys = sorted(k for k in want.files if k.startswith(prefix + "/"))
+    assert keys
+    for k in keys:
+        got, exp = arrays[k], want[k]
+        assert got.dtype == exp.dtype and got.shape == exp.shape, k
+        assert got.tobytes() == exp.tobytes(), k
+
+
+@pytest.mark.parametrize("case", u.BUILD_CASES,
+                         ids=[u.build_key(*c) for c in u.BUILD_CASES])
+def test_build_sharded_on_ranks_equals_the_reference(worlds, case):
+    """``build_sharded(h, mesh=pm)`` across four ranks: every rank holds
+    the reference's labels, duals, ranks and stats (``shards``,
+    ``components``, ``pool_fallback`` included), row by row and dtype by
+    dtype, with 1, 3 and 8 shards, with and without the minimiser, on a
+    graph of one component and on one with no hyperedge."""
+    key = u.build_key(*case)
+    ref_arrays, ref = worlds["reference"]
+    want = ref["builds"][key]
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        _same_index(arrays, ref_arrays, f"build/{key}")
+        assert scalars["builds"][key] == want, (key, rank)
+    if case[3] == "parts":
+        # several shards, so several ranks built and exchanged shards
+        assert want["components"] == 6.0
+        assert want["shards"] == min(case[1] or 4, 6)
+    if case[3] == "chain":
+        assert want["components"] == 1.0
+    if case[3] == "empty":
+        assert want["shards"] == 0.0
+
+
+@pytest.mark.parametrize("case", u.NBR_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{g}" for s, g in u.NBR_CASES])
+def test_neighbor_csr_on_ranks_equals_the_reference(worlds, case):
+    """The rank overlap route (a row block of W a rank, one ragged
+    all-gather): ``ptr`` / ``idx`` / ``od`` equal to the reference's mesh
+    route and to the host pass, with m a multiple of no world size and
+    with m smaller than the world."""
+    from repro_torch.core.hypergraph import neighbor_csr
+    shape, g = case
+    key = f"nbr/{shape[0]}x{shape[1]}-{g}"
+    ref_arrays, _ = worlds["reference"]
+    host = neighbor_csr(random_hypergraph(**u.NBR_GRAPHS[g]))
+    for arrays, _ in worlds["ranks"]:
+        for f in ("ptr", "idx", "od"):
+            got, want = arrays[f"{key}/{f}"], ref_arrays[f"{key}/{f}"]
+            assert got.dtype == want.dtype == np.int64
+            assert got.tobytes() == want.tobytes(), (key, f)
+            assert got.tobytes() == getattr(host, f).tobytes()
+
+
+@pytest.mark.parametrize("shape", u.MESH_SHAPES,
+                         ids=[f"{r}x{c}" for r, c in u.MESH_SHAPES])
+@pytest.mark.parametrize("tag", ["full", "dirty"])
+def test_to_mesh_block_is_the_reference_shard(worlds, shape, tag):
+    """Each rank's ``to_mesh`` block is the reference's addressable
+    shard on the device at the same mesh coordinates, whole and after
+    the incremental re-land of the dirty rows; the incremental block
+    equals a whole re-land, its base is left as it was unless donated,
+    and ``nbytes`` counts the whole as the reference's does."""
+    key = f"{shape[0]}x{shape[1]}"
+    ref_arrays, ref = worlds["reference"]
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        at = "_".join(map(str, _coords(rank, shape)))
+        for f in ("ranks", "svals", "lengths"):
+            got = arrays[f"to_mesh/{key}/{tag}/{f}"]
+            want = ref_arrays[f"to_mesh/{key}/{tag}/{f}/{at}"]
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert got.tobytes() == want.tobytes(), (key, tag, f, rank)
+        info = scalars["to_mesh"][key]
+        assert info["whole_shape"] == ref["to_mesh"][key]["shape"]
+        assert info["nbytes"] == ref["to_mesh"][key]["nbytes"]
+        assert info["block"] and info["on"].startswith("ProcessMesh(")
+        assert info["geometry_kept"] and info["base_kept"]
+        assert info["dirty_equals_whole"] and info["donated_equals_whole"]
+        assert info["donated_in_place"]
+        block = arrays[f"to_mesh/{key}/{tag}/ranks"]
+        assert info["rank_nbytes"] == 8 * block.size + 4 * block.shape[0]
+
+
+def _padded_block(whole, shape, coords, fill):
+    """The block of ``whole`` padded with ``fill`` up to the grid."""
+    r, c = shape
+    n, l = whole.shape
+    padded = np.full((-(-n // r) * r, -(-l // c) * c), fill, whole.dtype)
+    padded[:n, :l] = whole
+    return np.ascontiguousarray(_block(padded, shape, coords))
+
+
+@pytest.mark.parametrize("case", u.ENGINE_SCRIPT_CASES,
+                         ids=[u.script_key(*c)
+                              for c in u.ENGINE_SCRIPT_CASES])
+def test_engine_updates_on_ranks_equal_the_reference(worlds, case):
+    """The update script (insert, delete, n growing, slot padding
+    growing, a whole-graph scope, delete everything, insert again) on
+    every rank: after each step the version, graph, dirty rows, answers
+    (batch, scalar, s-reach; int64 / bool), refreshed rows, ``nbytes``,
+    labels, duals and index stats, and the snapshot (a label block: the
+    block of the reference's snapshot; otherwise the whole) equal the
+    reference's; a resident closure's W* block is its block of the
+    reference's padded W*, with the same padded size and slot map."""
+    kind, shape, _ = case
+    key = u.script_key(*case)
+    ref_arrays, ref = worlds["reference"]
+    want_steps = ref["scripts"][key]["steps"]
+    sentinel = np.iinfo(np.int32).max
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        coords = _coords(rank, shape)
+        got = scalars["scripts"][key]
+        assert got["rank_mesh"].startswith("ProcessMesh(")
+        for i, (step, want) in enumerate(zip(got["steps"], want_steps)):
+            tag = f"script/{key}/{i}"
+            common = ("name", "version", "n", "m", "dirty")
+            assert {f: step[f] for f in common} == \
+                {f: want[f] for f in common}, (key, i, rank)
+            if kind == "resident":
+                whole = ref_arrays[f"{tag}/whole"]
+                assert step["m_padded"] == want["m_padded"]
+                assert step["slot_of"] == want["slot_of"]
+                assert arrays[f"{tag}/whole"].tobytes() == whole.tobytes()
+                assert arrays[f"{tag}/block"].dtype == np.float32
+                assert arrays[f"{tag}/block"].tobytes() == \
+                    np.ascontiguousarray(_block(whole, shape,
+                                                coords)).tobytes()
+                continue
+            for f in ("mr", "s2"):
+                g, w = arrays[f"{tag}/{f}"], ref_arrays[f"{tag}/{f}"]
+                assert g.dtype == w.dtype and np.array_equal(g, w), (key, i)
+            for f in ("refresh", "nbytes", "snapshot_shape", "mr",
+                      "s_reach"):
+                assert step[f] == want[f], (key, i, f, rank)
+            assert step["block"] == (kind == "labels"
+                                     and step["snapshot_shape"][1] > 0)
+            for f, fill in (("ranks", sentinel), ("svals", 0)):
+                g, w = arrays[f"{tag}/snap/{f}"], ref_arrays[f"{tag}/snap/{f}"]
+                if step["block"]:
+                    w = _padded_block(w, shape, coords, fill)
+                assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), \
+                    (key, i, f, rank)
+            if "stats" in want:
+                assert step["stats"] == want["stats"]
+                _same_index(arrays, ref_arrays, f"{tag}/idx")
+        if kind == "resident":
+            g = arrays[f"script/{key}/final_mr"]
+            w = ref_arrays[f"script/{key}/final_mr"]
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+    if kind == "resident":
+        # the slot padding grew while W* was resident: the blocks were
+        # gathered and re-split
+        assert any(s["regrid_bytes"] for s in
+                   worlds["ranks"][0][1]["scripts"][key]["steps"])
+
+
+@pytest.mark.parametrize("kind", ["labels", "closure", "hl-index"])
+def test_ranks_that_pass_different_edits_all_raise(worlds, kind):
+    """Rank 0 passes other edits than the rest: every rank raises
+    ``ValueError`` before anything changes (version, graph, dirty rows),
+    and the next update that all agree on applies everywhere alike.  An
+    id out of range raises ``IndexError`` on every rank, through the
+    engine and through its snapshot (a label block too), before any
+    collective (C-watch-7), and the ranks go on."""
+    answers = []
+    for _, scalars in worlds["ranks"]:
+        g = scalars["guard"][kind]
+        assert g["out_of_range"] == ["IndexError", "IndexError"]
+        assert g["error"][0] == "ValueError"
+        assert "different edits" in g["error"][1]
+        assert g["left"] == {"version": 0, "m": u.UPDATE_GRAPH["m"],
+                             "dirty": []}
+        assert g["agreed"] == {"version": 1, "m": u.UPDATE_GRAPH["m"] + 1}
+        answers.append(g["mr"])
+    assert all(a == answers[0] for a in answers)
+
+
+def _span(lo_a, hi_a, lo_b, hi_b):
+    return max(0, min(hi_a, hi_b) - max(lo_a, lo_b))
+
+
+@pytest.mark.parametrize("case", u.REGRID_CASES,
+                         ids=[u.regrid_key(*c) for c in u.REGRID_CASES])
+def test_regrid_block_is_the_block_of_the_grown_whole(worlds, case):
+    """``regrid_block`` grows W*'s slot padding by one step of the lcm
+    and to sizes whose new blocks span several old ones: each rank's new
+    block equals its block of the zero-padded whole, and it received
+    exactly the part of its new block that lies inside the old padded
+    W* and outside its own old block."""
+    shape, mp = case
+    key = u.regrid_key(shape, mp)
+    whole = u.regrid_whole(mp)
+    r, c = shape
+    lcm = int(np.lcm(r, c))
+    omp = -(-u.REGRID_M // lcm) * lcm
+    obr, obc, nbr, nbc = omp // r, omp // c, mp // r, mp // c
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        i, j = _coords(rank, shape)
+        got = arrays[f"regrid/{key}"]
+        want = np.ascontiguousarray(_block(whole, shape, (i, j)))
+        assert got.dtype == np.float32 and got.tobytes() == want.tobytes()
+        inside = (_span(i * nbr, (i + 1) * nbr, 0, omp)
+                  * _span(j * nbc, (j + 1) * nbc, 0, omp))
+        own = (_span(i * nbr, (i + 1) * nbr, i * obr, (i + 1) * obr)
+               * _span(j * nbc, (j + 1) * nbc, j * obc, (j + 1) * obc))
+        assert scalars["regrid_bytes"][key] == 4 * (inside - own), rank
+
+
+@pytest.mark.parametrize("route", ["build_sharded", "neighbor_csr"])
+def test_a_rank_that_fails_makes_every_rank_raise(worlds, route):
+    """One rank's share fails (a shard's builder raises; the overlap rows
+    run out of memory): it still joins the exchange, every rank raises
+    ``RuntimeError`` naming that rank and its error, none is left
+    waiting, and the ranks then build together again, alike."""
+    from repro_torch import api
+    from repro_torch.core.hlindex import build_fast
+    want = [a.tolist()
+            for a in build_fast(u._port_graph(api, "parts")).labels_edge]
+    cause = {"build_sharded": "ValueError: planted shard failure",
+             "neighbor_csr": "MemoryError: planted"}[route]
+    for _, scalars in worlds["ranks"]:
+        kind, msg = scalars["failures"]["errors"][route]
+        assert kind == "RuntimeError"
+        assert msg.startswith(f"{route} on ranks: rank {u.FAILING_RANK} "
+                              f"failed ({cause}")
+        assert msg.count("failed") == 1
+        assert scalars["failures"]["after"] == want
 
 
 def test_a_process_mesh_needs_an_initialised_group():
