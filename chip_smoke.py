@@ -71,26 +71,37 @@ drives the port's two paths at full size through `repro_torch.api`:
   each, answer 2^16 seeded pairs by gathering the query rows across the
   ranks and joining them through `label_join` (held to the plain join
   on a whole snapshot), take an update over fresh vertices and answer
-  again; form primary-school's neighbor index by the rank overlap route
-  (one `overlap_rows` launch a rank, its rows of W, equal to the host
-  pass); and churn ENG-s's closure regime through scoped updates that
-  grow the slot padding, each W* block held to a logical engine's;
+  again; then serve on the ranks (rank 0 leads, ranks 1-3 follow its
+  stream): a threaded service answers 16,384 MR and 4,096 s-reach
+  requests of two tenants (one `label_join` launch a padded batch a
+  rank, every answer held to the engine's), takes an update through its
+  stream and answers on the new vertices; a `ReplicaGroup` of 2 (copies
+  byte-equal and private); a checkpoint into an `IndexStore`, one
+  journaled update, and `ReachabilityService.restore` on the ranks to
+  the live service's answers; form primary-school's neighbor index by
+  the rank overlap route (one `overlap_rows` launch a rank, its rows of
+  W, equal to the host pass); and churn ENG-s's closure regime through
+  scoped updates that grow the slot padding, each W* block held to a
+  logical engine's, then save it on the ranks (W* blocks to rank 0, the
+  file equal to the logical engine's) and load it a block a rank;
   `overlap_rows` is held to its plain version and timed alone first;
 * the benchmark suite and the examples (`repro_torch.benchmarks`,
   `repro_torch.examples`), last: every script through its `main` at its
   `--quick` sizes (its JSON into `build/bench_torch/`), the four examples,
   the docs check, then exp1, `kernels_bench` and `bench_serving` at the
   published sizes on the engines `main_path` and `closure_path` built;
-* the closure dry-run at the paper's production size, m = 65,536
-  (`repro_torch.launch.closure_dryrun.main`, in process): eight records
-  under `build/dryrun_core` (each cell priced at H100 rates, with the
-  collective bytes a round's blocks read), and each distinct round run
-  once on the card on W of a walmart-trips-shaped graph (one `overlap`,
-  256 float32 `maxmin_matmul` launches of `[4,096, 65,536] x [65,536,
-  4,096]` for the allgather round, 4,096 of `[4,096]^3` for the ring
-  round, 32 + 6 `threshold_step` slices of `[1, 65,536, 65,536]`), 64 x
-  64 sampled entries of each held to the plain version; then each of
-  these kernels at those shapes beside its bound and library call;
+* the closure dry-run at half the paper's production size, m = 32,768
+  (`repro_torch.launch.closure_dryrun.main`, in process; at 65,536 its
+  rounds alone took some 115 s): eight records under `build/dryrun_core`
+  (each cell priced at H100 rates, with the collective bytes a round's
+  blocks read), and each distinct round run once on the card on W of a
+  walmart-trips-shaped graph (one `overlap`, 256 float32 `maxmin_matmul`
+  launches of `[2,048, 32,768] x [32,768, 2,048]` for the allgather
+  round, 4,096 of `[2,048]^3` for the ring round, 32 + 6
+  `threshold_step` slices of `[1, 32,768, 32,768]`), 64 x 64 sampled
+  entries of each held to the plain version; then each of these kernels
+  at the production shapes (m = 65,536) beside its bound and library
+  call;
 * LM serving through `repro_torch.launch.serve`: `qwen3-1.7b` at its
   full published config (28 layers, 2.03e9 parameters),
   `qwen2-moe-a2.7b` at its published widths on 2 layers (60 experts,
@@ -99,7 +110,7 @@ drives the port's two paths at full size through `repro_torch.api`:
   attn) + 2 rec, window 2,048) and `whisper-large-v3` (32 + 32 layers,
   seeded frames `[4, 1,500, 1,280]` encoded into the cross K/V first);
   random seeded weights on the card, 4 prompts of 16 tokens prefilled
-  through the cache and 32 greedy tokens, each held to its own forward
+  through the cache and 16 greedy tokens, each held to its own forward
   by the reference's teacher-forced decode check;
 * LM training through `repro_torch.launch.train.run_training`:
   `qwen3-1.7b` at its full published config (batch 8, sequence 256, the
@@ -115,7 +126,13 @@ drives the port's two paths at full size through `repro_torch.api`:
   through the port's own steps: `train_4k` on a 64 x 1 mesh (4 x 4,096
   tokens, 4 microbatches), `prefill_32k` on 32 x 1 (1 x 32,768) and
   `decode_32k` on 128 x 1 (one token over a 32,768-deep cache), each
-  timed beside its bound and checked.
+  timed once after a warm-up beside its bound and checked.
+
+The host-only references (the MST oracle of walmart-trips,
+primary-school and email-Eu; email-Eu's ETE and threshold-component
+indexes) are built in two spawned worker processes, without CUDA, while
+the card's phases before their use run; each phase waits for its own and
+holds its graph to the one it drives.
 
 and checks the answers.  Any failed phase raises: the script then exits
 non-zero and prints no result line.  Without a CUDA device it exits
@@ -307,13 +324,24 @@ RANK_TIMEOUT_S = 300
 # past the free slots, then deletes one and reuses its slot
 RANK_LABEL_PAIRS = 2**16
 RANK_LABEL_TIMEOUT_S = 300
+# rank_label_path's services on the same ranks: rank 0 leads, ranks 1-3
+# follow; MR and s-reach requests (s in 1..8) on the pairs already
+# answered, two tenants, max_batch 4,096; a ReplicaGroup of 2 copies on
+# RANK_REPLICA_REQUESTS of them
+RANK_SERVE_MR, RANK_SERVE_SREACH = 16_384, 4_096
+RANK_SERVE_BATCH = 4096
+RANK_SERVE_TENANTS = (("t1", 1.0), ("t2", 2.0))
+RANK_REPLICAS, RANK_REPLICA_REQUESTS = 2, 8192
 
 # bench_path: the four examples, then at the published sizes exp1's Min-*
 # rows on 4,096 pairs and a 2^20 label_join_gather batch on 89k/70k, and
 # the service against per-call queries on 10,000 mixed requests there and
 # 4,096 on primary-school's closure engine
-# dryrun_path: the closure dry-run at the paper's production size
+# dryrun_path: the closure dry-run's cells at half the paper's
+# production size (its rounds at m = 65,536 took 110-120 s of the
+# script's time limit), then each kernel at the production shapes
 DRYRUN_M = 65_536
+DRYRUN_RUN_M = 32_768
 DRYRUN_S = 32
 DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_core"
 # lm_serve_path: the serving launcher at a published LM config
@@ -328,7 +356,7 @@ LM_FAMILY_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b",
 LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 12, 8, 256
 LM_RESTART_LAYERS, LM_RESTART_STEPS, LM_RESTART_AT = 2, 10, 5
 RESTART_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_train_infra.py:122
-LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 32
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16
 # lm_dryrun_path: the LM dry-run over every (arch x shape x mesh) cell,
 # then one card's share of three LM_ARCH cells at the full published
 # config (data-parallel meshes: model axis 1)
@@ -336,6 +364,7 @@ LM_DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_lm"
 LM_DRYRUN_RUNS = (("train_4k", (64, 1)), ("prefill_32k", (32, 1)),
                   ("decode_32k", (128, 1)))
 LM_DRYRUN_CELLS = {"ok": 64, "skipped": 16}
+LM_DRYRUN_RUN_REPS = 1                 # timed passes after the warm-up
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
 # bf16 serving: the root-mean-square departure of the decode logits (bf16
 # compute, the served bf16 cache) from the float32 forward may be at most
@@ -345,6 +374,16 @@ BENCH_EXAMPLES = ("quickstart", "serving_quickstart", "epidemic_case_study",
                   "distributed_reachability")
 BENCH_EXP1_PAIRS, BENCH_JOIN_PAIRS = 4096, 2**20
 BENCH_WA_REQUESTS, BENCH_PS_REQUESTS = 10_000, 4096
+# the host-only references (numpy, no CUDA): the MST oracle of
+# walmart-trips, primary-school and email-Eu, and email-Eu's ETE and
+# threshold-component indexes, some 2.5 min of one core in all; a pool of
+# spawned processes builds them, in this order, while the card's phases
+# before their use run, and a phase waits for its own at most this long
+HOST_REFERENCES = (("main", "mst-oracle"), ("email_eu", "ete"),
+                   ("closure", "mst-oracle"), ("email_eu", "threshold"),
+                   ("email_eu", "mst-oracle"))
+HOST_REFERENCE_WORKERS = 2
+HOST_REFERENCE_TIMEOUT_S = 900
 
 
 def emit(obj) -> None:
@@ -372,6 +411,74 @@ class Phase:
     def seconds(self) -> float:
         torch.cuda.synchronize()
         return round(time.perf_counter() - self.t0, 3)
+
+
+def host_reference(params, kind):
+    """One host-only reference over the seeded graph of ``params``: the
+    MST oracle, the ETE index or the threshold-component index (numpy
+    only; a worker of ``HostReferences`` runs it).  Returns (the
+    structure, its build seconds)."""
+    from repro_torch.core import baselines
+    from repro_torch.core.hypergraph import random_hypergraph
+    build = {"mst-oracle": baselines.MSTOracle, "ete": baselines.build_ete,
+             "threshold": baselines.ThresholdComponentIndex}[kind]
+    h = random_hypergraph(**params)
+    t0 = time.perf_counter()
+    ref = build(h)
+    return ref, time.perf_counter() - t0
+
+
+class HostReferences:
+    """``HOST_REFERENCES`` built in a pool of ``HOST_REFERENCE_WORKERS``
+    spawned processes (the parent has CUDA live; the workers never touch
+    it), started when this is made.  ``take(graph, kind, h)`` waits for
+    one, holds its graph to ``h`` and returns (the structure, {its build
+    seconds in the worker, the parent's wait}); the pool is closed when
+    the last is taken, or by ``close()``.  Without a pool (``workers=0``,
+    as a rehearsal on the CPU may ask) ``take`` builds in process."""
+
+    open_pools: list = []
+
+    def __init__(self, workers=HOST_REFERENCE_WORKERS):
+        self.params = {"main": MAIN_GRAPH, "closure": CLOSURE_GRAPH,
+                       "email_eu": EMAIL_EU}
+        self._pool, self._jobs = None, {}
+        if workers:
+            import multiprocessing
+            self._pool = multiprocessing.get_context("spawn").Pool(workers)
+            HostReferences.open_pools.append(self._pool)
+            self._jobs = {job: self._pool.apply_async(
+                host_reference, (self.params[job[0]], job[1]))
+                for job in HOST_REFERENCES}
+
+    def take(self, graph, kind, h):
+        t0 = time.perf_counter()
+        job = self._jobs.pop((graph, kind), None)
+        ref, build_s = (host_reference(self.params[graph], kind)
+                        if job is None else
+                        job.get(timeout=HOST_REFERENCE_TIMEOUT_S))
+        wait_s = time.perf_counter() - t0
+        if not same_graph(ref.h, h):
+            raise AssertionError(f"host reference {graph} {kind}: built on "
+                                 f"another graph")
+        if not self._jobs:
+            self.close()
+        return ref, {"build_seconds": round(build_s, 3),
+                     "wait_seconds": round(wait_s, 3)}
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            HostReferences.open_pools.remove(self._pool)
+            self._pool = None
+
+    @classmethod
+    def close_all(cls):
+        for pool in list(cls.open_pools):
+            pool.terminate()
+            pool.join()
+        cls.open_pools.clear()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3, runs: int = 3) -> float:
@@ -816,8 +923,9 @@ def peak_rise(fn):
     return torch.cuda.max_memory_allocated() - base
 
 
-def phase_main_path(api, engine_mod, lj, join_ops, device):
-    """The full-size main path: 89,000 vertices, 70,000 hyperedges."""
+def phase_main_path(api, engine_mod, lj, join_ops, device, refs):
+    """The full-size main path: 89,000 vertices, 70,000 hyperedges; the
+    MST oracle comes from ``refs`` (built beside the card's work)."""
     clock = Phase()
     s = 2
     t0 = time.perf_counter()
@@ -859,9 +967,10 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
         raise AssertionError("main_path: batch differs from host merge-join")
     # the MST oracle's forest, swept once per hyperedge of u (forest_mr)
     t0 = time.perf_counter()
-    oracle = api.build_engine(h, "mst-oracle").oracle
+    oracle, oracle_build = refs.take("main", "mst-oracle", h)
     want = forest_mr(oracle, us[:32], vs[:32]).tolist()
     oracle_s = time.perf_counter() - t0
+    del oracle
     if want != mr1000[:32].tolist():
         raise AssertionError("main_path: batch differs from the MST oracle")
 
@@ -958,6 +1067,7 @@ def phase_main_path(api, engine_mod, lj, join_ops, device):
           "generate_seconds": round(gen_s, 3),
           "build_seconds": round(build_s, 3),
           "oracle_pairs": 32, "oracle_seconds": round(oracle_s, 3),
+          "oracle_build": oracle_build,
           "merge_join_pairs": 1000, "s": s,
           "label_join_launches": launches,
           "label_join_gather_launches": gather_launches,
@@ -1065,10 +1175,10 @@ def timed_service_class(base):
             if start:
                 self.start()
 
-        def _dispatch_group(self, kind, group, snap):
+        def _dispatch_group(self, kind, group, snap, deliver):
             self._cur = {"kind": kind, "queries": len(group)}
             t0 = time.perf_counter()
-            super()._dispatch_group(kind, group, snap)
+            super()._dispatch_group(kind, group, snap, deliver)
             cur = self._cur
             cur["group_ms"] = (time.perf_counter() - t0) * 1e3
             cur["resolve_ms"] = cur["group_ms"] - sum(
@@ -1925,7 +2035,7 @@ def counted_closure_build(api, h, method, counters, rounds, device):
     return eng, counts, padded, seconds
 
 
-def phase_closure_path(api, semiring, ops, counters, wl, device):
+def phase_closure_path(api, semiring, ops, counters, wl, device, refs):
     """The dense closure at the published size of primary-school: both
     methods built through the facade on the card (counted), W* held across
     the two, the overlap W against the host line graph, batches against
@@ -1994,9 +2104,7 @@ def phase_closure_path(api, semiring, ops, counters, wl, device):
     # the MST oracle: its forest swept once per incident hyperedge of u
     # gives W* rows and MR(u, v) (its own mr() walks the forest once per
     # hyperedge pair, some 34,000 walks per pair at this density)
-    t0 = time.perf_counter()
-    oracle = api.build_engine(h, "mst-oracle").oracle
-    oracle_build_s = time.perf_counter() - t0
+    oracle, oracle_build = refs.take("closure", "mst-oracle", h)
     t0 = time.perf_counter()
     checked = 0
     for u, v in zip(us[:CLOSURE_ORACLE_PAIRS], vs[:CLOSURE_ORACLE_PAIRS]):
@@ -2031,7 +2139,7 @@ def phase_closure_path(api, semiring, ops, counters, wl, device):
           "host_segment_max_pairs": sizes[0],
           "oracle_pairs": checked, "oracle_w_star_rows": int(sum(
               h.degree(int(u)) for u in us[:checked])),
-          "oracle_build_seconds": round(oracle_build_s, 3),
+          "oracle_build": oracle_build,
           "oracle_seconds": round(oracle_s, 3),
           "workloads": workloads,
           "seconds": clock.seconds()})
@@ -3177,7 +3285,11 @@ def rank_label_worker(rank, world, work, spec):
     overlap route (one ``overlap_rows`` launch a rank), equal to the host
     pass; a closure-regime churn on ENG-s, each W* block held to a logical
     engine's after the same edits.  Writes ``rank<r>.json``; rank 0 also
-    the first batch's gathered rows."""
+    the first batch's gathered rows.  Then, on the label engine, rank 0
+    leads and ranks 1-3 follow a threaded service, a ``ReplicaGroup``, a
+    checkpoint with a journaled update and a restore
+    (``rank_serve_steps``); and the churned ENG-s closure is saved and
+    loaded on the ranks (``rank_closure_store``)."""
     import datetime
     import torch.distributed as tdist
     from repro_torch import api
@@ -3279,7 +3391,11 @@ def rank_label_worker(rank, world, work, spec):
             "snapshot_seconds": snap_s,
             "whole_shape": list(snap.whole_shape),
             "block_shape": list(snap.ranks.shape), "batch": batch}
-        del eng, snap
+        del snap
+        # serving and the store on the ranks over this engine
+        out["serve"] = rank_serve_steps(api, lj, clock, eng, pm, work,
+                                        us2, vs2, got2)
+        del eng
 
         # 2. the rank overlap route on primary-school
         c = spec["closure_graph"]
@@ -3331,6 +3447,9 @@ def rank_label_worker(rank, world, work, spec):
                 f"rank {rank} churn {name}", eng._w_star,
                 dist.block_of(logical._w_star, pm, axes))
             steps.append(step)
+        # the resident closure saved and loaded on the ranks
+        store, loaded = rank_closure_store(api, dist, coll, eng, logical,
+                                           pm, work, rank)
         us3, vs3 = np.divmod(np.arange(eng.h.n ** 2), eng.h.n)
         joins = lj.GATHER_LAUNCHES
         got3 = eng.mr_batch(us3, vs3)
@@ -3338,13 +3457,278 @@ def rank_label_worker(rank, world, work, spec):
         if not np.array_equal(got3, logical.mr_batch(us3, vs3)):
             raise AssertionError(f"rank {rank}: churned answers != the "
                                  f"logical engine's")
+        if not np.array_equal(loaded.mr_batch(us3, vs3), got3):
+            raise AssertionError(f"rank {rank}: the loaded closure's "
+                                 f"answers != the saved engine's")
         out["churn"] = {"build_maxmin_matmul_launches": build_launches,
-                        "m_padded_built": m_padded_built, "steps": steps, "pairs": int(got3.size),
-                        "label_join_gather_launches": joins}
+                        "m_padded_built": m_padded_built, "steps": steps,
+                        "pairs": int(got3.size),
+                        "label_join_gather_launches": joins,
+                        "store": store}
     finally:
         tdist.destroy_process_group()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def rank_serve_config(api, **kw):
+    return api.ServiceConfig(
+        max_batch=RANK_SERVE_BATCH, use_kernels=True,
+        tenants=tuple(api.TenantSpec(t, w) for t, w in RANK_SERVE_TENANTS),
+        **kw)
+
+
+def rank_serve_requests(api, rng, us, vs, got):
+    """``RANK_SERVE_MR`` MR and ``RANK_SERVE_SREACH`` s-reach requests on
+    pairs already answered (``got``), alternating tenants, shuffled; with
+    the answers they must get."""
+    tenants = [t for t, _ in RANK_SERVE_TENANTS]
+    reqs, want = [], []
+    for k, i in enumerate(rng.choice(len(us), RANK_SERVE_MR, replace=False)):
+        reqs.append(api.MRRequest(int(us[i]), int(vs[i]),
+                                  tenant=tenants[k % 2]))
+        want.append(int(got[i]))
+    pick = rng.choice(len(us), RANK_SERVE_SREACH, replace=False)
+    for k, (i, s) in enumerate(zip(pick, rng.integers(1, 9, pick.size))):
+        reqs.append(api.SReachRequest(int(us[i]), int(vs[i]), int(s),
+                                      tenant=tenants[k % 2]))
+        want.append(bool(got[i] >= s))
+    order = rng.permutation(len(reqs))
+    return [reqs[i] for i in order], [want[i] for i in order]
+
+
+def lead_or_follow(svc, lead):
+    """Rank 0 runs ``lead(svc)`` and closes the service (also when it
+    raises, so no follower waits); the others follow to the close."""
+    if not svc.leader:
+        svc.follow()
+        return {}
+    try:
+        return lead(svc)
+    finally:
+        svc.close()
+
+
+def served(svc, reqs, want, tag):
+    """Submit ``reqs`` to a threaded leader, each stamped at submit and at
+    its answer; fails unless the answers are ``want``.  Returns seconds,
+    requests/s, p50 / p99 ms per request."""
+    n = len(reqs)
+    sent, done = np.zeros(n), np.zeros(n)
+
+    def stamp(i):
+        return lambda req, fut: done.__setitem__(i, time.perf_counter())
+    t0 = time.perf_counter()
+    futs = []
+    for i, r in enumerate(reqs):
+        sent[i] = time.perf_counter()
+        futs.append(svc.submit(r, on_result=stamp(i)))
+    got = [f.result(timeout=RANK_LABEL_TIMEOUT_S) for f in futs]
+    seconds = time.perf_counter() - t0
+    while not done.all():                # the callbacks run just after
+        time.sleep(1e-3)
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"{tag}: {bad} of {n} answers differ")
+    lat = (done - sent) * 1e3
+    return {"requests": n, "seconds": seconds, "requests_per_s": n / seconds,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def service_counts(svc, lj, clock, joins, gathers):
+    """What a rank counted of one service: its stats, the stream's events,
+    seconds and bytes, the row assembly's exchange, and its launches."""
+    st = svc.stats().as_dict()
+    return {"stats": st, "events": dict(svc._stream.by_kind),
+            "stream_seconds": svc._stream.seconds,
+            "stream_bytes": svc._stream.bytes,
+            "exchange_seconds": clock.seconds, "exchange_calls": clock.calls,
+            "exchange_bytes": clock.bytes,
+            "label_join_launches": (lj.LAUNCHES - joins)
+            - (lj.GATHER_LAUNCHES - gathers),
+            "label_join_gather_launches": lj.GATHER_LAUNCHES - gathers,
+            "failed_events": svc.failed_events}
+
+
+def rank_serve_steps(api, lj, clock, eng, pm, work, us, vs, got):
+    """Serving on the ranks over the label-regime engine (rank 0 leads):
+    a threaded service (requests, one update through the stream, requests
+    on its vertices), a ``ReplicaGroup`` of ``RANK_REPLICAS``, a
+    checkpoint with one journaled update, and a restore to its first
+    answers.  Every answer is held to ``got`` (the engine's own batch
+    answers) or to the fresh vertices' MR; returns what this rank
+    measured."""
+    from repro_torch.store import format as fmt
+    from repro_torch.store import wal as walmod
+
+    rng = np.random.default_rng(73)
+    reqs, want = rank_serve_requests(api, rng, us, vs, got)
+    out = {}
+
+    def fresh_requests(a):
+        return [api.MRRequest(a, a + 1), api.MRRequest(a + 2, 0)], [3, 0]
+
+    # 1. the threaded service
+    clock.reset()
+    joins, gathers = lj.LAUNCHES, lj.GATHER_LAUNCHES
+    svc = api.serve(eng, config=rank_serve_config(api), start=True)
+
+    def lead(s):
+        part = {"load": served(s, reqs, want, "rank service")}
+        a = eng.h.n
+        t0 = time.perf_counter()
+        s.update(inserts=[[a, a + 1, a + 2]])
+        update_s = time.perf_counter() - t0
+        q, w = fresh_requests(a)
+        futs = [s.submit(r) for r in q]
+        first = futs[0].result(timeout=RANK_LABEL_TIMEOUT_S)
+        part["update"] = {"seconds": update_s,
+                          "to_first_answer_s": time.perf_counter() - t0}
+        if [first, futs[1].result(timeout=60)] != w:
+            raise AssertionError("rank service: the fresh vertices' MR")
+        return part
+    out["service"] = dict(lead_or_follow(svc, lead),
+                          **service_counts(svc, lj, clock, joins, gathers),
+                          keepalive_s=svc.keepalive_s)
+
+    # 2. a ReplicaGroup: a batch, one update over the first fresh
+    # vertices (n unchanged: rows patched in place), a batch
+    clock.reset()
+    joins, gathers = lj.LAUNCHES, lj.GATHER_LAUNCHES
+    grp = api.serve(eng, config=rank_serve_config(api,
+                                                  replicas=RANK_REPLICAS),
+                    start=False)
+    a = int(us[-2])                     # the first update's fresh vertex
+
+    def replicated(g):
+        k = RANK_REPLICA_REQUESTS
+        futs = g.submit_many([api.MRRequest(int(x), int(y))
+                              for x, y in zip(us[:k], vs[:k])])
+        g.drain()
+        g.update(inserts=[[a, a + 1]])
+        futs += g.submit_many([api.MRRequest(a, a + 1)])
+        g.drain()
+        if [f.result(timeout=60) for f in futs] != list(got[:k]) + [3]:
+            raise AssertionError("replica group: answers differ")
+        return {}
+    lead_or_follow(grp, replicated)
+    copies = grp.replicas
+    out["replicas"] = dict(
+        service_counts(grp, lj, clock, joins, gathers),
+        replica_stats=grp.replica_stats(),
+        copies_equal=all(torch.equal(getattr(r.snap, f),
+                                     getattr(copies[0].snap, f))
+                         for r in copies for f in ("ranks", "svals",
+                                                   "lengths")),
+        private=len({r.snap.ranks.data_ptr() for r in copies}
+                    | {eng.snapshot_cache().ranks.data_ptr()})
+        == len(copies) + 1)
+    del grp, copies
+
+    # 3. a checkpoint through the stream, one journaled update, then a
+    # restore on every rank to its first answers
+    root = os.path.join(work, "store")
+    writes = CallClock(fmt, "_write_store_file")
+    appends = CallClock(walmod.WriteAheadLog, "append")
+    k = RANK_SERVE_BATCH
+    check = [api.MRRequest(int(x), int(y)) for x, y in zip(us[:k], vs[:k])]
+    clock.reset()
+    joins, gathers = lj.LAUNCHES, lj.GATHER_LAUNCHES
+    svc = api.serve(eng, config=rank_serve_config(api), start=True)
+
+    def durable(s):
+        t0 = time.perf_counter()
+        s.checkpoint(api.IndexStore(root))
+        part = {"checkpoint_s": time.perf_counter() - t0}
+        b = eng.h.n
+        t0 = time.perf_counter()
+        s.update(inserts=[[b, b + 1, b + 2]])
+        part["journaled_update_s"] = time.perf_counter() - t0
+        q, w = fresh_requests(b)
+        futs = [s.submit(r) for r in check + q]
+        part["answers"] = [f.result(timeout=60) for f in futs]
+        if part["answers"] != list(got[:k]) + w:
+            raise AssertionError("rank service after the checkpoint")
+        part["fresh"] = b
+        return part
+    part = lead_or_follow(svc, durable)
+    part["live"] = service_counts(svc, lj, clock, joins, gathers)
+    store = api.IndexStore(root)
+    ckpt = store.current_checkpoint()
+    part.update(checkpoint_bytes=os.path.getsize(ckpt),
+                wal_bytes=os.path.getsize(os.path.join(
+                    root, f"wal-{store.checkpoint_version:012d}.log")),
+                write_seconds=writes.seconds, writes=writes.calls,
+                append_seconds=appends.seconds, appends=appends.calls)
+    clock.reset()
+    joins, gathers = lj.LAUNCHES, lj.GATHER_LAUNCHES
+    t0 = time.perf_counter()
+    back = api.ReachabilityService.restore(root, mesh=pm,
+                                           config=rank_serve_config(api),
+                                           start=True)
+    part["restore_s"] = time.perf_counter() - t0
+    answers = part.pop("answers", None)
+    fresh = part.pop("fresh", None)
+
+    def first_answers(s):
+        q, _ = fresh_requests(fresh)
+        futs = [s.submit(r) for r in check + q]
+        first = futs[0].result(timeout=60)
+        to_first = time.perf_counter() - t0
+        got_back = [first] + [f.result(timeout=60) for f in futs[1:]]
+        if got_back != answers:
+            raise AssertionError("restored service: answers differ from "
+                                 "the live service's")
+        return {"restore_to_first_answer_s": to_first}
+    part.update(lead_or_follow(back, first_answers))
+    part["restored"] = service_counts(back, lj, clock, joins, gathers)
+    part["restored_version"] = back.engine.version
+    out["store"] = part
+    del back
+    return out
+
+
+def rank_closure_store(api, dist, coll, eng, logical, pm, work, rank):
+    """``save_index`` of the resident ENG-s closure on the ranks (payload
+    ``closure``: the W* blocks cross to rank 0 one at a time) and
+    ``load_index(mesh=pm)``: the file equals the logical engine's after
+    the same edits, and each loaded block is its block of that W* in
+    edge order.  Returns seconds and the bytes this rank received."""
+    path = os.path.join(work, "engs.hlidx")
+    received = []
+    plain = coll.exchange_pieces
+
+    def counted(*args, **kw):
+        got = plain(*args, **kw)
+        received.append(sum(t.numel() * t.element_size()
+                            for t in got.values()))
+        return got
+    coll.exchange_pieces = counted
+    try:
+        manifest, save_s = timed_s(lambda: api.save_index(path, eng))
+    finally:
+        coll.exchange_pieces = plain
+    part = {"seconds": save_s, "received_bytes": sum(received),
+            "payload": manifest["payload"], "file_bytes":
+            os.path.getsize(path)}
+    if rank == 0:
+        mine = os.path.join(work, "engs-logical.hlidx")
+        api.save_index(mine, logical)
+        with open(path, "rb") as f, open(mine, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("ENG-s closure file on ranks != the "
+                                     "logical engine's")
+        part["file_equal_logical"] = True
+    loaded, part["load_seconds"] = timed_s(lambda: api.load_index(
+        path, mesh=pm))
+    slots = torch.from_numpy(logical._slot_of).to(logical._w_star.device)
+    whole = logical._w_star.index_select(0, slots).index_select(1, slots)
+    part["max_abs_err"] = check_equal(
+        f"rank {rank} loaded W* block", loaded._w_star,
+        dist.block_of(whole, pm, ("data", "model")))
+    part["block_shape"] = list(loaded._w_star.shape)
+    return part, loaded
 
 
 def overlap_rows_checks(ov, api, device):
@@ -3392,6 +3776,23 @@ def overlap_rows_checks(ov, api, device):
                          library_f32=lambda: torch.matmul(a32, b_inc.T))}
     row["kernel_ms_includes"] = "pad_columns of both operands, kernel"
     return err, row
+
+
+# the dispatch-side fields of the service's stats, equal on every rank
+RANK_DISPATCH_FIELDS = ("answered", "batches", "padded_queries",
+                        "bucket_histogram", "snapshot_refreshes",
+                        "rows_rederived", "rows_full", "mesh_rows_patched",
+                        "kernel_batches", "workload_answered", "updates")
+
+
+def rank_services(rep, lead):
+    """(name, this rank's counts, the leader's) of each service of
+    ``rank_serve_steps``."""
+    for name, get in (("service", lambda x: x["serve"]["service"]),
+                      ("replicas", lambda x: x["serve"]["replicas"]),
+                      ("checkpointed", lambda x: x["serve"]["store"]["live"]),
+                      ("restored", lambda x: x["serve"]["store"]["restored"])):
+        yield name, get(rep), get(lead)
 
 
 def phase_rank_label_path(api, counters, main_digest, device):
@@ -3464,6 +3865,34 @@ def phase_rank_label_path(api, counters, main_digest, device):
                                  f"padding never grew")
         errs["maxmin_matmul"] = max(errs["maxmin_matmul"], *(
             s["max_abs_err"] for s in churn["steps"]))
+        if r == 0 and not churn["store"].get("file_equal_logical"):
+            raise AssertionError("rank_label_path: the ENG-s closure file")
+        for name, part, lead in rank_services(rep, reports[0]):
+            kernel = part["stats"]["kernel_batches"]
+            expect_counts(f"rank_label_path rank {r} {name}",
+                          {"label_join": part["label_join_launches"],
+                           "label_join_gather":
+                               part["label_join_gather_launches"]},
+                          {"label_join": kernel})
+            if not kernel or part["failed_events"]:
+                raise AssertionError(f"rank_label_path rank {r} {name}: "
+                                     f"{kernel} batches")
+            if any(part["stats"][f] != lead["stats"][f]
+                   for f in RANK_DISPATCH_FIELDS):
+                raise AssertionError(f"rank_label_path rank {r} {name}: "
+                                     f"stats differ from the leader's")
+            total["label_join"] += part["label_join_launches"]
+        rep_ = rep["serve"]["replicas"]
+        if not (rep_["copies_equal"] and rep_["private"]) or \
+                rep_["replica_stats"] != \
+                reports[0]["serve"]["replicas"]["replica_stats"]:
+            raise AssertionError(f"rank_label_path rank {r}: replicas")
+        # the keep-alive interval, read from the group's timeout
+        keepalive_s = rep["serve"]["service"]["keepalive_s"]
+        if keepalive_s != RANK_LABEL_TIMEOUT_S / 4:
+            raise AssertionError(f"rank_label_path rank {r}: keep-alive "
+                                 f"every {keepalive_s} s, not a quarter of "
+                                 f"the group's {RANK_LABEL_TIMEOUT_S} s")
     q, l = rows["ru"].shape
     bound_ms, bound_by = label_join_bound(rows["su"], q, l)
     join = (rows["ru"], rows["su"], rows["rv"], rows["sv"])
@@ -3570,12 +3999,15 @@ def forest_mr(oracle, us, vs):
 
 
 def phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
-                        main_pairs, main_mr, device):
+                        main_pairs, main_mr, device, refs):
     """The index-free and baseline backends on email-Eu (past the label
     budget): `auto` builds `online` and `frontier`, `ete` joins through
     `label_join_gather`, `threshold` and `online` answer a few pairs, one
     update on `online` and `frontier` against engines rebuilt from scratch;
-    then `frontier` on the main path's graph against `hl-index`."""
+    then `frontier` on the main path's graph against `hl-index`.  The
+    host-only structures of `ete`, `threshold` and the MST oracle come
+    from ``refs`` (built beside the card's work) and are wrapped in their
+    engines here."""
     clock = Phase()
     g = EMAIL_EU
     seconds = {}
@@ -3606,14 +4038,19 @@ def phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
     if frontier.g.src.device.type != device.type:
         raise AssertionError("frontier's line graph is not on the card")
     line_graph_edges = int(frontier.g.src.numel())
-    ete = api.build_engine(h, "ete", use_kernels=True)
+    ete_index, ref_builds = refs.take("email_eu", "ete", h)
+    ete = engine_mod.ETEEngine(h, ete_index, device=device)
+    ete.use_kernels = True
     lap("ete_build")
     snap = ete.snapshot()
     lap("ete_snapshot")
-    threshold = api.build_engine(h, "threshold")
+    tci, ref_builds_t = refs.take("email_eu", "threshold", h)
+    threshold = engine_mod.ThresholdEngine(h, tci)
     lap("threshold_build")
-    oracle = api.build_engine(h, "mst-oracle").oracle
+    oracle, ref_builds_o = refs.take("email_eu", "mst-oracle", h)
     lap("oracle_build")
+    ref_builds = {"ete": ref_builds, "threshold": ref_builds_t,
+                  "mst-oracle": ref_builds_o}
 
     rng = np.random.default_rng(23)
     us, vs = rng.integers(0, h.n, FRONTIER_PAIRS), rng.integers(
@@ -3762,6 +4199,9 @@ def phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
           "threshold_comp_shape": list(threshold.tci.comp.shape),
           "threshold_bytes": threshold.nbytes(),
           "host_seconds": seconds,
+          # host_seconds' ete_build / threshold_build / oracle_build are
+          # the parent's wait and wrapping; each build ran in a worker
+          "reference_builds": ref_builds,
           "frontier_mr_batch": mr_row, "frontier_s_reach_batch": dict(
               sr_row, s=2),
           "ete": {"queries": ETE_PAIRS, "batch_ms": ete_ms,
@@ -5126,7 +5566,8 @@ def dryrun_kernel_rows(cd, mm, ov, tc, launches, maxmin_launches, device):
 
 
 def phase_dryrun_path(counters, mm, ov, tc, device):
-    """The closure dry-run at m = 65,536 (``repro_torch.launch.
+    """The closure dry-run at m = ``DRYRUN_RUN_M`` (32,768: half the
+    paper's 65,536, for the script's time; ``repro_torch.launch.
     closure_dryrun.main``, in process): eight records under
     ``build/dryrun_core``, each cell's analytic terms priced at H100
     rates and the four device computations run once on the card (one
@@ -5134,13 +5575,13 @@ def phase_dryrun_path(counters, mm, ov, tc, device):
     the allgather and ring rounds, 32 + 6 ``threshold_step`` slices),
     64 x 64 sampled entries of every output held to the plain version
     (error 0).  Counts are set to 0 just before ``main`` and read just
-    after.  Then each kernel at those shapes, timed beside its bound and
-    library call (``dryrun_kernel_rows``).  Returns (launches, rows,
-    errs)."""
+    after.  Then each kernel at the production shapes (m = 65,536), timed
+    beside its bound and library call (``dryrun_kernel_rows``).  Returns
+    (launches, rows, errs)."""
     from repro_torch.launch import closure_dryrun as cd
     clock = Phase()
     reset_counts(counters)
-    records = cd.main(["--out", str(DRYRUN_OUT), "--m", str(DRYRUN_M),
+    records = cd.main(["--out", str(DRYRUN_OUT), "--m", str(DRYRUN_RUN_M),
                        "--S", str(DRYRUN_S), "--device", device.type])
     launches = read_counts(counters)
     torch.cuda.empty_cache()
@@ -5182,7 +5623,11 @@ def phase_dryrun_path(counters, mm, ov, tc, device):
                              f"{maxmin_launches}")
     rows, errs = dryrun_kernel_rows(cd, mm, ov, tc, launches,
                                     maxmin_launches, device)
-    emit({"phase": "dryrun_path", "m": DRYRUN_M, "S": DRYRUN_S,
+    emit({"phase": "dryrun_path", "m": DRYRUN_RUN_M, "S": DRYRUN_S,
+          "reduced": [f"m: {DRYRUN_M} cut to {DRYRUN_RUN_M} for the cells "
+                      f"and their rounds (the script's time limit); the "
+                      f"kernel rows stay at m = {DRYRUN_M}"],
+          "kernel_rows_m": DRYRUN_M,
           "data": records[0]["data"], "cells": cells, "launches": launches,
           "kernel_rows": rows, "run_seconds": run_seconds,
           "seconds": clock.seconds()})
@@ -5312,7 +5757,7 @@ def phase_lm_serve_path(counters, device):
     experts, top-4), then ``falcon-mamba-7b``, ``recurrentgemma-2b`` and
     ``whisper-large-v3`` at their full published configs (Whisper's
     seeded frames encoded into the cross K/V by ``prefill_cross`` in the
-    prefill).  At prompt 16 + 32 tokens the hybrid's 2,048 window never
+    prefill).  At prompt 16 + 16 tokens the hybrid's 2,048 window never
     wraps here; the CPU tests cover the wrap.  Each run serves in the
     config's bf16 and is held
     to its own forward along the served stream by ``decode_checks``: the
@@ -5599,7 +6044,8 @@ def phase_lm_dryrun_path(counters, device):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         rec = dryrun.lower_cell(LM_ARCH, shape, mesh_shape=mesh_shape,
-                                device=device, run=True)
+                                device=device, run=True,
+                                run_reps=LM_DRYRUN_RUN_REPS)
         rec["cell_s"] = time.perf_counter() - t0
         if rec["status"] != "ok" or rec.get("run_s") is None:
             raise AssertionError(f"lm_dryrun_path {shape}: {rec}")
@@ -5649,12 +6095,13 @@ def main() -> int:
     counters = {"label_join": lj, "maxmin_matmul": mm, "overlap": ov,
                 "threshold_step": tc}
     phase_env(build_mod, find_nvcc())
+    refs = HostReferences()
     err_checks, gather_err_checks = phase_kernel_checks(
         lj, searchsorted_join, build_mod, device)
     dense_errs = phase_dense_kernel_checks(mm, ov, tc, device)
     (launches, gather_launches, err_main, gather_err_main, times,
      gather_times, main_eng, main_build_s) = phase_main_path(
-         api, engine_mod, lj, searchsorted_join, device)
+         api, engine_mod, lj, searchsorted_join, device, refs)
     # the backends path runs frontier on this graph beside hl-index's
     # answers; the service path then updates main_eng in place
     main_h = main_eng.h
@@ -5682,7 +6129,7 @@ def main() -> int:
     phase_wide_labels(api, engine_mod, lj, device)
     (dense_launches, dense_pads, path_rows, closure_w,
      closure_eng) = phase_closure_path(api, semiring, ops, counters, wl,
-                                       device)
+                                       device, refs)
     sharded_launches, sharded_errs, sharded_rows, rank_inputs = \
         phase_sharded_path(api, dist, counters, closure_w, main, device)
     del closure_w, main
@@ -5695,7 +6142,7 @@ def main() -> int:
     phase_closure_small(api, ops, counters, device)
     backends_launches, ete_kernel, ete_workload_launches = \
         phase_backends_path(api, engine_mod, lj, counters, wl, main_h,
-                            main_pairs, main_mr, device)
+                            main_pairs, main_mr, device, refs)
     workload_launches += ete_workload_launches
     bench_launches = phase_bench_path(counters, main_eng, closure_eng)
     del main_eng, closure_eng
@@ -5857,4 +6304,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        HostReferences.close_all()
+    sys.exit(code)

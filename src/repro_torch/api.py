@@ -123,8 +123,24 @@ A ``ProcessMesh`` puts each block on its own rank of a
 
 Both regimes of ``sharded``, ``hl-index`` / ``hl-index-basic``,
 ``build_sharded``, ``neighbor_csr(mesh=)`` and ``DeviceSnapshot.to_mesh``
-run on ranks; mesh serving, replicas, the store and a write-ahead log
-raise ``NotImplementedError`` there.
+run on ranks, and so do serving, replicas and the store.  A service on
+ranks has one leader: every rank builds the same service, global rank 0
+admits the requests and the others serve its stream of micro-batches,
+updates and checkpoints until it closes:
+
+    svc = serve(h, "sharded", mesh=pm, build_labels=True,
+                config=ServiceConfig(use_kernels=True))
+    if pm.rank == 0:                 # the leader: the only one clients call
+        f = svc.mr(4, 8); svc.update(inserts=[[3, 7, 9]]); f.result()
+        svc.checkpoint(IndexStore("store/"))   # rank 0 writes, all attach
+        svc.close()                  # the followers' follow() returns
+    else:
+        svc.follow()                 # submit / update raise here
+    svc = ReachabilityService.restore("store/", mesh=pm)  # on every rank
+
+``save_index`` / ``load_index(mesh=pm)`` / ``IndexStore`` write from rank
+0 alone (the ranks share one filesystem), return the same manifest on
+every rank, and land a closure's W* one block a rank.
 """
 from __future__ import annotations
 
@@ -194,7 +210,8 @@ def serve(h_or_engine, backend: str = "auto", *,
 
     Args:
       h_or_engine: a ``Hypergraph`` to build an engine over, or an
-        already-built ``ReachabilityEngine`` to serve as-is.
+        already-built ``ReachabilityEngine`` to serve as-is (an engine
+        built on ranks is served on its ranks).
       config: a ``ServiceConfig`` — the typed home of every serving knob
         (batching, tenant weights, priorities, replicas, kernels).
         Defaults to ``ServiceConfig()``.
@@ -203,8 +220,14 @@ def serve(h_or_engine, backend: str = "auto", *,
         ``device=None`` means the mesh's device, or ``"cuda"`` without a
         mesh, and raises without a CUDA device; pass ``device="cpu"``
         (or a CPU mesh) to serve on the host.  ``mesh`` (a
-        ``LogicalMesh``) is also handed to the service so the resident
-        snapshot is kept on it.
+        ``LogicalMesh`` or a ``ProcessMesh``) is also handed to the
+        service so the resident snapshot is kept on it.  With a
+        ``ProcessMesh`` every rank calls ``serve`` alike and the engine
+        builds on the ranks; rank 0 gets the leader, the others a
+        follower that serves in ``follow()`` (``ReachabilityService``).
+        A prebuilt engine not built on ranks, served with a
+        ``ProcessMesh``, becomes an engine on those ranks for good
+        (``engine.on_ranks``), also after the service closes.
       start: start the background admission thread (``start=False`` =
         synchronous mode; call ``svc.drain()``).
 

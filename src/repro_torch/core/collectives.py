@@ -20,7 +20,13 @@ a mesh axis, written over ``torch.distributed``:
   rows) crosses as tensors here, so the bytes moved are the data's own.
   ``gather_ragged_or_raise`` is the same exchange where a rank may bring
   an error in place of its tensor: it still joins, and then every rank
-  raises, so no rank waits on one that failed;
+  raises, so no rank waits on one that failed; ``agree_or_raise`` is the
+  status word alone (one max-reduce of a flag; the errors' texts cross
+  only when a rank failed);
+* ``broadcast_from(t, mesh, src)`` — over the world group: every rank
+  passes a flat int64 tensor of one length and gets ``src``'s contents
+  (one ``broadcast``), what a leader rank uses to hand its decisions to
+  the others;
 * ``exchange_pieces(sends, shapes, like, mesh)`` — point to point over
   the world group, what a resharding ``jax.device_put`` moves: each rank
   sends each peer the piece of its block that the peer's new block
@@ -40,11 +46,13 @@ same transfers on an explicit process group, what the mesh helpers call
 once they have resolved the axis's subgroup and staging.
 
 Only calls present in torch 2.11 and 2.13 are used
-(``all_gather_into_tensor``, ``batch_isend_irecv``, ``all_reduce``).
+(``all_gather_into_tensor``, ``batch_isend_irecv``, ``all_reduce``,
+``broadcast``).
 """
 from __future__ import annotations
 
 import hashlib
+import json
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -53,7 +61,9 @@ import torch.distributed as tdist
 
 __all__ = ["all_gather_panel", "ring_shift", "all_reduce_max",
            "all_reduce_min", "all_gather_ragged", "gather_ragged_or_raise",
-           "exchange_pieces", "exchange_device",
+           "agree_or_raise", "broadcast_from", "broadcast_json",
+           "encode_json", "decode_json", "exchange_pieces",
+           "exchange_device",
            "same_on_every_rank", "gather_over", "shift_over", "max_over",
            "min_over"]
 
@@ -232,6 +242,70 @@ def gather_ragged_or_raise(t: Optional[torch.Tensor], mesh, what: str,
         raise RuntimeError(f"{what} on ranks: " + "; ".join(
             f"rank {k} failed ({msg})" for k, msg in failed)) from error
     return [p[1:] for p in parts]
+
+
+def agree_or_raise(mesh, what: str,
+                   error: Optional[BaseException] = None) -> None:
+    """One status word a rank: a max-reduce of a flag over ``mesh``'s
+    world (0 = this rank's share succeeded, 1 = it failed with
+    ``error``).  If any rank failed, the texts cross through
+    ``gather_ragged_or_raise`` and every rank raises its
+    ``RuntimeError``; else every rank returns, having waited for all."""
+    dev = exchange_device(mesh)
+    flag = torch.tensor([0 if error is None else 1], dtype=torch.int64,
+                        device=dev)
+    if mesh.world_size > 1:
+        tdist.all_reduce(flag, op=tdist.ReduceOp.MAX)
+    if int(flag.item()):
+        gather_ragged_or_raise(torch.empty(0, dtype=torch.int64, device=dev),
+                               mesh, what, error)
+
+
+def broadcast_from(t: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
+    """Global rank ``src``'s flat int64 ``t`` on every rank of ``mesh``'s
+    world (one ``broadcast``); every rank passes a tensor of the same
+    length, whose contents only ``src``'s matter.  Returns a new tensor
+    on ``t``'s device; in a world of one rank, ``t`` itself."""
+    if t.dtype != torch.int64 or t.dim() != 1:
+        raise ValueError(f"broadcast_from takes a flat int64 tensor, got "
+                         f"{t.dtype} of shape {tuple(t.shape)}")
+    if mesh.world_size == 1:
+        return t
+    stage = _stage_for(t, mesh)
+    if stage is None:
+        buf = t.contiguous().clone()
+    else:
+        buf = stage("broadcast", t.shape, t.dtype)
+        buf.copy_(t)
+    tdist.broadcast(buf, src=src)
+    return buf if stage is None else buf.to(t.device, copy=True)
+
+
+def encode_json(obj) -> np.ndarray:
+    """A JSON-able object as flat int64, one word per byte of its JSON:
+    the form ``broadcast_json`` and the serving stream carry it in."""
+    return np.frombuffer(json.dumps(obj).encode(), np.uint8).astype(np.int64)
+
+
+def decode_json(words):
+    """``encode_json``'s object back from its words."""
+    return json.loads(np.asarray(words, np.int64).astype(np.uint8).tobytes())
+
+
+def broadcast_json(obj, mesh, src: int = 0):
+    """Global rank ``src``'s JSON-able ``obj`` on every rank of ``mesh``'s
+    world (the other ranks' ``obj`` is ignored): its length in one
+    ``broadcast_from``, then its ``encode_json`` words in another.  Every
+    rank, ``src`` too, returns the decoded copy."""
+    dev = exchange_device(mesh)
+    words = (encode_json(obj) if mesh.rank == src
+             else np.zeros(0, np.int64))
+    size = int(broadcast_from(torch.tensor([words.size], dtype=torch.int64,
+                                           device=dev), mesh, src).item())
+    if mesh.rank != src:
+        words = np.zeros(size, np.int64)
+    return decode_json(broadcast_from(torch.from_numpy(words).to(dev), mesh,
+                                      src).cpu().numpy())
 
 
 def exchange_pieces(sends: Dict[int, torch.Tensor],

@@ -52,8 +52,10 @@ whole on every rank, for checks).  The ``sharded`` engine builds, serves
 and updates on ranks in both regimes: the closure regime keeps a W*
 block a rank and derives the replicated snapshot with one max-reduce and
 one all-gather; the label regime builds through ``build_sharded`` on the
-ranks and serves off ``to_mesh``'s blocks.  The store, serving and
-replicas raise ``NotImplementedError`` there (ROADMAP A10d).
+ranks and serves off ``to_mesh``'s blocks.  Serving, replicas and the
+store run there too (``serve/reach_service.py``, ``store/format.py``):
+a saved W* crosses to rank 0 a block at a time and loads a block a
+rank.
 
 The reference's ``collective_bytes_of`` parses the XLA HLO text of a
 lowered program; the port lowers nothing to HLO, so that helper has no

@@ -79,7 +79,7 @@ import torch
 
 from ..device import DeviceLike, host_to_device, resolve_device
 from .hypergraph import Hypergraph, apply_edge_edits
-from .mesh import LogicalMesh, ProcessMesh, not_on_ranks
+from .mesh import LogicalMesh, ProcessMesh
 from .hlindex import (CONSTRUCTION_MODES, HLIndex, build_basic, build_fast,
                       build_sharded, pad_label_rows)
 from .maintenance import apply_updates, normalize_update_batch
@@ -323,7 +323,10 @@ class _EngineBase:
         every rank calls ``update`` with the same edits.  Before anything
         changes, one ragged all-gather of a digest of the edits as passed
         checks that they agree; if any rank's differ, every rank raises
-        ``ValueError`` and no rank's state changes."""
+        ``ValueError`` and no rank's state changes.  With a sink attached
+        on every rank (``attach_wal``), each rank appends through its own
+        sink, then one status word crosses: if any rank's append failed,
+        every rank raises before any state changes."""
         if self.update_capability == "unsupported":
             raise UpdateUnsupported(
                 f"backend {self.name!r} does not maintain its structure "
@@ -333,8 +336,16 @@ class _EngineBase:
                                              deletes)
         ins, dels = normalize_update_batch(self.h, inserts, deletes)
         wal = self._wal
-        if wal is not None:
+        if wal is not None and self.rank_mesh is None:
             wal.append(self.version + 1, ins, dels)
+        elif wal is not None:
+            from .collectives import agree_or_raise
+            error = None
+            try:
+                wal.append(self.version + 1, ins, dels)
+            except Exception as exc:        # every rank raises below
+                error = exc
+            agree_or_raise(self.rank_mesh, "journal append", error)
         self._apply_update(ins, dels)
         if wal is not None:
             wal.committed(self)
@@ -351,11 +362,28 @@ class _EngineBase:
     def attach_wal(self, sink) -> None:
         """Journal every subsequent ``update`` through ``sink`` — any
         object with ``append(version, inserts, deletes)`` (called before
-        the apply) and ``committed(engine)`` (called after).  An engine
-        built on ranks raises ``NotImplementedError`` (ROADMAP A10d)."""
-        not_on_ranks(self.rank_mesh, "a write-ahead log attached to an "
-                                     "engine built on ranks")
+        the apply) and ``committed(engine)`` (called after).  On an
+        engine on ranks every rank attaches its own sink (an
+        ``IndexStore`` writes from rank 0 alone) and ``update`` settles
+        the appends' status across the ranks."""
         self._wal = sink
+
+    def on_ranks(self, mesh: ProcessMesh) -> None:
+        """Make this engine, of which every rank of ``mesh`` holds an
+        equal copy, an engine on ranks for good: from here on every rank
+        calls ``update`` with the same edits (which then agree across
+        the ranks), and a store writes its files from global rank 0
+        alone.  A service given ``mesh=`` does this to an engine not
+        built on ranks; it stays so after the service closes.  An engine
+        already on ``mesh`` is left as it is, one on another mesh
+        refused."""
+        if not isinstance(mesh, ProcessMesh):
+            raise TypeError(f"on_ranks takes a ProcessMesh, got "
+                            f"{type(mesh).__name__}")
+        if self.rank_mesh is not None and self.rank_mesh != mesh:
+            raise ValueError(f"the engine is on {self.rank_mesh}, not on "
+                             f"{mesh}")
+        self.rank_mesh = mesh
 
     def detach_wal(self):
         """Stop journaling; returns the detached sink."""
@@ -709,8 +737,8 @@ def build(h: Optional[Hypergraph] = None, backend: str = "auto", *,
         construction.  A restored ``sharded`` engine lands on it.  A
         ``ProcessMesh`` puts ``sharded`` (both regimes) and the HL-index
         backends' sharded construction on ranks (every rank calls
-        ``build`` with the same ``h``); restoring onto one raises
-        ``NotImplementedError``.
+        ``build`` with the same ``h``), and ``restore`` onto one loads
+        the engine on the ranks (``load_index(mesh=pm)``).
       device: where device-resident structures land.  ``None`` means the
         mesh's device when a mesh is given, else ``"cuda"``; on a host
         without a CUDA device that raises — pass ``device="cpu"`` (or a

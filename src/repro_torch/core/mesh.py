@@ -47,7 +47,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 
 __all__ = ["LogicalMesh", "make_mesh", "default_line_graph_mesh",
-           "ProcessMesh", "make_process_mesh", "not_on_ranks"]
+           "ProcessMesh", "make_process_mesh"]
 
 
 def _grid(shape: Sequence[int], axis_names: Sequence[str]
@@ -243,12 +243,3 @@ def make_process_mesh(shape: Sequence[int], axes: Sequence[str], *,
         device = (f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
                   if tdist.get_backend() == "nccl" else "cuda:0")
     return ProcessMesh(shape, axes, resolve_device(device))
-
-
-def not_on_ranks(mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` when ``mesh`` is a ``ProcessMesh``:
-    ``what`` has no route on ranks yet, and nothing stands in for one."""
-    if isinstance(mesh, ProcessMesh):
-        raise NotImplementedError(
-            f"{what} does not run on a ProcessMesh yet (ROADMAP A10d); "
-            f"use a LogicalMesh")

@@ -230,10 +230,15 @@ class DeviceSnapshot:
         ``base`` (an earlier block of the same padded geometry on the
         same mesh) and ``dirty_rows``, only the dirty rows this rank owns
         are copied, into a clone of ``base``'s block or, with
-        ``donate_base=True``, into ``base``'s own tensors.
+        ``donate_base=True``, into ``base``'s own tensors.  A block lands
+        only on its own mesh and axes, where each rank copies its own
+        block (or its dirty rows of it): the reference re-shards an
+        array onto the mesh it already lies on, and gets a copy.
         """
-        if self.block:
-            raise ValueError("to_mesh of a block: land the whole instead")
+        if self.block and (mesh != self.mesh or (
+                axes is not None and tuple(axes) != tuple(self.axes))):
+            raise ValueError("to_mesh of a block lands only on its own "
+                             "mesh and axes: land the whole instead")
         if axes is None:
             axes = tuple(mesh.axis_names[-2:])
         if len(axes) < 2:
@@ -243,7 +248,7 @@ class DeviceSnapshot:
         axes = tuple(axes)
         row_ax, col_ax = axes
         r, c = mesh.shape[row_ax], mesh.shape[col_ax]
-        n, lmax = self.ranks.shape
+        n, lmax = self.global_shape
         n_pad = -(-n // r) * r if n else 0
         l_pad = -(-lmax // c) * c if lmax else 0
         if isinstance(mesh, ProcessMesh):
@@ -289,6 +294,9 @@ class DeviceSnapshot:
         row0 = mesh.axis_index(axes[0]) * br
         col0 = mesh.axis_index(axes[1]) * bc
         n, lmax = self.ranks.shape
+        if self.block:
+            # this rank's rows and columns are the tensors themselves
+            row0, col0, n, lmax = 0, 0, br, bc
         cols = slice(min(col0, lmax), min(col0 + bc, lmax))
         width = cols.stop - cols.start
         dev = mesh.device
@@ -296,7 +304,9 @@ class DeviceSnapshot:
                 and base.mesh == mesh and tuple(base.axes) == axes
                 and base.padded_shape == (n_pad, l_pad)):
             rows = _as_index(dirty_rows, self.device)
-            rows = rows[(rows >= row0) & (rows < row0 + br)]
+            first = mesh.axis_index(axes[0]) * br     # first row owned here
+            local = rows[(rows >= first) & (rows < first + br)] - first
+            rows = local + row0
             pr = torch.full((rows.numel(), bc), _INT32_MAX,
                             dtype=torch.int32, device=dev)
             ps = torch.zeros((rows.numel(), bc), dtype=torch.int32,
@@ -304,7 +314,7 @@ class DeviceSnapshot:
             pr[:, :width] = self.ranks.index_select(0, rows)[:, cols].to(dev)
             ps[:, :width] = self.svals.index_select(0, rows)[:, cols].to(dev)
             pl = self.lengths.index_select(0, rows).to(dev)
-            local = (rows - row0).to(dev)
+            local = local.to(dev)
             out = [base.ranks, base.svals, base.lengths]
             if not donate_base:
                 out = [t.clone() for t in out]

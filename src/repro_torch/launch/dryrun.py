@@ -94,7 +94,8 @@ the cell's ``seq_len`` (seeded), through ``make_train_step`` /
 cache of ``cache_structs``' shapes at ``pos = seq_len - 1``.  The port
 has no tensor-parallel execution, so any other cell says why in
 ``run_reason`` and runs nothing.  A run adds ``run_batch``, ``run_s``
-(CUDA events, the median of 3 after 1 warm-up; ``None`` off the card),
+(CUDA events, the median of ``run_reps`` (3 by default) after 1 warm-up;
+``None`` off the card),
 ``run_times_s``, ``run_flops`` (``FlopCounterMode`` over the untimed
 warm-up), ``peak_bytes`` (``torch.cuda.max_memory_allocated`` over
 the timed passes; ``None`` off the card) and ``run_bound_s``: the larger
@@ -147,7 +148,7 @@ COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
                     "all-to-all", "collective-permute")
 # XLA's output tuple holds one 8-byte buffer pointer a leaf
 _TUPLE_ENTRY_BYTES = 8
-# timed passes of a run
+# timed passes of a run, by default
 _RUN_REPS = 3
 # parameters a decode step never reads: LLaVA's projector (no patches in
 # decode), Whisper's encoder and its cross-attention K/V projections (the
@@ -508,10 +509,11 @@ def _sample(p: torch.Tensor, n: int = 4096) -> torch.Tensor:
     return flat[::max(1, flat.numel() // n)].clone()
 
 
-def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device
-             ) -> Dict[str, Any]:
-    """Runs one device's share of the cell (module docstring) and returns
-    the fields it adds to the record."""
+def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
+             run_reps: int = _RUN_REPS) -> Dict[str, Any]:
+    """Runs one device's share of the cell (module docstring), timed
+    ``run_reps`` times after the warm-up, and returns the fields it adds
+    to the record."""
     from torch.utils.flop_counter import FlopCounterMode
     long_ctx = shape.name.startswith("long")
     split = 1 if long_ctx else math.prod(mesh.shape[a]
@@ -614,7 +616,7 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    times = [_timed(one, device) for _ in range(_RUN_REPS)]
+    times = [_timed(one, device) for _ in range(run_reps)]
     peak = torch.cuda.max_memory_allocated() if on_card else None
     check()
     a = roofline.analytic_cell_model(
@@ -640,14 +642,15 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeCell], *,
                multi_pod: bool = False, keep_hlo: bool = False,
                overrides: Optional[Dict] = None,
                mesh_shape: Optional[tuple] = None,
-               device: DeviceLike = None, run: bool = False
-               ) -> Dict[str, Any]:
+               device: DeviceLike = None, run: bool = False,
+               run_reps: int = _RUN_REPS) -> Dict[str, Any]:
     """One cell's record (module docstring).  ``overrides`` applies
     ``dataclasses.replace`` on the config and ``mesh_shape`` re-factors
     the mesh into (data, model) or (pod, data, model), as the
     reference's.  ``shape_name`` may be a ``ShapeCell`` (a reduced cell
     for a quick run).  ``keep_hlo`` does nothing: there is no HLO.
-    ``device=None`` means ``"cuda"`` and raises without a card."""
+    ``device=None`` means ``"cuda"`` and raises without a card.
+    ``run_reps`` is the number of timed passes of a run."""
     del keep_hlo
     dev = resolve_device(device)
     cfg = get_config(arch)
@@ -689,7 +692,7 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeCell], *,
         if reason is not None:
             rec["run_reason"] = reason
         else:
-            rec.update(run_cell(cfg, shape, mesh, dev))
+            rec.update(run_cell(cfg, shape, mesh, dev, run_reps))
     return rec
 
 

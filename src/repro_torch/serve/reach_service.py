@@ -59,6 +59,29 @@ Design (the mechanisms the module exists for):
   service's mesh (the ``sharded`` backend's) is served as it is.
   ``repro_torch.serve.replicas`` builds read-replica fan-out on the same
   contract.
+* **Serving on ranks** — on a ``ProcessMesh`` (``mesh=pm``, or an engine
+  built on one) every rank constructs the same service over the same
+  engine and config.  Global rank 0 is the *leader*: only its
+  ``submit`` / ``submit_many`` / ``submit_stream`` / ``update`` /
+  ``checkpoint`` / ``drain`` / ``close`` are called, and admission
+  (deadlines, tenants, priorities, cancellation) runs there alone.  The
+  other ranks are *followers*: each calls ``follow()``, which serves the
+  leader's event stream (``repro_torch.serve.rank_stream``) until the
+  leader closes; their ``submit`` and ``update`` raise.  Each
+  micro-batch, update and checkpoint crosses as one event, so every rank
+  runs the same dispatch over the same groups, enters every collective
+  of the row assembly in the same order, and swaps its snapshot (and a
+  ``ReplicaGroup`` its copies) between the same two micro-batches.  Every
+  rank checks a batch's ids against its engine before the first
+  collective, and ends each step with one status word: if a rank failed,
+  every rank fails that step, the leader fails its futures, and serving
+  goes on.  A rank that dies inside a collective takes the group down at
+  the group's timeout; nothing papers over that.  An idle threaded
+  leader sends a keep-alive every ``keepalive_s`` (a quarter of the
+  group's timeout), so followers never time out while it is quiet; a
+  synchronous leader (``start=False``) must dispatch or close within the
+  timeout.  From the start of ``close()`` the leader refuses requests,
+  so none can queue behind the close event.
 
 Backends with no snapshot form (``mst-oracle``) are served through their
 own ``mr_batch`` / ``s_reach_batch`` by the same admission loop — the
@@ -93,12 +116,14 @@ from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
 import numpy as np
 import torch
 
+from ..core import collectives as coll
 from ..core.engine import SnapshotUnsupported, WorkloadUnsupported
-from ..core.mesh import not_on_ranks
+from ..core.mesh import ProcessMesh
 from ..core.query import KernelSnapshot
 from ..device import DeviceLike
 from ..kernels.build import load_library
 from ..store import IndexStore, restore_engine
+from . import rank_stream as rs
 from .scheduler import (PRIORITY_CLASSES, DeadlineExceeded, TenantSpec,
                         WeightedFairScheduler, _Entry)
 
@@ -291,7 +316,10 @@ class ServiceConfig:
 @dataclasses.dataclass
 class ServiceStats:
     """Counters the admission loop maintains (read via ``stats()``); the
-    same fields as the reference's, counted the same way."""
+    same fields as the reference's, counted the same way.  On a follower
+    rank of a service on ranks only the dispatch-side fields count (equal
+    to the leader's); the admission-side ones (``submitted``,
+    ``expired`` and the per-tenant maps) stay zero and empty there."""
 
     submitted: int = 0
     answered: int = 0
@@ -332,19 +360,27 @@ def _resolve(fut: Future, value) -> None:
         pass                         # cancelled mid-dispatch: drop quietly
 
 
+def _deliver(entry: _Entry, value) -> None:
+    _resolve(entry.future, value)
+
+
 def _bucket_size(q: int, min_bucket: int, max_batch: int) -> int:
     """Smallest power-of-two >= q, clamped to [min_bucket, max_batch]."""
     b = 1 << max(q - 1, 0).bit_length()
     return max(min(max(b, min_bucket), max_batch), q)
 
 
-def refuse_ranks(engine, mesh) -> None:
-    """Mesh serving and replicas have no route on a ``ProcessMesh`` yet:
-    a service on one, or over an engine built on one, raises
-    ``NotImplementedError`` (ROADMAP A10d)."""
-    not_on_ranks(mesh, "mesh serving (ReachabilityService, ReplicaGroup)")
-    not_on_ranks(getattr(engine, "rank_mesh", None),
-                 "serving an engine built on ranks")
+def rank_mesh_of(engine, mesh) -> Optional[ProcessMesh]:
+    """The ``ProcessMesh`` a service on ``engine`` and ``mesh`` runs on:
+    ``mesh`` if it is one, else the engine's ``rank_mesh``, else
+    ``None`` (a service in one process)."""
+    own = getattr(engine, "rank_mesh", None)
+    if isinstance(mesh, ProcessMesh):
+        if own is not None and own != mesh:
+            raise ValueError(f"the engine is built on {own}, not on the "
+                             f"service's {mesh}")
+        return mesh
+    return own
 
 
 class ReachabilityService:
@@ -357,9 +393,15 @@ class ReachabilityService:
       config: a ``ServiceConfig``; the typed home of every serving knob
         (batching, scheduling, placement).  Defaults to
         ``ServiceConfig()``.
-      mesh: optional ``LogicalMesh``; the resident snapshot is kept on
-        it (``to_mesh``) and refreshed row-wise after scoped updates.
-        Ignored for backends with no snapshot form.
+      mesh: optional ``LogicalMesh`` or ``ProcessMesh``; the resident
+        snapshot is kept on it (``to_mesh``) and refreshed row-wise after
+        scoped updates.  Ignored for backends with no snapshot form.  A
+        ``ProcessMesh`` (or an engine built on one) makes this a service
+        on ranks (module docstring): rank 0 leads, the others
+        ``follow()``; an engine not built on ranks becomes an engine on
+        them for good (``engine.on_ranks(mesh)``: its updates agree
+        across the ranks and its store writes from rank 0, also after
+        the service closes).
       start: start the background admission thread.  With
         ``start=False`` the service is synchronous: call ``drain()`` to
         process everything pending (deterministic; what the tests use).
@@ -396,7 +438,7 @@ class ReachabilityService:
                      if v is not None}
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
-        refuse_ranks(engine, mesh)
+        ranks = rank_mesh_of(engine, mesh)
         if cfg.replicas > 1 and not self._replica_aware:
             raise ValueError(
                 f"ServiceConfig(replicas={cfg.replicas}) needs replica "
@@ -431,12 +473,28 @@ class ReachabilityService:
         self._kernel_snap: Optional[KernelSnapshot] = None
         self._running = False
         self._thread: Optional[threading.Thread] = None
+        # serving on ranks: the event stream, who leads, and the follower's
+        # store (a checkpoint event names it)
+        self._ranks = ranks
+        self.leader = ranks is None or ranks.rank == 0
+        self._stream = None
+        self._closed = False
+        self._store = None
+        self.failed_events = 0       # events that failed on every rank
+        if ranks is not None:
+            engine.on_ranks(ranks)
+            self._stream = rs.RankStream(ranks)
+            self.keepalive_s = rs.keepalive_interval(ranks)
         if start:
             self.start()
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "ReachabilityService":
+        """Start the admission thread (a follower admits nothing: it
+        serves in ``follow()``)."""
+        if not self.leader:
+            return self
         with self._cv:
             if self._running:
                 return self
@@ -449,14 +507,26 @@ class ReachabilityService:
     def close(self) -> None:
         """Stop the admission thread; everything already submitted is
         resolved first — answered, or failed with ``DeadlineExceeded``
-        if its deadline passed (no future is left unresolved)."""
+        if its deadline passed (no future is left unresolved).  On ranks
+        the leader then sends the close event, after which the followers'
+        ``follow()`` returns.  The leader refuses requests from the
+        start of ``close`` on, so none can arrive after the last drain."""
         with self._cv:
             self._running = False
+            if self._stream is not None:
+                self._closed = True
             self._cv.notify_all()
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if not self.leader:
+            return
         self.drain()                 # no-thread mode: flush synchronously
+        if self._stream is not None:
+            with self._dispatch_lock:
+                if not self._stream.closed:
+                    self._stream.send(rs.CLOSE,
+                                      version=self.engine.version)
 
     def __enter__(self) -> "ReachabilityService":
         return self
@@ -483,6 +553,7 @@ class ReachabilityService:
         Validation is the same contract as ``validate_batch`` (integer
         ids in ``[0, n)``) on a scalar fast path — admission is the
         per-request hot loop, so it avoids array round-trips."""
+        self._check_leader("submit")
         if not isinstance(request, tuple(REQUEST_TYPES.values())):
             raise TypeError(
                 f"expected one of {sorted(REQUEST_TYPES)} requests, got "
@@ -517,6 +588,7 @@ class ReachabilityService:
         expiry = None if deadline_ms is None else now + deadline_ms / 1e3
         entry = _Entry(request, fut, now, expiry)
         with self._cv:
+            self._check_leader("submit")     # close() may have begun
             self._queue.push(entry)
             self._stats.submitted += 1
             t = request.tenant
@@ -636,6 +708,16 @@ class ReachabilityService:
     def s_distance(self, u: int, v: int, s: int) -> Future:
         return self.submit(SDistanceRequest(int(u), int(v), int(s)))
 
+    def _check_leader(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(
+                f"{what} on a follower rank: a service on ranks takes "
+                f"requests, updates and checkpoints on global rank 0 only; "
+                f"this rank serves them in follow()")
+        if self._closed:
+            raise RuntimeError(f"{what} after close(): a service on ranks "
+                               f"takes nothing once it closes")
+
     def update(self, inserts=(), deletes=()) -> None:
         """Apply hyperedge edits through the engine.  Dispatch stops for
         the whole update: it holds the dispatch lock, so a micro-batch
@@ -644,9 +726,19 @@ class ReachabilityService:
         taken) until the update returns.  The next micro-batch then
         swaps in the refreshed snapshot and answers them against the new
         version.  On a graph whose update scope is its giant component
-        that wait is the host rebuild's seconds."""
+        that wait is the host rebuild's seconds.  On ranks the edits
+        cross to every rank as one event and every rank applies them; a
+        failure on any rank raises ``RuntimeError`` here."""
+        self._check_leader("update")
         with self._dispatch_lock:
-            self.engine.update(inserts, deletes)
+            if self._stream is None:
+                self.engine.update(inserts, deletes)
+            else:
+                payload = rs.encode_edits(inserts, deletes)
+                self._stream.send(rs.UPDATE, payload,
+                                  version=self.engine.version)
+                self._rank_update(*rs.decode_edits(payload),
+                                  self.engine.version)
             self._stats.updates += 1
 
     # -- durability (repro_torch.store) ------------------------------------
@@ -657,10 +749,21 @@ class ReachabilityService:
         engine's WAL sink — every subsequent ``update`` then journals
         (fsync) before applying, so a crash at any point is recoverable
         via ``restore``.  Runs under the dispatch lock, never mid-batch.
-        Returns the checkpointed engine version."""
+        Returns the checkpointed engine version.  On ranks the checkpoint
+        is one event: every rank runs the store's rank route at the same
+        point of the stream (rank 0 writes; the ranks share the store's
+        filesystem)."""
+        self._check_leader("checkpoint")
         with self._dispatch_lock:
-            store.checkpoint(self.engine)
-            store.attach(self.engine)
+            if self._stream is None:
+                store.checkpoint(self.engine)
+                store.attach(self.engine)
+            else:
+                self._stream.send(rs.CHECKPOINT, coll.encode_json(
+                    {"path": str(store.path.resolve()),
+                     "checkpoint_every": store.checkpoint_every,
+                     "verify": store.verify}), version=self.engine.version)
+                self._rank_checkpoint(store, None)
             return int(self.engine.version)
 
     @classmethod
@@ -681,7 +784,10 @@ class ReachabilityService:
         ``service_opts`` are the constructor's (``use_kernels=True``
         serves through the ``label_join_gather`` kernel); ``mesh`` /
         ``axes`` place a ``sharded`` checkpoint and the resident snapshot
-        on that logical mesh (with no ``device``, the mesh's)."""
+        on that logical mesh (with no ``device``, the mesh's).  With a
+        ``ProcessMesh`` every rank calls this: each restores the engine on
+        the ranks (``IndexStore.restore(mesh=pm)``) and gets its rank's
+        service around it, rank 0 the leader."""
         if isinstance(store_or_path, IndexStore):
             engine = store_or_path.restore(device=device, mesh=mesh,
                                            verify=verify,
@@ -716,25 +822,46 @@ class ReachabilityService:
     def _loop(self) -> None:
         while True:
             with self._cv:
-                while self._running and not len(self._queue):
-                    self._cv.wait(timeout=0.05)
+                while (self._running and not len(self._queue)
+                       and not self._keepalive_due()):
+                    self._cv.wait(timeout=self._idle_wait_s())
                 if not self._running and not len(self._queue):
                     return
-                # linger for the full coalescing window (each submit()
-                # notify wakes the wait, so loop until the deadline or a
-                # full batch) — the latency/throughput admission knob
-                deadline = time.monotonic() + self.max_wait_s
-                while (self._running
-                        and len(self._queue) < self.max_batch):
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    self._cv.wait(timeout=remaining)
-                batch, expired = self._queue.take(self.max_batch,
-                                                  time.monotonic())
+                idle = not len(self._queue)  # quiet past the keep-alive
+                if not idle:
+                    # linger for the full coalescing window (each
+                    # submit() notify wakes the wait, so loop until the
+                    # deadline or a full batch) — the latency/throughput
+                    # admission knob
+                    deadline = time.monotonic() + self.max_wait_s
+                    while (self._running
+                            and len(self._queue) < self.max_batch):
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        self._cv.wait(timeout=remaining)
+                    batch, expired = self._queue.take(self.max_batch,
+                                                      time.monotonic())
+            if idle:
+                self._keepalive()
+                continue
             self._fail_expired(expired)
             if batch:
                 self._dispatch(batch)
+
+    def _idle_wait_s(self) -> float:
+        if self._stream is None:
+            return 0.05
+        return max(min(0.05, self.keepalive_s), 1e-3)
+
+    def _keepalive_due(self) -> bool:
+        return (self._stream is not None and time.monotonic()
+                - self._stream.last_sent >= self.keepalive_s)
+
+    def _keepalive(self) -> None:
+        with self._dispatch_lock:
+            if not self._stream.closed and self._keepalive_due():
+                self._stream.send(rs.KEEPALIVE, version=self.engine.version)
 
     def drain(self, max_batches: Optional[int] = None) -> int:
         """Synchronously dispatch pending requests in the caller's
@@ -781,13 +908,21 @@ class ReachabilityService:
     def _dispatch(self, batch: List[_Entry]) -> None:
         try:
             with self._dispatch_lock:
-                snap = self._refresh_snapshot()
                 groups: Dict[str, List[_Entry]] = {}
                 for entry in batch:
                     groups.setdefault(entry.request.kind, []).append(entry)
-                for kind, group in groups.items():
-                    self._dispatch_group(kind, group, snap)
-                self._stats.answered += len(batch)
+                if self._stream is None:
+                    snap = self._refresh_snapshot()
+                    for kind, group in groups.items():
+                        self._dispatch_group(kind, group, snap, _deliver)
+                    self._stats.answered += len(batch)
+                else:
+                    version = self.engine.version
+                    self._stream.send(rs.BATCH, rs.encode_batch(
+                        [(k, [e.request for e in g])
+                         for k, g in groups.items()]), version=version,
+                        groups=len(groups))
+                    self._rank_batch(groups, version, None, _deliver)
                 for entry in batch:
                     t = entry.request.tenant
                     self._stats.tenant_answered[t] = \
@@ -799,9 +934,145 @@ class ReachabilityService:
                 if not entry.future.done():
                     entry.future.set_exception(exc)
 
-    def _dispatch_group(self, kind: str, group: List[_Entry], snap) -> None:
+    # -- serving on ranks ----------------------------------------------------
+
+    def follow(self) -> None:
+        """Serve the leader's stream on a follower rank until the leader
+        closes.  Each micro-batch is dispatched exactly as on the leader,
+        its answers dropped; an event that failed on every rank is
+        counted in ``failed_events`` and serving goes on with the next."""
+        if self.leader:
+            raise RuntimeError("follow() is for the follower ranks; the "
+                               "leader (global rank 0) admits requests")
+        while True:
+            head, payload, error = self._stream.receive()
+            if head.kind == rs.CLOSE:
+                self._closed = True
+                return
+            if head.kind == rs.KEEPALIVE:
+                continue
+            with self._dispatch_lock:
+                try:
+                    self._follow_event(head, payload, error)
+                except Exception:                      # noqa: BLE001
+                    # every rank raised this step's error (agree_or_raise)
+                    self.failed_events += 1
+
+    def _follow_event(self, head, payload, error) -> None:
+        if head.kind == rs.BATCH:
+            groups: Dict[str, List[_Entry]] = {}
+            if error is None:
+                try:
+                    for kind, reqs in rs.decode_batch(payload,
+                                                      REQUEST_TYPES):
+                        groups[kind] = [_Entry(r, None, 0.0, None)
+                                        for r in reqs]
+                    if len(groups) != head.groups:
+                        raise ValueError(f"{len(groups)} kind groups "
+                                         f"decoded, {head.groups} sent")
+                except Exception as exc:               # noqa: BLE001
+                    error = exc
+            self._rank_batch(groups, head.version, error, None)
+        elif head.kind == rs.UPDATE:
+            edits = ([], [])
+            if error is None:
+                try:
+                    edits = rs.decode_edits(payload)
+                except Exception as exc:               # noqa: BLE001
+                    error = exc
+            self._rank_update(*edits, head.version, error)
+            self._stats.updates += 1
+        else:                                          # rs.CHECKPOINT
+            if error is None:
+                try:
+                    spec = coll.decode_json(payload)
+                    if (self._store is None
+                            or str(self._store.path) != spec["path"]):
+                        self._store = IndexStore(
+                            spec["path"],
+                            checkpoint_every=spec["checkpoint_every"],
+                            verify=spec["verify"])
+                except Exception as exc:               # noqa: BLE001
+                    error = exc
+            self._rank_checkpoint(self._store, error)
+
+    def _rank_checkpoint(self, store, error: Optional[Exception]) -> None:
+        """The checkpoint event on every rank: the store's rank route
+        (``IndexStore.checkpoint`` + ``attach``) at the same point of the
+        stream."""
+        coll.agree_or_raise(self._ranks, "checkpoint", error)
+        store.checkpoint(self.engine)
+        store.attach(self.engine)
+
+    def _rank_batch(self, groups: Dict[str, List[_Entry]], version: int,
+                    error: Optional[Exception], deliver) -> None:
+        """One micro-batch on every rank: the ids and the engine version
+        checked here before any collective, the snapshot swap, then each
+        kind group, each step closed by one status word, so a rank's
+        failure fails the step on every rank instead of leaving the
+        others in a collective.  ``deliver(entry, answer)`` resolves a
+        group's futures once every rank answered it (``None`` on a
+        follower, which drops its answers)."""
+        mesh = self._ranks
+        if error is None:
+            try:
+                self._check_batch(groups, version)
+            except Exception as exc:                   # noqa: BLE001
+                error = exc
+        coll.agree_or_raise(mesh, "micro-batch", error)
+        error, snap = None, None
+        try:
+            snap = self._refresh_snapshot()
+        except Exception as exc:                       # noqa: BLE001
+            error = exc
+        coll.agree_or_raise(mesh, "snapshot refresh", error)
+        for kind, group in groups.items():
+            answers: List[Tuple[_Entry, object]] = []
+            error = None
+            try:
+                self._dispatch_group(kind, group, snap,
+                                     lambda e, v: answers.append((e, v)))
+            except Exception as exc:                   # noqa: BLE001
+                error = exc
+            coll.agree_or_raise(mesh, f"{kind} group", error)
+            if deliver is not None:
+                for entry, value in answers:
+                    deliver(entry, value)
+        self._stats.answered += sum(len(g) for g in groups.values())
+
+    def _check_batch(self, groups: Dict[str, List[_Entry]],
+                     version: int) -> None:
+        """What each rank holds a received batch to before its first
+        collective (C-watch-7): the engine version the leader served at,
+        and every id in ``[0, n)`` of this rank's engine."""
+        if self.engine.version != version:
+            raise RuntimeError(f"engine version {self.engine.version} on "
+                               f"this rank, {version} on the leader")
+        for group in groups.values():
+            for entry in group:
+                self._validate_fields(entry.request)
+
+    def _rank_update(self, inserts, deletes, version: int,
+                     error: Optional[Exception] = None) -> None:
+        """The update event on every rank: the version checked, then the
+        engine's own update on ranks (its edits agreed, journaled from
+        rank 0 when a store is attached), each step closed by a status
+        word."""
+        if error is None and self.engine.version != version:
+            error = RuntimeError(f"engine version {self.engine.version} on "
+                                 f"this rank, {version} on the leader")
+        coll.agree_or_raise(self._ranks, "update", error)
+        error = None
+        try:
+            self.engine.update(inserts, deletes)
+        except Exception as exc:                       # noqa: BLE001
+            error = exc
+        coll.agree_or_raise(self._ranks, "update", error)
+
+    def _dispatch_group(self, kind: str, group: List[_Entry], snap,
+                        deliver) -> None:
         if kind in _KIND_TO_OP:
-            self._dispatch_workload_group(kind, group)
+            self._dispatch_workload_group(kind, group, deliver)
             return
         q = len(group)
         us, vs = self._batch_ids(group)
@@ -819,7 +1090,7 @@ class ReachabilityService:
             else:
                 mr = np.asarray(self.engine.mr_batch(us, vs))[:q]
             for entry, val in zip(group, mr):
-                _resolve(entry.future, int(val))
+                deliver(entry, int(val))
             return
 
         svals = np.fromiter((e.request.s for e in group), np.int64, q)
@@ -833,9 +1104,10 @@ class ReachabilityService:
         else:
             ok = np.asarray(self.engine.mr_batch(us, vs))[:q] >= svals
         for entry, val in zip(group, ok):
-            _resolve(entry.future, bool(val))
+            deliver(entry, bool(val))
 
-    def _dispatch_workload_group(self, kind: str, group: List[_Entry]) -> None:
+    def _dispatch_workload_group(self, kind: str, group: List[_Entry],
+                                 deliver) -> None:
         """Workload kinds dispatch per-request through the engine's
         workload methods — witness reconstruction and the BFS-gated ops
         are host-side, while ``mr_set`` / ``top_s`` batch internally
@@ -861,7 +1133,7 @@ class ReachabilityService:
                 val = tuple(zip(verts.tolist(), vals.tolist()))
             else:                    # s_distance (admission pinned kinds)
                 val = int(eng.s_distance(r.u, r.v, r.s))
-            _resolve(entry.future, val)
+            deliver(entry, val)
 
     def _batch_ids(self, group: List[_Entry]) -> Tuple[np.ndarray,
                                                        np.ndarray]:
@@ -947,6 +1219,8 @@ class ReachabilityService:
 
     def _already_on_mesh(self, snap) -> bool:
         """True when the engine's snapshot already sits on this service's
-        mesh (the ``sharded`` backend derives mesh-resident snapshots) —
-        re-landing it through ``to_mesh`` would keep a duplicate copy."""
+        mesh (the ``sharded`` backend derives mesh-resident snapshots: a
+        label block of a ``ProcessMesh``, or the closure regime's
+        snapshot kept on it) — re-landing it through ``to_mesh`` would
+        keep a duplicate copy."""
         return getattr(snap, "mesh", None) == self.mesh

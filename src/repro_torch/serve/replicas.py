@@ -40,7 +40,18 @@ a snapshot copy — so the group raises ``SnapshotUnsupported`` at
 construction instead of silently degrading to single-copy serving.
 
 The group's mesh defaults to ``default_line_graph_mesh`` on the
-engine's device (1 x 1 on one card), as the reference's does.
+engine's device (1 x 1 on one card), as the reference's does, and to
+the engine's ``rank_mesh`` over an engine built on ranks (the
+reference's default spans all its devices).
+
+On a ``ProcessMesh`` the group is a service on ranks (rank 0 leads, the
+others ``follow()``; ``reach_service``'s module docstring): each replica
+is this rank's private block of the copy (``to_mesh(pm, base=,
+dirty_rows=, donate_base=True)``; a snapshot that is already a block of
+the mesh is copied block by block), the delta is captured once per
+event on every rank, and the rotation moves in step on every rank, since
+every rank sees the same events: ``replica_stats()`` is equal on every
+rank.
 
 Counterpart of ``repro/serve/replicas.py``: the same stats, counted at
 the same points.
@@ -55,7 +66,7 @@ import numpy as np
 from ..core.engine import SnapshotUnsupported
 from ..core.mesh import default_line_graph_mesh
 from ..core.query import DeviceSnapshot, KernelSnapshot
-from .reach_service import ReachabilityService, ServiceConfig, refuse_ranks
+from .reach_service import ReachabilityService, ServiceConfig, rank_mesh_of
 
 __all__ = ["Replica", "ReplicaGroup"]
 
@@ -87,7 +98,6 @@ class ReplicaGroup(ReachabilityService):
     def __init__(self, engine, n_replicas: Optional[int] = None, *,
                  config: Optional[ServiceConfig] = None, mesh=None,
                  start: bool = True, **overrides):
-        refuse_ranks(engine, mesh)
         cfg = config if config is not None else ServiceConfig()
         if n_replicas is not None:
             cfg = dataclasses.replace(cfg, replicas=int(n_replicas))
@@ -101,8 +111,9 @@ class ReplicaGroup(ReachabilityService):
                 f"ReachabilityService instead") from None
         if mesh is None:
             # replicas are device-resident copies even when the caller
-            # didn't think about placement
-            mesh = default_line_graph_mesh(
+            # didn't think about placement; on ranks, blocks of the
+            # engine's mesh
+            mesh = rank_mesh_of(engine, None) or default_line_graph_mesh(
                 device=getattr(engine, "device", None))
         super().__init__(engine, config=cfg, mesh=mesh, start=False,
                          **overrides)

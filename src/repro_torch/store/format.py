@@ -33,7 +33,15 @@ arrays stay read-only host views; whatever lands them in a tensor copies
 them (``repro_torch.device.host_to_device``).  A ``sharded`` checkpoint
 holds one of three payloads (labels, a float32 closure trimmed to edge-id
 order, or the resident snapshot with its slot map) and loads onto the
-logical mesh ``load_index(mesh=)`` names, re-padded for that grid.
+mesh ``load_index(mesh=)`` names, re-padded for that grid.
+
+On ranks (an engine built on a ``ProcessMesh``, ``load_index(mesh=pm)``)
+every rank calls with the same path: global rank 0 writes the file and
+the others write nothing, every rank returns the same manifest, and a
+failed write raises on every rank.  A closure's W* crosses to rank 0 one
+block at a time into host memory and lands one block a rank on load
+(sliced from the mapped file), so no device ever holds the whole.  The
+ranks share one filesystem (one machine, or a shared mount).
 """
 from __future__ import annotations
 
@@ -51,7 +59,8 @@ import torch
 from ..core.engine import ClosureEngine, HLIndexBasicEngine, HLIndexEngine
 from ..core.hlindex import HLIndex, build_basic, build_fast, build_sharded
 from ..core.hypergraph import Hypergraph, NeighborCSR
-from ..core.mesh import LogicalMesh, not_on_ranks
+from ..core import collectives as coll
+from ..core.mesh import LogicalMesh, ProcessMesh
 from ..core.minimal import minimize
 from ..core.query import DeviceSnapshot
 from ..device import DeviceLike, host_to_device, resolve_device
@@ -280,14 +289,85 @@ def save_index(path, engine, *, neighbors: Optional[NeighborCSR] = None) -> Dict
     read it back via ``load_segments``.  Index-free backends raise
     ``StoreUnsupported`` — persisting them would persist nothing but the
     graph.
+
+    On an engine built on ranks (``rank_mesh``) every rank calls this
+    with the same ``path`` (module docstring): labels and a snapshot are
+    whole on every rank and rank 0 writes its own; a closure's W* blocks
+    cross to rank 0 one at a time into host memory.
     """
-    not_on_ranks(getattr(engine, "rank_mesh", None),
-                 "the store (save_index) of an engine built on ranks")
     name = getattr(engine, "name", None)
     if name not in _STORABLE:
         raise StoreUnsupported(
             f"backend {name!r} has no serializable index structure; "
             f"storable backends: {list(_STORABLE)}")
+    ranks = getattr(engine, "rank_mesh", None)
+    if ranks is not None:
+        return _save_on_ranks(path, engine, neighbors, ranks)
+    meta, segments = _payload(engine, neighbors)
+    return _write_store_file(path, meta, segments)
+
+
+def _save_on_ranks(path, engine, neighbors, mesh: ProcessMesh) -> Dict:
+    """``save_index`` on ranks: what must be collective first (the W*
+    blocks' crossing, a snapshot derivation), then rank 0's write, one
+    status word, and rank 0's manifest broadcast to every rank."""
+    w_star = None
+    if engine.name == "sharded" and engine._idx is None:
+        if engine._w_star is not None:
+            w_star = _closure_on_rank0(engine, mesh)
+        else:
+            engine.snapshot()        # its derivation may be collective
+    manifest, error = None, None
+    if mesh.rank == 0:
+        try:
+            meta, segments = _payload(engine, neighbors, w_star)
+            manifest = _write_store_file(path, meta, segments)
+        except Exception as exc:     # every rank raises below
+            error = exc
+    coll.agree_or_raise(mesh, "save_index", error)
+    return coll.broadcast_json(manifest, mesh)
+
+
+def _closure_on_rank0(engine, mesh: ProcessMesh) -> Optional[np.ndarray]:
+    """The resident W* of a ``sharded`` engine on ranks in slot order,
+    trimmed to ``[m, m]`` float32, assembled on rank 0's host from the
+    blocks (each other rank's crosses alone, point to point); ``None`` on
+    the other ranks.  The ranks off the two block axes' first line hold
+    copies and send nothing."""
+    blk = engine._w_star
+    row_ax, col_ax = engine.axes
+    br, bc = (int(x) for x in blk.shape)
+    slot_of = np.asarray(engine._slot_of, np.int64)
+    m = int(slot_of.size)
+    out = np.zeros((m, m), np.float32) if mesh.rank == 0 else None
+    like = torch.empty(0, dtype=blk.dtype, device=coll.exchange_device(mesh))
+    ri = mesh.axis_names.index(row_ax)
+    ci = mesh.axis_names.index(col_ax)
+    for k in range(mesh.world_size):
+        coords = np.unravel_index(k, mesh.dims)
+        if any(int(x) for a, x in enumerate(coords) if a not in (ri, ci)):
+            continue
+        if k != 0 and mesh.rank == k:
+            coll.exchange_pieces({0: blk}, {}, blk, mesh)
+        if mesh.rank != 0:
+            continue
+        piece = blk if k == 0 else coll.exchange_pieces(
+            {}, {k: (br, bc)}, like, mesh)[k]
+        i, j = int(coords[ri]), int(coords[ci])
+        rows = np.nonzero((slot_of >= i * br) & (slot_of < (i + 1) * br))[0]
+        cols = np.nonzero((slot_of >= j * bc) & (slot_of < (j + 1) * bc))[0]
+        out[np.ix_(rows, cols)] = piece.cpu().numpy()[np.ix_(
+            slot_of[rows] - i * br, slot_of[cols] - j * bc)]
+    return out
+
+
+def _payload(engine, neighbors: Optional[NeighborCSR] = None,
+             w_star: Optional[np.ndarray] = None
+             ) -> Tuple[Dict, List[Tuple[str, np.ndarray]]]:
+    """The manifest fields and segments of ``engine``'s checkpoint
+    (``w_star``: a ``sharded`` closure already assembled in slot order,
+    on ranks)."""
+    name = engine.name
     h = engine.h
     meta: Dict = {"backend": name, "engine_version": int(engine.version),
                   "n": int(h.n), "m": int(h.m)}
@@ -325,11 +405,13 @@ def save_index(path, engine, *, neighbors: Optional[NeighborCSR] = None) -> Dict
             # W* is mesh- and slot-layout-independent (edge-id order),
             # re-padded for whatever mesh loads it
             meta["payload"] = "closure"
-            slots = torch.from_numpy(engine._slot_of).to(
-                engine._w_star.device)
-            w = engine._w_star.index_select(0, slots).index_select(1, slots)
-            segments.append(("w_star", np.ascontiguousarray(
-                w.cpu().numpy())))
+            if w_star is None:
+                slots = torch.from_numpy(engine._slot_of).to(
+                    engine._w_star.device)
+                w = engine._w_star.index_select(0, slots).index_select(
+                    1, slots)
+                w_star = np.ascontiguousarray(w.cpu().numpy())
+            segments.append(("w_star", w_star))
         else:
             # snapshot() freed the closure; the resident snapshot IS the
             # serving structure now, so persist exactly it — plus the
@@ -345,7 +427,7 @@ def save_index(path, engine, *, neighbors: Optional[NeighborCSR] = None) -> Dict
     if neighbors is not None:
         segments += [("nbr.ptr", neighbors.ptr), ("nbr.idx", neighbors.idx),
                      ("nbr.od", neighbors.od)]
-    return _write_store_file(path, meta, segments)
+    return meta, segments
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +465,7 @@ def _load_hlindex(h: Hypergraph, manifest: Dict, seg: Dict[str, np.ndarray]) -> 
 
 def _load_sharded(h: Hypergraph, manifest: Dict, seg: Dict[str, np.ndarray],
                   mesh, device: DeviceLike):
-    from ..core.distributed import ShardedEngine, pad_for_mesh
+    from ..core.distributed import ShardedEngine, block_of, pad_for_mesh
     from ..core.mesh import default_line_graph_mesh
 
     opts = manifest.get("engine_opts", {})
@@ -412,9 +494,13 @@ def _load_sharded(h: Hypergraph, manifest: Dict, seg: Dict[str, np.ndarray],
         # annihilator, so padding is invariant under the closure) and
         # land it whole on the mesh's device — the layout build makes
         # (host_to_device copies the file's read-only pages: the engine
-        # patches W* in place)
-        w_dev = pad_for_mesh(host_to_device(seg["w_star"], mesh.device),
-                             mesh, axes)
+        # patches W* in place); on ranks only this rank's block, sliced
+        # from the mapped file
+        if isinstance(mesh, ProcessMesh):
+            w_dev = block_of(seg["w_star"], mesh, axes)
+        else:
+            w_dev = pad_for_mesh(host_to_device(seg["w_star"], mesh.device),
+                                 mesh, axes)
         eng = ShardedEngine(h, mesh, axes, schedule, w_dev, h.m, rounds,
                             workers=workers, num_shards=num_shards)
     elif payload == "snapshot":
@@ -425,7 +511,9 @@ def _load_sharded(h: Hypergraph, manifest: Dict, seg: Dict[str, np.ndarray],
             svals=host_to_device(seg["snap.svals"], mesh.device),
             lengths=host_to_device(seg["snap.lengths"], mesh.device),
             backend="sharded", version=version)
-        if int(mesh.devices.size) > 1 and snap.ranks.numel():
+        if isinstance(mesh, ProcessMesh) and snap.ranks.numel():
+            snap = _replicated(snap, mesh, axes)
+        elif int(mesh.devices.size) > 1 and snap.ranks.numel():
             snap = snap.to_mesh(mesh, axes)
         eng._snap = snap
         # restore the slot layout so scoped updates keep patching the
@@ -437,6 +525,22 @@ def _load_sharded(h: Hypergraph, manifest: Dict, seg: Dict[str, np.ndarray],
         raise CorruptStore(f"unknown sharded payload {payload!r}")
     eng.version = version
     return eng
+
+
+def _replicated(snap: DeviceSnapshot, mesh: ProcessMesh,
+                axes: Tuple[str, str]) -> DeviceSnapshot:
+    """A closure snapshot whole on every rank, as the closure regime
+    keeps it there: padded to the grid (sentinel rows and columns, as
+    ``to_mesh`` pads) and recording the mesh."""
+    r, c = mesh.shape[axes[0]], mesh.shape[axes[1]]
+    n, lmax = (int(x) for x in snap.ranks.shape)
+    pr, pc = (-n) % r, (-lmax) % c
+    pad = torch.nn.functional.pad
+    return DeviceSnapshot(
+        ranks=pad(snap.ranks, (0, pc, 0, pr), value=np.iinfo(np.int32).max),
+        svals=pad(snap.svals, (0, pc, 0, pr)),
+        lengths=pad(snap.lengths, (0, pr)), backend=snap.backend,
+        version=snap.version, mesh=mesh, axes=axes)
 
 
 def load_index(path, *, device: DeviceLike = None, mesh=None,
@@ -454,10 +558,15 @@ def load_index(path, *, device: DeviceLike = None, mesh=None,
     ``mesh`` (a ``LogicalMesh``) is where a ``sharded`` checkpoint's
     structures land, re-padded for its grid; without one they land on
     ``default_line_graph_mesh`` of ``device``.  With a mesh and no
-    ``device``, the mesh's device is taken.  A ``ProcessMesh`` raises
-    ``NotImplementedError`` (ROADMAP A10d)."""
-    not_on_ranks(mesh, "the store's sharded payloads")
-    if device is None and isinstance(mesh, LogicalMesh):
+    ``device``, the mesh's device is taken.
+
+    On a ``ProcessMesh`` every rank calls this with the same file and
+    maps it: a ``sharded`` engine loads on the ranks (labels landing as
+    blocks, a closure's W* as this rank's block of the padded whole, a
+    snapshot replicated), and the other backends load whole on every
+    rank with ``rank_mesh`` set, updating on the ranks as an engine built
+    there does."""
+    if device is None and isinstance(mesh, (LogicalMesh, ProcessMesh)):
         device = mesh.device
     dev = resolve_device(device)
     manifest, seg = load_segments(path, verify=verify)
@@ -483,5 +592,7 @@ def load_index(path, *, device: DeviceLike = None, mesh=None,
         eng = cls(h, idx, builder=_hlindex_builder(backend, opts),
                   minimizer=minimizer, device=dev)
         eng.construction = opts.get("construction", "serial")
+    if isinstance(mesh, ProcessMesh):
+        eng.rank_mesh = mesh     # whole on every rank, updated alike
     eng.version = version
     return eng

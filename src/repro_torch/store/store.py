@@ -29,6 +29,19 @@ Counterpart of ``repro/store/store.py``; a store directory written by
 either package restores in the other.  ``restore`` and
 ``restore_engine`` take ``device=`` (where the restored engine's
 snapshot lands; ``None`` means ``"cuda"``, as everywhere in the port).
+
+On ranks (an engine on a ``ProcessMesh``; ``restore(mesh=pm)``) every
+rank calls each method alike.  Global rank 0 writes the checkpoint
+files, ``CURRENT`` and the log; the other ranks write nothing and keep
+only the log's lineage (``_LogView``).  Every rank checks the lineage on
+``attach``.  An update journals on rank 0 (with its fsync) before any
+rank applies it: the engine's ``update`` crosses the appends' status to
+every rank first, so a failed append raises on every rank and no rank's
+state changes.
+``restore`` reads the same checkpoint and log on every rank and replays
+the same records as updates on the ranks.  The ranks share the store's
+filesystem: one machine, or a shared mount.  The files are the
+reference's, byte for byte.
 """
 from __future__ import annotations
 
@@ -36,11 +49,11 @@ import os
 import pathlib
 from typing import Optional
 
-from ..core.mesh import not_on_ranks
+from ..core import collectives as coll
 from ..device import DeviceLike
 from .format import (CorruptStore, StoreError, load_index, read_manifest,
                      save_index)
-from .wal import WriteAheadLog
+from .wal import WriteAheadLog, scan_wal
 
 __all__ = ["IndexStore", "restore_engine"]
 
@@ -58,6 +71,54 @@ def _fsync_dir(path) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
+
+
+class _LogView:
+    """A follower rank's view of the log rank 0 writes: its lineage
+    (last version, record count), read from the file and never written.
+    ``append`` checks a record's version as the log does; ``committed``
+    moves the lineage once the update applied, so only after every
+    rank's append, rank 0's durable one included, succeeded."""
+
+    def __init__(self, path, *, base_version: int):
+        self.path = os.fspath(path)
+        records = scan_wal(self.path)[0]
+        self.last_version = (int(records[-1][0]) if records
+                             else int(base_version))
+        self.count = len(records)
+        self._pending: Optional[int] = None
+
+    def append(self, version: int, inserts, deletes) -> None:
+        if int(version) != self.last_version + 1:
+            raise StoreError(
+                f"WAL versions are monotonic: expected record "
+                f"{self.last_version + 1}, got {version}")
+        self._pending = int(version)
+
+    def committed(self) -> None:
+        if self._pending is not None:
+            self.last_version, self._pending = self._pending, None
+            self.count += 1
+
+    def close(self) -> None:
+        pass
+
+
+def _writes(engine) -> bool:
+    """Whether this process writes the store's files for ``engine``:
+    always off ranks, on global rank 0 alone on them."""
+    mesh = getattr(engine, "rank_mesh", None)
+    return mesh is None or mesh.rank == 0
+
+
+def _settle(engine, what: str, error: Optional[BaseException]) -> None:
+    """Off ranks, raise ``error``; on ranks, one status word, so a
+    failure on any rank raises on every rank."""
+    mesh = getattr(engine, "rank_mesh", None)
+    if mesh is not None:
+        coll.agree_or_raise(mesh, what, error)
+    elif error is not None:
+        raise error
 
 
 class IndexStore:
@@ -111,12 +172,28 @@ class IndexStore:
         atomically swing ``CURRENT`` to it, rotate the WAL, and delete
         superseded files (log compaction).  Safe at any point of the
         lineage; crash-safe at every step (the temp file is renamed into
-        place before ``CURRENT`` moves)."""
+        place before ``CURRENT`` moves).  On ranks rank 0 writes and
+        rotates; the others start an empty view of the new log."""
         version = int(engine.version)
         name = _CKPT_FMT.format(version)
         final = self.path / name
         tmp = self.path / (name + ".tmp")
         save_index(tmp, engine, neighbors=neighbors)
+        error = None
+        wal_path = self.path / _WAL_FMT.format(version)
+        if _writes(engine):
+            try:
+                self._install(tmp, final, name, wal_path, version)
+            except Exception as exc:       # on ranks every rank raises
+                error = exc
+        _settle(engine, "checkpoint", error)
+        if not _writes(engine):            # rank 0 has rotated the log
+            self._wal = _LogView(wal_path, base_version=version)
+        return final
+
+    def _install(self, tmp, final, name: str, wal_path, version: int):
+        """Rename the written checkpoint into place, swing ``CURRENT``,
+        rotate the log and delete what they supersede."""
         os.replace(tmp, final)
         cur_tmp = self.path / "CURRENT.tmp"
         cur_tmp.write_text(name + "\n")
@@ -127,7 +204,6 @@ class IndexStore:
         # written, so the old logs (and checkpoints) are compacted away
         if self._wal is not None:
             self._wal.close()
-        wal_path = self.path / _WAL_FMT.format(version)
         if wal_path.exists():
             wal_path.unlink()
         self._wal = WriteAheadLog(wal_path, base_version=version)
@@ -139,7 +215,6 @@ class IndexStore:
                 p.unlink()
         for p in self.path.glob("*.tmp"):
             p.unlink()
-        return final
 
     # -- the engine-facing WAL sink protocol -------------------------------
 
@@ -148,38 +223,49 @@ class IndexStore:
         ``engine.update`` journals durably here before applying.  The
         engine must continue the store's lineage (checkpoint version +
         logged records == engine version); an empty store seeds itself
-        with a checkpoint of the engine first.  An engine built on ranks
-        (a ``ProcessMesh``) raises ``NotImplementedError``: no rank
-        journals for the others yet (ROADMAP A10d)."""
-        not_on_ranks(getattr(engine, "rank_mesh", None),
-                     "an IndexStore attached to an engine built on ranks")
+        with a checkpoint of the engine first.  On ranks every rank
+        checks the lineage (rank 0 opens the log, the others read it),
+        and a mismatch on any rank raises on every rank."""
         ck = self.checkpoint_version
         if ck is None:
             self.checkpoint(engine)
             engine.attach_wal(self)
             return
-        if self._wal is None:
-            self._wal = WriteAheadLog(self.path / _WAL_FMT.format(ck),
-                                      base_version=ck)
-        if int(engine.version) != self._wal.last_version:
-            raise StoreError(
-                f"engine version {engine.version} does not continue this "
-                f"store's lineage (checkpoint {ck} + {self._wal.count} "
-                f"logged updates = version {self._wal.last_version}); "
-                f"checkpoint() it instead")
+        error = None
+        try:
+            if self._wal is None:
+                path = self.path / _WAL_FMT.format(ck)
+                self._wal = (WriteAheadLog(path, base_version=ck)
+                             if _writes(engine)
+                             else _LogView(path, base_version=ck))
+            if int(engine.version) != self._wal.last_version:
+                raise StoreError(
+                    f"engine version {engine.version} does not continue "
+                    f"this store's lineage (checkpoint {ck} + "
+                    f"{self._wal.count} logged updates = version "
+                    f"{self._wal.last_version}); checkpoint() it instead")
+        except Exception as exc:
+            error = exc
+        _settle(engine, "attach", error)
         engine.attach_wal(self)
 
     def append(self, version: int, inserts, deletes) -> None:
         """WAL sink: journal one update durably (called by
-        ``engine.update`` *before* the in-memory apply)."""
+        ``engine.update`` *before* the in-memory apply).  On ranks rank 0
+        appends (with its fsync) and the other ranks check the record's
+        version against their view of the log; the engine's ``update``
+        then settles the status across the ranks."""
         if self._wal is None:
             raise StoreError("store has no open WAL; call checkpoint() or "
                              "attach() first")
         self._wal.append(version, inserts, deletes)
 
     def committed(self, engine) -> None:
-        """WAL sink: the update applied; compact if the log grew past
+        """WAL sink: the update applied (on ranks, a follower's view of
+        the log moves on to its record); compact if the log grew past
         ``checkpoint_every`` records."""
+        if isinstance(self._wal, _LogView):
+            self._wal.committed()
         if (self.checkpoint_every is not None and self._wal is not None
                 and self._wal.count >= int(self.checkpoint_every)):
             self.checkpoint(engine)
@@ -199,7 +285,10 @@ class IndexStore:
         already dropped by the checksum scan.  With ``attach`` (default)
         the store then re-attaches as the engine's WAL sink and serving
         can resume.  ``mesh`` (a ``LogicalMesh``) is where a ``sharded``
-        checkpoint lands, re-padded for its grid (``load_index``).
+        checkpoint lands, re-padded for its grid (``load_index``).  With
+        a ``ProcessMesh`` every rank calls this: each loads on the ranks,
+        reads the same log (rank 0 opening it, which drops a torn tail)
+        and replays the same records as updates on the ranks.
         """
         p = self.current_checkpoint()
         if p is None:
@@ -211,7 +300,9 @@ class IndexStore:
         ck = int(engine.version)
         wal_path = self.path / _WAL_FMT.format(ck)
         records = []
-        if wal_path.exists():
+        if not _writes(engine):
+            records = scan_wal(wal_path)[0]
+        elif wal_path.exists():
             # opening also truncates any torn tail for good, so the
             # subsequent attach() appends after the last *valid* record
             with WriteAheadLog(wal_path, base_version=ck) as w:

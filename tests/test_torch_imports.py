@@ -91,7 +91,7 @@ def test_module_list_is_what_the_slice_ships():
         "repro_torch.models.registry", "repro_torch.models.rglru",
         "repro_torch.models.transformer", "repro_torch.models.whisper",
         "repro_torch.serve", "repro_torch.serve.kvcache",
-        "repro_torch.serve.reach_service",
+        "repro_torch.serve.rank_stream", "repro_torch.serve.reach_service",
         "repro_torch.serve.replicas", "repro_torch.serve.scheduler",
         "repro_torch.serve.serve_step",
         "repro_torch.store", "repro_torch.store.format",

@@ -19,7 +19,20 @@ device, and the label- and closure-regime ``sharded`` engines and
 labels, snapshots, W* blocks, dirty rows, refreshed rows), the guard
 against ranks that pass different edits, ``regrid_block`` against the
 block of the grown whole, and a rank whose share of a build fails making
-every rank raise.  Tolerance 0 wherever the answers are integers."""
+every rank raise.  Items 2 and 4 (serving and the store on ranks): rank 0
+leads and ranks 1-3 ``follow()`` a service over the label- and
+closure-regime ``sharded`` engines, ``hl-index`` built on ranks (with and
+without ``mesh=pm``) and a one-process engine given ``mesh=pm``, through
+every request kind and scoped updates, answers and ``stats()`` equal to
+the reference's mesh service and the followers' dispatch-side counts
+equal to the leader's; ``ReplicaGroup`` copies; a threaded leader idling
+across keep-alives; a batch failing on one rank, follower requests and
+ids past ``n`` refused; ``save_index`` of every payload written by rank 0
+alone, byte-equal to the reference's file, and loaded on the ranks block
+for block; the ``IndexStore`` and its log, a failed append, and a
+service's checkpoint and restore.  The stream's header and payload
+codecs are tested without a spawn.  Tolerance 0 wherever the answers are
+integers."""
 import json
 import os
 import subprocess
@@ -30,6 +43,8 @@ import pytest
 import torch
 
 import repro_torch.core.distributed as dist
+import repro_torch.serve.rank_stream as rs
+from repro_torch import api as port_api
 from repro_torch.api import random_hypergraph
 from repro_torch.core import collectives as coll
 from repro_torch.core.mesh import (LogicalMesh, ProcessMesh, make_mesh,
@@ -93,7 +108,7 @@ def worlds(tmp_path_factory):
     def load(name):
         with open(os.path.join(out, f"{name}.json")) as f:
             return np.load(os.path.join(out, f"{name}.npz")), json.load(f)
-    return {"reference": load("reference"),
+    return {"reference": load("reference"), "out": out,
             "ranks": [load(f"rank{r}") for r in range(WORLD)]}
 
 
@@ -304,22 +319,14 @@ _VALUE_ERRORS = {"world_size": "6 blocks", "trim": "trim=False"}
 
 @pytest.mark.parametrize("name", u.ERROR_NAMES)
 def test_routes_not_on_ranks_raise(worlds, name):
-    """The routes that do not run on ranks yet (serving, replicas, the
-    store, a write-ahead log or ``IndexStore`` attached to an engine on
-    ranks) raise ``NotImplementedError`` naming ROADMAP A10d (nothing
-    stands in for them); a wrong world size and ``trim=True`` raise
-    ``ValueError``.  The refused calls leave the engine and the store
-    as they were."""
+    """The mesh's limits: a wrong world size and ``trim=True`` raise
+    ``ValueError`` on every rank, and leave the engine as it was.  Every
+    other route runs on ranks."""
     for _, scalars in worlds["ranks"]:
         kind, message = scalars["errors"][name]
-        if name in _VALUE_ERRORS:
-            assert kind == "ValueError" and _VALUE_ERRORS[name] in message
-        else:
-            assert kind == "NotImplementedError", (name, kind, message)
-            assert "A10d" in message
+        assert kind == "ValueError" and _VALUE_ERRORS[name] in message
         assert scalars["update_left_engine"] == {
             "version": 0, "m": u.ENGINE_GRAPH["m"]}
-        assert scalars["store_left_nothing"]
 
 
 def _same_index(arrays, want, prefix):
@@ -574,3 +581,418 @@ def test_an_axis_of_size_one_is_the_identity():
     assert coll.all_gather_panel(t, mesh, "data", 0) is t
     assert coll.ring_shift(t, mesh, "data") is t
     assert coll.all_reduce_max(t, mesh, "data") is t
+
+
+# ---------------------------------------------------------------------------
+# serving on ranks (A10d item 2)
+# ---------------------------------------------------------------------------
+
+_SERVE_IDS = [u.serve_key(*c) for c in u.SERVE_CASES]
+_ADMISSION_FIELDS = ("submitted", "expired", "tenant_submitted",
+                     "tenant_answered", "tenant_expired")
+
+
+def _without_kernel_batches(stats, kernels=True):
+    """``stats`` less ``kernel_batches``, checked first: the port's
+    kernel route answers every padded mr / s_reach batch, the reference
+    serves without kernels."""
+    stats = dict(stats)
+    kernel = stats.pop("kernel_batches")
+    assert kernel == (sum(stats["bucket_histogram"].values()) if kernels
+                      else 0)
+    return stats
+
+
+@pytest.mark.parametrize("case", u.SERVE_CASES, ids=_SERVE_IDS)
+def test_rank_service_answers_and_stats_equal_the_reference(worlds, case):
+    """The leader (rank 0) of a service on ranks, fed every request kind
+    over two tenants across three updates sent through it: its answers
+    (value and type), its first drains' counts and ``stats()`` field by
+    field equal the reference's mesh service on four host devices; a
+    label block (or the closure snapshot) already on the mesh is served
+    as it is, a whole snapshot is landed as blocks where ``mesh=pm``."""
+    kind, _, with_mesh = case
+    key = u.serve_key(*case)
+    _, ref = worlds["reference"]
+    want = ref["serving"][key]
+    got = worlds["ranks"][0][1]["serving"][key]
+    assert got["leader"] and got["result"] == want["result"]
+    assert _without_kernel_batches(got["stats"]) == \
+        _without_kernel_batches(want["stats"], False)
+    assert got["stats"]["updates"] == 3 and got["failed_events"] == 0
+    on_ranks = with_mesh or kind in ("labels", "closure")
+    assert got["on_mesh"].startswith("ProcessMesh(") == on_ranks
+    assert got["block"] == (with_mesh and kind != "closure")
+    if kind in ("labels", "closure"):
+        assert got["stats"]["mesh_rows_patched"] == 0
+    elif with_mesh:
+        assert got["stats"]["mesh_rows_patched"] > 0
+
+
+@pytest.mark.parametrize("case", u.SERVE_CASES, ids=_SERVE_IDS)
+def test_followers_count_what_the_leader_counts(worlds, case):
+    """Every follower served the leader's stream to its close: the same
+    events, every dispatch-side field of ``stats()`` equal to the
+    leader's, the admission-side ones zero and empty, no answers kept."""
+    key = u.serve_key(*case)
+    lead = worlds["ranks"][0][1]["serving"][key]
+    for rank, (_, scalars) in enumerate(worlds["ranks"][1:], start=1):
+        got = scalars["serving"][key]
+        assert not got["leader"] and got["result"] is None
+        assert got["events"] == lead["events"] and got["seq"] == lead["seq"]
+        assert got["events"]["close"] == 1 and got["failed_events"] == 0
+        for f in u.DISPATCH_FIELDS:
+            assert got["stats"][f] == lead["stats"][f], (key, rank, f)
+        for f in _ADMISSION_FIELDS:
+            assert not got["stats"][f], (key, rank, f)
+        assert lead["stats"]["submitted"] == lead["stats"]["answered"]
+
+
+def _cut(whole, field, shape, coords, fill):
+    """The block at ``coords`` of ``whole`` padded to the grid (a
+    ``lengths`` vector by rows only)."""
+    if whole.ndim == 1:
+        r = shape[0]
+        padded = np.zeros(-(-whole.size // r) * r, whole.dtype)
+        padded[:whole.size] = whole
+        br = padded.size // r
+        return padded[coords[0] * br:(coords[0] + 1) * br]
+    return _padded_block(whole, shape, coords, fill)
+
+
+_FILLS = {"ranks": np.iinfo(np.int32).max, "svals": 0, "lengths": 0}
+
+
+@pytest.mark.parametrize("kind", u.REPLICA_CASES)
+def test_replica_group_on_ranks_equals_the_reference(worlds, kind):
+    """Three replicas on 2 x 2 through the serving churn: answers,
+    ``replica_stats()`` and ``stats()`` (``mesh_rows_patched`` included)
+    equal the reference's on every rank; each rank's replica blocks are
+    byte-equal to each other and to the reference's replica shard on
+    that device, and none aliases the engine's snapshot or another
+    replica (C-watch-1)."""
+    ref_arrays, ref = worlds["reference"]
+    want = ref["replicas"][kind]
+    lead = worlds["ranks"][0][1]["replicas"][kind]
+    assert lead["result"] == want["result"]
+    assert _without_kernel_batches(lead["stats"]) == \
+        _without_kernel_batches(want["stats"], False)
+    assert lead["stats"]["mesh_rows_patched"] > 0
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        got = scalars["replicas"][kind]
+        assert got["replica_stats"] == want["replica_stats"], rank
+        assert got["private"] and got["mesh"].startswith("ProcessMesh(")
+        coords = _coords(rank, (2, 2))
+        for f, fill in _FILLS.items():
+            first = arrays[f"replicas/{kind}/0/{f}"]
+            for i in range(u.REPLICAS):
+                block = arrays[f"replicas/{kind}/{i}/{f}"]
+                assert block.tobytes() == first.tobytes(), (rank, i, f)
+                expect = _cut(ref_arrays[f"replicas/{kind}/{i}/{f}"], f,
+                              (2, 2), coords, fill)
+                assert block.dtype == expect.dtype
+                assert block.tobytes() == expect.tobytes(), (rank, i, f)
+
+
+def test_threaded_leader_answers_as_the_synchronous_run(worlds):
+    """A threaded leader (``start=True``) over the labels 2 x 2 engine
+    answers the synchronous run's requests alike across the same
+    updates; idle for several keep-alive intervals it sends keep-alives
+    that every follower receives (none times out), then answers again."""
+    lead = worlds["ranks"][0][1]["threaded"]
+    sync = worlds["ranks"][0][1]["serving"][u.serve_key("labels", (2, 2),
+                                                        True)]
+    got = lead["result"]
+    assert got["rounds"] == [r["answers"] for r in sync["result"]]
+    assert got["after_idle"] == got["host_mr"]
+    assert got["keepalives_while_idle"] >= 3
+    for _, scalars in worlds["ranks"][1:]:
+        assert scalars["threaded"]["events"] == lead["events"]
+        assert scalars["threaded"]["failed_events"] == 0
+
+
+def test_the_keepalive_interval_is_a_quarter_of_the_group_timeout(worlds):
+    """Every rank's service read the world's process-group timeout
+    (``WORLD_TIMEOUT_S``, given to ``init_process_group``) from the
+    group and keeps alive at a quarter of it."""
+    for _, scalars in worlds["ranks"]:
+        assert scalars["threaded"]["keepalive_read"] == \
+            u.WORLD_TIMEOUT_S / 4
+
+
+def test_a_closed_leader_refuses_and_sends_nothing(worlds):
+    """A request that lands while ``close()`` drains, and requests and
+    updates after it, raise ``RuntimeError`` instead of queueing for a
+    batch no follower would receive; a batch dispatched after the close
+    fails its future instead of sending, and nothing crosses after the
+    close event."""
+    lead = worlds["ranks"][0][1]["threaded"]
+    after = lead["after_close"]
+    assert len(after["while_closing"]) == 1
+    for kind, msg in after["while_closing"] + [after["submit"],
+                                               after["update"]]:
+        assert kind == "RuntimeError" and "after close()" in msg
+    kind, msg = after["dispatch"]
+    assert kind == "RuntimeError" and "after close" in msg
+    assert after["drain"] == 0
+    assert after["seq"] == lead["seq"] and lead["events"]["close"] == 1
+
+
+def test_a_batch_that_fails_on_one_rank_fails_on_every_rank(worlds):
+    """A batch failing on ``FAILING_RANK`` after its join fails that
+    batch's futures on the leader with ``RuntimeError`` naming the rank
+    and its error; every follower counts the failed event, and the next
+    batch is answered on every rank alike."""
+    lead = worlds["ranks"][0][1]["failures_serving"]
+    host = worlds["ranks"][0][1]["threaded"]["result"]["host_mr"]
+    got = lead["result"]
+    for kind, msg in got["failed"]:
+        assert kind == "RuntimeError"
+        assert msg == (f"mr group on ranks: rank {u.FAILING_RANK} failed "
+                       f"(MemoryError: planted after the join)")
+    assert got["next"] == host[:2] and got["last"] == host[2]
+    for _, scalars in worlds["ranks"][1:]:
+        rec = scalars["failures_serving"]
+        assert rec["failed_events"] == 2 and rec["events"] == lead["events"]
+        assert rec["stats"]["answered"] == lead["stats"]["answered"] == 3
+
+
+def test_a_follower_takes_no_requests(worlds):
+    """On a follower ``submit``, ``update`` and ``checkpoint`` raise
+    ``RuntimeError``: a request is never dropped quietly."""
+    for _, scalars in worlds["ranks"][1:]:
+        errors = scalars["failures_serving"]["follower_errors"]
+        assert [e[0] for e in errors] == ["RuntimeError"] * 3
+        assert all("follower" in e[1] for e in errors)
+
+
+def test_an_id_past_n_is_refused_before_any_rank_joins(worlds):
+    """An id past ``n`` is refused at admission (nothing crosses to the
+    followers); a batch past ``n`` that bypassed admission is refused by
+    every rank before its first collective (C-watch-7): no rank joins
+    rows for it, and its future fails naming every rank."""
+    got = worlds["ranks"][0][1]["failures_serving"]["result"]
+    assert got["admission"][0] == "IndexError"
+    assert got["admission_sent"] == 0
+    kind, msg = got["forged"]
+    assert kind == "RuntimeError"
+    assert msg.startswith("micro-batch on ranks:")
+    assert msg.count("IndexError") == WORLD
+    # three batches joined rows (the failed one, the next, the last)
+    for _, scalars in worlds["ranks"]:
+        assert scalars["failures_serving"]["joins"] == 3
+
+
+# ---------------------------------------------------------------------------
+# the store on ranks (A10d item 4)
+# ---------------------------------------------------------------------------
+
+_STORE_KINDS = [k for k, _ in u.STORE_CASES]
+
+
+@pytest.mark.parametrize("kind", _STORE_KINDS)
+def test_save_index_on_ranks_writes_the_reference_file(worlds, kind):
+    """Every rank called ``save_index`` with one path: rank 0 wrote the
+    file, ranks 1-3 wrote nothing, every rank returned the same manifest
+    (the file's own), and the file is byte-equal to the reference's of
+    its mesh engine after the same edits (a closure's W* assembled from
+    the ranks' blocks in slot order)."""
+    from repro_torch.store import read_manifest
+    out = worlds["out"]
+    path = os.path.join(out, f"store-{kind}.hlidx")
+    with open(path, "rb") as f, open(os.path.join(
+            out, f"reference-store-{kind}.hlidx"), "rb") as g:
+        assert f.read() == g.read()
+    manifest = read_manifest(path)
+    payload = {"hl-index": "labels", "hl-index-basic": "labels"}.get(kind,
+                                                                     kind)
+    assert manifest["payload"] == payload
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        info = scalars["store"][kind]
+        assert info["written"] == (1 if rank == 0 else 0)
+        assert info["manifest"] == manifest
+
+
+@pytest.mark.parametrize("kind", _STORE_KINDS)
+def test_load_index_on_ranks_lands_the_reference_blocks(worlds, kind):
+    """``load_index(mesh=pm)`` of the file: a closure's W* lands only this
+    rank's block of the padded whole, a label snapshot as this rank's
+    block, the rest whole on every rank, each equal to the reference's
+    loaded engine there; its answers, ``build_engine(restore=, mesh=pm)``'s
+    and those after one more update on the ranks equal the reference's."""
+    ref_arrays, _ = worlds["reference"]
+    tag = f"store/{kind}"
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        info = scalars["store"][kind]
+        coords = _coords(rank, (2, 2))
+        assert info["rank_mesh"].startswith("ProcessMesh(")
+        assert info["restored_equal"]
+        assert info["block"] == (kind == "labels")
+        if kind == "closure":
+            whole = ref_arrays[f"{tag}/w_star"]
+            block = arrays[f"{tag}/block"]
+            assert block.shape == (whole.shape[0] // 2, whole.shape[1] // 2)
+            assert block.tobytes() == np.ascontiguousarray(
+                _block(whole, (2, 2), coords)).tobytes()
+        for snap in ("snap", "more_snap"):
+            for f, fill in _FILLS.items():
+                got = arrays[f"{tag}/{snap}/{f}"]
+                want = ref_arrays[f"{tag}/{snap}/{f}"]
+                if info["block"]:
+                    want = _cut(want, f, (2, 2), coords, fill)
+                assert got.dtype == want.dtype and got.shape == want.shape
+                assert got.tobytes() == want.tobytes(), (kind, snap, f, rank)
+        for f in ("mr", "more_mr"):
+            got, want = arrays[f"{tag}/{f}"], ref_arrays[f"{tag}/{f}"]
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", _STORE_KINDS)
+def test_the_reference_loads_a_file_written_on_ranks(worlds, kind):
+    """The other direction: the reference's ``load_index`` of the file
+    rank 0 wrote, on this process's one CPU device, answers every pair
+    as the reference's engine loaded on four devices does."""
+    import repro.api as ref_api
+    ref_arrays, _ = worlds["reference"]
+    eng = ref_api.load_index(os.path.join(worlds["out"],
+                                          f"store-{kind}.hlidx"))
+    got = np.asarray(eng.mr_batch(*u.all_pairs(eng.h.n)))
+    want = ref_arrays[f"store/{kind}/mr"]
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_index_store_on_ranks_writes_the_reference_files(worlds):
+    """``IndexStore`` on ranks: ``checkpoint``, ``attach`` (every rank
+    checks the lineage), two journaled updates, then
+    ``restore(mesh=pm)``: rank 0 wrote the checkpoint and both records
+    (ranks 1-3 nothing), the directory's files are the reference's byte
+    for byte, and the restored engine equals the live one on every
+    rank."""
+    out = worlds["out"]
+    mine, ref = (os.path.join(out, d) for d in ("store-ranks",
+                                                "reference-store-ranks"))
+    assert sorted(os.listdir(mine)) == sorted(os.listdir(ref))
+    assert any(f.startswith("wal-") for f in os.listdir(mine))
+    for name in os.listdir(mine):
+        with open(os.path.join(mine, name), "rb") as f, \
+                open(os.path.join(ref, name), "rb") as g:
+            assert f.read() == g.read(), name
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        j = scalars["index_store"]
+        assert (j["written"], j["appended"]) == ((1, 2) if rank == 0
+                                                 else (0, 0))
+        assert j["version"] == j["restored_version"] == 2
+        assert j["records"] == 2
+        assert j["answers_equal"] and j["snapshot_equal"]
+
+
+def test_a_failed_append_raises_on_every_rank(worlds):
+    """An append that fails on rank 0 raises ``RuntimeError`` naming it
+    on every rank before any state changes: no rank's version, graph or
+    log lineage moves."""
+    for _, scalars in worlds["ranks"]:
+        j = scalars["index_store"]
+        kind, msg = j["failed_append"]
+        assert kind == "RuntimeError"
+        assert msg == ("journal append on ranks: rank 0 failed (OSError: "
+                       "planted: the disk is full)")
+        assert j["after_failure"] == {"version": 2,
+                                      "m": u.UPDATE_GRAPH["m"] + 1,
+                                      "records": 2}
+
+
+def test_service_checkpoint_and_restore_on_ranks(worlds):
+    """``svc.checkpoint(IndexStore(dir))`` is one event of the stream
+    (rank 0 writes), an update journals, and
+    ``ReachabilityService.restore(dir, mesh=pm)`` on every rank restarts
+    serving on the ranks: its first answers equal the live service's."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        got = scalars["service_store"]
+        assert got["version"] == 1
+        assert got["rank_mesh"].startswith("ProcessMesh(")
+        assert (got["written"] > 0) == (rank == 0)
+        if rank == 0:
+            assert got["live"] and got["restored"] == got["live"]
+        # both services answered the same requests, each on every rank
+        assert got["restored_stats"]["answered"] == u.SERVE_REQUESTS
+        assert got["live_stats"]["updates"] == 1
+
+
+def test_rank_store_writes_come_from_rank_zero_alone(worlds):
+    """Across every store case, ranks 1-3 wrote no checkpoint file and
+    appended no log record."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        w = scalars["store_writes"]
+        if rank:
+            assert w == {"files": 0, "appends": 0}
+        else:
+            assert w["files"] > 0 and w["appends"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the stream's codecs (no process group)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", range(len(rs.EVENT_NAMES)),
+                         ids=list(rs.EVENT_NAMES))
+def test_stream_header_round_trips(kind):
+    """A header carries its event kind, payload length, the leader's
+    engine version, the payload's CRC-32, the sequence number and the
+    group count, in ``HEADER_WORDS`` int64 words."""
+    payload = np.arange(kind * 3, dtype=np.int64)
+    words = rs.encode_header(kind, payload, version=7, seq=41, groups=2)
+    assert words.dtype == np.int64 and words.shape == (rs.HEADER_WORDS,)
+    head = rs.decode_header(words)
+    assert head == rs.Header(kind, payload.size, 7, rs.digest(payload), 41,
+                             2)
+
+
+def test_stream_payloads_round_trip():
+    """A micro-batch of every request kind, an update's edits and a
+    checkpoint's spec decode to what was encoded."""
+    from repro_torch.serve.reach_service import REQUEST_TYPES
+    rng = np.random.default_rng(5)
+    groups = {}
+    for spec in u.serve_requests(40, rng, 60):
+        req = u.build_request(port_api, spec)
+        groups.setdefault(req.kind, []).append(req)
+    assert len(groups) == len(REQUEST_TYPES)
+    back = rs.decode_batch(rs.encode_batch(list(groups.items())),
+                           REQUEST_TYPES)
+    assert [k for k, _ in back] == list(groups)
+    for (_, got), want in zip(back, groups.values()):
+        assert [_query_fields(r) for r in got] == \
+            [_query_fields(r) for r in want]
+        # the tenant metadata stays on the leader
+        assert all(r.tenant == "default" for r in got)
+    edits = ([[0, 1, 2], [5, 9]], [3, 0])
+    assert rs.decode_edits(rs.encode_edits(*edits)) == (edits[0], edits[1])
+    assert rs.decode_edits(rs.encode_edits([], [])) == ([], [])
+    spec = {"path": "/x/y", "checkpoint_every": None, "verify": True}
+    assert coll.decode_json(coll.encode_json(spec)) == spec
+
+
+def _query_fields(r):
+    import dataclasses
+    return (type(r),) + tuple(getattr(r, f.name) for f in
+                              dataclasses.fields(r) if not f.kw_only)
+
+
+def test_stream_refuses_what_it_cannot_read():
+    """A header without the magic word, of an unknown kind or a negative
+    length is refused; edits that are not integers are refused before
+    anything is sent."""
+    payload = np.zeros(2, np.int64)
+    good = rs.encode_header(rs.BATCH, payload, 0, 0)
+    for bad in (np.zeros(rs.HEADER_WORDS, np.int64), good[:-1]):
+        with pytest.raises(ValueError, match="not a service stream header"):
+            rs.decode_header(bad)
+    for word, value in ((1, 9), (2, -1)):
+        bad = good.copy()
+        bad[word] = value
+        with pytest.raises(ValueError, match="bad service stream header"):
+            rs.decode_header(bad)
+    with pytest.raises(ValueError):
+        rs.encode_header(9, payload, 0, 0)
+    with pytest.raises(TypeError):
+        rs.encode_edits([[0, 1.5]], [])

@@ -39,9 +39,7 @@ S_VALUES = (1, 2, 3)
 SCALAR_PAIRS = [(0, 1), (3, 7), (5, 5), (12, 39)]
 # the block of tests/test_distributed.py::test_compressed_allreduce
 COMPRESSION_BLOCK = 16
-ERROR_NAMES = ("world_size", "trim", "service_mesh", "service_engine",
-               "replicas", "save_index", "load_index", "restore",
-               "index_store", "wal", "service_hl_index")
+ERROR_NAMES = ("world_size", "trim")
 MESH_SHAPES = ((2, 2), (1, 4), (4, 1))
 # six line-graph components of six hyperedges; one random component; a
 # chain of one; no hyperedge at all
@@ -79,6 +77,35 @@ REGRID_SIZES = (12, 24, 40)
 REGRID_CASES = [(shape, mp) for shape in MESH_SHAPES for mp in REGRID_SIZES]
 # the rank whose share of a build fails in the failure cases
 FAILING_RANK = 1
+# serving on ranks (A10d item 2): (engine, grid, service mesh) over
+# ``update_graph()``; rank 0 leads, the others follow
+SERVE_CASES = [("labels", (2, 2), True), ("labels", (1, 4), True),
+               ("labels", (4, 1), True), ("closure", (2, 2), True),
+               ("hl-index", (2, 2), True), ("hl-index", (2, 2), False),
+               ("single", (2, 2), True)]
+SERVE_TENANTS = (("a", 1.0), ("b", 2.0))
+SERVE_MAX_BATCH = 32
+SERVE_REQUESTS = 24
+SERVE_SEED = 29
+# three replicas over an engine whose snapshot is whole on every rank,
+# and over one whose snapshot is already blocks of the mesh
+REPLICA_CASES = ("hl-index", "labels")
+REPLICAS = 3
+# the world's process-group timeout (a service's keep-alive interval is
+# a quarter of it); the threaded leader's keep-alive interval, set small,
+# and how long it idles
+WORLD_TIMEOUT_S = 400
+KEEPALIVE_S = 0.05
+IDLE_S = 0.4
+# the store on ranks (A10d item 4), each after the update script's first
+# STORE_STEPS steps on 2 x 2: (payload or backend, update_script kind)
+STORE_CASES = [("labels", "labels"), ("closure", "resident"),
+               ("snapshot", "closure"), ("hl-index", "hl-index"),
+               ("hl-index-basic", "hl-index-basic")]
+STORE_STEPS = 4
+STORE_MORE = [[5, 6, 7]]
+# the journaled updates of the IndexStore case
+JOURNAL_EDITS = [([[7, 8, 9]], []), ([[1, 11]], [3])]
 
 
 def label_graph(name):
@@ -107,6 +134,89 @@ def update_graph():
         edges += [[v, v + 1, v + 2], [v + 1, v + 3], [v + 2, v + 3, v + 4],
                   [v, v + 4]]
     return edges, UPDATE_GRAPH["n"]
+
+
+def serve_edits(n):
+    """The updates sent through a service between its request rounds:
+    an insert, a delete, and an insert that grows ``n``."""
+    return [([[0, 1, 2]], []), ([], [0]), ([[3, n, n + 1]], [])]
+
+
+def serve_requests(n, rng, count):
+    """``(kind, fields, tenant, priority)`` specs of every request kind
+    over two tenants, which both packages build alike (the twin-service
+    request mix of ``tests/test_torch_serving.py``, with the five
+    workload kinds)."""
+    specs = []
+    for _ in range(count):
+        u, v = int(rng.integers(n)), int(rng.integers(n))
+        tenant = SERVE_TENANTS[int(rng.integers(2))][0]
+        prio = ("interactive", "standard", "batch")[int(rng.integers(3))]
+        x = rng.random()
+        if x < 0.4:
+            kind, fields = "mr", (u, v)
+        elif x < 0.7:
+            kind, fields = "s_reach", (u, v, int(rng.integers(1, 6)))
+        elif x < 0.76:
+            kind, fields = "witness", (u, v)
+        elif x < 0.82:
+            kind, fields = "s_reach_k", (u, v, int(rng.integers(1, 4)),
+                                         int(rng.integers(1, 5)))
+        elif x < 0.88:
+            kind, fields = "mr_set", (
+                tuple(int(a) for a in rng.choice(n, 3, replace=False)),
+                tuple(int(a) for a in rng.choice(n, 2, replace=False)))
+        elif x < 0.94:
+            kind, fields = "top_s", (u, int(rng.integers(1, 6)))
+        else:
+            kind, fields = "s_distance", (u, v, int(rng.integers(1, 4)))
+        specs.append((kind, fields, tenant, prio))
+    return specs
+
+
+_REQUEST_CLASSES = {"mr": "MRRequest", "s_reach": "SReachRequest",
+                    "witness": "WitnessRequest",
+                    "s_reach_k": "SReachKRequest", "mr_set": "MRSetRequest",
+                    "top_s": "TopSRequest", "s_distance": "SDistanceRequest"}
+
+
+def build_request(api, spec):
+    kind, fields, tenant, prio = spec
+    return getattr(api, _REQUEST_CLASSES[kind])(*fields, tenant=tenant,
+                                                priority=prio)
+
+
+def answer_json(x):
+    """An answer as JSON: a witness as ``[u, v, s, walk]``, a top-s
+    ranking as pairs."""
+    if hasattr(x, "walk"):
+        return [int(x.u), int(x.v), int(x.s), [int(e) for e in x.walk]]
+    if isinstance(x, tuple):
+        return [answer_json(y) for y in x]
+    if isinstance(x, (bool, np.bool_)):
+        return bool(x)
+    return int(x)
+
+
+def serve_key(kind, shape, with_mesh):
+    return f"{kind}-{shape[0]}x{shape[1]}-{'mesh' if with_mesh else 'nomesh'}"
+
+
+def serve_script(api, svc, n0):
+    """The leader's side of a serving case: rounds of requests (two
+    micro-batches one at a time, then the rest), each followed by an
+    update through the service.  Returns the answers per round."""
+    rng = np.random.default_rng(SERVE_SEED)
+    rounds = []
+    for ins, dels in serve_edits(n0):
+        specs = serve_requests(svc.engine.h.n, rng, SERVE_REQUESTS)
+        futs = svc.submit_many([build_request(api, s) for s in specs])
+        first = svc.drain(max_batches=2)
+        svc.drain()
+        rounds.append({"first": first, "answers": [
+            answer_json(f.result(timeout=60)) for f in futs]})
+        svc.update(inserts=ins, deletes=dels)
+    return rounds
 
 
 def update_script(n, m):
@@ -192,12 +302,16 @@ def _error(fn):
 
 
 def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    import datetime
+
     import torch
     import torch.distributed as tdist
 
     torch.set_num_threads(1)
-    tdist.init_process_group("gloo", init_method=f"file://{init_file}",
-                             rank=rank, world_size=world)
+    tdist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
     try:
         arrays, scalars = _rank_cases(rank, out_dir)
     finally:
@@ -344,39 +458,20 @@ def _rank_cases(rank: int, out_dir: str):
         arrays[f"compression/{k}/scales"] = api_gather(scale, cm)
 
     _a10d_rank_cases(api, mesh, rank, arrays, scalars)
+    _serving_rank_cases(api, mesh, rank, arrays, scalars)
+    _store_rank_cases(api, mesh, rank, out_dir, arrays, scalars)
 
-    # -- what does not run on ranks, and the mesh's limits
-    from repro_torch.store.wal import WriteAheadLog
+    # -- the mesh's limits
     eng = api.build_engine(he, "sharded", mesh=pm, use_kernels=True)
-    hl_eng = api.build_engine(he, "hl-index", mesh=pm)
-    host_eng = api.build_engine(he, "sharded", mesh=logical)
-    saved = os.path.join(out_dir, f"logical-{rank}.hlidx")
-    api.save_index(saved, host_eng)
     errors = {
         "world_size": lambda: api.make_process_mesh((2, 3), AXES,
                                                     device="cpu"),
         "trim": lambda: dist.sharded_maxmin_closure(w, pm),
-        "service_mesh": lambda: api.ReachabilityService(
-            host_eng, mesh=pm, start=False),
-        "service_engine": lambda: api.ReachabilityService(eng, start=False),
-        "replicas": lambda: api.ReplicaGroup(eng, 2, start=False),
-        "save_index": lambda: api.save_index(
-            os.path.join(out_dir, f"rank-{rank}.hlidx"), eng),
-        "load_index": lambda: api.load_index(saved, mesh=pm),
-        "restore": lambda: api.build_engine(restore=saved, mesh=pm),
-        "index_store": lambda: api.IndexStore(
-            os.path.join(out_dir, f"store-{rank}")).attach(eng),
-        "wal": lambda: hl_eng.attach_wal(WriteAheadLog(
-            os.path.join(out_dir, f"wal-{rank}.log"))),
-        "service_hl_index": lambda: api.ReachabilityService(
-            hl_eng, start=False),
     }
     assert tuple(errors) == ERROR_NAMES
     scalars["errors"] = {k: _error(fn) for k, fn in errors.items()}
     scalars["update_left_engine"] = {"version": eng.version,
                                      "m": eng.h.m}
-    scalars["store_left_nothing"] = not os.path.exists(
-        os.path.join(out_dir, f"store-{rank}", "CURRENT"))
     return arrays, scalars
 
 
@@ -594,6 +689,342 @@ def _a10d_rank_cases(api, mesh, rank, arrays, scalars):
     _failure_cases(api, mesh, rank, scalars)
 
 
+# the dispatch-side fields of ``ServiceStats``: what a follower counts
+DISPATCH_FIELDS = ("answered", "batches", "padded_queries",
+                   "bucket_histogram", "snapshot_refreshes", "rows_rederived",
+                   "rows_full", "mesh_rows_patched", "kernel_batches",
+                   "workload_answered", "updates")
+
+
+def _serving_engine(api, h, kind, pm):
+    """The engine of a serving case on ranks (``single``: one process's
+    engine on the CPU, taken over by the ranks of the service)."""
+    if kind == "labels":
+        return api.build_engine(h, "sharded", mesh=pm, build_labels=True,
+                                use_kernels=True)
+    if kind == "closure":
+        return api.build_engine(h, "sharded", mesh=pm, use_kernels=True)
+    if kind == "single":
+        return api.build_engine(h, "hl-index", device="cpu",
+                                use_kernels=True)
+    return api.build_engine(h, kind, mesh=pm, use_kernels=True)
+
+
+def _port_config(api, **kw):
+    return api.ServiceConfig(
+        max_batch=SERVE_MAX_BATCH, use_kernels=True,
+        tenants=tuple(api.TenantSpec(t, w) for t, w in SERVE_TENANTS), **kw)
+
+
+def _lead_or_follow(svc, lead):
+    """Rank 0 runs ``lead(svc)`` and closes the service (also when
+    ``lead`` raises, so no follower is left waiting); the others follow
+    until it closes.  Returns ``lead``'s result, or ``None``."""
+    if not svc.leader:
+        svc.follow()
+        return None
+    try:
+        return lead(svc)
+    finally:
+        svc.close()
+
+
+def _service_record(svc, result):
+    return {"result": result, "stats": svc.stats().as_dict(),
+            "events": dict(svc._stream.by_kind), "seq": svc._stream.seq,
+            "failed_events": svc.failed_events, "leader": svc.leader}
+
+
+class _Count:
+    """Calls of ``owner.name`` (wrapped in place) while in ``with``."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, 0
+
+    def __enter__(self):
+        self.plain = getattr(self.owner, self.name)
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.plain(*args, **kw)
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.plain)
+
+
+def _serving_rank_cases(api, mesh, rank, arrays, scalars):
+    """A10d item 2 on ranks: services over every engine of
+    ``SERVE_CASES``, ``ReplicaGroup`` copies, a threaded leader idling
+    across keep-alives, and the failures."""
+    import time
+    from concurrent.futures import Future
+    from repro_torch.core.query import DeviceSnapshot
+    from repro_torch.serve.scheduler import _Entry
+
+    hu = api.from_edge_lists(*update_graph())
+    serving = {}
+    for kind, shape, with_mesh in SERVE_CASES:
+        pm = mesh(shape)
+        eng = _serving_engine(api, hu, kind, pm)
+        svc = api.serve(eng, mesh=pm if with_mesh else None,
+                        config=_port_config(api), start=False)
+        rounds = _lead_or_follow(svc, lambda s: serve_script(api, s, hu.n))
+        serving[serve_key(kind, shape, with_mesh)] = dict(
+            _service_record(svc, rounds),
+            on_mesh=repr(getattr(svc._snap, "mesh", None)),
+            block=bool(getattr(svc._snap, "block", False)))
+    scalars["serving"] = serving
+
+    pm = mesh((2, 2))
+    replicas = {}
+    for kind in REPLICA_CASES:
+        eng = _serving_engine(api, hu, kind, pm)
+        grp = api.serve(eng, config=_port_config(api, replicas=REPLICAS),
+                        start=False)
+        rounds = _lead_or_follow(grp, lambda s: serve_script(api, s, hu.n))
+        own = eng.snapshot_cache()
+        ptrs = [r.snap.ranks.data_ptr() for r in grp.replicas]
+        replicas[kind] = dict(
+            _service_record(grp, rounds), replica_stats=grp.replica_stats(),
+            mesh=repr(grp.mesh),
+            private=len(set(ptrs)) == len(ptrs)
+            and own.ranks.data_ptr() not in ptrs
+            and own.svals.data_ptr() not in
+            [r.snap.svals.data_ptr() for r in grp.replicas])
+        for i, r in enumerate(grp.replicas):
+            for f in ("ranks", "svals", "lengths"):
+                arrays[f"replicas/{kind}/{i}/{f}"] = \
+                    getattr(r.snap, f).numpy().copy()
+    scalars["replicas"] = replicas
+
+    # the threaded leader: the synchronous labels-2x2 run's requests and
+    # updates, then an idle spell of several keep-alive intervals; then
+    # a request that lands while close() drains, and requests after it
+    eng = _serving_engine(api, hu, "labels", pm)
+    svc = api.serve(eng, config=_port_config(api), start=False)
+    keepalive_read = svc.keepalive_s
+    svc.keepalive_s = KEEPALIVE_S
+    closing = []
+
+    def threaded(s):
+        s.start()
+        rng = np.random.default_rng(SERVE_SEED)
+        rounds = []
+        for ins, dels in serve_edits(hu.n):
+            specs = serve_requests(s.engine.h.n, rng, SERVE_REQUESTS)
+            futs = s.submit_many([build_request(api, x) for x in specs])
+            rounds.append([answer_json(f.result(timeout=60)) for f in futs])
+            s.update(inserts=ins, deletes=dels)
+        sent = s._stream.by_kind["keepalive"]
+        time.sleep(IDLE_S)
+        futs = [s.mr(u, v) for u, v in SCRIPT_PAIRS]
+
+        def drain_then_submit(*args, **kwargs):
+            closing.append(_error(lambda: s.submit(api.MRRequest(0, 1))))
+            return type(s).drain(s, *args, **kwargs)
+        s.drain = drain_then_submit           # close()'s last drain
+        return {"rounds": rounds,
+                "after_idle": [f.result(timeout=60) for f in futs],
+                "host_mr": [eng.mr(u, v) for u, v in SCRIPT_PAIRS],
+                "keepalives_while_idle":
+                    s._stream.by_kind["keepalive"] - sent}
+    scalars["threaded"] = _service_record(svc, _lead_or_follow(svc,
+                                                               threaded))
+    scalars["threaded"]["keepalive_read"] = keepalive_read
+    if svc.leader:
+        del svc.drain                         # the class's drain again
+        late = Future()
+        svc._dispatch([_Entry(api.MRRequest(0, 1), late, time.monotonic(),
+                              None)])
+        scalars["threaded"]["after_close"] = {
+            "while_closing": closing,
+            "submit": _error(lambda: svc.submit(api.MRRequest(0, 1))),
+            "update": _error(lambda: svc.update(inserts=[[0, 1]])),
+            "dispatch": _error(lambda: late.result(timeout=60)),
+            "drain": svc.drain(),
+            "seq": svc._stream.seq}
+
+    # failures: a batch failing on FAILING_RANK after its join, a request
+    # past n at admission, a batch past n that bypassed admission
+    eng = _serving_engine(api, hu, "labels", pm)
+    svc = api.serve(eng, config=_port_config(api), start=False)
+    if rank == FAILING_RANK:
+        plain = svc._snapshot_mr
+        calls = []
+
+        def failing(snap, us, vs):
+            out = plain(snap, us, vs)
+            calls.append(1)
+            if len(calls) == 1:
+                raise MemoryError("planted after the join")
+            return out
+        svc._snapshot_mr = failing
+    follower_errors = None
+    if not svc.leader:
+        follower_errors = [
+            _error(lambda: svc.submit(api.MRRequest(0, 1))),
+            _error(lambda: svc.update(inserts=[[0, 1]])),
+            _error(lambda: svc.checkpoint(None))]
+
+    def failures(s):
+        out = {}
+        futs = [s.mr(0, 1), s.mr(3, 7)]
+        s.drain()
+        out["failed"] = [_error(lambda f=f: f.result(timeout=60))
+                         for f in futs]
+        futs = [s.mr(0, 1), s.mr(3, 7)]
+        s.drain()
+        out["next"] = [f.result(timeout=60) for f in futs]
+        seq = s._stream.seq
+        out["admission"] = _error(lambda: s.submit(
+            api.MRRequest(0, eng.h.n)))
+        out["admission_sent"] = s._stream.seq - seq
+        forged = Future()
+        s._dispatch([_Entry(api.MRRequest(0, eng.h.n + 5), forged,
+                            time.monotonic(), None)])
+        out["forged"] = _error(lambda: forged.result(timeout=60))
+        out["last"] = s.mr(5, 5)
+        s.drain()
+        out["last"] = out["last"].result(timeout=60)
+        return out
+    with _Count(DeviceSnapshot, "gather_query_rows") as joins:
+        result = _lead_or_follow(svc, failures)
+    scalars["failures_serving"] = dict(
+        _service_record(svc, result), joins=joins.calls,
+        follower_errors=follower_errors)
+
+
+def _store_engine(api, h, kind, pm):
+    """An engine of ``STORE_CASES`` after the update script's first
+    ``STORE_STEPS`` steps (``closure``: queried first, so its W* is
+    freed and the snapshot payload is written)."""
+    eng = _port_engine(api, h, kind, pm, "allgather")
+    if kind == "closure":
+        eng.mr_batch(*all_pairs(h.n))
+    for _, ins, dels in update_script(h.n, h.m)[:STORE_STEPS]:
+        eng.update(inserts=ins, deletes=dels)
+    return eng
+
+
+def _snapshot_arrays(arrays, prefix, snap):
+    for f in ("ranks", "svals", "lengths"):
+        arrays[f"{prefix}/{f}"] = getattr(snap, f).numpy().copy()
+
+
+def _store_rank_cases(api, mesh, rank, out_dir, arrays, scalars):
+    """A10d item 4 on ranks: ``save_index`` / ``load_index(mesh=pm)`` /
+    ``build_engine(restore=, mesh=pm)`` of every payload, the
+    ``IndexStore`` with its log, a failed append, and a service's
+    checkpoint and restore.  Every rank names the same files; counts what
+    this rank wrote."""
+    from repro_torch.store import format as fmt
+    from repro_torch.store import wal as walmod
+
+    pm = mesh((2, 2))
+    hu = api.from_edge_lists(*update_graph())
+    files = _Count(fmt, "_write_store_file")
+    appends = _Count(walmod.WriteAheadLog, "append")
+    store = {}
+    with files, appends:
+        for kind, script_kind in STORE_CASES:
+            eng = _store_engine(api, hu, script_kind, pm)
+            path = os.path.join(out_dir, f"store-{kind}.hlidx")
+            written = files.calls
+            manifest = api.save_index(path, eng)
+            info = {"manifest": manifest, "written": files.calls - written}
+            loaded = api.load_index(path, mesh=pm)
+            restored = api.build_engine(restore=path, mesh=pm)
+            tag = f"store/{kind}"
+            if loaded.name == "sharded" and loaded._w_star is not None:
+                arrays[f"{tag}/block"] = loaded._w_star.numpy().copy()
+            us, vs = all_pairs(loaded.h.n)
+            arrays[f"{tag}/mr"] = loaded.mr_batch(us, vs)
+            info["restored_equal"] = bool(np.array_equal(
+                restored.mr_batch(us, vs), arrays[f"{tag}/mr"]))
+            snap = loaded.snapshot()
+            info.update(block=snap.block, on=repr(snap.mesh),
+                        rank_mesh=repr(loaded.rank_mesh),
+                        version=loaded.version)
+            _snapshot_arrays(arrays, f"{tag}/snap", snap)
+            loaded.update(inserts=STORE_MORE)
+            us, vs = all_pairs(loaded.h.n)
+            arrays[f"{tag}/more_mr"] = loaded.mr_batch(us, vs)
+            _snapshot_arrays(arrays, f"{tag}/more_snap", loaded.snapshot())
+            store[kind] = info
+
+        # the IndexStore with its log, then a failed append on rank 0
+        eng = _port_engine(api, hu, "labels", pm, None)
+        eng.mr_batch(*all_pairs(hu.n))
+        root = os.path.join(out_dir, "store-ranks")
+        index_store = api.IndexStore(root)
+        written, appended = files.calls, appends.calls
+        index_store.checkpoint(eng)
+        index_store.attach(eng)
+        for ins, dels in JOURNAL_EDITS:
+            eng.update(inserts=ins, deletes=dels)
+        restored = api.IndexStore(root).restore(mesh=pm, attach=False)
+        us, vs = all_pairs(eng.h.n)
+        journal = {
+            "written": files.calls - written,
+            "appended": appends.calls - appended,
+            "version": eng.version, "restored_version": restored.version,
+            "records": index_store.records_since_checkpoint,
+            "answers_equal": bool(np.array_equal(
+                restored.mr_batch(us, vs), eng.mr_batch(us, vs))),
+            "snapshot_equal": all(
+                torch_equal(getattr(restored.snapshot(), f),
+                            getattr(eng.snapshot(), f))
+                for f in ("ranks", "svals", "lengths"))}
+        if rank == 0:
+            def failing(*args):
+                raise OSError("planted: the disk is full")
+            index_store._wal.append = failing
+        journal["failed_append"] = _error(
+            lambda: eng.update(inserts=[[2, 9]]))
+        journal["after_failure"] = {"version": eng.version, "m": eng.h.m,
+                                    "records": index_store.
+                                    records_since_checkpoint}
+        scalars["index_store"] = journal
+
+        # a service's checkpoint and restore through the stream
+        eng = _serving_engine(api, hu, "labels", pm)
+        svc = api.serve(eng, config=_port_config(api), start=False)
+        root = os.path.join(out_dir, "store-service")
+        specs = serve_requests(hu.n + 1, np.random.default_rng(31),
+                               SERVE_REQUESTS)
+
+        def answers(s):
+            futs = s.submit_many([build_request(api, x) for x in specs])
+            s.drain()
+            return [answer_json(f.result(timeout=60)) for f in futs]
+
+        def live(s):
+            s.checkpoint(api.IndexStore(root))
+            s.update(inserts=[[2, 5, hu.n]])
+            return answers(s)
+        written = files.calls
+        live_answers = _lead_or_follow(svc, live)
+        back = api.ReachabilityService.restore(
+            root, mesh=pm, config=_port_config(api), start=False)
+        scalars["service_store"] = {
+            "live": live_answers, "restored": _lead_or_follow(back, answers),
+            "version": back.engine.version,
+            "rank_mesh": repr(back.engine.rank_mesh),
+            "written": files.calls - written,
+            "live_stats": svc.stats().as_dict(),
+            "restored_stats": back.stats().as_dict()}
+    scalars["store"] = store
+    scalars["store_writes"] = {"files": files.calls,
+                               "appends": appends.calls}
+
+
+def torch_equal(a, b):
+    import torch
+    return torch.equal(a, b)
+
+
 def api_gather(t, mesh):
     """Every rank's ``t`` stacked in rank order along a new first axis."""
     from repro_torch.core.collectives import all_gather_panel
@@ -675,6 +1106,7 @@ def run_reference(out_dir: str) -> None:
         arrays[f"compression/{k}/scales"] = np.stack(
             [np.asarray(s) for _, s in pairs])
     _a10d_reference_cases(arrays, scalars)
+    _serving_reference_cases(out_dir, arrays, scalars)
     np.savez(os.path.join(out_dir, "reference.npz"), **arrays)
     with open(os.path.join(out_dir, "reference.json"), "w") as f:
         json.dump(scalars, f)
@@ -794,6 +1226,98 @@ def _a10d_reference_cases(arrays, scalars):
                 eng.mr_batch(*all_pairs(eng.h.n)))
         scripts[key] = {"steps": steps}
     scalars["scripts"] = scripts
+
+
+def _reference_engine(kind, shape):
+    """The reference's engine of a serving or store case on
+    ``update_graph()`` over ``make_test_mesh(shape)``."""
+    from repro.api import build_engine
+    from repro.core import from_edge_lists
+    from repro.core.distributed import ShardedEngine
+    from repro.launch.mesh import make_test_mesh
+
+    hu = from_edge_lists(*update_graph())
+    mesh = make_test_mesh(shape, AXES)
+    if kind == "labels":
+        return ShardedEngine.build(hu, mesh=mesh, build_labels=True)
+    if kind in ("closure", "resident"):
+        return ShardedEngine.build(hu, mesh=mesh, schedule="allgather")
+    if kind == "single":
+        return build_engine(hu, "hl-index")
+    return build_engine(hu, kind, mesh=mesh)
+
+
+def _serving_reference_cases(out_dir, arrays, scalars):
+    """The serving and store cases on the reference over four host
+    devices: its mesh services, replica groups and files."""
+    import dataclasses
+    import repro.api as ref_api
+    from repro.launch.mesh import make_test_mesh
+
+    n0 = UPDATE_GRAPH["n"]
+    cfg = ref_api.ServiceConfig(
+        max_batch=SERVE_MAX_BATCH, use_kernels=False,
+        tenants=tuple(ref_api.TenantSpec(t, w) for t, w in SERVE_TENANTS))
+    serving = {}
+    for kind, shape, with_mesh in SERVE_CASES:
+        svc = ref_api.serve(_reference_engine(kind, shape),
+                            mesh=make_test_mesh(shape, AXES) if with_mesh
+                            else None, config=cfg, start=False)
+        rounds = serve_script(ref_api, svc, n0)
+        serving[serve_key(kind, shape, with_mesh)] = {
+            "result": rounds, "stats": svc.stats().as_dict()}
+        svc.close()
+    scalars["serving"] = serving
+    replicas = {}
+    mesh = make_test_mesh((2, 2), AXES)
+    for kind in REPLICA_CASES:
+        grp = ref_api.serve(_reference_engine(kind, (2, 2)), mesh=mesh,
+                            config=dataclasses.replace(cfg,
+                                                       replicas=REPLICAS),
+                            start=False)
+        rounds = serve_script(ref_api, grp, n0)
+        replicas[kind] = {"result": rounds, "stats": grp.stats().as_dict(),
+                          "replica_stats": grp.replica_stats()}
+        for i, r in enumerate(grp.replicas):
+            for f in ("ranks", "svals", "lengths"):
+                arrays[f"replicas/{kind}/{i}/{f}"] = np.asarray(
+                    getattr(r.snap, f))
+        grp.close()
+    scalars["replicas"] = replicas
+
+    hu_n = UPDATE_GRAPH["n"]
+    for kind, script_kind in STORE_CASES:
+        eng = _reference_engine(script_kind, (2, 2))
+        if script_kind == "closure":
+            eng.mr_batch(*all_pairs(hu_n))
+        for _, ins, dels in update_script(hu_n, 0)[:STORE_STEPS]:
+            eng.update(inserts=ins, deletes=dels)
+        path = os.path.join(out_dir, f"reference-store-{kind}.hlidx")
+        ref_api.save_index(path, eng)
+        loaded = ref_api.load_index(path, mesh=mesh)
+        tag = f"store/{kind}"
+        if loaded.name == "sharded" and loaded._w_star is not None:
+            arrays[f"{tag}/w_star"] = np.asarray(loaded._w_star)
+        arrays[f"{tag}/mr"] = np.asarray(loaded.mr_batch(
+            *all_pairs(loaded.h.n)))
+        for f in ("ranks", "svals", "lengths"):
+            arrays[f"{tag}/snap/{f}"] = np.asarray(
+                getattr(loaded.snapshot(), f))
+        loaded.update(inserts=STORE_MORE)
+        arrays[f"{tag}/more_mr"] = np.asarray(loaded.mr_batch(
+            *all_pairs(loaded.h.n)))
+        for f in ("ranks", "svals", "lengths"):
+            arrays[f"{tag}/more_snap/{f}"] = np.asarray(
+                getattr(loaded.snapshot(), f))
+
+    eng = _reference_engine("labels", (2, 2))
+    eng.mr_batch(*all_pairs(hu_n))
+    store = ref_api.IndexStore(os.path.join(out_dir, "reference-store-ranks"))
+    store.checkpoint(eng)
+    store.attach(eng)
+    for ins, dels in JOURNAL_EDITS:
+        eng.update(inserts=ins, deletes=dels)
+    store.close()
 
 
 if __name__ == "__main__":
