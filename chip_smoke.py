@@ -90,15 +90,15 @@ drives the port's two paths at full size through `repro_torch.api`:
   `--quick` sizes (its JSON into `build/bench_torch/`), the four examples,
   the docs check, then exp1, `kernels_bench` and `bench_serving` at the
   published sizes on the engines `main_path` and `closure_path` built;
-* the closure dry-run at half the paper's production size, m = 32,768
-  (`repro_torch.launch.closure_dryrun.main`, in process; at 65,536 its
-  rounds alone took some 115 s): eight records under `build/dryrun_core`
-  (each cell priced at H100 rates, with the collective bytes a round's
-  blocks read), and each distinct round run once on the card on W of a
-  walmart-trips-shaped graph (one `overlap`, 256 float32 `maxmin_matmul`
-  launches of `[2,048, 32,768] x [32,768, 2,048]` for the allgather
-  round, 4,096 of `[2,048]^3` for the ring round, 32 + 6
-  `threshold_step` slices of `[1, 32,768, 32,768]`), 64 x 64 sampled
+* the closure dry-run at a quarter of the paper's production size, m =
+  16,384 (`repro_torch.launch.closure_dryrun.main`, in process; at 65,536
+  its rounds alone took some 115 s, at 32,768 some 17 s): eight records
+  under `build/dryrun_core` (each cell priced at H100 rates, with the
+  collective bytes a round's blocks read), and each distinct round run
+  once on the card on W of a walmart-trips-shaped graph (one `overlap`,
+  256 float32 `maxmin_matmul` launches of `[1,024, 16,384] x [16,384,
+  1,024]` for the allgather round, 4,096 of `[1,024]^3` for the ring
+  round, 32 + 6 `threshold_step` slices of `[1, 16,384, 16,384]`), 64 x 64 sampled
   entries of each held to the plain version; then each of these kernels
   at the production shapes (m = 65,536) beside its bound and library
   call;
@@ -124,9 +124,19 @@ drives the port's two paths at full size through `repro_torch.api`:
   skipped), the roofline of both meshes at H100 rates, then one card's
   share of three `qwen3-1.7b` cells at its full published config run
   through the port's own steps: `train_4k` on a 64 x 1 mesh (4 x 4,096
-  tokens, 4 microbatches), `prefill_32k` on 32 x 1 (1 x 32,768) and
-  `decode_32k` on 128 x 1 (one token over a 32,768-deep cache), each
-  timed once after a warm-up beside its bound and checked.
+  tokens, 4 microbatches), `prefill_32k` on 32 x 1 cut to 1 x 4,096
+  tokens and `decode_32k` on 128 x 1 (one token over a 32,768-deep
+  cache), each
+  timed once after a warm-up beside its bound and checked; then the
+  serving cells with the `model` axis split, on four spawned gloo ranks
+  sharing the card as a (data, model) = (1, 4) `ProcessMesh`
+  (`lower_cell(..., ranks=pm)`: each rank its block of every parameter,
+  of the cache and of the batch, the collectives over `model`):
+  `decode_32k` on 128 x 4 and a prefill on 32 x 4 cut to 4,096 tokens,
+  each rank's gathered logits byte-equal to the others' and held to the
+  one-process run of the cell (float32 compute and bf16) by the bf16
+  departure gate, each rank's peak under half the one-process run's,
+  each rank's counted collectives equal to the closed form's.
 
 The host-only references (the MST oracle of walmart-trips,
 primary-school and email-Eu; email-Eu's ETE and threshold-component
@@ -146,7 +156,8 @@ SASS's HGMMA / HMMA / UTMALDG counts), `kernel_checks` (one per kernel),
 `rank_label_path`, `closure_small`,
 `backends_path`, `bench_path`, `dryrun_path` (after one line per cell
 from the dry-run itself), `lm_serve_path`, `lm_train_path`,
-`lm_dryrun_path` (after one line per cell from the LM dry-run)
+`lm_dryrun_path` (after one line per cell from the LM dry-run, one per
+one-process run and one per rank cell)
 (`closure_path` and `backends_path` each with a `workloads` part), then
 `{"kernels": [...]}` (per kernel: launches on its path, error against the
 plain version, times and the roofline bound;
@@ -337,11 +348,12 @@ RANK_REPLICAS, RANK_REPLICA_REQUESTS = 2, 8192
 # rows on 4,096 pairs and a 2^20 label_join_gather batch on 89k/70k, and
 # the service against per-call queries on 10,000 mixed requests there and
 # 4,096 on primary-school's closure engine
-# dryrun_path: the closure dry-run's cells at half the paper's
-# production size (its rounds at m = 65,536 took 110-120 s of the
-# script's time limit), then each kernel at the production shapes
+# dryrun_path: the closure dry-run's cells at a quarter of the paper's
+# production size (its rounds took 110-120 s of the script's time limit
+# at m = 65,536, some 17 s at 32,768), then each kernel at the
+# production shapes
 DRYRUN_M = 65_536
-DRYRUN_RUN_M = 32_768
+DRYRUN_RUN_M = 16_384
 DRYRUN_S = 32
 DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_core"
 # lm_serve_path: the serving launcher at a published LM config
@@ -361,10 +373,25 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16
 # then one card's share of three LM_ARCH cells at the full published
 # config (data-parallel meshes: model axis 1)
 LM_DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_lm"
-LM_DRYRUN_RUNS = (("train_4k", (64, 1)), ("prefill_32k", (32, 1)),
-                  ("decode_32k", (128, 1)))
+# (cell, its seq_len, mesh); the prefill cut from 32,768 to 4,096 tokens
+# for the script's time: the cell LM_RANK_CELLS runs on ranks, whose
+# one-process bf16 run this is
+LM_DRYRUN_RUNS = (("train_4k", 4_096, (64, 1)),
+                  ("prefill_32k", 4_096, (32, 1)),
+                  ("decode_32k", 32_768, (128, 1)))
 LM_DRYRUN_CELLS = {"ok": 64, "skipped": 16}
 LM_DRYRUN_RUN_REPS = 1                 # timed passes after the warm-up
+# then RANK_WORLD gloo ranks share the card as a (data, model) = (1, 4)
+# ProcessMesh and run LM_ARCH's serving cells with the model axis split:
+# (cell, its seq_len, the cell's mesh): decode_32k whole on (128, 4), and
+# prefill on (32, 4) cut to 4,096 tokens (a prefill pass all-reduces 57
+# [tokens, 2,048] bf16 tensors through host memory, some 30 s a pass at
+# 32,768 tokens); each held to the one-process run of its cell at model
+# axis 1 (float32 compute and bf16) by the departure gate
+LM_RANK_GRID = (1, 4)
+LM_RANK_CELLS = (("decode_32k", 32_768, (128, 4)),
+                 ("prefill_32k", 4_096, (32, 4)))
+LM_RANK_TIMEOUT_S = 600
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
 # bf16 serving: the root-mean-square departure of the decode logits (bf16
 # compute, the served bf16 cache) from the float32 forward may be at most
@@ -5566,8 +5593,8 @@ def dryrun_kernel_rows(cd, mm, ov, tc, launches, maxmin_launches, device):
 
 
 def phase_dryrun_path(counters, mm, ov, tc, device):
-    """The closure dry-run at m = ``DRYRUN_RUN_M`` (32,768: half the
-    paper's 65,536, for the script's time; ``repro_torch.launch.
+    """The closure dry-run at m = ``DRYRUN_RUN_M`` (16,384: a quarter of
+    the paper's 65,536, for the script's time; ``repro_torch.launch.
     closure_dryrun.main``, in process): eight records under
     ``build/dryrun_core``, each cell's analytic terms priced at H100
     rates and the four device computations run once on the card (one
@@ -6002,6 +6029,171 @@ def lm_dryrun_summary(records, rows):
     return out
 
 
+def lm_cell(name, seq):
+    """The shape cell ``name`` at ``seq`` tokens (``LM_DRYRUN_RUNS``,
+    ``LM_RANK_CELLS``)."""
+    import dataclasses
+    from repro_torch.launch.shapes import SHAPES
+    return dataclasses.replace(SHAPES[name], seq_len=seq)
+
+
+def lm_rank_worker(rank, world, work, spec):
+    """One rank of ``lm_dryrun_path``'s rank cells (a spawned process):
+    the ``LM_RANK_GRID`` ``ProcessMesh`` on the shared card, then each of
+    ``LM_RANK_CELLS`` through ``lower_cell(..., run=True, ranks=pm)`` (the
+    rank's blocks drawn from the one-process model's generator, its rows
+    and cache slots; a warm-up and ``LM_DRYRUN_RUN_REPS`` timed passes).
+    Writes ``rank<r>.json`` (the records) and each cell's gathered logits
+    into ``work``."""
+    import datetime
+    import torch.distributed as tdist
+    from repro_torch import api
+    from repro_torch.launch import dryrun
+
+    device = torch.device(spec["device"])
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": rank, "cells": {}}
+    tdist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "init"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=spec["timeout"]))
+    try:
+        # device=None: cuda:0 under gloo (every rank on the one card)
+        pm = api.make_process_mesh(
+            LM_RANK_GRID, ("data", "model"),
+            device=None if device.type == "cuda" else device)
+        for name, seq, mesh_shape in LM_RANK_CELLS:
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            logits = []
+            t0 = time.perf_counter()
+            rec = dryrun.lower_cell(
+                LM_ARCH, lm_cell(name, seq), mesh_shape=mesh_shape,
+                device=device, run=True, run_reps=LM_DRYRUN_RUN_REPS,
+                ranks=pm, logits=logits)
+            rec["cell_s"] = time.perf_counter() - t0
+            np.save(os.path.join(work, f"logits-{name}-{rank}.npy"),
+                    logits[0].numpy())
+            out["cells"][name] = rec
+    finally:
+        tdist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def rms(t):
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def lm_rank_cells(dryrun, device, one):
+    """``LM_RANK_CELLS`` on ``RANK_WORLD`` spawned ranks
+    (``lm_rank_worker``), each held to its one-process run at model axis
+    1 (same weights from seed 0, batch and cache from seed 1, same
+    ``run_batch``): the parent runs the cell in float32 compute and in the
+    published bf16 (``one`` holds the runs it has already made, by (cell,
+    dtype): (record, logits)), and the ranks' gathered logits must depart
+    from the float32 logits by at most ``BF16_DEPARTURE_RATIO`` times the
+    one-process bf16 run's root-mean-square departure.  Also held: the
+    gathered logits byte-equal on every rank, each rank's peak under half
+    the one-process bf16 run's, each rank's counted collectives equal to
+    the closed form's, the run's checks.  Returns one summary a cell."""
+    clock = Phase()
+    refs = dict(one)
+    for name, seq, (data, _) in LM_RANK_CELLS:
+        for dtype in ("float32", "bfloat16"):
+            if (name, dtype) in refs:
+                continue
+            gc.collect()
+            torch.cuda.empty_cache()
+            logits = []
+            rec = dryrun.lower_cell(
+                LM_ARCH, lm_cell(name, seq), mesh_shape=(data, 1),
+                overrides={"compute_dtype": dtype}, device=device, run=True,
+                run_reps=LM_DRYRUN_RUN_REPS, logits=logits)
+            refs[(name, dtype)] = (rec, logits[0])
+    one_process_s = clock.seconds()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_lm_ranks_")
+    try:
+        spec = {"device": device.type, "timeout": LM_RANK_TIMEOUT_S}
+        reports, ranks_s = timed_s(lambda: run_ranks(work, spec,
+                                                     lm_rank_worker))
+        gathered = {name: [torch.from_numpy(np.load(os.path.join(
+            work, f"logits-{name}-{r}.npy"))) for r in range(RANK_WORLD)]
+            for name, _, _ in LM_RANK_CELLS}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = []
+    for name, seq, mesh_shape in LM_RANK_CELLS:
+        recs = [rep["cells"][name] for rep in reports]
+        tag = f"lm_dryrun ranks {LM_ARCH} {name} at {seq} on {mesh_shape}"
+        rec = recs[0]
+        if any(r["status"] != "ok" or "run_reason" in r or
+               r.get("run_s") is None for r in recs):
+            raise AssertionError(f"{tag}: {[r.get('run_reason') for r in recs]}")
+        got = gathered[name]
+        if any(not torch.equal(g, got[0]) for g in got):
+            raise AssertionError(f"{tag}: the gathered logits differ "
+                                 f"between ranks")
+        f32, bf16 = refs[(name, "float32")][1], refs[(name, "bfloat16")][1]
+        if got[0].shape != f32.shape:
+            raise AssertionError(f"{tag}: logits {tuple(got[0].shape)}, "
+                                 f"one process {tuple(f32.shape)}")
+        ranks_dep, one_dep = rms(got[0] - f32), rms(bf16 - f32)
+        ratio = ranks_dep / one_dep
+        if not ratio <= BF16_DEPARTURE_RATIO:
+            raise AssertionError(
+                f"{tag}: the ranks' logits depart from the float32 run "
+                f"{ratio} times as far as the one-process bf16 run (limit "
+                f"{BF16_DEPARTURE_RATIO})")
+        one_peak = refs[(name, "bfloat16")][0]["peak_bytes"]
+        peaks = [r["peak_bytes"] for r in rec["run_ranks"]]
+        if not all(p < one_peak / 2 for p in peaks):
+            raise AssertionError(f"{tag}: rank peaks {peaks} not under half "
+                                 f"the one-process run's {one_peak}")
+        for r in recs:
+            if r["run_collective"] != [r["collective_executed"]] * \
+                    RANK_WORLD:
+                raise AssertionError(f"{tag}: counted collectives "
+                                     f"{r['run_collective']} != the closed "
+                                     f"form's {r['collective_executed']}")
+        if any(r["run_checks"] != rec["run_checks"] for r in recs):
+            raise AssertionError(f"{tag}: the ranks' checks differ")
+        row = {
+            "cell": name, "seq_len": seq, "mesh_shape": list(mesh_shape),
+            "ranks": list(LM_RANK_GRID), "run_batch": rec["run_batch"],
+            "run_s": rec["run_s"], "run_exchange_s": rec["run_exchange_s"],
+            "run_bound_s": rec["run_bound_s"],
+            "run_bound_by": rec["run_bound_by"],
+            "run_ranks": rec["run_ranks"],
+            "collective_executed": rec["collective_executed"],
+            "peak_bytes_one_process": one_peak,
+            "one_process_run_s": {d: refs[(name, d)][0]["run_s"]
+                                  for d in ("float32", "bfloat16")},
+            "rms_departure": {"ranks_bf16": ranks_dep, "one_bf16": one_dep},
+            "departure_ratio": ratio, "cell_s": [r["cell_s"] for r in recs],
+            "run_checks": rec["run_checks"]}
+        print(f"{tag} over {RANK_WORLD} ranks {LM_RANK_GRID}: batch "
+              f"{rec['run_batch']}, run_s per rank "
+              f"{[round(r['run_s'], 4) for r in rec['run_ranks']]} (slowest "
+              f"{rec['run_s']:.4f} s; one process bf16 "
+              f"{row['one_process_run_s']['bfloat16']:.4f} s, bound / 4 "
+              f"{rec['run_bound_s']:.4f} s), exchange "
+              f"{[round(r['run_exchange_s'], 4) for r in rec['run_ranks']]}"
+              f" s, collectives a rank {rec['run_collective'][0]['counts']}"
+              f" = the closed form's, {rec['collective_executed']['total_bytes']}"
+              f" B, peak {peaks} B (one process {one_peak} B), rms "
+              f"departure {ranks_dep:.5f} against {one_dep:.5f} "
+              f"({ratio:.3f}x), checks {rec['run_checks']}", flush=True)
+        out.append(row)
+    return {"cells": out, "one_process_s": one_process_s,
+            "ranks_s": ranks_s, "seconds": clock.seconds()}
+
+
 def phase_lm_dryrun_path(counters, device):
     """The LM dry-run (``repro_torch.launch.dryrun.main``, in process):
     every (arch x shape) cell on the 16 x 16 and 2 x 16 x 16 meshes into
@@ -6012,8 +6204,10 @@ def phase_lm_dryrun_path(counters, device):
     through the port's own step with ``run=True``: its time beside its
     bound, its flops, its peak memory and its checks (outputs finite,
     every parameter changed, the logits' shape, the cache written at
-    ``pos`` only).  No kernel of the port is on this path: the counts
-    stay 0."""
+    ``pos`` only); then ``lm_rank_cells``: the serving cells with the
+    ``model`` axis split, four ranks sharing the card (so a rank's
+    ``run_s`` is not what four cards would take).  No kernel of the port
+    is on this path: the counts stay 0."""
     from repro_torch.benchmarks import roofline
     from repro_torch.launch import dryrun
     clock = Phase()
@@ -6039,19 +6233,27 @@ def phase_lm_dryrun_path(counters, device):
                       f"({summary[m]['mfu_bound_max_cell']})"
                       for m in rows), flush=True)
     runs = []
-    for shape, mesh_shape in LM_DRYRUN_RUNS:
+    one = {}                 # one-process runs the rank cells reuse
+    for shape, seq, mesh_shape in LM_DRYRUN_RUNS:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        rec = dryrun.lower_cell(LM_ARCH, shape, mesh_shape=mesh_shape,
-                                device=device, run=True,
-                                run_reps=LM_DRYRUN_RUN_REPS)
+        logits = []
+        rec = dryrun.lower_cell(LM_ARCH, lm_cell(shape, seq),
+                                mesh_shape=mesh_shape, device=device,
+                                run=True, run_reps=LM_DRYRUN_RUN_REPS,
+                                logits=logits)
+        rec["seq_len"] = seq
+        # a rank cell's one-process bf16 run, where this is it
+        if (shape, seq, mesh_shape[0]) in {(n, s, m[0]) for n, s, m in
+                                           LM_RANK_CELLS}:
+            one[(shape, "bfloat16")] = (rec, logits[0])
         rec["cell_s"] = time.perf_counter() - t0
         if rec["status"] != "ok" or rec.get("run_s") is None:
             raise AssertionError(f"lm_dryrun_path {shape}: {rec}")
         rec["tflops_per_s"] = rec["run_flops"] / rec["run_s"] / 1e12
         rec["run_over_bound"] = rec["run_s"] / rec["run_bound_s"]
-        print(f"lm_dryrun {LM_ARCH} {shape} on {mesh_shape}: batch "
+        print(f"lm_dryrun {LM_ARCH} {shape} at {seq} on {mesh_shape}: batch "
               f"{rec['run_batch']}, run {rec['run_s']:.4f} s against a "
               f"bound of {rec['run_bound_s']:.4f} s ({rec['run_bound_by']}; "
               f"{rec['run_over_bound']:.2f}x), {rec['run_flops']:.4e} flops "
@@ -6059,13 +6261,16 @@ def phase_lm_dryrun_path(counters, device):
               f"{rec['peak_bytes']} B, checks {rec['run_checks']}",
               flush=True)
         runs.append(rec)
+    del logits
+    ranks = lm_rank_cells(dryrun, device, one)
+    del one
     gc.collect()
     torch.cuda.empty_cache()
     launches = read_counts(counters)
     if any(launches.values()):
         raise AssertionError(f"lm_dryrun_path launched kernels {launches}")
     emit({"phase": "lm_dryrun_path", "dryrun": summary, "runs": runs,
-          "launches": launches, "seconds": clock.seconds()})
+          "ranks": ranks, "launches": launches, "seconds": clock.seconds()})
     return summary, runs
 
 

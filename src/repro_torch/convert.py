@@ -26,7 +26,8 @@ __all__ = ["hypergraph_from_arrays", "hlindex_from_arrays",
            "snapshot_from_arrays", "closure_engine_from_arrays",
            "ete_index_from_arrays", "line_graph_from_arrays",
            "threshold_index_from_arrays", "lm_layers_from_params",
-           "lm_state_dict_from_params", "nest_layers",
+           "lm_state_dict_from_params", "lm_rank_state_dict_from_params",
+           "nest_layers",
            "lm_params_from_state_dict", "host_copy", "STACKED"]
 
 
@@ -182,6 +183,19 @@ def lm_state_dict_from_params(params: Mapping) -> Dict[str, torch.Tensor]:
     model's device."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))  # a copy
             for k, v in lm_layers_from_params(params).items()}
+
+
+def lm_rank_state_dict_from_params(params: Mapping, specs: Mapping,
+                                   mesh) -> Dict[str, torch.Tensor]:
+    """One rank's ``state_dict`` from the reference's parameter pytree:
+    each leaf of ``lm_layers_from_params`` cut to the rank's block under
+    ``specs`` (the model's ``param_specs()``) on the ``ProcessMesh``
+    ``mesh``, as float32 tensors on the CPU; the ``state_dict`` of a model
+    built with ``ranks=mesh`` takes it."""
+    from .distributed_lm.sharding import leaf_block, leaf_spec
+    return {k: torch.from_numpy(np.array(                       # a copy
+        leaf_block(v, leaf_spec(specs, k), mesh), dtype=np.float32))
+        for k, v in lm_layers_from_params(params).items()}
 
 
 def host_copy(leaf) -> np.ndarray:

@@ -10,8 +10,10 @@ a mesh axis, written over ``torch.distributed``:
   perm=[(i, (i + 1) % n)])``: each rank sends its block to the next
   coordinate and receives the previous one's, as one
   ``batch_isend_irecv``;
-* ``all_reduce_max(t, mesh, axis)`` / ``all_reduce_min`` — the
-  elementwise max / min over the line;
+* ``all_reduce_max(t, mesh, axis)`` / ``all_reduce_min`` /
+  ``all_reduce_sum`` — the elementwise max / min / sum over the line
+  (``jax.lax.pmax`` / ``pmin`` / ``psum``), the sum in ``t``'s own dtype
+  (gloo reduces bfloat16 as it is, in torch 2.11 and 2.13);
 * ``all_gather_ragged(t, mesh)`` — over the whole world group rather than
   one axis: each rank passes a flat int64 tensor of its own length and
   every rank gets the list of all of them in rank order (the sizes first,
@@ -35,13 +37,23 @@ a mesh axis, written over ``torch.distributed``:
 
 Each returns a new tensor on the block's device and never writes its
 input; on an axis of size 1 each is the identity (the input itself, no
-call).  Under NCCL the tensors go to the collective as they are.  Under
+call).  The axis transfers (``all_gather_panel``, ``ring_shift``,
+``all_reduce_*``) are counted into the mesh's ``tally`` (a ``Tally``:
+this rank's), by the LM dry-run's kinds and units (``all-gather``, ``all-reduce``,
+``collective-permute``; bytes = the op's result bytes, as
+``launch/dryrun.collective_closed_form`` counts them), with the host
+seconds spent in them (a CUDA tensor staged through the host has its
+card synchronised first, which its staging copy would wait for anyway,
+so the transfer's time is its own; under NCCL the seconds are the
+enqueue's) and, when asked, a digest of each
+all-reduced result, by which ranks show they hold the same bytes.  Under NCCL the tensors go to the collective as they are.  Under
 gloo a CUDA tensor is staged through host buffers the mesh keeps (pinned,
 reused across rounds) and copied back: gloo's own CUDA support is not
 relied on.  A collective that fails raises; nothing falls back to a
 logical route.
 
-``gather_over`` / ``shift_over`` / ``max_over`` / ``min_over`` are the
+``gather_over`` / ``shift_over`` / ``max_over`` / ``min_over`` /
+``sum_over`` are the
 same transfers on an explicit process group, what the mesh helpers call
 once they have resolved the axis's subgroup and staging.
 
@@ -53,22 +65,77 @@ from __future__ import annotations
 
 import hashlib
 import json
-from typing import Callable, Dict, List, Optional, Sequence
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
 __all__ = ["all_gather_panel", "ring_shift", "all_reduce_max",
-           "all_reduce_min", "all_gather_ragged", "gather_ragged_or_raise",
+           "all_reduce_min", "all_reduce_sum", "Tally", "KINDS", "all_gather_ragged", "gather_ragged_or_raise",
            "agree_or_raise", "broadcast_from", "broadcast_json",
            "encode_json", "decode_json", "exchange_pieces",
            "exchange_device",
            "same_on_every_rank", "gather_over", "shift_over", "max_over",
-           "min_over"]
+           "min_over", "sum_over", "digest"]
 
 # (key, shape, dtype) -> a host buffer kept for the next call
 Stage = Callable[[str, Sequence[int], torch.dtype], torch.Tensor]
+# the LM dry-run's collective kinds (``launch/dryrun.COLLECTIVE_KINDS``)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+def digest(t: torch.Tensor) -> Tuple[int, int]:
+    """Two int64 sums over ``t``'s bytes (plain and position-weighted):
+    equal tensors give equal digests, and differing bytes almost surely
+    differ."""
+    b = t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64)
+    weights = torch.arange(b.numel(), device=b.device) % 65_521 + 1
+    return int(b.sum()), int((b * weights).sum())
+
+
+class Tally:
+    """The axis collectives this process ran since ``reset``: calls and
+    result bytes by kind, host seconds, and (``reset(digests=True)``)
+    the ``digest`` of every all-reduced result in call order."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self, digests: bool = False) -> None:
+        self.bytes = dict.fromkeys(KINDS, 0)
+        self.counts = dict.fromkeys(KINDS, 0)
+        self.seconds = 0.0
+        self.digests: Optional[List[Tuple[int, int]]] = \
+            [] if digests else None
+
+    def add(self, kind: str, result: torch.Tensor, seconds: float) -> None:
+        self.bytes[kind] += result.numel() * result.element_size()
+        self.counts[kind] += 1
+        self.seconds += seconds
+        if self.digests is not None and kind == "all-reduce":
+            self.digests.append(digest(result))
+
+    def record(self) -> Dict:
+        """``{"bytes", "counts", "total_bytes"}`` as the closed form's
+        records, plus ``"seconds"``."""
+        return {"bytes": dict(self.bytes), "counts": dict(self.counts),
+                "total_bytes": int(sum(self.bytes.values())),
+                "seconds": self.seconds}
+
+
+def _counted(mesh, kind: str, t: torch.Tensor,
+             transfer: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """``transfer()`` (one collective of ``t``), counted into
+    ``mesh.tally``."""
+    if t.is_cuda and _stage_for(t, mesh) is not None:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    out = transfer()
+    mesh.tally.add(kind, out, time.perf_counter() - t0)
+    return out
 
 
 def _stage_for(t: torch.Tensor, mesh) -> Optional[Stage]:
@@ -147,14 +214,21 @@ def min_over(t: torch.Tensor, group, stage: Optional[Stage] = None,
     return _reduce_over(t, tdist.ReduceOp.MIN, group, stage, key)
 
 
+def sum_over(t: torch.Tensor, group, stage: Optional[Stage] = None,
+             key: str = "sum") -> torch.Tensor:
+    """The elementwise sum of ``t`` over ``group`` (one ``all_reduce``)."""
+    return _reduce_over(t, tdist.ReduceOp.SUM, group, stage, key)
+
+
 def all_gather_panel(block: torch.Tensor, mesh, axis: str,
                      dim: int) -> torch.Tensor:
     """The tiled all-gather of ``block`` along ``axis`` into ``dim``."""
     n = mesh.shape[axis]
     if n == 1:
         return block
-    return gather_over(block, mesh.axis_group(axis), n, dim,
-                       _stage_for(block, mesh), key=f"gather:{axis}:{dim}")
+    return _counted(mesh, "all-gather", block, lambda: gather_over(
+        block, mesh.axis_group(axis), n, dim, _stage_for(block, mesh),
+        key=f"gather:{axis}:{dim}"))
 
 
 def ring_shift(block: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -164,25 +238,34 @@ def ring_shift(block: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if n == 1:
         return block
     ranks, i = mesh.axis_ranks(axis), mesh.axis_index(axis)
-    return shift_over(block, mesh.axis_group(axis), ranks[(i + 1) % n],
-                      ranks[(i - 1) % n], _stage_for(block, mesh),
-                      key=f"ring:{axis}")
+    return _counted(mesh, "collective-permute", block, lambda: shift_over(
+        block, mesh.axis_group(axis), ranks[(i + 1) % n], ranks[(i - 1) % n],
+        _stage_for(block, mesh), key=f"ring:{axis}"))
 
 
 def all_reduce_max(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The elementwise max of ``t`` over this rank's line along ``axis``."""
     if mesh.shape[axis] == 1:
         return t
-    return max_over(t, mesh.axis_group(axis), _stage_for(t, mesh),
-                    key=f"max:{axis}")
+    return _counted(mesh, "all-reduce", t, lambda: max_over(
+        t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"max:{axis}"))
 
 
 def all_reduce_min(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The elementwise min of ``t`` over this rank's line along ``axis``."""
     if mesh.shape[axis] == 1:
         return t
-    return min_over(t, mesh.axis_group(axis), _stage_for(t, mesh),
-                    key=f"min:{axis}")
+    return _counted(mesh, "all-reduce", t, lambda: min_over(
+        t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"min:{axis}"))
+
+
+def all_reduce_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise sum of ``t`` over this rank's line along ``axis``,
+    in ``t``'s dtype (a tensor-parallel layer's partial products)."""
+    if mesh.shape[axis] == 1:
+        return t
+    return _counted(mesh, "all-reduce", t, lambda: sum_over(
+        t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"sum:{axis}"))
 
 
 def exchange_device(mesh) -> torch.device:

@@ -31,7 +31,8 @@ the row-major coordinates ``coords`` of ``k`` (the order of the
 reference's ``mesh.devices``), one subgroup runs along each line of each
 axis, and ``core/collectives.py`` moves panels between the ranks of an
 axis.  It answers what a ``LogicalMesh`` answers, its ``devices`` holding
-each rank's device, and never equals one.  Every rank calls each route
+each rank's device, and never equals one; its ``tally`` counts the axis
+collectives this rank runs on it.  Every rank calls each route
 on it with the same arguments (SPMD) and gets the same answers.
 """
 from __future__ import annotations
@@ -45,6 +46,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .collectives import Tally
 
 __all__ = ["LogicalMesh", "make_mesh", "default_line_graph_mesh",
            "ProcessMesh", "make_process_mesh"]
@@ -182,6 +184,8 @@ class ProcessMesh:
                     self._lines[axis] = (group, ranks)
         # pinned host buffers of the gloo route, reused across rounds
         self._staging: Dict[tuple, torch.Tensor] = {}
+        # the axis collectives run on this mesh (core/collectives.py)
+        self.tally = Tally()
 
     def axis_index(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""

@@ -14,20 +14,33 @@ Counterpart of ``repro/distributed_lm/sharding.py`` over a
 The reference's ``jax.ShapeDtypeStruct`` stand-ins become ``ShapeDtype``
 records (shape, dtype, ``NamedSpec``); nothing is allocated and nothing
 is placed: one card holds every block.
+
+On ranks (a ``core.mesh.ProcessMesh``) a leaf is placed: ``block_slices``
+/ ``leaf_block`` cut a whole leaf to this rank's block under its spec (a
+dimension of size ``d`` split ``k`` ways keeps ``ceil(d / k)`` entries a
+block, as XLA's shards and the dry-run's records do; an entry naming
+several axes splits row-major over them; an axis the mesh lacks has size
+1), ``leaf_spec`` finds a ``state_dict`` key's spec in a model's
+``param_specs()``, ``cache_block`` / ``batch_block`` cut a cache or a
+batch (the ``data`` coordinate picks the rows), and ``to_rank_widths``
+turns a model built on ``meta`` into one rank's blocks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from .. import convert
 from ..models.common import ArchConfig
 from ..models.layers import P, map_specs
 
 __all__ = ["batch_axes", "batch_specs", "input_structs", "shard_params",
-           "named", "cache_structs", "ShapeDtype", "NamedSpec"]
+           "named", "cache_structs", "ShapeDtype", "NamedSpec",
+           "spec_axes", "spec_entries", "block_slices", "leaf_block",
+           "leaf_spec", "cache_block", "batch_block", "to_rank_widths"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +131,99 @@ def shard_params(model, mesh) -> Dict:
          for k, t in model.state_dict().items()}, stack=stack)
     return map_specs(lambda spec, r: dataclasses.replace(
         r, sharding=named(mesh, spec)), model.param_specs(), shapes)
+
+
+# ---------------------------------------------------------------------------
+# a rank's blocks (ProcessMesh)
+# ---------------------------------------------------------------------------
+
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry (a name, a tuple, or ``None``)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_entries(spec, ndim: int) -> list:
+    """``spec``'s entries padded with ``None`` to ``ndim`` dimensions."""
+    return list(spec) + [None] * (ndim - len(spec))
+
+
+def block_slices(shape: Sequence[int], spec, mesh) -> Tuple[slice, ...]:
+    """This rank's block of an array of ``shape`` split by ``spec`` on the
+    ``ProcessMesh`` ``mesh``: along a dimension of size ``d`` split into
+    ``k`` blocks (the product of its axes' sizes), block ``c`` (the
+    rank's coordinates over those axes, row-major) is ``[c * ceil(d / k),
+    min((c + 1) * ceil(d / k), d))``."""
+    out = []
+    for d, entry in zip(shape, spec_entries(spec, len(shape))):
+        k, c = 1, 0
+        for axis in spec_axes(entry):
+            n = mesh.shape.get(axis, 1)
+            c = c * n + (mesh.axis_index(axis) if n > 1 else 0)
+            k *= n
+        step = -(-int(d) // k)
+        out.append(slice(min(c * step, d), min((c + 1) * step, d)))
+    return tuple(out)
+
+
+def leaf_block(t, spec, mesh):
+    """``t``'s block (a view; a tensor or an array) under ``spec`` on
+    ``mesh``."""
+    return t[block_slices(t.shape, spec, mesh)]
+
+
+def leaf_spec(specs, key: str):
+    """The spec of ``state_dict`` key ``key`` in a model's
+    ``param_specs()`` tree: a ``convert.STACKED`` group's layer axis
+    (``<group>.<i>.``) is dropped from its stacked spec."""
+    parts = key.split(".")
+    stacked = parts[0] in convert.STACKED
+    node = specs
+    for p in ([parts[0]] + parts[2:]) if stacked else parts:
+        node = node[int(p)] if isinstance(node, list) else node[p]
+    return P(*node[1:]) if stacked else node
+
+
+def cache_block(cache: Dict[str, Any], model, mesh,
+                long_ctx: bool = False) -> Dict[str, Any]:
+    """Each leaf of a whole cache cut to this rank's block by the model's
+    ``cache_specs`` (copies, so the whole may be freed)."""
+    specs = model.cache_specs(long_ctx=long_ctx)
+    return {k: leaf_block(v, specs[k], mesh).clone() for k, v in
+            cache.items()}
+
+
+def batch_block(batch: Dict[str, Any], cfg: ArchConfig,
+                mesh) -> Dict[str, Any]:
+    """Each leaf of a batch cut to this rank's rows: the ``data``
+    coordinate picks its block of the leading dimension (copies)."""
+    specs = batch_specs(cfg, mesh)
+    return {k: leaf_block(v, specs.get(k, P(batch_axes(mesh))),
+                          mesh).clone() for k, v in batch.items()}
+
+
+def to_rank_widths(model: nn.Module, mesh, device: torch.device) -> None:
+    """Turns ``model`` (built on ``meta``) into this rank's share of it on
+    ``device``: every parameter becomes an unset tensor of its block under
+    ``model.param_specs()`` on ``mesh``, carrying ``whole_shape`` and
+    ``block`` (its slices of the whole leaf), so that ``init`` draws each
+    whole leaf and keeps the block (``models.layers.draw``); every
+    ``Dense`` whose contraction dimension is split over ``model`` (a
+    row-split weight) gets ``reduce_over = "model"``, so that its output,
+    a partial product, is summed over the axis (``layers.dense_apply``)."""
+    from ..models.layers import Dense
+    specs = model.param_specs()
+    for key, old in list(model.named_parameters()):
+        spec = leaf_spec(specs, key)
+        block = block_slices(old.shape, spec, mesh)
+        shape = tuple(s.stop - s.start for s in block)
+        owner, _, name = key.rpartition(".")
+        module = model.get_submodule(owner)
+        new = nn.Parameter(torch.empty(shape, dtype=old.dtype,
+                                       device=device))
+        new.whole_shape, new.block = tuple(old.shape), block
+        setattr(module, name, new)
+        if isinstance(module, Dense) and name == "w" and \
+                "model" in spec_axes(spec_entries(spec, old.dim())[-2]):
+            module.reduce_over = "model"

@@ -72,6 +72,13 @@ same step's arguments from the ``ShapeDtype`` records of
     prefill and decode leave the logits vocab-split, as the step's
     result.  A head contracted over a split ``d_model`` (Whisper's tied
     embedding) all-reduces its ``[t, V]`` logits;
+  - a decode's self-attention against a cache whose sequence is split
+    over ``model`` (every attention family's decode cell but the
+    hybrid's window): each layer all-gathers the new q, k and v over
+    ``model`` (``[t, (h + 2 kv) hd]``: every head on every rank), then
+    all-reduces the scores' max and their exponentials' sum ``[t, h]``
+    (float32) and the weighted values ``[t, h, hd]``, the exact softmax
+    over every rank's slots, before the row-split ``wo``;
   - LLaVA's projector: its row-split ``fc2`` all-reduces ``[p, d]`` over
     the ``p`` patches, forward and (training) backward;
   - the gradient reduction over the batch axes, once a step, float32:
@@ -86,26 +93,57 @@ same step's arguments from the ``ShapeDtype`` records of
   count does; ``collective_executed`` multiplies the bodies by their
   layers and every per-microbatch term by the microbatches.
 
-With ``run=True`` a cell whose mesh has a ``model`` axis of 1 and no
-``pod`` axis runs one device's share on ``device``: the model at the
-cell's config, weights from seed 0, the batch ``global_batch / data`` at
-the cell's ``seq_len`` (seeded), through ``make_train_step`` /
+With ``run=True`` a cell runs one device's share (``_run_rule`` says
+which can; any other records why in ``run_reason`` and runs nothing).
+In one process, on ``device``, a cell whose mesh has a ``model`` axis of
+1 (a ``pod`` axis only splits the batch): the model at the cell's
+config, weights from seed 0, the batch ``global_batch / (pod x data)``
+at the cell's ``seq_len`` (seeded), through ``make_train_step`` /
 ``make_prefill_step`` / ``make_serve_step``; decode against a seeded
-cache of ``cache_structs``' shapes at ``pos = seq_len - 1``.  The port
-has no tensor-parallel execution, so any other cell says why in
-``run_reason`` and runs nothing.  A run adds ``run_batch``, ``run_s``
-(CUDA events, the median of ``run_reps`` (3 by default) after 1 warm-up;
-``None`` off the card),
+cache of ``cache_structs``' shapes at ``pos = seq_len - 1``.  On ranks
+(``ranks``, a ``ProcessMesh`` over (``data``, ``model``); every rank
+calls ``lower_cell`` with the same arguments) a serving cell whose
+``model`` axis equals the ranks': each rank runs exactly what one device
+of the cell's mesh runs, tensor-parallel where ``model`` is split (a
+dense transformer whose heads, KV heads, ``d_ff``, vocab and decode
+cache length the axis divides): its block of every parameter under
+``param_specs()``, drawn whole from the one-process model's generator
+leaf by leaf (``models.layers.draw``), its block of the cache (its rows,
+its sequence slots) and its share of the batch (the ranks' ``data``
+axis covers as many consecutive data rows of the cell's mesh, drawn
+together from seed 1), with the collectives of the closed form above
+over ``model`` (``core/collectives.py``; ``models/layers.py`` under
+``sharding_mesh``).  Its logits stay vocab-split; the whole logits are
+gathered after the timed passes.  A rank whose share fails makes every
+rank raise (``collectives.agree_or_raise``) where no rank is left inside
+a collective; there is no fallback to one process.  Training on ranks
+is not ported.
+
+A run adds ``run_batch``, ``run_s`` (CUDA events, the median of
+``run_reps`` (3 by default) after 1 warm-up; ``None`` off the card),
 ``run_times_s``, ``run_flops`` (``FlopCounterMode`` over the untimed
 warm-up), ``peak_bytes`` (``torch.cuda.max_memory_allocated`` over
 the timed passes; ``None`` off the card) and ``run_bound_s``: the larger
 of ``analytic_cell_model``'s flops over ``PEAK_FLOPS`` and its HBM bytes
 over ``HBM_BW`` at the device's batch on one chip (the work the card
-does).  ``run_checks`` lists what held: every output finite; ``train``:
-every parameter changed; ``prefill``: logits ``[run_batch, vocab]``;
-``decode``: each attention cache changed at ``pos`` and nowhere else
-(the hybrid's rolling window at ``pos % window``), a cross-attention
-cache not at all.  A failed check raises.
+does), divided by the ``model`` axis on ranks (the work splits evenly).
+On ranks ``run_s`` is the slowest rank's, ``peak_bytes`` the largest,
+and the run adds ``run_ranks`` (each rank's ``run_s``,
+``run_exchange_s``, ``peak_bytes``, ``run_flops``), ``run_exchange_s``
+(the slowest rank's host seconds inside collectives in a timed pass)
+and ``run_collective`` (each rank's ``ProcessMesh.tally`` of one timed
+pass, in the closed form's kinds and units, equal to
+``collective_executed``).  Four ranks that share one card run one after
+another on it, so their ``run_s`` is not what four cards would take.
+``run_checks`` lists what held: every output finite; ``train``: every
+parameter changed; ``prefill``: logits ``[run_batch, vocab]`` (the
+rank's vocab block on ranks); ``decode``: each attention cache changed
+at ``pos`` and nowhere else (the hybrid's rolling window at
+``pos % window``; on ranks, on the rank whose slots hold ``pos``, every
+other rank's cache unchanged), a cross-attention cache not at all; on
+ranks also every all-reduced tensor of the warm-up byte-equal on the
+ranks of a ``model`` line (by ``collectives.digest``) and the gathered
+logits equal on every rank.  A failed check raises.
 
   python -m repro_torch.launch.dryrun --all --out build/dryrun --device cpu
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
@@ -129,11 +167,16 @@ from ..benchmarks import roofline
 from ..configs import ALIASES, get_config
 from ..core.mesh import make_mesh
 from ..device import DeviceLike, resolve_device
-from ..distributed_lm.sharding import (ShapeDtype, batch_axes, cache_structs,
+from ..core import collectives as coll
+from ..distributed_lm.sharding import (ShapeDtype, batch_axes, batch_block,
+                                       cache_block, cache_structs,
                                        input_structs, named, shard_params)
+from ..distributed_lm.sharding import spec_axes as _axes
+from ..distributed_lm.sharding import spec_entries as _entries
 from ..models import build_model
 from ..models.layers import P, torch_dtype
-from ..serve.serve_step import make_prefill_step, make_serve_step
+from ..serve.serve_step import (make_prefill_step, make_serve_step,
+                                whole_logits)
 from ..train.optimizer import AdamConfig, adam_init, opt_state_specs
 from ..train.train_step import make_train_step, model_params
 from .mesh import make_production_mesh
@@ -161,16 +204,6 @@ _NOT_READ_BY_DECODE = (("vision_proj",), ("enc_blocks",), ("enc_ln",),
 # ---------------------------------------------------------------------------
 # per-device bytes of records
 # ---------------------------------------------------------------------------
-
-def _axes(entry) -> Tuple[str, ...]:
-    if entry is None:
-        return ()
-    return (entry,) if isinstance(entry, str) else tuple(entry)
-
-
-def _entries(spec, ndim: int) -> List:
-    return list(spec) + [None] * (ndim - len(spec))
-
 
 def shard_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
     """One device's block of an array of ``shape`` split by ``spec``: a
@@ -379,6 +412,21 @@ def _body_terms(recs, cfg, tokens: int, act: int, passes: int) -> _Tally:
     return out
 
 
+def _decode_attention_terms(cfg, tokens: int, act: int) -> _Tally:
+    """One decode layer's attention against a cache whose sequence is
+    split over ``model`` (``models/layers._decode_on_ranks``), for
+    ``tokens`` tokens: one all-gather of the new q, k and v
+    ``[t, (h + 2 kv) hd]``, all-reduces of the scores' max and of their
+    exponentials' sum ``[t, h]`` (float32) and of the weighted values
+    ``[t, h, hd]``."""
+    out = _Tally()
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    out.add("all-gather", tokens * (h + 2 * kv) * hd * act)
+    out.add("all-reduce", tokens * h * 4, count=2)
+    out.add("all-reduce", tokens * h * hd * act)
+    return out
+
+
 def collective_closed_form(cfg, shape: ShapeCell, mesh,
                            args: Dict[str, Any]
                            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -404,6 +452,13 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
     # the parameters the step reads (decode leaves some out)
     recs = args["params"]
     flat, executed = _Tally(), _Tally()
+    # the layer stack whose self-attention reads a decode cache split
+    # over model along its sequence
+    seq_split = None
+    cache_k = args.get("cache", {}).get("k")
+    if cache_k is not None and "model" in _axes(
+            _entries(cache_k.sharding.spec, len(cache_k.shape))[2]):
+        seq_split = "dec_blocks" if "dec_blocks" in recs else "blocks"
     if split_model:
         for key in convert.STACKED + ("tail",):
             if key not in recs:
@@ -411,6 +466,8 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
             tokens = b * cfg.enc_frames if key == "enc_blocks" else t_dec
             for r in (recs[key] if key == "tail" else [recs[key]]):
                 body = _body_terms(r, cfg, tokens, act, passes)
+                if key == seq_split:
+                    body.merge(_decode_attention_terms(cfg, tokens, act))
                 trips = 1 if key == "tail" else \
                     next(iter(_leaves(r)))[1].shape[0]
                 flat.merge(body)
@@ -463,17 +520,60 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
 
 
 # ---------------------------------------------------------------------------
-# one device's share on the card
+# one device's share on the card, in one process or on ranks
 # ---------------------------------------------------------------------------
 
-def _run_rule(mesh) -> Optional[str]:
-    if "pod" in mesh.axis_names:
-        return ("the mesh has a pod axis: the port runs data-parallel "
-                "shares only (no pod or tensor-parallel execution)")
-    if mesh.shape.get("model", 1) != 1:
-        return (f"model axis {mesh.shape['model']} > 1: the port has no "
-                f"tensor-parallel execution, so only a data-parallel "
-                f"share (model axis 1) runs")
+def _batch_rows(mesh, shape: ShapeCell) -> int:
+    """The cell mesh's batch blocks (its batch axes' product; 1 for a
+    long-context decode, whose batch is not split)."""
+    if shape.name.startswith("long"):
+        return 1
+    return math.prod(mesh.shape[a] for a in batch_axes(mesh))
+
+
+def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
+    """Why the cell's share cannot run (its ``run_reason``), or ``None``.
+    In one process: a ``model`` axis of 1 (a ``pod`` axis only splits the
+    batch).  On ranks (a ``ProcessMesh`` over ``data`` and ``model``):
+    the ranks' ``model`` axis equal to the cell's, their ``data`` axis
+    within the cell's batch blocks, a serving cell (prefill or decode),
+    and where ``model`` is split, a dense transformer whose heads, KV
+    heads, ``d_ff`` and vocab (and a decode's cache length) the axis
+    divides."""
+    model = mesh.shape.get("model", 1)
+    if ranks is None:
+        if model != 1:
+            return (f"model axis {model} > 1: a tensor-parallel share runs "
+                    f"on ranks only (lower_cell(..., ranks=ProcessMesh))")
+        return None
+    if tuple(ranks.axis_names) != ("data", "model"):
+        return (f"the ranks' mesh has axes {tuple(ranks.axis_names)}, not "
+                f"('data', 'model')")
+    if ranks.shape["model"] != model:
+        return (f"the ranks' model axis {ranks.shape['model']} differs from "
+                f"the cell's {model}")
+    if ranks.shape["data"] > _batch_rows(mesh, shape):
+        return (f"the ranks' data axis {ranks.shape['data']} exceeds the "
+                f"cell's {_batch_rows(mesh, shape)} batch blocks")
+    if shape.kind == "train":
+        return ("training on ranks (the backward's all-reduces, ZeRO-1 "
+                "over data) is not ported")
+    if model == 1:
+        return None
+    if cfg.family != "dense":
+        return (f"family {cfg.family!r}: only the dense transformer runs "
+                f"tensor-parallel on ranks")
+    if shape.name.startswith("long"):
+        return ("a long-context decode splits its cache over (data, model):"
+                " not ported on ranks")
+    sizes = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+             ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)]
+    if shape.kind == "decode":
+        sizes.append(("seq_len", shape.seq_len))
+    for name, size in sizes:
+        if size % model:
+            return (f"model axis {model} does not divide {name} {size}: "
+                    f"the split would not be exact")
     return None
 
 
@@ -509,21 +609,75 @@ def _sample(p: torch.Tensor, n: int = 4096) -> torch.Tensor:
     return flat[::max(1, flat.numel() // n)].clone()
 
 
+def _agreed(ranks, what: str, fn):
+    """``fn()``; on ranks every rank then learns whether any rank's
+    ``fn`` failed, and if one did, all raise together
+    (``collectives.agree_or_raise``)."""
+    if ranks is None:
+        return fn()
+    try:
+        out = fn()
+    except Exception as exc:        # every rank must hear of it
+        coll.agree_or_raise(ranks, what, exc)
+        raise
+    coll.agree_or_raise(ranks, what)
+    return out
+
+
+def _all_ranks(obj, ranks) -> List:
+    """Every rank's JSON-able ``obj``, in rank order, on every rank."""
+    dev = coll.exchange_device(ranks)
+    parts = coll.all_gather_ragged(torch.from_numpy(
+        coll.encode_json(obj)).to(dev), ranks)
+    return [coll.decode_json(p.cpu().numpy()) for p in parts]
+
+
+def _same_on(words: List[int], ranks, axis: Optional[str] = None) -> bool:
+    """Whether the ranks of this rank's line along ``axis`` (every rank
+    for ``None``) passed the same ``words``; every rank joins."""
+    mine = torch.tensor(words, dtype=torch.int64,
+                        device=coll.exchange_device(ranks))
+    parts = coll.all_gather_ragged(mine, ranks)
+    peers = (range(ranks.world_size) if axis is None
+             else ranks.axis_ranks(axis))
+    return all(torch.equal(parts[k].cpu(), mine.cpu()) for k in peers)
+
+
 def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
-             run_reps: int = _RUN_REPS) -> Dict[str, Any]:
+             run_reps: int = _RUN_REPS, ranks=None,
+             logits: Optional[List[torch.Tensor]] = None) -> Dict[str, Any]:
     """Runs one device's share of the cell (module docstring), timed
     ``run_reps`` times after the warm-up, and returns the fields it adds
-    to the record."""
+    to the record.  With ``ranks`` every rank of the ``ProcessMesh`` calls
+    it with the same arguments and runs its own share on its device.
+    ``logits``, if given, receives the last pass's whole logits (float32,
+    on the host; on ranks gathered from every rank's block)."""
     from torch.utils.flop_counter import FlopCounterMode
     long_ctx = shape.name.startswith("long")
-    split = 1 if long_ctx else math.prod(mesh.shape[a]
-                                         for a in batch_axes(mesh))
-    run_batch = -(-shape.global_batch // split)
-    gen = torch.Generator(device=device).manual_seed(0)
-    model = build_model(cfg, device=device)
-    model.init(gen)
-    data = torch.Generator(device=device).manual_seed(1)
+    run_batch = -(-shape.global_batch // _batch_rows(mesh, shape))
+    if ranks is not None:
+        device = ranks.device
+    # the ranks' data axis covers that many data rows of the cell: the
+    # batch is drawn for all of them, and each data coordinate takes its
+    # own run_batch rows
+    rows = run_batch * (ranks.shape["data"] if ranks is not None else 1)
+    split = ranks if ranks is not None and ranks.shape["model"] > 1 \
+        else None
+    model_at = split.axis_index("model") if split is not None else 0
     checks: List[str] = []
+
+    def setup():
+        gen = torch.Generator(device=device).manual_seed(0)
+        model = build_model(cfg, device=device, ranks=split)
+        model.init(gen)
+        return model
+
+    model = _agreed(ranks, "run_cell setup", setup)
+    data = torch.Generator(device=device).manual_seed(1)
+
+    def rank_rows(batch):
+        return batch if ranks is None else batch_block(batch, cfg, ranks)
+
     if shape.kind == "train":
         opt_cfg = AdamConfig(use_8bit=cfg.opt_8bit)
         params = model_params(model)
@@ -550,31 +704,37 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
             checks[:] = ["losses finite", "parameters finite",
                          f"all {len(params)} parameters changed"]
     elif shape.kind == "prefill":
-        batch = {k: _seeded(r.shape, r.dtype, data, device, cfg.vocab)
-                 for k, r in input_structs(cfg, mesh, run_batch,
-                                           shape.seq_len).items()
-                 if k != "labels"}
+        batch = rank_rows({k: _seeded(r.shape, r.dtype, data, device,
+                                      cfg.vocab)
+                           for k, r in input_structs(cfg, mesh, rows,
+                                                     shape.seq_len).items()
+                           if k != "labels"})
         step = make_prefill_step(model, cfg)
         outs = []
+        width = cfg.vocab // (split.shape["model"] if split else 1)
 
         def one():
             outs.append(step(batch))
 
         def check():
             for i, logits in enumerate(outs):
-                if tuple(logits.shape) != (run_batch, cfg.vocab):
+                if tuple(logits.shape) != (run_batch, width):
                     raise AssertionError(f"run: logits {tuple(logits.shape)}"
-                                         f", want {(run_batch, cfg.vocab)}")
+                                         f", want {(run_batch, width)}")
                 _finite(f"logits {i}", logits)
-            checks[:] = [f"logits [{run_batch}, {cfg.vocab}]",
-                         "logits finite"]
+            checks[:] = [f"logits [{run_batch}, {width}]", "logits finite"]
     else:
-        cache = {k: _seeded(r.shape, r.dtype, data, device)
-                 for k, r in cache_structs(model, cfg, mesh, run_batch,
-                                           shape.seq_len, long_ctx).items()}
+        cache = {}
+        for k, r in cache_structs(model, cfg, mesh, rows, shape.seq_len,
+                                  long_ctx).items():
+            whole = _seeded(r.shape, r.dtype, data, device)
+            cache[k] = whole if ranks is None else cache_block(
+                {k: whole}, model, ranks, long_ctx)[k]
+            del whole
         before = {k: v.clone() for k, v in cache.items()}
-        tokens = torch.randint(0, cfg.vocab, (run_batch, 1), generator=data,
-                               device=device, dtype=torch.int32)
+        tokens = rank_rows({"tokens": torch.randint(
+            0, cfg.vocab, (rows, 1), generator=data, device=device,
+            dtype=torch.int32)})["tokens"]
         pos = shape.seq_len - 1
         step = make_serve_step(model, cfg)
         outs = []
@@ -591,8 +751,16 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
             for k, v in cache.items():
                 _finite(f"cache {k}", v)
                 if k in ("k", "v"):
-                    slot = pos % v.shape[2]
+                    slots = v.shape[2]
+                    lo = model_at * slots    # the rank's first slot
                     diff = (v != before[k])
+                    if split is not None and not lo <= pos < lo + slots:
+                        if bool(diff.any()):
+                            raise AssertionError(
+                                f"run: cache {k} changed on a rank whose "
+                                f"slots do not hold pos {pos}")
+                        continue
+                    slot = (pos - lo) % slots
                     if bool(diff[:, :, :slot].any()) or \
                             bool(diff[:, :, slot + 1:].any()):
                         raise AssertionError(f"run: cache {k} changed "
@@ -608,29 +776,85 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
             if written:
                 checks.append(f"{'/'.join(written)} written at pos {pos} "
                               f"only")
+                if split is not None:
+                    checks.append("the other ranks' caches unchanged")
             if any(k.startswith("cross_") for k in cache):
                 checks.append("cross K/V unchanged")
     on_card = device.type == "cuda"
+    tally = ranks.tally if ranks is not None else coll.Tally()
+    tally.reset(digests=True)
     with FlopCounterMode(display=False) as counter:
         one()                                      # the untimed warm-up
+    digests = [w for d in tally.digests for w in d]
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    times = [_timed(one, device) for _ in range(run_reps)]
+    times, exchange = [], []
+    for _ in range(run_reps):
+        tally.reset()
+        times.append(_timed(one, device))
+        exchange.append(tally.seconds)
+    counted = tally.record()
     peak = torch.cuda.max_memory_allocated() if on_card else None
-    check()
+    whole = outs[-1] if shape.kind != "train" else None
+    if ranks is not None:
+        # the exchanges first, on every rank: a check that fails on one
+        # rank must not leave the others waiting in a collective
+        if whole is not None:
+            whole = whole_logits(whole, ranks)
+        lines_agree = _same_on(digests, ranks, "model")
+        logits_agree = whole is None or _same_on(list(coll.digest(whole)),
+                                                 ranks)
+
+    def check_all():
+        check()
+        if ranks is None:
+            return
+        if not lines_agree:
+            raise AssertionError("run: an all-reduced tensor differs "
+                                 "between the ranks of a model line")
+        if not logits_agree:
+            raise AssertionError("run: the gathered logits differ between "
+                                 "ranks")
+        checks.append(f"{len(digests) // 2} all-reduced tensors equal on "
+                      f"every rank of a model line")
+        if whole is not None:
+            checks.append("gathered logits equal on every rank")
+
+    _agreed(ranks, "run_cell checks", check_all)
+    if logits is not None and whole is not None:
+        logits.append(whole.float().cpu())
     a = roofline.analytic_cell_model(
         cfg, dataclasses.replace(shape, global_batch=run_batch))
+    parts = ranks.shape["model"] if ranks is not None else 1
+    t_flops = a["flops"] / roofline.PEAK_FLOPS / parts
+    t_bytes = a["hbm_bytes"] / roofline.HBM_BW / parts
     out = dict(run_batch=run_batch,
                run_s=statistics.median(times) if on_card else None,
                run_times_s=times if on_card else None,
                run_flops=int(counter.get_total_flops()), peak_bytes=peak,
-               run_bound_s=max(a["flops"] / roofline.PEAK_FLOPS,
-                               a["hbm_bytes"] / roofline.HBM_BW),
-               run_bound_by=("flops" if a["flops"] / roofline.PEAK_FLOPS
-                             >= a["hbm_bytes"] / roofline.HBM_BW
-                             else "bytes"),
+               run_bound_s=max(t_flops, t_bytes),
+               run_bound_by="flops" if t_flops >= t_bytes else "bytes",
                run_checks=checks)
+    if ranks is None:
+        return out
+    mine = dict(rank=ranks.rank, coords=list(ranks.coords),
+                run_s=out["run_s"], run_times_s=out["run_times_s"],
+                run_exchange_s=statistics.median(exchange) if on_card
+                else None,
+                peak_bytes=peak, run_flops=out["run_flops"],
+                collective={k: counted[k] for k in ("bytes", "counts",
+                                                    "total_bytes")})
+    every = _all_ranks(mine, ranks)
+    out.update(run_ranks=[{k: v for k, v in r.items() if k != "collective"}
+                          for r in every],
+               run_collective=[r["collective"] for r in every])
+    if on_card:
+        out["run_s"] = max(r["run_s"] for r in every)
+        out["run_exchange_s"] = max(r["run_exchange_s"] for r in every)
+        out["peak_bytes"] = max(r["peak_bytes"] for r in every)
+    else:
+        out["run_exchange_s"] = None
     return out
 
 
@@ -643,14 +867,19 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeCell], *,
                overrides: Optional[Dict] = None,
                mesh_shape: Optional[tuple] = None,
                device: DeviceLike = None, run: bool = False,
-               run_reps: int = _RUN_REPS) -> Dict[str, Any]:
+               run_reps: int = _RUN_REPS, ranks=None,
+               logits: Optional[List[torch.Tensor]] = None
+               ) -> Dict[str, Any]:
     """One cell's record (module docstring).  ``overrides`` applies
     ``dataclasses.replace`` on the config and ``mesh_shape`` re-factors
     the mesh into (data, model) or (pod, data, model), as the
     reference's.  ``shape_name`` may be a ``ShapeCell`` (a reduced cell
     for a quick run).  ``keep_hlo`` does nothing: there is no HLO.
     ``device=None`` means ``"cuda"`` and raises without a card.
-    ``run_reps`` is the number of timed passes of a run."""
+    ``run_reps`` is the number of timed passes of a run.  ``ranks`` (a
+    ``ProcessMesh``; every rank calls with the same arguments) runs the
+    share on ranks, ``logits`` receives the run's whole logits
+    (``run_cell``)."""
     del keep_hlo
     dev = resolve_device(device)
     cfg = get_config(arch)
@@ -688,11 +917,12 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeCell], *,
         device=str(dev),
     )
     if run:
-        reason = _run_rule(mesh)
+        reason = _run_rule(mesh, cfg, shape, ranks)
         if reason is not None:
             rec["run_reason"] = reason
         else:
-            rec.update(run_cell(cfg, shape, mesh, dev, run_reps))
+            rec.update(run_cell(cfg, shape, mesh, dev, run_reps, ranks,
+                                logits))
     return rec
 
 

@@ -27,12 +27,25 @@ Counterpart of ``repro/models/layers.py``.  Conventions:
   reference's ``dots_with_no_batch_dims_saveable``).  Both change memory,
   never values.
 
-The reference's ``sharding_mesh`` / ``constrain`` have nothing to
-constrain without a process group and are not here; ``gqa_repeat`` keeps
-its numerics (K/V broadcast to every head) and ``act_shard`` is inert.
+``sharding_mesh(pm)`` is the reference's ``sharding_mesh``: it threads a
+rank's ``ProcessMesh`` into the layers, which then run that rank's share
+of a tensor-parallel step (``distributed_lm.sharding.to_rank_widths``
+gives a model its blocks).  There, ``dense_apply`` sums a row-split
+weight's partial product over ``model`` (``collectives.all_reduce_sum``),
+``attention_apply`` attends with the rank's own query and KV heads, and
+``attention_decode`` runs against the rank's slots of a cache whose
+sequence is split over ``model``: every head's new q / k / v gathered
+over ``model``, the new K/V written by the rank whose slots hold ``pos``,
+the softmax combined across the ranks exactly from the all-reduced max
+and sum, the weighted values summed, then the rank's heads through its
+row-split ``wo``.  The reference's ``constrain`` has nothing to
+constrain here; ``gqa_repeat`` keeps its numerics (K/V broadcast to
+every head) and ``act_shard`` is inert.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
@@ -44,6 +57,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..core import collectives as coll
 from .common import ArchConfig
 
 __all__ = [
@@ -53,7 +67,8 @@ __all__ = [
     "MLP", "mlp_apply", "mlp_specs", "MoE", "moe_apply", "moe_specs",
     "cross_entropy_loss", "remat_policy", "remat", "stacked_specs",
     "map_specs",
-    "linear_scan", "causal_conv", "torch_dtype",
+    "linear_scan", "causal_conv", "torch_dtype", "sharding_mesh",
+    "current_mesh", "draw",
 ]
 
 
@@ -99,6 +114,48 @@ def torch_dtype(name: str) -> torch.dtype:
     """A config's dtype name (``"bfloat16"``, ``"float32"``) as a torch
     dtype."""
     return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# ranks: the threaded mesh, and a rank's blocks drawn from whole leaves
+# ---------------------------------------------------------------------------
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_sharding_mesh", default=None)
+
+
+@contextlib.contextmanager
+def sharding_mesh(mesh):
+    """Makes ``mesh`` (a rank's ``ProcessMesh``) the layers' mesh inside
+    the block (module docstring)."""
+    tok = _MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _MESH.reset(tok)
+
+
+def current_mesh():
+    """The mesh ``sharding_mesh`` threads, or ``None``."""
+    return _MESH.get()
+
+
+@torch.no_grad()
+def draw(p: torch.Tensor, fill: Callable[[torch.Tensor], object]) -> None:
+    """``fill(t)`` sets a leaf in place.  On a rank's block (a parameter
+    with ``whole_shape`` and ``block``: ``distributed_lm.sharding.
+    to_rank_widths``) the whole leaf is drawn by the same ``fill`` on the
+    block's device, its block kept and the rest freed, so the rank gets
+    exactly the values a one-process model draws from the same
+    generator."""
+    block = getattr(p, "block", None)
+    if block is None:
+        fill(p)
+        return
+    whole = torch.empty(p.whole_shape, dtype=p.dtype, device=p.device)
+    fill(whole)
+    p.copy_(whole[block])
+    del whole
 
 
 def _f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor
@@ -173,7 +230,11 @@ def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 class Dense(nn.Module):
     """``{"w": [d_in, d_out], "b": [d_out]?}``; ``w`` is drawn N(0, 1) x
-    ``scale`` (default 1/sqrt(d_in)), ``b`` is zeros."""
+    ``scale`` (default 1/sqrt(d_in)), ``b`` is zeros.  ``reduce_over``
+    names the axis over which a rank's partial product is summed (a
+    row-split block), else ``None``."""
+
+    reduce_over: Optional[str] = None
 
     def __init__(self, d_in: int, d_out: int, bias: bool = False,
                  scale: Optional[float] = None, *, device=None):
@@ -185,7 +246,8 @@ class Dense(nn.Module):
 
     @torch.no_grad()
     def reset(self, generator: torch.Generator) -> None:
-        self.w.normal_(generator=generator).mul_(self.init_scale)
+        draw(self.w, lambda t: t.normal_(generator=generator).mul_(
+            self.init_scale))
         if hasattr(self, "b"):
             self.b.zero_()
 
@@ -199,6 +261,12 @@ def dense_specs(spec_in, spec_out, bias: bool = False) -> Dict:
 
 def dense_apply(p: Dense, x: torch.Tensor) -> torch.Tensor:
     y = x @ p.w.to(x.dtype)
+    if p.reduce_over is not None:
+        mesh = current_mesh()
+        if mesh is None:
+            raise RuntimeError("a row-split Dense block runs only inside "
+                               "sharding_mesh(its ranks)")
+        y = coll.all_reduce_sum(y, mesh, p.reduce_over)
     if hasattr(p, "b"):
         y = y + p.b.to(x.dtype)
     return y
@@ -247,9 +315,10 @@ def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     b, s = x.shape[:2]
     hd = cfg.hd
     src = x if kv_x is None else kv_x
-    q = dense_apply(p.wq, x).reshape(b, s, cfg.n_heads, hd)
-    k = dense_apply(p.wk, src).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
-    v = dense_apply(p.wv, src).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    # the heads this model holds: all of them, or a rank's block
+    q = dense_apply(p.wq, x).reshape(b, s, -1, hd)
+    k = dense_apply(p.wk, src).reshape(b, src.shape[1], -1, hd)
+    v = dense_apply(p.wv, src).reshape(b, src.shape[1], -1, hd)
     if cfg.qk_norm:
         q = rms_norm(p.q_norm, q, cfg.norm_eps)
         k = rms_norm(p.k_norm, k, cfg.norm_eps)
@@ -375,7 +444,7 @@ def attention_apply(p: Attention, cfg: ArchConfig, x: torch.Tensor, *,
     b, s = x.shape[:2]
     cross = kv_x is not None
     q, k, v = _qkv(p, cfg, x, kv_x, positions, use_rope and not cross)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
+    n_rep = q.shape[2] // k.shape[2]            # cfg.n_heads // n_kv_heads
     if cfg.gqa_repeat and n_rep > 1:
         # K/V broadcast to every head (the reference's layout knob)
         k = k.repeat_interleave(n_rep, dim=2)
@@ -398,7 +467,7 @@ def attention_apply(p: Attention, cfg: ArchConfig, x: torch.Tensor, *,
             mask = torch.zeros(ok.shape, device=x.device).masked_fill(
                 ~ok, -math.inf)[None].expand(b, s, sk)
         out = _sdpa(q, k, v, mask, n_rep)
-    return dense_apply(p.wo, out.reshape(b, s, cfg.n_heads * cfg.hd))
+    return dense_apply(p.wo, out.reshape(b, s, -1))
 
 
 def attention_decode(p: Attention, cfg: ArchConfig, x: torch.Tensor,
@@ -415,9 +484,19 @@ def attention_decode(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     and the same tensors are returned: the reference returns new caches
     (``dynamic_update_slice``), which a loop over steps would copy whole.
     RoPE uses the absolute ``pos``.  ``update_cache=False`` (a static
-    cross-attention cache) writes nothing."""
+    cross-attention cache) writes nothing.  Inside ``sharding_mesh`` with
+    a ``model`` axis over 1 the cache is the rank's slots
+    (``_decode_on_ranks``)."""
     b = x.shape[0]
     pos = int(pos)
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        if window or slot is not None or not update_cache \
+                or not causal_mask or not use_rope:
+            raise NotImplementedError(
+                "decode on ranks runs causal self-attention with rope "
+                "against a written cache only")
+        return _decode_on_ranks(p, cfg, x, cache_k, cache_v, pos, mesh)
     q, k, v = _qkv(p, cfg, x, None,
                    torch.tensor([[pos]], device=x.device) if use_rope
                    else None, use_rope)
@@ -437,6 +516,54 @@ def attention_decode(p: Attention, cfg: ArchConfig, x: torch.Tensor,
                 cfg.n_heads // cfg.n_kv_heads)
     return (dense_apply(p.wo, out.reshape(b, 1, cfg.n_heads * cfg.hd)),
             cache_k, cache_v)
+
+
+def _decode_on_ranks(p: Attention, cfg: ArchConfig, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     mesh) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """``attention_decode`` on a rank: its blocks of ``wq`` / ``wk`` /
+    ``wv`` (column-split heads) and ``wo`` (row-split), and its slots
+    ``[r * S_r, (r + 1) * S_r)`` of the cache (``cache_k`` / ``cache_v``
+    [b, S_r, kv, hd], every KV head), ``r`` its ``model`` coordinate.
+    The collectives, over ``model``: one all-gather of the new q, k and v
+    (every head), an all-reduce max of the scores' rows ``[b, h]`` and an
+    all-reduce sum of their exponentials ``[b, h]`` (float32), an
+    all-reduce sum of the weighted values ``[b, h, hd]``, and ``wo``'s.
+    The softmax is the reference's exactly (``exp(s - max) / sum``, then
+    cast to the compute dtype before the values), over every rank's
+    slots; a rank whose slots all lie past ``pos`` contributes zeros
+    (its scores are ``-inf`` against the finite global max)."""
+    b, hd, axis = x.shape[0], cfg.hd, "model"
+    k_ax, r = mesh.shape[axis], mesh.axis_index(axis)
+    q, k, v = _qkv(p, cfg, x, None, torch.tensor([[pos]], device=x.device),
+                   True)
+    hq, hk = q.shape[2], k.shape[2]
+    qkv = coll.all_gather_panel(torch.cat([q, k, v], dim=2), mesh, axis,
+                                dim=2).reshape(b, 1, k_ax, hq + 2 * hk, hd)
+    q = qkv[:, :, :, :hq].reshape(b, 1, k_ax * hq, hd)
+    k = qkv[:, :, :, hq:hq + hk].reshape(b, 1, k_ax * hk, hd)
+    v = qkv[:, :, :, hq + hk:].reshape(b, 1, k_ax * hk, hd)
+    slots = cache_k.shape[1]
+    lo = r * slots
+    if lo <= pos < lo + slots:
+        cache_k[:, pos - lo] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, pos - lo] = v[:, 0].to(cache_v.dtype)
+    kv = cache_k.shape[2]
+    n_rep = q.shape[2] // kv
+    qg = q.reshape(b, 1, kv, n_rep, hd)
+    scores = _f32_einsum("bqkrh,bskh->bkrqs", qg,
+                         cache_k.to(x.dtype)) / np.sqrt(hd)
+    seen = lo + torch.arange(slots, device=x.device) <= pos
+    scores = scores.masked_fill(~seen, -math.inf)
+    top = coll.all_reduce_max(scores.amax(dim=-1), mesh, axis)
+    e = torch.exp(scores - top[..., None])
+    total = coll.all_reduce_sum(e.sum(dim=-1), mesh, axis)
+    w = (e / total[..., None]).to(q.dtype)
+    part = torch.einsum("bkrqs,bskh->bqkrh", w, cache_v.to(x.dtype))
+    out = coll.all_reduce_sum(part, mesh, axis).reshape(b, 1, kv * n_rep, hd)
+    mine = out[:, :, r * hq:(r + 1) * hq].reshape(b, 1, hq * hd)
+    return dense_apply(p.wo, mine), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -507,9 +634,12 @@ class MoE(nn.Module):
     @torch.no_grad()
     def reset(self, generator: torch.Generator) -> None:
         self.router.reset(generator)
-        self.w_gate.normal_(generator=generator).mul_(1.0 / np.sqrt(self.d))
-        self.w_up.normal_(generator=generator).mul_(1.0 / np.sqrt(self.d))
-        self.w_down.normal_(generator=generator).div_(np.sqrt(self.f))
+        draw(self.w_gate, lambda t: t.normal_(generator=generator).mul_(
+            1.0 / np.sqrt(self.d)))
+        draw(self.w_up, lambda t: t.normal_(generator=generator).mul_(
+            1.0 / np.sqrt(self.d)))
+        draw(self.w_down, lambda t: t.normal_(generator=generator).div_(
+            np.sqrt(self.f)))
         for name in ("shared", "dense"):
             if hasattr(self, name):
                 getattr(self, name).reset(generator)

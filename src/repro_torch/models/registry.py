@@ -25,11 +25,19 @@ FAMILIES = {
 }
 
 
-def build_model(cfg: ArchConfig, *, device: DeviceLike = None):
+def build_model(cfg: ArchConfig, *, device: DeviceLike = None,
+                ranks=None):
     """The model of ``cfg``'s family on ``device`` (``None`` means
-    ``"cuda"``), parameters unset (``init(generator)`` draws them)."""
+    ``"cuda"``), parameters unset (``init(generator)`` draws them).
+    ``ranks`` (a ``ProcessMesh``) gives a transformer-family model one
+    rank's blocks of a tensor-parallel split (``TransformerLM``)."""
     try:
         cls = FAMILIES[cfg.family]
     except KeyError:
         raise ValueError(f"unknown family {cfg.family!r} for arch {cfg.name}")
-    return cls(cfg, device=device)
+    if ranks is None:
+        return cls(cfg, device=device)
+    if cls is not TransformerLM:
+        raise NotImplementedError(f"family {cfg.family!r} has no "
+                                  f"tensor-parallel split on ranks")
+    return cls(cfg, device=device, ranks=ranks)

@@ -8,15 +8,30 @@ loop, each layer's parameters under ``blocks.<i>.`` of the
 a reference pytree along that axis).  ``remat`` checkpoints each block
 when autograd records (``layers.remat``); ``scan_layers`` is the
 reference's compile-time knob and changes nothing here.
+
+Built with ``ranks`` (a ``ProcessMesh`` whose ``model`` axis splits the
+model), the model is one rank's share of a tensor-parallel one: its
+blocks of every parameter under ``param_specs()`` (the heads, ``d_ff``
+and the vocab split over ``model``), drawn by ``init`` from whole leaves
+so that they equal the one-process model's, and ``apply`` /
+``decode_step`` run inside ``layers.sharding_mesh(ranks)``: the
+vocab-split embedding's rows outside the rank's range give zeros, then
+one all-reduce sum over ``model`` (exact in any dtype); the row-split
+denses sum over ``model``; the head leaves the logits vocab-split, the
+rank's block ``[..., vocab / k]``, as the reference's step returns them;
+the cache is the rank's block (its batch rows over ``data``, its
+sequence slots over ``model``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import collectives as coll
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from .common import ArchConfig
@@ -86,12 +101,18 @@ class TransformerLM(nn.Module):
 
     Built on ``device`` (``None`` means ``"cuda"`` and raises without a
     CUDA device) with its parameters unset: ``init(generator)`` draws
-    them, or ``load_state_dict`` fills them."""
+    them, or ``load_state_dict`` fills them.  With ``ranks`` (a
+    ``ProcessMesh``) it holds this rank's blocks (module docstring)."""
 
-    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None):
+    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
+                 ranks=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.ranks = ranks
+        whole_dev = dev
+        if ranks is not None:
+            dev = torch.device("meta")
         self.embed = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model),
                                               device=dev))
         self.ln_f = L.RMSNorm(cfg.d_model, device=dev)
@@ -105,6 +126,15 @@ class TransformerLM(nn.Module):
                                device=dev),
                 "fc2": L.Dense(cfg.d_model, cfg.d_model, bias=True,
                                device=dev)})
+        if self.ranks is not None:
+            from ..distributed_lm.sharding import to_rank_widths
+            to_rank_widths(self, self.ranks, whole_dev)
+
+    def _on_ranks(self):
+        """``layers.sharding_mesh`` of the ranks, or nothing."""
+        if self.ranks is None:
+            return contextlib.nullcontext()
+        return L.sharding_mesh(self.ranks)
 
     # -- params ------------------------------------------------------------
     @torch.no_grad()
@@ -112,7 +142,7 @@ class TransformerLM(nn.Module):
         """Draws every parameter from ``generator`` (on this model's
         device) with the reference's distributions: embeddings N(0, 0.02²),
         projections N(0, 1/d_in), norms ones, biases zeros."""
-        self.embed.normal_(generator=generator).mul_(0.02)
+        L.draw(self.embed, lambda t: t.normal_(generator=generator).mul_(0.02))
         self.ln_f.reset(generator)
         for blk in self.blocks:
             blk.reset(generator)
@@ -145,7 +175,17 @@ class TransformerLM(nn.Module):
                patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         dt = L.torch_dtype(cfg.compute_dtype)
-        x = self.embed[tokens.long()].to(dt)
+        if self.ranks is None:
+            x = self.embed[tokens.long()].to(dt)
+        else:
+            # this rank's vocab rows; the others' tokens give zeros
+            rows = self.embed.shape[0]
+            ids = tokens.long() - self.ranks.axis_index("model") * rows
+            inside = (ids >= 0) & (ids < rows)
+            x = torch.where(inside[..., None],
+                            self.embed[ids.clamp(0, rows - 1)].to(dt),
+                            torch.zeros((), dtype=dt, device=ids.device))
+            x = coll.all_reduce_sum(x, self.ranks, "model")
         if cfg.vision_dim and patch_embeds is not None:
             vp = self.vision_proj
             pe = L.dense_apply(vp["fc2"], F.gelu(
@@ -163,7 +203,12 @@ class TransformerLM(nn.Module):
     def apply(self, tokens: torch.Tensor,
               patch_embeds: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits [B, S, V], aux_loss)."""
+        """-> (logits [B, S, V], aux_loss); on ranks the logits are the
+        rank's vocab block."""
+        with self._on_ranks():
+            return self._apply(tokens, patch_embeds)
+
+    def _apply(self, tokens, patch_embeds):
         cfg = self.cfg
         x = self._embed(tokens, patch_embeds)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -202,7 +247,12 @@ class TransformerLM(nn.Module):
                     ) -> Tuple[torch.Tensor, Cache]:
         """tokens [B, 1]; ``pos`` an int -> (logits [B, 1, V], cache).
         Each layer writes its new K/V into ``cache`` in place
-        (``layers.attention_decode``); the same dict is returned."""
+        (``layers.attention_decode``); the same dict is returned.  On
+        ranks: the rank's cache block and vocab block of the logits."""
+        with self._on_ranks():
+            return self._decode_step(cache, tokens, pos)
+
+    def _decode_step(self, cache: Cache, tokens: torch.Tensor, pos):
         cfg = self.cfg
         x = self._embed(tokens, None)
         for i, blk in enumerate(self.blocks):

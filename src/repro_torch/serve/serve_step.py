@@ -5,6 +5,12 @@ token against a KV cache of ``seq_len`` (the ``decode_*`` / ``long_*``
 shape cells).  ``make_prefill_step``: full-sequence forward returning
 last-token logits (the ``prefill_*`` cells).  The model holds its
 parameters, so the steps take none.
+
+On ranks (a ``TransformerLM`` built with ``ranks``) both steps run the
+rank's share: they return the rank's vocab block of the logits and
+write the rank's cache block, as the reference's partitioned step
+leaves them.  ``whole_logits`` gathers the blocks into whole logits on
+every rank, the caller's job outside a timed step.
 """
 from __future__ import annotations
 
@@ -12,9 +18,10 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from ..core.collectives import all_gather_panel
 from ..models.common import ArchConfig
 
-__all__ = ["make_serve_step", "make_prefill_step"]
+__all__ = ["make_serve_step", "make_prefill_step", "whole_logits"]
 
 
 def make_serve_step(model, cfg: ArchConfig) -> Callable:
@@ -42,3 +49,12 @@ def make_prefill_step(model, cfg: ArchConfig) -> Callable:
             logits, _ = model.apply(batch["tokens"])
             return logits[:, -1]
     return prefill
+
+
+def whole_logits(block: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole logits from every rank's block of ``mesh`` (a
+    ``ProcessMesh``): the vocab blocks (last dimension) gathered over
+    ``model``, then the batch rows (first dimension) over ``data``; every
+    rank gets the same tensor."""
+    out = all_gather_panel(block, mesh, "model", dim=block.dim() - 1)
+    return all_gather_panel(out, mesh, "data", dim=0)

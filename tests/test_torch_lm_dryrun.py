@@ -244,10 +244,22 @@ def _hand_counted(kind):
         return flat, executed
     t = 32 // 2 * 32768 if kind == "prefill" else 128 // 2
     ar = t * d * a
-    # wo + down a layer, the vocab-split embedding; the vocab-split
-    # logits stay split (the step's result)
-    return (_tally(all_reduce=(3 * ar, 3)),
-            _tally(all_reduce=((2 * layers + 1) * ar, 2 * layers + 1)))
+    if kind == "prefill":
+        # wo + down a layer, the vocab-split embedding; the vocab-split
+        # logits stay split (the step's result)
+        return (_tally(all_reduce=(3 * ar, 3)),
+                _tally(all_reduce=((2 * layers + 1) * ar, 2 * layers + 1)))
+    # decode against a cache whose sequence is split over model, each
+    # layer: the new q (4 heads), k and v (2 KV heads each) of 16 gathered
+    # over model, 64 x 8 x 16 bf16; the scores' max and exponentials' sum,
+    # 64 x 4 float32 each; the weighted values, 64 x 4 x 16 bf16; then wo
+    # and down; and the embedding once
+    qkv = t * (4 + 2 + 2) * 16 * a
+    stats, values = t * 4 * 4, t * 4 * 16 * a
+    body = 2 * ar + 2 * stats + values
+    return (_tally(all_gather=(qkv, 1), all_reduce=(body + ar, 6)),
+            _tally(all_gather=(layers * qkv, layers),
+                   all_reduce=(layers * body + ar, layers * 5 + 1)))
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
@@ -387,15 +399,134 @@ def test_train_that_leaves_a_parameter_fails(monkeypatch):
 
 
 @pytest.mark.parametrize("mesh_shape,multi_pod", [
-    (None, False), (None, True), ((2, 2), False), ((2, 4, 1), False)])
+    (None, False), (None, True), ((2, 2), False)])
 def test_a_cell_with_a_split_model_or_pod_axis_runs_nothing(mesh_shape,
                                                              multi_pod):
+    """Without ranks a split ``model`` axis runs nothing."""
     rec = dryrun.lower_cell("qwen3-1.7b", SMALL["decode"],
                             multi_pod=multi_pod, mesh_shape=mesh_shape,
                             overrides=_overrides("qwen3-1.7b"),
                             device="cpu", run=True)
-    assert rec["run_reason"]
+    assert "tensor-parallel share runs on ranks only" in rec["run_reason"]
     assert not set(RUN_FIELDS) & set(rec)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_a_pod_axis_only_splits_the_batch(kind):
+    """A (pod, data, model) = (2, 4, 1) cell runs one device's share in
+    one process: its batch is ``global_batch / (pod x data)``, rounded
+    up (8 / 8 for decode, 4 / 8 for prefill)."""
+    rec = dryrun.lower_cell("qwen3-1.7b", SMALL[kind], mesh_shape=(2, 4, 1),
+                            overrides=_overrides("qwen3-1.7b"),
+                            device="cpu", run=True)
+    assert "run_reason" not in rec and set(RUN_FIELDS) <= set(rec)
+    assert rec["run_batch"] == 1
+    if kind == "prefill":
+        assert rec["run_checks"] == [f"logits [{rec['run_batch']}, 256]",
+                                     "logits finite"]
+    else:
+        assert rec["run_checks"] == ["logits finite", "cache finite",
+                                     "k/v written at pos 63 only"]
+
+
+class _Ranks:
+    """The ``ProcessMesh`` fields ``_run_rule`` and ``block_slices`` read,
+    without a process group."""
+
+    def __init__(self, shape, coords=None):
+        self.axis_names = ("data", "model")
+        self.shape = dict(zip(self.axis_names, shape))
+        self.coords = coords or (0, 0)
+
+    def axis_index(self, axis):
+        return self.coords[self.axis_names.index(axis)]
+
+
+_SMOKE = get_smoke_config("qwen3-1.7b")
+
+
+@pytest.mark.parametrize("case", [
+    # the production 16 x 16 mesh on four ranks
+    (None, (1, 4), _SMOKE, "decode", "model axis 4 differs from the "
+                                     "cell's 16"),
+    ((8, 4), (1, 4), _SMOKE, "decode", "does not divide n_kv_heads 2"),
+    ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4, d_ff=126),
+     "prefill", "does not divide d_ff 126"),
+    ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4, vocab=250),
+     "prefill", "does not divide vocab 250"),
+    ((8, 2), (2, 2), _SMOKE, "train", "training on ranks"),
+    ((8, 2), (2, 2), get_smoke_config("qwen2-moe-a2.7b"), "decode",
+     "only the dense transformer"),
+    ((1, 2), (2, 2), _SMOKE, "decode", "data axis 2 exceeds the cell's 1"),
+    ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4), "decode62",
+     "does not divide seq_len 62"),
+], ids=["production-mesh", "kv-heads", "d_ff", "vocab", "train", "moe",
+        "data-rows", "seq_len"])
+def test_the_run_rule_says_why_a_cell_cannot_run_on_ranks(case):
+    mesh_shape, ranks, cfg, kind, why = case
+    mesh = (dryrun.make_production_mesh(device="cpu") if mesh_shape is None
+            else dryrun.make_mesh(mesh_shape, ("data", "model"),
+                                  device="cpu"))
+    shape = (ShapeCell("decode_32k", 62, 8, "decode") if kind == "decode62"
+             else SMALL[kind])
+    assert why in dryrun._run_rule(mesh, cfg, shape, _Ranks(ranks))
+
+
+def test_the_run_rule_takes_a_dense_split_cell_on_matching_ranks():
+    mesh = dryrun.make_mesh((8, 2), ("data", "model"), device="cpu")
+    for kind in ("prefill", "decode"):
+        assert dryrun._run_rule(mesh, _SMOKE, SMALL[kind],
+                                _Ranks((2, 2))) is None
+        assert "on ranks only" in dryrun._run_rule(mesh, _SMOKE,
+                                                   SMALL[kind])
+
+
+def test_a_cell_the_ranks_cannot_split_records_why_and_runs_nothing():
+    rec = dryrun.lower_cell("qwen3-1.7b", SMALL["decode"],
+                            mesh_shape=(8, 4),
+                            overrides=_overrides("qwen3-1.7b"),
+                            device="cpu", run=True, ranks=_Ranks((1, 4)))
+    assert "n_kv_heads 2" in rec["run_reason"]
+    assert not set(RUN_FIELDS) & set(rec)
+
+
+@pytest.mark.parametrize("coords,want", [
+    ((0, 0), [(0, 4), (0, 3), (0, 6)]), ((0, 1), [(0, 4), (3, 6), (0, 6)]),
+    ((1, 1), [(4, 7), (3, 6), (0, 6)])])
+def test_a_rank_block_takes_ceil_d_over_k_entries(coords, want):
+    """[7, 6, 6] split ("data", "model", None) on a 2 x 2 grid: 7 rows
+    in blocks of 4 (the last holds 3), 6 columns in blocks of 3."""
+    from repro_torch.distributed_lm.sharding import block_slices, leaf_block
+    from repro_torch.models.layers import P
+    ranks = _Ranks((2, 2), coords)
+    got = block_slices((7, 6, 6), P("data", "model"), ranks)
+    assert [(s.start, s.stop) for s in got] == want
+    t = torch.arange(7 * 6 * 6).reshape(7, 6, 6)
+    assert torch.equal(leaf_block(t, P("data", "model"), ranks),
+                       t[want[0][0]:want[0][1], want[1][0]:want[1][1]])
+
+
+@pytest.mark.parametrize("coords", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_an_entry_of_two_axes_splits_row_major(coords):
+    """``("data", "model")`` over 2 x 2: four blocks, the data coordinate
+    major (the reference's device order)."""
+    from repro_torch.distributed_lm.sharding import block_slices
+    from repro_torch.models.layers import P
+    got = block_slices((8, 3), P(("data", "model")), _Ranks((2, 2), coords))
+    c = 2 * coords[0] + coords[1]
+    assert (got[0].start, got[0].stop) == (2 * c, 2 * c + 2)
+    assert (got[1].start, got[1].stop) == (0, 3)
+
+
+def test_leaf_spec_drops_the_layer_axis_of_a_stacked_group():
+    from repro_torch.distributed_lm.sharding import leaf_spec
+    model = dryrun.build_model(_SMOKE, device="meta")
+    specs = model.param_specs()
+    assert tuple(leaf_spec(specs, "blocks.1.attn.wo.w")) == ("model", None)
+    assert tuple(leaf_spec(specs, "blocks.0.mlp.gate.w")) == (None, "model")
+    assert tuple(leaf_spec(specs, "embed")) == ("model", None)
+    assert tuple(leaf_spec(specs, "lm_head.w")) == (None, "model")
+    assert tuple(leaf_spec(specs, "blocks.0.ln1.scale")) == (None,)
 
 
 def test_no_device_means_cuda_and_raises_without_one(capsys):

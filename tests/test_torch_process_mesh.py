@@ -71,6 +71,8 @@ def worlds(tmp_path_factory):
     """The reference and one world of four ranks, run side by side; each
     subprocess under its own time limit."""
     out = str(tmp_path_factory.mktemp("process_mesh"))
+    # the reference's LM weights, which the ranks carry across
+    u.write_lm_params(out)
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [SRC, TESTS, os.environ.get("PYTHONPATH", "")]))
@@ -581,6 +583,32 @@ def test_an_axis_of_size_one_is_the_identity():
     assert coll.all_gather_panel(t, mesh, "data", 0) is t
     assert coll.ring_shift(t, mesh, "data") is t
     assert coll.all_reduce_max(t, mesh, "data") is t
+    assert coll.all_reduce_min(t, mesh, "data") is t
+    assert coll.all_reduce_sum(t, mesh, "data") is t
+
+
+def test_a_tally_counts_by_kind_in_result_bytes():
+    """``Tally`` keeps the closed form's record layout; its digests of
+    equal tensors are equal and a one-byte change moves them."""
+    tally = coll.Tally()
+    tally.reset(digests=True)
+    a = torch.arange(12.0, dtype=torch.bfloat16).reshape(3, 4)
+    tally.add("all-reduce", a, 0.5)
+    tally.add("all-gather", torch.zeros(5, dtype=torch.int64), 0.25)
+    rec = tally.record()
+    assert list(rec) == ["bytes", "counts", "total_bytes", "seconds"]
+    assert list(rec["bytes"]) == list(coll.KINDS)
+    assert rec["bytes"]["all-reduce"] == 24 and rec["bytes"]["all-gather"] == 40
+    assert rec["counts"] == {"all-gather": 1, "all-reduce": 1,
+                             "reduce-scatter": 0, "all-to-all": 0,
+                             "collective-permute": 0}
+    assert rec["total_bytes"] == 64 and rec["seconds"] == 0.75
+    assert tally.digests == [coll.digest(a)]          # all-reduces only
+    b = a.clone()
+    b.view(-1).view(torch.uint8)[5] ^= 1
+    assert coll.digest(a.clone()) == coll.digest(a) != coll.digest(b)
+    tally.reset()
+    assert tally.digests is None and tally.record()["total_bytes"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -927,6 +955,136 @@ def test_rank_store_writes_come_from_rank_zero_alone(worlds):
             assert w == {"files": 0, "appends": 0}
         else:
             assert w["files"] > 0 and w["appends"] > 0
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving of the dense LM
+# ---------------------------------------------------------------------------
+
+_LM_GRIDS = [grid for grid, _ in u.LM_CASES]
+_LM_IDS = [u.lm_key(grid) for grid in _LM_GRIDS]
+_LM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),   # tests/test_models.py:165
+           "bfloat16": dict(rtol=5e-2, atol=5e-2)}  # test_torch_models._BF16_TOL
+_LM_STEPS = ["prefill"] + [f"decode{i}" for i in range(len(u.LM_DECODE_POS))]
+
+
+def _lm_block(whole, grid, coords, seq_dim):
+    """The block of ``whole`` a rank at ``coords`` holds: rows (dim 1 of
+    a cache, 0 of logits) over data, ``seq_dim`` over model."""
+    rows_dim = 1 if seq_dim is not None else 0
+    n = whole.shape[rows_dim] // grid[0]
+    out = np.take(whole, range(coords[0] * n, (coords[0] + 1) * n),
+                  axis=rows_dim)
+    if seq_dim is not None:
+        m = whole.shape[seq_dim] // grid[1]
+        out = np.take(out, range(coords[1] * m, (coords[1] + 1) * m),
+                      axis=seq_dim)
+    return out
+
+
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("grid", _LM_GRIDS, ids=_LM_IDS)
+def test_tensor_parallel_logits_equal_the_unsharded_reference(worlds, grid,
+                                                              dtype):
+    """Every rank's gathered logits of the prefill step and of each
+    decode step against the reference's unsharded model."""
+    ref, _ = worlds["reference"]
+    tag = f"lm/{u.lm_key(grid)}/{dtype}"
+    for rank, (arrays, _) in enumerate(worlds["ranks"]):
+        for step in _LM_STEPS:
+            np.testing.assert_allclose(arrays[f"{tag}/{step}"],
+                                       ref[f"{tag}/{step}"],
+                                       err_msg=f"rank {rank} {step}",
+                                       **_LM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("grid", _LM_GRIDS, ids=_LM_IDS)
+def test_every_rank_gathers_the_same_logit_bytes(worlds, grid, dtype):
+    """The gathered logits are byte-equal on every rank, and a rank's own
+    prefill block (its rows over data, its vocab over model) is their
+    cut."""
+    tag = f"lm/{u.lm_key(grid)}/{dtype}"
+    first = worlds["ranks"][0][0]
+    for rank, (arrays, _) in enumerate(worlds["ranks"]):
+        for step in _LM_STEPS:
+            assert np.array_equal(arrays[f"{tag}/{step}"],
+                                  first[f"{tag}/{step}"]), (rank, step)
+        whole = arrays[f"{tag}/prefill"]
+        i, j = _coords(rank, grid)
+        rows, cols = whole.shape[0] // grid[0], whole.shape[1] // grid[1]
+        assert np.array_equal(arrays[f"{tag}/prefill_block"],
+                              whole[i * rows:(i + 1) * rows,
+                                    j * cols:(j + 1) * cols])
+
+
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("grid", _LM_GRIDS, ids=_LM_IDS)
+def test_each_rank_cache_block_is_the_reference_block(worlds, grid, dtype):
+    """After the three decode steps a rank's cache is its block of the
+    reference's new cache (rows over data, slots over model): the seeded
+    slots byte for byte; the written ones, bf16 K/V of the step's
+    projections, within one bf16 rounding (float32 compute) or
+    ``_BF16_TOL``."""
+    ref, _ = worlds["reference"]
+    tag = f"lm/{u.lm_key(grid)}/{dtype}"
+    tol = (dict(rtol=2.0 ** -7, atol=1e-6) if dtype == "float32"
+           else _LM_TOL[dtype])
+    for rank, (arrays, _) in enumerate(worlds["ranks"]):
+        coords = _coords(rank, grid)
+        slots = u.LM_SEQ // grid[1]
+        mine = [p - coords[1] * slots for p in u.LM_DECODE_POS
+                if coords[1] * slots <= p < (coords[1] + 1) * slots]
+        for k in ("k", "v"):
+            got = arrays[f"{tag}/cache_{k}"]
+            want = _lm_block(ref[f"{tag}/cache_{k}"], grid, coords, 2)
+            assert got.shape == want.shape
+            kept = np.setdiff1d(np.arange(slots), mine)
+            assert np.array_equal(got[:, :, kept], want[:, :, kept]), \
+                (rank, k)
+            np.testing.assert_allclose(got[:, :, mine], want[:, :, mine],
+                                       err_msg=f"rank {rank} {k}", **tol)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("grid", _LM_GRIDS, ids=_LM_IDS)
+def test_rank_runs_count_the_closed_forms_collectives(worlds, grid, kind):
+    """``lower_cell(..., run=True, ranks=pm)``: every rank's tally of one
+    timed pass equals the closed form's ``collective_executed`` (every
+    layer), kind by kind and byte for byte; prefill moves 2 L + 1
+    all-reduces, decode 5 L + 1 and L all-gathers."""
+    layers = 2
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        run = scalars["lm_runs"][f"{u.lm_key(grid)}/{kind}"]
+        assert run["run_reason"] is None
+        assert run["run_batch"] == 2 * u.LM_BATCH // grid[0]
+        want = run["collective_executed"]
+        assert len(run["run_collective"]) == WORLD
+        assert all(c == want for c in run["run_collective"]), rank
+        ar, ag = want["counts"]["all-reduce"], want["counts"]["all-gather"]
+        assert (ar, ag) == ((2 * layers + 1, 0) if kind == "prefill"
+                            else (5 * layers + 1, layers))
+        assert [r["coords"] for r in run["run_ranks"]] == [
+            list(_coords(k, grid)) for k in range(WORLD)]
+        # nothing on the CPU is a device measurement
+        assert run["run_s"] is None and run["run_exchange_s"] is None
+        checks = run["run_checks"]
+        assert f"{ar} all-reduced tensors equal on every rank of a " \
+            f"model line" in checks
+        assert "gathered logits equal on every rank" in checks
+        if kind == "decode":
+            assert {"k/v written at pos 15 only",
+                    "the other ranks' caches unchanged"} <= set(checks)
+
+
+def test_a_rank_whose_run_check_fails_makes_every_rank_raise(worlds):
+    """A decode that writes away from ``pos`` on one rank: that rank's
+    check fails, and every rank raises naming it."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        kind, msg = scalars["lm_failure"]
+        assert kind == "RuntimeError", (rank, msg)
+        assert f"rank {u.LM_FAILING_RANK} failed" in msg
+        assert "changed away from pos" in msg
 
 
 # ---------------------------------------------------------------------------

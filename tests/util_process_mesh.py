@@ -106,6 +106,22 @@ STORE_STEPS = 4
 STORE_MORE = [[5, 6, 7]]
 # the journaled updates of the IndexStore case
 JOURNAL_EDITS = [([[7, 8, 9]], []), ([[1, 11]], [3])]
+# tensor-parallel serving of the dense LM on ranks: qwen3-1.7b's SMOKE
+# config (2 layers, d 64, 4 heads of 16, 2 KV heads, d_ff 128, vocab
+# 256) on a (data, model) grid, with the replacements both packages take
+LM_ARCH = "qwen3-1.7b"
+LM_CASES = [((2, 2), {}), ((1, 4), {"n_kv_heads": 4})]
+LM_DTYPES = ("float32", "bfloat16")
+# a batch of 4 prompts of 16 tokens; a seeded cache of 16 slots (8 a rank
+# on 2 x 2, 4 on 1 x 4); three teacher-forced decode steps, the first at
+# a position of rank 0's slots (the later ranks all masked)
+LM_BATCH, LM_SEQ, LM_SEED = 4, 16, 23
+LM_DECODE_POS = (2, 9, 15)
+# the cells lower_cell runs on ranks (reduced shape cells at smoke
+# widths, the cell mesh equal to the ranks' grid) and the rank whose
+# decode check is made to fail
+LM_RUN_SEQ = 16
+LM_FAILING_RANK = 1
 
 
 def label_graph(name):
@@ -292,6 +308,55 @@ def all_pairs(n):
     return us.astype(np.int64), vs.astype(np.int64)
 
 
+def lm_key(grid):
+    return f"{grid[0]}x{grid[1]}"
+
+
+def lm_config(module, grid, dtype):
+    """``module``'s (either package's ``configs``) SMOKE config of
+    ``LM_ARCH`` for the case of ``grid`` in ``dtype`` compute."""
+    import dataclasses
+    over = dict(LM_CASES)[tuple(grid)]
+    return dataclasses.replace(module.get_smoke_config(LM_ARCH),
+                               compute_dtype=dtype, **over)
+
+
+def lm_overrides(grid, dtype="bfloat16"):
+    """``lm_config``'s fields, as ``lower_cell``'s ``overrides``."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = lm_config(configs, grid, dtype)
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+def lm_inputs(cfg):
+    """The prompts ``[B, S]``, the decode steps' tokens ``[3, B, 1]`` and
+    the seeded cache ``k`` / ``v`` ``[L, B, S, kv, hd]`` (float32, which
+    both packages round to bf16 alike)."""
+    rng = np.random.default_rng(LM_SEED)
+    shape = (cfg.n_layers, LM_BATCH, LM_SEQ, cfg.n_kv_heads, cfg.hd)
+    return {"tokens": rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ)),
+            "steps": rng.integers(0, cfg.vocab,
+                                  (len(LM_DECODE_POS), LM_BATCH, 1)),
+            "k": rng.normal(size=shape).astype(np.float32),
+            "v": rng.normal(size=shape).astype(np.float32)}
+
+
+def write_lm_params(out_dir):
+    """The reference's ``init(PRNGKey(0))`` of each case's config, flat
+    (``convert.lm_layers_from_params`` keys), into ``OUT_DIR``: the
+    ranks carry them across before the world starts."""
+    import jax
+    from repro import configs as ref_configs
+    from repro.models import build_model
+    from repro_torch.convert import lm_layers_from_params
+    for grid, _ in LM_CASES:
+        cfg = lm_config(ref_configs, grid, "float32")
+        params = build_model(cfg).init(jax.random.PRNGKey(0))
+        np.savez(os.path.join(out_dir, f"lm-params-{lm_key(grid)}.npz"),
+                 **lm_layers_from_params(jax.tree.map(np.asarray, params)))
+
+
 def _error(fn):
     """(type name, message) of what ``fn()`` raises, or ("none", "")."""
     try:
@@ -460,6 +525,7 @@ def _rank_cases(rank: int, out_dir: str):
     _a10d_rank_cases(api, mesh, rank, arrays, scalars)
     _serving_rank_cases(api, mesh, rank, arrays, scalars)
     _store_rank_cases(api, mesh, rank, out_dir, arrays, scalars)
+    _lm_rank_cases(mesh, rank, out_dir, arrays, scalars)
 
     # -- the mesh's limits
     eng = api.build_engine(he, "sharded", mesh=pm, use_kernels=True)
@@ -1020,6 +1086,89 @@ def _store_rank_cases(api, mesh, rank, out_dir, arrays, scalars):
                                "appends": appends.calls}
 
 
+def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
+    """Tensor-parallel serving of the dense LM on each grid of
+    ``LM_CASES``: the reference's weights carried across to the rank's
+    blocks, the prefill step and three decode steps in both compute
+    dtypes (the gathered logits and the rank's cache block), then
+    ``lower_cell`` on ranks for a prefill and a decode cell, and a decode
+    cell whose check fails on one rank."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.convert import lm_rank_state_dict_from_params, \
+        nest_layers
+    from repro_torch.distributed_lm.sharding import batch_block, cache_block
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import build_model
+    from repro_torch.serve import make_prefill_step, make_serve_step
+    from repro_torch.serve.serve_step import whole_logits
+
+    runs = {}
+    for grid, _ in LM_CASES:
+        key, pm = lm_key(grid), mesh(grid)
+        params = nest_layers(dict(np.load(os.path.join(
+            out_dir, f"lm-params-{key}.npz"))))
+        for dtype in LM_DTYPES:
+            cfg = lm_config(configs, grid, dtype)
+            model = build_model(cfg, device="cpu", ranks=pm)
+            model.load_state_dict(lm_rank_state_dict_from_params(
+                params, model.param_specs(), pm))
+            inputs = lm_inputs(cfg)
+            tag = f"lm/{key}/{dtype}"
+
+            def rows(a):
+                return batch_block({"tokens": torch.from_numpy(a)}, cfg,
+                                   pm)["tokens"]
+            out = make_prefill_step(model, cfg)({"tokens": rows(
+                inputs["tokens"])})
+            arrays[f"{tag}/prefill"] = whole_logits(out, pm).float().numpy()
+            arrays[f"{tag}/prefill_block"] = out.float().numpy()
+            cache = cache_block({k: torch.from_numpy(inputs[k]).to(
+                torch.bfloat16) for k in ("k", "v")}, model, pm)
+            step = make_serve_step(model, cfg)
+            for i, pos in enumerate(LM_DECODE_POS):
+                out, cache = step(cache, rows(inputs["steps"][i]), pos)
+                arrays[f"{tag}/decode{i}"] = whole_logits(
+                    out, pm).float().numpy()
+            for k in ("k", "v"):
+                arrays[f"{tag}/cache_{k}"] = cache[k].float().numpy()
+        for kind in ("prefill", "decode"):
+            cell = ShapeCell(f"{kind}_32k", LM_RUN_SEQ, 2 * LM_BATCH, kind)
+            rec = dryrun.lower_cell(LM_ARCH, cell, mesh_shape=grid,
+                                    overrides=lm_overrides(grid),
+                                    device="cpu", run=True, ranks=pm,
+                                    run_reps=1)
+            runs[f"{key}/{kind}"] = {
+                k: rec.get(k) for k in (
+                    "run_reason", "run_batch", "run_checks",
+                    "run_collective", "collective_executed", "run_ranks",
+                    "run_s", "run_exchange_s", "run_bound_s")}
+    scalars["lm_runs"] = runs
+
+    # a decode check that fails on one rank makes every rank raise
+    make = dryrun.make_serve_step
+
+    def stray(model, cfg):
+        step = make(model, cfg)
+
+        def serve_step(cache, tokens, pos):
+            logits, cache = step(cache, tokens, pos)
+            cache["k"][:, :, 0] += 1          # a write away from pos
+            return logits, cache
+        return serve_step
+    if rank == LM_FAILING_RANK:
+        dryrun.make_serve_step = stray
+    try:
+        scalars["lm_failure"] = _error(lambda: dryrun.lower_cell(
+            LM_ARCH, ShapeCell("decode_32k", LM_RUN_SEQ, 2 * LM_BATCH,
+                               "decode"), mesh_shape=(2, 2),
+            overrides=lm_overrides((2, 2)), device="cpu", run=True,
+            ranks=mesh((2, 2)), run_reps=1))
+    finally:
+        dryrun.make_serve_step = make
+
+
 def torch_equal(a, b):
     import torch
     return torch.equal(a, b)
@@ -1107,6 +1256,7 @@ def run_reference(out_dir: str) -> None:
             [np.asarray(s) for _, s in pairs])
     _a10d_reference_cases(arrays, scalars)
     _serving_reference_cases(out_dir, arrays, scalars)
+    _lm_reference_cases(arrays)
     np.savez(os.path.join(out_dir, "reference.npz"), **arrays)
     with open(os.path.join(out_dir, "reference.json"), "w") as f:
         json.dump(scalars, f)
@@ -1226,6 +1376,37 @@ def _a10d_reference_cases(arrays, scalars):
                 eng.mr_batch(*all_pairs(eng.h.n)))
         scripts[key] = {"steps": steps}
     scalars["scripts"] = scripts
+
+
+def _lm_reference_cases(arrays):
+    """``_lm_rank_cases``' inputs through the reference's unsharded model:
+    the prefill step's logits, each teacher-forced decode step's and the
+    cache after the three."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as ref_configs
+    from repro.models import build_model
+
+    for grid, _ in LM_CASES:
+        for dtype in LM_DTYPES:
+            cfg = lm_config(ref_configs, grid, dtype)
+            model = build_model(cfg)
+            params = model.init(jax.random.PRNGKey(0))
+            inputs = lm_inputs(cfg)
+            tag = f"lm/{lm_key(grid)}/{dtype}"
+            logits, _ = jax.jit(model.apply)(params,
+                                             jnp.asarray(inputs["tokens"]))
+            arrays[f"{tag}/prefill"] = np.asarray(logits[:, -1], np.float32)
+            cache = {k: jnp.asarray(inputs[k], jnp.bfloat16)
+                     for k in ("k", "v")}
+            step = jax.jit(model.decode_step)
+            for i, pos in enumerate(LM_DECODE_POS):
+                logits, cache = step(params, cache,
+                                     jnp.asarray(inputs["steps"][i]),
+                                     jnp.int32(pos))
+                arrays[f"{tag}/decode{i}"] = np.asarray(logits, np.float32)
+            for k in ("k", "v"):
+                arrays[f"{tag}/cache_{k}"] = np.asarray(cache[k], np.float32)
 
 
 def _reference_engine(kind, shape):
