@@ -133,10 +133,14 @@ drives the port's two paths at full size through `repro_torch.api`:
   (`lower_cell(..., ranks=pm)`: each rank its block of every parameter,
   of the cache and of the batch, the collectives over `model`):
   `decode_32k` on 128 x 4 and a prefill on 32 x 4 cut to 4,096 tokens,
-  each rank's gathered logits byte-equal to the others' and held to the
-  one-process run of the cell (float32 compute and bf16) by the bf16
-  departure gate, each rank's peak under half the one-process run's,
-  each rank's counted collectives equal to the closed form's.
+  for `qwen3-1.7b`, for `qwen2-moe-a2.7b`'s widths on 2 layers with
+  FFN-split experts and with expert-parallel ones (an all-to-all each
+  way over `model`), and `llava-next-mistral-7b`'s prefill on 8 of its
+  32 layers; each rank's gathered logits byte-equal to the others' and
+  held to the one-process run of the cell (float32 compute and bf16) by
+  the bf16 departure gate, each rank's peak under half the one-process
+  run's, each rank's counted collectives equal to the closed form's,
+  every MoE layer's routing equal along the line.
 
 The host-only references (the MST oracle of walmart-trips,
 primary-school and email-Eu; email-Eu's ETE and threshold-component
@@ -382,15 +386,46 @@ LM_DRYRUN_RUNS = (("train_4k", 4_096, (64, 1)),
 LM_DRYRUN_CELLS = {"ok": 64, "skipped": 16}
 LM_DRYRUN_RUN_REPS = 1                 # timed passes after the warm-up
 # then RANK_WORLD gloo ranks share the card as a (data, model) = (1, 4)
-# ProcessMesh and run LM_ARCH's serving cells with the model axis split:
-# (cell, its seq_len, the cell's mesh): decode_32k whole on (128, 4), and
-# prefill on (32, 4) cut to 4,096 tokens (a prefill pass all-reduces 57
-# [tokens, 2,048] bf16 tensors through host memory, some 30 s a pass at
-# 32,768 tokens); each held to the one-process run of its cell at model
-# axis 1 (float32 compute and bf16) by the departure gate
+# ProcessMesh and run serving cells with the model axis split: (label,
+# arch, config replacements, cell, its seq_len, the cell's mesh, what was
+# cut to size): LM_ARCH's decode_32k whole on (128, 4), and its prefill
+# on (32, 4) cut to 4,096 tokens (a prefill pass all-reduces 57 [tokens,
+# 2,048] partial sums through host memory, some 30 s a pass at 32,768
+# tokens); the same two cells of LM_MOE_ARCH's published widths on
+# LM_MOE_LAYERS layers in its published FFN-split layout, and in
+# arctic-480b's "model+data" expert-parallel layout (15 of the 60
+# experts a rank; arctic's own experts, 53.5 GB a layer in float32, do
+# not fit beside the one-process reference on one card); LM_VLM_ARCH's
+# prefill at its published widths on LM_VLM_LAYERS of its 32 layers, 576
+# patches of the 4,096 positions (at all 32 layers the cell took 21.5 s
+# and its one-process runs some 6 s more, and the script 1,123 s of its
+# 1,200 on a slow host).  Each held to the one-process run of its cell at
+# model axis 1 (float32 compute and bf16; the two expert layouts share
+# theirs: at model axis 1 the layout splits nothing) by the departure
+# gate
+LM_VLM_ARCH = "llava-next-mistral-7b"  # published widths, depth cut
+LM_VLM_LAYERS = 8
 LM_RANK_GRID = (1, 4)
-LM_RANK_CELLS = (("decode_32k", 32_768, (128, 4)),
-                 ("prefill_32k", 4_096, (32, 4)))
+LM_RANK_MOE = {"n_layers": LM_MOE_LAYERS}
+LM_RANK_EP = dict(LM_RANK_MOE, expert_sharding="model+data")
+LM_CUT_SEQ = "seq_len: 32,768 cut to 4,096"
+LM_CUT_MOE = f"n_layers: 24 cut to {LM_MOE_LAYERS}"
+LM_CUT_EP = ("expert_sharding: arctic-480b's 'model+data' on "
+             "qwen2-moe-a2.7b's widths (arctic's experts, 53.5 GB a layer "
+             "in float32, do not fit beside the one-process reference)")
+LM_RANK_CELLS = (
+    ("dense", LM_ARCH, {}, "decode_32k", 32_768, (128, 4), ()),
+    ("dense", LM_ARCH, {}, "prefill_32k", 4_096, (32, 4), (LM_CUT_SEQ,)),
+    ("moe ffn", LM_MOE_ARCH, LM_RANK_MOE, "decode_32k", 32_768, (128, 4),
+     (LM_CUT_MOE,)),
+    ("moe ffn", LM_MOE_ARCH, LM_RANK_MOE, "prefill_32k", 4_096, (32, 4),
+     (LM_CUT_MOE, LM_CUT_SEQ)),
+    ("moe expert-parallel", LM_MOE_ARCH, LM_RANK_EP, "decode_32k", 32_768,
+     (128, 4), (LM_CUT_MOE, LM_CUT_EP)),
+    ("moe expert-parallel", LM_MOE_ARCH, LM_RANK_EP, "prefill_32k", 4_096,
+     (32, 4), (LM_CUT_MOE, LM_CUT_EP, LM_CUT_SEQ)),
+    ("vlm", LM_VLM_ARCH, {"n_layers": LM_VLM_LAYERS}, "prefill_32k", 4_096,
+     (32, 4), (f"n_layers: 32 cut to {LM_VLM_LAYERS}", LM_CUT_SEQ)))
 LM_RANK_TIMEOUT_S = 600
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
 # bf16 serving: the root-mean-square departure of the decode logits (bf16
@@ -6043,8 +6078,8 @@ def lm_rank_worker(rank, world, work, spec):
     ``LM_RANK_CELLS`` through ``lower_cell(..., run=True, ranks=pm)`` (the
     rank's blocks drawn from the one-process model's generator, its rows
     and cache slots; a warm-up and ``LM_DRYRUN_RUN_REPS`` timed passes).
-    Writes ``rank<r>.json`` (the records) and each cell's gathered logits
-    into ``work``."""
+    Writes ``rank<r>.json`` (the records, by the cell's place in
+    ``LM_RANK_CELLS``) and each cell's gathered logits into ``work``."""
     import datetime
     import torch.distributed as tdist
     from repro_torch import api
@@ -6064,20 +6099,21 @@ def lm_rank_worker(rank, world, work, spec):
         pm = api.make_process_mesh(
             LM_RANK_GRID, ("data", "model"),
             device=None if device.type == "cuda" else device)
-        for name, seq, mesh_shape in LM_RANK_CELLS:
+        for i, (_, arch, over, name, seq, mesh_shape, _) in enumerate(
+                LM_RANK_CELLS):
             gc.collect()
             if device.type == "cuda":
                 torch.cuda.empty_cache()
             logits = []
             t0 = time.perf_counter()
             rec = dryrun.lower_cell(
-                LM_ARCH, lm_cell(name, seq), mesh_shape=mesh_shape,
-                device=device, run=True, run_reps=LM_DRYRUN_RUN_REPS,
-                ranks=pm, logits=logits)
+                arch, lm_cell(name, seq), mesh_shape=mesh_shape,
+                overrides=over or None, device=device, run=True,
+                run_reps=LM_DRYRUN_RUN_REPS, ranks=pm, logits=logits)
             rec["cell_s"] = time.perf_counter() - t0
-            np.save(os.path.join(work, f"logits-{name}-{rank}.npy"),
+            np.save(os.path.join(work, f"logits-{i}-{rank}.npy"),
                     logits[0].numpy())
-            out["cells"][name] = rec
+            out["cells"][str(i)] = rec
     finally:
         tdist.destroy_process_group()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
@@ -6088,32 +6124,46 @@ def rms(t):
     return float(t.double().pow(2).mean().sqrt())
 
 
+def lm_reference_key(arch, over, name, seq, dtype):
+    """The one-process run a rank cell is held to: the expert layout
+    splits nothing at model axis 1, so it is left out."""
+    kept = tuple(sorted((k, v) for k, v in over.items()
+                        if k != "expert_sharding"))
+    return arch, kept, name, seq, dtype
+
+
 def lm_rank_cells(dryrun, device, one):
     """``LM_RANK_CELLS`` on ``RANK_WORLD`` spawned ranks
     (``lm_rank_worker``), each held to its one-process run at model axis
     1 (same weights from seed 0, batch and cache from seed 1, same
     ``run_batch``): the parent runs the cell in float32 compute and in the
-    published bf16 (``one`` holds the runs it has already made, by (cell,
-    dtype): (record, logits)), and the ranks' gathered logits must depart
-    from the float32 logits by at most ``BF16_DEPARTURE_RATIO`` times the
-    one-process bf16 run's root-mean-square departure.  Also held: the
-    gathered logits byte-equal on every rank, each rank's peak under half
-    the one-process bf16 run's, each rank's counted collectives equal to
-    the closed form's, the run's checks.  Returns one summary a cell."""
+    published bf16 (``one`` holds the runs it has already made, by
+    ``lm_reference_key``: (record, logits)), and the ranks' gathered
+    logits must depart from the float32 logits by at most
+    ``BF16_DEPARTURE_RATIO`` times the one-process bf16 run's
+    root-mean-square departure.  Also held: the gathered logits
+    byte-equal on every rank, each rank's peak under half the one-process
+    bf16 run's, each rank's counted collectives equal to the closed
+    form's (``dryrun.closed_form_mismatch``: the expert-parallel
+    all-to-all's bytes over the model line), the run's checks (every
+    all-reduced tensor and every MoE routing equal along the line among
+    them).  Returns one summary a cell."""
     clock = Phase()
     refs = dict(one)
-    for name, seq, (data, _) in LM_RANK_CELLS:
+    for _, arch, over, name, seq, (data, _), _ in LM_RANK_CELLS:
         for dtype in ("float32", "bfloat16"):
-            if (name, dtype) in refs:
+            key = lm_reference_key(arch, over, name, seq, dtype)
+            if key in refs:
                 continue
             gc.collect()
             torch.cuda.empty_cache()
             logits = []
             rec = dryrun.lower_cell(
-                LM_ARCH, lm_cell(name, seq), mesh_shape=(data, 1),
-                overrides={"compute_dtype": dtype}, device=device, run=True,
-                run_reps=LM_DRYRUN_RUN_REPS, logits=logits)
-            refs[(name, dtype)] = (rec, logits[0])
+                arch, lm_cell(name, seq), mesh_shape=(data, 1),
+                overrides=dict(key[1], compute_dtype=dtype), device=device,
+                run=True, run_reps=LM_DRYRUN_RUN_REPS, logits=logits)
+            refs[key] = (rec, logits[0])
+            del rec, logits
     one_process_s = clock.seconds()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6122,58 +6172,65 @@ def lm_rank_cells(dryrun, device, one):
         spec = {"device": device.type, "timeout": LM_RANK_TIMEOUT_S}
         reports, ranks_s = timed_s(lambda: run_ranks(work, spec,
                                                      lm_rank_worker))
-        gathered = {name: [torch.from_numpy(np.load(os.path.join(
-            work, f"logits-{name}-{r}.npy"))) for r in range(RANK_WORLD)]
-            for name, _, _ in LM_RANK_CELLS}
+        gathered = [[torch.from_numpy(np.load(os.path.join(
+            work, f"logits-{i}-{r}.npy"))) for r in range(RANK_WORLD)]
+            for i in range(len(LM_RANK_CELLS))]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out = []
-    for name, seq, mesh_shape in LM_RANK_CELLS:
-        recs = [rep["cells"][name] for rep in reports]
-        tag = f"lm_dryrun ranks {LM_ARCH} {name} at {seq} on {mesh_shape}"
+    for i, (label, arch, over, name, seq, mesh_shape, reduced) in enumerate(
+            LM_RANK_CELLS):
+        recs = [rep["cells"][str(i)] for rep in reports]
+        tag = (f"lm_dryrun ranks {arch} ({label}) {name} at {seq} on "
+               f"{mesh_shape}")
         rec = recs[0]
         if any(r["status"] != "ok" or "run_reason" in r or
                r.get("run_s") is None for r in recs):
             raise AssertionError(f"{tag}: {[r.get('run_reason') for r in recs]}")
-        got = gathered[name]
+        got = gathered[i]
         if any(not torch.equal(g, got[0]) for g in got):
             raise AssertionError(f"{tag}: the gathered logits differ "
                                  f"between ranks")
-        f32, bf16 = refs[(name, "float32")][1], refs[(name, "bfloat16")][1]
-        if got[0].shape != f32.shape:
+        f32, bf16 = (refs[lm_reference_key(arch, over, name, seq, d)]
+                     for d in ("float32", "bfloat16"))
+        if got[0].shape != f32[1].shape:
             raise AssertionError(f"{tag}: logits {tuple(got[0].shape)}, "
-                                 f"one process {tuple(f32.shape)}")
-        ranks_dep, one_dep = rms(got[0] - f32), rms(bf16 - f32)
+                                 f"one process {tuple(f32[1].shape)}")
+        ranks_dep, one_dep = rms(got[0] - f32[1]), rms(bf16[1] - f32[1])
         ratio = ranks_dep / one_dep
         if not ratio <= BF16_DEPARTURE_RATIO:
             raise AssertionError(
                 f"{tag}: the ranks' logits depart from the float32 run "
                 f"{ratio} times as far as the one-process bf16 run (limit "
                 f"{BF16_DEPARTURE_RATIO})")
-        one_peak = refs[(name, "bfloat16")][0]["peak_bytes"]
+        one_peak = bf16[0]["peak_bytes"]
         peaks = [r["peak_bytes"] for r in rec["run_ranks"]]
         if not all(p < one_peak / 2 for p in peaks):
             raise AssertionError(f"{tag}: rank peaks {peaks} not under half "
                                  f"the one-process run's {one_peak}")
         for r in recs:
-            if r["run_collective"] != [r["collective_executed"]] * \
-                    RANK_WORLD:
-                raise AssertionError(f"{tag}: counted collectives "
-                                     f"{r['run_collective']} != the closed "
-                                     f"form's {r['collective_executed']}")
+            why = dryrun.closed_form_mismatch(
+                r["run_collective"], r["collective_executed"], LM_RANK_GRID)
+            if why is not None:
+                raise AssertionError(f"{tag}: counted collectives part from "
+                                     f"the closed form: {why}")
         if any(r["run_checks"] != rec["run_checks"] for r in recs):
             raise AssertionError(f"{tag}: the ranks' checks differ")
+        a2a = [c["bytes"]["all-to-all"] for c in rec["run_collective"]]
         row = {
+            "label": label, "arch": arch, "overrides": over,
             "cell": name, "seq_len": seq, "mesh_shape": list(mesh_shape),
+            "reduced": list(reduced),
             "ranks": list(LM_RANK_GRID), "run_batch": rec["run_batch"],
             "run_s": rec["run_s"], "run_exchange_s": rec["run_exchange_s"],
             "run_bound_s": rec["run_bound_s"],
             "run_bound_by": rec["run_bound_by"],
             "run_ranks": rec["run_ranks"],
             "collective_executed": rec["collective_executed"],
+            "all_to_all_bytes": a2a,
             "peak_bytes_one_process": one_peak,
-            "one_process_run_s": {d: refs[(name, d)][0]["run_s"]
-                                  for d in ("float32", "bfloat16")},
+            "one_process_run_s": {"float32": f32[0]["run_s"],
+                                  "bfloat16": bf16[0]["run_s"]},
             "rms_departure": {"ranks_bf16": ranks_dep, "one_bf16": one_dep},
             "departure_ratio": ratio, "cell_s": [r["cell_s"] for r in recs],
             "run_checks": rec["run_checks"]}
@@ -6181,14 +6238,16 @@ def lm_rank_cells(dryrun, device, one):
               f"{rec['run_batch']}, run_s per rank "
               f"{[round(r['run_s'], 4) for r in rec['run_ranks']]} (slowest "
               f"{rec['run_s']:.4f} s; one process bf16 "
-              f"{row['one_process_run_s']['bfloat16']:.4f} s, bound / 4 "
+              f"{row['one_process_run_s']['bfloat16']:.4f} s, float32 "
+              f"{row['one_process_run_s']['float32']:.4f} s, bound / 4 "
               f"{rec['run_bound_s']:.4f} s), exchange "
               f"{[round(r['run_exchange_s'], 4) for r in rec['run_ranks']]}"
               f" s, collectives a rank {rec['run_collective'][0]['counts']}"
               f" = the closed form's, {rec['collective_executed']['total_bytes']}"
-              f" B, peak {peaks} B (one process {one_peak} B), rms "
-              f"departure {ranks_dep:.5f} against {one_dep:.5f} "
-              f"({ratio:.3f}x), checks {rec['run_checks']}", flush=True)
+              f" B (all-to-all a rank {a2a} B), peak {peaks} B (one process "
+              f"{one_peak} B), rms departure {ranks_dep:.5f} against "
+              f"{one_dep:.5f} ({ratio:.3f}x), checks {rec['run_checks']}",
+              flush=True)
         out.append(row)
     return {"cells": out, "one_process_s": one_process_s,
             "ranks_s": ranks_s, "seconds": clock.seconds()}
@@ -6206,8 +6265,12 @@ def phase_lm_dryrun_path(counters, device):
     every parameter changed, the logits' shape, the cache written at
     ``pos`` only); then ``lm_rank_cells``: the serving cells with the
     ``model`` axis split, four ranks sharing the card (so a rank's
-    ``run_s`` is not what four cards would take).  No kernel of the port
-    is on this path: the counts stay 0."""
+    ``run_s`` is not what four cards would take): the dense
+    ``qwen3-1.7b``, ``qwen2-moe-a2.7b``'s widths with FFN-split and with
+    expert-parallel experts (an all-to-all each way over ``model``), and
+    ``llava-next-mistral-7b``'s prefill (each cut to size as its
+    ``LM_RANK_CELLS`` entry says).  No kernel of the port is on this
+    path: the counts stay 0."""
     from repro_torch.benchmarks import roofline
     from repro_torch.launch import dryrun
     clock = Phase()
@@ -6245,9 +6308,11 @@ def phase_lm_dryrun_path(counters, device):
                                 logits=logits)
         rec["seq_len"] = seq
         # a rank cell's one-process bf16 run, where this is it
-        if (shape, seq, mesh_shape[0]) in {(n, s, m[0]) for n, s, m in
-                                           LM_RANK_CELLS}:
-            one[(shape, "bfloat16")] = (rec, logits[0])
+        if (shape, seq, mesh_shape[0]) in {
+                (n, q, m[0]) for _, a, o, n, q, m, _ in LM_RANK_CELLS
+                if a == LM_ARCH and not o}:
+            one[lm_reference_key(LM_ARCH, {}, shape, seq, "bfloat16")] = \
+                (rec, logits[0])
         rec["cell_s"] = time.perf_counter() - t0
         if rec["status"] != "ok" or rec.get("run_s") is None:
             raise AssertionError(f"lm_dryrun_path {shape}: {rec}")

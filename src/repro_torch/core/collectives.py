@@ -14,6 +14,16 @@ a mesh axis, written over ``torch.distributed``:
   ``all_reduce_sum`` — the elementwise max / min / sum over the line
   (``jax.lax.pmax`` / ``pmin`` / ``psum``), the sum in ``t``'s own dtype
   (gloo reduces bfloat16 as it is, in torch 2.11 and 2.13);
+* ``all_to_all_over(t, mesh, axis, send_counts, recv_counts)`` — rows to
+  each rank of the line, uneven: ``t``'s first ``send_counts[0]`` rows go
+  to coordinate 0, the next ``send_counts[1]`` to coordinate 1, ...,
+  and ``recv_counts[j]`` rows come back from coordinate j, concatenated
+  in coordinate order (what an expert-parallel MoE moves each way; zero
+  rows to or from a rank is a normal case).  Every rank's counts cross
+  first, with a status word, in one fixed-size all-gather over the
+  world: if any rank failed (its ``error``, or counts that do not fit its
+  ``t``) or the two ends of a pair disagree, every rank raises together,
+  before any row moves.  Then one ``all_to_all_single`` over the line;
 * ``all_gather_ragged(t, mesh)`` — over the whole world group rather than
   one axis: each rank passes a flat int64 tensor of its own length and
   every rank gets the list of all of them in rank order (the sizes first,
@@ -38,33 +48,37 @@ a mesh axis, written over ``torch.distributed``:
 Each returns a new tensor on the block's device and never writes its
 input; on an axis of size 1 each is the identity (the input itself, no
 call).  The axis transfers (``all_gather_panel``, ``ring_shift``,
-``all_reduce_*``) are counted into the mesh's ``tally`` (a ``Tally``:
-this rank's), by the LM dry-run's kinds and units (``all-gather``, ``all-reduce``,
+``all_reduce_*``, ``all_to_all_over``) are counted into the mesh's
+``tally`` (a ``Tally``: this rank's), by the LM dry-run's kinds and
+units (``all-gather``, ``all-reduce``, ``all-to-all``,
 ``collective-permute``; bytes = the op's result bytes, as
 ``launch/dryrun.collective_closed_form`` counts them), with the host
 seconds spent in them (a CUDA tensor staged through the host has its
 card synchronised first, which its staging copy would wait for anyway,
 so the transfer's time is its own; under NCCL the seconds are the
 enqueue's) and, when asked, a digest of each
-all-reduced result, by which ranks show they hold the same bytes.  Under NCCL the tensors go to the collective as they are.  Under
-gloo a CUDA tensor is staged through host buffers the mesh keeps (pinned,
+all-reduced result and of each routing a MoE layer computed
+(``Tally.route``), by which ranks show they hold the same bytes.
+Under NCCL the tensors go to the collective as they are.  Under gloo a
+CUDA tensor is staged through host buffers the mesh keeps (pinned,
 reused across rounds) and copied back: gloo's own CUDA support is not
 relied on.  A collective that fails raises; nothing falls back to a
 logical route.
 
 ``gather_over`` / ``shift_over`` / ``max_over`` / ``min_over`` /
-``sum_over`` are the
+``sum_over`` / ``rows_over`` are the
 same transfers on an explicit process group, what the mesh helpers call
 once they have resolved the axis's subgroup and staging.
 
 Only calls present in torch 2.11 and 2.13 are used
 (``all_gather_into_tensor``, ``batch_isend_irecv``, ``all_reduce``,
-``broadcast``).
+``broadcast``, ``all_to_all_single``).
 """
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -73,14 +87,15 @@ import torch
 import torch.distributed as tdist
 
 __all__ = ["all_gather_panel", "ring_shift", "all_reduce_max",
-           "all_reduce_min", "all_reduce_sum", "Tally", "KINDS", "all_gather_ragged", "gather_ragged_or_raise",
+           "all_reduce_min", "all_reduce_sum", "all_to_all_over", "Tally",
+           "KINDS", "all_gather_ragged", "gather_ragged_or_raise",
            "agree_or_raise", "broadcast_from", "broadcast_json",
            "encode_json", "decode_json", "exchange_pieces",
            "exchange_device",
            "same_on_every_rank", "gather_over", "shift_over", "max_over",
-           "min_over", "sum_over", "digest"]
+           "min_over", "sum_over", "rows_over", "digest"]
 
-# (key, shape, dtype) -> a host buffer kept for the next call
+# (key, shape, dtype[, grow]) -> a host buffer kept for the next call
 Stage = Callable[[str, Sequence[int], torch.dtype], torch.Tensor]
 # the LM dry-run's collective kinds (``launch/dryrun.COLLECTIVE_KINDS``)
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -99,7 +114,8 @@ def digest(t: torch.Tensor) -> Tuple[int, int]:
 class Tally:
     """The axis collectives this process ran since ``reset``: calls and
     result bytes by kind, host seconds, and (``reset(digests=True)``)
-    the ``digest`` of every all-reduced result in call order."""
+    the ``digest`` of every all-reduced result in call order, and in
+    ``routes`` those of every routing ``route`` was given."""
 
     def __init__(self):
         self.reset()
@@ -110,6 +126,8 @@ class Tally:
         self.seconds = 0.0
         self.digests: Optional[List[Tuple[int, int]]] = \
             [] if digests else None
+        self.routes: Optional[List[Tuple[int, int]]] = \
+            [] if digests else None
 
     def add(self, kind: str, result: torch.Tensor, seconds: float) -> None:
         self.bytes[kind] += result.numel() * result.element_size()
@@ -117,6 +135,12 @@ class Tally:
         self.seconds += seconds
         if self.digests is not None and kind == "all-reduce":
             self.digests.append(digest(result))
+
+    def route(self, *parts: torch.Tensor) -> None:
+        """Keeps the ``digest`` of each of ``parts`` (a MoE layer's
+        chosen experts and gates) when digests are on."""
+        if self.routes is not None:
+            self.routes.extend(digest(p) for p in parts)
 
     def record(self) -> Dict:
         """``{"bytes", "counts", "total_bytes"}`` as the closed form's
@@ -220,6 +244,35 @@ def sum_over(t: torch.Tensor, group, stage: Optional[Stage] = None,
     return _reduce_over(t, tdist.ReduceOp.SUM, group, stage, key)
 
 
+def rows_over(t: torch.Tensor, group, send_counts: Sequence[int],
+              recv_counts: Sequence[int], stage: Optional[Stage] = None,
+              key: str = "rows") -> torch.Tensor:
+    """``t``'s rows split by ``send_counts`` to the ranks of ``group`` in
+    group-rank order, and ``sum(recv_counts)`` rows back, in group-rank
+    order (one ``all_to_all_single``); the caller makes both ends of
+    each pair agree.  Staged rows go through one flat host buffer a
+    direction, kept at the largest size seen."""
+    src = t.contiguous()
+    tail = tuple(src.shape[1:])
+    width = math.prod(tail)
+    out_shape = (int(sum(recv_counts)),) + tail
+    send_sizes = [int(c) for c in send_counts]
+    recv_sizes = [int(c) for c in recv_counts]
+    if stage is None:
+        send = src
+        recv = torch.empty(out_shape, dtype=src.dtype, device=src.device)
+    else:
+        send = stage(f"{key}:send", (src.numel(),), src.dtype, grow=True)
+        send = send.view(src.shape)
+        send.copy_(src)
+        recv = stage(f"{key}:recv", (math.prod(out_shape),), src.dtype,
+                     grow=True).view(out_shape)
+    if width:
+        tdist.all_to_all_single(recv, send, output_split_sizes=recv_sizes,
+                                input_split_sizes=send_sizes, group=group)
+    return recv if stage is None else recv.to(src.device, copy=True)
+
+
 def all_gather_panel(block: torch.Tensor, mesh, axis: str,
                      dim: int) -> torch.Tensor:
     """The tiled all-gather of ``block`` along ``axis`` into ``dim``."""
@@ -266,6 +319,82 @@ def all_reduce_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         return t
     return _counted(mesh, "all-reduce", t, lambda: sum_over(
         t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"sum:{axis}"))
+
+
+def _line_counts(words: torch.Tensor, mesh, axis: str) -> Optional[str]:
+    """Why the gathered count words ``[world, 1 + 2 n]`` (each rank's
+    status, send counts, receive counts) do not pair up along ``axis``,
+    or ``None``: in every line, what coordinate i sends j is what j
+    receives from i."""
+    n = mesh.shape[axis]
+    k = mesh.axis_names.index(axis)
+    grid = np.moveaxis(np.arange(mesh.world_size).reshape(mesh.dims), k, -1)
+    w = words.cpu().numpy()
+    for line in grid.reshape(-1, n):
+        sends = w[line, 1:1 + n]
+        recvs = w[line, 1 + n:]
+        if not np.array_equal(sends, recvs.T):
+            i, j = np.argwhere(sends != recvs.T)[0]
+            return (f"ranks {int(line[i])} and {int(line[j])}: "
+                    f"{int(sends[i, j])} rows sent, {int(recvs[j, i])} "
+                    f"expected")
+    return None
+
+
+def all_to_all_over(t: Optional[torch.Tensor], mesh, axis: str,
+                    send_counts: Sequence[int], recv_counts: Sequence[int],
+                    error: Optional[BaseException] = None,
+                    what: str = "all_to_all_over") -> torch.Tensor:
+    """The rows exchange along ``axis`` (module docstring): ``t``'s rows,
+    grouped by destination coordinate in ``send_counts``, go out, and
+    ``recv_counts[j]`` rows come back from each coordinate ``j``, in
+    coordinate order.  Every rank of the world calls it together (SPMD).
+    A rank whose share failed passes its ``error`` (``t`` is then
+    unused): it still joins the count exchange, and every rank raises
+    ``RuntimeError`` naming it.  Counted as ``all-to-all`` with its
+    result bytes.  On an axis of size 1 it is the identity (``error``
+    is raised)."""
+    n = mesh.shape[axis]
+    if n == 1:
+        if error is not None:
+            raise error
+        return t
+    send = [int(c) for c in send_counts]
+    recv = [int(c) for c in recv_counts]
+    if error is None:
+        try:
+            if t is None or t.dim() < 1:
+                raise ValueError("all_to_all_over moves the rows of a "
+                                 "tensor of one dimension or more")
+            if len(send) != n or len(recv) != n or min(send + recv) < 0:
+                raise ValueError(f"counts {send}, {recv} are not {n} "
+                                 f"non-negative entries")
+            if sum(send) != t.shape[0]:
+                raise ValueError(f"send counts {send} do not sum to the "
+                                 f"{t.shape[0]} rows")
+        except ValueError as exc:
+            error = exc
+    dev = exchange_device(mesh)
+    words = torch.tensor([0 if error is None else 1]
+                         + (send + recv if error is None else [0] * 2 * n),
+                         dtype=torch.int64, device=dev)
+
+    def transfer():
+        table = gather_over(words, None, mesh.world_size,
+                            stage=_stage_for(words, mesh),
+                            key="rows:counts").view(mesh.world_size, -1)
+        if bool(table[:, 0].any()):
+            gather_ragged_or_raise(torch.empty(0, dtype=torch.int64,
+                                               device=dev), mesh, what,
+                                   error)
+        why = _line_counts(table, mesh, axis)
+        if why is not None:
+            raise RuntimeError(f"{what} along {axis!r}: the counts do not "
+                               f"pair up ({why})")
+        return rows_over(t, mesh.axis_group(axis), send, recv,
+                         _stage_for(t, mesh), key=f"rows:{axis}")
+    return _counted(mesh, "all-to-all", t if t is not None else words,
+                    transfer)
 
 
 def exchange_device(mesh) -> torch.device:

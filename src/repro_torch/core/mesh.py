@@ -204,12 +204,20 @@ class ProcessMesh:
         return (self.rank,) if line is None else line[1]
 
     def staging(self, key: str, shape: Sequence[int],
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, grow: bool = False) -> torch.Tensor:
         """A host buffer named ``key`` of ``shape`` / ``dtype``, pinned
         when a card is present, kept for the next call of the same
-        key and geometry."""
+        key and geometry.  With ``grow`` (a flat ``shape``, whose size
+        changes from call to call) the kept buffer is replaced only by a
+        larger one, and a view of its first entries is returned."""
         shape = tuple(int(s) for s in shape)
         buf = self._staging.get(key)
+        if grow:
+            if buf is None or buf.numel() < shape[0] or buf.dtype != dtype:
+                buf = torch.empty(shape, dtype=dtype,
+                                  pin_memory=torch.cuda.is_available())
+                self._staging[key] = buf
+            return buf[:shape[0]]
         if buf is None or tuple(buf.shape) != shape or buf.dtype != dtype:
             buf = torch.empty(shape, dtype=dtype,
                               pin_memory=torch.cuda.is_available())

@@ -53,19 +53,35 @@ same step's arguments from the ``ShapeDtype`` records of
   reference's units (an op's result bytes).  They are not the
   reference's numbers, which are XLA's own choices on its mesh
   (``docs/ARCHITECTURE_TORCH.md`` gives the ratios).  With ``t`` tokens
-  a device holds per microbatch and ``a`` the compute dtype's bytes:
+  a device holds per microbatch and ``a`` the compute dtype's bytes; a
+  partial sum (every all-reduce below but the embedding's and the
+  float32 statistics of a softmax or a loss) crosses in float32, 4
+  bytes a value, and is rounded once to the compute dtype, as the ranks
+  run it (``models.layers.sum_partials``):
 
   - row-split denses: every dense weight whose contraction dimension is
     split over ``model`` (attention out, MLP down, Mamba's ``x_proj`` /
-    ``out_proj``, RG-LRU's ``out``, MoE ``w_down`` with FFN-split
-    experts) ends in an all-reduce over ``model`` of its ``[t, d_out]``
-    output (``t x top_k`` rows for the experts).  Training adds one for
-    the remat recompute (``remat`` with policy ``"full"``) and one in the
-    backward (the gradient entering each column-split group);
-  - expert-parallel MoE (experts split over ``model``): an all-to-all
-    each way (dispatch, combine) of ``[t x top_k, d]``, in each pass;
-  - the input embedding: an all-reduce of ``[t, d]`` where the vocab is
-    split, an all-gather where ``d_model`` is (Whisper);
+    ``out_proj``, RG-LRU's ``out``, the shared experts' and arctic's
+    dense residual's down) ends in an all-reduce over ``model`` of its
+    ``[t, d_out]`` output.  Training adds one for the remat recompute
+    (``remat`` with policy ``"full"``) and one in the backward (the
+    gradient entering each column-split group);
+  - FFN-split MoE (``w_down`` split over ``model`` on its hidden
+    dimension): the gated sum of every expert's partial output, one
+    all-reduce of ``[t, d]`` a pass (``models/layers._experts_on_ranks``);
+  - expert-parallel MoE (experts split over ``model``; ``k`` the axis):
+    each rank sends its ``ceil(t / k)`` tokens' ``top_k`` rows to their
+    experts' ranks and gets them back, an all-to-all each way whose
+    result holds, on the line's mean, ``[t x top_k / k, d]`` (every
+    (token, slot) row crosses once each way over the line; a rank's own
+    share follows the routing, so a run's counted all-to-all bytes equal
+    ``k`` times this term summed over each ``model`` line, and its calls
+    and every other term rank by rank: ``closed_form_mismatch``), then
+    one all-gather of the gated slices ``[k x ceil(t / k), d]``, in each
+    pass;
+  - the input embedding: an all-reduce of ``[t, d]`` in the compute
+    dtype where the vocab is split (one rank holds each token's row: the
+    sum is exact), an all-gather where ``d_model`` is (Whisper);
   - the head: with a vocab-split head, training all-reduces the loss's
     three float32 statistics ``[t]`` (max, sum of exponentials, the
     label's logit) and, in the backward, the ``[t, d]`` input gradient;
@@ -105,8 +121,12 @@ cache of ``cache_structs``' shapes at ``pos = seq_len - 1``.  On ranks
 calls ``lower_cell`` with the same arguments) a serving cell whose
 ``model`` axis equals the ranks': each rank runs exactly what one device
 of the cell's mesh runs, tensor-parallel where ``model`` is split (a
-dense transformer whose heads, KV heads, ``d_ff``, vocab and decode
-cache length the axis divides): its block of every parameter under
+``dense``, ``moe`` or ``vlm`` transformer whose every split the axis
+makes exact, ``_run_rule``; ``"model+data"`` experts only where the
+ranks' ``data`` axis is 1, so a rank holds ``n_experts / k`` whole
+experts, where a device of a cell mesh with a wider ``data`` axis holds
+their hidden dimension split over it, which no collective over
+``model`` sees): its block of every parameter under
 ``param_specs()``, drawn whole from the one-process model's generator
 leaf by leaf (``models.layers.draw``), its block of the cache (its rows,
 its sequence slots) and its share of the batch (the ranks' ``data``
@@ -133,8 +153,9 @@ and the run adds ``run_ranks`` (each rank's ``run_s``,
 (the slowest rank's host seconds inside collectives in a timed pass)
 and ``run_collective`` (each rank's ``ProcessMesh.tally`` of one timed
 pass, in the closed form's kinds and units, equal to
-``collective_executed``).  Four ranks that share one card run one after
-another on it, so their ``run_s`` is not what four cards would take.
+``collective_executed`` as ``closed_form_mismatch`` holds it).  Four
+ranks that share one card run one after another on it, so their
+``run_s`` is not what four cards would take.
 ``run_checks`` lists what held: every output finite; ``train``: every
 parameter changed; ``prefill``: logits ``[run_batch, vocab]`` (the
 rank's vocab block on ranks); ``decode``: each attention cache changed
@@ -142,8 +163,9 @@ at ``pos`` and nowhere else (the hybrid's rolling window at
 ``pos % window``; on ranks, on the rank whose slots hold ``pos``, every
 other rank's cache unchanged), a cross-attention cache not at all; on
 ranks also every all-reduced tensor of the warm-up byte-equal on the
-ranks of a ``model`` line (by ``collectives.digest``) and the gathered
-logits equal on every rank.  A failed check raises.
+ranks of a ``model`` line (by ``collectives.digest``), so is every MoE
+layer's routing (its experts and gates, ``Tally.route``), and the
+gathered logits equal on every rank.  A failed check raises.
 
   python -m repro_torch.launch.dryrun --all --out build/dryrun --device cpu
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
@@ -184,13 +206,16 @@ from .shapes import SHAPES, ShapeCell, cell_applicable
 
 __all__ = ["COLLECTIVE_KINDS", "shard_shape", "leaf_bytes",
            "step_arguments", "argument_bytes", "output_bytes",
-           "collective_closed_form", "run_cell", "lower_cell", "main"]
+           "collective_closed_form", "closed_form_mismatch", "run_cell",
+           "lower_cell", "main"]
 
 # the reference's collective kinds (``launch/hlo_analysis.py``), in order
 COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
                     "all-to-all", "collective-permute")
 # XLA's output tuple holds one 8-byte buffer pointer a leaf
 _TUPLE_ENTRY_BYTES = 8
+# a partial sum crosses in float32 (``models.layers.sum_partials``)
+_PARTIAL = 4
 # timed passes of a run, by default
 _RUN_REPS = 3
 # parameters a decode step never reads: LLaVA's projector (no patches in
@@ -389,26 +414,28 @@ class _Tally:
                 "total_bytes": int(sum(self.bytes.values()))}
 
 
-def _body_terms(recs, cfg, tokens: int, act: int, passes: int) -> _Tally:
+def _body_terms(recs, cfg, tokens: int, act: int, passes: int,
+                k: int) -> _Tally:
     """One body's model-axis collectives for ``tokens`` tokens, over
-    ``passes`` passes (module docstring); ``recs`` are the body's
-    parameter records, each with its spec."""
+    ``passes`` passes, on a ``model`` axis of ``k`` (module docstring);
+    ``recs`` are the body's parameter records, each with its spec."""
     out = _Tally()
     for path, rec in _leaves(recs):
         spec = _entries(rec.sharding.spec, len(rec.shape))
         if path[-1] == "w":
             if "model" in _axes(spec[-2]) and \
                     "model" not in _axes(spec[-1]):
-                out.add("all-reduce", tokens * rec.shape[-1] * act,
+                out.add("all-reduce", tokens * rec.shape[-1] * _PARTIAL,
                         times=passes)
         elif path[-1] == "w_down":
-            rows = tokens * max(cfg.top_k, 1)
+            d = rec.shape[-1]
             if "model" in _axes(spec[-3]):          # experts over model
-                out.add("all-to-all", rows * rec.shape[-1] * act, count=2,
+                out.add("all-to-all", tokens * cfg.top_k * d * act // k,
+                        count=2, times=passes)
+                out.add("all-gather", k * -(-tokens // k) * d * act,
                         times=passes)
-            elif "model" in _axes(spec[-2]):
-                out.add("all-reduce", rows * rec.shape[-1] * act,
-                        times=passes)
+            elif "model" in _axes(spec[-2]):        # FFN-split experts
+                out.add("all-reduce", tokens * d * _PARTIAL, times=passes)
     return out
 
 
@@ -423,7 +450,7 @@ def _decode_attention_terms(cfg, tokens: int, act: int) -> _Tally:
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out.add("all-gather", tokens * (h + 2 * kv) * hd * act)
     out.add("all-reduce", tokens * h * 4, count=2)
-    out.add("all-reduce", tokens * h * hd * act)
+    out.add("all-reduce", tokens * h * hd * _PARTIAL)
     return out
 
 
@@ -465,7 +492,8 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
                 continue
             tokens = b * cfg.enc_frames if key == "enc_blocks" else t_dec
             for r in (recs[key] if key == "tail" else [recs[key]]):
-                body = _body_terms(r, cfg, tokens, act, passes)
+                body = _body_terms(r, cfg, tokens, act, passes,
+                                   mesh.shape["model"])
                 if key == seq_split:
                     body.merge(_decode_attention_terms(cfg, tokens, act))
                 trips = 1 if key == "tail" else \
@@ -482,12 +510,12 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
         if _head_vocab_split(recs):
             if kind == "train":
                 head.add("all-reduce", t_dec * 4, count=3)
-                head.add("all-reduce", t_dec * d * act)
+                head.add("all-reduce", t_dec * d * _PARTIAL)
         else:
-            head.add("all-reduce", t_dec * v * act)
+            head.add("all-reduce", t_dec * v * _PARTIAL)
         if "vision_proj" in recs:
             w = recs["vision_proj"]["fc2"]["w"]
-            head.add("all-reduce", b * npatch * w.shape[-1] * act,
+            head.add("all-reduce", b * npatch * w.shape[-1] * _PARTIAL,
                      times=2 if kind == "train" else 1)
         flat.merge(head)
         executed.merge(head, nm)
@@ -537,9 +565,14 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
     batch).  On ranks (a ``ProcessMesh`` over ``data`` and ``model``):
     the ranks' ``model`` axis equal to the cell's, their ``data`` axis
     within the cell's batch blocks, a serving cell (prefill or decode),
-    and where ``model`` is split, a dense transformer whose heads, KV
-    heads, ``d_ff`` and vocab (and a decode's cache length) the axis
-    divides."""
+    and where ``model`` is split, a transformer (``dense``, ``moe``,
+    ``vlm``) whose every split the axis makes exact: heads, KV heads and
+    vocab; ``d_ff`` where a dense MLP runs; ``d_model`` for LLaVA's
+    projector; ``moe_d_ff`` and the shared experts' ``n_shared_experts x
+    moe_d_ff`` for FFN-split experts, ``n_experts`` for experts over
+    ``model``; a decode's cache length.  Not on ranks: capacity dispatch
+    (``moe_capacity``) and ``"model+data"`` experts where the ranks'
+    ``data`` axis is over 1."""
     model = mesh.shape.get("model", 1)
     if ranks is None:
         if model != 1:
@@ -560,14 +593,34 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
                 "over data) is not ported")
     if model == 1:
         return None
-    if cfg.family != "dense":
-        return (f"family {cfg.family!r}: only the dense transformer runs "
-                f"tensor-parallel on ranks")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        return (f"family {cfg.family!r}: only the transformer families "
+                f"(dense, moe, vlm) run tensor-parallel on ranks")
     if shape.name.startswith("long"):
         return ("a long-context decode splits its cache over (data, model):"
                 " not ported on ranks")
     sizes = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-             ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)]
+             ("vocab", cfg.vocab)]
+    if cfg.family != "moe" or cfg.dense_residual:
+        sizes.append(("d_ff", cfg.d_ff))
+    if cfg.family == "vlm":
+        sizes.append(("d_model", cfg.d_model))
+    if cfg.family == "moe":
+        if cfg.moe_capacity:
+            return ("capacity dispatch (moe_capacity) on ranks: its arrival "
+                    "order runs over every token, not ported")
+        if cfg.expert_sharding == "model+data" and ranks.shape["data"] > 1:
+            return (f"expert_sharding 'model+data' with the ranks' data "
+                    f"axis {ranks.shape['data']} > 1: the expert weights "
+                    f"would split over the axis that also splits the "
+                    f"tokens, not ported")
+        if cfg.expert_sharding.startswith("model"):
+            sizes.append(("n_experts", cfg.n_experts))
+        else:
+            sizes.append(("moe_d_ff", cfg.moe_d_ff))
+        if cfg.n_shared_experts:
+            sizes.append(("n_shared_experts x moe_d_ff",
+                          cfg.n_shared_experts * cfg.moe_d_ff))
     if shape.kind == "decode":
         sizes.append(("seq_len", shape.seq_len))
     for name, size in sizes:
@@ -641,6 +694,35 @@ def _same_on(words: List[int], ranks, axis: Optional[str] = None) -> bool:
     peers = (range(ranks.world_size) if axis is None
              else ranks.axis_ranks(axis))
     return all(torch.equal(parts[k].cpu(), mine.cpu()) for k in peers)
+
+
+def closed_form_mismatch(counted: Sequence[Dict[str, Any]],
+                         executed: Dict[str, Any],
+                         dims: Sequence[int]) -> Optional[str]:
+    """Where a run's counted collectives (``run_collective``: each rank's
+    tally, in rank order, on ranks of ``(data, model)`` shape ``dims``)
+    part from the closed form's ``collective_executed``, or ``None``:
+    every rank's calls of every kind and bytes of every kind but
+    ``all-to-all`` are the closed form's; the all-to-all bytes, which
+    follow the routing rank by rank, sum over each ``model`` line to
+    ``model`` times the closed form's (module docstring)."""
+    k = dims[-1]
+    for rank, got in enumerate(counted):
+        if got["counts"] != executed["counts"]:
+            return (f"rank {rank} counted calls {got['counts']}, the closed "
+                    f"form {executed['counts']}")
+        for kind, nbytes in got["bytes"].items():
+            if kind != "all-to-all" and nbytes != executed["bytes"][kind]:
+                return (f"rank {rank} counted {nbytes} B of {kind}, the "
+                        f"closed form {executed['bytes'][kind]} B")
+    want = k * executed["bytes"]["all-to-all"]
+    for lo in range(0, len(counted), k):
+        line = [c["bytes"]["all-to-all"] for c in counted[lo:lo + k]]
+        if sum(line) != want:
+            return (f"ranks {lo}-{lo + k - 1} counted {line} B of "
+                    f"all-to-all ({sum(line)} B), the closed form {k} x "
+                    f"{executed['bytes']['all-to-all']} B")
+    return None
 
 
 def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
@@ -786,6 +868,7 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
     with FlopCounterMode(display=False) as counter:
         one()                                      # the untimed warm-up
     digests = [w for d in tally.digests for w in d]
+    routes = [w for d in tally.routes for w in d]
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -803,6 +886,7 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         if whole is not None:
             whole = whole_logits(whole, ranks)
         lines_agree = _same_on(digests, ranks, "model")
+        routes_agree = _same_on(routes, ranks, "model")
         logits_agree = whole is None or _same_on(list(coll.digest(whole)),
                                                  ranks)
 
@@ -813,11 +897,17 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         if not lines_agree:
             raise AssertionError("run: an all-reduced tensor differs "
                                  "between the ranks of a model line")
+        if not routes_agree:
+            raise AssertionError("run: a MoE layer's routing differs "
+                                 "between the ranks of a model line")
         if not logits_agree:
             raise AssertionError("run: the gathered logits differ between "
                                  "ranks")
         checks.append(f"{len(digests) // 2} all-reduced tensors equal on "
                       f"every rank of a model line")
+        if routes:
+            checks.append(f"{len(routes) // 4} routings (experts, gates) "
+                          f"equal on every rank of a model line")
         if whole is not None:
             checks.append("gathered logits equal on every rank")
 

@@ -31,16 +31,31 @@ Counterpart of ``repro/models/layers.py``.  Conventions:
 rank's ``ProcessMesh`` into the layers, which then run that rank's share
 of a tensor-parallel step (``distributed_lm.sharding.to_rank_widths``
 gives a model its blocks).  There, ``dense_apply`` sums a row-split
-weight's partial product over ``model`` (``collectives.all_reduce_sum``),
+weight's partial product over ``model`` (``sum_partials``: the partials
+cross in float32 and the sum is rounded once to the compute dtype, as
+one process rounds its whole product once; bf16 partials summed in bf16
+over four ranks round three more times, which parts a bf16 run from the
+reference past ``_BF16_TOL`` and flips near-tied router choices),
 ``attention_apply`` attends with the rank's own query and KV heads, and
 ``attention_decode`` runs against the rank's slots of a cache whose
 sequence is split over ``model``: every head's new q / k / v gathered
 over ``model``, the new K/V written by the rank whose slots hold ``pos``,
 the softmax combined across the ranks exactly from the all-reduced max
 and sum, the weighted values summed, then the rank's heads through its
-row-split ``wo``.  The reference's ``constrain`` has nothing to
-constrain here; ``gqa_repeat`` keeps its numerics (K/V broadcast to
-every head) and ``act_shard`` is inert.
+row-split ``wo``.  ``moe_apply`` routes every token on every rank (the
+router is replicated and reads the all-reduced residual, so a ``model``
+line computes the same experts and gates; ``Tally.route`` keeps their
+digests), then runs the experts by the layout of ``moe_specs``: FFN-split
+(``"ffn"``) dispatches every expert densely on the rank's slice of the
+expert hidden dimension and all-reduces the gated partial sum over
+``model``; expert-parallel (``"model"``, or ``"model+data"`` where the
+ranks' ``data`` axis is 1: a rank holds ``n_experts / k`` whole experts)
+takes the rank's ``ceil(t / k)`` tokens, sends each (token, slot) row to
+the rank of its expert and back (``collectives.all_to_all_over``), gates
+the returned rows and all-gathers the slices over ``model``.  The
+reference's ``constrain`` has nothing to constrain here; ``gqa_repeat``
+keeps its numerics (K/V broadcast to every head) and ``act_shard`` is
+inert.
 """
 from __future__ import annotations
 
@@ -68,7 +83,7 @@ __all__ = [
     "cross_entropy_loss", "remat_policy", "remat", "stacked_specs",
     "map_specs",
     "linear_scan", "causal_conv", "torch_dtype", "sharding_mesh",
-    "current_mesh", "draw",
+    "current_mesh", "draw", "sum_partials",
 ]
 
 
@@ -156,6 +171,13 @@ def draw(p: torch.Tensor, fill: Callable[[torch.Tensor], object]) -> None:
     fill(whole)
     p.copy_(whole[block])
     del whole
+
+
+def sum_partials(y: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial products ``y`` (one
+    ``collectives.all_reduce_sum``), taken in float32 and rounded once to
+    ``y``'s dtype."""
+    return coll.all_reduce_sum(y.float(), mesh, axis).to(y.dtype)
 
 
 def _f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor
@@ -266,7 +288,7 @@ def dense_apply(p: Dense, x: torch.Tensor) -> torch.Tensor:
         if mesh is None:
             raise RuntimeError("a row-split Dense block runs only inside "
                                "sharding_mesh(its ranks)")
-        y = coll.all_reduce_sum(y, mesh, p.reduce_over)
+        y = sum_partials(y, mesh, p.reduce_over)
     if hasattr(p, "b"):
         y = y + p.b.to(x.dtype)
     return y
@@ -529,7 +551,8 @@ def _decode_on_ranks(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     The collectives, over ``model``: one all-gather of the new q, k and v
     (every head), an all-reduce max of the scores' rows ``[b, h]`` and an
     all-reduce sum of their exponentials ``[b, h]`` (float32), an
-    all-reduce sum of the weighted values ``[b, h, hd]``, and ``wo``'s.
+    all-reduce sum of the weighted values ``[b, h, hd]`` (``sum_partials``,
+    float32), and ``wo``'s.
     The softmax is the reference's exactly (``exp(s - max) / sum``, then
     cast to the compute dtype before the values), over every rank's
     slots; a rank whose slots all lie past ``pos`` contributes zeros
@@ -561,7 +584,7 @@ def _decode_on_ranks(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     total = coll.all_reduce_sum(e.sum(dim=-1), mesh, axis)
     w = (e / total[..., None]).to(q.dtype)
     part = torch.einsum("bkrqs,bskh->bqkrh", w, cache_v.to(x.dtype))
-    out = coll.all_reduce_sum(part, mesh, axis).reshape(b, 1, kv * n_rep, hd)
+    out = sum_partials(part, mesh, axis).reshape(b, 1, kv * n_rep, hd)
     mine = out[:, :, r * hq:(r + 1) * hq].reshape(b, 1, hq * hd)
     return dense_apply(p.wo, mine), cache_k, cache_v
 
@@ -676,7 +699,9 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
     * capacity (``cfg.moe_capacity``): Switch-style [E, cap, d] with
       cap = ⌈top_k·t·capacity_factor/E⌉; overflow tokens drop.
 
-    Returns (out, aux_loss)."""
+    Inside ``sharding_mesh`` with a ``model`` axis over 1 the experts
+    run split (module docstring; ``_experts_on_ranks``).  Returns (out,
+    aux_loss)."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -692,9 +717,13 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
     aux = (density * density_proxy).sum() * (cfg.n_experts ** 2) \
         * cfg.router_aux_weight / cfg.top_k
 
-    w_gate, w_up = p.w_gate.to(x.dtype), p.w_up.to(x.dtype)
-    w_down = p.w_down.to(x.dtype)
-    if cfg.moe_capacity:
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        mesh.tally.route(idx, gate_vals)
+        out = _experts_on_ranks(p, cfg, xt, idx, gate_vals, onehot, mesh)
+    elif cfg.moe_capacity:
+        w_gate, w_up = p.w_gate.to(x.dtype), p.w_up.to(x.dtype)
+        w_down = p.w_down.to(x.dtype)
         cap = max(int(np.ceil(cfg.top_k * t * cfg.capacity_factor
                               / cfg.n_experts)), 1)
         flat = onehot.reshape(t * cfg.top_k, cfg.n_experts)     # slot-major
@@ -711,19 +740,119 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
         ye = torch.einsum("ecf,efd->ecd", hg * hu, w_down)
         out = torch.einsum("tkec,ecd->td", comb, ye)
     else:
-        combine = (onehot * gate_vals[..., None].to(x.dtype)).sum(1)
-        dispatch = (onehot.sum(1) > 0).to(x.dtype)              # [t, E]
-        xin = torch.einsum("te,td->etd", dispatch, xt)
-        hg = F.silu(torch.einsum("etd,edf->etf", xin, w_gate))
-        hu = torch.einsum("etd,edf->etf", xin, w_up)
-        ye = torch.einsum("etf,efd->etd", hg * hu, w_down)
-        out = torch.einsum("etd,te->td", ye, combine)
+        out = _dense_dispatch(p, xt, gate_vals, onehot)
 
     if hasattr(p, "shared"):
         out = out + mlp_apply(p.shared, xt)
     if hasattr(p, "dense"):
         out = out + mlp_apply(p.dense, xt)
     return out.reshape(b, s, d), aux.float()
+
+
+def _dense_dispatch(p: MoE, xt: torch.Tensor, gate_vals: torch.Tensor,
+                    onehot: torch.Tensor) -> torch.Tensor:
+    """The dense dispatch: every expert on every token ([E, t, d]
+    inputs), combined with the gates into ``[t, d]``."""
+    dt = xt.dtype
+    combine = (onehot * gate_vals[..., None].to(dt)).sum(1)    # [t, E]
+    dispatch = (onehot.sum(1) > 0).to(dt)
+    xin = torch.einsum("te,td->etd", dispatch, xt)
+    hg = F.silu(torch.einsum("etd,edf->etf", xin, p.w_gate.to(dt)))
+    hu = torch.einsum("etd,edf->etf", xin, p.w_up.to(dt))
+    ye = torch.einsum("etf,efd->etd", hg * hu, p.w_down.to(dt))
+    return torch.einsum("etd,te->td", ye, combine)
+
+
+def _experts_on_ranks(p: MoE, cfg: ArchConfig, xt: torch.Tensor,
+                      idx: torch.Tensor, gate_vals: torch.Tensor,
+                      onehot: torch.Tensor, mesh) -> torch.Tensor:
+    """The routed experts' ``[t, d]`` output on a rank whose blocks of
+    ``w_gate`` / ``w_up`` / ``w_down`` ``to_rank_widths`` cut by
+    ``moe_specs``: FFN-split (the rank's ``moe_d_ff / k`` hidden slice
+    of every expert) or expert-parallel (the rank's ``n_experts / k``
+    whole experts).  The collectives are over ``model`` (module
+    docstring)."""
+    e, f = cfg.n_experts, cfg.moe_d_ff
+    k = mesh.shape["model"]
+    held_e, _, held_f = p.w_gate.shape
+    if cfg.moe_capacity:
+        raise NotImplementedError("capacity dispatch on ranks (arrival "
+                                  "order over every token) is not ported")
+    if (held_e, held_f) == (e, f // k) and f % k == 0:
+        # the gated sum over the rank's f / k hidden units only
+        part = _dense_dispatch(p, xt, gate_vals, onehot)
+        return sum_partials(part, mesh, "model")
+    if (held_e, held_f) == (e // k, f) and e % k == 0:
+        return _expert_parallel(p, cfg, xt, idx, gate_vals, mesh)
+    raise NotImplementedError(
+        f"expert blocks [{held_e}, *, {held_f}] of [{e}, *, {f}] over a "
+        f"model axis of {k}: neither the FFN split nor whole experts a "
+        f"rank")
+
+
+def _expert_rows(p: MoE, rows: torch.Tensor, experts: torch.Tensor
+                 ) -> torch.Tensor:
+    """Each row of ``rows`` through the rank's expert ``experts[i]`` (its
+    local index): the SwiGLU of the dense dispatch, on the rows an
+    expert received only (none is a normal case)."""
+    out = torch.zeros_like(rows)
+    for j in torch.unique(experts).tolist():
+        sel = torch.nonzero(experts == j).squeeze(1)
+        xr = rows[sel]
+        h = F.silu(xr @ p.w_gate[j].to(rows.dtype)) \
+            * (xr @ p.w_up[j].to(rows.dtype))
+        out[sel] = h @ p.w_down[j].to(rows.dtype)
+    return out
+
+
+def _expert_parallel(p: MoE, cfg: ArchConfig, xt: torch.Tensor,
+                     idx: torch.Tensor, gate_vals: torch.Tensor,
+                     mesh) -> torch.Tensor:
+    """Expert-parallel dispatch by token on a rank holding experts
+    ``[r * E / k, (r + 1) * E / k)``: its ``ceil(t / k)`` tokens'
+    (token, slot) rows, sorted by destination rank, go to their experts'
+    ranks by one ``all_to_all_over`` and come back by another; every
+    rank derives what it receives from the routing the line shares.
+    The rows it receives run through its experts (``_expert_rows``); a
+    rank whose expert step fails still joins the return exchange, so
+    every rank raises.  The returned rows are gated and summed a token,
+    and the slices all-gathered over ``model`` (padded to ``ceil(t /
+    k)`` rows a rank) back to the replicated ``[t, d]``."""
+    t, d = xt.shape
+    k, r = mesh.shape["model"], mesh.axis_index("model")
+    top = cfg.top_k
+    local = cfg.n_experts // k
+    c = -(-t // k)
+    owner = idx // local                                    # [t, top]
+    lo, hi = min(r * c, t), min((r + 1) * c, t)
+    dest = owner[lo:hi].reshape(-1)                         # token-major
+    order = torch.argsort(dest, stable=True)
+    send_counts = torch.bincount(dest, minlength=k).tolist()
+    rows = xt[lo:hi].repeat_interleave(top, dim=0)[order]
+    # what each coordinate j sends this rank: its slice's rows bound here
+    recv_counts, experts = [], []
+    for j in range(k):
+        mine = idx[min(j * c, t):min((j + 1) * c, t)].reshape(-1)
+        bound = mine[mine // local == r] - r * local
+        recv_counts.append(int(bound.numel()))
+        experts.append(bound)
+    got = coll.all_to_all_over(rows, mesh, "model", send_counts,
+                               recv_counts, what="the expert dispatch")
+    error, done = None, None
+    try:
+        done = _expert_rows(p, got, torch.cat(experts))
+    except Exception as exc:            # every rank must hear of it
+        error = exc
+    back = coll.all_to_all_over(done, mesh, "model", recv_counts,
+                                send_counts, error=error,
+                                what="the expert step")
+    ys = torch.empty_like(back)
+    ys[order] = back                                        # token-major
+    ys = ys.reshape(hi - lo, top, d)
+    mine = torch.einsum("tkd,tk->td", ys, gate_vals[lo:hi].to(xt.dtype))
+    pad = torch.zeros((c, d), dtype=xt.dtype, device=xt.device)
+    pad[:hi - lo] = mine
+    return coll.all_gather_panel(pad, mesh, "model", dim=0)[:t]
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,15 @@ so that they equal the one-process model's, and ``apply`` /
 ``decode_step`` run inside ``layers.sharding_mesh(ranks)``: the
 vocab-split embedding's rows outside the rank's range give zeros, then
 one all-reduce sum over ``model`` (exact in any dtype); the row-split
-denses sum over ``model``; the head leaves the logits vocab-split, the
-rank's block ``[..., vocab / k]``, as the reference's step returns them;
-the cache is the rank's block (its batch rows over ``data``, its
-sequence slots over ``model``).
+denses sum over ``model``; a MoE block's experts run FFN-split or
+expert-parallel (``layers.moe_apply``); LLaVA's projector runs its
+column-split ``fc1`` (the bias block with it) and its row-split ``fc2``
+(summed, then its whole bias), and the replicated patch embeddings are
+prepended to the all-reduced text embedding, so every rank holds the
+whole ``[patches + tokens]`` stream; the head leaves the logits
+vocab-split, the rank's block ``[..., vocab / k]``, as the reference's
+step returns them; the cache is the rank's block (its batch rows over
+``data``, its sequence slots over ``model``).
 """
 from __future__ import annotations
 

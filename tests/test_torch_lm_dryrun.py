@@ -220,12 +220,14 @@ def _tally(**kinds):
 
 
 def _hand_counted(kind):
-    layers, d, a = 2, 64, 2
+    # partial sums cross in float32 (4 bytes), the embedding's exact sum
+    # in bf16 (2)
+    layers, d, a, f = 2, 64, 2, 4
     if kind == "train":
         t = 256 // 2 * 4096            # tokens a device holds (data 2)
-        ar = t * d * a                 # one [t, d] bf16 all-reduce
+        ar = t * d * f                 # one [t, d] partial-sum all-reduce
         body = 2 * 3                   # wo + down; forward, remat, backward
-        head = [ar, 3 * t * 4, ar]     # embed; loss statistics; input grad
+        head = [t * d * a, 3 * t * 4, ar]  # embed; loss stats; input grad
         # every leaf is ZeRO-1-split over data: reduce-scatter to its
         # moment's float32 shard, all-gather of its own float32 shard
         # (embed, ln_f, ln1, wq, wk, wv, wo, q_norm, k_norm, ln2, gate,
@@ -243,23 +245,23 @@ def _hand_counted(kind):
                           all_gather=(sum(ag), 14))
         return flat, executed
     t = 32 // 2 * 32768 if kind == "prefill" else 128 // 2
-    ar = t * d * a
+    ar, emb = t * d * f, t * d * a
     if kind == "prefill":
         # wo + down a layer, the vocab-split embedding; the vocab-split
         # logits stay split (the step's result)
-        return (_tally(all_reduce=(3 * ar, 3)),
-                _tally(all_reduce=((2 * layers + 1) * ar, 2 * layers + 1)))
+        return (_tally(all_reduce=(2 * ar + emb, 3)),
+                _tally(all_reduce=(2 * layers * ar + emb, 2 * layers + 1)))
     # decode against a cache whose sequence is split over model, each
     # layer: the new q (4 heads), k and v (2 KV heads each) of 16 gathered
     # over model, 64 x 8 x 16 bf16; the scores' max and exponentials' sum,
-    # 64 x 4 float32 each; the weighted values, 64 x 4 x 16 bf16; then wo
-    # and down; and the embedding once
+    # 64 x 4 float32 each; the weighted values, 64 x 4 x 16 float32; then
+    # wo and down; and the embedding once
     qkv = t * (4 + 2 + 2) * 16 * a
-    stats, values = t * 4 * 4, t * 4 * 16 * a
+    stats, values = t * 4 * 4, t * 4 * 16 * f
     body = 2 * ar + 2 * stats + values
-    return (_tally(all_gather=(qkv, 1), all_reduce=(body + ar, 6)),
+    return (_tally(all_gather=(qkv, 1), all_reduce=(body + emb, 6)),
             _tally(all_gather=(layers * qkv, layers),
-                   all_reduce=(layers * body + ar, layers * 5 + 1)))
+                   all_reduce=(layers * body + emb, layers * 5 + 1)))
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
@@ -268,6 +270,56 @@ def test_collectives_equal_the_hand_count(shape):
                             overrides=_overrides("qwen3-1.7b"),
                             device="cpu")
     flat, executed = _hand_counted(SHAPES[shape].kind)
+    assert rec["collective"] == flat
+    assert rec["collective_executed"] == executed
+
+
+def _moe_hand_counted(layout, kind):
+    """The MoE terms on the 2-layer smoke models on 2 x 2 (``k`` = 2, d
+    64, top 2, bf16): qwen2-moe FFN-split (``wo``, the experts' gated
+    partial sum and the shared experts' ``down``, a ``[t, d]`` float32
+    all-reduce each), arctic expert-parallel (``wo`` and the dense
+    residual's ``down``; the all-to-all each way of the line's mean
+    ``[t x 2 / 2, d]``, the all-gather of ``[2 x ceil(t / 2), d]``, in
+    bf16)."""
+    layers, d, a, f, k = 2, 64, 2, 4, 2
+    t = 32 // 2 * 32768 if kind == "prefill" else 128 // 2
+    ar, emb = t * d * f, t * d * a
+    flat_ag, a2a = 0, 0
+    if layout == "ffn":
+        flat_ar = 3 * ar
+    else:
+        flat_ar = 2 * ar
+        a2a = t * 2 * d * a // k
+        flat_ag = k * -(-t // k) * d * a
+    ag_count = 0 if layout == "ffn" else 1
+    if kind == "decode":
+        # the sequence-split cache's attention terms (4 heads, 4 or 2 KV
+        # heads of 16)
+        kv = 4 if layout == "ffn" else 2
+        flat_ag += t * (4 + 2 * kv) * 16 * a
+        ag_count += 1
+        flat_ar += 2 * t * 4 * 4 + t * 4 * 16 * f
+    n_ar = (3 if layout == "ffn" else 2) + (3 if kind == "decode" else 0)
+    flat = _tally(all_reduce=(flat_ar + emb, n_ar + 1),
+                  all_gather=(flat_ag, ag_count),
+                  all_to_all=(2 * a2a, 2 if a2a else 0))
+    executed = _tally(all_reduce=(layers * flat_ar + emb,
+                                  layers * n_ar + 1),
+                      all_gather=(layers * flat_ag, layers * ag_count),
+                      all_to_all=(layers * 2 * a2a,
+                                  layers * 2 if a2a else 0))
+    return flat, executed
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch,layout", [("qwen2-moe-a2.7b", "ffn"),
+                                         ("arctic-480b", "model")])
+def test_moe_collectives_equal_the_hand_count(arch, layout, kind):
+    over = dict(_overrides(arch), expert_sharding=layout)
+    rec = dryrun.lower_cell(arch, f"{kind}_32k", mesh_shape=(2, 2),
+                            overrides=over, device="cpu")
+    flat, executed = _moe_hand_counted(layout, kind)
     assert rec["collective"] == flat
     assert rec["collective_executed"] == executed
 
@@ -455,13 +507,36 @@ _SMOKE = get_smoke_config("qwen3-1.7b")
     ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4, vocab=250),
      "prefill", "does not divide vocab 250"),
     ((8, 2), (2, 2), _SMOKE, "train", "training on ranks"),
-    ((8, 2), (2, 2), get_smoke_config("qwen2-moe-a2.7b"), "decode",
-     "only the dense transformer"),
+    ((8, 2), (2, 2), dataclasses.replace(
+        get_smoke_config("qwen2-moe-a2.7b"), moe_capacity=True), "decode",
+     "capacity dispatch (moe_capacity) on ranks"),
     ((1, 2), (2, 2), _SMOKE, "decode", "data axis 2 exceeds the cell's 1"),
     ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4), "decode62",
      "does not divide seq_len 62"),
+    ((8, 2), (2, 2), dataclasses.replace(
+        get_smoke_config("arctic-480b"), expert_sharding="model+data"),
+     "prefill", "expert_sharding 'model+data' with the ranks' data axis 2"),
+    ((8, 4), (1, 4), dataclasses.replace(
+        get_smoke_config("arctic-480b"), expert_sharding="model",
+        n_kv_heads=4, n_experts=6), "decode", "does not divide n_experts 6"),
+    ((8, 4), (1, 4), dataclasses.replace(
+        get_smoke_config("qwen2-moe-a2.7b"), moe_d_ff=66), "prefill",
+     "does not divide moe_d_ff 66"),
+    ((8, 4), (1, 4), dataclasses.replace(
+        get_smoke_config("qwen2-moe-a2.7b"), expert_sharding="model",
+        moe_d_ff=66), "prefill",
+     "does not divide n_shared_experts x moe_d_ff 66"),
+    ((8, 4), (1, 4), dataclasses.replace(
+        get_smoke_config("arctic-480b"), expert_sharding="model",
+        n_kv_heads=4, d_ff=98), "prefill", "does not divide d_ff 98"),
+    ((8, 4), (1, 4), dataclasses.replace(
+        get_smoke_config("llava-next-mistral-7b"), n_kv_heads=4,
+        d_model=66), "prefill", "does not divide d_model 66"),
+    ((8, 2), (2, 2), get_smoke_config("falcon-mamba-7b"), "decode",
+     "only the transformer families (dense, moe, vlm)"),
 ], ids=["production-mesh", "kv-heads", "d_ff", "vocab", "train", "moe",
-        "data-rows", "seq_len"])
+        "data-rows", "seq_len", "model+data-on-data-2", "n_experts",
+        "moe_d_ff", "shared-experts", "dense-residual", "projector", "ssm"])
 def test_the_run_rule_says_why_a_cell_cannot_run_on_ranks(case):
     mesh_shape, ranks, cfg, kind, why = case
     mesh = (dryrun.make_production_mesh(device="cpu") if mesh_shape is None
@@ -479,6 +554,23 @@ def test_the_run_rule_takes_a_dense_split_cell_on_matching_ranks():
                                 _Ranks((2, 2))) is None
         assert "on ranks only" in dryrun._run_rule(mesh, _SMOKE,
                                                    SMALL[kind])
+
+
+@pytest.mark.parametrize("arch,over,ranks", [
+    ("qwen2-moe-a2.7b", {}, (2, 2)),
+    ("arctic-480b", {"expert_sharding": "model+data"}, (1, 2)),
+    ("arctic-480b", {"expert_sharding": "model"}, (2, 2)),
+    ("llava-next-mistral-7b", {}, (2, 2))],
+    ids=["ffn", "model+data", "model", "vlm"])
+def test_the_run_rule_takes_moe_and_vlm_split_cells(arch, over, ranks):
+    """FFN-split and expert-parallel experts (``"model+data"`` on ranks
+    whose data axis is 1) and LLaVA split exactly on two-wide ``model``
+    lines."""
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    mesh = dryrun.make_mesh((8, 2), ("data", "model"), device="cpu")
+    for kind in ("prefill", "decode"):
+        assert dryrun._run_rule(mesh, cfg, SMALL[kind],
+                                _Ranks(ranks)) is None
 
 
 def test_a_cell_the_ranks_cannot_split_records_why_and_runs_nothing():
@@ -527,6 +619,42 @@ def test_leaf_spec_drops_the_layer_axis_of_a_stacked_group():
     assert tuple(leaf_spec(specs, "embed")) == ("model", None)
     assert tuple(leaf_spec(specs, "lm_head.w")) == (None, "model")
     assert tuple(leaf_spec(specs, "blocks.0.ln1.scale")) == (None,)
+
+
+@pytest.mark.parametrize("layout,w_gate,w_down,blocks", [
+    ("ffn", (None, None, "model"), (None, "model", None),
+     [(8, 64, 32), (8, 32, 64)]),
+    ("model", ("model", None, None), ("model", None, None),
+     [(4, 64, 64), (4, 64, 64)]),
+    ("model+data", ("model", None, "data"), ("model", "data", None),
+     [(4, 64, 64), (4, 64, 64)])])
+def test_expert_and_projector_leaves_take_their_rank_blocks(layout, w_gate,
+                                                           w_down, blocks):
+    """The 3-D expert leaves and LLaVA's projector under ``leaf_spec``
+    and ``block_slices`` on a (data, model) = (1, 2) rank: FFN-split
+    experts keep every expert and half its hidden units, experts over
+    ``model`` (and over ``model`` and a ``data`` axis of 1) half the
+    experts whole."""
+    from repro_torch.distributed_lm.sharding import block_slices, leaf_spec
+    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                              expert_sharding=layout)
+    specs = dryrun.build_model(cfg, device="meta").param_specs()
+    assert tuple(leaf_spec(specs, "blocks.1.moe.w_gate")) == w_gate
+    assert tuple(leaf_spec(specs, "blocks.0.moe.w_down")) == w_down
+    assert tuple(leaf_spec(specs, "blocks.0.moe.router.w")) == (None, None)
+    assert tuple(leaf_spec(specs, "blocks.0.moe.shared.down.w")) == \
+        ("model", None)
+    rank = _Ranks((1, 2), coords=(0, 1))
+    for key, shape, want in (("blocks.0.moe.w_gate", (8, 64, 64), blocks[0]),
+                             ("blocks.0.moe.w_down", (8, 64, 64), blocks[1])):
+        got = block_slices(shape, leaf_spec(specs, key), rank)
+        assert tuple(s.stop - s.start for s in got) == want, key
+    vlm = dryrun.build_model(get_smoke_config("llava-next-mistral-7b"),
+                             device="meta").param_specs()
+    assert tuple(leaf_spec(vlm, "vision_proj.fc1.w")) == (None, "model")
+    assert tuple(leaf_spec(vlm, "vision_proj.fc1.b")) == ("model",)
+    assert tuple(leaf_spec(vlm, "vision_proj.fc2.w")) == ("model", None)
+    assert tuple(leaf_spec(vlm, "vision_proj.fc2.b")) == (None,)
 
 
 def test_no_device_means_cuda_and_raises_without_one(capsys):

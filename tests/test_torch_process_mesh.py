@@ -45,6 +45,7 @@ import torch
 import repro_torch.core.distributed as dist
 import repro_torch.serve.rank_stream as rs
 from repro_torch import api as port_api
+from repro_torch import configs as port_configs
 from repro_torch.api import random_hypergraph
 from repro_torch.core import collectives as coll
 from repro_torch.core.mesh import (LogicalMesh, ProcessMesh, make_mesh,
@@ -585,6 +586,10 @@ def test_an_axis_of_size_one_is_the_identity():
     assert coll.all_reduce_max(t, mesh, "data") is t
     assert coll.all_reduce_min(t, mesh, "data") is t
     assert coll.all_reduce_sum(t, mesh, "data") is t
+    assert coll.all_to_all_over(t, mesh, "data", [2], [2]) is t
+    with pytest.raises(ValueError, match="planted"):
+        coll.all_to_all_over(t, mesh, "data", [2], [2],
+                             error=ValueError("planted"))
 
 
 def test_a_tally_counts_by_kind_in_result_bytes():
@@ -958,14 +963,20 @@ def test_rank_store_writes_come_from_rank_zero_alone(worlds):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel serving of the dense LM
+# tensor-parallel serving of the transformer LMs: the dense cases (keys
+# 2x2, 1x4) and the MoE and VLM families (u.FAMILY_CASES)
 # ---------------------------------------------------------------------------
 
-_LM_GRIDS = [grid for grid, _ in u.LM_CASES]
-_LM_IDS = [u.lm_key(grid) for grid in _LM_GRIDS]
+_LM_KEYS = [key for key, _, _, _ in u.LM_ALL]
+_MOE_KEYS = [key for key, arch, _, _ in u.FAMILY_CASES
+             if port_configs.get_smoke_config(arch).family == "moe"]
 _LM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),   # tests/test_models.py:165
            "bfloat16": dict(rtol=5e-2, atol=5e-2)}  # test_torch_models._BF16_TOL
 _LM_STEPS = ["prefill"] + [f"decode{i}" for i in range(len(u.LM_DECODE_POS))]
+
+
+def _grid(key):
+    return u.lm_case(key)[1]
 
 
 def _lm_block(whole, grid, coords, seq_dim):
@@ -982,99 +993,239 @@ def _lm_block(whole, grid, coords, seq_dim):
     return out
 
 
+def _routes(arrays, tag, step):
+    """A run's chosen experts of ``step``, a layer each, ``[t, top_k]``
+    sorted along the slots."""
+    out, layer = [], 0
+    while f"{tag}/route/{step}/{layer}" in arrays:
+        out.append(np.sort(arrays[f"{tag}/route/{step}/{layer}"], axis=-1))
+        layer += 1
+    return out
+
+
+def _rows_routed_as_the_reference(worlds, key, dtype, step):
+    """The batch rows whose every token took the reference's experts in
+    every MoE layer of ``step`` and of the decode steps before it (the
+    cache carries their K/V): each rank routes its own data rows (the
+    tokens of a row are consecutive)."""
+    ref, _ = worlds["reference"]
+    tag = f"lm/{key}/{dtype}"
+    steps = [step] if step == "prefill" else \
+        [f"decode{i}" for i in range(int(step[len("decode"):]) + 1)]
+    clean = np.ones(u.LM_BATCH, bool)
+    grid = _grid(key)
+    per = u.LM_BATCH // grid[0]
+    for rank, (arrays, _) in enumerate(worlds["ranks"]):
+        i, j = _coords(rank, grid)
+        if j:
+            continue
+        rows = slice(i * per, (i + 1) * per)
+        for st in steps:
+            want = _routes(ref, tag, st)
+            got = _routes(arrays, tag, st)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                w = w.reshape(u.LM_BATCH, -1, w.shape[-1])[rows]
+                flips = (g.reshape(w.shape) != w).any(axis=(1, 2))
+                clean[rows] &= ~flips
+    return clean
+
+
 @pytest.mark.parametrize("dtype", u.LM_DTYPES)
-@pytest.mark.parametrize("grid", _LM_GRIDS, ids=_LM_IDS)
+@pytest.mark.parametrize("grid", _LM_KEYS, ids=_LM_KEYS)
 def test_tensor_parallel_logits_equal_the_unsharded_reference(worlds, grid,
                                                               dtype):
     """Every rank's gathered logits of the prefill step and of each
-    decode step against the reference's unsharded model."""
+    decode step against the reference's unsharded model (``grid`` names
+    the case of ``u.LM_ALL``).  A MoE model in bf16 is held row by row
+    where the row took the reference's experts everywhere: the two
+    packages round bf16 apart, near-tied router choices then flip (on
+    ranks as in one process: ``test_torch_models``), and a flipped
+    expert moves a logit by far more than a rounding; every row past
+    ``_BF16_TOL`` must be such a row."""
     ref, _ = worlds["reference"]
-    tag = f"lm/{u.lm_key(grid)}/{dtype}"
-    for rank, (arrays, _) in enumerate(worlds["ranks"]):
-        for step in _LM_STEPS:
-            np.testing.assert_allclose(arrays[f"{tag}/{step}"],
-                                       ref[f"{tag}/{step}"],
+    tag = f"lm/{grid}/{dtype}"
+    routed = grid in _MOE_KEYS and dtype == "bfloat16"
+    for step in _LM_STEPS:
+        clean = (_rows_routed_as_the_reference(worlds, grid, dtype, step)
+                 if routed else np.ones(u.LM_BATCH, bool))
+        assert routed or clean.all()
+        for rank, (arrays, _) in enumerate(worlds["ranks"]):
+            got = arrays[f"{tag}/{step}"].reshape(u.LM_BATCH, -1)
+            want = ref[f"{tag}/{step}"].reshape(u.LM_BATCH, -1)
+            np.testing.assert_allclose(got[clean], want[clean],
                                        err_msg=f"rank {rank} {step}",
                                        **_LM_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", u.LM_DTYPES)
-@pytest.mark.parametrize("grid", _LM_GRIDS, ids=_LM_IDS)
+def test_moe_rows_take_the_reference_experts_on_these_inputs(worlds,
+                                                             dtype):
+    """Every row of every MoE case, in the prefill and each decode step,
+    took the reference's experts in every layer: the ranks' partial sums
+    cross in float32 and are rounded once (``layers.sum_partials``), as
+    one process rounds its products.  (Summed in bf16 instead, two rows
+    of the 1 x 4 cases' bf16 prefill took other experts, and three rows
+    routed as the reference's passed ``_BF16_TOL``.)"""
+    for key in _MOE_KEYS:
+        for step in _LM_STEPS:
+            assert _rows_routed_as_the_reference(worlds, key, dtype,
+                                                 step).all(), (key, step)
+
+
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("grid", _LM_KEYS, ids=_LM_KEYS)
 def test_every_rank_gathers_the_same_logit_bytes(worlds, grid, dtype):
     """The gathered logits are byte-equal on every rank, and a rank's own
     prefill block (its rows over data, its vocab over model) is their
     cut."""
-    tag = f"lm/{u.lm_key(grid)}/{dtype}"
+    tag = f"lm/{grid}/{dtype}"
+    shape = _grid(grid)
     first = worlds["ranks"][0][0]
     for rank, (arrays, _) in enumerate(worlds["ranks"]):
         for step in _LM_STEPS:
             assert np.array_equal(arrays[f"{tag}/{step}"],
                                   first[f"{tag}/{step}"]), (rank, step)
         whole = arrays[f"{tag}/prefill"]
-        i, j = _coords(rank, grid)
-        rows, cols = whole.shape[0] // grid[0], whole.shape[1] // grid[1]
+        i, j = _coords(rank, shape)
+        rows, cols = whole.shape[0] // shape[0], whole.shape[1] // shape[1]
         assert np.array_equal(arrays[f"{tag}/prefill_block"],
                               whole[i * rows:(i + 1) * rows,
                                     j * cols:(j + 1) * cols])
 
 
 @pytest.mark.parametrize("dtype", u.LM_DTYPES)
-@pytest.mark.parametrize("grid", _LM_GRIDS, ids=_LM_IDS)
+@pytest.mark.parametrize("grid", _LM_KEYS, ids=_LM_KEYS)
 def test_each_rank_cache_block_is_the_reference_block(worlds, grid, dtype):
     """After the three decode steps a rank's cache is its block of the
     reference's new cache (rows over data, slots over model): the seeded
     slots byte for byte; the written ones, bf16 K/V of the step's
     projections, within one bf16 rounding (float32 compute) or
-    ``_BF16_TOL``."""
+    ``_BF16_TOL`` (a MoE model's bf16 rows where they took the
+    reference's experts in every step)."""
     ref, _ = worlds["reference"]
-    tag = f"lm/{u.lm_key(grid)}/{dtype}"
+    tag = f"lm/{grid}/{dtype}"
+    shape = _grid(grid)
     tol = (dict(rtol=2.0 ** -7, atol=1e-6) if dtype == "float32"
            else _LM_TOL[dtype])
+    clean = (_rows_routed_as_the_reference(
+        worlds, grid, dtype, _LM_STEPS[-1])
+        if grid in _MOE_KEYS and dtype == "bfloat16"
+        else np.ones(u.LM_BATCH, bool))
     for rank, (arrays, _) in enumerate(worlds["ranks"]):
-        coords = _coords(rank, grid)
-        slots = u.LM_SEQ // grid[1]
+        coords = _coords(rank, shape)
+        slots = u.LM_SEQ // shape[1]
+        per = u.LM_BATCH // shape[0]
+        held = clean[coords[0] * per:(coords[0] + 1) * per]
         mine = [p - coords[1] * slots for p in u.LM_DECODE_POS
                 if coords[1] * slots <= p < (coords[1] + 1) * slots]
         for k in ("k", "v"):
             got = arrays[f"{tag}/cache_{k}"]
-            want = _lm_block(ref[f"{tag}/cache_{k}"], grid, coords, 2)
+            want = _lm_block(ref[f"{tag}/cache_{k}"], shape, coords, 2)
             assert got.shape == want.shape
             kept = np.setdiff1d(np.arange(slots), mine)
             assert np.array_equal(got[:, :, kept], want[:, :, kept]), \
                 (rank, k)
-            np.testing.assert_allclose(got[:, :, mine], want[:, :, mine],
+            np.testing.assert_allclose(got[:, held][:, :, mine],
+                                       want[:, held][:, :, mine],
                                        err_msg=f"rank {rank} {k}", **tol)
 
 
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("key", _MOE_KEYS)
+def test_moe_routing_is_the_same_along_each_model_line(worlds, key, dtype):
+    """Every MoE layer of every step chose the same experts on every rank
+    of a ``model`` line (the router reads the all-reduced residual)."""
+    tag = f"lm/{key}/{dtype}"
+    grid = _grid(key)
+    ranks = worlds["ranks"]
+    for rank, (arrays, _) in enumerate(ranks):
+        i, _ = _coords(rank, grid)
+        head = ranks[i * grid[1]][0]
+        for step in _LM_STEPS:
+            got, want = _routes(arrays, tag, step), _routes(head, tag, step)
+            assert len(got) == 2 and len(got) == len(want)
+            assert all(np.array_equal(g, w) for g, w in zip(got, want)), \
+                (rank, step)
+
+
+_RUN_COUNTS = {
+    # (all-reduces, all-gathers, all-to-alls) a layer and once more: the
+    # embedding's all-reduce, and llava's projector in prefill
+    "dense": {"prefill": ((2, 0, 0), (1, 0)), "decode": ((5, 1, 0), (1, 0))},
+    "ffn": {"prefill": ((3, 0, 0), (1, 0)), "decode": ((6, 1, 0), (1, 0))},
+    "ep": {"prefill": ((2, 1, 2), (1, 0)), "decode": ((5, 2, 2), (1, 0))},
+    "vlm": {"prefill": ((2, 0, 0), (2, 0)), "decode": ((5, 1, 0), (1, 0))},
+}
+
+
+def _run_kind(key):
+    """The ``_RUN_COUNTS`` row of the case ``key``."""
+    cfg = u.case_config(port_configs, key, "bfloat16")
+    if cfg.family == "moe":
+        return "ffn" if cfg.expert_sharding == "ffn" else "ep"
+    return cfg.family
+
+
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-@pytest.mark.parametrize("grid", _LM_GRIDS, ids=_LM_IDS)
+@pytest.mark.parametrize("grid", _LM_KEYS, ids=_LM_KEYS)
 def test_rank_runs_count_the_closed_forms_collectives(worlds, grid, kind):
     """``lower_cell(..., run=True, ranks=pm)``: every rank's tally of one
     timed pass equals the closed form's ``collective_executed`` (every
-    layer), kind by kind and byte for byte; prefill moves 2 L + 1
-    all-reduces, decode 5 L + 1 and L all-gathers."""
+    layer), kind by kind and byte for byte, the expert-parallel
+    all-to-all's bytes over each model line
+    (``dryrun.closed_form_mismatch``); prefill moves 2 L + 1 all-reduces
+    on the dense model, decode 5 L + 1 and L all-gathers, the MoE and VLM
+    models their layers' own (``_RUN_COUNTS``)."""
+    from repro_torch.launch import dryrun
     layers = 2
+    shape = _grid(grid)
+    (ar, ag, a2a), (ar0, ag0) = _RUN_COUNTS[_run_kind(grid)][kind]
     for rank, (_, scalars) in enumerate(worlds["ranks"]):
-        run = scalars["lm_runs"][f"{u.lm_key(grid)}/{kind}"]
+        run = scalars["lm_runs"][f"{grid}/{kind}"]
         assert run["run_reason"] is None
-        assert run["run_batch"] == 2 * u.LM_BATCH // grid[0]
+        assert run["run_batch"] == 2 * u.LM_BATCH // shape[0]
         want = run["collective_executed"]
         assert len(run["run_collective"]) == WORLD
-        assert all(c == want for c in run["run_collective"]), rank
-        ar, ag = want["counts"]["all-reduce"], want["counts"]["all-gather"]
-        assert (ar, ag) == ((2 * layers + 1, 0) if kind == "prefill"
-                            else (5 * layers + 1, layers))
+        assert dryrun.closed_form_mismatch(run["run_collective"], want,
+                                           shape) is None, rank
+        if not a2a:
+            assert all(c == want for c in run["run_collective"]), rank
+        counts = want["counts"]
+        assert (counts["all-reduce"], counts["all-gather"],
+                counts["all-to-all"]) == (layers * ar + ar0,
+                                          layers * ag + ag0, layers * a2a)
         assert [r["coords"] for r in run["run_ranks"]] == [
-            list(_coords(k, grid)) for k in range(WORLD)]
+            list(_coords(k, shape)) for k in range(WORLD)]
         # nothing on the CPU is a device measurement
         assert run["run_s"] is None and run["run_exchange_s"] is None
         checks = run["run_checks"]
-        assert f"{ar} all-reduced tensors equal on every rank of a " \
-            f"model line" in checks
+        assert f"{counts['all-reduce']} all-reduced tensors equal on every " \
+            f"rank of a model line" in checks
         assert "gathered logits equal on every rank" in checks
+        if grid in _MOE_KEYS:
+            assert f"{layers} routings (experts, gates) equal on every " \
+                f"rank of a model line" in checks
         if kind == "decode":
             assert {"k/v written at pos 15 only",
                     "the other ranks' caches unchanged"} <= set(checks)
+
+
+def test_expert_parallel_all_to_all_bytes_follow_the_routing(worlds):
+    """An expert-parallel run's ranks receive uneven all-to-all bytes (the
+    routing decides), which sum over each model line to the closed
+    form's line total; a decode's one token a data row is owned by one
+    rank of its line."""
+    for key in ("arctic-model+data-1x4", "arctic-model-2x2"):
+        grid = _grid(key)
+        for kind in ("prefill", "decode"):
+            run = worlds["ranks"][0][1]["lm_runs"][f"{key}/{kind}"]
+            got = [c["bytes"]["all-to-all"] for c in run["run_collective"]]
+            want = run["collective_executed"]["bytes"]["all-to-all"]
+            for lo in range(0, WORLD, grid[1]):
+                assert sum(got[lo:lo + grid[1]]) == grid[1] * want
+            if kind == "prefill":
+                assert len(set(got)) > 1, (key, got)
 
 
 def test_a_rank_whose_run_check_fails_makes_every_rank_raise(worlds):
@@ -1085,6 +1236,103 @@ def test_a_rank_whose_run_check_fails_makes_every_rank_raise(worlds):
         assert kind == "RuntimeError", (rank, msg)
         assert f"rank {u.LM_FAILING_RANK} failed" in msg
         assert "changed away from pos" in msg
+
+
+@pytest.mark.parametrize("t", u.MOE_LAYER_TOKENS)
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("key", _MOE_KEYS)
+def test_moe_layer_on_ranks_equals_the_reference(worlds, key, dtype, t):
+    """The first block's MoE layer alone on ranks, on one seeded input of
+    ``t`` tokens (13: split unevenly over the line; 1: owned by one rank
+    of it, the others send and get nothing), against the reference's
+    ``moe_apply`` on the whole layer: output and aux loss at 1e-4 in
+    float32 and ``_BF16_TOL`` in bf16 (both routers read the same
+    input)."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as ref_configs
+    from repro.models import layers as ref_layers
+    from repro_torch.convert import nest_layers
+    cfg = u.case_config(ref_configs, key, dtype)
+    params = nest_layers(dict(np.load(os.path.join(
+        worlds["out"], f"lm-params-{key}.npz"))))
+    moe = jax.tree.map(lambda a: jnp.asarray(a[0]),
+                       params["blocks"]["moe"])          # the first block
+    x = jnp.asarray(u.moe_layer_input(cfg, t), getattr(jnp, dtype))
+    want, want_aux = ref_layers.moe_apply(moe, cfg, x)
+    for rank, (arrays, _) in enumerate(worlds["ranks"]):
+        got = arrays[f"moe_layer/{key}/{dtype}/{t}"]
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   err_msg=f"rank {rank}", **_LM_TOL[dtype])
+        np.testing.assert_allclose(arrays[f"moe_layer/{key}/{dtype}/{t}/aux"],
+                                   np.asarray(want_aux, np.float32),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("key", ["arctic-model-2x2",
+                                 "arctic-model+data-1x4"])
+def test_a_rank_whose_expert_step_fails_makes_every_rank_raise(worlds, key):
+    """A planted failure in rank 1's expert step: it still joins the
+    return all-to-all's count exchange, and every rank (the other
+    ``model`` line's too) raises naming it."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        kind, msg = scalars["moe_failure"][key]
+        assert kind == "RuntimeError", (rank, msg)
+        assert "the expert step on ranks" in msg
+        assert f"rank {u.LM_FAILING_RANK} failed (RuntimeError: the " \
+            f"planted expert failure)" in msg
+
+
+@pytest.mark.parametrize("name,why", [
+    ("model+data", "the ranks' data axis 2 > 1"),
+    ("moe_capacity", "capacity dispatch (moe_capacity)")])
+def test_a_layout_the_ranks_do_not_split_records_why(worlds, name, why):
+    """``"model+data"`` experts on ranks whose data axis is 2, and capacity
+    dispatch, record their ``run_reason`` and run nothing."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        rec = scalars["lm_refused"][name]
+        assert why in rec["run_reason"] and not rec["ran"], rank
+
+
+_A2A_CASES = [((1, 4), "model"), ((2, 2), "model"), ((2, 2), "data")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("grid,axis", _A2A_CASES,
+                         ids=[f"{g[0]}x{g[1]}-{a}" for g, a in _A2A_CASES])
+def test_all_to_all_over_moves_uneven_rows(worlds, grid, axis, dtype):
+    """``all_to_all_over`` along each line: coordinate i sends j
+    ``(i + 2 j) % 3`` rows (none a normal case), and each rank gets its
+    rows from every coordinate in coordinate order, counted as its
+    result bytes."""
+    n = dict(zip(u.AXES, grid))[axis]
+    k = u.AXES.index(axis)
+    lines = np.moveaxis(np.arange(WORLD).reshape(grid), k, -1).reshape(-1, n)
+    size = 4 if dtype == "float32" else 2
+    tag = f"a2a/{u.lm_key(grid)}/{axis}/{dtype}"
+    for line in lines:
+        for me, rank in enumerate(line):
+            arrays, scalars = worlds["ranks"][rank]
+            want = np.concatenate([u.a2a_rows(line[j], rank,
+                                              u.a2a_count(j, me))
+                                   for j in range(n)])
+            assert np.array_equal(arrays[tag], want), (rank, tag)
+            assert scalars["a2a_tally"][tag] == want.size * size
+
+
+def test_an_all_to_all_whose_rank_fails_or_miscounts_raises_everywhere(
+        worlds):
+    """On 2 x 2 along ``model``: rank 1 passing an error, or expecting a
+    row more than its peer sends, makes every rank of the world raise,
+    the other line's too, before any row moves."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        kind, msg = scalars["a2a_failure"]
+        assert kind == "RuntimeError"
+        assert f"rank {u.LM_FAILING_RANK} failed (ValueError: a planted " \
+            f"failure)" in msg, (rank, msg)
+        kind, msg = scalars["a2a_unpaired"]
+        assert kind == "RuntimeError" and "do not pair up" in msg, \
+            (rank, msg)
 
 
 # ---------------------------------------------------------------------------

@@ -122,6 +122,43 @@ LM_DECODE_POS = (2, 9, 15)
 # decode check is made to fail
 LM_RUN_SEQ = 16
 LM_FAILING_RANK = 1
+# the MoE and VLM transformer families on ranks, each served as the
+# dense cases are: (case, arch, grid, the replacements both packages
+# take); qwen2-moe's SMOKE config (8 experts of 64, top 2, 1 shared) in
+# its published FFN-split layout, arctic's SMOKE config (8 experts of
+# 96, top 2, a dense residual) in its published "model+data" layout (a
+# rank holds 2 whole experts; the ranks' data axis is 1) and in "model",
+# llava's (a projector from 16 to 64, 4 patches of the 16 positions)
+FAMILY_CASES = [
+    ("qwen2-moe-2x2", "qwen2-moe-a2.7b", (2, 2), {}),
+    ("qwen2-moe-1x4", "qwen2-moe-a2.7b", (1, 4), {}),
+    ("arctic-model+data-1x4", "arctic-480b", (1, 4),
+     {"expert_sharding": "model+data", "n_kv_heads": 4}),
+    ("arctic-model-2x2", "arctic-480b", (2, 2), {"expert_sharding": "model"}),
+    ("llava-2x2", "llava-next-mistral-7b", (2, 2), {}),
+    ("llava-1x4", "llava-next-mistral-7b", (1, 4), {"n_kv_heads": 4})]
+# every LM case on ranks: (key, arch, grid, replacements)
+LM_ALL = [(f"{g[0]}x{g[1]}", LM_ARCH, g, over) for g, over in LM_CASES] \
+    + FAMILY_CASES
+# one MoE layer alone on ranks, on a seeded input of each token count (t
+# split over 4 or 2 ranks unevenly; one token, which three ranks of a
+# line do not own), against the reference's moe_apply
+MOE_LAYER_TOKENS = (13, 1)
+MOE_LAYER_SEED = 31
+# all_to_all_over: what coordinate i of a line sends coordinate j, rows
+# of width A2A_WIDTH (zero rows a normal case)
+A2A_WIDTH = 3
+
+
+def a2a_count(i, j):
+    return (i + 2 * j) % 3
+
+
+def a2a_rows(src, dst, n):
+    """The rows global rank ``src`` sends global rank ``dst``: each names
+    its source, destination and place."""
+    return np.array([[src, dst, r] for r in range(n)],
+                    np.float32).reshape(n, A2A_WIDTH)
 
 
 def label_graph(name):
@@ -312,34 +349,53 @@ def lm_key(grid):
     return f"{grid[0]}x{grid[1]}"
 
 
-def lm_config(module, grid, dtype):
-    """``module``'s (either package's ``configs``) SMOKE config of
-    ``LM_ARCH`` for the case of ``grid`` in ``dtype`` compute."""
+def lm_case(key):
+    """``LM_ALL``'s (arch, grid, replacements) of ``key``."""
+    return {k: (arch, grid, over) for k, arch, grid, over in LM_ALL}[key]
+
+
+def case_config(module, key, dtype):
+    """``module``'s (either package's ``configs``) SMOKE config of the LM
+    case ``key`` in ``dtype`` compute."""
     import dataclasses
-    over = dict(LM_CASES)[tuple(grid)]
-    return dataclasses.replace(module.get_smoke_config(LM_ARCH),
+    arch, _, over = lm_case(key)
+    return dataclasses.replace(module.get_smoke_config(arch),
                                compute_dtype=dtype, **over)
 
 
-def lm_overrides(grid, dtype="bfloat16"):
-    """``lm_config``'s fields, as ``lower_cell``'s ``overrides``."""
+def case_overrides(key, dtype="bfloat16"):
+    """``case_config``'s fields, as ``lower_cell``'s ``overrides``."""
     import dataclasses
     from repro_torch import configs
-    cfg = lm_config(configs, grid, dtype)
+    cfg = case_config(configs, key, dtype)
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
 def lm_inputs(cfg):
     """The prompts ``[B, S]``, the decode steps' tokens ``[3, B, 1]`` and
     the seeded cache ``k`` / ``v`` ``[L, B, S, kv, hd]`` (float32, which
-    both packages round to bf16 alike)."""
+    both packages round to bf16 alike); for a VLM the prompts are the
+    last ``S - num_patches`` tokens after ``patches`` ``[B, num_patches,
+    vision_dim]``, drawn last."""
     rng = np.random.default_rng(LM_SEED)
     shape = (cfg.n_layers, LM_BATCH, LM_SEQ, cfg.n_kv_heads, cfg.hd)
-    return {"tokens": rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ)),
-            "steps": rng.integers(0, cfg.vocab,
-                                  (len(LM_DECODE_POS), LM_BATCH, 1)),
-            "k": rng.normal(size=shape).astype(np.float32),
-            "v": rng.normal(size=shape).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ)),
+           "steps": rng.integers(0, cfg.vocab,
+                                 (len(LM_DECODE_POS), LM_BATCH, 1)),
+           "k": rng.normal(size=shape).astype(np.float32),
+           "v": rng.normal(size=shape).astype(np.float32)}
+    if cfg.vision_dim:
+        out["tokens"] = out["tokens"][:, :LM_SEQ - cfg.num_patches]
+        out["patches"] = rng.normal(size=(
+            LM_BATCH, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+    return out
+
+
+def moe_layer_input(cfg, t):
+    """The seeded ``[1, t, d]`` input of the MoE layer case (float32,
+    which both packages round to bf16 alike)."""
+    rng = np.random.default_rng(MOE_LAYER_SEED + t)
+    return rng.normal(size=(1, t, cfg.d_model)).astype(np.float32)
 
 
 def write_lm_params(out_dir):
@@ -350,10 +406,10 @@ def write_lm_params(out_dir):
     from repro import configs as ref_configs
     from repro.models import build_model
     from repro_torch.convert import lm_layers_from_params
-    for grid, _ in LM_CASES:
-        cfg = lm_config(ref_configs, grid, "float32")
+    for key, _, _, _ in LM_ALL:
+        cfg = case_config(ref_configs, key, "float32")
         params = build_model(cfg).init(jax.random.PRNGKey(0))
-        np.savez(os.path.join(out_dir, f"lm-params-{lm_key(grid)}.npz"),
+        np.savez(os.path.join(out_dir, f"lm-params-{key}.npz"),
                  **lm_layers_from_params(jax.tree.map(np.asarray, params)))
 
 
@@ -1087,56 +1143,76 @@ def _store_rank_cases(api, mesh, rank, out_dir, arrays, scalars):
 
 
 def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
-    """Tensor-parallel serving of the dense LM on each grid of
-    ``LM_CASES``: the reference's weights carried across to the rank's
+    """Tensor-parallel serving of the transformer LMs on each case of
+    ``LM_ALL``: the reference's weights carried across to the rank's
     blocks, the prefill step and three decode steps in both compute
-    dtypes (the gathered logits and the rank's cache block), then
-    ``lower_cell`` on ranks for a prefill and a decode cell, and a decode
-    cell whose check fails on one rank."""
+    dtypes (the gathered logits, the rank's cache block and every MoE
+    layer's routing), then ``lower_cell`` on ranks for a prefill and a
+    decode cell, a decode cell whose check fails on one rank, the MoE
+    cases' layer alone, the cells the run rule refuses, and the
+    all-to-all."""
     import torch
     from repro_torch import configs
     from repro_torch.convert import lm_rank_state_dict_from_params, \
         nest_layers
+    from repro_torch.core import collectives
     from repro_torch.distributed_lm.sharding import batch_block, cache_block
     from repro_torch.launch import dryrun
     from repro_torch.launch.shapes import ShapeCell
     from repro_torch.models import build_model
+    from repro_torch.models import layers
     from repro_torch.serve import make_prefill_step, make_serve_step
     from repro_torch.serve.serve_step import whole_logits
 
-    runs = {}
-    for grid, _ in LM_CASES:
-        key, pm = lm_key(grid), mesh(grid)
+    runs, models = {}, {}
+    for key, arch, grid, _ in LM_ALL:
+        pm = mesh(grid)
         params = nest_layers(dict(np.load(os.path.join(
             out_dir, f"lm-params-{key}.npz"))))
         for dtype in LM_DTYPES:
-            cfg = lm_config(configs, grid, dtype)
+            cfg = case_config(configs, key, dtype)
             model = build_model(cfg, device="cpu", ranks=pm)
             model.load_state_dict(lm_rank_state_dict_from_params(
                 params, model.param_specs(), pm))
+            models[(key, dtype)] = (model, cfg)
             inputs = lm_inputs(cfg)
             tag = f"lm/{key}/{dtype}"
+            routes = []
+            pm.tally.route = lambda idx, gates: routes.append(
+                idx.numpy().copy())
 
-            def rows(a):
-                return batch_block({"tokens": torch.from_numpy(a)}, cfg,
-                                   pm)["tokens"]
-            out = make_prefill_step(model, cfg)({"tokens": rows(
-                inputs["tokens"])})
-            arrays[f"{tag}/prefill"] = whole_logits(out, pm).float().numpy()
-            arrays[f"{tag}/prefill_block"] = out.float().numpy()
-            cache = cache_block({k: torch.from_numpy(inputs[k]).to(
-                torch.bfloat16) for k in ("k", "v")}, model, pm)
-            step = make_serve_step(model, cfg)
-            for i, pos in enumerate(LM_DECODE_POS):
-                out, cache = step(cache, rows(inputs["steps"][i]), pos)
-                arrays[f"{tag}/decode{i}"] = whole_logits(
+            def rows(a, name="tokens"):
+                return batch_block({name: torch.from_numpy(a)}, cfg,
+                                   pm)[name]
+            batch = {"tokens": rows(inputs["tokens"])}
+            if cfg.vision_dim:
+                batch["patch_embeds"] = rows(inputs["patches"],
+                                             "patch_embeds")
+            try:
+                out = make_prefill_step(model, cfg)(batch)
+                arrays[f"{tag}/prefill"] = whole_logits(
                     out, pm).float().numpy()
+                arrays[f"{tag}/prefill_block"] = out.float().numpy()
+                for layer, idx in enumerate(routes):
+                    arrays[f"{tag}/route/prefill/{layer}"] = idx
+                cache = cache_block({k: torch.from_numpy(inputs[k]).to(
+                    torch.bfloat16) for k in ("k", "v")}, model, pm)
+                step = make_serve_step(model, cfg)
+                for i, pos in enumerate(LM_DECODE_POS):
+                    routes.clear()
+                    out, cache = step(cache, rows(inputs["steps"][i]), pos)
+                    arrays[f"{tag}/decode{i}"] = whole_logits(
+                        out, pm).float().numpy()
+                    for layer, idx in enumerate(routes):
+                        arrays[f"{tag}/route/decode{i}/{layer}"] = idx
+            finally:
+                del pm.tally.route
             for k in ("k", "v"):
                 arrays[f"{tag}/cache_{k}"] = cache[k].float().numpy()
         for kind in ("prefill", "decode"):
             cell = ShapeCell(f"{kind}_32k", LM_RUN_SEQ, 2 * LM_BATCH, kind)
-            rec = dryrun.lower_cell(LM_ARCH, cell, mesh_shape=grid,
-                                    overrides=lm_overrides(grid),
+            rec = dryrun.lower_cell(arch, cell, mesh_shape=grid,
+                                    overrides=case_overrides(key),
                                     device="cpu", run=True, ranks=pm,
                                     run_reps=1)
             runs[f"{key}/{kind}"] = {
@@ -1163,10 +1239,88 @@ def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
         scalars["lm_failure"] = _error(lambda: dryrun.lower_cell(
             LM_ARCH, ShapeCell("decode_32k", LM_RUN_SEQ, 2 * LM_BATCH,
                                "decode"), mesh_shape=(2, 2),
-            overrides=lm_overrides((2, 2)), device="cpu", run=True,
+            overrides=case_overrides("2x2"), device="cpu", run=True,
             ranks=mesh((2, 2)), run_reps=1))
     finally:
         dryrun.make_serve_step = make
+
+    # one MoE layer alone: the first block's, on a seeded input
+    for key, _, grid, _ in FAMILY_CASES:
+        for dtype in LM_DTYPES:
+            model, cfg = models[(key, dtype)]
+            if cfg.family != "moe":
+                continue
+            for t in MOE_LAYER_TOKENS:
+                x = torch.from_numpy(moe_layer_input(cfg, t)).to(
+                    getattr(torch, dtype))
+                with torch.no_grad(), layers.sharding_mesh(mesh(grid)):
+                    out, aux = layers.moe_apply(model.blocks[0].moe, cfg, x)
+                arrays[f"moe_layer/{key}/{dtype}/{t}"] = out.float().numpy()
+                arrays[f"moe_layer/{key}/{dtype}/{t}/aux"] = \
+                    aux.float().numpy()
+
+    # a rank whose expert step fails: every rank raises
+    def broken(p, rows, experts):
+        raise RuntimeError("the planted expert failure")
+    for key in ("arctic-model-2x2", "arctic-model+data-1x4"):
+        model, cfg = models[(key, "float32")]
+        expert_rows = layers._expert_rows
+        if rank == LM_FAILING_RANK:
+            layers._expert_rows = broken
+        try:
+            scalars.setdefault("moe_failure", {})[key] = _error(
+                lambda: model.apply(torch.zeros((1, 6), dtype=torch.int64)))
+        finally:
+            layers._expert_rows = expert_rows
+
+    # the cells the run rule refuses on ranks: nothing runs
+    refused = {}
+    for name, key, over in (
+            ("model+data", "arctic-model-2x2",
+             {"expert_sharding": "model+data"}),
+            ("moe_capacity", "qwen2-moe-2x2", {"moe_capacity": True})):
+        arch, grid, _ = lm_case(key)
+        rec = dryrun.lower_cell(
+            arch, ShapeCell("decode_32k", LM_RUN_SEQ, 2 * LM_BATCH,
+                            "decode"), mesh_shape=grid,
+            overrides=dict(case_overrides(key), **over), device="cpu",
+            run=True, ranks=mesh(grid), run_reps=1)
+        refused[name] = {"run_reason": rec.get("run_reason"),
+                         "ran": "run_s" in rec}
+    scalars["lm_refused"] = refused
+
+    # all_to_all_over along every line of 1 x 4 and 2 x 2, uneven counts
+    for grid, axis in (((1, 4), "model"), ((2, 2), "model"),
+                       ((2, 2), "data")):
+        pm = mesh(grid)
+        line, me = pm.axis_ranks(axis), pm.axis_index(axis)
+        n = len(line)
+        for dtype in ("float32", "bfloat16"):
+            send = [a2a_count(me, j) for j in range(n)]
+            recv = [a2a_count(j, me) for j in range(n)]
+            rows = np.concatenate([a2a_rows(rank, line[j], send[j])
+                                   for j in range(n)])
+            pm.tally.reset()
+            got = collectives.all_to_all_over(torch.from_numpy(rows).to(
+                getattr(torch, dtype)), pm, axis, send, recv)
+            tag = f"a2a/{lm_key(grid)}/{axis}/{dtype}"
+            arrays[tag] = got.float().numpy()
+            scalars.setdefault("a2a_tally", {})[tag] = \
+                pm.tally.record()["bytes"]["all-to-all"]
+    pm = mesh((2, 2))
+    n = pm.shape["model"]
+    me = pm.axis_index("model")
+    send = [a2a_count(me, j) for j in range(n)]
+    recv = [a2a_count(j, me) for j in range(n)]
+    rows = torch.zeros((sum(send), A2A_WIDTH))
+    failed = ValueError("a planted failure") if rank == LM_FAILING_RANK \
+        else None
+    scalars["a2a_failure"] = _error(lambda: collectives.all_to_all_over(
+        rows, pm, "model", send, recv, error=failed))
+    skew = [c + (1 if rank == LM_FAILING_RANK and j == 0 else 0)
+            for j, c in enumerate(recv)]
+    scalars["a2a_unpaired"] = _error(lambda: collectives.all_to_all_over(
+        rows, pm, "model", send, skew))
 
 
 def torch_equal(a, b):
@@ -1380,33 +1534,59 @@ def _a10d_reference_cases(arrays, scalars):
 
 def _lm_reference_cases(arrays):
     """``_lm_rank_cases``' inputs through the reference's unsharded model:
-    the prefill step's logits, each teacher-forced decode step's and the
-    cache after the three."""
+    the prefill step's logits, each teacher-forced decode step's, the
+    cache after the three, and every MoE layer's chosen experts (its
+    ``jax.lax.top_k``, read by an ordered debug callback)."""
     import jax
     import jax.numpy as jnp
     from repro import configs as ref_configs
     from repro.models import build_model
 
-    for grid, _ in LM_CASES:
-        for dtype in LM_DTYPES:
-            cfg = lm_config(ref_configs, grid, dtype)
-            model = build_model(cfg)
-            params = model.init(jax.random.PRNGKey(0))
-            inputs = lm_inputs(cfg)
-            tag = f"lm/{lm_key(grid)}/{dtype}"
-            logits, _ = jax.jit(model.apply)(params,
-                                             jnp.asarray(inputs["tokens"]))
-            arrays[f"{tag}/prefill"] = np.asarray(logits[:, -1], np.float32)
-            cache = {k: jnp.asarray(inputs[k], jnp.bfloat16)
-                     for k in ("k", "v")}
-            step = jax.jit(model.decode_step)
-            for i, pos in enumerate(LM_DECODE_POS):
-                logits, cache = step(params, cache,
-                                     jnp.asarray(inputs["steps"][i]),
-                                     jnp.int32(pos))
-                arrays[f"{tag}/decode{i}"] = np.asarray(logits, np.float32)
-            for k in ("k", "v"):
-                arrays[f"{tag}/cache_{k}"] = np.asarray(cache[k], np.float32)
+    routes = []
+    top_k = jax.lax.top_k
+
+    def recorded(x, k):
+        vals, idx = top_k(x, k)
+        jax.debug.callback(lambda i: routes.append(np.asarray(i)), idx,
+                           ordered=True)
+        return vals, idx
+    jax.lax.top_k = recorded
+    try:
+        for key, _, _, _ in LM_ALL:
+            for dtype in LM_DTYPES:
+                cfg = case_config(ref_configs, key, dtype)
+                model = build_model(cfg)
+                params = model.init(jax.random.PRNGKey(0))
+                inputs = lm_inputs(cfg)
+                tag = f"lm/{key}/{dtype}"
+                extra = (jnp.asarray(inputs["patches"]),) \
+                    if cfg.vision_dim else ()
+                routes.clear()
+                logits, _ = jax.jit(model.apply)(
+                    params, jnp.asarray(inputs["tokens"]), *extra)
+                arrays[f"{tag}/prefill"] = np.asarray(logits[:, -1],
+                                                      np.float32)
+                jax.effects_barrier()
+                for layer, idx in enumerate(routes):
+                    arrays[f"{tag}/route/prefill/{layer}"] = idx
+                cache = {k: jnp.asarray(inputs[k], jnp.bfloat16)
+                         for k in ("k", "v")}
+                step = jax.jit(model.decode_step)
+                for i, pos in enumerate(LM_DECODE_POS):
+                    routes.clear()
+                    logits, cache = step(params, cache,
+                                         jnp.asarray(inputs["steps"][i]),
+                                         jnp.int32(pos))
+                    arrays[f"{tag}/decode{i}"] = np.asarray(logits,
+                                                            np.float32)
+                    jax.effects_barrier()
+                    for layer, idx in enumerate(routes):
+                        arrays[f"{tag}/route/decode{i}/{layer}"] = idx
+                for k in ("k", "v"):
+                    arrays[f"{tag}/cache_{k}"] = np.asarray(cache[k],
+                                                            np.float32)
+    finally:
+        jax.lax.top_k = top_k
 
 
 def _reference_engine(kind, shape):
