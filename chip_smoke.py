@@ -110,7 +110,7 @@ drives the port's two paths at full size through `repro_torch.api`:
   attn) + 2 rec, window 2,048) and `whisper-large-v3` (32 + 32 layers,
   seeded frames `[4, 1,500, 1,280]` encoded into the cross K/V first);
   random seeded weights on the card, 4 prompts of 16 tokens prefilled
-  through the cache and 16 greedy tokens, each held to its own forward
+  through the cache and 8 greedy tokens, each held to its own forward
   by the reference's teacher-forced decode check;
 * LM training through `repro_torch.launch.train.run_training`:
   `qwen3-1.7b` at its full published config (batch 8, sequence 256, the
@@ -129,18 +129,24 @@ drives the port's two paths at full size through `repro_torch.api`:
   cache), each
   timed once after a warm-up beside its bound and checked; then the
   serving cells with the `model` axis split, on four spawned gloo ranks
-  sharing the card as a (data, model) = (1, 4) `ProcessMesh`
-  (`lower_cell(..., ranks=pm)`: each rank its block of every parameter,
-  of the cache and of the batch, the collectives over `model`):
-  `decode_32k` on 128 x 4 and a prefill on 32 x 4 cut to 4,096 tokens,
-  for `qwen3-1.7b`, for `qwen2-moe-a2.7b`'s widths on 2 layers with
-  FFN-split experts and with expert-parallel ones (an all-to-all each
-  way over `model`), and `llava-next-mistral-7b`'s prefill on 8 of its
-  32 layers; each rank's gathered logits byte-equal to the others' and
-  held to the one-process run of the cell (float32 compute and bf16) by
-  the bf16 departure gate, each rank's peak under half the one-process
-  run's, each rank's counted collectives equal to the closed form's,
-  every MoE layer's routing equal along the line.
+  sharing the card as a (data, model) = (1, 4) `ProcessMesh`, or (2, 2)
+  for a cell whose model axis is 2 (`lower_cell(..., ranks=pm)`: each
+  rank its block of every parameter, of the cache and of the batch, the
+  collectives over `model`): `decode_32k` on 128 x 4 and a prefill on 32
+  x 4 cut to 4,096 tokens, for `qwen3-1.7b`, for `qwen2-moe-a2.7b`'s
+  widths on 2 layers with FFN-split experts and with expert-parallel
+  ones (an all-to-all each way over `model`), for `falcon-mamba-7b` on 4
+  of its 64 layers and `whisper-large-v3` on 4 + 4 of its 32 + 32, for
+  `recurrentgemma-2b` on one (rec, rec, attn) group and the two-rec
+  tail on 128 x 2 and 32 x 2, and `llava-next-mistral-7b`'s prefill on 4
+  of its 32 layers; each rank's gathered logits byte-equal to the
+  others' and held to the one-process run of the cell's data rows
+  (float32 compute and bf16) by the bf16 departure gate, each rank's
+  peak under 2 / (d x k) of the one-process run's (d x k the ranks'
+  grid: the run covers their d data rows, k the model axis), each
+  rank's counted collectives equal to the closed form's, every MoE
+  layer's routing and the hybrid's window equal along the line, the
+  recurrent states advanced in every channel of the rank.
 
 The host-only references (the MST oracle of walmart-trips,
 primary-school and email-Eu; email-Eu's ETE and threshold-component
@@ -372,7 +378,8 @@ LM_FAMILY_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b",
 LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 12, 8, 256
 LM_RESTART_LAYERS, LM_RESTART_STEPS, LM_RESTART_AT = 2, 10, 5
 RESTART_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_train_infra.py:122
-LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 16
+# 8 greedy tokens since PR 30 (16 before; a cut for the script's time)
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 8
 # lm_dryrun_path: the LM dry-run over every (arch x shape x mesh) cell,
 # then one card's share of three LM_ARCH cells at the full published
 # config (data-parallel meshes: model axis 1)
@@ -385,8 +392,9 @@ LM_DRYRUN_RUNS = (("train_4k", 4_096, (64, 1)),
                   ("decode_32k", 32_768, (128, 1)))
 LM_DRYRUN_CELLS = {"ok": 64, "skipped": 16}
 LM_DRYRUN_RUN_REPS = 1                 # timed passes after the warm-up
-# then RANK_WORLD gloo ranks share the card as a (data, model) = (1, 4)
-# ProcessMesh and run serving cells with the model axis split: (label,
+# then RANK_WORLD gloo ranks share the card as a (data, model)
+# ProcessMesh, (1, 4) unless a cell's model axis is 2 ((2, 2):
+# lm_rank_grid), and run serving cells with the model axis split: (label,
 # arch, config replacements, cell, its seq_len, the cell's mesh, what was
 # cut to size): LM_ARCH's decode_32k whole on (128, 4), and its prefill
 # on (32, 4) cut to 4,096 tokens (a prefill pass all-reduces 57 [tokens,
@@ -399,13 +407,25 @@ LM_DRYRUN_RUN_REPS = 1                 # timed passes after the warm-up
 # prefill at its published widths on LM_VLM_LAYERS of its 32 layers, 576
 # patches of the 4,096 positions (at all 32 layers the cell took 21.5 s
 # and its one-process runs some 6 s more, and the script 1,123 s of its
-# 1,200 on a slow host).  Each held to the one-process run of its cell at
-# model axis 1 (float32 compute and bf16; the two expert layouts share
-# theirs: at model axis 1 the layout splits nothing) by the departure
-# gate
+# 1,200 on a slow host; 8 layers until PR 30's cells came); and the
+# three families that are not
+# transformers, at published widths with their depth cut: falcon-mamba-7b
+# on LM_MAMBA_LAYERS of its 64 layers (the decode's state O(1) in the
+# cache length), recurrentgemma-2b on one (rec, rec, attn) group and
+# the two-rec tail (its 10 heads do not divide 4: (2, 2) ranks, the cells
+# on (128, 2) and (32, 2)), whisper-large-v3 on LM_WHISPER_LAYERS of its
+# 32 encoder and 32 decoder layers (1,500 frames).  Each held to the
+# one-process run of its cell at model axis 1 over the ranks' data rows
+# (float32 compute and bf16; the two expert layouts share theirs: at
+# model axis 1 the layout splits nothing) by the departure gate
 LM_VLM_ARCH = "llava-next-mistral-7b"  # published widths, depth cut
-LM_VLM_LAYERS = 8
-LM_RANK_GRID = (1, 4)
+LM_VLM_LAYERS = 4
+LM_MAMBA_ARCH = "falcon-mamba-7b"      # published widths, depth cut
+LM_MAMBA_LAYERS = 4
+LM_HYBRID_ARCH = "recurrentgemma-2b"   # published widths, depth cut
+LM_HYBRID_LAYERS = 5
+LM_WHISPER_ARCH = "whisper-large-v3"   # published widths, depth cut
+LM_WHISPER_LAYERS = 4
 LM_RANK_MOE = {"n_layers": LM_MOE_LAYERS}
 LM_RANK_EP = dict(LM_RANK_MOE, expert_sharding="model+data")
 LM_CUT_SEQ = "seq_len: 32,768 cut to 4,096"
@@ -425,7 +445,28 @@ LM_RANK_CELLS = (
     ("moe expert-parallel", LM_MOE_ARCH, LM_RANK_EP, "prefill_32k", 4_096,
      (32, 4), (LM_CUT_MOE, LM_CUT_EP, LM_CUT_SEQ)),
     ("vlm", LM_VLM_ARCH, {"n_layers": LM_VLM_LAYERS}, "prefill_32k", 4_096,
-     (32, 4), (f"n_layers: 32 cut to {LM_VLM_LAYERS}", LM_CUT_SEQ)))
+     (32, 4), (f"n_layers: 32 cut to {LM_VLM_LAYERS}", LM_CUT_SEQ)),
+    ("ssm", LM_MAMBA_ARCH, {"n_layers": LM_MAMBA_LAYERS}, "decode_32k",
+     32_768, (128, 4), (f"n_layers: 64 cut to {LM_MAMBA_LAYERS}",)),
+    ("ssm", LM_MAMBA_ARCH, {"n_layers": LM_MAMBA_LAYERS}, "prefill_32k",
+     4_096, (32, 4), (f"n_layers: 64 cut to {LM_MAMBA_LAYERS}",
+                      LM_CUT_SEQ)),
+    ("hybrid", LM_HYBRID_ARCH, {"n_layers": LM_HYBRID_LAYERS}, "decode_32k",
+     32_768, (128, 2), (f"n_layers: 26 cut to {LM_HYBRID_LAYERS} (one "
+                        f"group and the two-rec tail)",)),
+    ("hybrid", LM_HYBRID_ARCH, {"n_layers": LM_HYBRID_LAYERS},
+     "prefill_32k", 4_096, (32, 2),
+     (f"n_layers: 26 cut to {LM_HYBRID_LAYERS} (one group and the "
+      f"two-rec tail)", LM_CUT_SEQ)),
+    ("encdec", LM_WHISPER_ARCH, {"n_layers": LM_WHISPER_LAYERS,
+                                 "enc_layers": LM_WHISPER_LAYERS},
+     "decode_32k", 32_768, (128, 4),
+     (f"n_layers, enc_layers: 32 cut to {LM_WHISPER_LAYERS}",)),
+    ("encdec", LM_WHISPER_ARCH, {"n_layers": LM_WHISPER_LAYERS,
+                                 "enc_layers": LM_WHISPER_LAYERS},
+     "prefill_32k", 4_096, (32, 4),
+     (f"n_layers, enc_layers: 32 cut to {LM_WHISPER_LAYERS}",
+      LM_CUT_SEQ)))
 LM_RANK_TIMEOUT_S = 600
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
 # bf16 serving: the root-mean-square departure of the decode logits (bf16
@@ -5819,7 +5860,7 @@ def phase_lm_serve_path(counters, device):
     experts, top-4), then ``falcon-mamba-7b``, ``recurrentgemma-2b`` and
     ``whisper-large-v3`` at their full published configs (Whisper's
     seeded frames encoded into the cross K/V by ``prefill_cross`` in the
-    prefill).  At prompt 16 + 16 tokens the hybrid's 2,048 window never
+    prefill).  At prompt 16 + 8 tokens the hybrid's 2,048 window never
     wraps here; the CPU tests cover the wrap.  Each run serves in the
     config's bf16 and is held
     to its own forward along the served stream by ``decode_checks``: the
@@ -6072,10 +6113,17 @@ def lm_cell(name, seq):
     return dataclasses.replace(SHAPES[name], seq_len=seq)
 
 
+def lm_rank_grid(mesh_shape):
+    """The (data, model) grid of ``RANK_WORLD`` ranks a rank cell runs on:
+    the cell's model axis, the rest of the world over data."""
+    return RANK_WORLD // mesh_shape[-1], mesh_shape[-1]
+
+
 def lm_rank_worker(rank, world, work, spec):
     """One rank of ``lm_dryrun_path``'s rank cells (a spawned process):
-    the ``LM_RANK_GRID`` ``ProcessMesh`` on the shared card, then each of
-    ``LM_RANK_CELLS`` through ``lower_cell(..., run=True, ranks=pm)`` (the
+    each cell's ``lm_rank_grid`` ``ProcessMesh`` on the shared card (made
+    once, in the cells' order), then each of ``LM_RANK_CELLS`` through
+    ``lower_cell(..., run=True, ranks=pm)`` (the
     rank's blocks drawn from the one-process model's generator, its rows
     and cache slots; a warm-up and ``LM_DRYRUN_RUN_REPS`` timed passes).
     Writes ``rank<r>.json`` (the records, by the cell's place in
@@ -6096,11 +6144,16 @@ def lm_rank_worker(rank, world, work, spec):
         timeout=datetime.timedelta(seconds=spec["timeout"]))
     try:
         # device=None: cuda:0 under gloo (every rank on the one card)
-        pm = api.make_process_mesh(
-            LM_RANK_GRID, ("data", "model"),
-            device=None if device.type == "cuda" else device)
+        meshes = {}
+        for cell in LM_RANK_CELLS:
+            grid = lm_rank_grid(cell[5])
+            if grid not in meshes:
+                meshes[grid] = api.make_process_mesh(
+                    grid, ("data", "model"),
+                    device=None if device.type == "cuda" else device)
         for i, (_, arch, over, name, seq, mesh_shape, _) in enumerate(
                 LM_RANK_CELLS):
+            pm = meshes[lm_rank_grid(mesh_shape)]
             gc.collect()
             if device.type == "cuda":
                 torch.cuda.empty_cache()
@@ -6142,15 +6195,18 @@ def lm_rank_cells(dryrun, device, one):
     logits must depart from the float32 logits by at most
     ``BF16_DEPARTURE_RATIO`` times the one-process bf16 run's
     root-mean-square departure.  Also held: the gathered logits
-    byte-equal on every rank, each rank's peak under half the one-process
-    bf16 run's, each rank's counted collectives equal to the closed
+    byte-equal on every rank, each rank's peak under ``2 / (d x k)`` of
+    the one-process bf16 run's (``d`` x ``k`` the ranks' grid: the
+    one-process run covers the ranks' ``d`` data rows, and ``k`` is the
+    cell's model axis), each rank's counted collectives
+    equal to the closed
     form's (``dryrun.closed_form_mismatch``: the expert-parallel
     all-to-all's bytes over the model line), the run's checks (every
     all-reduced tensor and every MoE routing equal along the line among
     them).  Returns one summary a cell."""
     clock = Phase()
     refs = dict(one)
-    for _, arch, over, name, seq, (data, _), _ in LM_RANK_CELLS:
+    for _, arch, over, name, seq, mesh_shape, _ in LM_RANK_CELLS:
         for dtype in ("float32", "bfloat16"):
             key = lm_reference_key(arch, over, name, seq, dtype)
             if key in refs:
@@ -6158,6 +6214,8 @@ def lm_rank_cells(dryrun, device, one):
             gc.collect()
             torch.cuda.empty_cache()
             logits = []
+            # one process runs every data row the ranks' data axis covers
+            data = mesh_shape[0] // lm_rank_grid(mesh_shape)[0]
             rec = dryrun.lower_cell(
                 arch, lm_cell(name, seq), mesh_shape=(data, 1),
                 overrides=dict(key[1], compute_dtype=dtype), device=device,
@@ -6203,14 +6261,19 @@ def lm_rank_cells(dryrun, device, one):
                 f"{tag}: the ranks' logits depart from the float32 run "
                 f"{ratio} times as far as the one-process bf16 run (limit "
                 f"{BF16_DEPARTURE_RATIO})")
+        grid = lm_rank_grid(mesh_shape)
         one_peak = bf16[0]["peak_bytes"]
         peaks = [r["peak_bytes"] for r in rec["run_ranks"]]
-        if not all(p < one_peak / 2 for p in peaks):
-            raise AssertionError(f"{tag}: rank peaks {peaks} not under half "
-                                 f"the one-process run's {one_peak}")
+        # the one-process run covers the ranks' grid[0] data rows, which
+        # grid[0] x grid[1] ranks share
+        shares = grid[0] * grid[1]
+        if not all(p < one_peak * 2 / shares for p in peaks):
+            raise AssertionError(f"{tag}: rank peaks {peaks} not under 2 / "
+                                 f"{shares} of the one-process run's "
+                                 f"{one_peak}")
         for r in recs:
             why = dryrun.closed_form_mismatch(
-                r["run_collective"], r["collective_executed"], LM_RANK_GRID)
+                r["run_collective"], r["collective_executed"], grid)
             if why is not None:
                 raise AssertionError(f"{tag}: counted collectives part from "
                                      f"the closed form: {why}")
@@ -6221,7 +6284,7 @@ def lm_rank_cells(dryrun, device, one):
             "label": label, "arch": arch, "overrides": over,
             "cell": name, "seq_len": seq, "mesh_shape": list(mesh_shape),
             "reduced": list(reduced),
-            "ranks": list(LM_RANK_GRID), "run_batch": rec["run_batch"],
+            "ranks": list(grid), "run_batch": rec["run_batch"],
             "run_s": rec["run_s"], "run_exchange_s": rec["run_exchange_s"],
             "run_bound_s": rec["run_bound_s"],
             "run_bound_by": rec["run_bound_by"],
@@ -6234,12 +6297,13 @@ def lm_rank_cells(dryrun, device, one):
             "rms_departure": {"ranks_bf16": ranks_dep, "one_bf16": one_dep},
             "departure_ratio": ratio, "cell_s": [r["cell_s"] for r in recs],
             "run_checks": rec["run_checks"]}
-        print(f"{tag} over {RANK_WORLD} ranks {LM_RANK_GRID}: batch "
+        print(f"{tag} over {RANK_WORLD} ranks {grid}: batch "
               f"{rec['run_batch']}, run_s per rank "
               f"{[round(r['run_s'], 4) for r in rec['run_ranks']]} (slowest "
               f"{rec['run_s']:.4f} s; one process bf16 "
               f"{row['one_process_run_s']['bfloat16']:.4f} s, float32 "
-              f"{row['one_process_run_s']['float32']:.4f} s, bound / 4 "
+              f"{row['one_process_run_s']['float32']:.4f} s, bound / "
+              f"{grid[1]} "
               f"{rec['run_bound_s']:.4f} s), exchange "
               f"{[round(r['run_exchange_s'], 4) for r in rec['run_ranks']]}"
               f" s, collectives a rank {rec['run_collective'][0]['counts']}"
@@ -6267,9 +6331,11 @@ def phase_lm_dryrun_path(counters, device):
     ``model`` axis split, four ranks sharing the card (so a rank's
     ``run_s`` is not what four cards would take): the dense
     ``qwen3-1.7b``, ``qwen2-moe-a2.7b``'s widths with FFN-split and with
-    expert-parallel experts (an all-to-all each way over ``model``), and
-    ``llava-next-mistral-7b``'s prefill (each cut to size as its
-    ``LM_RANK_CELLS`` entry says).  No kernel of the port is on this
+    expert-parallel experts (an all-to-all each way over ``model``),
+    ``llava-next-mistral-7b``'s prefill, and both cells of
+    ``falcon-mamba-7b``, ``recurrentgemma-2b`` (on (2, 2) ranks) and
+    ``whisper-large-v3`` (each cut to size as its ``LM_RANK_CELLS`` entry
+    says).  No kernel of the port is on this
     path: the counts stay 0."""
     from repro_torch.benchmarks import roofline
     from repro_torch.launch import dryrun

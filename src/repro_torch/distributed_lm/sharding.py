@@ -20,7 +20,9 @@ On ranks (a ``core.mesh.ProcessMesh``) a leaf is placed: ``block_slices``
 dimension of size ``d`` split ``k`` ways keeps ``ceil(d / k)`` entries a
 block, as XLA's shards and the dry-run's records do; an entry naming
 several axes splits row-major over them; an axis the mesh lacks has size
-1), ``leaf_spec`` finds a ``state_dict`` key's spec in a model's
+1; a ``models.layers.Fused`` entry's dimension holds its parts side by
+side, and the block is the rank's block of each part, an index array),
+``leaf_spec`` finds a ``state_dict`` key's spec in a model's
 ``param_specs()``, ``cache_block`` / ``batch_block`` cut a cache or a
 batch (the ``data`` coordinate picks the rows), and ``to_rank_widths``
 turns a model built on ``meta`` into one rank's blocks.
@@ -30,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,7 +43,8 @@ from ..models.layers import P, map_specs
 __all__ = ["batch_axes", "batch_specs", "input_structs", "shard_params",
            "named", "cache_structs", "ShapeDtype", "NamedSpec",
            "spec_axes", "spec_entries", "block_slices", "leaf_block",
-           "leaf_spec", "cache_block", "batch_block", "to_rank_widths"]
+           "leaf_spec", "cache_block", "batch_block", "to_rank_widths",
+           "block_shape", "head_vocab_split"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,12 +153,28 @@ def spec_entries(spec, ndim: int) -> list:
     return list(spec) + [None] * (ndim - len(spec))
 
 
-def block_slices(shape: Sequence[int], spec, mesh) -> Tuple[slice, ...]:
+def head_vocab_split(params) -> bool:
+    """Whether the head's vocab dimension is split over ``model``, so the
+    logits come out vocab-split: the ``lm_head``'s columns, else the tied
+    embedding's rows (not Whisper's, split on ``d_model``: its head sums
+    whole logits over ``model``).  ``params``: a ``param_specs()`` tree
+    or the parameter records (each with its spec)."""
+    def spec(leaf):
+        return leaf.sharding.spec if isinstance(leaf, ShapeDtype) else leaf
+    if "lm_head" in params:
+        w = spec(params["lm_head"]["w"])
+        return "model" in spec_axes(spec_entries(w, 2)[-1])
+    return "model" in spec_axes(spec_entries(spec(params["embed"]), 2)[0])
+
+
+def block_slices(shape: Sequence[int], spec, mesh) -> Tuple:
     """This rank's block of an array of ``shape`` split by ``spec`` on the
     ``ProcessMesh`` ``mesh``: along a dimension of size ``d`` split into
     ``k`` blocks (the product of its axes' sizes), block ``c`` (the
     rank's coordinates over those axes, row-major) is ``[c * ceil(d / k),
-    min((c + 1) * ceil(d / k), d))``."""
+    min((c + 1) * ceil(d / k), d))``.  A ``models.layers.Fused`` entry
+    splits each of its ``parts`` (``d / parts`` wide) so, and the block is
+    an int64 index array of the rank's entries of every part in order."""
     out = []
     for d, entry in zip(shape, spec_entries(spec, len(shape))):
         k, c = 1, 0
@@ -162,14 +182,31 @@ def block_slices(shape: Sequence[int], spec, mesh) -> Tuple[slice, ...]:
             n = mesh.shape.get(axis, 1)
             c = c * n + (mesh.axis_index(axis) if n > 1 else 0)
             k *= n
-        step = -(-int(d) // k)
-        out.append(slice(min(c * step, d), min((c + 1) * step, d)))
+        parts = getattr(entry, "parts", 1)
+        if int(d) % parts:
+            raise ValueError(f"a dimension of {d} does not hold {parts} "
+                             f"equal fused parts")
+        size = int(d) // parts
+        step = -(-size // k)
+        lo, hi = min(c * step, size), min((c + 1) * step, size)
+        if parts == 1:
+            out.append(slice(lo, hi))
+        else:
+            out.append(np.concatenate([np.arange(j * size + lo,
+                                                 j * size + hi)
+                                       for j in range(parts)]))
     return tuple(out)
 
 
+def block_shape(block: Sequence) -> Tuple[int, ...]:
+    """The shape of a block of ``block_slices``."""
+    return tuple(len(s) if isinstance(s, np.ndarray) else s.stop - s.start
+                 for s in block)
+
+
 def leaf_block(t, spec, mesh):
-    """``t``'s block (a view; a tensor or an array) under ``spec`` on
-    ``mesh``."""
+    """``t``'s block (a tensor or an array) under ``spec`` on ``mesh``: a
+    view, or a copy where a fused dimension's block is an index array."""
     return t[block_slices(t.shape, spec, mesh)]
 
 
@@ -217,7 +254,7 @@ def to_rank_widths(model: nn.Module, mesh, device: torch.device) -> None:
     for key, old in list(model.named_parameters()):
         spec = leaf_spec(specs, key)
         block = block_slices(old.shape, spec, mesh)
-        shape = tuple(s.stop - s.start for s in block)
+        shape = block_shape(block)
         owner, _, name = key.rpartition(".")
         module = model.get_submodule(owner)
         new = nn.Parameter(torch.empty(shape, dtype=old.dtype,

@@ -61,11 +61,15 @@ same step's arguments from the ``ShapeDtype`` records of
 
   - row-split denses: every dense weight whose contraction dimension is
     split over ``model`` (attention out, MLP down, Mamba's ``x_proj`` /
-    ``out_proj``, RG-LRU's ``out``, the shared experts' and arctic's
-    dense residual's down) ends in an all-reduce over ``model`` of its
-    ``[t, d_out]`` output.  Training adds one for the remat recompute
-    (``remat`` with policy ``"full"``) and one in the backward (the
-    gradient entering each column-split group);
+    ``out_proj``, RG-LRU's ``out``, Whisper's ``fc2``, the shared
+    experts' and arctic's dense residual's down) ends in an all-reduce
+    over ``model`` of its ``[t, d_out]`` output.  Training adds one for
+    the remat recompute (``remat`` with policy ``"full"``) and one in the
+    backward (the gradient entering each column-split group).  Mamba's
+    ``in_proj`` moves nothing: its spec splits the fused ``[xs | z]``
+    columns, and a rank holds its channels' columns of each half
+    (``layers.Fused``), the same bytes as a contiguous block, where the
+    reference's XLA moves columns to halve a contiguous block;
   - FFN-split MoE (``w_down`` split over ``model`` on its hidden
     dimension): the gated sum of every expert's partial output, one
     all-reduce of ``[t, d]`` a pass (``models/layers._experts_on_ranks``);
@@ -87,7 +91,10 @@ same step's arguments from the ``ShapeDtype`` records of
     label's logit) and, in the backward, the ``[t, d]`` input gradient;
     prefill and decode leave the logits vocab-split, as the step's
     result.  A head contracted over a split ``d_model`` (Whisper's tied
-    embedding) all-reduces its ``[t, V]`` logits;
+    embedding) all-reduces its ``[t, V]`` logits, in pieces of
+    ``models.whisper.HEAD_CHUNK_TOKENS`` tokens (one all-reduce each; a
+    whole ``[t, V]`` float32 partial would hold some 850 MB at 4,096
+    tokens on every rank);
   - a decode's self-attention against a cache whose sequence is split
     over ``model`` (every attention family's decode cell but the
     hybrid's window): each layer all-gathers the new q, k and v over
@@ -95,6 +102,25 @@ same step's arguments from the ``ShapeDtype`` records of
     all-reduces the scores' max and their exponentials' sum ``[t, h]``
     (float32) and the weighted values ``[t, h, hd]``, the exact softmax
     over every rank's slots, before the row-split ``wo``;
+  - all-gathers over ``model`` of a column-split input, each in the
+    compute dtype, in every forward pass and the remat recompute (a
+    training backward reduce-scatters its float32 gradient, ``[t, w /
+    k]``): RG-LRU's gates ``w_a`` / ``w_i`` contract over the whole
+    ``d_rnn`` while a rank holds ``d_rnn / k`` channels of the conv
+    output, so each rec block gathers ``[t, d_rnn]``; KV heads that the
+    axis does not split (``n_kv_heads % k``; a rank's column block of
+    ``wk`` / ``wv`` is part of one head, as the hybrid's one KV head),
+    so each attention layer gathers the new k and v as one panel ``[t,
+    2 kv hd]``, and a decode against a cache whole on every rank does
+    so whatever the axis (every rank writes the whole new K/V into its
+    copy of the hybrid's window, which the cache's spec leaves whole);
+    ``models.layers.gathers_kv`` decides both, for the ranks and this
+    count, in every family (``_run_rule`` runs such cells for the
+    hybrid only);
+  - Whisper's cross cache: a decode cell reads a seeded cache, replicated
+    over ``model``, with each rank's own heads, which moves nothing but
+    the row-split ``wo``'s all-reduce (``prefill_cross`` on ranks
+    all-gathers each layer's new cross K/V; no cell runs it);
   - LLaVA's projector: its row-split ``fc2`` all-reduces ``[p, d]`` over
     the ``p`` patches, forward and (training) backward;
   - the gradient reduction over the batch axes, once a step, float32:
@@ -129,12 +155,15 @@ their hidden dimension split over it, which no collective over
 ``model`` sees): its block of every parameter under
 ``param_specs()``, drawn whole from the one-process model's generator
 leaf by leaf (``models.layers.draw``), its block of the cache (its rows,
-its sequence slots) and its share of the batch (the ranks' ``data``
+its sequence slots, its channels of a recurrent state; the hybrid's window
+and Whisper's cross cache whole) and its share of the batch (the
+ranks' ``data``
 axis covers as many consecutive data rows of the cell's mesh, drawn
 together from seed 1), with the collectives of the closed form above
 over ``model`` (``core/collectives.py``; ``models/layers.py`` under
 ``sharding_mesh``).  Its logits stay vocab-split; the whole logits are
-gathered after the timed passes.  A rank whose share fails makes every
+gathered after the timed passes (Whisper's come out whole: its head
+sums them over ``model``).  A rank whose share fails makes every
 rank raise (``collectives.agree_or_raise``) where no rank is left inside
 a collective; there is no fallback to one process.  Training on ranks
 is not ported.
@@ -158,14 +187,19 @@ ranks that share one card run one after another on it, so their
 ``run_s`` is not what four cards would take.
 ``run_checks`` lists what held: every output finite; ``train``: every
 parameter changed; ``prefill``: logits ``[run_batch, vocab]`` (the
-rank's vocab block on ranks); ``decode``: each attention cache changed
-at ``pos`` and nowhere else (the hybrid's rolling window at
-``pos % window``; on ranks, on the rank whose slots hold ``pos``, every
-other rank's cache unchanged), a cross-attention cache not at all; on
-ranks also every all-reduced tensor of the warm-up byte-equal on the
-ranks of a ``model`` line (by ``collectives.digest``), so is every MoE
-layer's routing (its experts and gates, ``Tally.route``), and the
-gathered logits equal on every rank.  A failed check raises.
+rank's vocab block on ranks where the head splits the vocab);
+``decode``: each attention cache changed at ``pos`` and nowhere else
+(the hybrid's rolling window at ``pos % window``, on every rank; on
+ranks, a sequence-split cache on the rank whose slots hold ``pos``,
+every other rank's cache unchanged), a cross-attention cache not at
+all, each recurrent state (Mamba's ``conv`` / ``ssm``, RG-LRU's
+``conv*`` / ``h*``) advanced in every channel it holds (the rank's on
+ranks) of every layer, the hybrid's placeholder tail slot (no trailing
+blocks) unchanged; on ranks also every all-reduced tensor of the
+warm-up byte-equal on the ranks of a ``model`` line (by
+``collectives.digest``), so is every MoE layer's routing (its experts
+and gates, ``Tally.route``) and the hybrid's window after the passes,
+and the gathered logits equal on every rank.  A failed check raises.
 
   python -m repro_torch.launch.dryrun --all --out build/dryrun --device cpu
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
@@ -192,11 +226,13 @@ from ..device import DeviceLike, resolve_device
 from ..core import collectives as coll
 from ..distributed_lm.sharding import (ShapeDtype, batch_axes, batch_block,
                                        cache_block, cache_structs,
-                                       input_structs, named, shard_params)
+                                       head_vocab_split, input_structs,
+                                       named, shard_params)
 from ..distributed_lm.sharding import spec_axes as _axes
 from ..distributed_lm.sharding import spec_entries as _entries
 from ..models import build_model
-from ..models.layers import P, torch_dtype
+from ..models import whisper as _whisper
+from ..models.layers import P, gathers_kv, torch_dtype
 from ..serve.serve_step import (make_prefill_step, make_serve_step,
                                 whole_logits)
 from ..train.optimizer import AdamConfig, adam_init, opt_state_specs
@@ -352,14 +388,6 @@ def argument_bytes(args: Dict[str, Any]) -> int:
     return sum(_tree_bytes(v) for k, v in args.items() if k != "opt_specs")
 
 
-def _head_vocab_split(params) -> bool:
-    """Whether the head's vocab dimension is split over ``model``: the
-    ``lm_head``'s columns, else the tied embedding's rows."""
-    if "lm_head" in params:
-        return "model" in _axes(params["lm_head"]["w"].sharding.spec[-1])
-    return "model" in _axes(params["embed"].sharding.spec[0])
-
-
 def output_bytes(cfg, shape: ShapeCell, mesh,
                  args: Dict[str, Any]) -> Optional[int]:
     """Per-device bytes of the step's outputs (module docstring), or
@@ -367,7 +395,7 @@ def output_bytes(cfg, shape: ShapeCell, mesh,
     dt = torch_dtype(cfg.compute_dtype)
     long_ctx = shape.name.startswith("long")
     ba = batch_axes(mesh) if not long_ctx else None
-    vocab = "model" if _head_vocab_split(args["params"]) else None
+    vocab = "model" if head_vocab_split(args["params"]) else None
     if shape.kind == "prefill":
         logits = ShapeDtype((shape.global_batch, cfg.vocab), dt,
                             named(mesh, P(ba, vocab)))
@@ -414,11 +442,26 @@ class _Tally:
                 "total_bytes": int(sum(self.bytes.values()))}
 
 
+def _gathered(out: "_Tally", elems: int, act: int, passes: int,
+              k: int) -> None:
+    """An all-gather over ``model`` whose result holds ``elems`` values in
+    the compute dtype, in each forward pass (and the remat recompute);
+    training's backward reduce-scatters its float32 gradient (result
+    ``ceil(elems / k)`` values)."""
+    out.add("all-gather", elems * act, times=max(passes - 1, 1))
+    if passes > 1:
+        out.add("reduce-scatter", -(-elems // k) * _PARTIAL)
+
+
 def _body_terms(recs, cfg, tokens: int, act: int, passes: int,
-                k: int) -> _Tally:
+                k: int, whole_kv: bool = False,
+                cross_tokens: int = 0) -> _Tally:
     """One body's model-axis collectives for ``tokens`` tokens, over
     ``passes`` passes, on a ``model`` axis of ``k`` (module docstring);
-    ``recs`` are the body's parameter records, each with its spec."""
+    ``recs`` are the body's parameter records, each with its spec.
+    ``whole_kv``: a decode whose cache every rank holds whole (the
+    hybrid's window); ``cross_tokens``: the encoder positions a
+    cross-attention's k and v are projected from."""
     out = _Tally()
     for path, rec in _leaves(recs):
         spec = _entries(rec.sharding.spec, len(rec.shape))
@@ -427,6 +470,13 @@ def _body_terms(recs, cfg, tokens: int, act: int, passes: int,
                     "model" not in _axes(spec[-1]):
                 out.add("all-reduce", tokens * rec.shape[-1] * _PARTIAL,
                         times=passes)
+            if path[-2] == "w_a" and "model" in _axes(spec[-1]):
+                # RG-LRU's gates read the whole conv output
+                _gathered(out, tokens * rec.shape[-2], act, passes, k)
+            if path[-2] == "wk" and gathers_kv(cfg, k, whole_kv):
+                # the new k and v, every KV head
+                t_kv = cross_tokens if "cross_attn" in path else tokens
+                _gathered(out, t_kv * 2 * rec.shape[-1], act, passes, k)
         elif path[-1] == "w_down":
             d = rec.shape[-1]
             if "model" in _axes(spec[-3]):          # experts over model
@@ -493,7 +543,10 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
             tokens = b * cfg.enc_frames if key == "enc_blocks" else t_dec
             for r in (recs[key] if key == "tail" else [recs[key]]):
                 body = _body_terms(r, cfg, tokens, act, passes,
-                                   mesh.shape["model"])
+                                   mesh.shape["model"],
+                                   whole_kv=kind == "decode"
+                                   and key != seq_split,
+                                   cross_tokens=b * cfg.enc_frames)
                 if key == seq_split:
                     body.merge(_decode_attention_terms(cfg, tokens, act))
                 trips = 1 if key == "tail" else \
@@ -507,12 +560,15 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
             head.add("all-reduce", t_text * d * act)
         elif "model" in _axes(emb[1]):
             head.add("all-gather", t_text * d * act)
-        if _head_vocab_split(recs):
+        if head_vocab_split(recs):
             if kind == "train":
                 head.add("all-reduce", t_dec * 4, count=3)
                 head.add("all-reduce", t_dec * d * _PARTIAL)
         else:
-            head.add("all-reduce", t_dec * v * _PARTIAL)
+            # summed HEAD_CHUNK_TOKENS tokens at a time
+            chunk = _whisper.HEAD_CHUNK_TOKENS
+            for t0 in range(0, t_dec, chunk):
+                head.add("all-reduce", min(chunk, t_dec - t0) * v * _PARTIAL)
         if "vision_proj" in recs:
             w = recs["vision_proj"]["fc2"]["w"]
             head.add("all-reduce", b * npatch * w.shape[-1] * _PARTIAL,
@@ -565,14 +621,20 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
     batch).  On ranks (a ``ProcessMesh`` over ``data`` and ``model``):
     the ranks' ``model`` axis equal to the cell's, their ``data`` axis
     within the cell's batch blocks, a serving cell (prefill or decode),
-    and where ``model`` is split, a transformer (``dense``, ``moe``,
-    ``vlm``) whose every split the axis makes exact: heads, KV heads and
-    vocab; ``d_ff`` where a dense MLP runs; ``d_model`` for LLaVA's
-    projector; ``moe_d_ff`` and the shared experts' ``n_shared_experts x
-    moe_d_ff`` for FFN-split experts, ``n_experts`` for experts over
-    ``model``; a decode's cache length.  Not on ranks: capacity dispatch
-    (``moe_capacity``) and ``"model+data"`` experts where the ranks'
-    ``data`` axis is over 1."""
+    and where ``model`` is split, a model whose every split the axis
+    makes exact.  A transformer (``dense``, ``moe``, ``vlm``): heads, KV
+    heads and vocab; ``d_ff`` where a dense MLP runs; ``d_model`` for
+    LLaVA's projector; ``moe_d_ff`` and the shared experts'
+    ``n_shared_experts x moe_d_ff`` for FFN-split experts, ``n_experts``
+    for experts over ``model``; a decode's cache length.  Mamba
+    (``ssm``): ``d_inner`` and vocab.  The hybrid: heads, the KV heads'
+    columns ``n_kv_heads x head_dim`` (fewer KV heads than the axis are
+    gathered, so the axis must divide them or be their multiple),
+    ``d_ff``, ``d_rnn`` and vocab.  Whisper (``encdec``): heads, KV
+    heads, ``d_ff``, ``d_model`` and a decode's cache length.  Not on
+    ranks: a long-context decode, capacity dispatch (``moe_capacity``)
+    and ``"model+data"`` experts where the ranks' ``data`` axis is over
+    1."""
     model = mesh.shape.get("model", 1)
     if ranks is None:
         if model != 1:
@@ -593,18 +655,35 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
                 "over data) is not ported")
     if model == 1:
         return None
-    if cfg.family not in ("dense", "moe", "vlm"):
-        return (f"family {cfg.family!r}: only the transformer families "
-                f"(dense, moe, vlm) run tensor-parallel on ranks")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
+        return f"family {cfg.family!r} has no tensor-parallel split on ranks"
     if shape.name.startswith("long"):
+        if cfg.family in ("ssm", "hybrid"):
+            return ("a long-context decode (one sequence, its batch not split "
+                    "over data) is not ported on ranks")
         return ("a long-context decode splits its cache over (data, model):"
                 " not ported on ranks")
-    sizes = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-             ("vocab", cfg.vocab)]
-    if cfg.family != "moe" or cfg.dense_residual:
-        sizes.append(("d_ff", cfg.d_ff))
-    if cfg.family == "vlm":
-        sizes.append(("d_model", cfg.d_model))
+    if cfg.family == "ssm":
+        sizes = [("d_inner", cfg.d_inner), ("vocab", cfg.vocab)]
+    elif cfg.family == "hybrid":
+        sizes = [("n_heads", cfg.n_heads),
+                 ("n_kv_heads x head_dim", cfg.n_kv_heads * cfg.hd),
+                 ("d_ff", cfg.d_ff), ("d_rnn", cfg.drnn),
+                 ("vocab", cfg.vocab)]
+        if cfg.n_kv_heads % model and model % cfg.n_kv_heads:
+            return (f"model axis {model} neither divides nor is a multiple "
+                    f"of n_kv_heads {cfg.n_kv_heads}: a rank's query heads "
+                    f"would straddle KV groups")
+    elif cfg.family == "encdec":
+        sizes = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                 ("d_ff", cfg.d_ff), ("d_model", cfg.d_model)]
+    else:
+        sizes = [("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                 ("vocab", cfg.vocab)]
+        if cfg.family != "moe" or cfg.dense_residual:
+            sizes.append(("d_ff", cfg.d_ff))
+        if cfg.family == "vlm":
+            sizes.append(("d_model", cfg.d_model))
     if cfg.family == "moe":
         if cfg.moe_capacity:
             return ("capacity dispatch (moe_capacity) on ranks: its arrival "
@@ -621,7 +700,7 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
         if cfg.n_shared_experts:
             sizes.append(("n_shared_experts x moe_d_ff",
                           cfg.n_shared_experts * cfg.moe_d_ff))
-    if shape.kind == "decode":
+    if shape.kind == "decode" and cfg.family not in ("ssm", "hybrid"):
         sizes.append(("seq_len", shape.seq_len))
     for name, size in sizes:
         if size % model:
@@ -725,6 +804,44 @@ def closed_form_mismatch(counted: Sequence[Dict[str, Any]],
     return None
 
 
+def _check_written(name: str, v: torch.Tensor, before: torch.Tensor,
+                   pos: int, seq_split: bool, model_at: int) -> None:
+    """An attention cache ``[L, B, S, kv, hd]`` after a decode: changed at
+    ``pos`` (a rolling window: slot ``pos % S``) and nowhere else; with
+    its sequence split over ``model``, on the rank whose slots hold
+    ``pos`` only, every other rank's unchanged."""
+    slots = v.shape[2]
+    lo = model_at * slots if seq_split else 0
+    diff = v != before
+    if seq_split and not lo <= pos < lo + slots:
+        if bool(diff.any()):
+            raise AssertionError(f"run: cache {name} changed on a rank "
+                                 f"whose slots do not hold pos {pos}")
+        return
+    slot = (pos - lo) % slots
+    if bool(diff[:, :, :slot].any()) or bool(diff[:, :, slot + 1:].any()):
+        raise AssertionError(f"run: cache {name} changed away from pos "
+                             f"{pos}")
+    if not bool(diff[:, :, slot].any()):
+        raise AssertionError(f"run: cache {name} did not change at pos "
+                             f"{pos}")
+
+
+def _check_advanced(name: str, v: torch.Tensor, before: torch.Tensor,
+                    live: int, channels: int) -> None:
+    """A recurrent state ``[layers, ...]`` after a decode: each of its
+    first ``live`` layers changed in every channel (dimension
+    ``channels``: the rank's channels on ranks), the rest (the hybrid's
+    placeholder tail slot) unchanged."""
+    diff = v != before
+    moved = diff[:live].movedim(channels, -1).reshape(-1, v.shape[channels])
+    if live and not bool(moved.any(dim=0).all()):
+        raise AssertionError(f"run: state {name} did not advance in every "
+                             f"channel")
+    if bool(diff[live:].any()):
+        raise AssertionError(f"run: state {name} changed past its layers")
+
+
 def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
              run_reps: int = _RUN_REPS, ranks=None,
              logits: Optional[List[torch.Tensor]] = None) -> Dict[str, Any]:
@@ -755,6 +872,7 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         return model
 
     model = _agreed(ranks, "run_cell setup", setup)
+    vocab_split = head_vocab_split(model.param_specs())
     data = torch.Generator(device=device).manual_seed(1)
 
     def rank_rows(batch):
@@ -793,7 +911,8 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
                            if k != "labels"})
         step = make_prefill_step(model, cfg)
         outs = []
-        width = cfg.vocab // (split.shape["model"] if split else 1)
+        width = cfg.vocab // (split.shape["model"] if split and vocab_split
+                              else 1)
 
         def one():
             outs.append(step(batch))
@@ -814,6 +933,11 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
                 {k: whole}, model, ranks, long_ctx)[k]
             del whole
         before = {k: v.clone() for k, v in cache.items()}
+        cache_specs = model.cache_specs(long_ctx)
+        # whether the attention cache's sequence is split over model (else
+        # it is whole on every rank: the hybrid's window)
+        seq_split = "k" in cache and "model" in _axes(
+            _entries(cache_specs["k"], 5)[2])
         tokens = rank_rows({"tokens": torch.randint(
             0, cfg.vocab, (rows, 1), generator=data, device=device,
             dtype=torch.int32)})["tokens"]
@@ -830,36 +954,36 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         def check():
             for i, logits in enumerate(outs):
                 _finite(f"logits {i}", logits)
+            checks[:] = ["logits finite", "cache finite"]
             for k, v in cache.items():
                 _finite(f"cache {k}", v)
+                entries = _entries(cache_specs[k], v.dim())
                 if k in ("k", "v"):
-                    slots = v.shape[2]
-                    lo = model_at * slots    # the rank's first slot
-                    diff = (v != before[k])
-                    if split is not None and not lo <= pos < lo + slots:
-                        if bool(diff.any()):
-                            raise AssertionError(
-                                f"run: cache {k} changed on a rank whose "
-                                f"slots do not hold pos {pos}")
-                        continue
-                    slot = (pos - lo) % slots
-                    if bool(diff[:, :, :slot].any()) or \
-                            bool(diff[:, :, slot + 1:].any()):
-                        raise AssertionError(f"run: cache {k} changed "
-                                             f"away from pos {pos}")
-                    if not bool(diff[:, :, slot].any()):
-                        raise AssertionError(f"run: cache {k} did not "
-                                             f"change at pos {pos}")
-                elif k.startswith("cross_") and not torch.equal(
-                        v, before[k]):
-                    raise AssertionError(f"run: cache {k} changed")
-            checks[:] = ["logits finite", "cache finite"]
+                    _check_written(k, v, before[k], pos, split is not None
+                                   and "model" in _axes(entries[2]),
+                                   model_at)
+                elif k.startswith("cross_"):
+                    if not torch.equal(v, before[k]):
+                        raise AssertionError(f"run: cache {k} changed")
+                else:
+                    # a recurrent state [layers, rows, ..., channels, ...]
+                    live = (model.n_tail if k.startswith("tail_")
+                            else v.shape[0])
+                    _check_advanced(k, v, before[k], live,
+                                    [_axes(e) for e in entries]
+                                    .index(("model",)))
             written = [k for k in cache if k in ("k", "v")]
             if written:
                 checks.append(f"{'/'.join(written)} written at pos {pos} "
                               f"only")
-                if split is not None:
+                if split is not None and seq_split:
                     checks.append("the other ranks' caches unchanged")
+            states = [k for k in cache if k not in ("k", "v")
+                      and not k.startswith("cross_")]
+            if states:
+                checks.append(f"{'/'.join(states)} advanced in every "
+                              f"channel {'of the rank' if split else ''}"
+                              .rstrip())
             if any(k.startswith("cross_") for k in cache):
                 checks.append("cross K/V unchanged")
     on_card = device.type == "cuda"
@@ -884,8 +1008,15 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         # the exchanges first, on every rank: a check that fails on one
         # rank must not leave the others waiting in a collective
         if whole is not None:
-            whole = whole_logits(whole, ranks)
+            whole = whole_logits(whole, ranks, model)
         lines_agree = _same_on(digests, ranks, "model")
+        # a cache whole on every rank and written (the hybrid's window)
+        # holds the same bytes along a model line
+        window = (shape.kind == "decode" and split is not None
+                  and "k" in cache and not seq_split)
+        window_agree = not window or _same_on(
+            [w for k in ("k", "v") for w in coll.digest(cache[k])], ranks,
+            "model")
         routes_agree = _same_on(routes, ranks, "model")
         logits_agree = whole is None or _same_on(list(coll.digest(whole)),
                                                  ranks)
@@ -903,6 +1034,9 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         if not logits_agree:
             raise AssertionError("run: the gathered logits differ between "
                                  "ranks")
+        if not window_agree:
+            raise AssertionError("run: the window cache differs between the "
+                                 "ranks of a model line")
         checks.append(f"{len(digests) // 2} all-reduced tensors equal on "
                       f"every rank of a model line")
         if routes:
@@ -910,6 +1044,8 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
                           f"equal on every rank of a model line")
         if whole is not None:
             checks.append("gathered logits equal on every rank")
+        if window:
+            checks.append("the window equal on every rank of a model line")
 
     _agreed(ranks, "run_cell checks", check_all)
     if logits is not None and whole is not None:

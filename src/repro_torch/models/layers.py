@@ -42,10 +42,19 @@ sequence is split over ``model``: every head's new q / k / v gathered
 over ``model``, the new K/V written by the rank whose slots hold ``pos``,
 the softmax combined across the ranks exactly from the all-reduced max
 and sum, the weighted values summed, then the rank's heads through its
-row-split ``wo``.  ``moe_apply`` routes every token on every rank (the
-router is replicated and reads the all-reduced residual, so a ``model``
-line computes the same experts and gates; ``Tally.route`` keeps their
-digests), then runs the experts by the layout of ``moe_specs``: FFN-split
+row-split ``wo``; against a cache whole on every rank (the hybrid's
+rolling window, written whole by every rank from the gathered new K/V;
+Whisper's cross cache, read only) it attends with the rank's query
+heads and the KV heads they read.  Where the axis does not split the
+KV heads (fewer than the axis, as the hybrid's one), a rank's column
+block of ``wk`` / ``wv`` is part of one head: the new k and v are
+all-gathered over ``model`` and the rank keeps the heads its query
+heads read (``gathers_kv``, ``_qkv``, ``_rank_kv_heads``).
+``moe_apply`` routes every token on every rank (the router is
+replicated and reads the all-reduced
+residual, so a ``model`` line computes the same experts and gates;
+``Tally.route`` keeps their digests), then runs the experts by the
+layout of ``moe_specs``: FFN-split
 (``"ffn"``) dispatches every expert densely on the rank's slice of the
 expert hidden dimension and all-reduces the gated partial sum over
 ``model``; expert-parallel (``"model"``, or ``"model+data"`` where the
@@ -83,7 +92,8 @@ __all__ = [
     "cross_entropy_loss", "remat_policy", "remat", "stacked_specs",
     "map_specs",
     "linear_scan", "causal_conv", "torch_dtype", "sharding_mesh",
-    "current_mesh", "draw", "sum_partials",
+    "current_mesh", "draw", "sum_partials", "Fused", "embed_vocab_split",
+    "gather_kv", "gathers_kv",
 ]
 
 
@@ -100,6 +110,25 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return "P" + tuple.__repr__(self)
+
+
+class Fused(str):
+    """A spec entry naming one axis over a dimension that fuses ``parts``
+    equal parts side by side (Mamba's ``in_proj`` output ``[xs | z]``).
+    It equals the axis name as a string, so ``tuple(spec)`` compares with
+    the reference's and the bytes a device holds are counted as for a
+    plain entry; but a rank's block is its block of each part, side by
+    side (``distributed_lm.sharding.block_slices``), where a contiguous
+    block would hold one part only and a step that halves the fused
+    output would need an exchange to split it."""
+
+    def __new__(cls, axis: str, parts: int):
+        out = super().__new__(cls, axis)
+        out.parts = int(parts)
+        return out
+
+    def __getnewargs__(self):
+        return str(self), self.parts
 
 
 def map_specs(fn, specs, other):
@@ -141,8 +170,8 @@ _MESH: contextvars.ContextVar = contextvars.ContextVar(
 
 @contextlib.contextmanager
 def sharding_mesh(mesh):
-    """Makes ``mesh`` (a rank's ``ProcessMesh``) the layers' mesh inside
-    the block (module docstring)."""
+    """Makes ``mesh`` (a rank's ``ProcessMesh``, or ``None``: one process)
+    the layers' mesh inside the block (module docstring)."""
     tok = _MESH.set(mesh)
     try:
         yield
@@ -153,6 +182,11 @@ def sharding_mesh(mesh):
 def current_mesh():
     """The mesh ``sharding_mesh`` threads, or ``None``."""
     return _MESH.get()
+
+
+def _split_model(mesh) -> bool:
+    """Whether ``mesh`` (the threaded mesh, or ``None``) splits ``model``."""
+    return mesh is not None and mesh.shape.get("model", 1) > 1
 
 
 @torch.no_grad()
@@ -169,7 +203,10 @@ def draw(p: torch.Tensor, fill: Callable[[torch.Tensor], object]) -> None:
         return
     whole = torch.empty(p.whole_shape, dtype=p.dtype, device=p.device)
     fill(whole)
-    p.copy_(whole[block])
+    # a fused dimension's block is an index array (sharding.block_slices)
+    p.copy_(whole[tuple(torch.as_tensor(s, device=p.device)
+                        if isinstance(s, np.ndarray) else s
+                        for s in block)])
     del whole
 
 
@@ -178,6 +215,23 @@ def sum_partials(y: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     ``collectives.all_reduce_sum``), taken in float32 and rounded once to
     ``y``'s dtype."""
     return coll.all_reduce_sum(y.float(), mesh, axis).to(y.dtype)
+
+
+def embed_vocab_split(embed: torch.Tensor, tokens: torch.Tensor,
+                      dtype: torch.dtype, mesh) -> torch.Tensor:
+    """``tokens``' rows of an embedding in ``dtype``; on a rank (``mesh``
+    splitting ``model``) ``embed`` is its block of vocab rows: the others'
+    tokens give zeros, then one all-reduce sum over ``model`` (exact in
+    any dtype: one rank holds each token's row)."""
+    if not _split_model(mesh):
+        return embed[tokens.long()].to(dtype)
+    rows = embed.shape[0]
+    ids = tokens.long() - mesh.axis_index("model") * rows
+    inside = (ids >= 0) & (ids < rows)
+    x = torch.where(inside[..., None],
+                    embed[ids.clamp(0, rows - 1)].to(dtype),
+                    torch.zeros((), dtype=dtype, device=ids.device))
+    return coll.all_reduce_sum(x, mesh, "model")
 
 
 def _f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor
@@ -331,24 +385,92 @@ def attention_specs(cfg: ArchConfig) -> Dict:
     return p
 
 
-def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor,
-         kv_x: Optional[torch.Tensor], positions: Optional[torch.Tensor],
-         use_rope: bool):
+def _rank_kv_heads(cfg: ArchConfig, mesh) -> Tuple[int, int]:
+    """The KV heads ``[lo, hi)`` that this rank's query heads (block ``r``
+    of ``n_heads / k`` over ``model``) read: its own block where the axis
+    splits the KV heads, else the one head whose group holds its query
+    heads.  Raises where the query heads would straddle KV groups."""
+    k, r = mesh.shape["model"], mesh.axis_index("model")
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    hq, n_rep = h // k, h // kv
+    lo, hi = r * hq // n_rep, ((r + 1) * hq - 1) // n_rep + 1
+    if hq % (hi - lo) or h % k:
+        raise NotImplementedError(
+            f"{h} query heads over a model axis of {k} straddle the groups "
+            f"of {kv} KV heads")
+    return lo, hi
+
+
+def gathers_kv(cfg: ArchConfig, k: int, whole_kv: bool) -> bool:
+    """Whether attention on a ``model`` axis of ``k`` all-gathers the new
+    k and v over it (``gather_kv``): where the axis does not split the KV
+    heads (a rank's column block of ``wk`` / ``wv`` is part of one head),
+    or ``whole_kv`` asks for every KV head (a cache whole on every rank).
+    ``_qkv`` runs by it and the dry-run's closed form counts by it."""
+    return k > 1 and bool(whole_kv or cfg.n_kv_heads % k)
+
+
+def gather_kv(k: torch.Tensor, v: torch.Tensor, mesh
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's column block of the new k and v ``[..., w]``, gathered
+    over ``model`` as one panel ``[k | v]``: the whole ``[..., k_ax w]``
+    (every KV head) of each."""
+    k_ax, w = mesh.shape["model"], k.shape[-1]
+    kv = coll.all_gather_panel(torch.cat([k, v], dim=-1), mesh, "model",
+                               dim=k.dim() - 1)
+    kv = kv.reshape(*k.shape[:-1], k_ax, 2, w)
+    return (kv[..., 0, :].reshape(*k.shape[:-1], k_ax * w),
+            kv[..., 1, :].reshape(*k.shape[:-1], k_ax * w))
+
+
+def _project_q(p: Attention, cfg: ArchConfig, x: torch.Tensor,
+               positions: Optional[torch.Tensor], use_rope: bool
+               ) -> torch.Tensor:
+    """The query heads this model holds, normed and rotated."""
     b, s = x.shape[:2]
-    hd = cfg.hd
-    src = x if kv_x is None else kv_x
-    # the heads this model holds: all of them, or a rank's block
-    q = dense_apply(p.wq, x).reshape(b, s, -1, hd)
-    k = dense_apply(p.wk, src).reshape(b, src.shape[1], -1, hd)
-    v = dense_apply(p.wv, src).reshape(b, src.shape[1], -1, hd)
+    q = dense_apply(p.wq, x).reshape(b, s, -1, cfg.hd)
     if cfg.qk_norm:
         q = rms_norm(p.q_norm, q, cfg.norm_eps)
+    if use_rope:
+        cos, sin = rope_cos_sin(_positions(positions, s, x.device), cfg.hd,
+                                cfg.rope_theta, x.dtype)
+        q = apply_rope(q, cos, sin)
+    return q
+
+
+def _positions(positions: Optional[torch.Tensor], s: int, device
+               ) -> torch.Tensor:
+    return (positions if positions is not None
+            else torch.arange(s, device=device)[None, :])
+
+
+def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor,
+         kv_x: Optional[torch.Tensor], positions: Optional[torch.Tensor],
+         use_rope: bool, whole_kv: bool = False):
+    """q, k, v of the heads this model holds: all of them, or on ranks
+    the rank's query heads and the KV heads they read, the new k and v
+    all-gathered over ``model`` first where ``gathers_kv`` says."""
+    b = x.shape[0]
+    hd = cfg.hd
+    src = x if kv_x is None else kv_x
+    s_kv = src.shape[1]
+    q = _project_q(p, cfg, x, positions, use_rope)
+    k = dense_apply(p.wk, src)
+    v = dense_apply(p.wv, src)
+    mesh = current_mesh()
+    if _split_model(mesh) and gathers_kv(cfg, mesh.shape["model"],
+                                         whole_kv):
+        k, v = gather_kv(k, v, mesh)
+        if not whole_kv:
+            lo, hi = _rank_kv_heads(cfg, mesh)
+            k, v = k[..., lo * hd:hi * hd], v[..., lo * hd:hi * hd]
+    k = k.reshape(b, s_kv, -1, hd)
+    v = v.reshape(b, s_kv, -1, hd)
+    if cfg.qk_norm:
         k = rms_norm(p.k_norm, k, cfg.norm_eps)
     if use_rope:
-        pos = (positions if positions is not None
-               else torch.arange(s, device=x.device)[None, :])
-        cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta, x.dtype)
-        q = apply_rope(q, cos, sin)
+        cos, sin = rope_cos_sin(_positions(positions, x.shape[1], x.device),
+                                hd, cfg.rope_theta, x.dtype)
         k = apply_rope(k, cos, sin)
     return q, k, v
 
@@ -506,26 +628,37 @@ def attention_decode(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     and the same tensors are returned: the reference returns new caches
     (``dynamic_update_slice``), which a loop over steps would copy whole.
     RoPE uses the absolute ``pos``.  ``update_cache=False`` (a static
-    cross-attention cache) writes nothing.  Inside ``sharding_mesh`` with
-    a ``model`` axis over 1 the cache is the rank's slots
-    (``_decode_on_ranks``)."""
+    cross-attention cache) writes nothing and projects the query alone.
+
+    Inside ``sharding_mesh`` with a ``model`` axis over 1 a written cache
+    without ``slot`` is the rank's slots (``_decode_on_ranks``).  Any
+    other cache is whole on every rank: the rank attends with its query
+    heads against the KV heads they read (``_rank_kv_heads``), then its
+    row-split ``wo`` sums over ``model``.  Into a rolling window every
+    rank writes the whole new K/V, all-gathered over ``model``
+    (``_qkv(whole_kv=True)``), so the copies stay identical."""
     b = x.shape[0]
     pos = int(pos)
     mesh = current_mesh()
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        if window or slot is not None or not update_cache \
-                or not causal_mask or not use_rope:
+    split = _split_model(mesh)
+    if split and update_cache and slot is None:
+        if window or not causal_mask:
             raise NotImplementedError(
-                "decode on ranks runs causal self-attention with rope "
-                "against a written cache only")
-        return _decode_on_ranks(p, cfg, x, cache_k, cache_v, pos, mesh)
-    q, k, v = _qkv(p, cfg, x, None,
-                   torch.tensor([[pos]], device=x.device) if use_rope
-                   else None, use_rope)
-    write_at = pos if slot is None else int(slot)
+                "decode on ranks against a sequence-split cache runs causal "
+                "self-attention without a window only")
+        return _decode_on_ranks(p, cfg, x, cache_k, cache_v, pos, mesh,
+                                use_rope)
+    positions = (torch.tensor([[pos]], device=x.device) if use_rope
+                 else None)
     if update_cache:
+        q, k, v = _qkv(p, cfg, x, None, positions, use_rope,
+                       whole_kv=slot is not None)
+        write_at = pos if slot is None else int(slot)
         cache_k[:, write_at] = k[:, 0].to(cache_k.dtype)
         cache_v[:, write_at] = v[:, 0].to(cache_v.dtype)
+    else:
+        q = _project_q(p, cfg, x, positions, use_rope)
+    lo, hi = _rank_kv_heads(cfg, mesh) if split else (0, cfg.n_kv_heads)
     sk = cache_k.shape[1]
     ki = torch.arange(sk, device=x.device)[None, :]
     ok = (ki <= pos) if causal_mask else torch.ones(
@@ -534,16 +667,16 @@ def attention_decode(p: Attention, cfg: ArchConfig, x: torch.Tensor,
         ok &= ki > pos - window
     mask = torch.zeros(ok.shape, device=x.device).masked_fill(
         ~ok, -math.inf)[:, None, :].expand(b, 1, sk)
-    out = _sdpa(q, cache_k.to(x.dtype), cache_v.to(x.dtype), mask,
-                cfg.n_heads // cfg.n_kv_heads)
-    return (dense_apply(p.wo, out.reshape(b, 1, cfg.n_heads * cfg.hd)),
-            cache_k, cache_v)
+    out = _sdpa(q, cache_k[:, :, lo:hi].to(x.dtype),
+                cache_v[:, :, lo:hi].to(x.dtype), mask,
+                q.shape[2] // (hi - lo))
+    return dense_apply(p.wo, out.reshape(b, 1, -1)), cache_k, cache_v
 
 
 def _decode_on_ranks(p: Attention, cfg: ArchConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-                     mesh) -> Tuple[torch.Tensor, torch.Tensor,
-                                    torch.Tensor]:
+                     mesh, use_rope: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``attention_decode`` on a rank: its blocks of ``wq`` / ``wk`` /
     ``wv`` (column-split heads) and ``wo`` (row-split), and its slots
     ``[r * S_r, (r + 1) * S_r)`` of the cache (``cache_k`` / ``cache_v``
@@ -556,11 +689,13 @@ def _decode_on_ranks(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     The softmax is the reference's exactly (``exp(s - max) / sum``, then
     cast to the compute dtype before the values), over every rank's
     slots; a rank whose slots all lie past ``pos`` contributes zeros
-    (its scores are ``-inf`` against the finite global max)."""
+    (its scores are ``-inf`` against the finite global max).  RoPE at
+    ``pos`` where ``use_rope`` (Whisper's decoder has none)."""
     b, hd, axis = x.shape[0], cfg.hd, "model"
     k_ax, r = mesh.shape[axis], mesh.axis_index(axis)
-    q, k, v = _qkv(p, cfg, x, None, torch.tensor([[pos]], device=x.device),
-                   True)
+    q, k, v = _qkv(p, cfg, x, None,
+                   torch.tensor([[pos]], device=x.device) if use_rope
+                   else None, use_rope)
     hq, hk = q.shape[2], k.shape[2]
     qkv = coll.all_gather_panel(torch.cat([q, k, v], dim=2), mesh, axis,
                                 dim=2).reshape(b, 1, k_ax, hq + 2 * hk, hd)

@@ -14,6 +14,22 @@ Decode path: O(1) recurrent step on (conv window, SSM state), both
 written in place into the cache (the reference returns new ones).
 Layers are an ``nn.ModuleList`` under ``blocks.<i>.``, parameters under
 the reference's names.
+
+Built with ``ranks`` (a ``ProcessMesh`` whose ``model`` axis splits the
+model), the model is one rank's share of a tensor-parallel one, as
+``TransformerLM``'s: its blocks under ``param_specs()``, drawn whole
+from the one-process generator leaf by leaf, and ``apply`` /
+``decode_step`` inside ``layers.sharding_mesh(ranks)``.  The rank holds
+``d_inner / k`` channels: ``conv_*``, ``dt_proj``, ``A_log`` and ``D``
+are channel-split, and the selective scan and the decode's ``conv`` /
+``ssm`` states cover the rank's channels only.  ``in_proj``'s spec
+splits its fused ``[xs | z]`` output over ``model``; a contiguous
+column block would hold one half only (the reference's XLA moves
+columns to halve it), so the rank holds its channels' columns of each
+half (``layers.Fused``): the same bytes, no exchange.  ``x_proj`` and
+``out_proj`` are row-split, so each sums its partial product over
+``model`` (float32, ``layers.sum_partials``); the vocab-split embedding
+all-reduces, and the head leaves the logits vocab-split.
 """
 from __future__ import annotations
 
@@ -57,19 +73,20 @@ class MambaBlock(nn.Module):
         for dense in (self.ln, self.in_proj, self.x_proj, self.dt_proj,
                       self.out_proj):
             dense.reset(generator)
-        self.conv_w.normal_(generator=generator).mul_(0.1)
+        L.draw(self.conv_w, lambda t: t.normal_(generator=generator).mul_(
+            0.1))
         self.conv_b.zero_()
-        st = self.A_log.shape[1]
-        self.A_log.copy_(torch.log(torch.arange(
-            1, st + 1, dtype=torch.float32,
-            device=self.A_log.device))[None].expand_as(self.A_log))
+        L.draw(self.A_log, lambda t: t.copy_(torch.log(torch.arange(
+            1, t.shape[1] + 1, dtype=torch.float32,
+            device=t.device))[None].expand_as(t)))
         self.D.fill_(1.0)
 
 
 def _block_specs(cfg: ArchConfig) -> Dict:
     return {
         "ln": L.rms_specs(),
-        "in_proj": L.dense_specs(None, "model"),
+        # the [xs | z] halves, each split over model (module docstring)
+        "in_proj": L.dense_specs(None, L.Fused("model", 2)),
         "conv_w": L.P(None, "model"),
         "conv_b": L.P("model"),
         "x_proj": L.dense_specs("model", None),
@@ -170,25 +187,35 @@ class MambaLM(nn.Module):
 
     Built on ``device`` (``None`` means ``"cuda"``) with its parameters
     unset: ``init(generator)`` draws them, or ``load_state_dict`` fills
-    them."""
+    them.  With ``ranks`` (a ``ProcessMesh``) it holds this rank's blocks
+    (module docstring)."""
 
-    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None):
+    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
+                 ranks=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.ranks = ranks
+        whole_dev = dev
+        if ranks is not None:
+            dev = torch.device("meta")
         self.embed = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model),
                                               device=dev))
         self.ln_f = L.RMSNorm(cfg.d_model, device=dev)
         self.blocks = nn.ModuleList(MambaBlock(cfg, device=dev)
                                     for _ in range(cfg.n_layers))
         self.lm_head = L.Dense(cfg.d_model, cfg.vocab, device=dev)
+        if ranks is not None:
+            from ..distributed_lm.sharding import to_rank_widths
+            to_rank_widths(self, ranks, whole_dev)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "MambaLM":
         """Draws every parameter from ``generator`` with the reference's
         distributions (embeddings N(0, 0.02²), projections N(0, 1/d_in),
         conv N(0, 0.01), ``A_log`` = log 1..d_state, ``D`` ones)."""
-        self.embed.normal_(generator=generator).mul_(0.02)
+        L.draw(self.embed, lambda t: t.normal_(generator=generator).mul_(
+            0.02))
         self.ln_f.reset(generator)
         for blk in self.blocks:
             blk.reset(generator)
@@ -206,9 +233,15 @@ class MambaLM(nn.Module):
 
     def apply(self, tokens: torch.Tensor, patch_embeds=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits [B, S, V], aux_loss = 0)."""
+        """-> (logits [B, S, V], aux_loss = 0); on ranks the logits are the
+        rank's vocab block."""
+        with L.sharding_mesh(self.ranks):
+            return self._apply(tokens)
+
+    def _apply(self, tokens: torch.Tensor):
         cfg = self.cfg
-        x = self.embed[tokens.long()].to(L.torch_dtype(cfg.compute_dtype))
+        x = L.embed_vocab_split(self.embed, tokens,
+                                L.torch_dtype(cfg.compute_dtype), self.ranks)
         block = L.remat(_block_apply, cfg)
         for blk in self.blocks:
             x = block(blk, cfg, x)
@@ -247,9 +280,16 @@ class MambaLM(nn.Module):
                     ) -> Tuple[torch.Tensor, Cache]:
         """tokens [B, 1] -> (logits [B, 1, V], cache); each layer's conv
         window and SSM state advance in place, the same dict is
-        returned (``pos`` is not needed: the state is the position)."""
+        returned (``pos`` is not needed: the state is the position).  On
+        ranks: the rank's channels of the states and vocab block of the
+        logits."""
+        with L.sharding_mesh(self.ranks):
+            return self._decode_step(cache, tokens)
+
+    def _decode_step(self, cache: Cache, tokens: torch.Tensor):
         cfg = self.cfg
-        x = self.embed[tokens.long()].to(L.torch_dtype(cfg.compute_dtype))
+        x = L.embed_vocab_split(self.embed, tokens,
+                                L.torch_dtype(cfg.compute_dtype), self.ranks)
         for i, blk in enumerate(self.blocks):
             x = _block_decode(blk, cfg, x, cache["conv"][i],
                               cache["ssm"][i])

@@ -29,15 +29,12 @@ def build_model(cfg: ArchConfig, *, device: DeviceLike = None,
                 ranks=None):
     """The model of ``cfg``'s family on ``device`` (``None`` means
     ``"cuda"``), parameters unset (``init(generator)`` draws them).
-    ``ranks`` (a ``ProcessMesh``) gives a transformer-family model one
-    rank's blocks of a tensor-parallel split (``TransformerLM``)."""
+    ``ranks`` (a ``ProcessMesh``) gives the model one rank's blocks of a
+    tensor-parallel split (every family: each class's docstring)."""
     try:
         cls = FAMILIES[cfg.family]
     except KeyError:
         raise ValueError(f"unknown family {cfg.family!r} for arch {cfg.name}")
     if ranks is None:
         return cls(cfg, device=device)
-    if cls is not TransformerLM:
-        raise NotImplementedError(f"family {cfg.family!r} has no "
-                                  f"tensor-parallel split on ranks")
     return cls(cfg, device=device, ranks=ranks)

@@ -15,6 +15,20 @@ in the reference too).  The decode cache holds each rec block's conv
 window and state, written in place, and a rolling K/V window of
 ``min(window, max_seq)`` slots: position ``pos`` lands in slot
 ``pos % w``.
+
+Built with ``ranks`` (a ``ProcessMesh`` whose ``model`` axis splits the
+model), the model is one rank's share of a tensor-parallel one, as
+``TransformerLM``'s.  A rec block's ``in_x``, ``in_gate``, conv and
+``lam`` are channel-split (``d_rnn / k`` channels a rank, and so are the
+decode's ``conv*`` / ``h*`` states); ``w_a`` / ``w_i`` are column-split
+over a whole ``d_rnn`` contraction, so the rank's conv output is
+all-gathered over ``model`` once before the two gates; ``out`` and
+every MLP's ``down`` are row-split and sum over ``model``.  The local
+attention runs the rank's query heads; its one KV head (fewer than the
+axis) comes from the gathered new k / v, and the decode's window stays
+whole and identical on every rank (``layers.attention_decode``).  The
+vocab-split embedding all-reduces; the tied head leaves the logits
+vocab-split.
 """
 from __future__ import annotations
 
@@ -24,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import collectives as coll
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from .common import ArchConfig
@@ -62,7 +77,8 @@ class RecBlock(nn.Module):
         for mod in (self.ln, self.in_x, self.in_gate, self.w_a, self.w_i,
                     self.out):
             mod.reset(generator)
-        self.conv_w.normal_(generator=generator).mul_(0.1)
+        L.draw(self.conv_w, lambda t: t.normal_(generator=generator).mul_(
+            0.1))
         self.conv_b.zero_()
         self.lam.fill_(4.0)
 
@@ -82,7 +98,12 @@ def _rec_specs(cfg: ArchConfig) -> Dict:
 
 
 def _gates(p: RecBlock, xs: torch.Tensor):
-    """(log a, i) float32 of the RG-LRU from its conv output."""
+    """(log a, i) float32 of the RG-LRU from its conv output; on ranks
+    the rank's channels of each, from the conv output all-gathered over
+    ``model`` (``w_a`` / ``w_i`` contract over all of ``d_rnn``)."""
+    mesh = L.current_mesh()
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        xs = coll.all_gather_panel(xs, mesh, "model", dim=xs.dim() - 1)
     r = torch.sigmoid(L.dense_apply(p.w_a, xs).float())
     i = torch.sigmoid(L.dense_apply(p.w_i, xs).float())
     # F.softplus returns x itself past 20, jax.nn.softplus does not (a
@@ -210,12 +231,18 @@ def _group_apply(p: Group, cfg: ArchConfig, x: torch.Tensor
 class GriffinLM(nn.Module):
     """recurrentgemma-2b: 26 layers = 8 x (rec, rec, attn) + (rec, rec),
     tied head.  Built on ``device`` (``None`` means ``"cuda"``) with its
-    parameters unset: ``init(generator)`` draws them."""
+    parameters unset: ``init(generator)`` draws them.  With ``ranks`` (a
+    ``ProcessMesh``) it holds this rank's blocks (module docstring)."""
 
-    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None):
+    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
+                 ranks=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.ranks = ranks
+        whole_dev = dev
+        if ranks is not None:
+            dev = torch.device("meta")
         self.n_groups = cfg.n_layers // 3
         self.n_tail = cfg.n_layers - 3 * self.n_groups
         self.embed = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model),
@@ -225,12 +252,16 @@ class GriffinLM(nn.Module):
                                     for _ in range(self.n_groups))
         self.tail = nn.ModuleList(Tail(cfg, device=dev)
                                   for _ in range(self.n_tail))
+        if ranks is not None:
+            from ..distributed_lm.sharding import to_rank_widths
+            to_rank_widths(self, ranks, whole_dev)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "GriffinLM":
         """Draws every parameter from ``generator`` with the reference's
         distributions."""
-        self.embed.normal_(generator=generator).mul_(0.02)
+        L.draw(self.embed, lambda t: t.normal_(generator=generator).mul_(
+            0.02))
         self.ln_f.reset(generator)
         for mod in list(self.groups) + list(self.tail):
             mod.reset(generator)
@@ -249,9 +280,15 @@ class GriffinLM(nn.Module):
 
     def apply(self, tokens: torch.Tensor, patch_embeds=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits [B, S, V], aux_loss = 0)."""
+        """-> (logits [B, S, V], aux_loss = 0); on ranks the logits are the
+        rank's vocab block."""
+        with L.sharding_mesh(self.ranks):
+            return self._apply(tokens)
+
+    def _apply(self, tokens: torch.Tensor):
         cfg = self.cfg
-        x = self.embed[tokens.long()].to(L.torch_dtype(cfg.compute_dtype))
+        x = L.embed_vocab_split(self.embed, tokens,
+                                L.torch_dtype(cfg.compute_dtype), self.ranks)
         group = L.remat(_group_apply, cfg)
         for gp in self.groups:
             x = group(gp, cfg, x)
@@ -311,10 +348,16 @@ class GriffinLM(nn.Module):
         """tokens [B, 1]; ``pos`` an int -> (logits [B, 1, V], cache).
         Local attention uses the rolling window: position ``pos`` lands
         in slot ``pos % w``, RoPE keeps the absolute ``pos``.  Every state
-        advances in place; the same dict is returned."""
+        advances in place; the same dict is returned.  On ranks: the
+        rank's channels of the states, the whole window (the same on every
+        rank) and the vocab block of the logits."""
+        with L.sharding_mesh(self.ranks):
+            return self._decode_step(cache, tokens, int(pos))
+
+    def _decode_step(self, cache: Cache, tokens: torch.Tensor, pos: int):
         cfg = self.cfg
-        pos = int(pos)
-        x = self.embed[tokens.long()].to(L.torch_dtype(cfg.compute_dtype))
+        x = L.embed_vocab_split(self.embed, tokens,
+                                L.torch_dtype(cfg.compute_dtype), self.ranks)
         slot = pos % cache["k"].shape[2]
         for i, gp in enumerate(self.groups):
             x = _rec_decode(gp.rec1, cfg, x, cache["conv1"][i],

@@ -29,14 +29,12 @@ step returns them; the cache is the rank's block (its batch rows over
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core import collectives as coll
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from .common import ArchConfig
@@ -135,12 +133,6 @@ class TransformerLM(nn.Module):
             from ..distributed_lm.sharding import to_rank_widths
             to_rank_widths(self, self.ranks, whole_dev)
 
-    def _on_ranks(self):
-        """``layers.sharding_mesh`` of the ranks, or nothing."""
-        if self.ranks is None:
-            return contextlib.nullcontext()
-        return L.sharding_mesh(self.ranks)
-
     # -- params ------------------------------------------------------------
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "TransformerLM":
@@ -180,17 +172,7 @@ class TransformerLM(nn.Module):
                patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
         dt = L.torch_dtype(cfg.compute_dtype)
-        if self.ranks is None:
-            x = self.embed[tokens.long()].to(dt)
-        else:
-            # this rank's vocab rows; the others' tokens give zeros
-            rows = self.embed.shape[0]
-            ids = tokens.long() - self.ranks.axis_index("model") * rows
-            inside = (ids >= 0) & (ids < rows)
-            x = torch.where(inside[..., None],
-                            self.embed[ids.clamp(0, rows - 1)].to(dt),
-                            torch.zeros((), dtype=dt, device=ids.device))
-            x = coll.all_reduce_sum(x, self.ranks, "model")
+        x = L.embed_vocab_split(self.embed, tokens, dt, self.ranks)
         if cfg.vision_dim and patch_embeds is not None:
             vp = self.vision_proj
             pe = L.dense_apply(vp["fc2"], F.gelu(
@@ -210,7 +192,7 @@ class TransformerLM(nn.Module):
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits [B, S, V], aux_loss); on ranks the logits are the
         rank's vocab block."""
-        with self._on_ranks():
+        with L.sharding_mesh(self.ranks):
             return self._apply(tokens, patch_embeds)
 
     def _apply(self, tokens, patch_embeds):
@@ -254,7 +236,7 @@ class TransformerLM(nn.Module):
         Each layer writes its new K/V into ``cache`` in place
         (``layers.attention_decode``); the same dict is returned.  On
         ranks: the rank's cache block and vocab block of the logits."""
-        with self._on_ranks():
+        with L.sharding_mesh(self.ranks):
             return self._decode_step(cache, tokens, pos)
 
     def _decode_step(self, cache: Cache, tokens: torch.Tensor, pos):

@@ -12,6 +12,22 @@ K/V once (``prefill_cross``) and then carries the self-attention cache,
 which each decode step writes in place; the cross K/V is only read.
 Layers are ``nn.ModuleList``s under ``enc_blocks.<i>.`` and
 ``dec_blocks.<i>.`` (stacked on a leading axis in the reference).
+
+Built with ``ranks`` (a ``ProcessMesh`` whose ``model`` axis splits the
+model), the model is one rank's share of a tensor-parallel one, as
+``TransformerLM``'s: the encoder and decoder run the rank's heads and
+``d_ff`` block (row-split ``wo`` and ``fc2`` sum over ``model``).  The
+embedding is split on ``d_model`` (the vocab does not divide the axis),
+so a token's row block is all-gathered over ``model``; the tied head
+contracts over the split ``d_model``, so the rank's partial logits are
+summed over ``model`` in float32 (``layers.sum_partials``),
+``HEAD_CHUNK_TOKENS`` tokens at a time (a ``[t, V]`` float32 partial at
+once would hold some 850 MB at 4,096 tokens on every rank): the logits
+come out whole on every rank.  The self-attention cache is split over
+``model`` along its sequence (``layers._decode_on_ranks``, no rope); the
+cross cache is whole on every rank and only read, each rank with its
+own heads.  ``prefill_cross`` on ranks gathers the new cross K/V over
+``model`` to write it whole.
 """
 from __future__ import annotations
 
@@ -20,6 +36,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ..core import collectives as coll
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from .common import ArchConfig
@@ -27,6 +44,10 @@ from .common import ArchConfig
 __all__ = ["WhisperModel"]
 
 Cache = Dict[str, torch.Tensor]
+
+# the tied head on ranks forms and sums its partial logits this many
+# tokens at a time (the dry-run's closed form counts its all-reduces so)
+HEAD_CHUNK_TOKENS = 256
 
 
 class EncBlock(nn.Module):
@@ -97,12 +118,18 @@ def _dec_block_apply(p: DecBlock, cfg: ArchConfig, x: torch.Tensor,
 class WhisperModel(nn.Module):
     """Encoder-decoder backbone; inputs are (tokens [B, S], frames
     [B, F, D] stub).  Built on ``device`` (``None`` means ``"cuda"``) with
-    its parameters unset: ``init(generator)`` draws them."""
+    its parameters unset: ``init(generator)`` draws them.  With ``ranks``
+    (a ``ProcessMesh``) it holds this rank's blocks (module docstring)."""
 
-    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None):
+    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
+                 ranks=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.ranks = ranks
+        whole_dev = dev
+        if ranks is not None:
+            dev = torch.device("meta")
         self.embed = nn.Parameter(torch.empty((cfg.vocab, cfg.d_model),
                                               device=dev))
         self.enc_blocks = nn.ModuleList(EncBlock(cfg, device=dev)
@@ -111,12 +138,16 @@ class WhisperModel(nn.Module):
         self.dec_blocks = nn.ModuleList(DecBlock(cfg, device=dev)
                                         for _ in range(cfg.n_layers))
         self.dec_ln = L.RMSNorm(cfg.d_model, device=dev)
+        if ranks is not None:
+            from ..distributed_lm.sharding import to_rank_widths
+            to_rank_widths(self, ranks, whole_dev)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "WhisperModel":
         """Draws every parameter from ``generator`` with the reference's
         distributions."""
-        self.embed.normal_(generator=generator).mul_(0.02)
+        L.draw(self.embed, lambda t: t.normal_(generator=generator).mul_(
+            0.02))
         for mod in [*self.enc_blocks, self.enc_ln, *self.dec_blocks,
                     self.dec_ln]:
             mod.reset(generator)
@@ -142,11 +173,39 @@ class WhisperModel(nn.Module):
     def _positions(self, positions: torch.Tensor) -> torch.Tensor:
         return L.sinusoidal_positions(positions, self.cfg.d_model)
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``tokens``' embedding rows in the compute dtype; on ranks the
+        rank's ``d_model`` block of each, all-gathered over ``model``."""
+        x = self.embed[tokens.long()].to(self._dtype())
+        if self.ranks is None:
+            return x
+        return coll.all_gather_panel(x, self.ranks, "model", dim=x.dim() - 1)
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.embed.to(x.dtype).T
+        """The tied head; on ranks the rank's partial logits over its
+        ``d_model`` block, summed over ``model`` (float32, then rounded
+        once) ``HEAD_CHUNK_TOKENS`` tokens at a time: whole logits on
+        every rank."""
+        w = self.embed.to(x.dtype)
+        if self.ranks is None:
+            return x @ w.T
+        width = w.shape[1]
+        lo = self.ranks.axis_index("model") * width
+        flat = x[..., lo:lo + width].reshape(-1, width)
+        out = torch.empty((flat.shape[0], w.shape[0]), dtype=x.dtype,
+                          device=x.device)
+        for t0 in range(0, flat.shape[0], HEAD_CHUNK_TOKENS):
+            part = flat[t0:t0 + HEAD_CHUNK_TOKENS] @ w.T
+            out[t0:t0 + HEAD_CHUNK_TOKENS] = L.sum_partials(
+                part, self.ranks, "model")
+        return out.reshape(*x.shape[:-1], w.shape[0])
 
     # -- encoder -------------------------------------------------------------
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        with L.sharding_mesh(self.ranks):
+            return self._encode(frames)
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
         cfg, dt = self.cfg, self._dtype()
         pos = self._positions(torch.arange(frames.shape[1],
                                            device=frames.device))
@@ -159,12 +218,16 @@ class WhisperModel(nn.Module):
     # -- decoder full-sequence -------------------------------------------------
     def apply(self, tokens: torch.Tensor, frames: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits [B, S, V], aux_loss = 0)."""
+        """-> (logits [B, S, V], aux_loss = 0); whole logits on ranks too."""
+        with L.sharding_mesh(self.ranks):
+            return self._apply(tokens, frames)
+
+    def _apply(self, tokens: torch.Tensor, frames: torch.Tensor):
         cfg, dt = self.cfg, self._dtype()
-        enc = self.encode(frames)
+        enc = self._encode(frames)
         pos = self._positions(torch.arange(tokens.shape[1],
                                            device=tokens.device))
-        x = self.embed[tokens.long()].to(dt) + pos[None].to(dt)
+        x = self._embed(tokens) + pos[None].to(dt)
         block = L.remat(_dec_block_apply, cfg)
         for blk in self.dec_blocks:
             x = block(blk, cfg, x, enc)
@@ -205,29 +268,39 @@ class WhisperModel(nn.Module):
     def prefill_cross(self, cache: Cache, frames: torch.Tensor) -> Cache:
         """Encode ``frames`` and write every decoder layer's cross K/V
         into ``cache["cross_k"]`` / ``["cross_v"]`` in place; returns the
-        same dict."""
+        same dict.  On ranks each layer's new K/V (the rank's heads) is
+        all-gathered over ``model`` and the whole cross cache written on
+        every rank."""
         cfg = self.cfg
-        enc = self.encode(frames)
-        b, f = enc.shape[:2]
-        for i, blk in enumerate(self.dec_blocks):
-            ca = blk.cross_attn
-            k = L.dense_apply(ca.wk, enc).reshape(b, f, cfg.n_kv_heads,
-                                                  cfg.hd)
-            v = L.dense_apply(ca.wv, enc).reshape(b, f, cfg.n_kv_heads,
-                                                  cfg.hd)
-            cache["cross_k"][i].copy_(k)
-            cache["cross_v"][i].copy_(v)
+        with L.sharding_mesh(self.ranks):
+            enc = self._encode(frames)
+            b, f = enc.shape[:2]
+            for i, blk in enumerate(self.dec_blocks):
+                ca = blk.cross_attn
+                k = L.dense_apply(ca.wk, enc)
+                v = L.dense_apply(ca.wv, enc)
+                if self.ranks is not None:
+                    k, v = L.gather_kv(k, v, self.ranks)
+                cache["cross_k"][i].copy_(k.reshape(b, f, cfg.n_kv_heads,
+                                                    cfg.hd))
+                cache["cross_v"][i].copy_(v.reshape(b, f, cfg.n_kv_heads,
+                                                    cfg.hd))
         return cache
 
     def decode_step(self, cache: Cache, tokens: torch.Tensor, pos
                     ) -> Tuple[torch.Tensor, Cache]:
         """tokens [B, 1]; ``pos`` an int -> (logits [B, 1, V], cache).
         Self-attention K/V are written in place at ``pos``; the cross
-        K/V are read, never written (``update_cache=False``, no mask)."""
+        K/V are read, never written (``update_cache=False``, no mask).  On
+        ranks: the rank's slots of the self-attention cache, the whole
+        cross cache, whole logits."""
+        with L.sharding_mesh(self.ranks):
+            return self._decode_step(cache, tokens, int(pos))
+
+    def _decode_step(self, cache: Cache, tokens: torch.Tensor, pos: int):
         cfg, dt = self.cfg, self._dtype()
-        pos = int(pos)
         pos_emb = self._positions(torch.tensor([pos], device=self.device))
-        x = self.embed[tokens.long()].to(dt) + pos_emb[None].to(dt)
+        x = self._embed(tokens) + pos_emb[None].to(dt)
         for i, blk in enumerate(self.dec_blocks):
             a, _, _ = L.attention_decode(
                 blk.self_attn, cfg, L.rms_norm(blk.ln1, x, cfg.norm_eps),

@@ -6,11 +6,12 @@ shape cells).  ``make_prefill_step``: full-sequence forward returning
 last-token logits (the ``prefill_*`` cells).  The model holds its
 parameters, so the steps take none.
 
-On ranks (a ``TransformerLM`` built with ``ranks``) both steps run the
-rank's share: they return the rank's vocab block of the logits and
-write the rank's cache block, as the reference's partitioned step
-leaves them.  ``whole_logits`` gathers the blocks into whole logits on
-every rank, the caller's job outside a timed step.
+On ranks (a model built with ``ranks``) both steps run the rank's
+share: they return the rank's vocab block of the logits (whole logits
+for Whisper, whose head sums them over ``model``) and write the rank's
+cache block, as the reference's partitioned step leaves them.
+``whole_logits`` gathers the blocks into whole logits on every rank,
+the caller's job outside a timed step.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ..core.collectives import all_gather_panel
+from ..distributed_lm.sharding import head_vocab_split
 from ..models.common import ArchConfig
 
 __all__ = ["make_serve_step", "make_prefill_step", "whole_logits"]
@@ -51,10 +53,14 @@ def make_prefill_step(model, cfg: ArchConfig) -> Callable:
     return prefill
 
 
-def whole_logits(block: torch.Tensor, mesh) -> torch.Tensor:
+def whole_logits(block: torch.Tensor, mesh, model) -> torch.Tensor:
     """The whole logits from every rank's block of ``mesh`` (a
     ``ProcessMesh``): the vocab blocks (last dimension) gathered over
-    ``model``, then the batch rows (first dimension) over ``data``; every
-    rank gets the same tensor."""
-    out = all_gather_panel(block, mesh, "model", dim=block.dim() - 1)
+    ``model`` where ``model``'s head splits the vocab
+    (``head_vocab_split``; Whisper's head sums whole logits over
+    ``model``), then the batch rows (first dimension) over ``data``;
+    every rank gets the same tensor."""
+    out = block
+    if head_vocab_split(model.param_specs()):
+        out = all_gather_panel(out, mesh, "model", dim=block.dim() - 1)
     return all_gather_panel(out, mesh, "data", dim=0)

@@ -532,17 +532,33 @@ _SMOKE = get_smoke_config("qwen3-1.7b")
     ((8, 4), (1, 4), dataclasses.replace(
         get_smoke_config("llava-next-mistral-7b"), n_kv_heads=4,
         d_model=66), "prefill", "does not divide d_model 66"),
-    ((8, 2), (2, 2), get_smoke_config("falcon-mamba-7b"), "decode",
-     "only the transformer families (dense, moe, vlm)"),
+    ((8, 4), (1, 4), dataclasses.replace(
+        get_smoke_config("falcon-mamba-7b"), d_model=65), "decode",
+     "does not divide d_inner 130"),
+    ((8, 4), (1, 4), get_config("recurrentgemma-2b"), "decode",
+     "does not divide n_heads 10"),
+    ((8, 2), (2, 2), dataclasses.replace(
+        get_smoke_config("recurrentgemma-2b"), n_heads=12, n_kv_heads=3),
+     "prefill", "would straddle KV groups"),
+    ((8, 4), (1, 4), dataclasses.replace(
+        get_smoke_config("whisper-large-v3"), d_model=66), "prefill",
+     "does not divide d_model 66"),
+    ((8, 4), (1, 4), get_smoke_config("whisper-large-v3"), "decode62",
+     "does not divide seq_len 62"),
+    ((1, 4), (1, 4), get_smoke_config("falcon-mamba-7b"), "long",
+     "a long-context decode"),
 ], ids=["production-mesh", "kv-heads", "d_ff", "vocab", "train", "moe",
         "data-rows", "seq_len", "model+data-on-data-2", "n_experts",
-        "moe_d_ff", "shared-experts", "dense-residual", "projector", "ssm"])
+        "moe_d_ff", "shared-experts", "dense-residual", "projector", "ssm",
+        "hybrid-heads", "hybrid-kv-groups", "encdec-d_model",
+        "encdec-seq_len", "long-context"])
 def test_the_run_rule_says_why_a_cell_cannot_run_on_ranks(case):
     mesh_shape, ranks, cfg, kind, why = case
     mesh = (dryrun.make_production_mesh(device="cpu") if mesh_shape is None
             else dryrun.make_mesh(mesh_shape, ("data", "model"),
                                   device="cpu"))
     shape = (ShapeCell("decode_32k", 62, 8, "decode") if kind == "decode62"
+             else ShapeCell("long_500k", 64, 1, "decode") if kind == "long"
              else SMALL[kind])
     assert why in dryrun._run_rule(mesh, cfg, shape, _Ranks(ranks))
 
@@ -571,6 +587,95 @@ def test_the_run_rule_takes_moe_and_vlm_split_cells(arch, over, ranks):
     for kind in ("prefill", "decode"):
         assert dryrun._run_rule(mesh, cfg, SMALL[kind],
                                 _Ranks(ranks)) is None
+
+
+@pytest.mark.parametrize("arch,over,ranks", [
+    ("falcon-mamba-7b", {}, (1, 4)),
+    ("recurrentgemma-2b", {}, (2, 2)),
+    ("recurrentgemma-2b", {}, (1, 4)),
+    ("whisper-large-v3", {}, (1, 4))],
+    ids=["ssm", "hybrid-2", "hybrid-4", "encdec"])
+def test_the_run_rule_takes_the_state_and_encoder_decoder_families(
+        arch, over, ranks):
+    """Mamba, the hybrid (one KV head, fewer than the axis: gathered) and
+    Whisper split exactly on their smoke widths."""
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    mesh = dryrun.make_mesh((8, ranks[1]), ("data", "model"), device="cpu")
+    for kind in ("prefill", "decode"):
+        assert dryrun._run_rule(mesh, cfg, SMALL[kind],
+                                _Ranks(ranks)) is None
+
+
+def _hybrid_hand_counted(kind):
+    """The hybrid's terms on its 6-layer smoke model (two (rec, rec, attn)
+    groups, no tail; d 64, d_rnn 64, one KV head of 16, bf16) on 2 x 2:
+    a group's two rec ``out``, three MLP ``down`` and ``wo``, a ``[t,
+    64]`` float32 all-reduce each; the conv output ``[t, 64]`` gathered
+    a rec block and the new k and v ``[t, 2 x 16]`` once (one KV head on
+    a model axis of 2, and in decode the window), in bf16; the
+    embedding's all-reduce; the tied head's logits stay vocab-split."""
+    groups, d, a, f = 2, 64, 2, 4
+    t = 32 // 2 * 32768 if kind == "prefill" else 128 // 2
+    ar, emb = 6 * t * d * f, t * d * a
+    ag = 2 * t * 64 * a + t * 2 * 16 * a
+    return (_tally(all_reduce=(ar + emb, 7), all_gather=(ag, 3)),
+            _tally(all_reduce=(groups * ar + emb, groups * 6 + 1),
+                   all_gather=(groups * ag, groups * 3)))
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_hybrid_collectives_equal_the_hand_count(kind):
+    rec = dryrun.lower_cell("recurrentgemma-2b", f"{kind}_32k",
+                            mesh_shape=(2, 2),
+                            overrides=_overrides("recurrentgemma-2b"),
+                            device="cpu")
+    flat, executed = _hybrid_hand_counted(kind)
+    assert rec["collective"] == flat
+    assert rec["collective_executed"] == executed
+
+
+@pytest.mark.parametrize("model,gathered", [(2, False), (4, True)])
+def test_the_kv_gather_is_counted_where_the_axis_splits_no_kv_head(
+        model, gathered):
+    """``qwen3-1.7b``'s SMOKE model (2 layers, 2 KV heads of 16, bf16): a
+    model axis of 4 cuts inside a KV head, so each layer's prefill
+    gathers the new k and v ``[t, 2 x 2 x 16]`` (``layers.gathers_kv``,
+    whatever the family); an axis of 2 splits the heads and gathers
+    nothing."""
+    from repro_torch.models.layers import gathers_kv
+    assert gathers_kv(get_smoke_config("qwen3-1.7b"), model,
+                      False) is gathered
+    rec = dryrun.lower_cell("qwen3-1.7b", "prefill_32k",
+                            mesh_shape=(2, model),
+                            overrides=_overrides("qwen3-1.7b"),
+                            device="cpu")
+    got = rec["collective_executed"]
+    t = 32 // 2 * 32768
+    assert got["counts"]["all-gather"] == (2 if gathered else 0)
+    assert got["bytes"]["all-gather"] == (
+        2 * t * 2 * 2 * 16 * 2 if gathered else 0)
+
+
+def test_whisper_head_all_reduces_its_logits_in_token_pieces():
+    """Whisper's tied head contracts over the split ``d_model``: its
+    ``[t, V]`` float32 logits cross in ``HEAD_CHUNK_TOKENS``-token
+    all-reduces (4,096 tokens: 16 of 256), the same bytes as one."""
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.models import whisper
+    cfg = get_config("whisper-large-v3")
+    cell = dataclasses.replace(SHAPES["prefill_32k"], seq_len=4096)
+    rec = dryrun.lower_cell("whisper-large-v3", cell, mesh_shape=(32, 4),
+                            overrides={"n_layers": 4, "enc_layers": 4},
+                            device="cpu")
+    got = rec["collective_executed"]
+    assert whisper.HEAD_CHUNK_TOKENS == 256
+    # encoder 4 x (wo, fc2), decoder 4 x (wo twice, fc2), head 16 pieces
+    assert got["counts"]["all-reduce"] == 8 + 12 + 16
+    assert got["counts"]["all-gather"] == 1
+    d, t = cfg.d_model, 4096
+    layers = (8 * 1500 + 12 * t) * d * 4
+    assert got["bytes"]["all-reduce"] == layers + t * cfg.vocab * 4
+    assert got["bytes"]["all-gather"] == t * d * 2
 
 
 def test_a_cell_the_ranks_cannot_split_records_why_and_runs_nothing():

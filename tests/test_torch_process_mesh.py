@@ -5,7 +5,9 @@ on four host devices.
 One world of four ranks (``tests/util_process_mesh.py``, ``file://`` init
 under ``tmp_path``) runs every case of this module once and writes one
 ``.npz`` / ``.json`` a rank; the reference runs the same cases in a
-subprocess with ``--xla_force_host_platform_device_count=4``.  The tests
+subprocess with ``--xla_force_host_platform_device_count=4``, but for
+the LM cases' unsharded runs, which the rank processes share out once
+their world has closed.  The tests
 then hold each rank's results to the reference's: the padded W* of
 ``sharded_maxmin_closure`` byte for byte on 1 x 4, 4 x 1 and 2 x 2 grids,
 both schedules, full and one-round ladders, float32 and int32 (m = 25,
@@ -67,6 +69,14 @@ def _start(args, out_dir, name, env):
     return proc, log
 
 
+class _Arrays(dict):
+    """Arrays by name, with ``np.load``'s ``files``."""
+
+    @property
+    def files(self):
+        return list(self)
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """The reference and one world of four ranks, run side by side; each
@@ -111,7 +121,13 @@ def worlds(tmp_path_factory):
     def load(name):
         with open(os.path.join(out, f"{name}.json")) as f:
             return np.load(os.path.join(out, f"{name}.npz")), json.load(f)
-    return {"reference": load("reference"), "out": out,
+    arrays, scalars = load("reference")
+    # the LM cases' reference runs, shared out over the rank processes
+    reference = _Arrays(arrays)
+    for r in range(WORLD):
+        reference.update(np.load(os.path.join(out,
+                                              f"reference-lm{r}.npz")))
+    return {"reference": (reference, scalars), "out": out,
             "ranks": [load(f"rank{r}") for r in range(WORLD)]}
 
 
@@ -970,6 +986,9 @@ def test_rank_store_writes_come_from_rank_zero_alone(worlds):
 _LM_KEYS = [key for key, _, _, _ in u.LM_ALL]
 _MOE_KEYS = [key for key, arch, _, _ in u.FAMILY_CASES
              if port_configs.get_smoke_config(arch).family == "moe"]
+# the Mamba, hybrid and Whisper cases, and the transformer ones
+_NEW_KEYS = [key for key, _, _, _ in u.NON_TRANSFORMER_CASES]
+_TRANSFORMER_KEYS = [key for key in _LM_KEYS if key not in _NEW_KEYS]
 _LM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),   # tests/test_models.py:165
            "bfloat16": dict(rtol=5e-2, atol=5e-2)}  # test_torch_models._BF16_TOL
 _LM_STEPS = ["prefill"] + [f"decode{i}" for i in range(len(u.LM_DECODE_POS))]
@@ -1077,8 +1096,8 @@ def test_moe_rows_take_the_reference_experts_on_these_inputs(worlds,
 @pytest.mark.parametrize("grid", _LM_KEYS, ids=_LM_KEYS)
 def test_every_rank_gathers_the_same_logit_bytes(worlds, grid, dtype):
     """The gathered logits are byte-equal on every rank, and a rank's own
-    prefill block (its rows over data, its vocab over model) is their
-    cut."""
+    prefill block (its rows over data, its vocab over model where the
+    head splits it) is their cut."""
     tag = f"lm/{grid}/{dtype}"
     shape = _grid(grid)
     first = worlds["ranks"][0][0]
@@ -1088,14 +1107,19 @@ def test_every_rank_gathers_the_same_logit_bytes(worlds, grid, dtype):
                                   first[f"{tag}/{step}"]), (rank, step)
         whole = arrays[f"{tag}/prefill"]
         i, j = _coords(rank, shape)
-        rows, cols = whole.shape[0] // shape[0], whole.shape[1] // shape[1]
+        # Whisper's head sums whole logits over model: a rank's block is
+        # its rows of every column
+        split = u.case_config(port_configs, grid, dtype).family != "encdec"
+        rows = whole.shape[0] // shape[0]
+        cols = whole.shape[1] // (shape[1] if split else 1)
+        j = j if split else 0
         assert np.array_equal(arrays[f"{tag}/prefill_block"],
                               whole[i * rows:(i + 1) * rows,
                                     j * cols:(j + 1) * cols])
 
 
 @pytest.mark.parametrize("dtype", u.LM_DTYPES)
-@pytest.mark.parametrize("grid", _LM_KEYS, ids=_LM_KEYS)
+@pytest.mark.parametrize("grid", _TRANSFORMER_KEYS, ids=_TRANSFORMER_KEYS)
 def test_each_rank_cache_block_is_the_reference_block(worlds, grid, dtype):
     """After the three decode steps a rank's cache is its block of the
     reference's new cache (rows over data, slots over model): the seeded
@@ -1168,7 +1192,7 @@ def _run_kind(key):
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-@pytest.mark.parametrize("grid", _LM_KEYS, ids=_LM_KEYS)
+@pytest.mark.parametrize("grid", _TRANSFORMER_KEYS, ids=_TRANSFORMER_KEYS)
 def test_rank_runs_count_the_closed_forms_collectives(worlds, grid, kind):
     """``lower_cell(..., run=True, ranks=pm)``: every rank's tally of one
     timed pass equals the closed form's ``collective_executed`` (every
@@ -1285,13 +1309,249 @@ def test_a_rank_whose_expert_step_fails_makes_every_rank_raise(worlds, key):
 
 @pytest.mark.parametrize("name,why", [
     ("model+data", "the ranks' data axis 2 > 1"),
-    ("moe_capacity", "capacity dispatch (moe_capacity)")])
+    ("moe_capacity", "capacity dispatch (moe_capacity)"),
+    ("hybrid_heads", "model axis 4 does not divide n_heads 10"),
+    ("long_context", "a long-context decode")])
 def test_a_layout_the_ranks_do_not_split_records_why(worlds, name, why):
-    """``"model+data"`` experts on ranks whose data axis is 2, and capacity
-    dispatch, record their ``run_reason`` and run nothing."""
+    """``"model+data"`` experts on ranks whose data axis is 2, capacity
+    dispatch, recurrentgemma-2b's published 10 heads on a model axis of
+    4 and a long-context decode record their ``run_reason`` and run
+    nothing."""
     for rank, (_, scalars) in enumerate(worlds["ranks"]):
         rec = scalars["lm_refused"][name]
         assert why in rec["run_reason"] and not rec["ran"], rank
+
+
+class _At:
+    """The ``ProcessMesh`` fields ``block_slices`` reads, at ``coords``
+    of a (data, model) ``grid``, without a process group."""
+
+    def __init__(self, grid, coords):
+        self.axis_names = u.AXES
+        self.shape = dict(zip(u.AXES, grid))
+        self.coords = tuple(coords)
+
+    def axis_index(self, axis):
+        return self.coords[self.axis_names.index(axis)]
+
+
+# bf16 compute: a family cache's root-mean-square departure from the
+# reference's, relative to its root-mean-square, at most this (the
+# size of _BF16_TOL).  Elementwise the two packages' bf16 recurrences
+# part by more: the hybrid's states by up to 0.15 in one process as on
+# ranks (0.148 and 0.127 on these inputs, 3.0 % and 3.3 % of the RMS)
+_BF16_RMS = 5e-2
+
+
+def _close_to_the_reference(got, want, dtype, stored, what):
+    """Float32 compute: a float32 leaf at 1e-4, a bf16 one within one
+    bf16 rounding; bf16 compute: the relative RMS departure under
+    ``_BF16_RMS``."""
+    if dtype == "bfloat16":
+        if not got.size:              # a rank whose slots hold no step
+            return
+        rms = np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2))
+        assert rms <= _BF16_RMS, (what, rms)
+        return
+    tol = (_LM_TOL[dtype] if stored == "float32"
+           else dict(rtol=2.0 ** -7, atol=1e-6))
+    np.testing.assert_allclose(got, want, err_msg=what, **tol)
+
+
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("key", _NEW_KEYS)
+def test_each_rank_family_cache_block_is_the_reference_block(worlds, key,
+                                                            dtype):
+    """After the three decode steps each cache leaf of a rank is its block
+    (``cache_specs``) of the reference's: Mamba's ``conv`` / ``ssm`` and
+    RG-LRU's ``conv*`` / ``h*`` in the rank's channels, every value
+    advanced; the hybrid's window whole on every rank, written at ``pos
+    % 8`` (slots 2, 1, 7) and the other slots byte for byte; Whisper's
+    self-attention slots as the dense model's and its cross cache byte
+    for byte the seeded one.  What was written is held in float32
+    compute entry by entry, in bf16 by its RMS (``_BF16_RMS``)."""
+    from repro_torch.distributed_lm.sharding import leaf_block
+    from repro_torch.models import build_model
+    ref, _ = worlds["reference"]
+    tag = f"lm/{key}/{dtype}"
+    grid = _grid(key)
+    cfg = u.case_config(port_configs, key, dtype)
+    specs = build_model(cfg, device="meta").cache_specs()
+    stored = u.cache_dtypes(cfg)
+    for rank, (arrays, _) in enumerate(worlds["ranks"]):
+        at = _At(grid, _coords(rank, grid))
+        for k, dt in stored.items():
+            got = arrays[f"{tag}/cache_{k}"]
+            want = leaf_block(ref[f"{tag}/cache_{k}"], specs[k], at)
+            assert got.shape == want.shape, (rank, k)
+            if k.startswith("cross_"):
+                assert np.array_equal(got, want), (rank, k)
+                continue
+            if k in ("k", "v"):
+                slots = got.shape[2]
+                lo = (at.axis_index("model") * slots
+                      if cfg.family == "encdec" else 0)
+                mine = sorted({(p - lo) % slots for p in u.LM_DECODE_POS
+                               if cfg.family != "encdec"
+                               or lo <= p < lo + slots})
+                kept = np.setdiff1d(np.arange(slots), mine)
+                assert np.array_equal(got[:, :, kept], want[:, :, kept]), \
+                    (rank, k)
+                got, want = got[:, :, mine], want[:, :, mine]
+            _close_to_the_reference(got, want, dtype, dt, f"rank {rank} {k}")
+
+
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("key", [k for k in _NEW_KEYS if "whisper" in k])
+def test_prefill_cross_on_ranks_fills_the_reference_cross_cache(worlds, key,
+                                                                dtype):
+    """``prefill_cross`` on ranks (each layer's new cross K/V gathered over
+    ``model``) writes the whole cross cache of the rank's rows, the
+    reference's rows of its unsharded ``prefill_cross`` (a float32
+    cache)."""
+    ref, _ = worlds["reference"]
+    tag = f"lm/{key}/{dtype}"
+    grid = _grid(key)
+    per = u.LM_BATCH // grid[0]
+    for rank, (arrays, _) in enumerate(worlds["ranks"]):
+        i, _ = _coords(rank, grid)
+        for k in ("cross_k", "cross_v"):
+            np.testing.assert_allclose(
+                arrays[f"{tag}/prefill_{k}"],
+                ref[f"{tag}/prefill_{k}"][:, i * per:(i + 1) * per],
+                err_msg=f"rank {rank} {k}", **_LM_TOL[dtype])
+
+
+def _family_counts(key, kind):
+    """(all-reduces, all-gathers) of one pass of a new family's cell on
+    smoke widths (2 x LM_BATCH rows of LM_RUN_SEQ tokens): Mamba 2 x
+    (``x_proj``, ``out_proj``) + the embedding; the hybrid's two groups
+    (two rec blocks' ``out`` and three MLPs' ``down`` and ``wo``) and two
+    tail blocks (``out``, ``down``) + the embedding, and a gather of the
+    conv output a rec block (six) and of the new k / v an attention layer
+    (two); Whisper's encoder (``wo``, ``fc2``) and decoder (``wo`` twice,
+    ``fc2``, and in decode the sequence-split attention's three) two
+    layers each, its head in ``u.WHISPER_HEAD_CHUNK``-token pieces, the
+    embedding's all-gather and in decode the q / k / v gather a
+    layer."""
+    cfg = u.case_config(port_configs, key, "bfloat16")
+    if cfg.family == "ssm":
+        return 5, 0
+    if cfg.family == "hybrid":
+        return 17, 8
+    rows = 2 * u.LM_BATCH // _grid(key)[0]
+    if kind == "prefill":
+        return 2 * 2 + 2 * 3 + -(-rows * u.LM_RUN_SEQ
+                                 // u.WHISPER_HEAD_CHUNK), 1
+    return 2 * 6 + 1, 1 + 2
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("key", _NEW_KEYS)
+def test_family_rank_runs_count_the_closed_forms_collectives(worlds, key,
+                                                            kind):
+    """``lower_cell(..., run=True, ranks=pm)`` of the Mamba, hybrid and
+    Whisper cells: every rank's tally of one timed pass equals the
+    closed form's ``collective_executed``, kind by kind and byte for
+    byte, RG-LRU's conv-output gathers and the hybrid's k / v gathers
+    and Whisper's head pieces included (``_family_counts``); the decode
+    checks name the states advanced, the window equal along the line,
+    the cross cache unchanged."""
+    from repro_torch.launch import dryrun
+    shape = _grid(key)
+    family = u.case_config(port_configs, key, "bfloat16").family
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        run = scalars["lm_runs"][f"{key}/{kind}"]
+        assert run["run_reason"] is None
+        assert run["run_batch"] == 2 * u.LM_BATCH // shape[0]
+        want = run["collective_executed"]
+        assert dryrun.closed_form_mismatch(run["run_collective"], want,
+                                           shape) is None, rank
+        assert all(c == want for c in run["run_collective"]), rank
+        counts = want["counts"]
+        assert (counts["all-reduce"], counts["all-gather"]) == \
+            _family_counts(key, kind), rank
+        assert counts["all-to-all"] == counts["reduce-scatter"] == 0
+        assert run["run_s"] is None and run["run_exchange_s"] is None
+        checks = run["run_checks"]
+        assert f"{counts['all-reduce']} all-reduced tensors equal on every " \
+            f"rank of a model line" in checks
+        assert "gathered logits equal on every rank" in checks
+        if kind == "prefill":
+            width = 256 // (1 if family == "encdec" else shape[1])
+            assert f"logits [{run['run_batch']}, {width}]" in checks
+            continue
+        if family == "ssm":
+            assert "conv/ssm advanced in every channel of the rank" in checks
+        elif family == "hybrid":
+            assert {"k/v written at pos 15 only",
+                    "conv1/h1/conv2/h2/tail_conv/tail_h advanced in every "
+                    "channel of the rank",
+                    "the window equal on every rank of a model line"} <= \
+                set(checks)
+        else:
+            assert {"k/v written at pos 15 only",
+                    "the other ranks' caches unchanged",
+                    "cross K/V unchanged"} <= set(checks)
+
+
+@pytest.mark.parametrize("name,why", [
+    ("mamba", "state ssm did not advance in every channel"),
+    ("griffin", "the window cache differs between the ranks of a model "
+                "line")])
+def test_a_new_family_rank_whose_check_fails_makes_every_rank_raise(
+        worlds, name, why):
+    """A Mamba decode that holds back one state channel on one rank (its
+    own check fails), and a hybrid decode that writes its window apart
+    from its line's on one rank (every rank of the line sees the
+    digests differ): every rank raises, naming the failure."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        kind, msg = scalars["lm_family_failure"][name]
+        assert kind == "RuntimeError", (rank, msg)
+        assert why in msg, (rank, msg)
+        if name == "mamba":
+            assert f"rank {u.LM_FAILING_RANK} failed" in msg
+
+
+@pytest.mark.parametrize("coords", [(0, 0), (0, 1), (1, 1)])
+def test_a_rank_mamba_in_proj_block_is_its_block_of_each_half(coords):
+    """Mamba's ``in_proj`` spec splits its fused ``[xs | z]`` columns over
+    ``model``; a rank on a (data, model) = (2, 2) grid holds its
+    channels' columns of each half (``layers.Fused``), not a contiguous
+    block: ``block_slices``, the block ``init`` draws and
+    ``lm_rank_state_dict_from_params`` cut agree, and the rank's
+    ``chunk(2)`` of its product is its channels of ``xs`` and of ``z``."""
+    from repro_torch.convert import (lm_params_from_state_dict,
+                                     lm_rank_state_dict_from_params)
+    from repro_torch.distributed_lm.sharding import block_slices, leaf_spec
+    from repro_torch.models import build_model
+    cfg = port_configs.get_smoke_config("falcon-mamba-7b")
+    di, c = cfg.d_inner, coords[1]
+    at = _At((2, 2), coords)
+    whole = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    specs = whole.param_specs()
+    spec = leaf_spec(specs, "blocks.1.in_proj.w")
+    assert tuple(spec) == (None, "model")
+    cols = np.r_[c * di // 2:(c + 1) * di // 2,
+                 di + c * di // 2:di + (c + 1) * di // 2]
+    got = block_slices((cfg.d_model, 2 * di), spec, at)
+    assert got[0] == slice(0, cfg.d_model)
+    assert np.array_equal(got[1], cols)
+    mine = build_model(cfg, device="cpu", ranks=at).init(
+        torch.Generator().manual_seed(0))
+    w = whole.blocks[1].in_proj.w.detach()
+    assert torch.equal(mine.blocks[1].in_proj.w.detach(), w[:, cols])
+    carried = lm_rank_state_dict_from_params(
+        lm_params_from_state_dict(whole.state_dict()), specs, at)
+    assert torch.equal(carried["blocks.1.in_proj.w"], w[:, cols])
+    x = torch.randn((3, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    xs, z = (x @ mine.blocks[1].in_proj.w).chunk(2, dim=-1)
+    full_xs, full_z = (x @ w).chunk(2, dim=-1)
+    lo, hi = c * di // 2, (c + 1) * di // 2
+    assert torch.allclose(xs, full_xs[:, lo:hi], rtol=1e-5, atol=1e-6)
+    assert torch.allclose(z, full_z[:, lo:hi], rtol=1e-5, atol=1e-6)
 
 
 _A2A_CASES = [((1, 4), "model"), ((2, 2), "model"), ((2, 2), "data")]

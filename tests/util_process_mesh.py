@@ -8,7 +8,10 @@ subprocesses.
   types and messages) into ``OUT_DIR``.
 * ``run_reference(OUT_DIR)`` runs the same cases on the reference, in a
   process started with four forced host devices, and writes
-  ``reference.npz`` / ``reference.json``.
+  ``reference.npz`` / ``reference.json``; the LM cases' unsharded
+  reference runs, which need one device, are shared out over the rank
+  processes once their world has closed (``lm_reference_share``), each
+  writing ``reference-lm<RANK>.npz``.
 
 The case lists below are shared by both and by the tests.
 """
@@ -137,9 +140,26 @@ FAMILY_CASES = [
     ("arctic-model-2x2", "arctic-480b", (2, 2), {"expert_sharding": "model"}),
     ("llava-2x2", "llava-next-mistral-7b", (2, 2), {}),
     ("llava-1x4", "llava-next-mistral-7b", (1, 4), {"n_kv_heads": 4})]
+# the Mamba, RG-LRU hybrid and Whisper families on ranks, each served as
+# the dense cases are, with seeded family caches: falcon-mamba's SMOKE
+# config (2 layers, d_inner 128, state 4), recurrentgemma's on 8 layers
+# (two (rec, rec, attn) groups and the two-rec tail; 4 heads of 16, one
+# KV head, a window of 8 that LM_DECODE_POS wraps), whisper's (2 + 2
+# layers, 8 frames)
+NON_TRANSFORMER_CASES = [
+    ("mamba-2x2", "falcon-mamba-7b", (2, 2), {}),
+    ("mamba-1x4", "falcon-mamba-7b", (1, 4), {}),
+    ("griffin-2x2", "recurrentgemma-2b", (2, 2), {"n_layers": 8}),
+    ("griffin-1x4", "recurrentgemma-2b", (1, 4), {"n_layers": 8}),
+    ("whisper-2x2", "whisper-large-v3", (2, 2), {}),
+    ("whisper-1x4", "whisper-large-v3", (1, 4), {})]
+# the tokens a chunk of Whisper's head on ranks sums at a time in the rank
+# processes (models.whisper.HEAD_CHUNK_TOKENS): a prefill's 64 or 128
+# tokens a rank then cross in three or six pieces, the last shorter
+WHISPER_HEAD_CHUNK = 24
 # every LM case on ranks: (key, arch, grid, replacements)
 LM_ALL = [(f"{g[0]}x{g[1]}", LM_ARCH, g, over) for g, over in LM_CASES] \
-    + FAMILY_CASES
+    + FAMILY_CASES + NON_TRANSFORMER_CASES
 # one MoE layer alone on ranks, on a seeded input of each token count (t
 # split over 4 or 2 ranks unevenly; one token, which three ranks of a
 # line do not own), against the reference's moe_apply
@@ -371,19 +391,39 @@ def case_overrides(key, dtype="bfloat16"):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
+def cache_dtypes(cfg):
+    """Each cache key of ``cfg``'s model and its dtype name, in the
+    order of ``init_cache`` (the bf16 default; states float32)."""
+    from repro_torch.models import build_model
+    cache = build_model(cfg, device="meta").init_cache(LM_BATCH, LM_SEQ)
+    return {k: str(v.dtype).split(".")[-1] for k, v in cache.items()}
+
+
 def lm_inputs(cfg):
     """The prompts ``[B, S]``, the decode steps' tokens ``[3, B, 1]`` and
     the seeded cache ``k`` / ``v`` ``[L, B, S, kv, hd]`` (float32, which
     both packages round to bf16 alike); for a VLM the prompts are the
     last ``S - num_patches`` tokens after ``patches`` ``[B, num_patches,
-    vision_dim]``, drawn last."""
+    vision_dim]``, drawn last.  The Mamba, hybrid and Whisper families
+    draw every key of their cache instead (``cache_dtypes``' order and
+    shapes, each cast to its dtype by both packages), and Whisper's
+    ``frames`` ``[B, enc_frames, d_model]`` last."""
     rng = np.random.default_rng(LM_SEED)
-    shape = (cfg.n_layers, LM_BATCH, LM_SEQ, cfg.n_kv_heads, cfg.hd)
     out = {"tokens": rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ)),
            "steps": rng.integers(0, cfg.vocab,
-                                 (len(LM_DECODE_POS), LM_BATCH, 1)),
-           "k": rng.normal(size=shape).astype(np.float32),
-           "v": rng.normal(size=shape).astype(np.float32)}
+                                 (len(LM_DECODE_POS), LM_BATCH, 1))}
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        from repro_torch.models import build_model
+        cache = build_model(cfg, device="meta").init_cache(LM_BATCH, LM_SEQ)
+        for k, v in cache.items():
+            out[k] = rng.normal(size=tuple(v.shape)).astype(np.float32)
+        if cfg.family == "encdec":
+            out["frames"] = rng.normal(size=(
+                LM_BATCH, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+        return out
+    shape = (cfg.n_layers, LM_BATCH, LM_SEQ, cfg.n_kv_heads, cfg.hd)
+    out.update(k=rng.normal(size=shape).astype(np.float32),
+               v=rng.normal(size=shape).astype(np.float32))
     if cfg.vision_dim:
         out["tokens"] = out["tokens"][:, :LM_SEQ - cfg.num_patches]
         out["patches"] = rng.normal(size=(
@@ -406,11 +446,14 @@ def write_lm_params(out_dir):
     from repro import configs as ref_configs
     from repro.models import build_model
     from repro_torch.convert import lm_layers_from_params
-    for key, _, _, _ in LM_ALL:
-        cfg = case_config(ref_configs, key, "float32")
-        params = build_model(cfg).init(jax.random.PRNGKey(0))
-        np.savez(os.path.join(out_dir, f"lm-params-{key}.npz"),
-                 **lm_layers_from_params(jax.tree.map(np.asarray, params)))
+    done = {}            # cases of one config (two grids) drawn once
+    for key, arch, _, over in LM_ALL:
+        same = (arch, tuple(sorted(over.items())))
+        if same not in done:
+            cfg = case_config(ref_configs, key, "float32")
+            done[same] = lm_layers_from_params(jax.tree.map(
+                np.asarray, build_model(cfg).init(jax.random.PRNGKey(0))))
+        np.savez(os.path.join(out_dir, f"lm-params-{key}.npz"), **done[same])
 
 
 def _error(fn):
@@ -440,6 +483,23 @@ def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(scalars, f)
+    # this process's share of the reference's unsharded LM runs
+    reference = {}
+    _lm_reference_cases(reference, lm_reference_share(rank, world))
+    np.savez(os.path.join(out_dir, f"reference-lm{rank}.npz"), **reference)
+
+
+def lm_reference_share(rank: int, world: int):
+    """The ``LM_ALL`` cases whose reference runs rank ``rank``'s process
+    makes: every ``world``-th distinct config (a case's arch and
+    replacements; the two grids of one config share its runs)."""
+    configs = []
+    for _, arch, _, over in LM_ALL:
+        if (arch, sorted(over.items())) not in configs:
+            configs.append((arch, sorted(over.items())))
+    mine = configs[rank::world]
+    return [case for case in LM_ALL
+            if (case[1], sorted(case[3].items())) in mine]
 
 
 def _rank_cases(rank: int, out_dir: str):
@@ -1143,14 +1203,14 @@ def _store_rank_cases(api, mesh, rank, out_dir, arrays, scalars):
 
 
 def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
-    """Tensor-parallel serving of the transformer LMs on each case of
-    ``LM_ALL``: the reference's weights carried across to the rank's
-    blocks, the prefill step and three decode steps in both compute
-    dtypes (the gathered logits, the rank's cache block and every MoE
-    layer's routing), then ``lower_cell`` on ranks for a prefill and a
-    decode cell, a decode cell whose check fails on one rank, the MoE
-    cases' layer alone, the cells the run rule refuses, and the
-    all-to-all."""
+    """Tensor-parallel serving of the LMs on each case of ``LM_ALL``: the
+    reference's weights carried across to the rank's blocks, the prefill
+    step and three decode steps in both compute dtypes (the gathered
+    logits, the rank's cache block and every MoE layer's routing;
+    Whisper's cross cache filled by ``prefill_cross``), then
+    ``lower_cell`` on ranks for a prefill and a decode cell, decode cells
+    whose check fails on one rank, the MoE cases' layer alone, the cells
+    the run rule refuses, and the all-to-all."""
     import torch
     from repro_torch import configs
     from repro_torch.convert import lm_rank_state_dict_from_params, \
@@ -1164,6 +1224,8 @@ def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
     from repro_torch.serve import make_prefill_step, make_serve_step
     from repro_torch.serve.serve_step import whole_logits
 
+    from repro_torch.models import whisper
+    whisper.HEAD_CHUNK_TOKENS = WHISPER_HEAD_CHUNK
     runs, models = {}, {}
     for key, arch, grid, _ in LM_ALL:
         pm = mesh(grid)
@@ -1188,26 +1250,36 @@ def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
             if cfg.vision_dim:
                 batch["patch_embeds"] = rows(inputs["patches"],
                                              "patch_embeds")
+            if cfg.family == "encdec":
+                batch["frames"] = rows(inputs["frames"], "frames")
             try:
                 out = make_prefill_step(model, cfg)(batch)
                 arrays[f"{tag}/prefill"] = whole_logits(
-                    out, pm).float().numpy()
+                    out, pm, model).float().numpy()
                 arrays[f"{tag}/prefill_block"] = out.float().numpy()
                 for layer, idx in enumerate(routes):
                     arrays[f"{tag}/route/prefill/{layer}"] = idx
                 cache = cache_block({k: torch.from_numpy(inputs[k]).to(
-                    torch.bfloat16) for k in ("k", "v")}, model, pm)
+                    getattr(torch, dt)) for k, dt in
+                    cache_dtypes(cfg).items()}, model, pm)
                 step = make_serve_step(model, cfg)
                 for i, pos in enumerate(LM_DECODE_POS):
                     routes.clear()
                     out, cache = step(cache, rows(inputs["steps"][i]), pos)
                     arrays[f"{tag}/decode{i}"] = whole_logits(
-                        out, pm).float().numpy()
+                        out, pm, model).float().numpy()
                     for layer, idx in enumerate(routes):
                         arrays[f"{tag}/route/decode{i}/{layer}"] = idx
+                if cfg.family == "encdec":
+                    # the cross cache of the frames, whole on every rank
+                    filled = model.prefill_cross(cache_block(
+                        model.init_cache(LM_BATCH, LM_SEQ, torch.float32),
+                        model, pm), batch["frames"])
+                    for k in ("cross_k", "cross_v"):
+                        arrays[f"{tag}/prefill_{k}"] = filled[k].numpy()
             finally:
                 del pm.tally.route
-            for k in ("k", "v"):
+            for k in cache:
                 arrays[f"{tag}/cache_{k}"] = cache[k].float().numpy()
         for kind in ("prefill", "decode"):
             cell = ShapeCell(f"{kind}_32k", LM_RUN_SEQ, 2 * LM_BATCH, kind)
@@ -1243,6 +1315,41 @@ def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
             ranks=mesh((2, 2)), run_reps=1))
     finally:
         dryrun.make_serve_step = make
+
+    # the new families' decode checks failing on one rank: a Mamba state
+    # channel held back, a hybrid window written apart from the line's
+    def held(model, cfg):
+        step = make(model, cfg)
+
+        def serve_step(cache, tokens, pos):
+            kept = cache["ssm"][:, :, 0].clone()
+            logits, cache = step(cache, tokens, pos)
+            cache["ssm"][:, :, 0] = kept       # channel 0 never advances
+            return logits, cache
+        return serve_step
+
+    def apart(model, cfg):
+        step = make(model, cfg)
+
+        def serve_step(cache, tokens, pos):
+            logits, cache = step(cache, tokens, pos)
+            cache["k"][:, :, pos % cache["k"].shape[2]] += 1
+            return logits, cache
+        return serve_step
+    for name, key, planted in (("mamba", "mamba-2x2", held),
+                               ("griffin", "griffin-1x4", apart)):
+        arch, grid, _ = lm_case(key)
+        if rank == LM_FAILING_RANK:
+            dryrun.make_serve_step = planted
+        try:
+            scalars.setdefault("lm_family_failure", {})[name] = _error(
+                lambda: dryrun.lower_cell(
+                    arch, ShapeCell("decode_32k", LM_RUN_SEQ, 2 * LM_BATCH,
+                                    "decode"), mesh_shape=grid,
+                    overrides=case_overrides(key), device="cpu", run=True,
+                    ranks=mesh(grid), run_reps=1))
+        finally:
+            dryrun.make_serve_step = make
 
     # one MoE layer alone: the first block's, on a seeded input
     for key, _, grid, _ in FAMILY_CASES:
@@ -1285,6 +1392,19 @@ def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
                             "decode"), mesh_shape=grid,
             overrides=dict(case_overrides(key), **over), device="cpu",
             run=True, ranks=mesh(grid), run_reps=1)
+        refused[name] = {"run_reason": rec.get("run_reason"),
+                         "ran": "run_s" in rec}
+    # recurrentgemma-2b's published 10 heads on a model axis of 4, and a
+    # long-context decode of the state families
+    for name, arch, cell, grid, over in (
+            ("hybrid_heads", "recurrentgemma-2b", "decode_32k", (128, 4),
+             None),
+            ("long_context", "falcon-mamba-7b",
+             ShapeCell("long_500k", LM_RUN_SEQ, 1, "decode"), (1, 4),
+             case_overrides("mamba-1x4"))):
+        rec = dryrun.lower_cell(arch, cell, mesh_shape=grid, overrides=over,
+                                device="cpu", run=True, ranks=mesh((1, 4)),
+                                run_reps=1)
         refused[name] = {"run_reason": rec.get("run_reason"),
                          "ran": "run_s" in rec}
     scalars["lm_refused"] = refused
@@ -1410,7 +1530,6 @@ def run_reference(out_dir: str) -> None:
             [np.asarray(s) for _, s in pairs])
     _a10d_reference_cases(arrays, scalars)
     _serving_reference_cases(out_dir, arrays, scalars)
-    _lm_reference_cases(arrays)
     np.savez(os.path.join(out_dir, "reference.npz"), **arrays)
     with open(os.path.join(out_dir, "reference.json"), "w") as f:
         json.dump(scalars, f)
@@ -1532,11 +1651,13 @@ def _a10d_reference_cases(arrays, scalars):
     scalars["scripts"] = scripts
 
 
-def _lm_reference_cases(arrays):
-    """``_lm_rank_cases``' inputs through the reference's unsharded model:
+def _lm_reference_cases(arrays, cases=None):
+    """``_lm_rank_cases``' inputs (``cases``, every case of ``LM_ALL`` by
+    default) through the reference's unsharded model:
     the prefill step's logits, each teacher-forced decode step's, the
-    cache after the three, and every MoE layer's chosen experts (its
-    ``jax.lax.top_k``, read by an ordered debug callback)."""
+    cache after the three, Whisper's cross cache from ``prefill_cross``,
+    and every MoE layer's chosen experts (its ``jax.lax.top_k``, read by
+    an ordered debug callback)."""
     import jax
     import jax.numpy as jnp
     from repro import configs as ref_configs
@@ -1551,16 +1672,26 @@ def _lm_reference_cases(arrays):
                            ordered=True)
         return vals, idx
     jax.lax.top_k = recorded
+    done = {}            # cases of one config (two grids) run once
     try:
-        for key, _, _, _ in LM_ALL:
+        for key, arch, _, over in LM_ALL if cases is None else cases:
             for dtype in LM_DTYPES:
+                tag = f"lm/{key}/{dtype}"
+                same = (arch, tuple(sorted(over.items())), dtype)
+                if same in done:
+                    for k in [k for k in arrays if k.startswith(
+                            done[same] + "/")]:
+                        arrays[tag + k[len(done[same]):]] = arrays[k]
+                    continue
+                done[same] = tag
                 cfg = case_config(ref_configs, key, dtype)
                 model = build_model(cfg)
                 params = model.init(jax.random.PRNGKey(0))
                 inputs = lm_inputs(cfg)
-                tag = f"lm/{key}/{dtype}"
                 extra = (jnp.asarray(inputs["patches"]),) \
                     if cfg.vision_dim else ()
+                if cfg.family == "encdec":
+                    extra = (jnp.asarray(inputs["frames"]),)
                 routes.clear()
                 logits, _ = jax.jit(model.apply)(
                     params, jnp.asarray(inputs["tokens"]), *extra)
@@ -1569,8 +1700,8 @@ def _lm_reference_cases(arrays):
                 jax.effects_barrier()
                 for layer, idx in enumerate(routes):
                     arrays[f"{tag}/route/prefill/{layer}"] = idx
-                cache = {k: jnp.asarray(inputs[k], jnp.bfloat16)
-                         for k in ("k", "v")}
+                cache = {k: jnp.asarray(inputs[k], getattr(jnp, dt))
+                         for k, dt in cache_dtypes(cfg).items()}
                 step = jax.jit(model.decode_step)
                 for i, pos in enumerate(LM_DECODE_POS):
                     routes.clear()
@@ -1582,9 +1713,16 @@ def _lm_reference_cases(arrays):
                     jax.effects_barrier()
                     for layer, idx in enumerate(routes):
                         arrays[f"{tag}/route/decode{i}/{layer}"] = idx
-                for k in ("k", "v"):
+                for k in cache:
                     arrays[f"{tag}/cache_{k}"] = np.asarray(cache[k],
                                                             np.float32)
+                if cfg.family == "encdec":
+                    filled = jax.jit(model.prefill_cross)(
+                        params, model.init_cache(LM_BATCH, LM_SEQ,
+                                                 jnp.float32),
+                        jnp.asarray(inputs["frames"]))
+                    for k in ("cross_k", "cross_v"):
+                        arrays[f"{tag}/prefill_{k}"] = np.asarray(filled[k])
     finally:
         jax.lax.top_k = top_k
 
