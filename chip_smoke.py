@@ -114,7 +114,7 @@ drives the port's two paths at full size through `repro_torch.api`:
   by the reference's teacher-forced decode check;
 * LM training through `repro_torch.launch.train.run_training`:
   `qwen3-1.7b` at its full published config (batch 8, sequence 256, the
-  config's 4 microbatches, `SyntheticStream` seed 0, 12 AdamW steps with
+  config's 4 microbatches, `SyntheticStream` seed 0, 10 AdamW steps with
   a checkpoint at the end), the loss held to fall; then the restart check
   at the same widths on 2 layers under deterministic algorithms: 10 steps
   with a checkpoint at 5, a fresh model resumed from it, the parameters
@@ -124,7 +124,7 @@ drives the port's two paths at full size through `repro_torch.api`:
   skipped), the roofline of both meshes at H100 rates, then one card's
   share of three `qwen3-1.7b` cells at its full published config run
   through the port's own steps: `train_4k` on a 64 x 1 mesh (4 x 4,096
-  tokens, 4 microbatches), `prefill_32k` on 32 x 1 cut to 1 x 4,096
+  tokens, 4 microbatches), `prefill_32k` on 32 x 1 cut to 1 x 2,048
   tokens and `decode_32k` on 128 x 1 (one token over a 32,768-deep
   cache), each
   timed once after a warm-up beside its bound and checked; then the
@@ -133,7 +133,7 @@ drives the port's two paths at full size through `repro_torch.api`:
   for a cell whose model axis is 2 (`lower_cell(..., ranks=pm)`: each
   rank its block of every parameter, of the cache and of the batch, the
   collectives over `model`): `decode_32k` on 128 x 4 and a prefill on 32
-  x 4 cut to 4,096 tokens, for `qwen3-1.7b`, for `qwen2-moe-a2.7b`'s
+  x 4 cut to 2,048 tokens, for `qwen3-1.7b`, for `qwen2-moe-a2.7b`'s
   widths on 2 layers with FFN-split experts and with expert-parallel
   ones (an all-to-all each way over `model`), for `falcon-mamba-7b` on 4
   of its 64 layers and `whisper-large-v3` on 4 + 4 of its 32 + 32, for
@@ -146,7 +146,14 @@ drives the port's two paths at full size through `repro_torch.api`:
   grid: the run covers their d data rows, k the model axis), each
   rank's counted collectives equal to the closed form's, every MoE
   layer's routing and the hybrid's window equal along the line, the
-  recurrent states advanced in every channel of the rank.
+  recurrent states advanced in every channel of the rank; then
+  `qwen3-1.7b`'s training step on (1, 4) ranks (`train_4k`, 4 rows of
+  4,096 tokens, 2 of its 28 layers, in float32 and bf16): each rank's
+  step held to the one-process float32 step (loss, gradient norm, a
+  strided sample of the new parameters and of the first moments) and,
+  in bf16, by the departure gate over that sample; every gradient
+  non-zero before the update, the replicated parameters and the metrics
+  equal along the line, the collectives the closed form's.
 
 The host-only references (the MST oracle of walmart-trips,
 primary-school and email-Eu; email-Eu's ETE and threshold-component
@@ -375,7 +382,9 @@ LM_FAMILY_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b",
                    "whisper-large-v3")
 # lm_train_path: run_training at the full published config of LM_ARCH,
 # then the restart check at its widths on LM_RESTART_LAYERS layers
-LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 12, 8, 256
+# (10 steps since the train rank cells came, 12 before: the check's first
+# and last five losses stay apart)
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 10, 8, 256
 LM_RESTART_LAYERS, LM_RESTART_STEPS, LM_RESTART_AT = 2, 10, 5
 RESTART_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_train_infra.py:122
 # 8 greedy tokens since PR 30 (16 before; a cut for the script's time)
@@ -384,11 +393,13 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 16, 8
 # then one card's share of three LM_ARCH cells at the full published
 # config (data-parallel meshes: model axis 1)
 LM_DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_lm"
-# (cell, its seq_len, mesh); the prefill cut from 32,768 to 4,096 tokens
-# for the script's time: the cell LM_RANK_CELLS runs on ranks, whose
-# one-process bf16 run this is
+# (cell, its seq_len, mesh); the prefill cut from 32,768 to
+# LM_PREFILL_SEQ tokens for the script's time (4,096 until the train rank
+# cells came): the cell LM_RANK_CELLS runs on ranks, whose one-process
+# bf16 run this is
+LM_PREFILL_SEQ = 2_048
 LM_DRYRUN_RUNS = (("train_4k", 4_096, (64, 1)),
-                  ("prefill_32k", 4_096, (32, 1)),
+                  ("prefill_32k", LM_PREFILL_SEQ, (32, 1)),
                   ("decode_32k", 32_768, (128, 1)))
 LM_DRYRUN_CELLS = {"ok": 64, "skipped": 16}
 LM_DRYRUN_RUN_REPS = 1                 # timed passes after the warm-up
@@ -397,15 +408,15 @@ LM_DRYRUN_RUN_REPS = 1                 # timed passes after the warm-up
 # lm_rank_grid), and run serving cells with the model axis split: (label,
 # arch, config replacements, cell, its seq_len, the cell's mesh, what was
 # cut to size): LM_ARCH's decode_32k whole on (128, 4), and its prefill
-# on (32, 4) cut to 4,096 tokens (a prefill pass all-reduces 57 [tokens,
-# 2,048] partial sums through host memory, some 30 s a pass at 32,768
-# tokens); the same two cells of LM_MOE_ARCH's published widths on
+# on (32, 4) cut to LM_PREFILL_SEQ tokens (a prefill pass all-reduces 57
+# [tokens, 2,048] partial sums through host memory, some 30 s a pass at
+# 32,768 tokens); the same two cells of LM_MOE_ARCH's published widths on
 # LM_MOE_LAYERS layers in its published FFN-split layout, and in
 # arctic-480b's "model+data" expert-parallel layout (15 of the 60
 # experts a rank; arctic's own experts, 53.5 GB a layer in float32, do
 # not fit beside the one-process reference on one card); LM_VLM_ARCH's
 # prefill at its published widths on LM_VLM_LAYERS of its 32 layers, 576
-# patches of the 4,096 positions (at all 32 layers the cell took 21.5 s
+# patches of the LM_PREFILL_SEQ positions (at all 32 layers the cell took 21.5 s
 # and its one-process runs some 6 s more, and the script 1,123 s of its
 # 1,200 on a slow host; 8 layers until PR 30's cells came); and the
 # three families that are not
@@ -426,36 +437,59 @@ LM_HYBRID_ARCH = "recurrentgemma-2b"   # published widths, depth cut
 LM_HYBRID_LAYERS = 5
 LM_WHISPER_ARCH = "whisper-large-v3"   # published widths, depth cut
 LM_WHISPER_LAYERS = 4
+# the dense LM's training step on (1, 4) ranks: LM_ARCH's published
+# widths on LM_TRAIN_LAYERS of its 28 layers (the backward still crosses
+# a layer boundary), train_4k's 4 rows of 4,096 tokens that one device of
+# a (64, 4) mesh trains, on the cell mesh (1, 4), whose data axis equals
+# the ranks' (the gradient reduction over data is not run on ranks); in
+# float32 compute (held to the one-process float32 step) and the
+# published bf16 (held by the departure gate)
+LM_TRAIN_LAYERS = 2
+LM_RANK_TRAIN_BATCH = 4
+LM_RANK_TRAIN = {"n_layers": LM_TRAIN_LAYERS}
+LM_CUT_TRAIN = (f"n_layers: 28 cut to {LM_TRAIN_LAYERS}",
+                "mesh: train_4k's (64, 4) device share, 4 rows of 4,096 "
+                "tokens, on (1, 4): no data axis to reduce the gradient "
+                "over")
+# the one-process float32 step against the ranks' float32 step: the loss
+# and gradient norm of each pass and a strided sample of each rank's new
+# parameters, elementwise; the same sample of the first moments (the
+# gradients' trace) by its root-mean-square departure relative to its
+# root-mean-square
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)
+TRAIN_MOMENT_RMS = 1e-4
 LM_RANK_MOE = {"n_layers": LM_MOE_LAYERS}
 LM_RANK_EP = dict(LM_RANK_MOE, expert_sharding="model+data")
-LM_CUT_SEQ = "seq_len: 32,768 cut to 4,096"
+LM_CUT_SEQ = f"seq_len: 32,768 cut to {LM_PREFILL_SEQ:,}"
 LM_CUT_MOE = f"n_layers: 24 cut to {LM_MOE_LAYERS}"
 LM_CUT_EP = ("expert_sharding: arctic-480b's 'model+data' on "
              "qwen2-moe-a2.7b's widths (arctic's experts, 53.5 GB a layer "
              "in float32, do not fit beside the one-process reference)")
 LM_RANK_CELLS = (
     ("dense", LM_ARCH, {}, "decode_32k", 32_768, (128, 4), ()),
-    ("dense", LM_ARCH, {}, "prefill_32k", 4_096, (32, 4), (LM_CUT_SEQ,)),
+    ("dense", LM_ARCH, {}, "prefill_32k", LM_PREFILL_SEQ, (32, 4),
+     (LM_CUT_SEQ,)),
     ("moe ffn", LM_MOE_ARCH, LM_RANK_MOE, "decode_32k", 32_768, (128, 4),
      (LM_CUT_MOE,)),
-    ("moe ffn", LM_MOE_ARCH, LM_RANK_MOE, "prefill_32k", 4_096, (32, 4),
-     (LM_CUT_MOE, LM_CUT_SEQ)),
+    ("moe ffn", LM_MOE_ARCH, LM_RANK_MOE, "prefill_32k", LM_PREFILL_SEQ,
+     (32, 4), (LM_CUT_MOE, LM_CUT_SEQ)),
     ("moe expert-parallel", LM_MOE_ARCH, LM_RANK_EP, "decode_32k", 32_768,
      (128, 4), (LM_CUT_MOE, LM_CUT_EP)),
-    ("moe expert-parallel", LM_MOE_ARCH, LM_RANK_EP, "prefill_32k", 4_096,
-     (32, 4), (LM_CUT_MOE, LM_CUT_EP, LM_CUT_SEQ)),
-    ("vlm", LM_VLM_ARCH, {"n_layers": LM_VLM_LAYERS}, "prefill_32k", 4_096,
-     (32, 4), (f"n_layers: 32 cut to {LM_VLM_LAYERS}", LM_CUT_SEQ)),
+    ("moe expert-parallel", LM_MOE_ARCH, LM_RANK_EP, "prefill_32k",
+     LM_PREFILL_SEQ, (32, 4), (LM_CUT_MOE, LM_CUT_EP, LM_CUT_SEQ)),
+    ("vlm", LM_VLM_ARCH, {"n_layers": LM_VLM_LAYERS}, "prefill_32k",
+     LM_PREFILL_SEQ, (32, 4),
+     (f"n_layers: 32 cut to {LM_VLM_LAYERS}", LM_CUT_SEQ)),
     ("ssm", LM_MAMBA_ARCH, {"n_layers": LM_MAMBA_LAYERS}, "decode_32k",
      32_768, (128, 4), (f"n_layers: 64 cut to {LM_MAMBA_LAYERS}",)),
     ("ssm", LM_MAMBA_ARCH, {"n_layers": LM_MAMBA_LAYERS}, "prefill_32k",
-     4_096, (32, 4), (f"n_layers: 64 cut to {LM_MAMBA_LAYERS}",
-                      LM_CUT_SEQ)),
+     LM_PREFILL_SEQ, (32, 4), (f"n_layers: 64 cut to {LM_MAMBA_LAYERS}",
+                               LM_CUT_SEQ)),
     ("hybrid", LM_HYBRID_ARCH, {"n_layers": LM_HYBRID_LAYERS}, "decode_32k",
      32_768, (128, 2), (f"n_layers: 26 cut to {LM_HYBRID_LAYERS} (one "
                         f"group and the two-rec tail)",)),
     ("hybrid", LM_HYBRID_ARCH, {"n_layers": LM_HYBRID_LAYERS},
-     "prefill_32k", 4_096, (32, 2),
+     "prefill_32k", LM_PREFILL_SEQ, (32, 2),
      (f"n_layers: 26 cut to {LM_HYBRID_LAYERS} (one group and the "
       f"two-rec tail)", LM_CUT_SEQ)),
     ("encdec", LM_WHISPER_ARCH, {"n_layers": LM_WHISPER_LAYERS,
@@ -464,9 +498,13 @@ LM_RANK_CELLS = (
      (f"n_layers, enc_layers: 32 cut to {LM_WHISPER_LAYERS}",)),
     ("encdec", LM_WHISPER_ARCH, {"n_layers": LM_WHISPER_LAYERS,
                                  "enc_layers": LM_WHISPER_LAYERS},
-     "prefill_32k", 4_096, (32, 4),
+     "prefill_32k", LM_PREFILL_SEQ, (32, 4),
      (f"n_layers, enc_layers: 32 cut to {LM_WHISPER_LAYERS}",
-      LM_CUT_SEQ)))
+      LM_CUT_SEQ)),
+    ("dense train", LM_ARCH, dict(LM_RANK_TRAIN, compute_dtype="float32"),
+     "train_4k", 4_096, (1, 4), LM_CUT_TRAIN),
+    ("dense train", LM_ARCH, LM_RANK_TRAIN, "train_4k", 4_096, (1, 4),
+     LM_CUT_TRAIN))
 LM_RANK_TIMEOUT_S = 600
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
 # bf16 serving: the root-mean-square departure of the decode logits (bf16
@@ -6113,6 +6151,40 @@ def lm_cell(name, seq):
     return dataclasses.replace(SHAPES[name], seq_len=seq)
 
 
+def lm_rank_cell(name, seq):
+    """A rank cell's shape (``LM_RANK_CELLS``): ``lm_cell``, a train cell
+    at ``LM_RANK_TRAIN_BATCH`` rows (what one device of its production
+    mesh trains)."""
+    import dataclasses
+    cell = lm_cell(name, seq)
+    if cell.kind == "train":
+        cell = dataclasses.replace(cell, global_batch=LM_RANK_TRAIN_BATCH)
+    return cell
+
+
+def save_sample(path, sample):
+    """A training run's ``sample`` (``dryrun.run_cell``) as one ``.npz``."""
+    arrays = {k: np.asarray(sample[k]) for k in ("loss", "grad_norm")}
+    for part in ("params", "m"):
+        for name, (idx, val) in sample[part].items():
+            arrays[f"{part}/{name}/idx"] = idx
+            arrays[f"{part}/{name}/val"] = val
+    np.savez(path, **arrays)
+
+
+def load_sample(path):
+    """``save_sample``'s sample back."""
+    with np.load(path) as f:
+        out = {k: f[k].tolist() for k in ("loss", "grad_norm")}
+        for part in ("params", "m"):
+            out[part] = {}
+            for key in f.files:
+                if key.startswith(part + "/") and key.endswith("/idx"):
+                    name = key[len(part) + 1:-len("/idx")]
+                    out[part][name] = (f[key], f[f"{part}/{name}/val"])
+    return out
+
+
 def lm_rank_grid(mesh_shape):
     """The (data, model) grid of ``RANK_WORLD`` ranks a rank cell runs on:
     the cell's model axis, the rest of the world over data."""
@@ -6157,15 +6229,20 @@ def lm_rank_worker(rank, world, work, spec):
             gc.collect()
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-            logits = []
+            logits, sample = [], []
             t0 = time.perf_counter()
             rec = dryrun.lower_cell(
-                arch, lm_cell(name, seq), mesh_shape=mesh_shape,
+                arch, lm_rank_cell(name, seq), mesh_shape=mesh_shape,
                 overrides=over or None, device=device, run=True,
-                run_reps=LM_DRYRUN_RUN_REPS, ranks=pm, logits=logits)
+                run_reps=LM_DRYRUN_RUN_REPS, ranks=pm, logits=logits,
+                sample=sample)
             rec["cell_s"] = time.perf_counter() - t0
-            np.save(os.path.join(work, f"logits-{i}-{rank}.npy"),
-                    logits[0].numpy())
+            if sample:
+                save_sample(os.path.join(work, f"sample-{i}-{rank}.npz"),
+                            sample[0])
+            else:
+                np.save(os.path.join(work, f"logits-{i}-{rank}.npy"),
+                        logits[0].numpy())
             out["cells"][str(i)] = rec
     finally:
         tdist.destroy_process_group()
@@ -6177,11 +6254,96 @@ def rms(t):
     return float(t.double().pow(2).mean().sqrt())
 
 
+def train_cell_checks(tag, samples, f32, bf16, dtype):
+    """A train rank cell's ``samples`` (one a rank: ``dryrun.run_cell``'s
+    loss and gradient norm of each pass and ``whole_sample`` of the new
+    parameters and first moments, the rank's entries) against the
+    one-process float32 and bf16 steps' whole samples.  The ranks' entries
+    must tile each whole sample.  In float32 compute: each pass's loss and
+    gradient norm on every rank and each rank's sampled parameters at
+    ``TRAIN_TOL`` of the one-process float32 step, and its sampled first
+    moments within ``TRAIN_MOMENT_RMS`` of theirs by root-mean-square
+    (relative).  The sampled parameters' root-mean-square departure from
+    the one-process float32 step, against the one-process bf16 step's;
+    in bf16 their ratio is at most ``BF16_DEPARTURE_RATIO``.  Returns the
+    numbers."""
+    def at(whole, idx):
+        pos = np.searchsorted(whole[0], idx)
+        if not np.array_equal(whole[0][np.minimum(pos, len(whole[0]) - 1)],
+                              idx):
+            raise AssertionError(f"{tag}: a rank sampled entries the whole "
+                                 f"sample lacks")
+        return whole[1][pos]
+
+    def rms_np(a):
+        return float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))
+
+    for r, smp in enumerate(samples):
+        for part in ("params", "m"):
+            empty = [k for k, (idx, _) in smp[part].items() if not idx.size]
+            if empty:
+                raise AssertionError(f"{tag}: rank {r} sampled no entry of "
+                                     f"{empty}")
+
+    moment_rel = 0.0
+    if dtype == "float32":
+        for r, smp in enumerate(samples):
+            for k in ("loss", "grad_norm"):
+                np.testing.assert_allclose(smp[k], f32[k], **TRAIN_TOL,
+                                           err_msg=f"{tag}: rank {r} {k}")
+            for name, (idx, val) in smp["params"].items():
+                np.testing.assert_allclose(
+                    val, at(f32["params"][name], idx), **TRAIN_TOL,
+                    err_msg=f"{tag}: rank {r} parameter {name}")
+            for name, (idx, val) in smp["m"].items():
+                want = at(f32["m"][name], idx)
+                scale = rms_np(want)
+                rel = (rms_np(val - want) / scale if scale else
+                       float(np.abs(val).max(initial=0.0) > 0) * math.inf)
+                moment_rel = max(moment_rel, rel)
+                if not rel <= TRAIN_MOMENT_RMS:
+                    raise AssertionError(
+                        f"{tag}: rank {r}'s first moment of {name} departs "
+                        f"{rel} of its root-mean-square from the one-process "
+                        f"float32 step's (limit {TRAIN_MOMENT_RMS})")
+    # the ranks' entries joined into each whole sample
+    joined, want32, want16 = [], [], []
+    for name, (idx, val32) in f32["params"].items():
+        vals = np.full(val32.shape, np.nan, np.float32)
+        for smp in samples:
+            idx_r, val_r = smp["params"][name]
+            vals[np.searchsorted(idx, idx_r)] = val_r
+        if np.isnan(vals).any():
+            raise AssertionError(f"{tag}: the ranks' samples of {name} do "
+                                 f"not tile the whole sample")
+        joined.append(vals)
+        want32.append(val32)
+        want16.append(at(bf16["params"][name], idx))
+    joined, want32, want16 = (np.concatenate(a) for a in (joined, want32,
+                                                          want16))
+    ranks_dep, one_dep = rms_np(joined - want32), rms_np(want16 - want32)
+    ratio = ranks_dep / one_dep
+    if dtype == "bfloat16" and not ratio <= BF16_DEPARTURE_RATIO:
+        raise AssertionError(
+            f"{tag}: the ranks' bf16 step departs from the float32 step "
+            f"{ratio} times as far as the one-process bf16 step (limit "
+            f"{BF16_DEPARTURE_RATIO})")
+    return {"rms_departure": (ranks_dep, one_dep), "departure_ratio": ratio,
+            "loss": samples[0]["loss"], "grad_norm": samples[0]["grad_norm"],
+            "loss_one_process": {"float32": f32["loss"],
+                                 "bfloat16": bf16["loss"]},
+            "grad_norm_one_process": {"float32": f32["grad_norm"],
+                                      "bfloat16": bf16["grad_norm"]},
+            "moment_rms_departure": moment_rel if dtype == "float32"
+            else None, "sampled_entries": int(joined.size)}
+
+
 def lm_reference_key(arch, over, name, seq, dtype):
     """The one-process run a rank cell is held to: the expert layout
-    splits nothing at model axis 1, so it is left out."""
+    splits nothing at model axis 1, so it is left out, and so is the
+    cell's compute dtype (both one-process runs are made)."""
     kept = tuple(sorted((k, v) for k, v in over.items()
-                        if k != "expert_sharding"))
+                        if k not in ("expert_sharding", "compute_dtype")))
     return arch, kept, name, seq, dtype
 
 
@@ -6194,9 +6356,15 @@ def lm_rank_cells(dryrun, device, one):
     ``lm_reference_key``: (record, logits)), and the ranks' gathered
     logits must depart from the float32 logits by at most
     ``BF16_DEPARTURE_RATIO`` times the one-process bf16 run's
-    root-mean-square departure.  Also held: the gathered logits
+    root-mean-square departure.  A train cell (the step from zero
+    moments: a warm-up and the timed pass) is held by
+    ``train_cell_checks`` instead: its float32 run to the one-process
+    float32 step (loss, gradient norm, sampled parameters and first
+    moments), its bf16 run by the same departure gate over the sampled
+    parameters.  Also held: the gathered logits
     byte-equal on every rank, each rank's peak under ``2 / (d x k)`` of
-    the one-process bf16 run's (``d`` x ``k`` the ranks' grid: the
+    the one-process run's in the cell's compute dtype (bf16 but for the
+    float32 train cell; ``d`` x ``k`` the ranks' grid: the
     one-process run covers the ranks' ``d`` data rows, and ``k`` is the
     cell's model axis), each rank's counted collectives
     equal to the closed
@@ -6213,15 +6381,16 @@ def lm_rank_cells(dryrun, device, one):
                 continue
             gc.collect()
             torch.cuda.empty_cache()
-            logits = []
+            logits, sample = [], []
             # one process runs every data row the ranks' data axis covers
             data = mesh_shape[0] // lm_rank_grid(mesh_shape)[0]
             rec = dryrun.lower_cell(
-                arch, lm_cell(name, seq), mesh_shape=(data, 1),
+                arch, lm_rank_cell(name, seq), mesh_shape=(data, 1),
                 overrides=dict(key[1], compute_dtype=dtype), device=device,
-                run=True, run_reps=LM_DRYRUN_RUN_REPS, logits=logits)
-            refs[key] = (rec, logits[0])
-            del rec, logits
+                run=True, run_reps=LM_DRYRUN_RUN_REPS, logits=logits,
+                sample=sample)
+            refs[key] = (rec, sample[0] if sample else logits[0])
+            del rec, logits, sample
     one_process_s = clock.seconds()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6230,9 +6399,12 @@ def lm_rank_cells(dryrun, device, one):
         spec = {"device": device.type, "timeout": LM_RANK_TIMEOUT_S}
         reports, ranks_s = timed_s(lambda: run_ranks(work, spec,
                                                      lm_rank_worker))
-        gathered = [[torch.from_numpy(np.load(os.path.join(
-            work, f"logits-{i}-{r}.npy"))) for r in range(RANK_WORLD)]
-            for i in range(len(LM_RANK_CELLS))]
+        gathered = [[load_sample(os.path.join(work, f"sample-{i}-{r}.npz"))
+                     if cell[3].startswith("train") else
+                     torch.from_numpy(np.load(os.path.join(
+                         work, f"logits-{i}-{r}.npy")))
+                     for r in range(RANK_WORLD)]
+                    for i, cell in enumerate(LM_RANK_CELLS)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out = []
@@ -6246,23 +6418,33 @@ def lm_rank_cells(dryrun, device, one):
                r.get("run_s") is None for r in recs):
             raise AssertionError(f"{tag}: {[r.get('run_reason') for r in recs]}")
         got = gathered[i]
-        if any(not torch.equal(g, got[0]) for g in got):
-            raise AssertionError(f"{tag}: the gathered logits differ "
-                                 f"between ranks")
         f32, bf16 = (refs[lm_reference_key(arch, over, name, seq, d)]
                      for d in ("float32", "bfloat16"))
-        if got[0].shape != f32[1].shape:
-            raise AssertionError(f"{tag}: logits {tuple(got[0].shape)}, "
-                                 f"one process {tuple(f32[1].shape)}")
-        ranks_dep, one_dep = rms(got[0] - f32[1]), rms(bf16[1] - f32[1])
-        ratio = ranks_dep / one_dep
-        if not ratio <= BF16_DEPARTURE_RATIO:
-            raise AssertionError(
-                f"{tag}: the ranks' logits depart from the float32 run "
-                f"{ratio} times as far as the one-process bf16 run (limit "
-                f"{BF16_DEPARTURE_RATIO})")
+        dtype = over.get("compute_dtype", "bfloat16")
+        if name.startswith("train"):
+            held = train_cell_checks(tag, got, f32[1], bf16[1], dtype)
+            tag = f"{tag} in {dtype}"
+            ranks_dep, one_dep = held["rms_departure"]
+            ratio = held["departure_ratio"]
+        else:
+            if any(not torch.equal(g, got[0]) for g in got):
+                raise AssertionError(f"{tag}: the gathered logits differ "
+                                     f"between ranks")
+            if got[0].shape != f32[1].shape:
+                raise AssertionError(f"{tag}: logits {tuple(got[0].shape)}, "
+                                     f"one process {tuple(f32[1].shape)}")
+            ranks_dep, one_dep = rms(got[0] - f32[1]), rms(bf16[1] - f32[1])
+            ratio = ranks_dep / one_dep
+            held = {}
+            if not ratio <= BF16_DEPARTURE_RATIO:
+                raise AssertionError(
+                    f"{tag}: the ranks' logits depart from the float32 run "
+                    f"{ratio} times as far as the one-process bf16 run "
+                    f"(limit {BF16_DEPARTURE_RATIO})")
         grid = lm_rank_grid(mesh_shape)
-        one_peak = bf16[0]["peak_bytes"]
+        # the one-process run in the cell's compute dtype (bf16 but for
+        # the float32 train cell)
+        one_peak = (f32 if dtype == "float32" else bf16)[0]["peak_bytes"]
         peaks = [r["peak_bytes"] for r in rec["run_ranks"]]
         # the one-process run covers the ranks' grid[0] data rows, which
         # grid[0] x grid[1] ranks share
@@ -6296,7 +6478,7 @@ def lm_rank_cells(dryrun, device, one):
                                   "bfloat16": bf16[0]["run_s"]},
             "rms_departure": {"ranks_bf16": ranks_dep, "one_bf16": one_dep},
             "departure_ratio": ratio, "cell_s": [r["cell_s"] for r in recs],
-            "run_checks": rec["run_checks"]}
+            "run_checks": rec["run_checks"], **held}
         print(f"{tag} over {RANK_WORLD} ranks {grid}: batch "
               f"{rec['run_batch']}, run_s per rank "
               f"{[round(r['run_s'], 4) for r in rec['run_ranks']]} (slowest "
@@ -6309,9 +6491,14 @@ def lm_rank_cells(dryrun, device, one):
               f" s, collectives a rank {rec['run_collective'][0]['counts']}"
               f" = the closed form's, {rec['collective_executed']['total_bytes']}"
               f" B (all-to-all a rank {a2a} B), peak {peaks} B (one process "
-              f"{one_peak} B), rms departure {ranks_dep:.5f} against "
-              f"{one_dep:.5f} ({ratio:.3f}x), checks {rec['run_checks']}",
-              flush=True)
+              f"{one_peak} B), rms departure {ranks_dep:.5g} against "
+              f"{one_dep:.5g} ({ratio:.3f}x), checks {rec['run_checks']}"
+              + (f"; loss {held['loss']} (one process "
+                 f"{held['loss_one_process']}), grad_norm "
+                 f"{held['grad_norm']} (one process "
+                 f"{held['grad_norm_one_process']}), first moments' rms "
+                 f"departure {held['moment_rms_departure']}"
+                 if held else ""), flush=True)
         out.append(row)
     return {"cells": out, "one_process_s": one_process_s,
             "ranks_s": ranks_s, "seconds": clock.seconds()}
@@ -6335,7 +6522,8 @@ def phase_lm_dryrun_path(counters, device):
     ``llava-next-mistral-7b``'s prefill, and both cells of
     ``falcon-mamba-7b``, ``recurrentgemma-2b`` (on (2, 2) ranks) and
     ``whisper-large-v3`` (each cut to size as its ``LM_RANK_CELLS`` entry
-    says).  No kernel of the port is on this
+    says), and ``qwen3-1.7b``'s training step on (1, 4) ranks in float32
+    and bf16.  No kernel of the port is on this
     path: the counts stay 0."""
     from repro_torch.benchmarks import roofline
     from repro_torch.launch import dryrun

@@ -27,7 +27,7 @@ __all__ = ["hypergraph_from_arrays", "hlindex_from_arrays",
            "ete_index_from_arrays", "line_graph_from_arrays",
            "threshold_index_from_arrays", "lm_layers_from_params",
            "lm_state_dict_from_params", "lm_rank_state_dict_from_params",
-           "nest_layers",
+           "lm_rank_adam_state_from_params", "nest_layers",
            "lm_params_from_state_dict", "host_copy", "STACKED"]
 
 
@@ -196,6 +196,20 @@ def lm_rank_state_dict_from_params(params: Mapping, specs: Mapping,
     return {k: torch.from_numpy(np.array(                       # a copy
         leaf_block(v, leaf_spec(specs, k), mesh), dtype=np.float32))
         for k, v in lm_layers_from_params(params).items()}
+
+
+def lm_rank_adam_state_from_params(state: Mapping, specs: Mapping,
+                                   mesh) -> Dict[str, object]:
+    """One rank's ``train.optimizer.adam_init``-shaped state from the
+    reference's float32 Adam state (``{"m", "v", "count"}``, ``m`` and
+    ``v`` pytrees shaped as the parameters): each moment leaf cut to the
+    rank's block as ``lm_rank_state_dict_from_params`` cuts the weights,
+    ``count`` an int32 0-d tensor; all on the CPU.  A rank's step started
+    from it continues the reference's."""
+    return {"m": lm_rank_state_dict_from_params(state["m"], specs, mesh),
+            "v": lm_rank_state_dict_from_params(state["v"], specs, mesh),
+            "count": torch.tensor(int(np.asarray(state["count"])),
+                                  dtype=torch.int32)}
 
 
 def host_copy(leaf) -> np.ndarray:

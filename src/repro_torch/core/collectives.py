@@ -87,13 +87,14 @@ import torch
 import torch.distributed as tdist
 
 __all__ = ["all_gather_panel", "ring_shift", "all_reduce_max",
-           "all_reduce_min", "all_reduce_sum", "all_to_all_over", "Tally",
+           "all_reduce_min", "all_reduce_sum", "all_reduce_sum_checked",
+           "all_to_all_over", "Tally",
            "KINDS", "all_gather_ragged", "gather_ragged_or_raise",
            "agree_or_raise", "broadcast_from", "broadcast_json",
            "encode_json", "decode_json", "exchange_pieces",
            "exchange_device",
            "same_on_every_rank", "gather_over", "shift_over", "max_over",
-           "min_over", "sum_over", "rows_over", "digest"]
+           "min_over", "sum_over", "rows_over", "digest", "no_backward"]
 
 # (key, shape, dtype[, grow]) -> a host buffer kept for the next call
 Stage = Callable[[str, Sequence[int], torch.dtype], torch.Tensor]
@@ -273,12 +274,24 @@ def rows_over(t: torch.Tensor, group, send_counts: Sequence[int],
     return recv if stage is None else recv.to(src.device, copy=True)
 
 
+def no_backward(t: Optional[torch.Tensor], what: str) -> None:
+    """Raises ``NotImplementedError`` where autograd records ``t``: the
+    transfer ``what`` returns a tensor with no gradient, which would cut
+    a backward silently."""
+    if t is not None and torch.is_grad_enabled() and t.requires_grad:
+        raise NotImplementedError(
+            f"{what} has no backward on ranks (ROADMAP.md, A10d-5b-3); "
+            f"call it outside autograd")
+
+
 def all_gather_panel(block: torch.Tensor, mesh, axis: str,
                      dim: int) -> torch.Tensor:
-    """The tiled all-gather of ``block`` along ``axis`` into ``dim``."""
+    """The tiled all-gather of ``block`` along ``axis`` into ``dim``.
+    Under autograd it refuses (``no_backward``)."""
     n = mesh.shape[axis]
     if n == 1:
         return block
+    no_backward(block, "all_gather_panel")
     return _counted(mesh, "all-gather", block, lambda: gather_over(
         block, mesh.axis_group(axis), n, dim, _stage_for(block, mesh),
         key=f"gather:{axis}:{dim}"))
@@ -321,6 +334,31 @@ def all_reduce_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"sum:{axis}"))
 
 
+def all_reduce_sum_checked(t: Optional[torch.Tensor], shape: Sequence[int],
+                           mesh, axis: str, what: str,
+                           error: Optional[BaseException] = None
+                           ) -> torch.Tensor:
+    """``all_reduce_sum`` of the float32 ``t`` (of ``shape``) with one
+    float32 status word beside it in the same all-reduce: a rank whose
+    share failed passes its ``error`` (``t`` unused: zeros cross) and
+    still joins, and if any rank failed every rank raises
+    ``RuntimeError`` naming the ranks and their errors
+    (``gather_ragged_or_raise`` over the world, which must be the
+    ``axis`` line: every rank of it is in this call).  Counted as one
+    all-reduce of ``prod(shape) + 1`` float32 values."""
+    if error is not None or t is None:
+        t = torch.zeros(tuple(shape), dtype=torch.float32,
+                        device=mesh.device)
+    flag = torch.full((1,), 0.0 if error is None else 1.0,
+                      dtype=torch.float32, device=t.device)
+    total = all_reduce_sum(torch.cat([t.reshape(-1), flag]), mesh, axis)
+    if bool(total[-1] > 0):
+        gather_ragged_or_raise(
+            torch.empty(0, dtype=torch.int64, device=exchange_device(mesh)),
+            mesh, what, error)
+    return total[:-1].view(tuple(shape))
+
+
 def _line_counts(words: torch.Tensor, mesh, axis: str) -> Optional[str]:
     """Why the gathered count words ``[world, 1 + 2 n]`` (each rank's
     status, send counts, receive counts) do not pair up along ``axis``,
@@ -353,12 +391,13 @@ def all_to_all_over(t: Optional[torch.Tensor], mesh, axis: str,
     unused): it still joins the count exchange, and every rank raises
     ``RuntimeError`` naming it.  Counted as ``all-to-all`` with its
     result bytes.  On an axis of size 1 it is the identity (``error``
-    is raised)."""
+    is raised).  Under autograd it refuses (``no_backward``)."""
     n = mesh.shape[axis]
     if n == 1:
         if error is not None:
             raise error
         return t
+    no_backward(t, "all_to_all_over")
     send = [int(c) for c in send_counts]
     recv = [int(c) for c in recv_counts]
     if error is None:

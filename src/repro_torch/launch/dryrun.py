@@ -65,7 +65,11 @@ same step's arguments from the ``ShapeDtype`` records of
     experts' and arctic's dense residual's down) ends in an all-reduce
     over ``model`` of its ``[t, d_out]`` output.  Training adds one for
     the remat recompute (``remat`` with policy ``"full"``) and one in the
-    backward (the gradient entering each column-split group).  Mamba's
+    backward: the gradient entering each column-split group
+    (``models.layers.enter_split``: attention's ``wq`` / ``wk`` / ``wv``
+    input, the MLP's gate / up input), one a row-split dense, with one
+    float32 status word beside it (``collectives.
+    all_reduce_sum_checked``).  Mamba's
     ``in_proj`` moves nothing: its spec splits the fused ``[xs | z]``
     columns, and a rank holds its channels' columns of each half
     (``layers.Fused``), the same bytes as a contiguous block, where the
@@ -88,7 +92,8 @@ same step's arguments from the ``ShapeDtype`` records of
     sum is exact), an all-gather where ``d_model`` is (Whisper);
   - the head: with a vocab-split head, training all-reduces the loss's
     three float32 statistics ``[t]`` (max, sum of exponentials, the
-    label's logit) and, in the backward, the ``[t, d]`` input gradient;
+    label's logit: ``models.layers.cross_entropy_vocab_split``) and, in
+    the backward, the ``[t, d]`` input gradient and its status word;
     prefill and decode leave the logits vocab-split, as the step's
     result.  A head contracted over a split ``d_model`` (Whisper's tied
     embedding) all-reduces its ``[t, V]`` logits, in pieces of
@@ -123,6 +128,11 @@ same step's arguments from the ``ShapeDtype`` records of
     all-gathers each layer's new cross K/V; no cell runs it);
   - LLaVA's projector: its row-split ``fc2`` all-reduces ``[p, d]`` over
     the ``p`` patches, forward and (training) backward;
+  - a training step over a split ``model``, once a step, float32: one
+    all-reduce of the gradients of the replicated leaves a rank applies
+    to its own heads (``models.layers.partial_grad``: the qk norms), if
+    the model has any, and one of the global norm's sum of squares (a
+    single value: ``train.optimizer.global_norm``);
   - the gradient reduction over the batch axes, once a step, float32:
     a leaf that ZeRO-1 splits over ``data`` is reduce-scattered over
     ``data`` (result: its moment's shard), all-reduced over ``pod`` if
@@ -163,10 +173,14 @@ together from seed 1), with the collectives of the closed form above
 over ``model`` (``core/collectives.py``; ``models/layers.py`` under
 ``sharding_mesh``).  Its logits stay vocab-split; the whole logits are
 gathered after the timed passes (Whisper's come out whole: its head
-sums them over ``model``).  A rank whose share fails makes every
-rank raise (``collectives.agree_or_raise``) where no rank is left inside
-a collective; there is no fallback to one process.  Training on ranks
-is not ported.
+sums them over ``model``).  A training cell on ranks (a ``dense``
+model, the batch not split: ``_run_rule``) runs the rank's step
+(``train.train_step``): its blocks of the parameters and the Adam
+moments, the whole batch on every rank, the backward's collectives of
+the closed form.  A rank whose share fails makes every rank raise
+(``collectives.agree_or_raise``) where no rank is left inside a
+collective, and so does a rank whose share of a backward sum fails (its
+status word); there is no fallback to one process.
 
 A run adds ``run_batch``, ``run_s`` (CUDA events, the median of
 ``run_reps`` (3 by default) after 1 warm-up; ``None`` off the card),
@@ -199,7 +213,14 @@ blocks) unchanged; on ranks also every all-reduced tensor of the
 warm-up byte-equal on the ranks of a ``model`` line (by
 ``collectives.digest``), so is every MoE layer's routing (its experts
 and gates, ``Tally.route``) and the hybrid's window after the passes,
-and the gathered logits equal on every rank.  A failed check raises.
+and the gathered logits equal on every rank; a training step on ranks
+also: every parameter's gradient non-zero somewhere before the warm-up
+step's update (read by a hook as it accumulates: weight decay moves a
+parameter whose gradient a cut backward zeroed, so "changed" alone
+would not see the cut), every leaf whole on every rank (replicated)
+byte-equal along the ``model`` line after the passes, each pass's loss
+and gradient norm too, and every rank's counted collectives equal to
+the closed form's (``closed_form_mismatch``).  A failed check raises.
 
   python -m repro_torch.launch.dryrun --all --out build/dryrun --device cpu
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
@@ -216,6 +237,7 @@ import statistics
 import traceback
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import convert
@@ -232,7 +254,7 @@ from ..distributed_lm.sharding import spec_axes as _axes
 from ..distributed_lm.sharding import spec_entries as _entries
 from ..models import build_model
 from ..models import whisper as _whisper
-from ..models.layers import P, gathers_kv, torch_dtype
+from ..models.layers import P, gathers_kv, partial_grad, torch_dtype
 from ..serve.serve_step import (make_prefill_step, make_serve_step,
                                 whole_logits)
 from ..train.optimizer import AdamConfig, adam_init, opt_state_specs
@@ -469,7 +491,10 @@ def _body_terms(recs, cfg, tokens: int, act: int, passes: int,
             if "model" in _axes(spec[-2]) and \
                     "model" not in _axes(spec[-1]):
                 out.add("all-reduce", tokens * rec.shape[-1] * _PARTIAL,
-                        times=passes)
+                        times=max(passes - 1, 1))
+                if passes > 1:              # the backward's, and its status
+                    out.add("all-reduce",
+                            (tokens * rec.shape[-1] + 1) * _PARTIAL)
             if path[-2] == "w_a" and "model" in _axes(spec[-1]):
                 # RG-LRU's gates read the whole conv output
                 _gathered(out, tokens * rec.shape[-2], act, passes, k)
@@ -563,7 +588,7 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
         if head_vocab_split(recs):
             if kind == "train":
                 head.add("all-reduce", t_dec * 4, count=3)
-                head.add("all-reduce", t_dec * d * _PARTIAL)
+                head.add("all-reduce", (t_dec * d + 1) * _PARTIAL)
         else:
             # summed HEAD_CHUNK_TOKENS tokens at a time
             chunk = _whisper.HEAD_CHUNK_TOKENS
@@ -598,6 +623,16 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
             else:
                 grads.add("all-reduce",
                           math.prod(shard_shape(rec.shape, pspec, mesh)) * 4)
+        if split_model:
+            # the replicated leaves a rank applies to its own heads hold a
+            # partial gradient: one float32 all-reduce of them all; then
+            # the global norm's one float32 value
+            part = sum(math.prod(rec.shape) * 4 for path, rec in _leaves(recs)
+                       if partial_grad(path) and "model" not in {
+                           a for e in rec.sharding.spec for a in _axes(e)})
+            if part:
+                grads.add("all-reduce", part)
+            grads.add("all-reduce", 4)
         flat.merge(grads)
         executed.merge(grads)
     return flat.record(), executed.record()
@@ -620,13 +655,15 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
     In one process: a ``model`` axis of 1 (a ``pod`` axis only splits the
     batch).  On ranks (a ``ProcessMesh`` over ``data`` and ``model``):
     the ranks' ``model`` axis equal to the cell's, their ``data`` axis
-    within the cell's batch blocks, a serving cell (prefill or decode),
-    and where ``model`` is split, a model whose every split the axis
-    makes exact.  A transformer (``dense``, ``moe``, ``vlm``): heads, KV
-    heads and vocab; ``d_ff`` where a dense MLP runs; ``d_model`` for
-    LLaVA's projector; ``moe_d_ff`` and the shared experts'
-    ``n_shared_experts x moe_d_ff`` for FFN-split experts, ``n_experts``
-    for experts over ``model``; a decode's cache length.  Mamba
+    within the cell's batch blocks, a training cell only for a ``dense``
+    model whose batch is not split (the cell's batch axes, and so the
+    ranks' ``data`` axis, of 1) with float32 moments, and where ``model``
+    is split, a model whose every split the axis makes exact.  A
+    transformer (``dense``, ``moe``, ``vlm``): heads, KV heads and vocab;
+    ``d_ff`` where a dense MLP runs; ``d_model`` for LLaVA's projector;
+    ``moe_d_ff`` and the shared experts' ``n_shared_experts x
+    moe_d_ff`` for FFN-split experts, ``n_experts`` for experts over
+    ``model``; a decode's cache length.  Mamba
     (``ssm``): ``d_inner`` and vocab.  The hybrid: heads, the KV heads'
     columns ``n_kv_heads x head_dim`` (fewer KV heads than the axis are
     gathered, so the axis must divide them or be their multiple),
@@ -651,8 +688,17 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
         return (f"the ranks' data axis {ranks.shape['data']} exceeds the "
                 f"cell's {_batch_rows(mesh, shape)} batch blocks")
     if shape.kind == "train":
-        return ("training on ranks (the backward's all-reduces, ZeRO-1 "
-                "over data) is not ported")
+        if cfg.family != "dense":
+            return (f"training a {cfg.family!r} model on ranks (the "
+                    f"backwards of its gathers, all-to-alls and scans) is not "
+                    f"ported (ROADMAP.md, A10d-5b-3)")
+        if _batch_rows(mesh, shape) > 1:
+            return (f"training with the batch split over "
+                    f"{_batch_rows(mesh, shape)} blocks: the gradient "
+                    f"reduction and ZeRO-1 over data on ranks are not ported "
+                    f"(ROADMAP.md, A10d-5b-2)")
+        if cfg.opt_8bit:
+            return "8-bit Adam moments on ranks are not ported"
     if model == 1:
         return None
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
@@ -739,6 +785,46 @@ def _finite(name: str, t: torch.Tensor) -> None:
 def _sample(p: torch.Tensor, n: int = 4096) -> torch.Tensor:
     flat = p.detach().reshape(-1)
     return flat[::max(1, flat.numel() // n)].clone()
+
+
+def whole_sample(t: torch.Tensor, like: torch.Tensor, n: int = 4096
+                 ) -> Tuple[Any, Any]:
+    """A fixed strided sample of a leaf by its whole leaf's coordinates:
+    along each of its ``D`` dimensions (size ``d``) about ``n ** (1 /
+    D)`` evenly spaced coordinates from 0 to ``d - 1``, and every entry of
+    their grid, so each block of a split dimension holds its share (one
+    stride over the flattened leaf can alias with a row's width and miss
+    whole column blocks).  ``t`` has the shape of the parameter ``like``;
+    where ``like`` is a rank's block (its ``whole_shape`` and ``block``:
+    ``distributed_lm.sharding.to_rank_widths``), the grid's entries that
+    fall in the block.  Returns (the entries' flat indices in the whole
+    leaf, int64, ascending; their values, float32), numpy on the host, so
+    a rank's entries meet the same entries of a one-process run's."""
+    whole = tuple(getattr(like, "whole_shape", like.shape))
+    block = getattr(like, "block", None) or tuple(slice(0, d)
+                                                  for d in whole)
+    per = math.ceil(n ** (1 / max(len(whole), 1)))
+    coords, local = [], []
+    for size, part in zip(whole, block):
+        c = np.unique(np.linspace(0, size - 1, min(size, per)).round()
+                      .astype(np.int64))
+        if isinstance(part, slice):
+            c = c[(c >= part.start) & (c < part.stop)]
+            at = c - part.start
+        else:                       # a fused dimension's index block
+            where = np.full(size, -1, np.int64)
+            where[part] = np.arange(len(part))
+            c = c[where[c] >= 0]
+            at = where[c]
+        coords.append(c)
+        local.append(at)
+    grid = np.meshgrid(*coords, indexing="ij")
+    idx = np.ravel_multi_index(grid, whole).reshape(-1)
+    pick = tuple(torch.as_tensor(g.reshape(-1), device=t.device)
+                 for g in np.meshgrid(*local, indexing="ij"))
+    vals = t.detach()[pick].float().cpu().numpy()
+    order = np.argsort(idx, kind="stable")
+    return idx[order], vals[order]
 
 
 def _agreed(ranks, what: str, fn):
@@ -844,13 +930,22 @@ def _check_advanced(name: str, v: torch.Tensor, before: torch.Tensor,
 
 def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
              run_reps: int = _RUN_REPS, ranks=None,
-             logits: Optional[List[torch.Tensor]] = None) -> Dict[str, Any]:
+             logits: Optional[List[torch.Tensor]] = None,
+             executed: Optional[Dict[str, Any]] = None,
+             sample: Optional[List[Dict[str, Any]]] = None
+             ) -> Dict[str, Any]:
     """Runs one device's share of the cell (module docstring), timed
     ``run_reps`` times after the warm-up, and returns the fields it adds
     to the record.  With ``ranks`` every rank of the ``ProcessMesh`` calls
     it with the same arguments and runs its own share on its device.
     ``logits``, if given, receives the last pass's whole logits (float32,
-    on the host; on ranks gathered from every rank's block)."""
+    on the host; on ranks gathered from every rank's block).  A training
+    cell on ranks holds its counted collectives to ``executed`` (the
+    closed form's ``collective_executed``); ``sample``, if given,
+    receives a training run's ``{"loss", "grad_norm"}`` (each pass's,
+    floats) and ``{"params", "m"}``: ``whole_sample`` of every new
+    parameter and first moment after the last pass, by name (on ranks
+    the rank's entries)."""
     from torch.utils.flop_counter import FlopCounterMode
     long_ctx = shape.name.startswith("long")
     run_batch = -(-shape.global_batch // _batch_rows(mesh, shape))
@@ -887,11 +982,23 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
                                            shape.seq_len).items()}
         before = {k: _sample(p) for k, p in params.items()}
         step = make_train_step(model, cfg, opt_cfg)
-        losses = []
+        losses, norms = [], []
+        # on ranks, whether each gradient is non-zero somewhere in the
+        # warm-up step: weight decay moves a parameter whose gradient a
+        # collective cut, so "changed" alone would not see the cut
+        nonzero: Dict[str, torch.Tensor] = {}
+        hooks = [] if ranks is None else [
+            p.register_post_accumulate_grad_hook(
+                lambda p, k=k: nonzero.__setitem__(k, p.grad.ne(0).any()))
+            for k, p in params.items()]
 
         def one():
             _, _, metrics = step(params, state, batch)
             losses.append(metrics["loss"])
+            norms.append(metrics["grad_norm"])
+            for h in hooks:
+                h.remove()
+            hooks.clear()
 
         def check():
             for i, loss in enumerate(losses):
@@ -903,6 +1010,16 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
                                          f"change")
             checks[:] = ["losses finite", "parameters finite",
                          f"all {len(params)} parameters changed"]
+            if ranks is None:
+                return
+            zero = [k for k in params if k not in nonzero
+                    or not bool(nonzero[k])]
+            if zero:
+                raise AssertionError(
+                    f"run: the gradient of {', '.join(zero)} is zero "
+                    f"everywhere before the update (a cut backward)")
+            checks.insert(2, f"all {len(params)} gradients non-zero before "
+                             f"the update")
     elif shape.kind == "prefill":
         batch = rank_rows({k: _seeded(r.shape, r.dtype, data, device,
                                       cfg.vocab)
@@ -1020,6 +1137,18 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         routes_agree = _same_on(routes, ranks, "model")
         logits_agree = whole is None or _same_on(list(coll.digest(whole)),
                                                  ranks)
+        if shape.kind == "train":
+            # the leaves whole on every rank of a model line, and the
+            # step's metrics, hold the same bytes along it
+            whole_leaves = [k for k, p in params.items()
+                            if tuple(p.shape) == tuple(getattr(
+                                p, "whole_shape", p.shape))]
+            replicas_agree = _same_on(
+                [w for k in whole_leaves for w in coll.digest(params[k])],
+                ranks, "model")
+            metrics_agree = _same_on([w for t in losses + norms
+                                      for w in coll.digest(t)], ranks,
+                                     "model")
 
     def check_all():
         check()
@@ -1037,6 +1166,19 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         if not window_agree:
             raise AssertionError("run: the window cache differs between the "
                                  "ranks of a model line")
+        if shape.kind == "train":
+            if not replicas_agree:
+                raise AssertionError("run: a replicated parameter differs "
+                                     "between the ranks of a model line "
+                                     "after the step")
+            if not metrics_agree:
+                raise AssertionError("run: the loss or the gradient norm "
+                                     "differs between the ranks of a model "
+                                     "line")
+            checks.append(f"{len(whole_leaves)} replicated parameters equal "
+                          f"on every rank of a model line")
+            checks.append("loss and grad_norm equal on every rank of a "
+                          "model line")
         checks.append(f"{len(digests) // 2} all-reduced tensors equal on "
                       f"every rank of a model line")
         if routes:
@@ -1050,6 +1192,13 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
     _agreed(ranks, "run_cell checks", check_all)
     if logits is not None and whole is not None:
         logits.append(whole.float().cpu())
+    if sample is not None and shape.kind == "train":
+        sample.append({
+            "loss": [float(t) for t in losses],
+            "grad_norm": [float(t) for t in norms],
+            "params": {k: whole_sample(p, p) for k, p in params.items()},
+            "m": {k: whole_sample(state["m"][k], p)
+                  for k, p in params.items()}})
     a = roofline.analytic_cell_model(
         cfg, dataclasses.replace(shape, global_batch=run_batch))
     parts = ranks.shape["model"] if ranks is not None else 1
@@ -1075,6 +1224,14 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
     out.update(run_ranks=[{k: v for k, v in r.items() if k != "collective"}
                           for r in every],
                run_collective=[r["collective"] for r in every])
+    if shape.kind == "train" and executed is not None:
+        # every rank holds every rank's tally: all raise together
+        why = closed_form_mismatch(out["run_collective"], executed,
+                                   ranks.dims)
+        if why is not None:
+            raise AssertionError(f"run: the counted collectives part from "
+                                 f"the closed form: {why}")
+        checks.append("collectives equal to the closed form's")
     if on_card:
         out["run_s"] = max(r["run_s"] for r in every)
         out["run_exchange_s"] = max(r["run_exchange_s"] for r in every)
@@ -1094,7 +1251,8 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeCell], *,
                mesh_shape: Optional[tuple] = None,
                device: DeviceLike = None, run: bool = False,
                run_reps: int = _RUN_REPS, ranks=None,
-               logits: Optional[List[torch.Tensor]] = None
+               logits: Optional[List[torch.Tensor]] = None,
+               sample: Optional[List[Dict[str, Any]]] = None
                ) -> Dict[str, Any]:
     """One cell's record (module docstring).  ``overrides`` applies
     ``dataclasses.replace`` on the config and ``mesh_shape`` re-factors
@@ -1104,7 +1262,8 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeCell], *,
     ``device=None`` means ``"cuda"`` and raises without a card.
     ``run_reps`` is the number of timed passes of a run.  ``ranks`` (a
     ``ProcessMesh``; every rank calls with the same arguments) runs the
-    share on ranks, ``logits`` receives the run's whole logits
+    share on ranks, ``logits`` receives the run's whole logits and
+    ``sample`` a training run's metrics and sampled state
     (``run_cell``)."""
     del keep_hlo
     dev = resolve_device(device)
@@ -1148,7 +1307,7 @@ def lower_cell(arch: str, shape_name: Union[str, ShapeCell], *,
             rec["run_reason"] = reason
         else:
             rec.update(run_cell(cfg, shape, mesh, dev, run_reps, ranks,
-                                logits))
+                                logits, coll_exec, sample))
     return rec
 
 

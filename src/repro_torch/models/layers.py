@@ -65,6 +65,18 @@ the returned rows and all-gathers the slices over ``model``.  The
 reference's ``constrain`` has nothing to constrain here; ``gqa_repeat``
 keeps its numerics (K/V broadcast to every head) and ``act_shard`` is
 inert.
+
+A training backward on ranks (a ``dense`` model; ``train.train_step``)
+takes its collectives from autograd ``Function``s that keep their mesh
+in ``ctx``, since the card's autograd engine runs them on its own
+thread: the row-split sums and the embedding's pass the gradient
+through (``_SumOver``); each column-split group's input goes through
+``enter_split``, whose backward sums the ranks' partial input gradients
+over ``model`` in float32 with a status word beside them; the
+vocab-split loss is ``cross_entropy_vocab_split``; ``remat`` re-enters
+the ranks' mesh for the recompute.  The gathers, the all-to-all and a
+sequence-split decode have no backward yet and refuse autograd
+(``collectives.no_backward``).
 """
 from __future__ import annotations
 
@@ -79,7 +91,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from ..core import collectives as coll
 from .common import ArchConfig
@@ -92,8 +105,9 @@ __all__ = [
     "cross_entropy_loss", "remat_policy", "remat", "stacked_specs",
     "map_specs",
     "linear_scan", "causal_conv", "torch_dtype", "sharding_mesh",
-    "current_mesh", "draw", "sum_partials", "Fused", "embed_vocab_split",
-    "gather_kv", "gathers_kv",
+    "current_mesh", "draw", "sum_partials", "enter_split", "Fused",
+    "embed_vocab_split", "gather_kv", "gathers_kv",
+    "cross_entropy_vocab_split", "partial_grad", "HEAD_NORMS",
 ]
 
 
@@ -210,11 +224,75 @@ def draw(p: torch.Tensor, fill: Callable[[torch.Tensor], object]) -> None:
     del whole
 
 
+class _SumOver(torch.autograd.Function):
+    """Forward: the sum of ``y`` over ``axis`` (one ``collectives.
+    all_reduce_sum``; with ``f32`` taken in float32 and rounded once to
+    ``y``'s dtype).  Backward: the identity, since the incoming gradient
+    of a sum that every rank holds whole is already whole on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, axis, f32):
+        if f32:
+            return coll.all_reduce_sum(y.float(), mesh, axis).to(y.dtype)
+        return coll.all_reduce_sum(y, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def _rank_part(g: torch.Tensor) -> torch.Tensor:
+    """A rank's share of an entry's backward sum: its partial gradient in
+    float32."""
+    return g.float()
+
+
+class _EnterSplit(torch.autograd.Function):
+    """Forward: the identity.  Backward: the sum over ``axis`` of the
+    ranks' partial gradients, in float32 and rounded once to the
+    gradient's dtype, with a status word beside it
+    (``collectives.all_reduce_sum_checked``): a rank whose share fails
+    still joins, and every rank raises.  The mesh rides in ``ctx``: the
+    backward may run on another thread (the autograd engine's device
+    thread), where no ``sharding_mesh`` is set."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        part, error = None, None
+        try:
+            part = _rank_part(g)
+        except Exception as exc:             # every rank must hear of it
+            error = exc
+        return (coll.all_reduce_sum_checked(
+            part, g.shape, ctx.mesh, ctx.axis, "the backward", error)
+            .to(g.dtype), None, None)
+
+
 def sum_partials(y: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The sum over ``axis`` of the ranks' partial products ``y`` (one
     ``collectives.all_reduce_sum``), taken in float32 and rounded once to
-    ``y``'s dtype."""
-    return coll.all_reduce_sum(y.float(), mesh, axis).to(y.dtype)
+    ``y``'s dtype.  Its backward is the identity (``_SumOver``)."""
+    return _SumOver.apply(y, mesh, axis, True)
+
+
+def enter_split(x: torch.Tensor, mesh, axis: str = "model"
+                ) -> torch.Tensor:
+    """``x`` as the input of a group of denses split over ``axis`` by
+    their output columns (attention's ``wq`` / ``wk`` / ``wv``, the MLP's
+    gate / up, the vocab-split head): the identity forward; in the
+    backward the ranks' partial input gradients are summed over ``axis``
+    (``_EnterSplit``), once for the group.  ``x`` itself outside
+    autograd or where ``mesh`` does not split ``axis``."""
+    if mesh is None or mesh.shape.get(axis, 1) == 1 \
+            or not torch.is_grad_enabled():
+        return x
+    return _EnterSplit.apply(x, mesh, axis)
 
 
 def embed_vocab_split(embed: torch.Tensor, tokens: torch.Tensor,
@@ -222,7 +300,9 @@ def embed_vocab_split(embed: torch.Tensor, tokens: torch.Tensor,
     """``tokens``' rows of an embedding in ``dtype``; on a rank (``mesh``
     splitting ``model``) ``embed`` is its block of vocab rows: the others'
     tokens give zeros, then one all-reduce sum over ``model`` (exact in
-    any dtype: one rank holds each token's row)."""
+    any dtype: one rank holds each token's row).  Its backward is the
+    identity: the rank's rows take the gradient of the tokens in its
+    range, with no collective."""
     if not _split_model(mesh):
         return embed[tokens.long()].to(dtype)
     rows = embed.shape[0]
@@ -231,7 +311,7 @@ def embed_vocab_split(embed: torch.Tensor, tokens: torch.Tensor,
     x = torch.where(inside[..., None],
                     embed[ids.clamp(0, rows - 1)].to(dtype),
                     torch.zeros((), dtype=dtype, device=ids.device))
-    return coll.all_reduce_sum(x, mesh, "model")
+    return _SumOver.apply(x, mesh, "model", False)
 
 
 def _f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor
@@ -385,6 +465,21 @@ def attention_specs(cfg: ArchConfig) -> Dict:
     return p
 
 
+# replicated leaves that a rank applies to its own heads only: on ranks
+# that split the heads over model, a rank's gradient of one is its part
+# of the sum over the heads (``partial_grad``)
+HEAD_NORMS = ("q_norm", "k_norm")
+
+
+def partial_grad(name) -> bool:
+    """Whether the replicated leaf ``name`` (a ``state_dict`` key, or the
+    path of keys into a spec tree) has, on a rank that splits ``model``,
+    a partial gradient that the ranks sum over ``model`` (the qk norms,
+    ``HEAD_NORMS``)."""
+    parts = name.split(".") if isinstance(name, str) else name
+    return any(part in HEAD_NORMS for part in parts)
+
+
 def _rank_kv_heads(cfg: ArchConfig, mesh) -> Tuple[int, int]:
     """The KV heads ``[lo, hi)`` that this rank's query heads (block ``r``
     of ``n_heads / k`` over ``model``) read: its own block where the axis
@@ -452,12 +547,15 @@ def _qkv(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     all-gathered over ``model`` first where ``gathers_kv`` says."""
     b = x.shape[0]
     hd = cfg.hd
-    src = x if kv_x is None else kv_x
+    mesh = current_mesh()
+    # the inputs of the column-split wq / wk / wv: their partial input
+    # gradients are summed once here in a backward
+    x = enter_split(x, mesh)
+    src = x if kv_x is None else enter_split(kv_x, mesh)
     s_kv = src.shape[1]
     q = _project_q(p, cfg, x, positions, use_rope)
     k = dense_apply(p.wk, src)
     v = dense_apply(p.wv, src)
-    mesh = current_mesh()
     if _split_model(mesh) and gathers_kv(cfg, mesh.shape["model"],
                                          whole_kv):
         k, v = gather_kv(k, v, mesh)
@@ -692,6 +790,7 @@ def _decode_on_ranks(p: Attention, cfg: ArchConfig, x: torch.Tensor,
     (its scores are ``-inf`` against the finite global max).  RoPE at
     ``pos`` where ``use_rope`` (Whisper's decoder has none)."""
     b, hd, axis = x.shape[0], cfg.hd, "model"
+    coll.no_backward(x, "decode against a sequence-split cache")
     k_ax, r = mesh.shape[axis], mesh.axis_index(axis)
     q, k, v = _qkv(p, cfg, x, None,
                    torch.tensor([[pos]], device=x.device) if use_rope
@@ -758,6 +857,8 @@ def mlp_specs(kind: str = "swiglu") -> Dict:
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    # the input of the column-split gate / up (fc1)
+    x = enter_split(x, current_mesh())
     if kind == "swiglu":
         return dense_apply(p.down, F.silu(dense_apply(p.gate, x))
                            * dense_apply(p.up, x))
@@ -1004,6 +1105,47 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return (lse - gold).mean()
 
 
+class _VocabSplitCE(torch.autograd.Function):
+    """``cross_entropy_vocab_split``: the forward's three float32 ``[t]``
+    all-reduces over ``axis``, a local backward."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mesh, axis):
+        lf = logits.float()
+        width = lf.shape[-1]
+        top = coll.all_reduce_max(lf.amax(dim=-1), mesh, axis)
+        total = coll.all_reduce_sum(torch.exp(lf - top[..., None]).sum(
+            dim=-1), mesh, axis)
+        ids = labels.long() - mesh.axis_index(axis) * width
+        inside = (ids >= 0) & (ids < width)
+        ids = ids.clamp(0, width - 1)
+        mine = torch.where(inside, lf.gather(-1, ids[..., None])[..., 0],
+                           torch.zeros((), device=lf.device))
+        gold = coll.all_reduce_sum(mine, mesh, axis)
+        ctx.save_for_backward(logits, top, total, ids, inside)
+        return (torch.log(total) + top - gold).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, top, total, ids, inside = ctx.saved_tensors
+        soft = torch.exp(logits.float() - top[..., None]) / total[..., None]
+        soft.scatter_add_(-1, ids[..., None],
+                          -inside[..., None].to(soft.dtype))
+        return (soft * (g / top.numel())).to(logits.dtype), None, None, None
+
+
+def cross_entropy_vocab_split(logits: torch.Tensor, labels: torch.Tensor,
+                              mesh, axis: str = "model") -> torch.Tensor:
+    """``cross_entropy_loss`` of logits whose vocab is split over
+    ``axis``: ``logits`` ``[..., V / k]`` is this rank's block (vocab
+    rows ``[r V / k, (r + 1) V / k)``), ``labels`` the whole ids.  Three
+    float32 ``[t]`` all-reduces over ``axis`` give the row's max, the sum
+    of its exponentials and the label's logit (its owner's value, zeros
+    elsewhere), so every rank holds the whole loss.  The backward is
+    local: ``(softmax_block - onehot_block) / t``."""
+    return _VocabSplitCE.apply(logits, labels, mesh, axis)
+
+
 # ---------------------------------------------------------------------------
 # recurrences (Mamba, RG-LRU)
 # ---------------------------------------------------------------------------
@@ -1070,7 +1212,14 @@ def remat_policy(cfg: ArchConfig) -> Optional[Callable]:
 def remat(fn: Callable, cfg: ArchConfig) -> Callable:
     """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) with
     ``remat_policy(cfg)`` when ``cfg.remat`` is set and autograd is
-    recording; ``fn`` itself otherwise.  Values are the same either way."""
+    recording; ``fn`` itself otherwise.  Values are the same either way.
+    The recompute re-enters the ``sharding_mesh`` the forward ran in: it
+    runs inside the backward, where the context is not the forward's
+    (and on the card on the autograd engine's own thread).  On ranks that
+    split ``model`` the recompute runs the whole block, its last
+    row-split sum too (no early stop), so a rank's collectives are the
+    dry-run's closed form's: each row-split dense sums once in the
+    forward, once in the recompute and once in the backward."""
     if not cfg.remat:
         return fn
     policy = remat_policy(cfg)
@@ -1079,10 +1228,14 @@ def remat(fn: Callable, cfg: ArchConfig) -> Callable:
     def wrapped(*args, **kwargs):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
-        if policy is None:
-            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
-        return checkpoint(fn, *args, use_reentrant=False,
-                          context_fn=functools.partial(
-                              create_selective_checkpoint_contexts, policy),
-                          **kwargs)
+        mesh = current_mesh()
+
+        def in_mesh(*a, **kw):
+            with sharding_mesh(mesh):
+                return fn(*a, **kw)
+        extra = {} if policy is None else dict(context_fn=functools.partial(
+            create_selective_checkpoint_contexts, policy))
+        with set_checkpoint_early_stop(not _split_model(mesh)):
+            return checkpoint(in_mesh, *args, use_reentrant=False,
+                              **extra, **kwargs)
     return wrapped

@@ -25,7 +25,10 @@ prepended to the all-reduced text embedding, so every rank holds the
 whole ``[patches + tokens]`` stream; the head leaves the logits
 vocab-split, the rank's block ``[..., vocab / k]``, as the reference's
 step returns them; the cache is the rank's block (its batch rows over
-``data``, its sequence slots over ``model``).
+``data``, its sequence slots over ``model``).  ``loss`` on ranks is
+``layers.cross_entropy_vocab_split`` of the rank's vocab block of the
+logits, and the head's input enters through ``layers.enter_split``, so
+a backward sums its partial gradient over ``model``.
 """
 from __future__ import annotations
 
@@ -182,6 +185,9 @@ class TransformerLM(nn.Module):
         return x
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
+        # the vocab-split head's input: its partial gradients are summed
+        # over model in a backward
+        x = L.enter_split(x, L.current_mesh())
         if self.cfg.tie_embeddings:
             return x @ self.embed.to(x.dtype).T
         return L.dense_apply(self.lm_head, x)
@@ -209,11 +215,17 @@ class TransformerLM(nn.Module):
     forward = apply
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token CE plus the MoE aux loss.  On ranks that split
+        ``model`` the logits are the rank's vocab block, and the loss is
+        ``layers.cross_entropy_vocab_split``'s (whole on every rank)."""
         logits, aux = self.apply(batch["tokens"], batch.get("patch_embeds"))
         labels = batch["labels"]
         # logits cover [patches + tokens]; labels align with the full stream
-        return L.cross_entropy_loss(logits[:, -labels.shape[1]:], labels,
-                                    self.cfg.vocab) + aux
+        logits = logits[:, -labels.shape[1]:]
+        if L._split_model(self.ranks):
+            return L.cross_entropy_vocab_split(logits, labels,
+                                               self.ranks) + aux
+        return L.cross_entropy_loss(logits, labels, self.cfg.vocab) + aux
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,

@@ -17,15 +17,23 @@ checkpoint above all, is copied to the host first
 (``train.checkpoint``).  ``zero1_specs`` / ``opt_state_specs`` give the
 reference's ZeRO-1 spec trees as data (``models.layers.P``); on one card
 nothing is split.
+
+On ranks that split ``model`` (``ranks``, a ``ProcessMesh``) the
+parameters, gradients and moments are the rank's blocks, and the update
+runs on them in place as in one process; only the global norm crosses:
+each rank's sum of squares (its split leaves' blocks, and the leaves
+whole on every rank of the line counted on its first rank only) in one
+float32 all-reduce over ``model``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Collection, Dict, Mapping, Tuple
 
 import torch
 
+from ..core import collectives as coll
 from ..models.layers import P, map_specs
 
 __all__ = ["AdamConfig", "adam_init", "adam_update", "lr_schedule",
@@ -167,12 +175,24 @@ def lr_schedule(cfg: AdamConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+def global_norm(tree: Mapping[str, torch.Tensor], ranks=None,
+                replicated: Collection[str] = ()) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.  With
+    ``ranks`` splitting ``model`` the leaves are this rank's blocks, and
+    ``replicated`` names those whole on every rank of its ``model`` line:
+    the square root of the all-reduce over ``model`` of the split leaves'
+    block sums and (on the line's first rank only, so counted once, not
+    ``k`` times) the replicated leaves' sums, the same on every rank."""
     leaves = list(tree.values())
     if not leaves:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves))
+    if ranks is None or ranks.shape.get("model", 1) == 1:
+        return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves))
+    first = ranks.axis_index("model") == 0
+    mine = sum(torch.sum(x.float() ** 2) for k, x in tree.items()
+               if first or k not in replicated)
+    return torch.sqrt(coll.all_reduce_sum(mine.reshape(1), ranks,
+                                          "model")[0])
 
 
 def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float
@@ -185,15 +205,19 @@ def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float
 @torch.no_grad()
 def adam_update(params: Mapping[str, torch.Tensor],
                 grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
-                cfg: AdamConfig
+                cfg: AdamConfig, ranks=None,
+                replicated: Collection[str] = ()
                 ) -> Tuple[Mapping[str, torch.Tensor], Dict[str, Any],
                            Dict[str, torch.Tensor]]:
     """One AdamW step (global-norm clipping, bias correction, decoupled
     weight decay).  The parameters and the moments are written in place,
     leaf by leaf (so the transient memory is one leaf's, never a second
-    copy of the model); ``grads`` are only read.  Returns (params, state,
-    metrics) with ``metrics = {"grad_norm", "lr"}``."""
-    gnorm = global_norm(grads)
+    copy of the model); ``grads`` are only read.  On ``ranks`` the
+    leaves are this rank's blocks and the norm is ``global_norm``'s over
+    the ``model`` line (``replicated``: the leaves whole on every rank of
+    it).  Returns (params, state, metrics) with ``metrics =
+    {"grad_norm", "lr"}``."""
+    gnorm = global_norm(grads, ranks, replicated)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     state["count"].add_(1)
     count = state["count"].float()

@@ -8,6 +8,19 @@ gradient goes to ``adam_update``.  The model holds the parameters, so
 ``params`` must be its own ``{name: parameter}``
 (``model_params(model)``); they and the optimizer state are updated in
 place.
+
+A model built with ``ranks`` (a ``ProcessMesh`` whose ``model`` axis
+splits it; a ``dense`` transformer, float32 moments) runs the rank's
+step: what one device of a tensor-parallel mesh runs.  Its parameters,
+gradients and moments are the rank's blocks.  The backward's collectives
+sit in the layers (``models.layers``: the entry of each column-split
+group sums its input gradient over ``model``, the row-split denses' and
+the embedding's sums pass the gradient through, the vocab-split loss is
+local).  The replicated leaves applied to the rank's own heads
+(``layers.partial_grad``: the qk norms) hold a partial gradient, summed
+over ``model`` in float32 once a step (one all-reduce of them all),
+and the global norm is taken over the ``model`` line
+(``optimizer.global_norm``).
 """
 from __future__ import annotations
 
@@ -15,7 +28,10 @@ from typing import Any, Callable, Dict, Mapping
 
 import torch
 
+from ..core import collectives as coll
+from ..distributed_lm.sharding import leaf_spec, spec_axes
 from ..models.common import ArchConfig
+from ..models.layers import partial_grad
 from .optimizer import AdamConfig, adam_update
 
 __all__ = ["make_train_step", "make_eval_step", "model_params"]
@@ -41,13 +57,56 @@ def _check_params(model, params: Mapping[str, torch.Tensor]) -> None:
                          "those")
 
 
+def _rank_split(model, cfg: ArchConfig, opt_cfg: AdamConfig):
+    """The rank's ``ProcessMesh`` where ``model`` is a rank's share of a
+    tensor-parallel model (its ``model`` axis over 1), else ``None``;
+    raises where that step is not ported."""
+    ranks = getattr(model, "ranks", None)
+    if ranks is None or ranks.shape.get("model", 1) == 1:
+        return None
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training a {cfg.family!r} model on ranks (its gathers', "
+            f"all-to-alls' and scans' backwards) is not ported (ROADMAP.md, "
+            f"A10d-5b-3)")
+    if opt_cfg.use_8bit:
+        raise NotImplementedError("8-bit moments on ranks are not ported")
+    return ranks
+
+
+def _sum_partial_grads(grads: Dict[str, torch.Tensor], keys, ranks) -> None:
+    """Each gradient of ``keys`` (float32 partial sums) replaced in place
+    by its sum over ``model``: one all-reduce of them all."""
+    if not keys:
+        return
+    total = coll.all_reduce_sum(torch.cat([grads[k].reshape(-1)
+                                           for k in keys]), ranks, "model")
+    at = 0
+    for k in keys:
+        n = grads[k].numel()
+        grads[k].copy_(total[at:at + n].view_as(grads[k]))
+        at += n
+
+
 def make_train_step(model, cfg: ArchConfig, opt_cfg: AdamConfig
                     ) -> Callable:
     """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``batch`` leaves (tensors or arrays) are [B_global, ...]
     and B must divide by ``cfg.microbatch``; ``metrics`` holds ``loss``,
-    ``grad_norm`` and ``lr`` as 0-d float32 tensors."""
+    ``grad_norm`` and ``lr`` as 0-d float32 tensors.  On ranks (module
+    docstring) every rank passes the same batch and gets the same
+    metrics."""
     nm = max(cfg.microbatch, 1)
+    ranks = _rank_split(model, cfg, opt_cfg)
+    replicated, partial = set(), []
+    if ranks is not None:
+        specs = model.param_specs()
+        for k, p in model.named_parameters():
+            if not any("model" in spec_axes(e)
+                       for e in leaf_spec(specs, k)):
+                replicated.add(k)
+                if partial_grad(k):
+                    partial.append(k)
 
     def train_step(params: Dict[str, torch.Tensor],
                    opt_state: Dict[str, Any], batch: Mapping[str, Any]):
@@ -70,8 +129,10 @@ def make_train_step(model, cfg: ArchConfig, opt_cfg: AdamConfig
         grads = {k: (p.grad.div_(nm) if p.grad is not None
                      else torch.zeros_like(p, dtype=torch.float32))
                  for k, p in params.items()}
+        if ranks is not None:
+            _sum_partial_grads(grads, partial, ranks)
         params, opt_state, metrics = adam_update(params, grads, opt_state,
-                                                 opt_cfg)
+                                                 opt_cfg, ranks, replicated)
         for p in params.values():
             p.grad = None
         return params, opt_state, dict(metrics, loss=loss_sum / nm)

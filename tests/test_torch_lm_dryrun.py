@@ -227,7 +227,12 @@ def _hand_counted(kind):
         t = 256 // 2 * 4096            # tokens a device holds (data 2)
         ar = t * d * f                 # one [t, d] partial-sum all-reduce
         body = 2 * 3                   # wo + down; forward, remat, backward
-        head = [t * d * a, 3 * t * 4, ar]  # embed; loss stats; input grad
+        status = 2 * 4                 # a float32 word beside each backward
+        # embed; loss stats; input grad and its status word
+        head = [t * d * a, 3 * t * 4, ar + 4]
+        # once a step over model: the qk norms' partial gradients ([L, 16]
+        # each), the global norm's one value
+        step = [2 * layers * 16 * 4, 4]
         # every leaf is ZeRO-1-split over data: reduce-scatter to its
         # moment's float32 shard, all-gather of its own float32 shard
         # (embed, ln_f, ln1, wq, wk, wv, wo, q_norm, k_norm, ln2, gate,
@@ -236,11 +241,13 @@ def _hand_counted(kind):
               64, 64 * 64, 64 * 64, 64 * 64, 32 * 128]
         rs = [4 * n for n in rs]
         ag = [2 * n for n in rs]
-        flat = _tally(all_reduce=(body * ar + sum(head), body + 5),
+        flat = _tally(all_reduce=(body * ar + status + sum(head)
+                                  + sum(step), body + 5 + 2),
                       reduce_scatter=(sum(rs), 14),
                       all_gather=(sum(ag), 14))
-        executed = _tally(all_reduce=(layers * body * ar + sum(head),
-                                      layers * body + 5),
+        executed = _tally(all_reduce=(layers * (body * ar + status)
+                                      + sum(head) + sum(step),
+                                      layers * body + 5 + 2),
                           reduce_scatter=(sum(rs), 14),
                           all_gather=(sum(ag), 14))
         return flat, executed
@@ -336,8 +343,11 @@ def test_collectives_vanish_without_a_split_axis():
 
 def test_microbatches_and_layers_multiply_the_executed_count():
     """The same cell at 4 microbatches: per-microbatch terms shrink 4x
-    (a quarter of the tokens each) and run 4 times; the gradient
-    reduction runs once."""
+    (a quarter of the tokens each) and run 4 times, but for the status
+    word beside each backward sum (one a row-split dense and the head's,
+    4 bytes whatever the tokens); the gradient reduction and the step's
+    two terms over ``model`` (the qk norms' gradients, the norm) run
+    once."""
     over = dict(_overrides("qwen3-1.7b"), microbatch=4)
     one = dryrun.lower_cell("qwen3-1.7b", "train_4k", mesh_shape=(2, 2),
                             overrides=_overrides("qwen3-1.7b"),
@@ -347,13 +357,18 @@ def test_microbatches_and_layers_multiply_the_executed_count():
     for kind in ("all-gather", "reduce-scatter"):
         assert four["collective_executed"]["bytes"][kind] == \
             one["collective_executed"]["bytes"][kind]
+    layers, status = 2, 4
+    flat_status = (2 + 1) * status            # one layer and the head
+    executed_status = (2 * layers + 1) * status
+    step = 2 * layers * 16 * 4 + 4            # the qk norms; the norm
     ar1 = one["collective_executed"]["bytes"]["all-reduce"]
     ar4 = four["collective_executed"]["bytes"]["all-reduce"]
-    assert ar4 == ar1
-    assert four["collective_executed"]["counts"]["all-reduce"] == \
-        4 * one["collective_executed"]["counts"]["all-reduce"]
-    assert four["collective"]["bytes"]["all-reduce"] * 4 == \
-        one["collective"]["bytes"]["all-reduce"]
+    assert ar4 - 4 * executed_status == ar1 - executed_status
+    assert four["collective_executed"]["counts"]["all-reduce"] - 2 == \
+        4 * (one["collective_executed"]["counts"]["all-reduce"] - 2)
+    assert (four["collective"]["bytes"]["all-reduce"] - flat_status
+            - step) * 4 == \
+        one["collective"]["bytes"]["all-reduce"] - flat_status - step
 
 
 def test_full_size_cells_price_without_allocating():
@@ -506,7 +521,8 @@ _SMOKE = get_smoke_config("qwen3-1.7b")
      "prefill", "does not divide d_ff 126"),
     ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4, vocab=250),
      "prefill", "does not divide vocab 250"),
-    ((8, 2), (2, 2), _SMOKE, "train", "training on ranks"),
+    ((8, 2), (2, 2), _SMOKE, "train",
+     "the gradient reduction and ZeRO-1 over data on ranks"),
     ((8, 2), (2, 2), dataclasses.replace(
         get_smoke_config("qwen2-moe-a2.7b"), moe_capacity=True), "decode",
      "capacity dispatch (moe_capacity) on ranks"),
@@ -547,11 +563,21 @@ _SMOKE = get_smoke_config("qwen3-1.7b")
      "does not divide seq_len 62"),
     ((1, 4), (1, 4), get_smoke_config("falcon-mamba-7b"), "long",
      "a long-context decode"),
+    ((1, 4), (1, 4), get_smoke_config("qwen2-moe-a2.7b"), "train",
+     "training a 'moe' model on ranks"),
+    ((1, 4), (1, 4), get_smoke_config("falcon-mamba-7b"), "train",
+     "training a 'ssm' model on ranks"),
+    ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4), "train",
+     "the batch split over 8 blocks"),
+    ((1, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4,
+                                         opt_8bit=True), "train",
+     "8-bit Adam moments on ranks"),
 ], ids=["production-mesh", "kv-heads", "d_ff", "vocab", "train", "moe",
         "data-rows", "seq_len", "model+data-on-data-2", "n_experts",
         "moe_d_ff", "shared-experts", "dense-residual", "projector", "ssm",
         "hybrid-heads", "hybrid-kv-groups", "encdec-d_model",
-        "encdec-seq_len", "long-context"])
+        "encdec-seq_len", "long-context", "train-moe", "train-ssm",
+        "train-cell-data", "train-8bit"])
 def test_the_run_rule_says_why_a_cell_cannot_run_on_ranks(case):
     mesh_shape, ranks, cfg, kind, why = case
     mesh = (dryrun.make_production_mesh(device="cpu") if mesh_shape is None
@@ -561,6 +587,58 @@ def test_the_run_rule_says_why_a_cell_cannot_run_on_ranks(case):
              else ShapeCell("long_500k", 64, 1, "decode") if kind == "long"
              else SMALL[kind])
     assert why in dryrun._run_rule(mesh, cfg, shape, _Ranks(ranks))
+
+
+def test_training_on_ranks_names_the_item_that_ports_it():
+    """A data axis over 1 names the gradient reduction's item (5b-2),
+    another family's training the item of its backwards (5b-3)."""
+    mesh = dryrun.make_mesh((8, 2), ("data", "model"), device="cpu")
+    assert "(ROADMAP.md, A10d-5b-2)" in dryrun._run_rule(
+        mesh, _SMOKE, SMALL["train"], _Ranks((2, 2)))
+    line = dryrun.make_mesh((1, 4), ("data", "model"), device="cpu")
+    for arch in ("qwen2-moe-a2.7b", "falcon-mamba-7b",
+                 "llava-next-mistral-7b", "whisper-large-v3"):
+        assert "(ROADMAP.md, A10d-5b-3)" in dryrun._run_rule(
+            line, get_smoke_config(arch), SMALL["train"], _Ranks((1, 4)))
+
+
+def test_the_run_rule_takes_a_dense_train_cell_on_one_model_line():
+    """A dense train cell whose batch is not split, on ranks whose model
+    axis is the cell's, runs; the same cell on a split batch does not."""
+    kv4 = dataclasses.replace(_SMOKE, n_kv_heads=4)
+    line = dryrun.make_mesh((1, 4), ("data", "model"), device="cpu")
+    assert dryrun._run_rule(line, kv4, SMALL["train"], _Ranks((1, 4))) \
+        is None
+    assert "does not divide n_kv_heads 2" in dryrun._run_rule(
+        line, _SMOKE, SMALL["train"], _Ranks((1, 4)))
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (4, 1), (1, 4)])
+def test_the_train_step_terms_appear_only_where_model_is_split(mesh_shape):
+    """A train cell's two step terms over ``model``: one float32
+    all-reduce of the qk norms' partial gradients (``2 L hd`` values; none
+    without ``qk_norm``) and one of the global norm's single value,
+    where ``model`` is split (``(1, 4)``: a layer's six row-split sums,
+    the embedding's, the loss's three statistics and the head's input
+    gradient besides); on a ``model`` axis of 1 neither (``(4, 1)``: the
+    gradient reduction over ``data`` reduce-scatters every leaf)."""
+    def all_reduces(qk_norm):
+        over = dict(_overrides("qwen3-1.7b"), n_kv_heads=4, qk_norm=qk_norm)
+        rec = dryrun.lower_cell("qwen3-1.7b", SMALL["train"],
+                                mesh_shape=mesh_shape, overrides=over,
+                                device="cpu")
+        got = rec["collective_executed"]
+        return got["counts"]["all-reduce"], got["bytes"]["all-reduce"]
+    (with_qk, with_bytes), (without, without_bytes) = (all_reduces(True),
+                                                        all_reduces(False))
+    layers, hd = _SMOKE.n_layers, _SMOKE.hd
+    if mesh_shape[1] == 1:
+        assert with_qk == without == 0
+        assert with_bytes == without_bytes == 0
+        return
+    assert without == 6 * layers + 1 + 3 + 1 + 1
+    assert with_qk == without + 1
+    assert with_bytes - without_bytes == 2 * layers * hd * 4
 
 
 def test_the_run_rule_takes_a_dense_split_cell_on_matching_ranks():

@@ -1554,6 +1554,214 @@ def test_a_rank_mamba_in_proj_block_is_its_block_of_each_half(coords):
     assert torch.allclose(z, full_z[:, lo:hi], rtol=1e-5, atol=1e-6)
 
 
+# ---------------------------------------------------------------------------
+# training the dense LM on ranks: u.LM_TRAIN_KEY's SMOKE model on 1 x 4
+# ---------------------------------------------------------------------------
+
+_TRAIN_TAG = "lm_train/{}"
+
+
+def _train_keys(ref, tag, what):
+    head = f"{tag}/{what}/"
+    keys = [k[len(head):] for k in ref.files if k.startswith(head)]
+    assert keys, head
+    return keys
+
+
+def _train_specs():
+    from repro_torch.models import build_model
+    return build_model(u.lm_train_config(port_configs, "float32"),
+                       device="meta").param_specs()
+
+
+def test_rank_gradients_equal_the_unsharded_reference(worlds):
+    """Each rank's gradient blocks from one ``loss.backward()`` (float32,
+    the reference's weights) against ``jax.grad`` of the reference's
+    ``model.loss`` cut to the rank's block, at 1e-4: the backward's
+    all-reduces at each column-split group's input, the vocab-split loss
+    and the remat recompute on ranks.  The qk norms, whole on every rank
+    but applied to the rank's own heads, hold a partial gradient on a
+    rank (``layers.partial_grad``): their sum over the ``model`` line is
+    the reference's.  The loss is the reference's on every rank."""
+    from repro_torch.distributed_lm.sharding import leaf_block, leaf_spec
+    from repro_torch.models import layers
+    ref, _ = worlds["reference"]
+    tag = _TRAIN_TAG.format("float32")
+    grid = _grid(u.LM_TRAIN_KEY)
+    specs = _train_specs()
+    tol = _LM_TOL["float32"]
+    ranks = worlds["ranks"]
+    keys = _train_keys(ref, tag, "grad")
+    assert any(layers.partial_grad(k) for k in keys)
+    for k in keys:
+        want = ref[f"{tag}/grad/{k}"]
+        if layers.partial_grad(k):
+            got = sum(arrays[f"{tag}/grad/{k}"] for arrays, _ in ranks)
+            np.testing.assert_allclose(got, want, err_msg=k, **tol)
+            continue
+        for rank, (arrays, _) in enumerate(ranks):
+            at = _At(grid, _coords(rank, grid))
+            np.testing.assert_allclose(
+                arrays[f"{tag}/grad/{k}"],
+                leaf_block(want, leaf_spec(specs, k), at),
+                err_msg=f"rank {rank} {k}", **tol)
+    for rank, (arrays, _) in enumerate(ranks):
+        np.testing.assert_allclose(arrays[f"{tag}/loss"], ref[f"{tag}/loss"],
+                                   err_msg=f"rank {rank}", **tol)
+
+
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+def test_a_rank_train_step_equals_the_unsharded_reference(worlds, dtype):
+    """One microbatched step from zero moments on ranks against the
+    reference's ``make_train_step``: the loss, the gradient norm (the
+    ``model`` line's all-reduce of the ranks' sums of squares) and the
+    count on every rank, and each rank's blocks of the new parameters,
+    ``m`` and ``v`` (the reference's state cut by
+    ``convert.lm_rank_adam_state_from_params``), at 1e-4 in float32 and
+    ``_BF16_TOL`` in bf16."""
+    from repro_torch.convert import (lm_rank_adam_state_from_params,
+                                     lm_rank_state_dict_from_params,
+                                     nest_layers)
+    ref, _ = worlds["reference"]
+    tag = _TRAIN_TAG.format(dtype) + "/step"
+    grid = _grid(u.LM_TRAIN_KEY)
+    specs = _train_specs()
+    tol = _LM_TOL[dtype]
+
+    def tree(name):
+        return nest_layers({k: ref[f"{tag}/{name}/{k}"]
+                            for k in _train_keys(ref, tag, name)})
+    ref_params = tree("params")
+    ref_state = {"m": tree("m"), "v": tree("v"),
+                 "count": ref[f"{tag}/count"]}
+    for rank, (arrays, _) in enumerate(worlds["ranks"]):
+        at = _At(grid, _coords(rank, grid))
+        want = lm_rank_state_dict_from_params(ref_params, specs, at)
+        state = lm_rank_adam_state_from_params(ref_state, specs, at)
+        assert int(arrays[f"{tag}/count"]) == int(state["count"]) == 1
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(arrays[f"{tag}/{k}"], ref[f"{tag}/{k}"],
+                                       err_msg=f"rank {rank} {k}", **tol)
+        assert sorted(want) == sorted(_train_keys(arrays, tag, "params"))
+        for k, w in want.items():
+            np.testing.assert_allclose(arrays[f"{tag}/params/{k}"], w.numpy(),
+                                       err_msg=f"rank {rank} {k}", **tol)
+            for mom in ("m", "v"):
+                np.testing.assert_allclose(
+                    arrays[f"{tag}/{mom}/{k}"], state[mom][k].numpy(),
+                    err_msg=f"rank {rank} {mom} {k}", **tol)
+
+
+def test_a_rank_train_run_counts_the_closed_forms_collectives(worlds):
+    """``lower_cell(..., run=True, ranks=pm)`` of a train cell on 1 x 4:
+    no ``run_reason``; every rank's tally of one timed step equals the
+    closed form's ``collective_executed``, byte for byte: a layer's
+    ``wo`` and ``down`` sums in the forward and the remat recompute and
+    their backward sums at the column-split inputs (each with its status
+    word), the embedding's sum, the loss's three float32 statistics, the
+    head's input gradient, the qk norms' partial gradients (one
+    all-reduce of them all) and the global norm's one value; and the
+    run's checks, on every rank."""
+    from repro_torch.launch import dryrun
+    cfg = port_configs.get_smoke_config(u.LM_ARCH)
+    grid = _grid(u.LM_TRAIN_KEY)
+    layers_, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
+    t = u.LM_BATCH * u.LM_RUN_SEQ
+    want_bytes = (layers_ * 2 * (2 * t * d * 4 + (t * d + 1) * 4)
+                  + t * d * 2 + 3 * t * 4 + (t * d + 1) * 4
+                  + layers_ * 2 * hd * 4 + 4)
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        run = scalars["lm_train_run"]
+        assert run["run_reason"] is None
+        assert run["run_batch"] == u.LM_BATCH
+        want = run["collective_executed"]
+        assert dryrun.closed_form_mismatch(run["run_collective"], want,
+                                           grid) is None
+        assert all(c == want for c in run["run_collective"])
+        assert want["counts"] == dict(dict.fromkeys(dryrun.COLLECTIVE_KINDS,
+                                                    0),
+                                      **{"all-reduce": 6 * layers_ + 7})
+        assert want["bytes"]["all-reduce"] == want_bytes
+        # one microbatch a step: the flat count is the layer stack's body
+        # once, the rest as executed
+        assert run["collective"]["counts"]["all-reduce"] == 6 + 7
+        assert run["run_s"] is None
+        n = len(_train_keys(worlds["ranks"][rank][0],
+                            _TRAIN_TAG.format("float32"), "grad"))
+        assert run["run_checks"] == [
+            "losses finite", "parameters finite",
+            f"all {n} gradients non-zero before the update",
+            f"all {n} parameters changed",
+            f"{4 * layers_ + 1} replicated parameters equal on every rank "
+            f"of a model line",
+            "loss and grad_norm equal on every rank of a model line",
+            f"{6 * layers_ + 7} all-reduced tensors equal on every rank of "
+            f"a model line",
+            "collectives equal to the closed form's"]
+
+
+def test_a_rank_whose_share_of_a_backward_sum_fails_makes_every_rank_raise(
+        worlds):
+    """Rank 1's share of the first backward sum fails: it still joins
+    that all-reduce with its status word set, and every rank raises
+    naming it, none left waiting in a collective."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        kind, msg = scalars["lm_train_failure"]
+        assert kind == "RuntimeError", (rank, msg)
+        assert "the backward on ranks" in msg
+        assert f"rank {u.LM_FAILING_RANK} failed (RuntimeError: the " \
+            f"planted backward failure)" in msg
+
+
+def test_a_cut_backward_fails_the_gradient_check_on_every_rank(worlds):
+    """Row-split sums whose backward passes zeros cut the gradient of
+    every parameter upstream of them in a block (the parameters still
+    change: weight decay moves them); the run's check that every gradient
+    is non-zero before the update fails on every rank, and every rank
+    raises."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        kind, msg = scalars["lm_train_cut"]
+        assert kind == "RuntimeError", (rank, msg)
+        assert "run_cell checks on ranks" in msg
+        for r in range(WORLD):
+            assert f"rank {r} failed (AssertionError: run: the gradient " \
+                f"of " in msg, (rank, r)
+        for k in ("blocks.0.attn.wo.w", "blocks.1.mlp.gate.w",
+                  "blocks.0.attn.q_norm.scale", "blocks.1.ln1.scale"):
+            assert k in msg
+        assert "zero everywhere before the update" in msg
+
+
+@pytest.mark.parametrize("route", ["all_gather_panel", "all_to_all_over",
+                                   "decode"])
+def test_a_collective_with_no_backward_refuses_autograd(route):
+    """The collectives with no backward on ranks raise where autograd
+    records their input, rather than return a tensor cut from the graph;
+    outside autograd they run (on a stand-in mesh the refusal comes
+    before any exchange)."""
+    from repro_torch.models import build_model, layers
+    at = _At((1, 4), (0, 1))
+    x = torch.ones((2, 8), requires_grad=True) * 1.0
+    if route == "all_gather_panel":
+        def call():
+            return coll.all_gather_panel(x, at, "model", dim=0)
+    elif route == "all_to_all_over":
+        def call():
+            return coll.all_to_all_over(x, at, "model", [2, 0, 0, 0],
+                                        [2, 0, 0, 0])
+    else:
+        cfg = port_configs.get_smoke_config(u.LM_ARCH)
+        attn = build_model(cfg, device="cpu").blocks[0].attn
+        h = torch.ones((1, 1, cfg.d_model), requires_grad=True) * 1.0
+        cache = torch.zeros((1, 4, cfg.n_kv_heads, cfg.hd))
+
+        def call():
+            return layers._decode_on_ranks(attn, cfg, h, cache, cache.clone(),
+                                           0, at)
+    with pytest.raises(NotImplementedError, match="A10d-5b-3"):
+        call()
+
+
 _A2A_CASES = [((1, 4), "model"), ((2, 2), "model"), ((2, 2), "data")]
 
 

@@ -153,6 +153,21 @@ NON_TRANSFORMER_CASES = [
     ("griffin-1x4", "recurrentgemma-2b", (1, 4), {"n_layers": 8}),
     ("whisper-2x2", "whisper-large-v3", (2, 2), {}),
     ("whisper-1x4", "whisper-large-v3", (1, 4), {})]
+# training the dense LM on ranks (1 x 4): the LM_CASES case LM_TRAIN_KEY
+# (its weights) with LM_TRAIN_MICROBATCH microbatches, a seeded batch of
+# LM_BATCH rows of LM_SEQ tokens and their next tokens, one step from
+# zero moments with tests/test_torch_train.py's AdamConfig; the rank
+# processes' gradients and step against the reference's unsharded
+# jax.grad and make_train_step, then lower_cell on a train cell of
+# LM_RUN_SEQ tokens, a rank whose share of a backward sum fails, and a
+# backward cut at the row-split sums
+LM_TRAIN_KEY = "1x4"
+LM_TRAIN_MICROBATCH = 2
+LM_TRAIN_SEED = 41
+LM_TRAIN_OPT = dict(lr=3e-3, total_steps=10, warmup_steps=2)
+# the rank processes whose share of the reference's runs takes the
+# unsharded training runs
+LM_TRAIN_REFERENCE_RANK = 3
 # the tokens a chunk of Whisper's head on ranks sums at a time in the rank
 # processes (models.whisper.HEAD_CHUNK_TOKENS): a prefill's 64 or 128
 # tokens a rank then cross in three or six pieces, the last shorter
@@ -431,6 +446,23 @@ def lm_inputs(cfg):
     return out
 
 
+def lm_train_config(module, dtype):
+    """``module``'s (either package's ``configs``) config of the training
+    case in ``dtype`` compute."""
+    import dataclasses
+    return dataclasses.replace(case_config(module, LM_TRAIN_KEY, dtype),
+                               microbatch=LM_TRAIN_MICROBATCH)
+
+
+def lm_train_batch(cfg):
+    """The training case's seeded ``{"tokens", "labels"}`` (int32
+    ``[LM_BATCH, LM_SEQ]``, labels the next tokens)."""
+    rng = np.random.default_rng(LM_TRAIN_SEED)
+    seq = rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ + 1)).astype(
+        np.int32)
+    return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+
 def moe_layer_input(cfg, t):
     """The seeded ``[1, t, d]`` input of the MoE layer case (float32,
     which both packages round to bf16 alike)."""
@@ -486,6 +518,8 @@ def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
     # this process's share of the reference's unsharded LM runs
     reference = {}
     _lm_reference_cases(reference, lm_reference_share(rank, world))
+    if rank == LM_TRAIN_REFERENCE_RANK:
+        _lm_train_reference(reference)
     np.savez(os.path.join(out_dir, f"reference-lm{rank}.npz"), **reference)
 
 
@@ -642,6 +676,7 @@ def _rank_cases(rank: int, out_dir: str):
     _serving_rank_cases(api, mesh, rank, arrays, scalars)
     _store_rank_cases(api, mesh, rank, out_dir, arrays, scalars)
     _lm_rank_cases(mesh, rank, out_dir, arrays, scalars)
+    _lm_train_rank_cases(mesh, rank, out_dir, arrays, scalars)
 
     # -- the mesh's limits
     eng = api.build_engine(he, "sharded", mesh=pm, use_kernels=True)
@@ -1375,8 +1410,11 @@ def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
         if rank == LM_FAILING_RANK:
             layers._expert_rows = broken
         try:
-            scalars.setdefault("moe_failure", {})[key] = _error(
-                lambda: model.apply(torch.zeros((1, 6), dtype=torch.int64)))
+            # outside autograd: the all-to-all has no backward on ranks
+            with torch.no_grad():
+                scalars.setdefault("moe_failure", {})[key] = _error(
+                    lambda: model.apply(torch.zeros((1, 6),
+                                                    dtype=torch.int64)))
         finally:
             layers._expert_rows = expert_rows
 
@@ -1441,6 +1479,142 @@ def _lm_rank_cases(mesh, rank, out_dir, arrays, scalars):
             for j, c in enumerate(recv)]
     scalars["a2a_unpaired"] = _error(lambda: collectives.all_to_all_over(
         rows, pm, "model", send, skew))
+
+
+def _lm_train_rank_cases(mesh, rank, out_dir, arrays, scalars):
+    """The dense LM's training on ranks (``LM_TRAIN_KEY`` on its 1 x 4
+    grid): each rank's gradient blocks from one ``loss.backward()``
+    (float32) and one step from zero moments in both compute dtypes (its
+    blocks of the new parameters, ``m`` and ``v``; the loss, the norm and
+    the count), the reference's weights carried across; then
+    ``lower_cell`` on a train cell, one whose rank 1 fails in its share
+    of a backward sum, and one whose row-split sums pass back zeros."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.convert import lm_rank_state_dict_from_params, \
+        nest_layers
+    from repro_torch.core import collectives
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import build_model
+    from repro_torch.models import layers
+    from repro_torch.train.optimizer import AdamConfig, adam_init
+    from repro_torch.train.train_step import make_train_step, model_params
+
+    arch, grid, _ = lm_case(LM_TRAIN_KEY)
+    pm = mesh(grid)
+    params = nest_layers(dict(np.load(os.path.join(
+        out_dir, f"lm-params-{LM_TRAIN_KEY}.npz"))))
+    for dtype in LM_DTYPES:
+        cfg = lm_train_config(configs, dtype)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in lm_train_batch(cfg).items()}
+
+        def carried():
+            model = build_model(cfg, device="cpu", ranks=pm)
+            model.load_state_dict(lm_rank_state_dict_from_params(
+                params, model.param_specs(), pm))
+            return model
+        tag = f"lm_train/{dtype}"
+        if dtype == "float32":
+            model = carried()
+            loss = model.loss(batch)
+            loss.backward()
+            arrays[f"{tag}/loss"] = loss.detach().numpy()
+            for k, p in model.named_parameters():
+                arrays[f"{tag}/grad/{k}"] = p.grad.numpy()
+        model = carried()
+        opt = AdamConfig(**LM_TRAIN_OPT)
+        mine = model_params(model)
+        got, state, metrics = make_train_step(model, cfg, opt)(
+            mine, adam_init(mine, opt), batch)
+        for k in ("loss", "grad_norm"):
+            arrays[f"{tag}/step/{k}"] = metrics[k].numpy()
+        arrays[f"{tag}/step/count"] = state["count"].numpy()
+        for k, p in got.items():
+            arrays[f"{tag}/step/params/{k}"] = p.detach().numpy()
+            for mom in ("m", "v"):
+                arrays[f"{tag}/step/{mom}/{k}"] = state[mom][k].numpy()
+
+    def run():
+        return dryrun.lower_cell(
+            arch, ShapeCell("train_4k", LM_RUN_SEQ, LM_BATCH, "train"),
+            mesh_shape=grid, overrides=case_overrides(LM_TRAIN_KEY),
+            device="cpu", run=True, ranks=pm, run_reps=1)
+    rec = run()
+    scalars["lm_train_run"] = {k: rec.get(k) for k in (
+        "run_reason", "run_batch", "run_checks", "run_collective",
+        "collective_executed", "collective", "run_ranks", "run_s")}
+
+    # rank 1's share of a backward sum fails: every rank raises
+    part = layers._rank_part
+
+    def failing(g):
+        raise RuntimeError("the planted backward failure")
+    if rank == LM_FAILING_RANK:
+        layers._rank_part = failing
+    try:
+        scalars["lm_train_failure"] = _error(run)
+    finally:
+        layers._rank_part = part
+
+    # the row-split sums pass back zeros: the gradients upstream of them
+    # are cut, and every rank's gradient check fails
+    class Cut(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y, mesh_, axis):
+            return collectives.all_reduce_sum(y.float(), mesh_, axis).to(
+                y.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            return torch.zeros_like(g), None, None
+    sums = layers.sum_partials
+    layers.sum_partials = Cut.apply
+    try:
+        scalars["lm_train_cut"] = _error(run)
+    finally:
+        layers.sum_partials = sums
+
+
+def _lm_train_reference(arrays):
+    """``_lm_train_rank_cases``' runs on the reference's unsharded model:
+    ``jax.value_and_grad`` of ``model.loss`` (float32) and one
+    ``make_train_step`` from ``adam_init`` in both compute dtypes (the new
+    parameters, ``m``, ``v``, the count and the metrics), every leaf flat
+    by ``convert.lm_layers_from_params``' keys."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as ref_configs
+    from repro.models import build_model
+    from repro.train import optimizer as ref_opt
+    from repro.train.train_step import make_train_step
+    from repro_torch.convert import lm_layers_from_params
+
+    def flat(tree):
+        return lm_layers_from_params(jax.tree.map(np.asarray, tree))
+    for dtype in LM_DTYPES:
+        cfg = lm_train_config(ref_configs, dtype)
+        model = build_model(cfg)
+        params = model.init(jax.random.PRNGKey(0))
+        batch = {k: jnp.asarray(v) for k, v in lm_train_batch(cfg).items()}
+        tag = f"lm_train/{dtype}"
+        if dtype == "float32":
+            loss, grads = jax.jit(jax.value_and_grad(model.loss))(params,
+                                                                  batch)
+            arrays[f"{tag}/loss"] = np.asarray(loss)
+            for k, v in flat(grads).items():
+                arrays[f"{tag}/grad/{k}"] = v
+        opt = ref_opt.AdamConfig(**LM_TRAIN_OPT)
+        new, state, metrics = jax.jit(make_train_step(model, cfg, opt))(
+            params, ref_opt.adam_init(params, opt), batch)
+        for k in ("loss", "grad_norm"):
+            arrays[f"{tag}/step/{k}"] = np.asarray(metrics[k])
+        arrays[f"{tag}/step/count"] = np.asarray(state["count"])
+        for name, tree in (("params", new), ("m", state["m"]),
+                           ("v", state["v"])):
+            for k, v in flat(tree).items():
+                arrays[f"{tag}/step/{name}/{k}"] = v
 
 
 def torch_equal(a, b):
