@@ -148,12 +148,17 @@ drives the port's two paths at full size through `repro_torch.api`:
   layer's routing and the hybrid's window equal along the line, the
   recurrent states advanced in every channel of the rank; then
   `qwen3-1.7b`'s training step on (1, 4) ranks (`train_4k`, 4 rows of
-  4,096 tokens, 2 of its 28 layers, in float32 and bf16): each rank's
+  2,048 tokens, 2 of its 28 layers, in float32 and bf16): each rank's
   step held to the one-process float32 step (loss, gradient norm, a
   strided sample of the new parameters and of the first moments) and,
   in bf16, by the departure gate over that sample; every gradient
   non-zero before the update, the replicated parameters and the metrics
-  equal along the line, the collectives the closed form's.
+  equal along the line, the collectives the closed form's; and the same
+  step on (2, 2) ranks (8 rows, 4 a data coordinate): the gradient
+  reduce-scattered over `data` to each rank's ZeRO-1 shard of the
+  moments, the new parameters all-gathered, held as above and with every
+  parameter block equal along its data line and the ranks' first-moment
+  shards covering the one-process sample.
 
 The host-only references (the MST oracle of walmart-trips,
 primary-school and email-Eu; email-Eu's ETE and threshold-component
@@ -437,20 +442,28 @@ LM_HYBRID_ARCH = "recurrentgemma-2b"   # published widths, depth cut
 LM_HYBRID_LAYERS = 5
 LM_WHISPER_ARCH = "whisper-large-v3"   # published widths, depth cut
 LM_WHISPER_LAYERS = 4
-# the dense LM's training step on (1, 4) ranks: LM_ARCH's published
-# widths on LM_TRAIN_LAYERS of its 28 layers (the backward still crosses
-# a layer boundary), train_4k's 4 rows of 4,096 tokens that one device of
-# a (64, 4) mesh trains, on the cell mesh (1, 4), whose data axis equals
-# the ranks' (the gradient reduction over data is not run on ranks); in
-# float32 compute (held to the one-process float32 step) and the
-# published bf16 (held by the departure gate)
+# the dense LM's training step on ranks: LM_ARCH's published widths on
+# LM_TRAIN_LAYERS of its 28 layers (the backward still crosses a layer
+# boundary), LM_RANK_TRAIN_BATCH rows a data coordinate (what one
+# device of a (64, 4) mesh trains: one row a microbatch), on the cell
+# mesh (1, 4) (the model axis split, no gradient reduction over data)
+# and on (2, 2) (8 rows; the gradient reduce-scattered over data to the
+# ZeRO-1 shards of the moments, the new parameters all-gathered), both
+# cut to LM_PREFILL_SEQ tokens for the script's time (a (2, 2) step
+# moves 4.05 GB a rank at 4,096 tokens, 10.9 s in float32; its
+# reduce-scatters and all-gathers, 2.17 GB, do not shrink with the
+# tokens); in float32 compute (held to the one-process float32 step)
+# and the published bf16 (held by the departure gate)
 LM_TRAIN_LAYERS = 2
 LM_RANK_TRAIN_BATCH = 4
 LM_RANK_TRAIN = {"n_layers": LM_TRAIN_LAYERS}
 LM_CUT_TRAIN = (f"n_layers: 28 cut to {LM_TRAIN_LAYERS}",
-                "mesh: train_4k's (64, 4) device share, 4 rows of 4,096 "
-                "tokens, on (1, 4): no data axis to reduce the gradient "
-                "over")
+                "mesh: train_4k's (64, 4) device share, 4 rows, on "
+                "(1, 4): no data axis to reduce the gradient over",
+                f"seq_len: 4,096 cut to {LM_PREFILL_SEQ:,}")
+LM_CUT_ZERO1 = (f"n_layers: 28 cut to {LM_TRAIN_LAYERS}",
+                "mesh: (64, 4) cut to (2, 2)",
+                f"seq_len: 4,096 cut to {LM_PREFILL_SEQ:,}")
 # the one-process float32 step against the ranks' float32 step: the loss
 # and gradient norm of each pass and a strided sample of each rank's new
 # parameters, elementwise; the same sample of the first moments (the
@@ -502,9 +515,14 @@ LM_RANK_CELLS = (
      (f"n_layers, enc_layers: 32 cut to {LM_WHISPER_LAYERS}",
       LM_CUT_SEQ)),
     ("dense train", LM_ARCH, dict(LM_RANK_TRAIN, compute_dtype="float32"),
-     "train_4k", 4_096, (1, 4), LM_CUT_TRAIN),
-    ("dense train", LM_ARCH, LM_RANK_TRAIN, "train_4k", 4_096, (1, 4),
-     LM_CUT_TRAIN))
+     "train_4k", LM_PREFILL_SEQ, (1, 4), LM_CUT_TRAIN),
+    ("dense train", LM_ARCH, LM_RANK_TRAIN, "train_4k", LM_PREFILL_SEQ,
+     (1, 4), LM_CUT_TRAIN),
+    ("dense train zero1", LM_ARCH, dict(LM_RANK_TRAIN,
+                                        compute_dtype="float32"),
+     "train_4k", LM_PREFILL_SEQ, (2, 2), LM_CUT_ZERO1),
+    ("dense train zero1", LM_ARCH, LM_RANK_TRAIN, "train_4k",
+     LM_PREFILL_SEQ, (2, 2), LM_CUT_ZERO1))
 LM_RANK_TIMEOUT_S = 600
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
 # bf16 serving: the root-mean-square departure of the decode logits (bf16
@@ -6151,14 +6169,16 @@ def lm_cell(name, seq):
     return dataclasses.replace(SHAPES[name], seq_len=seq)
 
 
-def lm_rank_cell(name, seq):
-    """A rank cell's shape (``LM_RANK_CELLS``): ``lm_cell``, a train cell
-    at ``LM_RANK_TRAIN_BATCH`` rows (what one device of its production
-    mesh trains)."""
+def lm_rank_cell(name, seq, mesh_shape):
+    """A rank cell's shape (``LM_RANK_CELLS``) on the cell mesh
+    ``mesh_shape``: ``lm_cell``, a train cell at ``LM_RANK_TRAIN_BATCH``
+    rows a data coordinate (what one device of its production mesh
+    trains)."""
     import dataclasses
     cell = lm_cell(name, seq)
     if cell.kind == "train":
-        cell = dataclasses.replace(cell, global_batch=LM_RANK_TRAIN_BATCH)
+        cell = dataclasses.replace(
+            cell, global_batch=LM_RANK_TRAIN_BATCH * mesh_shape[0])
     return cell
 
 
@@ -6232,7 +6252,8 @@ def lm_rank_worker(rank, world, work, spec):
             logits, sample = [], []
             t0 = time.perf_counter()
             rec = dryrun.lower_cell(
-                arch, lm_rank_cell(name, seq), mesh_shape=mesh_shape,
+                arch, lm_rank_cell(name, seq, mesh_shape),
+                mesh_shape=mesh_shape,
                 overrides=over or None, device=device, run=True,
                 run_reps=LM_DRYRUN_RUN_REPS, ranks=pm, logits=logits,
                 sample=sample)
@@ -6279,11 +6300,22 @@ def train_cell_checks(tag, samples, f32, bf16, dtype):
         return float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))
 
     for r, smp in enumerate(samples):
-        for part in ("params", "m"):
-            empty = [k for k, (idx, _) in smp[part].items() if not idx.size]
-            if empty:
-                raise AssertionError(f"{tag}: rank {r} sampled no entry of "
-                                     f"{empty}")
+        empty = [k for k, (idx, _) in smp["params"].items() if not idx.size]
+        if empty:
+            raise AssertionError(f"{tag}: rank {r} sampled no entry of "
+                                 f"{empty}")
+    # a ZeRO-1 rank samples the moments it holds: together the ranks'
+    # entries cover each whole sample
+    for name, (idx, _) in f32["m"].items():
+        covered = np.zeros(idx.shape, bool)
+        for smp in samples:
+            if name in smp["m"]:
+                got = smp["m"][name][0]
+                at(f32["m"][name], got)    # entries of the whole sample only
+                covered[np.searchsorted(idx, got)] = True
+        if not covered.all():
+            raise AssertionError(f"{tag}: the ranks' first moments of {name} "
+                                 f"do not cover the whole sample")
 
     moment_rel = 0.0
     if dtype == "float32":
@@ -6298,8 +6330,11 @@ def train_cell_checks(tag, samples, f32, bf16, dtype):
             for name, (idx, val) in smp["m"].items():
                 want = at(f32["m"][name], idx)
                 scale = rms_np(want)
+                # a sample the step leaves at zero (embedding rows of
+                # tokens no rank drew) must be zero on the rank too
                 rel = (rms_np(val - want) / scale if scale else
-                       float(np.abs(val).max(initial=0.0) > 0) * math.inf)
+                       math.inf if np.abs(val).max(initial=0.0) > 0
+                       else 0.0)
                 moment_rel = max(moment_rel, rel)
                 if not rel <= TRAIN_MOMENT_RMS:
                     raise AssertionError(
@@ -6338,13 +6373,22 @@ def train_cell_checks(tag, samples, f32, bf16, dtype):
             else None, "sampled_entries": int(joined.size)}
 
 
-def lm_reference_key(arch, over, name, seq, dtype):
-    """The one-process run a rank cell is held to: the expert layout
-    splits nothing at model axis 1, so it is left out, and so is the
-    cell's compute dtype (both one-process runs are made)."""
+def lm_reference_key(arch, over, name, seq, dtype, rows):
+    """The one-process run of ``rows`` rows a rank cell is held to: the
+    expert layout splits nothing at model axis 1, so it is left out, and
+    so is the cell's compute dtype (both one-process runs are made)."""
     kept = tuple(sorted((k, v) for k, v in over.items()
                         if k not in ("expert_sharding", "compute_dtype")))
-    return arch, kept, name, seq, dtype
+    return arch, kept, name, seq, dtype, rows
+
+
+def lm_one_process(name, seq, mesh_shape):
+    """A rank cell's one-process run: its shape (``lm_rank_cell``), the
+    data axis of its mesh at model axis 1 (the data rows the ranks' data
+    axis covers, which one process runs) and its rows."""
+    cell = lm_rank_cell(name, seq, mesh_shape)
+    data = mesh_shape[0] // lm_rank_grid(mesh_shape)[0]
+    return cell, data, -(-cell.global_batch // data)
 
 
 def lm_rank_cells(dryrun, device, one):
@@ -6375,17 +6419,17 @@ def lm_rank_cells(dryrun, device, one):
     clock = Phase()
     refs = dict(one)
     for _, arch, over, name, seq, mesh_shape, _ in LM_RANK_CELLS:
+        # one process runs every data row the ranks' data axis covers
+        cell, data, rows = lm_one_process(name, seq, mesh_shape)
         for dtype in ("float32", "bfloat16"):
-            key = lm_reference_key(arch, over, name, seq, dtype)
+            key = lm_reference_key(arch, over, name, seq, dtype, rows)
             if key in refs:
                 continue
             gc.collect()
             torch.cuda.empty_cache()
             logits, sample = [], []
-            # one process runs every data row the ranks' data axis covers
-            data = mesh_shape[0] // lm_rank_grid(mesh_shape)[0]
             rec = dryrun.lower_cell(
-                arch, lm_rank_cell(name, seq), mesh_shape=(data, 1),
+                arch, cell, mesh_shape=(data, 1),
                 overrides=dict(key[1], compute_dtype=dtype), device=device,
                 run=True, run_reps=LM_DRYRUN_RUN_REPS, logits=logits,
                 sample=sample)
@@ -6418,7 +6462,8 @@ def lm_rank_cells(dryrun, device, one):
                r.get("run_s") is None for r in recs):
             raise AssertionError(f"{tag}: {[r.get('run_reason') for r in recs]}")
         got = gathered[i]
-        f32, bf16 = (refs[lm_reference_key(arch, over, name, seq, d)]
+        rows = lm_one_process(name, seq, mesh_shape)[2]
+        f32, bf16 = (refs[lm_reference_key(arch, over, name, seq, d, rows)]
                      for d in ("float32", "bfloat16"))
         dtype = over.get("compute_dtype", "bfloat16")
         if name.startswith("train"):
@@ -6522,9 +6567,9 @@ def phase_lm_dryrun_path(counters, device):
     ``llava-next-mistral-7b``'s prefill, and both cells of
     ``falcon-mamba-7b``, ``recurrentgemma-2b`` (on (2, 2) ranks) and
     ``whisper-large-v3`` (each cut to size as its ``LM_RANK_CELLS`` entry
-    says), and ``qwen3-1.7b``'s training step on (1, 4) ranks in float32
-    and bf16.  No kernel of the port is on this
-    path: the counts stay 0."""
+    says), and ``qwen3-1.7b``'s training step on (1, 4) ranks and on
+    (2, 2) ranks with ZeRO-1 over ``data``, in float32 and bf16.  No
+    kernel of the port is on this path: the counts stay 0."""
     from repro_torch.benchmarks import roofline
     from repro_torch.launch import dryrun
     clock = Phase()
@@ -6565,8 +6610,8 @@ def phase_lm_dryrun_path(counters, device):
         if (shape, seq, mesh_shape[0]) in {
                 (n, q, m[0]) for _, a, o, n, q, m, _ in LM_RANK_CELLS
                 if a == LM_ARCH and not o}:
-            one[lm_reference_key(LM_ARCH, {}, shape, seq, "bfloat16")] = \
-                (rec, logits[0])
+            one[lm_reference_key(LM_ARCH, {}, shape, seq, "bfloat16",
+                                 rec["run_batch"])] = (rec, logits[0])
         rec["cell_s"] = time.perf_counter() - t0
         if rec["status"] != "ok" or rec.get("run_s") is None:
             raise AssertionError(f"lm_dryrun_path {shape}: {rec}")

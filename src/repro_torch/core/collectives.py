@@ -14,6 +14,13 @@ a mesh axis, written over ``torch.distributed``:
   ``all_reduce_sum`` — the elementwise max / min / sum over the line
   (``jax.lax.pmax`` / ``pmin`` / ``psum``), the sum in ``t``'s own dtype
   (gloo reduces bfloat16 as it is, in torch 2.11 and 2.13);
+  ``all_reduce_sum`` with ``axis=None`` sums over every rank of the
+  mesh (``psum`` over all its axes);
+* ``reduce_scatter_sum(t, mesh, axis, dim)`` — ``jax.lax.psum_scatter(
+  t, axis, scatter_dimension=dim, tiled=True)``: the sum of ``t`` over
+  the line, in float32, of which coordinate ``i`` keeps block ``i`` of
+  ``dim`` (one ``reduce_scatter_tensor``; what ZeRO-1 reduces a
+  gradient to: the shard of its moments);
 * ``all_to_all_over(t, mesh, axis, send_counts, recv_counts)`` — rows to
   each rank of the line, uneven: ``t``'s first ``send_counts[0]`` rows go
   to coordinate 0, the next ``send_counts[1]`` to coordinate 1, ...,
@@ -48,10 +55,11 @@ a mesh axis, written over ``torch.distributed``:
 Each returns a new tensor on the block's device and never writes its
 input; on an axis of size 1 each is the identity (the input itself, no
 call).  The axis transfers (``all_gather_panel``, ``ring_shift``,
-``all_reduce_*``, ``all_to_all_over``) are counted into the mesh's
-``tally`` (a ``Tally``: this rank's), by the LM dry-run's kinds and
-units (``all-gather``, ``all-reduce``, ``all-to-all``,
-``collective-permute``; bytes = the op's result bytes, as
+``all_reduce_*``, ``reduce_scatter_sum``, ``all_to_all_over``) are
+counted into the mesh's ``tally`` (a ``Tally``: this rank's), by the LM
+dry-run's kinds and units (``all-gather``, ``all-reduce``,
+``reduce-scatter``, ``all-to-all``, ``collective-permute``; bytes = the
+op's result bytes, as
 ``launch/dryrun.collective_closed_form`` counts them), with the host
 seconds spent in them (a CUDA tensor staged through the host has its
 card synchronised first, which its staging copy would wait for anyway,
@@ -66,13 +74,13 @@ relied on.  A collective that fails raises; nothing falls back to a
 logical route.
 
 ``gather_over`` / ``shift_over`` / ``max_over`` / ``min_over`` /
-``sum_over`` / ``rows_over`` are the
+``sum_over`` / ``scatter_sum_over`` / ``rows_over`` are the
 same transfers on an explicit process group, what the mesh helpers call
 once they have resolved the axis's subgroup and staging.
 
 Only calls present in torch 2.11 and 2.13 are used
 (``all_gather_into_tensor``, ``batch_isend_irecv``, ``all_reduce``,
-``broadcast``, ``all_to_all_single``).
+``reduce_scatter_tensor``, ``broadcast``, ``all_to_all_single``).
 """
 from __future__ import annotations
 
@@ -80,6 +88,7 @@ import hashlib
 import json
 import math
 import time
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -88,13 +97,14 @@ import torch.distributed as tdist
 
 __all__ = ["all_gather_panel", "ring_shift", "all_reduce_max",
            "all_reduce_min", "all_reduce_sum", "all_reduce_sum_checked",
-           "all_to_all_over", "Tally",
+           "reduce_scatter_sum", "all_to_all_over", "Tally",
            "KINDS", "all_gather_ragged", "gather_ragged_or_raise",
            "agree_or_raise", "broadcast_from", "broadcast_json",
            "encode_json", "decode_json", "exchange_pieces",
            "exchange_device",
            "same_on_every_rank", "gather_over", "shift_over", "max_over",
-           "min_over", "sum_over", "rows_over", "digest", "no_backward"]
+           "min_over", "sum_over", "scatter_sum_over", "rows_over",
+           "digest", "no_backward"]
 
 # (key, shape, dtype[, grow]) -> a host buffer kept for the next call
 Stage = Callable[[str, Sequence[int], torch.dtype], torch.Tensor]
@@ -103,20 +113,32 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
 
 
+# bytes ``digest`` widens to int64 at a time: a parameter block of
+# hundreds of MB would otherwise take 24 bytes of temporaries a byte
+_DIGEST_CHUNK = 1 << 24
+
+
 def digest(t: torch.Tensor) -> Tuple[int, int]:
     """Two int64 sums over ``t``'s bytes (plain and position-weighted):
     equal tensors give equal digests, and differing bytes almost surely
     differ."""
-    b = t.detach().contiguous().view(-1).view(torch.uint8).to(torch.int64)
-    weights = torch.arange(b.numel(), device=b.device) % 65_521 + 1
-    return int(b.sum()), int((b * weights).sum())
+    b = t.detach().contiguous().view(-1).view(torch.uint8)
+    plain = weighted = 0
+    for lo in range(0, b.numel(), _DIGEST_CHUNK):
+        part = b[lo:lo + _DIGEST_CHUNK].to(torch.int64)
+        weights = torch.arange(lo, lo + part.numel(),
+                               device=b.device) % 65_521 + 1
+        plain += int(part.sum())
+        weighted += int((part * weights).sum())
+    return plain, weighted
 
 
 class Tally:
     """The axis collectives this process ran since ``reset``: calls and
     result bytes by kind, host seconds, and (``reset(digests=True)``)
-    the ``digest`` of every all-reduced result in call order, and in
-    ``routes`` those of every routing ``route`` was given."""
+    the ``digest`` of every all-reduced result in call order, with the
+    axis it was reduced over in ``digest_axes`` (``None``: every rank),
+    and in ``routes`` those of every routing ``route`` was given."""
 
     def __init__(self):
         self.reset()
@@ -127,15 +149,19 @@ class Tally:
         self.seconds = 0.0
         self.digests: Optional[List[Tuple[int, int]]] = \
             [] if digests else None
+        self.digest_axes: Optional[List[Optional[str]]] = \
+            [] if digests else None
         self.routes: Optional[List[Tuple[int, int]]] = \
             [] if digests else None
 
-    def add(self, kind: str, result: torch.Tensor, seconds: float) -> None:
+    def add(self, kind: str, result: torch.Tensor, seconds: float,
+            axis: Optional[str] = None) -> None:
         self.bytes[kind] += result.numel() * result.element_size()
         self.counts[kind] += 1
         self.seconds += seconds
         if self.digests is not None and kind == "all-reduce":
             self.digests.append(digest(result))
+            self.digest_axes.append(axis)
 
     def route(self, *parts: torch.Tensor) -> None:
         """Keeps the ``digest`` of each of ``parts`` (a MoE layer's
@@ -152,14 +178,15 @@ class Tally:
 
 
 def _counted(mesh, kind: str, t: torch.Tensor,
-             transfer: Callable[[], torch.Tensor]) -> torch.Tensor:
-    """``transfer()`` (one collective of ``t``), counted into
-    ``mesh.tally``."""
+             transfer: Callable[[], torch.Tensor],
+             axis: Optional[str] = None) -> torch.Tensor:
+    """``transfer()`` (one collective of ``t`` over ``axis``), counted
+    into ``mesh.tally``."""
     if t.is_cuda and _stage_for(t, mesh) is not None:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
     out = transfer()
-    mesh.tally.add(kind, out, time.perf_counter() - t0)
+    mesh.tally.add(kind, out, time.perf_counter() - t0, axis)
     return out
 
 
@@ -245,6 +272,29 @@ def sum_over(t: torch.Tensor, group, stage: Optional[Stage] = None,
     return _reduce_over(t, tdist.ReduceOp.SUM, group, stage, key)
 
 
+def scatter_sum_over(t: torch.Tensor, group, n: int,
+                     stage: Optional[Stage] = None,
+                     key: str = "scatter") -> torch.Tensor:
+    """The sum of ``t`` over the ``n`` ranks of ``group``, of which group
+    rank ``i`` keeps rows ``[i * r, (i + 1) * r)``, ``r = t.shape[0] /
+    n`` (one ``reduce_scatter_tensor``)."""
+    src = t.contiguous()
+    out_shape = (src.shape[0] // n,) + tuple(src.shape[1:])
+    if stage is None:
+        send = src
+        recv = torch.empty(out_shape, dtype=src.dtype, device=src.device)
+    else:
+        send = stage(f"{key}:send", src.shape, src.dtype)
+        send.copy_(src)
+        recv = stage(f"{key}:recv", out_shape, src.dtype)
+    with warnings.catch_warnings():
+        # torch 2.13 names it reduce_scatter_single; 2.11 has only this
+        warnings.simplefilter("ignore", FutureWarning)
+        tdist.reduce_scatter_tensor(recv, send, op=tdist.ReduceOp.SUM,
+                                    group=group)
+    return recv if stage is None else recv.to(src.device, copy=True)
+
+
 def rows_over(t: torch.Tensor, group, send_counts: Sequence[int],
               recv_counts: Sequence[int], stage: Optional[Stage] = None,
               key: str = "rows") -> torch.Tensor:
@@ -314,7 +364,8 @@ def all_reduce_max(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return t
     return _counted(mesh, "all-reduce", t, lambda: max_over(
-        t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"max:{axis}"))
+        t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"max:{axis}"),
+        axis)
 
 
 def all_reduce_min(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -322,16 +373,46 @@ def all_reduce_min(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return t
     return _counted(mesh, "all-reduce", t, lambda: min_over(
-        t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"min:{axis}"))
+        t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"min:{axis}"),
+        axis)
 
 
-def all_reduce_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The elementwise sum of ``t`` over this rank's line along ``axis``,
-    in ``t``'s dtype (a tensor-parallel layer's partial products)."""
-    if mesh.shape[axis] == 1:
+def all_reduce_sum(t: torch.Tensor, mesh,
+                   axis: Optional[str]) -> torch.Tensor:
+    """The elementwise sum of ``t`` over this rank's line along ``axis``
+    (``None``: over every rank of ``mesh``), in ``t``'s dtype (a
+    tensor-parallel layer's partial products)."""
+    if (mesh.world_size if axis is None else mesh.shape[axis]) == 1:
         return t
+    group = None if axis is None else mesh.axis_group(axis)
     return _counted(mesh, "all-reduce", t, lambda: sum_over(
-        t, mesh.axis_group(axis), _stage_for(t, mesh), key=f"sum:{axis}"))
+        t, group, _stage_for(t, mesh), key=f"sum:{axis or '*'}"), axis)
+
+
+def reduce_scatter_sum(t: torch.Tensor, mesh, axis: str,
+                       dim: int) -> torch.Tensor:
+    """The sum of ``t`` over this rank's line along ``axis``, taken in
+    float32, cut along ``dim`` into the line's ``n`` equal blocks of
+    which this rank keeps the one at its coordinate (the tiled
+    ``psum_scatter``): ``t.shape[dim]`` must divide by ``n``.  Counted as
+    one ``reduce-scatter`` of the float32 result's bytes.  On an axis of
+    size 1, ``t`` in float32 (itself if it is float32)."""
+    n = mesh.shape[axis]
+    t = t.float()
+    if n == 1:
+        return t
+    dim = dim % t.dim()
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter_sum: dimension {dim} of "
+                         f"{tuple(t.shape)} does not split into {n} blocks")
+    lead = t.movedim(dim, 0)
+
+    def transfer():
+        out = scatter_sum_over(lead, mesh.axis_group(axis), n,
+                               _stage_for(t, mesh),
+                               key=f"scatter:{axis}:{dim}")
+        return out.movedim(0, dim).contiguous() if dim else out
+    return _counted(mesh, "reduce-scatter", t, transfer)
 
 
 def all_reduce_sum_checked(t: Optional[torch.Tensor], shape: Sequence[int],
@@ -341,10 +422,11 @@ def all_reduce_sum_checked(t: Optional[torch.Tensor], shape: Sequence[int],
     """``all_reduce_sum`` of the float32 ``t`` (of ``shape``) with one
     float32 status word beside it in the same all-reduce: a rank whose
     share failed passes its ``error`` (``t`` unused: zeros cross) and
-    still joins, and if any rank failed every rank raises
+    still joins, and if any rank failed every rank of the line raises
     ``RuntimeError`` naming the ranks and their errors
-    (``gather_ragged_or_raise`` over the world, which must be the
-    ``axis`` line: every rank of it is in this call).  Counted as one
+    (``gather_ragged_or_raise`` over the ``axis`` line: every rank of it
+    is in this call; the other lines of a wider world learn of it from
+    whatever agreement their caller makes next).  Counted as one
     all-reduce of ``prod(shape) + 1`` float32 values."""
     if error is not None or t is None:
         t = torch.zeros(tuple(shape), dtype=torch.float32,
@@ -355,7 +437,7 @@ def all_reduce_sum_checked(t: Optional[torch.Tensor], shape: Sequence[int],
     if bool(total[-1] > 0):
         gather_ragged_or_raise(
             torch.empty(0, dtype=torch.int64, device=exchange_device(mesh)),
-            mesh, what, error)
+            mesh, what, error, axis=axis)
     return total[:-1].view(tuple(shape))
 
 
@@ -442,20 +524,23 @@ def exchange_device(mesh) -> torch.device:
     return torch.device("cpu") if mesh.backend == "gloo" else mesh.device
 
 
-def all_gather_ragged(t: torch.Tensor, mesh) -> List[torch.Tensor]:
+def all_gather_ragged(t: torch.Tensor, mesh,
+                      axis: Optional[str] = None) -> List[torch.Tensor]:
     """Every rank's flat int64 ``t`` (its own length), in rank order, on
-    every rank of ``mesh``'s world: one gather of the lengths, then one
+    every rank of ``mesh``'s world (with ``axis``, of this rank's line
+    along it, by coordinate): one gather of the lengths, then one
     ``all_gather_into_tensor`` of the tensors padded to the longest.  In
-    a world of one rank the list holds ``t`` itself."""
+    a world (a line) of one rank the list holds ``t`` itself."""
     if t.dtype != torch.int64 or t.dim() != 1:
         raise ValueError(f"all_gather_ragged takes a flat int64 tensor, "
                          f"got {t.dtype} of shape {tuple(t.shape)}")
-    world = mesh.world_size
+    world = mesh.world_size if axis is None else mesh.shape[axis]
     if world == 1:
         return [t]
+    group = None if axis is None else mesh.axis_group(axis)
     stage = _stage_for(t, mesh)
     size = torch.tensor([t.numel()], dtype=torch.int64, device=t.device)
-    sizes = gather_over(size, None, world, stage=stage,
+    sizes = gather_over(size, group, world, stage=stage,
                         key="ragged:sizes").tolist()
     longest = max(sizes)
     if longest == 0:
@@ -464,20 +549,22 @@ def all_gather_ragged(t: torch.Tensor, mesh) -> List[torch.Tensor]:
     if t.numel() < longest:
         padded = torch.zeros(longest, dtype=torch.int64, device=t.device)
         padded[:t.numel()] = t
-    flat = gather_over(padded, None, world, stage=stage, key="ragged")
+    flat = gather_over(padded, group, world, stage=stage, key="ragged")
     return [flat[k * longest:k * longest + n].clone()
             for k, n in enumerate(sizes)]
 
 
 def gather_ragged_or_raise(t: Optional[torch.Tensor], mesh, what: str,
-                           error: Optional[BaseException] = None
+                           error: Optional[BaseException] = None,
+                           axis: Optional[str] = None
                            ) -> List[torch.Tensor]:
-    """``all_gather_ragged`` of ``t``, where a rank whose share of the
-    work failed passes its ``error`` instead (``t`` is then unused).  Each
-    part crosses behind a flag word; a failed rank's part is its error's
-    text.  If any rank failed, every rank raises ``RuntimeError`` naming
-    the ranks and their errors (chained to its own error where it is one
-    of them), so none is left waiting in a later collective."""
+    """``all_gather_ragged`` of ``t`` (over the world, or ``axis``'s
+    line), where a rank whose share of the work failed passes its
+    ``error`` instead (``t`` is then unused).  Each part crosses behind a
+    flag word; a failed rank's part is its error's text.  If any rank
+    failed, every rank raises ``RuntimeError`` naming the ranks (global
+    ranks) and their errors (chained to its own error where it is one of
+    them), so none is left waiting in a later collective."""
     if error is None:
         head, body = 0, t
     else:
@@ -486,9 +573,11 @@ def gather_ragged_or_raise(t: Optional[torch.Tensor], mesh, what: str,
         body = torch.frombuffer(bytearray(text), dtype=torch.uint8).to(
             device=exchange_device(mesh), dtype=torch.int64)
     flag = torch.tensor([head], dtype=torch.int64, device=body.device)
-    parts = all_gather_ragged(torch.cat([flag, body]), mesh)
+    parts = all_gather_ragged(torch.cat([flag, body]), mesh, axis)
+    names = (range(len(parts)) if axis is None
+             else mesh.axis_ranks(axis))
     failed = [(k, bytes(p[1:].cpu().to(torch.uint8).tolist()).decode(
-        errors="replace")) for k, p in enumerate(parts) if int(p[0])]
+        errors="replace")) for k, p in zip(names, parts) if int(p[0])]
     if failed:
         raise RuntimeError(f"{what} on ranks: " + "; ".join(
             f"rank {k} failed ({msg})" for k, msg in failed)) from error

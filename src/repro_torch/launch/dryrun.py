@@ -131,14 +131,21 @@ same step's arguments from the ``ShapeDtype`` records of
   - a training step over a split ``model``, once a step, float32: one
     all-reduce of the gradients of the replicated leaves a rank applies
     to its own heads (``models.layers.partial_grad``: the qk norms), if
-    the model has any, and one of the global norm's sum of squares (a
-    single value: ``train.optimizer.global_norm``);
-  - the gradient reduction over the batch axes, once a step, float32:
-    a leaf that ZeRO-1 splits over ``data`` is reduce-scattered over
-    ``data`` (result: its moment's shard), all-reduced over ``pod`` if
-    there is one, and the new parameter all-gathered over ``data``
-    (result: its own shard); any other leaf is all-reduced over the
-    batch axes it is not split on.
+    the model has any;
+  - the gradient reduction over the batch axes, once a step, float32,
+    one collective a leaf of the reference's tree (a stacked group's
+    layers together): a leaf that ZeRO-1 splits over ``data`` is
+    reduce-scattered over ``data`` (result: its moment's shard),
+    all-reduced over ``pod`` if there is one, and the new parameter
+    all-gathered over ``data`` (result: the device's block of the
+    parameter, in its dtype); any other leaf is all-reduced over the
+    batch axes it is not split on (``train.train_step``);
+  - the step's metrics, once a step, float32: where the batch is split,
+    one all-reduce of the loss's single value over the batch axes (the
+    global batch's mean on every device), and where ``model`` is split
+    or ZeRO-1 shards a leaf over ``data``, one of the global norm's sum
+    of squares over every axis that splits a gradient (a single value:
+    ``train.optimizer.global_norm``).
 
   ``collective`` counts each layer stack's body (a layer, or the
   hybrid's group) once, and one microbatch, as the reference's flat
@@ -174,9 +181,13 @@ over ``model`` (``core/collectives.py``; ``models/layers.py`` under
 ``sharding_mesh``).  Its logits stay vocab-split; the whole logits are
 gathered after the timed passes (Whisper's come out whole: its head
 sums them over ``model``).  A training cell on ranks (a ``dense``
-model, the batch not split: ``_run_rule``) runs the rank's step
-(``train.train_step``): its blocks of the parameters and the Adam
-moments, the whole batch on every rank, the backward's collectives of
+model, the ranks' ``data`` axis the cell's batch blocks: ``_run_rule``)
+runs the rank's step (``train.train_step``) on a model that holds the
+whole grid: its blocks of the parameters, its ZeRO-1 shards of the Adam
+moments where ``data`` is over 1 (``train.optimizer.zero1_layout``),
+the whole global batch on every rank (drawn together from seed 1, each
+microbatch cut to the data coordinate's rows by the step), the
+backward's collectives and the gradient's reduction over ``data`` of
 the closed form.  A rank whose share fails makes every rank raise
 (``collectives.agree_or_raise``) where no rank is left inside a
 collective, and so does a rank whose share of a backward sum fails (its
@@ -218,8 +229,9 @@ also: every parameter's gradient non-zero somewhere before the warm-up
 step's update (read by a hook as it accumulates: weight decay moves a
 parameter whose gradient a cut backward zeroed, so "changed" alone
 would not see the cut), every leaf whole on every rank (replicated)
-byte-equal along the ``model`` line after the passes, each pass's loss
-and gradient norm too, and every rank's counted collectives equal to
+byte-equal along the ``model`` line after the passes, every parameter
+block byte-equal along the ``data`` line, each pass's loss and gradient
+norm equal on every rank, and every rank's counted collectives equal to
 the closed form's (``closed_form_mismatch``).  A failed check raises.
 
   python -m repro_torch.launch.dryrun --all --out build/dryrun --device cpu
@@ -257,7 +269,8 @@ from ..models import whisper as _whisper
 from ..models.layers import P, gathers_kv, partial_grad, torch_dtype
 from ..serve.serve_step import (make_prefill_step, make_serve_step,
                                 whole_logits)
-from ..train.optimizer import AdamConfig, adam_init, opt_state_specs
+from ..train.optimizer import (AdamConfig, adam_init, opt_state_specs,
+                               zero1_layout)
 from ..train.train_step import make_train_step, model_params
 from .mesh import make_production_mesh
 from .shapes import SHAPES, ShapeCell, cell_applicable
@@ -625,13 +638,17 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
                           math.prod(shard_shape(rec.shape, pspec, mesh)) * 4)
         if split_model:
             # the replicated leaves a rank applies to its own heads hold a
-            # partial gradient: one float32 all-reduce of them all; then
-            # the global norm's one float32 value
+            # partial gradient: one float32 all-reduce of them all
             part = sum(math.prod(rec.shape) * 4 for path, rec in _leaves(recs)
                        if partial_grad(path) and "model" not in {
                            a for e in rec.sharding.spec for a in _axes(e)})
             if part:
                 grads.add("all-reduce", part)
+        if nb > 1:
+            # the loss's one float32 value, the global batch's mean
+            grads.add("all-reduce", 4)
+        if split_model or grads.counts["reduce-scatter"]:
+            # the global norm's one float32 value
             grads.add("all-reduce", 4)
         flat.merge(grads)
         executed.merge(grads)
@@ -656,9 +673,11 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
     batch).  On ranks (a ``ProcessMesh`` over ``data`` and ``model``):
     the ranks' ``model`` axis equal to the cell's, their ``data`` axis
     within the cell's batch blocks, a training cell only for a ``dense``
-    model whose batch is not split (the cell's batch axes, and so the
-    ranks' ``data`` axis, of 1) with float32 moments, and where ``model``
-    is split, a model whose every split the axis makes exact.  A
+    model with float32 moments, on a mesh without a ``pod`` axis, on
+    ranks whose ``data`` axis is the cell's batch blocks (ZeRO-1's shards
+    and the gradient's reduction span the whole ``data`` axis) and whose
+    every microbatch splits over it, and where ``model`` is split, a
+    model whose every split the axis makes exact.  A
     transformer (``dense``, ``moe``, ``vlm``): heads, KV heads and vocab;
     ``d_ff`` where a dense MLP runs; ``d_model`` for LLaVA's projector;
     ``moe_d_ff`` and the shared experts' ``n_shared_experts x
@@ -688,15 +707,22 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
         return (f"the ranks' data axis {ranks.shape['data']} exceeds the "
                 f"cell's {_batch_rows(mesh, shape)} batch blocks")
     if shape.kind == "train":
+        rows = _batch_rows(mesh, shape)
+        nm = max(cfg.microbatch, 1)
         if cfg.family != "dense":
             return (f"training a {cfg.family!r} model on ranks (the "
                     f"backwards of its gathers, all-to-alls and scans) is not "
                     f"ported (ROADMAP.md, A10d-5b-3)")
-        if _batch_rows(mesh, shape) > 1:
-            return (f"training with the batch split over "
-                    f"{_batch_rows(mesh, shape)} blocks: the gradient "
-                    f"reduction and ZeRO-1 over data on ranks are not ported "
-                    f"(ROADMAP.md, A10d-5b-2)")
+        if "pod" in mesh.axis_names:
+            return ("training on a mesh with a pod axis: the gradient's "
+                    "all-reduce over pod is not run on ranks")
+        if ranks.shape["data"] < rows:
+            return (f"the ranks' data axis {ranks.shape['data']} is below "
+                    f"the cell's {rows} batch blocks: ZeRO-1's shards and "
+                    f"the gradient's reduction span the whole data axis")
+        if shape.global_batch % nm or (shape.global_batch // nm) % rows:
+            return (f"a microbatch of {shape.global_batch} / {nm} rows does "
+                    f"not split over the data axis of {rows}")
         if cfg.opt_8bit:
             return "8-bit Adam moments on ranks are not ported"
     if model == 1:
@@ -787,8 +813,8 @@ def _sample(p: torch.Tensor, n: int = 4096) -> torch.Tensor:
     return flat[::max(1, flat.numel() // n)].clone()
 
 
-def whole_sample(t: torch.Tensor, like: torch.Tensor, n: int = 4096
-                 ) -> Tuple[Any, Any]:
+def whole_sample(t: torch.Tensor, like: torch.Tensor, block=None,
+                 n: int = 4096) -> Tuple[Any, Any]:
     """A fixed strided sample of a leaf by its whole leaf's coordinates:
     along each of its ``D`` dimensions (size ``d``) about ``n ** (1 /
     D)`` evenly spaced coordinates from 0 to ``d - 1``, and every entry of
@@ -797,12 +823,15 @@ def whole_sample(t: torch.Tensor, like: torch.Tensor, n: int = 4096
     whole column blocks).  ``t`` has the shape of the parameter ``like``;
     where ``like`` is a rank's block (its ``whole_shape`` and ``block``:
     ``distributed_lm.sharding.to_rank_widths``), the grid's entries that
-    fall in the block.  Returns (the entries' flat indices in the whole
-    leaf, int64, ascending; their values, float32), numpy on the host, so
-    a rank's entries meet the same entries of a one-process run's."""
+    fall in the block; ``block``, where given, is the block of the whole
+    leaf that ``t`` holds instead (a ZeRO-1 moment shard:
+    ``train.optimizer.Zero1Layout.block``).  Returns (the entries' flat
+    indices in the whole leaf, int64, ascending; their values, float32),
+    numpy on the host, so a rank's entries meet the same entries of a
+    one-process run's."""
     whole = tuple(getattr(like, "whole_shape", like.shape))
-    block = getattr(like, "block", None) or tuple(slice(0, d)
-                                                  for d in whole)
+    block = block or getattr(like, "block", None) or tuple(
+        slice(0, d) for d in whole)
     per = math.ceil(n ** (1 / max(len(whole), 1)))
     coords, local = [], []
     for size, part in zip(whole, block):
@@ -945,7 +974,7 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
     receives a training run's ``{"loss", "grad_norm"}`` (each pass's,
     floats) and ``{"params", "m"}``: ``whole_sample`` of every new
     parameter and first moment after the last pass, by name (on ranks
-    the rank's entries)."""
+    the rank's entries: of a ZeRO-1 shard, the moments it holds)."""
     from torch.utils.flop_counter import FlopCounterMode
     long_ctx = shape.name.startswith("long")
     run_batch = -(-shape.global_batch // _batch_rows(mesh, shape))
@@ -955,8 +984,10 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
     # batch is drawn for all of them, and each data coordinate takes its
     # own run_batch rows
     rows = run_batch * (ranks.shape["data"] if ranks is not None else 1)
-    split = ranks if ranks is not None and ranks.shape["model"] > 1 \
-        else None
+    # a training step on ranks reduces over data too: its model holds
+    # the whole grid
+    split = ranks if ranks is not None and (
+        ranks.shape["model"] > 1 or shape.kind == "train") else None
     model_at = split.axis_index("model") if split is not None else 0
     checks: List[str] = []
 
@@ -976,9 +1007,12 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
     if shape.kind == "train":
         opt_cfg = AdamConfig(use_8bit=cfg.opt_8bit)
         params = model_params(model)
-        state = adam_init(params, opt_cfg)
+        layout = zero1_layout(model, opt_cfg, cfg.zero1)
+        state = adam_init(params, opt_cfg, layout)
+        # every rank takes the whole global batch; the step cuts each
+        # microbatch to its data coordinate's rows
         batch = {k: _seeded(r.shape, r.dtype, data, device, cfg.vocab)
-                 for k, r in input_structs(cfg, mesh, run_batch,
+                 for k, r in input_structs(cfg, mesh, rows,
                                            shape.seq_len).items()}
         before = {k: _sample(p) for k, p in params.items()}
         step = make_train_step(model, cfg, opt_cfg)
@@ -1108,7 +1142,11 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
     tally.reset(digests=True)
     with FlopCounterMode(display=False) as counter:
         one()                                      # the untimed warm-up
-    digests = [w for d in tally.digests for w in d]
+    # each all-reduced tensor's digest, by the axis it was reduced over
+    # (None: every rank)
+    digests: Dict[Optional[str], List[int]] = {}
+    for axis, d in zip(tally.digest_axes, tally.digests):
+        digests.setdefault(axis, []).extend(d)
     routes = [w for d in tally.routes for w in d]
     if on_card:
         torch.cuda.synchronize()
@@ -1126,7 +1164,9 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         # rank must not leave the others waiting in a collective
         if whole is not None:
             whole = whole_logits(whole, ranks, model)
-        lines_agree = _same_on(digests, ranks, "model")
+        # every rank joins each exchange: no short cut
+        lines_agree = all([_same_on(digests.get(axis, []), ranks, axis)
+                           for axis in ("model", "data", None)])
         # a cache whole on every rank and written (the hybrid's window)
         # holds the same bytes along a model line
         window = (shape.kind == "decode" and split is not None
@@ -1138,17 +1178,20 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
         logits_agree = whole is None or _same_on(list(coll.digest(whole)),
                                                  ranks)
         if shape.kind == "train":
-            # the leaves whole on every rank of a model line, and the
-            # step's metrics, hold the same bytes along it
+            # the leaves whole on every rank of a model line hold the
+            # same bytes along it, every block along its data line, and
+            # the step's metrics on every rank
             whole_leaves = [k for k, p in params.items()
                             if tuple(p.shape) == tuple(getattr(
                                 p, "whole_shape", p.shape))]
             replicas_agree = _same_on(
                 [w for k in whole_leaves for w in coll.digest(params[k])],
                 ranks, "model")
+            blocks_agree = ranks.shape["data"] == 1 or _same_on(
+                [w for p in params.values() for w in coll.digest(p)],
+                ranks, "data")
             metrics_agree = _same_on([w for t in losses + norms
-                                      for w in coll.digest(t)], ranks,
-                                     "model")
+                                      for w in coll.digest(t)], ranks)
 
     def check_all():
         check()
@@ -1156,7 +1199,7 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
             return
         if not lines_agree:
             raise AssertionError("run: an all-reduced tensor differs "
-                                 "between the ranks of a model line")
+                                 "between the ranks it was reduced over")
         if not routes_agree:
             raise AssertionError("run: a MoE layer's routing differs "
                                  "between the ranks of a model line")
@@ -1171,16 +1214,25 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
                 raise AssertionError("run: a replicated parameter differs "
                                      "between the ranks of a model line "
                                      "after the step")
+            if not blocks_agree:
+                raise AssertionError("run: a parameter block differs "
+                                     "between the ranks of a data line "
+                                     "after the step")
             if not metrics_agree:
                 raise AssertionError("run: the loss or the gradient norm "
-                                     "differs between the ranks of a model "
-                                     "line")
+                                     "differs between ranks")
             checks.append(f"{len(whole_leaves)} replicated parameters equal "
                           f"on every rank of a model line")
-            checks.append("loss and grad_norm equal on every rank of a "
-                          "model line")
-        checks.append(f"{len(digests) // 2} all-reduced tensors equal on "
-                      f"every rank of a model line")
+            if ranks.shape["data"] > 1:
+                checks.append(f"all {len(params)} parameter blocks equal "
+                              f"on every rank of a data line")
+            checks.append("loss and grad_norm equal on every rank")
+        for axis, where in (("model", "every rank of a model line"),
+                            ("data", "every rank of a data line"),
+                            (None, "every rank")):
+            if axis == "model" or digests.get(axis):
+                checks.append(f"{len(digests.get(axis, [])) // 2} "
+                              f"all-reduced tensors equal on {where}")
         if routes:
             checks.append(f"{len(routes) // 4} routings (experts, gates) "
                           f"equal on every rank of a model line")
@@ -1197,8 +1249,9 @@ def run_cell(cfg, shape: ShapeCell, mesh, device: torch.device,
             "loss": [float(t) for t in losses],
             "grad_norm": [float(t) for t in norms],
             "params": {k: whole_sample(p, p) for k, p in params.items()},
-            "m": {k: whole_sample(state["m"][k], p)
-                  for k, p in params.items()}})
+            "m": {k: whole_sample(m, params[k], layout.block(
+                k, params[k]) if layout is not None else None)
+                  for k, m in state["m"].items()}})
     a = roofline.analytic_cell_model(
         cfg, dataclasses.replace(shape, global_batch=run_batch))
     parts = ranks.shape["model"] if ranks is not None else 1

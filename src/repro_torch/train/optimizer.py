@@ -24,15 +24,28 @@ runs on them in place as in one process; only the global norm crosses:
 each rank's sum of squares (its split leaves' blocks, and the leaves
 whole on every rank of the line counted on its first rank only) in one
 float32 all-reduce over ``model``.
+
+On ranks whose ``data`` axis is over 1 (ZeRO-1, ``zero1_layout``) a rank
+holds its shard of each moment only: the reference's ``opt_state_specs``
+of the stacked leaf (``model.param_specs()``, layers on a leading axis)
+put ``data`` on one free dimension, and the rank keeps its data
+coordinate's block of that dimension of its ``model`` block.  Where that
+dimension is a stacked group's layer axis, the rank holds whole moments
+(its ``model`` block) of the layers its coordinate owns, and ``m`` /
+``v`` have no entry for the other layers' keys.  The gradients given to
+``adam_update`` are then the same shards (``train.train_step``
+reduce-scatters them over ``data``), the update writes the rank's block
+of each parameter, and the norm sums the shards over the whole grid.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Collection, Dict, Mapping, Tuple
+from typing import Any, Collection, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from .. import convert
 from ..core import collectives as coll
 from ..models.layers import P, map_specs
 
@@ -40,7 +53,7 @@ __all__ = ["AdamConfig", "adam_init", "adam_update", "lr_schedule",
            "global_norm", "clip_by_global_norm", "quantize_blockwise",
            "dequantize_blockwise", "quantize_shaped", "dequantize_shaped",
            "quantize_v_shaped", "dequantize_v_shaped", "zero1_specs",
-           "opt_state_specs"]
+           "opt_state_specs", "Zero1Leaf", "Zero1Layout", "zero1_layout"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -139,9 +152,24 @@ def _moment_shape(p: torch.Tensor) -> Tuple[int, ...]:
     return tuple(p.shape) if p.dim() else (1,)
 
 
-def adam_init(params: Mapping[str, torch.Tensor], cfg: AdamConfig
-              ) -> Dict[str, Any]:
-    """Zero moments beside each parameter, on its device."""
+def adam_init(params: Mapping[str, torch.Tensor], cfg: AdamConfig,
+              layout: Optional["Zero1Layout"] = None) -> Dict[str, Any]:
+    """Zero moments beside each parameter, on its device; with a ZeRO-1
+    ``layout`` (``zero1_layout``) only the rank's shard of each (module
+    docstring), float32."""
+    if layout is not None:
+        if cfg.use_8bit:
+            raise NotImplementedError("8-bit moments on ranks are not "
+                                      "ported")
+        held = {k: torch.zeros(layout.shard(k, p).shape, dtype=torch.float32,
+                               device=p.device)
+                for k, p in params.items() if layout.holds(k)}
+        return {"m": held,
+                "v": {k: torch.zeros_like(t) for k, t in held.items()},
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=next(iter(params.values()))
+                                     .device)}
+
     def zeros(p):
         return torch.zeros(_moment_shape(p), dtype=torch.float32,
                            device=p.device)
@@ -176,23 +204,33 @@ def lr_schedule(cfg: AdamConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor], ranks=None,
-                replicated: Collection[str] = ()) -> torch.Tensor:
+                replicated: Collection[str] = (),
+                sharded: Collection[str] = ()) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32.  With
-    ``ranks`` splitting ``model`` the leaves are this rank's blocks, and
-    ``replicated`` names those whole on every rank of its ``model`` line:
-    the square root of the all-reduce over ``model`` of the split leaves'
-    block sums and (on the line's first rank only, so counted once, not
-    ``k`` times) the replicated leaves' sums, the same on every rank."""
+    ``ranks`` the leaves are this rank's blocks: ``replicated`` names
+    those whole on every rank of its ``model`` line, ``sharded`` those
+    that are its ZeRO-1 shard (different along its ``data`` line; the
+    others are whole along it).  Each leaf is counted once over the
+    ranks that sum it, on the first rank of a line along which it is
+    whole: with ``sharded`` leaves on a ``data`` axis over 1 one float32
+    all-reduce over the whole grid, else one over ``model`` (where it is
+    split), else none.  The same value on every rank."""
     leaves = list(tree.values())
     if not leaves:
         return torch.zeros(())
-    if ranks is None or ranks.shape.get("model", 1) == 1:
+    grid = (ranks is not None and bool(sharded)
+            and ranks.shape.get("data", 1) > 1)
+    split = ranks is not None and ranks.shape.get("model", 1) > 1
+    if not grid and not split:
         return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves))
-    first = ranks.axis_index("model") == 0
-    mine = sum(torch.sum(x.float() ** 2) for k, x in tree.items()
-               if first or k not in replicated)
+    first_model = not split or ranks.axis_index("model") == 0
+    first_data = not grid or ranks.axis_index("data") == 0
+    mine = sum((torch.sum(x.float() ** 2) for k, x in tree.items()
+                if (first_model or k not in replicated)
+                and (first_data or k in sharded)),
+               torch.zeros((), device=leaves[0].device))
     return torch.sqrt(coll.all_reduce_sum(mine.reshape(1), ranks,
-                                          "model")[0])
+                                          None if grid else "model")[0])
 
 
 def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float
@@ -202,22 +240,40 @@ def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float
     return {k: g * scale.to(g.dtype) for k, g in tree.items()}, norm
 
 
+def _update_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                 v: torch.Tensor, cfg: AdamConfig, lr, c1, c2, wd) -> None:
+    """One float32-moment leaf's AdamW update, in place: ``p`` (a view of
+    the parameter where it is a ZeRO-1 shard), its clipped float32
+    gradient ``g``, its moments ``m`` / ``v``."""
+    m_new = cfg.b1 * m + (1 - cfg.b1) * g
+    v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
+    step_ = lr * (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
+    pf = p.float()
+    p.copy_(pf - step_ - wd * pf)
+    m.copy_(m_new)
+    v.copy_(v_new)
+
+
 @torch.no_grad()
 def adam_update(params: Mapping[str, torch.Tensor],
                 grads: Mapping[str, torch.Tensor], state: Dict[str, Any],
                 cfg: AdamConfig, ranks=None,
-                replicated: Collection[str] = ()
+                replicated: Collection[str] = (),
+                layout: Optional["Zero1Layout"] = None
                 ) -> Tuple[Mapping[str, torch.Tensor], Dict[str, Any],
                            Dict[str, torch.Tensor]]:
     """One AdamW step (global-norm clipping, bias correction, decoupled
     weight decay).  The parameters and the moments are written in place,
     leaf by leaf (so the transient memory is one leaf's, never a second
     copy of the model); ``grads`` are only read.  On ``ranks`` the
-    leaves are this rank's blocks and the norm is ``global_norm``'s over
-    the ``model`` line (``replicated``: the leaves whole on every rank of
-    it).  Returns (params, state, metrics) with ``metrics =
-    {"grad_norm", "lr"}``."""
-    gnorm = global_norm(grads, ranks, replicated)
+    leaves are this rank's blocks and the norm is ``global_norm``'s
+    (``replicated``: the leaves whole on every rank of a ``model``
+    line).  With a ZeRO-1 ``layout`` the moments and ``grads`` are the
+    rank's shards (the keys ``state["m"]`` holds), and the rank's block
+    of each parameter is written (module docstring).  Returns (params,
+    state, metrics) with ``metrics = {"grad_norm", "lr"}``."""
+    gnorm = global_norm(grads, ranks, replicated,
+                        layout.sharded if layout is not None else ())
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     state["count"].add_(1)
     count = state["count"].float()
@@ -225,6 +281,11 @@ def adam_update(params: Mapping[str, torch.Tensor],
     c1 = 1 - cfg.b1 ** count
     c2 = 1 - cfg.b2 ** count
     wd = lr * cfg.weight_decay
+    if layout is not None:
+        for k in state["m"]:
+            _update_leaf(layout.shard(k, params[k]), grads[k].float() * clip,
+                         state["m"][k], state["v"][k], cfg, lr, c1, c2, wd)
+        return params, state, {"grad_norm": gnorm, "lr": lr}
     for k, p in params.items():
         g = grads[k].float() * clip
         if cfg.use_8bit:
@@ -235,21 +296,19 @@ def adam_update(params: Mapping[str, torch.Tensor],
             v = dequantize_v_shaped(v8["codes"], v8["scale"], shape,
                                     cfg.q_block).reshape(p.shape)
         else:
-            m, v = state["m"][k], state["v"][k]
+            _update_leaf(p, g, state["m"][k], state["v"][k], cfg, lr, c1,
+                         c2, wd)
+            continue
         m_new = cfg.b1 * m + (1 - cfg.b1) * g
         v_new = cfg.b2 * v + (1 - cfg.b2) * g * g
         step_ = lr * (m_new / c1) / (torch.sqrt(v_new / c2) + cfg.eps)
         pf = p.float()
         p.copy_(pf - step_ - wd * pf)
-        if cfg.use_8bit:
-            for slot, new, fn in ((m8, m_new, quantize_shaped),
-                                  (v8, v_new, quantize_v_shaped)):
-                codes, scale = fn(new.reshape(shape), cfg.q_block)
-                slot["codes"].copy_(codes)
-                slot["scale"].copy_(scale)
-        else:
-            m.copy_(m_new)
-            v.copy_(v_new)
+        for slot, new, fn in ((m8, m_new, quantize_shaped),
+                              (v8, v_new, quantize_v_shaped)):
+            codes, scale = fn(new.reshape(shape), cfg.q_block)
+            slot["codes"].copy_(codes)
+            slot["scale"].copy_(scale)
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
 
@@ -296,3 +355,127 @@ def opt_state_specs(param_specs, params_shape, cfg: AdamConfig,
 
     m = map_specs(mom_spec, param_specs, params_shape)
     return {"m": m, "v": map_specs(lambda s, _: s, m, m), "count": P()}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 on ranks: where a rank's moment shards lie
+# ---------------------------------------------------------------------------
+
+class _Shape:
+    """A leaf of the tree ``opt_state_specs`` reads: its ``.shape``."""
+
+    def __init__(self, shape: Tuple[int, ...]):
+        self.shape = tuple(shape)
+
+
+def _node(tree, path):
+    for part in path:
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def _data_dim(spec) -> Optional[int]:
+    """The dimension a moment spec splits over ``data``, or ``None``."""
+    for i, e in enumerate(spec):
+        if e == "data" or (isinstance(e, tuple) and "data" in e):
+            return i
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class Zero1Leaf:
+    """One leaf of the reference's parameter tree on ranks: its
+    ``state_dict`` ``keys`` (a stacked group's layers in order, else the
+    one key), ``dim``, the dimension of the (stacked) leaf that its
+    moment spec splits over ``data`` (``None``: whole moments, gradient
+    all-reduced over ``data``), and this rank's block ``[lo, hi)`` of
+    it."""
+    name: str
+    keys: Tuple[str, ...]
+    stacked: bool
+    dim: Optional[int]
+    lo: int
+    hi: int
+
+    def held(self, i: int, ndim: int) -> Optional[Tuple[slice, ...]]:
+        """The slices of the rank's block of ``keys[i]`` (``ndim``
+        dimensions) whose moments the rank holds, or ``None``."""
+        whole = (slice(None),) * ndim
+        if self.dim is None:
+            return whole
+        if self.stacked and self.dim == 0:
+            return whole if self.lo <= i < self.hi else None
+        d = self.dim - 1 if self.stacked else self.dim
+        return whole[:d] + (slice(self.lo, self.hi),) + whole[d + 1:]
+
+
+class Zero1Layout:
+    """A rank's ZeRO-1 shards (module docstring): ``leaves`` in the
+    reference tree's order, ``sharded`` the keys whose moments split
+    over ``data``, ``holds(k)`` / ``shard(k, t)`` (the rank's shard of a
+    tensor shaped as ``k``'s parameter block: a view) and ``block(k,
+    p)``, the shard's slices of the whole leaf ``k`` (for
+    ``launch.dryrun.whole_sample``)."""
+
+    def __init__(self, leaves, ndims: Mapping[str, int]):
+        self.leaves = list(leaves)
+        self._held = {}
+        for leaf in self.leaves:
+            for i, k in enumerate(leaf.keys):
+                self._held[k] = leaf.held(i, ndims[k])
+        self.sharded = frozenset(k for leaf in self.leaves
+                                 if leaf.dim is not None for k in leaf.keys)
+
+    def holds(self, key: str) -> bool:
+        return self._held[key] is not None
+
+    def shard(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        return t[self._held[key]]
+
+    def block(self, key: str, p: torch.Tensor) -> Tuple:
+        """The whole-leaf slices of ``key``'s moment shard: the
+        parameter block's (``p.block``) narrowed as ``shard`` narrows."""
+        out = []
+        for part, cut, size in zip(p.block, self._held[key], p.shape):
+            lo, hi, _ = cut.indices(size)
+            out.append(part[lo:hi] if not isinstance(part, slice)
+                       else slice(part.start + lo, part.start + hi))
+        return tuple(out)
+
+
+def zero1_layout(model, cfg: AdamConfig, zero1: bool = True
+                 ) -> Optional[Zero1Layout]:
+    """The rank's ZeRO-1 layout of ``model`` (built with ``ranks``, a
+    ``ProcessMesh`` whose ``data`` axis is over 1), or ``None`` (one
+    process, or a ``data`` axis of 1: whole moments).  Each leaf's
+    moment spec is ``opt_state_specs``' of the stacked leaf (the whole
+    leaf's shape); ``zero1=False`` keeps every moment whole (its
+    gradient all-reduced over ``data``)."""
+    ranks = getattr(model, "ranks", None)
+    if ranks is None or ranks.shape.get("data", 1) == 1:
+        return None
+    data, at = ranks.shape["data"], ranks.axis_index("data")
+    params = dict(model.named_parameters())
+    shapes = convert.nest_layers(
+        {k: _Shape(getattr(p, "whole_shape", p.shape))
+         for k, p in params.items()},
+        stack=lambda layers: _Shape((len(layers),) + layers[0].shape))
+    specs = opt_state_specs(model.param_specs(), shapes, cfg, data,
+                            zero1)["m"]
+    groups: Dict[Tuple[str, ...], list] = {}
+    for k in params:
+        parts = k.split(".")
+        path = ((parts[0],) + tuple(parts[2:])
+                if parts[0] in convert.STACKED else tuple(parts))
+        groups.setdefault(path, []).append(k)
+    leaves = []
+    for path, keys in groups.items():
+        stacked = path[0] in convert.STACKED
+        if stacked:
+            keys.sort(key=lambda k: int(k.split(".")[1]))
+        dim = _data_dim(_node(specs, path))
+        size = _node(shapes, path).shape[dim] if dim is not None else 0
+        lo, hi = at * size // data, (at + 1) * size // data
+        leaves.append(Zero1Leaf(".".join(path), tuple(keys), stacked, dim,
+                                lo, hi))
+    return Zero1Layout(leaves, {k: p.dim() for k, p in params.items()})

@@ -21,9 +21,29 @@ local).  The replicated leaves applied to the rank's own heads
 over ``model`` in float32 once a step (one all-reduce of them all),
 and the global norm is taken over the ``model`` line
 (``optimizer.global_norm``).
+
+On ranks whose ``data`` axis is over 1 (a ``dense`` model built with
+the whole ``(data, model)`` ``ProcessMesh``) each rank runs what one
+device of the data-parallel mesh runs.  Every rank is handed the whole
+global batch, and takes of each microbatch ``[i * per, (i + 1) * per)``
+its data coordinate's ``per / data`` rows (the reference's ``reshape``
+into microbatches, each batch-split over ``data``).  After the backward
+and the qk norms' sum, each leaf of the reference's tree (a stacked
+group's layers together: one collective a leaf, not a layer) is reduced
+over ``data`` in float32 and scaled to the global mean: reduce-scattered
+to the rank's ZeRO-1 shard of its moments (``optimizer.zero1_layout``),
+or all-reduced where its moments are whole (``cfg.zero1`` off, or no
+dimension ZeRO-1 can split).  Adam updates the shards, the norm sums
+them over the grid, and each split leaf's new parameter is all-gathered
+over ``data`` into the rank's block, in place.  The loss is the global
+batch's mean on every rank (one float32 all-reduce over ``data``).  A
+rank whose backward or shard update fails makes every rank raise
+(``collectives.agree_or_raise``) before any rank enters the next
+exchange over ``data``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Mapping
 
 import torch
@@ -32,7 +52,7 @@ from ..core import collectives as coll
 from ..distributed_lm.sharding import leaf_spec, spec_axes
 from ..models.common import ArchConfig
 from ..models.layers import partial_grad
-from .optimizer import AdamConfig, adam_update
+from .optimizer import AdamConfig, adam_update, zero1_layout
 
 __all__ = ["make_train_step", "make_eval_step", "model_params"]
 
@@ -59,10 +79,10 @@ def _check_params(model, params: Mapping[str, torch.Tensor]) -> None:
 
 def _rank_split(model, cfg: ArchConfig, opt_cfg: AdamConfig):
     """The rank's ``ProcessMesh`` where ``model`` is a rank's share of a
-    tensor-parallel model (its ``model`` axis over 1), else ``None``;
-    raises where that step is not ported."""
+    tensor- or data-parallel model (its ``model`` or ``data`` axis over
+    1), else ``None``; raises where that step is not ported."""
     ranks = getattr(model, "ranks", None)
-    if ranks is None or ranks.shape.get("model", 1) == 1:
+    if ranks is None or math.prod(ranks.dims) == 1:
         return None
     if cfg.family != "dense":
         raise NotImplementedError(
@@ -88,6 +108,50 @@ def _sum_partial_grads(grads: Dict[str, torch.Tensor], keys, ranks) -> None:
         at += n
 
 
+def _reduce_over_data(grads: Dict[str, torch.Tensor], layout, ranks
+                      ) -> None:
+    """Each leaf's gradient (float32, the rank's local mean) replaced in
+    place by the global mean over ``data``: its ZeRO-1 shard (one
+    reduce-scatter a leaf of the reference's tree), or whole (one
+    all-reduce) where its moments are; a stacked group's layers cross
+    as one ``[L, ...]`` tensor.  The keys of layers whose moments the
+    rank does not hold are dropped."""
+    n = ranks.shape["data"]
+    for leaf in layout.leaves:
+        parts = [grads[k].float() for k in leaf.keys]
+        g = torch.stack(parts) if leaf.stacked else parts[0]
+        if leaf.dim is None:
+            g = coll.all_reduce_sum(g, ranks, "data").div_(n)
+            for i, k in enumerate(leaf.keys):
+                grads[k] = g[i] if leaf.stacked else g
+            continue
+        shard = coll.reduce_scatter_sum(g, ranks, "data", leaf.dim).div_(n)
+        for i, k in enumerate(leaf.keys):
+            if not layout.holds(k):
+                del grads[k]
+            elif not leaf.stacked:
+                grads[k] = shard
+            else:
+                grads[k] = shard[i - leaf.lo if leaf.dim == 0 else i]
+
+
+@torch.no_grad()
+def _gather_over_data(params: Dict[str, torch.Tensor], layout,
+                      ranks) -> None:
+    """Each split leaf's new parameter (the rank's shard, written by the
+    update) all-gathered over ``data`` into the rank's block, in place:
+    one all-gather a leaf of the reference's tree."""
+    for leaf in layout.leaves:
+        if leaf.dim is None:
+            continue
+        mine = [layout.shard(k, params[k]) for k in leaf.keys
+                if layout.holds(k)]
+        block = torch.stack(mine) if leaf.stacked else mine[0]
+        whole = coll.all_gather_panel(block, ranks, "data", leaf.dim)
+        for i, k in enumerate(leaf.keys):
+            params[k].copy_(whole[i] if leaf.stacked else whole)
+
+
 def make_train_step(model, cfg: ArchConfig, opt_cfg: AdamConfig
                     ) -> Callable:
     """-> ``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -95,9 +159,15 @@ def make_train_step(model, cfg: ArchConfig, opt_cfg: AdamConfig
     and B must divide by ``cfg.microbatch``; ``metrics`` holds ``loss``,
     ``grad_norm`` and ``lr`` as 0-d float32 tensors.  On ranks (module
     docstring) every rank passes the same batch and gets the same
-    metrics."""
+    metrics; on a ``data`` axis over 1 each microbatch's rows must split
+    over it, and ``opt_state`` must be ``adam_init(params, opt_cfg,
+    zero1_layout(model, opt_cfg, cfg.zero1))``."""
     nm = max(cfg.microbatch, 1)
     ranks = _rank_split(model, cfg, opt_cfg)
+    # the data-parallel step's shards: None where no data axis splits
+    layout = zero1_layout(model, opt_cfg, cfg.zero1)
+    n_data = ranks.shape["data"] if layout is not None else 1
+    at = ranks.axis_index("data") if layout is not None else 0
     replicated, partial = set(), []
     if ranks is not None:
         specs = model.param_specs()
@@ -117,25 +187,57 @@ def make_train_step(model, cfg: ArchConfig, opt_cfg: AdamConfig
             raise ValueError(f"batch {b} does not split into {nm} "
                              f"microbatches")
         per = b // nm
+        if per % n_data:
+            raise ValueError(f"a microbatch of {per} rows does not split "
+                             f"over the data axis of {n_data}")
+        if layout is not None and set(opt_state["m"]) != {
+                k for k in params if layout.holds(k)}:
+            raise ValueError("opt_state is not this rank's ZeRO-1 shard: "
+                             "adam_init(params, cfg, zero1_layout(model, "
+                             "cfg, zero1))")
+        rows = per // n_data
         for p in params.values():
             p.grad = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-        with torch.enable_grad():
-            for i in range(nm):
-                mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-                loss = model.loss(mb)
-                loss.backward()
-                loss_sum += loss.detach().float()
+        error = None
+        try:
+            with torch.enable_grad():
+                for i in range(nm):
+                    lo = i * per + at * rows
+                    mb = {k: v[lo:lo + rows] for k, v in batch.items()}
+                    loss = model.loss(mb)
+                    loss.backward()
+                    loss_sum += loss.detach().float()
+        except Exception as exc:         # every rank must hear of it
+            if layout is None:
+                raise
+            error = exc
+        if layout is not None:
+            coll.agree_or_raise(ranks, "the backward", error)
         grads = {k: (p.grad.div_(nm) if p.grad is not None
                      else torch.zeros_like(p, dtype=torch.float32))
                  for k, p in params.items()}
+        loss = loss_sum / nm
         if ranks is not None:
             _sum_partial_grads(grads, partial, ranks)
-        params, opt_state, metrics = adam_update(params, grads, opt_state,
-                                                 opt_cfg, ranks, replicated)
+        if layout is not None:
+            loss = coll.all_reduce_sum(loss.reshape(1), ranks,
+                                       "data")[0] / n_data
+            _reduce_over_data(grads, layout, ranks)
+        error = None
+        try:
+            params, opt_state, metrics = adam_update(
+                params, grads, opt_state, opt_cfg, ranks, replicated, layout)
+        except Exception as exc:         # every rank must hear of it
+            if layout is None:
+                raise
+            error = exc
+        if layout is not None:
+            coll.agree_or_raise(ranks, "the ZeRO-1 shard update", error)
+            _gather_over_data(params, layout, ranks)
         for p in params.values():
             p.grad = None
-        return params, opt_state, dict(metrics, loss=loss_sum / nm)
+        return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
 

@@ -230,9 +230,10 @@ def _hand_counted(kind):
         status = 2 * 4                 # a float32 word beside each backward
         # embed; loss stats; input grad and its status word
         head = [t * d * a, 3 * t * 4, ar + 4]
-        # once a step over model: the qk norms' partial gradients ([L, 16]
-        # each), the global norm's one value
-        step = [2 * layers * 16 * 4, 4]
+        # once a step: the qk norms' partial gradients ([L, 16] each) over
+        # model, the global norm's one value over the grid, the loss's
+        # one value over data
+        step = [2 * layers * 16 * 4, 4, 4]
         # every leaf is ZeRO-1-split over data: reduce-scatter to its
         # moment's float32 shard, all-gather of its own float32 shard
         # (embed, ln_f, ln1, wq, wk, wv, wo, q_norm, k_norm, ln2, gate,
@@ -242,12 +243,12 @@ def _hand_counted(kind):
         rs = [4 * n for n in rs]
         ag = [2 * n for n in rs]
         flat = _tally(all_reduce=(body * ar + status + sum(head)
-                                  + sum(step), body + 5 + 2),
+                                  + sum(step), body + 5 + 3),
                       reduce_scatter=(sum(rs), 14),
                       all_gather=(sum(ag), 14))
         executed = _tally(all_reduce=(layers * (body * ar + status)
                                       + sum(head) + sum(step),
-                                      layers * body + 5 + 2),
+                                      layers * body + 5 + 3),
                           reduce_scatter=(sum(rs), 14),
                           all_gather=(sum(ag), 14))
         return flat, executed
@@ -346,7 +347,7 @@ def test_microbatches_and_layers_multiply_the_executed_count():
     (a quarter of the tokens each) and run 4 times, but for the status
     word beside each backward sum (one a row-split dense and the head's,
     4 bytes whatever the tokens); the gradient reduction and the step's
-    two terms over ``model`` (the qk norms' gradients, the norm) run
+    three terms (the qk norms' gradients, the norm, the loss) run
     once."""
     over = dict(_overrides("qwen3-1.7b"), microbatch=4)
     one = dryrun.lower_cell("qwen3-1.7b", "train_4k", mesh_shape=(2, 2),
@@ -360,12 +361,12 @@ def test_microbatches_and_layers_multiply_the_executed_count():
     layers, status = 2, 4
     flat_status = (2 + 1) * status            # one layer and the head
     executed_status = (2 * layers + 1) * status
-    step = 2 * layers * 16 * 4 + 4            # the qk norms; the norm
+    step = 2 * layers * 16 * 4 + 4 + 4        # qk norms; norm; loss
     ar1 = one["collective_executed"]["bytes"]["all-reduce"]
     ar4 = four["collective_executed"]["bytes"]["all-reduce"]
     assert ar4 - 4 * executed_status == ar1 - executed_status
-    assert four["collective_executed"]["counts"]["all-reduce"] - 2 == \
-        4 * (one["collective_executed"]["counts"]["all-reduce"] - 2)
+    assert four["collective_executed"]["counts"]["all-reduce"] - 3 == \
+        4 * (one["collective_executed"]["counts"]["all-reduce"] - 3)
     assert (four["collective"]["bytes"]["all-reduce"] - flat_status
             - step) * 4 == \
         one["collective"]["bytes"]["all-reduce"] - flat_status - step
@@ -522,7 +523,7 @@ _SMOKE = get_smoke_config("qwen3-1.7b")
     ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4, vocab=250),
      "prefill", "does not divide vocab 250"),
     ((8, 2), (2, 2), _SMOKE, "train",
-     "the gradient reduction and ZeRO-1 over data on ranks"),
+     "the ranks' data axis 2 is below the cell's 8 batch blocks"),
     ((8, 2), (2, 2), dataclasses.replace(
         get_smoke_config("qwen2-moe-a2.7b"), moe_capacity=True), "decode",
      "capacity dispatch (moe_capacity) on ranks"),
@@ -568,7 +569,7 @@ _SMOKE = get_smoke_config("qwen3-1.7b")
     ((1, 4), (1, 4), get_smoke_config("falcon-mamba-7b"), "train",
      "training a 'ssm' model on ranks"),
     ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4), "train",
-     "the batch split over 8 blocks"),
+     "the ranks' data axis 1 is below the cell's 8 batch blocks"),
     ((1, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4,
                                          opt_8bit=True), "train",
      "8-bit Adam moments on ranks"),
@@ -590,16 +591,54 @@ def test_the_run_rule_says_why_a_cell_cannot_run_on_ranks(case):
 
 
 def test_training_on_ranks_names_the_item_that_ports_it():
-    """A data axis over 1 names the gradient reduction's item (5b-2),
-    another family's training the item of its backwards (5b-3)."""
-    mesh = dryrun.make_mesh((8, 2), ("data", "model"), device="cpu")
-    assert "(ROADMAP.md, A10d-5b-2)" in dryrun._run_rule(
-        mesh, _SMOKE, SMALL["train"], _Ranks((2, 2)))
+    """A data axis over 1 runs (the gradient reduction and ZeRO-1 over
+    data, 5b-2, are ported); another family's training names the item
+    of its backwards (5b-3)."""
+    mesh = dryrun.make_mesh((2, 2), ("data", "model"), device="cpu")
+    assert dryrun._run_rule(mesh, _SMOKE, SMALL["train"],
+                            _Ranks((2, 2))) is None
     line = dryrun.make_mesh((1, 4), ("data", "model"), device="cpu")
     for arch in ("qwen2-moe-a2.7b", "falcon-mamba-7b",
                  "llava-next-mistral-7b", "whisper-large-v3"):
         assert "(ROADMAP.md, A10d-5b-3)" in dryrun._run_rule(
             line, get_smoke_config(arch), SMALL["train"], _Ranks((1, 4)))
+
+
+def test_the_run_rule_takes_a_dense_train_cell_on_a_2x2_grid():
+    """A dense train cell whose batch blocks are the ranks' data axis
+    runs on a 2 x 2 grid, with ZeRO-1 and without, and on a (2, 1) grid
+    that splits the batch alone; the same cell on a mesh with more batch
+    blocks than the ranks' data axis does not."""
+    grid = dryrun.make_mesh((2, 2), ("data", "model"), device="cpu")
+    for cfg in (_SMOKE, dataclasses.replace(_SMOKE, zero1=False)):
+        assert dryrun._run_rule(grid, cfg, SMALL["train"],
+                                _Ranks((2, 2))) is None
+    rows = dryrun.make_mesh((2, 1), ("data", "model"), device="cpu")
+    assert dryrun._run_rule(rows, _SMOKE, SMALL["train"],
+                            _Ranks((2, 1))) is None
+    wide = dryrun.make_mesh((4, 2), ("data", "model"), device="cpu")
+    assert "is below the cell's 4 batch blocks" in dryrun._run_rule(
+        wide, _SMOKE, SMALL["train"], _Ranks((2, 2)))
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 2, 2), ("pod", "data", "model"), _SMOKE,
+     "a pod axis: the gradient's all-reduce over pod"),
+    ((2, 2), ("data", "model"), dataclasses.replace(_SMOKE, microbatch=8),
+     "a microbatch of 8 / 8 rows does not split over the data axis of 2"),
+    ((2, 2), ("data", "model"), dataclasses.replace(_SMOKE, opt_8bit=True),
+     "8-bit Adam moments on ranks"),
+    ((2, 2), ("data", "model"), get_smoke_config("qwen2-moe-a2.7b"),
+     "(ROADMAP.md, A10d-5b-3)")],
+    ids=["pod", "microbatch", "8bit", "moe"])
+def test_the_run_rule_refuses_a_2x2_train_cell_it_cannot_split(case):
+    """On a 2 x 2 grid a train cell still records why it cannot run: a
+    ``pod`` axis, microbatches whose rows do not split over ``data``,
+    8-bit moments, a family whose backwards are not ported."""
+    mesh_shape, axes, cfg, why = case
+    mesh = dryrun.make_mesh(mesh_shape, axes, device="cpu")
+    assert why in dryrun._run_rule(mesh, cfg, SMALL["train"],
+                                   _Ranks((2, 2)))
 
 
 def test_the_run_rule_takes_a_dense_train_cell_on_one_model_line():
@@ -620,8 +659,10 @@ def test_the_train_step_terms_appear_only_where_model_is_split(mesh_shape):
     without ``qk_norm``) and one of the global norm's single value,
     where ``model`` is split (``(1, 4)``: a layer's six row-split sums,
     the embedding's, the loss's three statistics and the head's input
-    gradient besides); on a ``model`` axis of 1 neither (``(4, 1)``: the
-    gradient reduction over ``data`` reduce-scatters every leaf)."""
+    gradient besides); on a ``model`` axis of 1 neither over ``model``
+    (``(4, 1)``: the gradient reduction over ``data`` reduce-scatters
+    every leaf, so the norm's value and the loss's cross ``data``, 4
+    bytes each; ``(1, 1)``: nothing)."""
     def all_reduces(qk_norm):
         over = dict(_overrides("qwen3-1.7b"), n_kv_heads=4, qk_norm=qk_norm)
         rec = dryrun.lower_cell("qwen3-1.7b", SMALL["train"],
@@ -633,8 +674,9 @@ def test_the_train_step_terms_appear_only_where_model_is_split(mesh_shape):
                                                         all_reduces(False))
     layers, hd = _SMOKE.n_layers, _SMOKE.hd
     if mesh_shape[1] == 1:
-        assert with_qk == without == 0
-        assert with_bytes == without_bytes == 0
+        over_data = 2 if mesh_shape[0] > 1 else 0
+        assert with_qk == without == over_data
+        assert with_bytes == without_bytes == 4 * over_data
         return
     assert without == 6 * layers + 1 + 3 + 1 + 1
     assert with_qk == without + 1

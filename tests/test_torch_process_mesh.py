@@ -1694,7 +1694,7 @@ def test_a_rank_train_run_counts_the_closed_forms_collectives(worlds):
             f"all {n} parameters changed",
             f"{4 * layers_ + 1} replicated parameters equal on every rank "
             f"of a model line",
-            "loss and grad_norm equal on every rank of a model line",
+            "loss and grad_norm equal on every rank",
             f"{6 * layers_ + 7} all-reduced tensors equal on every rank of "
             f"a model line",
             "collectives equal to the closed form's"]
@@ -1730,6 +1730,250 @@ def test_a_cut_backward_fails_the_gradient_check_on_every_rank(worlds):
                   "blocks.0.attn.q_norm.scale", "blocks.1.ln1.scale"):
             assert k in msg
         assert "zero everywhere before the update" in msg
+
+
+# ---------------------------------------------------------------------------
+# training with the batch split over data: ZeRO-1 on u.LM_ZERO1_KEY's 2 x 2
+# ---------------------------------------------------------------------------
+
+_ZERO1_IDS = [f"{d}-{'zero1' if z else 'whole'}" for d, z in u.LM_ZERO1_CASES]
+_ZERO1_GRID = (2, 2)
+
+
+def _zero1_model():
+    from repro_torch.models import build_model
+    return build_model(u.lm_zero1_config(port_configs, "float32"),
+                       device="meta")
+
+
+def _shard_of(whole, block):
+    """``whole``'s entries at ``block`` (``[lo, hi)`` a dimension)."""
+    return whole[tuple(slice(lo, hi) for lo, hi in block)]
+
+
+def _data_partner(rank):
+    """The other rank of ``rank``'s data line on the 2 x 2 grid."""
+    d, m = _coords(rank, _ZERO1_GRID)
+    return (1 - d) * _ZERO1_GRID[1] + m
+
+
+@pytest.mark.parametrize("axis", u.AXES)
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduce_scatter_sums_in_float32_and_keeps_the_rank_block(
+        worlds, axis, dim, dtype):
+    """``reduce_scatter_sum`` over each axis of the 2 x 2 grid along each
+    dimension: the float32 sum of the line's inputs (bf16 inputs summed
+    in float32), of which each rank keeps the block at its coordinate;
+    counted as one ``reduce-scatter`` of the result's bytes, nothing
+    else."""
+    tag = f"rs/{axis}/{dim}/{dtype}"
+    k = u.AXES.index(axis)
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        coords = _coords(rank, _ZERO1_GRID)
+        line = [r for r in range(WORLD) if all(
+            c == o for i, (c, o) in enumerate(zip(_coords(r, _ZERO1_GRID),
+                                                  coords)) if i != k)]
+        total = sum(u.rs_input(r).astype(np.float64) for r in line)
+        size = u.RS_SHAPE[dim] // 2
+        want = np.take(total, range(coords[k] * size,
+                                    (coords[k] + 1) * size), axis=dim)
+        got = arrays[tag]
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, want.astype(np.float32))
+        rec = scalars[tag]
+        assert rec["dtype"] == "torch.float32"
+        assert rec["counts"] == dict(dict.fromkeys(coll.KINDS, 0),
+                                     **{"reduce-scatter": 1})
+        assert rec["bytes"]["reduce-scatter"] == got.nbytes
+        assert rec["total_bytes"] == got.nbytes
+
+
+def test_reduce_scatter_limits_and_the_whole_grid_sum(worlds):
+    """On an axis of size 1 ``reduce_scatter_sum`` is the float32 input
+    itself; a dimension the line does not divide raises before any
+    exchange; ``all_reduce_sum(t, mesh, None)`` sums over all four ranks
+    as one counted all-reduce."""
+    total = sum(u.rs_input(r) for r in range(WORLD))
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        assert scalars["rs/size1"] is True
+        kind, msg = scalars["rs/indivisible"]
+        assert kind == "ValueError" and "does not split into 2" in msg
+        np.testing.assert_array_equal(arrays["rs/world_sum"], total)
+        assert scalars["rs/world_sum"]["counts"]["all-reduce"] == 1
+        assert scalars["rs/world_sum"]["total_bytes"] == total.nbytes
+
+
+@pytest.mark.parametrize("dtype,zero1", u.LM_ZERO1_CASES, ids=_ZERO1_IDS)
+def test_zero1_gradient_shards_equal_the_unsharded_reference(worlds, dtype,
+                                                             zero1):
+    """Each rank's gradients as the step hands them to ``adam_update``
+    (reduced over ``data`` to the global batch's mean: with ZeRO-1 the
+    reduce-scattered shard of its moments, else the all-reduced block)
+    against ``jax.grad`` of the reference's unsharded ``model.loss`` over
+    the whole batch, cut to the same block of the whole leaf, at 1e-4 in
+    float32 and ``_BF16_TOL`` in bf16."""
+    ref, _ = worlds["reference"]
+    want_tag, tag = u.zero1_tag(dtype, True), u.zero1_tag(dtype, zero1)
+    tol = _LM_TOL[dtype]
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        blocks = scalars[f"{tag}/blocks"]
+        assert blocks
+        for k, block in blocks.items():
+            np.testing.assert_allclose(
+                arrays[f"{tag}/grad/{k}"],
+                _shard_of(ref[f"{want_tag}/grad/{k}"], block),
+                err_msg=f"rank {rank} {k}", **tol)
+
+
+@pytest.mark.parametrize("dtype,zero1", u.LM_ZERO1_CASES, ids=_ZERO1_IDS)
+def test_a_zero1_train_step_equals_the_unsharded_reference(worlds, dtype,
+                                                           zero1):
+    """One microbatched step from zero moments on the 2 x 2 grid against
+    the reference's ``make_train_step`` on the whole batch: the loss and
+    the gradient norm on every rank, the count, each rank's blocks of
+    the new parameters and its shards of ``m`` and ``v`` (the reference's
+    whole moments cut to the shard's block), at 1e-4 in float32 and
+    ``_BF16_TOL`` in bf16; the parameter blocks byte-equal along each
+    ``data`` line."""
+    from repro_torch.convert import lm_rank_state_dict_from_params, \
+        nest_layers
+    ref, _ = worlds["reference"]
+    want_tag, tag = u.zero1_tag(dtype, True), u.zero1_tag(dtype, zero1)
+    specs = _zero1_model().param_specs()
+    tol = _LM_TOL[dtype]
+    ref_params = nest_layers({k: ref[f"{want_tag}/params/{k}"] for k in
+                              _train_keys(ref, want_tag, "params")})
+    ranks = worlds["ranks"]
+    for rank, (arrays, scalars) in enumerate(ranks):
+        assert int(arrays[f"{tag}/count"]) == int(ref[f"{want_tag}/count"]) \
+            == 1
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(arrays[f"{tag}/{k}"],
+                                       ref[f"{want_tag}/{k}"],
+                                       err_msg=f"rank {rank} {k}", **tol)
+        want = lm_rank_state_dict_from_params(
+            ref_params, specs, _At(_ZERO1_GRID, _coords(rank, _ZERO1_GRID)))
+        assert sorted(want) == sorted(_train_keys(arrays, tag, "params"))
+        partner = ranks[_data_partner(rank)][0]
+        for k, w in want.items():
+            got = arrays[f"{tag}/params/{k}"]
+            np.testing.assert_allclose(got, w.numpy(),
+                                       err_msg=f"rank {rank} {k}", **tol)
+            assert np.array_equal(got, partner[f"{tag}/params/{k}"]), \
+                (rank, k)
+        for k, block in scalars[f"{tag}/blocks"].items():
+            for mom in ("m", "v"):
+                np.testing.assert_allclose(
+                    arrays[f"{tag}/{mom}/{k}"],
+                    _shard_of(ref[f"{want_tag}/{mom}/{k}"], block),
+                    err_msg=f"rank {rank} {mom} {k}", **tol)
+
+
+@pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "whole"])
+def test_a_rank_holds_its_zero1_shard_of_the_moments_and_nothing_else(
+        worlds, zero1):
+    """With ZeRO-1 on 2 x 2 every leaf's moments split over ``data`` on
+    its layer axis (stacked layers) or another free dimension: a rank
+    holds the moments of its data coordinate's layer and the shards of
+    the embedding, the final norm and the head, and its moment bytes are
+    the closed form's shard (``dryrun.step_arguments``' Adam records),
+    half its parameter block's; with ``zero1`` off, its whole block."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    cfg = u.lm_zero1_config(port_configs, "float32", zero1)
+    model = _zero1_model()
+    args = dryrun.step_arguments(
+        cfg, ShapeCell("train_4k", u.LM_RUN_SEQ, u.LM_BATCH, "train"),
+        dryrun.make_mesh(_ZERO1_GRID, u.AXES, device="cpu"), model)
+    shard_bytes = dryrun._tree_bytes(args["opt_state"]["m"])
+    tag = u.zero1_tag("float32", zero1)
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        held = sorted(scalars[f"{tag}/blocks"])
+        param_bytes = sum(arrays[f"{tag}/params/{k}"].nbytes
+                          for k in _train_keys(arrays, tag, "params"))
+        m_bytes = sum(arrays[f"{tag}/m/{k}"].nbytes for k in held)
+        if not zero1:
+            assert held == sorted(_train_keys(arrays, tag, "params"))
+            assert m_bytes == param_bytes
+            continue
+        layer = _coords(rank, _ZERO1_GRID)[0]
+        assert {k.split(".")[1] for k in held
+                if k.startswith("blocks.")} == {str(layer)}
+        assert {k for k in held if not k.startswith("blocks.")} == {
+            "embed", "ln_f.scale", "lm_head.w"}
+        assert m_bytes == shard_bytes == param_bytes // 2
+
+
+@pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "whole"])
+def test_a_2x2_train_run_counts_the_closed_forms_collectives(worlds, zero1):
+    """``lower_cell(..., run=True, ranks=pm)`` of a train cell on the 2 x
+    2 grid: no ``run_reason``, two rows a data coordinate, every rank's
+    tally of one timed step equal to the closed form's
+    ``collective_executed``: each microbatch's all-reduces over
+    ``model`` (as on 1 x 4, for a data coordinate's rows), the qk norms'
+    gradients, the loss over ``data`` and the norm; with ZeRO-1 one
+    reduce-scatter and one all-gather a leaf of the reference's tree
+    (14), else one all-reduce a leaf; and the run's checks, on every
+    rank."""
+    from repro_torch.launch import dryrun
+    cfg = port_configs.get_smoke_config(u.LM_ARCH)
+    layers_, nm = cfg.n_layers, u.LM_TRAIN_MICROBATCH
+    leaves = 14
+    name = "lm_zero1_run" if zero1 else "lm_zero1_run_whole"
+    per_mb = 6 * layers_ + 5
+    for rank, (arrays, scalars) in enumerate(worlds["ranks"]):
+        run = scalars[name]
+        assert run["run_reason"] is None
+        assert run["run_batch"] == u.LM_BATCH // 2
+        want = run["collective_executed"]
+        assert dryrun.closed_form_mismatch(run["run_collective"], want,
+                                           _ZERO1_GRID) is None
+        assert all(c == want for c in run["run_collective"])
+        split = leaves if zero1 else 0
+        assert want["counts"] == dict(
+            dict.fromkeys(dryrun.COLLECTIVE_KINDS, 0),
+            **{"all-reduce": nm * per_mb + 3 + (leaves - split),
+               "reduce-scatter": split, "all-gather": split})
+        n = len(_train_keys(arrays, u.zero1_tag("float32", zero1),
+                            "params"))
+        model_sums = nm * per_mb + 1 + (0 if zero1 else 1)
+        assert run["run_checks"] == ([
+            "losses finite", "parameters finite",
+            f"all {n} gradients non-zero before the update",
+            f"all {n} parameters changed",
+            f"{4 * layers_ + 1} replicated parameters equal on every rank "
+            f"of a model line",
+            f"all {n} parameter blocks equal on every rank of a data line",
+            "loss and grad_norm equal on every rank",
+            f"{model_sums} all-reduced tensors equal on every rank of a "
+            f"model line",
+            f"{1 + (0 if zero1 else leaves)} all-reduced tensors equal on "
+            f"every rank of a data line"]
+            + (["1 all-reduced tensors equal on every rank"] if zero1
+               else [])
+            + ["collectives equal to the closed form's"])
+
+
+@pytest.mark.parametrize("where", ["shard update", "backward"])
+def test_a_rank_that_fails_in_a_zero1_step_makes_every_rank_raise(worlds,
+                                                                  where):
+    """Rank 1 fails in its shard update (after the norm, before the
+    all-gather over ``data``) or in its share of a backward sum (its
+    ``model`` line raises there, the other line after its backward):
+    every rank raises naming it, none left waiting in a collective."""
+    key = ("lm_zero1_failure" if where == "shard update"
+           else "lm_zero1_backward_failure")
+    what = ("the ZeRO-1 shard update" if where == "shard update"
+            else "the backward")
+    planted = ("the planted shard failure" if where == "shard update"
+               else "the planted backward failure")
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        kind, msg = scalars[key]
+        assert kind == "RuntimeError", (rank, msg)
+        assert f"{what} on ranks" in msg
+        assert f"rank {u.LM_FAILING_RANK} failed (RuntimeError: " in msg
+        assert planted in msg
 
 
 @pytest.mark.parametrize("route", ["all_gather_panel", "all_to_all_over",

@@ -168,6 +168,23 @@ LM_TRAIN_OPT = dict(lr=3e-3, total_steps=10, warmup_steps=2)
 # the rank processes whose share of the reference's runs takes the
 # unsharded training runs
 LM_TRAIN_REFERENCE_RANK = 3
+# training the dense LM with the batch split over data (ZeRO-1 on a 2 x
+# 2 grid): the LM_CASES case LM_ZERO1_KEY (its weights), LM_BATCH rows in
+# LM_TRAIN_MICROBATCH microbatches, so one row a data coordinate a
+# microbatch; each rank's reduce-scattered gradient shard and one step
+# in both compute dtypes with ZeRO-1 (and in float32 with zero1 off,
+# whole moments and the gradient all-reduced over data) against the
+# reference's unsharded jax.grad and make_train_step, whose runs the
+# rank process LM_ZERO1_REFERENCE_RANK takes; then lower_cell on a 2 x 2
+# train cell of LM_RUN_SEQ tokens (both routes), a rank whose shard
+# update fails and one whose share of a backward sum fails
+LM_ZERO1_KEY = "2x2"
+LM_ZERO1_CASES = (("float32", True), ("bfloat16", True), ("float32", False))
+LM_ZERO1_REFERENCE_RANK = 2
+# reduce_scatter_sum on ranks: rank r's input of RS_SHAPE is
+# rs_input(r) (scattered over each axis of the 2 x 2 grid along each
+# dimension, in float32 and bf16)
+RS_SHAPE = (4, 6)
 # the tokens a chunk of Whisper's head on ranks sums at a time in the rank
 # processes (models.whisper.HEAD_CHUNK_TOKENS): a prefill's 64 or 128
 # tokens a rank then cross in three or six pieces, the last shorter
@@ -454,6 +471,25 @@ def lm_train_config(module, dtype):
                                microbatch=LM_TRAIN_MICROBATCH)
 
 
+def lm_zero1_config(module, dtype, zero1=True):
+    """``module``'s (either package's ``configs``) config of the ZeRO-1
+    training case in ``dtype`` compute."""
+    import dataclasses
+    return dataclasses.replace(case_config(module, LM_ZERO1_KEY, dtype),
+                               microbatch=LM_TRAIN_MICROBATCH, zero1=zero1)
+
+
+def zero1_tag(dtype, zero1):
+    return f"lm_zero1/{dtype}" + ("" if zero1 else "/whole")
+
+
+def rs_input(rank):
+    """Rank ``rank``'s seeded float32 input of the reduce-scatter case
+    (bf16-exact values, so both dtypes sum the same numbers)."""
+    rng = np.random.default_rng(100 + rank)
+    return rng.integers(-64, 64, RS_SHAPE).astype(np.float32) / 8
+
+
 def lm_train_batch(cfg):
     """The training case's seeded ``{"tokens", "labels"}`` (int32
     ``[LM_BATCH, LM_SEQ]``, labels the next tokens)."""
@@ -520,6 +556,8 @@ def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
     _lm_reference_cases(reference, lm_reference_share(rank, world))
     if rank == LM_TRAIN_REFERENCE_RANK:
         _lm_train_reference(reference)
+    if rank == LM_ZERO1_REFERENCE_RANK:
+        _lm_zero1_reference(reference)
     np.savez(os.path.join(out_dir, f"reference-lm{rank}.npz"), **reference)
 
 
@@ -677,6 +715,7 @@ def _rank_cases(rank: int, out_dir: str):
     _store_rank_cases(api, mesh, rank, out_dir, arrays, scalars)
     _lm_rank_cases(mesh, rank, out_dir, arrays, scalars)
     _lm_train_rank_cases(mesh, rank, out_dir, arrays, scalars)
+    _lm_zero1_rank_cases(mesh, rank, out_dir, arrays, scalars)
 
     # -- the mesh's limits
     eng = api.build_engine(he, "sharded", mesh=pm, use_kernels=True)
@@ -1575,6 +1614,175 @@ def _lm_train_rank_cases(mesh, rank, out_dir, arrays, scalars):
         scalars["lm_train_cut"] = _error(run)
     finally:
         layers.sum_partials = sums
+
+
+def _lm_zero1_rank_cases(mesh, rank, out_dir, arrays, scalars):
+    """``reduce_scatter_sum`` over each axis of the 2 x 2 grid, and the
+    dense LM's training with the batch split over ``data`` (ZeRO-1 on
+    ``LM_ZERO1_KEY``'s 2 x 2 grid): each rank's gradient shard (the
+    gradients the step hands ``adam_update``) and one step from zero
+    moments for each of ``LM_ZERO1_CASES`` (its blocks of the new
+    parameters, its shards of ``m`` and ``v`` with their blocks of the
+    whole leaf, the loss, the norm and the count), the reference's
+    weights carried across; then ``lower_cell`` on a 2 x 2 train cell
+    with ZeRO-1 on and off, one whose rank 1 fails in its shard update
+    and one whose rank 1 fails in its share of a backward sum."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.convert import lm_rank_state_dict_from_params, \
+        nest_layers
+    from repro_torch.core import collectives
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import build_model
+    from repro_torch.models import layers
+    from repro_torch.train import optimizer
+    from repro_torch.train import train_step as train_step_mod
+    from repro_torch.train.optimizer import AdamConfig, adam_init, \
+        zero1_layout
+    from repro_torch.train.train_step import make_train_step, model_params
+
+    pm = mesh((2, 2))
+    # -- reduce_scatter_sum and the whole grid's all_reduce_sum
+    for axis in AXES:
+        for dim in (0, 1):
+            for dtype in ("float32", "bfloat16"):
+                t = torch.from_numpy(rs_input(rank)).to(
+                    getattr(torch, dtype))
+                pm.tally.reset()
+                out = collectives.reduce_scatter_sum(t, pm, axis, dim)
+                tag = f"rs/{axis}/{dim}/{dtype}"
+                arrays[tag] = out.numpy()
+                scalars[tag] = {"dtype": str(out.dtype),
+                                **pm.tally.record()}
+    one = mesh((4, 1))
+    t = torch.from_numpy(rs_input(rank))
+    out = collectives.reduce_scatter_sum(t, one, "model", 0)
+    scalars["rs/size1"] = bool(out is t)
+    scalars["rs/indivisible"] = _error(lambda: collectives.reduce_scatter_sum(
+        torch.zeros((3, 2)), pm, "data", 0))
+    pm.tally.reset()
+    arrays["rs/world_sum"] = collectives.all_reduce_sum(
+        torch.from_numpy(rs_input(rank)), pm, None).numpy()
+    scalars["rs/world_sum"] = pm.tally.record()
+
+    # -- the ZeRO-1 step against the reference's
+    arch = lm_case(LM_ZERO1_KEY)[0]
+    params = nest_layers(dict(np.load(os.path.join(
+        out_dir, f"lm-params-{LM_ZERO1_KEY}.npz"))))
+    opt = AdamConfig(**LM_TRAIN_OPT)
+    update = train_step_mod.adam_update
+    for dtype, zero1 in LM_ZERO1_CASES:
+        cfg = lm_zero1_config(configs, dtype, zero1)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in lm_train_batch(cfg).items()}
+        model = build_model(cfg, device="cpu", ranks=pm)
+        model.load_state_dict(lm_rank_state_dict_from_params(
+            params, model.param_specs(), pm))
+        mine = model_params(model)
+        layout = zero1_layout(model, opt, zero1)
+        seen = {}
+
+        def recording(p, grads, *args, **kwargs):
+            seen.update({k: g.clone() for k, g in grads.items()})
+            return update(p, grads, *args, **kwargs)
+        train_step_mod.adam_update = recording
+        try:
+            got, state, metrics = make_train_step(model, cfg, opt)(
+                mine, adam_init(mine, opt, layout), batch)
+        finally:
+            train_step_mod.adam_update = update
+        tag = zero1_tag(dtype, zero1)
+        for k in ("loss", "grad_norm"):
+            arrays[f"{tag}/{k}"] = metrics[k].numpy()
+        arrays[f"{tag}/count"] = state["count"].numpy()
+        for k, p in got.items():
+            arrays[f"{tag}/params/{k}"] = p.detach().numpy()
+        blocks = {}
+        for k, g in seen.items():
+            arrays[f"{tag}/grad/{k}"] = g.numpy()
+            for mom in ("m", "v"):
+                arrays[f"{tag}/{mom}/{k}"] = state[mom][k].numpy()
+            blocks[k] = [[s.start, s.stop] for s in
+                         layout.block(k, mine[k])]
+        scalars[f"{tag}/blocks"] = blocks
+
+    cell = ShapeCell("train_4k", LM_RUN_SEQ, LM_BATCH, "train")
+
+    def run(zero1=True):
+        return dryrun.lower_cell(
+            arch, cell, mesh_shape=(2, 2),
+            overrides=dict(case_overrides(LM_ZERO1_KEY),
+                           microbatch=LM_TRAIN_MICROBATCH, zero1=zero1),
+            device="cpu", run=True, ranks=pm, run_reps=1)
+    for name, zero1 in (("lm_zero1_run", True),
+                        ("lm_zero1_run_whole", False)):
+        rec = run(zero1)
+        scalars[name] = {k: rec.get(k) for k in (
+            "run_reason", "run_batch", "run_checks", "run_collective",
+            "collective_executed", "collective", "run_s")}
+
+    # rank 1's shard update fails: every rank raises before the gather
+    leaf = optimizer._update_leaf
+
+    def failing_update(*args):
+        raise RuntimeError("the planted shard failure")
+    if rank == LM_FAILING_RANK:
+        optimizer._update_leaf = failing_update
+    try:
+        scalars["lm_zero1_failure"] = _error(run)
+    finally:
+        optimizer._update_leaf = leaf
+
+    # rank 1's share of a backward sum fails: its model line raises
+    # there, and the other line with it before the reduction over data
+    part = layers._rank_part
+
+    def failing_part(g):
+        raise RuntimeError("the planted backward failure")
+    if rank == LM_FAILING_RANK:
+        layers._rank_part = failing_part
+    try:
+        scalars["lm_zero1_backward_failure"] = _error(run)
+    finally:
+        layers._rank_part = part
+
+
+def _lm_zero1_reference(arrays):
+    """``_lm_zero1_rank_cases``' runs on the reference's unsharded model
+    (``LM_ZERO1_KEY``'s config; ``zero1`` changes no value of an
+    unsharded step): ``jax.value_and_grad`` of ``model.loss`` and one
+    ``make_train_step`` from ``adam_init`` in both compute dtypes, every
+    leaf flat by ``convert.lm_layers_from_params``' keys."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as ref_configs
+    from repro.models import build_model
+    from repro.train import optimizer as ref_opt
+    from repro.train.train_step import make_train_step
+    from repro_torch.convert import lm_layers_from_params
+
+    def flat(tree):
+        return lm_layers_from_params(jax.tree.map(np.asarray, tree))
+    for dtype in LM_DTYPES:
+        cfg = lm_zero1_config(ref_configs, dtype)
+        model = build_model(cfg)
+        params = model.init(jax.random.PRNGKey(0))
+        batch = {k: jnp.asarray(v) for k, v in lm_train_batch(cfg).items()}
+        tag = zero1_tag(dtype, True)
+        _, grads = jax.jit(jax.value_and_grad(model.loss))(params, batch)
+        for k, v in flat(grads).items():
+            arrays[f"{tag}/grad/{k}"] = v
+        opt = ref_opt.AdamConfig(**LM_TRAIN_OPT)
+        new, state, metrics = jax.jit(make_train_step(model, cfg, opt))(
+            params, ref_opt.adam_init(params, opt), batch)
+        for k in ("loss", "grad_norm"):
+            arrays[f"{tag}/{k}"] = np.asarray(metrics[k])
+        arrays[f"{tag}/count"] = np.asarray(state["count"])
+        for name, tree in (("params", new), ("m", state["m"]),
+                           ("v", state["v"])):
+            for k, v in flat(tree).items():
+                arrays[f"{tag}/{name}/{k}"] = v
 
 
 def _lm_train_reference(arrays):
