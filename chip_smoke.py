@@ -102,40 +102,42 @@ drives the port's two paths at full size through `repro_torch.api`:
   entries of each held to the plain version; then each of these kernels
   at the production shapes (m = 65,536) beside its bound and library
   call;
-* LM serving through `repro_torch.launch.serve`: `qwen3-1.7b` at its
-  full published config (28 layers, 2.03e9 parameters),
-  `qwen2-moe-a2.7b` at its published widths on 2 layers (60 experts,
-  top-4), and at their full published configs `falcon-mamba-7b` (64
-  Mamba blocks, 7.3e9 parameters), `recurrentgemma-2b` (8 x (rec, rec,
-  attn) + 2 rec, window 2,048) and `whisper-large-v3` (32 + 32 layers,
-  seeded frames `[4, 1,500, 1,280]` encoded into the cross K/V first);
+* LM serving through `repro_torch.launch.serve`, every model at its
+  published widths with its depth cut: `qwen3-1.7b` on 4 of its 28
+  layers, `qwen2-moe-a2.7b` on 2 of 24 (60 experts, top-4),
+  `falcon-mamba-7b` on 8 of its 64 Mamba blocks, `recurrentgemma-2b` on
+  one (rec, rec, attn) group + 2 rec of its 8 groups (window 2,048) and
+  `whisper-large-v3` on 4 + 4 of its 32 + 32 layers (seeded frames `[4,
+  1,500, 1,280]` encoded into the cross K/V first);
   random seeded weights on the card, 4 prompts of 16 tokens prefilled
   through the cache and 8 greedy tokens, each held to its own forward
   by the reference's teacher-forced decode check;
 * LM training through `repro_torch.launch.train.run_training`:
-  `qwen3-1.7b` at its full published config (batch 8, sequence 256, the
-  config's 4 microbatches, `SyntheticStream` seed 0, 10 AdamW steps with
-  a checkpoint at the end), the loss held to fall; then the restart check
-  at the same widths on 2 layers under deterministic algorithms: 10 steps
-  with a checkpoint at 5, a fresh model resumed from it, the parameters
-  held to the uninterrupted run's at rtol 1e-5, atol 1e-6;
+  `qwen3-1.7b` at its published widths on 4 of its 28 layers (batch 8,
+  sequence 256, the config's 4 microbatches, `SyntheticStream` seed 0,
+  10 AdamW steps with a checkpoint at the end), the loss held to fall;
+  then the restart check at the same widths on 2 layers under
+  deterministic algorithms: 10 steps with a checkpoint at 5, a fresh
+  model resumed from it, the parameters held to the uninterrupted run's
+  at rtol 1e-5, atol 1e-6;
 * the LM dry-run (`repro_torch.launch.dryrun.main`, in process): all 80
   (arch x shape x mesh) records under `build/dryrun_lm` (64 priced, 16
   skipped), the roofline of both meshes at H100 rates, then one card's
-  share of three `qwen3-1.7b` cells at its full published config run
-  through the port's own steps: `train_4k` on a 64 x 1 mesh (4 x 4,096
-  tokens, 4 microbatches), `prefill_32k` on 32 x 1 cut to 1 x 2,048
-  tokens and `decode_32k` on 128 x 1 (one token over a 32,768-deep
-  cache), each
-  timed once after a warm-up beside its bound and checked; then the
+  share of three `qwen3-1.7b` cells at its published widths on 4 of its
+  28 layers run through the port's own steps: `train_4k` on a 64 x 1
+  mesh (4 x 2,048 tokens, 4 microbatches), `prefill_32k` on 32 x 1 cut
+  to 1 x 2,048 tokens and `decode_32k` on 128 x 1 (one token over a
+  32,768-deep cache), each timed once after a warm-up beside its bound
+  and checked; then the
   serving cells with the `model` axis split, on four spawned gloo ranks
   sharing the card as a (data, model) = (1, 4) `ProcessMesh`, or (2, 2)
   for a cell whose model axis is 2 (`lower_cell(..., ranks=pm)`: each
   rank its block of every parameter, of the cache and of the batch, the
   collectives over `model`): `decode_32k` on 128 x 4 and a prefill on 32
-  x 4 cut to 2,048 tokens, for `qwen3-1.7b`, for `qwen2-moe-a2.7b`'s
-  widths on 2 layers with FFN-split experts and with expert-parallel
-  ones (an all-to-all each way over `model`), for `falcon-mamba-7b` on 4
+  x 4 cut to 2,048 tokens, for `qwen3-1.7b` on 4 layers, for
+  `qwen2-moe-a2.7b`'s widths on 2 layers with FFN-split experts and with
+  expert-parallel ones (an all-to-all each way over `model`), for
+  `falcon-mamba-7b` on 4
   of its 64 layers and `whisper-large-v3` on 4 + 4 of its 32 + 32, for
   `recurrentgemma-2b` on one (rec, rec, attn) group and the two-rec
   tail on 128 x 2 and 32 x 2, and `llava-next-mistral-7b`'s prefill on 4
@@ -158,7 +160,14 @@ drives the port's two paths at full size through `repro_torch.api`:
   reduce-scattered over `data` to each rank's ZeRO-1 shard of the
   moments, the new parameters all-gathered, held as above and with every
   parameter block equal along its data line and the ranks' first-moment
-  shards covering the one-process sample.
+  shards covering the one-process sample; then the MoE and VLM
+  families' training step on (1, 4) ranks (`train_4k`, 4 rows of 2,048
+  tokens, one a microbatch, 2 layers, in float32 and bf16):
+  `qwen2-moe-a2.7b`'s widths with FFN-split experts (their tokens' and
+  gates' gradients summed where they enter) and with expert-parallel
+  ones (the all-to-alls run in reverse in the backward), and
+  `llava-next-mistral-7b`'s, each held as the dense step is (the two
+  expert layouts to one one-process step).
 
 The host-only references (the MST oracle of walmart-trips,
 primary-school and email-Eu; email-Eu's ETE and threshold-component
@@ -214,6 +223,7 @@ float32 products run in full float32: TF32 is switched off and checked.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import json
@@ -283,9 +293,11 @@ MEDIUM_OVERLAP = (2048, 512)
 MEDIUM_THRESHOLD = (5, 2048)
 # the request service's traffic on the main path: MR and s-reach requests
 # (s in 1..8), three tenants of weights 1 / 2 / 4, mixed priorities;
-# admission at ServiceConfig()'s max_batch, then a 16x larger one
-SERVICE_MR_REQUESTS = 65_536
-SERVICE_SREACH_REQUESTS = 16_384
+# admission at ServiceConfig()'s max_batch, then a 16x larger one (the
+# traffic halved from 65,536 + 16,384 since the MoE and VLM train rank
+# cells came, for the script's time: the larger admits it in one batch)
+SERVICE_MR_REQUESTS = 32_768
+SERVICE_SREACH_REQUESTS = 8_192
 SERVICE_TENANTS = (("t1", 1.0), ("t2", 2.0), ("t4", 4.0))
 SERVICE_BATCHES = (4096, 65_536)
 TRICKLE_REQUESTS = 1000
@@ -305,15 +317,18 @@ ETE_PAIRS = 2**16
 # of up to 13 s)
 ONLINE_PAIRS = 2
 # the workload families on the main path's engine (workloads_path): top_s
-# of 64 seeded sources (k = 10); 16 mr_set of |U| = |V| = 256 (65,536
-# pairs); 16 mr_from_set of |U| = 64 to 4,096 targets; 8 witnesses on
-# pairs of distinct MR; s_reach_k on 256 pairs at s = their MR, k = 1..4;
-# s_distance on 64 pairs at s = 2
+# of 64 seeded sources (k = 10); 8 mr_set of |U| = |V| = 256 (65,536
+# pairs); 8 mr_from_set of |U| = 64 to 4,096 targets; 8 witnesses on
+# pairs of distinct MR; s_reach_k on 128 pairs at s = their MR, k = 1..4;
+# s_distance on 64 pairs at s = 2 (mr_set, mr_from_set and s_reach_k
+# halved from 16, 16 and 256 since the MoE and VLM train rank cells
+# came, for the script's time; top_s and s_distance feed the service's
+# mixed traffic, WORKLOAD_TRAFFIC, whole)
 TOP_S_SOURCES, TOP_S_K = 64, 10
-MR_SET_CALLS, MR_SET_SIZE = 16, 256
-FROM_SET_CALLS, FROM_SET_SOURCES, FROM_SET_TARGETS = 16, 64, 4096
+MR_SET_CALLS, MR_SET_SIZE = 8, 256
+FROM_SET_CALLS, FROM_SET_SOURCES, FROM_SET_TARGETS = 8, 64, 4096
 WITNESS_PAIRS = 8
-S_REACH_K_PAIRS, S_REACH_K_MAX = 256, 4
+S_REACH_K_PAIRS, S_REACH_K_MAX = 128, 4
 S_DISTANCE_PAIRS, S_DISTANCE_S = 64, 2
 # the service's mixed traffic (kinds -> requests; mr_set sets of 64)
 WORKLOAD_TRAFFIC = {"mr": 4096, "s_reach": 4096, "top_s": 64, "mr_set": 64,
@@ -378,18 +393,27 @@ DRYRUN_M = 65_536
 DRYRUN_RUN_M = 16_384
 DRYRUN_S = 32
 DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_core"
-# lm_serve_path: the serving launcher at a published LM config
-LM_ARCH = "qwen3-1.7b"                 # full published config
+# lm_serve_path: the serving launcher at published LM widths
+LM_ARCH = "qwen3-1.7b"                 # published widths, depth cut
 LM_MOE_ARCH = "qwen2-moe-a2.7b"        # published widths, depth cut
 LM_MOE_LAYERS = 2
-# the other families at their full published configs
+# the other families at their published widths
 LM_FAMILY_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b",
                    "whisper-large-v3")
-# lm_train_path: run_training at the full published config of LM_ARCH,
+# lm_serve_path's depth a model (decoder and encoder alike), cut from
+# the published depths (28, 64, 26, 32 + 32) for the script's time since
+# the MoE and VLM train rank cells came: qwen3-1.7b, falcon-mamba-7b,
+# recurrentgemma-2b (one (rec, rec, attn) group and the two-rec tail)
+# and whisper-large-v3
+LM_SERVE_LAYERS = {"qwen3-1.7b": 4, "falcon-mamba-7b": 8,
+                   "recurrentgemma-2b": 5, "whisper-large-v3": 4}
+# lm_train_path: run_training at LM_ARCH's widths on LM_TRAIN_RUN_LAYERS
+# of its 28 layers (all 28 until the MoE and VLM train rank cells came),
 # then the restart check at its widths on LM_RESTART_LAYERS layers
 # (10 steps since the train rank cells came, 12 before: the check's first
 # and last five losses stay apart)
 LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 10, 8, 256
+LM_TRAIN_RUN_LAYERS = 4
 LM_RESTART_LAYERS, LM_RESTART_STEPS, LM_RESTART_AT = 2, 10, 5
 RESTART_TOL = dict(rtol=1e-5, atol=1e-6)  # tests/test_train_infra.py:122
 # 8 greedy tokens since PR 30 (16 before; a cut for the script's time)
@@ -401,9 +425,15 @@ LM_DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_lm"
 # (cell, its seq_len, mesh); the prefill cut from 32,768 to
 # LM_PREFILL_SEQ tokens for the script's time (4,096 until the train rank
 # cells came): the cell LM_RANK_CELLS runs on ranks, whose one-process
-# bf16 run this is
+# bf16 run this is; train_4k cut from 4,096 to LM_PREFILL_SEQ tokens
+# since the MoE and VLM train rank cells came
 LM_PREFILL_SEQ = 2_048
-LM_DRYRUN_RUNS = (("train_4k", 4_096, (64, 1)),
+# LM_ARCH's widths on LM_DRYRUN_LAYERS of its 28 layers in these three
+# cells and in the dense rank cells (all 28 until the MoE and VLM train
+# rank cells came; cut for the script's time)
+LM_DRYRUN_LAYERS = 4
+LM_DRYRUN_DEPTH = {"n_layers": LM_DRYRUN_LAYERS}
+LM_DRYRUN_RUNS = (("train_4k", LM_PREFILL_SEQ, (64, 1)),
                   ("prefill_32k", LM_PREFILL_SEQ, (32, 1)),
                   ("decode_32k", 32_768, (128, 1)))
 LM_DRYRUN_CELLS = {"ok": 64, "skipped": 16}
@@ -471,17 +501,48 @@ LM_CUT_ZERO1 = (f"n_layers: 28 cut to {LM_TRAIN_LAYERS}",
 # root-mean-square
 TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)
 TRAIN_MOMENT_RMS = 1e-4
+# the float32 MoE train cells' one-process step takes the ranks' experts
+# (rank 0's top-k of each MoE layer call, recorded in the cell's run,
+# replayed in place of its own: RoutingTape): the ranks' float32 sums part
+# from one process's by rounding, which can flip a near-tied top-k choice
+# of a token, and one flipped token moves a step's moments far past
+# TRAIN_MOMENT_RMS; the tokens one process would have routed otherwise
+# are counted and reported (routing_flips).  Each expert layout has its
+# own such step, and the cells' bf16 runs are held against it
+ROUTED_TRAIN_LABELS = ("moe ffn train", "moe expert-parallel train")
+# the MoE and VLM families' training step on ranks: LM_MOE_ARCH's
+# widths FFN-split and in LM_CUT_EP's expert-parallel layout, and
+# LM_VLM_ARCH's, each on LM_TRAIN_LAYERS layers, the cell mesh (1, 4),
+# LM_RANK_TRAIN_BATCH rows at LM_PREFILL_SEQ tokens, one row a
+# microbatch (their published 16 and 8 microbatches do not split 4
+# rows), in float32 compute (held to the one-process float32 step, which
+# the two expert layouts share) and the published bf16
+LM_RANK_FAMILY_TRAIN = {"n_layers": LM_TRAIN_LAYERS,
+                        "microbatch": LM_RANK_TRAIN_BATCH}
+LM_RANK_EP_TRAIN = dict(LM_RANK_FAMILY_TRAIN, expert_sharding="model+data")
+LM_CUT_FAMILY_TRAIN = (
+    "mesh: train_4k's (64, 4) device share, 4 rows, on (1, 4): no data "
+    "axis to reduce the gradient over",
+    f"seq_len: 4,096 cut to {LM_PREFILL_SEQ:,}")
+LM_CUT_MOE_TRAIN = (
+    f"n_layers: 24 cut to {LM_TRAIN_LAYERS}",
+    f"microbatch: 16 cut to {LM_RANK_TRAIN_BATCH}") + LM_CUT_FAMILY_TRAIN
+LM_CUT_VLM_TRAIN = (
+    f"n_layers: 32 cut to {LM_TRAIN_LAYERS}",
+    f"microbatch: 8 cut to {LM_RANK_TRAIN_BATCH}") + LM_CUT_FAMILY_TRAIN
 LM_RANK_MOE = {"n_layers": LM_MOE_LAYERS}
 LM_RANK_EP = dict(LM_RANK_MOE, expert_sharding="model+data")
 LM_CUT_SEQ = f"seq_len: 32,768 cut to {LM_PREFILL_SEQ:,}"
+LM_CUT_DENSE = f"n_layers: 28 cut to {LM_DRYRUN_LAYERS}"
 LM_CUT_MOE = f"n_layers: 24 cut to {LM_MOE_LAYERS}"
 LM_CUT_EP = ("expert_sharding: arctic-480b's 'model+data' on "
              "qwen2-moe-a2.7b's widths (arctic's experts, 53.5 GB a layer "
              "in float32, do not fit beside the one-process reference)")
 LM_RANK_CELLS = (
-    ("dense", LM_ARCH, {}, "decode_32k", 32_768, (128, 4), ()),
-    ("dense", LM_ARCH, {}, "prefill_32k", LM_PREFILL_SEQ, (32, 4),
-     (LM_CUT_SEQ,)),
+    ("dense", LM_ARCH, LM_DRYRUN_DEPTH, "decode_32k", 32_768, (128, 4),
+     (LM_CUT_DENSE,)),
+    ("dense", LM_ARCH, LM_DRYRUN_DEPTH, "prefill_32k", LM_PREFILL_SEQ,
+     (32, 4), (LM_CUT_DENSE, LM_CUT_SEQ)),
     ("moe ffn", LM_MOE_ARCH, LM_RANK_MOE, "decode_32k", 32_768, (128, 4),
      (LM_CUT_MOE,)),
     ("moe ffn", LM_MOE_ARCH, LM_RANK_MOE, "prefill_32k", LM_PREFILL_SEQ,
@@ -522,7 +583,22 @@ LM_RANK_CELLS = (
                                         compute_dtype="float32"),
      "train_4k", LM_PREFILL_SEQ, (2, 2), LM_CUT_ZERO1),
     ("dense train zero1", LM_ARCH, LM_RANK_TRAIN, "train_4k",
-     LM_PREFILL_SEQ, (2, 2), LM_CUT_ZERO1))
+     LM_PREFILL_SEQ, (2, 2), LM_CUT_ZERO1),
+    ("moe ffn train", LM_MOE_ARCH, dict(LM_RANK_FAMILY_TRAIN,
+                                        compute_dtype="float32"),
+     "train_4k", LM_PREFILL_SEQ, (1, 4), LM_CUT_MOE_TRAIN),
+    ("moe ffn train", LM_MOE_ARCH, LM_RANK_FAMILY_TRAIN, "train_4k",
+     LM_PREFILL_SEQ, (1, 4), LM_CUT_MOE_TRAIN),
+    ("moe expert-parallel train", LM_MOE_ARCH,
+     dict(LM_RANK_EP_TRAIN, compute_dtype="float32"), "train_4k",
+     LM_PREFILL_SEQ, (1, 4), LM_CUT_MOE_TRAIN + (LM_CUT_EP,)),
+    ("moe expert-parallel train", LM_MOE_ARCH, LM_RANK_EP_TRAIN, "train_4k",
+     LM_PREFILL_SEQ, (1, 4), LM_CUT_MOE_TRAIN + (LM_CUT_EP,)),
+    ("vlm train", LM_VLM_ARCH, dict(LM_RANK_FAMILY_TRAIN,
+                                    compute_dtype="float32"),
+     "train_4k", LM_PREFILL_SEQ, (1, 4), LM_CUT_VLM_TRAIN),
+    ("vlm train", LM_VLM_ARCH, LM_RANK_FAMILY_TRAIN, "train_4k",
+     LM_PREFILL_SEQ, (1, 4), LM_CUT_VLM_TRAIN))
 LM_RANK_TIMEOUT_S = 600
 DECODE_TOL = dict(rtol=2e-2, atol=2e-2)   # the reference's _DECODE_TOL
 # bf16 serving: the root-mean-square departure of the decode logits (bf16
@@ -5911,10 +5987,10 @@ def lm_serve_run(lserve, cfg, reduced, device):
 def phase_lm_serve_path(counters, device):
     """LM serving through ``repro_torch.launch.serve`` (``build`` +
     ``serve``: prefill through the cache, greedy decode) on the card:
-    ``qwen3-1.7b`` at its full published config, ``qwen2-moe-a2.7b`` at
-    its published widths with 2 of its 24 layers (``moe_apply``, 60
-    experts, top-4), then ``falcon-mamba-7b``, ``recurrentgemma-2b`` and
-    ``whisper-large-v3`` at their full published configs (Whisper's
+    ``qwen3-1.7b``, ``qwen2-moe-a2.7b`` (``moe_apply``, 60 experts,
+    top-4), ``falcon-mamba-7b``, ``recurrentgemma-2b`` and
+    ``whisper-large-v3`` at their published widths, each on the depth
+    ``LM_SERVE_LAYERS`` (``LM_MOE_LAYERS``) gives it (Whisper's
     seeded frames encoded into the cross K/V by ``prefill_cross`` in the
     prefill).  At prompt 16 + 8 tokens the hybrid's 2,048 window never
     wraps here; the CPU tests cover the wrap.  Each run serves in the
@@ -5929,13 +6005,19 @@ def phase_lm_serve_path(counters, device):
     from repro_torch.launch import serve as lserve
     clock = Phase()
     reset_counts(counters)
-    runs = [lm_serve_run(lserve, get_config(LM_ARCH), [], device)]
+    def cut(arch):
+        cfg, layers = get_config(arch), LM_SERVE_LAYERS[arch]
+        names = ("n_layers", "enc_layers") if cfg.enc_layers else (
+            "n_layers",)
+        return (dataclasses.replace(cfg, **dict.fromkeys(names, layers)),
+                [f"{', '.join(names)}: {cfg.n_layers} cut to {layers}"])
+    runs = [lm_serve_run(lserve, *cut(LM_ARCH), device)]
     moe = dataclasses.replace(get_config(LM_MOE_ARCH),
                               n_layers=LM_MOE_LAYERS)
     runs.append(lm_serve_run(lserve, moe, [
         f"n_layers: 24 cut to {LM_MOE_LAYERS}"], device))
     for arch in LM_FAMILY_ARCHS:
-        runs.append(lm_serve_run(lserve, get_config(arch), [], device))
+        runs.append(lm_serve_run(lserve, *cut(arch), device))
     launches = read_counts(counters)
     if any(launches.values()):
         raise AssertionError(f"lm_serve_path launched kernels {launches}")
@@ -6013,10 +6095,12 @@ def lm_restart_check(cfg, device):
     to ``LM_RESTART_AT`` that checkpoints there, then on to
     ``LM_RESTART_STEPS`` by the same step function; a model drawn from
     another seed is resumed by a supervisor from that checkpoint
-    (``resume_or_init``) and run on over the same stream.  Its parameters
-    are held to the uninterrupted run's at ``RESTART_TOL``.  Checkpoints
-    (at the break and the resumed run's end) go to a temporary
-    directory, removed after."""
+    (``resume_or_init``) and run on over the same stream by the same
+    step function (no checkpoint at its end since the MoE and VLM train
+    rank cells came: a second 8.7 GB write, for the script's time).  Its
+    parameters are held to the uninterrupted run's at ``RESTART_TOL``.
+    The checkpoint at the break goes to a temporary directory, removed
+    after."""
     from repro_torch.models import build_model
     from repro_torch.train import (AdamConfig, SupervisorConfig,
                                    SyntheticStream, TrainSupervisor,
@@ -6073,8 +6157,11 @@ def lm_restart_check(cfg, device):
         if start != LM_RESTART_AT:
             raise AssertionError(f"lm_train_path restart: resumed from "
                                  f"step {start}")
-        _, p_res, _, log_res = sup.run(params, opt, start_step=start)
-        saves += sup.save_s
+        log_res = []
+        for _ in range(LM_RESTART_STEPS - start):
+            params, opt, m = sup.train_step(params, opt, next(data))
+            log_res.append({"loss": float(m["loss"])})
+        p_res = params
         worst, excess = 0.0, -math.inf
         for k, want in full.items():
             diff = (p_res[k].detach() - want).abs()
@@ -6108,9 +6195,10 @@ def lm_restart_check(cfg, device):
 
 def phase_lm_train_path(counters, device):
     """LM training through ``repro_torch.launch.train.run_training`` on
-    the card: ``qwen3-1.7b`` at its full published config (float32
-    master weights and AdamW moments, bf16 compute, the config's
-    microbatches and block remat), then the restart check at its widths
+    the card: ``qwen3-1.7b`` at its published widths on
+    ``LM_TRAIN_RUN_LAYERS`` of its 28 layers (float32 master weights and
+    AdamW moments, bf16 compute, the config's microbatches and block
+    remat), then the restart check at its widths
     on ``LM_RESTART_LAYERS`` layers.  No kernel of the port is on this
     path: the counts stay 0."""
     import dataclasses
@@ -6118,16 +6206,17 @@ def phase_lm_train_path(counters, device):
     from repro_torch.launch import train as ltrain
     clock = Phase()
     reset_counts(counters)
-    cfg = get_config(LM_ARCH)
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=LM_TRAIN_RUN_LAYERS)
     run = lm_train_run(ltrain, cfg, device)
+    run["reduced"] = [f"n_layers: 28 cut to {LM_TRAIN_RUN_LAYERS}"]
     print(f"lm_train {run['arch']}: {run['median_step_s']:.3f} s a step "
           f"({run['tokens_per_s']:.0f} tok/s), loss {run['loss_first5']:.3f}"
           f" -> {run['loss_last5']:.3f}, peak {run['peak_bytes']} B",
           flush=True)
     small = dataclasses.replace(cfg, n_layers=LM_RESTART_LAYERS)
     restart = lm_restart_check(small, device)
-    restart["reduced"] = [f"n_layers: {cfg.n_layers} cut to "
-                          f"{LM_RESTART_LAYERS}"]
+    restart["reduced"] = [f"n_layers: 28 cut to {LM_RESTART_LAYERS}"]
     launches = read_counts(counters)
     if any(launches.values()):
         raise AssertionError(f"lm_train_path launched kernels {launches}")
@@ -6211,6 +6300,67 @@ def lm_rank_grid(mesh_shape):
     return RANK_WORLD // mesh_shape[-1], mesh_shape[-1]
 
 
+class RoutingTape:
+    """Each MoE layer's experts a token (``[t, top_k]`` int64), in call
+    order, from the router's top-k in a run's ``moe_apply`` calls under
+    autograd (a training step's forward and remat recompute): recorded
+    (the same softmax and top-k of the same router logits as
+    ``moe_apply`` takes, so the same choice), or, given ``replay``, fed
+    to another run's calls in place of their own top-k (the gates read
+    from that run's probabilities at those experts), counting in
+    ``flips`` the tokens whose own top-k differs."""
+
+    def __init__(self, replay=None):
+        self.calls = [] if replay is None else list(replay)
+        self.replay = replay is not None
+        self.at = 0
+        self.flips = 0
+
+    @contextlib.contextmanager
+    def on(self, layers):
+        moe_apply, topk = layers.moe_apply, torch.topk
+
+        def forced(probs, k, dim=-1):
+            # the call's one top-k, the router's; later calls are torch's
+            torch.topk = topk
+            want = torch.as_tensor(self.calls[self.at], device=probs.device)
+            self.at += 1
+            own = topk(probs, k, dim=dim).indices
+            self.flips += int((own.sort(dim=-1).values
+                               != want.sort(dim=-1).values).any(-1).sum())
+            return probs.gather(dim, want), want
+
+        def routed(p, cfg, x):
+            if not torch.is_grad_enabled():
+                return moe_apply(p, cfg, x)
+            if not self.replay:
+                with torch.no_grad():
+                    probs = torch.softmax(layers.dense_apply(
+                        p.router, x.reshape(-1, x.shape[-1]).float()),
+                        dim=-1)
+                    self.calls.append(topk(probs, cfg.top_k, dim=-1)
+                                      .indices.cpu().numpy())
+                return moe_apply(p, cfg, x)
+            torch.topk = forced
+            try:
+                return moe_apply(p, cfg, x)
+            finally:
+                torch.topk = topk
+        layers.moe_apply = routed
+        try:
+            yield self
+        finally:
+            layers.moe_apply = moe_apply
+
+
+def routed_key(key, over):
+    """The one-process float32 step a ``ROUTED_TRAIN_LABELS`` cell is held
+    to: ``key``'s run (``lm_reference_key``) routed as its expert
+    layout's float32 ranks."""
+    return key[:4] + ("float32",) + key[5:] + (
+        "routed", over.get("expert_sharding", ""))
+
+
 def lm_rank_worker(rank, world, work, spec):
     """One rank of ``lm_dryrun_path``'s rank cells (a spawned process):
     each cell's ``lm_rank_grid`` ``ProcessMesh`` on the shared card (made
@@ -6219,11 +6369,14 @@ def lm_rank_worker(rank, world, work, spec):
     rank's blocks drawn from the one-process model's generator, its rows
     and cache slots; a warm-up and ``LM_DRYRUN_RUN_REPS`` timed passes).
     Writes ``rank<r>.json`` (the records, by the cell's place in
-    ``LM_RANK_CELLS``) and each cell's gathered logits into ``work``."""
+    ``LM_RANK_CELLS``) and each cell's gathered logits into ``work``; rank
+    0 also each float32 ``ROUTED_TRAIN_LABELS`` cell's routing
+    (``RoutingTape``, ``routes-<i>.npz``)."""
     import datetime
     import torch.distributed as tdist
     from repro_torch import api
     from repro_torch.launch import dryrun
+    from repro_torch.models import layers
 
     device = torch.device(spec["device"])
     torch.set_num_threads(2)
@@ -6243,21 +6396,27 @@ def lm_rank_worker(rank, world, work, spec):
                 meshes[grid] = api.make_process_mesh(
                     grid, ("data", "model"),
                     device=None if device.type == "cuda" else device)
-        for i, (_, arch, over, name, seq, mesh_shape, _) in enumerate(
+        for i, (label, arch, over, name, seq, mesh_shape, _) in enumerate(
                 LM_RANK_CELLS):
             pm = meshes[lm_rank_grid(mesh_shape)]
             gc.collect()
             if device.type == "cuda":
                 torch.cuda.empty_cache()
             logits, sample = [], []
+            routed = (label in ROUTED_TRAIN_LABELS
+                      and over.get("compute_dtype") == "float32")
+            tape = RoutingTape()
             t0 = time.perf_counter()
-            rec = dryrun.lower_cell(
-                arch, lm_rank_cell(name, seq, mesh_shape),
-                mesh_shape=mesh_shape,
-                overrides=over or None, device=device, run=True,
-                run_reps=LM_DRYRUN_RUN_REPS, ranks=pm, logits=logits,
-                sample=sample)
+            with tape.on(layers) if routed else contextlib.nullcontext():
+                rec = dryrun.lower_cell(
+                    arch, lm_rank_cell(name, seq, mesh_shape),
+                    mesh_shape=mesh_shape,
+                    overrides=over or None, device=device, run=True,
+                    run_reps=LM_DRYRUN_RUN_REPS, ranks=pm, logits=logits,
+                    sample=sample)
             rec["cell_s"] = time.perf_counter() - t0
+            if routed and rank == 0:
+                np.savez(os.path.join(work, f"routes-{i}.npz"), *tape.calls)
             if sample:
                 save_sample(os.path.join(work, f"sample-{i}-{rank}.npz"),
                             sample[0])
@@ -6405,10 +6564,12 @@ def lm_rank_cells(dryrun, device, one):
     ``train_cell_checks`` instead: its float32 run to the one-process
     float32 step (loss, gradient norm, sampled parameters and first
     moments), its bf16 run by the same departure gate over the sampled
-    parameters.  Also held: the gathered logits
-    byte-equal on every rank, each rank's peak under ``2 / (d x k)`` of
-    the one-process run's in the cell's compute dtype (bf16 but for the
-    float32 train cell; ``d`` x ``k`` the ranks' grid: the
+    parameters; a ``ROUTED_TRAIN_LABELS`` cell's one-process float32 step
+    runs after the ranks, on their routing (``RoutingTape``).  Also held:
+    the gathered logits byte-equal on every rank, each rank's peak under
+    ``2 / (d x k)`` of the one-process run's in the cell's compute
+    dtype (bf16 but for the float32 train cell; ``d`` x ``k`` the ranks'
+    grid: the
     one-process run covers the ranks' ``d`` data rows, and ``k`` is the
     cell's model axis), each rank's counted collectives
     equal to the closed
@@ -6416,25 +6577,31 @@ def lm_rank_cells(dryrun, device, one):
     all-to-all's bytes over the model line), the run's checks (every
     all-reduced tensor and every MoE routing equal along the line among
     them).  Returns one summary a cell."""
+    from repro_torch.models import layers
     clock = Phase()
     refs = dict(one)
-    for _, arch, over, name, seq, mesh_shape, _ in LM_RANK_CELLS:
+
+    def one_process(key, arch, cell, data, tape=None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        logits, sample = [], []
+        with tape.on(layers) if tape else contextlib.nullcontext():
+            rec = dryrun.lower_cell(
+                arch, cell, mesh_shape=(data, 1),
+                overrides=dict(key[1], compute_dtype=key[4]), device=device,
+                run=True, run_reps=LM_DRYRUN_RUN_REPS, logits=logits,
+                sample=sample)
+        refs[key] = (rec, sample[0] if sample else logits[0])
+
+    for label, arch, over, name, seq, mesh_shape, _ in LM_RANK_CELLS:
         # one process runs every data row the ranks' data axis covers
         cell, data, rows = lm_one_process(name, seq, mesh_shape)
         for dtype in ("float32", "bfloat16"):
             key = lm_reference_key(arch, over, name, seq, dtype, rows)
-            if key in refs:
-                continue
-            gc.collect()
-            torch.cuda.empty_cache()
-            logits, sample = [], []
-            rec = dryrun.lower_cell(
-                arch, cell, mesh_shape=(data, 1),
-                overrides=dict(key[1], compute_dtype=dtype), device=device,
-                run=True, run_reps=LM_DRYRUN_RUN_REPS, logits=logits,
-                sample=sample)
-            refs[key] = (rec, sample[0] if sample else logits[0])
-            del rec, logits, sample
+            # a routed cell's float32 step comes after the ranks
+            if key not in refs and not (
+                    label in ROUTED_TRAIN_LABELS and dtype == "float32"):
+                one_process(key, arch, cell, data)
     one_process_s = clock.seconds()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6443,6 +6610,22 @@ def lm_rank_cells(dryrun, device, one):
         spec = {"device": device.type, "timeout": LM_RANK_TIMEOUT_S}
         reports, ranks_s = timed_s(lambda: run_ranks(work, spec,
                                                      lm_rank_worker))
+        flips = {}
+        for i, (label, arch, over, name, seq, mesh_shape, _) in enumerate(
+                LM_RANK_CELLS):
+            if label in ROUTED_TRAIN_LABELS and \
+                    over.get("compute_dtype") == "float32":
+                cell, data, rows = lm_one_process(name, seq, mesh_shape)
+                with np.load(os.path.join(work, f"routes-{i}.npz")) as f:
+                    tape = RoutingTape(replay=[f[k] for k in f.files])
+                one_process(routed_key(lm_reference_key(
+                    arch, over, name, seq, "float32", rows), over), arch,
+                    cell, data, tape)
+                if tape.at != len(tape.calls):
+                    raise AssertionError(f"{label}: {tape.at} of "
+                                         f"{len(tape.calls)} routings "
+                                         f"replayed")
+                flips[over.get("expert_sharding", "")] = tape.flips
         gathered = [[load_sample(os.path.join(work, f"sample-{i}-{r}.npz"))
                      if cell[3].startswith("train") else
                      torch.from_numpy(np.load(os.path.join(
@@ -6464,6 +6647,9 @@ def lm_rank_cells(dryrun, device, one):
         got = gathered[i]
         rows = lm_one_process(name, seq, mesh_shape)[2]
         f32, bf16 = (refs[lm_reference_key(arch, over, name, seq, d, rows)]
+                     if d == "bfloat16" or label not in ROUTED_TRAIN_LABELS
+                     else refs[routed_key(lm_reference_key(
+                         arch, over, name, seq, d, rows), over)]
                      for d in ("float32", "bfloat16"))
         dtype = over.get("compute_dtype", "bfloat16")
         if name.startswith("train"):
@@ -6524,6 +6710,8 @@ def lm_rank_cells(dryrun, device, one):
             "rms_departure": {"ranks_bf16": ranks_dep, "one_bf16": one_dep},
             "departure_ratio": ratio, "cell_s": [r["cell_s"] for r in recs],
             "run_checks": rec["run_checks"], **held}
+        if label in ROUTED_TRAIN_LABELS:
+            row["routing_flips"] = flips[over.get("expert_sharding", "")]
         print(f"{tag} over {RANK_WORLD} ranks {grid}: batch "
               f"{rec['run_batch']}, run_s per rank "
               f"{[round(r['run_s'], 4) for r in rec['run_ranks']]} (slowest "
@@ -6543,7 +6731,10 @@ def lm_rank_cells(dryrun, device, one):
                  f"{held['grad_norm']} (one process "
                  f"{held['grad_norm_one_process']}), first moments' rms "
                  f"departure {held['moment_rms_departure']}"
-                 if held else ""), flush=True)
+                 if held else "")
+              + (f"; one process routed as the float32 ranks (its own "
+                 f"top-k differs on {row['routing_flips']} token routings)"
+                 if "routing_flips" in row else ""), flush=True)
         out.append(row)
     return {"cells": out, "one_process_s": one_process_s,
             "ranks_s": ranks_s, "seconds": clock.seconds()}
@@ -6554,8 +6745,9 @@ def phase_lm_dryrun_path(counters, device):
     every (arch x shape) cell on the 16 x 16 and 2 x 16 x 16 meshes into
     ``build/dryrun_lm`` (80 records: 64 ``ok``, 16 ``skipped``), priced by
     ``benchmarks/roofline.roofline_table`` at H100 rates for both meshes;
-    then one card's share of three ``qwen3-1.7b`` cells at its full
-    published config, on data-parallel meshes (``LM_DRYRUN_RUNS``), each
+    then one card's share of three ``qwen3-1.7b`` cells at its widths
+    on ``LM_DRYRUN_LAYERS`` of its 28 layers, on data-parallel meshes
+    (``LM_DRYRUN_RUNS``), each
     through the port's own step with ``run=True``: its time beside its
     bound, its flops, its peak memory and its checks (outputs finite,
     every parameter changed, the logits' shape, the cache written at
@@ -6568,8 +6760,10 @@ def phase_lm_dryrun_path(counters, device):
     ``falcon-mamba-7b``, ``recurrentgemma-2b`` (on (2, 2) ranks) and
     ``whisper-large-v3`` (each cut to size as its ``LM_RANK_CELLS`` entry
     says), and ``qwen3-1.7b``'s training step on (1, 4) ranks and on
-    (2, 2) ranks with ZeRO-1 over ``data``, in float32 and bf16.  No
-    kernel of the port is on this path: the counts stay 0."""
+    (2, 2) ranks with ZeRO-1 over ``data``, and ``qwen2-moe-a2.7b``'s
+    (FFN-split and expert-parallel) and ``llava-next-mistral-7b``'s on
+    (1, 4) ranks, in float32 and bf16.  No kernel of the port is on this
+    path: the counts stay 0."""
     from repro_torch.benchmarks import roofline
     from repro_torch.launch import dryrun
     clock = Phase()
@@ -6602,16 +6796,19 @@ def phase_lm_dryrun_path(counters, device):
         t0 = time.perf_counter()
         logits = []
         rec = dryrun.lower_cell(LM_ARCH, lm_cell(shape, seq),
-                                mesh_shape=mesh_shape, device=device,
+                                mesh_shape=mesh_shape,
+                                overrides=LM_DRYRUN_DEPTH, device=device,
                                 run=True, run_reps=LM_DRYRUN_RUN_REPS,
                                 logits=logits)
         rec["seq_len"] = seq
+        rec["reduced"] = [f"n_layers: 28 cut to {LM_DRYRUN_LAYERS}"]
         # a rank cell's one-process bf16 run, where this is it
         if (shape, seq, mesh_shape[0]) in {
                 (n, q, m[0]) for _, a, o, n, q, m, _ in LM_RANK_CELLS
-                if a == LM_ARCH and not o}:
-            one[lm_reference_key(LM_ARCH, {}, shape, seq, "bfloat16",
-                                 rec["run_batch"])] = (rec, logits[0])
+                if a == LM_ARCH and o == LM_DRYRUN_DEPTH}:
+            one[lm_reference_key(LM_ARCH, LM_DRYRUN_DEPTH, shape, seq,
+                                 "bfloat16", rec["run_batch"])] = (
+                rec, logits[0])
         rec["cell_s"] = time.perf_counter() - t0
         if rec["status"] != "ok" or rec.get("run_s") is None:
             raise AssertionError(f"lm_dryrun_path {shape}: {rec}")

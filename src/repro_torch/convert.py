@@ -190,8 +190,10 @@ def lm_rank_state_dict_from_params(params: Mapping, specs: Mapping,
     """One rank's ``state_dict`` from the reference's parameter pytree:
     each leaf of ``lm_layers_from_params`` cut to the rank's block under
     ``specs`` (the model's ``param_specs()``) on the ``ProcessMesh``
-    ``mesh``, as float32 tensors on the CPU; the ``state_dict`` of a model
-    built with ``ranks=mesh`` takes it."""
+    ``mesh``, as float32 tensors on the CPU (every family's leaves: a
+    MoE's experts FFN-split or whole a rank, its replicated router,
+    LLaVA's column- and row-split projector); the ``state_dict`` of a
+    model built with ``ranks=mesh`` takes it."""
     from .distributed_lm.sharding import leaf_block, leaf_spec
     return {k: torch.from_numpy(np.array(                       # a copy
         leaf_block(v, leaf_spec(specs, k), mesh), dtype=np.float32))

@@ -330,7 +330,7 @@ def no_backward(t: Optional[torch.Tensor], what: str) -> None:
     a backward silently."""
     if t is not None and torch.is_grad_enabled() and t.requires_grad:
         raise NotImplementedError(
-            f"{what} has no backward on ranks (ROADMAP.md, A10d-5b-3); "
+            f"{what} has no backward on ranks (ROADMAP.md, A10d-5b-3b); "
             f"call it outside autograd")
 
 

@@ -76,7 +76,10 @@ same step's arguments from the ``ShapeDtype`` records of
     reference's XLA moves columns to halve a contiguous block;
   - FFN-split MoE (``w_down`` split over ``model`` on its hidden
     dimension): the gated sum of every expert's partial output, one
-    all-reduce of ``[t, d]`` a pass (``models/layers._experts_on_ranks``);
+    all-reduce of ``[t, d]`` in each forward pass and the remat
+    recompute (``models/layers._experts_on_ranks``); training's backward
+    sums the tokens' and the gates' partial gradients where they enter,
+    one float32 panel ``[t, d + top_k]`` and its status word;
   - expert-parallel MoE (experts split over ``model``; ``k`` the axis):
     each rank sends its ``ceil(t / k)`` tokens' ``top_k`` rows to their
     experts' ranks and gets them back, an all-to-all each way whose
@@ -86,7 +89,14 @@ same step's arguments from the ``ShapeDtype`` records of
     ``k`` times this term summed over each ``model`` line, and its calls
     and every other term rank by rank: ``closed_form_mismatch``), then
     one all-gather of the gated slices ``[k x ceil(t / k), d]``, in each
-    pass;
+    forward pass and the remat recompute; training's backward runs both
+    all-to-alls in reverse (the same bytes) and all-gathers the
+    gradients of the rank's token rows and their gates, one float32
+    panel ``[k x ceil(t / k), d + top_k]``;
+  - a MoE layer's load-balancing loss in a training step whose batch is
+    split: the expert density of the whole microbatch, one float32
+    all-reduce of ``[n_experts]`` over the batch axes in each forward
+    pass and the remat recompute (any ``model`` axis);
   - the input embedding: an all-reduce of ``[t, d]`` in the compute
     dtype where the vocab is split (one rank holds each token's row: the
     sum is exact), an all-gather where ``d_model`` is (Whisper);
@@ -127,7 +137,9 @@ same step's arguments from the ``ShapeDtype`` records of
     the row-split ``wo``'s all-reduce (``prefill_cross`` on ranks
     all-gathers each layer's new cross K/V; no cell runs it);
   - LLaVA's projector: its row-split ``fc2`` all-reduces ``[p, d]`` over
-    the ``p`` patches, forward and (training) backward;
+    the ``p`` patches, once a forward (outside the remat blocks; its
+    backward passes the gradient through, and ``fc1`` reads constant
+    patch embeddings, whose gradient no step needs);
   - a training step over a split ``model``, once a step, float32: one
     all-reduce of the gradients of the replicated leaves a rank applies
     to its own heads (``models.layers.partial_grad``: the qk norms), if
@@ -180,8 +192,9 @@ together from seed 1), with the collectives of the closed form above
 over ``model`` (``core/collectives.py``; ``models/layers.py`` under
 ``sharding_mesh``).  Its logits stay vocab-split; the whole logits are
 gathered after the timed passes (Whisper's come out whole: its head
-sums them over ``model``).  A training cell on ranks (a ``dense``
-model, the ranks' ``data`` axis the cell's batch blocks: ``_run_rule``)
+sums them over ``model``).  A training cell on ranks (a ``dense``,
+``moe`` or ``vlm`` transformer, the ranks' ``data`` axis the cell's
+batch blocks: ``_run_rule``)
 runs the rank's step (``train.train_step``) on a model that holds the
 whole grid: its blocks of the parameters, its ZeRO-1 shards of the Adam
 moments where ``data`` is over 1 (``train.optimizer.zero1_layout``),
@@ -516,14 +529,20 @@ def _body_terms(recs, cfg, tokens: int, act: int, passes: int,
                 t_kv = cross_tokens if "cross_attn" in path else tokens
                 _gathered(out, t_kv * 2 * rec.shape[-1], act, passes, k)
         elif path[-1] == "w_down":
-            d = rec.shape[-1]
+            d, top = rec.shape[-1], cfg.top_k
+            fwd = max(passes - 1, 1)
             if "model" in _axes(spec[-3]):          # experts over model
-                out.add("all-to-all", tokens * cfg.top_k * d * act // k,
-                        count=2, times=passes)
-                out.add("all-gather", k * -(-tokens // k) * d * act,
-                        times=passes)
+                rows, a2a = k * -(-tokens // k), tokens * top * d * act // k
+                out.add("all-to-all", a2a, count=2, times=fwd)
+                out.add("all-gather", rows * d * act, times=fwd)
+                if passes > 1:       # the reverse exchanges, the rows' entry
+                    out.add("all-to-all", a2a, count=2)
+                    out.add("all-gather", rows * (d + top) * _PARTIAL)
             elif "model" in _axes(spec[-2]):        # FFN-split experts
-                out.add("all-reduce", tokens * d * _PARTIAL, times=passes)
+                out.add("all-reduce", tokens * d * _PARTIAL, times=fwd)
+                if passes > 1:        # tokens and gates entering, and status
+                    out.add("all-reduce",
+                            (tokens * (d + top) + 1) * _PARTIAL)
     return out
 
 
@@ -609,10 +628,16 @@ def collective_closed_form(cfg, shape: ShapeCell, mesh,
                 head.add("all-reduce", min(chunk, t_dec - t0) * v * _PARTIAL)
         if "vision_proj" in recs:
             w = recs["vision_proj"]["fc2"]["w"]
-            head.add("all-reduce", b * npatch * w.shape[-1] * _PARTIAL,
-                     times=2 if kind == "train" else 1)
+            head.add("all-reduce", b * npatch * w.shape[-1] * _PARTIAL)
         flat.merge(head)
         executed.merge(head, nm)
+    if kind == "train" and cfg.family == "moe" and nb > 1:
+        # each MoE layer's expert density over the batch axes
+        density = _Tally()
+        density.add("all-reduce", cfg.n_experts * 4,
+                    times=max(passes - 1, 1))
+        flat.merge(density)
+        executed.merge(density, cfg.n_layers * nm)
     if kind == "train":
         grads = _Tally()
         state = args["opt_specs"]
@@ -672,8 +697,10 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
     In one process: a ``model`` axis of 1 (a ``pod`` axis only splits the
     batch).  On ranks (a ``ProcessMesh`` over ``data`` and ``model``):
     the ranks' ``model`` axis equal to the cell's, their ``data`` axis
-    within the cell's batch blocks, a training cell only for a ``dense``
-    model with float32 moments, on a mesh without a ``pod`` axis, on
+    within the cell's batch blocks, a training cell only for a
+    transformer (``dense``, ``moe``, ``vlm``; the Mamba, hybrid and
+    Whisper backwards are A10d-5b-3b) with float32 moments, on a mesh
+    without a ``pod`` axis, on
     ranks whose ``data`` axis is the cell's batch blocks (ZeRO-1's shards
     and the gradient's reduction span the whole ``data`` axis) and whose
     every microbatch splits over it, and where ``model`` is split, a
@@ -690,7 +717,7 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
     heads, ``d_ff``, ``d_model`` and a decode's cache length.  Not on
     ranks: a long-context decode, capacity dispatch (``moe_capacity``)
     and ``"model+data"`` experts where the ranks' ``data`` axis is over
-    1."""
+    1 (whether or not ``model`` is split)."""
     model = mesh.shape.get("model", 1)
     if ranks is None:
         if model != 1:
@@ -709,10 +736,10 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
     if shape.kind == "train":
         rows = _batch_rows(mesh, shape)
         nm = max(cfg.microbatch, 1)
-        if cfg.family != "dense":
+        if cfg.family in ("ssm", "hybrid", "encdec"):
             return (f"training a {cfg.family!r} model on ranks (the "
-                    f"backwards of its gathers, all-to-alls and scans) is not "
-                    f"ported (ROADMAP.md, A10d-5b-3)")
+                    f"backwards of its gathers and split scans) is not "
+                    f"ported (ROADMAP.md, A10d-5b-3b)")
         if "pod" in mesh.axis_names:
             return ("training on a mesh with a pod axis: the gradient's "
                     "all-reduce over pod is not run on ranks")
@@ -724,7 +751,17 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
             return (f"a microbatch of {shape.global_batch} / {nm} rows does "
                     f"not split over the data axis of {rows}")
         if cfg.opt_8bit:
-            return "8-bit Adam moments on ranks are not ported"
+            return ("8-bit Adam moments on ranks are not ported "
+                    "(ROADMAP.md, A10d-5b-3c)")
+    if cfg.family == "moe" and (model > 1 or ranks.shape["data"] > 1):
+        if cfg.moe_capacity:
+            return ("capacity dispatch (moe_capacity) on ranks: its arrival "
+                    "order runs over every token, not ported")
+        if cfg.expert_sharding == "model+data" and ranks.shape["data"] > 1:
+            return (f"expert_sharding 'model+data' with the ranks' data "
+                    f"axis {ranks.shape['data']} > 1: the expert weights "
+                    f"would split over the axis that also splits the "
+                    f"tokens, not ported")
     if model == 1:
         return None
     if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
@@ -757,14 +794,6 @@ def _run_rule(mesh, cfg, shape: ShapeCell, ranks=None) -> Optional[str]:
         if cfg.family == "vlm":
             sizes.append(("d_model", cfg.d_model))
     if cfg.family == "moe":
-        if cfg.moe_capacity:
-            return ("capacity dispatch (moe_capacity) on ranks: its arrival "
-                    "order runs over every token, not ported")
-        if cfg.expert_sharding == "model+data" and ranks.shape["data"] > 1:
-            return (f"expert_sharding 'model+data' with the ranks' data "
-                    f"axis {ranks.shape['data']} > 1: the expert weights "
-                    f"would split over the axis that also splits the "
-                    f"tokens, not ported")
         if cfg.expert_sharding.startswith("model"):
             sizes.append(("n_experts", cfg.n_experts))
         else:

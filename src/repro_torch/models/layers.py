@@ -66,17 +66,28 @@ reference's ``constrain`` has nothing to constrain here; ``gqa_repeat``
 keeps its numerics (K/V broadcast to every head) and ``act_shard`` is
 inert.
 
-A training backward on ranks (a ``dense`` model; ``train.train_step``)
-takes its collectives from autograd ``Function``s that keep their mesh
-in ``ctx``, since the card's autograd engine runs them on its own
-thread: the row-split sums and the embedding's pass the gradient
-through (``_SumOver``); each column-split group's input goes through
-``enter_split``, whose backward sums the ranks' partial input gradients
-over ``model`` in float32 with a status word beside them; the
-vocab-split loss is ``cross_entropy_vocab_split``; ``remat`` re-enters
-the ranks' mesh for the recompute.  The gathers, the all-to-all and a
-sequence-split decode have no backward yet and refuse autograd
-(``collectives.no_backward``).
+A training backward on ranks (a ``dense``, ``moe`` or ``vlm``
+transformer; ``train.train_step``) takes its collectives from autograd
+``Function``s that keep their mesh in ``ctx``, since the card's
+autograd engine runs them on its own thread: the row-split sums and the
+embedding's pass the gradient through (``_SumOver``); each column-split
+group's input goes through ``enter_split``, whose backward sums the
+ranks' partial input gradients over ``model`` in float32 with a status
+word beside them (the FFN-split experts' tokens and gates as one panel,
+``enter_split_panel``: the router's gradient, from the gates and the
+load-balancing loss, is whole on every rank already); the vocab-split
+loss is ``cross_entropy_vocab_split``; ``remat`` re-enters the ranks'
+mesh for the recompute.  The expert-parallel exchange is three
+``Function``s: ``_EnterRows`` cuts the rank's token rows and gates and
+all-gathers their gradients; ``_ExpertExchange`` runs the dispatch, the
+expert rows and the return, and in the backward the reverse exchanges
+around the rows' vector-Jacobian product (``_expert_rows_vjp``), which
+a failing rank still joins; ``_GatherRows`` all-gathers the gated rows
+and hands each rank its own rows' gradient back.  With the batch split
+over ``data`` a training step's load-balancing loss reads the whole
+microbatch's expert density (one all-reduce over ``data``).  The raw
+gathers, the all-to-all and a sequence-split decode have no backward
+and refuse autograd (``collectives.no_backward``; A10d-5b-3b).
 """
 from __future__ import annotations
 
@@ -108,6 +119,7 @@ __all__ = [
     "current_mesh", "draw", "sum_partials", "enter_split", "Fused",
     "embed_vocab_split", "gather_kv", "gathers_kv",
     "cross_entropy_vocab_split", "partial_grad", "HEAD_NORMS",
+    "enter_split_panel",
 ]
 
 
@@ -249,29 +261,34 @@ def _rank_part(g: torch.Tensor) -> torch.Tensor:
 
 
 class _EnterSplit(torch.autograd.Function):
-    """Forward: the identity.  Backward: the sum over ``axis`` of the
-    ranks' partial gradients, in float32 and rounded once to the
-    gradient's dtype, with a status word beside it
-    (``collectives.all_reduce_sum_checked``): a rank whose share fails
-    still joins, and every rank raises.  The mesh rides in ``ctx``: the
-    backward may run on another thread (the autograd engine's device
-    thread), where no ``sharding_mesh`` is set."""
+    """Forward: the identity on each of ``xs``.  Backward: the sum over
+    ``axis`` of the ranks' partial gradients of them all, as one float32
+    panel rounded once to each gradient's dtype, with a status word
+    beside it (``collectives.all_reduce_sum_checked``): a rank whose
+    share fails still joins, and every rank raises.  The mesh rides in
+    ``ctx``: the backward may run on another thread (the autograd
+    engine's device thread), where no ``sharding_mesh`` is set."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis):
+    def forward(ctx, mesh, axis, *xs):
         ctx.mesh, ctx.axis = mesh, axis
-        return x.view_as(x)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         part, error = None, None
         try:
-            part = _rank_part(g)
+            part = torch.cat([_rank_part(g).reshape(-1) for g in gs])
         except Exception as exc:             # every rank must hear of it
             error = exc
-        return (coll.all_reduce_sum_checked(
-            part, g.shape, ctx.mesh, ctx.axis, "the backward", error)
-            .to(g.dtype), None, None)
+        total = coll.all_reduce_sum_checked(
+            part, (sum(g.numel() for g in gs),), ctx.mesh, ctx.axis,
+            "the backward", error)
+        outs, at = [], 0
+        for g in gs:
+            outs.append(total[at:at + g.numel()].view(g.shape).to(g.dtype))
+            at += g.numel()
+        return (None, None, *outs)
 
 
 def sum_partials(y: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -289,10 +306,17 @@ def enter_split(x: torch.Tensor, mesh, axis: str = "model"
     backward the ranks' partial input gradients are summed over ``axis``
     (``_EnterSplit``), once for the group.  ``x`` itself outside
     autograd or where ``mesh`` does not split ``axis``."""
+    return enter_split_panel((x,), mesh, axis)[0]
+
+
+def enter_split_panel(xs, mesh, axis: str = "model") -> Tuple:
+    """``enter_split`` of several inputs of one split group at once (the
+    FFN-split experts' tokens and gates): their partial gradients cross
+    as one float32 panel with one status word."""
     if mesh is None or mesh.shape.get(axis, 1) == 1 \
             or not torch.is_grad_enabled():
-        return x
-    return _EnterSplit.apply(x, mesh, axis)
+        return tuple(xs)
+    return _EnterSplit.apply(mesh, axis, *xs)
 
 
 def embed_vocab_split(embed: torch.Tensor, tokens: torch.Tensor,
@@ -950,10 +974,17 @@ def moe_apply(p: MoE, cfg: ArchConfig, x: torch.Tensor
     # aux load-balancing loss (Switch-style)
     density = (onehot.sum(1) > 0).float().mean(0)               # [E]
     density_proxy = probs.mean(0)
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape.get("data", 1) > 1 \
+            and torch.is_grad_enabled():
+        # a training step's batch split over data: the density of the
+        # whole microbatch (it has no gradient); the proxy stays the
+        # rank's, whose mean over data (the step's) is the whole one's
+        density = coll.all_reduce_sum(density, mesh, "data") \
+            / mesh.shape["data"]
     aux = (density * density_proxy).sum() * (cfg.n_experts ** 2) \
         * cfg.router_aux_weight / cfg.top_k
 
-    mesh = current_mesh()
     if mesh is not None and mesh.shape.get("model", 1) > 1:
         mesh.tally.route(idx, gate_vals)
         out = _experts_on_ranks(p, cfg, xt, idx, gate_vals, onehot, mesh)
@@ -1015,8 +1046,11 @@ def _experts_on_ranks(p: MoE, cfg: ArchConfig, xt: torch.Tensor,
         raise NotImplementedError("capacity dispatch on ranks (arrival "
                                   "order over every token) is not ported")
     if (held_e, held_f) == (e, f // k) and f % k == 0:
-        # the gated sum over the rank's f / k hidden units only
-        part = _dense_dispatch(p, xt, gate_vals, onehot)
+        # the gated sum over the rank's f / k hidden units only; a
+        # backward sums the tokens' and the gates' partial gradients
+        # where they enter (the router's is whole on every rank already)
+        xs, gates = enter_split_panel((xt, gate_vals), mesh)
+        part = _dense_dispatch(p, xs, gates, onehot)
         return sum_partials(part, mesh, "model")
     if (held_e, held_f) == (e // k, f) and e % k == 0:
         return _expert_parallel(p, cfg, xt, idx, gate_vals, mesh)
@@ -1041,6 +1075,119 @@ def _expert_rows(p: MoE, rows: torch.Tensor, experts: torch.Tensor
     return out
 
 
+def _expert_rows_vjp(p: MoE, rows: torch.Tensor, experts: torch.Tensor,
+                     g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The vector-Jacobian product of ``_expert_rows`` at ``rows`` with
+    ``g``: the gradients of the rows and of the rank's ``w_gate`` /
+    ``w_up`` / ``w_down`` (float32), the rows' SwiGLU recomputed under
+    autograd.  Experts that received no row take zeros."""
+    weights = (p.w_gate, p.w_up, p.w_down)
+    with torch.enable_grad():
+        x = rows.detach().requires_grad_()
+        out = _expert_rows(p, x, experts)
+        grads = ((None,) * 4 if not out.requires_grad else
+                 torch.autograd.grad(out, (x,) + weights, g,
+                                     allow_unused=True))
+    return tuple(torch.zeros_like(t) if d is None else d
+                 for t, d in zip((x,) + weights, grads))
+
+
+class _EnterRows(torch.autograd.Function):
+    """Forward: the rows ``[lo, hi)`` of the tokens ``xt`` and of their
+    gates (copies).  Backward: each rank holds the gradient of its own
+    rows only; the line's rows cross as one float32 panel ``[c, d +
+    top_k]`` a rank (padded to ``c`` rows), all-gathered over ``axis``
+    into the whole ``[t, ...]`` gradients of both."""
+
+    @staticmethod
+    def forward(ctx, xt, gates, mesh, axis, lo, hi, c):
+        ctx.mesh, ctx.axis, ctx.span, ctx.c = mesh, axis, (lo, hi), c
+        ctx.t = xt.shape[0]
+        return xt[lo:hi].clone(), gates[lo:hi].clone()
+
+    @staticmethod
+    def backward(ctx, gx, gg):
+        lo, hi = ctx.span
+        d = gx.shape[1]
+        panel = torch.zeros((ctx.c, d + gg.shape[1]), dtype=torch.float32,
+                            device=gx.device)
+        panel[:hi - lo] = torch.cat([gx.float(), gg.float()], dim=1)
+        whole = coll.all_gather_panel(panel, ctx.mesh, ctx.axis,
+                                      dim=0)[:ctx.t]
+        return (whole[:, :d].to(gx.dtype), whole[:, d:].to(gg.dtype),
+                None, None, None, None, None)
+
+
+class _ExpertExchange(torch.autograd.Function):
+    """Forward: the (token, slot) ``rows`` out to their experts' ranks
+    (``collectives.all_to_all_over``), the rows received through the
+    rank's experts (``_expert_rows``), and the results back, in the
+    order the rows left.  A rank whose expert step fails still joins the
+    return exchange, and every rank raises.  Backward: the reverse
+    exchanges, send and receive counts swapped: the returned rows'
+    gradients out to the experts' ranks, the expert rows' vector-Jacobian
+    product (``_expert_rows_vjp``; the rank's expert weights take their
+    gradients), the rows' gradients back; a rank whose product fails
+    still joins the last exchange, and every rank raises.  The mesh, the
+    counts and the module ride in ``ctx``; ``w_gate`` / ``w_up`` /
+    ``w_down`` are the module's, passed so that autograd routes their
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, rows, w_gate, w_up, w_down, p, mesh, axis, send,
+                recv, experts):
+        got = coll.all_to_all_over(rows, mesh, axis, send, recv,
+                                   what="the expert dispatch")
+        error, done = None, None
+        try:
+            done = _expert_rows(p, got, experts)
+        except Exception as exc:        # every rank must hear of it
+            error = exc
+        back = coll.all_to_all_over(done, mesh, axis, recv, send,
+                                    error=error, what="the expert step")
+        ctx.save_for_backward(got, experts)
+        ctx.p, ctx.mesh, ctx.axis, ctx.counts = p, mesh, axis, (send, recv)
+        return back
+
+    @staticmethod
+    def backward(ctx, g):
+        got, experts = ctx.saved_tensors
+        send, recv = ctx.counts
+        g_done = coll.all_to_all_over(g.contiguous(), ctx.mesh, ctx.axis,
+                                      send, recv,
+                                      what="the expert backward's dispatch")
+        error, grads = None, (None,) * 4
+        try:
+            grads = _expert_rows_vjp(ctx.p, got, experts, g_done)
+        except Exception as exc:        # every rank must hear of it
+            error = exc
+        g_rows = coll.all_to_all_over(grads[0], ctx.mesh, ctx.axis, recv,
+                                      send, error=error,
+                                      what="the expert backward")
+        return (g_rows, *grads[1:]) + (None,) * 6
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward: each rank's ``[hi - lo, d]`` rows, padded to ``c``,
+    all-gathered over ``axis`` into the whole ``[t, d]``.  Backward: the
+    rank's own rows of the incoming gradient, with no exchange: the
+    output feeds the residual stream, whose gradient is whole on every
+    rank (``_SumOver``)."""
+
+    @staticmethod
+    def forward(ctx, mine, mesh, axis, lo, c, t):
+        ctx.span = (lo, lo + mine.shape[0])
+        pad = torch.zeros((c, mine.shape[1]), dtype=mine.dtype,
+                          device=mine.device)
+        pad[:mine.shape[0]] = mine
+        return coll.all_gather_panel(pad, mesh, axis, dim=0)[:t]
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi = ctx.span
+        return g[lo:hi], None, None, None, None, None
+
+
 def _expert_parallel(p: MoE, cfg: ArchConfig, xt: torch.Tensor,
                      idx: torch.Tensor, gate_vals: torch.Tensor,
                      mesh) -> torch.Tensor:
@@ -1051,9 +1198,12 @@ def _expert_parallel(p: MoE, cfg: ArchConfig, xt: torch.Tensor,
     rank derives what it receives from the routing the line shares.
     The rows it receives run through its experts (``_expert_rows``); a
     rank whose expert step fails still joins the return exchange, so
-    every rank raises.  The returned rows are gated and summed a token,
-    and the slices all-gathered over ``model`` (padded to ``ceil(t /
-    k)`` rows a rank) back to the replicated ``[t, d]``."""
+    every rank raises (``_ExpertExchange``).  The returned rows are
+    gated and summed a token, and the slices all-gathered over ``model``
+    (padded to ``ceil(t / k)`` rows a rank) back to the replicated
+    ``[t, d]`` (``_GatherRows``).  A backward gathers the rank's rows'
+    token and gate gradients over ``model`` where they were cut
+    (``_EnterRows``) and runs the exchanges in reverse."""
     t, d = xt.shape
     k, r = mesh.shape["model"], mesh.axis_index("model")
     top = cfg.top_k
@@ -1064,7 +1214,6 @@ def _expert_parallel(p: MoE, cfg: ArchConfig, xt: torch.Tensor,
     dest = owner[lo:hi].reshape(-1)                         # token-major
     order = torch.argsort(dest, stable=True)
     send_counts = torch.bincount(dest, minlength=k).tolist()
-    rows = xt[lo:hi].repeat_interleave(top, dim=0)[order]
     # what each coordinate j sends this rank: its slice's rows bound here
     recv_counts, experts = [], []
     for j in range(k):
@@ -1072,23 +1221,14 @@ def _expert_parallel(p: MoE, cfg: ArchConfig, xt: torch.Tensor,
         bound = mine[mine // local == r] - r * local
         recv_counts.append(int(bound.numel()))
         experts.append(bound)
-    got = coll.all_to_all_over(rows, mesh, "model", send_counts,
-                               recv_counts, what="the expert dispatch")
-    error, done = None, None
-    try:
-        done = _expert_rows(p, got, torch.cat(experts))
-    except Exception as exc:            # every rank must hear of it
-        error = exc
-    back = coll.all_to_all_over(done, mesh, "model", recv_counts,
-                                send_counts, error=error,
-                                what="the expert step")
-    ys = torch.empty_like(back)
-    ys[order] = back                                        # token-major
-    ys = ys.reshape(hi - lo, top, d)
-    mine = torch.einsum("tkd,tk->td", ys, gate_vals[lo:hi].to(xt.dtype))
-    pad = torch.zeros((c, d), dtype=xt.dtype, device=xt.device)
-    pad[:hi - lo] = mine
-    return coll.all_gather_panel(pad, mesh, "model", dim=0)[:t]
+    xs, gates = _EnterRows.apply(xt, gate_vals, mesh, "model", lo, hi, c)
+    rows = xs.repeat_interleave(top, dim=0)[order]
+    back = _ExpertExchange.apply(rows, p.w_gate, p.w_up, p.w_down, p, mesh,
+                                 "model", send_counts, recv_counts,
+                                 torch.cat(experts))
+    ys = back[torch.argsort(order)].reshape(hi - lo, top, d)  # token-major
+    mine = torch.einsum("tkd,tk->td", ys, gates.to(xt.dtype))
+    return _GatherRows.apply(mine, mesh, "model", lo, c, t)
 
 
 # ---------------------------------------------------------------------------

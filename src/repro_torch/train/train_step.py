@@ -10,24 +10,29 @@ gradient goes to ``adam_update``.  The model holds the parameters, so
 place.
 
 A model built with ``ranks`` (a ``ProcessMesh`` whose ``model`` axis
-splits it; a ``dense`` transformer, float32 moments) runs the rank's
-step: what one device of a tensor-parallel mesh runs.  Its parameters,
+splits it; a transformer of the ``dense``, ``moe`` or ``vlm`` family,
+float32 moments) runs the rank's step: what one device of a
+tensor-parallel mesh runs.  Its parameters,
 gradients and moments are the rank's blocks.  The backward's collectives
 sit in the layers (``models.layers``: the entry of each column-split
 group sums its input gradient over ``model``, the row-split denses' and
 the embedding's sums pass the gradient through, the vocab-split loss is
-local).  The replicated leaves applied to the rank's own heads
+local; FFN-split experts sum their tokens' and gates' gradients where
+they enter, expert-parallel ones run the all-to-alls in reverse and
+gather the gradients of the rank's token rows).  The replicated leaves applied to the rank's own heads
 (``layers.partial_grad``: the qk norms) hold a partial gradient, summed
 over ``model`` in float32 once a step (one all-reduce of them all),
 and the global norm is taken over the ``model`` line
 (``optimizer.global_norm``).
 
-On ranks whose ``data`` axis is over 1 (a ``dense`` model built with
-the whole ``(data, model)`` ``ProcessMesh``) each rank runs what one
+On ranks whose ``data`` axis is over 1 (a model built with the whole
+``(data, model)`` ``ProcessMesh``) each rank runs what one
 device of the data-parallel mesh runs.  Every rank is handed the whole
 global batch, and takes of each microbatch ``[i * per, (i + 1) * per)``
 its data coordinate's ``per / data`` rows (the reference's ``reshape``
-into microbatches, each batch-split over ``data``).  After the backward
+into microbatches, each batch-split over ``data``; a MoE layer's
+load-balancing loss reads the expert density of the whole microbatch,
+one float32 all-reduce over ``data`` a forward pass).  After the backward
 and the qk norms' sum, each leaf of the reference's tree (a stacked
 group's layers together: one collective a leaf, not a layer) is reduced
 over ``data`` in float32 and scaled to the global mean: reduce-scattered
@@ -84,13 +89,23 @@ def _rank_split(model, cfg: ArchConfig, opt_cfg: AdamConfig):
     ranks = getattr(model, "ranks", None)
     if ranks is None or math.prod(ranks.dims) == 1:
         return None
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid", "encdec"):
         raise NotImplementedError(
-            f"training a {cfg.family!r} model on ranks (its gathers', "
-            f"all-to-alls' and scans' backwards) is not ported (ROADMAP.md, "
-            f"A10d-5b-3)")
+            f"training a {cfg.family!r} model on ranks (its gathers' and "
+            f"split scans' backwards) is not ported (ROADMAP.md, "
+            f"A10d-5b-3b)")
     if opt_cfg.use_8bit:
-        raise NotImplementedError("8-bit moments on ranks are not ported")
+        raise NotImplementedError("8-bit moments on ranks are not ported "
+                                  "(ROADMAP.md, A10d-5b-3c)")
+    if cfg.family == "moe" and cfg.moe_capacity:
+        raise NotImplementedError("capacity dispatch (moe_capacity) on "
+                                  "ranks is not ported (ROADMAP.md, "
+                                  "A10d-5c-3)")
+    if cfg.family == "moe" and cfg.expert_sharding == "model+data" \
+            and ranks.shape.get("data", 1) > 1:
+        raise NotImplementedError(
+            "'model+data' experts with the ranks' data axis over 1 are not "
+            "ported (ROADMAP.md, A10d-5c-2)")
     return ranks
 
 

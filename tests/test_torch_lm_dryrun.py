@@ -332,6 +332,39 @@ def test_moe_collectives_equal_the_hand_count(arch, layout, kind):
     assert rec["collective_executed"] == executed
 
 
+@pytest.mark.parametrize("layout", ["ffn", "model"])
+def test_moe_train_terms_count_what_the_backward_runs(layout):
+    """A MoE train cell on (1, 4) (qwen2-moe's smoke model: ``k`` = 4, d
+    64, top 2, bf16, remat "full", t = 8 x 64 tokens), by hand: the
+    experts' forward terms in the forward and the remat recompute only;
+    the backward adds, FFN-split, the tokens' and gates' entry sum (one
+    float32 ``[t, d + 2]`` panel and its status word) and,
+    expert-parallel, the two reverse all-to-alls and the float32
+    all-gather of the rank rows' token and gate gradients ``[k x
+    ceil(t / k), d + 2]``."""
+    over = dict(_overrides("qwen2-moe-a2.7b"), expert_sharding=layout)
+    rec = dryrun.lower_cell("qwen2-moe-a2.7b", SMALL["train"],
+                            mesh_shape=(1, 4), overrides=over, device="cpu")
+    layers, d, a, f, k, top = 2, 64, 2, 4, 4, 2
+    t = 8 * 64
+    ar = 2 * t * d * f + (t * d + 1) * f      # a row-split dense's three
+    head = t * d * a + 3 * t * 4 + (t * d + 1) * f
+    body, n_ar = 2 * ar, 6                    # attention's wo, shared down
+    a2a = ag = n_a2a = n_ag = 0
+    if layout == "ffn":
+        body += 2 * t * d * f + (t * (d + top) + 1) * f
+        n_ar += 3
+    else:
+        rows = k * -(-t // k)
+        a2a, n_a2a = 3 * 2 * (t * top * d * a // k), 6
+        ag, n_ag = 2 * rows * d * a + rows * (d + top) * f, 3
+    executed = _tally(all_reduce=(layers * body + head + 4,
+                                  layers * n_ar + 5 + 1),
+                      all_gather=(layers * ag, layers * n_ag),
+                      all_to_all=(layers * a2a, layers * n_a2a))
+    assert rec["collective_executed"] == executed
+
+
 def test_collectives_vanish_without_a_split_axis():
     """One device in every axis: nothing to move."""
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
@@ -564,8 +597,8 @@ _SMOKE = get_smoke_config("qwen3-1.7b")
      "does not divide seq_len 62"),
     ((1, 4), (1, 4), get_smoke_config("falcon-mamba-7b"), "long",
      "a long-context decode"),
-    ((1, 4), (1, 4), get_smoke_config("qwen2-moe-a2.7b"), "train",
-     "training a 'moe' model on ranks"),
+    ((1, 4), (1, 4), get_smoke_config("recurrentgemma-2b"), "train",
+     "training a 'hybrid' model on ranks"),
     ((1, 4), (1, 4), get_smoke_config("falcon-mamba-7b"), "train",
      "training a 'ssm' model on ranks"),
     ((8, 4), (1, 4), dataclasses.replace(_SMOKE, n_kv_heads=4), "train",
@@ -592,15 +625,24 @@ def test_the_run_rule_says_why_a_cell_cannot_run_on_ranks(case):
 
 def test_training_on_ranks_names_the_item_that_ports_it():
     """A data axis over 1 runs (the gradient reduction and ZeRO-1 over
-    data, 5b-2, are ported); another family's training names the item
-    of its backwards (5b-3)."""
+    data, 5b-2, are ported), and so does the MoE and VLM families'
+    training (their backwards, 5b-3a); the Mamba, hybrid and Whisper
+    families' training names the item of theirs (5b-3b)."""
     mesh = dryrun.make_mesh((2, 2), ("data", "model"), device="cpu")
     assert dryrun._run_rule(mesh, _SMOKE, SMALL["train"],
                             _Ranks((2, 2))) is None
     line = dryrun.make_mesh((1, 4), ("data", "model"), device="cpu")
-    for arch in ("qwen2-moe-a2.7b", "falcon-mamba-7b",
-                 "llava-next-mistral-7b", "whisper-large-v3"):
-        assert "(ROADMAP.md, A10d-5b-3)" in dryrun._run_rule(
+    for arch, over in (("qwen2-moe-a2.7b", {}),
+                       ("qwen2-moe-a2.7b", {"expert_sharding": "model"}),
+                       ("llava-next-mistral-7b", {"n_kv_heads": 4})):
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        assert dryrun._run_rule(line, cfg, SMALL["train"],
+                                _Ranks((1, 4))) is None, (arch, over)
+    assert dryrun._run_rule(mesh, get_smoke_config("qwen2-moe-a2.7b"),
+                            SMALL["train"], _Ranks((2, 2))) is None
+    for arch in ("falcon-mamba-7b", "recurrentgemma-2b",
+                 "whisper-large-v3"):
+        assert "(ROADMAP.md, A10d-5b-3b)" in dryrun._run_rule(
             line, get_smoke_config(arch), SMALL["train"], _Ranks((1, 4)))
 
 
@@ -628,13 +670,15 @@ def test_the_run_rule_takes_a_dense_train_cell_on_a_2x2_grid():
      "a microbatch of 8 / 8 rows does not split over the data axis of 2"),
     ((2, 2), ("data", "model"), dataclasses.replace(_SMOKE, opt_8bit=True),
      "8-bit Adam moments on ranks"),
-    ((2, 2), ("data", "model"), get_smoke_config("qwen2-moe-a2.7b"),
-     "(ROADMAP.md, A10d-5b-3)")],
+    ((2, 2), ("data", "model"), get_smoke_config("falcon-mamba-7b"),
+     "(ROADMAP.md, A10d-5b-3b)")],
     ids=["pod", "microbatch", "8bit", "moe"])
 def test_the_run_rule_refuses_a_2x2_train_cell_it_cannot_split(case):
     """On a 2 x 2 grid a train cell still records why it cannot run: a
     ``pod`` axis, microbatches whose rows do not split over ``data``,
-    8-bit moments, a family whose backwards are not ported."""
+    8-bit moments, a family whose backwards are not ported (the ids
+    ``train-moe`` / ``moe`` of the two refusal tests hold such a family
+    since the MoE family trains on ranks)."""
     mesh_shape, axes, cfg, why = case
     mesh = dryrun.make_mesh(mesh_shape, axes, device="cpu")
     assert why in dryrun._run_rule(mesh, cfg, SMALL["train"],

@@ -1976,6 +1976,193 @@ def test_a_rank_that_fails_in_a_zero1_step_makes_every_rank_raise(worlds,
         assert planted in msg
 
 
+# ---------------------------------------------------------------------------
+# training the MoE and VLM families on ranks: u.FAMILY_TRAIN_CASES
+# ---------------------------------------------------------------------------
+
+_FAMILY_TRAIN = [case for case, _, _ in u.FAMILY_TRAIN_CASES]
+
+
+def _family_specs(case):
+    from repro_torch.models import build_model
+    return build_model(u.family_train_config(port_configs, case, "float32"),
+                       device="meta").param_specs()
+
+
+@pytest.mark.parametrize("dtype", u.LM_DTYPES)
+@pytest.mark.parametrize("case", _FAMILY_TRAIN)
+def test_a_family_train_step_equals_the_unsharded_reference(worlds, case,
+                                                            dtype):
+    """One microbatched step from zero moments on ranks against the
+    reference's unsharded ``make_train_step`` on the same weights and
+    batch: the loss, the gradient norm and the count on every rank, each
+    rank's blocks of the new parameters (the experts FFN-split or whole
+    a rank, the router, LLaVA's projector: the reference's tree cut by
+    ``convert.lm_rank_state_dict_from_params``) and of ``m`` and ``v``
+    (``lm_rank_adam_state_from_params``; on 2 x 2 the ZeRO-1 shards, the
+    stacked experts' moments split on their layer axis), at 1e-4 in
+    float32 and ``_BF16_TOL`` in bf16; on 2 x 2 the parameter blocks
+    byte-equal along each ``data`` line."""
+    from repro_torch.convert import (lm_rank_adam_state_from_params,
+                                     lm_rank_state_dict_from_params,
+                                     nest_layers)
+    ref, _ = worlds["reference"]
+    _, arch, grid, _ = u.family_train_case(case)
+    want_tag = u.family_train_tag(arch, dtype)
+    tag = f"lm_family_train/{case}/{dtype}"
+    specs = _family_specs(case)
+    tol = _LM_TOL[dtype]
+
+    def tree(name):
+        return nest_layers({k: ref[f"{want_tag}/{name}/{k}"]
+                            for k in _train_keys(ref, want_tag, name)})
+    ref_params = tree("params")
+    ref_state = {"m": tree("m"), "v": tree("v"),
+                 "count": ref[f"{want_tag}/count"]}
+    ranks = worlds["ranks"]
+    zero1 = grid[0] > 1
+    for rank, (arrays, scalars) in enumerate(ranks):
+        at = _At(grid, _coords(rank, grid))
+        assert int(arrays[f"{tag}/count"]) == int(ref_state["count"]) == 1
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(arrays[f"{tag}/{k}"],
+                                       ref[f"{want_tag}/{k}"],
+                                       err_msg=f"rank {rank} {k}", **tol)
+        want = lm_rank_state_dict_from_params(ref_params, specs, at)
+        assert sorted(want) == sorted(_train_keys(arrays, tag, "params"))
+        for k, w in want.items():
+            got = arrays[f"{tag}/params/{k}"]
+            np.testing.assert_allclose(got, w.numpy(),
+                                       err_msg=f"rank {rank} {k}", **tol)
+            if zero1:
+                partner = ranks[_data_partner(rank)][0]
+                assert np.array_equal(got, partner[f"{tag}/params/{k}"]), \
+                    (rank, k)
+        if not zero1:
+            state = lm_rank_adam_state_from_params(ref_state, specs, at)
+            for k in want:
+                for mom in ("m", "v"):
+                    np.testing.assert_allclose(
+                        arrays[f"{tag}/{mom}/{k}"], state[mom][k].numpy(),
+                        err_msg=f"rank {rank} {mom} {k}", **tol)
+            continue
+        blocks = scalars[f"{tag}/blocks"]
+        layer = _coords(rank, grid)[0]
+        assert {k.split(".")[1] for k in blocks if ".moe." in k} == \
+            {str(layer)}
+        for k, block in blocks.items():
+            for mom in ("m", "v"):
+                np.testing.assert_allclose(
+                    arrays[f"{tag}/{mom}/{k}"],
+                    _shard_of(ref[f"{want_tag}/{mom}/{k}"], block),
+                    err_msg=f"rank {rank} {mom} {k}", **tol)
+
+
+# one train cell's calls a rank, counted by hand on the 2-layer smoke
+# models with 2 microbatches: a MoE layer's all-reduces are its ``wo``,
+# its shared experts' ``down`` and (FFN-split) the experts' gated sum, each
+# in the forward and the remat recompute and once in the backward (where
+# the gradient enters); expert-parallel layers move the rows by two
+# all-to-alls a pass and all-gather the slices, both again in the
+# backward (the reverse exchanges; the tokens' and gates' entry); a
+# microbatch adds the embedding's sum, the loss's three statistics and
+# the head's input gradient (and LLaVA's projector); on 2 x 2 each MoE
+# layer's expert density crosses ``data`` in each forward pass; a step
+# adds the norm (and on 2 x 2 the loss over ``data`` and a reduce-scatter
+# and an all-gather for each of qwen2-moe's 16 leaves)
+_FAMILY_RUN_COUNTS = {
+    "moe-ffn-1x4": {"all-reduce": 2 * (9 * 2 + 5) + 1},
+    "moe-ep-1x4": {"all-reduce": 2 * (6 * 2 + 5) + 1,
+                   "all-gather": 2 * 3 * 2, "all-to-all": 2 * 6 * 2},
+    "vlm-1x4": {"all-reduce": 2 * (6 * 2 + 5 + 1) + 1},
+    "moe-ffn-2x2": {"all-reduce": 2 * (9 * 2 + 5 + 2 * 2) + 2,
+                    "reduce-scatter": 16, "all-gather": 16}}
+
+
+@pytest.mark.parametrize("case", _FAMILY_TRAIN)
+def test_a_family_train_run_counts_the_closed_forms_collectives(worlds,
+                                                                case):
+    """``lower_cell(..., run=True, ranks=pm)`` of each family case's train
+    cell: no ``run_reason``; every rank's tally of one timed step equals
+    the closed form's ``collective_executed`` (``closed_form_mismatch``:
+    calls and bytes rank by rank, the all-to-all's bytes over each
+    ``model`` line), and its calls the hand count; the run's checks (the
+    routings along each line for the MoE cases) on every rank."""
+    from repro_torch.launch import dryrun
+    _, _, grid, _ = u.family_train_case(case)
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        run = scalars[f"lm_family_train_run/{case}"]
+        assert run["run_reason"] is None
+        assert run["run_batch"] == u.LM_BATCH // grid[0]
+        want = run["collective_executed"]
+        assert dryrun.closed_form_mismatch(run["run_collective"], want,
+                                           grid) is None
+        assert want["counts"] == dict(dict.fromkeys(dryrun.COLLECTIVE_KINDS,
+                                                    0),
+                                      **_FAMILY_RUN_COUNTS[case])
+        checks = run["run_checks"]
+        assert checks[-1] == "collectives equal to the closed form's"
+        assert any(c.endswith("gradients non-zero before the update")
+                   for c in checks)
+        assert any("routings" in c for c in checks) == case.startswith("moe")
+        assert run["run_s"] is None
+
+
+class _Ranked:
+    """A stand-in for a model built with ``ranks`` on a (data, model)
+    grid: what ``make_train_step`` reads before it refuses."""
+
+    def __init__(self, grid):
+        self.ranks = _At(grid, (0, 0))
+        self.ranks.dims = tuple(grid)
+
+
+@pytest.mark.parametrize("arch,over,grid,why", [
+    ("qwen2-moe-a2.7b", {}, (1, 4), None),
+    ("qwen2-moe-a2.7b", {"expert_sharding": "model+data"}, (1, 4), None),
+    ("llava-next-mistral-7b", {}, (2, 2), None),
+    ("qwen2-moe-a2.7b", {"moe_capacity": True}, (1, 4), "A10d-5c-3"),
+    ("qwen2-moe-a2.7b", {"expert_sharding": "model+data"}, (2, 2),
+     "A10d-5c-2"),
+    ("arctic-480b", {}, (1, 4), "A10d-5b-3c"),
+    ("falcon-mamba-7b", {}, (1, 4), "A10d-5b-3b"),
+    ("recurrentgemma-2b", {}, (2, 2), "A10d-5b-3b"),
+    ("whisper-large-v3", {}, (1, 4), "A10d-5b-3b")],
+    ids=["moe-ffn", "moe-expert-parallel", "vlm", "capacity",
+         "model+data-on-data-2", "8bit", "ssm", "hybrid", "encdec"])
+def test_make_train_step_on_ranks_admits_moe_and_vlm_only(arch, over, grid,
+                                                          why):
+    """The rank step's refusals, before any collective: the MoE (both
+    expert layouts) and VLM families train on ranks; 8-bit moments
+    (arctic's config), capacity dispatch, ``"model+data"`` experts over
+    a ``data`` axis above 1 and the Mamba, hybrid and Whisper families
+    raise, each naming its ROADMAP item."""
+    import dataclasses
+    from repro_torch.train import train_step
+    from repro_torch.train.optimizer import AdamConfig
+    cfg = dataclasses.replace(port_configs.get_smoke_config(arch), **over)
+    model = _Ranked(grid)
+    opt = AdamConfig(use_8bit=cfg.opt_8bit)
+    if why is None:
+        assert train_step._rank_split(model, cfg, opt) is model.ranks
+        return
+    with pytest.raises(NotImplementedError, match=why):
+        train_step.make_train_step(model, cfg, opt)
+
+
+def test_a_rank_whose_expert_backward_fails_makes_every_rank_raise(worlds):
+    """Rank 1's expert rows' vector-Jacobian product fails in the
+    expert-parallel case's backward: it still joins the reverse
+    exchange with its error, and every rank raises naming it, none left
+    waiting in a collective until the group's timeout."""
+    for rank, (_, scalars) in enumerate(worlds["ranks"]):
+        kind, msg = scalars["lm_family_train_failure"]
+        assert kind == "RuntimeError", (rank, msg)
+        assert "the expert backward on ranks" in msg
+        assert f"rank {u.LM_FAILING_RANK} failed (RuntimeError: the " \
+            f"planted expert backward failure)" in msg
+
+
 @pytest.mark.parametrize("route", ["all_gather_panel", "all_to_all_over",
                                    "decode"])
 def test_a_collective_with_no_backward_refuses_autograd(route):
@@ -2002,7 +2189,7 @@ def test_a_collective_with_no_backward_refuses_autograd(route):
         def call():
             return layers._decode_on_ranks(attn, cfg, h, cache, cache.clone(),
                                            0, at)
-    with pytest.raises(NotImplementedError, match="A10d-5b-3"):
+    with pytest.raises(NotImplementedError, match="A10d-5b-3b"):
         call()
 
 

@@ -181,6 +181,26 @@ LM_TRAIN_REFERENCE_RANK = 3
 LM_ZERO1_KEY = "2x2"
 LM_ZERO1_CASES = (("float32", True), ("bfloat16", True), ("float32", False))
 LM_ZERO1_REFERENCE_RANK = 2
+# training the MoE and VLM transformers on ranks: (case, the LM_ALL case
+# whose weights and grid it takes, the replacements both packages take
+# beside LM_TRAIN_MICROBATCH microbatches): qwen2-moe's SMOKE config
+# FFN-split on 1 x 4, on the same weights in the "model+data"
+# expert-parallel layout (2 of its 8 experts a rank; the ranks' data axis
+# is 1), llava's (its KV heads widened to 4) on 1 x 4, and qwen2-moe
+# FFN-split with ZeRO-1 on 2 x 2 (one row a data coordinate a
+# microbatch); each one step from zero moments in both compute dtypes
+# against the reference's unsharded make_train_step on LM_BATCH rows of
+# LM_SEQ positions, whose runs the rank processes of
+# LM_FAMILY_REFERENCE_RANKS take (one a config: the expert layout and
+# the grid split nothing there); then lower_cell on a train cell of each
+# and one whose rank 1 fails in its expert backward
+FAMILY_TRAIN_CASES = [
+    ("moe-ffn-1x4", "qwen2-moe-1x4", {}),
+    ("moe-ep-1x4", "qwen2-moe-1x4", {"expert_sharding": "model+data"}),
+    ("vlm-1x4", "llava-1x4", {}),
+    ("moe-ffn-2x2", "qwen2-moe-2x2", {})]
+LM_FAMILY_REFERENCE_RANKS = {"qwen2-moe-a2.7b": 1,
+                             "llava-next-mistral-7b": 0}
 # reduce_scatter_sum on ranks: rank r's input of RS_SHAPE is
 # rs_input(r) (scattered over each axis of the 2 x 2 grid along each
 # dimension, in float32 and bf16)
@@ -483,6 +503,29 @@ def zero1_tag(dtype, zero1):
     return f"lm_zero1/{dtype}" + ("" if zero1 else "/whole")
 
 
+def family_train_case(case):
+    """``FAMILY_TRAIN_CASES``' (weights key, arch, grid, replacements) of
+    ``case``."""
+    key, over = {c: (k, o) for c, k, o in FAMILY_TRAIN_CASES}[case]
+    arch, grid, _ = lm_case(key)
+    return key, arch, grid, over
+
+
+def family_train_config(module, case, dtype):
+    """``module``'s (either package's ``configs``) config of the family
+    training case ``case`` in ``dtype`` compute."""
+    import dataclasses
+    key, _, _, over = family_train_case(case)
+    return dataclasses.replace(case_config(module, key, dtype),
+                               microbatch=LM_TRAIN_MICROBATCH, **over)
+
+
+def family_train_tag(arch, dtype):
+    """Where the reference's unsharded step of ``arch``'s family case
+    lies."""
+    return f"lm_family_train/{arch}/{dtype}"
+
+
 def rs_input(rank):
     """Rank ``rank``'s seeded float32 input of the reduce-scatter case
     (bf16-exact values, so both dtypes sum the same numbers)."""
@@ -492,11 +535,17 @@ def rs_input(rank):
 
 def lm_train_batch(cfg):
     """The training case's seeded ``{"tokens", "labels"}`` (int32
-    ``[LM_BATCH, LM_SEQ]``, labels the next tokens)."""
+    ``[LM_BATCH, LM_SEQ]``, labels the next tokens); for a VLM the last
+    ``LM_SEQ - num_patches`` positions, after ``patch_embeds`` ``[LM_BATCH,
+    num_patches, vision_dim]`` (float32), drawn last."""
     rng = np.random.default_rng(LM_TRAIN_SEED)
-    seq = rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ + 1)).astype(
-        np.int32)
-    return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    text = LM_SEQ - (cfg.num_patches if cfg.vision_dim else 0)
+    seq = rng.integers(0, cfg.vocab, (LM_BATCH, text + 1)).astype(np.int32)
+    out = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+    if cfg.vision_dim:
+        out["patch_embeds"] = rng.normal(size=(
+            LM_BATCH, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+    return out
 
 
 def moe_layer_input(cfg, t):
@@ -558,6 +607,8 @@ def run_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
         _lm_train_reference(reference)
     if rank == LM_ZERO1_REFERENCE_RANK:
         _lm_zero1_reference(reference)
+    _lm_family_train_reference(reference, [
+        arch for arch, r in LM_FAMILY_REFERENCE_RANKS.items() if r == rank])
     np.savez(os.path.join(out_dir, f"reference-lm{rank}.npz"), **reference)
 
 
@@ -716,6 +767,7 @@ def _rank_cases(rank: int, out_dir: str):
     _lm_rank_cases(mesh, rank, out_dir, arrays, scalars)
     _lm_train_rank_cases(mesh, rank, out_dir, arrays, scalars)
     _lm_zero1_rank_cases(mesh, rank, out_dir, arrays, scalars)
+    _lm_family_train_rank_cases(mesh, rank, out_dir, arrays, scalars)
 
     # -- the mesh's limits
     eng = api.build_engine(he, "sharded", mesh=pm, use_kernels=True)
@@ -1746,6 +1798,123 @@ def _lm_zero1_rank_cases(mesh, rank, out_dir, arrays, scalars):
         scalars["lm_zero1_backward_failure"] = _error(run)
     finally:
         layers._rank_part = part
+
+
+def _lm_family_train_rank_cases(mesh, rank, out_dir, arrays, scalars):
+    """The MoE and VLM families' training on ranks (``FAMILY_TRAIN_CASES``):
+    one step from zero moments in both compute dtypes, the reference's
+    weights carried across (each rank's blocks of the new parameters, its
+    blocks or ZeRO-1 shards of ``m`` and ``v`` with their blocks of the
+    whole leaf, the loss, the norm and the count); then ``lower_cell`` on
+    a train cell of each case, and one of the expert-parallel case whose
+    rank 1 fails in its expert backward."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.convert import lm_rank_state_dict_from_params, \
+        nest_layers
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.models import build_model
+    from repro_torch.models import layers
+    from repro_torch.train.optimizer import AdamConfig, adam_init, \
+        zero1_layout
+    from repro_torch.train.train_step import make_train_step, model_params
+
+    opt = AdamConfig(**LM_TRAIN_OPT)
+    for case, _, _ in FAMILY_TRAIN_CASES:
+        key, arch, grid, _ = family_train_case(case)
+        pm = mesh(grid)
+        params = nest_layers(dict(np.load(os.path.join(
+            out_dir, f"lm-params-{key}.npz"))))
+        for dtype in LM_DTYPES:
+            cfg = family_train_config(configs, case, dtype)
+            model = build_model(cfg, device="cpu", ranks=pm)
+            model.load_state_dict(lm_rank_state_dict_from_params(
+                params, model.param_specs(), pm))
+            mine = model_params(model)
+            layout = zero1_layout(model, opt, cfg.zero1)
+            batch = {k: torch.from_numpy(v)
+                     for k, v in lm_train_batch(cfg).items()}
+            got, state, metrics = make_train_step(model, cfg, opt)(
+                mine, adam_init(mine, opt, layout), batch)
+            tag = f"lm_family_train/{case}/{dtype}"
+            for k in ("loss", "grad_norm"):
+                arrays[f"{tag}/{k}"] = metrics[k].numpy()
+            arrays[f"{tag}/count"] = state["count"].numpy()
+            for k, p in got.items():
+                arrays[f"{tag}/params/{k}"] = p.detach().numpy()
+            for k in state["m"]:
+                for mom in ("m", "v"):
+                    arrays[f"{tag}/{mom}/{k}"] = state[mom][k].numpy()
+            if layout is not None:
+                scalars[f"{tag}/blocks"] = {
+                    k: [[s.start, s.stop] for s in layout.block(k, mine[k])]
+                    for k in state["m"]}
+
+    def run(case):
+        key, arch, grid, over = family_train_case(case)
+        return dryrun.lower_cell(
+            arch, ShapeCell("train_4k", LM_RUN_SEQ, LM_BATCH, "train"),
+            mesh_shape=grid,
+            overrides=dict(case_overrides(key), microbatch=LM_TRAIN_MICROBATCH,
+                           **over),
+            device="cpu", run=True, ranks=mesh(grid), run_reps=1)
+    for case, _, _ in FAMILY_TRAIN_CASES:
+        rec = run(case)
+        scalars[f"lm_family_train_run/{case}"] = {k: rec.get(k) for k in (
+            "run_reason", "run_batch", "run_checks", "run_collective",
+            "collective_executed", "collective", "run_s")}
+
+    # rank 1's expert backward fails: every rank raises
+    vjp = layers._expert_rows_vjp
+
+    def failing(*args):
+        raise RuntimeError("the planted expert backward failure")
+    if rank == LM_FAILING_RANK:
+        layers._expert_rows_vjp = failing
+    try:
+        scalars["lm_family_train_failure"] = _error(
+            lambda: run("moe-ep-1x4"))
+    finally:
+        layers._expert_rows_vjp = vjp
+
+
+def _lm_family_train_reference(arrays, archs):
+    """``_lm_family_train_rank_cases``' steps on the reference's unsharded
+    model of each of ``archs`` (its first case's config: the expert
+    layout and the grid change no value of an unsharded step): one
+    ``make_train_step`` from ``adam_init`` in both compute dtypes, every
+    leaf flat by ``convert.lm_layers_from_params``' keys."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as ref_configs
+    from repro.models import build_model
+    from repro.train import optimizer as ref_opt
+    from repro.train.train_step import make_train_step
+    from repro_torch.convert import lm_layers_from_params
+
+    def flat(tree):
+        return lm_layers_from_params(jax.tree.map(np.asarray, tree))
+    for arch in archs:
+        case = next(c for c, _, _ in FAMILY_TRAIN_CASES
+                    if family_train_case(c)[1] == arch)
+        for dtype in LM_DTYPES:
+            cfg = family_train_config(ref_configs, case, dtype)
+            model = build_model(cfg)
+            params = model.init(jax.random.PRNGKey(0))
+            batch = {k: jnp.asarray(v)
+                     for k, v in lm_train_batch(cfg).items()}
+            opt = ref_opt.AdamConfig(**LM_TRAIN_OPT)
+            new, state, metrics = jax.jit(make_train_step(model, cfg, opt))(
+                params, ref_opt.adam_init(params, opt), batch)
+            tag = family_train_tag(arch, dtype)
+            for k in ("loss", "grad_norm"):
+                arrays[f"{tag}/{k}"] = np.asarray(metrics[k])
+            arrays[f"{tag}/count"] = np.asarray(state["count"])
+            for name, tree in (("params", new), ("m", state["m"]),
+                               ("v", state["v"])):
+                for k, v in flat(tree).items():
+                    arrays[f"{tag}/{name}/{k}"] = v
 
 
 def _lm_zero1_reference(arrays):
